@@ -9,9 +9,12 @@ It re-exports that host layer, so a user of the port imports only
 ``crp_tpu_torch``.
 
 Ported so far: the single-device (p = 1) ``RowParaSpmm`` main path, with
-the uniform super-grouped windowed SpMM kernels written in CUDA for Hopper
-(``kernels/csrc/window_sg.cu``).  The engine is imported on first use, and
-the kernels build at their first call on a CUDA tensor.
+the windowed SpMM kernels written in CUDA for Hopper: the uniform
+super-grouped windows (``kernels/csrc/window_sg.cu``), the ragged
+gathered-window chunks for power-law and variable-bandwidth matrices
+(``kernels/csrc/ragged.cu``) and their fused spill
+(``kernels/csrc/spill.cu``).  The engine is imported on first use, and the
+kernels build at their first call on a CUDA tensor.
 """
 
 __version__ = "0.1.0"
@@ -20,7 +23,7 @@ from crp_tpu.config import SpmmConfig
 from crp_tpu.plan.partition1d import csr_row_partition
 from crp_tpu.sparse.csr import CSRMatrix
 from crp_tpu.sparse.mmio import read_mtx_csr
-from crp_tpu.sparse.synth import banded_random_csr, fill_b
+from crp_tpu.sparse.synth import banded_random_csr, fill_b, powerlaw_community_csr
 from crp_tpu.utils.norms import rel_fro_err
 
 
@@ -36,6 +39,7 @@ __all__ = [
     "CSRMatrix",
     "read_mtx_csr",
     "banded_random_csr",
+    "powerlaw_community_csr",
     "fill_b",
     "rel_fro_err",
     "csr_row_partition",

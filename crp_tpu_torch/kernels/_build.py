@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface: ``nvcc`` compiles them
-into one shared library at first use, cached under ``build/crp_tpu_torch/``
-at the repository root by a hash of the sources and flags, and ``ctypes``
-loads it.  Every entry point takes its pointers and the CUDA stream as
-``void*`` and returns ``cudaGetLastError()`` after its launch; the wrappers
-raise on anything but 0.  Nothing here runs at import: the CPU tests import
-every module, and only a call on a CUDA tensor builds.
+Each source under ``csrc/`` has a plain C interface: ``nvcc`` compiles it
+into a shared library of its own at first use, cached under
+``build/crp_tpu_torch/`` at the repository root by a hash of the sources,
+the shared headers and the flags, and ``ctypes`` loads it.  The sources
+build in parallel, one ``nvcc`` each, all started together.  Every entry
+point takes its pointers, its int64 scalars and the CUDA stream, and
+returns ``cudaGetLastError()`` after its launch; the wrappers raise on
+anything but 0.  Nothing here runs at import: the CPU tests import every
+module, and only a call on a CUDA tensor builds.
 """
 
 from __future__ import annotations
@@ -20,21 +22,27 @@ import shutil
 import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "window_sg.cu",)
+CSRC = _PKG / "csrc"
+SOURCES = tuple(CSRC / f"{stem}.cu" for stem in ("window_sg", "ragged", "spill"))
 BUILD_DIR = _PKG.parent.parent / "build" / "crp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# (name, number of pointer arguments); every entry then takes
-# (G, TM, W, n) as int64 and the stream
-_ENTRIES = (
-    ("crp_window_sg_presplit", 5),
-    ("crp_window_sg_bf16", 4),
-    ("crp_window_sg_f32", 4),
-    ("crp_window_sg_f64", 4),
-)
+# entry -> (source stem, number of pointer arguments, its int64 scalars);
+# every entry then takes the stream
+_ENTRIES = {
+    "crp_window_sg_presplit": ("window_sg", 5, ("G", "TM", "W", "n")),
+    "crp_window_sg_bf16": ("window_sg", 4, ("G", "TM", "W", "n")),
+    "crp_window_sg_f32": ("window_sg", 4, ("G", "TM", "W", "n")),
+    "crp_window_sg_f64": ("window_sg", 4, ("G", "TM", "W", "n")),
+    "crp_ragged_presplit": ("ragged", 6, ("G", "TM", "Wc", "n")),
+    "crp_ragged_bf16": ("ragged", 5, ("G", "TM", "Wc", "n")),
+    "crp_ragged_f32": ("ragged", 5, ("G", "TM", "Wc", "n")),
+    "crp_ragged_f64": ("ragged", 5, ("G", "TM", "Wc", "n")),
+    "crp_spill_blocks": ("spill", 7, ("nblk", "TMo", "Q", "n", "mode")),
+}
 
 
 def nvcc() -> str:
@@ -50,44 +58,68 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> pathlib.Path:
-    """Build the shared library if it is not cached yet; return its path."""
+def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    # the sources and the headers they share
+    for src in sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
-    so = BUILD_DIR / f"libcrp_window_sg_{h.hexdigest()[:16]}.so"
-    if so.exists():
-        return so
+    return h.hexdigest()[:16]
+
+
+def library_paths() -> dict:
+    """Build every library that is not cached yet, one ``nvcc`` per source
+    started together; return ``{stem: path}``."""
+    digest = _digest()
+    paths = {src.stem: BUILD_DIR / f"libcrp_{src.stem}_{digest}.so" for src in SOURCES}
+    todo = [src for src in SOURCES if not paths[src.stem].exists()]
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    return so
+    procs = []
+    for src in todo:
+        so = paths[src.stem]
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((cmd, tmp, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for cmd, tmp, so, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\nexit code {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call, once per process)."""
-    lib = ctypes.CDLL(str(library_path()))
-    for name, nptr in _ENTRIES:
-        fn = getattr(lib, name)
+def libraries() -> dict:
+    """The loaded kernel libraries, ``{stem: ctypes.CDLL}`` (built on first
+    call, once per process)."""
+    libs = {stem: ctypes.CDLL(str(p)) for stem, p in library_paths().items()}
+    for name, (stem, nptr, scalars) in _ENTRIES.items():
+        fn = getattr(libs[stem], name)
         fn.argtypes = (
-            [ctypes.c_void_p] * nptr + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * nptr + [ctypes.c_int64] * len(scalars)
+            + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-    lib.crp_error_string.argtypes = [ctypes.c_int]
-    lib.crp_error_string.restype = ctypes.c_char_p
-    return lib
+    for lib in libs.values():
+        lib.crp_error_string.argtypes = [ctypes.c_int]
+        lib.crp_error_string.restype = ctypes.c_char_p
+    return libs
+
+
+def entry(name: str):
+    """The ctypes function of entry point ``name``."""
+    return getattr(libraries()[_ENTRIES[name][0]], name)
 
 
 def check(rc: int, name: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
-        msg = library().crp_error_string(rc).decode()
+        msg = libraries()[_ENTRIES[name][0]].crp_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

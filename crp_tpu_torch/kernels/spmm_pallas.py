@@ -112,61 +112,77 @@ def plan_supergroups(
 # ------------------------------------------------------------ plain versions
 
 
-def _plain_blocks(ws, panels, b, out_dtype, product):
-    """Run ``product(g0, g1, windows)`` over blocks of groups, where
-    ``windows`` is the gathered ``(g1 - g0, W, n)`` B window stack; the
-    blocks keep the gather bounded (the whole headline gather is ~5 GB).
-    TF32 is off while they run and the caller's setting comes back after."""
-    G, TM, W = panels.shape
+def plain_blocks(step_g, starts, panels, b, G, out_dtype, product):
+    """Run ``product(s0, s1, windows)`` over blocks of steps, where
+    ``windows`` is the gathered ``(s1 - s0, W, n)`` stack of the B windows
+    ``b[starts[s] : starts[s] + W]``, and add each step's (TM, n) result
+    into the rows of its group ``step_g[s]`` of the (G*TM, n) output with
+    ``index_add_``.  The blocks keep the gather bounded (the whole headline
+    gather is ~5 GB).  TF32 is off while they run and the caller's setting
+    comes back after.  A uniform pack is one step per group."""
+    S, TM, W = panels.shape
     n = b.shape[1]
-    out = torch.empty((G * TM, n), dtype=out_dtype, device=b.device)
-    step = max(1, PLAIN_BLOCK_BYTES // max(1, W * n * 4))
+    out = torch.zeros((G, TM, n), dtype=out_dtype, device=b.device)
+    step = max(1, PLAIN_BLOCK_BYTES // max(1, max(W, TM) * n * 4))
     ar = torch.arange(W, device=b.device)
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for g0 in range(0, G, step):
-            g1 = min(G, g0 + step)
-            win = b[ws[g0:g1].long()[:, None] + ar]
-            out[g0 * TM : g1 * TM] = product(g0, g1, win).reshape(-1, n)
+        for s0 in range(0, S, step):
+            s1 = min(S, s0 + step)
+            win = b[starts[s0:s1].long()[:, None] + ar]
+            out.index_add_(0, step_g[s0:s1].long(), product(s0, s1, win))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
-    return out
+    return out.view(G * TM, n)
 
 
-def spmm_window_sg_presplit_plain(ws, ah, al, b):
-    """x3 in plain PyTorch: B split in RNE like the kernel, the three
+def presplit_product(ah, al):
+    """x3 in plain PyTorch: B split in RNE like the kernels, the three
     products as fp32 ``bmm``s of bf16-valued fp32 tensors (exact
     products), sums in fp32."""
 
-    def product(g0, g1, win):
+    def product(s0, s1, win):
         bh = win.to(torch.bfloat16)
         bl = (win - bh.float()).to(torch.bfloat16).float()
         bh = bh.float()
-        a_h = ah[g0:g1].float()
+        a_h = ah[s0:s1].float()
         return torch.bmm(a_h, bh) + (
-            torch.bmm(a_h, bl) + torch.bmm(al[g0:g1].float(), bh)
+            torch.bmm(a_h, bl) + torch.bmm(al[s0:s1].float(), bh)
         )
 
-    return _plain_blocks(ws, ah, b, torch.float32, product)
+    return product
+
+
+def bf16_product(ah):
+    """One bf16 pass in plain PyTorch (the windows are bf16 B)."""
+    return lambda s0, s1, win: torch.bmm(ah[s0:s1].float(), win.float())
+
+
+def full_product(tiles):
+    """fp32 / fp64 panels times B windows in plain PyTorch (no TF32)."""
+    return lambda s0, s1, win: torch.bmm(tiles[s0:s1], win)
+
+
+def _uniform(ws, panels, b, out_dtype, product):
+    G = panels.shape[0]
+    steps = torch.arange(G, device=b.device)
+    return plain_blocks(steps, ws, panels, b, G, out_dtype, product)
+
+
+def spmm_window_sg_presplit_plain(ws, ah, al, b):
+    """x3 windowed SpMM in plain PyTorch."""
+    return _uniform(ws, ah, b, torch.float32, presplit_product(ah, al))
 
 
 def spmm_window_sg_bf16_plain(ws, ah, bh):
-    """One bf16 pass in plain PyTorch (``bh`` is the bf16 B)."""
-
-    def product(g0, g1, win):
-        return torch.bmm(ah[g0:g1].float(), win.float())
-
-    return _plain_blocks(ws, ah, bh, torch.float32, product)
+    """One-pass bf16 windowed SpMM in plain PyTorch (``bh`` is the bf16 B)."""
+    return _uniform(ws, ah, bh, torch.float32, bf16_product(ah))
 
 
 def spmm_window_sg_plain(ws, tiles, b):
-    """fp32 / fp64 panels times B windows in plain PyTorch (no TF32)."""
-
-    def product(g0, g1, win):
-        return torch.bmm(tiles[g0:g1], win)
-
-    return _plain_blocks(ws, tiles, b, tiles.dtype, product)
+    """fp32 / fp64 windowed SpMM in plain PyTorch (no TF32)."""
+    return _uniform(ws, tiles, b, tiles.dtype, full_product(tiles))
 
 
 # ----------------------------------------------------------------- wrappers
@@ -210,7 +226,7 @@ def _launch(name, ptrs, G, TM, W, n, device):
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(_build.library(), name)(*ptrs, G, TM, W, n, stream)
+        rc = _build.entry(name)(*ptrs, G, TM, W, n, stream)
     _build.check(rc, name)
 
 

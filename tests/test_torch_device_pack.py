@@ -75,10 +75,13 @@ def test_full_pack_matches_jax(spec, dtype):
     if len(j_arrays) == 2:
         # no super-group plan (8-byte windows over the CPU's 4 MB budget):
         # JAX runs the non-sg _window_kernel, which the port does not have
-        # yet — it refuses, and the engines fall back to segsum
+        # yet — its uniform pack refuses, and the gate takes the ragged pack
         with pytest.raises(UnsupportedSparsity, match="non-super-grouped"):
-            td.pack_local_kernel(shard, a.nrow + 300, dtype, "pallas",
-                                 device="cpu", mxu_precision="highest")
+            td._pack_pallas_uniform(shard[0], a.nrow + 300, dtype, "highest",
+                                    torch.device("cpu"))
+        _, op = td.pack_local_kernel(shard, a.nrow + 300, dtype, "pallas",
+                                     device="cpu", mxu_precision="highest")
+        assert op.variant == "ragged"
         return
     _, op = _assert_same_pack(shard, a.nrow + 300, dtype, "highest")
     assert op.scheme == "full"
@@ -169,15 +172,18 @@ def _with_reversed_row():
                      v[order])
 
 
-def test_unsorted_rows_refuse_and_fall_back_to_segsum():
+def test_unsorted_rows_land_on_the_ragged_pack():
+    """The uniform pack refuses a per-row-unsorted CSR; the gate sends it to
+    the ragged pack (its cover sorts each group's columns), as JAX's
+    ``dispatch.py:389-392`` does."""
     a = _with_reversed_row()
     shard = [(a.rowptr, a.colidx, a.val)]
     with pytest.raises(UnsupportedSparsity, match="not sorted"):
-        td.pack_local_kernel(shard, a.nrow, np.float32, "pallas", device="cpu",
-                             mxu_precision="x3")
+        td._pack_pallas_uniform(shard[0], a.nrow, np.float32, "x3",
+                                torch.device("cpu"))
     arrays, op, kind = td.pack_with_fallback(shard, a.nrow, np.float32, "pallas",
                                              device="cpu", mxu_precision="x3")
-    assert kind == "segsum"
-    b = np.random.default_rng(0).standard_normal((a.ncol, 8)).astype(np.float32)
-    c = op(tuple(x[0] for x in arrays), torch.from_numpy(b)).numpy()
-    np.testing.assert_allclose(c, a.to_dense() @ b, rtol=1e-4, atol=1e-4)
+    assert (kind, op.variant) == ("pallas", "ragged")
+    b = np.random.default_rng(0).standard_normal((op.min_b_rows, 8)).astype(np.float32)
+    c = op(tuple(x[0] for x in arrays), torch.from_numpy(b)).numpy()[: a.nrow]
+    np.testing.assert_allclose(c, a.to_dense() @ b[: a.ncol], rtol=1e-4, atol=1e-4)

@@ -48,7 +48,7 @@ def test_fallback_chain_on_cuda_mirrors_the_tpu_order(monkeypatch, kind, dtype):
     assert td.sparsity_fallback_chain(kind, dtype, "cuda", is_dd=True) == ["dd"]
 
 
-@pytest.mark.parametrize("kind", ["ragged", "gather", "pallas_halo"])
+@pytest.mark.parametrize("kind", ["gather", "pallas_halo"])
 def test_cuda_walk_goes_straight_to_segsum(monkeypatch, caplog, kind):
     """An unported kind on CUDA tries segsum next: one attempt, one
     warning (the packing itself runs on the CPU here)."""
@@ -71,7 +71,7 @@ def test_cuda_walk_goes_straight_to_segsum(monkeypatch, caplog, kind):
     assert caplog.text.count("falling back to") == 1
 
 
-@pytest.mark.parametrize("kind", ["ell", "ragged", "gather", "dd", "dd_mxu", "pallas_halo"])
+@pytest.mark.parametrize("kind", ["ell", "gather", "dd", "dd_mxu", "pallas_halo"])
 def test_unported_kinds_refuse_and_walk_to_segsum(caplog, kind):
     a = banded_random_csr(500, nnz_per_row=5, bandwidth=20, seed=1, dtype=np.float32)
     shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
@@ -81,6 +81,41 @@ def test_unported_kinds_refuse_and_walk_to_segsum(caplog, kind):
         _, op, got = td.pack_with_fallback(shard, a.nrow, np.float32, kind, device="cpu")
     assert got == "segsum" and isinstance(op, td.SegsumOp)
     assert "falling back to segsum" in caplog.text
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_ragged_kind_packs_without_a_fallback(monkeypatch, caplog, device):
+    """The ragged kind is ported: on either device the walk makes one
+    attempt, which packs (the packing itself runs on the CPU here)."""
+    tried = []
+    pack = td.pack_local_kernel
+
+    def recording_pack(shards, max_m, dtype, kind, *, device, mxu_precision):
+        tried.append((kind, torch.device(device).type))
+        return pack(shards, max_m, dtype, kind, device="cpu",
+                    mxu_precision=mxu_precision)
+
+    monkeypatch.setattr(td, "pack_local_kernel", recording_pack)
+    a = powerlaw_random_csr(600, avg_degree=9, seed=1, dtype=np.float32)
+    shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
+    with caplog.at_level(logging.WARNING, logger="crp_tpu_torch"):
+        _, op, got = td.pack_with_fallback(shard, a.nrow, np.float32, "ragged",
+                                           device=torch.device(device))
+    assert got == "ragged" and isinstance(op, td.RaggedOp)
+    assert tried == [("ragged", device)]
+    assert "falling back" not in caplog.text
+
+
+@pytest.mark.parametrize("prec", ["x3", "highest"])
+def test_ragged_kind_matches_jax_decision(prec):
+    a = powerlaw_random_csr(900, avg_degree=9, seed=2, dtype=np.float32)
+    shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
+    _, fn, kind = jd.pack_with_fallback(shard, a.nrow, np.float32, "ragged",
+                                        mxu_precision=prec)
+    _, op, got = td.pack_with_fallback(shard, a.nrow, np.float32, "ragged",
+                                       device="cpu", mxu_precision=prec)
+    assert (got, op.variant) == (kind, fn.variant) == ("ragged", "ragged")
+    assert op.min_b_rows == fn.min_b_rows and op.roofline == fn.roofline
 
 
 def test_dd_class_keeps_its_contract():

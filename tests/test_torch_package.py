@@ -26,18 +26,25 @@ from crp_tpu_torch import (
     RowParaSpmm, SpmmConfig, banded_random_csr, csr_row_partition, fill_b,
     rel_fro_err,
 )
-from crp_tpu_torch.kernels import _build, device_pack, dispatch, spmm_pallas
+from crp_tpu_torch import powerlaw_community_csr
+from crp_tpu_torch.kernels import _build, device_pack, dispatch, spmm_pallas, spmm_ragged
 
-a = banded_random_csr(900, nnz_per_row=6, bandwidth=40, seed=1, dtype=np.float32)
-d = csr_row_partition(a.rowptr, 1)
-b = fill_b(0, a.ncol, 0, 16, dtype=np.float32)
 errs = {}
-for prec in ("x3", "default", "highest"):
-    eng = RowParaSpmm(a, d, d, 16, device="cpu", dtype=np.float32,
-                      config=SpmmConfig(kernel="pallas", mxu_precision=prec))
-    errs[prec] = rel_fro_err(a.spmm_ref(b.astype(np.float64)), eng.exec(b))
+for kernel, a in (
+    ("pallas", banded_random_csr(900, nnz_per_row=6, bandwidth=40, seed=1,
+                                 dtype=np.float32)),
+    ("ragged", powerlaw_community_csr(3000, 16, 1024, seed=2, dtype=np.float32)),
+):
+    d = csr_row_partition(a.rowptr, 1)
+    b = fill_b(0, a.ncol, 0, 16, dtype=np.float32)
+    for prec in ("x3", "default", "highest"):
+        eng = RowParaSpmm(a, d, d, 16, device="cpu", dtype=np.float32,
+                          config=SpmmConfig(kernel=kernel, mxu_precision=prec))
+        errs[f"{kernel} {prec}"] = rel_fro_err(a.spmm_ref(b.astype(np.float64)),
+                                               eng.exec(b))
 assert not any(m == "jax" or m.startswith(("jax.", "ml_dtypes")) for m in sys.modules
                if sys.modules[m] is not None), "jax got imported"
+assert "crp_tpu.native" not in sys.modules, "crp_tpu.native got imported"
 print(json.dumps(errs))
 """
 
@@ -48,7 +55,9 @@ def test_port_runs_without_jax_and_ml_dtypes():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     errs = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert errs["x3"] <= 1e-5 and errs["default"] <= 5e-3 and errs["highest"] <= 1e-6
+    for kernel in ("pallas", "ragged"):
+        assert errs[f"{kernel} x3"] <= 1e-5 and errs[f"{kernel} default"] <= 5e-3
+        assert errs[f"{kernel} highest"] <= 1e-6
 
 
 def _assert_no_result(proc):

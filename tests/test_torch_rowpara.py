@@ -10,7 +10,7 @@ from crp_tpu.engine.rowpara import RowParaSpmm as JaxRowPara
 from crp_tpu.plan.partition1d import csr_row_partition
 from crp_tpu.shard.layout import make_mesh_1d
 from crp_tpu.sparse.csr import CSRMatrix
-from crp_tpu.sparse.synth import banded_random_csr, fill_b
+from crp_tpu.sparse.synth import banded_random_csr, fill_b, powerlaw_random_csr
 from crp_tpu.utils.norms import rel_fro_err
 
 from crp_tpu_torch.engine.rowpara import RowParaSpmm
@@ -99,23 +99,46 @@ def _band_with_far_entries(nrow=20000):
                               dtype=np.float32)
 
 
-def test_wide_windows_fall_back_to_segsum():
-    """Decision difference until the ragged family lands: JAX packs this
-    matrix for its ragged kernels (kind "pallas"), the port falls back to
-    segsum."""
+def test_wide_windows_take_the_ragged_pack():
+    """Windows over 16384 rows: JAX and the port both pack this matrix for
+    the ragged kernels (kind "pallas", variant "ragged"), the same arrays."""
     from crp_tpu.kernels.dispatch import pack_with_fallback as jax_pack
 
     a = _band_with_far_entries()
-    _, fn, kind = jax_pack([(a.rowptr, a.colidx, a.val)], a.nrow, np.float32,
-                           "pallas", mxu_precision="x3")
+    cfg = SpmmConfig(kernel="pallas", mxu_precision="highest")
+    j_arrays, fn, kind = jax_pack([(a.rowptr, a.colidx, a.val)], a.nrow,
+                                  np.float32, "pallas", mxu_precision="highest")
     assert (kind, fn.variant) == ("pallas", "ragged")
     displs = csr_row_partition(a.rowptr, 1)
-    t = RowParaSpmm(a, displs, displs, 8, device="cpu",
-                    config=SpmmConfig(kernel="pallas", mxu_precision="x3"),
+    t = RowParaSpmm(a, displs, displs, 8, device="cpu", config=cfg,
                     dtype=np.float32)
-    assert t.kernel_kind == "segsum"
+    assert (t.kernel_kind, t._local_op.variant) == (kind, fn.variant)
+    assert t._local_op.min_b_rows == fn.min_b_rows
+    for x, y in zip(t.packed, j_arrays):
+        np.testing.assert_array_equal(x.numpy(), y)
     b = fill_b(0, a.ncol, 0, 8, dtype=np.float32)
     assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), t.exec(b)) <= 1e-6
+
+
+@pytest.mark.parametrize("prec,dtype,tol", [
+    ("x3", np.float32, 1e-6), ("default", np.float32, 1e-6),
+    ("highest", np.float32, 1e-6), ("highest", np.float64, 1e-12),
+])
+def test_ragged_matches_jax(prec, dtype, tol):
+    """The ragged kind on a power-law matrix: the same decisions as the
+    JAX engine, and the same product (JAX runs its Pallas kernels in
+    interpret mode)."""
+    a = powerlaw_random_csr(2500, avg_degree=13, seed=4, dtype=dtype)
+    b = fill_b(0, a.ncol, 0, 24, dtype=dtype)
+    j, t = _pair(a, 24, SpmmConfig(kernel="ragged", mxu_precision=prec), dtype)
+    _assert_same_decisions(j, t)
+    assert t._local_op.variant == j._local_fn.variant == "ragged"
+    assert t._local_op.roofline == j._local_fn.roofline
+    cj, ct = j.exec(b), t.exec(b)
+    assert ct.shape == (a.nrow, 24) and ct.dtype == dtype
+    assert rel_fro_err(cj.astype(np.float64), ct) <= tol
+    ref_tol = TOL_REF[prec] if dtype == np.float32 else 1e-12
+    assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), ct) <= ref_tol
 
 
 @pytest.mark.parametrize("change,match", [
