@@ -25,7 +25,25 @@ and then, failing on the first check that does not hold:
    ``powerlaw_community_csr(786432, 16, 1024)`` (10.8M nnz, fp32, n = 256)
    the same way: the engine must resolve to the ragged kernels with the
    fused spill and launch both; each kernel against its plain version,
-   times, the host cover time and cuSPARSE.
+   times, the host cover time and cuSPARSE;
+5. gather phase — the gather kernel against its plain version on small
+   scrambled power-law packs at each operating point, n in {16, 48, 100,
+   256}, B row 0 set to NaN (pad slots must be skipped) and trailing
+   blocks with no nonzero (they must come out zero);
+6. dd phase — the FP64 tensor-core kernel against its plain version on
+   small banded and power-law total covers, (TM, Wc) = (128, 512) and
+   (128, 256), with pad groups that must come out zero;
+7. scrambled-cplaw path — the same cplaw matrix with its vertex ids
+   permuted (``permute=True``), through ``RowParaSpmm(kernel="auto")``:
+   the ragged cover refuses and the walk must land on ``gather`` and launch
+   its kernel, within each point's class; the kernel against its plain
+   version, times, cuSPARSE;
+8. fp64-class path — ``banded_random_csr(217918, 53, 256)`` in fp64
+   through ``RowParaSpmm(kernel="dd")`` must resolve to ``dd_mxu`` (S =
+   3,402) on the FP64 tensor cores at <= 1e-12; on its pack the kernel
+   against its plain version, the fp64 FMA ragged kernel and cuSPARSE in
+   fp64; then the fp64 cplaw (segment-sum tier) and the pwtk-class
+   headline (ELL tier) with ``kernel="dd"`` at <= 1e-12.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -44,11 +62,14 @@ import torch
 
 NROW, NNZ_PER_ROW, BANDWIDTH, SEED = 217918, 53, 2500, 1234  # bench.py:129
 CPLAW = dict(n=786432, avg_degree=16, comm_size=1024, seed=1234)  # synth:cplaw:786432:16:1024
+DD_BAND = 256  # banded_random_csr(217918, 53, 256): the dd_mxu matrix (r3_tpu_dd.jsonl)
+DD_BAND_S = 3402  # its total cover's chunk count at (TM, Wc) = (128, 512)
 N = 256
 ERR_COLS = 32
 PRECS = ("x3", "default", "highest")
 # rel_fro_err against the fp64 reference (the JAX records' classes)
 TOL_REF = {"x3": 1e-5, "default": 5e-3, "highest": 1e-6}
+TOL_DD = 1e-12  # the dd kinds: the reference's own acceptance bar
 # kernel against its plain version: the same exact products (bf16 x bf16,
 # or fp32/fp64 FMA) summed in another order.  On the small packs the
 # elementwise max|k - p| / max|p| is held to TOL_PLAIN; at the main paths'
@@ -72,6 +93,8 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     "spmm_ragged_bf16": ("ragged.cu", "crp_tpu/kernels/spmm_ragged.py:727"),
     "spmm_ragged": ("ragged.cu", "crp_tpu/kernels/spmm_ragged.py:633"),
     "spmm_spill": ("spill.cu", "crp_tpu/kernels/spmm_ragged.py:1047"),
+    "spmm_gather": ("spill.cu", "crp_tpu/kernels/spmm_ragged.py:1047"),
+    "spmm_ragged_dd": ("dd_tc.cu", "crp_tpu/kernels/spmm_dd_mxu.py:163"),
 }
 
 
@@ -82,6 +105,15 @@ def check(ok: bool, msg: str) -> None:
 
 def say(*args) -> None:
     print(*args, flush=True)
+
+
+def launch(op, args):
+    """One launch of the op's kernel on its ``kernel_args``: the gather
+    kernel takes its output rows among them, the panel kernels the rows
+    B must have as a keyword."""
+    if op.variant == "gather":
+        return op.kernel(*args)
+    return op.kernel(*args, min_b_rows=op.min_b_rows)
 
 
 def time_ms(fn, reps: int = 5, inner: int = 20) -> float:
@@ -142,8 +174,7 @@ def compare(name, run_kernel, run_plain):
 
 def kernel_vs_plain(op, arrs, rB):
     args = op.kernel_args(arrs, rB)
-    return compare(op.kernel.__name__,
-                   lambda: op.kernel(*args, min_b_rows=op.min_b_rows),
+    return compare(op.kernel.__name__, lambda: launch(op, args),
                    lambda: op.plain(*args))
 
 
@@ -154,9 +185,9 @@ def spill_vs_plain(op, arrs, rB):
 
 
 def all_kernels():
-    from crp_tpu_torch.kernels import spmm_pallas, spmm_ragged
+    from crp_tpu_torch.kernels import spmm_dd_mxu, spmm_pallas, spmm_ragged
 
-    return spmm_pallas.KERNELS + spmm_ragged.KERNELS
+    return spmm_pallas.KERNELS + spmm_ragged.KERNELS + spmm_dd_mxu.KERNELS
 
 
 def padded_b(a, rows, n, dtype):
@@ -244,9 +275,9 @@ def ragged_phase(device) -> None:
                     say(msg)
 
 
-def cusparse_yardstick(a, b, c_ref, device) -> None:
+def cusparse_yardstick(a, b, c_ref, device, tag="cusparse") -> float:
     """cuSPARSE on the same matrix (not a port: the baseline the kernels
-    are held to)."""
+    are held to); returns its ms per product."""
     from crp_tpu_torch import rel_fro_err
 
     A = torch.sparse_csr_tensor(
@@ -258,26 +289,35 @@ def cusparse_yardstick(a, b, c_ref, device) -> None:
     cus_ms = time_ms(lambda: A @ Bd)
     c = (A @ Bd).cpu().numpy()
     err = rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64))
-    say(f"[cusparse] torch.sparse_csr_tensor @ B: {cus_ms:.4f} ms/exec, "
-        f"rel_fro_err {err:.3e}")
+    say(f"[{tag}] torch.sparse_csr_tensor @ B ({a.val.dtype}): {cus_ms:.4f} "
+        f"ms/exec, rel_fro_err {err:.3e}")
+    return cus_ms
 
 
-def drive(a, b, c_ref, prec, device, tag, variant):
-    """One engine at ``prec`` through the user's entry point: resolve,
-    launch counts in the main-path exec, error against the reference."""
+def drive(a, b, c_ref, prec, device, tag, expect, kernel="auto",
+          dtype=np.float32, tol=None, timing=(5, 20)):
+    """One engine at ``prec`` through the user's entry point: resolve to
+    ``expect`` = (kind, variant), launch counts in the main-path exec (its
+    kernel must launch, where the op has one), error against the reference
+    (``tol``, default the point's class), exec time (``timing`` = reps,
+    inner calls)."""
     from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition, rel_fro_err
 
+    tol = TOL_REF[prec] if tol is None else tol
     displs = csr_row_partition(a.rowptr, 1)
-    config = SpmmConfig(kernel="auto", mxu_precision=prec)
+    config = SpmmConfig(kernel=kernel, mxu_precision=prec)
     eng = RowParaSpmm(a, displs, displs, N, device=device, config=config,
-                      dtype=np.float32)
+                      dtype=dtype)
     op = eng._local_op
-    say(f"[{tag} {prec}] kind {eng.kernel_kind}, variant {op.variant}, init "
-        f"{eng.t_init:.3f} s, init_breakdown {json.dumps(eng.init_breakdown)}, "
-        f"kernel {op.kernel.__name__}, roofline {json.dumps(op.roofline)}")
-    check((eng.kernel_kind, op.variant) == ("pallas", variant),
+    kernel_fn = getattr(op, "kernel", None)  # the dd kind's non-MXU tier has none
+    say(f"[{tag} {prec}] kernel={kernel!r}: kind {eng.kernel_kind}, variant "
+        f"{op.variant}, init {eng.t_init:.3f} s, init_breakdown "
+        f"{json.dumps(eng.init_breakdown)}, kernel "
+        f"{kernel_fn.__name__ if kernel_fn else 'none (plain PyTorch tier)'}, "
+        f"roofline {json.dumps(getattr(op, 'roofline', {}))}")
+    check((eng.kernel_kind, op.variant) == expect,
           f"{tag} {prec}: resolved to {eng.kernel_kind!r}/{op.variant!r}, "
-          f"expected 'pallas'/{variant!r}")
+          f"expected {expect}")
 
     kernels = all_kernels()
     for k in kernels:
@@ -285,16 +325,17 @@ def drive(a, b, c_ref, prec, device, tag, variant):
     c = eng.exec(b)  # the main path, through the user's entry point
     launches = {k.__name__: k.launches for k in kernels}
     say(f"[{tag} {prec}] launches in the main-path exec: {json.dumps(launches)}")
-    check(launches[op.kernel.__name__] > 0,
-          f"{tag} {prec}: {op.kernel.__name__} was not launched")
+    if kernel_fn is not None:
+        check(launches[kernel_fn.__name__] > 0,
+              f"{tag} {prec}: {kernel_fn.__name__} was not launched")
     check(c.shape == (a.nrow, N) and bool(np.isfinite(c).all()),
           f"{tag} {prec}: output shape {c.shape} or non-finite values")
     err = rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64))
     say(f"[{tag} {prec}] rel_fro_err vs fp64 reference (first {ERR_COLS} "
-        f"columns) = {err:.3e} (tol {TOL_REF[prec]:g})")
-    check(err <= TOL_REF[prec], f"{tag} {prec}: rel_fro_err {err} > {TOL_REF[prec]}")
+        f"columns) = {err:.3e} (tol {tol:g})")
+    check(err <= tol, f"{tag} {prec}: rel_fro_err {err} > {tol}")
     bs = eng.shard_b(b)
-    exec_ms = time_ms(lambda: eng.exec_device(bs))
+    exec_ms = time_ms(lambda: eng.exec_device(bs), *timing)
     say(f"[{tag} {prec}] exec_device {exec_ms:.4f} ms/exec")
     return eng, op, bs, launches
 
@@ -306,25 +347,28 @@ def record(name, launches, max_abs, kernel_ms, plain_ms):
                 plain_ms=plain_ms)
 
 
-def time_kernel(op, arrs, rB, tag, prec, plain_inner=20):
-    """The op's kernel against its plain version at the main path, and both
-    timed in turns; returns (max_abs_err, kernel ms, plain ms)."""
+def time_kernel(op, arrs, rB, tag, prec, plain_inner=20, tol=TOL_PLAIN_FRO):
+    """The op's kernel against its plain version at the main path (relative
+    Frobenius error within ``tol``), and both timed in turns; returns
+    (max_abs_err, kernel ms, plain ms)."""
     max_abs, rel, rel_fro = kernel_vs_plain(op, arrs, rB)
     name = op.kernel.__name__
     say(f"[{tag} {prec}] {name} vs plain at the main path: rel fro err "
-        f"{rel_fro:.3e} (tol {TOL_PLAIN_FRO:g}), max rel err {rel:.3e}, "
+        f"{rel_fro:.3e} (tol {tol:g}), max rel err {rel:.3e}, "
         f"max abs err {max_abs:.3e}")
-    check(rel_fro <= TOL_PLAIN_FRO, f"{tag} {prec}: {name} vs plain rel fro err {rel_fro}")
+    check(rel_fro <= tol, f"{tag} {prec}: {name} vs plain rel fro err {rel_fro}")
     args = op.kernel_args(arrs, rB)
-    kernel_ms, plain_ms, s = in_turns(
-        lambda: op.kernel(*args, min_b_rows=op.min_b_rows),
-        lambda: op.plain(*args), plain_inner,
-    )
-    gflop = 2.0 * op.roofline["S" if "S" in op.roofline else "G"] * \
-        op.roofline["TM"] * op.roofline["W"] * N / 1e9
+    kernel_ms, plain_ms, s = in_turns(lambda: launch(op, args),
+                                      lambda: op.plain(*args), plain_inner)
+    rl = op.roofline
+    if op.variant == "gather":
+        work = (f"{rl['spill_nnz']} nnz, {rl['spill_nnz'] * N * 4 / 1e9:.2f} GB "
+                f"of gathered B rows")
+    else:
+        work = (f"dense-panel work {2.0 * rl.get('S', rl['G']) * rl['TM'] * rl['W'] * N / 1e9:.1f}"
+                f" GFLOP/pass")
     say(f"[{tag} {prec}] {name} {kernel_ms:.4f} ms ({s[0]:.4f}, {s[1]:.4f}), "
-        f"plain {plain_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}); dense-panel work "
-        f"{gflop:.1f} GFLOP/pass")
+        f"plain {plain_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}); {work}")
     return max_abs, kernel_ms, plain_ms
 
 
@@ -340,7 +384,8 @@ def headline(device) -> list:
         f"{time.perf_counter() - t0:.2f} s")
     records = []
     for prec in PRECS:
-        eng, op, bs, launches = drive(a, b, c_ref, prec, device, "headline", "uniform")
+        eng, op, bs, launches = drive(a, b, c_ref, prec, device, "headline",
+                                      ("pallas", "uniform"))
         arrs = tuple(x[0] for x in eng.packed)
         max_abs, kernel_ms, plain_ms = time_kernel(op, arrs, bs[0], "headline", prec)
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__],
@@ -375,7 +420,8 @@ def cplaw_path(device) -> list:
 
     records, spill = [], dict(launches=0, max_abs=0.0)
     for prec in PRECS:
-        eng, op, bs, launches = drive(a, b, c_ref, prec, device, "cplaw", "ragged")
+        eng, op, bs, launches = drive(a, b, c_ref, prec, device, "cplaw",
+                                      ("pallas", "ragged"))
         rl = op.roofline
         check(rl["spill_impl"] == "pallas", f"cplaw {prec}: spill_impl {rl['spill_impl']!r}")
         check(launches["spmm_spill"] > 0, f"cplaw {prec}: spmm_spill was not launched")
@@ -410,6 +456,185 @@ def cplaw_path(device) -> list:
     records.append(record("spmm_spill", spill["launches"], spill["max_abs"],
                           spill["ms"], spill["plain_ms"]))
     cusparse_yardstick(a, b, c_ref, device)
+    # for comparison, off the main path: the gather kind on this matrix
+    from crp_tpu_torch.kernels.dispatch import _pack_gather
+
+    arrays, op = _pack_gather([(a.rowptr, a.colidx.astype(np.int32), a.val)],
+                              a.nrow, np.float32, "x3", device)
+    args = op.kernel_args(tuple(x[0] for x in arrays),
+                          torch.from_numpy(b).to(device))
+    say(f"[cplaw x3] for comparison, the gather kind's kernel on this matrix: "
+        f"{time_ms(lambda: launch(op, args)):.4f} ms")
+    del arrays, op, args
+    torch.cuda.empty_cache()
+    return records
+
+
+def without_column_0(a):
+    """``a`` with its column-0 entries dropped, so that a NaN in B row 0
+    reaches the product only through a pad slot (whose column is 0)."""
+    from crp_tpu_torch import CSRMatrix
+
+    rows = np.repeat(np.arange(a.nrow), np.diff(a.rowptr))
+    keep = a.colidx != 0
+    return CSRMatrix.from_coo(a.nrow, a.ncol, rows[keep], a.colidx[keep],
+                              a.val[keep], dtype=a.val.dtype)
+
+
+def gather_phase(device) -> None:
+    from crp_tpu_torch import powerlaw_community_csr
+    from crp_tpu_torch.kernels.dispatch import _pack_gather
+
+    a = without_column_0(powerlaw_community_csr(40000, 16, 1024, seed=91,
+                                                permute=True, dtype=np.float32))
+    shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
+    for prec in PRECS:
+        # max_m past nrow: trailing output blocks with no nonzero
+        arrays, op = _pack_gather(shard, a.nrow + 700, np.float32, prec, device)
+        arrs = tuple(x[0] for x in arrays)
+        for n in (16, 48, 100, 256):
+            b = padded_b(a, a.ncol, n, np.float32)
+            b[0] = np.nan  # pad slots point at column 0: they must be skipped
+            rB = torch.from_numpy(b).to(device)
+            _, _, rel_fro = kernel_vs_plain(op, arrs, rB)
+            c = launch(op, op.kernel_args(arrs, rB))
+            msg = (f"gather spmm_gather {prec:8s} M={op.M} steps={op.roofline['S']} "
+                   f"n={n:3d}: rel fro err {rel_fro:.3e} (tol {TOL_PLAIN_FRO:g})")
+            check(rel_fro <= TOL_PLAIN_FRO, msg)
+            check(not bool(torch.any(c[a.nrow:])), f"gather {prec}: empty blocks not zero")
+            say(msg)
+
+
+def dd_phase(device) -> None:
+    from crp_tpu_torch import banded_random_csr, powerlaw_community_csr
+    from crp_tpu_torch.kernels.dispatch import _pack_dd_mxu
+
+    mats = {
+        "banded": banded_random_csr(6000, nnz_per_row=9, bandwidth=300, seed=93),
+        "cplaw": powerlaw_community_csr(12000, 9, 256, seed=94),
+    }
+    for label, a in mats.items():
+        shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
+        # the card's pack has Wc = 512; the CPU's (moved over) Wc = 256
+        for pack_device in (device, torch.device("cpu")):
+            arrays, op = _pack_dd_mxu(shard, a.nrow + 300, pack_device)
+            arrs = tuple(x[0].to(device) for x in arrays)
+            rl = op.roofline
+            for n in (16, 48, 100, 256):
+                rB = torch.from_numpy(padded_b(a, op.min_b_rows, n, np.float64)).to(device)
+                _, _, rel_fro = kernel_vs_plain(op, arrs, rB)
+                c = launch(op, op.kernel_args(arrs, rB))
+                msg = (f"dd spmm_ragged_dd {label:7s} (TM, Wc)=({rl['TM']}, {rl['W']}) "
+                       f"S={rl['S']} n={n:3d}: rel fro err {rel_fro:.3e} (tol {TOL_DD:g})")
+                check(rel_fro <= TOL_DD, msg)
+                check(not bool(torch.any(c[a.nrow:])), f"dd {label}: pad rows not zero")
+                say(msg)
+
+
+def scrambled_cplaw_path(device) -> list:
+    from crp_tpu_torch import fill_b, powerlaw_community_csr
+    from crp_tpu_torch.kernels import spmm_ragged
+    from crp_tpu_torch.kernels.dispatch import _pack_gather
+
+    t0 = time.perf_counter()
+    a = powerlaw_community_csr(**CPLAW, permute=True, dtype=np.float32)
+    b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
+    c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+    say(f"scrambled cplaw matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, host set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    # the init's parts: the gate's geometry chooser, the cover it refuses,
+    # and the gather pack that serves the matrix
+    t0 = time.perf_counter()
+    geometry = spmm_ragged.choose_ragged_geometry(a.rowptr, a.colidx, "x3")
+    t_choose = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    S, spill, _ = spmm_ragged.estimate_ragged(a.rowptr, a.colidx, *geometry)
+    t_cover = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arrays, _ = _pack_gather([(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow,
+                             np.float32, "x3", device)
+    torch.cuda.synchronize()
+    say(f"[scrambled] host init parts: geometry chooser (x3) {geometry} "
+        f"{t_choose:.3f} s; cover there {t_cover:.3f} s (S={S}, spill {spill}, "
+        f"{100 * (a.nnz - spill) / a.nnz:.1f}% kept); gather pack + upload "
+        f"{time.perf_counter() - t0:.3f} s")
+    del arrays
+    rec = dict(launches=0, max_abs=0.0)
+    for prec in PRECS:
+        eng, op, bs, launches = drive(a, b, c_ref, prec, device, "scrambled",
+                                      ("gather", "gather"))
+        arrs = tuple(x[0] for x in eng.packed)
+        max_abs, kernel_ms, plain_ms = time_kernel(op, arrs, bs[0], "scrambled",
+                                                   prec, plain_inner=2)
+        rec["launches"] += launches["spmm_gather"]
+        rec["max_abs"] = max(rec["max_abs"], max_abs)
+        if prec == "x3":
+            rec["ms"], rec["plain_ms"] = kernel_ms, plain_ms
+        del eng, op, bs, arrs
+        a.__dict__.pop("_torch_pack_cache", None)
+        torch.cuda.empty_cache()
+    cusparse_yardstick(a, b, c_ref, device, "scrambled cusparse")
+    return [record("spmm_gather", rec["launches"], rec["max_abs"], rec["ms"],
+                   rec["plain_ms"])]
+
+
+def fp64_path(device) -> list:
+    from crp_tpu_torch import banded_random_csr, fill_b, powerlaw_community_csr
+    from crp_tpu_torch.kernels.spmm_ragged import spmm_ragged
+
+    t0 = time.perf_counter()
+    a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=DD_BAND)
+    b = np.asarray(fill_b(0, a.ncol, 0, N))
+    c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+    say(f"fp64 banded matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, host set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    eng, op, bs, launches = drive(a, b, c_ref, "highest", device, "fp64 banded",
+                                  ("dd", "dd_mxu"), kernel="dd", dtype=np.float64,
+                                  tol=TOL_DD)
+    check(op.roofline["S"] == DD_BAND_S,
+          f"fp64 banded: S = {op.roofline['S']}, expected {DD_BAND_S}")
+    arrs = tuple(x[0] for x in eng.packed)
+    rB = bs[0]
+    max_abs, kernel_ms, plain_ms = time_kernel(op, arrs, rB, "fp64 banded", "dd",
+                                               plain_inner=3, tol=TOL_DD)
+    # the fp64 FMA ragged kernel on the same arrays: the pack has no spill
+    args = op.kernel_args(arrs, rB)
+    _, _, fma_fro = compare("spmm_ragged", lambda: spmm_ragged(*args, min_b_rows=op.min_b_rows),
+                            lambda: op.plain(*args))
+    check(fma_fro <= TOL_DD, f"fp64 banded: spmm_ragged vs plain rel fro err {fma_fro}")
+    dd_ms, fma_ms, s = in_turns(lambda: launch(op, args),
+                                lambda: spmm_ragged(*args, min_b_rows=op.min_b_rows))
+    gflop = 2.0 * op.roofline["S"] * op.roofline["TM"] * op.roofline["W"] * N / 1e9
+    say(f"[fp64 banded] on one pack, in turns: spmm_ragged_dd (FP64 tensor cores) "
+        f"{dd_ms:.4f} ms ({s[0]:.4f}, {s[1]:.4f}), spmm_ragged fp64 FMA "
+        f"{fma_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}; rel fro err {fma_fro:.3e}); "
+        f"{gflop:.1f} GFLOP")
+    records = [record("spmm_ragged_dd", launches["spmm_ragged_dd"], max_abs,
+                      kernel_ms, plain_ms)]
+    del eng, op, bs, arrs, rB, args
+    a.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+    cusparse_yardstick(a, b, c_ref, device, "fp64 banded cusparse")
+
+    # the dd kind's other tiers: the dd_mxu cover refuses both matrices
+    for tag, gen, tier in (
+        ("fp64 cplaw", lambda: powerlaw_community_csr(**CPLAW), "segsum"),
+        ("fp64 headline", lambda: banded_random_csr(NROW, NNZ_PER_ROW, BANDWIDTH,
+                                                    seed=SEED), "ell"),
+    ):
+        t0 = time.perf_counter()
+        a = gen()
+        b = np.asarray(fill_b(0, a.ncol, 0, N))
+        c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+        say(f"{tag} matrix: {a.nrow} rows, {a.nnz} nnz, host set-up "
+            f"{time.perf_counter() - t0:.2f} s")
+        eng, _, _, _ = drive(a, b, c_ref, "highest", device, tag, ("dd", tier),
+                             kernel="dd", dtype=np.float64, tol=TOL_DD,
+                             timing=(3, 2))
+        del eng
+        a.__dict__.pop("_torch_pack_cache", None)
+        torch.cuda.empty_cache()
+        cusparse_yardstick(a, b, c_ref, device, f"{tag} cusparse")
     return records
 
 
@@ -437,7 +662,10 @@ def main() -> int:
 
     kernel_phase(device)
     ragged_phase(device)
-    records = headline(device) + cplaw_path(device)
+    gather_phase(device)
+    dd_phase(device)
+    records = (headline(device) + cplaw_path(device)
+               + scrambled_cplaw_path(device) + fp64_path(device))
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

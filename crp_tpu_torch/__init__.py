@@ -13,7 +13,10 @@ the windowed SpMM kernels written in CUDA for Hopper: the uniform
 super-grouped windows (``kernels/csrc/window_sg.cu``), the ragged
 gathered-window chunks for power-law and variable-bandwidth matrices
 (``kernels/csrc/ragged.cu``) and their fused spill
-(``kernels/csrc/spill.cu``).  The engine is imported on first use, and the
+(``kernels/csrc/spill.cu``); the ``gather`` kind for any CSR (the same
+spill kernel with no C); the fp64 class, ``dd_mxu`` on the FP64 tensor
+cores (``kernels/csrc/dd_tc.cu``) and ``dd``'s fp64 ELL and segment-sum
+tiers; and the ``ell`` kind.  The engine is imported on first use, and the
 kernels build at their first call on a CUDA tensor.
 """
 

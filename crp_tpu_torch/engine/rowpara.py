@@ -6,9 +6,14 @@ the B rows A references into the kernel's receive buffer and runs the local
 SpMM kernel.  At p = 1 with every B row referenced that exchange is the
 identity and is elided: the kernel reads the owned block of B directly.
 
+The ``dd`` and ``dd_mxu`` kinds compute in fp64 whatever ``dtype`` says:
+A's values, B and C are fp64 (the JAX package carries B and C as hi/lo
+fp32 pairs, 48 bits; the port carries 53).  As in JAX, they refuse
+``bc_layout`` and ``overlap`` (``ValueError``).
+
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 item: p > 1 and ``overlap`` (Queue A #8), ``kernel="pallas_halo"``
-(Queue A #10), the ``dd`` kinds (Queue A #7) and ``bc_layout`` (Queue A #3).
+(Queue A #10) and ``bc_layout`` (Queue A #3).
 """
 
 from __future__ import annotations
@@ -35,8 +40,6 @@ def _unsupported(config: SpmmConfig, p: int) -> str | None:
         return "overlap=1 (comm/ring.py) is ROADMAP Queue A #8"
     if config.kernel == "pallas_halo":
         return "kernel='pallas_halo' (fused halo push) is ROADMAP Queue A #10"
-    if config.kernel in ("dd", "dd_mxu"):
-        return f"kernel={config.kernel!r} (fp64 class) is ROADMAP Queue A #7"
     if config.bc_layout:
         return "bc_layout=1 (the reference's col-major B/C) is ROADMAP Queue A #3"
     return None
@@ -65,12 +68,29 @@ class RowParaSpmm(torch.nn.Module):
         self.A_row_displs = np.asarray(A_row_displs, dtype=np.int64)
         self.B_row_displs = np.asarray(B_row_displs, dtype=np.int64)
         self.p = len(self.A_row_displs) - 1
+        # "auto" never resolves to a dd kind here (resolve_auto_kernel)
+        self.is_dd = self.config.kernel in ("dd", "dd_mxu")
+        if self.is_dd:
+            # the JAX refusals (rowpara.py:125-135), before the pack
+            if self.config.bc_layout:
+                raise ValueError(
+                    "BC_layout=1 supports the standard kernel paths; the dd "
+                    "kinds keep B and C row-major in fp64"
+                )
+            if self.config.overlap:
+                raise ValueError(
+                    "kernel='dd' is incompatible with overlap=1: the per-shift "
+                    "partial SpMM is plain fp32 and would lose the dd accuracy"
+                )
         why = _unsupported(self.config, self.p)
         if why is not None:
             raise NotImplementedError(f"not yet ported to crp_tpu_torch: {why}")
         self.glb_n = glb_n
         self.device = torch.device(device)
-        self.dtype = np.dtype(dtype if dtype is not None else self.config.dtype)
+        self.dtype = np.dtype(
+            np.float64 if self.is_dd
+            else dtype if dtype is not None else self.config.dtype
+        )
         self.glb_m = a.nrow
         self.timer = Timer()
 
@@ -134,6 +154,7 @@ class RowParaSpmm(torch.nn.Module):
                     shards_compact, self.max_m, self.dtype, kind,
                     device=self.device,
                     mxu_precision=self.config.mxu_precision,
+                    is_dd=self.is_dd,
                 )
                 synchronize(arrays)
             cache[cache_key] = (kind, self._local_op, arrays)

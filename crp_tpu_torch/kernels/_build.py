@@ -23,7 +23,8 @@ import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = tuple(CSRC / f"{stem}.cu" for stem in ("window_sg", "ragged", "spill"))
+SOURCES = tuple(CSRC / f"{stem}.cu"
+                for stem in ("window_sg", "ragged", "spill", "dd_tc"))
 BUILD_DIR = _PKG.parent.parent / "build" / "crp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,6 +43,8 @@ _ENTRIES = {
     "crp_ragged_f32": ("ragged", 5, ("G", "TM", "Wc", "n")),
     "crp_ragged_f64": ("ragged", 5, ("G", "TM", "Wc", "n")),
     "crp_spill_blocks": ("spill", 7, ("nblk", "TMo", "Q", "n", "mode")),
+    "crp_gather_blocks": ("spill", 6, ("nblk", "TMo", "Q", "n", "mode")),
+    "crp_ragged_dd_f64tc": ("dd_tc", 5, ("G", "TM", "Wc", "n")),
 }
 
 

@@ -1,4 +1,5 @@
-// Hopper kernel for the fused spill of the ragged SpMM.
+// Hopper kernels for the fused spill of the ragged SpMM and for the gather
+// kind.
 //
 // The spilled nonzeros of a ragged pack are regrouped on the host into
 // steps of Q slots, each step inside one TMo-row block of the (M, n)
@@ -7,19 +8,24 @@
 // carry rel == TMo and are skipped (never relying on 0 * B).  The steps of
 // block b are [blk_ptr[b], blk_ptr[b + 1]) (blk_ptr is derived at pack time
 // from the pack's `first`; trailing pad steps fall into the last block).
-// The entry writes the complete
+// The entries write the complete
 //
 //     out[blk*TMo + rel[q], :] = C[...] + sum over live slots q of contrib(q)
 //
 // with contrib(q) = vals[q] * B[cols[q], :] rounded as the TPU kernel does
 // at each operating point: the fp32 product (highest), its bf16 hi + lo
-// (x3), or its bf16 rounding (default).
+// (x3), or its bf16 rounding (default).  crp_gather_blocks takes no C: its
+// tile starts at zero and no C is read, so a block with no live slot comes
+// out zero (the gather pack, pack_gather_blocks, holds every nonzero of a
+// shard in these steps).
 //
-// Replaces crp_spill_blocks <- _spill_block_kernel (has_c=True) via
-// spmm_spill_pallas.  The TPU kernel routes rows with a one-hot MXU product
-// and takes the gathered B rows as one (ns*Q, n) XLA stream; here the
-// kernel reads B[cols[q]] itself (no gathered stream in device memory) and
-// adds into a shared-memory tile.
+// Replaces _spill_block_kernel: crp_spill_blocks its has_c=True form (via
+// spmm_spill_pallas), crp_gather_blocks its has_c=False form (via
+// spmm_gather_chunked, the gather kind).  The TPU kernel routes rows with a
+// one-hot MXU product and takes the gathered B rows as one (ns*Q, n) XLA
+// stream, which the JAX gather kind cuts into chunks to bound its memory;
+// here the kernel reads B[cols[q]] itself (no gathered stream in device
+// memory, so no chunking) and adds into a shared-memory tile.
 //
 // Layout: one block per (output block b, 32-column n-tile); the block's
 // TMo x 32 fp32 tile lives in shared memory (64 KB at TMo = 512, above the
@@ -34,6 +40,9 @@
 // measured on an H100).  The sum order within a row therefore varies from
 // run to run: the result is not bit-deterministic.  What bounds it: the B
 // row gathers (128 bytes per live slot and n-tile), at 8 in flight per warp.
+// On a scrambled graph (the gather kind's matrices) those rows are random
+// over a B far larger than the 50 MB L2, so nearly every one comes from
+// device memory.
 
 #include <cstdint>
 
@@ -59,6 +68,9 @@ __device__ __forceinline__ float contrib(float v, float bv, int mode)
     return __fadd_rn(h, __bfloat162float(__float2bfloat16_rn(x - h)));  // x3
 }
 
+// HAS_C: the tile starts as the block of C (the spill); otherwise at zero
+// and c is never read (the gather kind)
+template <bool HAS_C>
 __global__ void __launch_bounds__(SP_THREADS)
 spill_blocks_kernel(const int32_t* __restrict__ rel,
                     const int32_t* __restrict__ cols,
@@ -85,15 +97,19 @@ spill_blocks_kernel(const int32_t* __restrict__ rel,
     const bool col_ok = col < n;
 
     for (int64_t i = tid; i < TMo * SP_BN; i += SP_THREADS) {
-        const int64_t r = i / SP_BN, j = i % SP_BN;
-        tile[i] = n0 + j < n ? c[(size_t)(row0 + r) * n + n0 + j] : 0.0f;
+        if constexpr (HAS_C) {
+            const int64_t r = i / SP_BN, j = i % SP_BN;
+            tile[i] = n0 + j < n ? c[(size_t)(row0 + r) * n + n0 + j] : 0.0f;
+        } else {
+            tile[i] = 0.0f;
+        }
     }
 
     const int64_t q0 = (int64_t)blk_ptr[blk] * Q;
     const int64_t q1 = (int64_t)blk_ptr[blk + 1] * Q;
     for (int64_t qs = q0; qs < q1; qs += SP_STAGE) {
         const int cnt = (int)min((int64_t)SP_STAGE, q1 - qs);
-        __syncthreads();  // the previous stage is consumed (and the C tile in)
+        __syncthreads();  // the previous stage is consumed (and the tile set)
         for (int i = tid; i < cnt; i += SP_THREADS) {
             s_rel[i] = rel[qs + i];
             s_col[i] = cols[qs + i];
@@ -126,6 +142,33 @@ spill_blocks_kernel(const int32_t* __restrict__ rel,
     }
 }
 
+template <bool HAS_C>
+int launch_blocks(const void* rel, const void* cols, const void* vals,
+                  const void* blk_ptr, const void* c, const void* b, void* out,
+                  int64_t nblk, int64_t TMo, int64_t Q, int64_t n,
+                  int64_t mode, void* stream)
+{
+    if (nblk < 0 || TMo <= 0 || TMo > SP_TMO_MAX || Q <= 0 || n < 0 ||
+        mode < 0 || mode > 2)
+        return (int)cudaErrorInvalidValue;
+    const int64_t n_tiles = (n + SP_BN - 1) / SP_BN;
+    const int64_t blocks = nblk * n_tiles;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+    const int smem = (int)(TMo * SP_BN * sizeof(float));
+    cudaError_t err = cudaFuncSetAttribute(
+        spill_blocks_kernel<HAS_C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    if (blocks > 0)
+        spill_blocks_kernel<HAS_C><<<(unsigned)blocks, SP_THREADS, smem,
+                                     (cudaStream_t)stream>>>(
+            static_cast<const int32_t*>(rel), static_cast<const int32_t*>(cols),
+            static_cast<const float*>(vals), static_cast<const int32_t*>(blk_ptr),
+            static_cast<const float*>(c), static_cast<const float*>(b),
+            static_cast<float*>(out), TMo, Q, n, n_tiles, (int)mode);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -138,24 +181,19 @@ int crp_spill_blocks(const void* rel, const void* cols, const void* vals,
                      void* out, int64_t nblk, int64_t TMo, int64_t Q,
                      int64_t n, int64_t mode, void* stream)
 {
-    if (nblk < 0 || TMo <= 0 || TMo > SP_TMO_MAX || Q <= 0 || n < 0 ||
-        mode < 0 || mode > 2)
-        return (int)cudaErrorInvalidValue;
-    const int64_t n_tiles = (n + SP_BN - 1) / SP_BN;
-    const int64_t blocks = nblk * n_tiles;
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    const int smem = (int)(TMo * SP_BN * sizeof(float));
-    cudaError_t err = cudaFuncSetAttribute(
-        spill_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (blocks > 0)
-        spill_blocks_kernel<<<(unsigned)blocks, SP_THREADS, smem,
-                              (cudaStream_t)stream>>>(
-            static_cast<const int32_t*>(rel), static_cast<const int32_t*>(cols),
-            static_cast<const float*>(vals), static_cast<const int32_t*>(blk_ptr),
-            static_cast<const float*>(c), static_cast<const float*>(b),
-            static_cast<float*>(out), TMo, Q, n, n_tiles, (int)mode);
-    return (int)cudaGetLastError();
+    if (!c) return (int)cudaErrorInvalidValue;
+    return launch_blocks<true>(rel, cols, vals, blk_ptr, c, b, out, nblk, TMo,
+                               Q, n, mode, stream);
+}
+
+// the same with no C: out (M, n) holds the packed nonzeros' product alone
+int crp_gather_blocks(const void* rel, const void* cols, const void* vals,
+                      const void* blk_ptr, const void* b, void* out,
+                      int64_t nblk, int64_t TMo, int64_t Q, int64_t n,
+                      int64_t mode, void* stream)
+{
+    return launch_blocks<false>(rel, cols, vals, blk_ptr, nullptr, b, out,
+                                nblk, TMo, Q, n, mode, stream);
 }
 
 const char* crp_error_string(int code)

@@ -11,13 +11,21 @@ tensors with their leading shard axis stripped.  Ported kinds:
     gathered-window chunks (+ spill) where the uniform window is refused
     or over 3x a ragged cover; one pack per operating point (``x3``,
     ``default``, ``highest``; fp64 data takes the fp64 FMA kernels);
-  * ``"ragged"`` — the ragged pack directly.
+  * ``"ragged"`` — the ragged pack directly;
+  * ``"gather"`` — every nonzero through the block-step gather kernel
+    (fp32, any CSR: the scrambled power-law graphs the ragged cover
+    refuses);
+  * ``"ell"`` — an ELL slot scan in plain PyTorch;
+  * ``"dd_mxu"`` — fp64 class on the FP64 tensor cores, on the ragged total
+    cover with fp64 panels;
+  * ``"dd"`` — fp64 class: ``dd_mxu`` on a CUDA device where its cover
+    fits, else the fp64 ELL (at most 128 nonzeros per row) or chunked
+    segment-sum tier.  B and C are fp64 whatever the engine's dtype.
 
-The other kinds of the JAX package (``ell``, ``gather``, ``dd``,
-``dd_mxu``, ``pallas_halo``) and multi-shard windowed packs raise
-:class:`UnsupportedSparsity` ("not yet ported"), so the fallback walk ends
-at ``segsum`` (logged, and reported as the engine's ``kernel_kind``) where
-the JAX package would have run one of them.
+The JAX package's ``pallas_halo`` and multi-shard windowed packs raise
+:class:`UnsupportedSparsity` ("not yet ported"), so the fallback walk goes
+on (logged, and reported as the engine's ``kernel_kind``) where the JAX
+package would have run them.
 """
 
 from __future__ import annotations
@@ -29,6 +37,11 @@ import numpy as np
 import torch
 
 from . import device_pack
+from .spmm_dd import (
+    ELL_MAX_L, pack_coo_dd, pack_ell_dd, spmm_ell_dd, spmm_segsum_dd,
+)
+from .spmm_dd_mxu import dd_mxu_geometry, ragged_dd_cover, spmm_ragged_dd
+from .spmm_ell import pack_ell, spmm_ell
 from .spmm_pallas import (
     SG_BUDGET, SG_BUDGET_CPU, TK, UnsupportedSparsity, choose_chunks,
     plan_supergroups, spmm_window_sg, spmm_window_sg_bf16, spmm_window_sg_bf16_plain,
@@ -37,11 +50,11 @@ from .spmm_pallas import (
 )
 from .spmm_ragged import (
     PANEL_CAP_BYTES, SPILL_Q, SPILL_TMO, cover_with_cap, default_min_chunk_nnz,
-    estimate_ragged, first_ptr, pack_spill, pack_spill_blocks,
-    resolve_ragged_geometry, spmm_ragged, spmm_ragged_bf16,
-    spmm_ragged_bf16_plain, spmm_ragged_plain, spmm_ragged_presplit,
-    spmm_ragged_presplit_plain, spmm_spill, spmm_spill_chunked,
-    spmm_spill_plain,
+    estimate_ragged, first_ptr, gather_step_layout, pack_gather_blocks,
+    pack_spill, pack_spill_blocks, resolve_ragged_geometry, spmm_gather,
+    spmm_gather_plain, spmm_ragged, spmm_ragged_bf16, spmm_ragged_bf16_plain,
+    spmm_ragged_plain, spmm_ragged_presplit, spmm_ragged_presplit_plain,
+    spmm_spill, spmm_spill_chunked, spmm_spill_plain,
 )
 from .spmm_segsum import pack_device_csr, spmm_segment_sum
 
@@ -50,10 +63,6 @@ logger = logging.getLogger("crp_tpu_torch")
 # kinds of the JAX package whose kernels this package does not have yet,
 # with the ROADMAP item that ports each
 _NOT_PORTED = {
-    "ell": "Queue A #6",
-    "gather": "Queue A #6 (Queue B #10)",
-    "dd": "Queue A #7",
-    "dd_mxu": "Queue A #7 (Queue B #11)",
     "pallas_halo": "Queue A #10 (Queue B #12)",
 }
 
@@ -69,26 +78,38 @@ def resolve_auto_kernel(device) -> str:
     return "pallas" if torch.device(device).type == "cuda" else "segsum"
 
 
-def sparsity_fallback_chain(kind: str, dtype, device, is_dd: bool = False) -> list:
+def sparsity_fallback_chain(kind: str, dtype, device, is_dd: bool = False,
+                            fallback: list | None = None) -> list:
     """Kinds to try, in order, after ``kind`` raised
     :class:`UnsupportedSparsity` (``dispatch.py:65-103``): dd-class
-    requests keep ``"dd"`` only; everything else ends at ``"segsum"``.
+    requests keep ``"dd"`` only (never an fp32 kernel); fp32 on a CUDA
+    device tries ``"gather"`` before ``"segsum"``, as the JAX package does
+    on a TPU; everything else ends at ``"segsum"``.
 
-    On the TPU the JAX package tries ``"gather"`` before ``"segsum"`` for
-    fp32; that kind is not ported yet (ROADMAP Queue B #10), so the walk
-    leaves it out on every device until it is.
+    ``fallback`` stands for ``CRP_TPU_FALLBACK``: when given it replaces
+    the chain, except for dd-class requests, which ignore it.
     """
     if is_dd:
         return ["dd"]
-    return ["segsum"]
+    if fallback:
+        return list(fallback)
+    chain = []
+    if (kind != "gather" and np.dtype(dtype) == np.float32
+            and torch.device(device).type == "cuda"):
+        chain.append("gather")
+    chain.append("segsum")
+    return chain
 
 
 def pack_with_fallback(
     shards: list, max_m: int, dtype, kind: str, *, device,
     mxu_precision: str = "highest", is_dd: bool = False,
+    fallback: list | None = None,
 ) -> tuple:
     """:func:`pack_local_kernel` plus the sparsity-fallback walk
-    (``dispatch.py:106-150``).  Returns ``(arrays, op, resolved_kind)``."""
+    (``dispatch.py:106-150``).  Returns ``(arrays, op, resolved_kind)``.
+    After a failed ``dd_mxu`` pack the ``dd`` retry skips the MXU cover
+    (``dd_skip_mxu``) rather than repeat it only to fail again."""
     try:
         arrays, op = pack_local_kernel(
             shards, max_m, dtype, kind, device=device,
@@ -97,7 +118,9 @@ def pack_with_fallback(
         return arrays, op, kind
     except UnsupportedSparsity as e:
         err = e
-    for fb in sparsity_fallback_chain(kind, dtype, device, is_dd=is_dd):
+    extra = {"dd_skip_mxu": True} if kind == "dd_mxu" else {}
+    for fb in sparsity_fallback_chain(kind, dtype, device, is_dd=is_dd,
+                                      fallback=fallback):
         logger.warning(
             "kernel=%r rejected this sparsity (%s); falling back to %s",
             kind, err, fb,
@@ -105,7 +128,7 @@ def pack_with_fallback(
         try:
             arrays, op = pack_local_kernel(
                 shards, max_m, dtype, fb, device=device,
-                mxu_precision=mxu_precision,
+                mxu_precision=mxu_precision, **extra,
             )
             return arrays, op, fb
         except UnsupportedSparsity as e2:
@@ -119,9 +142,67 @@ class SegsumOp:
 
     nrow: int
     min_b_rows: int = 1
+    variant = "segsum"
 
     def __call__(self, arrs, rB):
         return spmm_segment_sum(arrs[0], arrs[1], arrs[2], self.nrow, rB)
+
+
+@dataclasses.dataclass
+class EllOp:
+    """Local op of the ``ell`` kind: arrays are (cols, vals) of (max_m, L)."""
+
+    min_b_rows = 1
+    variant = "ell"
+
+    def __call__(self, arrs, rB):
+        return spmm_ell(arrs[0], arrs[1], rB)
+
+
+@dataclasses.dataclass
+class DDOp:
+    """Local op of the ``dd`` kind's non-MXU tier, in fp64: ``tier``
+    ``"ell"`` (arrays cols, vals) or ``"segsum"`` (row_ids, cols, vals);
+    ``nrow`` rows of C."""
+
+    tier: str
+    nrow: int
+    min_b_rows = 1
+
+    @property
+    def variant(self) -> str:
+        return self.tier
+
+    def __call__(self, arrs, rB):
+        if self.tier == "ell":
+            return spmm_ell_dd(arrs[0], arrs[1], rB)
+        return spmm_segsum_dd(arrs[0], arrs[1], arrs[2], rB, self.nrow)
+
+
+@dataclasses.dataclass
+class GatherOp:
+    """Local op of the ``gather`` kind: arrays are the JAX pack's (rel,
+    cols, vals, first, blk), then ``blk_ptr`` (:func:`first_ptr` of
+    ``first``), the step ranges the CUDA kernel reads.  ``M`` output rows
+    (``max_m`` rounded up to TMo)."""
+
+    M: int
+    mxu_precision: str
+    roofline: dict = dataclasses.field(default_factory=dict)
+    min_b_rows = 1
+    variant = "gather"
+    kernel = staticmethod(spmm_gather)
+    plain = staticmethod(spmm_gather_plain)
+
+    def kernel_args(self, arrs, rB) -> tuple:
+        """Positional args of :attr:`kernel` and :attr:`plain` for one
+        shard's ``arrs`` and receive buffer ``rB``."""
+        rel, cols, vals, _, blk, blk_ptr = arrs
+        return (rel, cols, vals, blk, blk_ptr, rB, self.M, self.mxu_precision)
+
+    def __call__(self, arrs, rB):
+        # rows past the shard's own are zero: engines trim them
+        return self.kernel(*self.kernel_args(arrs, rB)).to(rB.dtype)
 
 
 @dataclasses.dataclass
@@ -175,13 +256,30 @@ class WindowOp:
         return c.to(rB.dtype)
 
 
+def _stacked(packs, device) -> tuple:
+    """Per-shard tuples of numpy arrays -> tensors on ``device`` with a
+    leading shard axis."""
+    return tuple(
+        torch.from_numpy(np.stack([p[i] for p in packs])).to(device)
+        for i in range(len(packs[0]))
+    )
+
+
+def _max_row_nnz(shards) -> int:
+    """The largest row of any shard, at least 1: the ELL slot count."""
+    return max(
+        max((int(np.diff(r).max()) if len(r) > 1 else 0) for r, _, _ in shards), 1
+    )
+
+
 def pack_local_kernel(
     shards: list, max_m: int, dtype, kind: str = "segsum", *, device,
-    mxu_precision: str = "highest",
+    mxu_precision: str = "highest", dd_skip_mxu: bool = False,
 ) -> tuple:
     """Pack shards ``[(rowptr, compact_colidx, val), ...]`` for ``kind``
     (``dispatch.py:153-293``).  Returns ``(arrays, op)``: tensors on
-    ``device`` with a leading shard axis, and the local op."""
+    ``device`` with a leading shard axis, and the local op.
+    ``dd_skip_mxu`` sends ``kind="dd"`` straight to its non-MXU tier."""
     device = torch.device(device)
     if kind == "segsum":
         nnz_pad = max(max(int(r[-1] - r[0]) for r, _, _ in shards), 1)
@@ -189,15 +287,30 @@ def pack_local_kernel(
             pack_device_csr(rowptr, cc, v.astype(dtype), nnz_pad, nrow=max_m)
             for rowptr, cc, v in shards
         ]
-        arrays = tuple(
-            torch.from_numpy(np.stack([p[i] for p in packs])).to(device)
-            for i in range(3)
-        )
-        return arrays, SegsumOp(max_m)
+        return _stacked(packs, device), SegsumOp(max_m)
+    if kind == "ell":
+        L = _max_row_nnz(shards)
+        packs = [pack_ell(rowptr, cc, v.astype(dtype), max_m, L=L)
+                 for rowptr, cc, v in shards]
+        return _stacked(packs, device), EllOp()
     if kind == "pallas":
         return _pack_pallas(shards, max_m, dtype, mxu_precision, device)
     if kind == "ragged":
         return _pack_ragged(shards, max_m, dtype, mxu_precision, device)
+    if kind == "gather":
+        return _pack_gather(shards, max_m, dtype, mxu_precision, device)
+    if kind == "dd_mxu":
+        return _pack_dd_mxu(shards, max_m, device)
+    if kind == "dd":
+        # on a CUDA device the FP64 tensor cores where the total cover fits,
+        # as the JAX package takes its MXU tier on a TPU; the CPU goes
+        # straight to the non-MXU tier, as JAX does off the TPU
+        if device.type == "cuda" and not dd_skip_mxu:
+            try:
+                return _pack_dd_mxu(shards, max_m, device)
+            except UnsupportedSparsity:
+                pass
+        return _pack_dd(shards, max_m, device)
     if kind in _NOT_PORTED:
         raise UnsupportedSparsity(
             f"kernel kind {kind!r} not yet ported (ROADMAP {_NOT_PORTED[kind]})"
@@ -401,6 +514,16 @@ RAGGED_MIN_PCT = 30  # the JAX default of CRP_TPU_RAGGED_MIN_PCT
 SPILL_IMPLS = ("auto", "segsum", "pallas")
 
 
+def _check_keep_share(mxu_nnz: int, nnz: int) -> None:
+    """Refuse a ragged cover that keeps under RAGGED_MIN_PCT of the
+    nonzeros in panels (``dispatch.py:934-939``)."""
+    if mxu_nnz * 100 < RAGGED_MIN_PCT * nnz:
+        raise UnsupportedSparsity(
+            f"ragged cover keeps only {mxu_nnz * 100 // nnz}% of nnz "
+            f"in panels (min {RAGGED_MIN_PCT}%)"
+        )
+
+
 @dataclasses.dataclass
 class RaggedOp:
     """Local op of the ``pallas``/``ragged`` kinds on a ragged pack.
@@ -409,9 +532,11 @@ class RaggedOp:
     *spill), then the step ranges the CUDA kernels read: ``group_ptr`` and,
     for the fused spill, ``blk_ptr`` (both :func:`first_ptr` of the pack's
     ``first`` arrays).  ``scheme`` picks the ragged kernel: ``"x3"`` (ah,
-    al), ``"bf16"`` (ah), ``"full"`` (fp32/fp64 panels).  ``spill_impl``:
-    ``"none"``, ``"segsum"`` (rows, cols, vals; plain ``index_add_``) or
-    ``"pallas"`` (rel, cols, vals, first, blk; the fused spill kernel).
+    al), ``"bf16"`` (ah), ``"full"`` (fp32/fp64 panels, FMA) or ``"dd"``
+    (fp64 panels of the ``dd_mxu`` total cover, FP64 tensor cores; its
+    variant is ``"dd_mxu"``).  ``spill_impl``: ``"none"``, ``"segsum"``
+    (rows, cols, vals; plain ``index_add_``) or ``"pallas"`` (rel, cols,
+    vals, first, blk; the fused spill kernel).
     """
 
     scheme: str
@@ -419,7 +544,10 @@ class RaggedOp:
     spill_impl: str
     mxu_precision: str
     roofline: dict = dataclasses.field(default_factory=dict)
-    variant = "ragged"
+
+    @property
+    def variant(self) -> str:
+        return "dd_mxu" if self.scheme == "dd" else "ragged"
 
     @property
     def n_panels(self) -> int:
@@ -432,6 +560,7 @@ class RaggedOp:
             "x3": spmm_ragged_presplit,
             "bf16": spmm_ragged_bf16,
             "full": spmm_ragged,
+            "dd": spmm_ragged_dd,
         }[self.scheme]
 
     @property
@@ -441,6 +570,7 @@ class RaggedOp:
             "x3": spmm_ragged_presplit_plain,
             "bf16": spmm_ragged_bf16_plain,
             "full": spmm_ragged_plain,
+            "dd": spmm_ragged_plain,
         }[self.scheme]
 
     spill_kernel = staticmethod(spmm_spill)
@@ -526,7 +656,8 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     "auto" takes the fused spill kernel for a dense spill (at least one
     spilled nnz per output row) of an fp32 pack on a CUDA device, and
     ``segsum`` otherwise.  Raises UnsupportedSparsity when the cover keeps
-    under 30% of the nonzeros in panels.
+    under 30% of the nonzeros in panels; where the cover's own count
+    settles that, before any panel is filled.
     """
     if spill_impl not in SPILL_IMPLS:
         raise ValueError(f"spill_impl={spill_impl!r} not in {SPILL_IMPLS}")
@@ -555,11 +686,18 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     nrow = len(rowptr64) - 1
     G_s = max(-(-nrow // TM), 1)
     # the bf16 modes cap at fp32 bytes, as the JAX direct-bf16 pack does
-    starts_s, group_ptr_s, _ = cover_with_cap(
+    starts_s, group_ptr_s, spill_s = cover_with_cap(
         rowptr64, cc32, TM, Wc,
         default_min_chunk_nnz(TM, Wc) if min_chunk_nnz is None else min_chunk_nnz,
         G_s, PANEL_CAP_BYTES, np.dtype(pack_dtype).itemsize,
     )
+    # The keep share before the fill.  The cover's spill count bounds the
+    # fill's from above: a group that keeps no chunk gets a dummy chunk over
+    # [0, Wc), which takes back its nonzeros there.  So with every column
+    # below Wc taken back, a cover still under the share is refused here,
+    # uploading no panel; the fill's own count decides the rest (below), as
+    # in the JAX pack.
+    _check_keep_share(nnz - spill_s + int(np.count_nonzero(cc32[:nnz] < Wc)), nnz)
     G = max(-(-max_m // TM), G_s)
     first_s = np.zeros(len(starts_s), np.int32)
     first_s[group_ptr_s[:-1]] = 1
@@ -575,11 +713,7 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     )
     Z = len(spill[0])
     mxu_nnz = nnz - Z
-    if mxu_nnz * 100 < RAGGED_MIN_PCT * nnz:
-        raise UnsupportedSparsity(
-            f"ragged cover keeps only {mxu_nnz * 100 // nnz}% of nnz "
-            f"in panels (min {RAGGED_MIN_PCT}%)"
-        )
+    _check_keep_share(mxu_nnz, nnz)
 
     sp_impl = spill_impl if Z else "segsum"
     if sp_impl == "auto":
@@ -627,6 +761,111 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     return arrays, op
 
 
+def _pack_gather(shards, max_m, dtype, mxu_precision, device, *, TMo=SPILL_TMO,
+                 Q=SPILL_Q):
+    """The ``gather`` kind (``dispatch.py:1161-1224``): every nonzero in
+    the block steps of the fused spill, no cover and no scatter.  fp32 only;
+    ``TMo``/``Q`` stand for ``CRP_TPU_SPILL_TMO``/``_Q``.  The output has
+    its own ``M = ceil(max_m / TMo) * TMo`` rows: TMo is never halved to
+    divide another pack's rows, as the ragged pack's fused spill does."""
+    if np.dtype(dtype) != np.float32:
+        raise UnsupportedSparsity("gather kernel is fp32-only")
+    if TMo % 128 or Q % 128:
+        raise ValueError(f"TMo={TMo} and Q={Q} must be multiples of 128")
+    M = -(-max_m // TMo) * TMo
+    nblk = M // TMo
+    total_nnz = 0
+    blk_counts = []
+    for rowptr, _, _ in shards:
+        nrow = len(rowptr) - 1
+        idx = np.minimum(np.arange(nblk + 1, dtype=np.int64) * TMo, max(nrow, 0))
+        blk_counts.append(np.diff(rowptr[idx]).astype(np.int64))
+        total_nnz += int(rowptr[-1]) - int(rowptr[0]) if nrow > 0 else 0
+    if total_nnz == 0:
+        raise UnsupportedSparsity("all shards empty")
+    step_base = gather_step_layout(blk_counts, Q)
+    packs = [
+        pack_gather_blocks(rowptr, cc, v, step_base, M, TMo=TMo, Q=Q)
+        for rowptr, cc, v in shards
+    ]
+    ns = int(step_base[-1])
+    roofline = dict(
+        G=nblk, TM=TMo, W=Q, S=ns,
+        a_bytes=sum(x.nbytes for p in packs for x in p),
+        b_rows_read=ns * Q, c_rows=M, b_itemsize=4,
+        spill_nnz=total_nnz, mxu_frac=0.0,
+        passes={"x3": 2, "highest": 6, "default": 1}.get(mxu_precision, 1),
+    )
+    packs = [(*p, first_ptr(p[3])) for p in packs]
+    return _stacked(packs, device), GatherOp(M, mxu_precision, roofline)
+
+
+def _pack_dd_mxu(shards, max_m, device, *, max_panel_bytes=PANEL_CAP_BYTES):
+    """The ``dd_mxu`` kind, p = 1 (``dispatch.py:1227-1311``): the ragged
+    total cover of :func:`ragged_dd_cover` with fp64 panels filled on the
+    device, the stacking discipline of the ragged pack (dummy chunks for
+    pad groups, which come out zero).  Refuses as the JAX pack does: a
+    spill under the panel cap (``max_panel_bytes``, for
+    ``CRP_TPU_RAGGED_PANEL_GB``), the slice-plane cap."""
+    if len(shards) != 1:
+        raise UnsupportedSparsity(
+            "multi-shard dd_mxu packs need p > 1 engines (ROADMAP Queue A #8)"
+        )
+    rowptr, cc, v = shards[0]
+    nnz = int(rowptr[-1]) - int(rowptr[0]) if len(rowptr) > 1 else 0
+    if nnz == 0:
+        raise UnsupportedSparsity("all shards empty")
+    TM, Wc = dd_mxu_geometry(small=device.type == "cpu")
+    rowptr64 = np.ascontiguousarray(rowptr, dtype=np.int64)
+    cc32 = np.ascontiguousarray(cc, dtype=np.int32)
+    G_s = max(-(-(len(rowptr64) - 1) // TM), 1)
+    starts_s, group_ptr_s = ragged_dd_cover(rowptr64, cc32, TM, Wc, G_s,
+                                            max_panel_bytes)
+    G = max(-(-max_m // TM), G_s)
+    first_s = np.zeros(len(starts_s), np.int32)
+    first_s[group_ptr_s[:-1]] = 1
+    a_g, a_first, a_starts, S = _extend_and_stack_steps(
+        [(starts_s, np.repeat(np.arange(G_s, dtype=np.int32), np.diff(group_ptr_s)),
+          first_s, G_s)],
+        G,
+    )
+    group_ptr = first_ptr(a_first[0])
+    panels, _, spill = device_pack.ragged_fill(
+        rowptr64, cc32, v, TM, Wc, a_starts[0], group_ptr, "f64", device,
+    )
+    if len(spill[0]):
+        raise UnsupportedSparsity(
+            f"dd_mxu total cover infeasible under panel cap ({len(spill[0])} "
+            f"nnz would spill)"
+        )
+    arrays = (
+        *(torch.from_numpy(x).to(device) for x in (a_g, a_first, a_starts)),
+        panels[None],
+        torch.from_numpy(group_ptr[None]).to(device),
+    )
+    roofline = dict(
+        G=G, TM=TM, W=Wc, a_bytes=panels.numel() * panels.element_size(),
+        b_rows_read=S * Wc, c_rows=G * TM, b_itemsize=8,
+        S=S, spill_nnz=0, mxu_frac=1.0, passes=1,
+    )
+    return arrays, RaggedOp("dd", int(a_starts.max()) + Wc, "none", "highest",
+                            roofline)
+
+
+def _pack_dd(shards, max_m, device):
+    """The ``dd`` kind's non-MXU tier in fp64 (``dispatch.py:236-291``):
+    ELL for at most ELL_MAX_L nonzeros per row, else the chunked
+    segment-sum.  The JAX package's 4M-nnz cap on the segment-sum tier is
+    not kept (see :mod:`.spmm_dd`)."""
+    L = _max_row_nnz(shards)
+    if L <= ELL_MAX_L:
+        packs = [pack_ell_dd(rowptr, cc, v, max_m, L=L) for rowptr, cc, v in shards]
+        return _stacked(packs, device), DDOp("ell", max_m)
+    nnz_pad = max(max(int(r[-1] - r[0]) for r, _, _ in shards), 1)
+    packs = [pack_coo_dd(rowptr, cc, v, nnz_pad, max_m) for rowptr, cc, v in shards]
+    return _stacked(packs, device), DDOp("segsum", max_m)
+
+
 def _tensor_from_jax(x: np.ndarray) -> torch.Tensor:
     x = np.ascontiguousarray(x)
     if x.dtype == np.uint16:  # bf16 bits
@@ -643,11 +882,32 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
     (ws, ah, al, bases) at x3, (ws, ah, bases) for the 1-pass bf16 pack,
     (ws, tiles, bases) for fp32/fp64; for ``variant="ragged"`` the ragged
     pack's (step_g, step_first, starts, *panels, *spill), to which the step
-    ranges the CUDA kernels read are appended.  One pack then feeds both
-    packages.
+    ranges the CUDA kernels read are appended; for ``variant="gather"`` the
+    gather pack's (rel, cols, vals, first, blk), plus ``blk_ptr``, its
+    output rows and operating point read from ``roofline`` (G blocks of TM
+    rows, passes); for ``variant="dd_mxu"`` the dd_mxu pack's (step_g,
+    step_first, starts, mu, slices), whose fp64 panels are rebuilt as
+    ``mu * sum_p slice_p * 2**(-7 (p + 1))`` (exact in fp64: 7 slices of 7
+    bits and a power-of-two scale).  One pack then feeds both packages.
     """
     roofline = dict(roofline or {})
+    if variant == "dd_mxu":
+        g, first, starts, mu, sl = (_tensor_from_jax(x).to(device) for x in arrays)
+        panels = torch.zeros(sl.shape[0:1] + sl.shape[2:], dtype=torch.float64,
+                             device=device)
+        for p in range(sl.shape[1]):
+            panels += sl[:, p].double() * 2.0 ** (-7 * (p + 1))
+        panels *= mu.double()[..., None]
+        group_ptr = first_ptr(arrays[1][0])
+        roofline.update(a_bytes=panels.numel() * panels.element_size(), passes=1)
+        return ((g, first, starts, panels, torch.from_numpy(group_ptr[None]).to(device)),
+                RaggedOp("dd", int(min_b_rows), "none", "highest", roofline))
     tensors = tuple(_tensor_from_jax(x).to(device) for x in arrays)
+    if variant == "gather":
+        blk_ptr = torch.from_numpy(first_ptr(arrays[3][0])[None]).to(device)
+        prec = {2: "x3", 6: "highest", 1: "default"}[roofline["passes"]]
+        return (*tensors, blk_ptr), GatherOp(roofline["G"] * roofline["TM"], prec,
+                                             roofline)
     if variant == "ragged":
         bf = [t.dtype == torch.bfloat16 for t in tensors[3:5]]
         scheme = "x3" if all(bf) and len(bf) == 2 else ("bf16" if bf[0] else "full")

@@ -18,14 +18,24 @@ original.  The JAX environment knobs (``CRP_TPU_RAGGED_*``,
 defaults.  The cover is vectorized over groups (:func:`ragged_cover`); the
 per-group loop :func:`ragged_cover_np` stays as its test twin.
 
-The kernels are CUDA kernels for Hopper, one per operating point and one
-for the spill:
+The ``gather`` kind packs every nonzero of a shard the way the fused spill
+packs the spilled ones (:func:`pack_gather_blocks`): it serves any CSR,
+scrambled power-law graphs included, where the ragged cover refuses.
+
+The kernels are CUDA kernels for Hopper, one per operating point, one for
+the spill and one for the gather kind:
 
   * :func:`spmm_ragged_presplit` — ``x3`` (``csrc/ragged.cu``);
   * :func:`spmm_ragged_bf16` — ``default`` (``csrc/ragged.cu``);
   * :func:`spmm_ragged` — ``highest`` fp32 and fp64 (``csrc/ragged.cu``);
   * :func:`spmm_spill` — C plus the spilled nonzeros, fp32
-    (``csrc/spill.cu``).
+    (``csrc/spill.cu``);
+  * :func:`spmm_gather` — the same block body with no C, fp32
+    (``csrc/spill.cu``).  The JAX wrapper ``spmm_gather_chunked`` splits
+    its steps into chunks under ``CRP_TPU_GATHER_GB`` because XLA
+    materializes ``take(b, cols)`` as a (steps * Q, n) stream; the CUDA
+    kernel reads ``B[cols[q]]`` itself, so nothing is materialized and
+    one launch takes every step.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
@@ -461,6 +471,72 @@ def first_ptr(first: np.ndarray) -> np.ndarray:
     ).astype(np.int32)
 
 
+# ------------------------------------------------------------- gather packs
+
+
+def gather_step_layout(
+    blk_counts_list: list[np.ndarray], Q: int
+) -> np.ndarray:
+    """Step layout of the ``gather`` kind shared by all shards
+    (``spmm_ragged.py:1186-1199``): per output block, the most steps any
+    shard needs (``ceil(count / Q)``, at least 1); returns the (nblk + 1,)
+    int64 step offsets."""
+    steps = np.maximum.reduce(
+        [-(-c // Q) for c in blk_counts_list]
+    )
+    steps = np.maximum(steps, 1)
+    step_base = np.zeros(len(steps) + 1, dtype=np.int64)
+    np.cumsum(steps, out=step_base[1:])
+    return step_base
+
+
+def pack_gather_blocks(
+    rowptr: np.ndarray,
+    colidx: np.ndarray,
+    val: np.ndarray,
+    step_base: np.ndarray,
+    M: int,
+    TMo: int = 128,
+    Q: int = 128,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """A whole CSR shard as gather steps (``spmm_ragged.py:1202-1251``):
+    every nonzero, ordered by (output block, column), in the slots of its
+    block's steps of :func:`gather_step_layout`.  Returns (rel (ns, 1, Q),
+    cols (ns, Q), vals (ns, Q), first (ns,), blk (ns,)); pad slots carry
+    rel == TMo and val 0."""
+    nblk = M // TMo
+    ns = int(step_base[-1])
+    nrow = len(rowptr) - 1
+    counts = np.diff(rowptr)
+    base = int(rowptr[0]) if nrow >= 0 and len(rowptr) else 0
+    nnz = int(rowptr[-1]) - base if len(rowptr) > 1 else 0
+    r = np.repeat(np.arange(nrow, dtype=np.int64), counts)
+    c = np.asarray(colidx)[base : base + nnz]
+    v = np.asarray(val, dtype=np.float32)[base : base + nnz]
+    order = np.lexsort((c, r // TMo))
+    r, c, v = r[order], c[order], v[order]
+    rel = np.full((ns, Q), TMo, dtype=np.int32)
+    cols = np.zeros((ns, Q), dtype=np.int32)
+    vals = np.zeros((ns, Q), dtype=np.float32)
+    blk = np.repeat(
+        np.arange(nblk, dtype=np.int32), np.diff(step_base).astype(np.int64)
+    )
+    first = np.zeros(ns, dtype=np.int32)
+    first[step_base[:-1]] = 1
+    z = len(r)
+    if z:
+        blk_of = r // TMo
+        bcnt = np.bincount(blk_of, minlength=nblk)
+        starts = np.zeros(nblk + 1, dtype=np.int64)
+        np.cumsum(bcnt, out=starts[1:])
+        k = np.arange(z, dtype=np.int64) - starts[blk_of]
+        step_of = step_base[blk_of] + k // Q
+        slot = k % Q
+        rel[step_of, slot] = (r - blk_of * TMo).astype(np.int32)
+        cols[step_of, slot] = c
+        vals[step_of, slot] = v
+    return rel[:, None, :], cols, vals, first, blk
+
 
 
 # ------------------------------------------------------------ plain versions
@@ -518,6 +594,13 @@ def spmm_spill_plain(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision="highest
         )
         out.index_add_(0, rows, contrib)
     return out
+
+
+def spmm_gather_plain(rel, cols, vals, blk, blk_ptr, b, M, mxu_precision="highest"):
+    """Every packed nonzero as an (M, n) fp32 product in plain PyTorch:
+    :func:`spmm_spill_plain` onto a zero C."""
+    c = torch.zeros((M, b.shape[1]), dtype=torch.float32, device=b.device)
+    return spmm_spill_plain(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision)
 
 
 def spmm_spill_chunked(rows, cols, vals, b, nrow: int):
@@ -643,6 +726,29 @@ spmm_ragged.launches = 0
 SPILL_MODES = {"highest": 0, "x3": 1, "default": 2}
 
 
+def _check_block_args(name, M, rel, cols, vals, blk, blk_ptr, b, c=None):
+    """Validate the block-step arrays of the spill and gather kernels;
+    returns (nblk, TMo, Q, n)."""
+    n = b.shape[1]
+    ns, _, Q = rel.shape
+    nblk = blk_ptr.shape[0] - 1
+    checks = [
+        (rel, "rel", (ns, 1, Q), torch.int32), (cols, "cols", (ns, Q), torch.int32),
+        (vals, "vals", (ns, Q), torch.float32), (blk, "blk", (ns,), torch.int32),
+        (blk_ptr, "blk_ptr", (nblk + 1,), torch.int32),
+        (b, "b", (b.shape[0], n), torch.float32),
+    ]
+    if c is not None:
+        checks.append((c, "c", (M, n), torch.float32))
+    for arr, label, shape, dt in checks:
+        if arr.dtype != dt or tuple(arr.shape) != shape or not arr.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous {dt} of shape "
+                             f"{shape}; got {arr.dtype} {tuple(arr.shape)}")
+    if nblk < 1 or M % nblk or M // nblk > 1024:
+        raise ValueError(f"{name}: M={M} is not {nblk} blocks of at most 1024 rows")
+    return nblk, M // nblk, Q, n
+
+
 def spmm_spill(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision="highest"):
     """C plus the spilled nonzeros, fp32: for each TMo-row output block and
     its consecutive steps, ``C[blk*TMo + rel[q]] += vals[q] * B[cols[q]]``
@@ -655,26 +761,14 @@ def spmm_spill(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision="highest"):
         raise ValueError(f"{name}: unknown mxu_precision {mxu_precision!r}")
     if _placement(name, c, rel, cols, vals, blk, blk_ptr, b) == "cpu":
         return spmm_spill_plain(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision)
-    M, n = c.shape
-    ns, _, Q = rel.shape
-    nblk = blk_ptr.shape[0] - 1
-    for arr, label, shape, dt in (
-        (c, "c", (M, n), torch.float32), (rel, "rel", (ns, 1, Q), torch.int32),
-        (cols, "cols", (ns, Q), torch.int32), (vals, "vals", (ns, Q), torch.float32),
-        (blk, "blk", (ns,), torch.int32), (blk_ptr, "blk_ptr", (nblk + 1,), torch.int32),
-        (b, "b", (b.shape[0], n), torch.float32),
-    ):
-        if arr.dtype != dt or tuple(arr.shape) != shape or not arr.is_contiguous():
-            raise ValueError(f"{name}: {label} must be contiguous {dt} of shape "
-                             f"{shape}; got {arr.dtype} {tuple(arr.shape)}")
-    if nblk < 1 or M % nblk or M // nblk > 1024:
-        raise ValueError(f"{name}: M={M} is not {nblk} blocks of at most 1024 rows")
+    nblk, TMo, Q, n = _check_block_args(name, c.shape[0], rel, cols, vals, blk,
+                                        blk_ptr, b, c)
     out = torch.empty_like(c)
     _launch(
         "crp_spill_blocks",
         (rel.data_ptr(), cols.data_ptr(), vals.data_ptr(), blk_ptr.data_ptr(),
          c.data_ptr(), b.data_ptr(), out.data_ptr()),
-        (nblk, M // nblk, Q, n, SPILL_MODES[mxu_precision]), b.device,
+        (nblk, TMo, Q, n, SPILL_MODES[mxu_precision]), b.device,
     )
     spmm_spill.launches += 1
     return out
@@ -682,4 +776,33 @@ def spmm_spill(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision="highest"):
 
 spmm_spill.launches = 0
 
-KERNELS = (spmm_ragged_presplit, spmm_ragged_bf16, spmm_ragged, spmm_spill)
+
+def spmm_gather(rel, cols, vals, blk, blk_ptr, b, M, mxu_precision="highest"):
+    """Every packed nonzero as a new (M, n) fp32 product: for each TMo-row
+    output block, ``C[blk*TMo + rel[q]] = sum of vals[q] * B[cols[q]]`` over
+    its live slots, rounded as at ``mxu_precision``; a block with no live
+    slot comes out zero.  The spill kernel with no C operand; its sum order
+    within a row varies from run to run.  Replaces ``spmm_gather_chunked``
+    (``spmm_ragged.py:1254``, kernel ``_spill_block_kernel`` ``:1047`` with
+    ``has_c=False``)."""
+    name = "spmm_gather"
+    if mxu_precision not in SPILL_MODES:
+        raise ValueError(f"{name}: unknown mxu_precision {mxu_precision!r}")
+    if _placement(name, rel, cols, vals, blk, blk_ptr, b) == "cpu":
+        return spmm_gather_plain(rel, cols, vals, blk, blk_ptr, b, M, mxu_precision)
+    nblk, TMo, Q, n = _check_block_args(name, M, rel, cols, vals, blk, blk_ptr, b)
+    out = torch.empty((M, n), dtype=torch.float32, device=b.device)
+    _launch(
+        "crp_gather_blocks",
+        (rel.data_ptr(), cols.data_ptr(), vals.data_ptr(), blk_ptr.data_ptr(),
+         b.data_ptr(), out.data_ptr()),
+        (nblk, TMo, Q, n, SPILL_MODES[mxu_precision]), b.device,
+    )
+    spmm_gather.launches += 1
+    return out
+
+
+spmm_gather.launches = 0
+
+KERNELS = (spmm_ragged_presplit, spmm_ragged_bf16, spmm_ragged, spmm_spill,
+           spmm_gather)

@@ -15,14 +15,17 @@ import torch
 
 from crp_tpu.config import SpmmConfig
 from crp_tpu.plan.partition1d import csr_row_partition
+from crp_tpu.sparse.csr import CSRMatrix
 from crp_tpu.sparse.synth import (
     banded_random_csr, fill_b, powerlaw_community_csr, powerlaw_random_csr,
 )
 from crp_tpu.utils.norms import rel_fro_err
 
 from crp_tpu_torch.engine.rowpara import RowParaSpmm
-from crp_tpu_torch.kernels import spmm_ragged
-from crp_tpu_torch.kernels.dispatch import _pack_ragged, pack_local_kernel
+from crp_tpu_torch.kernels import spmm_dd_mxu, spmm_ragged
+from crp_tpu_torch.kernels.dispatch import (
+    _pack_dd_mxu, _pack_gather, _pack_ragged, pack_local_kernel,
+)
 
 # (mxu_precision, dtype, bound vs the fp64 reference)
 POINTS = [
@@ -198,3 +201,105 @@ def test_ragged_engine_on_card_matches_engine_on_cpu(cuda_device, prec):
     rB = gpu.shard_b(b)[0]
     plain = op.spill_plain(*op.spill_args(arrs, op.plain(*op.kernel_args(arrs, rB)), rB))
     assert rel_fro_err(gpu.unshard_c(plain[None]).astype(np.float64), c_gpu) <= 1e-6
+
+
+def _without_column_0(a):
+    """``a`` without its column-0 entries: a NaN in B row 0 then reaches
+    the product only through a pad slot (whose column is 0)."""
+    rows = np.repeat(np.arange(a.nrow), np.diff(a.rowptr))
+    keep = a.colidx != 0
+    return CSRMatrix.from_coo(a.nrow, a.ncol, rows[keep], a.colidx[keep],
+                              a.val[keep], dtype=a.val.dtype)
+
+
+@pytest.mark.parametrize("prec", ["highest", "x3", "default"])
+def test_gather_kernel_matches_plain(cuda_device, prec):
+    """Scrambled power-law pack with trailing blocks that hold no nonzero:
+    pad slots are skipped (B row 0 is NaN), empty blocks come out zero, and
+    the kernel agrees with its plain version to 1e-6 relative Frobenius
+    (the same rounded products summed in another order)."""
+    a = _without_column_0(powerlaw_community_csr(20000, 16, 1024, seed=13,
+                                                 permute=True, dtype=np.float32))
+    arrays, op = _pack_gather([(a.rowptr, a.colidx.astype(np.int32), a.val)],
+                              a.nrow + 700, np.float32, prec, cuda_device)
+    arrs = tuple(x[0] for x in arrays)
+    rng = np.random.default_rng(5)
+    for n in (16, 48, 100, 256):
+        b = rng.standard_normal((a.ncol, n)).astype(np.float32)
+        b[0] = np.nan
+        args = op.kernel_args(arrs, torch.from_numpy(b).to(cuda_device))
+        before = spmm_ragged.spmm_gather.launches
+        k = op.kernel(*args)
+        assert spmm_ragged.spmm_gather.launches == before + 1
+        p = op.plain(*args)
+        assert k.shape == p.shape == (op.M, n) and bool(torch.isfinite(k).all())
+        assert float((k - p).double().norm() / p.double().norm()) <= 1e-6
+        assert not torch.any(k[a.nrow:])  # blocks with no nonzero are zero
+
+
+@pytest.mark.parametrize("prec", ["x3", "default", "highest"])
+def test_scrambled_auto_lands_on_gather(cuda_device, prec):
+    """The scrambled graph through kernel="auto" on the card: the ragged
+    cover refuses, the walk lands on gather, its kernel launches, and the
+    product is within the point's class of the fp64 reference."""
+    a = powerlaw_community_csr(65536, 16, 1024, seed=7, permute=True,
+                               dtype=np.float32)
+    displs = csr_row_partition(a.rowptr, 1)
+    b = fill_b(0, a.ncol, 0, 48, dtype=np.float32)
+    eng = RowParaSpmm(a, displs, displs, 48, device=cuda_device,
+                      config=SpmmConfig(kernel="auto", mxu_precision=prec),
+                      dtype=np.float32)
+    assert eng.kernel_kind == eng._local_op.variant == "gather"
+    before = spmm_ragged.spmm_gather.launches
+    c = eng.exec(b)
+    assert spmm_ragged.spmm_gather.launches == before + 1
+    tol_ref = {"x3": 1e-5, "default": 5e-3, "highest": 1e-6}[prec]
+    assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), c) <= tol_ref
+
+
+DD_MATS = {
+    "banded": lambda: banded_random_csr(5000, nnz_per_row=9, bandwidth=300, seed=93),
+    "cplaw": lambda: powerlaw_community_csr(9000, 9, 256, seed=94),
+}
+
+
+@pytest.mark.parametrize("pack_on", ["cuda", "cpu"])  # Wc = 512 / 256
+@pytest.mark.parametrize("gen", sorted(DD_MATS))
+def test_dd_kernel_matches_plain(cuda_device, gen, pack_on):
+    """The FP64 tensor-core kernel on dd_mxu total covers with pad groups:
+    within 1e-12 relative Frobenius of its plain version (cuBLAS fp64 over
+    the gathered windows), pad rows zero, the n edge masked."""
+    a = DD_MATS[gen]()
+    arrays, op = _pack_dd_mxu([(a.rowptr, a.colidx.astype(np.int32), a.val)],
+                              a.nrow + 300, torch.device(pack_on))
+    assert op.roofline["W"] == (512 if pack_on == "cuda" else 256)
+    arrs = tuple(x[0].to(cuda_device) for x in arrays)
+    for n in (16, 48, 100, 256):
+        rB = torch.from_numpy(_b(a, op.min_b_rows, n, np.float64)).to(cuda_device)
+        args = op.kernel_args(arrs, rB)
+        before = spmm_dd_mxu.spmm_ragged_dd.launches
+        k = op.kernel(*args, min_b_rows=op.min_b_rows)
+        assert spmm_dd_mxu.spmm_ragged_dd.launches == before + 1
+        p = op.plain(*args)
+        assert k.dtype == torch.float64 and k.shape == p.shape
+        assert float((k - p).norm() / p.norm()) <= 1e-12
+        assert not torch.any(k[a.nrow:])  # pad groups come out zero
+        ref = a.spmm_ref(fill_b(0, a.ncol, 0, n))
+        assert rel_fro_err(ref, k[: a.nrow].cpu().numpy()) <= 1e-12
+
+
+@pytest.mark.parametrize("kernel", ["dd", "dd_mxu"])
+def test_dd_engine_on_card(cuda_device, kernel):
+    """kernel="dd" takes the FP64 tensor cores on the card (the CPU takes
+    the non-MXU tier); both kinds land at the reference's 1e-12 from an
+    fp32 engine dtype (the dd kinds compute in fp64 regardless)."""
+    a = banded_random_csr(3000, nnz_per_row=9, bandwidth=150, seed=7)
+    displs = csr_row_partition(a.rowptr, 1)
+    eng = RowParaSpmm(a, displs, displs, 24, device=cuda_device,
+                      config=SpmmConfig(kernel=kernel), dtype=np.float32)
+    assert eng.kernel_kind == kernel and eng._local_op.variant == "dd_mxu"
+    b = np.random.default_rng(0).standard_normal((a.ncol, 24))
+    before = spmm_dd_mxu.spmm_ragged_dd.launches
+    c = eng.exec(b)
+    assert spmm_dd_mxu.spmm_ragged_dd.launches == before + 1
+    assert c.dtype == np.float64 and rel_fro_err(a.spmm_ref(b), c) <= 1e-12

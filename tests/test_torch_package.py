@@ -27,13 +27,20 @@ from crp_tpu_torch import (
     rel_fro_err,
 )
 from crp_tpu_torch import powerlaw_community_csr
-from crp_tpu_torch.kernels import _build, device_pack, dispatch, spmm_pallas, spmm_ragged
+from crp_tpu_torch.kernels import (
+    _build, device_pack, dispatch, spmm_dd, spmm_dd_mxu, spmm_ell, spmm_pallas,
+    spmm_ragged,
+)
 
 errs = {}
 for kernel, a in (
     ("pallas", banded_random_csr(900, nnz_per_row=6, bandwidth=40, seed=1,
                                  dtype=np.float32)),
     ("ragged", powerlaw_community_csr(3000, 16, 1024, seed=2, dtype=np.float32)),
+    ("gather", powerlaw_community_csr(3000, 4, 1024, seed=2, permute=True,
+                                      dtype=np.float32)),
+    ("dd", powerlaw_community_csr(3000, 16, 1024, seed=2)),
+    ("dd_mxu", banded_random_csr(900, nnz_per_row=6, bandwidth=40, seed=1)),
 ):
     d = csr_row_partition(a.rowptr, 1)
     b = fill_b(0, a.ncol, 0, 16, dtype=np.float32)
@@ -55,9 +62,11 @@ def test_port_runs_without_jax_and_ml_dtypes():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     errs = json.loads(proc.stdout.strip().splitlines()[-1])
-    for kernel in ("pallas", "ragged"):
+    for kernel in ("pallas", "ragged", "gather"):
         assert errs[f"{kernel} x3"] <= 1e-5 and errs[f"{kernel} default"] <= 5e-3
         assert errs[f"{kernel} highest"] <= 1e-6
+    for kernel in ("dd", "dd_mxu"):  # fp64 class at every point
+        assert max(errs[f"{kernel} {p}"] for p in ("x3", "default", "highest")) <= 1e-12
 
 
 def _assert_no_result(proc):

@@ -294,6 +294,49 @@ def test_ragged_refuses_thin_covers():
         td._pack_ragged(shard, a.nrow, np.float32, "x3", CPU, spill_impl="clip")
 
 
+@pytest.mark.parametrize("TM,Wc", [(128, 256), (256, 128), (512, 512)])
+def test_cover_spill_count_equals_fill(mat, TM, Wc):
+    """The cover's spill count is the fill's wherever a group keeps a chunk
+    (the thresholds the packs use); a group that keeps none gets a dummy
+    chunk over [0, Wc), which takes back its nonzeros there, so the fill's
+    count lies between the cover's less the nonzeros below Wc and the
+    cover's: the bound the pack's keep-share check reads before the fill."""
+    from crp_tpu_torch.kernels import device_pack
+
+    rowptr = np.asarray(mat.rowptr, np.int64)
+    colidx = np.asarray(mat.colidx, np.int32)
+    G = max(-(-mat.nrow // TM), 1)
+    for mn in (1, 20, ts.default_min_chunk_nnz(TM, Wc), 10_000):
+        starts, group_ptr, spill = ts.cover_with_cap(rowptr, colidx, TM, Wc, mn, G,
+                                                     ts.PANEL_CAP_BYTES, 4)
+        Z = len(device_pack.ragged_fill(rowptr, colidx, mat.val, TM, Wc, starts,
+                                        group_ptr, "f32", CPU)[2][0])
+        if mn < 10_000:
+            assert Z == spill
+        assert spill - np.count_nonzero(colidx < Wc) <= Z <= spill
+
+
+def test_thin_cover_refuses_before_the_fill(monkeypatch):
+    """A scrambled power-law graph: the ragged pack refuses on the cover's
+    own count, with no panel filled, where the JAX pack refuses after its
+    fill."""
+    from crp_tpu.kernels.spmm_pallas import UnsupportedSparsity as JaxUnsupported
+
+    from crp_tpu_torch.kernels import device_pack
+
+    def no_fill(*args, **kw):
+        raise AssertionError("the fill ran")
+
+    a = powerlaw_community_csr(20000, 4, 1024, seed=3, permute=True, dtype=np.float32)
+    shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
+    with pytest.raises(JaxUnsupported, match="30%"):
+        jd.pack_local_kernel(shard, a.nrow, np.float32, "ragged", mxu_precision="x3")
+    monkeypatch.setattr(device_pack, "ragged_fill", no_fill)
+    for prec in ("x3", "default", "highest"):
+        with pytest.raises(UnsupportedSparsity, match="30%"):
+            td._pack_ragged(shard, a.nrow, np.float32, prec, CPU)
+
+
 def test_local_op_from_jax_pack_feeds_both(no_knobs):
     no_knobs.setenv("CRP_TPU_RAGGED_TM", "128")
     no_knobs.setenv("CRP_TPU_RAGGED_WC", "256")
@@ -418,5 +461,8 @@ def test_wrappers_refuse_bad_arguments():
         ts.spmm_ragged(*args[:4], args[4].to("meta"), min_b_rows=rw.min_b_rows)
     with pytest.raises(ValueError, match="mxu_precision"):
         ts.spmm_spill(*[torch.zeros(1)] * 7, "bf16")
+    with pytest.raises(ValueError, match="mxu_precision"):
+        ts.spmm_gather(*[torch.zeros(1)] * 6, 512, "bf16")
     assert [k.__name__ for k in ts.KERNELS] == [
-        "spmm_ragged_presplit", "spmm_ragged_bf16", "spmm_ragged", "spmm_spill"]
+        "spmm_ragged_presplit", "spmm_ragged_bf16", "spmm_ragged", "spmm_spill",
+        "spmm_gather"]

@@ -144,14 +144,18 @@ def test_ragged_matches_jax(prec, dtype, tol):
 @pytest.mark.parametrize("change,match", [
     (dict(overlap=1), "Queue A #8"),
     (dict(kernel="pallas_halo"), "Queue A #10"),
-    (dict(kernel="dd"), "Queue A #7"),
-    (dict(kernel="dd_mxu"), "Queue A #7"),
+    (dict(kernel="dd", overlap=1), "incompatible with overlap"),
+    (dict(kernel="dd_mxu", bc_layout=1), "BC_layout"),
     (dict(bc_layout=1), "Queue A #3"),
 ])
 def test_unported_options_raise(change, match):
+    """Unported options raise NotImplementedError naming their ROADMAP
+    item; the dd kinds, now ported, keep the JAX engine's ValueError
+    refusals of overlap and bc_layout (``rowpara.py:125-135``)."""
     a = banded_random_csr(300, nnz_per_row=5, bandwidth=20, seed=1)
     displs = csr_row_partition(a.rowptr, 1)
-    with pytest.raises(NotImplementedError, match=match):
+    exc = ValueError if change.get("kernel", "").startswith("dd") else NotImplementedError
+    with pytest.raises(exc, match=match):
         RowParaSpmm(a, displs, displs, 8, device="cpu", config=SpmmConfig(**change))
 
 
