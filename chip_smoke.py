@@ -43,11 +43,45 @@ and then, failing on the first check that does not hold:
    3,402) on the FP64 tensor cores at <= 1e-12; on its pack the kernel
    against its plain version, the fp64 FMA ragged kernel and cuSPARSE in
    fp64; then the fp64 cplaw (segment-sum tier) and the pwtk-class
-   headline (ELL tier) with ``kernel="dd"`` at <= 1e-12.
+   headline (ELL tier) with ``kernel="dd"`` at <= 1e-12;
+9. window phase — the non-super-grouped windowed kernel (#4) against its
+   plain version at x3, default, highest and fp64 on a 4-shard pack (pad
+   groups, an empty shard) and on a single-shard pack with non-monotone
+   windows, n in {16, 100, 256};
+10. halo phase — the fused halo kernel (#12: one launch over 4 shards,
+   each reading its windows straight from the owner shards' rows) against
+   its plain version (the pushes into window buffers, then the windowed
+   product) at x3, default, highest and fp64, n in {16, 100, 256};
+11. headline at p = 4 — the headline matrix in 4 nnz-balanced row shards
+   on the one card through ``RowParaSpmm(kernel="auto")`` at x3, default
+   and highest: ``auto`` must resolve to the fused ``pallas_halo`` kernel
+   and launch it once per exec, within each point's class; then
+   ``kernel="pallas"`` at each point with the all_to_all exchange, and at
+   x3 on the ring:
+   the unfused path, windowed kernel #4 on every shard (variant
+   ``"window"``), with the exchange and SpMM phase times and the received
+   and physical rows; each kernel against its plain version at its
+   main-path shape, timed, with cuSPARSE on the same work;
+12. cplaw at p = 4 on the ring (x3): the multi-shard ragged pack with the
+   fused spill, 591,732 received B rows and 627,300 physical ring rows;
+   on the host, the p = 8 exchange plan's received rows times 32 equal the
+   planner's ``comm_cost`` 26,551,360;
+13. ``Para2dSpmm`` — on cplaw at n = 256 over 4 ranks the planner must
+   pick 1 x 4 with ``rA_cost`` 12,170,731 and no B exchange; then a forced
+   2 x 2 grid on the headline at x3 (the fused kernel over the 2 row
+   panels of each column group).
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
-prints no result.  It imports only ``crp_tpu_torch`` of this repository.
+Every kernel's record carries its time, its plain version's, the least
+time the card could take for the product it computes (``bound_ms``, from
+this run's inputs: the CSR and the B rows it references read once and C
+written once, over 3.35 TB/s, or 2 nnz n operations per pass over the
+peak of their type, the larger), the same for the dense panels this
+design multiplies (``design_bound_ms``), and a PyTorch library call's time
+on the same inputs where one computes the same product (cuSPARSE,
+``library_ms``).  The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits 2 and prints no result.  It imports only
+``crp_tpu_torch`` of this repository.
 """
 
 from __future__ import annotations
@@ -84,6 +118,13 @@ TOL_PLAIN_FRO = 1e-6
 # held, per dtype; the spill kernel too (its sum order within a row varies
 # from run to run).
 TOL_RAGGED_FRO = {np.float32: 1e-6, np.float64: 1e-12}
+# the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): HBM3
+# bytes/s, and FLOP/s by the type the products run in
+HBM_BYTES_PER_S = 3.35e12
+PEAK = {"bf16": 989e12, "fp32": 67e12, "fp64": 34e12, "fp64_tc": 67e12}
+CPLAW_P4_RECV, CPLAW_P4_RING_ROWS = 591732, 627300  # r4_cpu_mesh_commvol.jsonl
+CPLAW_P8_COMM_N32 = 26551360  # the planner's comm_cost at n = 32, p = 8
+CPLAW_2D_RA_COST = 12170731   # the 1 x 4 grid's A replication at n = 256
 CSRC = "crp_tpu_torch/kernels/csrc/"
 KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     "spmm_window_sg_presplit": ("window_sg.cu", "crp_tpu/kernels/spmm_pallas.py:415"),
@@ -95,7 +136,11 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     "spmm_spill": ("spill.cu", "crp_tpu/kernels/spmm_ragged.py:1047"),
     "spmm_gather": ("spill.cu", "crp_tpu/kernels/spmm_ragged.py:1047"),
     "spmm_ragged_dd": ("dd_tc.cu", "crp_tpu/kernels/spmm_dd_mxu.py:163"),
+    "spmm_window": ("window.cu", "crp_tpu/kernels/spmm_pallas.py:189"),
+    "spmm_halo": ("halo.cu", "crp_tpu/kernels/spmm_halo.py:185"),
 }
+POINTS = (("x3", np.float32), ("default", np.float32), ("highest", np.float32),
+          ("highest", np.float64))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -172,6 +217,92 @@ def compare(name, run_kernel, run_plain):
     return max_abs, max_abs / max(float(p.abs().max()), 1e-300), rel_fro
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound(n_bytes: float, ops: float, peak: str) -> tuple:
+    """(the least ms the card could take, what bounds it): bytes over the
+    HBM rate against operations over the peak of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def op_point(op, dtype) -> tuple:
+    """(passes, peak) of an op's products: x3 three bf16 products, default
+    one, highest fp32 FMA, fp64 FMA or, for dd, the FP64 tensor cores."""
+    scheme = getattr(op, "scheme", None)
+    prec = getattr(op, "precision", getattr(op, "mxu_precision", None))
+    if op.variant == "gather":  # products on the FMA units at every point
+        return 1, "fp32"
+    if dtype == torch.float64:
+        return 1, ("fp64_tc" if scheme == "dd" else "fp64")
+    if scheme in ("x3", "bf16", "full"):
+        prec = {"x3": "x3", "bf16": "default", "full": "highest"}[scheme]
+    if prec == "x3":
+        return 3, "bf16"
+    if prec == "default":
+        return 1, "bf16"
+    return 1, "fp32"
+
+
+def function_bound(op, work, n, dtype) -> tuple:
+    """Bound of the product itself, ``work`` = (nnz, rows, B rows): the CSR
+    (an int32 column and a value per nonzero, int32 row pointers) and the
+    B rows it references read once, C written once; 2 nnz n operations
+    per pass of the op's point."""
+    nnz, rows, b_rows = work
+    item = 8 if dtype == torch.float64 else 4
+    passes, peak = op_point(op, dtype)
+    n_bytes = nnz * (4 + item) + (rows + 1) * 4 + (b_rows + rows) * n * item
+    return bound(n_bytes, passes * 2.0 * nnz * n, peak)
+
+
+def panel_bound(op, arrs, rB) -> tuple:
+    """Bound of the dense panels this design multiplies (windowed, ragged,
+    dd, halo): its inputs read once (panels, indices, B as it takes it) and
+    its C written once; its operations are the panels' products with B at
+    the op's point."""
+    args = op.kernel_args(arrs, rB)
+    panel = next(t for t in args if isinstance(t, torch.Tensor) and t.dim() >= 3)
+    n = rB.shape[-1]
+    rl = op.roofline
+    rows = rl.get("c_rows", rl["G"] * rl["TM"])
+    passes, peak = op_point(op, panel.dtype)
+    out = 8 if panel.dtype == torch.float64 else 4
+    return bound(nbytes(*args) + rows * n * out,
+                 passes * 2.0 * panel.numel() * n, peak)
+
+
+def block_bound(rel, cols, vals, blk, blk_ptr, b, M, with_c) -> tuple:
+    """Bound of the spill / gather kernels: the packed slots and the
+    distinct B rows their live slots reference read once, C read (spill)
+    and written once; 2 fp32 operations per live slot and column."""
+    TMo = M // (blk_ptr.numel() - 1)
+    live = rel.reshape(cols.shape) < TMo
+    z = int(live.sum())
+    rows_b = int(torch.unique(cols[live]).numel())
+    n = b.shape[1]
+    n_bytes = (nbytes(rel, cols, vals, blk, blk_ptr) + rows_b * n * b.element_size()
+               + M * n * 4 * (2 if with_c else 1))
+    return bound(n_bytes, 2.0 * z * n, "fp32")
+
+
+def csr_library_ms(rowptr, cols, vals, ncols, b) -> float:
+    """cuSPARSE (``torch.sparse_csr_tensor @ B``) on one shard's CSR and
+    the B it reads: the library's time for the same product."""
+    dev = b.device
+    A = torch.sparse_csr_tensor(
+        torch.from_numpy(np.asarray(rowptr, np.int64)).to(dev),
+        torch.from_numpy(np.asarray(cols, np.int64)).to(dev),
+        torch.from_numpy(np.asarray(vals)).to(dev).to(b.dtype),
+        size=(len(rowptr) - 1, ncols), device=dev,
+    )
+    return time_ms(lambda: A @ b)
+
+
 def kernel_vs_plain(op, arrs, rB):
     args = op.kernel_args(arrs, rB)
     return compare(op.kernel.__name__, lambda: launch(op, args),
@@ -185,9 +316,10 @@ def spill_vs_plain(op, arrs, rB):
 
 
 def all_kernels():
-    from crp_tpu_torch.kernels import spmm_dd_mxu, spmm_pallas, spmm_ragged
+    from crp_tpu_torch.kernels import spmm_dd_mxu, spmm_halo, spmm_pallas, spmm_ragged
 
-    return spmm_pallas.KERNELS + spmm_ragged.KERNELS + spmm_dd_mxu.KERNELS
+    return (spmm_pallas.KERNELS + spmm_ragged.KERNELS + spmm_dd_mxu.KERNELS
+            + spmm_halo.KERNELS)
 
 
 def padded_b(a, rows, n, dtype):
@@ -294,6 +426,32 @@ def cusparse_yardstick(a, b, c_ref, device, tag="cusparse") -> float:
     return cus_ms
 
 
+def main_path(eng, b, c_ref, tol, tag, timing=(5, 20)):
+    """The engine's main path through the user's entry point: every launch
+    count set to 0 just before ``eng.exec(b)`` and read just after; the
+    output's shape, finiteness and error against the fp64 reference
+    (within ``tol``) checked; then ``exec_device`` timed (``timing`` =
+    reps, inner calls).  Returns (launches, err, exec ms, B shards)."""
+    from crp_tpu_torch import rel_fro_err
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    c = eng.exec(b)
+    launches = {k.__name__: k.launches for k in kernels}
+    say(f"[{tag}] launches in the main-path exec: {json.dumps(launches)}")
+    check(c.shape == (c_ref.shape[0], N) and bool(np.isfinite(c).all()),
+          f"{tag}: output shape {c.shape} or non-finite values")
+    err = rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64))
+    say(f"[{tag}] rel_fro_err vs fp64 reference (first {ERR_COLS} columns) = "
+        f"{err:.3e} (tol {tol:g})")
+    check(err <= tol, f"{tag}: rel_fro_err {err} > {tol}")
+    bs = eng.shard_b(b)
+    exec_ms = time_ms(lambda: eng.exec_device(bs), *timing)
+    say(f"[{tag}] exec_device {exec_ms:.4f} ms/exec")
+    return launches, err, exec_ms, bs
+
+
 def drive(a, b, c_ref, prec, device, tag, expect, kernel="auto",
           dtype=np.float32, tol=None, timing=(5, 20)):
     """One engine at ``prec`` through the user's entry point: resolve to
@@ -301,7 +459,7 @@ def drive(a, b, c_ref, prec, device, tag, expect, kernel="auto",
     kernel must launch, where the op has one), error against the reference
     (``tol``, default the point's class), exec time (``timing`` = reps,
     inner calls)."""
-    from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition, rel_fro_err
+    from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition
 
     tol = TOL_REF[prec] if tol is None else tol
     displs = csr_row_partition(a.rowptr, 1)
@@ -319,38 +477,32 @@ def drive(a, b, c_ref, prec, device, tag, expect, kernel="auto",
           f"{tag} {prec}: resolved to {eng.kernel_kind!r}/{op.variant!r}, "
           f"expected {expect}")
 
-    kernels = all_kernels()
-    for k in kernels:
-        k.launches = 0
-    c = eng.exec(b)  # the main path, through the user's entry point
-    launches = {k.__name__: k.launches for k in kernels}
-    say(f"[{tag} {prec}] launches in the main-path exec: {json.dumps(launches)}")
+    launches, _, _, bs = main_path(eng, b, c_ref, tol, f"{tag} {prec}", timing)
     if kernel_fn is not None:
         check(launches[kernel_fn.__name__] > 0,
               f"{tag} {prec}: {kernel_fn.__name__} was not launched")
-    check(c.shape == (a.nrow, N) and bool(np.isfinite(c).all()),
-          f"{tag} {prec}: output shape {c.shape} or non-finite values")
-    err = rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64))
-    say(f"[{tag} {prec}] rel_fro_err vs fp64 reference (first {ERR_COLS} "
-        f"columns) = {err:.3e} (tol {tol:g})")
-    check(err <= tol, f"{tag} {prec}: rel_fro_err {err} > {tol}")
-    bs = eng.shard_b(b)
-    exec_ms = time_ms(lambda: eng.exec_device(bs), *timing)
-    say(f"[{tag} {prec}] exec_device {exec_ms:.4f} ms/exec")
     return eng, op, bs, launches
 
 
-def record(name, launches, max_abs, kernel_ms, plain_ms):
+def record(name, launches, max_abs, kernel_ms, plain_ms, bound_ms, bound_by,
+           design_bound_ms, library_ms=None):
     source, replaces = KERNEL_INFO[name]
     return dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,
                 launches=launches, max_abs_err=max_abs, ms=kernel_ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                design_bound_ms=design_bound_ms, library_ms=library_ms)
 
 
-def time_kernel(op, arrs, rB, tag, prec, plain_inner=20, tol=TOL_PLAIN_FRO):
+def csr_work(a) -> tuple:
+    """(nnz, rows, distinct B rows referenced) of a CSR matrix or shard."""
+    return a.nnz, a.nrow, int(np.unique(a.colidx).size)
+
+
+def time_kernel(op, arrs, rB, tag, prec, work, plain_inner=20, tol=TOL_PLAIN_FRO):
     """The op's kernel against its plain version at the main path (relative
-    Frobenius error within ``tol``), and both timed in turns; returns
-    (max_abs_err, kernel ms, plain ms)."""
+    Frobenius error within ``tol``), and both timed in turns; ``work`` is
+    the product's (nnz, rows, B rows).  Returns (max_abs_err, kernel ms,
+    plain ms, bound ms, bound by, design bound ms)."""
     max_abs, rel, rel_fro = kernel_vs_plain(op, arrs, rB)
     name = op.kernel.__name__
     say(f"[{tag} {prec}] {name} vs plain at the main path: rel fro err "
@@ -362,14 +514,24 @@ def time_kernel(op, arrs, rB, tag, prec, plain_inner=20, tol=TOL_PLAIN_FRO):
                                       lambda: op.plain(*args), plain_inner)
     rl = op.roofline
     if op.variant == "gather":
-        work = (f"{rl['spill_nnz']} nnz, {rl['spill_nnz'] * N * 4 / 1e9:.2f} GB "
+        desc = (f"{rl['spill_nnz']} nnz, {rl['spill_nnz'] * N * 4 / 1e9:.2f} GB "
                 f"of gathered B rows")
     else:
-        work = (f"dense-panel work {2.0 * rl.get('S', rl['G']) * rl['TM'] * rl['W'] * N / 1e9:.1f}"
-                f" GFLOP/pass")
+        panels = rl.get("p", 1) * rl.get("S", rl["G"]) * rl["TM"] * rl["W"]
+        desc = f"dense-panel work {2.0 * panels * N / 1e9:.1f} GFLOP/pass"
+    if op.variant == "gather":
+        design_ms, _ = block_bound(*args[:6], op.M, with_c=False)
+        dtype = torch.float32
+    else:
+        design_ms, _ = panel_bound(op, arrs, rB)
+        dtype = next(t for t in args if isinstance(t, torch.Tensor) and t.dim() >= 3).dtype
+        dtype = torch.float64 if dtype == torch.float64 else torch.float32
+    b_ms, b_by = function_bound(op, work, rB.shape[-1], dtype)
     say(f"[{tag} {prec}] {name} {kernel_ms:.4f} ms ({s[0]:.4f}, {s[1]:.4f}), "
-        f"plain {plain_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}); {work}")
-    return max_abs, kernel_ms, plain_ms
+        f"plain {plain_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}); {desc}; bound "
+        f"{b_ms:.4f} ms ({b_by}; {work[0]} nnz, {work[2]} B rows), design bound "
+        f"{design_ms:.4f} ms")
+    return max_abs, kernel_ms, plain_ms, b_ms, b_by, design_ms
 
 
 def headline(device) -> list:
@@ -387,13 +549,14 @@ def headline(device) -> list:
         eng, op, bs, launches = drive(a, b, c_ref, prec, device, "headline",
                                       ("pallas", "uniform"))
         arrs = tuple(x[0] for x in eng.packed)
-        max_abs, kernel_ms, plain_ms = time_kernel(op, arrs, bs[0], "headline", prec)
-        records.append(record(op.kernel.__name__, launches[op.kernel.__name__],
-                              max_abs, kernel_ms, plain_ms))
+        got = time_kernel(op, arrs, bs[0], "headline", prec, csr_work(a))
+        records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
         del eng, op, bs, arrs
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
-    cusparse_yardstick(a, b, c_ref, device)
+    cus_ms = cusparse_yardstick(a, b, c_ref, device)
+    for r in records:
+        r["library_ms"] = cus_ms
     return records
 
 
@@ -430,10 +593,8 @@ def cplaw_path(device) -> list:
                   f"cplaw x3: (TM, Wc) = ({rl['TM']}, {rl['W']}), expected (512, 128)")
         arrs = tuple(x[0] for x in eng.packed)
         rB = bs[0]
-        max_abs, kernel_ms, plain_ms = time_kernel(op, arrs, rB, "cplaw", prec,
-                                                   plain_inner=3)
-        records.append(record(op.kernel.__name__, launches[op.kernel.__name__],
-                              max_abs, kernel_ms, plain_ms))
+        got = time_kernel(op, arrs, rB, "cplaw", prec, csr_work(a), plain_inner=3)
+        records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
         s_abs, s_rel, s_fro = spill_vs_plain(op, arrs, rB)
         say(f"[cplaw {prec}] spmm_spill vs plain at the main path: rel fro err "
             f"{s_fro:.3e} (tol {TOL_PLAIN_FRO:g}), max rel err {s_rel:.3e}, "
@@ -450,12 +611,22 @@ def cplaw_path(device) -> list:
         spill["max_abs"] = max(spill["max_abs"], s_abs)
         if prec == "x3":
             spill["ms"], spill["plain_ms"] = s_ms, s_plain
+            spill["bound"] = block_bound(*args[1:6], rB, args[0].shape[0], with_c=True)
+            spill["library_ms"] = spill_library_ms(op, arrs, args[0], rB)
+            say(f"[cplaw x3] spmm_spill bound {spill['bound'][0]:.4f} ms "
+                f"({spill['bound'][1]}); torch.addmm(C, spill CSR, B) "
+                f"{spill['library_ms']:.4f} ms")
         del eng, op, bs, arrs, rB, args
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
+    # the spill's bound counts its own live nonzeros and B rows: the
+    # function's work and this design's are one
     records.append(record("spmm_spill", spill["launches"], spill["max_abs"],
-                          spill["ms"], spill["plain_ms"]))
-    cusparse_yardstick(a, b, c_ref, device)
+                          spill["ms"], spill["plain_ms"], *spill["bound"],
+                          spill["bound"][0], spill["library_ms"]))
+    cus_ms = cusparse_yardstick(a, b, c_ref, device)
+    for r in records[:-1]:
+        r["library_ms"] = cus_ms
     # for comparison, off the main path: the gather kind on this matrix
     from crp_tpu_torch.kernels.dispatch import _pack_gather
 
@@ -564,18 +735,18 @@ def scrambled_cplaw_path(device) -> list:
         eng, op, bs, launches = drive(a, b, c_ref, prec, device, "scrambled",
                                       ("gather", "gather"))
         arrs = tuple(x[0] for x in eng.packed)
-        max_abs, kernel_ms, plain_ms = time_kernel(op, arrs, bs[0], "scrambled",
-                                                   prec, plain_inner=2)
+        got = time_kernel(op, arrs, bs[0], "scrambled", prec, csr_work(a),
+                          plain_inner=2)
         rec["launches"] += launches["spmm_gather"]
-        rec["max_abs"] = max(rec["max_abs"], max_abs)
+        rec["max_abs"] = max(rec["max_abs"], got[0])
         if prec == "x3":
-            rec["ms"], rec["plain_ms"] = kernel_ms, plain_ms
+            rec["timing"] = got[1:]
         del eng, op, bs, arrs
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
-    cusparse_yardstick(a, b, c_ref, device, "scrambled cusparse")
-    return [record("spmm_gather", rec["launches"], rec["max_abs"], rec["ms"],
-                   rec["plain_ms"])]
+    cus_ms = cusparse_yardstick(a, b, c_ref, device, "scrambled cusparse")
+    return [record("spmm_gather", rec["launches"], rec["max_abs"], *rec["timing"],
+                   cus_ms)]
 
 
 def fp64_path(device) -> list:
@@ -595,8 +766,8 @@ def fp64_path(device) -> list:
           f"fp64 banded: S = {op.roofline['S']}, expected {DD_BAND_S}")
     arrs = tuple(x[0] for x in eng.packed)
     rB = bs[0]
-    max_abs, kernel_ms, plain_ms = time_kernel(op, arrs, rB, "fp64 banded", "dd",
-                                               plain_inner=3, tol=TOL_DD)
+    got = time_kernel(op, arrs, rB, "fp64 banded", "dd", csr_work(a), plain_inner=3,
+                      tol=TOL_DD)
     # the fp64 FMA ragged kernel on the same arrays: the pack has no spill
     args = op.kernel_args(arrs, rB)
     _, _, fma_fro = compare("spmm_ragged", lambda: spmm_ragged(*args, min_b_rows=op.min_b_rows),
@@ -609,12 +780,12 @@ def fp64_path(device) -> list:
         f"{dd_ms:.4f} ms ({s[0]:.4f}, {s[1]:.4f}), spmm_ragged fp64 FMA "
         f"{fma_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}; rel fro err {fma_fro:.3e}); "
         f"{gflop:.1f} GFLOP")
-    records = [record("spmm_ragged_dd", launches["spmm_ragged_dd"], max_abs,
-                      kernel_ms, plain_ms)]
+    records = [record("spmm_ragged_dd", launches["spmm_ragged_dd"], *got)]
     del eng, op, bs, arrs, rB, args
     a.__dict__.pop("_torch_pack_cache", None)
     torch.cuda.empty_cache()
-    cusparse_yardstick(a, b, c_ref, device, "fp64 banded cusparse")
+    records[0]["library_ms"] = cusparse_yardstick(a, b, c_ref, device,
+                                                  "fp64 banded cusparse")
 
     # the dd kind's other tiers: the dd_mxu cover refuses both matrices
     for tag, gen, tier in (
@@ -636,6 +807,299 @@ def fp64_path(device) -> list:
         torch.cuda.empty_cache()
         cusparse_yardstick(a, b, c_ref, device, f"{tag} cusparse")
     return records
+
+
+def spill_library_ms(op, arrs, c, rB):
+    """``torch.addmm(C, S, B)`` with S the spilled nonzeros as a CSR
+    tensor: the library's time for the spill kernel's function, or None
+    where this PyTorch has no such call for a CSR operand on the card."""
+    rel, cols, vals, blk, blk_ptr = op.spill_args(arrs, c, rB)[1:6]
+    M = c.shape[0]
+    TMo = M // (blk_ptr.numel() - 1)
+    rel2 = rel.reshape(cols.shape)
+    live = rel2 < TMo
+    rows = (blk.long()[:, None] * TMo + rel2.long())[live]
+    S = torch.sparse_coo_tensor(torch.stack([rows, cols.long()[live]]),
+                                vals[live], size=(M, rB.shape[0])).coalesce()
+    S = S.to_sparse_csr()
+    try:
+        return time_ms(lambda: torch.addmm(c, S, rB))
+    except RuntimeError as e:  # a yardstick, not the port's path
+        say(f"[cplaw x3] torch.addmm with a CSR operand: {e}")
+        return None
+
+
+def window_phase(device) -> None:
+    """Kernel #4 against its plain version on a 4-shard pack (an empty
+    shard, pad groups) and a single shard with non-monotone windows."""
+    from crp_tpu_torch import CSRMatrix, banded_random_csr, csr_row_partition
+    from crp_tpu_torch.kernels.dispatch import _pack_window
+
+    for prec, dtype in (("x3", np.float32), ("default", np.float32),
+                        ("highest", np.float32), ("highest", np.float64)):
+        band = banded_random_csr(6000, nnz_per_row=7, bandwidth=80, seed=95, dtype=dtype)
+        d = csr_row_partition(band.rowptr, 4)
+        multi = []
+        for i in range(4):
+            sh = band.row_slice(int(d[i]), int(d[i + 1]))
+            multi.append((sh.rowptr, sh.colidx.astype(np.int32), sh.val) if i != 2
+                         else (np.zeros(sh.nrow + 1, np.int64), np.zeros(0, np.int32),
+                               np.zeros(0, dtype)))
+        rng = np.random.default_rng(96)
+        rows = np.repeat(np.arange(3000), 5)
+        cols = np.clip(2999 - rows + rng.integers(-30, 31, rows.size), 0, 2999)
+        key = np.unique(rows * 3000 + cols)
+        anti = CSRMatrix.from_coo(3000, 3000, key // 3000, key % 3000,
+                                  rng.standard_normal(key.size), dtype=dtype)
+        for label, shards, a, max_m in (
+            ("4 shards", multi, band, int(np.diff(d).max())),
+            ("non-monotone", [(anti.rowptr, anti.colidx.astype(np.int32), anti.val)],
+             anti, anti.nrow),
+        ):
+            arrays, op = _pack_window(shards, max_m + 300, dtype, prec, device)
+            check(op.variant == "window", f"window phase {label}: variant {op.variant}")
+            G = arrays[0].shape[1]
+            for n in (16, 100, 256):
+                rB = torch.from_numpy(padded_b(a, op.min_b_rows, n, dtype)).to(device)
+                worst = 0.0
+                for i, sh in enumerate(shards):
+                    arrs = tuple(x[i] for x in arrays)
+                    _, rel, _ = kernel_vs_plain(op, arrs, rB)
+                    c = launch(op, op.kernel_args(arrs, rB))
+                    nrow = len(sh[0]) - 1 if len(sh[1]) else 0
+                    check(not bool(torch.any(c[nrow:])),
+                          f"window {label} shard {i}: pad rows not zero")
+                    worst = max(worst, rel)
+                tol = TOL_PLAIN[dtype]
+                msg = (f"window spmm_window {prec:8s} {np.dtype(dtype).name} "
+                       f"{label:12s} p={len(shards)} G={G} n={n:3d}: max rel err "
+                       f"{worst:.3e} (tol {tol:g})")
+                check(worst <= tol, msg)
+                say(msg)
+
+
+def stacked_b(b, displs, rows):
+    """Global B in row blocks ``displs``, each padded to ``rows``:
+    (p, rows, n)."""
+    p = len(displs) - 1
+    out = np.zeros((p, rows, b.shape[1]), b.dtype)
+    for i in range(p):
+        out[i, : displs[i + 1] - displs[i]] = b[displs[i]:displs[i + 1]]
+    return out
+
+
+def halo_phase(device) -> None:
+    """The fused halo kernel (#12) against its plain version over 4 shards
+    in one launch at every point; rows past each shard's own zero."""
+    from crp_tpu_torch import banded_random_csr, csr_row_partition
+    from crp_tpu_torch.kernels.spmm_halo import align_displs, build_halo_plan
+
+    for prec, dtype in POINTS:
+        a = banded_random_csr(6000, nnz_per_row=7, bandwidth=300, seed=97, dtype=dtype)
+        d = csr_row_partition(a.rowptr, 4)
+        aligned = align_displs(d, a.ncol)
+        shards = [a.row_slice(int(d[i]), int(d[i + 1])) for i in range(4)]
+        arrays, op = build_halo_plan(shards, aligned, device=device, dtype=dtype,
+                                     precision=prec)
+        for n in (16, 100, 256):
+            bs = stacked_b(padded_b(a, a.ncol, n, dtype), aligned, op.min_b_rows)
+            args = op.kernel_args(arrays, torch.from_numpy(bs).to(device))
+            _, rel, _ = compare("spmm_halo", lambda: launch(op, args),
+                                lambda: op.plain(*args))
+            c = launch(op, args)
+            for i in range(4):
+                check(not bool(torch.any(c[i, d[i + 1] - d[i]:])),
+                      f"halo {prec} shard {i}: pad rows not zero")
+            tol = TOL_PLAIN[dtype]
+            msg = (f"halo spmm_halo {prec:8s} {np.dtype(dtype).name} p=4 G={op.G} "
+                   f"W={op.W} n={n:3d}: max rel err {rel:.3e} (tol {tol:g})")
+            check(rel <= tol, msg)
+            say(msg)
+
+
+def timed_phases(eng, bs, reps=5):
+    """Median ms of the exchange and the local ops over ``reps`` fenced
+    execs (``exec_timed``)."""
+    eng.clear_stat()
+    for _ in range(reps + 1):
+        eng.exec_timed(bs)
+    return {k: 1e3 * float(np.median(eng.timer.samples[k][1:]))
+            for k in ("a2a", "spmm", "exec") if k in eng.timer.samples}
+
+
+def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto"):
+    """``RowParaSpmm`` over p nnz-balanced row shards on the one card: the
+    resolved kind and variant, the local kernel's launches in the main
+    path's exec (one per shard; the fused kernel once), the error against
+    the reference, exec and phase times, the exchange's rows."""
+    from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition
+
+    d = csr_row_partition(a.rowptr, p)
+    eng = RowParaSpmm(a, d, d, N, device=device, dtype=np.float32,
+                      config=SpmmConfig(kernel=kernel, mxu_precision=prec,
+                                        rb_p2p=rb_p2p))
+    op = eng._local_op
+    mode = "fused" if eng.is_halo else "ring" if rb_p2p else "a2a"
+    tag = f"{tag} {prec} {mode}"
+    say(f"[{tag}] p={p} kernel={kernel!r}: kind {eng.kernel_kind}, variant "
+        f"{op.variant}, init {eng.t_init:.3f} s, init_breakdown "
+        f"{json.dumps(eng.init_breakdown)}, roofline {json.dumps(op.roofline)}")
+    check((eng.kernel_kind, op.variant) == expect,
+          f"{tag}: resolved to {eng.kernel_kind!r}/{op.variant!r}, expected {expect}")
+    launches, _, exec_ms, bs = main_path(eng, b, c_ref, TOL_REF[prec], tag)
+    want = 1 if eng.is_halo else p
+    check(launches[op.kernel.__name__] == want,
+          f"{tag}: {op.kernel.__name__} launched {launches[op.kernel.__name__]} "
+          f"times, expected {want}")
+    ph = timed_phases(eng, bs)
+    xch_bytes = eng.physical_rows * N * 4
+    phases = ", ".join(f"{k} {v:.4f} ms" for k, v in ph.items())
+    rate = (f", {xch_bytes / max(ph['a2a'], 1e-9) / 1e6:.1f} GB/s of exchange"
+            if "a2a" in ph else "")
+    say(f"[{tag}] exec_timed phases {phases}; rB_recv_size {eng.rB_recv_size} rows "
+        f"({eng.rB_recv_size * N} elements), physical rows {eng.physical_rows} "
+        f"({xch_bytes / 1e6:.1f} MB moved{rate}), rb_rows {eng._rb_rows}")
+    print_stat = eng.print_stat().splitlines()
+    say(f"[{tag}] print_stat: {print_stat[1]} | {print_stat[2]}")
+    return eng, op, bs, launches
+
+
+def headline_p4(device) -> list:
+    """The headline in 4 row shards: ``auto`` takes the fused kernel at
+    every point; ``kernel="pallas"`` the exchange and #4 on every shard."""
+    from crp_tpu_torch import banded_random_csr, fill_b
+
+    a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=BANDWIDTH,
+                          seed=SEED, dtype=np.float32)
+    b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
+    c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+    halo = dict(launches=0, max_abs=0.0)
+    for prec in PRECS:
+        eng, op, bs, launches = drive_p(a, b, c_ref, 4, prec, device, "headline p=4",
+                                        ("pallas_halo", "halo"), 0)
+        halo["launches"] += launches["spmm_halo"]
+        got = time_kernel(op, eng.packed, bs, "headline p=4 fused", prec,
+                          csr_work(a), plain_inner=3)
+        halo["max_abs"] = max(halo["max_abs"], got[0])
+        say(f"[headline p=4 {prec}] fused: B pushes {eng.physical_rows} rows "
+            f"({eng.physical_rows * N * 4 / 1e6:.1f} MB), panels "
+            f"{tuple(eng.packed[2].shape)}")
+        if prec == "x3":
+            halo["timing"] = got[1:]
+        del eng, op, bs
+        a.__dict__.pop("_torch_pack_cache", None)
+        torch.cuda.empty_cache()
+    halo_lib = cusparse_yardstick(a, b, c_ref, device, "headline cusparse")
+
+    window = dict(launches=0, max_abs=0.0)
+    for prec, rb_p2p in (("x3", 0), ("default", 0), ("highest", 0), ("x3", 1)):
+        eng, op, bs, launches = drive_p(a, b, c_ref, 4, prec, device, "headline p=4",
+                                        ("pallas", "window"), rb_p2p, kernel="pallas")
+        window["launches"] += launches["spmm_window"]
+        if not rb_p2p:  # #4 at its main-path shape: shard 0
+            rB = eng._exchange(bs)
+            arrs = tuple(x[0] for x in eng.packed)
+            s0 = a.row_slice(int(eng.A_row_displs[0]), int(eng.A_row_displs[1]))
+            got = time_kernel(op, arrs, rB[0], "headline p=4 unfused", prec,
+                              csr_work(s0))
+            window["max_abs"] = max(window["max_abs"], got[0])
+            if prec == "x3":
+                cols = np.searchsorted(eng.xplan.rowmap[0], s0.colidx)
+                lib = csr_library_ms(s0.rowptr, cols, s0.val, rB.shape[1], rB[0])
+                say(f"[headline p=4 x3] cuSPARSE on shard 0 ({s0.nnz} nnz) "
+                    f"{lib:.4f} ms; shard 0 panels {tuple(arrs[1].shape)}")
+                window["timing"], window["library_ms"] = got[1:], lib
+            del rB, arrs
+        del eng, op, bs
+        a.__dict__.pop("_torch_pack_cache", None)
+        torch.cuda.empty_cache()
+    return [record("spmm_halo", halo["launches"], halo["max_abs"], *halo["timing"],
+                   halo_lib),
+            record("spmm_window", window["launches"], window["max_abs"],
+                   *window["timing"], window["library_ms"])]
+
+
+def cplaw_p4(device) -> None:
+    """cplaw in 4 row shards on the ring at x3: the fused kernel's plan
+    refuses (windows over 16384 rows), and the multi-shard ragged pack with
+    the fused spill serves it, with the JAX record's exchange volumes; then
+    the p = 8 exchange plan against the planner on the host."""
+    from crp_tpu_torch import (
+        csr_row_partition, fill_b, plan_from_csr, powerlaw_community_csr,
+    )
+    from crp_tpu_torch.comm.exchange import build_b_exchange
+
+    a = powerlaw_community_csr(**CPLAW, dtype=np.float32)
+    b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
+    c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+    eng, op, _, launches = drive_p(a, b, c_ref, 4, "x3", device, "cplaw p=4",
+                                   ("pallas", "ragged"), 1)
+    check(op.roofline["spill_impl"] == "pallas" and launches["spmm_spill"] == 4,
+          f"cplaw p=4: spill {op.roofline['spill_impl']!r}, "
+          f"{launches['spmm_spill']} spill launches")
+    check((eng.rB_recv_size, eng.physical_rows) == (CPLAW_P4_RECV, CPLAW_P4_RING_ROWS),
+          f"cplaw p=4: rB_recv_size {eng.rB_recv_size}, ring rows "
+          f"{eng.physical_rows}; the JAX record has {CPLAW_P4_RECV}, "
+          f"{CPLAW_P4_RING_ROWS}")
+    del eng, op
+    a.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    d8 = csr_row_partition(a.rowptr, 8)
+    bd = d8.copy()
+    bd[-1] = a.ncol
+    x8 = build_b_exchange([a.colidx[a.rowptr[d8[i]]:a.rowptr[d8[i + 1]]]
+                           for i in range(8)], bd)
+    comm = plan_from_csr(a, 32, 8).comm_cost
+    say(f"[cplaw p=8, host] exchange plan {x8.total_recv_rows} rows x 32 = "
+        f"{x8.total_recv_rows * 32}; planner comm_cost {comm} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    check(x8.total_recv_rows * 32 == comm == CPLAW_P8_COMM_N32,
+          f"cplaw p=8: {x8.total_recv_rows * 32} / {comm}, expected {CPLAW_P8_COMM_N32}")
+
+
+def para2d_phase(device) -> None:
+    """``Para2dSpmm``: the planner's grid on cplaw (n = 256, 4 ranks), then
+    a forced 2 x 2 grid on the headline at x3."""
+    from crp_tpu_torch import (
+        Para2dSpmm, Plan2D, SpmmConfig, banded_random_csr, csr_row_partition,
+        fill_b, plan_from_csr, powerlaw_community_csr,
+    )
+
+    def run(a, plan, tag, expect):
+        b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
+        c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+        eng = Para2dSpmm(a, plan, device=device, dtype=np.float32,
+                         config=SpmmConfig(kernel="auto", mxu_precision="x3"))
+        op = eng._local_op
+        launches, _, exec_ms, _ = main_path(eng, b, c_ref, TOL_REF["x3"], tag, (3, 5))
+        head = eng.print_stat().splitlines()[:3]
+        say(f"[{tag}] {plan.pm} x {plan.pn}: kind {eng.kernel_kind}, variant "
+            f"{op.variant}, init {eng.t_init:.3f} s, rA_cost {eng.rA_cost}, "
+            f"rB_recv_size {eng.rB_recv_size}; {' | '.join(head)}")
+        check((eng.kernel_kind, op.variant) == expect
+              and launches[op.kernel.__name__] >= plan.pn,
+              f"{tag}: {eng.kernel_kind}/{op.variant}, launches {launches}")
+        return eng
+
+    a = powerlaw_community_csr(**CPLAW, dtype=np.float32)
+    plan = plan_from_csr(a, N, 4)
+    say(f"[para2d cplaw] planner: {plan.pm} x {plan.pn}, comm_cost {plan.comm_cost}")
+    check((plan.pm, plan.pn) == (1, 4), f"para2d cplaw: planner grid {plan.pm} x {plan.pn}")
+    eng = run(a, plan, "para2d cplaw", ("pallas", "ragged"))
+    check((eng.rA_cost, eng.rB_recv_size) == (CPLAW_2D_RA_COST, 0),
+          f"para2d cplaw: rA_cost {eng.rA_cost}, rB_recv_size {eng.rB_recv_size}")
+    del eng
+    torch.cuda.empty_cache()
+
+    a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=BANDWIDTH,
+                          seed=SEED, dtype=np.float32)
+    rb = csr_row_partition(a.rowptr, 4)
+    plan = Plan2D(nproc=4, m=a.nrow, n=N, k=a.ncol, pm=2, pn=2, comm_cost=0,
+                  A0_rowptr=rb, B_rowptr=rb[::2].copy(), AC_rowptr=rb[::2].copy(),
+                  BC_colptr=np.array([0, N // 2, N]))
+    run(a, plan, "para2d headline forced", ("pallas_halo", "halo"))
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -664,8 +1128,13 @@ def main() -> int:
     ragged_phase(device)
     gather_phase(device)
     dd_phase(device)
+    window_phase(device)
+    halo_phase(device)
     records = (headline(device) + cplaw_path(device)
-               + scrambled_cplaw_path(device) + fp64_path(device))
+               + scrambled_cplaw_path(device) + fp64_path(device)
+               + headline_p4(device))
+    cplaw_p4(device)
+    para2d_phase(device)
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

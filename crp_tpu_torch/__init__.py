@@ -1,33 +1,36 @@
 """crp_tpu_torch — the CRP-SpMM system on PyTorch and CUDA (NVIDIA Hopper).
 
 A port of ``crp_tpu`` (JAX on a TPU), which stays beside it as the reference
-the port is tested against.  The port imports only the framework-neutral,
-jax-free host layer of ``crp_tpu`` (CSR container and generators, ``.mtx``
-reader, row partitioner, ``SpmmConfig``, error norms) and never ``jax``;
-the numpy helpers it needs from modules that import jax are copied into it.
-It re-exports that host layer, so a user of the port imports only
-``crp_tpu_torch``.
+the port is tested against.  The port imports nothing of ``crp_tpu`` and
+never ``jax``: it carries its own host layer (CSR container and
+generators, ``.mtx`` reader, row partitioner, the 2D planner,
+``SpmmConfig``, error norms), pinned equal to the originals by the CPU
+tests.
 
-Ported so far: the single-device (p = 1) ``RowParaSpmm`` main path, with
-the windowed SpMM kernels written in CUDA for Hopper: the uniform
-super-grouped windows (``kernels/csrc/window_sg.cu``), the ragged
-gathered-window chunks for power-law and variable-bandwidth matrices
-(``kernels/csrc/ragged.cu``) and their fused spill
-(``kernels/csrc/spill.cu``); the ``gather`` kind for any CSR (the same
-spill kernel with no C); the fp64 class, ``dd_mxu`` on the FP64 tensor
-cores (``kernels/csrc/dd_tc.cu``) and ``dd``'s fp64 ELL and segment-sum
-tiers; and the ``ell`` kind.  The engine is imported on first use, and the
+Ported so far: ``RowParaSpmm`` at any p and ``Para2dSpmm`` on the planner's
+``pm x pn`` grid, with every shard on the engine's one device: the B-row
+exchange (a padded all_to_all or a ring of shifts) moves exactly the rows
+each shard's A references.  The local kernels are written in CUDA for
+Hopper: the windowed dense panels, super-grouped (``kernels/csrc/
+window_sg.cu``) or not (``kernels/csrc/window.cu``, multi-shard and
+non-monotone packs); the ragged gathered-window chunks
+(``kernels/csrc/ragged.cu``) and their fused spill (``kernels/csrc/
+spill.cu``); the ``gather`` kind for any CSR (the same spill kernel with no
+C); the fp64 class, ``dd_mxu`` on the FP64 tensor cores
+(``kernels/csrc/dd_tc.cu``) and ``dd``'s fp64 ELL and segment-sum tiers;
+and the ``ell`` kind.  The engines are imported on first use, and the
 kernels build at their first call on a CUDA tensor.
 """
 
 __version__ = "0.1.0"
 
-from crp_tpu.config import SpmmConfig
-from crp_tpu.plan.partition1d import csr_row_partition
-from crp_tpu.sparse.csr import CSRMatrix
-from crp_tpu.sparse.mmio import read_mtx_csr
-from crp_tpu.sparse.synth import banded_random_csr, fill_b, powerlaw_community_csr
-from crp_tpu.utils.norms import rel_fro_err
+from .config import SpmmConfig
+from .plan.partition1d import csr_row_part_comm_size, csr_row_partition
+from .plan.planner2d import Plan2D, plan_from_csr
+from .sparse.csr import CSRMatrix
+from .sparse.mmio import read_mtx_csr
+from .sparse.synth import banded_random_csr, fill_b, powerlaw_community_csr
+from .utils.norms import rel_fro_err
 
 
 def __getattr__(name):
@@ -35,6 +38,10 @@ def __getattr__(name):
         from .engine.rowpara import RowParaSpmm
 
         return RowParaSpmm
+    if name == "Para2dSpmm":
+        from .engine.para2d import Para2dSpmm
+
+        return Para2dSpmm
     raise AttributeError(f"module 'crp_tpu_torch' has no attribute {name!r}")
 
 
@@ -46,6 +53,10 @@ __all__ = [
     "fill_b",
     "rel_fro_err",
     "csr_row_partition",
+    "csr_row_part_comm_size",
+    "plan_from_csr",
+    "Plan2D",
     "SpmmConfig",
     "RowParaSpmm",
+    "Para2dSpmm",
 ]

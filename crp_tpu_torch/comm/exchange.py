@@ -1,10 +1,12 @@
-"""Sparsity-aware B-row exchange (``crp_tpu/comm/exchange.py:28-167``).
+"""Sparsity-aware B-row exchange (``crp_tpu/comm/exchange.py``).
 
 The host plan is a numpy copy of the JAX package's: each shard pulls
 exactly the B rows its A columns reference, with every per-pair list padded
-to the largest.  At exec time one engine runs on one device (p = 1), where
-the exchange is the plan's self-copy; the collectives for p > 1 are the
-multi-GPU engines' work.
+to the largest.  At exec time the engines hold every shard on their one
+device, stacked along a leading axis, as the JAX package's single
+controller holds them (``shard_map`` over a mesh); the exchange keeps the
+send -> all_to_all -> scatter structure, and on one device the all_to_all
+is an axis swap and a ring shift a roll.
 """
 
 from __future__ import annotations
@@ -145,23 +147,120 @@ def build_b_exchange(
     )
 
 
-def self_copy_tables(plan: BExchangePlan, device) -> tuple:
-    """(src, dst) int64 tensors of shard 0's self-copy without the padding
-    slots (which point at row ``rB_nrow_max``, past every real row)."""
-    if plan.p != 1:
-        raise NotImplementedError(
-            "the exec-time B exchange for p > 1 is not yet ported "
-            "(ROADMAP Queue A #8, multi-GPU engines)"
-        )
-    keep = plan.self_dst[0] < plan.rB_nrow_max
-    src = torch.from_numpy(plan.self_src[0][keep].astype(np.int64)).to(device)
-    dst = torch.from_numpy(plan.self_dst[0][keep].astype(np.int64)).to(device)
-    return src, dst
+@dataclasses.dataclass
+class ExchangeTables:
+    """The plan's index tables as flat int64 tensors on the engine's
+    device, for stacked ``(p, max_k, n)`` B shards and ``(p, rb_rows, n)``
+    receive buffers.
+
+    Every padded slot of the plan (destination ``rB_nrow_max``) is stripped
+    here: when the kernels' receive buffer has more rows than the plan's
+    (their ``min_b_rows``), that row is real, and an index past a CUDA
+    tensor's end is a fault, not a dropped write.  ``send`` gathers the
+    a2a send buffer ``(p, p, S)`` (sender-major) from the flat B shards;
+    ``recv_slot`` picks the real slots of the flat receive buffer
+    (receiver-major) and ``recv_dst`` their flat rB rows; ``self_src`` /
+    ``self_dst`` are the self-copy; ``ring`` holds, per shift s = 1 … p-1,
+    the (send, recv_slot, recv_dst) of that shift.
+    """
+
+    p: int
+    S: int
+    max_k: int
+    rb_rows: int
+    send: torch.Tensor
+    recv_slot: torch.Tensor
+    recv_dst: torch.Tensor
+    self_src: torch.Tensor
+    self_dst: torch.Tensor
+    ring: list
 
 
-def exchange_b_local(b_loc, self_src, self_dst, rb_rows: int):
-    """The p = 1 exchange (``exchange.py:170-198`` with one shard): the
-    owned rows of B copied to their compact receive-buffer rows."""
-    rB = b_loc.new_zeros((rb_rows, b_loc.shape[1]))
-    rB.index_copy_(0, self_dst, b_loc.index_select(0, self_src))
+def _t(x: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)).to(device)
+
+
+def exchange_tables(plan: BExchangePlan, max_k: int, rb_rows: int, device,
+                    ring: bool = False) -> ExchangeTables:
+    """Flat exec-time tables of ``plan`` (see :class:`ExchangeTables`);
+    ``ring`` builds the per-shift tables of :func:`exchange_b_ring`."""
+    p, S = plan.p, plan.S
+    if rb_rows < plan.rB_nrow_max:
+        raise ValueError(f"rb_rows {rb_rows} < the plan's {plan.rB_nrow_max} rows")
+    i_idx = np.arange(p, dtype=np.int64)
+    # send[j, i, s] = shard j's local row for shard i, as a flat B row
+    send = i_idx[:, None, None] * max_k + plan.send_idx
+    keep = plan.recv_dst < plan.rB_nrow_max                  # (i, j, s)
+    recv_slot = np.flatnonzero(keep)
+    recv_dst = (i_idx[:, None, None] * rb_rows + plan.recv_dst)[keep]
+    skeep = plan.self_dst < plan.rB_nrow_max                 # (i, t)
+    self_src = (i_idx[:, None] * max_k + plan.self_src)[skeep]
+    self_dst = (i_idx[:, None] * rb_rows + plan.self_dst)[skeep]
+    shifts = []
+    if ring:
+        for s in range(1, p):
+            dst = (i_idx + s) % p
+            src = (i_idx - s) % p
+            # shard i sends its rows for (i + s) % p ...
+            s_send = i_idx[:, None] * max_k + plan.send_idx[i_idx, dst]
+            # ... and receives shard (i - s) % p's rows for it
+            r_dst = plan.recv_dst[i_idx, src]                 # (i, S)
+            r_keep = r_dst < plan.rB_nrow_max
+            shifts.append((
+                _t(s_send.ravel(), device), _t(np.flatnonzero(r_keep), device),
+                _t((i_idx[:, None] * rb_rows + r_dst)[r_keep], device),
+            ))
+    return ExchangeTables(
+        p=p, S=S, max_k=max_k, rb_rows=rb_rows,
+        send=_t(send.ravel(), device), recv_slot=_t(recv_slot, device),
+        recv_dst=_t(recv_dst, device), self_src=_t(self_src, device),
+        self_dst=_t(self_dst, device), ring=shifts,
+    )
+
+
+def all_to_all(sendbuf: torch.Tensor) -> torch.Tensor:
+    """The all_to_all of the stacked send buffer ``(p_src, p_dst, S, n)``
+    when every shard lies on one device: the swap of the source and
+    destination axes, ``(p_dst, p_src, S, n)``.  Shards on several GPUs
+    replace this step with ``all_to_all_single`` (ROADMAP Queue A #8)."""
+    return sendbuf.transpose(0, 1)
+
+
+def ring_shift(sendbuf: torch.Tensor, s: int) -> torch.Tensor:
+    """Shift s of the ring on one device: shard i receives what shard
+    (i - s) % p sent (``ppermute`` over ``(i, (i + s) % p)``)."""
+    return torch.roll(sendbuf, s, dims=0)
+
+
+def _self_copy(b_flat, t: ExchangeTables, n: int) -> torch.Tensor:
+    rB = b_flat.new_zeros((t.p * t.rb_rows, n))
+    rB.index_copy_(0, t.self_dst, b_flat.index_select(0, t.self_src))
     return rB
+
+
+def exchange_b(b_shards: torch.Tensor, t: ExchangeTables) -> torch.Tensor:
+    """The padded all_to_all exchange (``crp_tpu/comm/exchange.py:170-198``)
+    on stacked B shards ``(p, max_k, n)``: gather the send buffer, all_to_all,
+    scatter the real slots into the compact receive buffers, self-copy.
+    Returns ``(p, rb_rows, n)``."""
+    p, _, n = b_shards.shape
+    b_flat = b_shards.reshape(-1, n)
+    sendbuf = b_flat.index_select(0, t.send).view(p, p, t.S, n)
+    recvbuf = all_to_all(sendbuf).reshape(-1, n)
+    rB = _self_copy(b_flat, t, n)
+    rB.index_copy_(0, t.recv_dst, recvbuf.index_select(0, t.recv_slot))
+    return rB.view(p, t.rb_rows, n)
+
+
+def exchange_b_ring(b_shards: torch.Tensor, t: ExchangeTables) -> torch.Tensor:
+    """The p2p ring (``crp_tpu/comm/exchange.py:201-241``, ``rb_p2p=1``):
+    the self-copy, then p - 1 shifts, shift s moving each shard's rows for
+    the shard s ahead.  Returns ``(p, rb_rows, n)``."""
+    p, _, n = b_shards.shape
+    b_flat = b_shards.reshape(-1, n)
+    rB = _self_copy(b_flat, t, n)
+    for s, (send, slot, dst) in enumerate(t.ring, start=1):
+        sendbuf = b_flat.index_select(0, send).view(p, t.S, n)
+        recvbuf = ring_shift(sendbuf, s).reshape(-1, n)
+        rB.index_copy_(0, dst, recvbuf.index_select(0, slot))
+    return rB.view(p, t.rb_rows, n)

@@ -1,0 +1,218 @@
+"""2D (pm x pn) SpMM engine.
+
+Counterpart of ``crp_tpu/engine/para2d.py`` (the reference's
+``para2d_spmm``, ``src/para2d_spmm.{h,c}``): the planner's ``pm x pn``
+grid.  A is cut into pm row panels, each replicated along its pn column
+group; B and C are row-partitioned over pm (the plan's nnz-aware
+boundaries) and column-partitioned over pn.  Each (i, j) block runs the
+1D sparsity-aware B-row exchange along pm and the local SpMM on its
+``nloc`` columns, as the JAX engine's ``shard_map`` over (pm, pn) does.
+
+Every block lives on the engine's one device: the pm panels are packed
+once, and the pn column groups share that one pack (on one device the
+replication is the same tensor); the audit still reports the A
+replication a distributed run pays, ``rA_cost``
+(``src/para2d_spmm.c:102-109``).  The dd kinds run in fp64, as in
+``RowParaSpmm``.  With pm > 1, ``auto`` on the card picks the fused
+``pallas_halo`` kernel, as JAX does on a TPU: each column group's B blocks
+are read in place by one launch over the pm panels.
+
+Not ported: ``from_dist_a`` (Queue A #8, with ``DistCSR``) and ``overlap``
+(Queue A #8), each raising ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..comm.exchange import (
+    build_b_exchange, exchange_b, exchange_b_ring, exchange_tables,
+)
+from ..config import SpmmConfig
+from ..kernels.dispatch import resolve_auto_kernel
+from ..plan.planner2d import NNZ_COST_FACTOR
+from ..shard.layout import shard_dense_2d, unshard_dense_2d
+from ..utils.timers import Timer, synchronize
+from .rowpara import (
+    check_dd_options, check_halo_options, engine_device, pack_engine,
+    run_shards, unsupported,
+)
+from .stats import format_comm_head, format_stat_table
+
+
+class Para2dSpmm(torch.nn.Module):
+    """init(A, plan)/exec(B)->C on the plan's pm x pn grid.
+
+    ``a`` is the global CSR matrix, ``plan`` a :class:`Plan2D` (the
+    planner's, or one with a forced grid); ``device`` where every block
+    lives (default the card).
+    """
+
+    def __init__(self, a, plan, *, device="cuda", config: SpmmConfig | None = None,
+                 dtype=None) -> None:
+        super().__init__()
+        self.config = config or SpmmConfig()
+        if self.config.bc_layout:
+            raise ValueError(
+                "BC_layout=1 is a RowParaSpmm feature (the reference's "
+                "rp_spmm seam); this engine takes row-major (k, n)/(m, n)"
+            )
+        self.is_dd = self.config.kernel in ("dd", "dd_mxu")
+        check_dd_options(self.config)
+        check_halo_options(self.config)
+        why = unsupported(self.config)
+        if why is not None:
+            raise NotImplementedError(f"not yet ported to crp_tpu_torch: {why}")
+        self.device = engine_device(device)
+        self.plan = plan
+        self.pm, self.pn = plan.pm, plan.pn
+        self.glb_n = plan.n
+        self.dtype = np.dtype(
+            np.float64 if self.is_dd
+            else dtype if dtype is not None else self.config.dtype
+        )
+        self.timer = Timer()
+        t0 = Timer()
+        self._t_build = Timer()
+        with t0.phase("init"):
+            self._build(a)
+        self.t_init = t0.t["init"]
+        tb = self._t_build
+        self.init_breakdown = {
+            k: round(tb.t.get(k, 0.0), 4) for k in ("plan", "pack", "upload")
+        }
+
+    # ------------------------------------------------------------------ init
+    def _build(self, a) -> None:
+        plan, tb = self.plan, self._t_build
+        panels = [
+            a.row_slice(int(plan.AC_rowptr[i]), int(plan.AC_rowptr[i + 1]))
+            for i in range(self.pm)
+        ]
+        self.max_m = max(max(p_.nrow for p_ in panels), 1)
+        # the planner's B_rowptr copies the nnz-balanced blocks for m == k,
+        # which leave trailing empty rows out: extend to every column of A
+        self._B_displs = np.asarray(plan.B_rowptr, dtype=np.int64).copy()
+        if int(self._B_displs[-1]) < plan.k:
+            self._B_displs[-1] = plan.k
+        reidx = bool(self.config.rb_reidx)
+        with tb.phase("plan"):
+            self.xplan = build_b_exchange(
+                [p_.colidx for p_ in panels], self._B_displs, reidx=reidx
+            )
+        kind = self.config.kernel
+        if kind == "auto":
+            kind = resolve_auto_kernel(self.device, self.pm)
+        self.max_k = int(max(np.diff(self._B_displs).max(), 1))
+        with tb.phase("pack"):
+            arrays, self._local_op, kind = pack_engine(
+                panels, self.xplan, reidx, self._B_displs, self.max_m,
+                self.dtype, kind, device=self.device,
+                mxu_precision=self.config.mxu_precision, is_dd=self.is_dd,
+            )
+            synchronize(arrays)
+        self.is_halo = kind == "pallas_halo"
+        if self.is_halo:
+            # the fused kernel owns B in 128-row aligned blocks
+            self._B_displs = self._local_op.B_displs
+            self.max_k = self._local_op.min_b_rows
+            self.max_m = max(self.max_m, self._local_op.G * self._local_op.TM)
+        self._rb_rows = max(self.xplan.rB_nrow_max,
+                            1 if self.is_halo else self._local_op.min_b_rows, 1)
+        self._n_packed = len(arrays)
+        for i, x in enumerate(arrays):
+            self.register_buffer(f"packed_{i}", x, persistent=False)
+        with tb.phase("upload"):
+            self._identity_exchange = (
+                not self.is_halo and self.pm == 1 and reidx
+                and len(self.xplan.rowmap[0]) == int(self._B_displs[-1])
+            )
+            if self._identity_exchange:
+                self.max_k = max(self.max_k, self._rb_rows)
+            elif not self.is_halo:
+                self.xtables = exchange_tables(
+                    self.xplan, self.max_k, self._rb_rows, self.device,
+                    ring=bool(self.config.rb_p2p),
+                )
+        self.kernel_kind = kind
+        self.max_nloc = int(max(np.diff(plan.BC_colptr).max(), 1))
+        # audit (src/para2d_spmm.c:102-109): the last rank's A0 block nnz
+        # sent to the other pn - 1 ranks of its group
+        last_blk_nnz = int(a.rowptr[plan.A0_rowptr[-1]] - a.rowptr[plan.A0_rowptr[-2]])
+        self.rA_cost = int(float(last_blk_nnz) * float(self.pn - 1) * NNZ_COST_FACTOR)
+        self.rB_recv_size = int(self.xplan.total_recv_rows)
+
+    @property
+    def packed(self) -> tuple:
+        """The pm panels' packed tensors, leading panel axis included."""
+        return tuple(getattr(self, f"packed_{i}") for i in range(self._n_packed))
+
+    @property
+    def physical_rows(self) -> int:
+        """Padded B rows one exec moves, over the pn column groups."""
+        if self.is_halo:
+            per_group = self._local_op.halo_rows_pushed
+        elif self.config.rb_p2p:
+            per_group = self.xplan.physical_rows_ring
+        else:
+            per_group = self.xplan.physical_rows
+        return per_group * self.pn
+
+    # ------------------------------------------------------------------ exec
+    def shard_b(self, b: np.ndarray) -> torch.Tensor:
+        """Global (k, n) -> (pm, pn, max_k, max_nloc) padded blocks on the
+        engine's device."""
+        b = np.asarray(b, dtype=self.dtype)
+        out = shard_dense_2d(b, self._B_displs, self.plan.BC_colptr,
+                             self.max_k, self.max_nloc)
+        return torch.from_numpy(out).to(self.device)
+
+    def unshard_c(self, c_blocks: torch.Tensor) -> np.ndarray:
+        return unshard_dense_2d(c_blocks.cpu().numpy(), self.plan.AC_rowptr,
+                                self.plan.BC_colptr, self.plan.m, self.plan.n)
+
+    def forward(self, b_blocks: torch.Tensor) -> torch.Tensor:
+        """Per column group j: the exchange along pm, then every panel's
+        local op on its ``max_nloc`` columns; returns (pm, pn, rows,
+        max_nloc)."""
+        xch = exchange_b_ring if self.config.rb_p2p else exchange_b
+        out = []
+        for j in range(self.pn):
+            bj = b_blocks[:, j]
+            if self.is_halo:
+                out.append(self._local_op(self.packed, bj.contiguous()))
+                continue
+            rB = bj if self._identity_exchange else xch(bj, self.xtables)
+            out.append(run_shards(self._local_op, self.packed, rB))
+        return torch.stack(out, dim=1)
+
+    def exec_device(self, b_blocks: torch.Tensor) -> torch.Tensor:
+        return self(b_blocks)
+
+    def exec(self, b: np.ndarray) -> np.ndarray:
+        """C := A @ B from a global host B; returns global host C (m, n)."""
+        with self.timer.phase("pack"):
+            bs = self.shard_b(b)
+            synchronize(bs)
+        c = self.exec_device(bs)
+        with self.timer.phase("exec", fence=c):
+            pass
+        self.timer.n_exec += 1
+        with self.timer.phase("unpack"):
+            out = self.unshard_c(c)
+        return out
+
+    # ----------------------------------------------------------------- stats
+    def print_stat(self) -> str:
+        """Merged table in the spirit of ``para2d_spmm_print_stat``
+        (``src/para2d_spmm.c:150-198``)."""
+        body = format_stat_table(
+            title="para2d_spmm", t_init=self.t_init, timer=self.timer,
+            comm_rows=self.rB_recv_size, glb_n=self.glb_n,
+            physical_rows=self.physical_rows,
+        )
+        return format_comm_head(self.rA_cost, self.rB_recv_size * self.glb_n) + "\n" + body
+
+    def clear_stat(self) -> None:
+        self.timer.clear()

@@ -1,10 +1,22 @@
-"""1D row-parallel SpMM engine, one device (p = 1).
+"""1D row-parallel SpMM engine.
 
 Counterpart of ``crp_tpu/engine/rowpara.py`` (the reference's ``rp_spmm``,
 ``src/rowpara_spmm.{h,c}``): init plans and packs A once; each exec moves
-the B rows A references into the kernel's receive buffer and runs the local
-SpMM kernel.  At p = 1 with every B row referenced that exchange is the
-identity and is elided: the kernel reads the owned block of B directly.
+exactly the B rows each shard's A references into that shard's receive
+buffer (``comm/exchange.py``: a padded all_to_all, or a ring of p - 1
+shifts under ``rb_p2p=1``) and runs the local SpMM kernel on every shard.
+The p shards live on the engine's one device, stacked along a leading axis,
+as the JAX package's single controller holds them on its mesh; the shards'
+local ops run one after another.  At p = 1 with every B row referenced the
+exchange is the identity and is elided: the kernel reads the owned block
+of B directly.
+
+``kernel="pallas_halo"`` (what ``auto`` picks for p > 1 on the card, as
+JAX does on a TPU) fuses the exchange into the windowed kernel: B is
+owned in 128-row aligned blocks, and one launch reads each shard's windows
+straight from the owner shards' rows (``kernels/spmm_halo.py``).  Where
+its plan refuses (an empty shard, a window over 16384 rows, falling
+window starts) the engine takes the unfused ``pallas`` path, as JAX does.
 
 The ``dd`` and ``dd_mxu`` kinds compute in fp64 whatever ``dtype`` says:
 A's values, B and C are fp64 (the JAX package carries B and C as hi/lo
@@ -12,37 +24,82 @@ fp32 pairs, 48 bits; the port carries 53).  As in JAX, they refuse
 ``bc_layout`` and ``overlap`` (``ValueError``).
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: p > 1 and ``overlap`` (Queue A #8), ``kernel="pallas_halo"``
-(Queue A #10) and ``bc_layout`` (Queue A #3).
+item: ``overlap`` (Queue A #8) and ``bc_layout`` (Queue A #3).
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 
 import numpy as np
 import torch
 
-from crp_tpu.config import SpmmConfig
-
-from ..comm.exchange import build_b_exchange, exchange_b_local, self_copy_tables
+from ..comm.exchange import (
+    build_b_exchange, exchange_b, exchange_b_ring, exchange_tables,
+)
+from ..config import SpmmConfig
 from ..kernels.dispatch import pack_with_fallback, resolve_auto_kernel
+from ..kernels.spmm_halo import align_displs, build_halo_plan
+from ..kernels.spmm_pallas import UnsupportedSparsity
 from ..shard.layout import shard_dense_rows, unshard_dense_rows
 from ..utils.timers import Timer, synchronize
 from .stats import format_stat_table
 
+logger = logging.getLogger("crp_tpu_torch")
 
-def _unsupported(config: SpmmConfig, p: int) -> str | None:
-    if p != 1:
-        return (f"RowParaSpmm with p = {p}: the multi-GPU exchange is ROADMAP "
-                "Queue A #8")
+
+def unsupported(config: SpmmConfig) -> str | None:
+    """Why the port refuses ``config`` (its ROADMAP item), or None."""
     if config.overlap:
         return "overlap=1 (comm/ring.py) is ROADMAP Queue A #8"
-    if config.kernel == "pallas_halo":
-        return "kernel='pallas_halo' (fused halo push) is ROADMAP Queue A #10"
     if config.bc_layout:
         return "bc_layout=1 (the reference's col-major B/C) is ROADMAP Queue A #3"
     return None
+
+
+def check_halo_options(config: SpmmConfig) -> None:
+    """The JAX refusals of ``kernel="pallas_halo"`` (``rowpara.py:115-140``),
+    made before the pack."""
+    if config.kernel == "pallas_halo" and config.overlap:
+        raise ValueError(
+            "kernel='pallas_halo' fuses exchange and compute already; "
+            "overlap=1 has no meaning for it"
+        )
+    if config.kernel == "pallas_halo" and config.bc_layout:
+        raise ValueError(
+            "BC_layout=1 is incompatible with kernel='pallas_halo' "
+            "(the fused kernel reads B row-major)"
+        )
+
+
+def check_dd_options(config: SpmmConfig) -> None:
+    """The JAX refusals of the dd kinds (``rowpara.py:125-135``), made
+    before the pack."""
+    if config.kernel not in ("dd", "dd_mxu"):
+        return
+    if config.bc_layout:
+        raise ValueError(
+            "BC_layout=1 supports the standard kernel paths; the dd kinds "
+            "keep B and C row-major in fp64"
+        )
+    if config.overlap:
+        raise ValueError(
+            "kernel='dd' is incompatible with overlap=1: the per-shift "
+            "partial SpMM is plain fp32 and would lose the dd accuracy"
+        )
+
+
+def engine_device(device) -> torch.device:
+    """The engine's device; a CUDA device with no card raises (the engines
+    never fall back to the CPU: tests ask for it with ``device="cpu"``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the engines run on the card by default; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    return device
 
 
 def _digest(*arrs) -> bytes:
@@ -52,17 +109,63 @@ def _digest(*arrs) -> bytes:
     return h.digest()
 
 
+def compact_shards(shards, xplan, reidx: bool) -> list:
+    """Each shard's ``(rowptr, columns in its receive buffer's rows, val)``:
+    the plan's compaction (``reidx``) or window offset."""
+    out = []
+    for i, s in enumerate(shards):
+        if reidx:
+            cc = np.searchsorted(xplan.rowmap[i], s.colidx)
+        else:
+            cc = s.colidx - int(xplan.rowmap[i])
+        out.append((s.rowptr, cc.astype(np.int32), s.val))
+    return out
+
+
+def pack_engine(shards, xplan, reidx, B_displs, max_m, dtype, kind, *,
+                device, mxu_precision, is_dd) -> tuple:
+    """The engines' pack: ``(arrays, op, resolved kind)``.  ``pallas_halo``
+    packs the fused kernel from the shards' global columns on B ownership
+    rounded to 128 rows; where its plan refuses, the engines take
+    ``pallas`` with the ownership their exchange plan was built on
+    (``rowpara.py:147-168``).  Every other kind packs the shards' compacted
+    columns through the dispatch's fallback walk."""
+    if kind == "pallas_halo":
+        aligned = align_displs(B_displs, int(B_displs[-1]))
+        try:
+            arrays, op = build_halo_plan(shards, aligned, device=device,
+                                         dtype=dtype, precision=mxu_precision)
+            return arrays, op, kind
+        except UnsupportedSparsity as e:
+            logger.warning("pallas_halo unavailable (%s); falling back to the "
+                           "unfused pallas path", e)
+            kind = "pallas"
+    return pack_with_fallback(
+        compact_shards(shards, xplan, reidx), max_m, dtype, kind, device=device,
+        mxu_precision=mxu_precision, is_dd=is_dd,
+    )
+
+
+def run_shards(local_op, packed, rB) -> torch.Tensor:
+    """``local_op`` on every shard's packed tensors and receive buffer
+    ``rB[i]``, one after another: (p, rows, n)."""
+    outs = [local_op(tuple(x[i] for x in packed), rB[i]) for i in range(len(rB))]
+    return outs[0][None] if len(outs) == 1 else torch.stack(outs)
+
+
 class RowParaSpmm(torch.nn.Module):
     """init(plan)/exec(B)->C engine for 1D row-parallel SpMM.
 
-    ``a`` is the global ``crp_tpu.sparse.CSRMatrix``; ``A_row_displs`` and
+    ``a`` is the global CSR matrix (any object with ``nrow``, ``ncol``,
+    ``rowptr``, ``colidx``, ``val`` and ``row_slice``); ``A_row_displs`` and
     ``B_row_displs`` the (p+1,) row blocks of A/C and the ownership
-    partition of B; ``device`` where the packed A lives and the kernel
-    runs.  The packed tensors are the module's buffers.
+    partition of B; ``device`` where the packed shards live and the kernels
+    run (default the card).  The packed tensors are the module's buffers.
     """
 
-    def __init__(self, a, A_row_displs, B_row_displs, glb_n: int, *, device,
-                 config: SpmmConfig | None = None, dtype=None) -> None:
+    def __init__(self, a, A_row_displs, B_row_displs, glb_n: int, *,
+                 device="cuda", config: SpmmConfig | None = None,
+                 dtype=None) -> None:
         super().__init__()
         self.config = config or SpmmConfig()
         self.A_row_displs = np.asarray(A_row_displs, dtype=np.int64)
@@ -70,23 +173,13 @@ class RowParaSpmm(torch.nn.Module):
         self.p = len(self.A_row_displs) - 1
         # "auto" never resolves to a dd kind here (resolve_auto_kernel)
         self.is_dd = self.config.kernel in ("dd", "dd_mxu")
-        if self.is_dd:
-            # the JAX refusals (rowpara.py:125-135), before the pack
-            if self.config.bc_layout:
-                raise ValueError(
-                    "BC_layout=1 supports the standard kernel paths; the dd "
-                    "kinds keep B and C row-major in fp64"
-                )
-            if self.config.overlap:
-                raise ValueError(
-                    "kernel='dd' is incompatible with overlap=1: the per-shift "
-                    "partial SpMM is plain fp32 and would lose the dd accuracy"
-                )
-        why = _unsupported(self.config, self.p)
+        check_dd_options(self.config)
+        check_halo_options(self.config)
+        why = unsupported(self.config)
         if why is not None:
             raise NotImplementedError(f"not yet ported to crp_tpu_torch: {why}")
+        self.device = engine_device(device)
         self.glb_n = glb_n
-        self.device = torch.device(device)
         self.dtype = np.dtype(
             np.float64 if self.is_dd
             else dtype if dtype is not None else self.config.dtype
@@ -126,7 +219,7 @@ class RowParaSpmm(torch.nn.Module):
             )
         kind = self.config.kernel
         if kind == "auto":
-            kind = resolve_auto_kernel(self.device)
+            kind = resolve_auto_kernel(self.device, self.p)
         self.max_k = int(max(np.diff(self.B_row_displs).max(), 1))
 
         # single-slot pack memo on the matrix (rowpara.py:205-289): a new
@@ -142,25 +235,25 @@ class RowParaSpmm(torch.nn.Module):
             kind, self._local_op, arrays = cache[cache_key]
         else:
             cache.clear()
-            shards_compact = []
-            for i, s in enumerate(shards):
-                if reidx:
-                    cc = np.searchsorted(self.xplan.rowmap[i], s.colidx)
-                else:
-                    cc = s.colidx - int(self.xplan.rowmap[i])
-                shards_compact.append((s.rowptr, cc.astype(np.int32), s.val))
             with tb.phase("pack"):
-                arrays, self._local_op, kind = pack_with_fallback(
-                    shards_compact, self.max_m, self.dtype, kind,
-                    device=self.device,
-                    mxu_precision=self.config.mxu_precision,
-                    is_dd=self.is_dd,
+                arrays, self._local_op, kind = pack_engine(
+                    shards, self.xplan, reidx, self.B_row_displs, self.max_m,
+                    self.dtype, kind, device=self.device,
+                    mxu_precision=self.config.mxu_precision, is_dd=self.is_dd,
                 )
                 synchronize(arrays)
             cache[cache_key] = (kind, self._local_op, arrays)
+        self.is_halo = kind == "pallas_halo"
+        if self.is_halo:
+            # the fused kernel owns B in 128-row aligned blocks and reads the
+            # shards' rows in place: no receive buffer
+            self.B_row_displs = self._local_op.B_displs
+            self.max_k = self._local_op.min_b_rows
+            self.max_m = max(self.max_m, self._local_op.G * self._local_op.TM)
         # the windowed kernels read whole windows: rB carries min_b_rows
         self._rb_rows = max(
-            self.xplan.rB_nrow_max, self._local_op.min_b_rows, 1
+            self.xplan.rB_nrow_max,
+            1 if self.is_halo else self._local_op.min_b_rows, 1,
         )
         self._n_packed = len(arrays)
         for i, x in enumerate(arrays):
@@ -168,18 +261,21 @@ class RowParaSpmm(torch.nn.Module):
 
         with tb.phase("upload"):
             self._identity_exchange = (
-                bool(self.config.rb_reidx)
+                not self.is_halo
+                and self.p == 1
+                and bool(self.config.rb_reidx)
                 and len(self.xplan.rowmap[0]) == int(self.B_row_displs[-1])
             )
             if self._identity_exchange:
                 # the kernel reads the owned block directly; pad it to the
                 # receive-buffer size the kernel was packed for
                 self.max_k = max(self.max_k, self._rb_rows)
-            else:
-                src, dst = self_copy_tables(self.xplan, self.device)
-                self.register_buffer("self_src", src, persistent=False)
-                self.register_buffer("self_dst", dst, persistent=False)
-                synchronize((src, dst))
+            elif not self.is_halo:
+                self.xtables = exchange_tables(
+                    self.xplan, self.max_k, self._rb_rows, self.device,
+                    ring=bool(self.config.rb_p2p),
+                )
+                synchronize([self.xtables.send, self.xtables.recv_dst])
 
         self.kernel_kind = kind
         self.rB_recv_rows = self.xplan.rB_recv_rows
@@ -189,6 +285,17 @@ class RowParaSpmm(torch.nn.Module):
     def packed(self) -> tuple:
         """The packed local-kernel tensors, leading shard axis included."""
         return tuple(getattr(self, f"packed_{i}") for i in range(self._n_packed))
+
+    @property
+    def physical_rows(self) -> int:
+        """Padded B rows one exec moves: every push of the fused kernel
+        (its own shard's included), else ``p·(p−1)·S`` on the ring and
+        ``p·p·S`` for the all_to_all."""
+        if self.is_halo:
+            return self._local_op.halo_rows_pushed
+        if self.config.rb_p2p:
+            return self.xplan.physical_rows_ring
+        return self.xplan.physical_rows
 
     # ------------------------------------------------------------------ exec
     def shard_b(self, b: np.ndarray) -> torch.Tensor:
@@ -207,18 +314,20 @@ class RowParaSpmm(torch.nn.Module):
         return c
 
     def _exchange(self, b_shards: torch.Tensor) -> torch.Tensor:
-        return exchange_b_local(
-            b_shards[0], self.self_src, self.self_dst, self._rb_rows
-        )
+        xch = exchange_b_ring if self.config.rb_p2p else exchange_b
+        return xch(b_shards, self.xtables)
 
     def _spmm(self, rB: torch.Tensor) -> torch.Tensor:
-        return self._local_op(tuple(x[0] for x in self.packed), rB)[None]
+        """Each shard's local op on its receive buffer: (p, rows, n)."""
+        return run_shards(self._local_op, self.packed, rB)
 
     def forward(self, b_shards: torch.Tensor) -> torch.Tensor:
         """Exchange + local SpMM on pre-sharded B; returns (p, rows, n)
         shards (rows past each shard's own are trimmed by ``unshard_c``)."""
+        if self.is_halo:
+            return self._local_op(self.packed, b_shards)
         if self._identity_exchange:
-            return self._spmm(b_shards[0])
+            return self._spmm(b_shards)
         return self._spmm(self._exchange(b_shards))
 
     def exec_device(self, b_shards: torch.Tensor) -> torch.Tensor:
@@ -238,9 +347,10 @@ class RowParaSpmm(torch.nn.Module):
         return out
 
     def exec_timed(self, b_shards: torch.Tensor) -> torch.Tensor:
-        """Exec with per-phase fences (the reference's stat-table phases)."""
+        """Exec with per-phase fences (the reference's stat-table phases):
+        ``a2a`` (the exchange) and ``spmm`` (the local ops)."""
         t = self.timer
-        if self._identity_exchange:
+        if self._identity_exchange or self.is_halo:
             c = self.exec_device(b_shards)
             with t.phase("exec", fence=c):
                 pass
@@ -259,17 +369,13 @@ class RowParaSpmm(torch.nn.Module):
     def print_stat(self) -> str:
         """Stat table in the spirit of ``rp_spmm_print_stat``
         (``src/rowpara_spmm.c:425-464`` of the reference)."""
-        physical = (
-            self.xplan.physical_rows_ring if self.config.rb_p2p
-            else self.xplan.physical_rows
-        )
         return format_stat_table(
             title="rp_spmm",
             t_init=self.t_init,
             timer=self.timer,
             comm_rows=self.rB_recv_size,
             glb_n=self.glb_n,
-            physical_rows=physical,
+            physical_rows=self.physical_rows,
         )
 
     def clear_stat(self) -> None:

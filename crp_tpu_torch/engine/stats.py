@@ -40,3 +40,13 @@ def format_stat_table(
                 f"  {timer.max(key):6.3f}"
             )
     return "\n".join(lines)
+
+
+def format_comm_head(rA_cost: int, rB_elems: int) -> str:
+    """The three "Total comm size" lines of ``para2d_spmm_print_stat``
+    (``src/para2d_spmm.c:150-198``): A replication, B exchange, their sum."""
+    return "\n".join([
+        f"Total comm size for replicating A = {rA_cost}",
+        f"Total comm size for replicating B = {rB_elems}",
+        f"Total comm size for SpMM          = {rA_cost + rB_elems}",
+    ])

@@ -24,7 +24,8 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{stem}.cu"
-                for stem in ("window_sg", "ragged", "spill", "dd_tc"))
+                for stem in ("window_sg", "window", "halo", "ragged", "spill",
+                             "dd_tc"))
 BUILD_DIR = _PKG.parent.parent / "build" / "crp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,6 +39,14 @@ _ENTRIES = {
     "crp_window_sg_bf16": ("window_sg", 4, ("G", "TM", "W", "n")),
     "crp_window_sg_f32": ("window_sg", 4, ("G", "TM", "W", "n")),
     "crp_window_sg_f64": ("window_sg", 4, ("G", "TM", "W", "n")),
+    "crp_window_x3": ("window", 4, ("G", "TM", "W", "n")),
+    "crp_window_bf16": ("window", 4, ("G", "TM", "W", "n")),
+    "crp_window_f32": ("window", 4, ("G", "TM", "W", "n")),
+    "crp_window_f64": ("window", 4, ("G", "TM", "W", "n")),
+    "crp_halo_x3": ("halo", 5, ("G", "TM", "W", "n")),
+    "crp_halo_bf16": ("halo", 5, ("G", "TM", "W", "n")),
+    "crp_halo_f32": ("halo", 5, ("G", "TM", "W", "n")),
+    "crp_halo_f64": ("halo", 5, ("G", "TM", "W", "n")),
     "crp_ragged_presplit": ("ragged", 6, ("G", "TM", "Wc", "n")),
     "crp_ragged_bf16": ("ragged", 5, ("G", "TM", "Wc", "n")),
     "crp_ragged_f32": ("ragged", 5, ("G", "TM", "Wc", "n")),

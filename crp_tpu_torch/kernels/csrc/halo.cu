@@ -1,0 +1,75 @@
+// Hopper kernels of the fused halo exchange + windowed SpMM, for the p row
+// shards of a multi-shard engine held on one card.  Shard i's G row groups
+// of TM rows are groups i*G .. i*G + G - 1 of one launch, and
+//
+//     C[(i*G + g)*TM + r, j] = sum_{k < W} A[i, g, r, k] * B[ws[i, g] + k, j]
+//
+// with A the fp32 (or fp64) dense (p, G, TM, W) window panels, ws the
+// global window starts (multiples of 128), B the global B, and C the
+// (p*G*TM, n) output.  B is never assembled: it is the (p*max_k, n) stack of
+// the shards' own row blocks, and global row r is row
+// chunk_src[r / 128] + r % 128 of that stack, in the shard that owns it
+// (ownership boundaries are 128-row aligned), or zero past the matrix
+// (chunk_src -1).  So each row group reads its window straight from the
+// owners' rows, with no receive buffer and no exchange copy.
+//
+// Replaces crp_tpu/kernels/spmm_halo.py _halo_kernel (wrapper
+// halo_spmm_local).  On a TPU each shard is its own chip: the kernel pushes
+// every owned 128-row chunk into the consumers' window buffers by remote
+// DMA, gates its window reads on per-owner arrival semaphores, and starts
+// with a barrier so that one exec's pushes never land in a buffer the last
+// exec still reads.  On one card the owners' rows are in the same memory:
+// the push becomes the read through chunk_src, and stream order (B written
+// before the launch, C read after it) is the barrier.  At the pack's
+// operating point, as the TPU kernel:
+//   crp_halo_x3    <- "x3": A and B split to bf16 hi/lo in RNE on the load
+//                     path, acc += al*bh + ah*bl + ah*bh in fp32
+//   crp_halo_bf16  <- DEFAULT: A and B rounded to bf16 (RNE), one product
+//   crp_halo_f32   <- HIGHEST: fp32 FMA, never TF32
+//   crp_halo_f64   <- fp64 panels: fp64 FMA
+// The tile bodies are the windowed kernels' (panel_tiles.cuh, #4 of
+// window.cu) with the chunk lookup on the B load; the per-32-row IEEE sums
+// are theirs too.
+
+#include "panel_tiles.cuh"
+
+extern "C" {
+
+int crp_halo_x3(const void* chunk_src, const void* ws, const void* tiles,
+                const void* b, void* c, int64_t G, int64_t TM, int64_t W,
+                int64_t n, void* stream)
+{
+    return crp::launch_mma<true, true, true>(nullptr, ws, tiles, nullptr, b, c,
+                                             G, TM, W, n, stream, chunk_src);
+}
+
+int crp_halo_bf16(const void* chunk_src, const void* ws, const void* tiles,
+                  const void* b, void* c, int64_t G, int64_t TM, int64_t W,
+                  int64_t n, void* stream)
+{
+    return crp::launch_mma<false, true, true>(nullptr, ws, tiles, nullptr, b, c,
+                                              G, TM, W, n, stream, chunk_src);
+}
+
+int crp_halo_f32(const void* chunk_src, const void* ws, const void* tiles,
+                 const void* b, void* c, int64_t G, int64_t TM, int64_t W,
+                 int64_t n, void* stream)
+{
+    return crp::launch_fma<float, 128, 128, 8, 8, 8, true>(
+        nullptr, ws, tiles, b, c, G, TM, W, n, stream, chunk_src);
+}
+
+int crp_halo_f64(const void* chunk_src, const void* ws, const void* tiles,
+                 const void* b, void* c, int64_t G, int64_t TM, int64_t W,
+                 int64_t n, void* stream)
+{
+    return crp::launch_fma<double, 64, 128, 8, 4, 8, true>(
+        nullptr, ws, tiles, b, c, G, TM, W, n, stream, chunk_src);
+}
+
+const char* crp_error_string(int code)
+{
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -13,6 +13,13 @@
 // (G*TM, n) output C is written, pad groups included (their panels are
 // zero).
 //
+// With CHUNKED (the fused halo kernels, halo.cu) B row r is not row r of
+// b: it is row chunk_src[r / HALO_TK] + r % HALO_TK of b, the row of the
+// shard that owns it, or zero where chunk_src holds -1.  There every start
+// is a multiple of HALO_TK, so a k slice (BK rows, BK dividing HALO_TK)
+// never crosses a chunk and looks its chunk up once.  The other kernels
+// compile without the lookup.
+//
 // The TPU kernels walk a sequential grid and carry C across steps in VMEM.
 // Here blocks run unordered: each block owns one (BM x BN) output tile of
 // one group and walks that group's chunks itself, k-slice by k-slice as one
@@ -36,6 +43,8 @@ namespace crp {
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
+constexpr int HALO_TK = 128;  // rows of one B ownership chunk (chunk_src)
+
 // chunk range of group g (see above)
 __device__ __forceinline__ void group_chunks(const int32_t* group_ptr,
                                              int64_t g, int64_t* s_begin,
@@ -43,6 +52,22 @@ __device__ __forceinline__ void group_chunks(const int32_t* group_ptr,
 {
     *s_begin = group_ptr ? group_ptr[g] : g;
     *s_end = group_ptr ? group_ptr[g + 1] : g + 1;
+}
+
+// first row in b of the k slice whose B rows start at row r, and whether
+// the rows exist (see CHUNKED above)
+template <bool CHUNKED>
+__device__ __forceinline__ int64_t b_slice_row(const int32_t* chunk_src,
+                                               int64_t r, bool* live)
+{
+    if constexpr (!CHUNKED) {
+        *live = true;
+        return r;
+    } else {
+        const int32_t src = chunk_src[r / HALO_TK];
+        *live = src >= 0;
+        return (int64_t)src + r % HALO_TK;
+    }
 }
 
 // ---------------------------------------------------------------- bf16 MMA
@@ -56,23 +81,57 @@ constexpr int B_LD = MMA_BN + 8;  // for wmma, padded against bank conflicts
 constexpr int A_VECS = MMA_BM * MMA_BK / 8 / MMA_THREADS;  // uint4 per thread
 constexpr int B_ELEMS = MMA_BK * MMA_BN / MMA_THREADS;     // per thread
 
-// X3: A arrives as bf16 hi/lo, B as fp32 and is split here.
-// !X3: A hi only, B already bf16 (cast by the caller).
-template <bool X3>
+// RNE bf16 bits of x, and of the remainder x - hi when LO: the split of
+// np_split_bf16 and of the pack's device split, never a truncation.
+__device__ __forceinline__ uint32_t bf16_bits(float x)
+{
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+template <bool LO>
+__device__ __forceinline__ void split8(const float4 (&v)[2], uint4& hi, uint4& lo)
+{
+    const float x[8] = {v[0].x, v[0].y, v[0].z, v[0].w,
+                        v[1].x, v[1].y, v[1].z, v[1].w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const bf16 h0 = __float2bfloat16_rn(x[2 * q]);
+        const bf16 h1 = __float2bfloat16_rn(x[2 * q + 1]);
+        // element 2q at the lower address: the low half of the word
+        h[q] = __bfloat16_as_ushort(h0) | ((uint32_t)__bfloat16_as_ushort(h1) << 16);
+        if constexpr (LO)
+            l[q] = bf16_bits(x[2 * q] - __bfloat162float(h0))
+                   | (bf16_bits(x[2 * q + 1] - __bfloat162float(h1)) << 16);
+    }
+    hi = make_uint4(h[0], h[1], h[2], h[3]);
+    if constexpr (LO) lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// X3: three bf16 products (al*bh + ah*bl + ah*bh); !X3: one (ah*bh).
+// A_F32: A arrives as fp32 panels and is split (X3) or rounded (!X3) to
+// bf16 here, on its way to shared memory; else A arrives as bf16 hi (and
+// lo for X3).  B arrives as fp32 and is split or rounded here when X3 or
+// A_F32, else as bf16 (cast by the caller).
+template <bool X3, bool A_F32 = false, bool CHUNKED = false>
 __global__ void __launch_bounds__(MMA_THREADS)
 panel_mma_kernel(const int32_t* __restrict__ group_ptr,
                  const int32_t* __restrict__ starts,
-                 const bf16* __restrict__ ah,
+                 const void* __restrict__ a_raw,
                  const bf16* __restrict__ al,
                  const void* __restrict__ b_raw,
                  float* __restrict__ c,
-                 int64_t TM, int64_t W, int64_t n, int64_t n_tiles)
+                 int64_t TM, int64_t W, int64_t n, int64_t n_tiles,
+                 const int32_t* __restrict__ chunk_src)
 {
+    constexpr bool B_F32 = X3 || A_F32;
     __shared__ __align__(128) bf16 As_h[MMA_BM][A_LD];
     __shared__ __align__(128) bf16 As_l[X3 ? MMA_BM : 1][A_LD];
     __shared__ __align__(128) bf16 Bs_h[MMA_BK][B_LD];
     __shared__ __align__(128) bf16 Bs_l[X3 ? MMA_BK : 1][B_LD];
     __shared__ __align__(128) float Cs[MMA_THREADS / 32][16 * 16];
+    const bf16* ah = static_cast<const bf16*>(a_raw);
+    const float* a_f = static_cast<const float*>(a_raw);
 
     const int tid = threadIdx.x;
     const int64_t tile = blockIdx.x;
@@ -93,6 +152,7 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
 
     uint4 ra_h[A_VECS];
     uint4 ra_l[A_VECS];
+    float4 ra_f[A_F32 ? A_VECS : 1][2];  // 8 fp32 A values per vector
     float rb_f[B_ELEMS];
     bf16 rb_h[B_ELEMS];
 
@@ -100,21 +160,30 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
     auto load_tile = [&](int64_t t) {
         const int64_t s = s_begin + t / nk;
         const int64_t k0 = (t % nk) * MMA_BK;
-        const int64_t b_row0 = starts[s] + k0;
+        bool b_live;
+        const int64_t b_row0 =
+            b_slice_row<CHUNKED>(chunk_src, starts[s] + k0, &b_live);
+        const bool b_ok = col_ok && b_live;
         const size_t a0 = (size_t)(s * TM + r_in) * W + k0;
 #pragma unroll
         for (int i = 0; i < A_VECS; ++i) {
             const int idx = tid + i * MMA_THREADS;
             const size_t off = a0 + (size_t)(idx >> 2) * W + (idx & 3) * 8;
-            ra_h[i] = *reinterpret_cast<const uint4*>(ah + off);
-            if constexpr (X3) ra_l[i] = *reinterpret_cast<const uint4*>(al + off);
+            if constexpr (A_F32) {
+                const float4* p = reinterpret_cast<const float4*>(a_f + off);
+                ra_f[i][0] = p[0];
+                ra_f[i][1] = p[1];
+            } else {
+                ra_h[i] = *reinterpret_cast<const uint4*>(ah + off);
+                if constexpr (X3) ra_l[i] = *reinterpret_cast<const uint4*>(al + off);
+            }
         }
 #pragma unroll
         for (int i = 0; i < B_ELEMS; ++i) {
             const int r = (tid / MMA_BN) + (MMA_THREADS / MMA_BN) * i;
             const size_t off = (size_t)(b_row0 + r) * n + n0 + cc;
-            if constexpr (X3) rb_f[i] = col_ok ? b_f[off] : 0.0f;
-            else rb_h[i] = col_ok ? b_h[off] : __float2bfloat16_rn(0.0f);
+            if constexpr (B_F32) rb_f[i] = b_ok ? b_f[off] : 0.0f;
+            else rb_h[i] = b_ok ? b_h[off] : __float2bfloat16_rn(0.0f);
         }
     };
 
@@ -123,6 +192,7 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
         for (int i = 0; i < A_VECS; ++i) {
             const int idx = tid + i * MMA_THREADS;
             const int r = idx >> 2, k8 = (idx & 3) * 8;
+            if constexpr (A_F32) split8<X3>(ra_f[i], ra_h[i], ra_l[i]);
             *reinterpret_cast<uint4*>(&As_h[r][k8]) = ra_h[i];
             if constexpr (X3) *reinterpret_cast<uint4*>(&As_l[r][k8]) = ra_l[i];
         }
@@ -135,6 +205,8 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
                 const bf16 hi = __float2bfloat16_rn(rb_f[i]);
                 Bs_h[r][cc] = hi;
                 Bs_l[r][cc] = __float2bfloat16_rn(rb_f[i] - __bfloat162float(hi));
+            } else if constexpr (B_F32) {
+                Bs_h[r][cc] = __float2bfloat16_rn(rb_f[i]);
             } else {
                 Bs_h[r][cc] = rb_h[i];
             }
@@ -237,10 +309,11 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
     }
 }
 
-template <bool X3>
-int launch_mma(const void* group_ptr, const void* starts, const void* ah,
+template <bool X3, bool A_F32 = false, bool CHUNKED = false>
+int launch_mma(const void* group_ptr, const void* starts, const void* a,
                const void* al, const void* b, void* c, int64_t G, int64_t TM,
-               int64_t W, int64_t n, void* stream)
+               int64_t W, int64_t n, void* stream,
+               const void* chunk_src = nullptr)
 {
     if (G < 0 || TM <= 0 || TM % MMA_BM || W <= 0 || W % MMA_BK || n < 0)
         return (int)cudaErrorInvalidValue;
@@ -248,12 +321,12 @@ int launch_mma(const void* group_ptr, const void* starts, const void* ah,
     const int64_t blocks = G * (TM / MMA_BM) * n_tiles;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     if (blocks > 0)
-        panel_mma_kernel<X3><<<(unsigned)blocks, MMA_THREADS, 0,
-                               (cudaStream_t)stream>>>(
+        panel_mma_kernel<X3, A_F32, CHUNKED><<<(unsigned)blocks, MMA_THREADS, 0,
+                                      (cudaStream_t)stream>>>(
             static_cast<const int32_t*>(group_ptr),
-            static_cast<const int32_t*>(starts), static_cast<const bf16*>(ah),
+            static_cast<const int32_t*>(starts), a,
             static_cast<const bf16*>(al), b, static_cast<float*>(c),
-            TM, W, n, n_tiles);
+            TM, W, n, n_tiles, static_cast<const int32_t*>(chunk_src));
     return (int)cudaGetLastError();
 }
 
@@ -272,14 +345,15 @@ __device__ __forceinline__ double fma_rn(double a, double b, double c)
 // Block tile BM x BN, k step BK; each thread owns RM consecutive rows and
 // RN columns strided by BN / RN (neighbouring threads on neighbouring
 // columns: conflict-free B reads and coalesced C writes).
-template <typename T, int BM, int BN, int BK, int RM, int RN>
+template <typename T, int BM, int BN, int BK, int RM, int RN, bool CHUNKED = false>
 __global__ void __launch_bounds__((BM / RM) * (BN / RN))
 panel_fma_kernel(const int32_t* __restrict__ group_ptr,
                  const int32_t* __restrict__ starts,
                  const T* __restrict__ tiles,
                  const T* __restrict__ b,
                  T* __restrict__ c,
-                 int64_t TM, int64_t W, int64_t n, int64_t n_tiles)
+                 int64_t TM, int64_t W, int64_t n, int64_t n_tiles,
+                 const int32_t* __restrict__ chunk_src)
 {
     constexpr int NT = (BM / RM) * (BN / RN);
     constexpr int TX = BN / RN;
@@ -310,7 +384,9 @@ panel_fma_kernel(const int32_t* __restrict__ group_ptr,
     auto load_tile = [&](int64_t t) {
         const int64_t s = s_begin + t / nk;
         const int64_t k0 = (t % nk) * BK;
-        const int64_t b_row0 = starts[s] + k0;
+        bool b_live;
+        const int64_t b_row0 =
+            b_slice_row<CHUNKED>(chunk_src, starts[s] + k0, &b_live);
         const T* a = tiles + (size_t)(s * TM + r_in) * W + k0;
 #pragma unroll
         for (int i = 0; i < A_PER; ++i) {
@@ -321,7 +397,8 @@ panel_fma_kernel(const int32_t* __restrict__ group_ptr,
         for (int i = 0; i < B_PER; ++i) {
             const int idx = tid + i * NT;
             const int64_t col = n0 + idx % BN;
-            rb[i] = col < n ? b[(size_t)(b_row0 + idx / BN) * n + col] : T(0);
+            rb[i] = (b_live && col < n) ? b[(size_t)(b_row0 + idx / BN) * n + col]
+                                        : T(0);
         }
     };
     auto store_tile = [&]() {
@@ -379,10 +456,10 @@ panel_fma_kernel(const int32_t* __restrict__ group_ptr,
     }
 }
 
-template <typename T, int BM, int BN, int BK, int RM, int RN>
+template <typename T, int BM, int BN, int BK, int RM, int RN, bool CHUNKED = false>
 int launch_fma(const void* group_ptr, const void* starts, const void* tiles,
                const void* b, void* c, int64_t G, int64_t TM, int64_t W,
-               int64_t n, void* stream)
+               int64_t n, void* stream, const void* chunk_src = nullptr)
 {
     if (G < 0 || TM <= 0 || TM % BM || W <= 0 || W % BK || n < 0)
         return (int)cudaErrorInvalidValue;
@@ -390,13 +467,14 @@ int launch_fma(const void* group_ptr, const void* starts, const void* tiles,
     const int64_t blocks = G * (TM / BM) * n_tiles;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     if (blocks > 0)
-        panel_fma_kernel<T, BM, BN, BK, RM, RN>
+        panel_fma_kernel<T, BM, BN, BK, RM, RN, CHUNKED>
             <<<(unsigned)blocks, (BM / RM) * (BN / RN), 0,
                (cudaStream_t)stream>>>(
                 static_cast<const int32_t*>(group_ptr),
                 static_cast<const int32_t*>(starts),
                 static_cast<const T*>(tiles), static_cast<const T*>(b),
-                static_cast<T*>(c), TM, W, n, n_tiles);
+                static_cast<T*>(c), TM, W, n, n_tiles,
+                static_cast<const int32_t*>(chunk_src));
     return (int)cudaGetLastError();
 }
 

@@ -38,33 +38,57 @@ def split_bf16(t: torch.Tensor, with_lo: bool):
 
 
 def uniform_fill(rowptr64, cc, v, nrow, TM, W, G_sg, ws_shard, mode, device):
-    """Densify one shard into ``(G_sg, TM, W)`` panels on ``device``.
+    """Densify one shard into ``(G_sg, TM, W)`` panels on ``device``
+    (:func:`uniform_fill_stacked` with one shard).  Returns ``(ws_full, ah,
+    al_or_None)``; ``ws_full`` (G_sg,) int32 holds the shard's window
+    starts and zeros for the pad groups."""
+    ws, ah, al = uniform_fill_stacked([(rowptr64, cc, v)], [ws_shard], TM, W,
+                                      G_sg, mode, device)
+    return ws[0], ah[0], None if al is None else al[0]
 
+
+def uniform_fill_stacked(shards, ws_shards, TM, W, G, mode, device):
+    """Densify shards into ``(p, G, TM, W)`` panels at a shared window
+    width ``W`` and group count ``G`` on ``device`` (the uniform packs; the
+    multi-shard one is ``crp_tpu/kernels/dispatch.py:637-668``).
+
+    ``shards`` are ``(rowptr, cc, v)``; ``ws_shards[i]`` is shard i's
+    window starts, None for an empty shard (all-zero panels, ``ws`` 0).
     ``mode``: "pair" (x3 hi/lo bf16), "bf16" (1-pass), "f32" / "f64"
     (full-precision panels).  Duplicate entries add, as ``np.add.at`` does
-    in the JAX host pack (``spmm_pallas.py:181``).  Returns
-    ``(ws_full, ah, al_or_None)``; ``ws_full`` (G_sg,) int32 holds the
-    shard's window starts and zeros for the pad groups.
+    in the JAX host pack (``spmm_pallas.py:181``).  Returns ``(ws (p, G)
+    int32, ah, al_or_None)``; pad groups past a shard's own have zero
+    panels and ``ws`` 0.
     """
     if mode not in MODES:
         raise ValueError(f"unknown densify mode {mode!r}")
-    rowptr64 = np.asarray(rowptr64, dtype=np.int64)
-    if int(rowptr64[0]) != 0:
-        raise ValueError("rowptr must start at 0")
-    r = np.repeat(np.arange(nrow, dtype=np.int64), np.diff(rowptr64))
-    off = np.asarray(cc, dtype=np.int64) - ws_shard.astype(np.int64)[r // TM]
-    if len(off) and (int(off.min()) < 0 or int(off.max()) >= W):
-        # window_extents reads each row's first and last column
-        raise UnsupportedSparsity(
-            "column outside its group's window: columns are not sorted "
-            "within each row"
-        )
-    vals = np.asarray(v, dtype=np.float64 if mode == "f64" else np.float32)
-    # int64 positions: G_sg*TM*W reaches 2^31
-    ah, al = _densify(r * W + off, vals, (G_sg, TM, W), mode, device)
-    ws_full = np.zeros(G_sg, dtype=np.int32)
-    ws_full[: len(ws_shard)] = ws_shard
-    return ws_full, ah, al
+    p = len(shards)
+    ws = np.zeros((p, G), dtype=np.int32)
+    flats, vals = [], []
+    val_dtype = np.float64 if mode == "f64" else np.float32
+    for i, ((rowptr, cc, v), ws_i) in enumerate(zip(shards, ws_shards)):
+        if ws_i is None:
+            continue
+        rowptr64 = np.asarray(rowptr, dtype=np.int64)
+        if int(rowptr64[0]) != 0:
+            raise ValueError("rowptr must start at 0")
+        nrow, nnz = len(rowptr64) - 1, int(rowptr64[-1])
+        r = np.repeat(np.arange(nrow, dtype=np.int64), np.diff(rowptr64))
+        off = np.asarray(cc[:nnz], dtype=np.int64) - ws_i.astype(np.int64)[r // TM]
+        if len(off) and (int(off.min()) < 0 or int(off.max()) >= W):
+            # window_extents reads each row's first and last column
+            raise UnsupportedSparsity(
+                "column outside its group's window: columns are not sorted "
+                "within each row"
+            )
+        # int64 positions: p*G*TM*W reaches 2^31
+        flats.append((i * G * TM + r) * W + off)
+        vals.append(np.asarray(v[:nnz], dtype=val_dtype))
+        ws[i, : len(ws_i)] = ws_i
+    flat = np.concatenate(flats) if flats else np.zeros(0, np.int64)
+    val = np.concatenate(vals) if vals else np.zeros(0, val_dtype)
+    ah, al = _densify(flat, val, (p, G, TM, W), mode, device)
+    return ws, ah, al
 
 
 def _densify(flat, vals, shape, mode, device):
@@ -89,7 +113,10 @@ def ragged_fill(rowptr64, cc, v, TM, Wc, starts, group_ptr, mode, device):
     and the native fill (``fastops.cpp:225-309``): a nonzero whose column
     falls inside one of its group's kept chunks (dropped-chunk nonzeros
     included, and a dummy chunk's range too) goes to that chunk's panel;
-    the rest spill, in CSR order.  ``mode`` as in :func:`uniform_fill`.
+    the rest spill, in CSR order.  The chunks are the first
+    ``group_ptr[-1]`` of ``starts``; steps past them (the no-op steps that
+    pad a shard to a common S) keep zero panels.  ``mode`` as in
+    :func:`uniform_fill`.
     Returns ``(ah_or_panels, al_or_None, (sp_rows, sp_cols, sp_vals))``
     with spill rows relative to the shard, int32, and values in fp64 for
     "f64", fp32 otherwise.
@@ -111,8 +138,8 @@ def ragged_fill(rowptr64, cc, v, TM, Wc, starts, group_ptr, mode, device):
     span = int(max(cols.max(initial=0), starts64.max(initial=0))) + Wc + 1
     chunk_group = np.repeat(np.arange(len(group_ptr) - 1, dtype=np.int64),
                             np.diff(np.asarray(group_ptr, dtype=np.int64)))
-    ch = np.searchsorted(chunk_group * span + starts64, g * span + cols,
-                         side="right") - 1
+    ch = np.searchsorted(chunk_group * span + starts64[: len(chunk_group)],
+                         g * span + cols, side="right") - 1
     chc = np.clip(ch, 0, None)
     off = cols - starts64[chc]
     inside = (ch >= 0) & (chunk_group[chc] == g) & (off >= 0) & (off < Wc)

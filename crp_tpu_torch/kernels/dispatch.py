@@ -7,10 +7,12 @@ tensors with their leading shard axis stripped.  Ported kinds:
 
   * ``"segsum"`` — gather + ``index_add_`` (any CSR, any device, exact);
   * ``"pallas"`` — the windowed family with the JAX package's gate between
-    its two packs: the uniform super-grouped windows, or the ragged
-    gathered-window chunks (+ spill) where the uniform window is refused
-    or over 3x a ragged cover; one pack per operating point (``x3``,
-    ``default``, ``highest``; fp64 data takes the fp64 FMA kernels);
+    its two packs: the uniform windows (super-grouped for one shard with
+    monotone windows, else the non-super-grouped kernel #4 on fp32
+    panels), or the ragged gathered-window chunks (+ spill) where the
+    uniform window is refused or over 3x a ragged cover; one pack per
+    operating point (``x3``, ``default``, ``highest``; fp64 data takes the
+    fp64 FMA kernels);
   * ``"ragged"`` — the ragged pack directly;
   * ``"gather"`` — every nonzero through the block-step gather kernel
     (fp32, any CSR: the scrambled power-law graphs the ragged cover
@@ -22,10 +24,11 @@ tensors with their leading shard axis stripped.  Ported kinds:
     fits, else the fp64 ELL (at most 128 nonzeros per row) or chunked
     segment-sum tier.  B and C are fp64 whatever the engine's dtype.
 
-The JAX package's ``pallas_halo`` and multi-shard windowed packs raise
-:class:`UnsupportedSparsity` ("not yet ported"), so the fallback walk goes
-on (logged, and reported as the engine's ``kernel_kind``) where the JAX
-package would have run them.
+Every kind packs any number of shards into tensors with a leading shard
+axis.  ``pallas_halo``, the fused exchange + windowed kernel of the
+multi-shard engines, is no local kind: the engines pack it themselves
+(``spmm_halo.build_halo_plan``), from the shards' global columns and the
+B ownership, and here it refuses (:class:`UnsupportedSparsity`).
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ from .spmm_dd_mxu import dd_mxu_geometry, ragged_dd_cover, spmm_ragged_dd
 from .spmm_ell import pack_ell, spmm_ell
 from .spmm_pallas import (
     SG_BUDGET, SG_BUDGET_CPU, TK, UnsupportedSparsity, choose_chunks,
-    plan_supergroups, spmm_window_sg, spmm_window_sg_bf16, spmm_window_sg_bf16_plain,
-    spmm_window_sg_plain, spmm_window_sg_presplit,
-    spmm_window_sg_presplit_plain, window_extents,
+    plan_supergroups, spmm_window, spmm_window_plain, spmm_window_sg,
+    spmm_window_sg_bf16, spmm_window_sg_bf16_plain, spmm_window_sg_plain,
+    spmm_window_sg_presplit, spmm_window_sg_presplit_plain, window_extents,
 )
 from .spmm_ragged import (
     PANEL_CAP_BYTES, SPILL_Q, SPILL_TMO, cover_with_cap, default_min_chunk_nnz,
@@ -60,22 +63,18 @@ from .spmm_segsum import pack_device_csr, spmm_segment_sum
 
 logger = logging.getLogger("crp_tpu_torch")
 
-# kinds of the JAX package whose kernels this package does not have yet,
-# with the ROADMAP item that ports each
-_NOT_PORTED = {
-    "pallas_halo": "Queue A #10 (Queue B #12)",
-}
+def resolve_auto_kernel(device, nshards: int = 1) -> str:
+    """``kernel="auto"`` (``dispatch.py:30-62``): on a CUDA device the fused
+    ``"pallas_halo"`` for multi-shard engines and ``"pallas"`` for one
+    shard; ``"segsum"`` elsewhere, as JAX picks segsum off the TPU.  The
+    engines land on ``"pallas"`` where the halo plan refuses.
 
-
-def resolve_auto_kernel(device) -> str:
-    """``kernel="auto"``: ``"pallas"`` on a CUDA device, ``"segsum"``
-    elsewhere (``dispatch.py:30-62`` picks segsum off the TPU too).
-
-    The JAX package sends fp64 data on the TPU to ``dd`` and multi-shard
-    engines to ``pallas_halo``; here fp64 runs natively in the windowed
-    FMA kernel, and only p = 1 engines exist yet.
+    The JAX package sends fp64 data on the TPU to ``dd``; here fp64 runs
+    natively in the windowed FMA kernels.
     """
-    return "pallas" if torch.device(device).type == "cuda" else "segsum"
+    if torch.device(device).type != "cuda":
+        return "segsum"
+    return "pallas_halo" if nshards > 1 else "pallas"
 
 
 def sparsity_fallback_chain(kind: str, dtype, device, is_dd: bool = False,
@@ -207,18 +206,26 @@ class GatherOp:
 
 @dataclasses.dataclass
 class WindowOp:
-    """Local op of the ``pallas`` kind on a uniform super-grouped pack.
+    """Local op of the ``pallas`` kind on a uniform windowed pack.
 
-    ``scheme`` picks the kernel and the arrays it reads: ``"x3"`` (ws, ah,
-    al, bases), ``"bf16"`` (ws, ah, bases), ``"full"`` (ws, tiles, bases).
-    ``bases`` stays in the pack for parity with the JAX pack; the Hopper
-    kernels read only ``ws``.  ``min_b_rows``: rows rB must have.
+    ``scheme`` picks the kernel and the arrays it reads.  On a
+    super-grouped pack (variant ``"uniform"``): ``"x3"`` (ws, ah, al,
+    bases), ``"bf16"`` (ws, ah, bases), ``"full"`` (ws, tiles, bases);
+    ``bases`` stays in the pack for parity with the JAX pack, the Hopper
+    kernels read only ``ws``.  On a pack with no super-group plan (variant
+    ``"window"``, every multi-shard pack): ``"window"`` (ws, tiles), fp32 or
+    fp64 panels, the operating point ``precision`` applied in the kernel.
+    ``min_b_rows``: rows rB must have.
     """
 
     scheme: str
     min_b_rows: int
     roofline: dict = dataclasses.field(default_factory=dict)
-    variant = "uniform"
+    precision: str = "highest"
+
+    @property
+    def variant(self) -> str:
+        return "window" if self.scheme == "window" else "uniform"
 
     @property
     def kernel(self):
@@ -227,6 +234,7 @@ class WindowOp:
             "x3": spmm_window_sg_presplit,
             "bf16": spmm_window_sg_bf16,
             "full": spmm_window_sg,
+            "window": spmm_window,
         }[self.scheme]
 
     @property
@@ -236,6 +244,7 @@ class WindowOp:
             "x3": spmm_window_sg_presplit_plain,
             "bf16": spmm_window_sg_bf16_plain,
             "full": spmm_window_sg_plain,
+            "window": spmm_window_plain,
         }[self.scheme]
 
     def kernel_args(self, arrs, rB) -> tuple:
@@ -247,6 +256,9 @@ class WindowOp:
         if self.scheme == "bf16":
             ws, ah, _ = arrs
             return ws, ah, rB.to(torch.bfloat16)  # as dispatch.py:529 casts
+        if self.scheme == "window":
+            ws, tiles = arrs
+            return ws, tiles, rB, self.precision
         ws, tiles, _ = arrs
         return ws, tiles, rB
 
@@ -263,6 +275,11 @@ def _stacked(packs, device) -> tuple:
         torch.from_numpy(np.stack([p[i] for p in packs])).to(device)
         for i in range(len(packs[0]))
     )
+
+
+def _stack(tensors: list) -> torch.Tensor:
+    """Per-shard tensors with a leading shard axis (one shard: a view)."""
+    return tensors[0][None] if len(tensors) == 1 else torch.stack(tensors)
 
 
 def _max_row_nnz(shards) -> int:
@@ -311,9 +328,10 @@ def pack_local_kernel(
             except UnsupportedSparsity:
                 pass
         return _pack_dd(shards, max_m, device)
-    if kind in _NOT_PORTED:
+    if kind == "pallas_halo":
         raise UnsupportedSparsity(
-            f"kernel kind {kind!r} not yet ported (ROADMAP {_NOT_PORTED[kind]})"
+            "kernel kind 'pallas_halo' is packed by the engines "
+            "(spmm_halo.build_halo_plan), not as a local kernel"
         )
     raise ValueError(f"unknown local SpMM kernel kind {kind!r}")
 
@@ -373,84 +391,142 @@ def _uniform_cost_estimate(shards, max_m, TM=256):
     return W, G, W_raw <= 16384
 
 
+def _largest_shard(shards):
+    """The shard with the most nonzeros (the ragged geometry is resolved
+    on it, ``dispatch.py:359-373``), or None when no shard has a row."""
+    return max((s for s in shards if len(s[0]) > 1),
+               key=lambda s: int(s[0][-1]) - int(s[0][0]), default=None)
+
+
 def _pack_pallas(shards, max_m, dtype, mxu_precision, device):
     """The ``pallas`` kind: the JAX package's gate between the uniform
     windowed pack and the ragged family (``dispatch.py:330-392``).
 
     Windows over 16384 rows go straight to ragged.  Wide windows (over
-    4096 rows or 1 GiB) price a ragged cover at the geometry the ragged
-    pack would use and take it when the uniform pack is over 3x larger,
-    landing back on the uniform pack if the ragged one refuses.  Any
-    uniform refusal (no super-group plan, per-row-unsorted columns) goes
-    to ragged.  ``device.type == "cpu"`` stands where JAX has
-    ``interpret``, so CPU packs equal the JAX CPU packs.
+    4096 rows, or uniform panels over 1 GiB summed over the shards) price a
+    ragged cover at the geometry the ragged pack would use (resolved once
+    on the largest shard, the ragged bytes summed over the shards) and take
+    it when the uniform pack is over 3x larger, landing back on the uniform
+    pack if the ragged one refuses.  Any uniform refusal (a window over the
+    cap, per-row-unsorted columns) goes to ragged.  ``device.type ==
+    "cpu"`` stands where JAX has ``interpret``, so CPU packs equal the JAX
+    CPU packs.
     """
-    if len(shards) != 1:
-        raise UnsupportedSparsity(
-            "multi-shard windowed packs (the non-super-grouped _window_kernel, "
-            "ROADMAP Queue B #4; ragged packs at p > 1, Queue A #8) are not "
-            "yet ported"
-        )
     W_est, G_est, uniform_ok = _uniform_cost_estimate(shards, max_m)
     if not uniform_ok:
         return _pack_ragged(shards, max_m, dtype, mxu_precision, device)
     itemsize = np.dtype(dtype).itemsize
-    bytes_uniform = G_est * 256 * W_est * itemsize
-    rowptr, cc, _ = shards[0]
-    nonempty = len(rowptr) > 1 and int(rowptr[-1]) > int(rowptr[0])
-    if (W_est > 4096 or bytes_uniform > (1 << 30)) and nonempty:
+    bytes_uniform = len(shards) * G_est * 256 * W_est * itemsize
+    if W_est > 4096 or bytes_uniform > (1 << 30):
+        big = _largest_shard(shards)
+        if big is None:
+            # no shard has a row: the uniform pack refuses the degenerate
+            # shards itself
+            return _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device)
         geometry = resolve_ragged_geometry(
-            rowptr, cc, mxu_precision, small=device.type == "cpu"
+            big[0], big[1], mxu_precision, small=device.type == "cpu"
         )
-        S, _, _ = estimate_ragged(rowptr, cc, *geometry)
-        if bytes_uniform > 3 * max(S * geometry[0] * geometry[1] * itemsize, 1):
+        bytes_ragged = 0
+        for rowptr, cc, _ in shards:
+            if len(rowptr) < 2 or int(rowptr[-1]) == int(rowptr[0]):
+                continue
+            S, _, _ = estimate_ragged(rowptr, cc, *geometry)
+            bytes_ragged += S * geometry[0] * geometry[1] * itemsize
+        if bytes_uniform > 3 * max(bytes_ragged, 1):
             try:
                 return _pack_ragged(shards, max_m, dtype, mxu_precision, device,
                                     geometry=geometry)
             except UnsupportedSparsity:
                 pass  # ragged not worthwhile either; try uniform below
     try:
-        return _pack_pallas_uniform(shards[0], max_m, dtype, mxu_precision, device)
+        return _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device)
     except UnsupportedSparsity:
         return _pack_ragged(shards, max_m, dtype, mxu_precision, device)
 
 
-def _pack_pallas_uniform(shard, max_m, dtype, mxu_precision, device):
+def _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device):
+    """The uniform windowed pack (``dispatch.py:611-812``): one shard with a
+    super-group plan takes the super-grouped kernels; several shards, or
+    one with no plan (non-monotone windows), take the non-super-grouped
+    kernel #4 on fp32 (or fp64) panels."""
     dt = np.dtype(dtype)
-    if dt == np.float32 and mxu_precision in ("default", "x3"):
-        return _pack_uniform_single_bf16(shard, max_m, mxu_precision, device)
-    if dt in (np.float32, np.float64):
-        return _pack_uniform_single_full(shard, max_m, dt, mxu_precision, device)
-    raise UnsupportedSparsity(f"no windowed kernel for dtype {dt}")
+    if dt not in (np.float32, np.float64):
+        raise UnsupportedSparsity(f"no windowed kernel for dtype {dt}")
+    if len(shards) == 1:
+        if dt == np.float32 and mxu_precision in ("default", "x3"):
+            got = _pack_uniform_single_bf16(shards[0], max_m, mxu_precision, device)
+        else:
+            got = _pack_uniform_single_full(shards[0], max_m, dt, mxu_precision,
+                                            device)
+        if got is not None:
+            return got
+    return _pack_window(shards, max_m, dt, mxu_precision, device)
 
 
-def _window_geometry(shard, max_m, win_itemsize, tile_itemsize, device):
-    """Window extents, padding and super-group plan of one shard
-    (``dispatch.py:450-473``); raises where the JAX pack has no sg plan."""
+def _shard_window(shard, TM, tile_itemsize):
+    """(ws, W, G) of one shard's own uniform pack (``pack_window_dense``,
+    ``spmm_pallas.py:124-158``), None for an empty shard; raises where that
+    pack refuses (a window over 16384 rows, panels over 8 GiB)."""
     rowptr, cc, _ = shard
     if len(rowptr) < 2 or int(rowptr[-1]) - int(rowptr[0]) == 0:
-        raise UnsupportedSparsity("all shards empty")
-    TM, max_window = 256, 16384
+        return None
+    max_window = 16384
     nrow = len(rowptr) - 1
     rowptr64 = np.ascontiguousarray(rowptr, dtype=np.int64)
     min_t, W0 = window_extents(rowptr64, cc, TM)
     if W0 > max_window:
         raise UnsupportedSparsity(f"window {W0} rows > cap {max_window}")
     W, _, _ = choose_chunks(W0)
-    G0 = -(-nrow // TM)
-    G = max(G0, -(-max_m // TM))
+    G = -(-nrow // TM)
     if G * W * TM * tile_itemsize > (8 << 30):
         raise UnsupportedSparsity(
             f"dense window tiles {(G * W * TM * tile_itemsize) >> 20} MiB > cap"
         )
-    ws_shard = (min_t * TK).astype(np.int32)
+    return (min_t * TK).astype(np.int32), W, G
+
+
+def _window_geometry(shard, max_m, win_itemsize, tile_itemsize, device):
+    """Window extents, padding and super-group plan of one shard
+    (``dispatch.py:450-473``); None where the JAX pack has no sg plan."""
+    TM = 256
+    got = _shard_window(shard, TM, tile_itemsize)
+    if got is None:
+        raise UnsupportedSparsity("all shards empty")
+    ws_shard, W, G0 = got
+    G = max(G0, -(-max_m // TM))
     sg = _sg_geometry(ws_shard, W, win_itemsize, device.type == "cpu", G)
     if sg is None:
-        raise UnsupportedSparsity(
-            "no super-group plan (non-monotone windows): the non-super-grouped "
-            "_window_kernel is not yet ported (ROADMAP Queue B #4)"
-        )
-    return rowptr64, nrow, TM, W, G0, ws_shard, sg
+        return None
+    rowptr64 = np.ascontiguousarray(shard[0], dtype=np.int64)
+    return rowptr64, len(rowptr64) - 1, TM, W, G0, ws_shard, sg
+
+
+def _pack_window(shards, max_m, dtype, mxu_precision, device):
+    """The pack of kernel #4 (``dispatch.py:633-668,793-812``): each
+    shard's window panels at a shared chunk-exact W and group count G,
+    ``(p, G, TM, W)`` fp32 or fp64 panels densified on the device; an
+    empty shard gets zero panels with ``ws`` 0.  The panels stay in the
+    pack's dtype at every operating point (the JAX pack): the kernel splits
+    or rounds them."""
+    TM = 256
+    itemsize = np.dtype(dtype).itemsize
+    got = [_shard_window(s, TM, itemsize) for s in shards]
+    real = [g for g in got if g is not None]
+    if not real:
+        raise UnsupportedSparsity("all shards empty")
+    G = max(max(g[2] for g in real), -(-max_m // TM))
+    W, _, _ = choose_chunks(max(g[1] for g in real))
+    ws, tiles, _ = device_pack.uniform_fill_stacked(
+        shards, [None if g is None else g[0] for g in got], TM, W, G,
+        "f64" if itemsize == 8 else "f32", device,
+    )
+    roofline = dict(
+        G=G, TM=TM, W=W, a_bytes=tiles.numel() * tiles.element_size(),
+        b_rows_read=G * W, c_rows=G * TM, b_itemsize=itemsize,
+        passes={"x3": 3, "highest": 6, "default": 1}.get(mxu_precision, 1),
+    )
+    return ((torch.from_numpy(ws).to(device), tiles),
+            WindowOp("window", int(ws.max()) + W, roofline, mxu_precision))
 
 
 def _finish_window_pack(scheme, ws_full, panels, G0, TM, W, sg, b_itemsize,
@@ -476,11 +552,12 @@ def _finish_window_pack(scheme, ws_full, panels, G0, TM, W, sg, b_itemsize,
 def _pack_uniform_single_bf16(shard, max_m, mxu_precision, device):
     """x3 / default: densify on the device straight to the bf16 hi/lo pair
     (x3) or the hi half (default), as ``dispatch.py:430-540`` does on the
-    TPU."""
+    TPU); None where the shard has no super-group plan."""
     split = mxu_precision == "x3"
-    rowptr64, nrow, TM, W, G0, ws_shard, sg = _window_geometry(
-        shard, max_m, 4 if split else 2, 4, device
-    )
+    geo = _window_geometry(shard, max_m, 4 if split else 2, 4, device)
+    if geo is None:
+        return None
+    rowptr64, nrow, TM, W, G0, ws_shard, sg = geo
     ws_full, ah, al = device_pack.uniform_fill(
         rowptr64, shard[1], shard[2], nrow, TM, W, sg[4], ws_shard,
         "pair" if split else "bf16", device,
@@ -495,11 +572,12 @@ def _pack_uniform_single_bf16(shard, max_m, mxu_precision, device):
 def _pack_uniform_single_full(shard, max_m, dtype, mxu_precision, device):
     """fp32 ``highest`` and fp64 data: full-precision panels densified on
     the device (``dispatch.py:543-608``, and the generic sg pack of
-    ``:633-791`` for fp64)."""
+    ``:633-791`` for fp64); None where the shard has no super-group plan."""
     itemsize = np.dtype(dtype).itemsize
-    rowptr64, nrow, TM, W, G0, ws_shard, sg = _window_geometry(
-        shard, max_m, itemsize, itemsize, device
-    )
+    geo = _window_geometry(shard, max_m, itemsize, itemsize, device)
+    if geo is None:
+        return None
+    rowptr64, nrow, TM, W, G0, ws_shard, sg = geo
     ws_full, tiles, _ = device_pack.uniform_fill(
         rowptr64, shard[1], shard[2], nrow, TM, W, sg[4], ws_shard,
         "f64" if itemsize == 8 else "f32", device,
@@ -644,34 +722,45 @@ def _extend_and_stack_steps(shard_steps, G):
     return a_g, a_first, a_starts, S
 
 
+def _group_ptrs(a_first, steps, G) -> np.ndarray:
+    """Each shard's group ranges (:func:`first_ptr` of its ``first`` row),
+    the last range ending at the shard's own steps: the trailing no-op
+    steps that pad a shard to the common S carry zero panels, and a CUDA
+    block would otherwise walk all of them for the last group."""
+    ptr = np.stack([first_ptr(f) for f in a_first])
+    ptr[:, -1] = [G if st is None else len(st[0]) + max(G - st[3], 0) for st in steps]
+    return ptr
+
+
 def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
                  min_chunk_nnz=None, spill_impl="auto", TMo=SPILL_TMO, Q=SPILL_Q):
-    """Ragged gathered-window pack, p = 1 (``dispatch.py:856-1158``).
+    """Ragged gathered-window pack (``dispatch.py:856-1158``), any number
+    of shards.
 
     Keyword arguments stand for the JAX package's environment knobs, with
     its defaults: ``geometry`` (TM, Wc) (``CRP_TPU_RAGGED_TM``/``_WC``; None:
-    the model picks), ``min_chunk_nnz`` (``CRP_TPU_RAGGED_MIN_NNZ``; None:
-    the break-even model), ``spill_impl`` (``CRP_TPU_SPILL_IMPL``: "auto",
-    "segsum" or "pallas"), ``TMo``/``Q`` (``CRP_TPU_SPILL_TMO``/``_Q``).
-    "auto" takes the fused spill kernel for a dense spill (at least one
-    spilled nnz per output row) of an fp32 pack on a CUDA device, and
-    ``segsum`` otherwise.  Raises UnsupportedSparsity when the cover keeps
-    under 30% of the nonzeros in panels; where the cover's own count
-    settles that, before any panel is filled.
+    the model picks, on the largest shard), ``min_chunk_nnz``
+    (``CRP_TPU_RAGGED_MIN_NNZ``; None: the break-even model), ``spill_impl``
+    (``CRP_TPU_SPILL_IMPL``: "auto", "segsum" or "pallas"), ``TMo``/``Q``
+    (``CRP_TPU_SPILL_TMO``/``_Q``).  "auto" takes the fused spill kernel
+    for a dense spill (the largest shard spill Z at least one nnz per
+    output row) of an fp32 pack on a CUDA device, and ``segsum`` otherwise.
+    Shards share (TM, Wc), the group count G and the step count S (dummy
+    chunks and trailing no-op steps); every shard's spill arrays are padded
+    to Z (``segsum``) or to the largest step count (``pallas``), and its
+    ``group_ptr`` / ``blk_ptr`` are its own.  Raises UnsupportedSparsity
+    when the covers keep under 30% of all nonzeros in panels; where the
+    covers' own counts settle that, before any panel is filled.
     """
     if spill_impl not in SPILL_IMPLS:
         raise ValueError(f"spill_impl={spill_impl!r} not in {SPILL_IMPLS}")
-    if len(shards) != 1:
-        raise UnsupportedSparsity(
-            "multi-shard ragged packs need p > 1 engines (ROADMAP Queue A #8)"
-        )
-    rowptr, cc, v = shards[0]
-    nnz = int(rowptr[-1]) - int(rowptr[0]) if len(rowptr) > 1 else 0
-    if nnz == 0:
+    total_nnz = sum(int(r[-1]) - int(r[0]) if len(r) > 1 else 0 for r, _, _ in shards)
+    if total_nnz == 0:
         raise UnsupportedSparsity("all shards empty")
     if geometry is None:
+        big = _largest_shard(shards)
         geometry = resolve_ragged_geometry(
-            rowptr, cc, mxu_precision, small=device.type == "cpu"
+            big[0], big[1], mxu_precision, small=device.type == "cpu"
         )
     TM, Wc = geometry
     is_f32 = np.dtype(dtype) == np.float32
@@ -680,40 +769,64 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
         mode = "pair" if mxu_precision == "x3" else "bf16"
     else:
         mode = "f64" if pack_dtype == np.float64 else "f32"
+    if min_chunk_nnz is None:
+        min_chunk_nnz = default_min_chunk_nnz(TM, Wc)
 
-    rowptr64 = np.ascontiguousarray(rowptr, dtype=np.int64)
-    cc32 = np.ascontiguousarray(cc, dtype=np.int32)
-    nrow = len(rowptr64) - 1
-    G_s = max(-(-nrow // TM), 1)
-    # the bf16 modes cap at fp32 bytes, as the JAX direct-bf16 pack does
-    starts_s, group_ptr_s, spill_s = cover_with_cap(
-        rowptr64, cc32, TM, Wc,
-        default_min_chunk_nnz(TM, Wc) if min_chunk_nnz is None else min_chunk_nnz,
-        G_s, PANEL_CAP_BYTES, np.dtype(pack_dtype).itemsize,
-    )
-    # The keep share before the fill.  The cover's spill count bounds the
-    # fill's from above: a group that keeps no chunk gets a dummy chunk over
-    # [0, Wc), which takes back its nonzeros there.  So with every column
-    # below Wc taken back, a cover still under the share is refused here,
-    # uploading no panel; the fill's own count decides the rest (below), as
-    # in the JAX pack.
-    _check_keep_share(nnz - spill_s + int(np.count_nonzero(cc32[:nnz] < Wc)), nnz)
-    G = max(-(-max_m // TM), G_s)
-    first_s = np.zeros(len(starts_s), np.int32)
-    first_s[group_ptr_s[:-1]] = 1
-    a_g, a_first, a_starts, S = _extend_and_stack_steps(
-        [(starts_s, np.repeat(np.arange(G_s, dtype=np.int32), np.diff(group_ptr_s)),
-          first_s, G_s)],
-        G,
-    )
-    group_ptr = first_ptr(a_first[0])
+    # per shard: (rowptr64, cc32, v, nnz) and its cover, None when empty
+    prepared, steps = [], []
+    keep_bound = 0
+    for rowptr, cc, v in shards:
+        nnz = int(rowptr[-1]) - int(rowptr[0]) if len(rowptr) > 1 else 0
+        if nnz == 0:
+            prepared.append(None)
+            steps.append(None)
+            continue
+        rowptr64 = np.ascontiguousarray(rowptr, dtype=np.int64)
+        cc32 = np.ascontiguousarray(cc, dtype=np.int32)
+        G_s = max(-(-(len(rowptr64) - 1) // TM), 1)
+        # the bf16 modes cap at fp32 bytes, as the JAX direct-bf16 pack does
+        starts_s, group_ptr_s, spill_s = cover_with_cap(
+            rowptr64, cc32, TM, Wc, min_chunk_nnz, G_s, PANEL_CAP_BYTES,
+            np.dtype(pack_dtype).itemsize,
+        )
+        # The keep share before the fill.  A cover's spill count bounds its
+        # fill's from above: a group that keeps no chunk gets a dummy chunk
+        # over [0, Wc), which takes back its nonzeros there.  So with every
+        # column below Wc taken back, covers still under the share are
+        # refused here, uploading no panel; the fills' own counts decide
+        # the rest (below), as in the JAX pack.
+        keep_bound += nnz - spill_s + int(np.count_nonzero(cc32[:nnz] < Wc))
+        first_s = np.zeros(len(starts_s), np.int32)
+        first_s[group_ptr_s[:-1]] = 1
+        step_g = np.repeat(np.arange(G_s, dtype=np.int32), np.diff(group_ptr_s))
+        prepared.append((rowptr64, cc32, v, nnz))
+        steps.append((starts_s, step_g, first_s, G_s))
+    _check_keep_share(keep_bound, total_nnz)
+    G = max(-(-max_m // TM), max(st[3] for st in steps if st is not None))
+    a_g, a_first, a_starts, S = _extend_and_stack_steps(steps, G)
+    group_ptr = _group_ptrs(a_first, steps, G)
+
     # the pad groups' dummy chunks are part of the fill: their panels are zero
-    ah, al, spill = device_pack.ragged_fill(
-        rowptr64, cc32, v, TM, Wc, a_starts[0], group_ptr, mode, device,
-    )
-    Z = len(spill[0])
-    mxu_nnz = nnz - Z
-    _check_keep_share(mxu_nnz, nnz)
+    his, los, spills = [], [], []
+    for i, sh in enumerate(prepared):
+        if sh is None:
+            panel_dtype = torch.bfloat16 if mode in ("pair", "bf16") else (
+                torch.float64 if mode == "f64" else torch.float32)
+            his.append(torch.zeros((S, TM, Wc), dtype=panel_dtype, device=device))
+            los.append(torch.zeros_like(his[-1]) if mode == "pair" else None)
+            spills.append(None)
+            continue
+        rowptr64, cc32, v, _ = sh
+        ah, al, spill = device_pack.ragged_fill(
+            rowptr64, cc32, v, TM, Wc, a_starts[i], group_ptr[i], mode, device,
+        )
+        his.append(ah)
+        los.append(al)
+        spills.append(spill)
+    Z = max((len(s[0]) for s in spills if s is not None), default=0)
+    spill_nnz = sum(len(s[0]) for s in spills if s is not None)
+    mxu_nnz = total_nnz - spill_nnz
+    _check_keep_share(mxu_nnz, total_nnz)
 
     sp_impl = spill_impl if Z else "segsum"
     if sp_impl == "auto":
@@ -727,33 +840,46 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     if Z and sp_impl == "pallas":
         while (G * TM) % TMo:  # M = G*TM is only 128-aligned
             TMo //= 2
-        r, c, vv = spill
-        # (block, column) order: the B gather walks near-monotonically
-        order = np.lexsort((c, r // TMo))
-        r, c, vv = r[order], c[order], vv[order]
         nblk = G * TM // TMo
-        counts = np.bincount(r // TMo, minlength=nblk)
-        ns = int(np.maximum(-(-counts // Q), 1).sum())
-        sp_arrays = pack_spill_blocks((r, c, vv), ns, G * TM, pack_dtype,
-                                      TMo=TMo, Q=Q)
-        extras.append(first_ptr(sp_arrays[3]))
+        sorted_spills, ns = [], []
+        for s in spills:
+            n_steps = nblk
+            if s is not None:
+                r, c, vv = s
+                # (block, column) order: the B gather walks near-monotonically
+                order = np.lexsort((c, r // TMo))
+                s = r[order], c[order], vv[order]
+                counts = np.bincount(s[0] // TMo, minlength=nblk)
+                n_steps = int(np.maximum(-(-counts // Q), 1).sum())
+            sorted_spills.append(s)
+            ns.append(n_steps)
+        per = [pack_spill_blocks(s, max(ns), G * TM, pack_dtype, TMo=TMo, Q=Q)
+               for s in sorted_spills]
+        sp_arrays = tuple(np.stack([x[k] for x in per]) for k in range(5))
+        # the last block's range ends at the shard's own steps: the pad
+        # steps past them hold only pad slots
+        blk_ptr = np.stack([first_ptr(f) for f in sp_arrays[3]])
+        blk_ptr[:, -1] = ns
+        extras.append(blk_ptr)
     elif Z:
-        sp_arrays = pack_spill(spill, Z, G * TM, pack_dtype)
+        per = [pack_spill(s, Z, G * TM, pack_dtype) for s in spills]
+        sp_arrays = tuple(np.stack([x[k] for x in per]) for k in range(3))
 
-    panels = (ah,) if al is None else (ah, al)
+    panels = (_stack(his),) if mode != "pair" else (_stack(his), _stack(los))
+    del his, los
     a_bytes = sum(p.numel() * p.element_size() for p in panels)
     arrays = (
         *(torch.from_numpy(x).to(device) for x in (a_g, a_first, a_starts)),
-        *(p[None] for p in panels),
-        *(torch.from_numpy(x[None]).to(device) for x in (*sp_arrays, *extras)),
+        *panels,
+        *(torch.from_numpy(x).to(device) for x in (*sp_arrays, *extras)),
     )
     scheme = {"pair": "x3", "bf16": "bf16"}.get(mode, "full")
     roofline = dict(
         G=G, TM=TM, W=Wc, a_bytes=a_bytes,
         b_rows_read=S * Wc, c_rows=G * TM,
         b_itemsize=2 if mode == "bf16" else np.dtype(dtype).itemsize,
-        S=S, spill_nnz=Z, spill_max=Z, spill_impl=sp_impl,
-        mxu_frac=mxu_nnz / nnz,
+        S=S, spill_nnz=spill_nnz, spill_max=Z, spill_impl=sp_impl,
+        mxu_frac=mxu_nnz / total_nnz,
         passes={"x3": 3, "highest": 6, "default": 1}.get(mxu_precision, 1),
     )
     op = RaggedOp(scheme, int(a_starts.max()) + Wc,
@@ -801,47 +927,56 @@ def _pack_gather(shards, max_m, dtype, mxu_precision, device, *, TMo=SPILL_TMO,
 
 
 def _pack_dd_mxu(shards, max_m, device, *, max_panel_bytes=PANEL_CAP_BYTES):
-    """The ``dd_mxu`` kind, p = 1 (``dispatch.py:1227-1311``): the ragged
-    total cover of :func:`ragged_dd_cover` with fp64 panels filled on the
-    device, the stacking discipline of the ragged pack (dummy chunks for
-    pad groups, which come out zero).  Refuses as the JAX pack does: a
-    spill under the panel cap (``max_panel_bytes``, for
-    ``CRP_TPU_RAGGED_PANEL_GB``), the slice-plane cap."""
-    if len(shards) != 1:
-        raise UnsupportedSparsity(
-            "multi-shard dd_mxu packs need p > 1 engines (ROADMAP Queue A #8)"
-        )
-    rowptr, cc, v = shards[0]
-    nnz = int(rowptr[-1]) - int(rowptr[0]) if len(rowptr) > 1 else 0
-    if nnz == 0:
-        raise UnsupportedSparsity("all shards empty")
+    """The ``dd_mxu`` kind (``dispatch.py:1227-1311``): each shard's ragged
+    total cover (:func:`ragged_dd_cover`) with fp64 panels filled on the
+    device, stacked as the ragged pack stacks (dummy chunks for pad groups
+    and empty shards, which come out zero; per-shard ``group_ptr``).
+    Refuses as the JAX pack does, on any shard: a spill under the panel cap
+    (``max_panel_bytes``, for ``CRP_TPU_RAGGED_PANEL_GB``), the slice-plane
+    cap."""
     TM, Wc = dd_mxu_geometry(small=device.type == "cpu")
-    rowptr64 = np.ascontiguousarray(rowptr, dtype=np.int64)
-    cc32 = np.ascontiguousarray(cc, dtype=np.int32)
-    G_s = max(-(-(len(rowptr64) - 1) // TM), 1)
-    starts_s, group_ptr_s = ragged_dd_cover(rowptr64, cc32, TM, Wc, G_s,
-                                            max_panel_bytes)
-    G = max(-(-max_m // TM), G_s)
-    first_s = np.zeros(len(starts_s), np.int32)
-    first_s[group_ptr_s[:-1]] = 1
-    a_g, a_first, a_starts, S = _extend_and_stack_steps(
-        [(starts_s, np.repeat(np.arange(G_s, dtype=np.int32), np.diff(group_ptr_s)),
-          first_s, G_s)],
-        G,
-    )
-    group_ptr = first_ptr(a_first[0])
-    panels, _, spill = device_pack.ragged_fill(
-        rowptr64, cc32, v, TM, Wc, a_starts[0], group_ptr, "f64", device,
-    )
-    if len(spill[0]):
-        raise UnsupportedSparsity(
-            f"dd_mxu total cover infeasible under panel cap ({len(spill[0])} "
-            f"nnz would spill)"
+    prepared, steps = [], []
+    for rowptr, cc, v in shards:
+        nnz = int(rowptr[-1]) - int(rowptr[0]) if len(rowptr) > 1 else 0
+        if nnz == 0:
+            prepared.append(None)
+            steps.append(None)
+            continue
+        rowptr64 = np.ascontiguousarray(rowptr, dtype=np.int64)
+        cc32 = np.ascontiguousarray(cc, dtype=np.int32)
+        G_s = max(-(-(len(rowptr64) - 1) // TM), 1)
+        starts_s, group_ptr_s = ragged_dd_cover(rowptr64, cc32, TM, Wc, G_s,
+                                                max_panel_bytes)
+        first_s = np.zeros(len(starts_s), np.int32)
+        first_s[group_ptr_s[:-1]] = 1
+        prepared.append((rowptr64, cc32, v))
+        steps.append((starts_s, np.repeat(np.arange(G_s, dtype=np.int32),
+                                          np.diff(group_ptr_s)), first_s, G_s))
+    if all(st is None for st in steps):
+        raise UnsupportedSparsity("all shards empty")
+    G = max(-(-max_m // TM), max(st[3] for st in steps if st is not None))
+    a_g, a_first, a_starts, S = _extend_and_stack_steps(steps, G)
+    group_ptr = _group_ptrs(a_first, steps, G)
+    per = []
+    for i, sh in enumerate(prepared):
+        if sh is None:
+            per.append(torch.zeros((S, TM, Wc), dtype=torch.float64, device=device))
+            continue
+        panels_i, _, spill = device_pack.ragged_fill(
+            *sh, TM, Wc, a_starts[i], group_ptr[i], "f64", device,
         )
+        if len(spill[0]):
+            raise UnsupportedSparsity(
+                f"dd_mxu total cover infeasible under panel cap ({len(spill[0])} "
+                f"nnz would spill)"
+            )
+        per.append(panels_i)
+    panels = _stack(per)
+    del per
     arrays = (
         *(torch.from_numpy(x).to(device) for x in (a_g, a_first, a_starts)),
-        panels[None],
-        torch.from_numpy(group_ptr[None]).to(device),
+        panels,
+        torch.from_numpy(group_ptr).to(device),
     )
     roofline = dict(
         G=G, TM=TM, W=Wc, a_bytes=panels.numel() * panels.element_size(),
@@ -873,6 +1008,11 @@ def _tensor_from_jax(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
+def _ptrs(first, device) -> torch.Tensor:
+    """Each shard's :func:`first_ptr` of its 0/1 ``first`` row, stacked."""
+    return torch.from_numpy(np.stack([first_ptr(f) for f in first])).to(device)
+
+
 def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
                            roofline: dict | None = None, variant=None):
     """The port's packed tensors and local op for a JAX ``pallas`` pack.
@@ -898,13 +1038,12 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
         for p in range(sl.shape[1]):
             panels += sl[:, p].double() * 2.0 ** (-7 * (p + 1))
         panels *= mu.double()[..., None]
-        group_ptr = first_ptr(arrays[1][0])
         roofline.update(a_bytes=panels.numel() * panels.element_size(), passes=1)
-        return ((g, first, starts, panels, torch.from_numpy(group_ptr[None]).to(device)),
+        return ((g, first, starts, panels, _ptrs(arrays[1], device)),
                 RaggedOp("dd", int(min_b_rows), "none", "highest", roofline))
     tensors = tuple(_tensor_from_jax(x).to(device) for x in arrays)
     if variant == "gather":
-        blk_ptr = torch.from_numpy(first_ptr(arrays[3][0])[None]).to(device)
+        blk_ptr = _ptrs(arrays[3], device)
         prec = {2: "x3", 6: "highest", 1: "default"}[roofline["passes"]]
         return (*tensors, blk_ptr), GatherOp(roofline["G"] * roofline["TM"], prec,
                                              roofline)
@@ -913,12 +1052,14 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
         scheme = "x3" if all(bf) and len(bf) == 2 else ("bf16" if bf[0] else "full")
         n_sp = len(tensors) - 3 - (2 if scheme == "x3" else 1)
         spill_impl = {0: "none", 3: "segsum", 5: "pallas"}[n_sp]
-        extras = [first_ptr(arrays[1][0])]
+        tensors += (_ptrs(arrays[1], device),)
         if spill_impl == "pallas":
-            extras.append(first_ptr(arrays[-2][0]))
-        tensors += tuple(torch.from_numpy(x[None]).to(device) for x in extras)
+            tensors += (_ptrs(arrays[-2], device),)
         prec = {3: "x3", 6: "highest", 1: "default"}[roofline["passes"]]
         return tensors, RaggedOp(scheme, int(min_b_rows), spill_impl, prec, roofline)
+    if len(tensors) == 2:  # (ws, tiles): no super-group plan
+        prec = {3: "x3", 6: "highest", 1: "default"}[roofline["passes"]]
+        return tensors, WindowOp("window", int(min_b_rows), roofline, prec)
     if len(tensors) == 4:
         scheme = "x3"
     elif tensors[1].dtype == torch.bfloat16:

@@ -1,4 +1,4 @@
-"""Windowed dense-panel SpMM for uniform super-grouped packs.
+"""Windowed dense-panel SpMM for uniform packs.
 
 Counterpart of ``crp_tpu/kernels/spmm_pallas.py``.  A pack covers TM-row
 groups of A; group g holds a dense (TM, W) panel over the B rows
@@ -8,13 +8,19 @@ groups of A; group g holds a dense (TM, W) panel over the B rows
 
 The geometry helpers are numpy copies of the JAX package's (which imports
 jax on the way in); ``tests/test_torch_geometry.py`` pins each one equal to
-its original.  The three kernels of the p = 1 main path are CUDA kernels
-for Hopper (``csrc/window_sg.cu``), one per operating point:
+its original.  The kernels are CUDA kernels for Hopper.  On a single-shard
+pack with a super-group plan (``csrc/window_sg.cu``), one per operating
+point:
 
   * :func:`spmm_window_sg_presplit` — ``x3``: A pre-split to bf16 hi/lo,
     B split in the kernel, three bf16 products summed in fp32;
   * :func:`spmm_window_sg_bf16` — ``default``: one bf16 product;
   * :func:`spmm_window_sg` — ``highest``: fp32 (or fp64) FMA, no TF32.
+
+On every other uniform pack (several shards, or windows that are not
+monotone), fp32 or fp64 panels: :func:`spmm_window` (``csrc/window.cu``,
+the TPU's ``_window_kernel``), which splits (x3) or rounds (default) A and
+B to bf16 on its way into shared memory.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
@@ -185,6 +191,32 @@ def spmm_window_sg_plain(ws, tiles, b):
     return _uniform(ws, tiles, b, tiles.dtype, full_product(tiles))
 
 
+def window_product(tiles, precision: str):
+    """fp32 (or fp64) panels times B windows at an operating point, in
+    plain PyTorch: ``x3`` splits each block of panels and B to bf16 hi/lo
+    in RNE, ``default`` rounds both to bf16, ``highest`` and fp64 panels
+    multiply in full precision."""
+    if tiles.dtype == torch.float64 or precision == "highest":
+        return full_product(tiles)
+    if precision == "x3":
+        def product(s0, s1, win):
+            a = tiles[s0:s1]
+            ah = a.to(torch.bfloat16)
+            al = (a - ah.float()).to(torch.bfloat16)
+            return presplit_product(ah, al)(0, s1 - s0, win)
+        return product
+    if precision == "default":
+        return lambda s0, s1, win: bf16_product(tiles[s0:s1].to(torch.bfloat16))(
+            0, s1 - s0, win.to(torch.bfloat16))
+    raise ValueError(f"unknown operating point {precision!r}")
+
+
+def spmm_window_plain(ws, tiles, b, precision: str):
+    """Non-super-grouped windowed SpMM in plain PyTorch: (G*TM, n) from
+    fp32 (or fp64) ``tiles`` and B of the same dtype, at ``precision``."""
+    return _uniform(ws, tiles, b, tiles.dtype, window_product(tiles, precision))
+
+
 # ----------------------------------------------------------------- wrappers
 
 
@@ -299,4 +331,36 @@ def spmm_window_sg(ws, tiles, b, *, min_b_rows: int):
 
 spmm_window_sg.launches = 0
 
-KERNELS = (spmm_window_sg_presplit, spmm_window_sg_bf16, spmm_window_sg)
+_WINDOW_ENTRIES = {"x3": "crp_window_x3", "default": "crp_window_bf16",
+                   "highest": "crp_window_f32"}
+
+
+def spmm_window(ws, tiles, b, precision: str, *, min_b_rows: int):
+    """Non-super-grouped windowed SpMM (``csrc/window.cu``): (G*TM, n) from
+    fp32 ``tiles`` and fp32 ``b`` at ``precision`` (``x3``, ``default`` or
+    ``highest``, the split or rounding done in the kernel), or fp64 tiles
+    and B.  Replaces ``spmm_window_pallas`` (``spmm_pallas.py:267``)."""
+    if _placement("spmm_window", ws, tiles, b) == "cpu":
+        return spmm_window_plain(ws, tiles, b, precision)
+    if tiles.dtype == torch.float64:
+        name = "crp_window_f64"
+    elif tiles.dtype == torch.float32 and precision in _WINDOW_ENTRIES:
+        name = _WINDOW_ENTRIES[precision]
+    else:
+        raise ValueError(
+            f"spmm_window: no kernel for {tiles.dtype} panels at {precision!r}"
+        )
+    G, TM, W, n = _check_cuda_args(
+        "spmm_window", ws, (tiles,), b, min_b_rows, tiles.dtype, tiles.dtype,
+    )
+    c = torch.empty((G * TM, n), dtype=tiles.dtype, device=b.device)
+    _launch(name, (ws.data_ptr(), tiles.data_ptr(), b.data_ptr(), c.data_ptr()),
+            G, TM, W, n, b.device)
+    spmm_window.launches += 1
+    return c
+
+
+spmm_window.launches = 0
+
+KERNELS = (spmm_window_sg_presplit, spmm_window_sg_bf16, spmm_window_sg,
+           spmm_window)

@@ -2,9 +2,9 @@
 engine on the card against the engine on the CPU.
 
 Every case skips without a CUDA device: the kernels have no CPU mode.
-This file imports no jax, which the GPU machine does not have; run it
-there without the repository's conftest (which re-execs onto a JAX CPU
-mesh):
+This file imports only the port, none of jax or crp_tpu; run it on the
+GPU machine without the repository's conftest (which re-execs onto a JAX
+CPU mesh):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
@@ -13,19 +13,19 @@ import numpy as np
 import pytest
 import torch
 
-from crp_tpu.config import SpmmConfig
-from crp_tpu.plan.partition1d import csr_row_partition
-from crp_tpu.sparse.csr import CSRMatrix
-from crp_tpu.sparse.synth import (
+from crp_tpu_torch.comm.exchange import build_b_exchange, exchange_b, exchange_tables
+from crp_tpu_torch.config import SpmmConfig
+from crp_tpu_torch.engine.rowpara import RowParaSpmm
+from crp_tpu_torch.kernels import spmm_dd_mxu, spmm_halo, spmm_pallas, spmm_ragged
+from crp_tpu_torch.kernels.dispatch import (
+    _pack_dd_mxu, _pack_gather, _pack_ragged, _pack_window, pack_local_kernel,
+)
+from crp_tpu_torch.plan.partition1d import csr_row_partition
+from crp_tpu_torch.sparse.csr import CSRMatrix
+from crp_tpu_torch.sparse.synth import (
     banded_random_csr, fill_b, powerlaw_community_csr, powerlaw_random_csr,
 )
-from crp_tpu.utils.norms import rel_fro_err
-
-from crp_tpu_torch.engine.rowpara import RowParaSpmm
-from crp_tpu_torch.kernels import spmm_dd_mxu, spmm_ragged
-from crp_tpu_torch.kernels.dispatch import (
-    _pack_dd_mxu, _pack_gather, _pack_ragged, pack_local_kernel,
-)
+from crp_tpu_torch.utils.norms import rel_fro_err
 
 # (mxu_precision, dtype, bound vs the fp64 reference)
 POINTS = [
@@ -303,3 +303,275 @@ def test_dd_engine_on_card(cuda_device, kernel):
     c = eng.exec(b)
     assert spmm_dd_mxu.spmm_ragged_dd.launches == before + 1
     assert c.dtype == np.float64 and rel_fro_err(a.spmm_ref(b), c) <= 1e-12
+
+
+def _anti_banded(nrow, dtype, seed=7):
+    """Band along the anti-diagonal: window starts fall group by group, so
+    the shard has no super-group plan."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(nrow), 5)
+    cols = np.clip(nrow - 1 - rows + rng.integers(-30, 31, rows.size), 0, nrow - 1)
+    key = np.unique(rows * nrow + cols)
+    return CSRMatrix.from_coo(nrow, nrow, key // nrow, key % nrow,
+                              rng.standard_normal(key.size), dtype=dtype)
+
+
+def _window_shards(a, p):
+    """``a`` cut into p nnz-balanced row shards, the middle one emptied."""
+    d = csr_row_partition(a.rowptr, p)
+    shards = []
+    for i in range(p):
+        s = a.row_slice(int(d[i]), int(d[i + 1]))
+        if p > 2 and i == p // 2:
+            shards.append((np.zeros(s.nrow + 1, np.int64), np.zeros(0, np.int32),
+                           np.zeros(0, s.val.dtype)))
+        else:
+            shards.append((s.rowptr, s.colidx.astype(np.int32), s.val))
+    return shards, int(np.diff(d).max())
+
+
+@pytest.mark.parametrize("prec,dtype,tol_ref", POINTS)
+@pytest.mark.parametrize("case", ["4 shards", "non-monotone"])
+def test_window_kernel_matches_plain(cuda_device, prec, dtype, tol_ref, case):
+    """Kernel #4 on a multi-shard pack (pad groups, an empty shard) and on a
+    single-shard pack with no super-group plan, at every point and odd n:
+    within TOL_PLAIN of its plain version (the same exact products summed
+    in another order), pad rows and the empty shard zero."""
+    if case == "4 shards":
+        a = banded_random_csr(6000, nnz_per_row=7, bandwidth=80, seed=91, dtype=dtype)
+        shards, max_m = _window_shards(a, 4)
+    else:
+        a = _anti_banded(3000, dtype)
+        shards, max_m = _window_shards(a, 1)
+    arrays, op = _pack_window(shards, max_m + 300, dtype, prec, cuda_device)
+    assert op.variant == "window" and op.kernel is spmm_pallas.spmm_window
+    for n in (16, 100, 256):
+        rB = torch.from_numpy(_b(a, op.min_b_rows, n, dtype)).to(cuda_device)
+        for i in range(len(shards)):
+            args = op.kernel_args(tuple(x[i] for x in arrays), rB)
+            before = spmm_pallas.spmm_window.launches
+            k = op.kernel(*args, min_b_rows=op.min_b_rows)
+            assert spmm_pallas.spmm_window.launches == before + 1
+            p = op.plain(*args)
+            assert k.dtype == p.dtype and k.shape == p.shape
+            assert bool(torch.isfinite(k).all())
+            scale = max(float(p.abs().max()), 1e-30)
+            assert float((k - p).abs().max()) / scale <= TOL_PLAIN[dtype]
+            nrow = len(shards[i][0]) - 1 if len(shards[i][1]) else 0
+            assert not torch.any(k[nrow:])  # pad groups, empty shard: zero
+
+
+def test_exchange_p4_matches_host_gather(cuda_device):
+    """The p = 4 a2a exchange on the card: every receive-buffer row a
+    shard's A references holds that global B row (a host numpy gather)."""
+    a = powerlaw_community_csr(20000, 16, 1024, seed=3)
+    p, n = 4, 40
+    d = csr_row_partition(a.rowptr, p)
+    bd = d.copy()
+    bd[-1] = a.ncol
+    cols = [a.colidx[a.rowptr[d[i]]:a.rowptr[d[i + 1]]] for i in range(p)]
+    plan = build_b_exchange(cols, bd)
+    max_k = int(np.diff(bd).max())
+    rb_rows = plan.rB_nrow_max + 128  # a real row past the plan's
+    b = np.random.default_rng(0).standard_normal((a.ncol, n))
+    bs = np.zeros((p, max_k, n))
+    for i in range(p):
+        bs[i, : bd[i + 1] - bd[i]] = b[bd[i]:bd[i + 1]]
+    t = exchange_tables(plan, max_k, rb_rows, cuda_device)
+    rB = exchange_b(torch.from_numpy(bs).to(cuda_device), t).cpu().numpy()
+    for i in range(p):
+        rows = plan.rowmap[i]
+        np.testing.assert_array_equal(rB[i, : len(rows)], b[rows])
+        assert not np.any(rB[i, len(rows):])
+
+
+def _card_and_cpu(a, p, n, cfg, cuda_device, dtype=np.float32, cpu_cfg=None):
+    """The same engine over p nnz-balanced shards on the card and on the
+    CPU, and C of each."""
+    d = csr_row_partition(a.rowptr, p)
+    b = fill_b(0, a.ncol, 0, n, dtype=dtype)
+    gpu = RowParaSpmm(a, d, d, n, device=cuda_device, config=SpmmConfig(**cfg),
+                      dtype=dtype)
+    a.__dict__.pop("_torch_pack_cache", None)
+    cpu = RowParaSpmm(a, d, d, n, device="cpu", config=SpmmConfig(**(cpu_cfg or cfg)),
+                      dtype=dtype)
+    return gpu, cpu, b
+
+
+def _each_shard_matches_plain(op, packed, rBs, tol, nrows):
+    """The op's kernel against its plain version on every shard of a
+    multi-shard pack (relative Frobenius within ``tol``), rows past each
+    shard's own zero, one launch each."""
+    for i, rB in enumerate(rBs):
+        arrs = tuple(x[i] for x in packed)
+        args = op.kernel_args(arrs, rB)
+        before = op.kernel.launches
+        k = (op.kernel(*args) if op.variant == "gather"
+             else op.kernel(*args, min_b_rows=op.min_b_rows))
+        assert op.kernel.launches == before + 1
+        p = op.plain(*args)
+        assert k.shape == p.shape and bool(torch.isfinite(k).all())
+        scale = max(float(p.double().norm()), 1e-300)
+        assert float((k - p).double().norm()) / scale <= tol
+        assert not torch.any(k[nrows[i]:])
+
+
+@pytest.mark.parametrize("n", [16, 100, 256])
+@pytest.mark.parametrize("prec,dtype,tol_ref", POINTS)
+def test_halo_kernel_matches_plain(cuda_device, prec, dtype, tol_ref, n):
+    """The fused halo kernel over 4 shards in one launch (each reading its
+    windows from the owners' rows) against its plain version (the pushes
+    into window buffers, then the windowed product): within TOL_PLAIN,
+    rows past each shard's own zero, and the product in the point's
+    class."""
+    a = banded_random_csr(6000, nnz_per_row=7, bandwidth=300, seed=97, dtype=dtype)
+    d = csr_row_partition(a.rowptr, 4)
+    aligned = spmm_halo.align_displs(d, a.ncol)
+    shards = [a.row_slice(int(d[i]), int(d[i + 1])) for i in range(4)]
+    arrays, op = spmm_halo.build_halo_plan(shards, aligned, device=cuda_device,
+                                           dtype=dtype, precision=prec)
+    b = fill_b(0, a.ncol, 0, n, dtype=dtype)
+    bs = np.zeros((4, op.min_b_rows, n), dtype)
+    for i in range(4):
+        bs[i, : aligned[i + 1] - aligned[i]] = b[aligned[i]:aligned[i + 1]]
+    args = op.kernel_args(arrays, torch.from_numpy(bs).to(cuda_device))
+    before = spmm_halo.spmm_halo.launches
+    k = op.kernel(*args, min_b_rows=op.min_b_rows)
+    assert spmm_halo.spmm_halo.launches == before + 1
+    p = op.plain(*args)
+    assert k.dtype == p.dtype and k.shape == p.shape == (4, op.G * op.TM, n)
+    assert bool(torch.isfinite(k).all())
+    assert float((k - p).abs().max()) / float(p.abs().max()) <= TOL_PLAIN[dtype]
+    kc = k.cpu().numpy()
+    for i in range(4):
+        assert not np.any(kc[i, d[i + 1] - d[i]:])
+    got = np.concatenate([kc[i, : d[i + 1] - d[i]] for i in range(4)])
+    assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), got) <= tol_ref
+
+
+@pytest.mark.parametrize("prec", ["x3", "default", "highest"])
+def test_halo_engine_on_card_matches_engine_on_cpu(cuda_device, prec):
+    """``auto`` at p = 4 on the card resolves to the fused kernel, which
+    launches once per exec and agrees with the CPU engine's plain version."""
+    a = banded_random_csr(8000, nnz_per_row=7, bandwidth=200, seed=98,
+                          dtype=np.float32)
+    gpu, cpu, b = _card_and_cpu(a, 4, 48, dict(kernel="auto", mxu_precision=prec),
+                                cuda_device,
+                                cpu_cfg=dict(kernel="pallas_halo", mxu_precision=prec))
+    assert gpu.kernel_kind == cpu.kernel_kind == "pallas_halo"
+    before = spmm_halo.spmm_halo.launches
+    c_gpu = gpu.exec(b)
+    assert spmm_halo.spmm_halo.launches == before + 1
+    assert gpu.physical_rows == cpu.physical_rows and gpu.rB_recv_size == cpu.rB_recv_size
+    assert rel_fro_err(cpu.exec(b).astype(np.float64), c_gpu) <= 1e-6
+
+
+def _ragged_shards(a, p):
+    """``a`` in p nnz-balanced row shards with global columns, the second
+    emptied; their row counts (0 for the empty one)."""
+    d = csr_row_partition(a.rowptr, p)
+    shards, nrows = [], []
+    for i in range(p):
+        s = a.row_slice(int(d[i]), int(d[i + 1]))
+        if i == 1:
+            shards.append((np.zeros(s.nrow + 1, np.int64), np.zeros(0, np.int32),
+                           np.zeros(0, s.val.dtype)))
+            nrows.append(0)
+        else:
+            shards.append((s.rowptr, s.colidx.astype(np.int32), s.val))
+            nrows.append(s.nrow)
+    return shards, nrows, int(np.diff(d).max())
+
+
+@pytest.mark.parametrize("prec,dtype,tol_ref", POINTS)
+def test_multi_shard_ragged_matches_plain(cuda_device, prec, dtype, tol_ref):
+    """A 4-shard ragged pack with a spill and an empty shard: on every
+    shard the ragged kernel against its plain version (each shard's own
+    step range), the fused spill kernel (fp32) against its plain version,
+    and the whole product in the point's class."""
+    a = powerlaw_community_csr(24000, 16, 1024, seed=99, dtype=dtype)
+    shards, nrows, max_m = _ragged_shards(a, 4)
+    arrays, op = _pack_ragged(shards, max_m + 300, dtype, prec, cuda_device,
+                              geometry=(256, 256), min_chunk_nnz=60,
+                              spill_impl="pallas")
+    assert op.variant == "ragged" and op.roofline["spill_nnz"] > 0
+    b = fill_b(0, a.ncol, 0, 100, dtype=dtype)
+    rB = torch.from_numpy(_b(a, max(op.min_b_rows, a.ncol), 100, dtype)).to(cuda_device)
+    _each_shard_matches_plain(op, arrays, [rB] * 4, TOL_PLAIN_FRO[dtype], nrows)
+    ref = a.spmm_ref(b.astype(np.float64))
+    d = csr_row_partition(a.rowptr, 4)
+    for i in range(4):
+        arrs = tuple(x[i] for x in arrays)
+        if op.spill_impl == "pallas":  # fp32; fp64 spills through index_add_
+            c_plain = op.plain(*op.kernel_args(arrs, rB))
+            s_args = op.spill_args(arrs, c_plain, rB)
+            k = op.spill_kernel(*s_args)
+            p = op.spill_plain(*s_args)
+            assert float((k - p).double().norm()
+                         / max(float(p.double().norm()), 1e-300)) <= 1e-6
+        c = op(arrs, rB)[: nrows[i]].double().cpu().numpy()
+        if nrows[i]:
+            assert rel_fro_err(ref[d[i]:d[i + 1]], c) <= tol_ref
+
+
+@pytest.mark.parametrize("prec,dtype,tol_ref", POINTS)
+def test_multi_shard_ragged_engine_on_card(cuda_device, prec, dtype, tol_ref):
+    """cplaw-class graph at p = 4, kernel="pallas": the card's engine takes
+    the multi-shard ragged pack, launches the ragged kernel once per shard
+    (and the fused spill, fp32), and agrees with the CPU engine to the
+    point's class (the card rounds the spill per point, the CPU adds it in
+    exact fp32)."""
+    a = powerlaw_community_csr(65536, 16, 1024, seed=7, dtype=dtype)
+    gpu, cpu, b = _card_and_cpu(a, 4, 48, dict(kernel="pallas", mxu_precision=prec,
+                                               rb_p2p=1), cuda_device, dtype=dtype)
+    op = gpu._local_op
+    assert op.variant == cpu._local_op.variant == "ragged"
+    fused = op.spill_impl == "pallas"
+    assert fused == (dtype == np.float32)
+    before = (op.kernel.launches, op.spill_kernel.launches)
+    c_gpu = gpu.exec(b)
+    assert (op.kernel.launches - before[0],
+            op.spill_kernel.launches - before[1]) == (4, 4 if fused else 0)
+    ref = a.spmm_ref(b.astype(np.float64))
+    assert rel_fro_err(ref, c_gpu) <= tol_ref
+    assert rel_fro_err(cpu.exec(b).astype(np.float64), c_gpu) <= tol_ref
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_multi_shard_dd_mxu(cuda_device, p):
+    """dd_mxu over p shards: the FP64 tensor-core kernel against its plain
+    version on every shard, and the card's engine against the CPU engine
+    and the reference at 1e-12."""
+    a = banded_random_csr(6000, nnz_per_row=9, bandwidth=300, seed=100)
+    shards, nrows, max_m = _ragged_shards(a, p)
+    arrays, op = _pack_dd_mxu(shards, max_m + 300, cuda_device)
+    rB = torch.from_numpy(_b(a, max(op.min_b_rows, a.ncol), 48, np.float64)).to(cuda_device)
+    _each_shard_matches_plain(op, arrays, [rB] * p, 1e-12, nrows)
+    gpu, cpu, b = _card_and_cpu(a, p, 48, dict(kernel="dd_mxu"), cuda_device,
+                                dtype=np.float64)
+    assert gpu._local_op.variant == cpu._local_op.variant == "dd_mxu"
+    before = spmm_dd_mxu.spmm_ragged_dd.launches
+    c_gpu = gpu.exec(b)
+    assert spmm_dd_mxu.spmm_ragged_dd.launches == before + p
+    assert rel_fro_err(a.spmm_ref(b), c_gpu) <= 1e-12
+    assert rel_fro_err(cpu.exec(b), c_gpu) <= 1e-12
+
+
+def test_multi_shard_gather(cuda_device):
+    """The gather kind over 4 shards (one empty): its kernel against its
+    plain version on every shard, and the card's engine against the CPU
+    engine."""
+    a = powerlaw_community_csr(20000, 16, 1024, seed=13, permute=True,
+                               dtype=np.float32)
+    shards, nrows, max_m = _ragged_shards(a, 4)
+    arrays, op = _pack_gather(shards, max_m + 300, np.float32, "x3", cuda_device)
+    rB = torch.from_numpy(_b(a, a.ncol, 64, np.float32)).to(cuda_device)
+    _each_shard_matches_plain(op, arrays, [rB] * 4, 1e-6, nrows)
+    gpu, cpu, b = _card_and_cpu(a, 4, 48, dict(kernel="gather", mxu_precision="x3"),
+                                cuda_device)
+    assert gpu.kernel_kind == cpu.kernel_kind == "gather"
+    before = spmm_ragged.spmm_gather.launches
+    c_gpu = gpu.exec(b)
+    assert spmm_ragged.spmm_gather.launches == before + 4
+    assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), c_gpu) <= 1e-5
+    assert rel_fro_err(cpu.exec(b).astype(np.float64), c_gpu) <= 1e-5

@@ -72,19 +72,10 @@ def test_full_pack_matches_jax(spec, dtype):
                           dtype=dtype)
     shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
     j_arrays, _ = jd.pack_local_kernel(shard, a.nrow + 300, dtype, "pallas")
-    if len(j_arrays) == 2:
-        # no super-group plan (8-byte windows over the CPU's 4 MB budget):
-        # JAX runs the non-sg _window_kernel, which the port does not have
-        # yet — its uniform pack refuses, and the gate takes the ragged pack
-        with pytest.raises(UnsupportedSparsity, match="non-super-grouped"):
-            td._pack_pallas_uniform(shard[0], a.nrow + 300, dtype, "highest",
-                                    torch.device("cpu"))
-        _, op = td.pack_local_kernel(shard, a.nrow + 300, dtype, "pallas",
-                                     device="cpu", mxu_precision="highest")
-        assert op.variant == "ragged"
-        return
     _, op = _assert_same_pack(shard, a.nrow + 300, dtype, "highest")
-    assert op.scheme == "full"
+    # no super-group plan (8-byte windows over the CPU's 4 MB budget): both
+    # packages pack (ws, tiles) for the non-super-grouped kernel #4
+    assert op.scheme == ("window" if len(j_arrays) == 2 else "full")
 
 
 def _with_duplicates(seed=12):
@@ -179,7 +170,7 @@ def test_unsorted_rows_land_on_the_ragged_pack():
     a = _with_reversed_row()
     shard = [(a.rowptr, a.colidx, a.val)]
     with pytest.raises(UnsupportedSparsity, match="not sorted"):
-        td._pack_pallas_uniform(shard[0], a.nrow, np.float32, "x3",
+        td._pack_pallas_uniform(shard, a.nrow, np.float32, "x3",
                                 torch.device("cpu"))
     arrays, op, kind = td.pack_with_fallback(shard, a.nrow, np.float32, "pallas",
                                              device="cpu", mxu_precision="x3")

@@ -68,9 +68,10 @@ def _recording_pack(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["gather", "pallas_halo"])
 def test_cuda_walk_goes_straight_to_segsum(monkeypatch, caplog, kind):
-    """fp64 data on CUDA: ``gather`` (fp32-only) and the unported
-    ``pallas_halo`` refuse, and the fp64 chain tries segsum next: one
-    attempt, one warning (the packing itself runs on the CPU here)."""
+    """fp64 data on CUDA: ``gather`` (fp32-only) and ``pallas_halo`` (the
+    engines' fused kind, no local kernel) refuse, and the fp64 chain tries
+    segsum next: one attempt, one warning (the packing itself runs on the
+    CPU here)."""
     tried = _recording_pack(monkeypatch)
     a = banded_random_csr(500, nnz_per_row=5, bandwidth=20, seed=1)
     shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
@@ -110,12 +111,13 @@ LANDS = {
 
 @pytest.mark.parametrize("kind", ["ell", "gather", "dd", "dd_mxu", "pallas_halo"])
 def test_unported_kinds_refuse_and_walk_to_segsum(caplog, kind):
-    """Only ``pallas_halo`` is still unported: it refuses and the walk
-    ends at segsum.  The kinds ported since pack on their first attempt."""
+    """``pallas_halo`` is the engines' fused kind (``spmm_halo``), not a
+    local kernel: the local dispatch refuses it and the walk ends at
+    segsum.  The other kinds pack on their first attempt."""
     a = banded_random_csr(500, nnz_per_row=5, bandwidth=20, seed=1, dtype=np.float32)
     shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
     if kind == "pallas_halo":
-        with pytest.raises(UnsupportedSparsity, match="not yet ported"):
+        with pytest.raises(UnsupportedSparsity, match="packed by the engines"):
             td.pack_local_kernel(shard, a.nrow, np.float32, kind, device="cpu")
     with caplog.at_level(logging.WARNING, logger="crp_tpu_torch"):
         _, op, got = td.pack_with_fallback(shard, a.nrow, np.float32, kind, device="cpu")
@@ -218,11 +220,17 @@ def test_unknown_kind_raises():
 
 
 def test_multi_shard_pallas_refuses():
+    """A multi-shard ``pallas`` pack no longer refuses (it did until kernel
+    #4 was ported): it is JAX's non-super-grouped pack, bit for bit."""
     a = banded_random_csr(600, nnz_per_row=5, bandwidth=20, seed=1, dtype=np.float32)
     s1, s2 = a.row_slice(0, 300), a.row_slice(300, 600)
     shards = [(s.rowptr, s.colidx.astype(np.int32), s.val) for s in (s1, s2)]
-    with pytest.raises(UnsupportedSparsity, match="Queue B #4"):
-        td.pack_local_kernel(shards, 300, np.float32, "pallas", device="cpu")
+    arrays, op = td.pack_local_kernel(shards, 300, np.float32, "pallas", device="cpu")
+    j_arrays, j_fn = jd.pack_local_kernel(shards, 300, np.float32, "pallas")
+    assert op.variant == "window" and len(arrays) == len(j_arrays) == 2
+    for t, j in zip(arrays, j_arrays):
+        np.testing.assert_array_equal(t.numpy(), j)
+    assert (op.min_b_rows, op.roofline) == (j_fn.min_b_rows, j_fn.roofline)
 
 
 @pytest.mark.parametrize("gen,kw", [

@@ -1,6 +1,7 @@
-"""The port's numpy copies of the JAX package's host helpers equal their
-originals (crp_tpu_torch imports no module of crp_tpu that imports jax, so
-it carries these copies)."""
+"""The port's numpy copies of the JAX package's packing and exchange
+helpers equal their originals.  The port imports nothing of crp_tpu (its
+own host layer is pinned in ``tests/test_torch_hostlayer.py``), so it
+carries these copies of helpers whose JAX modules import jax."""
 
 import numpy as np
 import pytest

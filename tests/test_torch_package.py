@@ -1,5 +1,6 @@
-"""Package boundaries: the port runs without jax and ml_dtypes, and the
-GPU smoke script imports only the port and refuses to run without a GPU."""
+"""Package boundaries: the port runs without jax, ml_dtypes and any module
+of crp_tpu, and the GPU smoke script imports only the port and refuses to
+run without a GPU."""
 
 import ast
 import importlib.util
@@ -19,12 +20,13 @@ _NO_JAX = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["ml_dtypes"] = None
+sys.modules["crp_tpu"] = None
 import json
 import numpy as np
 import crp_tpu_torch
 from crp_tpu_torch import (
-    RowParaSpmm, SpmmConfig, banded_random_csr, csr_row_partition, fill_b,
-    rel_fro_err,
+    Para2dSpmm, RowParaSpmm, SpmmConfig, banded_random_csr, csr_row_partition,
+    fill_b, plan_from_csr, rel_fro_err,
 )
 from crp_tpu_torch import powerlaw_community_csr
 from crp_tpu_torch.kernels import (
@@ -49,9 +51,28 @@ for kernel, a in (
                           config=SpmmConfig(kernel=kernel, mxu_precision=prec))
         errs[f"{kernel} {prec}"] = rel_fro_err(a.spmm_ref(b.astype(np.float64)),
                                                eng.exec(b))
-assert not any(m == "jax" or m.startswith(("jax.", "ml_dtypes")) for m in sys.modules
-               if sys.modules[m] is not None), "jax got imported"
-assert "crp_tpu.native" not in sys.modules, "crp_tpu.native got imported"
+# the multi-shard engines: p = 4 rows, a 2 x 2 grid
+a = banded_random_csr(2000, nnz_per_row=7, bandwidth=60, seed=3, dtype=np.float32)
+b = fill_b(0, a.ncol, 0, 16, dtype=np.float32)
+ref = a.spmm_ref(b.astype(np.float64))
+d = csr_row_partition(a.rowptr, 4)
+for kernel in ("pallas", "segsum"):
+    eng = RowParaSpmm(a, d, d, 16, device="cpu", dtype=np.float32,
+                      config=SpmmConfig(kernel=kernel, mxu_precision="x3"))
+    errs[f"p4 {kernel}"] = rel_fro_err(ref, eng.exec(b))
+plan = plan_from_csr(a, 16, 4)
+plan.pm, plan.pn = 2, 2
+plan.AC_rowptr = plan.B_rowptr = csr_row_partition(a.rowptr, 4)[::2].copy()
+plan.BC_colptr = np.array([0, 8, 16])
+plan.A0_rowptr = csr_row_partition(a.rowptr, 4)
+eng = Para2dSpmm(a, plan, device="cpu", dtype=np.float32,
+                 config=SpmmConfig(kernel="pallas", mxu_precision="x3"))
+errs["2x2 pallas"] = rel_fro_err(ref, eng.exec(b))
+loaded = [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m == "jax" or m.startswith(("jax.", "ml_dtypes")) for m in loaded), \
+    "jax got imported"
+assert not any(m == "crp_tpu" or m.startswith("crp_tpu.") for m in loaded), \
+    "crp_tpu got imported"
 print(json.dumps(errs))
 """
 
@@ -67,6 +88,27 @@ def test_port_runs_without_jax_and_ml_dtypes():
         assert errs[f"{kernel} highest"] <= 1e-6
     for kernel in ("dd", "dd_mxu"):  # fp64 class at every point
         assert max(errs[f"{kernel} {p}"] for p in ("x3", "default", "highest")) <= 1e-12
+    assert max(errs["p4 pallas"], errs["2x2 pallas"]) <= 1e-5  # x3 class
+    assert errs["p4 segsum"] <= 1e-6
+
+
+def test_chip_smoke_loads_without_crp_tpu():
+    """``chip_smoke.py`` imported with ``crp_tpu`` and jax blocked: its
+    module and the port's engines and kernels load."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    code = (
+        "import sys, importlib.util\n"
+        "sys.modules['crp_tpu'] = None\nsys.modules['jax'] = None\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "smoke = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(smoke)\n"
+        "from crp_tpu_torch import Para2dSpmm, RowParaSpmm\n"
+        "assert len(smoke.all_kernels()) == len(smoke.KERNEL_INFO)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
 
 
 def _assert_no_result(proc):

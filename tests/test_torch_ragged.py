@@ -250,6 +250,53 @@ def test_ragged_pack_matches_jax(no_knobs, prec, dtype, spill, gen):
                              else "segsum")
 
 
+@pytest.mark.parametrize("prec,dtype", POINTS)
+@pytest.mark.parametrize("spill", ["segsum", "pallas"])
+@pytest.mark.parametrize("p", [2, 4])
+def test_multi_shard_ragged_pack_matches_jax(no_knobs, prec, dtype, spill, p):
+    """p shards (one empty) pack as JAX's multi-shard ragged pack, bit for
+    bit: a common S with trailing no-op steps, spill arrays padded to the
+    largest shard's.  Each shard's step ranges are its own, the last one
+    ending at its own steps (the no-op steps past it stay zero)."""
+    no_knobs.setenv("CRP_TPU_RAGGED_TM", "128")
+    no_knobs.setenv("CRP_TPU_RAGGED_WC", "256")
+    no_knobs.setenv("CRP_TPU_RAGGED_MIN_NNZ", "120")
+    no_knobs.setenv("CRP_TPU_SPILL_IMPL", spill)
+    a = CORPUS["cplaw"]()
+    d = np.linspace(0, a.nrow, p + 1).astype(np.int64)
+    shards = []
+    for i in range(p):
+        sh = a.row_slice(int(d[i]), int(d[i + 1]))
+        keep = sh.nnz if i != 1 else 0
+        shards.append((sh.rowptr if keep else np.zeros(sh.nrow + 1, np.int64),
+                       sh.colidx[:keep].astype(np.int32), sh.val[:keep].astype(dtype)))
+    max_m = int(np.diff(d).max()) + 300
+    j_arrays, j_fn = jd.pack_local_kernel(shards, max_m, dtype, "ragged",
+                                          mxu_precision=prec)
+    t_arrays, op = td._pack_ragged(shards, max_m, dtype, prec, CPU,
+                                   geometry=(128, 256), min_chunk_nnz=120,
+                                   spill_impl=spill)
+    n_extra = 2 if op.spill_impl == "pallas" else 1
+    assert len(t_arrays) == len(j_arrays) + n_extra
+    for t, j in zip(t_arrays, j_arrays):
+        tb, jb = _bits(t), _bits(j)
+        assert tb.dtype == jb.dtype and tb.shape == jb.shape
+        np.testing.assert_array_equal(tb, jb)
+    assert (op.min_b_rows, op.roofline) == (j_fn.min_b_rows, j_fn.roofline)
+    S = j_arrays[0].shape[1]
+    firsts = [np.asarray(j_arrays[1])] + ([np.asarray(j_arrays[-2])] if n_extra == 2 else [])
+    for ptr, first in zip(t_arrays[len(j_arrays):], firsts):
+        for i in range(p):
+            want = ts.first_ptr(first[i])
+            got = ptr[i].numpy()
+            np.testing.assert_array_equal(got[:-1], want[:-1])
+            assert got[-2] < got[-1] <= want[-1]
+    ends = t_arrays[len(j_arrays)][:, -1].numpy()
+    for i in range(p):  # no-op steps past a shard's own: zero panels
+        assert not np.any(_bits(t_arrays[3])[i, ends[i]:])
+    assert ends.max() == S and ends.min() < S
+
+
 @pytest.mark.parametrize("TMo,Q", [(256, 256), (128, 512)])
 def test_spill_step_geometry_matches_jax(no_knobs, TMo, Q):
     """The fused spill's step geometry arguments pack as the JAX knobs do."""

@@ -1,6 +1,9 @@
 """The slice as a whole: the port's RowParaSpmm on the CPU against the JAX
 RowParaSpmm on a one-device CPU mesh, on the same matrix and B."""
 
+import functools
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -10,10 +13,13 @@ from crp_tpu.engine.rowpara import RowParaSpmm as JaxRowPara
 from crp_tpu.plan.partition1d import csr_row_partition
 from crp_tpu.shard.layout import make_mesh_1d
 from crp_tpu.sparse.csr import CSRMatrix
-from crp_tpu.sparse.synth import banded_random_csr, fill_b, powerlaw_random_csr
+from crp_tpu.sparse.synth import (
+    banded_random_csr, fill_b, powerlaw_community_csr, powerlaw_random_csr,
+)
 from crp_tpu.utils.norms import rel_fro_err
 
 from crp_tpu_torch.engine.rowpara import RowParaSpmm
+from crp_tpu_torch.kernels import dispatch as td
 
 TOL_REF = {"x3": 1e-5, "default": 5e-3, "highest": 1e-6}
 
@@ -143,27 +149,118 @@ def test_ragged_matches_jax(prec, dtype, tol):
 
 @pytest.mark.parametrize("change,match", [
     (dict(overlap=1), "Queue A #8"),
-    (dict(kernel="pallas_halo"), "Queue A #10"),
+    (dict(kernel="pallas_halo", overlap=1), "fuses exchange"),
     (dict(kernel="dd", overlap=1), "incompatible with overlap"),
     (dict(kernel="dd_mxu", bc_layout=1), "BC_layout"),
     (dict(bc_layout=1), "Queue A #3"),
 ])
 def test_unported_options_raise(change, match):
     """Unported options raise NotImplementedError naming their ROADMAP
-    item; the dd kinds, now ported, keep the JAX engine's ValueError
-    refusals of overlap and bc_layout (``rowpara.py:125-135``)."""
+    item; the dd kinds and ``pallas_halo``, now ported, keep the JAX
+    engine's ValueError refusals of overlap and bc_layout
+    (``rowpara.py:115-135``)."""
     a = banded_random_csr(300, nnz_per_row=5, bandwidth=20, seed=1)
     displs = csr_row_partition(a.rowptr, 1)
-    exc = ValueError if change.get("kernel", "").startswith("dd") else NotImplementedError
+    exc = NotImplementedError if "Queue" in match else ValueError
     with pytest.raises(exc, match=match):
         RowParaSpmm(a, displs, displs, 8, device="cpu", config=SpmmConfig(**change))
 
 
-def test_multi_shard_raises():
+def test_multi_shard_raises(devices8):
+    """p = 2 no longer raises: the port's engine equals the JAX engine on
+    two mesh devices (C to 1e-12 in fp64, the same comm volumes)."""
     a = banded_random_csr(300, nnz_per_row=5, bandwidth=20, seed=1)
     displs = csr_row_partition(a.rowptr, 2)
-    with pytest.raises(NotImplementedError, match="p = 2"):
-        RowParaSpmm(a, displs, displs, 8, device="cpu")
+    b = fill_b(0, a.ncol, 0, 8)
+    j = JaxRowPara(a, displs, displs, 8, mesh=make_mesh_1d(2, devices=devices8))
+    t = RowParaSpmm(a, displs, displs, 8, device="cpu")
+    assert (t.kernel_kind, t.rB_recv_size, t.physical_rows) == (
+        j.kernel_kind, j.rB_recv_size, j.xplan.physical_rows_ring)
+    assert rel_fro_err(j.exec(b), t.exec(b)) <= 1e-12
+
+
+def _scrambled(dtype=np.float32):
+    """A power-law graph with its ids scrambled: the ragged cover of every
+    shard's compacted columns keeps under 30% of the nonzeros."""
+    return powerlaw_community_csr(30000, 4, 1024, seed=3, permute=True, dtype=dtype)
+
+
+# kernel -> (matrix, config, dtype, the local op's variant, C tolerance
+# against the JAX engine: the same products summed in another order)
+MULTI = {
+    "segsum": (lambda: banded_random_csr(2400, 7, 60, seed=21),
+               dict(kernel="segsum"), np.float64, "segsum", 1e-12),
+    "window": (lambda: banded_random_csr(2400, 7, 60, seed=22, dtype=np.float32),
+               dict(kernel="pallas", mxu_precision="x3"), np.float32, "window", 1e-6),
+    "ragged": (lambda: powerlaw_community_csr(60000, 12, 1024, seed=23, dtype=np.float32),
+               dict(kernel="pallas", mxu_precision="x3"), np.float32, "ragged", 1e-6),
+    "gather": (_scrambled, dict(kernel="ragged", mxu_precision="highest"),
+               np.float32, "gather", 1e-6),
+    "ell": (lambda: banded_random_csr(2400, 7, 60, seed=24, dtype=np.float32),
+            dict(kernel="ell"), np.float32, "ell", 1e-6),
+    "dd": (lambda: banded_random_csr(2400, 7, 60, seed=25),
+           dict(kernel="dd"), np.float64, "ell", 1e-12),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_multi(kernel, p):
+    """The JAX engine's decisions and C on p mesh devices, with the TPU's
+    fallback chain for the gather case (``CRP_TPU_FALLBACK``); B is the
+    reference's analytic fill."""
+    import jax
+
+    gen, cfg, dtype, _, _ = MULTI[kernel]
+    a = gen()
+    displs = csr_row_partition(a.rowptr, p)
+    mesh = make_mesh_1d(p, devices=jax.devices()[:p])
+    old = os.environ.get("CRP_TPU_FALLBACK")
+    if kernel == "gather":
+        os.environ["CRP_TPU_FALLBACK"] = "gather,segsum"
+    try:
+        j = JaxRowPara(a, displs, displs, 24, mesh=mesh, config=SpmmConfig(**cfg),
+                       dtype=dtype)
+    finally:
+        os.environ.pop("CRP_TPU_FALLBACK", None)
+        if old is not None:
+            os.environ["CRP_TPU_FALLBACK"] = old
+    b = fill_b(0, a.ncol, 0, 24, dtype=dtype)
+    return a, displs, b, j.exec(b), dict(
+        kind=j.kernel_kind, variant=getattr(j._local_fn, "variant", None),
+        recv=j.rB_recv_size, a2a=j.xplan.physical_rows,
+        ring=j.xplan.physical_rows_ring,
+    )
+
+
+@pytest.mark.parametrize("rb_p2p", [0, 1], ids=["a2a", "ring"])
+@pytest.mark.parametrize("p", [2, 4, 8])
+@pytest.mark.parametrize("kernel", sorted(MULTI))
+def test_multi_shard_matches_jax(devices8, monkeypatch, kernel, p, rb_p2p):
+    """RowParaSpmm at p > 1 against the JAX engine on the CPU mesh: the same
+    kind, the same received rows and physical rows, and the same C.  The
+    gather case walks the TPU's chain on both sides (JAX's
+    ``CRP_TPU_FALLBACK``; the port's chain, patched to that list)."""
+    _, cfg, dtype, variant, tol = MULTI[kernel]
+    a, displs, b, cj, jx = _jax_multi(kernel, p)
+    if kernel == "gather":
+        monkeypatch.setattr(td, "sparsity_fallback_chain",
+                            lambda *args, **kw: ["gather", "segsum"])
+    t = RowParaSpmm(a, displs, displs, 24, device="cpu", dtype=dtype,
+                    config=SpmmConfig(rb_p2p=rb_p2p, **cfg))
+    assert t.kernel_kind == jx["kind"] and not t._identity_exchange
+    assert t._local_op.variant == variant
+    if jx["variant"] is not None:  # the JAX uniform and plain ops carry none
+        assert jx["variant"] == variant
+    if kernel == "ragged":
+        assert t._local_op.roofline["spill_nnz"] > 0
+    assert t.rB_recv_size == jx["recv"]
+    assert t.physical_rows == jx["ring" if rb_p2p else "a2a"]
+    ct = t.exec(b)
+    assert ct.shape == cj.shape and ct.dtype == cj.dtype
+    assert rel_fro_err(cj.astype(np.float64), ct) <= tol
+    c_timed = t.unshard_c(t.exec_timed(t.shard_b(b)))
+    np.testing.assert_array_equal(c_timed, ct)
+    assert {"a2a", "spmm"} <= set(t.timer.t)
 
 
 def test_pack_memo_reuses_and_evicts():
@@ -199,3 +296,14 @@ def test_stats_and_breakdown():
     assert t.timer.n_exec == 2
     t.clear_stat()
     assert t.timer.n_exec == 0
+
+
+def test_default_device_is_the_card():
+    """The engines run on the card unless the caller asks for the CPU; with
+    no card the default raises rather than fall back."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    a = banded_random_csr(300, nnz_per_row=5, bandwidth=20, seed=1)
+    displs = csr_row_partition(a.rowptr, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RowParaSpmm(a, displs, displs, 8)
