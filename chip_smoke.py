@@ -9,7 +9,9 @@ It builds the port's CUDA kernels from ``crp_tpu_torch/kernels/csrc`` into
 and then, failing on the first check that does not hold:
 
 1. kernel phase — each windowed kernel against its plain PyTorch version on
-   small banded packs with pad groups, n in {16, 48, 100, 256};
+   small banded packs with pad groups, n in {16, 48, 100, 256}; then #5
+   (x3 on B pre-split by ``split_b_bf16``) on the x3 pack against its
+   plain version and against #1's C, which it must equal bit for bit;
 2. ragged phase — each ragged kernel and the fused spill kernel against
    their plain versions on small power-law and multiband packs, over
    (TM, Wc) geometries, with pad groups that must come out zero;
@@ -20,7 +22,12 @@ and then, failing on the first check that does not hold:
    passed over), launch it, and match an fp64 numpy reference on the first
    32 columns; then each kernel against its plain version at the main
    path's shapes, with times, and cuSPARSE (``torch.sparse_csr_tensor @
-   B``) as a yardstick;
+   B``) as a yardstick; on the x3 engine's pack, the presplit-B comparison
+   (``crp_tpu_torch.cli.presplit_b_sweep.sweep``: #1 on fp32 B, #5 on
+   ``split_b_bf16(B)``, #2 on its hi half) with its launch counts, #5 at
+   x3's class and equal to #1 bit for bit, then #5 against its plain
+   version at the main path's shape, timed in turns (no engine takes #5:
+   every engine's exec must launch it zero times);
 4. cplaw path — the community power-law matrix
    ``powerlaw_community_csr(786432, 16, 1024)`` (10.8M nnz, fp32, n = 256)
    the same way: the engine must resolve to the ragged kernels with the
@@ -78,7 +85,8 @@ written once, over 3.35 TB/s, or 2 nnz n operations per pass over the
 peak of their type, the larger), the same for the dense panels this
 design multiplies (``design_bound_ms``), and a PyTorch library call's time
 on the same inputs where one computes the same product (cuSPARSE,
-``library_ms``).  The last two lines are the kernels' JSON record and
+``library_ms``).  Each phase ends with its host-clock time (``[time]``
+lines).  The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result.  It imports only
 ``crp_tpu_torch`` of this repository.
@@ -128,6 +136,7 @@ CPLAW_2D_RA_COST = 12170731   # the 1 x 4 grid's A replication at n = 256
 CSRC = "crp_tpu_torch/kernels/csrc/"
 KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     "spmm_window_sg_presplit": ("window_sg.cu", "crp_tpu/kernels/spmm_pallas.py:415"),
+    "spmm_window_sg_presplit_ab": ("window_sg.cu", "crp_tpu/kernels/spmm_pallas.py:480"),
     "spmm_window_sg_bf16": ("window_sg.cu", "crp_tpu/kernels/spmm_pallas.py:559"),
     "spmm_window_sg": ("window_sg.cu", "crp_tpu/kernels/spmm_pallas.py:338"),
     "spmm_ragged_presplit": ("ragged.cu", "crp_tpu/kernels/spmm_ragged.py:684"),
@@ -164,19 +173,9 @@ def launch(op, args):
 def time_ms(fn, reps: int = 5, inner: int = 20) -> float:
     """Median over ``reps`` runs of ``inner`` back-to-back calls, CUDA
     events around each run; one warm-up call first."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    samples = []
-    for _ in range(reps):
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end) / inner)
-    return float(np.median(samples))
+    from crp_tpu_torch.utils.timers import median_ms
+
+    return median_ms(fn, torch.device("cuda", 0), reps, inner)
 
 
 def in_turns(run_kernel, run_plain, plain_inner: int = 20):
@@ -353,6 +352,108 @@ def kernel_phase(device) -> None:
                 f"{rel:.3e} (tol {tol:g}), max abs err {max_abs:.3e}, "
                 f"rel fro err {rel_fro:.3e}")
             check(rel <= tol, f"{op.kernel.__name__} n={n} {prec}: {rel} > {tol}")
+
+
+class PresplitAbOp:
+    """Kernel #5 on an x3 pack, in the form the record helpers take (no
+    engine builds one): its arguments are the pack's and ``split_b_bf16``
+    of the receive buffer."""
+
+    variant = "uniform"
+    scheme = "x3"
+
+    def __init__(self, x3_op):
+        from crp_tpu_torch.kernels import spmm_pallas
+
+        self.kernel = spmm_pallas.spmm_window_sg_presplit_ab
+        self.plain = spmm_pallas.spmm_window_sg_presplit_ab_plain
+        self.min_b_rows = x3_op.min_b_rows
+        self.roofline = x3_op.roofline
+
+    def kernel_args(self, arrs, rB) -> tuple:
+        from crp_tpu_torch.kernels.spmm_pallas import split_b_bf16
+
+        ws, ah, al = arrs[:3]
+        return (ws, ah, al, *split_b_bf16(rB))
+
+
+def presplit_ab_vs_presplit(op5, arrs, rB) -> float:
+    """max |C5 - C1| of #5 on ``split_b_bf16(rB)`` and #1 on ``rB``
+    (0 when they agree bit for bit); check launches, not the main path's."""
+    from crp_tpu_torch.kernels.spmm_pallas import spmm_window_sg_presplit
+
+    c5 = launch(op5, op5.kernel_args(arrs, rB))
+    c1 = spmm_window_sg_presplit(*arrs[:3], rB, min_b_rows=op5.min_b_rows)
+    return float((c5 - c1).abs().max())
+
+
+def presplit_ab_phase(device) -> None:
+    """#5 on the kernel phase's x3 pack (pad groups): within TOL_PLAIN of
+    its plain version, #1's C bit for bit, pad rows zero."""
+    from crp_tpu_torch import banded_random_csr
+    from crp_tpu_torch.kernels.dispatch import pack_local_kernel
+
+    a = banded_random_csr(3000, nnz_per_row=7, bandwidth=80, seed=91, dtype=np.float32)
+    arrays, op = pack_local_kernel([(a.rowptr, a.colidx.astype(np.int32), a.val)],
+                                   a.nrow + 300, np.float32, "pallas",
+                                   device=device, mxu_precision="x3")
+    check(op.scheme == "x3", f"presplit-B phase: scheme {op.scheme!r}")
+    arrs = tuple(x[0] for x in arrays)
+    op5 = PresplitAbOp(op)
+    for n in (16, 48, 100, 256):
+        rB = torch.from_numpy(padded_b(a, op.min_b_rows, n, np.float32)).to(device)
+        _, rel, _ = kernel_vs_plain(op5, arrs, rB)
+        diff = presplit_ab_vs_presplit(op5, arrs, rB)
+        c = launch(op5, op5.kernel_args(arrs, rB))
+        check(not bool(torch.any(c[a.nrow:])), f"spmm_window_sg_presplit_ab n={n}: "
+              "pad rows not zero")
+        msg = (f"kernel spmm_window_sg_presplit_ab x3 float32 G={arrs[0].shape[0]} "
+               f"n={n:3d}: max rel err {rel:.3e} (tol {TOL_PLAIN[np.float32]:g}), "
+               f"max |C5 - C1| {diff:.3e} (must be 0)")
+        check(rel <= TOL_PLAIN[np.float32] and diff == 0.0, msg)
+        say(msg)
+
+
+def presplit_b_phase(a, op, arrs, rB, device) -> dict:
+    """This slice's main path on the headline's x3 pack: the presplit-B
+    comparison through ``sweep``, every launch count set to 0 just before
+    it and read just after (its checked exec and its timed ones); each
+    variant in its class, #5 equal to #1.  Then #5 against its plain
+    version at the main path's shape (``rB``), timed in turns, and bit for
+    bit against #1 there.  Returns #5's record."""
+    from crp_tpu_torch.cli.presplit_b_sweep import sweep
+
+    t0 = time.perf_counter()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    recs = {r["variant"]: r for r in sweep(a, N, device, pack=(arrs, op))}
+    launches = {k.__name__: k.launches for k in kernels}
+    say(f"[presplit-B] launches in the sweep: {json.dumps(launches)}")
+    for name in ("spmm_window_sg_presplit", "spmm_window_sg_presplit_ab",
+                 "spmm_window_sg_bf16"):
+        check(launches[name] > 0, f"presplit-B: {name} was not launched")
+    for variant, prec in (("presplit_a_x3", "x3"), ("presplit_ab_x3", "x3"),
+                          ("bf16_1pass", "default")):
+        err = recs[variant]["rel_fro_err"]
+        check(err <= TOL_REF[prec], f"presplit-B {variant}: rel_fro_err {err} > "
+              f"{TOL_REF[prec]}")
+    ab = recs["presplit_ab_x3"]
+    check(ab["max_abs_vs_presplit_a"] == 0.0,
+          f"presplit-B: #5 differs from #1 by {ab['max_abs_vs_presplit_a']}")
+    say(f"[presplit-B] split_b_bf16 {ab['split_ms']:.4f} ms, #5 "
+        f"{ab['exec_ms']:.4f} ms, split + #5 {ab['split_exec_ms']:.4f} ms per exec; "
+        f"#1 {recs['presplit_a_x3']['exec_ms']:.4f} ms, #2 (1 pass) "
+        f"{recs['bf16_1pass']['exec_ms']:.4f} ms")
+    op5 = PresplitAbOp(op)
+    got = time_kernel(op5, arrs, rB, "headline presplit-B", "x3", csr_work(a),
+                      plain_inner=3)
+    diff = presplit_ab_vs_presplit(op5, arrs, rB)
+    say(f"[headline presplit-B x3] max |C5 - C1| on the main path's B {diff:.3e}")
+    check(diff == 0.0, f"headline: #5 differs from #1 by {diff}")
+    say(f"[time] presplit_b_phase: {time.perf_counter() - t0:.1f} s")
+    return record("spmm_window_sg_presplit_ab",
+                  launches["spmm_window_sg_presplit_ab"], *got)
 
 
 def multiband(n, seed, dtype):
@@ -548,9 +649,13 @@ def headline(device) -> list:
     for prec in PRECS:
         eng, op, bs, launches = drive(a, b, c_ref, prec, device, "headline",
                                       ("pallas", "uniform"))
+        check(launches["spmm_window_sg_presplit_ab"] == 0,
+              f"headline {prec}: the engine launched spmm_window_sg_presplit_ab")
         arrs = tuple(x[0] for x in eng.packed)
         got = time_kernel(op, arrs, bs[0], "headline", prec, csr_work(a))
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
+        if prec == "x3":
+            records.append(presplit_b_phase(a, op, arrs, bs[0], device))
         del eng, op, bs, arrs
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
@@ -1124,17 +1229,14 @@ def main() -> int:
     say(f"build: {', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    kernel_phase(device)
-    ragged_phase(device)
-    gather_phase(device)
-    dd_phase(device)
-    window_phase(device)
-    halo_phase(device)
-    records = (headline(device) + cplaw_path(device)
-               + scrambled_cplaw_path(device) + fp64_path(device)
-               + headline_p4(device))
-    cplaw_p4(device)
-    para2d_phase(device)
+    records = []
+    for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,
+                  dd_phase, window_phase, halo_phase, headline, cplaw_path,
+                  scrambled_cplaw_path, fp64_path, headline_p4, cplaw_p4,
+                  para2d_phase):
+        t0 = time.perf_counter()
+        records += phase(device) or []
+        say(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 # every entry then takes the stream
 _ENTRIES = {
     "crp_window_sg_presplit": ("window_sg", 5, ("G", "TM", "W", "n")),
+    "crp_window_sg_presplit_ab": ("window_sg", 6, ("G", "TM", "W", "n")),
     "crp_window_sg_bf16": ("window_sg", 4, ("G", "TM", "W", "n")),
     "crp_window_sg_f32": ("window_sg", 4, ("G", "TM", "W", "n")),
     "crp_window_sg_f64": ("window_sg", 4, ("G", "TM", "W", "n")),

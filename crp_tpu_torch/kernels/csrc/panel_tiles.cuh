@@ -112,8 +112,11 @@ __device__ __forceinline__ void split8(const float4 (&v)[2], uint4& hi, uint4& l
 // A_F32: A arrives as fp32 panels and is split (X3) or rounded (!X3) to
 // bf16 here, on its way to shared memory; else A arrives as bf16 hi (and
 // lo for X3).  B arrives as fp32 and is split or rounded here when X3 or
-// A_F32, else as bf16 (cast by the caller).
-template <bool X3, bool A_F32 = false, bool CHUNKED = false>
+// A_F32, else as bf16 (cast by the caller).  B_PAIR (X3 on bf16 A only):
+// B arrives pre-split, bf16 hi in b_raw and bf16 lo in b_lo, and goes to
+// shared memory as it is (the caller's split is the RNE split above, so
+// the tiles, and C, are the in-kernel split's bit for bit).
+template <bool X3, bool A_F32 = false, bool CHUNKED = false, bool B_PAIR = false>
 __global__ void __launch_bounds__(MMA_THREADS)
 panel_mma_kernel(const int32_t* __restrict__ group_ptr,
                  const int32_t* __restrict__ starts,
@@ -122,9 +125,11 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
                  const void* __restrict__ b_raw,
                  float* __restrict__ c,
                  int64_t TM, int64_t W, int64_t n, int64_t n_tiles,
-                 const int32_t* __restrict__ chunk_src)
+                 const int32_t* __restrict__ chunk_src,
+                 const bf16* __restrict__ b_lo)
 {
-    constexpr bool B_F32 = X3 || A_F32;
+    static_assert(!B_PAIR || (X3 && !A_F32), "B_PAIR is the x3 point on bf16 A");
+    constexpr bool B_F32 = (X3 || A_F32) && !B_PAIR;
     __shared__ __align__(128) bf16 As_h[MMA_BM][A_LD];
     __shared__ __align__(128) bf16 As_l[X3 ? MMA_BM : 1][A_LD];
     __shared__ __align__(128) bf16 Bs_h[MMA_BK][B_LD];
@@ -155,6 +160,7 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
     float4 ra_f[A_F32 ? A_VECS : 1][2];  // 8 fp32 A values per vector
     float rb_f[B_ELEMS];
     bf16 rb_h[B_ELEMS];
+    bf16 rb_l[B_PAIR ? B_ELEMS : 1];
 
     // slice t of the group's walk: chunk s_begin + t / nk, k0 = (t % nk) BK
     auto load_tile = [&](int64_t t) {
@@ -182,8 +188,13 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
         for (int i = 0; i < B_ELEMS; ++i) {
             const int r = (tid / MMA_BN) + (MMA_THREADS / MMA_BN) * i;
             const size_t off = (size_t)(b_row0 + r) * n + n0 + cc;
-            if constexpr (B_F32) rb_f[i] = b_ok ? b_f[off] : 0.0f;
-            else rb_h[i] = b_ok ? b_h[off] : __float2bfloat16_rn(0.0f);
+            if constexpr (B_F32) {
+                rb_f[i] = b_ok ? b_f[off] : 0.0f;
+            } else {
+                rb_h[i] = b_ok ? b_h[off] : __float2bfloat16_rn(0.0f);
+                if constexpr (B_PAIR)
+                    rb_l[i] = b_ok ? b_lo[off] : __float2bfloat16_rn(0.0f);
+            }
         }
     };
 
@@ -199,7 +210,10 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
 #pragma unroll
         for (int i = 0; i < B_ELEMS; ++i) {
             const int r = (tid / MMA_BN) + (MMA_THREADS / MMA_BN) * i;
-            if constexpr (X3) {
+            if constexpr (B_PAIR) {
+                Bs_h[r][cc] = rb_h[i];
+                Bs_l[r][cc] = rb_l[i];
+            } else if constexpr (X3) {
                 // RNE split, the same as the pack's A split and the plain
                 // version's .to(torch.bfloat16): never truncate
                 const bf16 hi = __float2bfloat16_rn(rb_f[i]);
@@ -309,11 +323,11 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
     }
 }
 
-template <bool X3, bool A_F32 = false, bool CHUNKED = false>
+template <bool X3, bool A_F32 = false, bool CHUNKED = false, bool B_PAIR = false>
 int launch_mma(const void* group_ptr, const void* starts, const void* a,
                const void* al, const void* b, void* c, int64_t G, int64_t TM,
                int64_t W, int64_t n, void* stream,
-               const void* chunk_src = nullptr)
+               const void* chunk_src = nullptr, const void* b_lo = nullptr)
 {
     if (G < 0 || TM <= 0 || TM % MMA_BM || W <= 0 || W % MMA_BK || n < 0)
         return (int)cudaErrorInvalidValue;
@@ -321,12 +335,13 @@ int launch_mma(const void* group_ptr, const void* starts, const void* a,
     const int64_t blocks = G * (TM / MMA_BM) * n_tiles;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     if (blocks > 0)
-        panel_mma_kernel<X3, A_F32, CHUNKED><<<(unsigned)blocks, MMA_THREADS, 0,
-                                      (cudaStream_t)stream>>>(
-            static_cast<const int32_t*>(group_ptr),
-            static_cast<const int32_t*>(starts), a,
-            static_cast<const bf16*>(al), b, static_cast<float*>(c),
-            TM, W, n, n_tiles, static_cast<const int32_t*>(chunk_src));
+        panel_mma_kernel<X3, A_F32, CHUNKED, B_PAIR>
+            <<<(unsigned)blocks, MMA_THREADS, 0, (cudaStream_t)stream>>>(
+                static_cast<const int32_t*>(group_ptr),
+                static_cast<const int32_t*>(starts), a,
+                static_cast<const bf16*>(al), b, static_cast<float*>(c),
+                TM, W, n, n_tiles, static_cast<const int32_t*>(chunk_src),
+                static_cast<const bf16*>(b_lo));
     return (int)cudaGetLastError();
 }
 

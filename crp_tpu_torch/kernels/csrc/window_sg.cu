@@ -13,6 +13,9 @@
 //   crp_window_sg_presplit  <- _window_kernel_sg_presplit (x3: A as bf16
 //                              hi/lo, B split to bf16 hi/lo here in RNE,
 //                              acc += al*bh + ah*bl + ah*bh in fp32)
+//   crp_window_sg_presplit_ab <- _window_kernel_sg_presplit_ab (x3 with B
+//                              also pre-split to bf16 hi/lo in HBM by
+//                              split_b_bf16: the same tiles, no split here)
 //   crp_window_sg_bf16      <- _window_kernel_sg_bf16 (one bf16 pass)
 //   crp_window_sg_f32 / f64 <- _window_kernel_sg (register-tiled FMA in
 //                              fp32 or fp64; never TF32)
@@ -27,6 +30,10 @@
 // FMA kernel 629 GFLOP at the 67 TF/s fp32 peak (compute-bound).  The A
 // panels are the dominant bytes; groups advance in order, so the B windows
 // of neighbouring groups (5.8 MB each, mostly shared) stay in the 50 MB L2.
+// The pre-split B pair moves the same bytes as fp32 B (two bf16 halves),
+// and saves the split that every block of x3 redoes on every B element it
+// loads (~2.5e9 splits per headline product); this simple version reads
+// the halves as two 2-byte loads where x3 makes one 4-byte load.
 
 #include "panel_tiles.cuh"
 
@@ -38,6 +45,15 @@ int crp_window_sg_presplit(const void* ws, const void* ah, const void* al,
 {
     return crp::launch_mma<true>(nullptr, ws, ah, al, b, c, G, TM, W, n,
                                  stream);
+}
+
+int crp_window_sg_presplit_ab(const void* ws, const void* ah, const void* al,
+                              const void* bh, const void* bl, void* c,
+                              int64_t G, int64_t TM, int64_t W, int64_t n,
+                              void* stream)
+{
+    return crp::launch_mma<true, false, false, true>(
+        nullptr, ws, ah, al, bh, c, G, TM, W, n, stream, nullptr, bl);
 }
 
 int crp_window_sg_bf16(const void* ws, const void* ah, const void* bh,

@@ -14,6 +14,9 @@ point:
 
   * :func:`spmm_window_sg_presplit` — ``x3``: A pre-split to bf16 hi/lo,
     B split in the kernel, three bf16 products summed in fp32;
+  * :func:`spmm_window_sg_presplit_ab` — ``x3`` with B pre-split too, by
+    :func:`split_b_bf16` (no engine path takes it: the presplit-B
+    comparison of ``crp_tpu_torch.cli.presplit_b_sweep`` does);
   * :func:`spmm_window_sg_bf16` — ``default``: one bf16 product;
   * :func:`spmm_window_sg` — ``highest``: fp32 (or fp64) FMA, no TF32.
 
@@ -143,19 +146,31 @@ def plain_blocks(step_g, starts, panels, b, G, out_dtype, product):
     return out.view(G * TM, n)
 
 
+def _x3(a_h, a_l, b_h, b_l):
+    """The three products of x3 as fp32 ``bmm``s of bf16-valued fp32
+    tensors (exact products), summed in fp32: ah·bh + (ah·bl + al·bh)."""
+    return torch.bmm(a_h, b_h) + (torch.bmm(a_h, b_l) + torch.bmm(a_l, b_h))
+
+
 def presplit_product(ah, al):
-    """x3 in plain PyTorch: B split in RNE like the kernels, the three
-    products as fp32 ``bmm``s of bf16-valued fp32 tensors (exact
-    products), sums in fp32."""
+    """x3 in plain PyTorch: B split in RNE like the kernels, then
+    :func:`_x3`."""
 
     def product(s0, s1, win):
         bh = win.to(torch.bfloat16)
         bl = (win - bh.float()).to(torch.bfloat16).float()
-        bh = bh.float()
-        a_h = ah[s0:s1].float()
-        return torch.bmm(a_h, bh) + (
-            torch.bmm(a_h, bl) + torch.bmm(al[s0:s1].float(), bh)
-        )
+        return _x3(ah[s0:s1].float(), al[s0:s1].float(), bh.float(), bl)
+
+    return product
+
+
+def presplit_ab_product(ah, al):
+    """x3 in plain PyTorch on B pre-split: the windows are ``(..., W, n,
+    2)`` bf16 pairs (bh, bl), multiplied as they are by :func:`_x3`."""
+
+    def product(s0, s1, win):
+        return _x3(ah[s0:s1].float(), al[s0:s1].float(),
+                   win[..., 0].float(), win[..., 1].float())
 
     return product
 
@@ -179,6 +194,15 @@ def _uniform(ws, panels, b, out_dtype, product):
 def spmm_window_sg_presplit_plain(ws, ah, al, b):
     """x3 windowed SpMM in plain PyTorch."""
     return _uniform(ws, ah, b, torch.float32, presplit_product(ah, al))
+
+
+def spmm_window_sg_presplit_ab_plain(ws, ah, al, bh, bl):
+    """x3 windowed SpMM in plain PyTorch on B pre-split to bf16 ``bh``,
+    ``bl``: the windows of both halves are gathered as one (rows, n, 2)
+    pair.  Equal bit for bit to :func:`spmm_window_sg_presplit_plain` on
+    B when ``(bh, bl) = split_b_bf16(B)``."""
+    return _uniform(ws, ah, torch.stack((bh, bl), dim=-1), torch.float32,
+                    presplit_ab_product(ah, al))
 
 
 def spmm_window_sg_bf16_plain(ws, ah, bh):
@@ -215,6 +239,22 @@ def spmm_window_plain(ws, tiles, b, precision: str):
     """Non-super-grouped windowed SpMM in plain PyTorch: (G*TM, n) from
     fp32 (or fp64) ``tiles`` and B of the same dtype, at ``precision``."""
     return _uniform(ws, tiles, b, tiles.dtype, window_product(tiles, precision))
+
+
+def split_b_bf16(b):
+    """fp32 (k, n) ``b`` -> bf16 ``(bh, bl)`` with ``bh = RNE(b)`` and
+    ``bl = RNE(b - f32(bh))``: the bits of JAX's ``reduce_precision``
+    split (``spmm_pallas.py:777-792``) and of ``np_split_bf16``, and the
+    split the x3 kernels make of fp32 B.  Plain PyTorch on the tensor's
+    device, as the JAX package leaves it to XLA; never a truncation."""
+    from .device_pack import split_bf16
+
+    if b.dtype != torch.float32 or b.dim() != 2:
+        raise ValueError(
+            f"split_b_bf16: B must be a 2-D fp32 tensor, not {b.dtype} "
+            f"{tuple(b.shape)}"
+        )
+    return split_bf16(b, with_lo=True)
 
 
 # ----------------------------------------------------------------- wrappers
@@ -284,6 +324,38 @@ def spmm_window_sg_presplit(ws, ah, al, b, *, min_b_rows: int):
 
 
 spmm_window_sg_presplit.launches = 0
+
+
+def spmm_window_sg_presplit_ab(ws, ah, al, bh, bl, *, min_b_rows: int):
+    """x3 windowed SpMM on B pre-split: (G*TM, n) fp32 from bf16
+    ``ah``/``al`` panels and bf16 ``bh``/``bl`` (:func:`split_b_bf16`).
+    Replaces ``spmm_window_pallas_sg_presplit_ab`` (``spmm_pallas.py:654``)
+    and equals :func:`spmm_window_sg_presplit` on the B that was split, bit
+    for bit."""
+    name = "spmm_window_sg_presplit_ab"
+    if bh.dtype != torch.bfloat16 or bl.dtype != torch.bfloat16:
+        raise ValueError(
+            f"{name}: bh and bl must be bf16 halves (split_b_bf16), not "
+            f"{bh.dtype} / {bl.dtype}"
+        )
+    if _placement(name, ws, ah, al, bh, bl) == "cpu":
+        return spmm_window_sg_presplit_ab_plain(ws, ah, al, bh, bl)
+    G, TM, W, n = _check_cuda_args(name, ws, (ah, al), bh, min_b_rows,
+                                   torch.bfloat16, torch.bfloat16)
+    if bl.shape != bh.shape or not bl.is_contiguous():
+        raise ValueError(f"{name}: bl must be contiguous of bh's shape {tuple(bh.shape)}")
+    c = torch.empty((G * TM, n), dtype=torch.float32, device=bh.device)
+    _launch(
+        "crp_window_sg_presplit_ab",
+        (ws.data_ptr(), ah.data_ptr(), al.data_ptr(), bh.data_ptr(),
+         bl.data_ptr(), c.data_ptr()),
+        G, TM, W, n, bh.device,
+    )
+    spmm_window_sg_presplit_ab.launches += 1
+    return c
+
+
+spmm_window_sg_presplit_ab.launches = 0
 
 
 def spmm_window_sg_bf16(ws, ah, bh, *, min_b_rows: int):
@@ -362,5 +434,5 @@ def spmm_window(ws, tiles, b, precision: str, *, min_b_rows: int):
 
 spmm_window.launches = 0
 
-KERNELS = (spmm_window_sg_presplit, spmm_window_sg_bf16, spmm_window_sg,
-           spmm_window)
+KERNELS = (spmm_window_sg_presplit, spmm_window_sg_presplit_ab,
+           spmm_window_sg_bf16, spmm_window_sg, spmm_window)

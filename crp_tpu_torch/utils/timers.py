@@ -7,6 +7,7 @@ tensor in ``x`` before reading the clock.
 
 from __future__ import annotations
 
+import statistics
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -60,3 +61,30 @@ class Timer:
     def max(self, name: str) -> float:
         s = self.samples.get(name)
         return max(s) if s else 0.0
+
+
+def median_ms(fn, device, reps: int = 5, inner: int = 20) -> float:
+    """Median ms per call of ``fn`` over ``reps`` runs of ``inner`` calls,
+    after one warm-up call: CUDA events around each run on a CUDA
+    ``device`` (the kernels return before the card finishes), the host
+    clock on the CPU."""
+    fn()
+    samples = []
+    if torch.device(device).type != "cuda":
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(inner):
+                fn()
+            samples.append((time.perf_counter() - t0) * 1e3 / inner)
+        return statistics.median(samples)
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(reps):
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / inner)
+    return statistics.median(samples)

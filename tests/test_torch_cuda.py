@@ -89,6 +89,78 @@ def test_kernel_refuses_short_b(cuda_device):
         op(tuple(x[0] for x in arrays), rB)
 
 
+def _x3_pack(cuda_device):
+    """The x3 pack of a banded matrix with pad groups (max_m past nrow)."""
+    a = banded_random_csr(3000, nnz_per_row=7, bandwidth=80, seed=91, dtype=np.float32)
+    arrays, op = pack_local_kernel([(a.rowptr, a.colidx.astype(np.int32), a.val)],
+                                   a.nrow + 300, np.float32, "pallas",
+                                   device=cuda_device, mxu_precision="x3")
+    assert op.scheme == "x3"
+    return a, tuple(x[0] for x in arrays[:3]), op
+
+
+@pytest.mark.parametrize("n", [16, 37, 48, 100, 256])
+def test_presplit_ab_kernel_matches_plain_and_presplit(cuda_device, n):
+    """Kernel #5 on B pre-split by ``split_b_bf16``, odd n included: within
+    TOL_PLAIN of its plain version, and #1's C on the B that was split bit
+    for bit (the same RNE split, products and sums); pad rows zero; the
+    card's split is the CPU's."""
+    a, (ws, ah, al), op = _x3_pack(cuda_device)
+    rng = np.random.default_rng(n)
+    b = _b(a, op.min_b_rows, n, np.float32) * rng.standard_normal(
+        (op.min_b_rows, n)).astype(np.float32)
+    rB = torch.from_numpy(b).to(cuda_device)
+    bh, bl = spmm_pallas.split_b_bf16(rB)
+    ch, cl = spmm_pallas.split_b_bf16(rB.cpu())
+    assert torch.equal(bh.cpu(), ch) and torch.equal(bl.cpu(), cl)
+    before = spmm_pallas.spmm_window_sg_presplit_ab.launches
+    k = spmm_pallas.spmm_window_sg_presplit_ab(ws, ah, al, bh, bl, min_b_rows=op.min_b_rows)
+    assert spmm_pallas.spmm_window_sg_presplit_ab.launches == before + 1
+    p = spmm_pallas.spmm_window_sg_presplit_ab_plain(ws, ah, al, bh, bl)
+    assert k.shape == p.shape == (op.roofline["G"] * 256, n)
+    assert float((k - p).abs().max() / p.abs().max()) <= TOL_PLAIN[np.float32]
+    c1 = spmm_pallas.spmm_window_sg_presplit(ws, ah, al, rB, min_b_rows=op.min_b_rows)
+    assert torch.equal(k, c1)
+    assert not torch.any(k[a.nrow:])
+
+
+def test_presplit_ab_kernel_refuses_wrong_b(cuda_device):
+    """fp32 halves, a lo half of another shape and a short B are refused
+    before any launch."""
+    a, (ws, ah, al), op = _x3_pack(cuda_device)
+    rB = torch.from_numpy(_b(a, op.min_b_rows, 16, np.float32)).to(cuda_device)
+    bh, bl = spmm_pallas.split_b_bf16(rB)
+    kernel = spmm_pallas.spmm_window_sg_presplit_ab
+    before = kernel.launches
+    with pytest.raises(ValueError, match="bf16"):
+        kernel(ws, ah, al, rB, bl, min_b_rows=op.min_b_rows)
+    with pytest.raises(ValueError, match="bf16"):
+        kernel(ws, ah, al, bh, rB, min_b_rows=op.min_b_rows)
+    with pytest.raises(ValueError, match="bl must be"):
+        kernel(ws, ah, al, bh, bl[:-128], min_b_rows=op.min_b_rows)
+    with pytest.raises(ValueError, match="min_b_rows"):
+        kernel(ws, ah, al, bh[:-1], bl[:-1], min_b_rows=op.min_b_rows)
+    assert kernel.launches == before
+
+
+def test_presplit_b_sweep_on_card(cuda_device):
+    """The presplit-B comparison on a small matrix: the three variants
+    launch their kernels, #5 equals #1, each lands in its class."""
+    from crp_tpu_torch.cli.presplit_b_sweep import sweep
+
+    a = banded_random_csr(6000, nnz_per_row=9, bandwidth=300, seed=5, dtype=np.float32)
+    kernels = (spmm_pallas.spmm_window_sg_presplit, spmm_pallas.spmm_window_sg_presplit_ab,
+               spmm_pallas.spmm_window_sg_bf16)
+    before = [k.launches for k in kernels]
+    recs = {r["variant"]: r for r in sweep(a, 48, cuda_device, timing=(1, 2))}
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert recs["presplit_ab_x3"]["max_abs_vs_presplit_a"] == 0.0
+    assert recs["presplit_ab_x3"]["rel_fro_err"] <= 1e-5
+    assert recs["presplit_a_x3"]["rel_fro_err"] <= 1e-5
+    assert recs["bf16_1pass"]["rel_fro_err"] <= 5e-3
+    assert all(r["device"] == torch.cuda.get_device_name(cuda_device) for r in recs.values())
+
+
 @pytest.mark.parametrize("prec", ["x3", "default", "highest"])
 def test_engine_on_card_matches_engine_on_cpu(cuda_device, prec):
     a = banded_random_csr(2000, nnz_per_row=7, bandwidth=80, seed=5,
