@@ -5,8 +5,11 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``crp_tpu_torch/kernels/csrc`` into
-``build/crp_tpu_torch/`` (one ``nvcc`` per source, all started together)
-and then, failing on the first check that does not hold:
+``build/crp_tpu_torch/`` (one ``nvcc`` per source, all started together),
+prints the shared-memory ring of the 3xTF32 entries (#4 and #12 at
+highest: stages, dynamic shared memory, registers, spills and blocks per
+SM, which must be 0 and at least 2) and then, failing on the first check
+that does not hold:
 
 1. kernel phase — each windowed kernel against its plain PyTorch version on
    small banded packs with pad groups, n in {16, 48, 100, 256}; then #5
@@ -54,11 +57,12 @@ and then, failing on the first check that does not hold:
 9. window phase — the non-super-grouped windowed kernel (#4) against its
    plain version at x3, default, highest and fp64 on a 4-shard pack (pad
    groups, an empty shard) and on a single-shard pack with non-monotone
-   windows, n in {16, 100, 256};
+   windows, n in {16, 37, 100, 256} (odd n takes #4's 4-byte B copies at
+   highest);
 10. halo phase — the fused halo kernel (#12: one launch over 4 shards,
    each reading its windows straight from the owner shards' rows) against
    its plain version (the pushes into window buffers, then the windowed
-   product) at x3, default, highest and fp64, n in {16, 100, 256};
+   product) at x3, default, highest and fp64, n in {16, 37, 100, 256};
 11. headline at p = 4 — the headline matrix in 4 nnz-balanced row shards
    on the one card through ``RowParaSpmm(kernel="auto")`` at x3, default
    and highest: ``auto`` must resolve to the fused ``pallas_halo`` kernel
@@ -129,7 +133,8 @@ TOL_RAGGED_FRO = {np.float32: 1e-6, np.float64: 1e-12}
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): HBM3
 # bytes/s, and FLOP/s by the type the products run in
 HBM_BYTES_PER_S = 3.35e12
-PEAK = {"bf16": 989e12, "fp32": 67e12, "fp64": 34e12, "fp64_tc": 67e12}
+PEAK = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "fp64": 34e12,
+        "fp64_tc": 67e12}
 CPLAW_P4_RECV, CPLAW_P4_RING_ROWS = 591732, 627300  # r4_cpu_mesh_commvol.jsonl
 CPLAW_P8_COMM_N32 = 26551360  # the planner's comm_cost at n = 32, p = 8
 CPLAW_2D_RA_COST = 12170731   # the 1 x 4 grid's A replication at n = 256
@@ -231,13 +236,16 @@ def bound(n_bytes: float, ops: float, peak: str) -> tuple:
 
 def op_point(op, dtype) -> tuple:
     """(passes, peak) of an op's products: x3 three bf16 products, default
-    one, highest fp32 FMA, fp64 FMA or, for dd, the FP64 tensor cores."""
+    one, highest three TF32 products (#4 and #12) or fp32 FMA (#3, #6),
+    fp64 FMA or, for dd, the FP64 tensor cores."""
     scheme = getattr(op, "scheme", None)
     prec = getattr(op, "precision", getattr(op, "mxu_precision", None))
     if op.variant == "gather":  # products on the FMA units at every point
         return 1, "fp32"
     if dtype == torch.float64:
         return 1, ("fp64_tc" if scheme == "dd" else "fp64")
+    if op.variant in ("window", "halo") and prec == "highest":
+        return 3, "tf32"
     if scheme in ("x3", "bf16", "full"):
         prec = {"x3": "x3", "bf16": "default", "full": "highest"}[scheme]
     if prec == "x3":
@@ -652,11 +660,12 @@ def headline(device) -> list:
         check(launches["spmm_window_sg_presplit_ab"] == 0,
               f"headline {prec}: the engine launched spmm_window_sg_presplit_ab")
         arrs = tuple(x[0] for x in eng.packed)
-        got = time_kernel(op, arrs, bs[0], "headline", prec, csr_work(a))
+        rB = eng.receive_buffer(bs)[0]
+        got = time_kernel(op, arrs, rB, "headline", prec, csr_work(a))
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
         if prec == "x3":
-            records.append(presplit_b_phase(a, op, arrs, bs[0], device))
-        del eng, op, bs, arrs
+            records.append(presplit_b_phase(a, op, arrs, rB, device))
+        del eng, op, bs, arrs, rB
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
     cus_ms = cusparse_yardstick(a, b, c_ref, device)
@@ -697,7 +706,7 @@ def cplaw_path(device) -> list:
             check((rl["TM"], rl["W"]) == (512, 128),
                   f"cplaw x3: (TM, Wc) = ({rl['TM']}, {rl['W']}), expected (512, 128)")
         arrs = tuple(x[0] for x in eng.packed)
-        rB = bs[0]
+        rB = eng.receive_buffer(bs)[0]
         got = time_kernel(op, arrs, rB, "cplaw", prec, csr_work(a), plain_inner=3)
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
         s_abs, s_rel, s_fro = spill_vs_plain(op, arrs, rB)
@@ -840,8 +849,8 @@ def scrambled_cplaw_path(device) -> list:
         eng, op, bs, launches = drive(a, b, c_ref, prec, device, "scrambled",
                                       ("gather", "gather"))
         arrs = tuple(x[0] for x in eng.packed)
-        got = time_kernel(op, arrs, bs[0], "scrambled", prec, csr_work(a),
-                          plain_inner=2)
+        got = time_kernel(op, arrs, eng.receive_buffer(bs)[0], "scrambled", prec,
+                          csr_work(a), plain_inner=2)
         rec["launches"] += launches["spmm_gather"]
         rec["max_abs"] = max(rec["max_abs"], got[0])
         if prec == "x3":
@@ -870,7 +879,7 @@ def fp64_path(device) -> list:
     check(op.roofline["S"] == DD_BAND_S,
           f"fp64 banded: S = {op.roofline['S']}, expected {DD_BAND_S}")
     arrs = tuple(x[0] for x in eng.packed)
-    rB = bs[0]
+    rB = eng.receive_buffer(bs)[0]
     got = time_kernel(op, arrs, rB, "fp64 banded", "dd", csr_work(a), plain_inner=3,
                       tol=TOL_DD)
     # the fp64 FMA ragged kernel on the same arrays: the pack has no spill
@@ -964,7 +973,7 @@ def window_phase(device) -> None:
             arrays, op = _pack_window(shards, max_m + 300, dtype, prec, device)
             check(op.variant == "window", f"window phase {label}: variant {op.variant}")
             G = arrays[0].shape[1]
-            for n in (16, 100, 256):
+            for n in (16, 37, 100, 256):
                 rB = torch.from_numpy(padded_b(a, op.min_b_rows, n, dtype)).to(device)
                 worst = 0.0
                 for i, sh in enumerate(shards):
@@ -1006,7 +1015,7 @@ def halo_phase(device) -> None:
         shards = [a.row_slice(int(d[i]), int(d[i + 1])) for i in range(4)]
         arrays, op = build_halo_plan(shards, aligned, device=device, dtype=dtype,
                                      precision=prec)
-        for n in (16, 100, 256):
+        for n in (16, 37, 100, 256):
             bs = stacked_b(padded_b(a, a.ncol, n, dtype), aligned, op.min_b_rows)
             args = op.kernel_args(arrays, torch.from_numpy(bs).to(device))
             _, rel, _ = compare("spmm_halo", lambda: launch(op, args),
@@ -1207,6 +1216,19 @@ def para2d_phase(device) -> None:
     torch.cuda.empty_cache()
 
 
+def tf32x3_layouts(build) -> None:
+    """Print the ring of each 3xTF32 entry (#4 and #12 at highest) once:
+    stages, dynamic shared memory, the block tile, and for its 16-byte and
+    4-byte B copy kernels registers, spill bytes and resident blocks per
+    SM, which must be 0 and at least 2."""
+    for name in ("crp_window_f32", "crp_halo_f32"):
+        lay = build.tf32x3_layout(name)
+        say(f"[tf32x3] {name}: {json.dumps(lay)}")
+        for copy in ("b16", "b4"):
+            check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 2,
+                  f"{name} ({copy}): {lay}: spills, or fewer than 2 blocks an SM")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU",
@@ -1228,6 +1250,7 @@ def main() -> int:
     _build.libraries()
     say(f"build: {', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
+    tf32x3_layouts(_build)
 
     records = []
     for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,

@@ -321,14 +321,21 @@ class RowParaSpmm(torch.nn.Module):
         """Each shard's local op on its receive buffer: (p, rows, n)."""
         return run_shards(self._local_op, self.packed, rB)
 
+    def receive_buffer(self, b_shards: torch.Tensor) -> torch.Tensor:
+        """The B rows each shard's packed kernel reads, (p, rows, n): the
+        shards themselves where the exchange is the identity or the fused
+        kernel reads the owners' rows in place, else the exchange's
+        compacted receive buffers."""
+        if self.is_halo or self._identity_exchange:
+            return b_shards
+        return self._exchange(b_shards)
+
     def forward(self, b_shards: torch.Tensor) -> torch.Tensor:
         """Exchange + local SpMM on pre-sharded B; returns (p, rows, n)
         shards (rows past each shard's own are trimmed by ``unshard_c``)."""
         if self.is_halo:
             return self._local_op(self.packed, b_shards)
-        if self._identity_exchange:
-            return self._spmm(b_shards)
-        return self._spmm(self._exchange(b_shards))
+        return self._spmm(self.receive_buffer(b_shards))
 
     def exec_device(self, b_shards: torch.Tensor) -> torch.Tensor:
         return self(b_shards)

@@ -131,6 +131,20 @@ def entry(name: str):
     return getattr(libraries()[_ENTRIES[name][0]], name)
 
 
+def tf32x3_layout(name: str) -> dict:
+    """The ring of the 3xTF32 entry ``name`` (``crp_window_f32`` or
+    ``crp_halo_f32``) as its library's ``crp_tf32x3_layout`` reports it on
+    the current device: stages, dynamic shared memory, block tile and, for
+    its kernels with 16-byte (``b16.*``) and 4-byte (``b4.*``) B copies,
+    registers, local (spill) bytes and resident blocks per SM."""
+    fn = libraries()[_ENTRIES[name][0]].crp_tf32x3_layout
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out = ctypes.create_string_buffer(512)
+    check(fn(out, len(out)), name)
+    return {k: int(v) for k, v in (kv.split("=") for kv in out.value.decode().split())}
+
+
 def check(rc: int, name: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:

@@ -25,11 +25,15 @@
 //   crp_halo_x3    <- "x3": A and B split to bf16 hi/lo in RNE on the load
 //                     path, acc += al*bh + ah*bl + ah*bh in fp32
 //   crp_halo_bf16  <- DEFAULT: A and B rounded to bf16 (RNE), one product
-//   crp_halo_f32   <- HIGHEST: fp32 FMA, never TF32
+//   crp_halo_f32   <- HIGHEST: 3xTF32 on the TF32 tensor cores
+//                     (panel_tf32x3_kernel, #4's crp_window_f32 body): a
+//                     4-stage cp.async ring, dead chunks zero-filled by
+//                     the copy, three TF32 products per k step
 //   crp_halo_f64   <- fp64 panels: fp64 FMA
 // The tile bodies are the windowed kernels' (panel_tiles.cuh, #4 of
 // window.cu) with the chunk lookup on the B load; the per-32-row IEEE sums
-// are theirs too.
+// are theirs too.  At the p = 4 headline (4 x 214 groups, W = 5632, n =
+// 256) the three TF32 passes are 1.89 TFLOP: 3.83 ms at 495 TF/s.
 
 #include "panel_tiles.cuh"
 
@@ -55,8 +59,14 @@ int crp_halo_f32(const void* chunk_src, const void* ws, const void* tiles,
                  const void* b, void* c, int64_t G, int64_t TM, int64_t W,
                  int64_t n, void* stream)
 {
-    return crp::launch_fma<float, 128, 128, 8, 8, 8, true>(
-        nullptr, ws, tiles, b, c, G, TM, W, n, stream, chunk_src);
+    return crp::launch_tf32x3<true>(nullptr, ws, tiles, b, c, G, TM, W, n, stream,
+                                    chunk_src);
+}
+
+// crp_halo_f32's ring and resources (crp::tf32x3_layout)
+int crp_tf32x3_layout(char* out, int len)
+{
+    return crp::tf32x3_layout<true>(out, len);
 }
 
 int crp_halo_f64(const void* chunk_src, const void* ws, const void* tiles,

@@ -228,7 +228,8 @@ def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows
     """Fused halo exchange + windowed SpMM over every shard
     (``csrc/halo.cu``): (p, G*TM, n) from the (p, G, TM, W) fp32 panels and
     the stacked fp32 B shards (p, max_k, n) at ``precision`` (``x3``,
-    ``default`` or ``highest``), or fp64 panels and B.  Replaces
+    ``default`` or ``highest``, the last 3xTF32 on the tensor cores), or
+    fp64 panels and B.  Replaces
     ``halo_spmm_local`` (``spmm_halo.py:349``, kernel ``_halo_kernel``)."""
     if _placement("spmm_halo", ws, panels, chunk_src, b_shards) == "cpu":
         return spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards,

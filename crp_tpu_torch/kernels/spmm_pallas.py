@@ -23,7 +23,9 @@ point:
 On every other uniform pack (several shards, or windows that are not
 monotone), fp32 or fp64 panels: :func:`spmm_window` (``csrc/window.cu``,
 the TPU's ``_window_kernel``), which splits (x3) or rounds (default) A and
-B to bf16 on its way into shared memory.
+B to bf16 on its way into shared memory, and at ``highest`` splits both
+to TF32 big/small (:func:`split_tf32`) as they are read for three TF32
+tensor-core products.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
@@ -257,6 +259,34 @@ def split_b_bf16(b):
     return split_bf16(b, with_lo=True)
 
 
+def round_tf32(x):
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits, the low 13 of the 32
+    cleared) to nearest, ties away from zero: ``cvt.rna.tf32.f32``, by
+    int32 bit operations.  Subnormals round on the same grid and keep
+    their sign; inf and NaN are left as they are."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"round_tf32: x must be fp32, not {x.dtype}")
+    bits = x.view(torch.int32)
+    finite = torch.isfinite(x)
+    # on the magnitude bits, + half a TF32 ulp then truncate = ties away;
+    # a carry into the exponent is the right result, up to inf
+    r = (torch.where(finite, bits, 0) + 0x1000) & -0x2000
+    return torch.where(finite, r, bits).view(torch.float32)
+
+
+def split_tf32(x):
+    """fp32 ``x`` -> fp32 ``(big, small)``: ``big = round_tf32(x)`` and
+    ``small = round_tf32(x - big)`` (the remainder is exact in fp32), so
+    ``|x - big - small| <= 2**-22 |x|`` for ``|x| >= 2**-100`` (below,
+    small's grid is the subnormal one).  The split the
+    3xTF32 kernels make of each operand as its fragment is read; plain
+    PyTorch, for the tests (the kernels' plain version is the fp32 product
+    itself).  inf and NaN give ``big = x`` and a NaN ``small``, as on the
+    card."""
+    big = round_tf32(x)
+    return big, round_tf32(x - big)
+
+
 # ----------------------------------------------------------------- wrappers
 
 
@@ -410,8 +440,9 @@ _WINDOW_ENTRIES = {"x3": "crp_window_x3", "default": "crp_window_bf16",
 def spmm_window(ws, tiles, b, precision: str, *, min_b_rows: int):
     """Non-super-grouped windowed SpMM (``csrc/window.cu``): (G*TM, n) from
     fp32 ``tiles`` and fp32 ``b`` at ``precision`` (``x3``, ``default`` or
-    ``highest``, the split or rounding done in the kernel), or fp64 tiles
-    and B.  Replaces ``spmm_window_pallas`` (``spmm_pallas.py:267``)."""
+    ``highest``, the split or rounding done in the kernel; ``highest`` is
+    3xTF32 on the tensor cores, held to the fp32 plain version), or fp64
+    tiles and B.  Replaces ``spmm_window_pallas`` (``spmm_pallas.py:267``)."""
     if _placement("spmm_window", ws, tiles, b) == "cpu":
         return spmm_window_plain(ws, tiles, b, precision)
     if tiles.dtype == torch.float64:

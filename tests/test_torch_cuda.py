@@ -647,3 +647,198 @@ def test_multi_shard_gather(cuda_device):
     assert spmm_ragged.spmm_gather.launches == before + 4
     assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), c_gpu) <= 1e-5
     assert rel_fro_err(cpu.exec(b).astype(np.float64), c_gpu) <= 1e-5
+
+
+# ----------------------------------- #4 and #12 at highest: the 3xTF32 body
+
+
+def _nan_framed(x, before, after=1000):
+    """``x`` as a contiguous view into a larger tensor whose other elements
+    are NaN, starting ``before`` elements in: a read outside ``x`` shows as
+    NaN in C, and an odd ``before`` takes B's first row off 16 bytes."""
+    flat = torch.full((before + x.numel() + after,), float("nan"), dtype=x.dtype,
+                      device=x.device)
+    flat[before: before + x.numel()] = x.reshape(-1)
+    return flat[before: before + x.numel()].view(x.shape)
+
+
+def _panels(rng, shape):
+    """Random fp32 panels with about 12 nonzeros a row, as the packs' rows
+    hold a few nonzeros each: sums as long as the matrices' (dense random
+    rows of 1024 would put fp32's own rounding of the plain version near
+    TOL_PLAIN)."""
+    keep = rng.random(shape) < 12 / shape[-1]
+    return (rng.standard_normal(shape) * keep).astype(np.float32)
+
+
+def _held_to_plain(k, p, launches_before, launches_now, zero_rows):
+    assert launches_now == launches_before + 1
+    assert k.shape == p.shape and k.dtype == p.dtype == torch.float32
+    assert bool(torch.isfinite(k).all())
+    assert float((k - p).abs().max()) / float(p.abs().max()) <= TOL_PLAIN[np.float32]
+    assert not torch.any(k[zero_rows])
+
+
+# name -> (G, TM, W, n, B offset in elements): odd n takes the 4-byte B
+# copies; one 32-row slice is shorter than the ring; 32 slices run the
+# ring round many times; an unaligned B takes the 4-byte copies at n % 4 == 0
+TF32X3_WINDOW = {
+    "odd n": (5, 256, 256, 37, 0),
+    "one slice": (3, 128, 32, 64, 0),
+    "past the ring": (4, 256, 1024, 100, 0),
+    "unaligned B": (3, 128, 160, 64, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TF32X3_WINDOW))
+def test_window_highest_tf32x3_matches_plain(cuda_device, case):
+    """#4 at highest on hand-built uniform packs (random panels, the last
+    group a zero pad group, B framed by NaN): within TOL_PLAIN of the
+    fp32 plain version, pad rows zero, one launch."""
+    G, TM, W, n, off = TF32X3_WINDOW[case]
+    rng = np.random.default_rng(W + n)
+    ws = rng.integers(0, 300, G).astype(np.int32)
+    tiles = _panels(rng, (G, TM, W))
+    tiles[-1] = 0
+    rows = int(ws.max()) + W
+    dev = cuda_device
+    b = _nan_framed(torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32))
+                    .to(dev), off)
+    ws_t, tiles_t = torch.from_numpy(ws).to(dev), torch.from_numpy(tiles).to(dev)
+    before = spmm_pallas.spmm_window.launches
+    k = spmm_pallas.spmm_window(ws_t, tiles_t, b, "highest", min_b_rows=rows)
+    _held_to_plain(k, spmm_pallas.spmm_window_plain(ws_t, tiles_t, b, "highest"),
+                   before, spmm_pallas.spmm_window.launches, slice((G - 1) * TM, None))
+
+
+def _halo_hand_pack(rng, W, n):
+    """A 4-shard halo pack by hand: uneven 128-aligned ownership (256, 384,
+    128 and 384 rows of a 1152-row B, so the chunk table is no identity),
+    3 groups of 128 rows a shard at 128-aligned window starts, the last
+    groups' running past the matrix (dead chunks, -1) where W > 128, and
+    shard 3's first window wholly past it.  Shard 1's last group is a zero
+    pad group.  Returns the wrapper's arguments; B's pad rows are NaN
+    (never read)."""
+    p, G, TM = 4, 3, 128
+    displs = np.array([0, 256, 640, 768, 1152])
+    k_glb, max_k = int(displs[-1]), 384
+    ws = rng.integers(0, k_glb // 128, (p, G)) * 128
+    ws[:, -1] = k_glb - 128  # the last 128 rows, then dead chunks when W > 128
+    ws[3, 0] = k_glb
+    rows = np.arange(-(-(int(ws.max()) + W) // 128)) * 128
+    j = np.minimum(np.searchsorted(displs, rows, side="right") - 1, p - 1)
+    chunk_src = np.where(rows < k_glb, j * max_k + rows - displs[j], -1)
+    lo = ws.min(axis=1)
+    ws_rel = ws - lo[:, None]
+    buf_rows = -(-(int(ws_rel.max()) + W) // 128) * 128
+    push = []
+    for i in range(p):  # every live chunk of shard i's buffer, from its owner
+        for r in range(int(lo[i]), min(int(lo[i]) + buf_rows, k_glb), 128):
+            o = int(np.searchsorted(displs, r, side="right") - 1)
+            push.append((o, r - displs[o], i, r - lo[i]))
+    panels = _panels(rng, (p, G, TM, W))
+    panels[1, -1] = 0
+    b = rng.standard_normal((k_glb, n)).astype(np.float32)
+    bs = np.full((p, max_k, n), np.nan, np.float32)
+    for i in range(p):
+        bs[i, : displs[i + 1] - displs[i]] = b[displs[i]:displs[i + 1]]
+    assert (chunk_src == -1).any()
+    return ws, ws_rel, panels, np.array(push), chunk_src, bs, buf_rows, max_k
+
+
+# name -> (W, n, B offset in elements)
+TF32X3_HALO = {
+    "odd n": (256, 37, 0),
+    "one slice": (32, 64, 0),
+    "past the ring": (640, 100, 0),
+    "unaligned B": (384, 64, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TF32X3_HALO))
+def test_halo_highest_tf32x3_matches_plain(cuda_device, case):
+    """#12 at highest on hand-built packs: slices crossing 128-row ownership
+    chunks (uneven owners), dead chunks read as zeros (B framed by NaN),
+    odd n, one slice, many trips round the ring: within TOL_PLAIN of the
+    plain version (pushes, then the fp32 windowed product), pad rows zero,
+    one launch; a window wholly past the matrix gives zeros."""
+    W, n, off = TF32X3_HALO[case]
+    ws, ws_rel, panels, push, chunk_src, bs, buf_rows, max_k = _halo_hand_pack(
+        np.random.default_rng(W + n), W, n)
+    dev = cuda_device
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+    args = (put(ws), put(ws_rel), torch.from_numpy(panels).to(dev), put(push),
+            put(chunk_src), _nan_framed(torch.from_numpy(bs).to(dev), off),
+            "highest", buf_rows)
+    before = spmm_halo.spmm_halo.launches
+    k = spmm_halo.spmm_halo(*args, min_b_rows=max_k)
+    p = spmm_halo.spmm_halo_plain(*args)
+    _held_to_plain(k[1], p[1], before, spmm_halo.spmm_halo.launches,
+                   slice(2 * 128, None))
+    for i in (0, 2, 3):
+        assert float((k[i] - p[i]).abs().max()) <= TOL_PLAIN[np.float32] * float(
+            p.abs().max())
+    assert not torch.any(k[3, :128]) and not torch.any(p[3, :128])
+
+
+def test_highest_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch):
+    """On CUDA tensors #4 and #12 at highest launch their kernel and never
+    their plain versions; a launch the kernel refuses (panels off 16 bytes)
+    raises, with nothing to fall back to."""
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(spmm_pallas, "spmm_window_plain", no_plain)
+    monkeypatch.setattr(spmm_halo, "spmm_halo_plain", no_plain)
+    rng = np.random.default_rng(5)
+    dev = cuda_device
+    ws = torch.zeros(2, dtype=torch.int32, device=dev)
+    tiles = torch.from_numpy(_panels(rng, (2, 128, 64))).to(dev)
+    b = torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32)).to(dev)
+    before = spmm_pallas.spmm_window.launches
+    spmm_pallas.spmm_window(ws, tiles, b, "highest", min_b_rows=64)
+    assert spmm_pallas.spmm_window.launches == before + 1
+    off = torch.empty(tiles.numel() + 1, device=dev)[1:].view(tiles.shape)
+    off.copy_(tiles)
+    with pytest.raises(RuntimeError, match="crp_window_f32"):
+        spmm_pallas.spmm_window(ws, off, b, "highest", min_b_rows=64)
+    assert spmm_pallas.spmm_window.launches == before + 1
+    hws, ws_rel, panels, push, chunk_src, bs, buf_rows, max_k = _halo_hand_pack(
+        rng, 128, 16)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+    before = spmm_halo.spmm_halo.launches
+    spmm_halo.spmm_halo(put(hws), put(ws_rel), torch.from_numpy(panels).to(dev),
+                        put(push), put(chunk_src), torch.from_numpy(bs).to(dev),
+                        "highest", buf_rows, min_b_rows=max_k)
+    assert spmm_halo.spmm_halo.launches == before + 1
+
+
+def test_highest_tf32x3_keeps_nan_and_inf(cuda_device):
+    """#4 at highest with NaN (CUDA's canonical 0x7fffffff, a quiet
+    0x7fc00000, a negative payload) and +-inf in the panels and in B: C is
+    NaN wherever the plain version is NaN, not finite wherever it is inf
+    (an inf's remainder in the split is NaN, as in the x3 kernels'), and
+    within TOL_PLAIN of it elsewhere."""
+    rng = np.random.default_rng(8)
+    dev = cuda_device
+    tiles = torch.from_numpy(_panels(rng, (2, 128, 64))).to(dev)
+    b = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)).to(dev)
+    ti, bi = tiles.view(torch.int32), b.view(torch.int32)
+    ti[0, 3, 5], ti[0, 7, 9], ti[1, 11, 2] = 0x7FFFFFFF, 0x7FC00000, -1
+    tiles[1, 20, 30], tiles[1, 21, 31] = float("inf"), -float("inf")
+    bi[40, 7], bi[41, 8] = 0x7FFFFFFF, -1
+    b[42, 9] = float("inf")
+    ws = torch.zeros(2, dtype=torch.int32, device=dev)
+    k = spmm_pallas.spmm_window(ws, tiles, b, "highest", min_b_rows=64)
+    p = spmm_pallas.spmm_window_plain(ws, tiles, b, "highest")
+    assert bool(torch.isnan(k[torch.isnan(p)]).all())
+    assert not bool(torch.isfinite(k[torch.isinf(p)]).any())
+    fin = torch.isfinite(p)
+    assert bool(torch.isfinite(k[fin]).all())
+    assert float((k - p)[fin].abs().max()) <= TOL_PLAIN[np.float32] * float(p[fin].abs().max())

@@ -307,3 +307,22 @@ def test_default_device_is_the_card():
     displs = csr_row_partition(a.rowptr, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RowParaSpmm(a, displs, displs, 8)
+
+
+@pytest.mark.parametrize("extra", [0, 300])
+def test_receive_buffer_is_what_the_kernel_reads(extra):
+    """``receive_buffer``: B's shards themselves under the identity
+    exchange, else the referenced rows compacted in ``rowmap`` order; the
+    local ops on it give the engine's C."""
+    a = _with_unreferenced_columns(extra)
+    b = fill_b(0, a.ncol, 0, 24, dtype=np.float32)
+    displs = csr_row_partition(a.rowptr, 1)
+    t = RowParaSpmm(a, displs, displs, 24, device="cpu",
+                    config=SpmmConfig(kernel="pallas", mxu_precision="x3"),
+                    dtype=np.float32)
+    bs = t.shard_b(b)
+    rb = t.receive_buffer(bs)
+    assert t._identity_exchange == (extra == 0) and (rb is bs) == (extra == 0)
+    rows = np.asarray(t.xplan.rowmap[0])
+    np.testing.assert_array_equal(rb[0, : rows.size].numpy(), b[rows])
+    np.testing.assert_array_equal(t._spmm(rb).numpy(), t(bs).numpy())

@@ -1,0 +1,234 @@
+"""The arithmetic of the 3xTF32 tile body (kernels #4 ``crp_window_f32``
+and #12 ``crp_halo_f32`` at ``highest``), argued on the CPU.
+
+``split_tf32`` pinned against an exact float64 rounding: low 13 bits
+zero, ties away from zero, subnormals, signed zeros, inf and NaN, and the
+split's error bound.  Then the kernels' three TF32 products are emulated
+on the packs that ``test_torch_window.py`` and ``test_torch_halo.py``
+build and held against JAX's ``HIGHEST`` kernels in interpret mode
+(``spmm_window_pallas``, and ``halo_spmm_local`` through the JAX engine
+on the CPU mesh) under the card's tolerances: relative Frobenius error
+and max error over max |p| both within 1e-6.  The CUDA kernels are held
+against their plain versions in ``test_torch_cuda.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+from crp_tpu.kernels.spmm_pallas import WindowDense, spmm_window_pallas
+
+from crp_tpu_torch.kernels import dispatch as td
+from crp_tpu_torch.kernels import spmm_halo as th
+from crp_tpu_torch.kernels.spmm_pallas import round_tf32, spmm_window_plain, split_tf32
+from crp_tpu_torch.plan.partition1d import csr_row_partition
+from crp_tpu_torch.sparse.synth import fill_b
+from crp_tpu_torch.utils.norms import rel_fro_err
+from tests.test_torch_halo import _banded, _jax_rowpara
+from tests.test_torch_halo import _shards as _halo_shards
+from tests.test_torch_window import _anti_banded
+from tests.test_torch_window import _shards as _window_shards
+
+CPU = torch.device("cpu")
+# the card's bounds between #4 / #12 at highest and the fp32 product
+# (chip_smoke.py TOL_PLAIN and TOL_PLAIN_FRO)
+TOL_MAX = 1e-6
+TOL_FRO = 1e-6
+BK = 32  # rows of one k slice: a fresh accumulator each
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+def _inputs(kind):
+    """Seeded fp32 values of one family."""
+    rng = np.random.default_rng(hash(kind) % 2**32)
+    if kind == "normals":
+        x = rng.standard_normal(50_000) * np.exp2(rng.integers(-120, 120, 50_000))
+    elif kind == "ties":  # dropped 13 bits exactly half a TF32 ulp, kept bits odd and even
+        # the 18 kept magnitude bits (exponent and 10 mantissa bits), normal
+        hi = rng.integers(0x00400, 0x3FBFF, 50_000, dtype=np.uint32)
+        sign = rng.integers(0, 2, hi.size, dtype=np.uint32) << 31
+        x = ((hi << 13) | 0x1000 | sign).view(np.float32)
+    elif kind == "subnormals":
+        sign = rng.integers(0, 2, 50_000, dtype=np.uint32) << 31
+        x = (rng.integers(1, 0x007FFFFF, 50_000, dtype=np.uint32) | sign).view(np.float32)
+    elif kind == "near one":  # every pattern of the dropped bits around 1
+        x = (np.uint32(0x3F800000) + np.arange(1 << 14, dtype=np.uint32)).view(np.float32)
+    else:
+        raise ValueError(kind)
+    return np.asarray(x, np.float32)
+
+
+def _rna_tf32_exact(x):
+    """Round fp32 ``x`` to TF32, ties away from zero, in float64 (exact):
+    the grid is 2^(e - 10) for |x| in [2^e, 2^(e+1)), 2^-136 below 2^-126."""
+    x = np.asarray(x, np.float64)
+    mag = np.abs(x)
+    e = np.frexp(mag)[1] - 1  # |x| in [2^e, 2^(e+1))
+    ulp = np.exp2(np.maximum(e, -126) - 10)
+    out = np.copysign(np.floor(mag / ulp + 0.5) * ulp, x)
+    with np.errstate(over="ignore"):
+        return out.astype(np.float32)
+
+
+FAMILIES = ["normals", "ties", "subnormals", "near one"]
+
+
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_round_tf32_is_exact_rna(kind):
+    """Bit for bit the exact round-to-nearest-ties-away, sign kept, low 13
+    bits zero in both halves of the split."""
+    x = _inputs(kind)
+    big, small = split_tf32(torch.from_numpy(x))
+    big, small = big.numpy(), small.numpy()
+    np.testing.assert_array_equal(_bits(big), _bits(_rna_tf32_exact(x)))
+    np.testing.assert_array_equal(_bits(small), _bits(_rna_tf32_exact(x - big)))
+    assert not np.any(_bits(big) & 0x1FFF) and not np.any(_bits(small) & 0x1FFF)
+    nz = big != 0
+    assert np.array_equal(np.signbit(big[nz]), np.signbit(x[nz]))
+
+
+def test_round_tf32_ties_go_away_from_zero():
+    x = _inputs("ties")
+    big = round_tf32(torch.from_numpy(x)).numpy()
+    assert np.all(np.abs(big.astype(np.float64)) > np.abs(x.astype(np.float64)))
+    assert np.array_equal(np.signbit(big), np.signbit(x))
+    # 1 + 2^-11 is halfway between 1 and 1 + 2^-10: away from zero
+    one = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 3 * 2**-11], dtype=torch.float32)
+    assert round_tf32(one).tolist() == [1 + 2**-10, -(1 + 2**-10), 1 + 2 * 2**-10]
+
+
+@pytest.mark.parametrize("kind", ["normals", "ties", "near one"])
+def test_split_tf32_error_bound(kind):
+    """|x - big - small| <= 2^-22 |x| (float64, exact) where small's
+    rounding is not cut off by the subnormal grid: |x| >= 2^-100."""
+    x = _inputs(kind)
+    x = x[np.abs(x) >= 2.0**-100]
+    big, small = (t.numpy().astype(np.float64) for t in split_tf32(torch.from_numpy(x)))
+    x64 = x.astype(np.float64)
+    assert np.all(np.abs(x64 - big - small) <= np.exp2(-22) * np.abs(x64))
+    # the remainder is exact in fp32: x - big loses nothing
+    np.testing.assert_array_equal(
+        (x - big.astype(np.float32)).astype(np.float64), x64 - big)
+
+
+def test_split_tf32_zeros_subnormals_and_specials():
+    """Signed zeros keep their sign in big, small is +0; a subnormal rounds
+    on the 2^-136 grid; inf and NaN are left alone in big (small NaN, as
+    inf - inf on the card)."""
+    x = torch.tensor([0.0, -0.0, 2**-140, -(2**-137), 3 * 2**-137, float("inf"),
+                      -float("inf"), float("nan")], dtype=torch.float32)
+    big, small = split_tf32(x)
+    assert _bits(big.numpy())[:2].tolist() == [0x00000000, 0x80000000]
+    assert _bits(small.numpy())[:2].tolist() == [0, 0]
+    assert big[2:5].tolist() == [0.0, -(2**-136), 2 * 2**-136]  # ties away
+    assert big[5].item() == float("inf") and big[6].item() == -float("inf")
+    assert torch.isnan(big[7]) and torch.isnan(small[5:]).all()
+    with pytest.raises(ValueError):
+        round_tf32(x.double())
+
+
+# ------------------------------------------------------ the three products
+
+
+def tf32x3_windows(ws, tiles, b):
+    """C of the 3xTF32 body on a uniform pack, emulated: A and the B
+    windows split by ``split_tf32``; per 8-deep k step the three products
+    (small terms first), each an exact sum rounded once to fp32 into a
+    fresh accumulator per 32-row slice; the slices added in fp32."""
+    G, TM, W = tiles.shape
+    win = b[ws.long()[:, None] + torch.arange(W)]
+    ab, al = (t.double() for t in split_tf32(tiles))
+    bb, bl = (t.double() for t in split_tf32(win))
+    acc = torch.zeros((G, TM, b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, W, BK):
+        part = torch.zeros_like(acc)
+        for k in range(k0, k0 + BK, 8):
+            s = slice(k, k + 8)
+            for x, y in ((al, bb), (ab, bl), (ab, bb)):
+                part = (part.double() + torch.bmm(x[:, :, s], y[:, s])).float()
+        acc += part
+    return acc.reshape(G * TM, -1)
+
+
+def one_pass_tf32(ws, tiles, b):
+    """big x big alone (TF32 as the tensor cores take raw fp32): out of
+    ``highest``'s class, so the tests below can tell."""
+    G, TM, W = tiles.shape
+    win = b[ws.long()[:, None] + torch.arange(W)]
+    return torch.bmm(round_tf32(tiles).double(), round_tf32(win).double()).float().reshape(
+        G * TM, -1)
+
+
+def _errors(want, got):
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got, np.float64)
+    return (float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300)),
+            rel_fro_err(want, got))
+
+
+@pytest.mark.parametrize("n", [16, 37, 100])
+@pytest.mark.parametrize("case", ["3 shards", "non-monotone"])
+def test_emulated_window_matches_jax_highest(case, n):
+    """On #4's packs (3 shards, one empty, pad groups; one shard with
+    falling windows), the emulated 3xTF32 product against
+    ``spmm_window_pallas(interpret=True)`` at HIGHEST and against the
+    port's plain version: within 1e-6 both ways; one TF32 pass is not."""
+    if case == "3 shards":
+        _, shards, max_m = _window_shards(3, np.float32)
+    else:
+        a = _anti_banded()
+        shards, max_m = [(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow
+    arrays, op = td._pack_window(shards, max_m + 300, np.float32, "highest", CPU)
+    ws, tiles = arrays
+    b = np.random.default_rng(n).standard_normal((op.min_b_rows, n)).astype(np.float32)
+    bt = torch.from_numpy(b)
+    G, TM, W = tiles.shape[1:]
+    worst_one_pass = 0.0
+    for i in range(len(shards)):
+        packed = WindowDense(nrow=G * TM, ncol=b.shape[0], TM=TM, G=G, W=W,
+                             ws=ws[i].numpy(), tiles=tiles[i].numpy())
+        want = np.asarray(spmm_window_pallas(packed, b, precision=None, interpret=True))
+        got = tf32x3_windows(ws[i], tiles[i], bt)
+        nrow = len(shards[i][0]) - 1 if len(shards[i][1]) else 0
+        assert not torch.any(got[nrow:])  # pad groups and the empty shard
+        if not np.any(want):
+            continue
+        for ref in (want, spmm_window_plain(ws[i], tiles[i], bt, "highest").numpy()):
+            max_rel, fro = _errors(ref, got.numpy())
+            assert max_rel <= TOL_MAX and fro <= TOL_FRO, (i, max_rel, fro)
+        worst_one_pass = max(worst_one_pass,
+                             _errors(want, one_pass_tf32(ws[i], tiles[i], bt).numpy())[1])
+    assert worst_one_pass > 10 * TOL_FRO
+
+
+@pytest.mark.parametrize("n", [13, 40])
+@pytest.mark.parametrize("p", [2, 4])
+def test_emulated_halo_matches_jax_highest(devices8, p, n):
+    """On #12's plan (p shards, panels and pushes as JAX's), the emulated
+    3xTF32 product of every shard's windows against the JAX engine with
+    ``kernel="pallas_halo"`` at HIGHEST, whose ``halo_spmm_local`` runs in
+    interpret mode on the CPU mesh: within 1e-6 both ways."""
+    a = _banded(np.float32, seed=80 + p)
+    b = fill_b(0, a.ncol, 0, n, dtype=np.float32)
+    displs, j = _jax_rowpara(a, p, n, np.float32, "highest", devices8)
+    want = j.exec(b)
+    shards, aligned = _halo_shards(a, p)
+    arrays, op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32,
+                                    precision="highest")
+    _, ws_rel, panels, push, _ = arrays
+    bs = np.zeros((p, op.min_b_rows, n), np.float32)
+    for i in range(p):
+        bs[i, : aligned[i + 1] - aligned[i]] = b[aligned[i]:aligned[i + 1]]
+    buf = th.halo_buffers(push, torch.from_numpy(bs), op.buf_rows)
+    d = csr_row_partition(a.rowptr, p)
+    np.testing.assert_array_equal(d, displs)
+    outs = [tf32x3_windows(ws_rel[i], panels[i], buf[i]).numpy() for i in range(p)]
+    for i in range(p):
+        assert not np.any(outs[i][d[i + 1] - d[i]:])
+    got = np.concatenate([outs[i][: d[i + 1] - d[i]] for i in range(p)])
+    assert got.shape == want.shape
+    max_rel, fro = _errors(want, got)
+    assert max_rel <= TOL_MAX and fro <= TOL_FRO, (max_rel, fro)
+    assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), got) <= 1e-6
