@@ -6,10 +6,11 @@ Run from the repository root:
 
 It builds the port's CUDA kernels from ``crp_tpu_torch/kernels/csrc`` into
 ``build/crp_tpu_torch/`` (one ``nvcc`` per source, all started together),
-prints the shared-memory ring of the 3xTF32 entries (#4 and #12 at
+prints the shared-memory ring of the 3xTF32 entries (#3, #4 and #12 at
 highest: stages, dynamic shared memory, registers, spills and blocks per
-SM, which must be 0 and at least 2) and then, failing on the first check
-that does not hold:
+SM, which must be 0 and at least 2) and of the x3 wgmma body (#1 and #5:
+the same, which must be 0 and at least 1) and then, failing on the first
+check that does not hold:
 
 1. kernel phase — each windowed kernel against its plain PyTorch version on
    small banded packs with pad groups, n in {16, 48, 100, 256}; then #5
@@ -236,7 +237,7 @@ def bound(n_bytes: float, ops: float, peak: str) -> tuple:
 
 def op_point(op, dtype) -> tuple:
     """(passes, peak) of an op's products: x3 three bf16 products, default
-    one, highest three TF32 products (#4 and #12) or fp32 FMA (#3, #6),
+    one, highest three TF32 products (#3, #4 and #12) or fp32 FMA (#6),
     fp64 FMA or, for dd, the FP64 tensor cores."""
     scheme = getattr(op, "scheme", None)
     prec = getattr(op, "precision", getattr(op, "mxu_precision", None))
@@ -244,10 +245,10 @@ def op_point(op, dtype) -> tuple:
         return 1, "fp32"
     if dtype == torch.float64:
         return 1, ("fp64_tc" if scheme == "dd" else "fp64")
-    if op.variant in ("window", "halo") and prec == "highest":
-        return 3, "tf32"
     if scheme in ("x3", "bf16", "full"):
         prec = {"x3": "x3", "bf16": "default", "full": "highest"}[scheme]
+    if op.variant in ("uniform", "window", "halo") and prec == "highest":
+        return 3, "tf32"
     if prec == "x3":
         return 3, "bf16"
     if prec == "default":
@@ -1111,7 +1112,7 @@ def headline_p4(device) -> list:
                                         ("pallas", "window"), rb_p2p, kernel="pallas")
         window["launches"] += launches["spmm_window"]
         if not rb_p2p:  # #4 at its main-path shape: shard 0
-            rB = eng._exchange(bs)
+            rB = eng.receive_buffer(bs)
             arrs = tuple(x[0] for x in eng.packed)
             s0 = a.row_slice(int(eng.A_row_displs[0]), int(eng.A_row_displs[1]))
             got = time_kernel(op, arrs, rB[0], "headline p=4 unfused", prec,
@@ -1217,16 +1218,29 @@ def para2d_phase(device) -> None:
 
 
 def tf32x3_layouts(build) -> None:
-    """Print the ring of each 3xTF32 entry (#4 and #12 at highest) once:
-    stages, dynamic shared memory, the block tile, and for its 16-byte and
-    4-byte B copy kernels registers, spill bytes and resident blocks per
-    SM, which must be 0 and at least 2."""
-    for name in ("crp_window_f32", "crp_halo_f32"):
+    """Print the ring of each 3xTF32 entry (#3, #4 and #12 at highest)
+    once: stages, dynamic shared memory, the block tile, and for its
+    16-byte and 4-byte B copy kernels registers, spill bytes and resident
+    blocks per SM, which must be 0 and at least 2."""
+    for name in ("crp_window_sg_f32", "crp_window_f32", "crp_halo_f32"):
         lay = build.tf32x3_layout(name)
         say(f"[tf32x3] {name}: {json.dumps(lay)}")
         for copy in ("b16", "b4"):
             check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 2,
                   f"{name} ({copy}): {lay}: spills, or fewer than 2 blocks an SM")
+
+
+def x3_layout(build) -> None:
+    """Print the ring of the x3 wgmma body (#1, and #5 as its mode) once:
+    stages, dynamic shared memory, threads, the block tile, and for each of
+    its kernels (#1 with 16-byte or plain B copies, #5 likewise on the bf16
+    planes) registers, spill bytes and resident blocks per SM, which must be
+    0 and at least 1."""
+    lay = build.x3_layout()
+    say(f"[x3] crp_window_sg_presplit / _ab: {json.dumps(lay)}")
+    for copy in ("b16", "b4", "pair16", "pair2"):
+        check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 1,
+              f"x3 wgmma ({copy}): {lay}: spills, or no block fits an SM")
 
 
 def main() -> int:
@@ -1251,6 +1265,7 @@ def main() -> int:
     say(f"build: {', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     tf32x3_layouts(_build)
+    x3_layout(_build)
 
     records = []
     for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,

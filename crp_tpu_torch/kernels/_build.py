@@ -131,18 +131,35 @@ def entry(name: str):
     return getattr(libraries()[_ENTRIES[name][0]], name)
 
 
-def tf32x3_layout(name: str) -> dict:
-    """The ring of the 3xTF32 entry ``name`` (``crp_window_f32`` or
-    ``crp_halo_f32``) as its library's ``crp_tf32x3_layout`` reports it on
-    the current device: stages, dynamic shared memory, block tile and, for
-    its kernels with 16-byte (``b16.*``) and 4-byte (``b4.*``) B copies,
-    registers, local (spill) bytes and resident blocks per SM."""
-    fn = libraries()[_ENTRIES[name][0]].crp_tf32x3_layout
+def _report(name: str, symbol: str) -> dict:
+    """The ``key=value`` report that the library of entry ``name`` writes
+    through its ``symbol`` on the current device, as a dict of ints."""
+    fn = getattr(libraries()[_ENTRIES[name][0]], symbol)
     fn.argtypes = [ctypes.c_char_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     out = ctypes.create_string_buffer(512)
     check(fn(out, len(out)), name)
     return {k: int(v) for k, v in (kv.split("=") for kv in out.value.decode().split())}
+
+
+def tf32x3_layout(name: str) -> dict:
+    """The ring of the 3xTF32 entry ``name`` (``crp_window_sg_f32``,
+    ``crp_window_f32`` or ``crp_halo_f32``) as its library's
+    ``crp_tf32x3_layout`` reports it: stages, dynamic shared memory, block
+    tile and, for its kernels with 16-byte (``b16.*``) and 4-byte
+    (``b4.*``) B copies, registers, local (spill) bytes and resident blocks
+    per SM."""
+    return _report(name, "crp_tf32x3_layout")
+
+
+def x3_layout() -> dict:
+    """The ring of the x3 wgmma body (#1 ``crp_window_sg_presplit`` and #5
+    ``crp_window_sg_presplit_ab``) as ``crp_x3_layout`` reports it: stages,
+    dynamic shared memory, threads, block tile and, for #1's kernels with
+    16-byte and plain B copies (``b16.*``, ``b4.*``) and #5's
+    (``pair16.*``, ``pair2.*``), registers, local (spill) bytes and
+    resident blocks per SM."""
+    return _report("crp_window_sg_presplit", "crp_x3_layout")
 
 
 def check(rc: int, name: str) -> None:

@@ -32,8 +32,8 @@
 // shared-memory stage, the next slice staged through registers),
 // panel_fma_kernel (fp32 / fp64 FMA, the same staging) and
 // panel_tf32x3_kernel (fp32 at HIGHEST on the TF32 tensor cores, fed by a
-// cp.async shared-memory ring; see its section).  wgmma and TMA are later
-// work.
+// cp.async shared-memory ring; see its section).  The super-grouped x3
+// kernels (#1, #5) run on wgmma fed by TMA instead (x3_wgmma.cuh).
 
 #pragma once
 
@@ -119,11 +119,8 @@ __device__ __forceinline__ void split8(const float4 (&v)[2], uint4& hi, uint4& l
 // A_F32: A arrives as fp32 panels and is split (X3) or rounded (!X3) to
 // bf16 here, on its way to shared memory; else A arrives as bf16 hi (and
 // lo for X3).  B arrives as fp32 and is split or rounded here when X3 or
-// A_F32, else as bf16 (cast by the caller).  B_PAIR (X3 on bf16 A only):
-// B arrives pre-split, bf16 hi in b_raw and bf16 lo in b_lo, and goes to
-// shared memory as it is (the caller's split is the RNE split above, so
-// the tiles, and C, are the in-kernel split's bit for bit).
-template <bool X3, bool A_F32 = false, bool CHUNKED = false, bool B_PAIR = false>
+// A_F32, else as bf16 (cast by the caller).
+template <bool X3, bool A_F32 = false, bool CHUNKED = false>
 __global__ void __launch_bounds__(MMA_THREADS)
 panel_mma_kernel(const int32_t* __restrict__ group_ptr,
                  const int32_t* __restrict__ starts,
@@ -132,11 +129,9 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
                  const void* __restrict__ b_raw,
                  float* __restrict__ c,
                  int64_t TM, int64_t W, int64_t n, int64_t n_tiles,
-                 const int32_t* __restrict__ chunk_src,
-                 const bf16* __restrict__ b_lo)
+                 const int32_t* __restrict__ chunk_src)
 {
-    static_assert(!B_PAIR || (X3 && !A_F32), "B_PAIR is the x3 point on bf16 A");
-    constexpr bool B_F32 = (X3 || A_F32) && !B_PAIR;
+    constexpr bool B_F32 = X3 || A_F32;
     __shared__ __align__(128) bf16 As_h[MMA_BM][A_LD];
     __shared__ __align__(128) bf16 As_l[X3 ? MMA_BM : 1][A_LD];
     __shared__ __align__(128) bf16 Bs_h[MMA_BK][B_LD];
@@ -167,7 +162,6 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
     float4 ra_f[A_F32 ? A_VECS : 1][2];  // 8 fp32 A values per vector
     float rb_f[B_ELEMS];
     bf16 rb_h[B_ELEMS];
-    bf16 rb_l[B_PAIR ? B_ELEMS : 1];
 
     // slice t of the group's walk: chunk s_begin + t / nk, k0 = (t % nk) BK
     auto load_tile = [&](int64_t t) {
@@ -199,8 +193,6 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
                 rb_f[i] = b_ok ? b_f[off] : 0.0f;
             } else {
                 rb_h[i] = b_ok ? b_h[off] : __float2bfloat16_rn(0.0f);
-                if constexpr (B_PAIR)
-                    rb_l[i] = b_ok ? b_lo[off] : __float2bfloat16_rn(0.0f);
             }
         }
     };
@@ -217,10 +209,7 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
 #pragma unroll
         for (int i = 0; i < B_ELEMS; ++i) {
             const int r = (tid / MMA_BN) + (MMA_THREADS / MMA_BN) * i;
-            if constexpr (B_PAIR) {
-                Bs_h[r][cc] = rb_h[i];
-                Bs_l[r][cc] = rb_l[i];
-            } else if constexpr (X3) {
+            if constexpr (X3) {
                 // RNE split, the same as the pack's A split and the plain
                 // version's .to(torch.bfloat16): never truncate
                 const bf16 hi = __float2bfloat16_rn(rb_f[i]);
@@ -330,11 +319,11 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
     }
 }
 
-template <bool X3, bool A_F32 = false, bool CHUNKED = false, bool B_PAIR = false>
+template <bool X3, bool A_F32 = false, bool CHUNKED = false>
 int launch_mma(const void* group_ptr, const void* starts, const void* a,
                const void* al, const void* b, void* c, int64_t G, int64_t TM,
                int64_t W, int64_t n, void* stream,
-               const void* chunk_src = nullptr, const void* b_lo = nullptr)
+               const void* chunk_src = nullptr)
 {
     if (G < 0 || TM <= 0 || TM % MMA_BM || W <= 0 || W % MMA_BK || n < 0)
         return (int)cudaErrorInvalidValue;
@@ -342,13 +331,12 @@ int launch_mma(const void* group_ptr, const void* starts, const void* a,
     const int64_t blocks = G * (TM / MMA_BM) * n_tiles;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     if (blocks > 0)
-        panel_mma_kernel<X3, A_F32, CHUNKED, B_PAIR>
+        panel_mma_kernel<X3, A_F32, CHUNKED>
             <<<(unsigned)blocks, MMA_THREADS, 0, (cudaStream_t)stream>>>(
                 static_cast<const int32_t*>(group_ptr),
                 static_cast<const int32_t*>(starts), a,
                 static_cast<const bf16*>(al), b, static_cast<float*>(c),
-                TM, W, n, n_tiles, static_cast<const int32_t*>(chunk_src),
-                static_cast<const bf16*>(b_lo));
+                TM, W, n, n_tiles, static_cast<const int32_t*>(chunk_src));
     return (int)cudaGetLastError();
 }
 
@@ -797,22 +785,32 @@ int launch_tf32x3(const void* group_ptr, const void* starts, const void* tiles,
                                            W, n, n_tiles, stream, chunk_src);
 }
 
-// "<copy>.registers=.. <copy>.local_bytes=.. <copy>.blocks_per_sm=.." of
-// one kernel: registers, local (spill) bytes and resident blocks per SM
-template <bool CHUNKED, bool B_VEC>
-cudaError_t tf32x3_resources(const char* copy, char* out, int len)
+// " <copy>.registers=.. <copy>.local_bytes=.. <copy>.blocks_per_sm=.." of
+// one kernel launched with `threads` threads and `smem` bytes of dynamic
+// shared memory (its attributes already set): registers, local (spill)
+// bytes and resident blocks per SM
+template <typename Kernel>
+cudaError_t kernel_resources(Kernel kernel, int threads, int smem, const char* copy,
+                             char* out, int len)
 {
-    cudaError_t e = tf32x3_prepare<CHUNKED, B_VEC>();
     cudaFuncAttributes attr;
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, panel_tf32x3_kernel<CHUNKED, B_VEC>);
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
     int blocks = 0;
     if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, panel_tf32x3_kernel<CHUNKED, B_VEC>, TF_THREADS, TF_SMEM);
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
     if (e != cudaSuccess) return e;
     snprintf(out, len, " %s.registers=%d %s.local_bytes=%d %s.blocks_per_sm=%d", copy,
              attr.numRegs, copy, (int)attr.localSizeBytes, copy, blocks);
     return cudaSuccess;
+}
+
+template <bool CHUNKED, bool B_VEC>
+cudaError_t tf32x3_resources(const char* copy, char* out, int len)
+{
+    const cudaError_t e = tf32x3_prepare<CHUNKED, B_VEC>();
+    if (e != cudaSuccess) return e;
+    return kernel_resources(panel_tf32x3_kernel<CHUNKED, B_VEC>, TF_THREADS, TF_SMEM, copy,
+                            out, len);
 }
 
 // The ring and resources of the 3xTF32 kernels as "key=value" pairs

@@ -12,13 +12,19 @@
 // Replaces (crp_tpu/kernels/spmm_pallas.py):
 //   crp_window_sg_presplit  <- _window_kernel_sg_presplit (x3: A as bf16
 //                              hi/lo, B split to bf16 hi/lo here in RNE,
-//                              acc += al*bh + ah*bl + ah*bh in fp32)
+//                              acc += al*bh + ah*bl + ah*bh in fp32), on
+//                              the wgmma body of x3_wgmma.cuh (TMA ring,
+//                              B split in registers)
 //   crp_window_sg_presplit_ab <- _window_kernel_sg_presplit_ab (x3 with B
 //                              also pre-split to bf16 hi/lo in HBM by
-//                              split_b_bf16: the same tiles, no split here)
+//                              split_b_bf16): the same body reading the
+//                              two bf16 planes, no split here
 //   crp_window_sg_bf16      <- _window_kernel_sg_bf16 (one bf16 pass)
-//   crp_window_sg_f32 / f64 <- _window_kernel_sg (register-tiled FMA in
-//                              fp32 or fp64; never TF32)
+//   crp_window_sg_f32       <- _window_kernel_sg at HIGHEST on fp32: 3xTF32
+//                              on the TF32 tensor cores (panel_tf32x3_kernel,
+//                              as crp_window_f32), held to the fp32 plain
+//                              version
+//   crp_window_sg_f64       <- _window_kernel_sg on fp64: fp64 FMA
 //
 // The TPU kernels double-buffer one B super-window per SG groups in VMEM;
 // the pack's `bases`/`SG`/`Wsg` (VMEM artifacts) are not needed here.
@@ -26,16 +32,16 @@
 // What bounds it on an H100 at the pwtk-class n = 256 headline (G = 852,
 // TM = 256, W = 5632): x3 does 3 x 629 GFLOP of bf16 products over 4.9 GB
 // of A panels (1.9 ms at the 989 TF/s bf16 peak against 1.5 ms of HBM
-// time), the 1-pass kernel 629 GFLOP over 2.5 GB (memory-bound), the fp32
-// FMA kernel 629 GFLOP at the 67 TF/s fp32 peak (compute-bound).  The A
-// panels are the dominant bytes; groups advance in order, so the B windows
-// of neighbouring groups (5.8 MB each, mostly shared) stay in the 50 MB L2.
-// The pre-split B pair moves the same bytes as fp32 B (two bf16 halves),
-// and saves the split that every block of x3 redoes on every B element it
-// loads (~2.5e9 splits per headline product); this simple version reads
-// the halves as two 2-byte loads where x3 makes one 4-byte load.
+// time), the 1-pass kernel 629 GFLOP over 2.5 GB (memory-bound), highest
+// 3 x 629 GFLOP of TF32 products (3.8 ms at 495 TF/s; one fp32 FMA pass
+// would be 9.4 ms at 67 TF/s).  The A panels are the dominant bytes;
+// groups advance in order, so the B windows of neighbouring groups (5.8 MB
+// each, mostly shared) stay in the 50 MB L2.  The pre-split B pair moves
+// the same bytes as fp32 B (two bf16 halves), and saves the split that
+// every consumer thread of #1 makes of its fragments.
 
 #include "panel_tiles.cuh"
+#include "x3_wgmma.cuh"
 
 extern "C" {
 
@@ -43,8 +49,8 @@ int crp_window_sg_presplit(const void* ws, const void* ah, const void* al,
                            const void* b, void* c, int64_t G, int64_t TM,
                            int64_t W, int64_t n, void* stream)
 {
-    return crp::launch_mma<true>(nullptr, ws, ah, al, b, c, G, TM, W, n,
-                                 stream);
+    return crp::launch_x3_wgmma<false>(ws, ah, al, b, nullptr, c, G, TM, W, n,
+                                       stream);
 }
 
 int crp_window_sg_presplit_ab(const void* ws, const void* ah, const void* al,
@@ -52,8 +58,7 @@ int crp_window_sg_presplit_ab(const void* ws, const void* ah, const void* al,
                               int64_t G, int64_t TM, int64_t W, int64_t n,
                               void* stream)
 {
-    return crp::launch_mma<true, false, false, true>(
-        nullptr, ws, ah, al, bh, c, G, TM, W, n, stream, nullptr, bl);
+    return crp::launch_x3_wgmma<true>(ws, ah, al, bh, bl, c, G, TM, W, n, stream);
 }
 
 int crp_window_sg_bf16(const void* ws, const void* ah, const void* bh,
@@ -68,8 +73,19 @@ int crp_window_sg_f32(const void* ws, const void* tiles, const void* b,
                       void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
                       void* stream)
 {
-    return crp::launch_fma<float, 128, 128, 8, 8, 8>(nullptr, ws, tiles, b, c,
-                                                      G, TM, W, n, stream);
+    return crp::launch_tf32x3<false>(nullptr, ws, tiles, b, c, G, TM, W, n, stream);
+}
+
+// crp_window_sg_f32's ring and resources (crp::tf32x3_layout)
+int crp_tf32x3_layout(char* out, int len)
+{
+    return crp::tf32x3_layout<false>(out, len);
+}
+
+// the x3 wgmma body's ring and resources (crp::x3_layout)
+int crp_x3_layout(char* out, int len)
+{
+    return crp::x3_layout(out, len);
 }
 
 int crp_window_sg_f64(const void* ws, const void* tiles, const void* b,

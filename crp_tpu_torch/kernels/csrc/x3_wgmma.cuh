@@ -1,0 +1,527 @@
+// The x3 tile body of the super-grouped windowed kernels #1
+// (crp_window_sg_presplit) and #5 (crp_window_sg_presplit_ab) on Hopper's
+// warpgroup tensor-core instructions (wgmma), fed by TMA.  Included only by
+// window_sg.cu.
+//
+// A uniform pack: group g holds the bf16 hi and lo (TM, W) panels of A
+// over the B rows [ws[g], ws[g] + W), and
+//
+//     C[g*TM + r, j] = sum_k (al*bh + ah*bl + ah*bh)[r, k, j]
+//
+// with B split here to bf16 hi/lo in RNE (x - hi exact in fp32, then
+// rounded), or arriving pre-split as two bf16 planes (B_PAIR, #5: the
+// caller's split is the same RNE split, so the products and C are #1's
+// bit for bit).
+//
+// The body computes the transposed product, C^T = B^T A^T, so that each
+// operand sits where wgmma wants it:
+//   * the panels' (TM, W) rows are K-major, wgmma's shared-memory operand
+//     (N = 128 panel rows a block).  TMA copies each (128 x 64) hi and lo
+//     tile straight into a ring of X3_STAGES shared-memory stages with
+//     128-byte swizzle, completing on an mbarrier; no thread touches these,
+//     the dominant bytes.  The tensor maps span the (G*TM, W) bf16 views;
+//     columns past W come in as zeros (the tensor's edge);
+//   * B's slice is wgmma's register operand (M = 64 columns of B per
+//     consumer warpgroup).  One producer warp copies it into the same stage
+//     as fp32 with cp.async (16-byte copies, or, when n or B's alignment
+//     forbids them, plain loads and stores; rows past W and columns past n
+//     are zeros), and each consumer thread reads its m64 x k16 fragment
+//     elements and splits them to bf16 hi/lo in registers.  No split plane
+//     is written back.
+// Per k16 step three wgmma.m64n128k16 run, small terms first as in every
+// x3 kernel: (bh, A_lo), (bl, A_hi), (bh, A_hi).  The products of each
+// 32-row k slice go into a fresh accumulator (wgmma's scale-d = 0), added
+// to the running sum with IEEE fp32 adds: the tensor cores' own
+// accumulation does not round to nearest (carried over a whole 5632-row
+// window it drifted ~2e-6 from an IEEE sum at the windowed headline, the
+// rule of every tensor-core body here).
+//
+// The block: warps 0-7 are two consumer warpgroups, each owning 64 of the
+// block's 128 columns of B (and C) over its 128 panel rows; warp 8 is the
+// producer.  288 threads at one block an SM leave 224 registers a thread,
+// room for the running sum and the fresh partial (64 + 64 fp32) and the
+// fragments without setmaxnreg.  Blocks are numbered n tile fastest, so the
+// n tiles of one (group, 128-row tile) run on neighbouring SMs and the
+// second read of a panel comes from L2.  The epilogue stages C^T through
+// shared memory and writes C row-major with 16-byte stores; n is masked,
+// never padded.
+//
+// What bounds it on an H100 at the headline (G = 852, TM = 256, W = 5632,
+// n = 256): three bf16 passes, 1.89 TFLOP (1.91 ms at 989 TF/s), over
+// 4.91 GB of hi/lo panels (1.47 ms at 3.35 TB/s).  Every block also reads
+// its B window (64 rows x 128 columns a stage, as many bytes as the two
+// panel tiles) from L2.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
+
+#include "panel_tiles.cuh"
+
+namespace crp {
+
+constexpr int X3_BN = 128;     // panel rows a block (wgmma N)
+constexpr int X3_BM = 128;     // B / C columns a block: 2 warpgroups x m64
+constexpr int X3_BK = 64;      // k rows a stage: one 128-byte swizzled bf16 row
+constexpr int X3_SLICE = 32;   // k rows summed into one fresh accumulator
+constexpr int X3_STAGES = 3;
+constexpr int X3_CONSUMERS = 256;  // two warpgroups
+constexpr int X3_THREADS = X3_CONSUMERS + 32;  // and the producer warp
+constexpr int X3_A_TILE = X3_BN * X3_BK * 2;  // bytes of one hi or lo tile
+constexpr int X3_B_LD = X3_BM + 4;    // fp32 pitch: conflict-free fragment reads
+constexpr int X3_P_LD = X3_BM + 8;    // bf16 pitch of a B_PAIR plane
+constexpr int X3_B_BYTES = 2 * X3_BK * X3_P_LD * 2;  // >= X3_BK * X3_B_LD * 4
+constexpr int X3_STAGE = 2 * X3_A_TILE + X3_B_BYTES;  // a multiple of 1024
+constexpr int X3_C_LD = X3_BN + 4;    // fp32 pitch of the staged C^T tile
+constexpr int X3_SMEM = X3_STAGES * X3_STAGE + 2 * X3_STAGES * 8 + 1024;
+static_assert(X3_STAGE % 1024 == 0, "swizzled tiles need 1024-byte stage bases");
+static_assert(X3_BK * X3_B_LD * 4 <= X3_B_BYTES, "fp32 B slice fits the stage");
+static_assert(X3_BN * X3_C_LD * 4 <= X3_STAGES * X3_STAGE, "C^T fits the ring");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p)
+{
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar)
+{
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// an arrival on bar once every earlier cp.async of this thread has landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar)
+{
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar)
+                 : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity)
+{
+    uint32_t done;
+    do {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// the (X3_BK x X3_BN) box of `map` at column x, row y into dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int x, int y)
+{
+    asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 " [%0], [%1, {%3, %4}], [%2];\n"
+                 :: "r"(dst), "l"((uint64_t)map), "r"(bar), "r"(x), "r"(y) : "memory");
+}
+
+// wgmma's descriptor of a K-major, 128-byte-swizzled operand at smem
+// address `addr`: 8-row groups 1024 bytes apart (the leading offset is
+// unused for this layout)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr)
+{
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+           | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence()
+{
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait()
+{
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads of d across the wgmma wait
+__device__ __forceinline__ void fence_operands(float (&d)[64])
+{
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (+)= a b: a the m64 x k16 bf16 register fragment, b the K-major
+// (16 x 128) tile described by desc; scale_d = 0 starts a fresh sum
+__device__ __forceinline__ void wgmma_128(float (&d)[64], const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// RNE bf16 hi and lo of (x0, x1), x0 in the low half of each word: the
+// split of split8 and of the pack, never a truncation
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo)
+{
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const __nv_bfloat162 l =
+        __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ uint32_t pack_pair(bf16 x0, bf16 x1)
+{
+    return (uint32_t)__bfloat16_as_ushort(x0) | ((uint32_t)__bfloat16_as_ushort(x1) << 16);
+}
+
+// The producer warp's B copy of stage rows [k0, k0 + X3_BK) of the window
+// (B rows b_row0 + k) and columns [n0, n0 + X3_BM), as fp32 (ld X3_B_LD) or
+// as the two bf16 planes (ld X3_P_LD); rows at or past W and columns at or
+// past n are zeros.  B_VEC: 16-byte cp.async copies, one arrival on bar
+// when they land; else plain loads and stores, then one arrival (release:
+// the stores are visible to the threads that wait on bar).
+template <bool B_PAIR, bool B_VEC>
+__device__ __forceinline__ void x3_load_b(uint8_t* dst, const void* b, const bf16* b_lo,
+                                          int64_t b_row0, int k0, int W, int n, int n0,
+                                          int lane, uint32_t bar)
+{
+    if constexpr (B_VEC) {
+        // fp32: lane owns 4 columns of every row; B_PAIR: 8 columns of one plane
+        constexpr int PER_ROW = B_PAIR ? X3_BM / 8 : X3_BM / 4;  // copies a row a plane
+        const int col = (lane % PER_ROW) * (B_PAIR ? 8 : 4);
+        const int plane = B_PAIR ? lane / PER_ROW : 0;
+        const bool col_ok = n0 + col < n;
+        const char* src0 = B_PAIR && plane ? (const char*)b_lo : (const char*)b;
+        constexpr int ES = B_PAIR ? 2 : 4;
+        constexpr int LD = B_PAIR ? X3_P_LD : X3_B_LD;
+        uint32_t d = smem_u32(dst) + (plane * X3_BK * LD + col) * ES;
+#pragma unroll 8
+        for (int r = 0; r < X3_BK; ++r) {
+            const bool ok = col_ok && k0 + r < W;
+            const float* src = (const float*)(ok ? src0 + ((b_row0 + k0 + r) * n + n0 + col) * ES
+                                                 : src0);
+            cp_async<16>(d, src, ok);
+            d += LD * ES;
+        }
+        mbar_arrive_cp_async(bar);
+    } else if constexpr (!B_PAIR) {
+        float* bs = reinterpret_cast<float*>(dst);
+        const float* bf = static_cast<const float*>(b);
+#pragma unroll 4
+        for (int r = 0; r < X3_BK; ++r) {
+            const bool row_ok = k0 + r < W;
+            const float* src = bf + (b_row0 + k0 + r) * n + n0;
+#pragma unroll
+            for (int q = 0; q < X3_BM / 32; ++q) {
+                const int j = lane + 32 * q;
+                bs[r * X3_B_LD + j] = row_ok && n0 + j < n ? src[j] : 0.0f;
+            }
+        }
+        mbar_arrive(bar);
+    } else {
+        bf16* ph = reinterpret_cast<bf16*>(dst);
+        bf16* pl = ph + X3_BK * X3_P_LD;
+        const bf16* bh = static_cast<const bf16*>(b);
+        const bf16 zero = __float2bfloat16_rn(0.0f);
+#pragma unroll 4
+        for (int r = 0; r < X3_BK; ++r) {
+            const bool row_ok = k0 + r < W;
+            const int64_t off = (b_row0 + k0 + r) * n + n0;
+#pragma unroll
+            for (int q = 0; q < X3_BM / 32; ++q) {
+                const int j = lane + 32 * q;
+                const bool ok = row_ok && n0 + j < n;
+                ph[r * X3_P_LD + j] = ok ? bh[off + j] : zero;
+                pl[r * X3_P_LD + j] = ok ? b_lo[off + j] : zero;
+            }
+        }
+        mbar_arrive(bar);
+    }
+}
+
+// The consumer thread's hi and lo fragments of the k16 step at stage row kk:
+// rows j0 and j0 + 8 (B columns) of the m64 x k16 operand, columns (k rows
+// of B) 2 tq, 2 tq + 1 and the same + 8, in the PTX ISA's register layout
+template <bool B_PAIR>
+__device__ __forceinline__ void x3_fragments(const uint8_t* stage_b, int kk, int j0, int tq,
+                                             uint32_t (&fh)[4], uint32_t (&fl)[4])
+{
+    if constexpr (!B_PAIR) {
+        const float* bs = reinterpret_cast<const float*>(stage_b) + (kk + 2 * tq) * X3_B_LD + j0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // (j0, k) (j0 + 8, k) (j0, k + 8) (j0 + 8, k + 8)
+            const float* p = bs + (q >> 1) * 8 * X3_B_LD + (q & 1) * 8;
+            split_pair(p[0], p[X3_B_LD], fh[q], fl[q]);
+        }
+    } else {
+        const bf16* ph = reinterpret_cast<const bf16*>(stage_b) + (kk + 2 * tq) * X3_P_LD + j0;
+        const bf16* pl = ph + X3_BK * X3_P_LD;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int o = (q >> 1) * 8 * X3_P_LD + (q & 1) * 8;
+            fh[q] = pack_pair(ph[o], ph[o + X3_P_LD]);
+            fl[q] = pack_pair(pl[o], pl[o + X3_P_LD]);
+        }
+    }
+}
+
+template <bool B_PAIR, bool B_VEC>
+__global__ void __launch_bounds__(X3_THREADS, 1)
+x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
+                const __grid_constant__ CUtensorMap a_lo,
+                const int32_t* __restrict__ ws,
+                const void* __restrict__ b,
+                const bf16* __restrict__ b_lo,
+                float* __restrict__ c,
+                int64_t TM, int W, int n, int n_tiles)
+{
+    extern __shared__ __align__(16) uint8_t x3_smem_raw[];
+    uint8_t* const smem =
+        x3_smem_raw + ((1024 - (smem_u32(x3_smem_raw) & 1023)) & 1023);
+    const uint32_t full0 = smem_u32(smem + X3_STAGES * X3_STAGE);
+    const uint32_t empty0 = full0 + X3_STAGES * 8;
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int64_t tile = blockIdx.x;
+    const int n0 = (int)(tile % n_tiles) * X3_BM;
+    const int64_t row0 = (tile / n_tiles) * X3_BN;  // first panel (and C) row
+    const int64_t g = row0 / TM;                    // TM % X3_BN == 0
+    const int nk = (W + X3_BK - 1) / X3_BK;         // stages of the window
+
+    if (tid == 0) {
+        for (int s = 0; s < X3_STAGES; ++s) {
+            mbar_init(full0 + 8 * s, 1 + 32);  // the TMA arrival and the 32 B copiers
+            mbar_init(empty0 + 8 * s, X3_CONSUMERS / 32);  // one per consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == X3_CONSUMERS / 32) {  // the producer
+        const int64_t b_row0 = ws[g];
+        for (int t = 0; t < nk; ++t) {
+            const int s = t % X3_STAGES;
+            mbar_wait(empty0 + 8 * s, ((t / X3_STAGES) & 1) ^ 1);
+            uint8_t* st = smem + s * X3_STAGE;
+            if (lane == 0) {
+                mbar_arrive_tx(full0 + 8 * s, 2 * X3_A_TILE);
+                tma_load(smem_u32(st), &a_hi, full0 + 8 * s, t * X3_BK, (int)row0);
+                tma_load(smem_u32(st) + X3_A_TILE, &a_lo, full0 + 8 * s, t * X3_BK, (int)row0);
+            }
+            x3_load_b<B_PAIR, B_VEC>(st + 2 * X3_A_TILE, b, b_lo, b_row0, t * X3_BK, W, n,
+                                     n0, lane, full0 + 8 * s);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        return;
+    }
+
+    // consumers: warpgroup wg owns columns [64 wg, 64 wg + 64) of the block
+    const int wg = warp >> 2;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int j0 = wg * 64 + (warp & 3) * 16 + gq;
+    float acc[64], part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.0f;
+
+    for (int t = 0; t < nk; ++t) {
+        const int s = t % X3_STAGES;
+        mbar_wait(full0 + 8 * s, (t / X3_STAGES) & 1);
+        __syncwarp();  // wgmma's .aligned forms need the warp converged
+        const uint8_t* st = smem + s * X3_STAGE;
+        const uint32_t hi_addr = smem_u32(st), lo_addr = hi_addr + X3_A_TILE;
+#pragma unroll
+        for (int h = 0; h < X3_BK / X3_SLICE; ++h) {
+            if (t * X3_BK + h * X3_SLICE >= W) break;  // W % 32 == 0: nothing left
+            uint32_t fh[2][4], fl[2][4];
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks)
+                x3_fragments<B_PAIR>(st + 2 * X3_A_TILE, h * X3_SLICE + ks * 16, j0, tq,
+                                     fh[ks], fl[ks]);
+            wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+                const uint32_t koff = (h * 2 + ks) * 32;  // 16 bf16 along the row
+                const uint64_t dh = sw128_desc(hi_addr + koff);
+                const uint64_t dl = sw128_desc(lo_addr + koff);
+                wgmma_128(part, fh[ks], dl, ks);  // the slice's first: a fresh sum
+                wgmma_128(part, fl[ks], dh, 1);
+                wgmma_128(part, fh[ks], dh, 1);
+            }
+            wgmma_commit_wait();
+            fence_operands(part);
+#pragma unroll
+            for (int i = 0; i < 64; ++i) acc[i] += part[i];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    }
+
+    // epilogue: C^T fragments into a (128 rows x 128 columns) C tile in the
+    // ring's memory once both warpgroups are done with it, then row-major
+    // 16-byte stores (scalar where n % 4 != 0), columns at or past n masked
+    asm volatile("bar.sync 1, %0;\n" :: "n"(X3_CONSUMERS) : "memory");
+    float* cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // row j0 (+8) of C^T, column 8 i + 2 tq (+1)
+            cs[(8 * i + 2 * tq + (e & 1)) * X3_C_LD + j0 + 8 * (e >> 1)] = acc[4 * i + e];
+    asm volatile("bar.sync 1, %0;\n" :: "n"(X3_CONSUMERS) : "memory");
+#pragma unroll 4
+    for (int q = 0; q < X3_BN * X3_BM / 4 / X3_CONSUMERS; ++q) {
+        const int idx = tid + q * X3_CONSUMERS;
+        const int r = idx / (X3_BM / 4), col = n0 + (idx % (X3_BM / 4)) * 4;
+        if (col >= n) continue;
+        const float4 v = *reinterpret_cast<const float4*>(cs + r * X3_C_LD + col - n0);
+        float* dst = c + (row0 + r) * n + col;
+        if (n % 4 == 0) {
+            *reinterpret_cast<float4*>(dst) = v;
+        } else {
+            const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                if (col + e < n) dst[e] = x[e];
+        }
+    }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+inline cudaError_t encode_tiled(EncodeTiled* fn)
+{
+    static EncodeTiled cached = nullptr;
+    if (!cached) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+        const cudaError_t e =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        if (e != cudaSuccess) return e;
+        if (q != cudaDriverEntryPointSuccess || !p) return cudaErrorSymbolNotFound;
+        cached = reinterpret_cast<EncodeTiled>(p);
+    }
+    *fn = cached;
+    return cudaSuccess;
+}
+
+// the tensor map of a (rows, W) bf16 panel view: (X3_BK x X3_BN) boxes,
+// 128-byte swizzle, zeros past the edge
+inline cudaError_t panel_map(CUtensorMap* map, const void* panels, int64_t rows, int64_t W)
+{
+    EncodeTiled fn;
+    const cudaError_t e = encode_tiled(&fn);
+    if (e != cudaSuccess) return e;
+    const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)W * 2};
+    const cuuint32_t box[2] = {X3_BK, X3_BN};
+    const cuuint32_t unit[2] = {1, 1};
+    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(panels),
+                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <bool B_PAIR, bool B_VEC>
+cudaError_t x3_prepare()
+{
+    return cudaFuncSetAttribute(x3_wgmma_kernel<B_PAIR, B_VEC>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, X3_SMEM);
+}
+
+// B_PAIR: b is B's bf16 hi plane and b_lo its lo plane (split_b_bf16);
+// else b is fp32 B.  The panels must be 16-byte aligned (TMA); B of any
+// alignment (16-byte copies where n and B allow them).
+template <bool B_PAIR>
+int launch_x3_wgmma(const void* ws, const void* ah, const void* al, const void* b,
+                    const void* b_lo, void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
+                    void* stream)
+{
+    if (G < 0 || TM <= 0 || TM % X3_BN || W <= 0 || W % X3_SLICE || n < 0)
+        return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)ah % 16 || (uintptr_t)al % 16) return (int)cudaErrorMisalignedAddress;
+    const int64_t n_tiles = (n + X3_BM - 1) / X3_BM;
+    const int64_t blocks = G * (TM / X3_BN) * n_tiles;
+    if (blocks > 0x7fffffff || G * TM > 0x7fffffff || W > 0x7fffffff || n > 0x7fffffff)
+        return (int)cudaErrorInvalidConfiguration;
+    if (blocks == 0) return (int)cudaGetLastError();
+    CUtensorMap hi, lo;
+    cudaError_t e = panel_map(&hi, ah, G * TM, W);
+    if (e == cudaSuccess) e = panel_map(&lo, al, G * TM, W);
+    if (e != cudaSuccess) return (int)e;
+    const bool vec = n % (B_PAIR ? 8 : 4) == 0 && (uintptr_t)b % 16 == 0
+                     && (!B_PAIR || (uintptr_t)b_lo % 16 == 0);
+    e = vec ? x3_prepare<B_PAIR, true>() : x3_prepare<B_PAIR, false>();
+    if (e != cudaSuccess) return (int)e;
+    const auto kernel = vec ? x3_wgmma_kernel<B_PAIR, true> : x3_wgmma_kernel<B_PAIR, false>;
+    kernel<<<(unsigned)blocks, X3_THREADS, X3_SMEM, (cudaStream_t)stream>>>(
+        hi, lo, static_cast<const int32_t*>(ws), b, static_cast<const bf16*>(b_lo),
+        static_cast<float*>(c), TM, (int)W, (int)n, (int)n_tiles);
+    return (int)cudaGetLastError();
+}
+
+template <bool B_PAIR, bool B_VEC>
+cudaError_t x3_resources(const char* copy, char* out, int len)
+{
+    const cudaError_t e = x3_prepare<B_PAIR, B_VEC>();
+    if (e != cudaSuccess) return e;
+    return kernel_resources(x3_wgmma_kernel<B_PAIR, B_VEC>, X3_THREADS, X3_SMEM, copy, out,
+                            len);
+}
+
+// The ring and resources of the x3 wgmma kernels as "key=value" pairs
+// separated by spaces (at most len bytes, NUL included): stages, dynamic
+// shared memory bytes, threads and block tile (BM columns of B, BN panel
+// rows, BK k rows a stage), then per kernel its resources: "b16" and
+// "b4" (#1, fp32 B by 16-byte copies or by plain 4-byte loads), "pair16"
+// and "pair2" (#5, the bf16 planes likewise)
+inline int x3_layout(char* out, int len)
+{
+    int used = snprintf(out, len, "stages=%d smem_bytes=%d threads=%d BM=%d BN=%d BK=%d",
+                        X3_STAGES, X3_SMEM, X3_THREADS, X3_BM, X3_BN, X3_BK);
+    using Report = cudaError_t (*)(const char*, char*, int);
+    const struct { const char* copy; Report report; } kernels[] = {
+        {"b16", x3_resources<false, true>}, {"b4", x3_resources<false, false>},
+        {"pair16", x3_resources<true, true>}, {"pair2", x3_resources<true, false>}};
+    for (const auto& k : kernels) {
+        const cudaError_t e = k.report(k.copy, out + used, len - used);
+        if (e != cudaSuccess) return (int)e;
+        used += (int)strlen(out + used);
+    }
+    return (int)cudaSuccess;
+}
+
+}  // namespace crp

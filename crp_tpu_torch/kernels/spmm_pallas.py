@@ -13,12 +13,15 @@ pack with a super-group plan (``csrc/window_sg.cu``), one per operating
 point:
 
   * :func:`spmm_window_sg_presplit` — ``x3``: A pre-split to bf16 hi/lo,
-    B split in the kernel, three bf16 products summed in fp32;
+    B split in the kernel, three bf16 products summed in fp32 (``wgmma``
+    fed by TMA, ``csrc/x3_wgmma.cuh``);
   * :func:`spmm_window_sg_presplit_ab` — ``x3`` with B pre-split too, by
     :func:`split_b_bf16` (no engine path takes it: the presplit-B
     comparison of ``crp_tpu_torch.cli.presplit_b_sweep`` does);
   * :func:`spmm_window_sg_bf16` — ``default``: one bf16 product;
-  * :func:`spmm_window_sg` — ``highest``: fp32 (or fp64) FMA, no TF32.
+  * :func:`spmm_window_sg` — ``highest``: fp32 panels as three TF32
+    tensor-core products (:func:`split_tf32`), held to the fp32 plain
+    version; fp64 panels by FMA.
 
 On every other uniform pack (several shards, or windows that are not
 monotone), fp32 or fp64 panels: :func:`spmm_window` (``csrc/window.cu``,
@@ -323,6 +326,17 @@ def _check_cuda_args(name, ws, panels, b, min_b_rows, panel_dtypes, b_dtype):
     return G, TM, W, b.shape[1]
 
 
+def _check_aligned(name, **tensors) -> None:
+    """Raise unless each tensor starts on 16 bytes: the panels the kernels
+    copy by TMA or 16-byte ``cp.async`` (a shard's view may not)."""
+    for label, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: {label} must start on 16 bytes for the kernel's "
+                f"copies; this view is {t.data_ptr() % 16} bytes off"
+            )
+
+
 def _launch(name, ptrs, G, TM, W, n, device):
     from . import _build
 
@@ -342,6 +356,7 @@ def spmm_window_sg_presplit(ws, ah, al, b, *, min_b_rows: int):
         "spmm_window_sg_presplit", ws, (ah, al), b, min_b_rows,
         torch.bfloat16, torch.float32,
     )
+    _check_aligned("spmm_window_sg_presplit", ah=ah, al=al)
     c = torch.empty((G * TM, n), dtype=torch.float32, device=b.device)
     _launch(
         "crp_window_sg_presplit",
@@ -374,6 +389,7 @@ def spmm_window_sg_presplit_ab(ws, ah, al, bh, bl, *, min_b_rows: int):
                                    torch.bfloat16, torch.bfloat16)
     if bl.shape != bh.shape or not bl.is_contiguous():
         raise ValueError(f"{name}: bl must be contiguous of bh's shape {tuple(bh.shape)}")
+    _check_aligned(name, ah=ah, al=al)
     c = torch.empty((G * TM, n), dtype=torch.float32, device=bh.device)
     _launch(
         "crp_window_sg_presplit_ab",
@@ -412,8 +428,11 @@ spmm_window_sg_bf16.launches = 0
 
 
 def spmm_window_sg(ws, tiles, b, *, min_b_rows: int):
-    """fp32 or fp64 windowed SpMM (FMA, no TF32): (G*TM, n) in the panels'
-    dtype.  Replaces ``spmm_window_pallas_sg`` (``spmm_pallas.py:940``)."""
+    """fp32 or fp64 windowed SpMM: (G*TM, n) in the panels' dtype.  fp32
+    runs as three TF32 tensor-core products (the 3xTF32 body of
+    :func:`spmm_window` at ``highest``, whose panels must start on 16
+    bytes), fp64 by FMA.  Replaces ``spmm_window_pallas_sg``
+    (``spmm_pallas.py:940``)."""
     if _placement("spmm_window_sg", ws, tiles, b) == "cpu":
         return spmm_window_sg_plain(ws, tiles, b)
     if tiles.dtype not in (torch.float32, torch.float64):
@@ -421,6 +440,8 @@ def spmm_window_sg(ws, tiles, b, *, min_b_rows: int):
     G, TM, W, n = _check_cuda_args(
         "spmm_window_sg", ws, (tiles,), b, min_b_rows, tiles.dtype, tiles.dtype,
     )
+    if tiles.dtype == torch.float32:
+        _check_aligned("spmm_window_sg", tiles=tiles)
     c = torch.empty((G * TM, n), dtype=tiles.dtype, device=b.device)
     name = "crp_window_sg_f32" if tiles.dtype == torch.float32 else "crp_window_sg_f64"
     _launch(

@@ -690,11 +690,24 @@ TF32X3_WINDOW = {
 }
 
 
+# the 3xTF32 windowed kernels on a uniform pack: #4 and #3 (super-grouped)
+# at highest, each beside its plain version
+TF32X3_UNIFORM = {
+    "window": (lambda ws, t, b, **kw: spmm_pallas.spmm_window(ws, t, b, "highest", **kw),
+               lambda ws, t, b: spmm_pallas.spmm_window_plain(ws, t, b, "highest"),
+               spmm_pallas.spmm_window),
+    "window_sg": (spmm_pallas.spmm_window_sg, spmm_pallas.spmm_window_sg_plain,
+                  spmm_pallas.spmm_window_sg),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(TF32X3_UNIFORM))
 @pytest.mark.parametrize("case", sorted(TF32X3_WINDOW))
-def test_window_highest_tf32x3_matches_plain(cuda_device, case):
-    """#4 at highest on hand-built uniform packs (random panels, the last
-    group a zero pad group, B framed by NaN): within TOL_PLAIN of the
+def test_window_highest_tf32x3_matches_plain(cuda_device, case, kernel):
+    """#4 and #3 at highest on hand-built uniform packs (random panels, the
+    last group a zero pad group, B framed by NaN): within TOL_PLAIN of the
     fp32 plain version, pad rows zero, one launch."""
+    run, plain, counted = TF32X3_UNIFORM[kernel]
     G, TM, W, n, off = TF32X3_WINDOW[case]
     rng = np.random.default_rng(W + n)
     ws = rng.integers(0, 300, G).astype(np.int32)
@@ -705,10 +718,10 @@ def test_window_highest_tf32x3_matches_plain(cuda_device, case):
     b = _nan_framed(torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32))
                     .to(dev), off)
     ws_t, tiles_t = torch.from_numpy(ws).to(dev), torch.from_numpy(tiles).to(dev)
-    before = spmm_pallas.spmm_window.launches
-    k = spmm_pallas.spmm_window(ws_t, tiles_t, b, "highest", min_b_rows=rows)
-    _held_to_plain(k, spmm_pallas.spmm_window_plain(ws_t, tiles_t, b, "highest"),
-                   before, spmm_pallas.spmm_window.launches, slice((G - 1) * TM, None))
+    before = counted.launches
+    k = run(ws_t, tiles_t, b, min_b_rows=rows)
+    _held_to_plain(k, plain(ws_t, tiles_t, b), before, counted.launches,
+                   slice((G - 1) * TM, None))
 
 
 def _halo_hand_pack(rng, W, n):
@@ -819,8 +832,9 @@ def test_highest_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch):
     assert spmm_halo.spmm_halo.launches == before + 1
 
 
-def test_highest_tf32x3_keeps_nan_and_inf(cuda_device):
-    """#4 at highest with NaN (CUDA's canonical 0x7fffffff, a quiet
+@pytest.mark.parametrize("kernel", sorted(TF32X3_UNIFORM))
+def test_highest_tf32x3_keeps_nan_and_inf(cuda_device, kernel):
+    """#4 and #3 at highest with NaN (CUDA's canonical 0x7fffffff, a quiet
     0x7fc00000, a negative payload) and +-inf in the panels and in B: C is
     NaN wherever the plain version is NaN, not finite wherever it is inf
     (an inf's remainder in the split is NaN, as in the x3 kernels'), and
@@ -835,10 +849,92 @@ def test_highest_tf32x3_keeps_nan_and_inf(cuda_device):
     bi[40, 7], bi[41, 8] = 0x7FFFFFFF, -1
     b[42, 9] = float("inf")
     ws = torch.zeros(2, dtype=torch.int32, device=dev)
-    k = spmm_pallas.spmm_window(ws, tiles, b, "highest", min_b_rows=64)
-    p = spmm_pallas.spmm_window_plain(ws, tiles, b, "highest")
+    run, plain, _ = TF32X3_UNIFORM[kernel]
+    k = run(ws, tiles, b, min_b_rows=64)
+    p = plain(ws, tiles, b)
     assert bool(torch.isnan(k[torch.isnan(p)]).all())
     assert not bool(torch.isfinite(k[torch.isinf(p)]).any())
     fin = torch.isfinite(p)
     assert bool(torch.isfinite(k[fin]).all())
     assert float((k - p)[fin].abs().max()) <= TOL_PLAIN[np.float32] * float(p[fin].abs().max())
+
+
+# ----------------------------------------- #1 and #5 on the wgmma body
+
+# name -> (G, TM, W, n, B offset in elements): W = 352 and 160 end on half
+# a 64-row stage; odd n and an unaligned B take the plain B copies; W = 32
+# is one slice; W = 1024 runs the 3-stage ring round many times
+X3_WGMMA = {
+    "n=16": (3, 256, 352, 16, 0),
+    "odd n": (3, 256, 352, 37, 0),
+    "n=256": (4, 128, 1024, 256, 0),
+    "unaligned B": (3, 128, 160, 64, 1),
+    "one slice": (2, 128, 32, 48, 0),
+}
+
+
+def _x3_hand_pack(case, dev):
+    """A uniform x3 pack by hand: random sparse panels split to bf16 hi/lo
+    in RNE (the pack's split), random window starts, the last group a zero
+    pad group, B framed by NaN (a read outside it shows in C)."""
+    G, TM, W, n, off = X3_WGMMA[case]
+    rng = np.random.default_rng(W + n)
+    ws = torch.from_numpy(rng.integers(0, 300, G).astype(np.int32)).to(dev)
+    tiles = _panels(rng, (G, TM, W))
+    tiles[-1] = 0
+    ah, al = spmm_pallas.split_b_bf16(torch.from_numpy(tiles).to(dev).view(G * TM, W))
+    rows = int(ws.max()) + W
+    b = _nan_framed(torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32))
+                    .to(dev), off)
+    return ws, ah.view(G, TM, W), al.view(G, TM, W), b, rows, tiles
+
+
+@pytest.mark.parametrize("case", sorted(X3_WGMMA))
+def test_x3_wgmma_matches_plain_and_pair(cuda_device, case):
+    """#1 on hand-built packs (n in {16, 37, 48, 64, 256}, W off the
+    64-row stage, an unaligned B, one slice, many trips round the ring):
+    within TOL_PLAIN of its plain version, pad rows zero, one launch; #5
+    on ``split_b_bf16`` of the same B (framed and off 16 bytes where B
+    is) equal to #1's C bit for bit."""
+    ws, ah, al, b, rows, _ = _x3_hand_pack(case, cuda_device)
+    G, TM, _, _, off = X3_WGMMA[case]
+    kernel = spmm_pallas.spmm_window_sg_presplit
+    before = kernel.launches
+    k = kernel(ws, ah, al, b, min_b_rows=rows)
+    _held_to_plain(k, spmm_pallas.spmm_window_sg_presplit_plain(ws, ah, al, b), before,
+                   kernel.launches, slice((G - 1) * TM, None))
+    bh, bl = (_nan_framed(t, off) for t in spmm_pallas.split_b_bf16(b))
+    before = spmm_pallas.spmm_window_sg_presplit_ab.launches
+    c5 = spmm_pallas.spmm_window_sg_presplit_ab(ws, ah, al, bh, bl, min_b_rows=rows)
+    assert spmm_pallas.spmm_window_sg_presplit_ab.launches == before + 1
+    assert torch.equal(c5, k)
+
+
+def test_window_sg_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch):
+    """On CUDA tensors #1, #5 and #3 launch their kernels and never their
+    plain versions; panels off 16 bytes (the TMA and 16-byte copies' rule)
+    are refused before any launch, with nothing to fall back to."""
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    for name in ("spmm_window_sg_presplit_plain", "spmm_window_sg_presplit_ab_plain",
+                 "spmm_window_sg_plain"):
+        monkeypatch.setattr(spmm_pallas, name, no_plain)
+    ws, ah, al, b, rows, tiles = _x3_hand_pack("one slice", cuda_device)
+    bh, bl = spmm_pallas.split_b_bf16(b)
+    tiles = torch.from_numpy(tiles).to(cuda_device)
+    kernels = (spmm_pallas.spmm_window_sg_presplit, spmm_pallas.spmm_window_sg_presplit_ab,
+               spmm_pallas.spmm_window_sg)
+    before = [k.launches for k in kernels]
+    spmm_pallas.spmm_window_sg_presplit(ws, ah, al, b, min_b_rows=rows)
+    spmm_pallas.spmm_window_sg_presplit_ab(ws, ah, al, bh, bl, min_b_rows=rows)
+    spmm_pallas.spmm_window_sg(ws, tiles, b, min_b_rows=rows)
+    assert [k.launches for k in kernels] == [x + 1 for x in before]
+    off_h, off_l, off_t = (_nan_framed(t, 1) for t in (ah, al, tiles))
+    with pytest.raises(ValueError, match="ah must start on 16 bytes"):
+        spmm_pallas.spmm_window_sg_presplit(ws, off_h, al, b, min_b_rows=rows)
+    with pytest.raises(ValueError, match="al must start on 16 bytes"):
+        spmm_pallas.spmm_window_sg_presplit_ab(ws, ah, off_l, bh, bl, min_b_rows=rows)
+    with pytest.raises(ValueError, match="tiles must start on 16 bytes"):
+        spmm_pallas.spmm_window_sg(ws, off_t, b, min_b_rows=rows)
+    assert [k.launches for k in kernels] == [x + 1 for x in before]

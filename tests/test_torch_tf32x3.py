@@ -1,13 +1,16 @@
-"""The arithmetic of the 3xTF32 tile body (kernels #4 ``crp_window_f32``
-and #12 ``crp_halo_f32`` at ``highest``), argued on the CPU.
+"""The arithmetic of the 3xTF32 tile body (kernels #3
+``crp_window_sg_f32``, #4 ``crp_window_f32`` and #12 ``crp_halo_f32`` at
+``highest``), argued on the CPU.
 
 ``split_tf32`` pinned against an exact float64 rounding: low 13 bits
 zero, ties away from zero, subnormals, signed zeros, inf and NaN, and the
 split's error bound.  Then the kernels' three TF32 products are emulated
 on the packs that ``test_torch_window.py`` and ``test_torch_halo.py``
-build and held against JAX's ``HIGHEST`` kernels in interpret mode
-(``spmm_window_pallas``, and ``halo_spmm_local`` through the JAX engine
-on the CPU mesh) under the card's tolerances: relative Frobenius error
+build, and on the JAX package's super-grouped pack, and held against JAX's
+``HIGHEST`` kernels in interpret mode (``spmm_window_pallas``,
+``spmm_window_pallas_sg`` through the pack's own local function, and
+``halo_spmm_local`` through the JAX engine on the CPU mesh) under the
+card's tolerances: relative Frobenius error
 and max error over max |p| both within 1e-6.  The CUDA kernels are held
 against their plain versions in ``test_torch_cuda.py``."""
 
@@ -19,12 +22,15 @@ from crp_tpu.kernels.spmm_pallas import WindowDense, spmm_window_pallas
 
 from crp_tpu_torch.kernels import dispatch as td
 from crp_tpu_torch.kernels import spmm_halo as th
-from crp_tpu_torch.kernels.spmm_pallas import round_tf32, spmm_window_plain, split_tf32
+from crp_tpu_torch.kernels.spmm_pallas import (
+    round_tf32, spmm_window_plain, spmm_window_sg_plain, split_tf32,
+)
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.synth import fill_b
 from crp_tpu_torch.utils.norms import rel_fro_err
 from tests.test_torch_halo import _banded, _jax_rowpara
 from tests.test_torch_halo import _shards as _halo_shards
+from tests.test_torch_spmm_pallas import _case
 from tests.test_torch_window import _anti_banded
 from tests.test_torch_window import _shards as _window_shards
 
@@ -201,6 +207,27 @@ def test_emulated_window_matches_jax_highest(case, n):
         worst_one_pass = max(worst_one_pass,
                              _errors(want, one_pass_tf32(ws[i], tiles[i], bt).numpy())[1])
     assert worst_one_pass > 10 * TOL_FRO
+
+
+@pytest.mark.parametrize("n", [16, 37, 100])
+def test_emulated_window_sg_matches_jax_highest(n):
+    """On #3's super-grouped pack (JAX's, of a banded matrix with pad
+    groups), the emulated 3xTF32 product against JAX's local function,
+    ``spmm_window_pallas_sg(interpret=True)`` at HIGHEST, and against the
+    port's plain version (the fp32 ``bmm``): within 1e-6 both ways; one
+    TF32 pass is not."""
+    a, arrays, fn, tensors, op = _case("highest", np.float32)
+    assert op.scheme == "full"  # (ws, tiles, bases): the super-grouped pack
+    ws, tiles = (t[0] for t in tensors[:2])
+    b = np.random.default_rng(n).standard_normal((fn.min_b_rows, n)).astype(np.float32)
+    bt = torch.from_numpy(b)
+    want = np.asarray(fn(tuple(x[0] for x in arrays), b))
+    got = tf32x3_windows(ws, tiles, bt)
+    assert got.shape == want.shape and not torch.any(got[a.nrow:])  # pad groups
+    for ref in (want, spmm_window_sg_plain(ws, tiles, bt).numpy()):
+        max_rel, fro = _errors(ref, got.numpy())
+        assert max_rel <= TOL_MAX and fro <= TOL_FRO, (max_rel, fro)
+    assert _errors(want, one_pass_tf32(ws, tiles, bt).numpy())[1] > 10 * TOL_FRO
 
 
 @pytest.mark.parametrize("n", [13, 40])

@@ -1,0 +1,106 @@
+"""The summation order of the x3 wgmma body (kernels #1
+``crp_window_sg_presplit`` and #5 ``crp_window_sg_presplit_ab``), argued
+on the CPU.
+
+The body computes C^T = B^T A^T: per 16-deep k step three products, small
+terms first, (bh, A_lo), (bl, A_hi), (bh, A_hi), with B split to bf16 hi/lo
+in RNE; each 32-row k slice sums into a fresh fp32 accumulator, which is
+added to the running sum with IEEE fp32 adds.  Here that order is emulated
+(each k16 product exact in float64, rounded once to fp32 into the slice's
+sum) on the JAX package's super-grouped x3 pack of a banded matrix with
+pad groups, and held against JAX's ``_window_kernel_sg_presplit`` in
+interpret mode (the pack's own local function on the CPU) and against the
+port's plain version ``spmm_window_sg_presplit_plain``.
+
+Tolerance: max |e - r| / max |r| and the relative Frobenius error both
+within 1e-6.  All three sum the same exact bf16 x bf16 products in fp32,
+in different orders; reordering a row's fp32 sum moves it by a few fp32
+ulps of its terms, ~1e-7 here, and 1e-6 is the bound the card holds #1 to
+against its plain version (``chip_smoke.py`` TOL_PLAIN, TOL_PLAIN_FRO).
+One bf16 pass (ah x bh alone) is far outside it, so the check can tell.
+The CUDA kernel is held against the plain version in ``test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from crp_tpu_torch.kernels.spmm_pallas import spmm_window_sg_presplit_plain, split_b_bf16
+from tests.test_torch_spmm_pallas import _case
+from tests.test_torch_tf32x3 import _errors
+
+TOL = 1e-6
+K16 = 16     # k rows of one wgmma
+SLICE = 32   # k rows summed into one fresh accumulator
+
+
+def x3_wgmma_order(ws, ah, al, b):
+    """C of the x3 wgmma body on a uniform pack, emulated: the B windows
+    split to bf16 hi/lo in RNE, per k16 step the three products small
+    first, each an exact sum rounded once to fp32 into the slice's fresh
+    accumulator, the slices added in IEEE fp32."""
+    G, TM, W = ah.shape
+    win = b[ws.long()[:, None] + torch.arange(W)]
+    bh, bl = (t.double().view(G, W, -1) for t in split_b_bf16(win.reshape(G * W, -1)))
+    ah, al = ah.double(), al.double()
+    acc = torch.zeros((G, TM, b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, W, SLICE):
+        part = torch.zeros_like(acc)
+        for k in range(k0, k0 + SLICE, K16):
+            s = slice(k, k + K16)
+            for x, y in ((al, bh), (ah, bl), (ah, bh)):
+                part = (part.double() + torch.bmm(x[:, :, s], y[:, s])).float()
+        acc += part
+    return acc.reshape(G * TM, -1)
+
+
+@pytest.mark.parametrize("n", [16, 37, 100])
+def test_x3_wgmma_order_matches_jax_and_plain(n):
+    """The emulated order against JAX's x3 kernel in interpret mode and the
+    port's plain version, within 1e-6 both ways; pad groups zero; one bf16
+    pass out of that bound."""
+    a, arrays, fn, tensors, op = _case("x3", np.float32)  # JAX's pack, pad groups
+    assert op.scheme == "x3"
+    ws, ah, al = (t[0] for t in tensors[:3])
+    b = np.random.default_rng(n).standard_normal((fn.min_b_rows, n)).astype(np.float32)
+    bt = torch.from_numpy(b)
+    want = np.asarray(fn(tuple(x[0] for x in arrays), b))
+    got = x3_wgmma_order(ws, ah, al, bt)
+    assert got.shape == want.shape and not torch.any(got[a.nrow:])
+    for ref in (want, spmm_window_sg_presplit_plain(ws, ah, al, bt).numpy()):
+        max_rel, fro = _errors(ref, got.numpy())
+        assert max_rel <= TOL and fro <= TOL, (max_rel, fro)
+    G, TM, W = ah.shape
+    win = bt[ws.long()[:, None] + torch.arange(W)]
+    one_pass = torch.bmm(ah.float(), win.to(torch.bfloat16).float()).reshape(G * TM, -1)
+    assert _errors(want, one_pass.numpy())[1] > 10 * TOL
+
+
+def test_x3_wgmma_order_splits_b_in_rne():
+    """The emulation's split is the kernels' RNE split: hi + lo recovers
+    x to within 2^-16 relative, and hi rounds to nearest, so the remainder
+    lo takes the sign opposite to x's about half the time (a truncating
+    split's remainder always has x's sign)."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((64, 8)).astype(np.float32))
+    hi, lo = split_b_bf16(x)
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0**-16 * x.double().abs()).all())
+    flipped = float((lo.float() * x < 0).float().mean())
+    assert 0.3 < flipped < 0.7
+
+
+def test_feed_split_edits_apply_to_the_body():
+    """``crp_tpu_torch.cli.x3_feed_split`` compiles variants of the x3 body
+    with its products or copies cut out by editing a copy of its header:
+    each edit's anchor is in the header exactly once, and each cut is
+    under its macro."""
+    from crp_tpu_torch.cli import x3_feed_split
+
+    from crp_tpu_torch.kernels import _build
+
+    text = x3_feed_split.edited_header()
+    body = (_build.CSRC / "x3_wgmma.cuh").read_text()
+    macros = ("X3_NO_PRODUCTS", "X3_NO_PANELS", "X3_NO_B")
+    assert all(text.count(m) == 1 and m not in body for m in macros)
+    assert text.count("#endif") - body.count("#endif") == len(macros)
+    assert {m for ms in x3_feed_split.VARIANTS.values() for m in ms} == set(macros)
