@@ -8,9 +8,9 @@ It builds the port's CUDA kernels from ``crp_tpu_torch/kernels/csrc`` into
 ``build/crp_tpu_torch/`` (one ``nvcc`` per source, all started together),
 prints the shared-memory ring of the 3xTF32 entries (#3, #4 and #12 at
 highest: stages, dynamic shared memory, registers, spills and blocks per
-SM, which must be 0 and at least 2) and of the x3 wgmma body (#1 and #5:
-the same, which must be 0 and at least 1) and then, failing on the first
-check that does not hold:
+SM, which must be 0 and at least 2) and of the x3 wgmma body in each
+library that builds it (#1 and #5, #4, #12: the same, which must be 0 and
+at least 1) and then, failing on the first check that does not hold:
 
 1. kernel phase — each windowed kernel against its plain PyTorch version on
    small banded packs with pad groups, n in {16, 48, 100, 256}; then #5
@@ -56,14 +56,16 @@ check that does not hold:
    fp64; then the fp64 cplaw (segment-sum tier) and the pwtk-class
    headline (ELL tier) with ``kernel="dd"`` at <= 1e-12;
 9. window phase — the non-super-grouped windowed kernel (#4) against its
-   plain version at x3, default, highest and fp64 on a 4-shard pack (pad
-   groups, an empty shard) and on a single-shard pack with non-monotone
-   windows, n in {16, 37, 100, 256} (odd n takes #4's 4-byte B copies at
-   highest);
+   plain version at x3 (on the bf16 hi/lo pair, #1's wgmma body, and equal
+   bit for bit to #1 on the same arrays), default, highest and fp64 on a
+   4-shard pack (pad groups, an empty shard) and on a single-shard pack
+   with non-monotone windows, n in {16, 37, 100, 256} (odd n takes the
+   plain B copies of #4 at x3 and its 4-byte ones at highest);
 10. halo phase — the fused halo kernel (#12: one launch over 4 shards,
    each reading its windows straight from the owner shards' rows) against
    its plain version (the pushes into window buffers, then the windowed
-   product) at x3, default, highest and fp64, n in {16, 37, 100, 256};
+   product) at x3, default, highest and fp64, n in {16, 37, 100, 256}; at
+   x3 also equal bit for bit to #4 run shard by shard on those buffers;
 11. headline at p = 4 — the headline matrix in 4 nnz-balanced row shards
    on the one card through ``RowParaSpmm(kernel="auto")`` at x3, default
    and highest: ``auto`` must resolve to the fused ``pallas_halo`` kernel
@@ -73,7 +75,9 @@ check that does not hold:
    the unfused path, windowed kernel #4 on every shard (variant
    ``"window"``), with the exchange and SpMM phase times and the received
    and physical rows; each kernel against its plain version at its
-   main-path shape, timed, with cuSPARSE on the same work;
+   main-path shape, timed, with cuSPARSE on the same work; every engine's
+   peak device memory during its init (at x3 the panels are densified in
+   fp32 and split to the bf16 pair);
 12. cplaw at p = 4 on the ring (x3): the multi-shard ragged pack with the
    fused spill, 591,732 received B rows and 627,300 physical ring rows;
    on the host, the p = 8 exchange plan's received rows times 32 equal the
@@ -222,8 +226,13 @@ def compare(name, run_kernel, run_plain):
     return max_abs, max_abs / max(float(p.abs().max()), 1e-300), rel_fro
 
 
+def flat(args) -> list:
+    """Positional args with the x3 pair ``(ah, al)`` taken apart."""
+    return [x for a in args for x in (a if isinstance(a, tuple) else (a,))]
+
+
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors
+    return sum(t.numel() * t.element_size() for t in flat(tensors)
                if isinstance(t, torch.Tensor))
 
 
@@ -274,7 +283,7 @@ def panel_bound(op, arrs, rB) -> tuple:
     its C written once; its operations are the panels' products with B at
     the op's point."""
     args = op.kernel_args(arrs, rB)
-    panel = next(t for t in args if isinstance(t, torch.Tensor) and t.dim() >= 3)
+    panel = next(t for t in flat(args) if isinstance(t, torch.Tensor) and t.dim() >= 3)
     n = rB.shape[-1]
     rl = op.roofline
     rows = rl.get("c_rows", rl["G"] * rl["TM"])
@@ -634,7 +643,8 @@ def time_kernel(op, arrs, rB, tag, prec, work, plain_inner=20, tol=TOL_PLAIN_FRO
         dtype = torch.float32
     else:
         design_ms, _ = panel_bound(op, arrs, rB)
-        dtype = next(t for t in args if isinstance(t, torch.Tensor) and t.dim() >= 3).dtype
+        dtype = next(t for t in flat(args)
+                     if isinstance(t, torch.Tensor) and t.dim() >= 3).dtype
         dtype = torch.float64 if dtype == torch.float64 else torch.float32
     b_ms, b_by = function_bound(op, work, rB.shape[-1], dtype)
     say(f"[{tag} {prec}] {name} {kernel_ms:.4f} ms ({s[0]:.4f}, {s[1]:.4f}), "
@@ -644,16 +654,36 @@ def time_kernel(op, arrs, rB, tag, prec, work, plain_inner=20, tol=TOL_PLAIN_FRO
     return max_abs, kernel_ms, plain_ms, b_ms, b_by, design_ms
 
 
-def headline(device) -> list:
-    from crp_tpu_torch import banded_random_csr, fill_b
+_CASES = {}
 
-    t0 = time.perf_counter()
-    a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=BANDWIDTH,
-                          seed=SEED, dtype=np.float32)
-    b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
-    c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+
+def fp32_case(name: str) -> tuple:
+    """(a, b, c_ref, generation s, host set-up s) of the fp32 ``"headline"``
+    or ``"cplaw"`` matrix, the analytic B and the fp64 reference of its
+    first ERR_COLS columns: made at the first phase that asks and shared by
+    every later phase that drives the same matrix (the matrix's pack memo
+    is cleared at each hand-out, so no phase inherits another's pack)."""
+    if name not in _CASES:
+        from crp_tpu_torch import banded_random_csr, fill_b, powerlaw_community_csr
+
+        t0 = time.perf_counter()
+        if name == "headline":
+            a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=BANDWIDTH,
+                                  seed=SEED, dtype=np.float32)
+        else:
+            a = powerlaw_community_csr(**CPLAW, dtype=np.float32)
+        t_gen = time.perf_counter() - t0
+        b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
+        c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+        _CASES[name] = (a, b, c_ref, t_gen, time.perf_counter() - t0)
+    _CASES[name][0].__dict__.pop("_torch_pack_cache", None)
+    return _CASES[name]
+
+
+def headline(device) -> list:
+    a, b, c_ref, _, t_setup = fp32_case("headline")
     say(f"headline matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, host set-up "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{t_setup:.2f} s")
     records = []
     for prec in PRECS:
         eng, op, bs, launches = drive(a, b, c_ref, prec, device, "headline",
@@ -676,16 +706,11 @@ def headline(device) -> list:
 
 
 def cplaw_path(device) -> list:
-    from crp_tpu_torch import fill_b, powerlaw_community_csr
     from crp_tpu_torch.kernels import spmm_ragged
 
-    t0 = time.perf_counter()
-    a = powerlaw_community_csr(**CPLAW, dtype=np.float32)
-    t_gen = time.perf_counter() - t0
-    b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
-    c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+    a, b, c_ref, t_gen, t_setup = fp32_case("cplaw")
     say(f"cplaw matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, generated in "
-        f"{t_gen:.2f} s, host set-up {time.perf_counter() - t0:.2f} s")
+        f"{t_gen:.2f} s, host set-up {t_setup:.2f} s")
     t0 = time.perf_counter()
     cover = spmm_ragged.ragged_cover(a.rowptr, a.colidx, 512, 128,
                                      spmm_ragged.default_min_chunk_nnz(512, 128))
@@ -946,9 +971,11 @@ def spill_library_ms(op, arrs, c, rB):
 
 def window_phase(device) -> None:
     """Kernel #4 against its plain version on a 4-shard pack (an empty
-    shard, pad groups) and a single shard with non-monotone windows."""
+    shard, pad groups) and a single shard with non-monotone windows; at x3
+    its C equal bit for bit to #1's on the same pair and receive buffer."""
     from crp_tpu_torch import CSRMatrix, banded_random_csr, csr_row_partition
     from crp_tpu_torch.kernels.dispatch import _pack_window
+    from crp_tpu_torch.kernels.spmm_pallas import spmm_window_sg_presplit
 
     for prec, dtype in (("x3", np.float32), ("default", np.float32),
                         ("highest", np.float32), ("highest", np.float64)):
@@ -973,10 +1000,17 @@ def window_phase(device) -> None:
         ):
             arrays, op = _pack_window(shards, max_m + 300, dtype, prec, device)
             check(op.variant == "window", f"window phase {label}: variant {op.variant}")
+            x3 = prec == "x3" and dtype == np.float32
+            want = (torch.bfloat16 if x3 else
+                    torch.float64 if dtype == np.float64 else torch.float32)
+            check(op.scheme == ("window_x3" if x3 else "window")
+                  and arrays[1].dtype == want,
+                  f"window phase {label} {prec}: scheme {op.scheme}, panels "
+                  f"{arrays[1].dtype}")
             G = arrays[0].shape[1]
             for n in (16, 37, 100, 256):
                 rB = torch.from_numpy(padded_b(a, op.min_b_rows, n, dtype)).to(device)
-                worst = 0.0
+                worst, diff1 = 0.0, 0.0
                 for i, sh in enumerate(shards):
                     arrs = tuple(x[i] for x in arrays)
                     _, rel, _ = kernel_vs_plain(op, arrs, rB)
@@ -985,10 +1019,17 @@ def window_phase(device) -> None:
                     check(not bool(torch.any(c[nrow:])),
                           f"window {label} shard {i}: pad rows not zero")
                     worst = max(worst, rel)
+                    if x3:  # #1 on the same pair: the same kernel body
+                        c1 = spmm_window_sg_presplit(*arrs, rB, min_b_rows=op.min_b_rows)
+                        diff1 = max(diff1, float((c1 - c).abs().max()))
+                        check(torch.equal(c1.view(torch.int32), c.view(torch.int32)),
+                              f"window {label} shard {i} n={n}: #4 differs from #1 "
+                              f"by {diff1}")
                 tol = TOL_PLAIN[dtype]
                 msg = (f"window spmm_window {prec:8s} {np.dtype(dtype).name} "
                        f"{label:12s} p={len(shards)} G={G} n={n:3d}: max rel err "
-                       f"{worst:.3e} (tol {tol:g})")
+                       f"{worst:.3e} (tol {tol:g})"
+                       + (f", max |C4 - C1| {diff1:.3e} (must be 0)" if x3 else ""))
                 check(worst <= tol, msg)
                 say(msg)
 
@@ -1005,9 +1046,12 @@ def stacked_b(b, displs, rows):
 
 def halo_phase(device) -> None:
     """The fused halo kernel (#12) against its plain version over 4 shards
-    in one launch at every point; rows past each shard's own zero."""
+    in one launch at every point; rows past each shard's own zero; at x3
+    its C equal bit for bit to #4 run shard by shard on the same pair with
+    the plain version's window buffers."""
     from crp_tpu_torch import banded_random_csr, csr_row_partition
-    from crp_tpu_torch.kernels.spmm_halo import align_displs, build_halo_plan
+    from crp_tpu_torch.kernels.spmm_halo import align_displs, build_halo_plan, halo_buffers
+    from crp_tpu_torch.kernels.spmm_pallas import spmm_window
 
     for prec, dtype in POINTS:
         a = banded_random_csr(6000, nnz_per_row=7, bandwidth=300, seed=97, dtype=dtype)
@@ -1025,9 +1069,21 @@ def halo_phase(device) -> None:
             for i in range(4):
                 check(not bool(torch.any(c[i, d[i + 1] - d[i]:])),
                       f"halo {prec} shard {i}: pad rows not zero")
+            x3 = prec == "x3" and dtype == np.float32
+            if x3:  # #4 per shard on the pushed window buffers
+                check(isinstance(args[2], tuple) and args[2][0].dtype == torch.bfloat16,
+                      "halo x3: the plan does not hold the bf16 pair")
+                buf = halo_buffers(args[3], args[5], op.buf_rows)
+                for i in range(4):
+                    c4 = spmm_window(args[1][i], tuple(t[i] for t in args[2]), buf[i],
+                                     "x3", min_b_rows=op.buf_rows)
+                    check(torch.equal(c4.view(torch.int32), c[i].view(torch.int32)),
+                          f"halo x3 shard {i} n={n}: #12 differs from #4 by "
+                          f"{float((c4 - c[i]).abs().max())}")
             tol = TOL_PLAIN[dtype]
             msg = (f"halo spmm_halo {prec:8s} {np.dtype(dtype).name} p=4 G={op.G} "
-                   f"W={op.W} n={n:3d}: max rel err {rel:.3e} (tol {tol:g})")
+                   f"W={op.W} n={n:3d}: max rel err {rel:.3e} (tol {tol:g})"
+                   + (", C equal to #4's per shard" if x3 else ""))
             check(rel <= tol, msg)
             say(msg)
 
@@ -1050,15 +1106,24 @@ def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto"):
     from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition
 
     d = csr_row_partition(a.rowptr, p)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
     eng = RowParaSpmm(a, d, d, N, device=device, dtype=np.float32,
                       config=SpmmConfig(kernel=kernel, mxu_precision=prec,
                                         rb_p2p=rb_p2p))
+    peak = torch.cuda.max_memory_allocated(device) - base
+    held = torch.cuda.memory_allocated(device) - base
     op = eng._local_op
     mode = "fused" if eng.is_halo else "ring" if rb_p2p else "a2a"
     tag = f"{tag} {prec} {mode}"
+    panels = [x for x in eng.packed if x.dim() >= 3]
     say(f"[{tag}] p={p} kernel={kernel!r}: kind {eng.kernel_kind}, variant "
         f"{op.variant}, init {eng.t_init:.3f} s, init_breakdown "
         f"{json.dumps(eng.init_breakdown)}, roofline {json.dumps(op.roofline)}")
+    say(f"[{tag}] init device memory: peak {peak / 1e9:.3f} GB, held after "
+        f"{held / 1e9:.3f} GB; panels "
+        f"{', '.join(f'{t.dtype} {tuple(t.shape)}' for t in panels)}")
     check((eng.kernel_kind, op.variant) == expect,
           f"{tag}: resolved to {eng.kernel_kind!r}/{op.variant!r}, expected {expect}")
     launches, _, exec_ms, bs = main_path(eng, b, c_ref, TOL_REF[prec], tag)
@@ -1082,12 +1147,7 @@ def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto"):
 def headline_p4(device) -> list:
     """The headline in 4 row shards: ``auto`` takes the fused kernel at
     every point; ``kernel="pallas"`` the exchange and #4 on every shard."""
-    from crp_tpu_torch import banded_random_csr, fill_b
-
-    a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=BANDWIDTH,
-                          seed=SEED, dtype=np.float32)
-    b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
-    c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+    a, b, c_ref = fp32_case("headline")[:3]
     halo = dict(launches=0, max_abs=0.0)
     for prec in PRECS:
         eng, op, bs, launches = drive_p(a, b, c_ref, 4, prec, device, "headline p=4",
@@ -1139,14 +1199,10 @@ def cplaw_p4(device) -> None:
     refuses (windows over 16384 rows), and the multi-shard ragged pack with
     the fused spill serves it, with the JAX record's exchange volumes; then
     the p = 8 exchange plan against the planner on the host."""
-    from crp_tpu_torch import (
-        csr_row_partition, fill_b, plan_from_csr, powerlaw_community_csr,
-    )
+    from crp_tpu_torch import csr_row_partition, plan_from_csr
     from crp_tpu_torch.comm.exchange import build_b_exchange
 
-    a = powerlaw_community_csr(**CPLAW, dtype=np.float32)
-    b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
-    c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+    a, b, c_ref = fp32_case("cplaw")[:3]
     eng, op, _, launches = drive_p(a, b, c_ref, 4, "x3", device, "cplaw p=4",
                                    ("pallas", "ragged"), 1)
     check(op.roofline["spill_impl"] == "pallas" and launches["spmm_spill"] == 4,
@@ -1176,14 +1232,10 @@ def cplaw_p4(device) -> None:
 def para2d_phase(device) -> None:
     """``Para2dSpmm``: the planner's grid on cplaw (n = 256, 4 ranks), then
     a forced 2 x 2 grid on the headline at x3."""
-    from crp_tpu_torch import (
-        Para2dSpmm, Plan2D, SpmmConfig, banded_random_csr, csr_row_partition,
-        fill_b, plan_from_csr, powerlaw_community_csr,
-    )
+    from crp_tpu_torch import Para2dSpmm, Plan2D, SpmmConfig, csr_row_partition, plan_from_csr
 
-    def run(a, plan, tag, expect):
-        b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
-        c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+    def run(case, plan, tag, expect):
+        a, b, c_ref = fp32_case(case)[:3]
         eng = Para2dSpmm(a, plan, device=device, dtype=np.float32,
                          config=SpmmConfig(kernel="auto", mxu_precision="x3"))
         op = eng._local_op
@@ -1197,23 +1249,22 @@ def para2d_phase(device) -> None:
               f"{tag}: {eng.kernel_kind}/{op.variant}, launches {launches}")
         return eng
 
-    a = powerlaw_community_csr(**CPLAW, dtype=np.float32)
+    a = fp32_case("cplaw")[0]
     plan = plan_from_csr(a, N, 4)
     say(f"[para2d cplaw] planner: {plan.pm} x {plan.pn}, comm_cost {plan.comm_cost}")
     check((plan.pm, plan.pn) == (1, 4), f"para2d cplaw: planner grid {plan.pm} x {plan.pn}")
-    eng = run(a, plan, "para2d cplaw", ("pallas", "ragged"))
+    eng = run("cplaw", plan, "para2d cplaw", ("pallas", "ragged"))
     check((eng.rA_cost, eng.rB_recv_size) == (CPLAW_2D_RA_COST, 0),
           f"para2d cplaw: rA_cost {eng.rA_cost}, rB_recv_size {eng.rB_recv_size}")
     del eng
     torch.cuda.empty_cache()
 
-    a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=BANDWIDTH,
-                          seed=SEED, dtype=np.float32)
+    a = fp32_case("headline")[0]
     rb = csr_row_partition(a.rowptr, 4)
     plan = Plan2D(nproc=4, m=a.nrow, n=N, k=a.ncol, pm=2, pn=2, comm_cost=0,
                   A0_rowptr=rb, B_rowptr=rb[::2].copy(), AC_rowptr=rb[::2].copy(),
                   BC_colptr=np.array([0, N // 2, N]))
-    run(a, plan, "para2d headline forced", ("pallas_halo", "halo"))
+    run("headline", plan, "para2d headline forced", ("pallas_halo", "halo"))
     torch.cuda.empty_cache()
 
 
@@ -1231,16 +1282,23 @@ def tf32x3_layouts(build) -> None:
 
 
 def x3_layout(build) -> None:
-    """Print the ring of the x3 wgmma body (#1, and #5 as its mode) once:
-    stages, dynamic shared memory, threads, the block tile, and for each of
-    its kernels (#1 with 16-byte or plain B copies, #5 likewise on the bf16
-    planes) registers, spill bytes and resident blocks per SM, which must be
-    0 and at least 1."""
-    lay = build.x3_layout()
-    say(f"[x3] crp_window_sg_presplit / _ab: {json.dumps(lay)}")
-    for copy in ("b16", "b4", "pair16", "pair2"):
-        check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 1,
-              f"x3 wgmma ({copy}): {lay}: spills, or no block fits an SM")
+    """Print the ring of the x3 wgmma body once per library that builds it
+    (#1 and #5 as its mode, #4, #12): stages, dynamic shared memory,
+    threads, the block tile, and for each of its kernels (fp32 B by 16-byte
+    or plain copies, #5's likewise on the bf16 planes, #12's through the
+    chunk table) registers, spill bytes and resident blocks per SM, which
+    must be 0 and at least 1."""
+    for name, label, copies in (
+        ("crp_window_sg_presplit", "crp_window_sg_presplit / _ab",
+         ("b16", "b4", "pair16", "pair2")),
+        ("crp_window_x3", "crp_window_x3", ("b16", "b4")),
+        ("crp_halo_x3", "crp_halo_x3", ("chunk16", "chunk4")),
+    ):
+        lay = build.x3_layout(name)
+        say(f"[x3] {label}: {json.dumps(lay)}")
+        for copy in copies:
+            check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 1,
+                  f"x3 wgmma {name} ({copy}): {lay}: spills, or no block fits an SM")
 
 
 def main() -> int:

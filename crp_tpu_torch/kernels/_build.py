@@ -40,11 +40,11 @@ _ENTRIES = {
     "crp_window_sg_bf16": ("window_sg", 4, ("G", "TM", "W", "n")),
     "crp_window_sg_f32": ("window_sg", 4, ("G", "TM", "W", "n")),
     "crp_window_sg_f64": ("window_sg", 4, ("G", "TM", "W", "n")),
-    "crp_window_x3": ("window", 4, ("G", "TM", "W", "n")),
+    "crp_window_x3": ("window", 5, ("G", "TM", "W", "n")),
     "crp_window_bf16": ("window", 4, ("G", "TM", "W", "n")),
     "crp_window_f32": ("window", 4, ("G", "TM", "W", "n")),
     "crp_window_f64": ("window", 4, ("G", "TM", "W", "n")),
-    "crp_halo_x3": ("halo", 5, ("G", "TM", "W", "n")),
+    "crp_halo_x3": ("halo", 6, ("G", "TM", "W", "n")),
     "crp_halo_bf16": ("halo", 5, ("G", "TM", "W", "n")),
     "crp_halo_f32": ("halo", 5, ("G", "TM", "W", "n")),
     "crp_halo_f64": ("halo", 5, ("G", "TM", "W", "n")),
@@ -152,14 +152,17 @@ def tf32x3_layout(name: str) -> dict:
     return _report(name, "crp_tf32x3_layout")
 
 
-def x3_layout() -> dict:
-    """The ring of the x3 wgmma body (#1 ``crp_window_sg_presplit`` and #5
-    ``crp_window_sg_presplit_ab``) as ``crp_x3_layout`` reports it: stages,
-    dynamic shared memory, threads, block tile and, for #1's kernels with
-    16-byte and plain B copies (``b16.*``, ``b4.*``) and #5's
-    (``pair16.*``, ``pair2.*``), registers, local (spill) bytes and
-    resident blocks per SM."""
-    return _report("crp_window_sg_presplit", "crp_x3_layout")
+def x3_layout(name: str = "crp_window_sg_presplit") -> dict:
+    """The ring of the x3 wgmma body in the library of entry ``name`` as
+    its ``crp_x3_layout`` reports it: stages, dynamic shared memory,
+    threads, block tile and, per kernel, registers, local (spill) bytes and
+    resident blocks per SM.  The kernels: fp32 B by 16-byte and by plain
+    copies (``b16.*``, ``b4.*``: #1 in ``window_sg``, #4
+    ``crp_window_x3`` in ``window``), #5's on the bf16 B planes
+    (``pair16.*``, ``pair2.*``, ``window_sg``), and #12 ``crp_halo_x3``'s
+    with B's rows through the chunk table (``chunk16.*``, ``chunk4.*``,
+    ``halo``)."""
+    return _report(name, "crp_x3_layout")
 
 
 def check(rc: int, name: str) -> None:

@@ -4,14 +4,14 @@
 //
 //     C[(i*G + g)*TM + r, j] = sum_{k < W} A[i, g, r, k] * B[ws[i, g] + k, j]
 //
-// with A the fp32 (or fp64) dense (p, G, TM, W) window panels, ws the
-// global window starts (multiples of 128), B the global B, and C the
-// (p*G*TM, n) output.  B is never assembled: it is the (p*max_k, n) stack of
-// the shards' own row blocks, and global row r is row
-// chunk_src[r / 128] + r % 128 of that stack, in the shard that owns it
-// (ownership boundaries are 128-row aligned), or zero past the matrix
-// (chunk_src -1).  So each row group reads its window straight from the
-// owners' rows, with no receive buffer and no exchange copy.
+// with A the dense (p, G, TM, W) window panels, ws the global window starts
+// (multiples of 128), B the global B, and C the (p*G*TM, n) output.  B is
+// never assembled: it is the (p*max_k, n) stack of the shards' own row
+// blocks, and global row r is row chunk_src[r / 128] + r % 128 of that
+// stack, in the shard that owns it (ownership boundaries are 128-row
+// aligned), or zero past the matrix (chunk_src -1).  So each row group
+// reads its window straight from the owners' rows, with no receive buffer
+// and no exchange copy.
 //
 // Replaces crp_tpu/kernels/spmm_halo.py _halo_kernel (wrapper
 // halo_spmm_local).  On a TPU each shard is its own chip: the kernel pushes
@@ -22,29 +22,41 @@
 // the push becomes the read through chunk_src, and stream order (B written
 // before the launch, C read after it) is the barrier.  At the pack's
 // operating point, as the TPU kernel:
-//   crp_halo_x3    <- "x3": A and B split to bf16 hi/lo in RNE on the load
-//                     path, acc += al*bh + ah*bl + ah*bh in fp32
-//   crp_halo_bf16  <- DEFAULT: A and B rounded to bf16 (RNE), one product
+//   crp_halo_x3    <- "x3": the panels arrive as bf16 hi/lo, split once in
+//                     RNE when they are packed, B split to bf16 hi/lo in
+//                     registers, acc += al*bh + ah*bl + ah*bh in fp32: #4's
+//                     wgmma body fed by TMA (x3_wgmma.cuh) with the chunk
+//                     lookup on the producer's B copy, once a 64-row stage
+//   crp_halo_bf16  <- DEFAULT: fp32 A and B rounded to bf16 (RNE), one
+//                     product (the wmma body of panel_tiles.cuh)
 //   crp_halo_f32   <- HIGHEST: 3xTF32 on the TF32 tensor cores
 //                     (panel_tf32x3_kernel, #4's crp_window_f32 body): a
 //                     4-stage cp.async ring, dead chunks zero-filled by
 //                     the copy, three TF32 products per k step
 //   crp_halo_f64   <- fp64 panels: fp64 FMA
-// The tile bodies are the windowed kernels' (panel_tiles.cuh, #4 of
-// window.cu) with the chunk lookup on the B load; the per-32-row IEEE sums
-// are theirs too.  At the p = 4 headline (4 x 214 groups, W = 5632, n =
-// 256) the three TF32 passes are 1.89 TFLOP: 3.83 ms at 495 TF/s.
+// Each body is #4's (window.cu) with the chunk lookup on the B load, the
+// per-32-row IEEE sums included.  At the p = 4 headline (4 x 214 groups,
+// W = 5632, n = 256) a pass is 632 GFLOP: x3's three bf16 passes 1.92 ms
+// at 989 TF/s (over 4.94 GB of hi/lo panels, 1.47 ms at 3.35 TB/s),
+// HIGHEST's three TF32 passes 3.83 ms at 495 TF/s.
 
 #include "panel_tiles.cuh"
+#include "x3_wgmma.cuh"
 
 extern "C" {
 
-int crp_halo_x3(const void* chunk_src, const void* ws, const void* tiles,
-                const void* b, void* c, int64_t G, int64_t TM, int64_t W,
-                int64_t n, void* stream)
+int crp_halo_x3(const void* chunk_src, const void* ws, const void* ah,
+                const void* al, const void* b, void* c, int64_t G, int64_t TM,
+                int64_t W, int64_t n, void* stream)
 {
-    return crp::launch_mma<true, true, true>(nullptr, ws, tiles, nullptr, b, c,
-                                             G, TM, W, n, stream, chunk_src);
+    return crp::launch_x3_wgmma<false, true>(ws, ah, al, b, nullptr, c, G, TM, W,
+                                             n, stream, chunk_src);
+}
+
+// crp_halo_x3's ring and resources (crp::x3_layout)
+int crp_x3_layout(char* out, int len)
+{
+    return crp::x3_layout<false, true>(out, len);
 }
 
 int crp_halo_bf16(const void* chunk_src, const void* ws, const void* tiles,

@@ -1,5 +1,5 @@
-// Tile kernels shared by the windowed (window_sg.cu) and the ragged
-// (ragged.cu) SpMM entries.
+// Tile kernels shared by the windowed (window_sg.cu, window.cu), the fused
+// halo (halo.cu) and the ragged (ragged.cu) SpMM entries.
 //
 // A pack covers G row groups of TM rows.  Group g owns the chunks
 // s in [s_begin(g), s_end(g)); chunk s is a dense (TM, W) panel of A over
@@ -28,12 +28,13 @@
 // fastest, so the N tiles of one (group, M tile) run on neighbouring blocks
 // and the later reads of an A slice come from L2.
 //
-// Three tile bodies: panel_mma_kernel (bf16 wmma, x3 and default; one
-// shared-memory stage, the next slice staged through registers),
-// panel_fma_kernel (fp32 / fp64 FMA, the same staging) and
+// Three tile bodies: panel_mma_kernel (bf16 wmma: x3 on a bf16 hi/lo
+// pack, and default; one shared-memory stage, the next slice staged through
+// registers), panel_fma_kernel (fp32 / fp64 FMA, the same staging) and
 // panel_tf32x3_kernel (fp32 at HIGHEST on the TF32 tensor cores, fed by a
-// cp.async shared-memory ring; see its section).  The super-grouped x3
-// kernels (#1, #5) run on wgmma fed by TMA instead (x3_wgmma.cuh).
+// cp.async shared-memory ring; see its section).  The x3 kernels of the
+// uniform packs (#1, #5, #4 and #12) run on wgmma fed by TMA instead
+// (x3_wgmma.cuh).
 
 #pragma once
 
@@ -88,38 +89,29 @@ constexpr int B_LD = MMA_BN + 8;  // for wmma, padded against bank conflicts
 constexpr int A_VECS = MMA_BM * MMA_BK / 8 / MMA_THREADS;  // uint4 per thread
 constexpr int B_ELEMS = MMA_BK * MMA_BN / MMA_THREADS;     // per thread
 
-// RNE bf16 bits of x, and of the remainder x - hi when LO: the split of
-// np_split_bf16 and of the pack's device split, never a truncation.
-__device__ __forceinline__ uint32_t bf16_bits(float x)
-{
-    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-template <bool LO>
-__device__ __forceinline__ void split8(const float4 (&v)[2], uint4& hi, uint4& lo)
+// 8 fp32 values rounded to bf16 in RNE (the rounding of np_split_bf16's
+// hi and of the pack's device split, never a truncation), packed in order
+__device__ __forceinline__ void round8(const float4 (&v)[2], uint4& hi)
 {
     const float x[8] = {v[0].x, v[0].y, v[0].z, v[0].w,
                         v[1].x, v[1].y, v[1].z, v[1].w};
-    uint32_t h[4], l[4];
+    uint32_t h[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
         const bf16 h0 = __float2bfloat16_rn(x[2 * q]);
         const bf16 h1 = __float2bfloat16_rn(x[2 * q + 1]);
         // element 2q at the lower address: the low half of the word
         h[q] = __bfloat16_as_ushort(h0) | ((uint32_t)__bfloat16_as_ushort(h1) << 16);
-        if constexpr (LO)
-            l[q] = bf16_bits(x[2 * q] - __bfloat162float(h0))
-                   | (bf16_bits(x[2 * q + 1] - __bfloat162float(h1)) << 16);
     }
     hi = make_uint4(h[0], h[1], h[2], h[3]);
-    if constexpr (LO) lo = make_uint4(l[0], l[1], l[2], l[3]);
 }
 
-// X3: three bf16 products (al*bh + ah*bl + ah*bh); !X3: one (ah*bh).
-// A_F32: A arrives as fp32 panels and is split (X3) or rounded (!X3) to
-// bf16 here, on its way to shared memory; else A arrives as bf16 hi (and
-// lo for X3).  B arrives as fp32 and is split or rounded here when X3 or
-// A_F32, else as bf16 (cast by the caller).
+// X3: three bf16 products (al*bh + ah*bl + ah*bh) on A's bf16 hi and lo
+// (the ragged x3 pack); !X3: one (ah*bh).  A_F32 (!X3 only): A arrives as
+// fp32 panels and is rounded to bf16 here, on its way to shared memory;
+// else as bf16.  B arrives as fp32 and is split (X3) or rounded (A_F32)
+// here, else as bf16 (cast by the caller).  The uniform x3 packs hold the
+// bf16 pair too, and run on wgmma (x3_wgmma.cuh).
 template <bool X3, bool A_F32 = false, bool CHUNKED = false>
 __global__ void __launch_bounds__(MMA_THREADS)
 panel_mma_kernel(const int32_t* __restrict__ group_ptr,
@@ -131,6 +123,7 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
                  int64_t TM, int64_t W, int64_t n, int64_t n_tiles,
                  const int32_t* __restrict__ chunk_src)
 {
+    static_assert(!(X3 && A_F32), "x3 takes A as its bf16 hi/lo pair");
     constexpr bool B_F32 = X3 || A_F32;
     __shared__ __align__(128) bf16 As_h[MMA_BM][A_LD];
     __shared__ __align__(128) bf16 As_l[X3 ? MMA_BM : 1][A_LD];
@@ -202,7 +195,7 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
         for (int i = 0; i < A_VECS; ++i) {
             const int idx = tid + i * MMA_THREADS;
             const int r = idx >> 2, k8 = (idx & 3) * 8;
-            if constexpr (A_F32) split8<X3>(ra_f[i], ra_h[i], ra_l[i]);
+            if constexpr (A_F32) round8(ra_f[i], ra_h[i]);
             *reinterpret_cast<uint4*>(&As_h[r][k8]) = ra_h[i];
             if constexpr (X3) *reinterpret_cast<uint4*>(&As_l[r][k8]) = ra_l[i];
         }

@@ -85,7 +85,7 @@ int crp_tf32x3_layout(char* out, int len)
 // the x3 wgmma body's ring and resources (crp::x3_layout)
 int crp_x3_layout(char* out, int len)
 {
-    return crp::x3_layout(out, len);
+    return crp::x3_layout<true, false>(out, len);
 }
 
 int crp_window_sg_f64(const void* ws, const void* tiles, const void* b,

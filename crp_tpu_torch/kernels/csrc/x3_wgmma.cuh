@@ -1,7 +1,8 @@
-// The x3 tile body of the super-grouped windowed kernels #1
-// (crp_window_sg_presplit) and #5 (crp_window_sg_presplit_ab) on Hopper's
-// warpgroup tensor-core instructions (wgmma), fed by TMA.  Included only by
-// window_sg.cu.
+// The x3 wgmma tile body, fed by TMA, of the windowed kernels on bf16 hi/lo
+// panels: the super-grouped #1 (crp_window_sg_presplit) and #5
+// (crp_window_sg_presplit_ab) in window_sg.cu, the non-super-grouped #4
+// (crp_window_x3, every multi-shard pack) in window.cu, and the fused halo
+// kernel #12 (crp_halo_x3) in halo.cu.
 //
 // A uniform pack: group g holds the bf16 hi and lo (TM, W) panels of A
 // over the B rows [ws[g], ws[g] + W), and
@@ -11,7 +12,16 @@
 // with B split here to bf16 hi/lo in RNE (x - hi exact in fp32, then
 // rounded), or arriving pre-split as two bf16 planes (B_PAIR, #5: the
 // caller's split is the same RNE split, so the products and C are #1's
-// bit for bit).
+// bit for bit).  The panels are split once when they are packed: the
+// multi-shard packs of #4 and #12 densify straight to the pair (TMA copies
+// bytes and cannot split), the same RNE split the TPU kernels make of their
+// fp32 panels on every read.
+//
+// With CHUNKED (#12) B row r is row chunk_src[r / HALO_TK] + r % HALO_TK
+// of b, the row of the shard that owns it, or zero where chunk_src holds
+// -1 (past the matrix).  Every window start is a multiple of HALO_TK, so a
+// 64-row stage never straddles two chunks: the producer looks its chunk up
+// once a stage.  The other kernels compile without the lookup.
 //
 // The body computes the transposed product, C^T = B^T A^T, so that each
 // operand sits where wgmma wants it:
@@ -19,15 +29,16 @@
 //     (N = 128 panel rows a block).  TMA copies each (128 x 64) hi and lo
 //     tile straight into a ring of X3_STAGES shared-memory stages with
 //     128-byte swizzle, completing on an mbarrier; no thread touches these,
-//     the dominant bytes.  The tensor maps span the (G*TM, W) bf16 views;
-//     columns past W come in as zeros (the tensor's edge);
+//     the dominant bytes.  The tensor maps span the (G*TM, W) bf16 views
+//     (for #12 the p shards' groups, flattened); columns past W come in as
+//     zeros (the tensor's edge);
 //   * B's slice is wgmma's register operand (M = 64 columns of B per
 //     consumer warpgroup).  One producer warp copies it into the same stage
 //     as fp32 with cp.async (16-byte copies, or, when n or B's alignment
-//     forbids them, plain loads and stores; rows past W and columns past n
-//     are zeros), and each consumer thread reads its m64 x k16 fragment
-//     elements and splits them to bf16 hi/lo in registers.  No split plane
-//     is written back.
+//     forbids them, plain loads and stores; rows past W, rows of a dead
+//     chunk and columns past n are zeros), and each consumer thread reads
+//     its m64 x k16 fragment elements and splits them to bf16 hi/lo in
+//     registers.  No split plane is written back.
 // Per k16 step three wgmma.m64n128k16 run, small terms first as in every
 // x3 kernel: (bh, A_lo), (bl, A_hi), (bh, A_hi).  The products of each
 // 32-row k slice go into a fresh accumulator (wgmma's scale-d = 0), added
@@ -46,9 +57,12 @@
 // shared memory and writes C row-major with 16-byte stores; n is masked,
 // never padded.
 //
-// What bounds it on an H100 at the headline (G = 852, TM = 256, W = 5632,
-// n = 256): three bf16 passes, 1.89 TFLOP (1.91 ms at 989 TF/s), over
-// 4.91 GB of hi/lo panels (1.47 ms at 3.35 TB/s).  Every block also reads
+// What bounds it on an H100 (three bf16 passes at 989 TF/s against the
+// hi/lo panels once from HBM at 3.35 TB/s): at the p = 1 headline (G = 852,
+// TM = 256, W = 5632, n = 256) 1.89 TFLOP, 1.91 ms, over 4.91 GB of panels
+// (1.47 ms); at one p = 4 headline shard (#4: G = 214, W = 5632) 0.47
+// TFLOP, 0.48 ms, over 1.23 GB (0.37 ms); over all four shards (#12: 4 x
+// 214 groups) 1.90 TFLOP, 1.92 ms, over 4.94 GB.  Every block also reads
 // its B window (64 rows x 128 columns a stage, as many bytes as the two
 // panel tiles) from L2.
 
@@ -289,7 +303,7 @@ __device__ __forceinline__ void x3_fragments(const uint8_t* stage_b, int kk, int
     }
 }
 
-template <bool B_PAIR, bool B_VEC>
+template <bool B_PAIR, bool B_VEC, bool CHUNKED = false>
 __global__ void __launch_bounds__(X3_THREADS, 1)
 x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 const __grid_constant__ CUtensorMap a_lo,
@@ -297,8 +311,10 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 const void* __restrict__ b,
                 const bf16* __restrict__ b_lo,
                 float* __restrict__ c,
-                int64_t TM, int W, int n, int n_tiles)
+                int64_t TM, int W, int n, int n_tiles,
+                const int32_t* __restrict__ chunk_src)
 {
+    static_assert(!(CHUNKED && B_PAIR), "the chunk lookup reads fp32 B");
     extern __shared__ __align__(16) uint8_t x3_smem_raw[];
     uint8_t* const smem =
         x3_smem_raw + ((1024 - (smem_u32(x3_smem_raw) & 1023)) & 1023);
@@ -332,7 +348,15 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 tma_load(smem_u32(st), &a_hi, full0 + 8 * s, t * X3_BK, (int)row0);
                 tma_load(smem_u32(st) + X3_A_TILE, &a_lo, full0 + 8 * s, t * X3_BK, (int)row0);
             }
-            x3_load_b<B_PAIR, B_VEC>(st + 2 * X3_A_TILE, b, b_lo, b_row0, t * X3_BK, W, n,
+            int64_t b_row = b_row0;  // stage row k is row b_row + t X3_BK + k of b
+            int w_end = W;           // stage rows at or past it are zeros
+            if constexpr (CHUNKED) {  // the stage lies in one chunk (see above)
+                const int64_t r = b_row0 + t * X3_BK;
+                const int32_t src = chunk_src[r / HALO_TK];
+                b_row = src + r % HALO_TK - t * X3_BK;
+                w_end = src >= 0 ? W : 0;  // a dead chunk: every row zero
+            }
+            x3_load_b<B_PAIR, B_VEC>(st + 2 * X3_A_TILE, b, b_lo, b_row, t * X3_BK, w_end, n,
                                      n0, lane, full0 + 8 * s);
         }
         cp_async_commit();
@@ -455,22 +479,27 @@ inline cudaError_t panel_map(CUtensorMap* map, const void* panels, int64_t rows,
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool B_PAIR, bool B_VEC>
+template <bool B_PAIR, bool B_VEC, bool CHUNKED = false>
 cudaError_t x3_prepare()
 {
-    return cudaFuncSetAttribute(x3_wgmma_kernel<B_PAIR, B_VEC>,
+    return cudaFuncSetAttribute(x3_wgmma_kernel<B_PAIR, B_VEC, CHUNKED>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, X3_SMEM);
 }
 
 // B_PAIR: b is B's bf16 hi plane and b_lo its lo plane (split_b_bf16);
 // else b is fp32 B.  The panels must be 16-byte aligned (TMA); B of any
-// alignment (16-byte copies where n and B allow them).
-template <bool B_PAIR>
+// alignment (16-byte copies where n and B allow them).  CHUNKED: B's rows
+// through chunk_src (see above), and every ws a multiple of HALO_TK.
+template <bool B_PAIR, bool CHUNKED = false>
 int launch_x3_wgmma(const void* ws, const void* ah, const void* al, const void* b,
                     const void* b_lo, void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
-                    void* stream)
+                    void* stream, const void* chunk_src = nullptr)
 {
-    if (G < 0 || TM <= 0 || TM % X3_BN || W <= 0 || W % X3_SLICE || n < 0)
+    // a stage starts a multiple of X3_BK rows past a HALO_TK-aligned window
+    // start: it lies in one B chunk
+    static_assert(HALO_TK % X3_BK == 0, "a 64-row stage never straddles two B chunks");
+    if (G < 0 || TM <= 0 || TM % X3_BN || W <= 0 || W % X3_SLICE || n < 0
+        || (CHUNKED && !chunk_src))
         return (int)cudaErrorInvalidValue;
     if ((uintptr_t)ah % 16 || (uintptr_t)al % 16) return (int)cudaErrorMisalignedAddress;
     const int64_t n_tiles = (n + X3_BM - 1) / X3_BM;
@@ -484,40 +513,51 @@ int launch_x3_wgmma(const void* ws, const void* ah, const void* al, const void* 
     if (e != cudaSuccess) return (int)e;
     const bool vec = n % (B_PAIR ? 8 : 4) == 0 && (uintptr_t)b % 16 == 0
                      && (!B_PAIR || (uintptr_t)b_lo % 16 == 0);
-    e = vec ? x3_prepare<B_PAIR, true>() : x3_prepare<B_PAIR, false>();
+    e = vec ? x3_prepare<B_PAIR, true, CHUNKED>() : x3_prepare<B_PAIR, false, CHUNKED>();
     if (e != cudaSuccess) return (int)e;
-    const auto kernel = vec ? x3_wgmma_kernel<B_PAIR, true> : x3_wgmma_kernel<B_PAIR, false>;
+    const auto kernel = vec ? x3_wgmma_kernel<B_PAIR, true, CHUNKED>
+                            : x3_wgmma_kernel<B_PAIR, false, CHUNKED>;
     kernel<<<(unsigned)blocks, X3_THREADS, X3_SMEM, (cudaStream_t)stream>>>(
         hi, lo, static_cast<const int32_t*>(ws), b, static_cast<const bf16*>(b_lo),
-        static_cast<float*>(c), TM, (int)W, (int)n, (int)n_tiles);
+        static_cast<float*>(c), TM, (int)W, (int)n, (int)n_tiles,
+        static_cast<const int32_t*>(chunk_src));
     return (int)cudaGetLastError();
 }
 
-template <bool B_PAIR, bool B_VEC>
+template <bool B_PAIR, bool B_VEC, bool CHUNKED = false>
 cudaError_t x3_resources(const char* copy, char* out, int len)
 {
-    const cudaError_t e = x3_prepare<B_PAIR, B_VEC>();
+    const cudaError_t e = x3_prepare<B_PAIR, B_VEC, CHUNKED>();
     if (e != cudaSuccess) return e;
-    return kernel_resources(x3_wgmma_kernel<B_PAIR, B_VEC>, X3_THREADS, X3_SMEM, copy, out,
-                            len);
+    return kernel_resources(x3_wgmma_kernel<B_PAIR, B_VEC, CHUNKED>, X3_THREADS, X3_SMEM,
+                            copy, out, len);
 }
 
-// The ring and resources of the x3 wgmma kernels as "key=value" pairs
-// separated by spaces (at most len bytes, NUL included): stages, dynamic
-// shared memory bytes, threads and block tile (BM columns of B, BN panel
-// rows, BK k rows a stage), then per kernel its resources: "b16" and
-// "b4" (#1, fp32 B by 16-byte copies or by plain 4-byte loads), "pair16"
-// and "pair2" (#5, the bf16 planes likewise)
+// The ring and resources of the x3 wgmma kernels of one library as
+// "key=value" pairs separated by spaces (at most len bytes, NUL included):
+// stages, dynamic shared memory bytes, threads and block tile (BM columns
+// of B, BN panel rows, BK k rows a stage), then per kernel its resources:
+// "b16" and "b4" (#1 and #4, fp32 B by 16-byte copies or by plain 4-byte
+// loads), with PAIR "pair16" and "pair2" (#5, the bf16 planes likewise),
+// with CHUNKED "chunk16" and "chunk4" in their place (#12, B's rows through
+// chunk_src)
+template <bool PAIR, bool CHUNKED>
 inline int x3_layout(char* out, int len)
 {
+    static_assert(!(PAIR && CHUNKED), "no library builds both");
     int used = snprintf(out, len, "stages=%d smem_bytes=%d threads=%d BM=%d BN=%d BK=%d",
                         X3_STAGES, X3_SMEM, X3_THREADS, X3_BM, X3_BN, X3_BK);
     using Report = cudaError_t (*)(const char*, char*, int);
-    const struct { const char* copy; Report report; } kernels[] = {
-        {"b16", x3_resources<false, true>}, {"b4", x3_resources<false, false>},
-        {"pair16", x3_resources<true, true>}, {"pair2", x3_resources<true, false>}};
-    for (const auto& k : kernels) {
-        const cudaError_t e = k.report(k.copy, out + used, len - used);
+    struct Kernel { const char* copy; Report report; };
+    Kernel kernels[4] = {{CHUNKED ? "chunk16" : "b16", x3_resources<false, true, CHUNKED>},
+                         {CHUNKED ? "chunk4" : "b4", x3_resources<false, false, CHUNKED>}};
+    int count = 2;
+    if constexpr (PAIR) {
+        kernels[count++] = {"pair16", x3_resources<true, true>};
+        kernels[count++] = {"pair2", x3_resources<true, false>};
+    }
+    for (int i = 0; i < count; ++i) {
+        const cudaError_t e = kernels[i].report(kernels[i].copy, out + used, len - used);
         if (e != cudaSuccess) return (int)e;
         used += (int)strlen(out + used);
     }

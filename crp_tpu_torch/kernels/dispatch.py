@@ -8,11 +8,11 @@ tensors with their leading shard axis stripped.  Ported kinds:
   * ``"segsum"`` — gather + ``index_add_`` (any CSR, any device, exact);
   * ``"pallas"`` — the windowed family with the JAX package's gate between
     its two packs: the uniform windows (super-grouped for one shard with
-    monotone windows, else the non-super-grouped kernel #4 on fp32
-    panels), or the ragged gathered-window chunks (+ spill) where the
-    uniform window is refused or over 3x a ragged cover; one pack per
-    operating point (``x3``, ``default``, ``highest``; fp64 data takes the
-    fp64 FMA kernels);
+    monotone windows, else the non-super-grouped kernel #4 on fp32 panels,
+    at ``x3`` on their bf16 hi/lo pair), or the ragged gathered-window
+    chunks (+ spill) where the uniform window is refused or over 3x a
+    ragged cover; one pack per operating point (``x3``, ``default``,
+    ``highest``; fp64 data takes the fp64 FMA kernels);
   * ``"ragged"`` — the ragged pack directly;
   * ``"gather"`` — every nonzero through the block-step gather kernel
     (fp32, any CSR: the scrambled power-law graphs the ragged cover
@@ -214,7 +214,10 @@ class WindowOp:
     ``bases`` stays in the pack for parity with the JAX pack, the Hopper
     kernels read only ``ws``.  On a pack with no super-group plan (variant
     ``"window"``, every multi-shard pack): ``"window"`` (ws, tiles), fp32 or
-    fp64 panels, the operating point ``precision`` applied in the kernel.
+    fp64 panels, the operating point ``precision`` applied in the kernel;
+    ``"window_x3"`` (ws, ah, al) at ``x3`` on fp32, the panels split to
+    their bf16 hi/lo pair once at pack time, as kernel #4's ``wgmma`` body
+    reads them (the kernel's arguments take the pair as one ``(ah, al)``).
     ``min_b_rows``: rows rB must have.
     """
 
@@ -225,7 +228,7 @@ class WindowOp:
 
     @property
     def variant(self) -> str:
-        return "window" if self.scheme == "window" else "uniform"
+        return "window" if self.scheme in ("window", "window_x3") else "uniform"
 
     @property
     def kernel(self):
@@ -235,6 +238,7 @@ class WindowOp:
             "bf16": spmm_window_sg_bf16,
             "full": spmm_window_sg,
             "window": spmm_window,
+            "window_x3": spmm_window,
         }[self.scheme]
 
     @property
@@ -245,6 +249,7 @@ class WindowOp:
             "bf16": spmm_window_sg_bf16_plain,
             "full": spmm_window_sg_plain,
             "window": spmm_window_plain,
+            "window_x3": spmm_window_plain,
         }[self.scheme]
 
     def kernel_args(self, arrs, rB) -> tuple:
@@ -259,6 +264,9 @@ class WindowOp:
         if self.scheme == "window":
             ws, tiles = arrs
             return ws, tiles, rB, self.precision
+        if self.scheme == "window_x3":
+            ws, ah, al = arrs
+            return ws, (ah, al), rB, self.precision
         ws, tiles, _ = arrs
         return ws, tiles, rB
 
@@ -448,7 +456,7 @@ def _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device):
     """The uniform windowed pack (``dispatch.py:611-812``): one shard with a
     super-group plan takes the super-grouped kernels; several shards, or
     one with no plan (non-monotone windows), take the non-super-grouped
-    kernel #4 on fp32 (or fp64) panels."""
+    kernel #4 on fp32 (or fp64) panels, at x3 on their bf16 hi/lo pair."""
     dt = np.dtype(dtype)
     if dt not in (np.float32, np.float64):
         raise UnsupportedSparsity(f"no windowed kernel for dtype {dt}")
@@ -504,10 +512,13 @@ def _window_geometry(shard, max_m, win_itemsize, tile_itemsize, device):
 def _pack_window(shards, max_m, dtype, mxu_precision, device):
     """The pack of kernel #4 (``dispatch.py:633-668,793-812``): each
     shard's window panels at a shared chunk-exact W and group count G,
-    ``(p, G, TM, W)`` fp32 or fp64 panels densified on the device; an
-    empty shard gets zero panels with ``ws`` 0.  The panels stay in the
-    pack's dtype at every operating point (the JAX pack): the kernel splits
-    or rounds them."""
+    ``(p, G, TM, W)`` panels densified on the device; an empty shard gets
+    zero panels with ``ws`` 0.  At ``x3`` on fp32 the panels are split to
+    their bf16 hi/lo pair once here (``device_pack.split_bf16`` of the JAX
+    pack's fp32 panels, bit for bit: the split the TPU kernel makes on
+    every read, which TMA cannot make); otherwise they stay in the pack's
+    dtype (the JAX pack) and the kernel rounds them.  ``a_bytes`` is the
+    same either way: two bf16 planes are the bytes of one fp32 plane."""
     TM = 256
     itemsize = np.dtype(dtype).itemsize
     got = [_shard_window(s, TM, itemsize) for s in shards]
@@ -516,17 +527,20 @@ def _pack_window(shards, max_m, dtype, mxu_precision, device):
         raise UnsupportedSparsity("all shards empty")
     G = max(max(g[2] for g in real), -(-max_m // TM))
     W, _, _ = choose_chunks(max(g[1] for g in real))
-    ws, tiles, _ = device_pack.uniform_fill_stacked(
+    split = itemsize == 4 and mxu_precision == "x3"
+    ws, ah, al = device_pack.uniform_fill_stacked(
         shards, [None if g is None else g[0] for g in got], TM, W, G,
-        "f64" if itemsize == 8 else "f32", device,
+        "f64" if itemsize == 8 else "pair" if split else "f32", device,
     )
+    panels = (ah, al) if split else (ah,)
     roofline = dict(
-        G=G, TM=TM, W=W, a_bytes=tiles.numel() * tiles.element_size(),
+        G=G, TM=TM, W=W, a_bytes=sum(t.numel() * t.element_size() for t in panels),
         b_rows_read=G * W, c_rows=G * TM, b_itemsize=itemsize,
         passes={"x3": 3, "highest": 6, "default": 1}.get(mxu_precision, 1),
     )
-    return ((torch.from_numpy(ws).to(device), tiles),
-            WindowOp("window", int(ws.max()) + W, roofline, mxu_precision))
+    return ((torch.from_numpy(ws).to(device), *panels),
+            WindowOp("window_x3" if split else "window", int(ws.max()) + W,
+                     roofline, mxu_precision))
 
 
 def _finish_window_pack(scheme, ws_full, panels, G0, TM, W, sg, b_itemsize,
@@ -1020,7 +1034,10 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
     ``arrays`` are the JAX pack's numpy arrays with their leading shard
     axis, bf16 ones passed as ``.view(np.uint16)``: for a uniform sg pack
     (ws, ah, al, bases) at x3, (ws, ah, bases) for the 1-pass bf16 pack,
-    (ws, tiles, bases) for fp32/fp64; for ``variant="ragged"`` the ragged
+    (ws, tiles, bases) for fp32/fp64; for a pack with no super-group plan
+    (every multi-shard pack) (ws, tiles), whose fp32 panels at x3 are split
+    to their bf16 hi/lo pair on upload (:func:`_pack_window`'s scheme
+    ``"window_x3"``, bit for bit); for ``variant="ragged"`` the ragged
     pack's (step_g, step_first, starts, *panels, *spill), to which the step
     ranges the CUDA kernels read are appended; for ``variant="gather"`` the
     gather pack's (rel, cols, vals, first, blk), plus ``blk_ptr``, its
@@ -1059,6 +1076,10 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
         return tensors, RaggedOp(scheme, int(min_b_rows), spill_impl, prec, roofline)
     if len(tensors) == 2:  # (ws, tiles): no super-group plan
         prec = {3: "x3", 6: "highest", 1: "default"}[roofline["passes"]]
+        ws, tiles = tensors
+        if prec == "x3" and tiles.dtype == torch.float32:
+            ah, al = device_pack.split_bf16(tiles, with_lo=True)
+            return (ws, ah, al), WindowOp("window_x3", int(min_b_rows), roofline, prec)
         return tensors, WindowOp("window", int(min_b_rows), roofline, prec)
     if len(tensors) == 4:
         scheme = "x3"

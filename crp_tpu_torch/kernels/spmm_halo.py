@@ -17,8 +17,11 @@ columns with non-decreasing window starts (else
 :class:`UnsupportedSparsity`, and the engines take the unfused ``pallas``
 path), panels at a shared chunk-exact W, and the push lists, which the
 plain version replays and the audit counts.  The panels are densified on
-the device, in fp32 (or fp64), and split or rounded in the kernel at the
-operating point, as the TPU kernel does.
+the device: at ``x3`` on fp32 straight to the bf16 hi/lo pair, the RNE
+split the TPU kernel makes of its fp32 panels on every read (TMA, which
+feeds the x3 ``wgmma`` body, cannot split; two bf16 planes are the bytes
+of one fp32 plane); otherwise in fp32 (or fp64), rounded or split in the
+kernel at the operating point, as the TPU kernel does.
 
 :func:`spmm_halo` launches the kernel for CUDA tensors and counts the
 launch in its ``launches`` attribute; for CPU tensors it runs
@@ -35,8 +38,8 @@ import torch
 
 from . import device_pack
 from .spmm_pallas import (
-    TK, UnsupportedSparsity, _placement, choose_chunks, spmm_window_plain,
-    window_extents,
+    TK, UnsupportedSparsity, _check_aligned, _placement, choose_chunks,
+    spmm_window_plain, window_extents,
 )
 
 
@@ -57,8 +60,9 @@ class HaloOp:
     window starts (p, G) int32 the kernel reads; the starts relative to
     each shard's window base, and the push list (P, 4) int32 of (owner,
     owner row, consumer, buffer row), which the plain version reads; the
-    (p, G, TM, W) panels; and the chunk table (global 128-row chunk ->
-    row of the stacked B, -1 past the matrix).  ``buf_rows``: rows of the
+    (p, G, TM, W) panels, at ``x3`` on fp32 the two bf16 planes ``ah,
+    al`` in their place; and the chunk table (global 128-row chunk -> row
+    of the stacked B, -1 past the matrix).  ``buf_rows``: rows of the
     plain version's window buffers; ``min_b_rows``: rows each shard of B
     must have (``max_k``); ``B_displs``: the aligned ownership the engine
     shards B by; ``halo_rows_pushed``: the physical rows one exec moves,
@@ -87,7 +91,8 @@ class HaloOp:
     def kernel_args(self, arrs, b_shards) -> tuple:
         """Positional args of :attr:`kernel` and :attr:`plain` for the
         packed ``arrs`` and the stacked B shards (p, max_k, n)."""
-        ws, ws_rel, panels, push, chunk_src = arrs
+        ws, ws_rel, *panels, push, chunk_src = arrs
+        panels = tuple(panels) if len(panels) == 2 else panels[0]
         return (ws, ws_rel, panels, push, chunk_src, b_shards, self.precision,
                 self.buf_rows)
 
@@ -106,7 +111,9 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
     views with global column indices.  Returns ``(arrays, HaloOp)``;
     raises :class:`UnsupportedSparsity` where the JAX plan refuses: B
     boundaries not TK-aligned, an empty shard, a window over
-    ``max_window`` rows, panels over 8 GiB, or window starts that fall."""
+    ``max_window`` rows, panels over 8 GiB, or window starts that fall.
+    At ``x3`` on fp32 the panels are the bf16 pair (the arrays' ``ah,
+    al``); ``roofline["a_bytes"]`` counts the same bytes as fp32 panels."""
     B_displs = np.asarray(B_displs, dtype=np.int64)
     if np.any(B_displs[:-1] % TK):
         raise UnsupportedSparsity("halo kernel needs TK-aligned B displs")
@@ -140,9 +147,12 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
     G = max(Gs)
     W, _, _ = choose_chunks(max(Ws))
     cols = [(s.rowptr, s.colidx, s.val) for s in shards]
-    ws, panels, _ = device_pack.uniform_fill_stacked(
-        cols, ws_own, TM, W, G, "f64" if dt.itemsize == 8 else "f32", device,
+    split = dt == np.float32 and precision == "x3"
+    ws, ah, al = device_pack.uniform_fill_stacked(
+        cols, ws_own, TM, W, G,
+        "f64" if dt.itemsize == 8 else "pair" if split else "f32", device,
     )
+    panels = (ah, al) if split else (ah,)
     ws_rel = np.zeros((p, G), dtype=np.int32)
     for i, ws_i in enumerate(ws_own):
         ws_rel[i, : len(ws_i)] = ws_i - los[i]
@@ -175,12 +185,12 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
 
-    arrays = (put(lo[:, None] + ws_rel), put(ws_rel), panels, put(push),
+    arrays = (put(lo[:, None] + ws_rel), put(ws_rel), *panels, put(push),
               put(chunk_src))
     nnz = sum(int(s.rowptr[-1]) for s in shards)
     roofline = dict(
         G=G, TM=TM, W=W, p=p, nnz=nnz,
-        a_bytes=panels.numel() * panels.element_size(),
+        a_bytes=sum(t.numel() * t.element_size() for t in panels),
         b_rows_read=p * G * W, c_rows=p * G * TM, b_itemsize=dt.itemsize,
         passes={"x3": 3, "highest": 6, "default": 1}.get(precision, 1),
     )
@@ -208,49 +218,64 @@ def spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards, precision,
                     buf_rows):
     """The fused kernel's function in plain PyTorch: the pushes into
     per-shard window buffers, then each shard's windowed product at
-    ``precision`` (:func:`spmm_window_plain`); ``ws`` and ``chunk_src``
-    are the kernel's and go unused.  Returns (p, G*TM, n)."""
+    ``precision`` (:func:`spmm_window_plain`; on the x3 pair ``panels =
+    (ah, al)`` that is ``spmm_window_sg_presplit_plain``); ``ws`` and
+    ``chunk_src`` are the kernel's and go unused.  Returns (p, G*TM, n)."""
     buf = halo_buffers(push, b_shards, buf_rows)
+    pair = isinstance(panels, tuple)
     return torch.stack([
-        spmm_window_plain(ws_rel[i], panels[i], buf[i], precision)
-        for i in range(panels.shape[0])
+        spmm_window_plain(ws_rel[i], tuple(t[i] for t in panels) if pair else panels[i],
+                          buf[i], precision)
+        for i in range(ws_rel.shape[0])
     ])
 
 
 # ------------------------------------------------------------------ wrapper
 
-_ENTRIES = {"x3": "crp_halo_x3", "default": "crp_halo_bf16",
-            "highest": "crp_halo_f32"}
+_ENTRIES = {"default": "crp_halo_bf16", "highest": "crp_halo_f32"}
 
 
 def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows,
               *, min_b_rows: int):
     """Fused halo exchange + windowed SpMM over every shard
-    (``csrc/halo.cu``): (p, G*TM, n) from the (p, G, TM, W) fp32 panels and
-    the stacked fp32 B shards (p, max_k, n) at ``precision`` (``x3``,
-    ``default`` or ``highest``, the last 3xTF32 on the tensor cores), or
-    fp64 panels and B.  Replaces
-    ``halo_spmm_local`` (``spmm_halo.py:349``, kernel ``_halo_kernel``)."""
-    if _placement("spmm_halo", ws, panels, chunk_src, b_shards) == "cpu":
+    (``csrc/halo.cu``): (p, G*TM, n) from the stacked fp32 B shards (p,
+    max_k, n) and, at ``x3``, the bf16 pair ``panels = (ah, al)`` of (p,
+    G, TM, W) planes (#4's ``wgmma`` body with the chunk lookup; they must
+    start on 16 bytes), at ``default`` or ``highest`` (p, G, TM, W) fp32
+    panels (the last 3xTF32 on the tensor cores), or fp64 panels and B.
+    fp32 panels at ``x3`` have no kernel: the x3 plan holds the pair.
+    Replaces ``halo_spmm_local`` (``spmm_halo.py:349``, kernel
+    ``_halo_kernel``)."""
+    pair = isinstance(panels, tuple)
+    planes = panels if pair else (panels,)
+    if _placement("spmm_halo", ws, *planes, chunk_src, b_shards) == "cpu":
         return spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards,
                                precision, buf_rows)
-    if panels.dtype == torch.float64:
-        name = "crp_halo_f64"
-    elif panels.dtype == torch.float32 and precision in _ENTRIES:
-        name = _ENTRIES[precision]
+    if pair and precision == "x3":
+        name, panel_dtype, b_dtype = "crp_halo_x3", torch.bfloat16, torch.float32
+    elif not pair and panels.dtype == torch.float64:
+        name, panel_dtype, b_dtype = "crp_halo_f64", torch.float64, torch.float64
+    elif not pair and panels.dtype == torch.float32 and precision in _ENTRIES:
+        name, panel_dtype, b_dtype = _ENTRIES[precision], torch.float32, torch.float32
     else:
-        raise ValueError(f"spmm_halo: no kernel for {panels.dtype} panels at {precision!r}")
-    p, G, TM, W = panels.shape
-    if not panels.is_contiguous() or TM % 128 or W % 32:
-        raise ValueError(f"spmm_halo: panels must be contiguous with TM % 128 == 0 "
-                         f"and W % 32 == 0; got {tuple(panels.shape)}")
+        got = "a bf16 pair" if pair else f"{panels.dtype} panels"
+        raise ValueError(f"spmm_halo: no kernel for {got} at {precision!r}")
+    p, G, TM, W = planes[0].shape
+    for t in planes:
+        if (t.dtype != panel_dtype or t.shape != (p, G, TM, W) or not t.is_contiguous()
+                or TM % 128 or W % 32):
+            raise ValueError(f"spmm_halo: panels must be contiguous {panel_dtype} of one "
+                             f"shape with TM % 128 == 0 and W % 32 == 0; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if pair:
+        _check_aligned("spmm_halo", ah=planes[0], al=planes[1])
     if ws.dtype != torch.int32 or ws.shape != (p, G) or not ws.is_contiguous():
         raise ValueError(f"spmm_halo: ws must be contiguous int32 of shape ({p}, {G})")
     if chunk_src.dtype != torch.int32 or chunk_src.dim() != 1 or not chunk_src.is_contiguous():
         raise ValueError("spmm_halo: chunk_src must be a contiguous 1-D int32 tensor")
-    if (b_shards.dtype != panels.dtype or b_shards.dim() != 3
+    if (b_shards.dtype != b_dtype or b_shards.dim() != 3
             or b_shards.shape[0] != p or not b_shards.is_contiguous()):
-        raise ValueError(f"spmm_halo: B must be contiguous {panels.dtype} shards of "
+        raise ValueError(f"spmm_halo: B must be contiguous {b_dtype} shards of "
                          f"shape ({p}, rows, n)")
     if b_shards.shape[1] != min_b_rows:
         raise ValueError(f"spmm_halo: B shards have {b_shards.shape[1]} rows, the "
@@ -258,12 +283,12 @@ def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows
     from . import _build
 
     n = b_shards.shape[2]
-    c = torch.empty((p, G * TM, n), dtype=panels.dtype, device=b_shards.device)
+    c = torch.empty((p, G * TM, n), dtype=b_dtype, device=b_shards.device)
     with torch.cuda.device(b_shards.device):
         stream = torch.cuda.current_stream(b_shards.device).cuda_stream
-        rc = _build.entry(name)(chunk_src.data_ptr(), ws.data_ptr(), panels.data_ptr(),
-                                b_shards.data_ptr(), c.data_ptr(), p * G, TM, W, n,
-                                stream)
+        rc = _build.entry(name)(chunk_src.data_ptr(), ws.data_ptr(),
+                                *(t.data_ptr() for t in planes), b_shards.data_ptr(),
+                                c.data_ptr(), p * G, TM, W, n, stream)
     _build.check(rc, name)
     spmm_halo.launches += 1
     return c

@@ -24,11 +24,14 @@ point:
     version; fp64 panels by FMA.
 
 On every other uniform pack (several shards, or windows that are not
-monotone), fp32 or fp64 panels: :func:`spmm_window` (``csrc/window.cu``,
-the TPU's ``_window_kernel``), which splits (x3) or rounds (default) A and
-B to bf16 on its way into shared memory, and at ``highest`` splits both
-to TF32 big/small (:func:`split_tf32`) as they are read for three TF32
-tensor-core products.
+monotone): :func:`spmm_window` (``csrc/window.cu``, the TPU's
+``_window_kernel``).  At ``x3`` its panels are the bf16 hi/lo pair, split
+once when they are packed (the TPU kernel splits its fp32 panels on every
+read; TMA, which feeds #1's ``wgmma`` body, copies and cannot split), and
+it runs #1's body; on fp32 panels it rounds A and B to bf16 on their way
+into shared memory (``default``), or splits both to TF32 big/small
+(:func:`split_tf32`) as they are read for three TF32 tensor-core products
+(``highest``); fp64 panels by FMA.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
@@ -242,7 +245,14 @@ def window_product(tiles, precision: str):
 
 def spmm_window_plain(ws, tiles, b, precision: str):
     """Non-super-grouped windowed SpMM in plain PyTorch: (G*TM, n) from
-    fp32 (or fp64) ``tiles`` and B of the same dtype, at ``precision``."""
+    fp32 (or fp64) ``tiles`` and B of the same dtype, at ``precision``; at
+    ``x3`` ``tiles`` may be the bf16 pair ``(ah, al)`` of the x3 pack, and
+    then this is :func:`spmm_window_sg_presplit_plain`, equal bit for bit
+    to this function on the fp32 panels the pair was split from."""
+    if isinstance(tiles, tuple):
+        if precision != "x3":
+            raise ValueError(f"spmm_window_plain: a bf16 pair at {precision!r}")
+        return spmm_window_sg_presplit_plain(ws, *tiles, b)
     return _uniform(ws, tiles, b, tiles.dtype, window_product(tiles, precision))
 
 
@@ -454,31 +464,38 @@ def spmm_window_sg(ws, tiles, b, *, min_b_rows: int):
 
 spmm_window_sg.launches = 0
 
-_WINDOW_ENTRIES = {"x3": "crp_window_x3", "default": "crp_window_bf16",
-                   "highest": "crp_window_f32"}
+_WINDOW_ENTRIES = {"default": "crp_window_bf16", "highest": "crp_window_f32"}
 
 
 def spmm_window(ws, tiles, b, precision: str, *, min_b_rows: int):
-    """Non-super-grouped windowed SpMM (``csrc/window.cu``): (G*TM, n) from
-    fp32 ``tiles`` and fp32 ``b`` at ``precision`` (``x3``, ``default`` or
-    ``highest``, the split or rounding done in the kernel; ``highest`` is
-    3xTF32 on the tensor cores, held to the fp32 plain version), or fp64
-    tiles and B.  Replaces ``spmm_window_pallas`` (``spmm_pallas.py:267``)."""
-    if _placement("spmm_window", ws, tiles, b) == "cpu":
+    """Non-super-grouped windowed SpMM (``csrc/window.cu``): (G*TM, n) at
+    ``precision`` from fp32 ``b`` and, at ``x3``, the bf16 pair ``tiles =
+    (ah, al)`` (#1's ``wgmma`` body; the panels must start on 16 bytes), at
+    ``default`` or ``highest`` fp32 ``tiles`` (rounded to bf16 in the
+    kernel, or 3xTF32 on the tensor cores, held to the fp32 plain version),
+    or fp64 tiles and B.  fp32 panels at ``x3`` have no kernel: the x3 pack
+    holds the pair.  Replaces ``spmm_window_pallas``
+    (``spmm_pallas.py:267``)."""
+    pair = isinstance(tiles, tuple)
+    panels = tiles if pair else (tiles,)
+    if _placement("spmm_window", ws, *panels, b) == "cpu":
         return spmm_window_plain(ws, tiles, b, precision)
-    if tiles.dtype == torch.float64:
-        name = "crp_window_f64"
-    elif tiles.dtype == torch.float32 and precision in _WINDOW_ENTRIES:
-        name = _WINDOW_ENTRIES[precision]
+    if pair and precision == "x3":
+        name, panel_dtype, b_dtype = "crp_window_x3", torch.bfloat16, torch.float32
+    elif not pair and tiles.dtype == torch.float64:
+        name, panel_dtype, b_dtype = "crp_window_f64", torch.float64, torch.float64
+    elif not pair and tiles.dtype == torch.float32 and precision in _WINDOW_ENTRIES:
+        name, panel_dtype, b_dtype = _WINDOW_ENTRIES[precision], torch.float32, torch.float32
     else:
-        raise ValueError(
-            f"spmm_window: no kernel for {tiles.dtype} panels at {precision!r}"
-        )
-    G, TM, W, n = _check_cuda_args(
-        "spmm_window", ws, (tiles,), b, min_b_rows, tiles.dtype, tiles.dtype,
-    )
-    c = torch.empty((G * TM, n), dtype=tiles.dtype, device=b.device)
-    _launch(name, (ws.data_ptr(), tiles.data_ptr(), b.data_ptr(), c.data_ptr()),
+        got = "a bf16 pair" if pair else f"{tiles.dtype} panels"
+        raise ValueError(f"spmm_window: no kernel for {got} at {precision!r}")
+    G, TM, W, n = _check_cuda_args("spmm_window", ws, panels, b, min_b_rows,
+                                   panel_dtype, b_dtype)
+    if pair:
+        _check_aligned("spmm_window", ah=panels[0], al=panels[1])
+    c = torch.empty((G * TM, n), dtype=b_dtype, device=b.device)
+    _launch(name, (ws.data_ptr(), *(t.data_ptr() for t in panels), b.data_ptr(),
+                   c.data_ptr()),
             G, TM, W, n, b.device)
     spmm_window.launches += 1
     return c

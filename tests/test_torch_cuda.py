@@ -724,20 +724,20 @@ def test_window_highest_tf32x3_matches_plain(cuda_device, case, kernel):
                    slice((G - 1) * TM, None))
 
 
-def _halo_hand_pack(rng, W, n):
-    """A 4-shard halo pack by hand: uneven 128-aligned ownership (256, 384,
-    128 and 384 rows of a 1152-row B, so the chunk table is no identity),
-    3 groups of 128 rows a shard at 128-aligned window starts, the last
-    groups' running past the matrix (dead chunks, -1) where W > 128, and
-    shard 3's first window wholly past it.  Shard 1's last group is a zero
-    pad group.  Returns the wrapper's arguments; B's pad rows are NaN
-    (never read)."""
-    p, G, TM = 4, 3, 128
-    displs = np.array([0, 256, 640, 768, 1152])
-    k_glb, max_k = int(displs[-1]), 384
+def _halo_hand_pack(rng, W, n, displs=(0, 256, 640, 768, 1152)):
+    """A halo pack by hand, by default of 4 shards: uneven 128-aligned
+    ownership ``displs`` (256, 384, 128 and 384 rows of a 1152-row B, so
+    the chunk table is no identity), 3 groups of 128 rows a shard at
+    128-aligned window starts, the last groups' running past the matrix
+    (dead chunks, -1) where W > 128, and the last shard's first window
+    wholly past it.  Shard 1's last group is a zero pad group.  Returns the
+    wrapper's arguments; B's pad rows are NaN (never read)."""
+    displs = np.asarray(displs)
+    p, G, TM = len(displs) - 1, 3, 128
+    k_glb, max_k = int(displs[-1]), int(np.diff(displs).max())
     ws = rng.integers(0, k_glb // 128, (p, G)) * 128
     ws[:, -1] = k_glb - 128  # the last 128 rows, then dead chunks when W > 128
-    ws[3, 0] = k_glb
+    ws[p - 1, 0] = k_glb
     rows = np.arange(-(-(int(ws.max()) + W) // 128)) * 128
     j = np.minimum(np.searchsorted(displs, rows, side="right") - 1, p - 1)
     chunk_src = np.where(rows < k_glb, j * max_k + rows - displs[j], -1)
@@ -938,3 +938,149 @@ def test_window_sg_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch)
     with pytest.raises(ValueError, match="tiles must start on 16 bytes"):
         spmm_pallas.spmm_window_sg(ws, off_t, b, min_b_rows=rows)
     assert [k.launches for k in kernels] == [x + 1 for x in before]
+
+
+# ------------------------------ #4 and #12 at x3 on the wgmma body
+
+
+def _split_pair(tiles, dev):
+    """fp32 panels -> their bf16 (ah, al), the packs' RNE split."""
+    t = torch.from_numpy(tiles).to(dev)
+    ah, al = spmm_pallas.split_b_bf16(t.reshape(-1, t.shape[-1]))
+    return ah.view(t.shape), al.view(t.shape)
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 7])
+@pytest.mark.parametrize("case", sorted(X3_WGMMA))
+def test_window_x3_wgmma_matches_plain_and_1(cuda_device, case, p):
+    """#4 at x3 (``crp_window_x3``) on hand-built p-shard pair packs (n in
+    {16, 37, 48, 64, 256}, W off the 64-row stage, an unaligned B, one
+    slice, many trips round the ring; the last group of every shard a pad
+    group, the middle shard empty for p > 2): within TOL_PLAIN of its plain
+    version, pad rows and the empty shard zero, one launch a shard; C equal
+    bit for bit to #1's (``crp_window_sg_presplit``) on the same arrays."""
+    G, TM, W, n, off = X3_WGMMA[case]
+    rng = np.random.default_rng(W + n + p)
+    dev = cuda_device
+    ws = torch.from_numpy(rng.integers(0, 300, (p, G)).astype(np.int32)).to(dev)
+    tiles = _panels(rng, (p, G, TM, W))
+    tiles[:, -1] = 0
+    if p > 2:
+        tiles[p // 2] = 0
+    ah, al = _split_pair(tiles, dev)
+    rows = int(ws.max()) + W
+    b = _nan_framed(torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32))
+                    .to(dev), off)
+    kernel = spmm_pallas.spmm_window
+    for i in range(p):
+        before = kernel.launches
+        k = kernel(ws[i], (ah[i], al[i]), b, "x3", min_b_rows=rows)
+        plain = spmm_pallas.spmm_window_plain(ws[i], (ah[i], al[i]), b, "x3")
+        if p > 2 and i == p // 2:
+            assert kernel.launches == before + 1 and not torch.any(k)
+        else:
+            _held_to_plain(k, plain, before, kernel.launches, slice((G - 1) * TM, None))
+        c1 = spmm_pallas.spmm_window_sg_presplit(ws[i], ah[i], al[i], b, min_b_rows=rows)
+        assert torch.equal(k.view(torch.int32), c1.view(torch.int32))
+
+
+# name -> (W, n, B offset in elements): W = 352 and 160 end on half a
+# 64-row stage; odd n and an unaligned B take the plain B copies
+X3_HALO = {
+    "n=16": (256, 16, 0),
+    "odd n": (352, 37, 0),
+    "n=256": (640, 256, 0),
+    "unaligned B": (160, 64, 1),
+    "one slice": (32, 48, 0),
+}
+
+
+def _displs(p, rng):
+    """Uneven 128-aligned ownership of p shards (the 4-shard default of
+    ``_halo_hand_pack`` for p = 4)."""
+    if p == 4:
+        return (0, 256, 640, 768, 1152)
+    return tuple(np.concatenate([[0], np.cumsum(rng.integers(1, 4, p) * 128)]))
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 7])
+@pytest.mark.parametrize("case", sorted(X3_HALO))
+def test_halo_x3_wgmma_matches_plain_and_window(cuda_device, case, p):
+    """#12 at x3 (``crp_halo_x3``) on hand-built p-shard pair packs: stages
+    read through the chunk table across uneven owners, dead chunks (-1)
+    read as zeros (B framed by NaN), odd n, an unaligned B, one slice:
+    within TOL_PLAIN of the plain version, pad rows and a window wholly past
+    the matrix zero, one launch; and C equal bit for bit to #4 run shard by
+    shard on the same pair with ``ws_rel`` and the plain version's window
+    buffers (``halo_buffers``): the same products in the same order."""
+    W, n, off = X3_HALO[case]
+    rng = np.random.default_rng(W + n + p)
+    ws, ws_rel, panels, push, chunk_src, bs, buf_rows, max_k = _halo_hand_pack(
+        rng, W, n, _displs(p, rng))
+    dev = cuda_device
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+    pair = _split_pair(panels, dev)
+    b = _nan_framed(torch.from_numpy(bs).to(dev), off)
+    args = (put(ws), put(ws_rel), pair, put(push), put(chunk_src), b, "x3", buf_rows)
+    before = spmm_halo.spmm_halo.launches
+    k = spmm_halo.spmm_halo(*args, min_b_rows=max_k)
+    plain = spmm_halo.spmm_halo_plain(*args)
+    _held_to_plain(k[1], plain[1], before, spmm_halo.spmm_halo.launches,
+                   slice(2 * 128, None))
+    scale = float(plain.abs().max())
+    assert float((k - plain).abs().max()) <= TOL_PLAIN[np.float32] * scale
+    assert not torch.any(k[p - 1, :128]) and not torch.any(plain[p - 1, :128])
+    buf = spmm_halo.halo_buffers(args[3], b, buf_rows)
+    for i in range(p):
+        c4 = spmm_pallas.spmm_window(args[1][i], (pair[0][i], pair[1][i]), buf[i], "x3",
+                                     min_b_rows=buf_rows)
+        assert torch.equal(k[i].view(torch.int32), c4.view(torch.int32))
+
+
+def test_x3_multi_shard_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch):
+    """On CUDA tensors #4 and #12 at x3 launch their wgmma kernels and never
+    their plain versions; fp32 panels at x3 (no kernel: the packs hold the
+    pair) and a pair off 16 bytes (TMA) are refused before any launch,
+    with nothing to fall back to."""
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(spmm_pallas, "spmm_window_plain", no_plain)
+    monkeypatch.setattr(spmm_halo, "spmm_halo_plain", no_plain)
+    rng = np.random.default_rng(6)
+    dev = cuda_device
+    ws = torch.zeros(2, dtype=torch.int32, device=dev)
+    tiles = _panels(rng, (2, 128, 64))
+    ah, al = _split_pair(tiles, dev)
+    b = torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32)).to(dev)
+    before = spmm_pallas.spmm_window.launches
+    spmm_pallas.spmm_window(ws, (ah, al), b, "x3", min_b_rows=64)
+    assert spmm_pallas.spmm_window.launches == before + 1
+    with pytest.raises(ValueError, match="no kernel for torch.float32 panels at 'x3'"):
+        spmm_pallas.spmm_window(ws, torch.from_numpy(tiles).to(dev), b, "x3",
+                                min_b_rows=64)
+    with pytest.raises(ValueError, match="ah must start on 16 bytes"):
+        spmm_pallas.spmm_window(ws, (_nan_framed(ah, 1), al), b, "x3", min_b_rows=64)
+    assert spmm_pallas.spmm_window.launches == before + 1
+    hws, ws_rel, panels, push, chunk_src, bs, buf_rows, max_k = _halo_hand_pack(
+        rng, 128, 16)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+    pair = _split_pair(panels, dev)
+    args = (put(hws), put(ws_rel), pair, put(push), put(chunk_src),
+            torch.from_numpy(bs).to(dev), "x3", buf_rows)
+    before = spmm_halo.spmm_halo.launches
+    spmm_halo.spmm_halo(*args, min_b_rows=max_k)
+    assert spmm_halo.spmm_halo.launches == before + 1
+    fp32 = args[:2] + (torch.from_numpy(panels).to(dev),) + args[3:]
+    with pytest.raises(ValueError, match="no kernel for torch.float32 panels at 'x3'"):
+        spmm_halo.spmm_halo(*fp32, min_b_rows=max_k)
+    off = args[:2] + ((pair[0], _nan_framed(pair[1], 1)),) + args[3:]
+    with pytest.raises(ValueError, match="al must start on 16 bytes"):
+        spmm_halo.spmm_halo(*off, min_b_rows=max_k)
+    assert spmm_halo.spmm_halo.launches == before + 1

@@ -1,8 +1,9 @@
 """Kernel #4, the non-super-grouped windowed SpMM: the port's multi-shard
-uniform pack against JAX's ``_pack_pallas_uniform`` (bit for bit), its
-plain version ``spmm_window_plain`` against ``spmm_window_pallas`` in
-interpret mode, and the single-shard packs with no super-group plan, which
-both packages now send to this kernel."""
+uniform pack against JAX's ``_pack_pallas_uniform`` (bit for bit; at x3
+the port holds the bf16 hi/lo pair of JAX's fp32 panels, split once at
+pack time), its plain version ``spmm_window_plain`` against
+``spmm_window_pallas`` in interpret mode, and the single-shard packs with
+no super-group plan, which both packages now send to this kernel."""
 
 import jax
 import numpy as np
@@ -18,6 +19,7 @@ from crp_tpu.shard.layout import make_mesh_1d
 from crp_tpu_torch.config import SpmmConfig
 from crp_tpu_torch.engine.rowpara import RowParaSpmm
 from crp_tpu_torch.kernels import dispatch as td
+from crp_tpu_torch.kernels.device_pack import split_bf16
 from crp_tpu_torch.kernels.spmm_pallas import spmm_window_plain
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.csr import CSRMatrix
@@ -63,20 +65,40 @@ def _anti_banded(nrow=1500, seed=7, dtype=np.float32):
                               rng.standard_normal(key.size), dtype=dtype)
 
 
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def assert_pack_is_jax(arrays, op, j_arrays, prec, dtype):
+    """The port's (ws, tiles) equal to JAX's (ws, tiles) bit for bit, or at
+    x3 on fp32 its (ws, ah, al) with (ah, al) ``split_bf16`` of JAX's fp32
+    panels bit for bit (scheme ``"window_x3"``)."""
+    assert op.variant == "window" and len(j_arrays) == 2
+    np.testing.assert_array_equal(arrays[0].numpy(), j_arrays[0])
+    j_tiles = torch.from_numpy(j_arrays[1])
+    if prec == "x3" and dtype == np.float32:
+        assert op.scheme == "window_x3" and len(arrays) == 3
+        want = split_bf16(j_tiles, with_lo=True)
+    else:
+        assert op.scheme == "window" and len(arrays) == 2
+        want = (j_tiles,)
+    for t, w in zip(arrays[1:], want):
+        assert t.dtype == w.dtype and t.shape == w.shape
+        assert torch.equal(_bits(t), _bits(w))
+
+
 @pytest.mark.parametrize("p", [2, 4])
 @pytest.mark.parametrize("prec,dtype", POINTS)
 def test_multi_shard_pack_matches_jax(prec, dtype, p):
     """(ws, tiles) of p shards, one empty, with pad groups past the largest
-    shard's: the JAX pack bit for bit, the same min_b_rows and roofline."""
+    shard's: the JAX pack bit for bit (at x3 the bf16 pair of its fp32
+    panels), the same min_b_rows and roofline."""
     _, shards, max_m = _shards(p, dtype)
     arrays, op = td._pack_pallas_uniform(shards, max_m + 700, dtype, prec, CPU)
     j_arrays, j_fn = jd._pack_pallas_uniform(shards, max_m + 700, dtype, prec)
-    assert op.variant == "window" and len(arrays) == len(j_arrays) == 2
-    for t, j in zip(arrays, j_arrays):
-        assert t.numpy().dtype == j.dtype and t.shape == j.shape
-        np.testing.assert_array_equal(t.numpy(), j)
+    assert_pack_is_jax(arrays, op, j_arrays, prec, dtype)
     assert (op.min_b_rows, op.roofline) == (j_fn.min_b_rows, j_fn.roofline)
-    assert not arrays[1][p - 2].any() and not arrays[0][p - 2].any()
+    assert not any(t[p - 2].any() for t in arrays)
 
 
 def _jax_precision(prec, dtype):
@@ -91,13 +113,15 @@ def test_plain_matches_pallas_interpret(prec, dtype, n):
     """``spmm_window_plain`` within 1e-6 relative Frobenius (1e-12 in fp64)
     of ``spmm_window_pallas(interpret=True)`` on every shard of a 3-shard
     pack with an empty shard and pad groups: the same products summed in
-    another order.  At ``default`` the values are bf16-exact: the TPU's
-    one bf16 pass rounds them, which the interpreter on the CPU does not,
-    so only on such values do both compute the same function."""
+    another order.  JAX's kernel runs on JAX's own pack, the port's plain
+    version on the port's (at x3 the bf16 pair).  At ``default`` the
+    values are bf16-exact: the TPU's one bf16 pass rounds them, which the
+    interpreter on the CPU does not, so only on such values do both
+    compute the same function."""
     default = prec == "default"
     _, shards, max_m = _shards(3, dtype, bf16_values=default)
     arrays, op = td._pack_window(shards, max_m + 300, dtype, prec, CPU)
-    ws, tiles = (x.numpy() for x in arrays)
+    ws, tiles = jd._pack_pallas_uniform(shards, max_m + 300, dtype, prec)[0]
     rng = np.random.default_rng(n)
     b = rng.standard_normal((op.min_b_rows, n)).astype(dtype)
     if default:
@@ -108,8 +132,9 @@ def test_plain_matches_pallas_interpret(prec, dtype, n):
                              ws=ws[i], tiles=tiles[i])
         want = np.asarray(spmm_window_pallas(
             packed, b, precision=_jax_precision(prec, dtype), interpret=True))
-        got = spmm_window_plain(arrays[0][i], arrays[1][i], torch.from_numpy(b),
-                                prec).numpy()
+        args = op.kernel_args(tuple(x[i] for x in arrays), torch.from_numpy(b))
+        assert op.plain is spmm_window_plain
+        got = spmm_window_plain(*args).numpy()
         assert got.dtype == want.dtype and got.shape == want.shape == (G * TM, n)
         assert rel_fro_err(want.astype(np.float64), got) <= (
             1e-12 if dtype == np.float64 else 1e-6)
@@ -121,7 +146,8 @@ def test_plain_matches_pallas_interpret(prec, dtype, n):
 def test_non_monotone_single_shard_takes_the_window_kernel(prec, dtype):
     """One shard whose windows fall group by group has no super-group plan:
     JAX packs it for ``spmm_window_pallas`` and so does the port (variant
-    ``"window"``, no longer the ragged pack), the same arrays."""
+    ``"window"``, no longer the ragged pack), the same arrays (at x3 the
+    bf16 pair of JAX's fp32 panels)."""
     a = _anti_banded(dtype=dtype)
     shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
     j_arrays, j_fn, j_kind = jd.pack_with_fallback(shard, a.nrow + 300, dtype,
@@ -129,9 +155,8 @@ def test_non_monotone_single_shard_takes_the_window_kernel(prec, dtype):
     arrays, op, kind = td.pack_with_fallback(shard, a.nrow + 300, dtype, "pallas",
                                              device=CPU, mxu_precision=prec)
     assert kind == j_kind == "pallas" and len(j_arrays) == 2
-    assert (op.variant, op.scheme, op.precision) == ("window", "window", prec)
-    for t, j in zip(arrays, j_arrays):
-        np.testing.assert_array_equal(t.numpy(), j)
+    assert (op.variant, op.precision) == ("window", prec)
+    assert_pack_is_jax(arrays, op, j_arrays, prec, dtype)
     assert op.min_b_rows == j_fn.min_b_rows
 
 
@@ -154,12 +179,13 @@ def test_engine_on_non_monotone_matches_jax(prec):
 
 def test_jax_multi_shard_pack_feeds_the_port():
     """A JAX multi-shard windowed pack, handed to the port
-    (``local_op_from_jax_pack``), gives the port's own pack's product."""
+    (``local_op_from_jax_pack``), gives the port's own pack's product: its
+    fp32 x3 panels are split to the bf16 pair on upload."""
     _, shards, max_m = _shards(3, np.float32)
     j_arrays, j_fn = jd._pack_pallas_uniform(shards, max_m, np.float32, "x3")
     tensors, op = td.local_op_from_jax_pack(j_arrays, j_fn.min_b_rows,
                                             roofline=j_fn.roofline)
-    assert (op.variant, op.precision) == ("window", "x3")
+    assert (op.variant, op.scheme, op.precision) == ("window", "window_x3", "x3")
     t_arrays, t_op = td._pack_window(shards, max_m, np.float32, "x3", CPU)
     b = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (op.min_b_rows, 16)).astype(np.float32))

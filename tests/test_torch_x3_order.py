@@ -1,6 +1,6 @@
 """The summation order of the x3 wgmma body (kernels #1
-``crp_window_sg_presplit`` and #5 ``crp_window_sg_presplit_ab``), argued
-on the CPU.
+``crp_window_sg_presplit``, #5 ``crp_window_sg_presplit_ab``, #4
+``crp_window_x3`` and #12 ``crp_halo_x3``), argued on the CPU.
 
 The body computes C^T = B^T A^T: per 16-deep k step three products, small
 terms first, (bh, A_lo), (bl, A_hi), (bh, A_hi), with B split to bf16 hi/lo
@@ -10,7 +10,10 @@ added to the running sum with IEEE fp32 adds.  Here that order is emulated
 sum) on the JAX package's super-grouped x3 pack of a banded matrix with
 pad groups, and held against JAX's ``_window_kernel_sg_presplit`` in
 interpret mode (the pack's own local function on the CPU) and against the
-port's plain version ``spmm_window_sg_presplit_plain``.
+port's plain version ``spmm_window_sg_presplit_plain``; then on #4's
+multi-shard pack (the bf16 pair, split once at pack time) against JAX's x3
+``_window_kernel`` on JAX's fp32 panels, shard by shard.  #12 runs the
+same body on the same pair, with B's rows looked up by chunk.
 
 Tolerance: max |e - r| / max |r| and the relative Frobenius error both
 within 1e-6.  All three sum the same exact bf16 x bf16 products in fp32,
@@ -25,9 +28,14 @@ import numpy as np
 import pytest
 import torch
 
+from crp_tpu.kernels import dispatch as jd
+from crp_tpu.kernels.spmm_pallas import WindowDense, spmm_window_pallas
+
+from crp_tpu_torch.kernels import dispatch as td
 from crp_tpu_torch.kernels.spmm_pallas import spmm_window_sg_presplit_plain, split_b_bf16
 from tests.test_torch_spmm_pallas import _case
 from tests.test_torch_tf32x3 import _errors
+from tests.test_torch_window import _shards
 
 TOL = 1e-6
 K16 = 16     # k rows of one wgmma
@@ -74,6 +82,35 @@ def test_x3_wgmma_order_matches_jax_and_plain(n):
     win = bt[ws.long()[:, None] + torch.arange(W)]
     one_pass = torch.bmm(ah.float(), win.to(torch.bfloat16).float()).reshape(G * TM, -1)
     assert _errors(want, one_pass.numpy())[1] > 10 * TOL
+
+
+@pytest.mark.parametrize("n", [16, 37])
+def test_x3_wgmma_order_on_the_multi_shard_pack(n):
+    """#4 at x3: the emulated order on the port's 3-shard pair pack (an
+    empty shard, pad groups) against JAX's x3 ``_window_kernel``
+    (``spmm_window_pallas`` in interpret mode) on JAX's fp32 panels and
+    against the op's plain version, shard by shard, within 1e-6 both ways;
+    the empty shard and pad groups zero."""
+    _, shards, max_m = _shards(3, np.float32)
+    arrays, op = td._pack_window(shards, max_m + 300, np.float32, "x3", torch.device("cpu"))
+    assert op.scheme == "window_x3"
+    ws_j, tiles_j = jd._pack_pallas_uniform(shards, max_m + 300, np.float32, "x3")[0]
+    b = np.random.default_rng(n).standard_normal((op.min_b_rows, n)).astype(np.float32)
+    bt = torch.from_numpy(b)
+    G, TM, W = tiles_j.shape[1:]
+    for i, sh in enumerate(shards):
+        arrs = tuple(x[i] for x in arrays)
+        got = x3_wgmma_order(*arrs, bt)
+        nrow = len(sh[0]) - 1 if len(sh[1]) else 0
+        assert got.shape == (G * TM, n) and not torch.any(got[nrow:])
+        if nrow == 0:
+            continue
+        packed = WindowDense(nrow=G * TM, ncol=b.shape[0], TM=TM, G=G, W=W,
+                             ws=ws_j[i], tiles=tiles_j[i])
+        want = np.asarray(spmm_window_pallas(packed, b, precision="x3", interpret=True))
+        for ref in (want, op.plain(*op.kernel_args(arrs, bt)).numpy()):
+            max_rel, fro = _errors(ref, got.numpy())
+            assert max_rel <= TOL and fro <= TOL, (i, max_rel, fro)
 
 
 def test_x3_wgmma_order_splits_b_in_rne():
