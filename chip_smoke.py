@@ -6,11 +6,13 @@ Run from the repository root:
 
 It builds the port's CUDA kernels from ``crp_tpu_torch/kernels/csrc`` into
 ``build/crp_tpu_torch/`` (one ``nvcc`` per source, all started together),
-prints the shared-memory ring of the 3xTF32 entries (#3, #4 and #12 at
-highest: stages, dynamic shared memory, registers, spills and blocks per
-SM, which must be 0 and at least 2) and of the x3 wgmma body in each
-library that builds it (#1 and #5, #4, #12: the same, which must be 0 and
-at least 1) and then, failing on the first check that does not hold:
+prints the shared-memory ring of the 3xTF32 entries (#3, #4, #12 and #6
+at highest: stages, dynamic shared memory, registers, spills and blocks
+per SM, which must be 0 and at least 2) and of the wgmma body in each
+library that builds it (#1 with #5 and the one-pass #2, #4, #12: the
+same, which must be 0 and at least 1) and then, failing on the first check
+that does not hold (every engine init prints its peak device memory; an
+x3 or default panel pack must peak within 1.2 x what it holds after):
 
 1. kernel phase — each windowed kernel against its plain PyTorch version on
    small banded packs with pad groups, n in {16, 48, 100, 256}; then #5
@@ -29,9 +31,10 @@ at least 1) and then, failing on the first check that does not hold:
    B``) as a yardstick; on the x3 engine's pack, the presplit-B comparison
    (``crp_tpu_torch.cli.presplit_b_sweep.sweep``: #1 on fp32 B, #5 on
    ``split_b_bf16(B)``, #2 on its hi half) with its launch counts, #5 at
-   x3's class and equal to #1 bit for bit, then #5 against its plain
-   version at the main path's shape, timed in turns (no engine takes #5:
-   every engine's exec must launch it zero times);
+   x3's class and equal to #1 bit for bit, #2 faster than #1, then #5
+   against its plain version at the main path's shape, timed in turns (no
+   engine takes #5: every engine's exec must launch it zero times); on the
+   default pack, #2's C against #1's on (ah, 0, bh as fp32);
 4. cplaw path — the community power-law matrix
    ``powerlaw_community_csr(786432, 16, 1024)`` (10.8M nnz, fp32, n = 256)
    the same way: the engine must resolve to the ragged kernels with the
@@ -75,9 +78,7 @@ at least 1) and then, failing on the first check that does not hold:
    the unfused path, windowed kernel #4 on every shard (variant
    ``"window"``), with the exchange and SpMM phase times and the received
    and physical rows; each kernel against its plain version at its
-   main-path shape, timed, with cuSPARSE on the same work; every engine's
-   peak device memory during its init (at x3 the panels are densified in
-   fp32 and split to the bf16 pair);
+   main-path shape, timed, with cuSPARSE on the same work;
 12. cplaw at p = 4 on the ring (x3): the multi-shard ragged pack with the
    fused spill, 591,732 received B rows and 627,300 physical ring rows;
    on the host, the p = 8 exchange plan's received rows times 32 equal the
@@ -140,6 +141,11 @@ TOL_RAGGED_FRO = {np.float32: 1e-6, np.float64: 1e-12}
 HBM_BYTES_PER_S = 3.35e12
 PEAK = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "fp64": 34e12,
         "fp64_tc": 67e12}
+# an x3 or default init's peak device memory over what it holds after it:
+# the panels are densified slab by slab, never whole in fp32 beside their
+# bf16 planes (device_pack._densify)
+INIT_PEAK_OVER_HELD = 1.2
+PANEL_VARIANTS = ("uniform", "ragged", "window", "halo")
 CPLAW_P4_RECV, CPLAW_P4_RING_ROWS = 591732, 627300  # r4_cpu_mesh_commvol.jsonl
 CPLAW_P8_COMM_N32 = 26551360  # the planner's comm_cost at n = 32, p = 8
 CPLAW_2D_RA_COST = 12170731   # the 1 x 4 grid's A replication at n = 256
@@ -246,8 +252,8 @@ def bound(n_bytes: float, ops: float, peak: str) -> tuple:
 
 def op_point(op, dtype) -> tuple:
     """(passes, peak) of an op's products: x3 three bf16 products, default
-    one, highest three TF32 products (#3, #4 and #12) or fp32 FMA (#6),
-    fp64 FMA or, for dd, the FP64 tensor cores."""
+    one, highest three TF32 products (#3, #4, #6 and #12), fp64 FMA or,
+    for dd, the FP64 tensor cores."""
     scheme = getattr(op, "scheme", None)
     prec = getattr(op, "precision", getattr(op, "mxu_precision", None))
     if op.variant == "gather":  # products on the FMA units at every point
@@ -256,13 +262,11 @@ def op_point(op, dtype) -> tuple:
         return 1, ("fp64_tc" if scheme == "dd" else "fp64")
     if scheme in ("x3", "bf16", "full"):
         prec = {"x3": "x3", "bf16": "default", "full": "highest"}[scheme]
-    if op.variant in ("uniform", "window", "halo") and prec == "highest":
-        return 3, "tf32"
     if prec == "x3":
         return 3, "bf16"
     if prec == "default":
         return 1, "bf16"
-    return 1, "fp32"
+    return 3, "tf32"
 
 
 def function_bound(op, work, n, dtype) -> tuple:
@@ -405,6 +409,21 @@ def presplit_ab_vs_presplit(op5, arrs, rB) -> float:
     return float((c5 - c1).abs().max())
 
 
+def one_pass_vs_x3(ws, ah, bh, min_b_rows) -> float:
+    """max |C2 - C1| of #2 on (ah, bh) and #1 on (ah, 0, bh as fp32), whose
+    B splits to hi = bh and lo = 0: every extra product of #1 is an exact
+    zero, so 0 when the tensor cores sum the rest alike; check launches,
+    not the main path's."""
+    from crp_tpu_torch.kernels.spmm_pallas import (
+        spmm_window_sg_bf16, spmm_window_sg_presplit,
+    )
+
+    c2 = spmm_window_sg_bf16(ws, ah, bh, min_b_rows=min_b_rows)
+    c1 = spmm_window_sg_presplit(ws, ah, torch.zeros_like(ah), bh.float(),
+                                 min_b_rows=min_b_rows)
+    return float((c2 - c1).abs().max())
+
+
 def presplit_ab_phase(device) -> None:
     """#5 on the kernel phase's x3 pack (pad groups): within TOL_PLAIN of
     its plain version, #1's C bit for bit, pad rows zero."""
@@ -459,10 +478,12 @@ def presplit_b_phase(a, op, arrs, rB, device) -> dict:
     ab = recs["presplit_ab_x3"]
     check(ab["max_abs_vs_presplit_a"] == 0.0,
           f"presplit-B: #5 differs from #1 by {ab['max_abs_vs_presplit_a']}")
+    ms1, ms2 = recs["presplit_a_x3"]["exec_ms"], recs["bf16_1pass"]["exec_ms"]
     say(f"[presplit-B] split_b_bf16 {ab['split_ms']:.4f} ms, #5 "
         f"{ab['exec_ms']:.4f} ms, split + #5 {ab['split_exec_ms']:.4f} ms per exec; "
-        f"#1 {recs['presplit_a_x3']['exec_ms']:.4f} ms, #2 (1 pass) "
-        f"{recs['bf16_1pass']['exec_ms']:.4f} ms")
+        f"#1 {ms1:.4f} ms, #2 (1 pass) {ms2:.4f} ms")
+    check(ms2 < ms1, f"presplit-B: #2 in one pass ({ms2} ms) is not faster than #1 at "
+          f"x3 ({ms1} ms) on the same pack")
     op5 = PresplitAbOp(op)
     got = time_kernel(op5, arrs, rB, "headline presplit-B", "x3", csr_work(a),
                       plain_inner=3)
@@ -545,6 +566,34 @@ def cusparse_yardstick(a, b, c_ref, device, tag="cusparse") -> float:
     return cus_ms
 
 
+def measured_init(device, make) -> tuple:
+    """(the engine ``make()`` builds, its init's peak device memory and the
+    memory it holds after, both over what was held before it)."""
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    eng = make()
+    torch.cuda.synchronize(device)
+    return (eng, torch.cuda.max_memory_allocated(device) - base,
+            torch.cuda.memory_allocated(device) - base)
+
+
+def check_init_memory(tag, prec, eng, peak, held, extra="") -> None:
+    """Print an init's peak device memory, what it holds after and its
+    packed arrays' bytes; an x3 or default panel pack must peak within
+    INIT_PEAK_OVER_HELD of what it holds.  An earlier phase's objects
+    collected during the init lower ``held``, never the pack's bytes, so
+    the larger of the two is what it holds."""
+    keep = max(held, nbytes(*eng.packed), 1)
+    say(f"[{tag}] init device memory: peak {peak / 1e9:.3f} GB, held after "
+        f"{held / 1e9:.3f} GB, packed {nbytes(*eng.packed) / 1e9:.3f} GB "
+        f"({peak / keep:.3f}x){extra}")
+    if prec in ("x3", "default") and eng._local_op.variant in PANEL_VARIANTS:
+        check(peak <= INIT_PEAK_OVER_HELD * keep,
+              f"{tag}: init peaks at {peak / 1e9:.3f} GB, over {INIT_PEAK_OVER_HELD} x "
+              f"the {keep / 1e9:.3f} GB it holds")
+
+
 def main_path(eng, b, c_ref, tol, tag, timing=(5, 20)):
     """The engine's main path through the user's entry point: every launch
     count set to 0 just before ``eng.exec(b)`` and read just after; the
@@ -583,8 +632,8 @@ def drive(a, b, c_ref, prec, device, tag, expect, kernel="auto",
     tol = TOL_REF[prec] if tol is None else tol
     displs = csr_row_partition(a.rowptr, 1)
     config = SpmmConfig(kernel=kernel, mxu_precision=prec)
-    eng = RowParaSpmm(a, displs, displs, N, device=device, config=config,
-                      dtype=dtype)
+    eng, peak, held = measured_init(device, lambda: RowParaSpmm(
+        a, displs, displs, N, device=device, config=config, dtype=dtype))
     op = eng._local_op
     kernel_fn = getattr(op, "kernel", None)  # the dd kind's non-MXU tier has none
     say(f"[{tag} {prec}] kernel={kernel!r}: kind {eng.kernel_kind}, variant "
@@ -595,6 +644,7 @@ def drive(a, b, c_ref, prec, device, tag, expect, kernel="auto",
     check((eng.kernel_kind, op.variant) == expect,
           f"{tag} {prec}: resolved to {eng.kernel_kind!r}/{op.variant!r}, "
           f"expected {expect}")
+    check_init_memory(f"{tag} {prec}", prec, eng, peak, held)
 
     launches, _, _, bs = main_path(eng, b, c_ref, tol, f"{tag} {prec}", timing)
     if kernel_fn is not None:
@@ -696,6 +746,10 @@ def headline(device) -> list:
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
         if prec == "x3":
             records.append(presplit_b_phase(a, op, arrs, rB, device))
+        if prec == "default":
+            diff = one_pass_vs_x3(arrs[0], arrs[1], rB.to(torch.bfloat16), op.min_b_rows)
+            say(f"[headline default] #2 against #1 on (ah, 0, bh as fp32): max "
+                f"|C2 - C1| {diff:.3e} (0: the same sums)")
         del eng, op, bs, arrs, rB
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
@@ -1106,14 +1160,9 @@ def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto"):
     from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition
 
     d = csr_row_partition(a.rowptr, p)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    eng = RowParaSpmm(a, d, d, N, device=device, dtype=np.float32,
-                      config=SpmmConfig(kernel=kernel, mxu_precision=prec,
-                                        rb_p2p=rb_p2p))
-    peak = torch.cuda.max_memory_allocated(device) - base
-    held = torch.cuda.memory_allocated(device) - base
+    eng, peak, held = measured_init(device, lambda: RowParaSpmm(
+        a, d, d, N, device=device, dtype=np.float32,
+        config=SpmmConfig(kernel=kernel, mxu_precision=prec, rb_p2p=rb_p2p)))
     op = eng._local_op
     mode = "fused" if eng.is_halo else "ring" if rb_p2p else "a2a"
     tag = f"{tag} {prec} {mode}"
@@ -1121,11 +1170,10 @@ def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto"):
     say(f"[{tag}] p={p} kernel={kernel!r}: kind {eng.kernel_kind}, variant "
         f"{op.variant}, init {eng.t_init:.3f} s, init_breakdown "
         f"{json.dumps(eng.init_breakdown)}, roofline {json.dumps(op.roofline)}")
-    say(f"[{tag}] init device memory: peak {peak / 1e9:.3f} GB, held after "
-        f"{held / 1e9:.3f} GB; panels "
-        f"{', '.join(f'{t.dtype} {tuple(t.shape)}' for t in panels)}")
     check((eng.kernel_kind, op.variant) == expect,
           f"{tag}: resolved to {eng.kernel_kind!r}/{op.variant!r}, expected {expect}")
+    check_init_memory(tag, prec, eng, peak, held, "; panels " + ", ".join(
+        f"{t.dtype} {tuple(t.shape)}" for t in panels))
     launches, _, exec_ms, bs = main_path(eng, b, c_ref, TOL_REF[prec], tag)
     want = 1 if eng.is_halo else p
     check(launches[op.kernel.__name__] == want,
@@ -1269,11 +1317,11 @@ def para2d_phase(device) -> None:
 
 
 def tf32x3_layouts(build) -> None:
-    """Print the ring of each 3xTF32 entry (#3, #4 and #12 at highest)
+    """Print the ring of each 3xTF32 entry (#3, #4, #12 and #6 at highest)
     once: stages, dynamic shared memory, the block tile, and for its
     16-byte and 4-byte B copy kernels registers, spill bytes and resident
     blocks per SM, which must be 0 and at least 2."""
-    for name in ("crp_window_sg_f32", "crp_window_f32", "crp_halo_f32"):
+    for name in ("crp_window_sg_f32", "crp_window_f32", "crp_halo_f32", "crp_ragged_f32"):
         lay = build.tf32x3_layout(name)
         say(f"[tf32x3] {name}: {json.dumps(lay)}")
         for copy in ("b16", "b4"):
@@ -1282,15 +1330,16 @@ def tf32x3_layouts(build) -> None:
 
 
 def x3_layout(build) -> None:
-    """Print the ring of the x3 wgmma body once per library that builds it
-    (#1 and #5 as its mode, #4, #12): stages, dynamic shared memory,
-    threads, the block tile, and for each of its kernels (fp32 B by 16-byte
-    or plain copies, #5's likewise on the bf16 planes, #12's through the
-    chunk table) registers, spill bytes and resident blocks per SM, which
-    must be 0 and at least 1."""
+    """Print the rings of the wgmma body once per library that builds it
+    (#1 with #5 and #2 as its modes, #4, #12): stages, dynamic shared
+    memory, threads, the block tile, and for each of its kernels (fp32 B
+    by 16-byte or plain copies, #5's likewise on the bf16 planes, #2's on
+    one bf16 plane in its own deeper ring, #12's through the chunk table)
+    registers, spill bytes and resident blocks per SM, which must be 0 and
+    at least 1."""
     for name, label, copies in (
-        ("crp_window_sg_presplit", "crp_window_sg_presplit / _ab",
-         ("b16", "b4", "pair16", "pair2")),
+        ("crp_window_sg_presplit", "crp_window_sg_presplit / _ab / _bf16",
+         ("b16", "b4", "pair16", "pair2", "one16", "one2")),
         ("crp_window_x3", "crp_window_x3", ("b16", "b4")),
         ("crp_halo_x3", "crp_halo_x3", ("chunk16", "chunk4")),
     ):
@@ -1298,7 +1347,7 @@ def x3_layout(build) -> None:
         say(f"[x3] {label}: {json.dumps(lay)}")
         for copy in copies:
             check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 1,
-                  f"x3 wgmma {name} ({copy}): {lay}: spills, or no block fits an SM")
+                  f"wgmma {name} ({copy}): {lay}: spills, or no block fits an SM")
 
 
 def main() -> int:

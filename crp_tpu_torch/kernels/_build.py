@@ -137,14 +137,15 @@ def _report(name: str, symbol: str) -> dict:
     fn = getattr(libraries()[_ENTRIES[name][0]], symbol)
     fn.argtypes = [ctypes.c_char_p, ctypes.c_int]
     fn.restype = ctypes.c_int
-    out = ctypes.create_string_buffer(512)
+    out = ctypes.create_string_buffer(1024)
     check(fn(out, len(out)), name)
     return {k: int(v) for k, v in (kv.split("=") for kv in out.value.decode().split())}
 
 
 def tf32x3_layout(name: str) -> dict:
     """The ring of the 3xTF32 entry ``name`` (``crp_window_sg_f32``,
-    ``crp_window_f32`` or ``crp_halo_f32``) as its library's
+    ``crp_window_f32``, ``crp_halo_f32`` or ``crp_ragged_f32``) as its
+    library's
     ``crp_tf32x3_layout`` reports it: stages, dynamic shared memory, block
     tile and, for its kernels with 16-byte (``b16.*``) and 4-byte
     (``b4.*``) B copies, registers, local (spill) bytes and resident blocks
@@ -153,15 +154,16 @@ def tf32x3_layout(name: str) -> dict:
 
 
 def x3_layout(name: str = "crp_window_sg_presplit") -> dict:
-    """The ring of the x3 wgmma body in the library of entry ``name`` as
-    its ``crp_x3_layout`` reports it: stages, dynamic shared memory,
-    threads, block tile and, per kernel, registers, local (spill) bytes and
-    resident blocks per SM.  The kernels: fp32 B by 16-byte and by plain
-    copies (``b16.*``, ``b4.*``: #1 in ``window_sg``, #4
+    """The rings of the wgmma body in the library of entry ``name`` as its
+    ``crp_x3_layout`` reports them: the x3 ring's stages, dynamic shared
+    memory, threads, block tile and, per kernel, registers, local (spill)
+    bytes and resident blocks per SM.  The kernels: fp32 B by 16-byte and
+    by plain copies (``b16.*``, ``b4.*``: #1 in ``window_sg``, #4
     ``crp_window_x3`` in ``window``), #5's on the bf16 B planes
-    (``pair16.*``, ``pair2.*``, ``window_sg``), and #12 ``crp_halo_x3``'s
-    with B's rows through the chunk table (``chunk16.*``, ``chunk4.*``,
-    ``halo``)."""
+    (``pair16.*``, ``pair2.*``, ``window_sg``), #2's one-pass mode on one
+    bf16 B plane (``one16.*``, ``one2.*``, ``window_sg``, with its own ring:
+    ``one.stages``, ``one.smem_bytes``), and #12 ``crp_halo_x3``'s with B's
+    rows through the chunk table (``chunk16.*``, ``chunk4.*``, ``halo``)."""
     return _report(name, "crp_x3_layout")
 
 

@@ -49,8 +49,8 @@ int crp_halo_x3(const void* chunk_src, const void* ws, const void* ah,
                 const void* al, const void* b, void* c, int64_t G, int64_t TM,
                 int64_t W, int64_t n, void* stream)
 {
-    return crp::launch_x3_wgmma<false, true>(ws, ah, al, b, nullptr, c, G, TM, W,
-                                             n, stream, chunk_src);
+    return crp::launch_wgmma<crp::WgMode::SPLIT_B, true>(ws, ah, al, b, nullptr, c, G, TM,
+                                                          W, n, stream, chunk_src);
 }
 
 // crp_halo_x3's ring and resources (crp::x3_layout)

@@ -28,13 +28,14 @@
 // fastest, so the N tiles of one (group, M tile) run on neighbouring blocks
 // and the later reads of an A slice come from L2.
 //
-// Three tile bodies: panel_mma_kernel (bf16 wmma: x3 on a bf16 hi/lo
-// pack, and default; one shared-memory stage, the next slice staged through
-// registers), panel_fma_kernel (fp32 / fp64 FMA, the same staging) and
+// Three tile bodies: panel_mma_kernel (bf16 wmma; one shared-memory stage,
+// the next slice staged through registers: x3 on the ragged bf16 hi/lo
+// pack, #7, and default on #4, #12 and the ragged #8), panel_fma_kernel
+// (fp64 FMA, the same staging: #3, #4, #6 and #12 on fp64) and
 // panel_tf32x3_kernel (fp32 at HIGHEST on the TF32 tensor cores, fed by a
-// cp.async shared-memory ring; see its section).  The x3 kernels of the
-// uniform packs (#1, #5, #4 and #12) run on wgmma fed by TMA instead
-// (x3_wgmma.cuh).
+// cp.async shared-memory ring, see its section: #3, #4, #6 and #12).  The
+// x3 kernels of the uniform packs (#1, #5, #4 and #12) and the super-grouped
+// default (#2) run on wgmma fed by TMA instead (x3_wgmma.cuh).
 
 #pragma once
 
@@ -334,11 +335,8 @@ int launch_mma(const void* group_ptr, const void* starts, const void* a,
 }
 
 // --------------------------------------------------------------- FMA path
-
-__device__ __forceinline__ float fma_rn(float a, float b, float c)
-{
-    return __fmaf_rn(a, b, c);
-}
+//
+// fp64 panels: fp32 runs on the 3xTF32 body below.
 
 __device__ __forceinline__ double fma_rn(double a, double b, double c)
 {

@@ -8,17 +8,21 @@
 //
 // into the (G*TM, n) output C, every element of which is written.  Every
 // group owns at least one chunk: a group whose nonzeros all spilled owns a
-// zero dummy chunk at start 0, and no-op trailing steps (zero panels) fall
-// into the last group's range.  group_ptr is the exclusive cumsum of the
-// pack's step_first, derived at pack time; B has >= max(starts) + Wc rows
-// (checked by the Python wrapper).
+// zero dummy chunk at start 0, and no-op trailing steps (zero panels) pad
+// a shard of a stacked pack to the common S past its last group's range.
+// group_ptr is the exclusive cumsum of the pack's step_first, derived at
+// pack time; B has >= max(starts) + Wc rows (checked by the Python
+// wrapper).
 //
 // Replaces (crp_tpu/kernels/spmm_ragged.py):
 //   crp_ragged_presplit  <- _ragged_kernel_presplit (x3: A as bf16 hi/lo,
 //                           B split to bf16 hi/lo here in RNE)
 //   crp_ragged_bf16      <- _ragged_kernel_bf16 (one bf16 pass)
-//   crp_ragged_f32 / f64 <- _ragged_kernel (fp32 HIGHEST or fp64; FMA,
-//                           never TF32)
+//   crp_ragged_f32       <- _ragged_kernel at HIGHEST on fp32: 3xTF32 on
+//                           the TF32 tensor cores (panel_tf32x3_kernel, the
+//                           body of #3, #4 and #12 at highest, walking each
+//                           group's chunks), held to the fp32 plain version
+//   crp_ragged_f64       <- _ragged_kernel on fp64: fp64 FMA
 //
 // The TPU kernels walk a sequential (n-tile, step) grid with an NSLOT-deep
 // rolling DMA prefetch of (panel, B chunk) pairs and a double-buffered
@@ -26,14 +30,19 @@
 // Here one block owns one (128-row slice of a group, n-tile) and walks the
 // group's chunks itself (panel_tiles.cuh); the k-slices of all its chunks
 // form one loop, each slice's MMAs summed in a fresh fragment and added
-// with IEEE fp32 adds.
+// with IEEE fp32 adds.  The 3xTF32 body's cp.async ring runs across chunk
+// boundaries: a hub group's many chunks, a dummy chunk and the no-op steps
+// are slices like any other.
 //
 // What bounds it on an H100 at the cplaw power-law point (786,432 rows,
 // (TM, Wc) = (512, 128), S = 12,289 chunks, n = 256): x3 does 3 x 412
 // GFLOP of bf16 products over 3.2 GB of A panels plus 0.4 GB of B chunks
 // per n-tile pass; the chunks are narrow (Wc = 128 is four 32-row
 // k-slices), so the per-slice shared-memory round trip, not the tensor
-// cores, is what the simple version waits on.
+// cores, is what the wmma bodies wait on.  At highest the three TF32
+// products of the fp32 panels (3 x 412 GFLOP at 495 TF/s, 2.5 ms) bound
+// it, not their 3.2 GB (0.96 ms): the n tiles of one panel slice run on
+// neighbouring blocks, so its later reads come from L2.
 
 #include "panel_tiles.cuh"
 
@@ -63,8 +72,14 @@ int crp_ragged_f32(const void* group_ptr, const void* starts,
                    int64_t TM, int64_t Wc, int64_t n, void* stream)
 {
     if (!group_ptr) return (int)cudaErrorInvalidValue;
-    return crp::launch_fma<float, 128, 128, 8, 8, 8>(
-        group_ptr, starts, panels, b, c, G, TM, Wc, n, stream);
+    return crp::launch_tf32x3<false>(group_ptr, starts, panels, b, c, G, TM, Wc, n,
+                                     stream);
+}
+
+// crp_ragged_f32's ring and resources (crp::tf32x3_layout)
+int crp_tf32x3_layout(char* out, int len)
+{
+    return crp::tf32x3_layout<false>(out, len);
 }
 
 int crp_ragged_f64(const void* group_ptr, const void* starts,

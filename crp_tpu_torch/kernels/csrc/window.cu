@@ -50,7 +50,8 @@ extern "C" {
 int crp_window_x3(const void* ws, const void* ah, const void* al, const void* b,
                   void* c, int64_t G, int64_t TM, int64_t W, int64_t n, void* stream)
 {
-    return crp::launch_x3_wgmma<false>(ws, ah, al, b, nullptr, c, G, TM, W, n, stream);
+    return crp::launch_wgmma<crp::WgMode::SPLIT_B>(ws, ah, al, b, nullptr, c, G, TM, W, n,
+                                                    stream);
 }
 
 // crp_window_x3's ring and resources (crp::x3_layout)

@@ -19,7 +19,10 @@
 //                              also pre-split to bf16 hi/lo in HBM by
 //                              split_b_bf16): the same body reading the
 //                              two bf16 planes, no split here
-//   crp_window_sg_bf16      <- _window_kernel_sg_bf16 (one bf16 pass)
+//   crp_window_sg_bf16      <- _window_kernel_sg_bf16 (one bf16 pass): the
+//                              same body's one-pass mode, the hi panels by
+//                              TMA and one bf16 B plane in a 6-stage ring,
+//                              one wgmma per k16
 //   crp_window_sg_f32       <- _window_kernel_sg at HIGHEST on fp32: 3xTF32
 //                              on the TF32 tensor cores (panel_tf32x3_kernel,
 //                              as crp_window_f32), held to the fp32 plain
@@ -32,13 +35,14 @@
 // What bounds it on an H100 at the pwtk-class n = 256 headline (G = 852,
 // TM = 256, W = 5632): x3 does 3 x 629 GFLOP of bf16 products over 4.9 GB
 // of A panels (1.9 ms at the 989 TF/s bf16 peak against 1.5 ms of HBM
-// time), the 1-pass kernel 629 GFLOP over 2.5 GB (memory-bound), highest
-// 3 x 629 GFLOP of TF32 products (3.8 ms at 495 TF/s; one fp32 FMA pass
-// would be 9.4 ms at 67 TF/s).  The A panels are the dominant bytes;
-// groups advance in order, so the B windows of neighbouring groups (5.8 MB
-// each, mostly shared) stay in the 50 MB L2.  The pre-split B pair moves
-// the same bytes as fp32 B (two bf16 halves), and saves the split that
-// every consumer thread of #1 makes of its fragments.
+// time), the 1-pass kernel 629 GFLOP (0.64 ms) over 2.5 GB (0.73 ms: the
+// bytes bound it), highest 3 x 629 GFLOP of TF32 products (3.8 ms at 495
+// TF/s; one fp32 FMA pass would be 9.4 ms at 67 TF/s).  The A panels are
+// the dominant bytes; groups advance in order, so the B windows of
+// neighbouring groups (5.8 MB each, mostly shared) stay in the 50 MB L2.
+// The pre-split B pair moves the same bytes as fp32 B (two bf16 halves),
+// and saves the split that every consumer thread of #1 makes of its
+// fragments.
 
 #include "panel_tiles.cuh"
 #include "x3_wgmma.cuh"
@@ -49,8 +53,8 @@ int crp_window_sg_presplit(const void* ws, const void* ah, const void* al,
                            const void* b, void* c, int64_t G, int64_t TM,
                            int64_t W, int64_t n, void* stream)
 {
-    return crp::launch_x3_wgmma<false>(ws, ah, al, b, nullptr, c, G, TM, W, n,
-                                       stream);
+    return crp::launch_wgmma<crp::WgMode::SPLIT_B>(ws, ah, al, b, nullptr, c, G, TM, W,
+                                                    n, stream);
 }
 
 int crp_window_sg_presplit_ab(const void* ws, const void* ah, const void* al,
@@ -58,15 +62,16 @@ int crp_window_sg_presplit_ab(const void* ws, const void* ah, const void* al,
                               int64_t G, int64_t TM, int64_t W, int64_t n,
                               void* stream)
 {
-    return crp::launch_x3_wgmma<true>(ws, ah, al, bh, bl, c, G, TM, W, n, stream);
+    return crp::launch_wgmma<crp::WgMode::PAIR_B>(ws, ah, al, bh, bl, c, G, TM, W, n,
+                                                   stream);
 }
 
 int crp_window_sg_bf16(const void* ws, const void* ah, const void* bh,
                        void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
                        void* stream)
 {
-    return crp::launch_mma<false>(nullptr, ws, ah, nullptr, bh, c, G, TM, W,
-                                  n, stream);
+    return crp::launch_wgmma<crp::WgMode::ONE_PASS>(ws, ah, nullptr, bh, nullptr, c, G,
+                                                    TM, W, n, stream);
 }
 
 int crp_window_sg_f32(const void* ws, const void* tiles, const void* b,
@@ -82,7 +87,7 @@ int crp_tf32x3_layout(char* out, int len)
     return crp::tf32x3_layout<false>(out, len);
 }
 
-// the x3 wgmma body's ring and resources (crp::x3_layout)
+// the wgmma body's rings and resources, x3 and one-pass (crp::x3_layout)
 int crp_x3_layout(char* out, int len)
 {
     return crp::x3_layout<true, false>(out, len);

@@ -1,8 +1,10 @@
-// The x3 wgmma tile body, fed by TMA, of the windowed kernels on bf16 hi/lo
-// panels: the super-grouped #1 (crp_window_sg_presplit) and #5
-// (crp_window_sg_presplit_ab) in window_sg.cu, the non-super-grouped #4
-// (crp_window_x3, every multi-shard pack) in window.cu, and the fused halo
-// kernel #12 (crp_halo_x3) in halo.cu.
+// The wgmma tile body, fed by TMA, of the windowed kernels on bf16 panels:
+// at x3 on the hi/lo pair, the super-grouped #1 (crp_window_sg_presplit)
+// and #5 (crp_window_sg_presplit_ab) in window_sg.cu, the non-super-grouped
+// #4 (crp_window_x3, every multi-shard pack) in window.cu and the fused halo
+// kernel #12 (crp_halo_x3) in halo.cu; in one bf16 pass on the hi panels,
+// the super-grouped default #2 (crp_window_sg_bf16) in window_sg.cu.  The
+// kernel's MODE (WgMode below) picks which.
 //
 // A uniform pack: group g holds the bf16 hi and lo (TM, W) panels of A
 // over the B rows [ws[g], ws[g] + W), and
@@ -10,7 +12,7 @@
 //     C[g*TM + r, j] = sum_k (al*bh + ah*bl + ah*bh)[r, k, j]
 //
 // with B split here to bf16 hi/lo in RNE (x - hi exact in fp32, then
-// rounded), or arriving pre-split as two bf16 planes (B_PAIR, #5: the
+// rounded), or arriving pre-split as two bf16 planes (PAIR_B, #5: the
 // caller's split is the same RNE split, so the products and C are #1's
 // bit for bit).  The panels are split once when they are packed: the
 // multi-shard packs of #4 and #12 densify straight to the pair (TMA copies
@@ -23,11 +25,23 @@
 // 64-row stage never straddles two chunks: the producer looks its chunk up
 // once a stage.  The other kernels compile without the lookup.
 //
+// ONE_PASS (#2): C[g*TM + r, j] = sum_k (ah*bh)[r, k, j], B cast to bf16 by
+// the caller (as the TPU kernel's caller does).  A stage holds the hi tile
+// and one bf16 B plane, half an x3 stage, so its ring is twice as deep (6
+// stages); one wgmma per k16 in place of three, its B fragment read by one
+// ldmatrix.trans (5% faster than 2-byte loads, PERF.md).  The fresh
+// partial per 32-row slice stays (carried over a whole 5632-row window the
+// tensor cores' own sum drifts ~2e-6, outside the 1e-6 the kernel is held
+// to).  Each slice's products are waited for before its adds, as at x3:
+// the two consumer warpgroups interleave, so overlapping a slice's adds
+// with its products (two fresh partials in turn, wgmma.wait_group 1)
+// bought under 1% when measured (PERF.md).
+//
 // The body computes the transposed product, C^T = B^T A^T, so that each
 // operand sits where wgmma wants it:
 //   * the panels' (TM, W) rows are K-major, wgmma's shared-memory operand
 //     (N = 128 panel rows a block).  TMA copies each (128 x 64) hi and lo
-//     tile straight into a ring of X3_STAGES shared-memory stages with
+//     tile straight into a ring of WgRing::STAGES shared-memory stages with
 //     128-byte swizzle, completing on an mbarrier; no thread touches these,
 //     the dominant bytes.  The tensor maps span the (G*TM, W) bf16 views
 //     (for #12 the p shards' groups, flattened); columns past W come in as
@@ -57,14 +71,15 @@
 // shared memory and writes C row-major with 16-byte stores; n is masked,
 // never padded.
 //
-// What bounds it on an H100 (three bf16 passes at 989 TF/s against the
+// What bounds it on an H100 (x3: three bf16 passes at 989 TF/s against the
 // hi/lo panels once from HBM at 3.35 TB/s): at the p = 1 headline (G = 852,
 // TM = 256, W = 5632, n = 256) 1.89 TFLOP, 1.91 ms, over 4.91 GB of panels
 // (1.47 ms); at one p = 4 headline shard (#4: G = 214, W = 5632) 0.47
 // TFLOP, 0.48 ms, over 1.23 GB (0.37 ms); over all four shards (#12: 4 x
 // 214 groups) 1.90 TFLOP, 1.92 ms, over 4.94 GB.  Every block also reads
 // its B window (64 rows x 128 columns a stage, as many bytes as the two
-// panel tiles) from L2.
+// panel tiles) from L2.  ONE_PASS at the headline: 0.63 TFLOP (0.64 ms)
+// over 2.46 GB of hi panels (0.73 ms): the bytes bound it.
 
 #pragma once
 
@@ -78,19 +93,36 @@ constexpr int X3_BN = 128;     // panel rows a block (wgmma N)
 constexpr int X3_BM = 128;     // B / C columns a block: 2 warpgroups x m64
 constexpr int X3_BK = 64;      // k rows a stage: one 128-byte swizzled bf16 row
 constexpr int X3_SLICE = 32;   // k rows summed into one fresh accumulator
-constexpr int X3_STAGES = 3;
 constexpr int X3_CONSUMERS = 256;  // two warpgroups
 constexpr int X3_THREADS = X3_CONSUMERS + 32;  // and the producer warp
 constexpr int X3_A_TILE = X3_BN * X3_BK * 2;  // bytes of one hi or lo tile
 constexpr int X3_B_LD = X3_BM + 4;    // fp32 pitch: conflict-free fragment reads
-constexpr int X3_P_LD = X3_BM + 8;    // bf16 pitch of a B_PAIR plane
+constexpr int X3_P_LD = X3_BM + 8;    // bf16 pitch of a B plane
 constexpr int X3_B_BYTES = 2 * X3_BK * X3_P_LD * 2;  // >= X3_BK * X3_B_LD * 4
-constexpr int X3_STAGE = 2 * X3_A_TILE + X3_B_BYTES;  // a multiple of 1024
 constexpr int X3_C_LD = X3_BN + 4;    // fp32 pitch of the staged C^T tile
-constexpr int X3_SMEM = X3_STAGES * X3_STAGE + 2 * X3_STAGES * 8 + 1024;
-static_assert(X3_STAGE % 1024 == 0, "swizzled tiles need 1024-byte stage bases");
 static_assert(X3_BK * X3_B_LD * 4 <= X3_B_BYTES, "fp32 B slice fits the stage");
-static_assert(X3_BN * X3_C_LD * 4 <= X3_STAGES * X3_STAGE, "C^T fits the ring");
+
+// What a block multiplies: three bf16 products on fp32 B split in
+// registers (SPLIT_B: #1, #4, #12) or on B pre-split to two bf16 planes
+// (PAIR_B: #5), or one bf16 product of the hi panels and a bf16 B
+// (ONE_PASS: #2)
+enum class WgMode { SPLIT_B, PAIR_B, ONE_PASS };
+
+// The ring of a mode: a stage holds the hi tile (and x3's lo tile), then
+// the B slice, as fp32 or as bf16 planes (X3_P_LD pitch); a one-pass stage
+// is half as large, so its ring is twice as deep
+template <WgMode MODE>
+struct WgRing {
+    static constexpr bool ONE = MODE == WgMode::ONE_PASS;
+    static constexpr int A_BYTES = (ONE ? 1 : 2) * X3_A_TILE;
+    static constexpr int B_BYTES = ONE ? X3_BK * X3_P_LD * 2 : X3_B_BYTES;
+    static constexpr int STAGE = A_BYTES + B_BYTES;
+    static constexpr int STAGES = ONE ? 6 : 3;
+    static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+    static_assert(STAGE % 1024 == 0, "swizzled tiles need 1024-byte stage bases");
+    static_assert(X3_BN * X3_C_LD * 4 <= STAGES * STAGE, "C^T fits the ring");
+    static_assert(SMEM <= 232448, "the ring fits a block's shared memory");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p)
 {
@@ -214,16 +246,49 @@ __device__ __forceinline__ uint32_t pack_pair(bf16 x0, bf16 x1)
 
 // The producer warp's B copy of stage rows [k0, k0 + X3_BK) of the window
 // (B rows b_row0 + k) and columns [n0, n0 + X3_BM), as fp32 (ld X3_B_LD) or
-// as the two bf16 planes (ld X3_P_LD); rows at or past W and columns at or
-// past n are zeros.  B_VEC: 16-byte cp.async copies, one arrival on bar
-// when they land; else plain loads and stores, then one arrival (release:
-// the stores are visible to the threads that wait on bar).
-template <bool B_PAIR, bool B_VEC>
+// as the bf16 planes (ld X3_P_LD: two with PAIR_B, one with ONE_PASS);
+// rows at or past W and columns at or past n are zeros.  B_VEC: 16-byte
+// cp.async copies, one arrival on bar when they land; else plain loads and
+// stores, then one arrival (release: the stores are visible to the threads
+// that wait on bar).
+template <WgMode MODE, bool B_VEC>
 __device__ __forceinline__ void x3_load_b(uint8_t* dst, const void* b, const bf16* b_lo,
                                           int64_t b_row0, int k0, int W, int n, int n0,
                                           int lane, uint32_t bar)
 {
-    if constexpr (B_VEC) {
+    constexpr bool B_PAIR = MODE == WgMode::PAIR_B;
+    if constexpr (MODE == WgMode::ONE_PASS) {
+        const bf16* bh = static_cast<const bf16*>(b);
+        if constexpr (B_VEC) {
+            // 8 columns of a row a lane: lanes 0-15 the even rows, 16-31 the odd
+            const int col = (lane % 16) * 8, r0 = lane / 16;
+            const bool col_ok = n0 + col < n;
+            uint32_t d = smem_u32(dst) + (r0 * X3_P_LD + col) * 2;
+#pragma unroll 8
+            for (int i = 0; i < X3_BK / 2; ++i) {
+                const int r = 2 * i + r0;
+                const bool ok = col_ok && k0 + r < W;
+                const bf16* src = ok ? bh + (b_row0 + k0 + r) * n + n0 + col : bh;
+                cp_async<16>(d, reinterpret_cast<const float*>(src), ok);
+                d += 2 * X3_P_LD * 2;
+            }
+            mbar_arrive_cp_async(bar);
+        } else {
+            bf16* ph = reinterpret_cast<bf16*>(dst);
+            const bf16 zero = __float2bfloat16_rn(0.0f);
+#pragma unroll 4
+            for (int r = 0; r < X3_BK; ++r) {
+                const bool row_ok = k0 + r < W;
+                const int64_t off = (b_row0 + k0 + r) * n + n0;
+#pragma unroll
+                for (int q = 0; q < X3_BM / 32; ++q) {
+                    const int j = lane + 32 * q;
+                    ph[r * X3_P_LD + j] = row_ok && n0 + j < n ? bh[off + j] : zero;
+                }
+            }
+            mbar_arrive(bar);
+        }
+    } else if constexpr (B_VEC) {
         // fp32: lane owns 4 columns of every row; B_PAIR: 8 columns of one plane
         constexpr int PER_ROW = B_PAIR ? X3_BM / 8 : X3_BM / 4;  // copies a row a plane
         const int col = (lane % PER_ROW) * (B_PAIR ? 8 : 4);
@@ -277,20 +342,32 @@ __device__ __forceinline__ void x3_load_b(uint8_t* dst, const void* b, const bf1
     }
 }
 
-// The consumer thread's hi and lo fragments of the k16 step at stage row kk:
-// rows j0 and j0 + 8 (B columns) of the m64 x k16 operand, columns (k rows
-// of B) 2 tq, 2 tq + 1 and the same + 8, in the PTX ISA's register layout
-template <bool B_PAIR>
+// The consumer thread's hi and lo fragments of the k16 step at stage row kk
+// (ONE_PASS: hi only, fl untouched): rows j0 and j0 + 8 (B columns) of the
+// m64 x k16 operand, columns (k rows of B) 2 tq, 2 tq + 1 and the same + 8,
+// in the PTX ISA's register layout
+template <WgMode MODE>
 __device__ __forceinline__ void x3_fragments(const uint8_t* stage_b, int kk, int j0, int tq,
                                              uint32_t (&fh)[4], uint32_t (&fl)[4])
 {
-    if constexpr (!B_PAIR) {
+    if constexpr (MODE == WgMode::SPLIT_B) {
         const float* bs = reinterpret_cast<const float*>(stage_b) + (kk + 2 * tq) * X3_B_LD + j0;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {  // (j0, k) (j0 + 8, k) (j0, k + 8) (j0 + 8, k + 8)
             const float* p = bs + (q >> 1) * 8 * X3_B_LD + (q & 1) * 8;
             split_pair(p[0], p[X3_B_LD], fh[q], fl[q]);
         }
+    } else if constexpr (MODE == WgMode::ONE_PASS) {
+        // the same four 8 x 8 blocks in one ldmatrix, transposed: lane l
+        // gives the address of row l & 7 of block l >> 3 (a 16-byte row of
+        // 8 B columns; the padded pitch keeps the 8 rows on distinct banks)
+        const int lane = threadIdx.x & 31, m = lane >> 3;
+        const bf16* p = reinterpret_cast<const bf16*>(stage_b)
+                        + (kk + (lane & 7) + 8 * (m >> 1)) * X3_P_LD + j0 - (lane >> 2)
+                        + 8 * (m & 1);
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(fh[0]), "=r"(fh[1]), "=r"(fh[2]), "=r"(fh[3])
+                     : "r"(smem_u32(p)) : "memory");
     } else {
         const bf16* ph = reinterpret_cast<const bf16*>(stage_b) + (kk + 2 * tq) * X3_P_LD + j0;
         const bf16* pl = ph + X3_BK * X3_P_LD;
@@ -303,7 +380,7 @@ __device__ __forceinline__ void x3_fragments(const uint8_t* stage_b, int kk, int
     }
 }
 
-template <bool B_PAIR, bool B_VEC, bool CHUNKED = false>
+template <WgMode MODE, bool B_VEC, bool CHUNKED = false>
 __global__ void __launch_bounds__(X3_THREADS, 1)
 x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 const __grid_constant__ CUtensorMap a_lo,
@@ -314,12 +391,13 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 int64_t TM, int W, int n, int n_tiles,
                 const int32_t* __restrict__ chunk_src)
 {
-    static_assert(!(CHUNKED && B_PAIR), "the chunk lookup reads fp32 B");
+    using Ring = WgRing<MODE>;
+    static_assert(!(CHUNKED && MODE != WgMode::SPLIT_B), "the chunk lookup reads fp32 B");
     extern __shared__ __align__(16) uint8_t x3_smem_raw[];
     uint8_t* const smem =
         x3_smem_raw + ((1024 - (smem_u32(x3_smem_raw) & 1023)) & 1023);
-    const uint32_t full0 = smem_u32(smem + X3_STAGES * X3_STAGE);
-    const uint32_t empty0 = full0 + X3_STAGES * 8;
+    const uint32_t full0 = smem_u32(smem + Ring::STAGES * Ring::STAGE);
+    const uint32_t empty0 = full0 + Ring::STAGES * 8;
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int64_t tile = blockIdx.x;
@@ -329,7 +407,7 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
     const int nk = (W + X3_BK - 1) / X3_BK;         // stages of the window
 
     if (tid == 0) {
-        for (int s = 0; s < X3_STAGES; ++s) {
+        for (int s = 0; s < Ring::STAGES; ++s) {
             mbar_init(full0 + 8 * s, 1 + 32);  // the TMA arrival and the 32 B copiers
             mbar_init(empty0 + 8 * s, X3_CONSUMERS / 32);  // one per consumer warp
         }
@@ -340,13 +418,15 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
     if (warp == X3_CONSUMERS / 32) {  // the producer
         const int64_t b_row0 = ws[g];
         for (int t = 0; t < nk; ++t) {
-            const int s = t % X3_STAGES;
-            mbar_wait(empty0 + 8 * s, ((t / X3_STAGES) & 1) ^ 1);
-            uint8_t* st = smem + s * X3_STAGE;
+            const int s = t % Ring::STAGES;
+            mbar_wait(empty0 + 8 * s, ((t / Ring::STAGES) & 1) ^ 1);
+            uint8_t* st = smem + s * Ring::STAGE;
             if (lane == 0) {
-                mbar_arrive_tx(full0 + 8 * s, 2 * X3_A_TILE);
+                mbar_arrive_tx(full0 + 8 * s, Ring::A_BYTES);
                 tma_load(smem_u32(st), &a_hi, full0 + 8 * s, t * X3_BK, (int)row0);
-                tma_load(smem_u32(st) + X3_A_TILE, &a_lo, full0 + 8 * s, t * X3_BK, (int)row0);
+                if constexpr (!Ring::ONE)
+                    tma_load(smem_u32(st) + X3_A_TILE, &a_lo, full0 + 8 * s, t * X3_BK,
+                             (int)row0);
             }
             int64_t b_row = b_row0;  // stage row k is row b_row + t X3_BK + k of b
             int w_end = W;           // stage rows at or past it are zeros
@@ -356,8 +436,8 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 b_row = src + r % HALO_TK - t * X3_BK;
                 w_end = src >= 0 ? W : 0;  // a dead chunk: every row zero
             }
-            x3_load_b<B_PAIR, B_VEC>(st + 2 * X3_A_TILE, b, b_lo, b_row, t * X3_BK, w_end, n,
-                                     n0, lane, full0 + 8 * s);
+            x3_load_b<MODE, B_VEC>(st + Ring::A_BYTES, b, b_lo, b_row, t * X3_BK, w_end, n,
+                                   n0, lane, full0 + 8 * s);
         }
         cp_async_commit();
         cp_async_wait<0>();
@@ -373,28 +453,32 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
     for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.0f;
 
     for (int t = 0; t < nk; ++t) {
-        const int s = t % X3_STAGES;
-        mbar_wait(full0 + 8 * s, (t / X3_STAGES) & 1);
+        const int s = t % Ring::STAGES;
+        mbar_wait(full0 + 8 * s, (t / Ring::STAGES) & 1);
         __syncwarp();  // wgmma's .aligned forms need the warp converged
-        const uint8_t* st = smem + s * X3_STAGE;
+        const uint8_t* st = smem + s * Ring::STAGE;
         const uint32_t hi_addr = smem_u32(st), lo_addr = hi_addr + X3_A_TILE;
 #pragma unroll
         for (int h = 0; h < X3_BK / X3_SLICE; ++h) {
             if (t * X3_BK + h * X3_SLICE >= W) break;  // W % 32 == 0: nothing left
-            uint32_t fh[2][4], fl[2][4];
+            uint32_t fh[2][4], fl[2][4];  // fl: x3 only
 #pragma unroll
             for (int ks = 0; ks < 2; ++ks)
-                x3_fragments<B_PAIR>(st + 2 * X3_A_TILE, h * X3_SLICE + ks * 16, j0, tq,
-                                     fh[ks], fl[ks]);
+                x3_fragments<MODE>(st + Ring::A_BYTES, h * X3_SLICE + ks * 16, j0, tq,
+                                   fh[ks], fl[ks]);
             wgmma_fence();
 #pragma unroll
             for (int ks = 0; ks < 2; ++ks) {
                 const uint32_t koff = (h * 2 + ks) * 32;  // 16 bf16 along the row
                 const uint64_t dh = sw128_desc(hi_addr + koff);
-                const uint64_t dl = sw128_desc(lo_addr + koff);
-                wgmma_128(part, fh[ks], dl, ks);  // the slice's first: a fresh sum
-                wgmma_128(part, fl[ks], dh, 1);
-                wgmma_128(part, fh[ks], dh, 1);
+                if constexpr (Ring::ONE) {
+                    wgmma_128(part, fh[ks], dh, ks);  // ah bh alone; ks = 0: a fresh sum
+                } else {
+                    const uint64_t dl = sw128_desc(lo_addr + koff);
+                    wgmma_128(part, fh[ks], dl, ks);  // the slice's first: a fresh sum
+                    wgmma_128(part, fl[ks], dh, 1);
+                    wgmma_128(part, fh[ks], dh, 1);
+                }
             }
             wgmma_commit_wait();
             fence_operands(part);
@@ -479,29 +563,33 @@ inline cudaError_t panel_map(CUtensorMap* map, const void* panels, int64_t rows,
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool B_PAIR, bool B_VEC, bool CHUNKED = false>
+template <WgMode MODE, bool B_VEC, bool CHUNKED = false>
 cudaError_t x3_prepare()
 {
-    return cudaFuncSetAttribute(x3_wgmma_kernel<B_PAIR, B_VEC, CHUNKED>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, X3_SMEM);
+    return cudaFuncSetAttribute(x3_wgmma_kernel<MODE, B_VEC, CHUNKED>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                WgRing<MODE>::SMEM);
 }
 
-// B_PAIR: b is B's bf16 hi plane and b_lo its lo plane (split_b_bf16);
-// else b is fp32 B.  The panels must be 16-byte aligned (TMA); B of any
-// alignment (16-byte copies where n and B allow them).  CHUNKED: B's rows
-// through chunk_src (see above), and every ws a multiple of HALO_TK.
-template <bool B_PAIR, bool CHUNKED = false>
-int launch_x3_wgmma(const void* ws, const void* ah, const void* al, const void* b,
-                    const void* b_lo, void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
-                    void* stream, const void* chunk_src = nullptr)
+// SPLIT_B: b is fp32 B; PAIR_B: b is B's bf16 hi plane and b_lo its lo
+// plane (split_b_bf16); ONE_PASS: b is B cast to bf16, and al and b_lo are
+// not read.  The panels must be 16-byte aligned (TMA); B of any alignment
+// (16-byte copies where n and B allow them).  CHUNKED: B's rows through
+// chunk_src (see above), and every ws a multiple of HALO_TK.
+template <WgMode MODE, bool CHUNKED = false>
+int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
+                 const void* b_lo, void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
+                 void* stream, const void* chunk_src = nullptr)
 {
     // a stage starts a multiple of X3_BK rows past a HALO_TK-aligned window
     // start: it lies in one B chunk
     static_assert(HALO_TK % X3_BK == 0, "a 64-row stage never straddles two B chunks");
+    constexpr bool ONE = WgRing<MODE>::ONE;
     if (G < 0 || TM <= 0 || TM % X3_BN || W <= 0 || W % X3_SLICE || n < 0
         || (CHUNKED && !chunk_src))
         return (int)cudaErrorInvalidValue;
-    if ((uintptr_t)ah % 16 || (uintptr_t)al % 16) return (int)cudaErrorMisalignedAddress;
+    if ((uintptr_t)ah % 16 || (!ONE && (uintptr_t)al % 16))
+        return (int)cudaErrorMisalignedAddress;
     const int64_t n_tiles = (n + X3_BM - 1) / X3_BM;
     const int64_t blocks = G * (TM / X3_BN) * n_tiles;
     if (blocks > 0x7fffffff || G * TM > 0x7fffffff || W > 0x7fffffff || n > 0x7fffffff)
@@ -509,52 +597,62 @@ int launch_x3_wgmma(const void* ws, const void* ah, const void* al, const void* 
     if (blocks == 0) return (int)cudaGetLastError();
     CUtensorMap hi, lo;
     cudaError_t e = panel_map(&hi, ah, G * TM, W);
-    if (e == cudaSuccess) e = panel_map(&lo, al, G * TM, W);
+    if (e == cudaSuccess) e = panel_map(&lo, ONE ? ah : al, G * TM, W);
     if (e != cudaSuccess) return (int)e;
-    const bool vec = n % (B_PAIR ? 8 : 4) == 0 && (uintptr_t)b % 16 == 0
-                     && (!B_PAIR || (uintptr_t)b_lo % 16 == 0);
-    e = vec ? x3_prepare<B_PAIR, true, CHUNKED>() : x3_prepare<B_PAIR, false, CHUNKED>();
+    const bool vec = n % (MODE == WgMode::SPLIT_B ? 4 : 8) == 0 && (uintptr_t)b % 16 == 0
+                     && (MODE != WgMode::PAIR_B || (uintptr_t)b_lo % 16 == 0);
+    e = vec ? x3_prepare<MODE, true, CHUNKED>() : x3_prepare<MODE, false, CHUNKED>();
     if (e != cudaSuccess) return (int)e;
-    const auto kernel = vec ? x3_wgmma_kernel<B_PAIR, true, CHUNKED>
-                            : x3_wgmma_kernel<B_PAIR, false, CHUNKED>;
-    kernel<<<(unsigned)blocks, X3_THREADS, X3_SMEM, (cudaStream_t)stream>>>(
+    const auto kernel = vec ? x3_wgmma_kernel<MODE, true, CHUNKED>
+                            : x3_wgmma_kernel<MODE, false, CHUNKED>;
+    kernel<<<(unsigned)blocks, X3_THREADS, WgRing<MODE>::SMEM, (cudaStream_t)stream>>>(
         hi, lo, static_cast<const int32_t*>(ws), b, static_cast<const bf16*>(b_lo),
         static_cast<float*>(c), TM, (int)W, (int)n, (int)n_tiles,
         static_cast<const int32_t*>(chunk_src));
     return (int)cudaGetLastError();
 }
 
-template <bool B_PAIR, bool B_VEC, bool CHUNKED = false>
+template <WgMode MODE, bool B_VEC, bool CHUNKED = false>
 cudaError_t x3_resources(const char* copy, char* out, int len)
 {
-    const cudaError_t e = x3_prepare<B_PAIR, B_VEC, CHUNKED>();
+    const cudaError_t e = x3_prepare<MODE, B_VEC, CHUNKED>();
     if (e != cudaSuccess) return e;
-    return kernel_resources(x3_wgmma_kernel<B_PAIR, B_VEC, CHUNKED>, X3_THREADS, X3_SMEM,
-                            copy, out, len);
+    return kernel_resources(x3_wgmma_kernel<MODE, B_VEC, CHUNKED>, X3_THREADS,
+                            WgRing<MODE>::SMEM, copy, out, len);
 }
 
-// The ring and resources of the x3 wgmma kernels of one library as
+// The ring and resources of the wgmma kernels of one library as
 // "key=value" pairs separated by spaces (at most len bytes, NUL included):
-// stages, dynamic shared memory bytes, threads and block tile (BM columns
-// of B, BN panel rows, BK k rows a stage), then per kernel its resources:
-// "b16" and "b4" (#1 and #4, fp32 B by 16-byte copies or by plain 4-byte
-// loads), with PAIR "pair16" and "pair2" (#5, the bf16 planes likewise),
-// with CHUNKED "chunk16" and "chunk4" in their place (#12, B's rows through
-// chunk_src)
-template <bool PAIR, bool CHUNKED>
+// the x3 ring's stages, dynamic shared memory bytes, threads and block tile
+// (BM columns of B, BN panel rows, BK k rows a stage), then per kernel its
+// resources: "b16" and "b4" (#1 and #4, fp32 B by 16-byte copies or by
+// plain 4-byte loads), with CHUNKED "chunk16" and "chunk4" in their place
+// (#12, B's rows through chunk_src); with SG (window_sg.cu) also "pair16"
+// and "pair2" (#5, the bf16 planes likewise) and the one-pass ring
+// ("one.stages", "one.smem_bytes") and kernels "one16" and "one2" (#2, the
+// bf16 B plane by 16-byte copies or by plain 2-byte loads)
+template <bool SG, bool CHUNKED>
 inline int x3_layout(char* out, int len)
 {
-    static_assert(!(PAIR && CHUNKED), "no library builds both");
+    static_assert(!(SG && CHUNKED), "no library builds both");
+    using X3 = WgRing<WgMode::SPLIT_B>;
+    using One = WgRing<WgMode::ONE_PASS>;
     int used = snprintf(out, len, "stages=%d smem_bytes=%d threads=%d BM=%d BN=%d BK=%d",
-                        X3_STAGES, X3_SMEM, X3_THREADS, X3_BM, X3_BN, X3_BK);
+                        X3::STAGES, X3::SMEM, X3_THREADS, X3_BM, X3_BN, X3_BK);
+    if constexpr (SG)
+        used += snprintf(out + used, len - used, " one.stages=%d one.smem_bytes=%d",
+                         One::STAGES, One::SMEM);
     using Report = cudaError_t (*)(const char*, char*, int);
     struct Kernel { const char* copy; Report report; };
-    Kernel kernels[4] = {{CHUNKED ? "chunk16" : "b16", x3_resources<false, true, CHUNKED>},
-                         {CHUNKED ? "chunk4" : "b4", x3_resources<false, false, CHUNKED>}};
+    constexpr WgMode SPLIT = WgMode::SPLIT_B;
+    Kernel kernels[6] = {{CHUNKED ? "chunk16" : "b16", x3_resources<SPLIT, true, CHUNKED>},
+                         {CHUNKED ? "chunk4" : "b4", x3_resources<SPLIT, false, CHUNKED>}};
     int count = 2;
-    if constexpr (PAIR) {
-        kernels[count++] = {"pair16", x3_resources<true, true>};
-        kernels[count++] = {"pair2", x3_resources<true, false>};
+    if constexpr (SG) {
+        kernels[count++] = {"pair16", x3_resources<WgMode::PAIR_B, true>};
+        kernels[count++] = {"pair2", x3_resources<WgMode::PAIR_B, false>};
+        kernels[count++] = {"one16", x3_resources<WgMode::ONE_PASS, true>};
+        kernels[count++] = {"one2", x3_resources<WgMode::ONE_PASS, false>};
     }
     for (int i = 0; i < count; ++i) {
         const cudaError_t e = kernels[i].report(kernels[i].copy, out + used, len - used);

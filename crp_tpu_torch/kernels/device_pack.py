@@ -8,7 +8,9 @@ scatters them into zeroed panels and splits those to bf16 in RNE.  The
 split is bit-identical to the native ``split_bf16_one``
 (``fastops.cpp:206-215``) that the JAX packs use, so one matrix gives the
 same panels in both packages (``tests/test_torch_device_pack.py``,
-``tests/test_torch_ragged.py``).
+``tests/test_torch_ragged.py``).  In the bf16 modes the panels are
+densified slab by slab through one reused fp32 buffer, so the fp32 panels
+never exist whole beside their bf16 planes.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from .spmm_pallas import UnsupportedSparsity
 
 _SPLIT_CHUNK = 1 << 26  # elements per split step: bounds the fp32 temporaries
+_SLAB = 1 << 25  # panel elements densified at a time in the bf16 modes (whole panels)
 
 MODES = ("pair", "bf16", "f32", "f64")
 
@@ -91,21 +94,62 @@ def uniform_fill_stacked(shards, ws_shards, TM, W, G, mode, device):
     return ws, ah, al
 
 
-def _densify(flat, vals, shape, mode, device):
+def _slabs(cuts, per: int) -> np.ndarray:
+    """Slab bounds, in panels, from the sorted panel indices ``cuts`` where
+    a slab may end (the first 0, the last the panel count): each slab runs
+    from one cut to the furthest that keeps it within ``_SLAB`` elements of
+    ``per`` each, and at least to the next cut."""
+    bounds, k = [int(cuts[0])], 0
+    while k < len(cuts) - 1:
+        far = int(np.searchsorted(cuts, bounds[-1] + max(_SLAB // per, 1), side="right")) - 1
+        k = max(far, k + 1)
+        bounds.append(int(cuts[k]))
+    return np.asarray(bounds, dtype=np.int64)
+
+
+def _densify(flat, vals, shape, mode, device, cuts=None, out=None):
     """Scatter-add ``vals`` at ``flat`` into zeroed panels of ``shape`` on
     ``device`` (duplicates add, as the JAX host packs' ``+=``), then split
-    per ``mode``: (panels, None) for "f32"/"f64", (ah, al_or_None) else."""
-    panel_dtype = torch.float64 if mode == "f64" else torch.float32
-    t = torch.zeros(int(np.prod(shape)), dtype=panel_dtype, device=device)
-    t.index_put_((torch.from_numpy(flat).to(device),),
-                 torch.from_numpy(vals).to(device), accumulate=True)
-    t = t.view(shape)
+    per ``mode``: (panels, None) for "f32"/"f64", (ah, al_or_None) else.
+
+    "f32"/"f64" scatter once: the panels are the output.  The bf16 modes
+    never hold the whole fp32 tensor: slab by slab of whole panels (at most
+    ``_SLAB`` elements where the cuts allow), the slab's nonzeros are
+    scattered into one reused fp32 buffer, which is split into the output
+    planes with :func:`split_bf16`'s RNE split, bit for bit.  ``cuts``
+    (default: every panel) are the panel indices where a slab may end: the
+    nonzeros of the panels below a cut all precede, in ``flat``, those at
+    or past it, so ``np.searchsorted`` finds each slab's run of ``flat``.
+    ``out``: the planes to fill, of ``shape`` (a shard's view of a stacked
+    pack), else new ones."""
     if mode in ("f32", "f64"):
+        t = out[0] if out is not None else torch.empty(
+            shape, dtype=torch.float64 if mode == "f64" else torch.float32, device=device)
+        t.zero_()
+        t.view(-1).index_put_((torch.from_numpy(flat).to(device),),
+                              torch.from_numpy(vals).to(device), accumulate=True)
         return t, None
-    return split_bf16(t, with_lo=mode == "pair")
+    if out is None:
+        out = tuple(torch.empty(shape, dtype=torch.bfloat16, device=device)
+                    for _ in range(2 if mode == "pair" else 1))
+    ah, al = out[0].view(-1), (out[1].view(-1) if mode == "pair" else None)
+    per = int(np.prod(shape[-2:]))  # elements of one panel
+    cuts = np.arange(ah.numel() // per + 1) if cuts is None else np.asarray(cuts)
+    bounds = _slabs(cuts, per) * per
+    runs = np.searchsorted(flat, bounds)
+    buf = torch.empty(int(np.diff(bounds).max(initial=0)), dtype=torch.float32,
+                      device=device)
+    for lo, hi, i0, i1 in zip(bounds[:-1], bounds[1:], runs[:-1], runs[1:]):
+        x = buf[: hi - lo].zero_()
+        x.index_put_((torch.from_numpy(flat[i0:i1] - lo).to(device),),
+                     torch.from_numpy(vals[i0:i1]).to(device), accumulate=True)
+        ah[lo:hi].copy_(x)  # RNE, as x.to(torch.bfloat16)
+        if al is not None:
+            al[lo:hi].copy_(x.sub_(ah[lo:hi]))  # the exact remainder, rounded
+    return out[0], (out[1] if al is not None else None)
 
 
-def ragged_fill(rowptr64, cc, v, TM, Wc, starts, group_ptr, mode, device):
+def ragged_fill(rowptr64, cc, v, TM, Wc, starts, group_ptr, mode, device, out=None):
     """Densify one shard into ragged chunk panels ``(S, TM, Wc)`` on
     ``device`` and extract the spill COO on the host.
 
@@ -116,7 +160,8 @@ def ragged_fill(rowptr64, cc, v, TM, Wc, starts, group_ptr, mode, device):
     the rest spill, in CSR order.  The chunks are the first
     ``group_ptr[-1]`` of ``starts``; steps past them (the no-op steps that
     pad a shard to a common S) keep zero panels.  ``mode`` as in
-    :func:`uniform_fill`.
+    :func:`uniform_fill`; ``out`` as in :func:`_densify` (the bf16 modes
+    densify group by group: a group's chunks are one run of panels).
     Returns ``(ah_or_panels, al_or_None, (sp_rows, sp_cols, sp_vals))``
     with spill rows relative to the shard, int32, and values in fp64 for
     "f64", fp32 otherwise.
@@ -147,7 +192,9 @@ def ragged_fill(rowptr64, cc, v, TM, Wc, starts, group_ptr, mode, device):
     flat = (chc[pi] * TM + (r[pi] - g[pi] * TM)) * Wc + off[pi]
     val_dtype = np.float64 if mode == "f64" else np.float32
     vals = np.asarray(v[:nnz], dtype=val_dtype)
-    ah, al = _densify(flat, vals[pi], (S, TM, Wc), mode, device)
+    # slabs end at group boundaries, and past the last group's at S
+    cuts = np.union1d(np.asarray(group_ptr, dtype=np.int64), [0, S])
+    ah, al = _densify(flat, vals[pi], (S, TM, Wc), mode, device, cuts, out)
     si = np.flatnonzero(~inside)
     spill = (r[si].astype(np.int32), cols[si].astype(np.int32), vals[si])
     return ah, al, spill

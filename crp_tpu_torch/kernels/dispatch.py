@@ -624,11 +624,11 @@ class RaggedOp:
     *spill), then the step ranges the CUDA kernels read: ``group_ptr`` and,
     for the fused spill, ``blk_ptr`` (both :func:`first_ptr` of the pack's
     ``first`` arrays).  ``scheme`` picks the ragged kernel: ``"x3"`` (ah,
-    al), ``"bf16"`` (ah), ``"full"`` (fp32/fp64 panels, FMA) or ``"dd"``
-    (fp64 panels of the ``dd_mxu`` total cover, FP64 tensor cores; its
-    variant is ``"dd_mxu"``).  ``spill_impl``: ``"none"``, ``"segsum"``
-    (rows, cols, vals; plain ``index_add_``) or ``"pallas"`` (rel, cols,
-    vals, first, blk; the fused spill kernel).
+    al), ``"bf16"`` (ah), ``"full"`` (fp32 panels on three TF32 products,
+    fp64 by FMA) or ``"dd"`` (fp64 panels of the ``dd_mxu`` total cover,
+    FP64 tensor cores; its variant is ``"dd_mxu"``).  ``spill_impl``:
+    ``"none"``, ``"segsum"`` (rows, cols, vals; plain ``index_add_``) or
+    ``"pallas"`` (rel, cols, vals, first, blk; the fused spill kernel).
     """
 
     scheme: str
@@ -820,22 +820,24 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     a_g, a_first, a_starts, S = _extend_and_stack_steps(steps, G)
     group_ptr = _group_ptrs(a_first, steps, G)
 
-    # the pad groups' dummy chunks are part of the fill: their panels are zero
-    his, los, spills = [], [], []
+    # the pad groups' dummy chunks are part of the fill: their panels are
+    # zero.  Each shard fills its own slice of the stacked planes in place.
+    panel_dtype = torch.bfloat16 if mode in ("pair", "bf16") else (
+        torch.float64 if mode == "f64" else torch.float32)
+    panels = tuple(torch.empty((len(shards), S, TM, Wc), dtype=panel_dtype, device=device)
+                   for _ in range(2 if mode == "pair" else 1))
+    spills = []
     for i, sh in enumerate(prepared):
         if sh is None:
-            panel_dtype = torch.bfloat16 if mode in ("pair", "bf16") else (
-                torch.float64 if mode == "f64" else torch.float32)
-            his.append(torch.zeros((S, TM, Wc), dtype=panel_dtype, device=device))
-            los.append(torch.zeros_like(his[-1]) if mode == "pair" else None)
+            for t in panels:
+                t[i].zero_()
             spills.append(None)
             continue
         rowptr64, cc32, v, _ = sh
-        ah, al, spill = device_pack.ragged_fill(
+        *_, spill = device_pack.ragged_fill(
             rowptr64, cc32, v, TM, Wc, a_starts[i], group_ptr[i], mode, device,
+            out=tuple(t[i] for t in panels),
         )
-        his.append(ah)
-        los.append(al)
         spills.append(spill)
     Z = max((len(s[0]) for s in spills if s is not None), default=0)
     spill_nnz = sum(len(s[0]) for s in spills if s is not None)
@@ -879,8 +881,6 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
         per = [pack_spill(s, Z, G * TM, pack_dtype) for s in spills]
         sp_arrays = tuple(np.stack([x[k] for x in per]) for k in range(3))
 
-    panels = (_stack(his),) if mode != "pair" else (_stack(his), _stack(los))
-    del his, los
     a_bytes = sum(p.numel() * p.element_size() for p in panels)
     arrays = (
         *(torch.from_numpy(x).to(device) for x in (a_g, a_first, a_starts)),

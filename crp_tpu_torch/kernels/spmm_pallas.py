@@ -18,7 +18,8 @@ point:
   * :func:`spmm_window_sg_presplit_ab` — ``x3`` with B pre-split too, by
     :func:`split_b_bf16` (no engine path takes it: the presplit-B
     comparison of ``crp_tpu_torch.cli.presplit_b_sweep`` does);
-  * :func:`spmm_window_sg_bf16` — ``default``: one bf16 product;
+  * :func:`spmm_window_sg_bf16` — ``default``: one bf16 product (the
+    ``wgmma`` body's one-pass mode, the hi panels fed by TMA);
   * :func:`spmm_window_sg` — ``highest``: fp32 panels as three TF32
     tensor-core products (:func:`split_tf32`), held to the fp32 plain
     version; fp64 panels by FMA.
@@ -416,7 +417,8 @@ spmm_window_sg_presplit_ab.launches = 0
 
 def spmm_window_sg_bf16(ws, ah, bh, *, min_b_rows: int):
     """One-pass bf16 windowed SpMM: (G*TM, n) fp32 from bf16 ``ah`` and
-    bf16 ``bh``.  Replaces ``spmm_window_pallas_sg_bf16``
+    bf16 ``bh`` (the ``wgmma`` body of #1 in one pass, whose panels must
+    start on 16 bytes for TMA).  Replaces ``spmm_window_pallas_sg_bf16``
     (``spmm_pallas.py:691``)."""
     if _placement("spmm_window_sg_bf16", ws, ah, bh) == "cpu":
         return spmm_window_sg_bf16_plain(ws, ah, bh)
@@ -424,6 +426,7 @@ def spmm_window_sg_bf16(ws, ah, bh, *, min_b_rows: int):
         "spmm_window_sg_bf16", ws, (ah,), bh, min_b_rows,
         torch.bfloat16, torch.bfloat16,
     )
+    _check_aligned("spmm_window_sg_bf16", ah=ah)
     c = torch.empty((G * TM, n), dtype=torch.float32, device=bh.device)
     _launch(
         "crp_window_sg_bf16",

@@ -27,7 +27,9 @@ the spill and one for the gather kind:
 
   * :func:`spmm_ragged_presplit` — ``x3`` (``csrc/ragged.cu``);
   * :func:`spmm_ragged_bf16` — ``default`` (``csrc/ragged.cu``);
-  * :func:`spmm_ragged` — ``highest`` fp32 and fp64 (``csrc/ragged.cu``);
+  * :func:`spmm_ragged` — ``highest``: fp32 panels as three TF32
+    tensor-core products (the 3xTF32 body of the windowed kernels, walking
+    each group's chunks), fp64 by FMA (``csrc/ragged.cu``);
   * :func:`spmm_spill` — C plus the spilled nonzeros, fp32
     (``csrc/spill.cu``);
   * :func:`spmm_gather` — the same block body with no C, fp32
@@ -51,8 +53,8 @@ import numpy as np
 import torch
 
 from .spmm_pallas import (
-    PLAIN_BLOCK_BYTES, TK, UnsupportedSparsity, _placement, bf16_product,
-    full_product, plain_blocks, presplit_product,
+    PLAIN_BLOCK_BYTES, TK, UnsupportedSparsity, _check_aligned, _placement,
+    bf16_product, full_product, plain_blocks, presplit_product,
 )
 
 # the JAX defaults of the environment knobs this module turns into arguments
@@ -707,13 +709,18 @@ spmm_ragged_bf16.launches = 0
 
 
 def spmm_ragged(step_g, group_ptr, starts, panels, b, *, min_b_rows: int):
-    """fp32 or fp64 ragged SpMM (FMA, no TF32): (G*TM, n) in the panels'
-    dtype.  Replaces ``spmm_ragged`` (``spmm_ragged.py:817``, kernel
-    ``_ragged_kernel`` ``:633``)."""
+    """fp32 or fp64 ragged SpMM: (G*TM, n) in the panels' dtype.  fp32 runs
+    as three TF32 tensor-core products (the 3xTF32 body of
+    :func:`spmm_window` at ``highest``, whose panels must start on 16
+    bytes), held to the fp32 plain version; fp64 by FMA.  Replaces
+    ``spmm_ragged`` (``spmm_ragged.py:817``, kernel ``_ragged_kernel``
+    ``:633``)."""
     if _placement("spmm_ragged", step_g, group_ptr, starts, panels, b) == "cpu":
         return spmm_ragged_plain(step_g, group_ptr, starts, panels, b)
     if panels.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"spmm_ragged: panels must be fp32 or fp64, not {panels.dtype}")
+    if panels.dtype == torch.float32:
+        _check_aligned("spmm_ragged", panels=panels)
     entry = "crp_ragged_f32" if panels.dtype == torch.float32 else "crp_ragged_f64"
     c = _ragged("spmm_ragged", entry, step_g, group_ptr, starts, (panels,), b,
                 min_b_rows, panels.dtype, panels.dtype, panels.dtype)

@@ -1084,3 +1084,150 @@ def test_x3_multi_shard_wrappers_launch_the_kernel_or_raise(cuda_device, monkeyp
     with pytest.raises(ValueError, match="al must start on 16 bytes"):
         spmm_halo.spmm_halo(*off, min_b_rows=max_k)
     assert spmm_halo.spmm_halo.launches == before + 1
+
+
+# --------------------------------- #6 at highest on the 3xTF32 body
+
+
+def _dummy_groups(op, arrs):
+    """Groups of a ragged shard's pack whose one chunk is a zero panel: the
+    dummy chunks (every nonzero spilled, or a pad group)."""
+    gp = arrs[-1].cpu().numpy() if op.spill_impl != "pallas" else arrs[-2].cpu().numpy()
+    panels = arrs[3].float().abs().sum(dim=(1, 2)).cpu().numpy()
+    return [g for g in range(len(gp) - 1)
+            if gp[g + 1] - gp[g] == 1 and panels[gp[g]] == 0]
+
+
+@pytest.mark.parametrize("TM", [128, 256, 512])
+@pytest.mark.parametrize("Wc", [128, 256, 512])
+def test_ragged_highest_tf32x3_matches_plain(cuda_device, TM, Wc):
+    """#6 at highest (``crp_ragged_f32``) on two-shard packs over every
+    geometry the chooser can return: hub groups of many chunks, groups
+    whose nonzeros all spilled (dummy chunks), the shorter shard's
+    trailing no-op steps, pad groups; n in {16, 37, 100} (odd n takes the
+    4-byte B copies): within TOL_PLAIN_FRO of the fp32 plain version, one
+    launch a shard, the dummy groups' and pad rows zero."""
+    a = powerlaw_community_csr(20000, 16, 1024, seed=5, dtype=np.float32)
+    rows = np.repeat(np.arange(a.nrow), np.diff(a.rowptr))
+    keep = (rows < 3000) | (rows >= 3000 + 4 * TM)  # whole empty groups
+    a = CSRMatrix.from_coo(a.nrow, a.ncol, rows[keep], a.colidx[keep], a.val[keep],
+                           dtype=np.float32)
+    cut = 6000
+    shards = [(s.rowptr, s.colidx.astype(np.int32), s.val)
+              for s in (a.row_slice(0, cut), a.row_slice(cut, a.nrow))]
+    arrays, op = _pack_ragged(shards, a.nrow - cut + 700, np.float32, "highest",
+                              cuda_device, geometry=(TM, Wc), min_chunk_nnz=40,
+                              spill_impl="segsum")
+    assert op.scheme == "full" and arrays[3].dtype == torch.float32
+    gp = arrays[-1].cpu().numpy()
+    assert np.diff(gp, axis=1).max() > 1 and gp[0, -1] < arrays[0].shape[1]
+    kernel = spmm_ragged.spmm_ragged
+    for n in (16, 37, 100):
+        rB = torch.from_numpy(_b(a, max(op.min_b_rows, a.ncol), n, np.float32)).to(cuda_device)
+        for i, nrow in enumerate((cut, a.nrow - cut)):
+            arrs = tuple(x[i] for x in arrays)
+            args = op.kernel_args(arrs, rB)
+            before = kernel.launches
+            k = kernel(*args, min_b_rows=op.min_b_rows)
+            assert kernel.launches == before + 1
+            p = op.plain(*args)
+            assert k.shape == p.shape and bool(torch.isfinite(k).all())
+            assert float((k - p).double().norm() / p.double().norm()) <= TOL_PLAIN_FRO[np.float32]
+            assert not torch.any(k[nrow:])  # pad groups
+            dummies = _dummy_groups(op, arrs)
+            assert dummies
+            for g in dummies:
+                assert not torch.any(k[g * TM:(g + 1) * TM])
+    with pytest.raises(ValueError, match="panels must start on 16 bytes"):
+        kernel(*args[:3], _nan_framed(args[3], 1), args[4], min_b_rows=op.min_b_rows)
+
+
+# ------------------------------ #2 as the wgmma body's one-pass mode
+
+# name -> (G, TM, W, n, B offset in elements): odd n and an unaligned B
+# take the plain B copies; W = 352 ends on half a 64-row stage; W = 32 is
+# one slice; W = 2048 runs the 6-stage ring round many times
+ONE_PASS = {
+    "n=16": (3, 256, 352, 16, 0),
+    "odd n": (3, 256, 352, 37, 0),
+    "n=100": (4, 128, 2048, 100, 0),
+    "n=256": (4, 128, 1024, 256, 0),
+    "unaligned B": (3, 128, 160, 64, 1),
+    "one slice": (2, 128, 32, 48, 0),
+}
+
+
+def _one_pass_pack(case, dev):
+    """A uniform default pack by hand: random sparse panels rounded to bf16
+    (RNE), random window starts, the last group a zero pad group, a bf16 B
+    framed by NaN (a read outside it shows in C)."""
+    G, TM, W, n, off = ONE_PASS[case]
+    rng = np.random.default_rng(W + n + 1)
+    ws = torch.from_numpy(rng.integers(0, 300, G).astype(np.int32)).to(dev)
+    tiles = _panels(rng, (G, TM, W))
+    tiles[-1] = 0
+    ah = torch.from_numpy(tiles).to(dev).to(torch.bfloat16)
+    rows = int(ws.max()) + W
+    bh = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(dev)
+    return ws, ah, _nan_framed(bh.to(torch.bfloat16), off), rows
+
+
+@pytest.mark.parametrize("case", sorted(ONE_PASS))
+def test_one_pass_wgmma_matches_plain_and_x3(cuda_device, case):
+    """#2 on hand-built packs (n in {16, 37, 48, 64, 100, 256}, W off the
+    64-row stage, an unaligned B, one slice, many trips round the ring):
+    within TOL_PLAIN of its plain version, pad rows zero, one launch; and
+    #1 on (ah, 0, bh as fp32), whose B splits to hi = bh and lo = 0 so
+    that its extra products are exact zeros, gives the same C bit for
+    bit."""
+    ws, ah, bh, rows = _one_pass_pack(case, cuda_device)
+    G, TM = ONE_PASS[case][:2]
+    kernel = spmm_pallas.spmm_window_sg_bf16
+    before = kernel.launches
+    k = kernel(ws, ah, bh, min_b_rows=rows)
+    _held_to_plain(k, spmm_pallas.spmm_window_sg_bf16_plain(ws, ah, bh), before,
+                   kernel.launches, slice((G - 1) * TM, None))
+    c1 = spmm_pallas.spmm_window_sg_presplit(ws, ah, torch.zeros_like(ah), bh.float(),
+                                             min_b_rows=rows)
+    assert torch.equal(k.view(torch.int32), c1.view(torch.int32)), \
+        float((k - c1).abs().max())
+
+
+def test_one_pass_wrapper_launches_the_kernel_or_raises(cuda_device, monkeypatch):
+    """On CUDA tensors #2 launches its kernel and never its plain version;
+    hi panels off 16 bytes (TMA) are refused before any launch."""
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(spmm_pallas, "spmm_window_sg_bf16_plain", no_plain)
+    ws, ah, bh, rows = _one_pass_pack("one slice", cuda_device)
+    kernel = spmm_pallas.spmm_window_sg_bf16
+    before = kernel.launches
+    kernel(ws, ah, bh, min_b_rows=rows)
+    assert kernel.launches == before + 1
+    with pytest.raises(ValueError, match="ah must start on 16 bytes"):
+        kernel(ws, _nan_framed(ah, 1), bh, min_b_rows=rows)
+    assert kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("prec", ["x3", "default"])
+def test_p4_init_peaks_within_its_panels(cuda_device, prec):
+    """A p = 4 engine on a banded matrix whose bf16 panels are 1.4-2.7 GB:
+    its init's peak device memory stays within 1.2 x what it holds after
+    (the panels densified slab by slab: no whole fp32 tensor beside them)."""
+    a = banded_random_csr(120000, nnz_per_row=53, bandwidth=2500, seed=8,
+                          dtype=np.float32)
+    d = csr_row_partition(a.rowptr, 4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    eng = RowParaSpmm(a, d, d, 64, device=cuda_device, dtype=np.float32,
+                      config=SpmmConfig(kernel="pallas", mxu_precision=prec))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    # an earlier test's objects collected during the init lower what the
+    # allocator reports as held, never the pack's own bytes
+    held = max(torch.cuda.memory_allocated(cuda_device) - base,
+               sum(t.numel() * t.element_size() for t in eng.packed))
+    assert eng._local_op.variant == "window"
+    assert held > 1e9 and peak <= 1.2 * held, (peak, held)

@@ -178,3 +178,123 @@ def test_unsorted_rows_land_on_the_ragged_pack():
     b = np.random.default_rng(0).standard_normal((op.min_b_rows, 8)).astype(np.float32)
     c = op(tuple(x[0] for x in arrays), torch.from_numpy(b)).numpy()[: a.nrow]
     np.testing.assert_allclose(c, a.to_dense() @ b[: a.ncol], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------- the slab-by-slab densify
+
+
+def _one_shot(flat, vals, shape, mode):
+    """The panels scattered whole, then split: what the slabs stand for."""
+    t = torch.zeros(int(np.prod(shape)),
+                    dtype=torch.float64 if mode == "f64" else torch.float32)
+    t.index_put_((torch.from_numpy(flat),), torch.from_numpy(vals), accumulate=True)
+    t = t.view(shape)
+    if mode in ("f32", "f64"):
+        return t, None
+    return device_pack.split_bf16(t, with_lo=mode == "pair")
+
+
+def _spy_densify(monkeypatch, panels_per_slab):
+    """Slabs of about ``panels_per_slab`` panels, and every ``_densify``
+    call recorded with its inputs and planes."""
+    real, calls = device_pack._densify, []
+
+    def spy(flat, vals, shape, mode, device, cuts=None, out=None):
+        got = real(flat, vals, shape, mode, device, cuts, out)
+        calls.append((flat, vals, shape, mode, cuts, got))
+        return got
+
+    monkeypatch.setattr(device_pack, "_densify", spy)
+    return calls
+
+
+def _assert_slabs_equal_one_shot(calls, mode, min_slabs):
+    assert calls
+    for flat, vals, shape, m, cuts, (ah, al) in calls:
+        assert m == mode
+        wh, wl = _one_shot(flat, vals, shape, mode)
+        assert ah.dtype == wh.dtype and ah.shape == wh.shape
+        np.testing.assert_array_equal(_bits(ah), _bits(wh))
+        assert (al is None) == (wl is None)
+        if al is not None:
+            np.testing.assert_array_equal(_bits(al), _bits(wl))
+        if mode in ("pair", "bf16"):
+            per = int(np.prod(shape[-2:]))
+            cuts = np.arange(int(np.prod(shape[:-2])) + 1) if cuts is None else cuts
+            assert len(device_pack._slabs(np.asarray(cuts), per)) - 1 >= min_slabs
+
+
+def _dup_shards(p, dtype):
+    """``_with_duplicates`` in p row shards, shard 1 empty when p > 2."""
+    a = _with_duplicates()
+    d = np.linspace(0, a.nrow, p + 1).astype(np.int64)
+    shards = []
+    for i in range(p):
+        sh = a.row_slice(int(d[i]), int(d[i + 1]))
+        if p > 2 and i == 1:
+            shards.append((np.zeros(sh.nrow + 1, np.int64), np.zeros(0, np.int32),
+                           np.zeros(0, dtype)))
+        else:
+            shards.append((sh.rowptr, sh.colidx.astype(np.int32), sh.val.astype(dtype)))
+    return shards
+
+
+@pytest.mark.parametrize("mode", device_pack.MODES)
+@pytest.mark.parametrize("p", [1, 3])
+def test_uniform_slabs_equal_one_shot(monkeypatch, mode, p):
+    """The uniform fill with slabs of two panels (duplicate entries, pad
+    groups, an empty shard at p = 3) gives the one-shot scatter and split
+    bit for bit, in every mode."""
+    from crp_tpu_torch.kernels.spmm_pallas import TK, choose_chunks, window_extents
+
+    dtype = np.float64 if mode == "f64" else np.float32
+    shards = _dup_shards(p, dtype)
+    TM, ext = 256, []
+    for rp, cc, _ in shards:
+        ext.append(window_extents(np.asarray(rp, np.int64), cc, TM) if len(cc) else None)
+    W, _, _ = choose_chunks(max(e[1] for e in ext if e is not None))
+    G = max(len(e[0]) for e in ext if e is not None) + 2  # pad groups
+    monkeypatch.setattr(device_pack, "_SLAB", 2 * TM * W + 1)
+    calls = _spy_densify(monkeypatch, 2)
+    ws, ah, al = device_pack.uniform_fill_stacked(
+        shards, [None if e is None else (e[0] * TK).astype(np.int32) for e in ext],
+        TM, W, G, mode, torch.device("cpu"))
+    assert len(calls) == 1 and ah.shape == (p, G, TM, W)
+    _assert_slabs_equal_one_shot(calls, mode, min_slabs=3)
+
+
+@pytest.mark.parametrize("mode,prec", [("pair", "x3"), ("bf16", "default"),
+                                       ("f32", "highest"), ("f64", "highest")])
+def test_ragged_slabs_equal_one_shot(monkeypatch, mode, prec):
+    """The ragged pack of two shards (a power-law matrix with duplicate
+    entries: hub groups of many chunks, dummy chunks, the shorter shard's
+    trailing no-op steps, pad groups) with slabs of about two chunks, whole
+    groups each: every shard's planes equal the one-shot scatter and split
+    of its nonzeros bit for bit, and the stacked pack holds them."""
+    from crp_tpu.sparse.synth import powerlaw_random_csr
+
+    dtype = np.float64 if mode == "f64" else np.float32
+    base = powerlaw_random_csr(2000, avg_degree=12, seed=3, dtype=dtype)
+    rows = np.repeat(np.arange(base.nrow), np.diff(base.rowptr))
+    dup = np.arange(0, base.nnz, 7)
+    r = np.concatenate([rows, rows[dup]])
+    c = np.concatenate([base.colidx, base.colidx[dup]])
+    v = np.concatenate([base.val, base.val[dup] * 0.5]).astype(dtype)
+    order = np.lexsort((c, r))
+    rowptr = np.r_[0, np.cumsum(np.bincount(r, minlength=base.nrow))]
+    cc, vv = c[order].astype(np.int32), v[order]
+    cut = 600  # shard 0 has fewer steps: trailing no-op steps
+    shards = [(rowptr[: cut + 1], cc[: rowptr[cut]], vv[: rowptr[cut]]),
+              (rowptr[cut:] - rowptr[cut], cc[rowptr[cut]:], vv[rowptr[cut]:])]
+    TM, Wc = 128, 256
+    monkeypatch.setattr(device_pack, "_SLAB", 2 * TM * Wc + 1)
+    calls = _spy_densify(monkeypatch, 2)
+    arrays, op = td._pack_ragged(shards, base.nrow - cut + 300, dtype, prec,
+                                 torch.device("cpu"), geometry=(TM, Wc),
+                                 min_chunk_nnz=12, spill_impl="segsum")
+    assert len(calls) == 2
+    _assert_slabs_equal_one_shot(calls, mode, min_slabs=4)
+    for i, (*_, (ah, al)) in enumerate(calls):
+        np.testing.assert_array_equal(_bits(arrays[3][i]), _bits(ah))
+        if al is not None:
+            np.testing.assert_array_equal(_bits(arrays[4][i]), _bits(al))

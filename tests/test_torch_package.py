@@ -11,6 +11,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -148,8 +149,6 @@ def test_chip_smoke_imports_only_the_port():
 
 @pytest.mark.parametrize("seed,ncols", [(3, 1), (5, 32)])
 def test_chip_smoke_reference_matches_spmm_ref(seed, ncols):
-    import numpy as np
-
     from crp_tpu.sparse.csr import CSRMatrix
     from crp_tpu.sparse.synth import banded_random_csr, fill_b
 
@@ -168,3 +167,35 @@ def test_chip_smoke_reference_matches_spmm_ref(seed, ncols):
     got = smoke.spmm_ref_f64(a, b)
     assert got.dtype == np.float64 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("prec,dtype,want", [
+    ("highest", np.float32, (3, "tf32")),  # #6 on the 3xTF32 body
+    ("default", np.float32, (1, "bf16")),  # #8
+    ("x3", np.float32, (3, "bf16")),       # #7
+    ("highest", np.float64, (1, "fp64")),  # #6 on fp64 FMA
+])
+def test_chip_smoke_prices_ragged_points(prec, dtype, want):
+    """The smoke's ``op_point`` prices a ragged pack's products by the
+    body that runs them: ``highest`` on fp32 as three TF32 passes, like the
+    windowed kernels there; ``default`` one bf16 pass, x3 three; fp64 one
+    FMA pass."""
+    from crp_tpu_torch.kernels.dispatch import _pack_ragged, pack_local_kernel
+    from crp_tpu_torch.sparse.synth import banded_random_csr, powerlaw_random_csr
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    a = powerlaw_random_csr(2000, avg_degree=12, seed=3, dtype=dtype)
+    _, op = _pack_ragged([(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow, dtype,
+                         prec, torch.device("cpu"), geometry=(128, 256))
+    assert op.variant == "ragged"
+    assert smoke.op_point(op, torch.float64 if dtype == np.float64 else torch.float32) \
+        == want
+    band = banded_random_csr(900, nnz_per_row=6, bandwidth=40, seed=1, dtype=dtype)
+    _, op = pack_local_kernel([(band.rowptr, band.colidx.astype(np.int32), band.val)],
+                              band.nrow, dtype, "pallas", device="cpu",
+                              mxu_precision=prec)
+    assert op.variant == "uniform"  # the windowed kernels price alike
+    assert smoke.op_point(op, torch.float64 if dtype == np.float64 else torch.float32) \
+        == want

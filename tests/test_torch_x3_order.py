@@ -1,6 +1,7 @@
-"""The summation order of the x3 wgmma body (kernels #1
+"""The summation order of the wgmma body (kernels #1
 ``crp_window_sg_presplit``, #5 ``crp_window_sg_presplit_ab``, #4
-``crp_window_x3`` and #12 ``crp_halo_x3``), argued on the CPU.
+``crp_window_x3`` and #12 ``crp_halo_x3`` at x3, and #2
+``crp_window_sg_bf16`` in its one-pass mode), argued on the CPU.
 
 The body computes C^T = B^T A^T: per 16-deep k step three products, small
 terms first, (bh, A_lo), (bl, A_hi), (bh, A_hi), with B split to bf16 hi/lo
@@ -13,7 +14,11 @@ interpret mode (the pack's own local function on the CPU) and against the
 port's plain version ``spmm_window_sg_presplit_plain``; then on #4's
 multi-shard pack (the bf16 pair, split once at pack time) against JAX's x3
 ``_window_kernel`` on JAX's fp32 panels, shard by shard.  #12 runs the
-same body on the same pair, with B's rows looked up by chunk.
+same body on the same pair, with B's rows looked up by chunk.  The
+one-pass mode's order (one exact product per k16 into the slice's fresh
+accumulator, the slices added in IEEE fp32) is emulated on JAX's
+super-grouped ``default`` pack and held against JAX's
+``_window_kernel_sg_bf16`` in interpret mode and the plain version.
 
 Tolerance: max |e - r| / max |r| and the relative Frobenius error both
 within 1e-6.  All three sum the same exact bf16 x bf16 products in fp32,
@@ -32,7 +37,9 @@ from crp_tpu.kernels import dispatch as jd
 from crp_tpu.kernels.spmm_pallas import WindowDense, spmm_window_pallas
 
 from crp_tpu_torch.kernels import dispatch as td
-from crp_tpu_torch.kernels.spmm_pallas import spmm_window_sg_presplit_plain, split_b_bf16
+from crp_tpu_torch.kernels.spmm_pallas import (
+    spmm_window_sg_bf16_plain, spmm_window_sg_presplit_plain, split_b_bf16,
+)
 from tests.test_torch_spmm_pallas import _case
 from tests.test_torch_tf32x3 import _errors
 from tests.test_torch_window import _shards
@@ -82,6 +89,50 @@ def test_x3_wgmma_order_matches_jax_and_plain(n):
     win = bt[ws.long()[:, None] + torch.arange(W)]
     one_pass = torch.bmm(ah.float(), win.to(torch.bfloat16).float()).reshape(G * TM, -1)
     assert _errors(want, one_pass.numpy())[1] > 10 * TOL
+
+
+def one_pass_wgmma_order(ws, ah, bh):
+    """C of the wgmma body's one-pass mode (#2) on a uniform pack, emulated:
+    per k16 step the one product ah x bh (B already bf16), an exact sum
+    rounded once to fp32 into the slice's fresh accumulator, the 32-row
+    slices added in IEEE fp32.  The kernel's two 64-row halves of a block
+    are two partials of distinct rows, each summed in this order."""
+    G, TM, W = ah.shape
+    win = bh[ws.long()[:, None] + torch.arange(W)].double()
+    ah = ah.double()
+    acc = torch.zeros((G, TM, bh.shape[1]), dtype=torch.float32)
+    for k0 in range(0, W, SLICE):
+        part = torch.zeros_like(acc)
+        for k in range(k0, k0 + SLICE, K16):
+            s = slice(k, k + K16)
+            part = (part.double() + torch.bmm(ah[:, :, s], win[:, s])).float()
+        acc += part
+    return acc.reshape(G * TM, -1)
+
+
+@pytest.mark.parametrize("n", [16, 37, 100])
+def test_one_pass_wgmma_order_matches_jax_and_plain(n):
+    """#2's emulated order on JAX's super-grouped default pack (pad groups)
+    against JAX's one-pass kernel in interpret mode (the pack's own local
+    function, B cast to bf16 as it casts it) and the port's plain version,
+    within 1e-6 both ways; pad groups zero; the same product on the
+    unrounded fp32 B is out of that bound, so the check sees B's bf16."""
+    a, arrays, fn, tensors, op = _case("default", np.float32)
+    assert op.scheme == "bf16"
+    ws, ah = (t[0] for t in tensors[:2])
+    b = np.random.default_rng(n).standard_normal((fn.min_b_rows, n)).astype(np.float32)
+    bt = torch.from_numpy(b)
+    bh = bt.to(torch.bfloat16)
+    want = np.asarray(fn(tuple(x[0] for x in arrays), b))
+    got = one_pass_wgmma_order(ws, ah, bh)
+    assert got.shape == want.shape and not torch.any(got[a.nrow:])
+    for ref in (want, spmm_window_sg_bf16_plain(ws, ah, bh).numpy()):
+        max_rel, fro = _errors(ref, got.numpy())
+        assert max_rel <= TOL and fro <= TOL, (max_rel, fro)
+    G, TM, W = ah.shape
+    win = bt[ws.long()[:, None] + torch.arange(W)]
+    fp32_b = torch.bmm(ah.double(), win.double()).reshape(G * TM, -1)
+    assert _errors(want, fp32_b.numpy())[1] > 10 * TOL
 
 
 @pytest.mark.parametrize("n", [16, 37])
