@@ -9,8 +9,9 @@ It builds the port's CUDA kernels from ``crp_tpu_torch/kernels/csrc`` into
 prints the shared-memory ring of the 3xTF32 entries (#3, #4, #12 and #6
 at highest: stages, dynamic shared memory, registers, spills and blocks
 per SM, which must be 0 and at least 2) and of the wgmma body in each
-library that builds it (#1 with #5 and the one-pass #2, #4, #12: the
-same, which must be 0 and at least 1) and then, failing on the first check
+library that builds it (#1 with #5 and the one-pass #2, #4, #12, the
+ragged #7 with the one-pass #8: the same, which must be 0 and at least 1)
+and then, failing on the first check
 that does not hold (every engine init prints its peak device memory; an
 x3 or default panel pack must peak within 1.2 x what it holds after):
 
@@ -20,7 +21,9 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    plain version and against #1's C, which it must equal bit for bit;
 2. ragged phase — each ragged kernel and the fused spill kernel against
    their plain versions on small power-law and multiband packs, over
-   (TM, Wc) geometries, with pad groups that must come out zero;
+   (TM, Wc) geometries, n in {16, 37, 100, 256} and at n = 100 a B that
+   starts off 16 bytes (odd n and that B take the plain B copies), with
+   pad groups that must come out zero;
 3. headline — the pwtk-class banded matrix (217,918 rows, 11,429,953 nnz,
    fp32) times the analytic B (n = 256) through ``RowParaSpmm`` at p = 1
    for each operating point (x3, default, highest): the engine must
@@ -509,6 +512,15 @@ def multiband(n, seed, dtype):
                               dtype=dtype)
 
 
+def misaligned(x, elems: int = 1):
+    """A copy of ``x`` that starts ``elems`` elements past a 16-byte
+    boundary (the allocator's blocks start on 512 bytes)."""
+    buf = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    out = buf[elems:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def ragged_phase(device) -> None:
     from crp_tpu_torch import powerlaw_community_csr
     from crp_tpu_torch.kernels.dispatch import _pack_ragged
@@ -528,19 +540,24 @@ def ragged_phase(device) -> None:
                                           spill_impl="pallas")
                 arrs = tuple(x[0] for x in arrays)
                 rl = op.roofline
-                for n in (16, 100, 256):
+                for n, b_off in ((16, 0), (37, 0), (100, 0), (100, 1), (256, 0)):
                     rB = torch.from_numpy(padded_b(a, op.min_b_rows, n, dtype)).to(device)
-                    _, _, rel_fro = kernel_vs_plain(op, arrs, rB)
+                    args = op.kernel_args(arrs, rB)
+                    if b_off:  # the kernel's B (bf16 at default) off 16 bytes
+                        args = (*args[:-1], misaligned(args[-1], b_off))
+                    _, _, rel_fro = compare(op.kernel.__name__, lambda: launch(op, args),
+                                            lambda: op.plain(*args))
                     tol = TOL_RAGGED_FRO[dtype]
-                    c = op.kernel(*op.kernel_args(arrs, rB), min_b_rows=op.min_b_rows)
+                    c = launch(op, args)
                     check(not bool(torch.any(c[a.nrow:])),
                           f"{op.kernel.__name__} {label}: pad rows not zero")
                     msg = (f"ragged {op.kernel.__name__:21s} {prec:8s} "
                            f"{np.dtype(dtype).name} {label:9s} (TM, Wc)=({TM}, {Wc}) "
-                           f"S={rl['S']} spill={rl['spill_nnz']} n={n:3d}: rel fro "
+                           f"S={rl['S']} spill={rl['spill_nnz']} n={n:3d}"
+                           f"{' B off 16 bytes' if b_off else ''}: rel fro "
                            f"err {rel_fro:.3e} (tol {tol:g})")
                     check(rel_fro <= tol, msg)
-                    if op.spill_impl == "pallas":
+                    if op.spill_impl == "pallas" and not b_off:
                         _, _, s_fro = spill_vs_plain(op, arrs, rB)
                         msg += f"; spmm_spill rel fro err {s_fro:.3e}"
                         check(s_fro <= TOL_RAGGED_FRO[np.float32], msg)
@@ -1331,10 +1348,11 @@ def tf32x3_layouts(build) -> None:
 
 def x3_layout(build) -> None:
     """Print the rings of the wgmma body once per library that builds it
-    (#1 with #5 and #2 as its modes, #4, #12): stages, dynamic shared
-    memory, threads, the block tile, and for each of its kernels (fp32 B
-    by 16-byte or plain copies, #5's likewise on the bf16 planes, #2's on
-    one bf16 plane in its own deeper ring, #12's through the chunk table)
+    (#1 with #5 and #2 as its modes, #4, #12, the ragged #7 with #8 as its
+    one-pass mode): stages, dynamic shared memory, threads, the block
+    tile, and for each of its kernels (fp32 B by 16-byte or plain copies,
+    #5's likewise on the bf16 planes, the one-pass mode's on one bf16
+    plane in its own deeper ring, #12's through the chunk table)
     registers, spill bytes and resident blocks per SM, which must be 0 and
     at least 1."""
     for name, label, copies in (
@@ -1342,6 +1360,8 @@ def x3_layout(build) -> None:
          ("b16", "b4", "pair16", "pair2", "one16", "one2")),
         ("crp_window_x3", "crp_window_x3", ("b16", "b4")),
         ("crp_halo_x3", "crp_halo_x3", ("chunk16", "chunk4")),
+        ("crp_ragged_presplit", "crp_ragged_presplit / _bf16",
+         ("b16", "b4", "one16", "one2")),
     ):
         lay = build.x3_layout(name)
         say(f"[x3] {label}: {json.dumps(lay)}")

@@ -159,11 +159,13 @@ def x3_layout(name: str = "crp_window_sg_presplit") -> dict:
     memory, threads, block tile and, per kernel, registers, local (spill)
     bytes and resident blocks per SM.  The kernels: fp32 B by 16-byte and
     by plain copies (``b16.*``, ``b4.*``: #1 in ``window_sg``, #4
-    ``crp_window_x3`` in ``window``), #5's on the bf16 B planes
-    (``pair16.*``, ``pair2.*``, ``window_sg``), #2's one-pass mode on one
-    bf16 B plane (``one16.*``, ``one2.*``, ``window_sg``, with its own ring:
-    ``one.stages``, ``one.smem_bytes``), and #12 ``crp_halo_x3``'s with B's
-    rows through the chunk table (``chunk16.*``, ``chunk4.*``, ``halo``)."""
+    ``crp_window_x3`` in ``window``, #7 ``crp_ragged_presplit`` with the
+    ragged walk in ``ragged``), #5's on the bf16 B planes (``pair16.*``,
+    ``pair2.*``, ``window_sg``), the one-pass mode on one bf16 B plane
+    (``one16.*``, ``one2.*``, with its own ring: ``one.stages``,
+    ``one.smem_bytes``; #2 in ``window_sg``, #8 ``crp_ragged_bf16`` in
+    ``ragged``), and #12 ``crp_halo_x3``'s with B's rows through the chunk
+    table (``chunk16.*``, ``chunk4.*``, ``halo``)."""
     return _report(name, "crp_x3_layout")
 
 

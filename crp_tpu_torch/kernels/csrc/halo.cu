@@ -63,8 +63,7 @@ int crp_halo_bf16(const void* chunk_src, const void* ws, const void* tiles,
                   const void* b, void* c, int64_t G, int64_t TM, int64_t W,
                   int64_t n, void* stream)
 {
-    return crp::launch_mma<false, true, true>(nullptr, ws, tiles, nullptr, b, c,
-                                              G, TM, W, n, stream, chunk_src);
+    return crp::launch_mma<true>(ws, tiles, b, c, G, TM, W, n, stream, chunk_src);
 }
 
 int crp_halo_f32(const void* chunk_src, const void* ws, const void* tiles,

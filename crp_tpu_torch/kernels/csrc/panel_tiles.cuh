@@ -28,14 +28,14 @@
 // fastest, so the N tiles of one (group, M tile) run on neighbouring blocks
 // and the later reads of an A slice come from L2.
 //
-// Three tile bodies: panel_mma_kernel (bf16 wmma; one shared-memory stage,
-// the next slice staged through registers: x3 on the ragged bf16 hi/lo
-// pack, #7, and default on #4, #12 and the ragged #8), panel_fma_kernel
-// (fp64 FMA, the same staging: #3, #4, #6 and #12 on fp64) and
-// panel_tf32x3_kernel (fp32 at HIGHEST on the TF32 tensor cores, fed by a
-// cp.async shared-memory ring, see its section: #3, #4, #6 and #12).  The
-// x3 kernels of the uniform packs (#1, #5, #4 and #12) and the super-grouped
-// default (#2) run on wgmma fed by TMA instead (x3_wgmma.cuh).
+// Three tile bodies: panel_mma_kernel (bf16 wmma on fp32 panels rounded on
+// the load path; one shared-memory stage, the next slice staged through
+// registers: default on #4 and #12), panel_fma_kernel (fp64 FMA, the same
+// staging: #3, #4, #6 and #12 on fp64) and panel_tf32x3_kernel (fp32 at
+// HIGHEST on the TF32 tensor cores, fed by a cp.async shared-memory ring,
+// see its section: #3, #4, #6 and #12).  The kernels on bf16 panels, x3
+// (#1, #5, #4, #12 and the ragged #7) and the one-pass default (#2 and the
+// ragged #8), run on wgmma fed by TMA instead (x3_wgmma.cuh).
 
 #pragma once
 
@@ -107,32 +107,24 @@ __device__ __forceinline__ void round8(const float4 (&v)[2], uint4& hi)
     hi = make_uint4(h[0], h[1], h[2], h[3]);
 }
 
-// X3: three bf16 products (al*bh + ah*bl + ah*bh) on A's bf16 hi and lo
-// (the ragged x3 pack); !X3: one (ah*bh).  A_F32 (!X3 only): A arrives as
-// fp32 panels and is rounded to bf16 here, on its way to shared memory;
-// else as bf16.  B arrives as fp32 and is split (X3) or rounded (A_F32)
-// here, else as bf16 (cast by the caller).  The uniform x3 packs hold the
-// bf16 pair too, and run on wgmma (x3_wgmma.cuh).
-template <bool X3, bool A_F32 = false, bool CHUNKED = false>
+// One bf16 product (#4 and #12 at default): A arrives as fp32 panels and B
+// as fp32, each rounded to bf16 in RNE on its way to shared memory.  `al`
+// is not read: it holds the later parameters at the offsets the two
+// entries' machine code was checked at.
+template <bool CHUNKED = false>
 __global__ void __launch_bounds__(MMA_THREADS)
 panel_mma_kernel(const int32_t* __restrict__ group_ptr,
                  const int32_t* __restrict__ starts,
-                 const void* __restrict__ a_raw,
+                 const float* __restrict__ a_f,
                  const bf16* __restrict__ al,
-                 const void* __restrict__ b_raw,
+                 const float* __restrict__ b_f,
                  float* __restrict__ c,
                  int64_t TM, int64_t W, int64_t n, int64_t n_tiles,
                  const int32_t* __restrict__ chunk_src)
 {
-    static_assert(!(X3 && A_F32), "x3 takes A as its bf16 hi/lo pair");
-    constexpr bool B_F32 = X3 || A_F32;
     __shared__ __align__(128) bf16 As_h[MMA_BM][A_LD];
-    __shared__ __align__(128) bf16 As_l[X3 ? MMA_BM : 1][A_LD];
     __shared__ __align__(128) bf16 Bs_h[MMA_BK][B_LD];
-    __shared__ __align__(128) bf16 Bs_l[X3 ? MMA_BK : 1][B_LD];
     __shared__ __align__(128) float Cs[MMA_THREADS / 32][16 * 16];
-    const bf16* ah = static_cast<const bf16*>(a_raw);
-    const float* a_f = static_cast<const float*>(a_raw);
 
     const int tid = threadIdx.x;
     const int64_t tile = blockIdx.x;
@@ -144,18 +136,14 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
     int64_t s_begin, s_end;
     group_chunks(group_ptr, g, &s_begin, &s_end);
     const int64_t nk = W / MMA_BK;                    // k slices per chunk
-    const float* b_f = static_cast<const float*>(b_raw);
-    const bf16* b_h = static_cast<const bf16*>(b_raw);
 
     // B tile: thread owns column cc and rows (tid / BN) + 2 i
     const int cc = tid & (MMA_BN - 1);
     const bool col_ok = n0 + cc < n;
 
     uint4 ra_h[A_VECS];
-    uint4 ra_l[A_VECS];
-    float4 ra_f[A_F32 ? A_VECS : 1][2];  // 8 fp32 A values per vector
+    float4 ra_f[A_VECS][2];  // 8 fp32 A values per vector
     float rb_f[B_ELEMS];
-    bf16 rb_h[B_ELEMS];
 
     // slice t of the group's walk: chunk s_begin + t / nk, k0 = (t % nk) BK
     auto load_tile = [&](int64_t t) {
@@ -170,24 +158,15 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
         for (int i = 0; i < A_VECS; ++i) {
             const int idx = tid + i * MMA_THREADS;
             const size_t off = a0 + (size_t)(idx >> 2) * W + (idx & 3) * 8;
-            if constexpr (A_F32) {
-                const float4* p = reinterpret_cast<const float4*>(a_f + off);
-                ra_f[i][0] = p[0];
-                ra_f[i][1] = p[1];
-            } else {
-                ra_h[i] = *reinterpret_cast<const uint4*>(ah + off);
-                if constexpr (X3) ra_l[i] = *reinterpret_cast<const uint4*>(al + off);
-            }
+            const float4* p = reinterpret_cast<const float4*>(a_f + off);
+            ra_f[i][0] = p[0];
+            ra_f[i][1] = p[1];
         }
 #pragma unroll
         for (int i = 0; i < B_ELEMS; ++i) {
             const int r = (tid / MMA_BN) + (MMA_THREADS / MMA_BN) * i;
             const size_t off = (size_t)(b_row0 + r) * n + n0 + cc;
-            if constexpr (B_F32) {
-                rb_f[i] = b_ok ? b_f[off] : 0.0f;
-            } else {
-                rb_h[i] = b_ok ? b_h[off] : __float2bfloat16_rn(0.0f);
-            }
+            rb_f[i] = b_ok ? b_f[off] : 0.0f;
         }
     };
 
@@ -196,24 +175,13 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
         for (int i = 0; i < A_VECS; ++i) {
             const int idx = tid + i * MMA_THREADS;
             const int r = idx >> 2, k8 = (idx & 3) * 8;
-            if constexpr (A_F32) round8(ra_f[i], ra_h[i]);
+            round8(ra_f[i], ra_h[i]);
             *reinterpret_cast<uint4*>(&As_h[r][k8]) = ra_h[i];
-            if constexpr (X3) *reinterpret_cast<uint4*>(&As_l[r][k8]) = ra_l[i];
         }
 #pragma unroll
         for (int i = 0; i < B_ELEMS; ++i) {
             const int r = (tid / MMA_BN) + (MMA_THREADS / MMA_BN) * i;
-            if constexpr (X3) {
-                // RNE split, the same as the pack's A split and the plain
-                // version's .to(torch.bfloat16): never truncate
-                const bf16 hi = __float2bfloat16_rn(rb_f[i]);
-                Bs_h[r][cc] = hi;
-                Bs_l[r][cc] = __float2bfloat16_rn(rb_f[i] - __bfloat162float(hi));
-            } else if constexpr (B_F32) {
-                Bs_h[r][cc] = __float2bfloat16_rn(rb_f[i]);
-            } else {
-                Bs_h[r][cc] = rb_h[i];
-            }
+            Bs_h[r][cc] = __float2bfloat16_rn(rb_f[i]);
         }
     };
 
@@ -235,39 +203,26 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
     // MXU partial per chunk, a VPU add across chunks).
     auto compute_tile = [&]() {
         constexpr int KS = MMA_BK / 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-            fb_h[KS][2], fb_l[KS][2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb_h[KS][2];
 #pragma unroll
         for (int s = 0; s < KS; ++s) {
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
+            for (int j = 0; j < 2; ++j)
                 wmma::load_matrix_sync(fb_h[s][j], &Bs_h[s * 16][wn * 32 + j * 16], B_LD);
-                if constexpr (X3)
-                    wmma::load_matrix_sync(fb_l[s][j], &Bs_l[s * 16][wn * 32 + j * 16], B_LD);
-            }
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-                fa_h[KS], fa_l[KS];
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa_h[KS];
 #pragma unroll
-            for (int s = 0; s < KS; ++s) {
+            for (int s = 0; s < KS; ++s)
                 wmma::load_matrix_sync(fa_h[s], &As_h[wm * 64 + i * 16][s * 16], A_LD);
-                if constexpr (X3)
-                    wmma::load_matrix_sync(fa_l[s], &As_l[wm * 64 + i * 16][s * 16], A_LD);
-            }
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
                 wmma::fragment<wmma::accumulator, 16, 16, 16, float> part;
                 wmma::fill_fragment(part, 0.0f);
 #pragma unroll
-                for (int s = 0; s < KS; ++s) {
-                    if constexpr (X3) {
-                        wmma::mma_sync(part, fa_l[s], fb_h[s][j], part);
-                        wmma::mma_sync(part, fa_h[s], fb_l[s][j], part);
-                    }
+                for (int s = 0; s < KS; ++s)
                     wmma::mma_sync(part, fa_h[s], fb_h[s][j], part);
-                }
 #pragma unroll
                 for (int e = 0; e < part.num_elements; ++e)
                     acc[i][j].x[e] += part.x[e];
@@ -313,11 +268,10 @@ panel_mma_kernel(const int32_t* __restrict__ group_ptr,
     }
 }
 
-template <bool X3, bool A_F32 = false, bool CHUNKED = false>
-int launch_mma(const void* group_ptr, const void* starts, const void* a,
-               const void* al, const void* b, void* c, int64_t G, int64_t TM,
-               int64_t W, int64_t n, void* stream,
-               const void* chunk_src = nullptr)
+// the uniform windowed pack: group g owns the one chunk g, at ws[g]
+template <bool CHUNKED = false>
+int launch_mma(const void* ws, const void* a, const void* b, void* c, int64_t G, int64_t TM,
+               int64_t W, int64_t n, void* stream, const void* chunk_src = nullptr)
 {
     if (G < 0 || TM <= 0 || TM % MMA_BM || W <= 0 || W % MMA_BK || n < 0)
         return (int)cudaErrorInvalidValue;
@@ -325,11 +279,10 @@ int launch_mma(const void* group_ptr, const void* starts, const void* a,
     const int64_t blocks = G * (TM / MMA_BM) * n_tiles;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     if (blocks > 0)
-        panel_mma_kernel<X3, A_F32, CHUNKED>
+        panel_mma_kernel<CHUNKED>
             <<<(unsigned)blocks, MMA_THREADS, 0, (cudaStream_t)stream>>>(
-                static_cast<const int32_t*>(group_ptr),
-                static_cast<const int32_t*>(starts), a,
-                static_cast<const bf16*>(al), b, static_cast<float*>(c),
+                nullptr, static_cast<const int32_t*>(ws), static_cast<const float*>(a),
+                nullptr, static_cast<const float*>(b), static_cast<float*>(c),
                 TM, W, n, n_tiles, static_cast<const int32_t*>(chunk_src));
     return (int)cudaGetLastError();
 }

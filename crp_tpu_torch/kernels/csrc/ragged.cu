@@ -16,8 +16,13 @@
 //
 // Replaces (crp_tpu/kernels/spmm_ragged.py):
 //   crp_ragged_presplit  <- _ragged_kernel_presplit (x3: A as bf16 hi/lo,
-//                           B split to bf16 hi/lo here in RNE)
-//   crp_ragged_bf16      <- _ragged_kernel_bf16 (one bf16 pass)
+//                           B split to bf16 hi/lo in registers in RNE,
+//                           acc += al*bh + ah*bl + ah*bh in fp32): the
+//                           wgmma body of #1 fed by TMA (x3_wgmma.cuh) with
+//                           its ragged walk
+//   crp_ragged_bf16      <- _ragged_kernel_bf16 (one bf16 pass, B cast to
+//                           bf16 by the caller): the same body's one-pass
+//                           mode (#2's), with the same walk
 //   crp_ragged_f32       <- _ragged_kernel at HIGHEST on fp32: 3xTF32 on
 //                           the TF32 tensor cores (panel_tf32x3_kernel, the
 //                           body of #3, #4 and #12 at highest, walking each
@@ -28,23 +33,29 @@
 // rolling DMA prefetch of (panel, B chunk) pairs and a double-buffered
 // per-group output block; both exist because the TPU grid is sequential.
 // Here one block owns one (128-row slice of a group, n-tile) and walks the
-// group's chunks itself (panel_tiles.cuh); the k-slices of all its chunks
-// form one loop, each slice's MMAs summed in a fresh fragment and added
-// with IEEE fp32 adds.  The 3xTF32 body's cp.async ring runs across chunk
-// boundaries: a hub group's many chunks, a dummy chunk and the no-op steps
-// are slices like any other.
+// group's chunks itself; the k-slices of all its chunks form one loop,
+// each slice's products summed in a fresh accumulator and added with IEEE
+// fp32 adds.  Both rings (the wgmma body's TMA ring, the 3xTF32 body's
+// cp.async ring) run across chunk boundaries: a hub group's many chunks
+// and a dummy chunk are stages like any other.
 //
 // What bounds it on an H100 at the cplaw power-law point (786,432 rows,
-// (TM, Wc) = (512, 128), S = 12,289 chunks, n = 256): x3 does 3 x 412
-// GFLOP of bf16 products over 3.2 GB of A panels plus 0.4 GB of B chunks
-// per n-tile pass; the chunks are narrow (Wc = 128 is four 32-row
-// k-slices), so the per-slice shared-memory round trip, not the tensor
-// cores, is what the wmma bodies wait on.  At highest the three TF32
-// products of the fp32 panels (3 x 412 GFLOP at 495 TF/s, 2.5 ms) bound
-// it, not their 3.2 GB (0.96 ms): the n tiles of one panel slice run on
-// neighbouring blocks, so its later reads come from L2.
+// (TM, Wc) = (512, 128), S = 12,322 chunks, n = 256): at x3 the bytes, 3.23
+// GB of hi/lo panels, 0.81 GB of B and 0.81 GB of C (1.45 ms at 3.35
+// TB/s) against 3 x 412 GFLOP of bf16 products (1.25 ms); in one pass the
+// bytes too, 1.62 GB of hi panels, B in bf16 and C (0.84 ms).  The chunks
+// are narrow (Wc = 128 is two 64-row stages), so a block walks 16 stages
+// on average and its fixed costs (barrier init, filling the ring, the C
+// epilogue) weigh more than on the windowed packs.  A persistent grid that
+// overlapped them (tiles gridDim.x apart) measured 52% slower: the tiles
+// that share a group's B chunks no longer ran side by side, and B came
+// from HBM instead of L2.  At highest the three TF32 products of the fp32 panels (3 x 412
+// GFLOP at 495 TF/s, 2.5 ms) bound it, not their 3.2 GB (0.96 ms): the n
+// tiles of one panel slice run on neighbouring blocks, so its later reads
+// come from L2.
 
 #include "panel_tiles.cuh"
+#include "x3_wgmma.cuh"
 
 extern "C" {
 
@@ -53,18 +64,23 @@ int crp_ragged_presplit(const void* group_ptr, const void* starts,
                         void* c, int64_t G, int64_t TM, int64_t Wc, int64_t n,
                         void* stream)
 {
-    if (!group_ptr) return (int)cudaErrorInvalidValue;
-    return crp::launch_mma<true>(group_ptr, starts, ah, al, b, c, G, TM, Wc,
-                                 n, stream);
+    return crp::launch_wgmma<crp::WgMode::SPLIT_B, false, true>(
+        starts, ah, al, b, nullptr, c, G, TM, Wc, n, stream, nullptr, group_ptr);
 }
 
 int crp_ragged_bf16(const void* group_ptr, const void* starts, const void* ah,
                     const void* bh, void* c, int64_t G, int64_t TM, int64_t Wc,
                     int64_t n, void* stream)
 {
-    if (!group_ptr) return (int)cudaErrorInvalidValue;
-    return crp::launch_mma<false>(group_ptr, starts, ah, nullptr, bh, c, G, TM,
-                                  Wc, n, stream);
+    return crp::launch_wgmma<crp::WgMode::ONE_PASS, false, true>(
+        starts, ah, nullptr, bh, nullptr, c, G, TM, Wc, n, stream, nullptr, group_ptr);
+}
+
+// the wgmma body's rings and resources, x3 (#7) and one-pass (#8)
+// (crp::x3_layout)
+int crp_x3_layout(char* out, int len)
+{
+    return crp::x3_layout<false, false, true>(out, len);
 }
 
 int crp_ragged_f32(const void* group_ptr, const void* starts,

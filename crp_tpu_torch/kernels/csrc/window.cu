@@ -63,8 +63,7 @@ int crp_x3_layout(char* out, int len)
 int crp_window_bf16(const void* ws, const void* tiles, const void* b, void* c,
                     int64_t G, int64_t TM, int64_t W, int64_t n, void* stream)
 {
-    return crp::launch_mma<false, true>(nullptr, ws, tiles, nullptr, b, c, G,
-                                        TM, W, n, stream);
+    return crp::launch_mma(ws, tiles, b, c, G, TM, W, n, stream);
 }
 
 int crp_window_f32(const void* ws, const void* tiles, const void* b, void* c,

@@ -1,10 +1,12 @@
-// The wgmma tile body, fed by TMA, of the windowed kernels on bf16 panels:
-// at x3 on the hi/lo pair, the super-grouped #1 (crp_window_sg_presplit)
-// and #5 (crp_window_sg_presplit_ab) in window_sg.cu, the non-super-grouped
-// #4 (crp_window_x3, every multi-shard pack) in window.cu and the fused halo
-// kernel #12 (crp_halo_x3) in halo.cu; in one bf16 pass on the hi panels,
-// the super-grouped default #2 (crp_window_sg_bf16) in window_sg.cu.  The
-// kernel's MODE (WgMode below) picks which.
+// The wgmma tile body, fed by TMA, of the kernels on bf16 panels: at x3 on
+// the hi/lo pair, the super-grouped #1 (crp_window_sg_presplit) and #5
+// (crp_window_sg_presplit_ab) in window_sg.cu, the non-super-grouped #4
+// (crp_window_x3, every multi-shard pack) in window.cu, the fused halo
+// kernel #12 (crp_halo_x3) in halo.cu and the ragged #7
+// (crp_ragged_presplit) in ragged.cu; in one bf16 pass on the hi panels,
+// the super-grouped default #2 (crp_window_sg_bf16) in window_sg.cu and
+// the ragged default #8 (crp_ragged_bf16) in ragged.cu.  The kernel's MODE
+// (WgMode below) picks the products, CHUNKED and RAGGED the walk.
 //
 // A uniform pack: group g holds the bf16 hi and lo (TM, W) panels of A
 // over the B rows [ws[g], ws[g] + W), and
@@ -24,6 +26,17 @@
 // -1 (past the matrix).  Every window start is a multiple of HALO_TK, so a
 // 64-row stage never straddles two chunks: the producer looks its chunk up
 // once a stage.  The other kernels compile without the lookup.
+//
+// With RAGGED (#7, #8) the panels are a ragged pack's (S, TM, W) chunks:
+// group g owns the chunks s in [group_ptr[g], group_ptr[g + 1]), chunk s
+// over the B rows [ws[s], ws[s] + W), and C[g*TM + r, j] sums the mode's
+// products over all of g's chunks.  A block walks its group's chunks as one run of ceil(W / 64) stages
+// each, the ring's stage index running straight across chunk boundaries:
+// stage k of chunk s is the box at column 64 k, row s*TM + (row0 - g*TM)
+// of the (S*TM, W) view, over B rows ws[s] + 64 k.  TM % 128 == 0, so a
+// box never straddles two chunks; dummy chunks (zero panels at start 0)
+// are walked like any other, and the pack's group_ptr stops short of a
+// shard's trailing no-op steps.  The other kernels compile without it.
 //
 // ONE_PASS (#2): C[g*TM + r, j] = sum_k (ah*bh)[r, k, j], B cast to bf16 by
 // the caller (as the TPU kernel's caller does).  A stage holds the hi tile
@@ -79,7 +92,14 @@
 // 214 groups) 1.90 TFLOP, 1.92 ms, over 4.94 GB.  Every block also reads
 // its B window (64 rows x 128 columns a stage, as many bytes as the two
 // panel tiles) from L2.  ONE_PASS at the headline: 0.63 TFLOP (0.64 ms)
-// over 2.46 GB of hi panels (0.73 ms): the bytes bound it.
+// over 2.46 GB of hi panels (0.73 ms): the bytes bound it.  At the cplaw
+// ragged pack (S = 12,322 chunks, TM = 512, W = 128, n = 256) the bytes
+// bound both modes: x3 1.24 TFLOP (1.25 ms) against 3.23 GB of hi/lo
+// panels, 0.81 GB of B and 0.81 GB of C (1.45 ms); one pass 0.41 TFLOP
+// against 1.62 GB of hi panels, B in bf16 and C (0.84 ms).  There a block
+// walks 8 chunks of 2 stages on average, against 88 stages at the
+// headline, so its fixed costs (barrier init, filling the ring, the C
+// epilogue) weigh about 5x more.
 
 #pragma once
 
@@ -380,7 +400,7 @@ __device__ __forceinline__ void x3_fragments(const uint8_t* stage_b, int kk, int
     }
 }
 
-template <WgMode MODE, bool B_VEC, bool CHUNKED = false>
+template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false>
 __global__ void __launch_bounds__(X3_THREADS, 1)
 x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 const __grid_constant__ CUtensorMap a_lo,
@@ -389,10 +409,13 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 const bf16* __restrict__ b_lo,
                 float* __restrict__ c,
                 int64_t TM, int W, int n, int n_tiles,
-                const int32_t* __restrict__ chunk_src)
+                const int32_t* __restrict__ chunk_src,
+                const int32_t* __restrict__ group_ptr)
 {
     using Ring = WgRing<MODE>;
     static_assert(!(CHUNKED && MODE != WgMode::SPLIT_B), "the chunk lookup reads fp32 B");
+    static_assert(!(RAGGED && (CHUNKED || MODE == WgMode::PAIR_B)),
+                  "the ragged walk serves #7 (SPLIT_B) and #8 (ONE_PASS)");
     extern __shared__ __align__(16) uint8_t x3_smem_raw[];
     uint8_t* const smem =
         x3_smem_raw + ((1024 - (smem_u32(x3_smem_raw) & 1023)) & 1023);
@@ -404,7 +427,13 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
     const int n0 = (int)(tile % n_tiles) * X3_BM;
     const int64_t row0 = (tile / n_tiles) * X3_BN;  // first panel (and C) row
     const int64_t g = row0 / TM;                    // TM % X3_BN == 0
-    const int nk = (W + X3_BK - 1) / X3_BK;         // stages of the window
+    const int nk = (W + X3_BK - 1) / X3_BK;         // stages of the window (a chunk)
+    int64_t s0 = g;   // RAGGED: the group's chunks [s0, s0 + stages / nk)
+    int stages = nk;  // the block's walk
+    if constexpr (RAGGED) {
+        s0 = group_ptr[g];
+        stages = (int)(group_ptr[g + 1] - s0) * nk;
+    }
 
     if (tid == 0) {
         for (int s = 0; s < Ring::STAGES; ++s) {
@@ -416,27 +445,35 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
     __syncthreads();
 
     if (warp == X3_CONSUMERS / 32) {  // the producer
-        const int64_t b_row0 = ws[g];
-        for (int t = 0; t < nk; ++t) {
+        const int64_t b_row0 = RAGGED ? 0 : ws[g];
+        for (int t = 0; t < stages; ++t) {
             const int s = t % Ring::STAGES;
             mbar_wait(empty0 + 8 * s, ((t / Ring::STAGES) & 1) ^ 1);
             uint8_t* st = smem + s * Ring::STAGE;
+            int kt = t;               // the stage's 64-row step in its window
+            int64_t a_row = row0;     // its first panel row
+            int64_t b_row = b_row0;   // stage row k is row b_row + kt X3_BK + k of b
+            if constexpr (RAGGED) {   // step kt of chunk ch, over the B rows at ws[ch]
+                const int64_t ch = s0 + t / nk;
+                kt = t % nk;
+                a_row = ch * TM + row0 - g * TM;
+                b_row = ws[ch];
+            }
             if (lane == 0) {
                 mbar_arrive_tx(full0 + 8 * s, Ring::A_BYTES);
-                tma_load(smem_u32(st), &a_hi, full0 + 8 * s, t * X3_BK, (int)row0);
+                tma_load(smem_u32(st), &a_hi, full0 + 8 * s, kt * X3_BK, (int)a_row);
                 if constexpr (!Ring::ONE)
-                    tma_load(smem_u32(st) + X3_A_TILE, &a_lo, full0 + 8 * s, t * X3_BK,
-                             (int)row0);
+                    tma_load(smem_u32(st) + X3_A_TILE, &a_lo, full0 + 8 * s, kt * X3_BK,
+                             (int)a_row);
             }
-            int64_t b_row = b_row0;  // stage row k is row b_row + t X3_BK + k of b
-            int w_end = W;           // stage rows at or past it are zeros
+            int w_end = W;            // stage rows at or past it are zeros
             if constexpr (CHUNKED) {  // the stage lies in one chunk (see above)
                 const int64_t r = b_row0 + t * X3_BK;
                 const int32_t src = chunk_src[r / HALO_TK];
                 b_row = src + r % HALO_TK - t * X3_BK;
                 w_end = src >= 0 ? W : 0;  // a dead chunk: every row zero
             }
-            x3_load_b<MODE, B_VEC>(st + Ring::A_BYTES, b, b_lo, b_row, t * X3_BK, w_end, n,
+            x3_load_b<MODE, B_VEC>(st + Ring::A_BYTES, b, b_lo, b_row, kt * X3_BK, w_end, n,
                                    n0, lane, full0 + 8 * s);
         }
         cp_async_commit();
@@ -452,15 +489,16 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.0f;
 
-    for (int t = 0; t < nk; ++t) {
+    for (int t = 0; t < stages; ++t) {
         const int s = t % Ring::STAGES;
         mbar_wait(full0 + 8 * s, (t / Ring::STAGES) & 1);
         __syncwarp();  // wgmma's .aligned forms need the warp converged
         const uint8_t* st = smem + s * Ring::STAGE;
         const uint32_t hi_addr = smem_u32(st), lo_addr = hi_addr + X3_A_TILE;
+        const int kt = RAGGED ? t % nk : t;  // the stage's step in its window
 #pragma unroll
         for (int h = 0; h < X3_BK / X3_SLICE; ++h) {
-            if (t * X3_BK + h * X3_SLICE >= W) break;  // W % 32 == 0: nothing left
+            if (kt * X3_BK + h * X3_SLICE >= W) break;  // W % 32 == 0: nothing left
             uint32_t fh[2][4], fl[2][4];  // fl: x3 only
 #pragma unroll
             for (int ks = 0; ks < 2; ++ks)
@@ -563,10 +601,10 @@ inline cudaError_t panel_map(CUtensorMap* map, const void* panels, int64_t rows,
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <WgMode MODE, bool B_VEC, bool CHUNKED = false>
+template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false>
 cudaError_t x3_prepare()
 {
-    return cudaFuncSetAttribute(x3_wgmma_kernel<MODE, B_VEC, CHUNKED>,
+    return cudaFuncSetAttribute(x3_wgmma_kernel<MODE, B_VEC, CHUNKED, RAGGED>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 WgRing<MODE>::SMEM);
 }
@@ -575,18 +613,21 @@ cudaError_t x3_prepare()
 // plane (split_b_bf16); ONE_PASS: b is B cast to bf16, and al and b_lo are
 // not read.  The panels must be 16-byte aligned (TMA); B of any alignment
 // (16-byte copies where n and B allow them).  CHUNKED: B's rows through
-// chunk_src (see above), and every ws a multiple of HALO_TK.
-template <WgMode MODE, bool CHUNKED = false>
+// chunk_src (see above), and every ws a multiple of HALO_TK.  RAGGED: the
+// panels are the (S, TM, W) chunks, ws their starts and group_ptr the
+// groups' chunk ranges (see above).
+template <WgMode MODE, bool CHUNKED = false, bool RAGGED = false>
 int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
                  const void* b_lo, void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
-                 void* stream, const void* chunk_src = nullptr)
+                 void* stream, const void* chunk_src = nullptr,
+                 const void* group_ptr = nullptr)
 {
     // a stage starts a multiple of X3_BK rows past a HALO_TK-aligned window
     // start: it lies in one B chunk
     static_assert(HALO_TK % X3_BK == 0, "a 64-row stage never straddles two B chunks");
     constexpr bool ONE = WgRing<MODE>::ONE;
     if (G < 0 || TM <= 0 || TM % X3_BN || W <= 0 || W % X3_SLICE || n < 0
-        || (CHUNKED && !chunk_src))
+        || (CHUNKED && !chunk_src) || (RAGGED && !group_ptr))
         return (int)cudaErrorInvalidValue;
     if ((uintptr_t)ah % 16 || (!ONE && (uintptr_t)al % 16))
         return (int)cudaErrorMisalignedAddress;
@@ -595,29 +636,34 @@ int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
     if (blocks > 0x7fffffff || G * TM > 0x7fffffff || W > 0x7fffffff || n > 0x7fffffff)
         return (int)cudaErrorInvalidConfiguration;
     if (blocks == 0) return (int)cudaGetLastError();
+    // RAGGED: the entry is not given S, the chunk count, so the maps span
+    // every row a 32-bit box coordinate reaches; group_ptr, trusted as by
+    // every ragged kernel, keeps each box inside the S TM rows of the pack
+    const int64_t rows = RAGGED ? 0x7fffffff : G * TM;
     CUtensorMap hi, lo;
-    cudaError_t e = panel_map(&hi, ah, G * TM, W);
-    if (e == cudaSuccess) e = panel_map(&lo, ONE ? ah : al, G * TM, W);
+    cudaError_t e = panel_map(&hi, ah, rows, W);
+    if (e == cudaSuccess) e = panel_map(&lo, ONE ? ah : al, rows, W);
     if (e != cudaSuccess) return (int)e;
     const bool vec = n % (MODE == WgMode::SPLIT_B ? 4 : 8) == 0 && (uintptr_t)b % 16 == 0
                      && (MODE != WgMode::PAIR_B || (uintptr_t)b_lo % 16 == 0);
-    e = vec ? x3_prepare<MODE, true, CHUNKED>() : x3_prepare<MODE, false, CHUNKED>();
+    e = vec ? x3_prepare<MODE, true, CHUNKED, RAGGED>()
+            : x3_prepare<MODE, false, CHUNKED, RAGGED>();
     if (e != cudaSuccess) return (int)e;
-    const auto kernel = vec ? x3_wgmma_kernel<MODE, true, CHUNKED>
-                            : x3_wgmma_kernel<MODE, false, CHUNKED>;
+    const auto kernel = vec ? x3_wgmma_kernel<MODE, true, CHUNKED, RAGGED>
+                            : x3_wgmma_kernel<MODE, false, CHUNKED, RAGGED>;
     kernel<<<(unsigned)blocks, X3_THREADS, WgRing<MODE>::SMEM, (cudaStream_t)stream>>>(
         hi, lo, static_cast<const int32_t*>(ws), b, static_cast<const bf16*>(b_lo),
         static_cast<float*>(c), TM, (int)W, (int)n, (int)n_tiles,
-        static_cast<const int32_t*>(chunk_src));
+        static_cast<const int32_t*>(chunk_src), static_cast<const int32_t*>(group_ptr));
     return (int)cudaGetLastError();
 }
 
-template <WgMode MODE, bool B_VEC, bool CHUNKED = false>
+template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false>
 cudaError_t x3_resources(const char* copy, char* out, int len)
 {
-    const cudaError_t e = x3_prepare<MODE, B_VEC, CHUNKED>();
+    const cudaError_t e = x3_prepare<MODE, B_VEC, CHUNKED, RAGGED>();
     if (e != cudaSuccess) return e;
-    return kernel_resources(x3_wgmma_kernel<MODE, B_VEC, CHUNKED>, X3_THREADS,
+    return kernel_resources(x3_wgmma_kernel<MODE, B_VEC, CHUNKED, RAGGED>, X3_THREADS,
                             WgRing<MODE>::SMEM, copy, out, len);
 }
 
@@ -625,34 +671,38 @@ cudaError_t x3_resources(const char* copy, char* out, int len)
 // "key=value" pairs separated by spaces (at most len bytes, NUL included):
 // the x3 ring's stages, dynamic shared memory bytes, threads and block tile
 // (BM columns of B, BN panel rows, BK k rows a stage), then per kernel its
-// resources: "b16" and "b4" (#1 and #4, fp32 B by 16-byte copies or by
-// plain 4-byte loads), with CHUNKED "chunk16" and "chunk4" in their place
-// (#12, B's rows through chunk_src); with SG (window_sg.cu) also "pair16"
-// and "pair2" (#5, the bf16 planes likewise) and the one-pass ring
-// ("one.stages", "one.smem_bytes") and kernels "one16" and "one2" (#2, the
-// bf16 B plane by 16-byte copies or by plain 2-byte loads)
-template <bool SG, bool CHUNKED>
+// resources: "b16" and "b4" (#1, #4 and with RAGGED #7, fp32 B by 16-byte
+// copies or by plain 4-byte loads), with CHUNKED "chunk16" and "chunk4" in
+// their place (#12, B's rows through chunk_src); with SG (window_sg.cu)
+// also "pair16" and "pair2" (#5, the bf16 planes likewise); with SG or
+// RAGGED (ragged.cu) the one-pass ring ("one.stages", "one.smem_bytes")
+// and kernels "one16" and "one2" (#2 or #8, the bf16 B plane by 16-byte
+// copies or by plain 2-byte loads)
+template <bool SG, bool CHUNKED, bool RAGGED = false>
 inline int x3_layout(char* out, int len)
 {
-    static_assert(!(SG && CHUNKED), "no library builds both");
+    static_assert(SG + CHUNKED + RAGGED <= 1, "no library builds two of them");
     using X3 = WgRing<WgMode::SPLIT_B>;
     using One = WgRing<WgMode::ONE_PASS>;
     int used = snprintf(out, len, "stages=%d smem_bytes=%d threads=%d BM=%d BN=%d BK=%d",
                         X3::STAGES, X3::SMEM, X3_THREADS, X3_BM, X3_BN, X3_BK);
-    if constexpr (SG)
+    if constexpr (SG || RAGGED)
         used += snprintf(out + used, len - used, " one.stages=%d one.smem_bytes=%d",
                          One::STAGES, One::SMEM);
     using Report = cudaError_t (*)(const char*, char*, int);
     struct Kernel { const char* copy; Report report; };
     constexpr WgMode SPLIT = WgMode::SPLIT_B;
-    Kernel kernels[6] = {{CHUNKED ? "chunk16" : "b16", x3_resources<SPLIT, true, CHUNKED>},
-                         {CHUNKED ? "chunk4" : "b4", x3_resources<SPLIT, false, CHUNKED>}};
+    Kernel kernels[6] = {
+        {CHUNKED ? "chunk16" : "b16", x3_resources<SPLIT, true, CHUNKED, RAGGED>},
+        {CHUNKED ? "chunk4" : "b4", x3_resources<SPLIT, false, CHUNKED, RAGGED>}};
     int count = 2;
     if constexpr (SG) {
         kernels[count++] = {"pair16", x3_resources<WgMode::PAIR_B, true>};
         kernels[count++] = {"pair2", x3_resources<WgMode::PAIR_B, false>};
-        kernels[count++] = {"one16", x3_resources<WgMode::ONE_PASS, true>};
-        kernels[count++] = {"one2", x3_resources<WgMode::ONE_PASS, false>};
+    }
+    if constexpr (SG || RAGGED) {
+        kernels[count++] = {"one16", x3_resources<WgMode::ONE_PASS, true, false, RAGGED>};
+        kernels[count++] = {"one2", x3_resources<WgMode::ONE_PASS, false, false, RAGGED>};
     }
     for (int i = 0; i < count; ++i) {
         const cudaError_t e = kernels[i].report(kernels[i].copy, out + used, len - used);

@@ -25,8 +25,11 @@ scrambled power-law graphs included, where the ragged cover refuses.
 The kernels are CUDA kernels for Hopper, one per operating point, one for
 the spill and one for the gather kind:
 
-  * :func:`spmm_ragged_presplit` — ``x3`` (``csrc/ragged.cu``);
-  * :func:`spmm_ragged_bf16` — ``default`` (``csrc/ragged.cu``);
+  * :func:`spmm_ragged_presplit` — ``x3`` on the ``wgmma`` body fed by TMA
+    (``csrc/ragged.cu``, ``csrc/x3_wgmma.cuh``), each group walking its
+    chunks;
+  * :func:`spmm_ragged_bf16` — ``default``, the same body's one-pass mode
+    (``csrc/ragged.cu``);
   * :func:`spmm_ragged` — ``highest``: fp32 panels as three TF32
     tensor-core products (the 3xTF32 body of the windowed kernels, walking
     each group's chunks), fp64 by FMA (``csrc/ragged.cu``);
@@ -678,10 +681,13 @@ def _ragged(name, entry, step_g, group_ptr, starts, panels, b, min_b_rows,
 
 def spmm_ragged_presplit(step_g, group_ptr, starts, ah, al, b, *, min_b_rows: int):
     """x3 ragged SpMM: (G*TM, n) fp32 from bf16 ``ah``/``al`` chunk panels
-    and fp32 ``b``.  Replaces ``spmm_ragged_presplit``
-    (``spmm_ragged.py:859``, kernel ``_ragged_kernel_presplit`` ``:684``)."""
+    and fp32 ``b``, on the ``wgmma`` body of :func:`spmm_window_sg_presplit`
+    walking each group's chunks (the panels must start on 16 bytes: TMA).
+    Replaces ``spmm_ragged_presplit`` (``spmm_ragged.py:859``, kernel
+    ``_ragged_kernel_presplit`` ``:684``)."""
     if _placement("spmm_ragged_presplit", step_g, group_ptr, starts, ah, al, b) == "cpu":
         return spmm_ragged_presplit_plain(step_g, group_ptr, starts, ah, al, b)
+    _check_aligned("spmm_ragged_presplit", ah=ah, al=al)
     c = _ragged("spmm_ragged_presplit", "crp_ragged_presplit", step_g, group_ptr,
                 starts, (ah, al), b, min_b_rows, torch.bfloat16, torch.float32,
                 torch.float32)
@@ -694,10 +700,13 @@ spmm_ragged_presplit.launches = 0
 
 def spmm_ragged_bf16(step_g, group_ptr, starts, ah, bh, *, min_b_rows: int):
     """One-pass bf16 ragged SpMM: (G*TM, n) fp32 from bf16 ``ah`` and bf16
-    ``bh``.  Replaces ``spmm_ragged_bf16`` (``spmm_ragged.py:888``, kernel
+    ``bh``, on the ``wgmma`` body's one-pass mode (:func:`spmm_window_sg_bf16`'s)
+    walking each group's chunks (``ah`` must start on 16 bytes: TMA).
+    Replaces ``spmm_ragged_bf16`` (``spmm_ragged.py:888``, kernel
     ``_ragged_kernel_bf16`` ``:727``)."""
     if _placement("spmm_ragged_bf16", step_g, group_ptr, starts, ah, bh) == "cpu":
         return spmm_ragged_bf16_plain(step_g, group_ptr, starts, ah, bh)
+    _check_aligned("spmm_ragged_bf16", ah=ah)
     c = _ragged("spmm_ragged_bf16", "crp_ragged_bf16", step_g, group_ptr, starts,
                 (ah,), bh, min_b_rows, torch.bfloat16, torch.bfloat16,
                 torch.float32)

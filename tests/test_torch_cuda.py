@@ -1098,6 +1098,26 @@ def _dummy_groups(op, arrs):
             if gp[g + 1] - gp[g] == 1 and panels[gp[g]] == 0]
 
 
+def _two_shard_ragged(TM, Wc, prec, dev):
+    """Two shards of a community power-law graph packed ragged at ``prec``
+    on ``dev``: hub groups of many chunks, groups whose nonzeros all
+    spilled (dummy chunks), the shorter shard's trailing no-op steps, pad
+    groups.  Returns (a, the shards' row counts, arrays, op)."""
+    a = powerlaw_community_csr(20000, 16, 1024, seed=5, dtype=np.float32)
+    rows = np.repeat(np.arange(a.nrow), np.diff(a.rowptr))
+    keep = (rows < 3000) | (rows >= 3000 + 4 * TM)  # whole empty groups
+    a = CSRMatrix.from_coo(a.nrow, a.ncol, rows[keep], a.colidx[keep], a.val[keep],
+                           dtype=np.float32)
+    cut = 6000
+    shards = [(s.rowptr, s.colidx.astype(np.int32), s.val)
+              for s in (a.row_slice(0, cut), a.row_slice(cut, a.nrow))]
+    arrays, op = _pack_ragged(shards, a.nrow - cut + 700, np.float32, prec, dev,
+                              geometry=(TM, Wc), min_chunk_nnz=40, spill_impl="segsum")
+    gp = arrays[-1].cpu().numpy()
+    assert np.diff(gp, axis=1).max() > 1 and gp[0, -1] < arrays[0].shape[1]
+    return a, (cut, a.nrow - cut), arrays, op
+
+
 @pytest.mark.parametrize("TM", [128, 256, 512])
 @pytest.mark.parametrize("Wc", [128, 256, 512])
 def test_ragged_highest_tf32x3_matches_plain(cuda_device, TM, Wc):
@@ -1107,24 +1127,12 @@ def test_ragged_highest_tf32x3_matches_plain(cuda_device, TM, Wc):
     trailing no-op steps, pad groups; n in {16, 37, 100} (odd n takes the
     4-byte B copies): within TOL_PLAIN_FRO of the fp32 plain version, one
     launch a shard, the dummy groups' and pad rows zero."""
-    a = powerlaw_community_csr(20000, 16, 1024, seed=5, dtype=np.float32)
-    rows = np.repeat(np.arange(a.nrow), np.diff(a.rowptr))
-    keep = (rows < 3000) | (rows >= 3000 + 4 * TM)  # whole empty groups
-    a = CSRMatrix.from_coo(a.nrow, a.ncol, rows[keep], a.colidx[keep], a.val[keep],
-                           dtype=np.float32)
-    cut = 6000
-    shards = [(s.rowptr, s.colidx.astype(np.int32), s.val)
-              for s in (a.row_slice(0, cut), a.row_slice(cut, a.nrow))]
-    arrays, op = _pack_ragged(shards, a.nrow - cut + 700, np.float32, "highest",
-                              cuda_device, geometry=(TM, Wc), min_chunk_nnz=40,
-                              spill_impl="segsum")
+    a, nrows, arrays, op = _two_shard_ragged(TM, Wc, "highest", cuda_device)
     assert op.scheme == "full" and arrays[3].dtype == torch.float32
-    gp = arrays[-1].cpu().numpy()
-    assert np.diff(gp, axis=1).max() > 1 and gp[0, -1] < arrays[0].shape[1]
     kernel = spmm_ragged.spmm_ragged
     for n in (16, 37, 100):
         rB = torch.from_numpy(_b(a, max(op.min_b_rows, a.ncol), n, np.float32)).to(cuda_device)
-        for i, nrow in enumerate((cut, a.nrow - cut)):
+        for i, nrow in enumerate(nrows):
             arrs = tuple(x[i] for x in arrays)
             args = op.kernel_args(arrs, rB)
             before = kernel.launches
@@ -1140,6 +1148,105 @@ def test_ragged_highest_tf32x3_matches_plain(cuda_device, TM, Wc):
                 assert not torch.any(k[g * TM:(g + 1) * TM])
     with pytest.raises(ValueError, match="panels must start on 16 bytes"):
         kernel(*args[:3], _nan_framed(args[3], 1), args[4], min_b_rows=op.min_b_rows)
+
+
+# ------------- #7 (x3) and #8 (default) on the wgmma body, walking chunks
+
+
+@pytest.mark.parametrize("TM", [128, 256, 512])
+@pytest.mark.parametrize("Wc", [128, 256, 512])
+def test_ragged_wgmma_matches_plain(cuda_device, TM, Wc):
+    """#7 (``crp_ragged_presplit``) and #8 (``crp_ragged_bf16``) on the
+    wgmma body over every geometry the chooser can return, on the
+    two-shard x3 pack (#8 on its hi panels and B in bf16): hub groups,
+    dummy chunks, the shorter shard's trailing no-op steps, pad groups; n
+    in {16, 37, 100, 256} and at n = 100 a B framed by NaN and off 16
+    bytes (odd n and that B take the plain B copies): each within
+    TOL_PLAIN_FRO of its plain version, one launch a shard, the dummy
+    groups' and pad rows zero; #8 equal bit for bit to #7 on (ah, 0, B in
+    bf16 as fp32), whose extra products are exact zeros."""
+    a, nrows, arrays, op = _two_shard_ragged(TM, Wc, "x3", cuda_device)
+    assert op.scheme == "x3"
+    k7, k8 = spmm_ragged.spmm_ragged_presplit, spmm_ragged.spmm_ragged_bf16
+    rows = max(op.min_b_rows, a.ncol)
+    for n, off in ((16, 0), (37, 0), (100, 0), (100, 1), (256, 0)):
+        b = torch.from_numpy(_b(a, rows, n, np.float32)).to(cuda_device)
+        bh = b.to(torch.bfloat16)
+        if off:
+            b, bh = _nan_framed(b, off), _nan_framed(bh, off)
+        for i, nrow in enumerate(nrows):
+            arrs = tuple(x[i] for x in arrays)
+            step_g, group_ptr, starts, ah, al, _ = op.kernel_args(arrs, b)
+            dummies = _dummy_groups(op, arrs)
+            assert dummies
+            for kernel, plain, args in (
+                (k7, spmm_ragged.spmm_ragged_presplit_plain,
+                 (step_g, group_ptr, starts, ah, al, b)),
+                (k8, spmm_ragged.spmm_ragged_bf16_plain, (step_g, group_ptr, starts, ah, bh)),
+            ):
+                before = kernel.launches
+                k = kernel(*args, min_b_rows=rows)
+                assert kernel.launches == before + 1
+                p = plain(*args)
+                assert k.shape == p.shape and bool(torch.isfinite(k).all())
+                rel_fro = float((k - p).double().norm() / p.double().norm())
+                assert rel_fro <= TOL_PLAIN_FRO[np.float32], (kernel.__name__, n, off)
+                assert not torch.any(k[nrow:])  # pad groups
+                for g in dummies:
+                    assert not torch.any(k[g * TM:(g + 1) * TM])
+            c8 = k8(step_g, group_ptr, starts, ah, bh, min_b_rows=rows)
+            c7 = k7(step_g, group_ptr, starts, ah, torch.zeros_like(ah), bh.float(),
+                    min_b_rows=rows)
+            assert torch.equal(c8.view(torch.int32), c7.view(torch.int32)), \
+                float((c8 - c7).abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(X3_WGMMA))
+def test_ragged_x3_one_chunk_a_group_equals_window_x3(cuda_device, case):
+    """#7 on a ragged pack with exactly one chunk a group (group_ptr = 0 ..
+    G, starts = ws) over #4's hand-built x3 arrays (n in {16, 37, 48, 64,
+    256}, W off the 64-row stage, an unaligned B, one slice, many trips
+    round the ring): equal bit for bit to #4 ``crp_window_x3``, the same
+    body in the same order, one launch."""
+    ws, ah, al, b, rows, _ = _x3_hand_pack(case, cuda_device)
+    G = ws.shape[0]
+    step_g = torch.arange(G, dtype=torch.int32, device=cuda_device)
+    group_ptr = torch.arange(G + 1, dtype=torch.int32, device=cuda_device)
+    kernel = spmm_ragged.spmm_ragged_presplit
+    before = kernel.launches
+    c7 = kernel(step_g, group_ptr, ws, ah, al, b, min_b_rows=rows)
+    assert kernel.launches == before + 1
+    c4 = spmm_pallas.spmm_window(ws, (ah, al), b, "x3", min_b_rows=rows)
+    assert bool(torch.isfinite(c7).all())
+    assert torch.equal(c7.view(torch.int32), c4.view(torch.int32))
+
+
+def test_ragged_wgmma_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch):
+    """On CUDA tensors #7 and #8 launch their kernels and never their plain
+    versions; panels off 16 bytes (TMA) are refused before any launch."""
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    for name in ("spmm_ragged_presplit_plain", "spmm_ragged_bf16_plain"):
+        monkeypatch.setattr(spmm_ragged, name, no_plain)
+    ws, ah, al, b, rows, _ = _x3_hand_pack("one slice", cuda_device)
+    G = ws.shape[0]
+    step_g = torch.arange(G, dtype=torch.int32, device=cuda_device)
+    group_ptr = torch.arange(G + 1, dtype=torch.int32, device=cuda_device)
+    bh = b.to(torch.bfloat16)
+    k7, k8 = spmm_ragged.spmm_ragged_presplit, spmm_ragged.spmm_ragged_bf16
+    before = (k7.launches, k8.launches)
+    k7(step_g, group_ptr, ws, ah, al, b, min_b_rows=rows)
+    k8(step_g, group_ptr, ws, ah, bh, min_b_rows=rows)
+    assert (k7.launches, k8.launches) == (before[0] + 1, before[1] + 1)
+    off_h, off_l = (_nan_framed(t, 1) for t in (ah, al))
+    with pytest.raises(ValueError, match="ah must start on 16 bytes"):
+        k7(step_g, group_ptr, ws, off_h, al, b, min_b_rows=rows)
+    with pytest.raises(ValueError, match="al must start on 16 bytes"):
+        k7(step_g, group_ptr, ws, ah, off_l, b, min_b_rows=rows)
+    with pytest.raises(ValueError, match="ah must start on 16 bytes"):
+        k8(step_g, group_ptr, ws, off_h, bh, min_b_rows=rows)
+    assert (k7.launches, k8.launches) == (before[0] + 1, before[1] + 1)
 
 
 # ------------------------------ #2 as the wgmma body's one-pass mode

@@ -285,11 +285,12 @@ def test_emulated_halo_matches_jax_highest(devices8, p, n):
     assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), got) <= 1e-6
 
 
-def _ragged_highest_pack(TM, Wc):
-    """Two shards of a community power-law graph packed ragged at highest
-    (fp32 panels): hub groups of many chunks, a band of empty groups and
-    groups whose nonzeros all spill (dummy chunks at start 0), the first
-    shard's trailing no-op steps, pad groups."""
+def _ragged_pack(TM, Wc, prec="highest"):
+    """Two shards of a community power-law graph packed ragged at ``prec``
+    (fp32 panels at highest, the bf16 pair at x3, bf16 panels at
+    default): hub groups of many chunks, a band of empty groups and groups
+    whose nonzeros all spill (dummy chunks at start 0), the first shard's
+    trailing no-op steps, pad groups."""
     a = powerlaw_community_csr(8000, 16, 1024, seed=5, dtype=np.float32)
     rows = np.repeat(np.arange(a.nrow), np.diff(a.rowptr))
     keep = (rows < 2000) | (rows >= 2000 + 2 * TM)
@@ -298,10 +299,11 @@ def _ragged_highest_pack(TM, Wc):
     cut = 3000
     shards = [(s.rowptr, s.colidx.astype(np.int32), s.val)
               for s in (a.row_slice(0, cut), a.row_slice(cut, a.nrow))]
-    arrays, op = td._pack_ragged(shards, a.nrow - cut + 300, np.float32, "highest", CPU,
+    arrays, op = td._pack_ragged(shards, a.nrow - cut + 300, np.float32, prec, CPU,
                                  geometry=(TM, Wc), min_chunk_nnz=40,
                                  spill_impl="segsum")
-    assert op.scheme == "full" and op.roofline["spill_nnz"] > 0
+    scheme = {"highest": "full", "x3": "x3", "default": "bf16"}[prec]
+    assert op.scheme == scheme and op.roofline["spill_nnz"] > 0
     return a, (cut, a.nrow - cut), arrays, op
 
 
@@ -314,7 +316,7 @@ def test_emulated_ragged_matches_jax_highest(TM, Wc, n):
     against JAX's ``spmm_ragged(interpret=True)`` at HIGHEST and the port's
     plain version, shard by shard: within 1e-6 both ways; dummy chunks'
     groups and pad groups zero; one TF32 pass is not within it."""
-    a, nrows, arrays, op = _ragged_highest_pack(TM, Wc)
+    a, nrows, arrays, op = _ragged_pack(TM, Wc)
     step_g, step_first, starts, panels = arrays[:4]
     group_ptr = arrays[-1]
     S = panels.shape[1]
