@@ -10,8 +10,10 @@ prints the shared-memory ring of the 3xTF32 entries (#3, #4, #12 and #6
 at highest: stages, dynamic shared memory, registers, spills and blocks
 per SM, which must be 0 and at least 2) and of the wgmma body in each
 library that builds it (#1 with #5 and the one-pass #2, #4, #12, the
-ragged #7 with the one-pass #8: the same, which must be 0 and at least 1)
-and then, failing on the first check
+ragged #7 with the one-pass #8: the same, which must be 0 and at least 1),
+the spill and gather kernels' resources (``[spill]``: registers, spills
+and blocks per SM of each, which must be 0 and at least 1) and then,
+failing on the first check
 that does not hold (every engine init prints its peak device memory; an
 x3 or default panel pack must peak within 1.2 x what it holds after):
 
@@ -20,7 +22,9 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    (x3 on B pre-split by ``split_b_bf16``) on the x3 pack against its
    plain version and against #1's C, which it must equal bit for bit;
 2. ragged phase — each ragged kernel and the fused spill kernel against
-   their plain versions on small power-law and multiband packs, over
+   their plain versions (the spill also equal bit for bit to the emulation
+   of its fixed sum order and to a second launch) on small power-law and
+   multiband packs, over
    (TM, Wc) geometries, n in {16, 37, 100, 256} and at n = 100 a B that
    starts off 16 bytes (odd n and that B take the plain B copies), with
    pad groups that must come out zero;
@@ -41,12 +45,16 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
 4. cplaw path — the community power-law matrix
    ``powerlaw_community_csr(786432, 16, 1024)`` (10.8M nnz, fp32, n = 256)
    the same way: the engine must resolve to the ragged kernels with the
-   fused spill and launch both; each kernel against its plain version,
-   times, the host cover time and cuSPARSE;
-5. gather phase — the gather kernel against its plain version on small
-   scrambled power-law packs at each operating point, n in {16, 48, 100,
-   256}, B row 0 set to NaN (pad slots must be skipped) and trailing
-   blocks with no nonzero (they must come out zero);
+   fused spill and launch both; each kernel against its plain version
+   (the spill also bit for bit against its order's emulation and a second
+   launch; its share of rows with a live slot), times, the host cover
+   time and cuSPARSE;
+5. gather phase — the gather kernel against its plain version, and bit
+   for bit against its order's emulation and a second launch, on small
+   scrambled power-law packs at each operating point, n in {16, 37, 48,
+   100, 256, 512} and at n = 256 a B off 16 bytes, B row 0 set to NaN (pad
+   slots must be skipped) and trailing blocks with no nonzero (they must
+   come out zero);
 6. dd phase — the FP64 tensor-core kernel against its plain version on
    small banded and power-law total covers, (TM, Wc) = (128, 512) and
    (128, 256), with pad groups that must come out zero;
@@ -54,7 +62,8 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    permuted (``permute=True``), through ``RowParaSpmm(kernel="auto")``:
    the ragged cover refuses and the walk must land on ``gather`` and launch
    its kernel, within each point's class; the kernel against its plain
-   version, times, cuSPARSE;
+   version and bit for bit against its order's emulation, times beside
+   the gathered-rows floor, cuSPARSE;
 8. fp64-class path — ``banded_random_csr(217918, 53, 256)`` in fp64
    through ``RowParaSpmm(kernel="dd")`` must resolve to ``dd_mxu`` (S =
    3,402) on the FP64 tensor cores at <= 1e-12; on its pack the kernel
@@ -136,9 +145,16 @@ TOL_PLAIN_FRO = 1e-6
 # the ragged kernels on power-law packs: a hub row sums thousands of rounded
 # fp32 products, whose reordering moves the largest elements by up to
 # 1.2e-6 of max|p| (measured), so there too the relative Frobenius error is
-# held, per dtype; the spill kernel too (its sum order within a row varies
-# from run to run).
+# held, per dtype; the spill and gather kernels too against their plain
+# versions, whose index_add_ sums in an order of its own.  Those two sum in
+# a fixed order, the same at every launch: each is also held bit for bit
+# to the emulation of that order (spill_rows_ordered) and to a second
+# launch.
 TOL_RAGGED_FRO = {np.float32: 1e-6, np.float64: 1e-12}
+# the previous body of the spill and gather kernels (a block per output
+# block and 32 columns, shared-memory atomics) on the main paths, ms
+# (NVIDIA H100 80GB HBM3, 700 W): printed beside the times of this run
+PREVIOUS_MS = {"spmm_spill": 2.0822, "spmm_gather": 7.3080}
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): HBM3
 # bytes/s, and FLOP/s by the type the products run in
 HBM_BYTES_PER_S = 3.35e12
@@ -300,17 +316,18 @@ def panel_bound(op, arrs, rB) -> tuple:
                  passes * 2.0 * panel.numel() * n, peak)
 
 
-def block_bound(rel, cols, vals, blk, blk_ptr, b, M, with_c) -> tuple:
-    """Bound of the spill / gather kernels: the packed slots and the
-    distinct B rows their live slots reference read once, C read (spill)
-    and written once; 2 fp32 operations per live slot and column."""
-    TMo = M // (blk_ptr.numel() - 1)
-    live = rel.reshape(cols.shape) < TMo
-    z = int(live.sum())
-    rows_b = int(torch.unique(cols[live]).numel())
+def view_bound(view, b, M, with_c) -> tuple:
+    """Bound of the spill / gather kernels on what they read: the
+    row-ordered view (each live slot's column and value, the items, the
+    hub rows' partial counts) and the distinct B rows its slots reference
+    read once, C read (spill) and the output written once; 2 fp32
+    operations per live slot and column."""
+    vcols, vvals, items, parts = view
+    z = int(items[-1, 1])  # the sentinel's first slot: the live slots
+    rows_b = int(torch.unique(vcols[:z]).numel())
     n = b.shape[1]
-    n_bytes = (nbytes(rel, cols, vals, blk, blk_ptr) + rows_b * n * b.element_size()
-               + M * n * 4 * (2 if with_c else 1))
+    n_bytes = (z * (vcols.element_size() + vvals.element_size()) + nbytes(items, parts)
+               + rows_b * n * b.element_size() + M * n * 4 * (2 if with_c else 1))
     return bound(n_bytes, 2.0 * z * n, "fp32")
 
 
@@ -337,6 +354,35 @@ def spill_vs_plain(op, arrs, rB):
     args = op.spill_args(arrs, op.plain(*op.kernel_args(arrs, rB)), rB)
     return compare("spmm_spill", lambda: op.spill_kernel(*args),
                    lambda: op.spill_plain(*args))
+
+
+def in_order(name, run_kernel, run_order, msg) -> None:
+    """The spill or gather kernel equal bit for bit to the emulation of its
+    fixed sum order and to a second launch (these launches are checks)."""
+    k1, k2, e = run_kernel(), run_kernel(), run_order()
+    same = lambda x, y: x.shape == y.shape and torch.equal(  # noqa: E731
+        x.view(torch.int32), y.view(torch.int32))
+    check(same(k1, k2), f"{msg}: {name}: two launches differ")
+    check(same(k1, e), f"{msg}: {name} differs from the emulation of its order by "
+          f"{float((k1 - e).abs().max()):.3e}")
+
+
+def spill_in_order(op, arrs, rB, msg) -> None:
+    from crp_tpu_torch.kernels.spmm_ragged import spill_rows_ordered
+
+    args = op.spill_args(arrs, op.plain(*op.kernel_args(arrs, rB)), rB)
+    in_order("spmm_spill", lambda: op.spill_kernel(*args),
+             lambda: spill_rows_ordered(args[0], args[-1], rB, args[0].shape[0],
+                                        op.mxu_precision), msg)
+
+
+def gather_in_order(op, arrs, rB, msg) -> None:
+    from crp_tpu_torch.kernels.spmm_ragged import spill_rows_ordered
+
+    args = op.kernel_args(arrs, rB)
+    in_order("spmm_gather", lambda: launch(op, args),
+             lambda: spill_rows_ordered(None, args[-1], args[5], op.M, op.mxu_precision),
+             msg)
 
 
 def all_kernels():
@@ -559,8 +605,10 @@ def ragged_phase(device) -> None:
                     check(rel_fro <= tol, msg)
                     if op.spill_impl == "pallas" and not b_off:
                         _, _, s_fro = spill_vs_plain(op, arrs, rB)
-                        msg += f"; spmm_spill rel fro err {s_fro:.3e}"
+                        msg += (f"; spmm_spill rel fro err {s_fro:.3e}, its order bit "
+                                f"for bit")
                         check(s_fro <= TOL_RAGGED_FRO[np.float32], msg)
+                        spill_in_order(op, arrs, rB, msg)
                     say(msg)
 
 
@@ -706,7 +754,7 @@ def time_kernel(op, arrs, rB, tag, prec, work, plain_inner=20, tol=TOL_PLAIN_FRO
         panels = rl.get("p", 1) * rl.get("S", rl["G"]) * rl["TM"] * rl["W"]
         desc = f"dense-panel work {2.0 * panels * N / 1e9:.1f} GFLOP/pass"
     if op.variant == "gather":
-        design_ms, _ = block_bound(*args[:6], op.M, with_c=False)
+        design_ms, _ = view_bound(args[-1], rB, op.M, with_c=False)
         dtype = torch.float32
     else:
         design_ms, _ = panel_bound(op, arrs, rB)
@@ -811,6 +859,9 @@ def cplaw_path(device) -> list:
             f"{s_fro:.3e} (tol {TOL_PLAIN_FRO:g}), max rel err {s_rel:.3e}, "
             f"max abs err {s_abs:.3e}")
         check(s_fro <= TOL_PLAIN_FRO, f"cplaw {prec}: spmm_spill vs plain rel fro err {s_fro}")
+        spill_in_order(op, arrs, rB, f"cplaw {prec}")
+        say(f"[cplaw {prec}] spmm_spill equals the emulation of its order and a second "
+            f"launch bit for bit")
         args = op.spill_args(arrs, op.kernel(*op.kernel_args(arrs, rB),
                                              min_b_rows=op.min_b_rows), rB)
         s_ms, s_plain, s = in_turns(lambda: op.spill_kernel(*args),
@@ -822,16 +873,24 @@ def cplaw_path(device) -> list:
         spill["max_abs"] = max(spill["max_abs"], s_abs)
         if prec == "x3":
             spill["ms"], spill["plain_ms"] = s_ms, s_plain
-            spill["bound"] = block_bound(*args[1:6], rB, args[0].shape[0], with_c=True)
+            spill["bound"] = view_bound(args[-1], rB, args[0].shape[0], with_c=True)
             spill["library_ms"] = spill_library_ms(op, arrs, args[0], rB)
+            items = args[-1][2]  # the view's (row, first slot, ...) per item
+            rows_live = int(torch.unique(items[:-1, 0][items[:-1, 1] < items[1:, 1]])
+                            .numel())
             say(f"[cplaw x3] spmm_spill bound {spill['bound'][0]:.4f} ms "
                 f"({spill['bound'][1]}); torch.addmm(C, spill CSR, B) "
-                f"{spill['library_ms']:.4f} ms")
+                f"{spill['library_ms']:.4f} ms; the previous body "
+                f"{PREVIOUS_MS['spmm_spill']:.4f} ms; rows with a live slot "
+                f"{rows_live} of {args[0].shape[0]} "
+                f"({100.0 * rows_live / args[0].shape[0]:.2f}%), "
+                f"{args[-1][3].numel()} partials of hub rows")
         del eng, op, bs, arrs, rB, args
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
-    # the spill's bound counts its own live nonzeros and B rows: the
-    # function's work and this design's are one
+    # the spill's bound counts the view of its live nonzeros and their B
+    # rows, what its kernel reads: the function's work and this design's
+    # are one
     records.append(record("spmm_spill", spill["launches"], spill["max_abs"],
                           spill["ms"], spill["plain_ms"], *spill["bound"],
                           spill["bound"][0], spill["library_ms"]))
@@ -846,7 +905,8 @@ def cplaw_path(device) -> list:
     args = op.kernel_args(tuple(x[0] for x in arrays),
                           torch.from_numpy(b).to(device))
     say(f"[cplaw x3] for comparison, the gather kind's kernel on this matrix: "
-        f"{time_ms(lambda: launch(op, args)):.4f} ms")
+        f"{time_ms(lambda: launch(op, args)):.4f} ms (the ragged kernel and the "
+        f"spill: {records[0]['ms'] + spill['ms']:.4f} ms)")
     del arrays, op, args
     torch.cuda.empty_cache()
     return records
@@ -874,16 +934,20 @@ def gather_phase(device) -> None:
         # max_m past nrow: trailing output blocks with no nonzero
         arrays, op = _pack_gather(shard, a.nrow + 700, np.float32, prec, device)
         arrs = tuple(x[0] for x in arrays)
-        for n in (16, 48, 100, 256):
+        for n, b_off in ((16, 0), (37, 0), (48, 0), (100, 0), (256, 0), (256, 1), (512, 0)):
             b = padded_b(a, a.ncol, n, np.float32)
             b[0] = np.nan  # pad slots point at column 0: they must be skipped
             rB = torch.from_numpy(b).to(device)
+            if b_off:  # B off 16 bytes: the narrower loads
+                rB = misaligned(rB, b_off)
             _, _, rel_fro = kernel_vs_plain(op, arrs, rB)
             c = launch(op, op.kernel_args(arrs, rB))
             msg = (f"gather spmm_gather {prec:8s} M={op.M} steps={op.roofline['S']} "
-                   f"n={n:3d}: rel fro err {rel_fro:.3e} (tol {TOL_PLAIN_FRO:g})")
+                   f"n={n:3d}{' B off 16 bytes' if b_off else ''}: rel fro err "
+                   f"{rel_fro:.3e} (tol {TOL_PLAIN_FRO:g}), its order bit for bit")
             check(rel_fro <= TOL_PLAIN_FRO, msg)
             check(not bool(torch.any(c[a.nrow:])), f"gather {prec}: empty blocks not zero")
+            gather_in_order(op, arrs, rB, msg)
             say(msg)
 
 
@@ -946,13 +1010,20 @@ def scrambled_cplaw_path(device) -> list:
         eng, op, bs, launches = drive(a, b, c_ref, prec, device, "scrambled",
                                       ("gather", "gather"))
         arrs = tuple(x[0] for x in eng.packed)
-        got = time_kernel(op, arrs, eng.receive_buffer(bs)[0], "scrambled", prec,
-                          csr_work(a), plain_inner=2)
+        rB = eng.receive_buffer(bs)[0]
+        got = time_kernel(op, arrs, rB, "scrambled", prec, csr_work(a), plain_inner=2)
+        gather_in_order(op, arrs, rB, f"scrambled {prec}")
+        floor = a.nnz * N * 4 / HBM_BYTES_PER_S * 1e3
+        say(f"[scrambled {prec}] spmm_gather equals the emulation of its order and a "
+            f"second launch bit for bit; {got[1]:.4f} ms against the previous body's "
+            f"{PREVIOUS_MS['spmm_gather']:.4f} (x3); gathered-rows floor {floor:.4f} ms "
+            f"(every nonzero's B row from device memory: {a.nnz} x {N} x 4 B over "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) beside the bound {got[3]:.4f} ms")
         rec["launches"] += launches["spmm_gather"]
         rec["max_abs"] = max(rec["max_abs"], got[0])
         if prec == "x3":
             rec["timing"] = got[1:]
-        del eng, op, bs, arrs
+        del eng, op, bs, arrs, rB
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
     cus_ms = cusparse_yardstick(a, b, c_ref, device, "scrambled cusparse")
@@ -1024,9 +1095,8 @@ def spill_library_ms(op, arrs, c, rB):
     """``torch.addmm(C, S, B)`` with S the spilled nonzeros as a CSR
     tensor: the library's time for the spill kernel's function, or None
     where this PyTorch has no such call for a CSR operand on the card."""
-    rel, cols, vals, blk, blk_ptr = op.spill_args(arrs, c, rB)[1:6]
+    rel, cols, vals, blk, TMo = op.spill_args(arrs, c, rB)[1:6]
     M = c.shape[0]
-    TMo = M // (blk_ptr.numel() - 1)
     rel2 = rel.reshape(cols.shape)
     live = rel2 < TMo
     rows = (blk.long()[:, None] * TMo + rel2.long())[live]
@@ -1370,6 +1440,19 @@ def x3_layout(build) -> None:
                   f"wgmma {name} ({copy}): {lay}: spills, or no block fits an SM")
 
 
+def spill_layout(build) -> None:
+    """Print the spill and gather kernels' resources once (``[spill]``):
+    warps a block, columns a lane holds, B rows in flight a warp, and for
+    each of the six kernels (spill and gather by load width) registers,
+    spill bytes and resident blocks per SM, which must be 0 and at least
+    1."""
+    lay = build.spill_layout()
+    say(f"[spill] crp_spill_blocks / crp_gather_blocks: {json.dumps(lay)}")
+    for name in ("c4", "c2", "c1", "g4", "g2", "g1"):
+        check(lay[f"{name}.local_bytes"] == 0 and lay[f"{name}.blocks_per_sm"] >= 1,
+              f"spill kernel {name}: {lay}: spills, or no block fits an SM")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU",
@@ -1393,6 +1476,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     tf32x3_layouts(_build)
     x3_layout(_build)
+    spill_layout(_build)
 
     records = []
     for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,

@@ -41,14 +41,14 @@ import argparse
 import ctypes
 import json
 import pathlib
-import shutil
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
 from ..kernels import _build
+from ._csrc_variants import build as build_copies
+from ._csrc_variants import edited
 
 # (text of x3_wgmma.cuh, its replacement): each puts one part of the body
 # under a macro; every anchor must occur exactly once
@@ -88,12 +88,7 @@ N = 256
 def edited_header() -> str:
     """``x3_wgmma.cuh`` with the parts of its body under the macros of
     :data:`VARIANTS`; raises where an anchor is not found exactly once."""
-    text = (_build.CSRC / "x3_wgmma.cuh").read_text()
-    for anchor, new in EDITS:
-        if text.count(anchor) != 1:
-            raise ValueError(f"x3_feed_split: anchor not found once: {anchor!r}")
-        text = text.replace(anchor, new)
-    return text
+    return edited((_build.CSRC / "x3_wgmma.cuh").read_text(), EDITS, "x3_feed_split")
 
 
 def build(baselines=()) -> dict:
@@ -101,26 +96,12 @@ def build(baselines=()) -> dict:
     built by one ``nvcc`` each, all started together: ``{(variant, stem):
     path}``."""
     header = edited_header()
-    shutil.rmtree(OUT, ignore_errors=True)
-    jobs = {name: (_build.CSRC, header, macros) for name, macros in VARIANTS.items()}
+    jobs = {name: (_build.CSRC, {"x3_wgmma.cuh": header}, macros)
+            for name, macros in VARIANTS.items()}
     for base in baselines:
-        jobs[f"baseline:{base}"] = (pathlib.Path(base), None, ())
-    procs = {}
-    for i, (name, (src, text, macros)) in enumerate(jobs.items()):
-        d = OUT / f"v{i}"
-        shutil.copytree(src, d)
-        if text is not None:
-            (d / "x3_wgmma.cuh").write_text(text)
-        for stem in sorted({stem for stem, _ in KERNELS.values()}):
-            cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *(f"-D{m}" for m in macros),
-                   "-o", str(d / f"{stem}.so"), str(d / f"{stem}.cu")]
-            procs[name, stem] = (d / f"{stem}.so", subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for key, (_, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"x3_feed_split: nvcc failed for {key}:\n{out}")
-    return {key: path for key, (path, _) in procs.items()}
+        jobs[f"baseline:{base}"] = (pathlib.Path(base), {}, ())
+    return build_copies(OUT, jobs, sorted({stem for stem, _ in KERNELS.values()}),
+                        "x3_feed_split")
 
 
 def headline_args(dev) -> dict:

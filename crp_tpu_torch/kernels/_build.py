@@ -52,8 +52,8 @@ _ENTRIES = {
     "crp_ragged_bf16": ("ragged", 5, ("G", "TM", "Wc", "n")),
     "crp_ragged_f32": ("ragged", 5, ("G", "TM", "Wc", "n")),
     "crp_ragged_f64": ("ragged", 5, ("G", "TM", "Wc", "n")),
-    "crp_spill_blocks": ("spill", 7, ("nblk", "TMo", "Q", "n", "mode")),
-    "crp_gather_blocks": ("spill", 6, ("nblk", "TMo", "Q", "n", "mode")),
+    "crp_spill_blocks": ("spill", 9, ("n_items", "M", "n", "mode")),
+    "crp_gather_blocks": ("spill", 8, ("n_items", "M", "n", "mode")),
     "crp_ragged_dd_f64tc": ("dd_tc", 5, ("G", "TM", "Wc", "n")),
 }
 
@@ -167,6 +167,15 @@ def x3_layout(name: str = "crp_window_sg_presplit") -> dict:
     ``ragged``), and #12 ``crp_halo_x3``'s with B's rows through the chunk
     table (``chunk16.*``, ``chunk4.*``, ``halo``)."""
     return _report(name, "crp_x3_layout")
+
+
+def spill_layout() -> dict:
+    """The spill and gather kernels (``spill.cu``) as ``crp_spill_layout``
+    reports them: warps a block, columns a tile, B rows in flight a warp
+    and, for each kernel (the spill's ``c4``, ``c2``, ``c1`` and the
+    gather's ``g4``, ``g2``, ``g1``, by load width), registers, local
+    (spill) bytes and resident blocks per SM."""
+    return _report("crp_spill_blocks", "crp_spill_layout")
 
 
 def check(rc: int, name: str) -> None:

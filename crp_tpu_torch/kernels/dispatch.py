@@ -54,10 +54,11 @@ from .spmm_pallas import (
 from .spmm_ragged import (
     PANEL_CAP_BYTES, SPILL_Q, SPILL_TMO, cover_with_cap, default_min_chunk_nnz,
     estimate_ragged, first_ptr, gather_step_layout, pack_gather_blocks,
-    pack_spill, pack_spill_blocks, resolve_ragged_geometry, spmm_gather,
-    spmm_gather_plain, spmm_ragged, spmm_ragged_bf16, spmm_ragged_bf16_plain,
-    spmm_ragged_plain, spmm_ragged_presplit, spmm_ragged_presplit_plain,
-    spmm_spill, spmm_spill_chunked, spmm_spill_plain,
+    pack_spill, pack_spill_blocks, resolve_ragged_geometry, spill_row_view,
+    spmm_gather, spmm_gather_plain, spmm_ragged, spmm_ragged_bf16,
+    spmm_ragged_bf16_plain, spmm_ragged_plain, spmm_ragged_presplit,
+    spmm_ragged_presplit_plain, spmm_spill, spmm_spill_chunked, spmm_spill_plain,
+    stack_row_views,
 )
 from .spmm_segsum import pack_device_csr, spmm_segment_sum
 
@@ -181,9 +182,10 @@ class DDOp:
 @dataclasses.dataclass
 class GatherOp:
     """Local op of the ``gather`` kind: arrays are the JAX pack's (rel,
-    cols, vals, first, blk), then ``blk_ptr`` (:func:`first_ptr` of
-    ``first``), the step ranges the CUDA kernel reads.  ``M`` output rows
-    (``max_m`` rounded up to TMo)."""
+    cols, vals, first, blk), then the pack's row-ordered view (vcols,
+    vvals, items, parts; :func:`_row_views`), which the CUDA kernel reads.
+    ``M`` output rows (``max_m`` rounded up to TMo, the roofline's
+    ``TM``)."""
 
     M: int
     mxu_precision: str
@@ -196,8 +198,9 @@ class GatherOp:
     def kernel_args(self, arrs, rB) -> tuple:
         """Positional args of :attr:`kernel` and :attr:`plain` for one
         shard's ``arrs`` and receive buffer ``rB``."""
-        rel, cols, vals, _, blk, blk_ptr = arrs
-        return (rel, cols, vals, blk, blk_ptr, rB, self.M, self.mxu_precision)
+        rel, cols, vals, _, blk, *view = arrs
+        return (rel, cols, vals, blk, self.roofline["TM"], rB, self.M,
+                self.mxu_precision, tuple(view))
 
     def __call__(self, arrs, rB):
         # rows past the shard's own are zero: engines trim them
@@ -274,6 +277,14 @@ class WindowOp:
         c = self.kernel(*self.kernel_args(arrs, rB), min_b_rows=self.min_b_rows)
         # rows past the shard's own are zero panels: engines trim them
         return c.to(rB.dtype)
+
+
+def _row_views(rel, cols, vals, blk, M: int, TMo: int) -> tuple:
+    """The row-ordered views (:func:`spill_row_view`) of a stacked
+    block-step pack's shards, stacked (:func:`stack_row_views`), built on
+    the pack's device."""
+    return stack_row_views([spill_row_view(rel[i], cols[i], vals[i], blk[i], M, TMo)
+                            for i in range(rel.shape[0])])
 
 
 def _stacked(packs, device) -> tuple:
@@ -621,12 +632,15 @@ class RaggedOp:
     """Local op of the ``pallas``/``ragged`` kinds on a ragged pack.
 
     ``arrays`` are the JAX pack's, (step_g, step_first, starts, *panels,
-    *spill), then the step ranges the CUDA kernels read: ``group_ptr`` and,
-    for the fused spill, ``blk_ptr`` (both :func:`first_ptr` of the pack's
-    ``first`` arrays).  ``scheme`` picks the ragged kernel: ``"x3"`` (ah,
-    al), ``"bf16"`` (ah), ``"full"`` (fp32 panels on three TF32 products,
-    fp64 by FMA) or ``"dd"`` (fp64 panels of the ``dd_mxu`` total cover,
-    FP64 tensor cores; its variant is ``"dd_mxu"``).  ``spill_impl``:
+    *spill), then the step ranges the ragged kernels read, ``group_ptr``
+    (:func:`first_ptr` of ``step_first``), and for the fused spill its
+    row-ordered view (vcols, vvals, items, parts; :func:`_row_views`),
+    which its kernel reads; ``spill_tmo`` is that spill's block height
+    TMo.  ``scheme``
+    picks the ragged kernel: ``"x3"`` (ah, al), ``"bf16"`` (ah), ``"full"``
+    (fp32 panels on three TF32 products, fp64 by FMA) or ``"dd"`` (fp64
+    panels of the ``dd_mxu`` total cover, FP64 tensor cores; its variant
+    is ``"dd_mxu"``).  ``spill_impl``:
     ``"none"``, ``"segsum"`` (rows, cols, vals; plain ``index_add_``) or
     ``"pallas"`` (rel, cols, vals, first, blk; the fused spill kernel).
     """
@@ -636,6 +650,7 @@ class RaggedOp:
     spill_impl: str
     mxu_precision: str
     roofline: dict = dataclasses.field(default_factory=dict)
+    spill_tmo: int = 0
 
     @property
     def variant(self) -> str:
@@ -672,18 +687,24 @@ class RaggedOp:
         k = 3 + self.n_panels
         return arrs[k : k + {"none": 0, "segsum": 3, "pallas": 5}[self.spill_impl]]
 
+    def _ptrs(self, arrs):
+        """The arrays after the JAX pack's: group_ptr, then for the fused
+        spill its view."""
+        return arrs[3 + self.n_panels + len(self._spill_arrays(arrs)):]
+
     def kernel_args(self, arrs, rB) -> tuple:
         """Positional args of :attr:`kernel` and :attr:`plain` for one
         shard's ``arrs`` and receive buffer ``rB``."""
-        group_ptr = arrs[3 + self.n_panels + len(self._spill_arrays(arrs))]
         b = rB.to(torch.bfloat16) if self.scheme == "bf16" else rB
-        return (arrs[0], group_ptr, arrs[2], *arrs[3 : 3 + self.n_panels], b)
+        return (arrs[0], self._ptrs(arrs)[0], arrs[2], *arrs[3 : 3 + self.n_panels], b)
 
     def spill_args(self, arrs, c, rB) -> tuple:
         """Positional args of :attr:`spill_kernel` and :attr:`spill_plain`
         (the ``pallas`` spill) for the ragged kernel's output ``c``."""
         rel, cols, vals, _, blk = self._spill_arrays(arrs)
-        return (c, rel, cols, vals, blk, arrs[-1], rB, self.mxu_precision)
+        _, *view = self._ptrs(arrs)
+        return (c, rel, cols, vals, blk, self.spill_tmo, rB, self.mxu_precision,
+                tuple(view))
 
     def __call__(self, arrs, rB):
         c = self.kernel(*self.kernel_args(arrs, rB), min_b_rows=self.min_b_rows)
@@ -762,9 +783,11 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     Shards share (TM, Wc), the group count G and the step count S (dummy
     chunks and trailing no-op steps); every shard's spill arrays are padded
     to Z (``segsum``) or to the largest step count (``pallas``), and its
-    ``group_ptr`` / ``blk_ptr`` are its own.  Raises UnsupportedSparsity
-    when the covers keep under 30% of all nonzeros in panels; where the
-    covers' own counts settle that, before any panel is filled.
+    ``group_ptr`` and the spill's row-ordered view (built on ``device``,
+    each shard's padded to the longest) are its own.  Raises
+    UnsupportedSparsity when the covers keep under 30% of all nonzeros in
+    panels; where the covers' own counts settle that, before any panel is
+    filled.
     """
     if spill_impl not in SPILL_IMPLS:
         raise ValueError(f"spill_impl={spill_impl!r} not in {SPILL_IMPLS}")
@@ -872,11 +895,6 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
         per = [pack_spill_blocks(s, max(ns), G * TM, pack_dtype, TMo=TMo, Q=Q)
                for s in sorted_spills]
         sp_arrays = tuple(np.stack([x[k] for x in per]) for k in range(5))
-        # the last block's range ends at the shard's own steps: the pad
-        # steps past them hold only pad slots
-        blk_ptr = np.stack([first_ptr(f) for f in sp_arrays[3]])
-        blk_ptr[:, -1] = ns
-        extras.append(blk_ptr)
     elif Z:
         per = [pack_spill(s, Z, G * TM, pack_dtype) for s in spills]
         sp_arrays = tuple(np.stack([x[k] for x in per]) for k in range(3))
@@ -887,6 +905,9 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
         *panels,
         *(torch.from_numpy(x).to(device) for x in (*sp_arrays, *extras)),
     )
+    if Z and sp_impl == "pallas":
+        rel, cols, vals, _, blk = arrays[-6:-1]
+        arrays += _row_views(rel, cols, vals, blk, G * TM, TMo)
     scheme = {"pair": "x3", "bf16": "bf16"}.get(mode, "full")
     roofline = dict(
         G=G, TM=TM, W=Wc, a_bytes=a_bytes,
@@ -897,7 +918,8 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
         passes={"x3": 3, "highest": 6, "default": 1}.get(mxu_precision, 1),
     )
     op = RaggedOp(scheme, int(a_starts.max()) + Wc,
-                  sp_impl if Z else "none", mxu_precision, roofline)
+                  sp_impl if Z else "none", mxu_precision, roofline,
+                  TMo if Z and sp_impl == "pallas" else 0)
     return arrays, op
 
 
@@ -936,8 +958,9 @@ def _pack_gather(shards, max_m, dtype, mxu_precision, device, *, TMo=SPILL_TMO,
         spill_nnz=total_nnz, mxu_frac=0.0,
         passes={"x3": 2, "highest": 6, "default": 1}.get(mxu_precision, 1),
     )
-    packs = [(*p, first_ptr(p[3])) for p in packs]
-    return _stacked(packs, device), GatherOp(M, mxu_precision, roofline)
+    arrays = _stacked(packs, device)
+    arrays += _row_views(*arrays[:3], arrays[4], M, TMo)
+    return arrays, GatherOp(M, mxu_precision, roofline)
 
 
 def _pack_dd_mxu(shards, max_m, device, *, max_panel_bytes=PANEL_CAP_BYTES):
@@ -1039,10 +1062,10 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
     to their bf16 hi/lo pair on upload (:func:`_pack_window`'s scheme
     ``"window_x3"``, bit for bit); for ``variant="ragged"`` the ragged
     pack's (step_g, step_first, starts, *panels, *spill), to which the step
-    ranges the CUDA kernels read are appended; for ``variant="gather"`` the
-    gather pack's (rel, cols, vals, first, blk), plus ``blk_ptr``, its
-    output rows and operating point read from ``roofline`` (G blocks of TM
-    rows, passes); for ``variant="dd_mxu"`` the dd_mxu pack's (step_g,
+    ranges the CUDA kernels read are appended (and, for the fused spill,
+    its row-ordered view); for ``variant="gather"`` the gather pack's (rel,
+    cols, vals, first, blk), plus the row-ordered view, its output rows and operating point read from ``roofline`` (G blocks
+    of TM rows, passes); for ``variant="dd_mxu"`` the dd_mxu pack's (step_g,
     step_first, starts, mu, slices), whose fp64 panels are rebuilt as
     ``mu * sum_p slice_p * 2**(-7 (p + 1))`` (exact in fp64: 7 slices of 7
     bits and a power-of-two scale).  One pack then feeds both packages.
@@ -1060,20 +1083,25 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
                 RaggedOp("dd", int(min_b_rows), "none", "highest", roofline))
     tensors = tuple(_tensor_from_jax(x).to(device) for x in arrays)
     if variant == "gather":
-        blk_ptr = _ptrs(arrays[3], device)
         prec = {2: "x3", 6: "highest", 1: "default"}[roofline["passes"]]
-        return (*tensors, blk_ptr), GatherOp(roofline["G"] * roofline["TM"], prec,
-                                             roofline)
+        M = roofline["G"] * roofline["TM"]
+        view = _row_views(*tensors[:3], tensors[4], M, roofline["TM"])
+        return (*tensors, *view), GatherOp(M, prec, roofline)
     if variant == "ragged":
         bf = [t.dtype == torch.bfloat16 for t in tensors[3:5]]
         scheme = "x3" if all(bf) and len(bf) == 2 else ("bf16" if bf[0] else "full")
         n_sp = len(tensors) - 3 - (2 if scheme == "x3" else 1)
         spill_impl = {0: "none", 3: "segsum", 5: "pallas"}[n_sp]
         tensors += (_ptrs(arrays[1], device),)
-        if spill_impl == "pallas":
-            tensors += (_ptrs(arrays[-2], device),)
+        TMo = 0
+        if spill_impl == "pallas":  # every output block has a first step
+            M = roofline["G"] * roofline["TM"]
+            TMo = M // int(np.asarray(arrays[-2])[0].sum())
+            rel, cols, vals, _, blk = tensors[-6:-1]
+            tensors += _row_views(rel, cols, vals, blk, M, TMo)
         prec = {3: "x3", 6: "highest", 1: "default"}[roofline["passes"]]
-        return tensors, RaggedOp(scheme, int(min_b_rows), spill_impl, prec, roofline)
+        return tensors, RaggedOp(scheme, int(min_b_rows), spill_impl, prec, roofline,
+                                 TMo)
     if len(tensors) == 2:  # (ws, tiles): no super-group plan
         prec = {3: "x3", 6: "highest", 1: "default"}[roofline["passes"]]
         ws, tiles = tensors

@@ -34,13 +34,14 @@ the spill and one for the gather kind:
     tensor-core products (the 3xTF32 body of the windowed kernels, walking
     each group's chunks), fp64 by FMA (``csrc/ragged.cu``);
   * :func:`spmm_spill` — C plus the spilled nonzeros, fp32
-    (``csrc/spill.cu``);
-  * :func:`spmm_gather` — the same block body with no C, fp32
+    (``csrc/spill.cu``), on a row-ordered view of the pack
+    (:func:`spill_row_view`, built at init) in a fixed sum order;
+  * :func:`spmm_gather` — the same row body with no C, fp32
     (``csrc/spill.cu``).  The JAX wrapper ``spmm_gather_chunked`` splits
     its steps into chunks under ``CRP_TPU_GATHER_GB`` because XLA
     materializes ``take(b, cols)`` as a (steps * Q, n) stream; the CUDA
     kernel reads ``B[cols[q]]`` itself, so nothing is materialized and
-    one launch takes every step.
+    one launch takes every row.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
@@ -64,6 +65,15 @@ from .spmm_pallas import (
 PANEL_CAP_BYTES = 8 << 30         # CRP_TPU_RAGGED_PANEL_GB = 8
 RAGGED_TM, RAGGED_WC = 128, 512   # CRP_TPU_RAGGED_TM / _WC
 SPILL_TMO, SPILL_Q = 512, 512     # CRP_TPU_SPILL_TMO / _Q
+# the most slots of one row that one warp of the spill and gather kernels
+# takes (an item of spill_row_view); a longer row is split into items whose
+# partials are added in item order
+ROW_ITEM_SLOTS = 256
+# the most rows with no slot that one item of spill_row_view covers (their
+# C rows copied, or zeros written, a few at a time)
+ROW_RUN = 16
+# the columns of one unit of work of those kernels (spill.cu RW_TILE)
+ROW_TILE = 128
 # rates of the geometry model (CRP_PROJ_HBM_GBPS / _SPILL_NS / _MXU_TFLOPS):
 # measured on the TPU and kept so the port picks the JAX package's geometry
 HBM_BYTES_PER_S = 623e9
@@ -543,6 +553,123 @@ def pack_gather_blocks(
     return rel[:, None, :], cols, vals, first, blk
 
 
+# ---------------------------------------------------- the row-ordered view
+
+
+def spill_row_view(rel, cols, vals, blk, M: int, TMo: int, L: int = ROW_ITEM_SLOTS,
+                   run: int = ROW_RUN):
+    """The row-ordered view of one shard's block-step pack (the fused
+    spill's or the gather kind's), which the spill and gather kernels read
+    in its place; built with torch ops on the pack's device.
+
+    The live slots (``rel < TMo``; pad slots never appear) go to output row
+    ``blk * TMo + rel``, stably sorted by row, so that within a row they
+    keep the pack's order.  Returns ``(vcols (Z,) int32, vvals (Z,) fp32,
+    items (I + 1, 4) int32, parts (P,) int32)``.  Item i is ``(row, first
+    slot, part, part0)`` and holds the slots ``[items[i, 1], items[i + 1,
+    1])``, at most ``L``, all of ``row``; the items are in row order and
+    cover the ``M`` rows once: a row with slots has one item (``part`` and
+    ``part0`` -1) or several, which number their partials ``part0, part0 +
+    1, ...`` (``part`` the item's own); rows with no slot come in runs of
+    at most ``run``, an item with no slot for the ``-part0`` rows from
+    ``row`` on (``part`` -1).  The last item is a sentinel ``(-1, Z, -1,
+    -1)``.  ``parts[p]`` is how many partials the row of partial p has."""
+    dev = cols.device
+    r = rel.reshape(cols.shape)
+    live = r < TMo
+    key = (blk.long()[:, None] * TMo + r.long())[live]
+    key, order = torch.sort(key, stable=True)
+    vcols = cols[live][order].to(torch.int32).contiguous()
+    vvals = vals[live][order].to(torch.float32).contiguous()
+    Z = key.numel()
+    cnt = torch.bincount(key, minlength=M)[:M]
+    row_ptr = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(cnt, 0, out=row_ptr[1:])
+    # runs of rows with no slot: a run starts where a row with none follows
+    # one with slots (or row 0), and again every `run` rows
+    rows = torch.arange(M, device=dev)
+    empty = cnt == 0
+    starts = empty & ~torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), empty[:-1]])
+    seg = (torch.cumsum(starts.long(), 0) - 1).clamp(min=0)  # rows with slots: any
+    pad = torch.zeros(1, dtype=torch.int64, device=dev)  # where no row is empty
+    seg_first = torch.cat([rows[starts], pad])
+    seg_end = seg_first + torch.bincount(seg[empty], minlength=seg_first.numel())
+    head = empty & ((rows - seg_first[seg]) % run == 0)
+    run_len = torch.clamp(seg_end[seg] - rows, max=run)
+    n_items = torch.where(empty, head.long(), (cnt + L - 1) // L)
+    item0 = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(n_items, 0, out=item0[1:])
+    row = torch.repeat_interleave(rows, n_items)
+    rank = torch.arange(row.numel(), device=dev) - item0[row]
+    first = row_ptr[row] + rank * L
+    hub = n_items[row] > 1
+    part = torch.where(hub, torch.cumsum(hub.long(), 0) - 1, -1)
+    part0 = torch.where(hub, part - rank, torch.where(empty[row], -run_len[row], -1))
+    items = torch.stack([row, first, part, part0], 1)
+    sentinel = torch.tensor([[-1, Z, -1, -1]], dtype=torch.int64, device=dev)
+    items = torch.cat([items, sentinel]).to(torch.int32).contiguous()
+    parts = n_items[row[hub]].to(torch.int32).contiguous()
+    return vcols, vvals, items, parts
+
+
+def stack_row_views(views) -> tuple:
+    """Per-shard views of :func:`spill_row_view` with a leading shard axis,
+    each padded to the longest: slots with column 0 and value 0 (no item
+    reaches them), items that repeat the shard's sentinel (row -1, no
+    slot), partials of count 1 (none is referenced)."""
+    if len(views) == 1:
+        return tuple(x[None] for x in views[0])
+    out = []
+    for k, fill in enumerate((0, 0.0, None, 1)):
+        size = max(v[k].shape[0] for v in views)
+        rows = []
+        for v in views:
+            x = v[k]
+            if fill is None:  # items: the sentinel row repeated
+                pad = x[-1:].expand(size - x.shape[0], 4)
+            else:
+                pad = torch.full((size - x.shape[0],), fill, dtype=x.dtype, device=x.device)
+            rows.append(torch.cat([x, pad]))
+        out.append(torch.stack(rows).contiguous())
+    return tuple(out)
+
+
+def spill_rows_ordered(c, view, b, M: int, mxu_precision: str = "highest"):
+    """The spill (``c`` given) or the gather (``c`` None) summed in the
+    order of the CUDA kernels, on any device, bit for bit their result:
+    each item's partial is ``0 + contrib(first slot) + contrib(next) +
+    ...`` in fp32; a row of one item is ``C + partial`` (the gather: the
+    partial), a row of several ``C + (0 + p0 + p1 + ...)``, its partials in
+    item order; a row with no slot C itself (the gather: zero)."""
+    vcols, vvals, items, parts = view
+    n = b.shape[1]
+    it = items.long()
+    row, first, part, part0 = it[:-1].unbind(1)
+    length = it[1:, 1] - first
+    real = row >= 0
+    acc = torch.zeros((row.numel(), n), dtype=torch.float32, device=b.device)
+    for k in range(int(length.max()) if length.numel() else 0):
+        sel = torch.nonzero(length > k).squeeze(1)
+        q = first[sel] + k
+        acc[sel] = acc[sel] + spill_contrib(vvals[q], b[vcols[q].long()], mxu_precision)
+    out = (c.clone() if c is not None
+           else torch.zeros((M, n), dtype=torch.float32, device=b.device))
+    one = torch.nonzero(real & (part < 0) & (length > 0)).squeeze(1)
+    if c is not None:
+        out[row[one]] = out[row[one]] + acc[one]
+    else:
+        out[row[one]] = acc[one]
+    heads = torch.nonzero(real & (part >= 0) & (part == part0)).squeeze(1)
+    if heads.numel():
+        np_ = parts.long()[part0[heads]]
+        tot = torch.zeros((heads.numel(), n), dtype=torch.float32, device=b.device)
+        for q in range(int(np_.max())):
+            sel = torch.nonzero(np_ > q).squeeze(1)
+            tot[sel] = tot[sel] + acc[heads[sel] + q]
+        rows = row[heads]
+        out[rows] = (out[rows] + tot) if c is not None else tot
+    return out
+
 
 # ------------------------------------------------------------ plain versions
 
@@ -580,13 +707,16 @@ def spill_contrib(vals, brows, mxu_precision):
     return cb
 
 
-def spmm_spill_plain(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision="highest"):
+def spmm_spill_plain(c, rel, cols, vals, blk, TMo, b, mxu_precision="highest",
+                     view=None):
     """C plus the spilled nonzeros in plain PyTorch: every live slot
     (``rel < TMo``) adds its rounded ``val * B[col]`` to row
-    ``blk * TMo + rel`` of a copy of ``c``, in bounded blocks of steps."""
-    M, n = c.shape
+    ``blk * TMo + rel`` of a copy of ``c``, in bounded blocks of steps, by
+    ``index_add_``, whose order of adds is its own: the kernel is held to
+    it at 1e-6 relative Frobenius, and to :func:`spill_rows_ordered` bit
+    for bit.  ``view`` (the kernel's) is not read."""
+    n = c.shape[1]
     ns, _, Q = rel.shape
-    TMo = M // (blk_ptr.shape[0] - 1)
     out = c.clone()
     step = max(1, PLAIN_BLOCK_BYTES // max(1, Q * n * 4))
     for s0 in range(0, ns, step):
@@ -601,11 +731,12 @@ def spmm_spill_plain(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision="highest
     return out
 
 
-def spmm_gather_plain(rel, cols, vals, blk, blk_ptr, b, M, mxu_precision="highest"):
+def spmm_gather_plain(rel, cols, vals, blk, TMo, b, M, mxu_precision="highest",
+                      view=None):
     """Every packed nonzero as an (M, n) fp32 product in plain PyTorch:
     :func:`spmm_spill_plain` onto a zero C."""
     c = torch.zeros((M, b.shape[1]), dtype=torch.float32, device=b.device)
-    return spmm_spill_plain(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision)
+    return spmm_spill_plain(c, rel, cols, vals, blk, TMo, b, mxu_precision)
 
 
 def spmm_spill_chunked(rows, cols, vals, b, nrow: int):
@@ -742,16 +873,15 @@ spmm_ragged.launches = 0
 SPILL_MODES = {"highest": 0, "x3": 1, "default": 2}
 
 
-def _check_block_args(name, M, rel, cols, vals, blk, blk_ptr, b, c=None):
-    """Validate the block-step arrays of the spill and gather kernels;
-    returns (nblk, TMo, Q, n)."""
+def _check_block_args(name, M, TMo, rel, cols, vals, blk, b, c=None):
+    """Validate the block-step pack that the spill and gather wrappers take
+    (their plain versions read it, their kernels its view), B and C;
+    returns the pack's slot count."""
     n = b.shape[1]
     ns, _, Q = rel.shape
-    nblk = blk_ptr.shape[0] - 1
     checks = [
         (rel, "rel", (ns, 1, Q), torch.int32), (cols, "cols", (ns, Q), torch.int32),
         (vals, "vals", (ns, Q), torch.float32), (blk, "blk", (ns,), torch.int32),
-        (blk_ptr, "blk_ptr", (nblk + 1,), torch.int32),
         (b, "b", (b.shape[0], n), torch.float32),
     ]
     if c is not None:
@@ -760,32 +890,77 @@ def _check_block_args(name, M, rel, cols, vals, blk, blk_ptr, b, c=None):
         if arr.dtype != dt or tuple(arr.shape) != shape or not arr.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous {dt} of shape "
                              f"{shape}; got {arr.dtype} {tuple(arr.shape)}")
-    if nblk < 1 or M % nblk or M // nblk > 1024:
-        raise ValueError(f"{name}: M={M} is not {nblk} blocks of at most 1024 rows")
-    return nblk, M // nblk, Q, n
+    if TMo < 1 or M % TMo:
+        raise ValueError(f"{name}: M={M} is not a whole number of {TMo}-row blocks")
+    return ns * Q
 
 
-def spmm_spill(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision="highest"):
+def _check_view(name, view, M, slots):
+    """Validate the row-ordered view (:func:`spill_row_view`) the spill and
+    gather kernels read against the pack of ``slots`` slots it was built
+    from; returns (item count, partial count).  Its contents are not read
+    back from the card: the kernel skips an item whose row is not below M,
+    and stops a run of rows at M."""
+    if view is None or len(view) != 4:
+        raise ValueError(f"{name}: on the card it reads the pack's row-ordered "
+                         f"view (spill_row_view), which was not given")
+    vcols, vvals, items, parts = view
+    z = vcols.shape[0] if vcols.dim() == 1 else -1
+    checks = ((vcols, "vcols", (z,), torch.int32), (vvals, "vvals", (z,), torch.float32),
+              (items, "items", (items.shape[0], 4), torch.int32),
+              (parts, "parts", (parts.shape[0],), torch.int32))
+    for arr, label, shape, dt in checks:
+        if arr.dtype != dt or tuple(arr.shape) != shape or not arr.is_contiguous():
+            raise ValueError(f"{name}: view {label} must be contiguous {dt} of shape "
+                             f"{shape}; got {arr.dtype} {tuple(arr.shape)}")
+    if z > slots:
+        raise ValueError(f"{name}: the view has {z} slots, its pack only {slots}")
+    if items.shape[0] - 1 < -(-M // ROW_RUN):
+        raise ValueError(f"{name}: the view has {items.shape[0] - 1} items for {M} "
+                         f"rows; an item covers at most {ROW_RUN}")
+    if items.data_ptr() % 16:
+        raise ValueError(f"{name}: view items must start on 16 bytes")
+    return items.shape[0] - 1, parts.shape[0]
+
+
+def _rows(name, entry, c, view, b, M, slots, mode):
+    """Launch ``entry`` on the view of a pack of ``slots`` slots; returns
+    the new (M, n) output."""
+    n_items, P = _check_view(name, view, M, slots)
+    n = b.shape[1]
+    vcols, vvals, items, parts = view
+    out = torch.empty((M, n), dtype=torch.float32, device=b.device)
+    work = torch.empty((P, n), dtype=torch.float32, device=b.device)
+    # one arrival count a hub row and column tile, zero at every launch
+    counters = torch.zeros(P * -(-n // ROW_TILE), dtype=torch.int32, device=b.device)
+    c_ptr = () if c is None else (c.data_ptr(),)
+    _launch(
+        entry,
+        (vcols.data_ptr(), vvals.data_ptr(), items.data_ptr(), parts.data_ptr(), *c_ptr,
+         b.data_ptr(), out.data_ptr(), work.data_ptr(), counters.data_ptr()),
+        (n_items, M, n, mode), b.device,
+    )
+    return out
+
+
+def spmm_spill(c, rel, cols, vals, blk, TMo, b, mxu_precision="highest", view=None):
     """C plus the spilled nonzeros, fp32: for each TMo-row output block and
     its consecutive steps, ``C[blk*TMo + rel[q]] += vals[q] * B[cols[q]]``
     over the live slots (``rel < TMo``), rounded as at ``mxu_precision``.
-    Returns a new (M, n) tensor.  The kernel's sum order within a row varies
-    from run to run (shared-memory atomics).  Replaces ``spmm_spill_pallas``
-    (``spmm_ragged.py:1107``, kernel ``_spill_block_kernel`` ``:1047``)."""
+    Returns a new (M, n) tensor.  On the card the kernel reads the pack's
+    row-ordered ``view`` (:func:`spill_row_view`, required there) and sums
+    in a fixed order, the same at every launch (:func:`spill_rows_ordered`
+    emulates it).  Replaces ``spmm_spill_pallas`` (``spmm_ragged.py:1107``,
+    kernel ``_spill_block_kernel`` ``:1047``)."""
     name = "spmm_spill"
     if mxu_precision not in SPILL_MODES:
         raise ValueError(f"{name}: unknown mxu_precision {mxu_precision!r}")
-    if _placement(name, c, rel, cols, vals, blk, blk_ptr, b) == "cpu":
-        return spmm_spill_plain(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision)
-    nblk, TMo, Q, n = _check_block_args(name, c.shape[0], rel, cols, vals, blk,
-                                        blk_ptr, b, c)
-    out = torch.empty_like(c)
-    _launch(
-        "crp_spill_blocks",
-        (rel.data_ptr(), cols.data_ptr(), vals.data_ptr(), blk_ptr.data_ptr(),
-         c.data_ptr(), b.data_ptr(), out.data_ptr()),
-        (nblk, TMo, Q, n, SPILL_MODES[mxu_precision]), b.device,
-    )
+    view_t = tuple(view) if view is not None else ()
+    if _placement(name, c, rel, cols, vals, blk, b, *view_t) == "cpu":
+        return spmm_spill_plain(c, rel, cols, vals, blk, TMo, b, mxu_precision)
+    slots = _check_block_args(name, c.shape[0], TMo, rel, cols, vals, blk, b, c)
+    out = _rows(name, "crp_spill_blocks", c, view, b, c.shape[0], slots,
+                SPILL_MODES[mxu_precision])
     spmm_spill.launches += 1
     return out
 
@@ -793,27 +968,23 @@ def spmm_spill(c, rel, cols, vals, blk, blk_ptr, b, mxu_precision="highest"):
 spmm_spill.launches = 0
 
 
-def spmm_gather(rel, cols, vals, blk, blk_ptr, b, M, mxu_precision="highest"):
+def spmm_gather(rel, cols, vals, blk, TMo, b, M, mxu_precision="highest", view=None):
     """Every packed nonzero as a new (M, n) fp32 product: for each TMo-row
     output block, ``C[blk*TMo + rel[q]] = sum of vals[q] * B[cols[q]]`` over
-    its live slots, rounded as at ``mxu_precision``; a block with no live
-    slot comes out zero.  The spill kernel with no C operand; its sum order
-    within a row varies from run to run.  Replaces ``spmm_gather_chunked``
-    (``spmm_ragged.py:1254``, kernel ``_spill_block_kernel`` ``:1047`` with
-    ``has_c=False``)."""
+    its live slots, rounded as at ``mxu_precision``; a row with no live slot
+    comes out zero.  The spill kernel with no C operand, on the pack's
+    row-ordered ``view`` (required on the card), in the same fixed order.
+    Replaces ``spmm_gather_chunked`` (``spmm_ragged.py:1254``, kernel
+    ``_spill_block_kernel`` ``:1047`` with ``has_c=False``)."""
     name = "spmm_gather"
     if mxu_precision not in SPILL_MODES:
         raise ValueError(f"{name}: unknown mxu_precision {mxu_precision!r}")
-    if _placement(name, rel, cols, vals, blk, blk_ptr, b) == "cpu":
-        return spmm_gather_plain(rel, cols, vals, blk, blk_ptr, b, M, mxu_precision)
-    nblk, TMo, Q, n = _check_block_args(name, M, rel, cols, vals, blk, blk_ptr, b)
-    out = torch.empty((M, n), dtype=torch.float32, device=b.device)
-    _launch(
-        "crp_gather_blocks",
-        (rel.data_ptr(), cols.data_ptr(), vals.data_ptr(), blk_ptr.data_ptr(),
-         b.data_ptr(), out.data_ptr()),
-        (nblk, TMo, Q, n, SPILL_MODES[mxu_precision]), b.device,
-    )
+    view_t = tuple(view) if view is not None else ()
+    if _placement(name, rel, cols, vals, blk, b, *view_t) == "cpu":
+        return spmm_gather_plain(rel, cols, vals, blk, TMo, b, M, mxu_precision)
+    slots = _check_block_args(name, M, TMo, rel, cols, vals, blk, b)
+    out = _rows(name, "crp_gather_blocks", None, view, b, M, slots,
+                SPILL_MODES[mxu_precision])
     spmm_gather.launches += 1
     return out
 

@@ -219,26 +219,116 @@ def _spill_case(rng, M, TMo, Q, z, ncol):
                                          np.float32, TMo=TMo, Q=Q)
 
 
+def _bits_equal(x, y):
+    return x.shape == y.shape and torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def _spill_b(rng, rows, n, off, dev):
+    """A random B with row 0 NaN (pad slots carry column 0: they must be
+    skipped), starting ``off`` elements into a NaN-framed buffer (an odd
+    ``off`` takes it off 16 bytes: the narrower loads)."""
+    b = rng.standard_normal((rows, n)).astype(np.float32)
+    b[0] = np.nan
+    return _nan_framed(torch.from_numpy(b).to(dev), off)
+
+
+# the spill and gather kernels' widths: odd n and n = 100 take narrower
+# loads; n = 512 walks two column tiles in every item
+SPILL_N = [16, 37, 48, 100, 256, 512]
+
+
 @pytest.mark.parametrize("TMo", [128, 256, 512])
 @pytest.mark.parametrize("prec", ["highest", "x3", "default"])
 def test_spill_kernel_matches_plain(cuda_device, prec, TMo):
+    """The spill kernel on a hand pack (dummy blocks, multi-step blocks)
+    through its row-ordered view, one item a row (L = 256) or a row in
+    several (L = 16): equal bit for bit to the emulation of its order and
+    to a second launch, within 1e-6 of the plain version (``index_add_``,
+    another order), dummy blocks C bit for bit, B row 0 NaN never read, at
+    every width and on an unaligned B."""
     rng = np.random.default_rng(TMo)
     M, Q, ncol = 4 * 512, 128, 700
-    rel, cols, vals, first, blk = _spill_case(rng, M, TMo, Q, 1500, ncol)
+    rel, cols, vals, _, blk = _spill_case(rng, M, TMo, Q, 1500, ncol)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)  # noqa: E731
-    blk_ptr = spmm_ragged.first_ptr(first)
-    for n in (16, 48, 100, 256):
-        b = rng.standard_normal((ncol, n)).astype(np.float32)
-        b[0] = np.nan  # pad slots point at column 0: they must be skipped
-        c = t(rng.standard_normal((M, n)).astype(np.float32))
-        args = (c, t(rel), t(cols), t(vals), t(blk), t(blk_ptr), t(b), prec)
-        before = spmm_ragged.spmm_spill.launches
-        k = spmm_ragged.spmm_spill(*args)
-        assert spmm_ragged.spmm_spill.launches == before + 1
-        p = spmm_ragged.spmm_spill_plain(*args)
-        assert bool(torch.isfinite(k).all())
-        assert float((k - p).double().norm() / p.double().norm()) <= 1e-6
-        assert torch.equal(k[3 * TMo:], c[3 * TMo:])  # dummy blocks pass C through
+    for L in (256, 16):
+        view = spmm_ragged.spill_row_view(t(rel), t(cols), t(vals), t(blk), M, TMo, L=L)
+        for n in SPILL_N:
+            for off in ((0, 1) if n in (48, 256) else (0,)):
+                b = _spill_b(rng, ncol, n, off, cuda_device)
+                c = t(rng.standard_normal((M, n)).astype(np.float32))
+                args = (c, t(rel), t(cols), t(vals), t(blk), TMo, b, prec, view)
+                before = spmm_ragged.spmm_spill.launches
+                k = spmm_ragged.spmm_spill(*args)
+                assert spmm_ragged.spmm_spill.launches == before + 1
+                assert _bits_equal(k, spmm_ragged.spmm_spill(*args))
+                assert _bits_equal(k, spmm_ragged.spill_rows_ordered(c, view, b, M, prec))
+                p = spmm_ragged.spmm_spill_plain(*args)
+                assert bool(torch.isfinite(k).all())
+                assert float((k - p).double().norm() / p.double().norm()) <= 1e-6
+                assert _bits_equal(k[3 * TMo:], c[3 * TMo:])  # dummy blocks: C
+
+
+def test_spill_rows_kernel_on_a_stacked_view(cuda_device):
+    """Two shards' views stacked, a hub row of several items in the last
+    block of the first shard right before its pad items: each shard's
+    launch equals the emulation of its order bit for bit, spill and
+    gather."""
+    rng = np.random.default_rng(3)
+    TMo, Q, ncol, M = 128, 128, 500, 4 * 128
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)  # noqa: E731
+    views, packs = [], []
+    for z, hub in ((300, 200), (60, 0)):
+        rows = np.sort(np.r_[rng.integers(0, M, z), np.full(hub, M - 1)]).astype(np.int32)
+        cols = rng.integers(1, ncol, rows.size).astype(np.int32)
+        vals = rng.standard_normal(rows.size).astype(np.float32)
+        counts = np.bincount(rows // TMo, minlength=M // TMo)
+        ns = int(np.maximum(-(-counts // Q), 1).sum())
+        rel, pc, pv, _, blk = spmm_ragged.pack_spill_blocks(
+            (rows, cols, vals), ns, M, np.float32, TMo=TMo, Q=Q)
+        packs.append(tuple(t(x) for x in (rel, pc, pv, blk)))
+        views.append(spmm_ragged.spill_row_view(*packs[-1], M, TMo, L=16))
+    stacked = spmm_ragged.stack_row_views(views)
+    assert stacked[2].shape[1] > views[1][2].shape[0]  # shard 1 is padded
+    for prec in ("highest", "x3", "default"):
+        for i, (rel, cols, vals, blk) in enumerate(packs):
+            view = tuple(x[i] for x in stacked)
+            for n in (37, 256):
+                b = _spill_b(rng, ncol, n, 0, cuda_device)
+                c = t(rng.standard_normal((M, n)).astype(np.float32))
+                k = spmm_ragged.spmm_spill(c, rel, cols, vals, blk, TMo, b, prec, view)
+                assert _bits_equal(k, spmm_ragged.spill_rows_ordered(c, view, b, M, prec))
+                g = spmm_ragged.spmm_gather(rel, cols, vals, blk, TMo, b, M, prec, view)
+                assert _bits_equal(g, spmm_ragged.spill_rows_ordered(None, view, b, M,
+                                                                     prec))
+
+
+def test_spill_wrappers_raise_on_a_bad_view(cuda_device):
+    """On the card the spill and gather wrappers need the view: without it,
+    or with a wrong one (items cut short, more slots than its pack), they
+    raise (never the plain version)."""
+    rng = np.random.default_rng(1)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)  # noqa: E731
+    M = 4 * 512
+    rel, cols, vals, _, blk = _spill_case(rng, M, 512, 128, 300, 700)
+    pack = (t(rel), t(cols), t(vals), t(blk), 512)
+    view = spmm_ragged.spill_row_view(*pack[:4], M, 512)
+    big = torch.zeros(rel.size + 1, dtype=torch.int32, device=cuda_device)
+    b = t(rng.standard_normal((700, 32)).astype(np.float32))
+    c = t(rng.standard_normal((M, 32)).astype(np.float32))
+    before = (spmm_ragged.spmm_spill.launches, spmm_ragged.spmm_gather.launches)
+    with pytest.raises(ValueError, match="view"):
+        spmm_ragged.spmm_spill(c, *pack, b, "x3")
+    with pytest.raises(ValueError, match="view"):
+        spmm_ragged.spmm_gather(*pack, b, M, "x3")
+    with pytest.raises(ValueError, match="items"):
+        spmm_ragged.spmm_spill(c, *pack, b, "x3", (*view[:2], view[2][:, :3].contiguous(),
+                                                  view[3]))
+    with pytest.raises(ValueError, match="items for"):  # the sentinel alone
+        spmm_ragged.spmm_gather(*pack, b, M, "x3", (*view[:2], view[2][-1:].contiguous(),
+                                                     view[3]))
+    with pytest.raises(ValueError, match="slots"):
+        spmm_ragged.spmm_gather(*pack, b, M, "x3", (big, big.float(), *view[2:]))
+    assert (spmm_ragged.spmm_spill.launches, spmm_ragged.spmm_gather.launches) == before
 
 
 @pytest.mark.parametrize("prec", ["x3", "default", "highest"])
@@ -287,26 +377,30 @@ def _without_column_0(a):
 @pytest.mark.parametrize("prec", ["highest", "x3", "default"])
 def test_gather_kernel_matches_plain(cuda_device, prec):
     """Scrambled power-law pack with trailing blocks that hold no nonzero:
-    pad slots are skipped (B row 0 is NaN), empty blocks come out zero, and
-    the kernel agrees with its plain version to 1e-6 relative Frobenius
-    (the same rounded products summed in another order)."""
+    pad slots are skipped (B row 0 is NaN), empty blocks come out zero, the
+    kernel equals the emulation of its order and a second launch bit for
+    bit, and agrees with its plain version to 1e-6 relative Frobenius (the
+    same rounded products summed in another order), at every width and on
+    an unaligned B."""
     a = _without_column_0(powerlaw_community_csr(20000, 16, 1024, seed=13,
                                                  permute=True, dtype=np.float32))
     arrays, op = _pack_gather([(a.rowptr, a.colidx.astype(np.int32), a.val)],
                               a.nrow + 700, np.float32, prec, cuda_device)
     arrs = tuple(x[0] for x in arrays)
     rng = np.random.default_rng(5)
-    for n in (16, 48, 100, 256):
-        b = rng.standard_normal((a.ncol, n)).astype(np.float32)
-        b[0] = np.nan
-        args = op.kernel_args(arrs, torch.from_numpy(b).to(cuda_device))
-        before = spmm_ragged.spmm_gather.launches
-        k = op.kernel(*args)
-        assert spmm_ragged.spmm_gather.launches == before + 1
-        p = op.plain(*args)
-        assert k.shape == p.shape == (op.M, n) and bool(torch.isfinite(k).all())
-        assert float((k - p).double().norm() / p.double().norm()) <= 1e-6
-        assert not torch.any(k[a.nrow:])  # blocks with no nonzero are zero
+    for n in SPILL_N:
+        for off in ((0, 1) if n in (48, 256) else (0,)):
+            args = op.kernel_args(arrs, _spill_b(rng, a.ncol, n, off, cuda_device))
+            before = spmm_ragged.spmm_gather.launches
+            k = op.kernel(*args)
+            assert spmm_ragged.spmm_gather.launches == before + 1
+            assert _bits_equal(k, op.kernel(*args))
+            assert _bits_equal(k, spmm_ragged.spill_rows_ordered(None, args[-1], args[5],
+                                                                 op.M, prec))
+            p = op.plain(*args)
+            assert k.shape == p.shape == (op.M, n) and bool(torch.isfinite(k).all())
+            assert float((k - p).double().norm() / p.double().norm()) <= 1e-6
+            assert not torch.any(k[a.nrow:])  # blocks with no nonzero are zero
 
 
 @pytest.mark.parametrize("prec", ["x3", "default", "highest"])

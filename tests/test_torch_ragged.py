@@ -206,7 +206,8 @@ def test_stacking_and_uniform_estimate_match():
 
 
 def _assert_same_ragged_pack(j_arrays, j_fn, t_arrays, op):
-    n_extra = 2 if op.spill_impl == "pallas" else 1
+    # group_ptr; for the fused spill its row-ordered view (4)
+    n_extra = 5 if op.spill_impl == "pallas" else 1
     assert len(t_arrays) == len(j_arrays) + n_extra
     for t, j in zip(t_arrays, j_arrays):
         tb, jb = _bits(t), _bits(j)
@@ -214,9 +215,9 @@ def _assert_same_ragged_pack(j_arrays, j_fn, t_arrays, op):
         np.testing.assert_array_equal(tb, jb)
     np.testing.assert_array_equal(t_arrays[len(j_arrays)][0].numpy(),
                                   ts.first_ptr(np.asarray(j_arrays[1][0])))
-    if n_extra == 2:
-        np.testing.assert_array_equal(t_arrays[-1][0].numpy(),
-                                      ts.first_ptr(np.asarray(j_arrays[-2][0])))
+    if n_extra == 5:  # the spill's TMo: one first step a block
+        M = op.roofline["G"] * op.roofline["TM"]
+        assert op.spill_tmo == M // int(np.asarray(j_arrays[-2][0]).sum())
     assert op.min_b_rows == j_fn.min_b_rows
     assert op.roofline == j_fn.roofline
     assert op.variant == j_fn.variant == "ragged"
@@ -276,7 +277,7 @@ def test_multi_shard_ragged_pack_matches_jax(no_knobs, prec, dtype, spill, p):
     t_arrays, op = td._pack_ragged(shards, max_m, dtype, prec, CPU,
                                    geometry=(128, 256), min_chunk_nnz=120,
                                    spill_impl=spill)
-    n_extra = 2 if op.spill_impl == "pallas" else 1
+    n_extra = 5 if op.spill_impl == "pallas" else 1  # + the spill's view
     assert len(t_arrays) == len(j_arrays) + n_extra
     for t, j in zip(t_arrays, j_arrays):
         tb, jb = _bits(t), _bits(j)
@@ -284,13 +285,15 @@ def test_multi_shard_ragged_pack_matches_jax(no_knobs, prec, dtype, spill, p):
         np.testing.assert_array_equal(tb, jb)
     assert (op.min_b_rows, op.roofline) == (j_fn.min_b_rows, j_fn.roofline)
     S = j_arrays[0].shape[1]
-    firsts = [np.asarray(j_arrays[1])] + ([np.asarray(j_arrays[-2])] if n_extra == 2 else [])
-    for ptr, first in zip(t_arrays[len(j_arrays):], firsts):
-        for i in range(p):
-            want = ts.first_ptr(first[i])
-            got = ptr[i].numpy()
-            np.testing.assert_array_equal(got[:-1], want[:-1])
-            assert got[-2] < got[-1] <= want[-1]
+    if n_extra == 5:  # the spill's TMo: one first step a block, in every shard
+        M = op.roofline["G"] * op.roofline["TM"]
+        assert {M // int(f.sum()) for f in np.asarray(j_arrays[-2])} == {op.spill_tmo}
+    first = np.asarray(j_arrays[1])
+    for i in range(p):
+        want = ts.first_ptr(first[i])
+        got = t_arrays[len(j_arrays)][i].numpy()
+        np.testing.assert_array_equal(got[:-1], want[:-1])
+        assert got[-2] < got[-1] <= want[-1]
     ends = t_arrays[len(j_arrays)][:, -1].numpy()
     for i in range(p):  # no-op steps past a shard's own: zero panels
         assert not np.any(_bits(t_arrays[3])[i, ends[i]:])
@@ -478,8 +481,8 @@ def test_spill_plain_matches_pallas(prec, TMo, Q):
     want = np.asarray(js.spmm_spill_pallas(jnp.asarray(c0), rel, pc, pv, first, blk,
                                            jnp.asarray(b), TMo=TMo, Q=Q,
                                            mxu_precision=prec, interpret=True))
-    got = ts.spmm_spill(_t(c0), _t(rel), _t(pc), _t(pv), _t(blk),
-                        _t(ts.first_ptr(first)), _t(b), prec).numpy()
+    got = ts.spmm_spill(_t(c0), _t(rel), _t(pc), _t(pv), _t(blk), TMo, _t(b),
+                        prec).numpy()
     np.testing.assert_array_equal(got[3 * TMo:], c0[3 * TMo:])
     assert rel_fro_err(want.astype(np.float64), got) <= 1e-6
 
