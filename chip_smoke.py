@@ -12,7 +12,9 @@ per SM, which must be 0 and at least 2) and of the wgmma body in each
 library that builds it (#1 with #5 and the one-pass #2, #4, #12, the
 ragged #7 with the one-pass #8: the same, which must be 0 and at least 1),
 the spill and gather kernels' resources (``[spill]``: registers, spills
-and blocks per SM of each, which must be 0 and at least 1) and then,
+and blocks per SM of each, which must be 0 and at least 1), #11's
+(``[dd]``: its ring, block tile, DMMA shape, and the same, which must be
+0 and at least 1) and then,
 failing on the first check
 that does not hold (every engine init prints its peak device memory; an
 x3 or default panel pack must peak within 1.2 x what it holds after):
@@ -57,7 +59,8 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    come out zero);
 6. dd phase — the FP64 tensor-core kernel against its plain version on
    small banded and power-law total covers, (TM, Wc) = (128, 512) and
-   (128, 256), with pad groups that must come out zero;
+   (128, 256), with pad groups that must come out zero, and equal bit for
+   bit to a second launch;
 7. scrambled-cplaw path — the same cplaw matrix with its vertex ids
    permuted (``permute=True``), through ``RowParaSpmm(kernel="auto")``:
    the ragged cover refuses and the walk must land on ``gather`` and launch
@@ -69,7 +72,9 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    3,402) on the FP64 tensor cores at <= 1e-12; on its pack the kernel
    against its plain version, the fp64 FMA ragged kernel and cuSPARSE in
    fp64; then the fp64 cplaw (segment-sum tier) and the pwtk-class
-   headline (ELL tier) with ``kernel="dd"`` at <= 1e-12;
+   headline (ELL tier) with ``kernel="dd"`` at <= 1e-12; on each of the
+   three, ``kernel="auto"`` in fp64 (the panel kernels' FMA entries) at <=
+   1e-12, its exec and kernel times beside ``dd``'s and cuSPARSE's;
 9. window phase — the non-super-grouped windowed kernel (#4) against its
    plain version at x3 (on the bf16 hi/lo pair, #1's wgmma body, and equal
    bit for bit to #1 on the same arrays), default, highest and fp64 on a
@@ -151,10 +156,11 @@ TOL_PLAIN_FRO = 1e-6
 # to the emulation of that order (spill_rows_ordered) and to a second
 # launch.
 TOL_RAGGED_FRO = {np.float32: 1e-6, np.float64: 1e-12}
-# the previous body of the spill and gather kernels (a block per output
-# block and 32 columns, shared-memory atomics) on the main paths, ms
-# (NVIDIA H100 80GB HBM3, 700 W): printed beside the times of this run
-PREVIOUS_MS = {"spmm_spill": 2.0822, "spmm_gather": 7.3080}
+# the previous bodies on the main paths, ms (NVIDIA H100 80GB HBM3, 700
+# W), printed beside the times of this run: the spill and gather kernels'
+# (a block per output block and 32 columns, shared-memory atomics) and
+# #11's (64 x 64 blocks of m8n8k4 DMMA, one shared-memory stage)
+PREVIOUS_MS = {"spmm_spill": 2.0822, "spmm_gather": 7.3080, "spmm_ragged_dd": 4.6211}
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): HBM3
 # bytes/s, and FLOP/s by the type the products run in
 HBM_BYTES_PER_S = 3.35e12
@@ -688,10 +694,11 @@ def main_path(eng, b, c_ref, tol, tag, timing=(5, 20)):
 def drive(a, b, c_ref, prec, device, tag, expect, kernel="auto",
           dtype=np.float32, tol=None, timing=(5, 20)):
     """One engine at ``prec`` through the user's entry point: resolve to
-    ``expect`` = (kind, variant), launch counts in the main-path exec (its
-    kernel must launch, where the op has one), error against the reference
-    (``tol``, default the point's class), exec time (``timing`` = reps,
-    inner calls)."""
+    ``expect`` = (kind, variant) (any, where None), launch counts in the
+    main-path exec (its kernel must launch, where the op has one), error
+    against the reference (``tol``, default the point's class), exec time
+    (``timing`` = reps, inner calls).  Returns (engine, op, B shards,
+    launches, exec ms)."""
     from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition
 
     tol = TOL_REF[prec] if tol is None else tol
@@ -706,16 +713,16 @@ def drive(a, b, c_ref, prec, device, tag, expect, kernel="auto",
         f"{json.dumps(eng.init_breakdown)}, kernel "
         f"{kernel_fn.__name__ if kernel_fn else 'none (plain PyTorch tier)'}, "
         f"roofline {json.dumps(getattr(op, 'roofline', {}))}")
-    check((eng.kernel_kind, op.variant) == expect,
+    check(expect is None or (eng.kernel_kind, op.variant) == expect,
           f"{tag} {prec}: resolved to {eng.kernel_kind!r}/{op.variant!r}, "
           f"expected {expect}")
     check_init_memory(f"{tag} {prec}", prec, eng, peak, held)
 
-    launches, _, _, bs = main_path(eng, b, c_ref, tol, f"{tag} {prec}", timing)
+    launches, _, exec_ms, bs = main_path(eng, b, c_ref, tol, f"{tag} {prec}", timing)
     if kernel_fn is not None:
         check(launches[kernel_fn.__name__] > 0,
               f"{tag} {prec}: {kernel_fn.__name__} was not launched")
-    return eng, op, bs, launches
+    return eng, op, bs, launches, exec_ms
 
 
 def record(name, launches, max_abs, kernel_ms, plain_ms, bound_ms, bound_by,
@@ -801,7 +808,7 @@ def headline(device) -> list:
         f"{t_setup:.2f} s")
     records = []
     for prec in PRECS:
-        eng, op, bs, launches = drive(a, b, c_ref, prec, device, "headline",
+        eng, op, bs, launches, _ = drive(a, b, c_ref, prec, device, "headline",
                                       ("pallas", "uniform"))
         check(launches["spmm_window_sg_presplit_ab"] == 0,
               f"headline {prec}: the engine launched spmm_window_sg_presplit_ab")
@@ -842,7 +849,7 @@ def cplaw_path(device) -> list:
 
     records, spill = [], dict(launches=0, max_abs=0.0)
     for prec in PRECS:
-        eng, op, bs, launches = drive(a, b, c_ref, prec, device, "cplaw",
+        eng, op, bs, launches, _ = drive(a, b, c_ref, prec, device, "cplaw",
                                       ("pallas", "ragged"))
         rl = op.roofline
         check(rl["spill_impl"] == "pallas", f"cplaw {prec}: spill_impl {rl['spill_impl']!r}")
@@ -970,9 +977,13 @@ def dd_phase(device) -> None:
                 rB = torch.from_numpy(padded_b(a, op.min_b_rows, n, np.float64)).to(device)
                 _, _, rel_fro = kernel_vs_plain(op, arrs, rB)
                 c = launch(op, op.kernel_args(arrs, rB))
+                c2 = launch(op, op.kernel_args(arrs, rB))
                 msg = (f"dd spmm_ragged_dd {label:7s} (TM, Wc)=({rl['TM']}, {rl['W']}) "
-                       f"S={rl['S']} n={n:3d}: rel fro err {rel_fro:.3e} (tol {TOL_DD:g})")
+                       f"S={rl['S']} n={n:3d}: rel fro err {rel_fro:.3e} (tol {TOL_DD:g}), "
+                       f"a second launch equal bit for bit")
                 check(rel_fro <= TOL_DD, msg)
+                check(torch.equal(c.view(torch.int64), c2.view(torch.int64)),
+                      f"dd {label} n={n}: two launches differ")
                 check(not bool(torch.any(c[a.nrow:])), f"dd {label}: pad rows not zero")
                 say(msg)
 
@@ -1007,7 +1018,7 @@ def scrambled_cplaw_path(device) -> list:
     del arrays
     rec = dict(launches=0, max_abs=0.0)
     for prec in PRECS:
-        eng, op, bs, launches = drive(a, b, c_ref, prec, device, "scrambled",
+        eng, op, bs, launches, _ = drive(a, b, c_ref, prec, device, "scrambled",
                                       ("gather", "gather"))
         arrs = tuple(x[0] for x in eng.packed)
         rB = eng.receive_buffer(bs)[0]
@@ -1031,6 +1042,30 @@ def scrambled_cplaw_path(device) -> list:
                    cus_ms)]
 
 
+def fp64_auto(a, b, c_ref, device, tag) -> dict:
+    """``RowParaSpmm(kernel="auto")`` in fp64 on one of the fp64 path's
+    matrices, within 1e-12: the port sends fp64 ``auto`` to the panel
+    kernels' fp64 FMA entries where the JAX package sends it to ``dd``.
+    Returns its kind, kernel, exec_device ms and kernel ms (against its
+    plain version at the main path)."""
+    eng, op, bs, _, exec_ms = drive(a, b, c_ref, "highest", device, f"{tag} auto", None,
+                                    dtype=np.float64, tol=TOL_DD, timing=(3, 5))
+    kernel_fn = getattr(op, "kernel", None)
+    got = dict(kind=f"{eng.kernel_kind}/{op.variant}",
+               kernel=kernel_fn.__name__ if kernel_fn else "none", exec_ms=exec_ms,
+               kernel_ms=None)
+    if kernel_fn is not None:
+        arrs = tuple(x[0] for x in eng.packed)
+        rB = eng.receive_buffer(bs)[0]
+        got["kernel_ms"] = time_kernel(op, arrs, rB, f"{tag} auto", "highest", csr_work(a),
+                                       plain_inner=2, tol=TOL_DD)[1]
+        del arrs, rB
+    del eng, op, bs
+    a.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+    return got
+
+
 def fp64_path(device) -> list:
     from crp_tpu_torch import banded_random_csr, fill_b, powerlaw_community_csr
     from crp_tpu_torch.kernels.spmm_ragged import spmm_ragged
@@ -1041,9 +1076,9 @@ def fp64_path(device) -> list:
     c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
     say(f"fp64 banded matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, host set-up "
         f"{time.perf_counter() - t0:.2f} s")
-    eng, op, bs, launches = drive(a, b, c_ref, "highest", device, "fp64 banded",
-                                  ("dd", "dd_mxu"), kernel="dd", dtype=np.float64,
-                                  tol=TOL_DD)
+    eng, op, bs, launches, exec_ms = drive(a, b, c_ref, "highest", device, "fp64 banded",
+                                           ("dd", "dd_mxu"), kernel="dd",
+                                           dtype=np.float64, tol=TOL_DD)
     check(op.roofline["S"] == DD_BAND_S,
           f"fp64 banded: S = {op.roofline['S']}, expected {DD_BAND_S}")
     arrs = tuple(x[0] for x in eng.packed)
@@ -1059,15 +1094,18 @@ def fp64_path(device) -> list:
                                 lambda: spmm_ragged(*args, min_b_rows=op.min_b_rows))
     gflop = 2.0 * op.roofline["S"] * op.roofline["TM"] * op.roofline["W"] * N / 1e9
     say(f"[fp64 banded] on one pack, in turns: spmm_ragged_dd (FP64 tensor cores) "
-        f"{dd_ms:.4f} ms ({s[0]:.4f}, {s[1]:.4f}), spmm_ragged fp64 FMA "
+        f"{dd_ms:.4f} ms ({s[0]:.4f}, {s[1]:.4f}; the previous body "
+        f"{PREVIOUS_MS['spmm_ragged_dd']:.4f}), spmm_ragged fp64 FMA "
         f"{fma_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}; rel fro err {fma_fro:.3e}); "
-        f"{gflop:.1f} GFLOP")
+        f"{gflop:.1f} GFLOP, {gflop / got[1]:.2f} TFLOP/s")
     records = [record("spmm_ragged_dd", launches["spmm_ragged_dd"], *got)]
     del eng, op, bs, arrs, rB, args
     a.__dict__.pop("_torch_pack_cache", None)
     torch.cuda.empty_cache()
     records[0]["library_ms"] = cusparse_yardstick(a, b, c_ref, device,
                                                   "fp64 banded cusparse")
+    dd = {"fp64 banded": ("dd_mxu", exec_ms, got[1], records[0]["library_ms"])}
+    auto = {"fp64 banded": fp64_auto(a, b, c_ref, device, "fp64 banded")}
 
     # the dd kind's other tiers: the dd_mxu cover refuses both matrices
     for tag, gen, tier in (
@@ -1081,13 +1119,25 @@ def fp64_path(device) -> list:
         c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
         say(f"{tag} matrix: {a.nrow} rows, {a.nnz} nnz, host set-up "
             f"{time.perf_counter() - t0:.2f} s")
-        eng, _, _, _ = drive(a, b, c_ref, "highest", device, tag, ("dd", tier),
-                             kernel="dd", dtype=np.float64, tol=TOL_DD,
-                             timing=(3, 2))
+        eng, _, _, _, exec_ms = drive(a, b, c_ref, "highest", device, tag, ("dd", tier),
+                                      kernel="dd", dtype=np.float64, tol=TOL_DD,
+                                      timing=(3, 2))
         del eng
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
-        cusparse_yardstick(a, b, c_ref, device, f"{tag} cusparse")
+        dd[tag] = (tier, exec_ms, None,
+                   cusparse_yardstick(a, b, c_ref, device, f"{tag} cusparse"))
+        auto[tag] = fp64_auto(a, b, c_ref, device, tag)
+    for tag, got_auto in auto.items():
+        tier, exec_ms, kernel_ms, cus_ms = dd[tag]
+        k_auto = got_auto["kernel_ms"]
+        say(f"[fp64 auto vs dd] {tag}: auto -> {got_auto['kind']} "
+            f"({got_auto['kernel']}) exec_device {got_auto['exec_ms']:.4f} ms, kernel "
+            + (f"{k_auto:.4f} ms" if k_auto is not None else "none")
+            + f"; dd -> {tier} exec_device {exec_ms:.4f} ms"
+            + (f", kernel {kernel_ms:.4f} ms" if kernel_ms is not None else "")
+            + f"; cuSPARSE fp64 {cus_ms:.4f} ms; the faster: "
+            + ("auto" if got_auto["exec_ms"] < exec_ms else "dd"))
     return records
 
 
@@ -1453,6 +1503,27 @@ def spill_layout(build) -> None:
               f"spill kernel {name}: {lay}: spills, or no block fits an SM")
 
 
+def dd_layout(build) -> None:
+    """Print #11's resources once (``[dd]``): the ring's stages, dynamic
+    shared memory, threads, the block tile and the DMMA shape, and for its
+    16-byte and 8-byte B copy kernels registers, spill bytes and resident
+    blocks per SM, which must be 0 and at least 1; with why the tile is
+    what it is."""
+    lay = build.dd_layout()
+    say(f"[dd] crp_ragged_dd_f64tc: {json.dumps(lay)}; a {lay['BM']} x {lay['BN']} tile "
+        f"owns a group's rows at TM = 128 (each B chunk read once per n-tile); "
+        f"{lay['consumers'] // 32} consumer warps of 64 x 32 hold 64 fp64 accumulators "
+        f"a thread, so one block an SM walks tiles and {lay['stages']} ring stages of "
+        f"{lay['BK']}-deep k slices, filled by a producer warpgroup, stand in for "
+        f"occupancy; setmaxnreg gives the consumers {lay['consumer_registers']} "
+        f"registers of the {lay['b16.registers']} launched; "
+        f"m{lay['mma_m']}n{lay['mma_n']}k{lay['mma_k']}: the fastest shape in "
+        f"crp_tpu_torch.cli.dd_split")
+    for copy in ("b16", "b8"):
+        check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 1,
+              f"dd kernel {copy}: {lay}: spills, or no block fits an SM")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU",
@@ -1477,6 +1548,7 @@ def main() -> int:
     tf32x3_layouts(_build)
     x3_layout(_build)
     spill_layout(_build)
+    dd_layout(_build)
 
     records = []
     for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,

@@ -22,12 +22,13 @@ def edited(text: str, edits, tool: str) -> str:
     return text
 
 
-def build(out, jobs: dict, stems, tool: str) -> dict:
+def build(out, jobs: dict, stems, tool: str, refused=None) -> dict:
     """Each job's copy of a source tree, its libraries ``stems`` built by
     one ``nvcc`` each, all started together.  ``jobs`` maps a name to
     ``(source dir, {file name: text replacing that file in the copy},
     macros)``; job i's copy is ``out / f"v{i}"``.  Returns ``{(name, stem):
-    library path}``."""
+    library path}``.  A build that fails raises, or, where ``refused`` is a
+    dict, is left out and its log kept there under its key."""
     shutil.rmtree(out, ignore_errors=True)
     procs = {}
     for i, (name, (src, texts, macros)) in enumerate(jobs.items()):
@@ -40,8 +41,11 @@ def build(out, jobs: dict, stems, tool: str) -> dict:
                    "-o", str(d / f"{stem}.so"), str(d / f"{stem}.cu")]
             procs[name, stem] = (d / f"{stem}.so", subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = {}
     for key, (_, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"{tool}: nvcc failed for {key}:\n{log}")
-    return {key: path for key, (path, _) in procs.items()}
+            if refused is None:
+                raise RuntimeError(f"{tool}: nvcc failed for {key}:\n{log}")
+            failed[key] = refused[key] = log
+    return {key: path for key, (path, _) in procs.items() if key not in failed}

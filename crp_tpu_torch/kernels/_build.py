@@ -178,6 +178,16 @@ def spill_layout() -> dict:
     return _report("crp_spill_blocks", "crp_spill_layout")
 
 
+def dd_layout() -> dict:
+    """The fp64-class kernel #11 (``dd_tc.cu``) as ``crp_dd_layout``
+    reports it: the ring's stages and dynamic shared memory, threads, the
+    block tile (``BM``, ``BN``, ``BK``), the DMMA shape (``mma_m``,
+    ``mma_n``, ``mma_k``) and, for its kernels with 16-byte (``b16.*``)
+    and 8-byte (``b8.*``) B copies, registers, local (spill) bytes and
+    resident blocks per SM."""
+    return _report("crp_ragged_dd_f64tc", "crp_dd_layout")
+
+
 def check(rc: int, name: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:

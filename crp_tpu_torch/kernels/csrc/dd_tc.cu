@@ -20,163 +20,418 @@
 // one fp64 pass, fp64 panels, fp64 B and C.  wgmma has no fp64 form;
 // mma.sync is the route.
 //
-// Layout: one block per (64-row slice of a group, 64-column n-tile), four
-// warps of 32 x 32, each a 4 x 4 grid of mma.sync.m8n8k4 f64 tiles.  The
-// block walks its group's chunks in 16-deep k slices as one loop (the
-// tile walk of panel_tiles.cuh): one shared-memory stage, the next slice
-// prefetched into registers.  The fragments of m8n8k4 f64 hold one A and
-// one B double per lane (A[lane / 4][lane % 4], B[lane % 4][lane / 4]) and
-// two C doubles (C[lane / 4][2 (lane % 4) + i]); the shared-memory pitches
-// are padded so that each half-warp's fragment reads hit 32 distinct banks.
-// What bounds it: at the banded fp64 point (S = 3,402 chunks of 128 x 512,
-// n = 256) 114 GFLOP of panel work against 1.8 GB of panels, read once per
-// n-tile (L2 serves the re-reads of neighbouring blocks); the simple
-// single-stage pipeline leaves it latency-bound, well under the 67 TFLOP/s
-// FP64 tensor-core peak.  TMA and a deeper pipeline are later work.
+// Layout: a tile is a 128-row slice of a group (all of it at TM = 128)
+// and a 128-column n-tile, so each B chunk is read once per n-tile, by
+// one block.  One block an SM (the grid is as many as the card holds at
+// once) walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ...: the
+// tiles in flight are neighbours, n-tile fastest, and share the panels and
+// B rows in L2; a tile's epilogue overlaps the next tile's first copies.
+// The block is three warpgroups.  Two consume: 8 warps, 2 along M x 4
+// along N, each owning a 64 x 32 slab, 4 x 4 tiles of 16 x 8 and 64 fp64
+// accumulators (128 registers) a thread.  One produces: its 128 threads
+// copy every slice.  setmaxnreg gives a consumer thread 224 registers and
+// a producer 48 (an SM sub-partition holds one warp of each warpgroup:
+// 48 + 2 x 224 of its 512 registers a lane).  Without it a launch of 3
+// warps a sub-partition holds every thread to 168 registers, and the
+// consumers spill (a producer warp in place of the warpgroup did).
+//
+// Shape: Hopper's mma.sync.m16n8k8.f64 (sm_90).  DD_MMA_M and DD_MMA_K
+// select m16n8k4, m16n8k16 or Ampere's m8n8k4 (two to a 16 x 8 tile) in
+// its place: crp_tpu_torch.cli.dd_split times each, and on the H100
+// m16n8k8 was the fastest (the three m16n8 shapes within 2%), m8n8k4 held
+// to about half their rate.  Their
+// fragments (the PTX ISA's, as CUTLASS's SM90_16x8x{4,8,16}_F64F64F64F64_TN
+// traits give them) are, with gq = lane / 4 and tq = lane % 4: A (16 x K)
+// a[q] at row gq + 8 (q % 2), column tq + 4 (q / 2); B (K x 8) b[q] at row
+// tq + 4 q, column gq; C (16 x 8) c[e] at row gq + 8 (e / 2), column
+// 2 tq + e % 2.
+//
+// Feed: each tile's chunks are walked as one run of 32-deep k slices
+// (chunk after chunk in group_ptr order, k upward) through a ring of
+// DD_STAGES shared-memory stages (A 128 x 32 and B 32 x 128 doubles, 69 KB
+// a stage), one full and one empty mbarrier a stage.  The producers fill
+// a stage once every consumer warp has released it (empty) by cp.async:
+// the A slice of the panel by 16-byte copies, the B slice (32 rows from
+// row starts[s] + k0, 128 columns) by 16-byte copies where n is even and
+// B starts on 16 bytes, else by 8-byte ones; columns at or past n are
+// zero-filled by the copy itself (source size 0), so odd n is masked, not
+// padded.  Each producer's cp.async.mbarrier.arrive completes the stage's
+// full barrier when its copies land; a consumer warp waits on it,
+// multiplies, and releases the stage.  No block-wide barrier in the loop:
+// a warp waits only for its data.  The pitches (A 36, B 132 doubles) put
+// every half-warp's fragment reads on 16 distinct 8-byte banks.
+//
+// Order: each C element is one accumulator chain, the products of its
+// group's chunks in group_ptr order and k upward, one DMMA after another;
+// nothing is split across blocks or warps and there is no atomic, so a
+// launch equals the next one bit for bit (and every shape, ring depth and
+// k slice gives the same bits).
+//
+// What bounds it: the products.  At the banded fp64 point (S = 3,402
+// chunks of 128 x 512, n = 256) the panels' 114 GFLOP take 1.70 ms at the
+// FP64 tensor cores' 67 TFLOP/s; the body without its copies takes as
+// long as the whole body (dd_split), its copies alone (7.1 GB from L2:
+// the panels twice, the B chunks once; 1.78 GB of panels from device
+// memory) about 0.7 of it.
 
+#include <algorithm>
 #include <cstdint>
+#include <cstdio>
+#include <cstring>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int DD_BM = 64;
-constexpr int DD_BN = 64;
-constexpr int DD_BK = 16;
-constexpr int DD_THREADS = 128;   // 4 warps: 2 along M x 2 along N
-constexpr int A_LD = DD_BK + 4;   // smem pitches (doubles)
-constexpr int B_LD = DD_BN + 4;
-constexpr int A_PER = DD_BM * DD_BK / DD_THREADS;  // A doubles per thread
-constexpr int B_PER = DD_BK * DD_BN / DD_THREADS;  // B doubles per thread
+constexpr int DD_BM = 128;   // block rows: a group at TM = 128
+constexpr int DD_BN = 128;   // block columns
+constexpr int DD_BK = 32;    // k slice a stage
+constexpr int DD_STAGES = 3;
+constexpr int DD_WARPS_N = 4;  // consumer warps along N (2 along M)
+constexpr int DD_CONSUMERS = 256;  // two warpgroups
+constexpr int DD_PRODUCERS = 128;  // and one that copies
+constexpr int DD_THREADS = DD_CONSUMERS + DD_PRODUCERS;
+// registers a thread after setmaxnreg: an SM sub-partition holds one warp
+// of each warpgroup, 48 + 2 * 224 of its 512 registers a lane
+constexpr int DD_PRODUCER_REGS = 48;
+constexpr int DD_CONSUMER_REGS = 224;
+constexpr int DD_MMA_M = 16;   // the DMMA shape: m16n8k{4,8,16}, or m8n8k4
+constexpr int DD_MMA_K = 8;
+constexpr int DD_WM = DD_BM / (DD_CONSUMERS / 32 / DD_WARPS_N);  // 64 rows a warp
+constexpr int DD_WN = DD_BN / DD_WARPS_N;                        // 32 columns a warp
+constexpr int DD_A_LD = DD_BK + 4;  // smem pitches (doubles): conflict-free fragments
+constexpr int DD_B_LD = DD_BN + 4;
+constexpr int DD_A_STAGE = DD_BM * DD_A_LD;
+constexpr int DD_B_STAGE = DD_BK * DD_B_LD;
+constexpr int DD_RING = DD_STAGES * (DD_A_STAGE + DD_B_STAGE) * (int)sizeof(double);
+constexpr int DD_SMEM = DD_RING + 2 * DD_STAGES * 8;  // and a full and an empty mbarrier a stage
+constexpr int DD_MT = DD_WM / 16;  // 16 x 8 tiles of a warp: 4 x 4
+constexpr int DD_NT = DD_WN / 8;
 
-// d += a (8x4, row) * b (4x8, col), fp64 on the tensor cores
-__device__ __forceinline__ void dmma_8x8x4(double& d0, double& d1, double a,
-                                           double b)
+static_assert(DD_MMA_M == 16 || (DD_MMA_M == 8 && DD_MMA_K == 4), "DMMA shape");
+static_assert(DD_MMA_K == 4 || DD_MMA_K == 8 || DD_MMA_K == 16, "DMMA shape");
+static_assert(DD_BK % DD_MMA_K == 0 && DD_A_LD % 16 == 4 && DD_B_LD % 16 == 4,
+              "k slice and pitches");
+
+// dst <- BYTES of src, or BYTES of zeros when !ok (source size 0: src is
+// not read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const double* src, bool ok)
 {
-    asm volatile(
-        "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-        "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
-        : "+d"(d0), "+d"(d1)
-        : "d"(a), "d"(b));
+    const int size = ok ? BYTES : 0;
+    if constexpr (BYTES == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(dst), "l"(src), "r"(size) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                     :: "r"(dst), "l"(src), "r"(size) : "memory");
 }
 
-__global__ void __launch_bounds__(DD_THREADS)
+__device__ __forceinline__ void cp_async_wait_all()
+{
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar)
+{
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// an arrival on bar once every earlier cp.async of this thread has landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar)
+{
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar)
+                 : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity)
+{
+    uint32_t done;
+    do {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// d += a b on one 16 x 8 tile, fp64 on the tensor cores: one Hopper
+// m16n8k{4,8,16}, or two Ampere m8n8k4 (rows gq and gq + 8: the m16n8k4
+// fragments are theirs side by side)
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[DD_MMA_K / 2],
+                                     const double (&b)[DD_MMA_K / 4])
+{
+    if constexpr (DD_MMA_M == 8) {
+        asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+            "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+            : "+d"(d[0]), "+d"(d[1]) : "d"(a[0]), "d"(b[0]));
+        asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+            "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+            : "+d"(d[2]), "+d"(d[3]) : "d"(a[1]), "d"(b[0]));
+    } else if constexpr (DD_MMA_K == 4) {
+        asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+            "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+            : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+            : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+    } else if constexpr (DD_MMA_K == 8) {
+        asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+            : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]),
+              "d"(b[1]));
+    } else {
+        asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+            "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+            : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+            : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]),
+              "d"(a[5]), "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]),
+              "d"(b[2]), "d"(b[3]));
+    }
+}
+
+// tile `tile` of the grid: its first C row, its group and first row in it,
+// its first column
+struct Tile {
+    int64_t row0, g, r_in, n0;
+};
+
+__device__ __forceinline__ Tile tile_at(int64_t tile, int64_t TM, int64_t n_tiles)
+{
+    Tile t;
+    t.row0 = (tile / n_tiles) * DD_BM;
+    t.g = t.row0 / TM;  // TM % DD_BM == 0
+    t.r_in = t.row0 - t.g * TM;
+    t.n0 = (tile % n_tiles) * DD_BN;
+    return t;
+}
+
+// B_VEC: n is even and B starts on 16 bytes, so every B row piece of two
+// doubles is 16-byte aligned: 16-byte copies; else 8-byte ones
+template <bool B_VEC>
+__global__ void __launch_bounds__(DD_THREADS, 1)
 ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
                  const int32_t* __restrict__ starts,
                  const double* __restrict__ panels,
                  const double* __restrict__ b,
                  double* __restrict__ c,
-                 int64_t TM, int64_t W, int64_t n, int64_t n_tiles)
+                 int64_t TM, int64_t W, int64_t n, int64_t n_tiles, int64_t tiles,
+                 bool c_vec)
 {
-    __shared__ __align__(16) double As[DD_BM][A_LD];
-    __shared__ __align__(16) double Bs[DD_BK][B_LD];
+    extern __shared__ __align__(16) double dd_smem[];
+    double* const As = dd_smem;                           // [STAGES][BM][A_LD]
+    double* const Bs = dd_smem + DD_STAGES * DD_A_STAGE;  // [STAGES][BK][B_LD]
+    const uint32_t full0 = (uint32_t)__cvta_generic_to_shared(dd_smem) + DD_RING;
+    const uint32_t empty0 = full0 + 8 * DD_STAGES;
 
     const int tid = threadIdx.x;
-    const int64_t tile = blockIdx.x;
-    const int64_t nt = tile % n_tiles;
-    const int64_t row0 = (tile / n_tiles) * DD_BM;  // first C row
-    const int64_t g = row0 / TM;                     // TM % DD_BM == 0
-    const int64_t r_in = row0 - g * TM;
-    const int64_t n0 = nt * DD_BN;
-    const int64_t s_begin = group_ptr[g];
-    const int64_t s_end = group_ptr[g + 1];
-    const int64_t nk = W / DD_BK;
-
-    double ra[A_PER], rb[B_PER];
-
-    // slice t of the group's walk: chunk s_begin + t / nk, k0 = (t % nk) BK
-    auto load_tile = [&](int64_t t) {
-        const int64_t s = s_begin + t / nk;
-        const int64_t k0 = (t % nk) * DD_BK;
-        const int64_t b_row0 = starts[s] + k0;
-        const double* a = panels + (size_t)(s * TM + r_in) * W + k0;
-#pragma unroll
-        for (int i = 0; i < A_PER; ++i) {
-            const int idx = tid + i * DD_THREADS;
-            ra[i] = a[(size_t)(idx / DD_BK) * W + idx % DD_BK];
-        }
-#pragma unroll
-        for (int i = 0; i < B_PER; ++i) {
-            const int idx = tid + i * DD_THREADS;
-            const int64_t col = n0 + idx % DD_BN;
-            rb[i] = col < n ? b[(size_t)(b_row0 + idx / DD_BN) * n + col] : 0.0;
-        }
-    };
-    auto store_tile = [&]() {
-#pragma unroll
-        for (int i = 0; i < A_PER; ++i) {
-            const int idx = tid + i * DD_THREADS;
-            As[idx / DD_BK][idx % DD_BK] = ra[i];
-        }
-#pragma unroll
-        for (int i = 0; i < B_PER; ++i) {
-            const int idx = tid + i * DD_THREADS;
-            Bs[idx / DD_BN][idx % DD_BN] = rb[i];
-        }
-    };
-
     const int warp = tid >> 5, lane = tid & 31;
-    const int wm = warp >> 1;  // 32-row slab of the tile
-    const int wn = warp & 1;   // 32-column slab of the tile
-    const int gid = lane >> 2, tig = lane & 3;
+    const int nk = (int)(W / DD_BK);  // k slices a chunk
 
-    double acc[4][4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
+    if (tid == 0) {
+        for (int s = 0; s < DD_STAGES; ++s) {
+            mbar_init(full0 + 8 * s, DD_PRODUCERS);           // the producers' copies
+            mbar_init(empty0 + 8 * s, DD_CONSUMERS / 32);     // one per consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
 
-    auto compute_tile = [&]() {
+    // slice t of the block's walk (over its tiles, each tile's chunks in
+    // group_ptr order, each chunk's slices k upward) goes into stage
+    // t % STAGES, whose use is phase (t / STAGES) & 1 of its barriers
+    if (tid >= DD_CONSUMERS) {
+        // the producers: thread p copies the 16-byte A pieces p % (BK / 2)
+        // of the rows p / (BK / 2) + A_ROWS i, and the B piece p % B_COLS
+        // (16 bytes, or 8 where !B_VEC) of the rows p / B_COLS + B_ROWS i
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(DD_PRODUCER_REGS));
+        constexpr int A_ROWS = DD_PRODUCERS / (DD_BK / 2);    // rows a pass
+        constexpr int B_COLS = B_VEC ? DD_BN / 2 : DD_BN;    // copies a row
+        constexpr int B_ROWS = DD_PRODUCERS / B_COLS;
+        constexpr int B_BYTES = B_VEC ? 16 : 8;
+        const int p = tid - DD_CONSUMERS;
+        const int a_r = p / (DD_BK / 2), a_k = (p % (DD_BK / 2)) * 2;
+        const int b_r = p / B_COLS, b_c = (p % B_COLS) * (B_VEC ? 2 : 1);
+        int t = 0;
+        for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+            const Tile tl = tile_at(tile, TM, n_tiles);
+            const bool col_ok = tl.n0 + b_c < n;
+            const int s_end = group_ptr[tl.g + 1];
+            for (int s = group_ptr[tl.g]; s < s_end; ++s) {
+                const int64_t start = __ldg(starts + s);
+                for (int k0 = 0; k0 < W; k0 += DD_BK, ++t) {
+                    const int st = t % DD_STAGES;
+                    mbar_wait(empty0 + 8 * st, ((t / DD_STAGES) & 1) ^ 1);
+                    const double* a_src =
+                        panels + (size_t)((int64_t)s * TM + tl.r_in + a_r) * W + k0 + a_k;
+                    uint32_t a_dst = (uint32_t)__cvta_generic_to_shared(
+                        As + st * DD_A_STAGE + a_r * DD_A_LD + a_k);
 #pragma unroll
-        for (int kk = 0; kk < DD_BK; kk += 4) {
-            double af[4], bf[4];
+                    for (int i = 0; i < DD_BM / A_ROWS; ++i) {
+                        cp_async<16>(a_dst, a_src, true);
+                        a_src += (size_t)A_ROWS * W;
+                        a_dst += A_ROWS * DD_A_LD * 8;
+                    }
+                    const double* b_src =
+                        col_ok ? b + (size_t)(start + k0 + b_r) * n + tl.n0 + b_c : b;
+                    const size_t b_step = col_ok ? (size_t)B_ROWS * n : 0;
+                    uint32_t b_dst = (uint32_t)__cvta_generic_to_shared(
+                        Bs + st * DD_B_STAGE + b_r * DD_B_LD + b_c);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) af[i] = As[wm * 32 + i * 8 + gid][kk + tig];
+                    for (int i = 0; i < DD_BK / B_ROWS; ++i) {
+                        cp_async<B_BYTES>(b_dst, b_src, col_ok);
+                        b_src += b_step;
+                        b_dst += B_ROWS * DD_B_LD * 8;
+                    }
+                    mbar_arrive_cp_async(full0 + 8 * st);
+                }
+            }
+        }
+        cp_async_wait_all();
+        return;
+    }
+
+    // the consumers: warp (wm, wn) owns a 64 x 32 slab of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(DD_CONSUMER_REGS));
+    const int wm = warp / DD_WARPS_N;
+    const int wn = warp % DD_WARPS_N;
+    const int gq = lane >> 2, tq = lane & 3;
+    double acc[DD_MT][DD_NT][4];
+
+    auto compute_slice = [&](int stage) {
+        const double* as = As + stage * DD_A_STAGE + (wm * DD_WM + gq) * DD_A_LD + tq;
+        const double* bs = Bs + stage * DD_B_STAGE + tq * DD_B_LD + wn * DD_WN + gq;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) bf[j] = Bs[kk + tig][wn * 32 + j * 8 + gid];
+        for (int kk = 0; kk < DD_BK; kk += DD_MMA_K) {
+            double bf[DD_NT][DD_MMA_K / 4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+            for (int j = 0; j < DD_NT; ++j)
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    dmma_8x8x4(acc[i][j][0], acc[i][j][1], af[i], bf[j]);
+                for (int q = 0; q < DD_MMA_K / 4; ++q)
+                    bf[j][q] = bs[(kk + 4 * q) * DD_B_LD + j * 8];
+#pragma unroll
+            for (int i = 0; i < DD_MT; ++i) {
+                double af[DD_MMA_K / 2];
+#pragma unroll
+                for (int q = 0; q < DD_MMA_K / 2; ++q)
+                    af[q] = as[(i * 16 + 8 * (q & 1)) * DD_A_LD + kk + 4 * (q >> 1)];
+#pragma unroll
+                for (int j = 0; j < DD_NT; ++j) dmma(acc[i][j], af, bf[j]);
+            }
         }
     };
 
-    const int64_t nt_k = (s_end - s_begin) * nk;
-    if (nt_k > 0) {
-        load_tile(0);
-        store_tile();
-        __syncthreads();
-    }
-    for (int64_t kt = 0; kt < nt_k; ++kt) {
-        if (kt + 1 < nt_k) load_tile(kt + 1);
-        compute_tile();
-        __syncthreads();
-        if (kt + 1 < nt_k) {
-            store_tile();
-            __syncthreads();
+    int t = 0;
+    for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const Tile tl = tile_at(tile, TM, n_tiles);
+        const int nt_k = (group_ptr[tl.g + 1] - group_ptr[tl.g]) * nk;
+#pragma unroll
+        for (int i = 0; i < DD_MT; ++i)
+#pragma unroll
+            for (int j = 0; j < DD_NT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+        for (int kt = 0; kt < nt_k; ++kt, ++t) {
+            const int st = t % DD_STAGES;
+            mbar_wait(full0 + 8 * st, (t / DD_STAGES) & 1);
+            compute_slice(st);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty0 + 8 * st);
         }
-    }
 
-    // the n edge is masked here (n is not padded)
+        // the n edge is masked here (n is not padded); two doubles at a
+        // time where C's rows start on 16 bytes
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const size_t row = (size_t)(row0 + wm * 32 + i * 8 + gid);
+        for (int i = 0; i < DD_MT; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int64_t col = n0 + wn * 32 + j * 8 + 2 * tig;
-            if (col < n) c[row * n + col] = acc[i][j][0];
-            if (col + 1 < n) c[row * n + col + 1] = acc[i][j][1];
+            for (int j = 0; j < DD_NT; ++j) {
+                const int64_t col = tl.n0 + wn * DD_WN + j * 8 + 2 * tq;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    double* out =
+                        c + (size_t)(tl.row0 + wm * DD_WM + i * 16 + gq + 8 * h) * n + col;
+                    if (c_vec && col + 1 < n) {
+                        *reinterpret_cast<double2*>(out) =
+                            make_double2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+                    } else {
+                        if (col < n) out[0] = acc[i][j][2 * h];
+                        if (col + 1 < n) out[1] = acc[i][j][2 * h + 1];
+                    }
+                }
+            }
         }
     }
+}
+
+// the ring's shared memory is dynamic: allow it, and the carveout
+template <bool B_VEC>
+cudaError_t dd_prepare()
+{
+    cudaError_t e = cudaFuncSetAttribute(ragged_dd_kernel<B_VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DD_SMEM);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(ragged_dd_kernel<B_VEC>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <bool B_VEC>
+cudaError_t dd_run(const void* group_ptr, const void* starts, const void* panels,
+                   const void* b, void* c, int64_t tiles, int64_t TM, int64_t W,
+                   int64_t n, int64_t n_tiles, bool c_vec, void* stream)
+{
+    cudaError_t e = dd_prepare<B_VEC>();
+    if (e != cudaSuccess) return e;
+    // as many blocks as the card holds at once, each walking tiles
+    int dev = 0, sms = 0, per_sm = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ragged_dd_kernel<B_VEC>,
+                                                          DD_THREADS, DD_SMEM);
+    if (e != cudaSuccess) return e;
+    const int64_t grid = std::min(tiles, (int64_t)sms * std::max(per_sm, 1));
+    ragged_dd_kernel<B_VEC><<<(unsigned)grid, DD_THREADS, DD_SMEM, (cudaStream_t)stream>>>(
+        static_cast<const int32_t*>(group_ptr), static_cast<const int32_t*>(starts),
+        static_cast<const double*>(panels), static_cast<const double*>(b),
+        static_cast<double*>(c), TM, W, n, n_tiles, tiles, c_vec);
+    return cudaGetLastError();
+}
+
+// " <name>.registers=.. <name>.local_bytes=.. <name>.blocks_per_sm=.." of
+// one instantiation
+template <bool B_VEC>
+cudaError_t dd_resources(const char* name, char* out, int len)
+{
+    cudaError_t e = dd_prepare<B_VEC>();
+    cudaFuncAttributes attr;
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, ragged_dd_kernel<B_VEC>);
+    int per_sm = 0;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ragged_dd_kernel<B_VEC>,
+                                                          DD_THREADS, DD_SMEM);
+    if (e != cudaSuccess) return e;
+    snprintf(out, len, " %s.registers=%d %s.local_bytes=%d %s.blocks_per_sm=%d", name,
+             attr.numRegs, name, (int)attr.localSizeBytes, name, per_sm);
+    return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// group_ptr (G + 1,), starts (S,), panels (S, TM, Wc) fp64, b (rows >=
-// max(starts) + Wc, n) fp64, c (G*TM, n) fp64; TM % 64 == 0, Wc % 16 == 0.
+// group_ptr (G + 1,), starts (S,), panels (S, TM, Wc) fp64 starting on 16
+// bytes, b (rows >= max(starts) + Wc, n) fp64, c (G*TM, n) fp64; TM % 128
+// == 0, Wc % 16 == 0.
 int crp_ragged_dd_f64tc(const void* group_ptr, const void* starts,
                         const void* panels, const void* b, void* c, int64_t G,
                         int64_t TM, int64_t Wc, int64_t n, void* stream)
@@ -184,17 +439,37 @@ int crp_ragged_dd_f64tc(const void* group_ptr, const void* starts,
     if (!group_ptr || G < 0 || TM <= 0 || TM % DD_BM || Wc <= 0 ||
         Wc % DD_BK || n < 0)
         return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)panels % 16) return (int)cudaErrorMisalignedAddress;
     const int64_t n_tiles = (n + DD_BN - 1) / DD_BN;
-    const int64_t blocks = G * (TM / DD_BM) * n_tiles;
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    if (blocks > 0)
-        ragged_dd_kernel<<<(unsigned)blocks, DD_THREADS, 0,
-                           (cudaStream_t)stream>>>(
-            static_cast<const int32_t*>(group_ptr),
-            static_cast<const int32_t*>(starts),
-            static_cast<const double*>(panels), static_cast<const double*>(b),
-            static_cast<double*>(c), TM, Wc, n, n_tiles);
-    return (int)cudaGetLastError();
+    const int64_t tiles = G * (TM / DD_BM) * n_tiles;
+    if (tiles > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+    if (tiles == 0) return (int)cudaSuccess;
+    const bool c_vec = n % 2 == 0 && (uintptr_t)c % 16 == 0;
+    const bool b_vec = n % 2 == 0 && (uintptr_t)b % 16 == 0;
+    return (int)(b_vec ? dd_run<true>(group_ptr, starts, panels, b, c, tiles, TM, Wc, n,
+                                      n_tiles, c_vec, stream)
+                       : dd_run<false>(group_ptr, starts, panels, b, c, tiles, TM, Wc, n,
+                                       n_tiles, c_vec, stream));
+}
+
+// the kernel's resources as "key=value" pairs: the ring's stages and
+// dynamic shared memory, threads (the consumers' among them), the
+// registers setmaxnreg gives a consumer and a producer thread, the block
+// tile, the DMMA shape and, for its 16-byte ("b16") and 8-byte ("b8") B
+// copy kernels, the registers it is launched with, local (spill) bytes and
+// resident blocks per SM
+int crp_dd_layout(char* out, int len)
+{
+    int used = snprintf(out, len,
+                        "stages=%d smem_bytes=%d threads=%d consumers=%d "
+                        "consumer_registers=%d producer_registers=%d BM=%d BN=%d BK=%d "
+                        "mma_m=%d mma_n=8 mma_k=%d",
+                        DD_STAGES, DD_SMEM, DD_THREADS, DD_CONSUMERS, DD_CONSUMER_REGS,
+                        DD_PRODUCER_REGS, DD_BM, DD_BN, DD_BK, DD_MMA_M, DD_MMA_K);
+    cudaError_t e = dd_resources<true>("b16", out + used, len - used);
+    if (e != cudaSuccess) return (int)e;
+    used += (int)strlen(out + used);
+    return (int)dd_resources<false>("b8", out + used, len - used);
 }
 
 const char* crp_error_string(int code)

@@ -27,7 +27,14 @@ keeps the contract and drops the mechanism:
 The kernel is :func:`spmm_ragged_dd` (``csrc/dd_tc.cu``), which launches
 ``crp_ragged_dd_f64tc`` for CUDA tensors and counts the launch; for CPU
 tensors it runs its plain PyTorch version, :func:`.spmm_ragged_plain` on the
-fp64 panels.
+fp64 panels.  The kernel's tile is a 128-row slice of a group (all of
+it at TM = 128) and a 128-column n-tile; one block an SM walks tiles,
+two warpgroups multiplying on Hopper's fp64 ``mma.sync`` (DMMA) while a
+third copies each tile's chunks, in 32-deep k slices, into a ``cp.async``
+ring of shared-memory stages.  Each C element is one accumulator chain in
+``group_ptr`` order and k upward, so a launch equals the next bit for
+bit.  The pack's TM and Wc must be multiples of its block rows (128) and
+k slice (32), as the geometry below gives them.
 """
 
 from __future__ import annotations

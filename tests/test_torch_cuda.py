@@ -16,7 +16,9 @@ import torch
 from crp_tpu_torch.comm.exchange import build_b_exchange, exchange_b, exchange_tables
 from crp_tpu_torch.config import SpmmConfig
 from crp_tpu_torch.engine.rowpara import RowParaSpmm
-from crp_tpu_torch.kernels import spmm_dd_mxu, spmm_halo, spmm_pallas, spmm_ragged
+from crp_tpu_torch.kernels import (
+    device_pack, spmm_dd_mxu, spmm_halo, spmm_pallas, spmm_ragged,
+)
 from crp_tpu_torch.kernels.dispatch import (
     _pack_dd_mxu, _pack_gather, _pack_ragged, _pack_window, pack_local_kernel,
 )
@@ -220,7 +222,9 @@ def _spill_case(rng, M, TMo, Q, z, ncol):
 
 
 def _bits_equal(x, y):
-    return x.shape == y.shape and torch.equal(x.view(torch.int32), y.view(torch.int32))
+    """Equal bit for bit: compared as integers of the elements' width."""
+    as_int = {4: torch.int32, 8: torch.int64}[x.element_size()]
+    return x.shape == y.shape and torch.equal(x.view(as_int), y.view(as_int))
 
 
 def _spill_b(rng, rows, n, off, dev):
@@ -429,29 +433,63 @@ DD_MATS = {
 }
 
 
-@pytest.mark.parametrize("pack_on", ["cuda", "cpu"])  # Wc = 512 / 256
+def _dd_pack(a, Wc, G, dev):
+    """The dd_mxu total cover of ``a`` over G groups as the kernel's args
+    without B, (step_g, group_ptr, starts, panels), and the rows B must
+    have: at Wc = 512 the card's pack, at 256 the CPU's moved to the card,
+    at 1024 (the geometry's clamp) from ``ragged_dd_cover`` and
+    ``ragged_fill`` directly."""
+    shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
+    if Wc in (256, 512):
+        arrays, op = _pack_dd_mxu(shard, G * 128, dev if Wc == 512 else torch.device("cpu"))
+        assert (op.roofline["TM"], op.roofline["W"], op.roofline["G"]) == (128, Wc, G)
+        arrs = tuple(x[0].to(dev) for x in arrays)
+        return op.kernel_args(arrs, None)[:4], op.min_b_rows
+    G_a = -(-a.nrow // 128)
+    starts, group_ptr = spmm_dd_mxu.ragged_dd_cover(a.rowptr, a.colidx, 128, Wc, G_a)
+    panels, _, spill = device_pack.ragged_fill(a.rowptr, a.colidx.astype(np.int32), a.val,
+                                               128, Wc, starts, group_ptr, "f64", dev)
+    assert len(spill[0]) == 0
+    # the pad groups past the matrix's rows, one zero dummy chunk each
+    starts = np.concatenate([starts, np.zeros(G - G_a, np.int32)])
+    group_ptr = np.concatenate([group_ptr, group_ptr[-1] + np.arange(1, G - G_a + 1)])
+    panels = torch.cat([panels, panels.new_zeros((G - G_a, 128, Wc))])
+    step_g = np.repeat(np.arange(G, dtype=np.int32), np.diff(group_ptr))
+    args = tuple(torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+                 for x in (step_g, group_ptr, starts)) + (panels,)
+    return args, int(np.max(starts)) + Wc
+
+
+@pytest.mark.parametrize("Wc", [256, 512, 1024])
 @pytest.mark.parametrize("gen", sorted(DD_MATS))
-def test_dd_kernel_matches_plain(cuda_device, gen, pack_on):
-    """The FP64 tensor-core kernel on dd_mxu total covers with pad groups:
-    within 1e-12 relative Frobenius of its plain version (cuBLAS fp64 over
-    the gathered windows), pad rows zero, the n edge masked."""
+def test_dd_kernel_matches_plain(cuda_device, gen, Wc):
+    """The FP64 tensor-core kernel (#11) on dd_mxu total covers with pad
+    groups, at each Wc the packs take: within 1e-12 relative Frobenius of
+    its plain version (cuBLAS fp64 over the gathered windows) and of the
+    reference, equal bit for bit to a second launch (its sum order is
+    fixed), pad rows zero, the n edge masked; odd n, and a B off 16 bytes
+    (NaN around it: a read outside B shows), take the 8-byte B copies."""
     a = DD_MATS[gen]()
-    arrays, op = _pack_dd_mxu([(a.rowptr, a.colidx.astype(np.int32), a.val)],
-                              a.nrow + 300, torch.device(pack_on))
-    assert op.roofline["W"] == (512 if pack_on == "cuda" else 256)
-    arrs = tuple(x[0].to(cuda_device) for x in arrays)
-    for n in (16, 48, 100, 256):
-        rB = torch.from_numpy(_b(a, op.min_b_rows, n, np.float64)).to(cuda_device)
-        args = op.kernel_args(arrs, rB)
-        before = spmm_dd_mxu.spmm_ragged_dd.launches
-        k = op.kernel(*args, min_b_rows=op.min_b_rows)
-        assert spmm_dd_mxu.spmm_ragged_dd.launches == before + 1
-        p = op.plain(*args)
-        assert k.dtype == torch.float64 and k.shape == p.shape
-        assert float((k - p).norm() / p.norm()) <= 1e-12
-        assert not torch.any(k[a.nrow:])  # pad groups come out zero
+    G = -(-(a.nrow + 300) // 128)
+    (step_g, group_ptr, starts, panels), min_b_rows = _dd_pack(a, Wc, G, cuda_device)
+    assert panels.shape[1:] == (128, Wc) and torch.unique(step_g).numel() == G
+    for n in (16, 37, 48, 100, 256, 512):
         ref = a.spmm_ref(fill_b(0, a.ncol, 0, n))
-        assert rel_fro_err(ref, k[: a.nrow].cpu().numpy()) <= 1e-12
+        for off in (0, 1):
+            rB = _nan_framed(
+                torch.from_numpy(_b(a, max(min_b_rows, a.ncol), n, np.float64)).to(cuda_device),
+                off)
+            args = (step_g, group_ptr, starts, panels, rB)
+            before = spmm_dd_mxu.spmm_ragged_dd.launches
+            k = spmm_dd_mxu.spmm_ragged_dd(*args, min_b_rows=min_b_rows)
+            k2 = spmm_dd_mxu.spmm_ragged_dd(*args, min_b_rows=min_b_rows)
+            assert spmm_dd_mxu.spmm_ragged_dd.launches == before + 2
+            p = spmm_ragged.spmm_ragged_plain(*args)
+            assert k.dtype == torch.float64 and k.shape == p.shape == (G * 128, n)
+            assert _bits_equal(k, k2), (n, off)
+            assert float((k - p).norm() / p.norm()) <= 1e-12, (n, off)
+            assert not torch.any(k[a.nrow:])  # pad groups come out zero
+            assert rel_fro_err(ref, k[: a.nrow].cpu().numpy()) <= 1e-12, (n, off)
 
 
 @pytest.mark.parametrize("kernel", ["dd", "dd_mxu"])
