@@ -9,8 +9,9 @@ It builds the port's CUDA kernels from ``crp_tpu_torch/kernels/csrc`` into
 prints the shared-memory ring of the 3xTF32 entries (#3, #4, #12 and #6
 at highest: stages, dynamic shared memory, registers, spills and blocks
 per SM, which must be 0 and at least 2) and of the wgmma body in each
-library that builds it (#1 with #5 and the one-pass #2, #4, #12, the
-ragged #7 with the one-pass #8: the same, which must be 0 and at least 1),
+library that builds it (#1 with #5 and the one-pass #2, #4 and #12 each
+with its one-pass default, the ragged #7 with the one-pass #8: the same,
+which must be 0 and at least 1),
 the spill and gather kernels' resources (``[spill]``: registers, spills
 and blocks per SM of each, which must be 0 and at least 1), #11's
 (``[dd]``: its ring, block tile, DMMA shape, and the same, which must be
@@ -77,15 +78,19 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    1e-12, its exec and kernel times beside ``dd``'s and cuSPARSE's;
 9. window phase — the non-super-grouped windowed kernel (#4) against its
    plain version at x3 (on the bf16 hi/lo pair, #1's wgmma body, and equal
-   bit for bit to #1 on the same arrays), default, highest and fp64 on a
-   4-shard pack (pad groups, an empty shard) and on a single-shard pack
-   with non-monotone windows, n in {16, 37, 100, 256} (odd n takes the
-   plain B copies of #4 at x3 and its 4-byte ones at highest);
+   bit for bit to #1 on the same arrays), default (on the bf16 hi plane
+   and B cast to bf16, #2's one-pass body, and equal bit for bit to #2),
+   highest and fp64 on a 4-shard pack (pad groups, an empty shard) and on
+   a single-shard pack with non-monotone windows, n in {16, 37, 100, 256}
+   and at n = 100 a B off 16 bytes (odd n and that B take the plain B
+   copies at x3 and default and the 4-byte ones at highest);
 10. halo phase — the fused halo kernel (#12: one launch over 4 shards,
    each reading its windows straight from the owner shards' rows) against
    its plain version (the pushes into window buffers, then the windowed
-   product) at x3, default, highest and fp64, n in {16, 37, 100, 256}; at
-   x3 also equal bit for bit to #4 run shard by shard on those buffers;
+   product) at x3, default, highest and fp64, n in {16, 37, 100, 256} and
+   a B off 16 bytes, the chunks past the matrix read as zeros; at x3 and
+   default also equal bit for bit to #4 run shard by shard on those
+   buffers;
 11. headline at p = 4 — the headline matrix in 4 nnz-balanced row shards
    on the one card through ``RowParaSpmm(kernel="auto")`` at x3, default
    and highest: ``auto`` must resolve to the fused ``pallas_halo`` kernel
@@ -95,7 +100,9 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    the unfused path, windowed kernel #4 on every shard (variant
    ``"window"``), with the exchange and SpMM phase times and the received
    and physical rows; each kernel against its plain version at its
-   main-path shape, timed, with cuSPARSE on the same work;
+   main-path shape, timed, with cuSPARSE on the same work; at default the
+   packs must hold the bf16 hi plane alone, and B's cast to bf16 is timed
+   beside each kernel;
 12. cplaw at p = 4 on the ring (x3): the multi-shard ragged pack with the
    fused spill, 591,732 received B rows and 627,300 physical ring rows;
    on the host, the p = 8 exchange plan's received rows times 32 equal the
@@ -277,8 +284,9 @@ def bound(n_bytes: float, ops: float, peak: str) -> tuple:
 
 def op_point(op, dtype) -> tuple:
     """(passes, peak) of an op's products: x3 three bf16 products, default
-    one, highest three TF32 products (#3, #4, #6 and #12), fp64 FMA or,
-    for dd, the FP64 tensor cores."""
+    one (#2, #4 ``window_bf16``, #8 and #12 on the bf16 hi plane), highest
+    three TF32 products (#3, #4, #6 and #12), fp64 FMA or, for dd, the
+    FP64 tensor cores."""
     scheme = getattr(op, "scheme", None)
     prec = getattr(op, "precision", getattr(op, "mxu_precision", None))
     if op.variant == "gather":  # products on the FMA units at every point
@@ -1162,11 +1170,13 @@ def spill_library_ms(op, arrs, c, rB):
 
 def window_phase(device) -> None:
     """Kernel #4 against its plain version on a 4-shard pack (an empty
-    shard, pad groups) and a single shard with non-monotone windows; at x3
-    its C equal bit for bit to #1's on the same pair and receive buffer."""
+    shard, pad groups) and a single shard with non-monotone windows, odd n
+    and a B off 16 bytes; at x3 its C equal bit for bit to #1's on the same
+    pair and receive buffer, at default to #2's on the same hi plane and
+    bf16 B (the same body)."""
     from crp_tpu_torch import CSRMatrix, banded_random_csr, csr_row_partition
     from crp_tpu_torch.kernels.dispatch import _pack_window
-    from crp_tpu_torch.kernels.spmm_pallas import spmm_window_sg_presplit
+    from crp_tpu_torch.kernels.spmm_pallas import spmm_window_sg_bf16, spmm_window_sg_presplit
 
     for prec, dtype in (("x3", np.float32), ("default", np.float32),
                         ("highest", np.float32), ("highest", np.float64)):
@@ -1192,35 +1202,46 @@ def window_phase(device) -> None:
             arrays, op = _pack_window(shards, max_m + 300, dtype, prec, device)
             check(op.variant == "window", f"window phase {label}: variant {op.variant}")
             x3 = prec == "x3" and dtype == np.float32
-            want = (torch.bfloat16 if x3 else
+            one = prec == "default" and dtype == np.float32
+            want = (torch.bfloat16 if x3 or one else
                     torch.float64 if dtype == np.float64 else torch.float32)
-            check(op.scheme == ("window_x3" if x3 else "window")
-                  and arrays[1].dtype == want,
+            scheme = "window_x3" if x3 else "window_bf16" if one else "window"
+            ref = "1" if x3 else "2"  # #4's C is #1's at x3, #2's at default
+            check(op.scheme == scheme and arrays[1].dtype == want
+                  and len(arrays) == (3 if x3 else 2),
                   f"window phase {label} {prec}: scheme {op.scheme}, panels "
-                  f"{arrays[1].dtype}")
+                  f"{[tuple(t.shape) for t in arrays[1:]]} {arrays[1].dtype}")
             G = arrays[0].shape[1]
-            for n in (16, 37, 100, 256):
+            for n, b_off in ((16, 0), (37, 0), (100, 0), (100, 1), (256, 0)):
                 rB = torch.from_numpy(padded_b(a, op.min_b_rows, n, dtype)).to(device)
-                worst, diff1 = 0.0, 0.0
+                worst, same = 0.0, 0.0
                 for i, sh in enumerate(shards):
                     arrs = tuple(x[i] for x in arrays)
-                    _, rel, _ = kernel_vs_plain(op, arrs, rB)
-                    c = launch(op, op.kernel_args(arrs, rB))
+                    args = op.kernel_args(arrs, rB)
+                    if b_off:  # the kernel's B (bf16 at default) off 16 bytes
+                        args = (*args[:2], misaligned(args[2], b_off), *args[3:])
+                    _, rel, _ = compare("spmm_window", lambda: launch(op, args),
+                                        lambda: op.plain(*args))
+                    c = launch(op, args)
                     nrow = len(sh[0]) - 1 if len(sh[1]) else 0
                     check(not bool(torch.any(c[nrow:])),
                           f"window {label} shard {i}: pad rows not zero")
                     worst = max(worst, rel)
-                    if x3:  # #1 on the same pair: the same kernel body
-                        c1 = spmm_window_sg_presplit(*arrs, rB, min_b_rows=op.min_b_rows)
-                        diff1 = max(diff1, float((c1 - c).abs().max()))
+                    if x3 or one:  # #1 on the same pair, #2 on the same plane
+                        c1 = (spmm_window_sg_presplit(*arrs, args[2], min_b_rows=op.min_b_rows)
+                              if x3 else
+                              spmm_window_sg_bf16(*arrs, args[2], min_b_rows=op.min_b_rows))
+                        same = max(same, float((c1 - c).abs().max()))
                         check(torch.equal(c1.view(torch.int32), c.view(torch.int32)),
-                              f"window {label} shard {i} n={n}: #4 differs from #1 "
-                              f"by {diff1}")
+                              f"window {label} {prec} shard {i} n={n}: #4 differs from "
+                              f"#{ref} by {same}")
                 tol = TOL_PLAIN[dtype]
                 msg = (f"window spmm_window {prec:8s} {np.dtype(dtype).name} "
-                       f"{label:12s} p={len(shards)} G={G} n={n:3d}: max rel err "
+                       f"{label:12s} p={len(shards)} G={G} n={n:3d}"
+                       f"{' B off 16 bytes' if b_off else ''}: max rel err "
                        f"{worst:.3e} (tol {tol:g})"
-                       + (f", max |C4 - C1| {diff1:.3e} (must be 0)" if x3 else ""))
+                       + (f", max |C4 - C{ref}| {same:.3e} (must be 0)"
+                          if x3 or one else ""))
                 check(worst <= tol, msg)
                 say(msg)
 
@@ -1237,9 +1258,10 @@ def stacked_b(b, displs, rows):
 
 def halo_phase(device) -> None:
     """The fused halo kernel (#12) against its plain version over 4 shards
-    in one launch at every point; rows past each shard's own zero; at x3
-    its C equal bit for bit to #4 run shard by shard on the same pair with
-    the plain version's window buffers."""
+    in one launch at every point, odd n and a B off 16 bytes; rows past
+    each shard's own zero (the chunks past the matrix read as zeros); at
+    x3 and default its C equal bit for bit to #4 run shard by shard on the
+    same pair or plane with the plain version's window buffers."""
     from crp_tpu_torch import banded_random_csr, csr_row_partition
     from crp_tpu_torch.kernels.spmm_halo import align_displs, build_halo_plan, halo_buffers
     from crp_tpu_torch.kernels.spmm_pallas import spmm_window
@@ -1251,30 +1273,37 @@ def halo_phase(device) -> None:
         shards = [a.row_slice(int(d[i]), int(d[i + 1])) for i in range(4)]
         arrays, op = build_halo_plan(shards, aligned, device=device, dtype=dtype,
                                      precision=prec)
-        for n in (16, 37, 100, 256):
+        x3 = prec == "x3" and dtype == np.float32
+        one = prec == "default" and dtype == np.float32
+        panels = arrays[2:-2]
+        check(len(panels) == (2 if x3 else 1) and panels[0].dtype == (
+            torch.bfloat16 if x3 or one else torch.float64 if dtype == np.float64
+            else torch.float32), f"halo {prec}: the plan holds {[t.dtype for t in panels]}")
+        dead = int((arrays[-1] < 0).sum())
+        for n, b_off in ((16, 0), (37, 0), (100, 0), (100, 1), (256, 0)):
             bs = stacked_b(padded_b(a, a.ncol, n, dtype), aligned, op.min_b_rows)
             args = op.kernel_args(arrays, torch.from_numpy(bs).to(device))
+            if b_off:  # the kernel's B (bf16 at default) off 16 bytes
+                args = (*args[:5], misaligned(args[5], b_off), *args[6:])
             _, rel, _ = compare("spmm_halo", lambda: launch(op, args),
                                 lambda: op.plain(*args))
             c = launch(op, args)
             for i in range(4):
                 check(not bool(torch.any(c[i, d[i + 1] - d[i]:])),
                       f"halo {prec} shard {i}: pad rows not zero")
-            x3 = prec == "x3" and dtype == np.float32
-            if x3:  # #4 per shard on the pushed window buffers
-                check(isinstance(args[2], tuple) and args[2][0].dtype == torch.bfloat16,
-                      "halo x3: the plan does not hold the bf16 pair")
+            if x3 or one:  # #4 per shard on the pushed window buffers
                 buf = halo_buffers(args[3], args[5], op.buf_rows)
                 for i in range(4):
-                    c4 = spmm_window(args[1][i], tuple(t[i] for t in args[2]), buf[i],
-                                     "x3", min_b_rows=op.buf_rows)
+                    c4 = spmm_window(args[1][i], tuple(t[i] for t in args[2]) if x3
+                                     else args[2][i], buf[i], prec, min_b_rows=op.buf_rows)
                     check(torch.equal(c4.view(torch.int32), c[i].view(torch.int32)),
-                          f"halo x3 shard {i} n={n}: #12 differs from #4 by "
+                          f"halo {prec} shard {i} n={n}: #12 differs from #4 by "
                           f"{float((c4 - c[i]).abs().max())}")
             tol = TOL_PLAIN[dtype]
             msg = (f"halo spmm_halo {prec:8s} {np.dtype(dtype).name} p=4 G={op.G} "
-                   f"W={op.W} n={n:3d}: max rel err {rel:.3e} (tol {tol:g})"
-                   + (", C equal to #4's per shard" if x3 else ""))
+                   f"W={op.W} n={n:3d}{' B off 16 bytes' if b_off else ''}, {dead} "
+                   f"chunks past the matrix: max rel err {rel:.3e} (tol {tol:g})"
+                   + (", C equal to #4's per shard" if x3 or one else ""))
             check(rel <= tol, msg)
             say(msg)
 
@@ -1310,7 +1339,10 @@ def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto"):
     check((eng.kernel_kind, op.variant) == expect,
           f"{tag}: resolved to {eng.kernel_kind!r}/{op.variant!r}, expected {expect}")
     check_init_memory(tag, prec, eng, peak, held, "; panels " + ", ".join(
-        f"{t.dtype} {tuple(t.shape)}" for t in panels))
+        f"{t.dtype} {tuple(t.shape)} {nbytes(t) / 1e9:.3f} GB" for t in panels))
+    check(prec != "default" or {t.dtype for t in panels} == {torch.bfloat16},
+          f"{tag}: the default pack holds {[t.dtype for t in panels]}, not the bf16 "
+          f"hi plane alone")
     launches, _, exec_ms, bs = main_path(eng, b, c_ref, TOL_REF[prec], tag)
     want = 1 if eng.is_halo else p
     check(launches[op.kernel.__name__] == want,
@@ -1341,6 +1373,10 @@ def headline_p4(device) -> list:
         got = time_kernel(op, eng.packed, bs, "headline p=4 fused", prec,
                           csr_work(a), plain_inner=3)
         halo["max_abs"] = max(halo["max_abs"], got[0])
+        if prec == "default":  # the exec's B cast, outside the kernel's time
+            say(f"[headline p=4 default] fused: B cast to bf16 "
+                f"{time_ms(lambda: bs.to(torch.bfloat16)):.4f} ms a exec beside "
+                f"spmm_halo's {got[1]:.4f} ms")
         say(f"[headline p=4 {prec}] fused: B pushes {eng.physical_rows} rows "
             f"({eng.physical_rows * N * 4 / 1e6:.1f} MB), panels "
             f"{tuple(eng.packed[2].shape)}")
@@ -1363,6 +1399,10 @@ def headline_p4(device) -> list:
             got = time_kernel(op, arrs, rB[0], "headline p=4 unfused", prec,
                               csr_work(s0))
             window["max_abs"] = max(window["max_abs"], got[0])
+            if prec == "default":  # each shard's B cast, outside the kernel's time
+                cast = time_ms(lambda: rB[0].to(torch.bfloat16))
+                say(f"[headline p=4 default] unfused: B cast to bf16 {cast:.4f} ms a "
+                    f"shard ({rB.shape[0]} a exec) beside spmm_window's {got[1]:.4f} ms")
             if prec == "x3":
                 cols = np.searchsorted(eng.xplan.rowmap[0], s0.colidx)
                 lib = csr_library_ms(s0.rowptr, cols, s0.val, rB.shape[1], rB[0])
@@ -1468,18 +1508,20 @@ def tf32x3_layouts(build) -> None:
 
 def x3_layout(build) -> None:
     """Print the rings of the wgmma body once per library that builds it
-    (#1 with #5 and #2 as its modes, #4, #12, the ragged #7 with #8 as its
-    one-pass mode): stages, dynamic shared memory, threads, the block
-    tile, and for each of its kernels (fp32 B by 16-byte or plain copies,
-    #5's likewise on the bf16 planes, the one-pass mode's on one bf16
-    plane in its own deeper ring, #12's through the chunk table)
+    (#1 with #5 and #2 as its modes, #4 and #12 each with its default as
+    the one-pass mode, the ragged #7 with #8 as its one-pass mode): stages,
+    dynamic shared memory, threads, the block tile, and for each of its
+    kernels (fp32 B by 16-byte or plain copies, #5's likewise on the bf16
+    planes, the one-pass mode's on one bf16 plane in its own deeper ring,
+    #12's through the chunk table, in both modes)
     registers, spill bytes and resident blocks per SM, which must be 0 and
     at least 1."""
     for name, label, copies in (
         ("crp_window_sg_presplit", "crp_window_sg_presplit / _ab / _bf16",
          ("b16", "b4", "pair16", "pair2", "one16", "one2")),
-        ("crp_window_x3", "crp_window_x3", ("b16", "b4")),
-        ("crp_halo_x3", "crp_halo_x3", ("chunk16", "chunk4")),
+        ("crp_window_x3", "crp_window_x3 / _bf16", ("b16", "b4", "one16", "one2")),
+        ("crp_halo_x3", "crp_halo_x3 / _bf16",
+         ("chunk16", "chunk4", "chunkone16", "chunkone2")),
         ("crp_ragged_presplit", "crp_ragged_presplit / _bf16",
          ("b16", "b4", "one16", "one2")),
     ):

@@ -163,9 +163,11 @@ def x3_layout(name: str = "crp_window_sg_presplit") -> dict:
     ragged walk in ``ragged``), #5's on the bf16 B planes (``pair16.*``,
     ``pair2.*``, ``window_sg``), the one-pass mode on one bf16 B plane
     (``one16.*``, ``one2.*``, with its own ring: ``one.stages``,
-    ``one.smem_bytes``; #2 in ``window_sg``, #8 ``crp_ragged_bf16`` in
-    ``ragged``), and #12 ``crp_halo_x3``'s with B's rows through the chunk
-    table (``chunk16.*``, ``chunk4.*``, ``halo``)."""
+    ``one.smem_bytes``; #2 in ``window_sg``, #4 ``crp_window_bf16`` in
+    ``window``, #8 ``crp_ragged_bf16`` in ``ragged``), and #12's with B's
+    rows through the chunk table (``halo``: ``crp_halo_x3``'s
+    ``chunk16.*``, ``chunk4.*`` and ``crp_halo_bf16``'s one-pass
+    ``chunkone16.*``, ``chunkone2.*``)."""
     return _report(name, "crp_x3_layout")
 
 

@@ -27,8 +27,10 @@
 //                     registers, acc += al*bh + ah*bl + ah*bh in fp32: #4's
 //                     wgmma body fed by TMA (x3_wgmma.cuh) with the chunk
 //                     lookup on the producer's B copy, once a 64-row stage
-//   crp_halo_bf16  <- DEFAULT: fp32 A and B rounded to bf16 (RNE), one
-//                     product (the wmma body of panel_tiles.cuh)
+//   crp_halo_bf16  <- DEFAULT: the panels' bf16 hi plane, rounded once in
+//                     RNE when they are packed, and B cast to bf16 by the
+//                     caller, one product: #4's one-pass wgmma body
+//                     (x3_wgmma.cuh, ONE_PASS) with the same chunk lookup
 //   crp_halo_f32   <- HIGHEST: 3xTF32 on the TF32 tensor cores
 //                     (panel_tf32x3_kernel, #4's crp_window_f32 body): a
 //                     4-stage cp.async ring, dead chunks zero-filled by
@@ -38,6 +40,7 @@
 // per-32-row IEEE sums included.  At the p = 4 headline (4 x 214 groups,
 // W = 5632, n = 256) a pass is 632 GFLOP: x3's three bf16 passes 1.92 ms
 // at 989 TF/s (over 4.94 GB of hi/lo panels, 1.47 ms at 3.35 TB/s),
+// DEFAULT's one pass 0.64 ms, bound by its 2.47 GB of hi panels (0.74 ms),
 // HIGHEST's three TF32 passes 3.83 ms at 495 TF/s.
 
 #include "panel_tiles.cuh"
@@ -53,17 +56,19 @@ int crp_halo_x3(const void* chunk_src, const void* ws, const void* ah,
                                                           W, n, stream, chunk_src);
 }
 
-// crp_halo_x3's ring and resources (crp::x3_layout)
+// the wgmma body's rings and resources, crp_halo_x3's and crp_halo_bf16's
+// (crp::x3_layout)
 int crp_x3_layout(char* out, int len)
 {
     return crp::x3_layout<false, true>(out, len);
 }
 
-int crp_halo_bf16(const void* chunk_src, const void* ws, const void* tiles,
-                  const void* b, void* c, int64_t G, int64_t TM, int64_t W,
+int crp_halo_bf16(const void* chunk_src, const void* ws, const void* ah,
+                  const void* bh, void* c, int64_t G, int64_t TM, int64_t W,
                   int64_t n, void* stream)
 {
-    return crp::launch_mma<true>(ws, tiles, b, c, G, TM, W, n, stream, chunk_src);
+    return crp::launch_wgmma<crp::WgMode::ONE_PASS, true>(ws, ah, nullptr, bh, nullptr, c, G,
+                                                          TM, W, n, stream, chunk_src);
 }
 
 int crp_halo_f32(const void* chunk_src, const void* ws, const void* tiles,

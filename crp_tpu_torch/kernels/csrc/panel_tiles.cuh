@@ -28,14 +28,13 @@
 // fastest, so the N tiles of one (group, M tile) run on neighbouring blocks
 // and the later reads of an A slice come from L2.
 //
-// Three tile bodies: panel_mma_kernel (bf16 wmma on fp32 panels rounded on
-// the load path; one shared-memory stage, the next slice staged through
-// registers: default on #4 and #12), panel_fma_kernel (fp64 FMA, the same
-// staging: #3, #4, #6 and #12 on fp64) and panel_tf32x3_kernel (fp32 at
-// HIGHEST on the TF32 tensor cores, fed by a cp.async shared-memory ring,
-// see its section: #3, #4, #6 and #12).  The kernels on bf16 panels, x3
-// (#1, #5, #4, #12 and the ragged #7) and the one-pass default (#2 and the
-// ragged #8), run on wgmma fed by TMA instead (x3_wgmma.cuh).
+// Two tile bodies: panel_fma_kernel (fp64 FMA; one shared-memory stage,
+// the next slice staged through registers: #3, #4, #6 and #12 on fp64) and
+// panel_tf32x3_kernel (fp32 at HIGHEST on the TF32 tensor cores, fed by a
+// cp.async shared-memory ring, see its section: #3, #4, #6 and #12).  The
+// kernels on bf16 panels, x3 (#1, #5, #4, #12 and the ragged #7) and the
+// one-pass default (#2, #4, #12 and the ragged #8), run on wgmma fed by TMA
+// instead (x3_wgmma.cuh).
 
 #pragma once
 
@@ -45,12 +44,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace crp {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr int HALO_TK = 128;  // rows of one B ownership chunk (chunk_src)
 
@@ -77,214 +74,6 @@ __device__ __forceinline__ int64_t b_slice_row(const int32_t* chunk_src,
         *live = src >= 0;
         return (int64_t)src + r % HALO_TK;
     }
-}
-
-// ---------------------------------------------------------------- bf16 MMA
-
-constexpr int MMA_BM = 128;
-constexpr int MMA_BN = 128;
-constexpr int MMA_BK = 32;
-constexpr int MMA_THREADS = 256;  // 8 warps: 2 along M x 4 along N
-constexpr int A_LD = MMA_BK + 8;  // smem pitches (elements): multiples of 8
-constexpr int B_LD = MMA_BN + 8;  // for wmma, padded against bank conflicts
-constexpr int A_VECS = MMA_BM * MMA_BK / 8 / MMA_THREADS;  // uint4 per thread
-constexpr int B_ELEMS = MMA_BK * MMA_BN / MMA_THREADS;     // per thread
-
-// 8 fp32 values rounded to bf16 in RNE (the rounding of np_split_bf16's
-// hi and of the pack's device split, never a truncation), packed in order
-__device__ __forceinline__ void round8(const float4 (&v)[2], uint4& hi)
-{
-    const float x[8] = {v[0].x, v[0].y, v[0].z, v[0].w,
-                        v[1].x, v[1].y, v[1].z, v[1].w};
-    uint32_t h[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-        const bf16 h0 = __float2bfloat16_rn(x[2 * q]);
-        const bf16 h1 = __float2bfloat16_rn(x[2 * q + 1]);
-        // element 2q at the lower address: the low half of the word
-        h[q] = __bfloat16_as_ushort(h0) | ((uint32_t)__bfloat16_as_ushort(h1) << 16);
-    }
-    hi = make_uint4(h[0], h[1], h[2], h[3]);
-}
-
-// One bf16 product (#4 and #12 at default): A arrives as fp32 panels and B
-// as fp32, each rounded to bf16 in RNE on its way to shared memory.  `al`
-// is not read: it holds the later parameters at the offsets the two
-// entries' machine code was checked at.
-template <bool CHUNKED = false>
-__global__ void __launch_bounds__(MMA_THREADS)
-panel_mma_kernel(const int32_t* __restrict__ group_ptr,
-                 const int32_t* __restrict__ starts,
-                 const float* __restrict__ a_f,
-                 const bf16* __restrict__ al,
-                 const float* __restrict__ b_f,
-                 float* __restrict__ c,
-                 int64_t TM, int64_t W, int64_t n, int64_t n_tiles,
-                 const int32_t* __restrict__ chunk_src)
-{
-    __shared__ __align__(128) bf16 As_h[MMA_BM][A_LD];
-    __shared__ __align__(128) bf16 Bs_h[MMA_BK][B_LD];
-    __shared__ __align__(128) float Cs[MMA_THREADS / 32][16 * 16];
-
-    const int tid = threadIdx.x;
-    const int64_t tile = blockIdx.x;
-    const int64_t nt = tile % n_tiles;
-    const int64_t row0 = (tile / n_tiles) * MMA_BM;  // first C row
-    const int64_t g = row0 / TM;                      // TM % MMA_BM == 0
-    const int64_t r_in = row0 - g * TM;               // first row in the group
-    const int64_t n0 = nt * MMA_BN;
-    int64_t s_begin, s_end;
-    group_chunks(group_ptr, g, &s_begin, &s_end);
-    const int64_t nk = W / MMA_BK;                    // k slices per chunk
-
-    // B tile: thread owns column cc and rows (tid / BN) + 2 i
-    const int cc = tid & (MMA_BN - 1);
-    const bool col_ok = n0 + cc < n;
-
-    uint4 ra_h[A_VECS];
-    float4 ra_f[A_VECS][2];  // 8 fp32 A values per vector
-    float rb_f[B_ELEMS];
-
-    // slice t of the group's walk: chunk s_begin + t / nk, k0 = (t % nk) BK
-    auto load_tile = [&](int64_t t) {
-        const int64_t s = s_begin + t / nk;
-        const int64_t k0 = (t % nk) * MMA_BK;
-        bool b_live;
-        const int64_t b_row0 =
-            b_slice_row<CHUNKED>(chunk_src, starts[s] + k0, &b_live);
-        const bool b_ok = col_ok && b_live;
-        const size_t a0 = (size_t)(s * TM + r_in) * W + k0;
-#pragma unroll
-        for (int i = 0; i < A_VECS; ++i) {
-            const int idx = tid + i * MMA_THREADS;
-            const size_t off = a0 + (size_t)(idx >> 2) * W + (idx & 3) * 8;
-            const float4* p = reinterpret_cast<const float4*>(a_f + off);
-            ra_f[i][0] = p[0];
-            ra_f[i][1] = p[1];
-        }
-#pragma unroll
-        for (int i = 0; i < B_ELEMS; ++i) {
-            const int r = (tid / MMA_BN) + (MMA_THREADS / MMA_BN) * i;
-            const size_t off = (size_t)(b_row0 + r) * n + n0 + cc;
-            rb_f[i] = b_ok ? b_f[off] : 0.0f;
-        }
-    };
-
-    auto store_tile = [&]() {
-#pragma unroll
-        for (int i = 0; i < A_VECS; ++i) {
-            const int idx = tid + i * MMA_THREADS;
-            const int r = idx >> 2, k8 = (idx & 3) * 8;
-            round8(ra_f[i], ra_h[i]);
-            *reinterpret_cast<uint4*>(&As_h[r][k8]) = ra_h[i];
-        }
-#pragma unroll
-        for (int i = 0; i < B_ELEMS; ++i) {
-            const int r = (tid / MMA_BN) + (MMA_THREADS / MMA_BN) * i;
-            Bs_h[r][cc] = __float2bfloat16_rn(rb_f[i]);
-        }
-    };
-
-    const int warp = tid >> 5;
-    const int wm = warp >> 2;  // 64-row slab of the tile
-    const int wn = warp & 3;   // 32-column slab of the tile
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    // The tensor cores' fp32 accumulation does not round to nearest: carried
-    // over a whole 5632-row window it drifts ~2e-6 (relative) from an IEEE
-    // sum of the same exact products (measured at the windowed headline).
-    // So the MMAs of one BK slice go into a fresh fragment, and the running
-    // sum is kept with IEEE fp32 adds -- the TPU kernels' two levels too (an
-    // MXU partial per chunk, a VPU add across chunks).
-    auto compute_tile = [&]() {
-        constexpr int KS = MMA_BK / 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb_h[KS][2];
-#pragma unroll
-        for (int s = 0; s < KS; ++s) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(fb_h[s][j], &Bs_h[s * 16][wn * 32 + j * 16], B_LD);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa_h[KS];
-#pragma unroll
-            for (int s = 0; s < KS; ++s)
-                wmma::load_matrix_sync(fa_h[s], &As_h[wm * 64 + i * 16][s * 16], A_LD);
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                wmma::fragment<wmma::accumulator, 16, 16, 16, float> part;
-                wmma::fill_fragment(part, 0.0f);
-#pragma unroll
-                for (int s = 0; s < KS; ++s)
-                    wmma::mma_sync(part, fa_h[s], fb_h[s][j], part);
-#pragma unroll
-                for (int e = 0; e < part.num_elements; ++e)
-                    acc[i][j].x[e] += part.x[e];
-            }
-        }
-    };
-
-    // one shared-memory stage, the next slice prefetched into registers
-    const int64_t nt_k = (s_end - s_begin) * nk;
-    if (nt_k > 0) {
-        load_tile(0);
-        store_tile();
-        __syncthreads();
-    }
-    for (int64_t kt = 0; kt < nt_k; ++kt) {
-        if (kt + 1 < nt_k) load_tile(kt + 1);
-        compute_tile();
-        __syncthreads();
-        if (kt + 1 < nt_k) {
-            store_tile();
-            __syncthreads();
-        }
-    }
-
-    // epilogue: each warp stages one 16x16 fragment at a time and writes
-    // the columns below n (the ragged N edge is masked here, n is not padded)
-    float* cs = Cs[warp];
-    const int lane = tid & 31;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-            __syncwarp();
-            const int64_t r0 = row0 + wm * 64 + i * 16;
-            const int64_t c0 = n0 + wn * 32 + j * 16;
-            for (int e = lane; e < 256; e += 32) {
-                const int64_t col = c0 + (e & 15);
-                if (col < n) c[(size_t)(r0 + (e >> 4)) * n + col] = cs[e];
-            }
-            __syncwarp();
-        }
-    }
-}
-
-// the uniform windowed pack: group g owns the one chunk g, at ws[g]
-template <bool CHUNKED = false>
-int launch_mma(const void* ws, const void* a, const void* b, void* c, int64_t G, int64_t TM,
-               int64_t W, int64_t n, void* stream, const void* chunk_src = nullptr)
-{
-    if (G < 0 || TM <= 0 || TM % MMA_BM || W <= 0 || W % MMA_BK || n < 0)
-        return (int)cudaErrorInvalidValue;
-    const int64_t n_tiles = (n + MMA_BN - 1) / MMA_BN;
-    const int64_t blocks = G * (TM / MMA_BM) * n_tiles;
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    if (blocks > 0)
-        panel_mma_kernel<CHUNKED>
-            <<<(unsigned)blocks, MMA_THREADS, 0, (cudaStream_t)stream>>>(
-                nullptr, static_cast<const int32_t*>(ws), static_cast<const float*>(a),
-                nullptr, static_cast<const float*>(b), static_cast<float*>(c),
-                TM, W, n, n_tiles, static_cast<const int32_t*>(chunk_src));
-    return (int)cudaGetLastError();
 }
 
 // --------------------------------------------------------------- FMA path
@@ -444,8 +233,8 @@ int launch_fma(const void* group_ptr, const void* starts, const void* tiles,
 // a_big b_big.  What is dropped (a_small b_small, and the two smalls' own
 // rounding) is at most 3 * 2^-22 |a b| per product, against fp32's 2^-24
 // per rounding: the plain version's function (fp32 products, IEEE sums)
-// to within TOL_PLAIN.  As in the wmma body, each 32-row k slice sums into a
-// fresh accumulator that is added to the running sum with IEEE fp32 adds
+// to within TOL_PLAIN.  As in the wgmma body (x3_wgmma.cuh), each 32-row k
+// slice sums into a fresh accumulator that is added to the running sum with IEEE fp32 adds
 // (the tensor cores' own accumulation does not round to nearest).
 //
 // The block owns a 128 x 64 output tile with 4 warps (2 along M x 2 along

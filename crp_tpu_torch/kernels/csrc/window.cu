@@ -18,9 +18,13 @@
 //                       acc += al*bh + ah*bl + ah*bh in fp32: the wgmma
 //                       body of #1 fed by TMA (x3_wgmma.cuh), its own entry
 //                       so that #4 keeps its launch count and its row
-//   crp_window_bf16  <- precision DEFAULT: fp32 A and B rounded to bf16
-//                       (RNE) on the load path, one bf16 product, fp32 sums
-//                       (the wmma body of panel_tiles.cuh)
+//   crp_window_bf16  <- precision DEFAULT: the panels arrive as their bf16
+//                       hi plane, rounded once in RNE when they are packed
+//                       (the rounding the TPU kernel makes of its fp32
+//                       panels on every read), and B cast to bf16 (RNE) by
+//                       the caller; one bf16 product, fp32 sums: #2's
+//                       one-pass wgmma body (x3_wgmma.cuh, ONE_PASS), its
+//                       own entry so that #4 keeps its launch count and row
 //   crp_window_f32   <- HIGHEST: 3xTF32 on the TF32 tensor cores, A and B
 //                       split to tf32 big/small (cvt.rna's bits) as their
 //                       fragments are read, acc += as*bb + ab*bs + ab*bb
@@ -38,9 +42,10 @@
 // What bounds it on an H100 at the p = 4 headline shard (G = 214, TM = 256,
 // W = 5632, n = 256), each pass 157 GFLOP of products over panels of 1.23
 // GB at fp32 (0.37 ms at 3.35 TB/s): x3 three bf16 passes over the hi/lo
-// pair (the same bytes), 0.48 ms at 989 TF/s; DEFAULT one bf16 pass over
-// the fp32 panels, bound by their bytes; HIGHEST three TF32 passes, 0.96
-// ms at 495 TF/s (one fp32 FMA pass would be 2.36 ms at 67 TF/s).
+// pair (the same bytes), 0.48 ms at 989 TF/s; DEFAULT one bf16 pass (0.16
+// ms) over the 0.62 GB hi plane, bound by its bytes (0.18 ms); HIGHEST
+// three TF32 passes, 0.96 ms at 495 TF/s (one fp32 FMA pass would be 2.36
+// ms at 67 TF/s).
 
 #include "panel_tiles.cuh"
 #include "x3_wgmma.cuh"
@@ -54,16 +59,18 @@ int crp_window_x3(const void* ws, const void* ah, const void* al, const void* b,
                                                     stream);
 }
 
-// crp_window_x3's ring and resources (crp::x3_layout)
+// the wgmma body's rings and resources, crp_window_x3's and
+// crp_window_bf16's (crp::x3_layout)
 int crp_x3_layout(char* out, int len)
 {
     return crp::x3_layout<false, false>(out, len);
 }
 
-int crp_window_bf16(const void* ws, const void* tiles, const void* b, void* c,
+int crp_window_bf16(const void* ws, const void* ah, const void* bh, void* c,
                     int64_t G, int64_t TM, int64_t W, int64_t n, void* stream)
 {
-    return crp::launch_mma(ws, tiles, b, c, G, TM, W, n, stream);
+    return crp::launch_wgmma<crp::WgMode::ONE_PASS>(ws, ah, nullptr, bh, nullptr, c, G, TM,
+                                                    W, n, stream);
 }
 
 int crp_window_f32(const void* ws, const void* tiles, const void* b, void* c,

@@ -4,9 +4,10 @@
 // (crp_window_x3, every multi-shard pack) in window.cu, the fused halo
 // kernel #12 (crp_halo_x3) in halo.cu and the ragged #7
 // (crp_ragged_presplit) in ragged.cu; in one bf16 pass on the hi panels,
-// the super-grouped default #2 (crp_window_sg_bf16) in window_sg.cu and
-// the ragged default #8 (crp_ragged_bf16) in ragged.cu.  The kernel's MODE
-// (WgMode below) picks the products, CHUNKED and RAGGED the walk.
+// the default entries: the super-grouped #2 (crp_window_sg_bf16) in
+// window_sg.cu, #4 (crp_window_bf16) in window.cu, #12 (crp_halo_bf16) in
+// halo.cu and the ragged #8 (crp_ragged_bf16) in ragged.cu.  The kernel's
+// MODE (WgMode below) picks the products, CHUNKED and RAGGED the walk.
 //
 // A uniform pack: group g holds the bf16 hi and lo (TM, W) panels of A
 // over the B rows [ws[g], ws[g] + W), and
@@ -17,15 +18,17 @@
 // rounded), or arriving pre-split as two bf16 planes (PAIR_B, #5: the
 // caller's split is the same RNE split, so the products and C are #1's
 // bit for bit).  The panels are split once when they are packed: the
-// multi-shard packs of #4 and #12 densify straight to the pair (TMA copies
-// bytes and cannot split), the same RNE split the TPU kernels make of their
-// fp32 panels on every read.
+// multi-shard packs of #4 and #12 densify straight to the pair at x3, and
+// to the hi plane alone at default (TMA copies bytes and can neither split
+// nor round), the same RNE split the TPU kernels make of their fp32 panels
+// on every read.
 //
-// With CHUNKED (#12) B row r is row chunk_src[r / HALO_TK] + r % HALO_TK
-// of b, the row of the shard that owns it, or zero where chunk_src holds
-// -1 (past the matrix).  Every window start is a multiple of HALO_TK, so a
-// 64-row stage never straddles two chunks: the producer looks its chunk up
-// once a stage.  The other kernels compile without the lookup.
+// With CHUNKED (#12, x3 and one pass) B row r is row chunk_src[r / HALO_TK]
+// + r % HALO_TK of b, the row of the shard that owns it, or zero where
+// chunk_src holds -1 (past the matrix).  Every window start is a multiple
+// of HALO_TK, so a 64-row stage never straddles two chunks: the producer
+// looks its chunk up once a stage, whatever B's element type.  The other
+// kernels compile without the lookup.
 //
 // With RAGGED (#7, #8) the panels are a ragged pack's (S, TM, W) chunks:
 // group g owns the chunks s in [group_ptr[g], group_ptr[g + 1]), chunk s
@@ -38,17 +41,17 @@
 // are walked like any other, and the pack's group_ptr stops short of a
 // shard's trailing no-op steps.  The other kernels compile without it.
 //
-// ONE_PASS (#2): C[g*TM + r, j] = sum_k (ah*bh)[r, k, j], B cast to bf16 by
-// the caller (as the TPU kernel's caller does).  A stage holds the hi tile
-// and one bf16 B plane, half an x3 stage, so its ring is twice as deep (6
-// stages); one wgmma per k16 in place of three, its B fragment read by one
-// ldmatrix.trans (5% faster than 2-byte loads, PERF.md).  The fresh
-// partial per 32-row slice stays (carried over a whole 5632-row window the
-// tensor cores' own sum drifts ~2e-6, outside the 1e-6 the kernel is held
-// to).  Each slice's products are waited for before its adds, as at x3:
-// the two consumer warpgroups interleave, so overlapping a slice's adds
-// with its products (two fresh partials in turn, wgmma.wait_group 1)
-// bought under 1% when measured (PERF.md).
+// ONE_PASS (#2, #4, #12, #8): C[g*TM + r, j] = sum_k (ah*bh)[r, k, j], B
+// cast to bf16 by the caller (as the TPU kernel's caller does for #2).  A
+// stage holds the hi tile and one bf16 B plane, half an x3 stage, so its
+// ring is twice as deep (6 stages); one wgmma per k16 in place of three, its
+// B fragment read by one ldmatrix.trans (5% faster than 2-byte loads,
+// PERF.md).  The fresh partial per 32-row slice stays (carried over a whole
+// 5632-row window the tensor cores' own sum drifts ~2e-6, outside the 1e-6
+// the kernel is held to).  Each slice's products are waited for before its
+// adds, as at x3: the two consumer warpgroups interleave, so overlapping a
+// slice's adds with its products (two fresh partials in turn,
+// wgmma.wait_group 1) bought under 1% when measured (PERF.md).
 //
 // The body computes the transposed product, C^T = B^T A^T, so that each
 // operand sits where wgmma wants it:
@@ -87,19 +90,20 @@
 // What bounds it on an H100 (x3: three bf16 passes at 989 TF/s against the
 // hi/lo panels once from HBM at 3.35 TB/s): at the p = 1 headline (G = 852,
 // TM = 256, W = 5632, n = 256) 1.89 TFLOP, 1.91 ms, over 4.91 GB of panels
-// (1.47 ms); at one p = 4 headline shard (#4: G = 214, W = 5632) 0.47
-// TFLOP, 0.48 ms, over 1.23 GB (0.37 ms); over all four shards (#12: 4 x
-// 214 groups) 1.90 TFLOP, 1.92 ms, over 4.94 GB.  Every block also reads
-// its B window (64 rows x 128 columns a stage, as many bytes as the two
-// panel tiles) from L2.  ONE_PASS at the headline: 0.63 TFLOP (0.64 ms)
-// over 2.46 GB of hi panels (0.73 ms): the bytes bound it.  At the cplaw
-// ragged pack (S = 12,322 chunks, TM = 512, W = 128, n = 256) the bytes
-// bound both modes: x3 1.24 TFLOP (1.25 ms) against 3.23 GB of hi/lo
+// (1.47 ms); at one p = 4 headline shard (#4: G = 214, W = 5632) 0.47 TFLOP,
+// 0.48 ms, over 1.23 GB (0.37 ms); over all four shards (#12: 4 x 214
+// groups) 1.90 TFLOP, 1.92 ms, over 4.94 GB.  Every block also reads its B
+// window (64 rows x 128 columns a stage, as many bytes as the two panel
+// tiles) from L2.  ONE_PASS at the headline: 0.63 TFLOP (0.64 ms) over 2.46
+// GB of hi panels (0.73 ms): the bytes bound it, as they bound #4 on one p =
+// 4 shard (0.62 GB, 0.18 ms) and #12 on all four (2.47 GB, 0.74 ms).  At the
+// cplaw ragged pack (S = 12,322 chunks, TM = 512, W = 128, n = 256) the
+// bytes bound both modes: x3 1.24 TFLOP (1.25 ms) against 3.23 GB of hi/lo
 // panels, 0.81 GB of B and 0.81 GB of C (1.45 ms); one pass 0.41 TFLOP
 // against 1.62 GB of hi panels, B in bf16 and C (0.84 ms).  There a block
-// walks 8 chunks of 2 stages on average, against 88 stages at the
-// headline, so its fixed costs (barrier init, filling the ring, the C
-// epilogue) weigh about 5x more.
+// walks 8 chunks of 2 stages on average, against 88 stages at the headline,
+// so its fixed costs (barrier init, filling the ring, the C epilogue) weigh
+// about 5x more.
 
 #pragma once
 
@@ -123,9 +127,9 @@ constexpr int X3_C_LD = X3_BN + 4;    // fp32 pitch of the staged C^T tile
 static_assert(X3_BK * X3_B_LD * 4 <= X3_B_BYTES, "fp32 B slice fits the stage");
 
 // What a block multiplies: three bf16 products on fp32 B split in
-// registers (SPLIT_B: #1, #4, #12) or on B pre-split to two bf16 planes
+// registers (SPLIT_B: #1, #4, #12, #7) or on B pre-split to two bf16 planes
 // (PAIR_B: #5), or one bf16 product of the hi panels and a bf16 B
-// (ONE_PASS: #2)
+// (ONE_PASS: #2, #4, #12, #8)
 enum class WgMode { SPLIT_B, PAIR_B, ONE_PASS };
 
 // The ring of a mode: a stage holds the hi tile (and x3's lo tile), then
@@ -413,7 +417,8 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 const int32_t* __restrict__ group_ptr)
 {
     using Ring = WgRing<MODE>;
-    static_assert(!(CHUNKED && MODE != WgMode::SPLIT_B), "the chunk lookup reads fp32 B");
+    static_assert(!(CHUNKED && MODE == WgMode::PAIR_B),
+                  "the chunk lookup serves #12 (SPLIT_B and ONE_PASS)");
     static_assert(!(RAGGED && (CHUNKED || MODE == WgMode::PAIR_B)),
                   "the ragged walk serves #7 (SPLIT_B) and #8 (ONE_PASS)");
     extern __shared__ __align__(16) uint8_t x3_smem_raw[];
@@ -674,24 +679,25 @@ cudaError_t x3_resources(const char* copy, char* out, int len)
 // resources: "b16" and "b4" (#1, #4 and with RAGGED #7, fp32 B by 16-byte
 // copies or by plain 4-byte loads), with CHUNKED "chunk16" and "chunk4" in
 // their place (#12, B's rows through chunk_src); with SG (window_sg.cu)
-// also "pair16" and "pair2" (#5, the bf16 planes likewise); with SG or
-// RAGGED (ragged.cu) the one-pass ring ("one.stages", "one.smem_bytes")
-// and kernels "one16" and "one2" (#2 or #8, the bf16 B plane by 16-byte
-// copies or by plain 2-byte loads)
+// also "pair16" and "pair2" (#5, the bf16 planes likewise); then the
+// one-pass ring ("one.stages", "one.smem_bytes") and its kernels "one16"
+// and "one2" (#2, #4 or with RAGGED #8, the bf16 B plane by 16-byte copies
+// or by plain 2-byte loads), with CHUNKED "chunkone16" and "chunkone2" in
+// their place (#12 at default)
 template <bool SG, bool CHUNKED, bool RAGGED = false>
 inline int x3_layout(char* out, int len)
 {
     static_assert(SG + CHUNKED + RAGGED <= 1, "no library builds two of them");
     using X3 = WgRing<WgMode::SPLIT_B>;
     using One = WgRing<WgMode::ONE_PASS>;
-    int used = snprintf(out, len, "stages=%d smem_bytes=%d threads=%d BM=%d BN=%d BK=%d",
-                        X3::STAGES, X3::SMEM, X3_THREADS, X3_BM, X3_BN, X3_BK);
-    if constexpr (SG || RAGGED)
-        used += snprintf(out + used, len - used, " one.stages=%d one.smem_bytes=%d",
-                         One::STAGES, One::SMEM);
+    int used = snprintf(out, len,
+                        "stages=%d smem_bytes=%d threads=%d BM=%d BN=%d BK=%d"
+                        " one.stages=%d one.smem_bytes=%d",
+                        X3::STAGES, X3::SMEM, X3_THREADS, X3_BM, X3_BN, X3_BK, One::STAGES,
+                        One::SMEM);
     using Report = cudaError_t (*)(const char*, char*, int);
     struct Kernel { const char* copy; Report report; };
-    constexpr WgMode SPLIT = WgMode::SPLIT_B;
+    constexpr WgMode SPLIT = WgMode::SPLIT_B, ONE = WgMode::ONE_PASS;
     Kernel kernels[6] = {
         {CHUNKED ? "chunk16" : "b16", x3_resources<SPLIT, true, CHUNKED, RAGGED>},
         {CHUNKED ? "chunk4" : "b4", x3_resources<SPLIT, false, CHUNKED, RAGGED>}};
@@ -700,10 +706,10 @@ inline int x3_layout(char* out, int len)
         kernels[count++] = {"pair16", x3_resources<WgMode::PAIR_B, true>};
         kernels[count++] = {"pair2", x3_resources<WgMode::PAIR_B, false>};
     }
-    if constexpr (SG || RAGGED) {
-        kernels[count++] = {"one16", x3_resources<WgMode::ONE_PASS, true, false, RAGGED>};
-        kernels[count++] = {"one2", x3_resources<WgMode::ONE_PASS, false, false, RAGGED>};
-    }
+    kernels[count++] = {CHUNKED ? "chunkone16" : "one16",
+                        x3_resources<ONE, true, CHUNKED, RAGGED>};
+    kernels[count++] = {CHUNKED ? "chunkone2" : "one2",
+                        x3_resources<ONE, false, CHUNKED, RAGGED>};
     for (int i = 0; i < count; ++i) {
         const cudaError_t e = kernels[i].report(kernels[i].copy, out + used, len - used);
         if (e != cudaSuccess) return (int)e;

@@ -26,6 +26,19 @@ _SLAB = 1 << 25  # panel elements densified at a time in the bf16 modes (whole p
 MODES = ("pair", "bf16", "f32", "f64")
 
 
+def panel_mode(dtype, precision: str) -> str:
+    """The densify mode of a pack of ``dtype`` at operating point
+    ``precision``: on fp32 the bf16 hi/lo pair at ``x3`` and the hi plane at
+    ``default``, the operands of the ``wgmma`` body (fed by TMA, which copies
+    and can neither split nor round); fp32 panels at ``highest``, fp64
+    panels in fp64."""
+    if np.dtype(dtype) == np.float64:
+        return "f64"
+    if np.dtype(dtype) == np.float32:
+        return {"x3": "pair", "default": "bf16"}.get(precision, "f32")
+    return "f32"
+
+
 def split_bf16(t: torch.Tensor, with_lo: bool):
     """RNE bf16 hi (and lo = bf16(t - hi)) halves of fp32 ``t``."""
     flat = t.reshape(-1)

@@ -216,12 +216,14 @@ class WindowOp:
     bases), ``"bf16"`` (ws, ah, bases), ``"full"`` (ws, tiles, bases);
     ``bases`` stays in the pack for parity with the JAX pack, the Hopper
     kernels read only ``ws``.  On a pack with no super-group plan (variant
-    ``"window"``, every multi-shard pack): ``"window"`` (ws, tiles), fp32 or
-    fp64 panels, the operating point ``precision`` applied in the kernel;
-    ``"window_x3"`` (ws, ah, al) at ``x3`` on fp32, the panels split to
-    their bf16 hi/lo pair once at pack time, as kernel #4's ``wgmma`` body
-    reads them (the kernel's arguments take the pair as one ``(ah, al)``).
-    ``min_b_rows``: rows rB must have.
+    ``"window"``, every multi-shard pack): ``"window"`` (ws, tiles), fp32
+    panels at ``highest`` or fp64 panels; on fp32 ``"window_x3"`` (ws, ah,
+    al) at ``x3``, the panels split to their bf16 hi/lo pair once at pack
+    time, and ``"window_bf16"`` (ws, ah) at ``default``, the panels rounded
+    to their bf16 hi plane once at pack time, as kernel #4's ``wgmma`` body
+    reads them (TMA copies and can neither split nor round; the kernel's
+    arguments take the pair as one ``(ah, al)``, and B cast to bf16 beside
+    the plane).  ``min_b_rows``: rows rB must have.
     """
 
     scheme: str
@@ -231,7 +233,7 @@ class WindowOp:
 
     @property
     def variant(self) -> str:
-        return "window" if self.scheme in ("window", "window_x3") else "uniform"
+        return "window" if self.scheme.startswith("window") else "uniform"
 
     @property
     def kernel(self):
@@ -242,6 +244,7 @@ class WindowOp:
             "full": spmm_window_sg,
             "window": spmm_window,
             "window_x3": spmm_window,
+            "window_bf16": spmm_window,
         }[self.scheme]
 
     @property
@@ -253,6 +256,7 @@ class WindowOp:
             "full": spmm_window_sg_plain,
             "window": spmm_window_plain,
             "window_x3": spmm_window_plain,
+            "window_bf16": spmm_window_plain,
         }[self.scheme]
 
     def kernel_args(self, arrs, rB) -> tuple:
@@ -270,6 +274,9 @@ class WindowOp:
         if self.scheme == "window_x3":
             ws, ah, al = arrs
             return ws, (ah, al), rB, self.precision
+        if self.scheme == "window_bf16":
+            ws, ah = arrs
+            return ws, ah, rB.to(torch.bfloat16), self.precision
         ws, tiles, _ = arrs
         return ws, tiles, rB
 
@@ -524,12 +531,15 @@ def _pack_window(shards, max_m, dtype, mxu_precision, device):
     """The pack of kernel #4 (``dispatch.py:633-668,793-812``): each
     shard's window panels at a shared chunk-exact W and group count G,
     ``(p, G, TM, W)`` panels densified on the device; an empty shard gets
-    zero panels with ``ws`` 0.  At ``x3`` on fp32 the panels are split to
-    their bf16 hi/lo pair once here (``device_pack.split_bf16`` of the JAX
-    pack's fp32 panels, bit for bit: the split the TPU kernel makes on
-    every read, which TMA cannot make); otherwise they stay in the pack's
-    dtype (the JAX pack) and the kernel rounds them.  ``a_bytes`` is the
-    same either way: two bf16 planes are the bytes of one fp32 plane."""
+    zero panels with ``ws`` 0.  On fp32 at ``x3`` the panels are split to
+    their bf16 hi/lo pair once here, and at ``default`` rounded to their
+    bf16 hi plane (``device_pack.split_bf16`` of the JAX pack's fp32
+    panels, bit for bit: the split and the rounding the TPU kernel makes on
+    every read, which TMA cannot make), densified slab by slab; at
+    ``highest`` and in fp64 they stay in the pack's dtype (the JAX pack).
+    ``a_bytes`` counts the panels held: the pair is the bytes of one fp32
+    plane, the hi plane half of them (and B is then read in bf16, as JAX's
+    #2 pack counts it)."""
     TM = 256
     itemsize = np.dtype(dtype).itemsize
     got = [_shard_window(s, TM, itemsize) for s in shards]
@@ -538,20 +548,19 @@ def _pack_window(shards, max_m, dtype, mxu_precision, device):
         raise UnsupportedSparsity("all shards empty")
     G = max(max(g[2] for g in real), -(-max_m // TM))
     W, _, _ = choose_chunks(max(g[1] for g in real))
-    split = itemsize == 4 and mxu_precision == "x3"
+    mode = device_pack.panel_mode(dtype, mxu_precision)
     ws, ah, al = device_pack.uniform_fill_stacked(
-        shards, [None if g is None else g[0] for g in got], TM, W, G,
-        "f64" if itemsize == 8 else "pair" if split else "f32", device,
+        shards, [None if g is None else g[0] for g in got], TM, W, G, mode, device,
     )
-    panels = (ah, al) if split else (ah,)
+    panels = (ah, al) if mode == "pair" else (ah,)
     roofline = dict(
         G=G, TM=TM, W=W, a_bytes=sum(t.numel() * t.element_size() for t in panels),
-        b_rows_read=G * W, c_rows=G * TM, b_itemsize=itemsize,
+        b_rows_read=G * W, c_rows=G * TM, b_itemsize=2 if mode == "bf16" else itemsize,
         passes={"x3": 3, "highest": 6, "default": 1}.get(mxu_precision, 1),
     )
+    scheme = {"pair": "window_x3", "bf16": "window_bf16"}.get(mode, "window")
     return ((torch.from_numpy(ws).to(device), *panels),
-            WindowOp("window_x3" if split else "window", int(ws.max()) + W,
-                     roofline, mxu_precision))
+            WindowOp(scheme, int(ws.max()) + W, roofline, mxu_precision))
 
 
 def _finish_window_pack(scheme, ws_full, panels, G0, TM, W, sg, b_itemsize,
@@ -800,12 +809,8 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
             big[0], big[1], mxu_precision, small=device.type == "cpu"
         )
     TM, Wc = geometry
-    is_f32 = np.dtype(dtype) == np.float32
     pack_dtype = np.float64 if np.dtype(dtype) == np.float64 else np.float32
-    if is_f32 and mxu_precision in ("default", "x3"):
-        mode = "pair" if mxu_precision == "x3" else "bf16"
-    else:
-        mode = "f64" if pack_dtype == np.float64 else "f32"
+    mode = device_pack.panel_mode(dtype, mxu_precision)
     if min_chunk_nnz is None:
         min_chunk_nnz = default_min_chunk_nnz(TM, Wc)
 
@@ -1060,10 +1065,11 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
     (ws, tiles, bases) for fp32/fp64; for a pack with no super-group plan
     (every multi-shard pack) (ws, tiles), whose fp32 panels at x3 are split
     to their bf16 hi/lo pair on upload (:func:`_pack_window`'s scheme
-    ``"window_x3"``, bit for bit); for ``variant="ragged"`` the ragged
-    pack's (step_g, step_first, starts, *panels, *spill), to which the step
-    ranges the CUDA kernels read are appended (and, for the fused spill,
-    its row-ordered view); for ``variant="gather"`` the gather pack's (rel,
+    ``"window_x3"``, bit for bit) and at default rounded to their bf16 hi
+    plane (scheme ``"window_bf16"``, the roofline's bytes its own); for
+    ``variant="ragged"`` the ragged pack's (step_g, step_first, starts,
+    *panels, *spill), to which the step ranges the CUDA kernels read are
+    appended (and, for the fused spill, its row-ordered view); for ``variant="gather"`` the gather pack's (rel,
     cols, vals, first, blk), plus the row-ordered view, its output rows and operating point read from ``roofline`` (G blocks
     of TM rows, passes); for ``variant="dd_mxu"`` the dd_mxu pack's (step_g,
     step_first, starts, mu, slices), whose fp64 panels are rebuilt as
@@ -1108,6 +1114,10 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
         if prec == "x3" and tiles.dtype == torch.float32:
             ah, al = device_pack.split_bf16(tiles, with_lo=True)
             return (ws, ah, al), WindowOp("window_x3", int(min_b_rows), roofline, prec)
+        if prec == "default" and tiles.dtype == torch.float32:
+            ah, _ = device_pack.split_bf16(tiles, with_lo=False)
+            roofline.update(a_bytes=ah.numel() * ah.element_size(), b_itemsize=2)
+            return (ws, ah), WindowOp("window_bf16", int(min_b_rows), roofline, prec)
         return tensors, WindowOp("window", int(min_b_rows), roofline, prec)
     if len(tensors) == 4:
         scheme = "x3"

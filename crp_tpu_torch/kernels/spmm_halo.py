@@ -17,11 +17,12 @@ columns with non-decreasing window starts (else
 :class:`UnsupportedSparsity`, and the engines take the unfused ``pallas``
 path), panels at a shared chunk-exact W, and the push lists, which the
 plain version replays and the audit counts.  The panels are densified on
-the device: at ``x3`` on fp32 straight to the bf16 hi/lo pair, the RNE
-split the TPU kernel makes of its fp32 panels on every read (TMA, which
-feeds the x3 ``wgmma`` body, cannot split; two bf16 planes are the bytes
-of one fp32 plane); otherwise in fp32 (or fp64), rounded or split in the
-kernel at the operating point, as the TPU kernel does.
+the device: on fp32 at ``x3`` straight to the bf16 hi/lo pair, and at
+``default`` to the hi plane alone, the RNE split and rounding the TPU
+kernel makes of its fp32 panels on every read (TMA, which feeds the
+``wgmma`` body, can do neither; two bf16 planes are the bytes of one fp32
+plane, the hi plane half of them); at ``highest`` in fp32 (and fp64),
+split in the kernel, as the TPU kernel does.
 
 :func:`spmm_halo` launches the kernel for CUDA tensors and counts the
 launch in its ``launches`` attribute; for CPU tensors it runs
@@ -39,7 +40,7 @@ import torch
 from . import device_pack
 from .spmm_pallas import (
     TK, UnsupportedSparsity, _check_aligned, _placement, choose_chunks,
-    spmm_window_plain, window_extents,
+    spmm_window_plain, window_entry, window_extents,
 )
 
 
@@ -60,8 +61,9 @@ class HaloOp:
     window starts (p, G) int32 the kernel reads; the starts relative to
     each shard's window base, and the push list (P, 4) int32 of (owner,
     owner row, consumer, buffer row), which the plain version reads; the
-    (p, G, TM, W) panels, at ``x3`` on fp32 the two bf16 planes ``ah,
-    al`` in their place; and the chunk table (global 128-row chunk -> row
+    (p, G, TM, W) panels, on fp32 at ``x3`` the two bf16 planes ``ah,
+    al`` in their place and at ``default`` the bf16 hi plane ``ah``; and
+    the chunk table (global 128-row chunk -> row
     of the stacked B, -1 past the matrix).  ``buf_rows``: rows of the
     plain version's window buffers; ``min_b_rows``: rows each shard of B
     must have (``max_k``); ``B_displs``: the aligned ownership the engine
@@ -90,9 +92,12 @@ class HaloOp:
 
     def kernel_args(self, arrs, b_shards) -> tuple:
         """Positional args of :attr:`kernel` and :attr:`plain` for the
-        packed ``arrs`` and the stacked B shards (p, max_k, n)."""
+        packed ``arrs`` and the stacked B shards (p, max_k, n): on the bf16
+        hi plane, B cast to bf16 (RNE) once, as ``WindowOp`` casts it."""
         ws, ws_rel, *panels, push, chunk_src = arrs
         panels = tuple(panels) if len(panels) == 2 else panels[0]
+        if not isinstance(panels, tuple) and panels.dtype == torch.bfloat16:
+            b_shards = b_shards.to(torch.bfloat16)
         return (ws, ws_rel, panels, push, chunk_src, b_shards, self.precision,
                 self.buf_rows)
 
@@ -112,8 +117,9 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
     raises :class:`UnsupportedSparsity` where the JAX plan refuses: B
     boundaries not TK-aligned, an empty shard, a window over
     ``max_window`` rows, panels over 8 GiB, or window starts that fall.
-    At ``x3`` on fp32 the panels are the bf16 pair (the arrays' ``ah,
-    al``); ``roofline["a_bytes"]`` counts the same bytes as fp32 panels."""
+    On fp32 at ``x3`` the panels are the bf16 pair (the arrays' ``ah,
+    al``; ``roofline["a_bytes"]`` the same bytes as fp32 panels), at
+    ``default`` the bf16 hi plane (half the bytes, and B counted in bf16)."""
     B_displs = np.asarray(B_displs, dtype=np.int64)
     if np.any(B_displs[:-1] % TK):
         raise UnsupportedSparsity("halo kernel needs TK-aligned B displs")
@@ -147,12 +153,9 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
     G = max(Gs)
     W, _, _ = choose_chunks(max(Ws))
     cols = [(s.rowptr, s.colidx, s.val) for s in shards]
-    split = dt == np.float32 and precision == "x3"
-    ws, ah, al = device_pack.uniform_fill_stacked(
-        cols, ws_own, TM, W, G,
-        "f64" if dt.itemsize == 8 else "pair" if split else "f32", device,
-    )
-    panels = (ah, al) if split else (ah,)
+    mode = device_pack.panel_mode(dt, precision)
+    ws, ah, al = device_pack.uniform_fill_stacked(cols, ws_own, TM, W, G, mode, device)
+    panels = (ah, al) if mode == "pair" else (ah,)
     ws_rel = np.zeros((p, G), dtype=np.int32)
     for i, ws_i in enumerate(ws_own):
         ws_rel[i, : len(ws_i)] = ws_i - los[i]
@@ -191,7 +194,8 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
     roofline = dict(
         G=G, TM=TM, W=W, p=p, nnz=nnz,
         a_bytes=sum(t.numel() * t.element_size() for t in panels),
-        b_rows_read=p * G * W, c_rows=p * G * TM, b_itemsize=dt.itemsize,
+        b_rows_read=p * G * W, c_rows=p * G * TM,
+        b_itemsize=2 if mode == "bf16" else dt.itemsize,
         passes={"x3": 3, "highest": 6, "default": 1}.get(precision, 1),
     )
     op = HaloOp(precision, TM, G, W, buf_rows, max_k, B_displs,
@@ -219,8 +223,9 @@ def spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards, precision,
     """The fused kernel's function in plain PyTorch: the pushes into
     per-shard window buffers, then each shard's windowed product at
     ``precision`` (:func:`spmm_window_plain`; on the x3 pair ``panels =
-    (ah, al)`` that is ``spmm_window_sg_presplit_plain``); ``ws`` and
-    ``chunk_src`` are the kernel's and go unused.  Returns (p, G*TM, n)."""
+    (ah, al)`` that is ``spmm_window_sg_presplit_plain``, on the default
+    hi plane ``spmm_window_sg_bf16_plain``); ``ws`` and ``chunk_src`` are
+    the kernel's and go unused.  Returns (p, G*TM, n)."""
     buf = halo_buffers(push, b_shards, buf_rows)
     pair = isinstance(panels, tuple)
     return torch.stack([
@@ -232,34 +237,24 @@ def spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards, precision,
 
 # ------------------------------------------------------------------ wrapper
 
-_ENTRIES = {"default": "crp_halo_bf16", "highest": "crp_halo_f32"}
-
-
 def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows,
               *, min_b_rows: int):
     """Fused halo exchange + windowed SpMM over every shard
-    (``csrc/halo.cu``): (p, G*TM, n) from the stacked fp32 B shards (p,
-    max_k, n) and, at ``x3``, the bf16 pair ``panels = (ah, al)`` of (p,
-    G, TM, W) planes (#4's ``wgmma`` body with the chunk lookup; they must
-    start on 16 bytes), at ``default`` or ``highest`` (p, G, TM, W) fp32
-    panels (the last 3xTF32 on the tensor cores), or fp64 panels and B.
-    fp32 panels at ``x3`` have no kernel: the x3 plan holds the pair.
-    Replaces ``halo_spmm_local`` (``spmm_halo.py:349``, kernel
+    (``csrc/halo.cu``): (p, G*TM, n) from the stacked B shards (p, max_k,
+    n) and (p, G, TM, W) panels: at ``x3`` the bf16 pair ``panels = (ah,
+    al)`` and fp32 B (#4's ``wgmma`` body with the chunk lookup), at
+    ``default`` the bf16 hi plane and bf16 B (its one-pass mode, fp32 C),
+    at ``highest`` fp32 panels and B (3xTF32 on the tensor cores), or fp64
+    panels and B; the bf16 panels must start on 16 bytes.  fp32 panels at
+    ``x3`` and ``default`` have no kernel: the plans hold the pair and the
+    plane.  Replaces ``halo_spmm_local`` (``spmm_halo.py:349``, kernel
     ``_halo_kernel``)."""
     pair = isinstance(panels, tuple)
     planes = panels if pair else (panels,)
     if _placement("spmm_halo", ws, *planes, chunk_src, b_shards) == "cpu":
         return spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards,
                                precision, buf_rows)
-    if pair and precision == "x3":
-        name, panel_dtype, b_dtype = "crp_halo_x3", torch.bfloat16, torch.float32
-    elif not pair and panels.dtype == torch.float64:
-        name, panel_dtype, b_dtype = "crp_halo_f64", torch.float64, torch.float64
-    elif not pair and panels.dtype == torch.float32 and precision in _ENTRIES:
-        name, panel_dtype, b_dtype = _ENTRIES[precision], torch.float32, torch.float32
-    else:
-        got = "a bf16 pair" if pair else f"{panels.dtype} panels"
-        raise ValueError(f"spmm_halo: no kernel for {got} at {precision!r}")
+    name, panel_dtype, b_dtype = window_entry("spmm_halo", planes, precision)
     p, G, TM, W = planes[0].shape
     for t in planes:
         if (t.dtype != panel_dtype or t.shape != (p, G, TM, W) or not t.is_contiguous()
@@ -267,8 +262,8 @@ def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows
             raise ValueError(f"spmm_halo: panels must be contiguous {panel_dtype} of one "
                              f"shape with TM % 128 == 0 and W % 32 == 0; got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if pair:
-        _check_aligned("spmm_halo", ah=planes[0], al=planes[1])
+    if panel_dtype == torch.bfloat16:
+        _check_aligned("spmm_halo", **dict(zip(("ah", "al"), planes)))
     if ws.dtype != torch.int32 or ws.shape != (p, G) or not ws.is_contiguous():
         raise ValueError(f"spmm_halo: ws must be contiguous int32 of shape ({p}, {G})")
     if chunk_src.dtype != torch.int32 or chunk_src.dim() != 1 or not chunk_src.is_contiguous():
@@ -283,7 +278,8 @@ def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows
     from . import _build
 
     n = b_shards.shape[2]
-    c = torch.empty((p, G * TM, n), dtype=b_dtype, device=b_shards.device)
+    c = torch.empty((p, G * TM, n), dtype=torch.float64 if panel_dtype == torch.float64
+                    else torch.float32, device=b_shards.device)
     with torch.cuda.device(b_shards.device):
         stream = torch.cuda.current_stream(b_shards.device).cuda_stream
         rc = _build.entry(name)(chunk_src.data_ptr(), ws.data_ptr(),

@@ -26,13 +26,13 @@ point:
 
 On every other uniform pack (several shards, or windows that are not
 monotone): :func:`spmm_window` (``csrc/window.cu``, the TPU's
-``_window_kernel``).  At ``x3`` its panels are the bf16 hi/lo pair, split
-once when they are packed (the TPU kernel splits its fp32 panels on every
-read; TMA, which feeds #1's ``wgmma`` body, copies and cannot split), and
-it runs #1's body; on fp32 panels it rounds A and B to bf16 on their way
-into shared memory (``default``), or splits both to TF32 big/small
-(:func:`split_tf32`) as they are read for three TF32 tensor-core products
-(``highest``); fp64 panels by FMA.
+``_window_kernel``).  At ``x3`` its panels are the bf16 hi/lo pair, and at
+``default`` the bf16 hi plane alone, split or rounded once when they are
+packed (the TPU kernel splits or rounds its fp32 panels on every read;
+TMA, which feeds the ``wgmma`` body, copies and can do neither): it runs
+#1's body, or #2's one pass on B cast to bf16; on fp32 panels at
+``highest`` it splits A and B to TF32 big/small (:func:`split_tf32`) as
+they are read for three TF32 tensor-core products; fp64 panels by FMA.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
@@ -248,12 +248,19 @@ def spmm_window_plain(ws, tiles, b, precision: str):
     """Non-super-grouped windowed SpMM in plain PyTorch: (G*TM, n) from
     fp32 (or fp64) ``tiles`` and B of the same dtype, at ``precision``; at
     ``x3`` ``tiles`` may be the bf16 pair ``(ah, al)`` of the x3 pack, and
-    then this is :func:`spmm_window_sg_presplit_plain`, equal bit for bit
-    to this function on the fp32 panels the pair was split from."""
+    then this is :func:`spmm_window_sg_presplit_plain`; at ``default`` the
+    bf16 hi plane of the default pack, and then this is
+    :func:`spmm_window_sg_bf16_plain` on B rounded to bf16 (RNE).  Each is
+    equal bit for bit to this function on the fp32 panels the pair or the
+    plane was made from."""
     if isinstance(tiles, tuple):
         if precision != "x3":
             raise ValueError(f"spmm_window_plain: a bf16 pair at {precision!r}")
         return spmm_window_sg_presplit_plain(ws, *tiles, b)
+    if tiles.dtype == torch.bfloat16:
+        if precision != "default":
+            raise ValueError(f"spmm_window_plain: a bf16 plane at {precision!r}")
+        return spmm_window_sg_bf16_plain(ws, tiles, b.to(torch.bfloat16))
     return _uniform(ws, tiles, b, tiles.dtype, window_product(tiles, precision))
 
 
@@ -467,36 +474,48 @@ def spmm_window_sg(ws, tiles, b, *, min_b_rows: int):
 
 spmm_window_sg.launches = 0
 
-_WINDOW_ENTRIES = {"default": "crp_window_bf16", "highest": "crp_window_f32"}
+
+def window_entry(name: str, panels: tuple, precision: str) -> tuple:
+    """(entry, panel dtype, B dtype) of the non-super-grouped kernel that
+    takes ``panels`` (the x3 pair, or one plane) at ``precision``, for the
+    wrapper ``name`` (#4 ``crp_window_*``, #12 ``crp_halo_*``); raises
+    where there is none (fp32 panels at ``x3`` or ``default``: those packs
+    hold the pair or the hi plane)."""
+    stem = {"spmm_window": "crp_window", "spmm_halo": "crp_halo"}[name]
+    dtype = None if len(panels) != 1 else panels[0].dtype
+    if len(panels) == 2 and precision == "x3":
+        return f"{stem}_x3", torch.bfloat16, torch.float32
+    if dtype == torch.bfloat16 and precision == "default":
+        return f"{stem}_bf16", torch.bfloat16, torch.bfloat16
+    if dtype == torch.float32 and precision == "highest":
+        return f"{stem}_f32", torch.float32, torch.float32
+    if dtype == torch.float64:
+        return f"{stem}_f64", torch.float64, torch.float64
+    got = "a bf16 pair" if len(panels) == 2 else f"{dtype} panels"
+    raise ValueError(f"{name}: no kernel for {got} at {precision!r}")
 
 
 def spmm_window(ws, tiles, b, precision: str, *, min_b_rows: int):
     """Non-super-grouped windowed SpMM (``csrc/window.cu``): (G*TM, n) at
-    ``precision`` from fp32 ``b`` and, at ``x3``, the bf16 pair ``tiles =
-    (ah, al)`` (#1's ``wgmma`` body; the panels must start on 16 bytes), at
-    ``default`` or ``highest`` fp32 ``tiles`` (rounded to bf16 in the
-    kernel, or 3xTF32 on the tensor cores, held to the fp32 plain version),
-    or fp64 tiles and B.  fp32 panels at ``x3`` have no kernel: the x3 pack
-    holds the pair.  Replaces ``spmm_window_pallas``
+    ``precision`` from, at ``x3``, the bf16 pair ``tiles = (ah, al)`` and
+    fp32 ``b`` (#1's ``wgmma`` body), at ``default`` the bf16 hi plane
+    ``tiles`` and bf16 ``b`` (#2's one-pass body; fp32 C), at ``highest``
+    fp32 ``tiles`` and ``b`` (3xTF32 on the tensor cores, held to the fp32
+    plain version), or fp64 tiles and B; the bf16 panels must start on 16
+    bytes (TMA).  fp32 panels at ``x3`` and ``default`` have no kernel: the
+    packs hold the pair and the plane.  Replaces ``spmm_window_pallas``
     (``spmm_pallas.py:267``)."""
     pair = isinstance(tiles, tuple)
     panels = tiles if pair else (tiles,)
     if _placement("spmm_window", ws, *panels, b) == "cpu":
         return spmm_window_plain(ws, tiles, b, precision)
-    if pair and precision == "x3":
-        name, panel_dtype, b_dtype = "crp_window_x3", torch.bfloat16, torch.float32
-    elif not pair and tiles.dtype == torch.float64:
-        name, panel_dtype, b_dtype = "crp_window_f64", torch.float64, torch.float64
-    elif not pair and tiles.dtype == torch.float32 and precision in _WINDOW_ENTRIES:
-        name, panel_dtype, b_dtype = _WINDOW_ENTRIES[precision], torch.float32, torch.float32
-    else:
-        got = "a bf16 pair" if pair else f"{tiles.dtype} panels"
-        raise ValueError(f"spmm_window: no kernel for {got} at {precision!r}")
+    name, panel_dtype, b_dtype = window_entry("spmm_window", panels, precision)
     G, TM, W, n = _check_cuda_args("spmm_window", ws, panels, b, min_b_rows,
                                    panel_dtype, b_dtype)
-    if pair:
-        _check_aligned("spmm_window", ah=panels[0], al=panels[1])
-    c = torch.empty((G * TM, n), dtype=b_dtype, device=b.device)
+    if panel_dtype == torch.bfloat16:
+        _check_aligned("spmm_window", **dict(zip(("ah", "al"), panels)))
+    c = torch.empty((G * TM, n), dtype=torch.float64 if panel_dtype == torch.float64
+                    else torch.float32, device=b.device)
     _launch(name, (ws.data_ptr(), *(t.data_ptr() for t in panels), b.data_ptr(),
                    c.data_ptr()),
             G, TM, W, n, b.device)

@@ -1449,6 +1449,166 @@ def test_one_pass_wrapper_launches_the_kernel_or_raises(cuda_device, monkeypatch
     assert kernel.launches == before + 1
 
 
+# ---------------- #4 and #12 at default on the one-pass wgmma body
+
+# name -> (G, TM, W, n, B offset in elements): odd n and an unaligned B
+# take the plain 2-byte B copies; W = 352 and 160 end on half a 64-row
+# stage; W = 32 is one slice; W = 2048 runs the 6-stage ring round many
+# times; n = 512 is four n tiles
+ONE_PASS_MULTI = {
+    "n=16": (3, 256, 352, 16, 0),
+    "odd n": (3, 256, 352, 37, 0),
+    "n=100": (4, 128, 2048, 100, 0),
+    "n=256": (4, 128, 1024, 256, 0),
+    "n=512": (2, 128, 640, 512, 0),
+    "unaligned B": (3, 128, 160, 64, 1),
+    "one slice": (2, 128, 32, 48, 0),
+}
+
+
+def _bits_of(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("case", sorted(ONE_PASS_MULTI))
+def test_window_default_wgmma_matches_plain_and_2(cuda_device, case, p):
+    """#4 at default (``crp_window_bf16``) on hand-built p-shard packs of
+    the bf16 hi plane and a bf16 B framed by NaN (the last group of every
+    shard a pad group, the middle shard empty for p > 2): within TOL_PLAIN
+    of its plain version, pad rows and the empty shard zero, one launch a
+    shard; C equal bit for bit to #2's (``crp_window_sg_bf16``) on the same
+    arrays, the same body, and to a second launch."""
+    G, TM, W, n, off = ONE_PASS_MULTI[case]
+    rng = np.random.default_rng(W + n + p + 2)
+    dev = cuda_device
+    ws = torch.from_numpy(rng.integers(0, 300, (p, G)).astype(np.int32)).to(dev)
+    tiles = _panels(rng, (p, G, TM, W))
+    tiles[:, -1] = 0
+    if p > 2:
+        tiles[p // 2] = 0
+    ah = torch.from_numpy(tiles).to(dev).to(torch.bfloat16)
+    rows = int(ws.max()) + W
+    b = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(dev)
+    bh = _nan_framed(b.to(torch.bfloat16), off)
+    kernel = spmm_pallas.spmm_window
+    for i in range(p):
+        before = kernel.launches
+        k = kernel(ws[i], ah[i], bh, "default", min_b_rows=rows)
+        plain = spmm_pallas.spmm_window_plain(ws[i], ah[i], bh, "default")
+        if p > 2 and i == p // 2:
+            assert kernel.launches == before + 1 and not torch.any(k)
+        else:
+            _held_to_plain(k, plain, before, kernel.launches, slice((G - 1) * TM, None))
+        c2 = spmm_pallas.spmm_window_sg_bf16(ws[i], ah[i], bh, min_b_rows=rows)
+        assert torch.equal(_bits_of(k), _bits_of(c2)), float((k - c2).abs().max())
+        again = kernel(ws[i], ah[i], bh, "default", min_b_rows=rows)
+        assert torch.equal(_bits_of(again), _bits_of(k))
+
+
+# name -> (W, n, B offset in elements): W = 352 and 160 end on half a
+# 64-row stage; odd n and an unaligned B take the plain B copies
+ONE_PASS_HALO = {
+    "n=16": (256, 16, 0),
+    "odd n": (352, 37, 0),
+    "n=100": (640, 100, 0),
+    "n=256": (640, 256, 0),
+    "n=512": (256, 512, 0),
+    "unaligned B": (160, 64, 1),
+    "one slice": (32, 48, 0),
+}
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 7])
+@pytest.mark.parametrize("case", sorted(ONE_PASS_HALO))
+def test_halo_default_wgmma_matches_plain_and_window(cuda_device, case, p):
+    """#12 at default (``crp_halo_bf16``) on hand-built p-shard packs of the
+    bf16 hi plane: stages read through the chunk table across uneven
+    owners, dead chunks (-1) read as zeros (B framed by NaN), odd n, n =
+    512, an unaligned B, one slice: within TOL_PLAIN of the plain version,
+    pad rows and a window wholly past the matrix zero, one launch; C equal
+    bit for bit to #4 run shard by shard on the same plane with ``ws_rel``
+    and the plain version's window buffers, and to a second launch."""
+    W, n, off = ONE_PASS_HALO[case]
+    rng = np.random.default_rng(W + n + p + 2)
+    ws, ws_rel, panels, push, chunk_src, bs, buf_rows, max_k = _halo_hand_pack(
+        rng, W, n, _displs(p, rng))
+    dev = cuda_device
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+    ah = torch.from_numpy(panels).to(dev).to(torch.bfloat16)
+    b = _nan_framed(torch.from_numpy(bs).to(dev).to(torch.bfloat16), off)
+    args = (put(ws), put(ws_rel), ah, put(push), put(chunk_src), b, "default", buf_rows)
+    before = spmm_halo.spmm_halo.launches
+    k = spmm_halo.spmm_halo(*args, min_b_rows=max_k)
+    plain = spmm_halo.spmm_halo_plain(*args)
+    _held_to_plain(k[1], plain[1], before, spmm_halo.spmm_halo.launches,
+                   slice(2 * 128, None))
+    scale = float(plain.abs().max())
+    assert float((k - plain).abs().max()) <= TOL_PLAIN[np.float32] * scale
+    assert not torch.any(k[p - 1, :128]) and not torch.any(plain[p - 1, :128])
+    buf = spmm_halo.halo_buffers(args[3], b, buf_rows)
+    for i in range(p):
+        c4 = spmm_pallas.spmm_window(args[1][i], ah[i], buf[i], "default",
+                                     min_b_rows=buf_rows)
+        assert torch.equal(_bits_of(k[i]), _bits_of(c4))
+    again = spmm_halo.spmm_halo(*args, min_b_rows=max_k)
+    assert torch.equal(_bits_of(again), _bits_of(k))
+
+
+def test_default_multi_shard_wrappers_launch_the_kernel_or_raise(cuda_device,
+                                                                 monkeypatch):
+    """On CUDA tensors #4 and #12 at default launch their one-pass kernels
+    and never their plain versions; fp32 panels at default (no kernel: the
+    packs hold the hi plane), an fp32 B beside the plane and a plane off 16
+    bytes (TMA) are refused before any launch, with nothing to fall back
+    to."""
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(spmm_pallas, "spmm_window_plain", no_plain)
+    monkeypatch.setattr(spmm_halo, "spmm_halo_plain", no_plain)
+    rng = np.random.default_rng(7)
+    dev = cuda_device
+    ws = torch.zeros(2, dtype=torch.int32, device=dev)
+    tiles = torch.from_numpy(_panels(rng, (2, 128, 64))).to(dev)
+    ah = tiles.to(torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32)).to(dev)
+    bh = b.to(torch.bfloat16)
+    before = spmm_pallas.spmm_window.launches
+    spmm_pallas.spmm_window(ws, ah, bh, "default", min_b_rows=64)
+    assert spmm_pallas.spmm_window.launches == before + 1
+    with pytest.raises(ValueError, match="no kernel for torch.float32 panels at 'default'"):
+        spmm_pallas.spmm_window(ws, tiles, b, "default", min_b_rows=64)
+    with pytest.raises(ValueError, match="B must be a contiguous 2-D torch.bfloat16"):
+        spmm_pallas.spmm_window(ws, ah, b, "default", min_b_rows=64)
+    with pytest.raises(ValueError, match="ah must start on 16 bytes"):
+        spmm_pallas.spmm_window(ws, _nan_framed(ah, 1), bh, "default", min_b_rows=64)
+    assert spmm_pallas.spmm_window.launches == before + 1
+    hws, ws_rel, panels, push, chunk_src, bs, buf_rows, max_k = _halo_hand_pack(
+        rng, 128, 16)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+    hah = torch.from_numpy(panels).to(dev).to(torch.bfloat16)
+    args = (put(hws), put(ws_rel), hah, put(push), put(chunk_src),
+            torch.from_numpy(bs).to(dev).to(torch.bfloat16), "default", buf_rows)
+    before = spmm_halo.spmm_halo.launches
+    spmm_halo.spmm_halo(*args, min_b_rows=max_k)
+    assert spmm_halo.spmm_halo.launches == before + 1
+    fp32 = args[:2] + (torch.from_numpy(panels).to(dev),) + args[3:5] + (
+        torch.from_numpy(bs).to(dev),) + args[6:]
+    with pytest.raises(ValueError, match="no kernel for torch.float32 panels at 'default'"):
+        spmm_halo.spmm_halo(*fp32, min_b_rows=max_k)
+    off = args[:2] + (_nan_framed(hah, 1),) + args[3:]
+    with pytest.raises(ValueError, match="ah must start on 16 bytes"):
+        spmm_halo.spmm_halo(*off, min_b_rows=max_k)
+    assert spmm_halo.spmm_halo.launches == before + 1
+
+
 @pytest.mark.parametrize("prec", ["x3", "default"])
 def test_p4_init_peaks_within_its_panels(cuda_device, prec):
     """A p = 4 engine on a banded matrix whose bf16 panels are 1.4-2.7 GB:

@@ -1,7 +1,8 @@
 """Kernel #4, the non-super-grouped windowed SpMM: the port's multi-shard
-uniform pack against JAX's ``_pack_pallas_uniform`` (bit for bit; at x3
-the port holds the bf16 hi/lo pair of JAX's fp32 panels, split once at
-pack time), its plain version ``spmm_window_plain`` against
+uniform pack against JAX's ``_pack_pallas_uniform`` (bit for bit; on fp32
+the port holds at x3 the bf16 hi/lo pair of JAX's fp32 panels, and at
+``default`` their bf16 hi plane, split or rounded once at pack time), its
+plain version ``spmm_window_plain`` against
 ``spmm_window_pallas`` in interpret mode, and the single-shard packs with
 no super-group plan, which both packages now send to this kernel."""
 
@@ -70,15 +71,19 @@ def _bits(t):
 
 
 def assert_pack_is_jax(arrays, op, j_arrays, prec, dtype):
-    """The port's (ws, tiles) equal to JAX's (ws, tiles) bit for bit, or at
-    x3 on fp32 its (ws, ah, al) with (ah, al) ``split_bf16`` of JAX's fp32
-    panels bit for bit (scheme ``"window_x3"``)."""
+    """The port's (ws, tiles) equal to JAX's (ws, tiles) bit for bit, or on
+    fp32 at x3 its (ws, ah, al) with (ah, al) ``split_bf16`` of JAX's fp32
+    panels bit for bit (scheme ``"window_x3"``), at ``default`` its (ws,
+    ah) with ah their RNE bf16 hi plane (scheme ``"window_bf16"``)."""
     assert op.variant == "window" and len(j_arrays) == 2
     np.testing.assert_array_equal(arrays[0].numpy(), j_arrays[0])
     j_tiles = torch.from_numpy(j_arrays[1])
     if prec == "x3" and dtype == np.float32:
         assert op.scheme == "window_x3" and len(arrays) == 3
         want = split_bf16(j_tiles, with_lo=True)
+    elif prec == "default" and dtype == np.float32:
+        assert op.scheme == "window_bf16" and len(arrays) == 2
+        want = split_bf16(j_tiles, with_lo=False)[:1]
     else:
         assert op.scheme == "window" and len(arrays) == 2
         want = (j_tiles,)
@@ -92,12 +97,17 @@ def assert_pack_is_jax(arrays, op, j_arrays, prec, dtype):
 def test_multi_shard_pack_matches_jax(prec, dtype, p):
     """(ws, tiles) of p shards, one empty, with pad groups past the largest
     shard's: the JAX pack bit for bit (at x3 the bf16 pair of its fp32
-    panels), the same min_b_rows and roofline."""
+    panels, at ``default`` their hi plane), the same min_b_rows and
+    roofline, but for the hi plane's bytes at ``default`` on fp32: half
+    the fp32 panels', with B read in bf16 (as JAX's #2 pack counts it)."""
     _, shards, max_m = _shards(p, dtype)
     arrays, op = td._pack_pallas_uniform(shards, max_m + 700, dtype, prec, CPU)
     j_arrays, j_fn = jd._pack_pallas_uniform(shards, max_m + 700, dtype, prec)
     assert_pack_is_jax(arrays, op, j_arrays, prec, dtype)
-    assert (op.min_b_rows, op.roofline) == (j_fn.min_b_rows, j_fn.roofline)
+    want = dict(j_fn.roofline)
+    if prec == "default" and dtype == np.float32:
+        want.update(a_bytes=want["a_bytes"] // 2, b_itemsize=2)
+    assert (op.min_b_rows, op.roofline) == (j_fn.min_b_rows, want)
     assert not any(t[p - 2].any() for t in arrays)
 
 
@@ -147,7 +157,7 @@ def test_non_monotone_single_shard_takes_the_window_kernel(prec, dtype):
     """One shard whose windows fall group by group has no super-group plan:
     JAX packs it for ``spmm_window_pallas`` and so does the port (variant
     ``"window"``, no longer the ragged pack), the same arrays (at x3 the
-    bf16 pair of JAX's fp32 panels)."""
+    bf16 pair of JAX's fp32 panels, at ``default`` their hi plane)."""
     a = _anti_banded(dtype=dtype)
     shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
     j_arrays, j_fn, j_kind = jd.pack_with_fallback(shard, a.nrow + 300, dtype,

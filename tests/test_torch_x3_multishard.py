@@ -121,18 +121,22 @@ def test_halo_pair_plain_equals_fp32_plain(p, n):
 @pytest.mark.parametrize("prec", ["x3", "default", "highest"])
 def test_local_op_from_jax_pack_splits_multi_shard_x3(prec):
     """A JAX multi-shard pack (fp32 (ws, tiles)) handed to the port: at x3
-    it is split to the pair on upload (scheme ``"window_x3"``, the port's
-    own pack bit for bit); at the other points it stays fp32."""
+    it is split to the pair on upload (scheme ``"window_x3"``), at
+    ``default`` rounded to the bf16 hi plane (``"window_bf16"``), each the
+    port's own pack bit for bit, roofline included; at ``highest`` it stays
+    fp32."""
     _, shards, max_m = _shards(3, np.float32)
     j_arrays, j_fn = jd._pack_pallas_uniform(shards, max_m, np.float32, prec)
     tensors, op = td.local_op_from_jax_pack(j_arrays, j_fn.min_b_rows,
                                             roofline=j_fn.roofline)
     t_arrays, t_op = td._pack_window(shards, max_m, np.float32, prec, CPU)
     assert (op.variant, op.precision, op.min_b_rows) == ("window", prec, t_op.min_b_rows)
-    assert op.scheme == t_op.scheme == ("window_x3" if prec == "x3" else "window")
+    assert op.scheme == t_op.scheme == {"x3": "window_x3",
+                                        "default": "window_bf16"}.get(prec, "window")
     assert len(tensors) == len(t_arrays) == (3 if prec == "x3" else 2)
     for t, w in zip(tensors, t_arrays):
         assert t.dtype == w.dtype and torch.equal(_bits(t), _bits(w))
+    assert op.roofline == t_op.roofline
 
 
 def test_wrappers_refuse_what_has_no_kernel():
