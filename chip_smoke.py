@@ -75,7 +75,10 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    fp64; then the fp64 cplaw (segment-sum tier) and the pwtk-class
    headline (ELL tier) with ``kernel="dd"`` at <= 1e-12; on each of the
    three, ``kernel="auto"`` in fp64 (the panel kernels' FMA entries) at <=
-   1e-12, its exec and kernel times beside ``dd``'s and cuSPARSE's;
+   1e-12, its exec and kernel times beside ``dd``'s and cuSPARSE's; on the
+   cplaw ``dd`` segment-sum tier and the segsum spills of fp64 ``auto``,
+   the fixed-order segment sum twice (equal bit for bit), against the sum
+   in fp64 and ``index_add_``'s, both timed;
 9. window phase — the non-super-grouped windowed kernel (#4) against its
    plain version at x3 (on the bf16 hi/lo pair, #1's wgmma body, and equal
    bit for bit to #1 on the same arrays), default (on the bf16 hi plane
@@ -110,7 +113,19 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
 13. ``Para2dSpmm`` — on cplaw at n = 256 over 4 ranks the planner must
    pick 1 x 4 with ``rA_cost`` 12,170,731 and no B exchange; then a forced
    2 x 2 grid on the headline at x3 (the fused kernel over the 2 row
-   panels of each column group).
+   panels of each column group);
+14. training path — the examples' graph at the cplaw class's rows,
+   ``powerlaw_community_csr(786432, 8, 98304, seed=5)`` with self-loops
+   (6,331,056 nnz), 8 classes, hidden n = 256: the GCN's two
+   ``DifferentiableSpmm`` ops at ``auto`` (``pallas`` without the halo;
+   ``highest``) at p = 1 and p = 4, every engine walked to ``gather``, C and
+   dB within highest's class of the fp64 product, each engine's kernel
+   against its plain version, its order and the fp64 product of shard 0,
+   timed, with cuSPARSE; the launches of one training step; the GCN
+   trained at p = 4 for 3 steps twice from one seed (losses equal bit for
+   bit, falling); the GAT on ``ValueParameterizedSpmm`` at p = 4: dvals
+   on 4,096 sampled nonzeros against fp64, the ``segsum`` kind's
+   fixed-order sum (as in the fp64 path), and 3 steps twice, bit for bit.
 
 Every kernel's record carries its time, its plain version's, the least
 time the card could take for the product it computes (``bound_ms``, from
@@ -163,6 +178,14 @@ TOL_PLAIN_FRO = 1e-6
 # to the emulation of that order (spill_rows_ordered) and to a second
 # launch.
 TOL_RAGGED_FRO = {np.float32: 1e-6, np.float64: 1e-12}
+# the training path's graphs: the rows of their hubs (and of A^T) are long,
+# so index_add_'s order of adds in the plain versions and the old segment
+# sum moves their sums by up to 1.5e-6 relative Frobenius from fp64, ten
+# times the kernels' 1.1e-7 (measured, H100); there the kernels and the
+# fixed-order sums are held bit for bit to their order (the emulation, or
+# a second launch) and within highest's class of the fp64 product, and to
+# their plain versions or index_add_ within this
+TOL_TRAIN_PLAIN_FRO = 4e-6
 # the previous bodies on the main paths, ms (NVIDIA H100 80GB HBM3, 700
 # W), printed beside the times of this run: the spill and gather kernels'
 # (a block per output block and 32 columns, shared-memory atomics) and
@@ -181,6 +204,11 @@ PANEL_VARIANTS = ("uniform", "ragged", "window", "halo")
 CPLAW_P4_RECV, CPLAW_P4_RING_ROWS = 591732, 627300  # r4_cpu_mesh_commvol.jsonl
 CPLAW_P8_COMM_N32 = 26551360  # the planner's comm_cost at n = 32, p = 8
 CPLAW_2D_RA_COST = 12170731   # the 1 x 4 grid's A replication at n = 256
+# the training path: the examples' graph at the cplaw class's rows and 8
+# classes, hidden n = N; steps of each training run; GAT's dvals sample
+GNN_NODES, GNN_CLASSES = CPLAW["n"], 8
+TRAIN_STEPS = 3
+DVALS_SAMPLE = 4096
 CSRC = "crp_tpu_torch/kernels/csrc/"
 KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     "spmm_window_sg_presplit": ("window_sg.cu", "crp_tpu/kernels/spmm_pallas.py:415"),
@@ -226,12 +254,12 @@ def time_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return median_ms(fn, torch.device("cuda", 0), reps, inner)
 
 
-def in_turns(run_kernel, run_plain, plain_inner: int = 20):
+def in_turns(run_kernel, run_plain, plain_inner: int = 20, kernel_inner: int = 20):
     """(kernel ms, plain ms, the four samples) timed in turns on one card:
     plain, kernel, kernel, plain."""
     p1 = time_ms(run_plain, inner=plain_inner)
-    k1 = time_ms(run_kernel)
-    k2 = time_ms(run_kernel)
+    k1 = time_ms(run_kernel, inner=kernel_inner)
+    k2 = time_ms(run_kernel, inner=kernel_inner)
     p2 = time_ms(run_plain, inner=plain_inner)
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
@@ -1067,6 +1095,9 @@ def fp64_auto(a, b, c_ref, device, tag) -> dict:
         rB = eng.receive_buffer(bs)[0]
         got["kernel_ms"] = time_kernel(op, arrs, rB, f"{tag} auto", "highest", csr_work(a),
                                        plain_inner=2, tol=TOL_DD)[1]
+        if getattr(op, "spill_impl", None) == "segsum":  # C2: its spill's order
+            fixed_order(f"{tag} auto segsum spill", *op._spill_arrays(arrs), rB,
+                        op.roofline["G"] * op.roofline["TM"], chunked=True)
         del arrs, rB
     del eng, op, bs
     a.__dict__.pop("_torch_pack_cache", None)
@@ -1127,10 +1158,13 @@ def fp64_path(device) -> list:
         c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
         say(f"{tag} matrix: {a.nrow} rows, {a.nnz} nnz, host set-up "
             f"{time.perf_counter() - t0:.2f} s")
-        eng, _, _, _, exec_ms = drive(a, b, c_ref, "highest", device, tag, ("dd", tier),
-                                      kernel="dd", dtype=np.float64, tol=TOL_DD,
-                                      timing=(3, 2))
-        del eng
+        eng, op, bs, _, exec_ms = drive(a, b, c_ref, "highest", device, tag, ("dd", tier),
+                                        kernel="dd", dtype=np.float64, tol=TOL_DD,
+                                        timing=(3, 2))
+        if tier == "segsum":  # C2: the tier's order
+            fixed_order(f"{tag} dd segment-sum tier", *(x[0] for x in eng.packed),
+                        eng.receive_buffer(bs)[0], op.nrow, chunked=True)
+        del eng, op, bs
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
         dd[tag] = (tier, exec_ms, None,
@@ -1493,6 +1527,280 @@ def para2d_phase(device) -> None:
     torch.cuda.empty_cache()
 
 
+def same_bits(x, y) -> bool:
+    return (x.shape == y.shape and x.dtype == y.dtype
+            and torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8)))
+
+
+def index_add_sum(rows, cols, vals, b, nrow, step=None):
+    """The segment sum as the port summed it before its order was fixed:
+    ``index_add_`` of ``vals * B[cols]``, over chunks of ``step`` nonzeros
+    (the chunked spill) or all at once (the ``segsum`` kind); timed beside
+    the fixed-order sum, never on a path."""
+    out = b.new_zeros((nrow + 1, b.shape[1]))
+    step = step or rows.shape[0]
+    for i in range(0, rows.shape[0], step):
+        out.index_add_(0, rows[i : i + step].long(),
+                       vals[i : i + step, None].to(b.dtype) * b[cols[i : i + step].long()])
+    return out[:nrow]
+
+
+def fixed_order(tag, rows, cols, vals, b, nrow, chunked) -> None:
+    """The fixed-order segment sum (``spmm_segment_sum``) on one shard's
+    arrays: two launches equal bit for bit, within the dtype's class of the
+    same sum in fp64 (first ERR_COLS columns: TOL_REF["highest"], fp64
+    TOL_DD) and within reordering of ``index_add_``'s sum
+    (TOL_TRAIN_PLAIN_FRO, fp64 TOL_DD); both timed in turns.  Whether two
+    ``index_add_`` launches agree, and how far that sum is from fp64, are
+    printed."""
+    from crp_tpu_torch.kernels.spmm_segsum import SEGSUM_BLOCK_BYTES, spmm_segment_sum
+
+    step = max(1, SEGSUM_BLOCK_BYTES // (b.shape[1] * b.element_size())) if chunked else None
+    run = lambda: spmm_segment_sum(rows, cols, vals, nrow, b)  # noqa: E731
+    old = lambda: index_add_sum(rows, cols, vals, b, nrow, step)  # noqa: E731
+    c1, c2, o1, o2 = run(), run(), old(), old()
+    ref = index_add_sum(rows, cols, vals.double(), b[:, :ERR_COLS].double(), nrow, step)
+    fro = lambda x, y: float((x.double() - y.double()).norm()  # noqa: E731
+                             / max(float(y.double().norm()), 1e-300))
+    f64 = b.dtype == torch.float64
+    e_new, e_old, e_vs = fro(c1[:, :ERR_COLS], ref), fro(o1[:, :ERR_COLS], ref), fro(c1, o1)
+    check(same_bits(c1, c2), f"{tag}: two launches of the fixed-order segment sum differ")
+    check(e_new <= (TOL_DD if f64 else TOL_REF["highest"]),
+          f"{tag}: the fixed-order sum against fp64: rel fro {e_new}")
+    check(e_vs <= (TOL_DD if f64 else TOL_TRAIN_PLAIN_FRO),
+          f"{tag}: the fixed-order sum against index_add_'s: rel fro {e_vs}")
+    ms, old_ms, s = in_turns(run, old, plain_inner=3, kernel_inner=3)
+    say(f"[{tag}] fixed-order segment sum {ms:.4f} ms ({s[0]:.4f}, {s[1]:.4f}), "
+        f"index_add_ {old_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}) "
+        f"({'chunked' if chunked else 'at once'}); {rows.shape[0]} slots, n={b.shape[1]}, "
+        f"{b.dtype}; two launches equal bit for bit (index_add_'s two "
+        f"{'equal' if same_bits(o1, o2) else 'differ'}); rel fro err against the sum "
+        f"in fp64 (first {ERR_COLS} columns) {e_new:.3e}, index_add_'s {e_old:.3e}; "
+        f"against index_add_ {e_vs:.3e}")
+
+
+def engine_csr(eng, a, i: int):
+    """Shard ``i`` of the engine's matrix ``a`` as (CSR, its columns in the
+    receive buffer's rows): cuSPARSE's operand for the same product."""
+    s = a.row_slice(int(eng.A_row_displs[i]), int(eng.A_row_displs[i + 1]))
+    if eng._identity_exchange:
+        return s, s.colidx
+    return s, np.searchsorted(eng.xplan.rowmap[i], s.colidx)
+
+
+def engine_record(eng, a, rB, tag, path) -> dict:
+    """Shard 0's gather kernel of ``eng`` (over ``a``) on the receive
+    buffer ``rB``: within highest's class of the shard's fp64 product,
+    bit for bit its order's emulation and a second launch, against its
+    plain version, timed, with its bound and cuSPARSE on the same shard.
+    The caller fills in the launches."""
+    from crp_tpu_torch import CSRMatrix, rel_fro_err
+
+    op = eng._local_op
+    arrs = tuple(x[0] for x in eng.packed)
+    s0, cols = engine_csr(eng, a, 0)
+    ref = spmm_ref_f64(CSRMatrix(s0.nrow, rB.shape[0], s0.rowptr, cols, s0.val),
+                       rB[:, :ERR_COLS].cpu().numpy())
+    err = lambda c: rel_fro_err(  # noqa: E731
+        ref, c[: s0.nrow, :ERR_COLS].cpu().numpy().astype(np.float64))
+    args = op.kernel_args(arrs, rB)
+    e_k, e_p = err(launch(op, args)), err(op.plain(*args))
+    say(f"[{tag}] shard 0 against its fp64 product (first {ERR_COLS} columns): "
+        f"spmm_gather {e_k:.3e} (tol {TOL_REF['highest']:g}), its plain version {e_p:.3e}")
+    check(e_k <= TOL_REF["highest"], f"{tag}: spmm_gather rel_fro_err {e_k}")
+    gather_in_order(op, arrs, rB, tag)
+    say(f"[{tag}] spmm_gather equals the emulation of its order and a second launch "
+        f"bit for bit")
+    got = time_kernel(op, arrs, rB, tag, "highest", csr_work(s0), plain_inner=2,
+                      tol=TOL_TRAIN_PLAIN_FRO)
+    lib = csr_library_ms(s0.rowptr, cols, s0.val, rB.shape[0], rB)
+    return dict(record("spmm_gather", 0, *got, lib), path=path)
+
+
+def gcn_ops_check(ah, p, b, dc, refs, device):
+    """The GCN's two ``DifferentiableSpmm`` ops at ``auto`` over p row
+    blocks: every engine on ``gather`` (the gate's ragged cover keeps 22-23%
+    of this graph's nonzeros; never ``segsum``); ``prop_h``'s C and dB
+    (from ``dc``) within ``highest``'s class of the fp64 references
+    ``refs`` on the first ERR_COLS columns, its kernels launched; each
+    engine's kernel on shard 0 (``engine_record``).  Returns (model,
+    records)."""
+    from crp_tpu_torch import rel_fro_err
+    from crp_tpu_torch.engine.autodiff import repad_rows, transposed
+    from crp_tpu_torch.examples import gcn_train
+    from crp_tpu_torch.shard.layout import shard_dense_rows
+
+    tag = f"gcn p={p}"
+    t0 = time.perf_counter()
+    model, peak, held = measured_init(device, lambda: gcn_train.GCN(
+        *gcn_train.gcn_ops(ah, p, GNN_CLASSES, N, "auto", device=device), ah.nrow,
+        GNN_CLASSES, N))
+    say(f"[{tag}] the GCN's ops at kernel='auto', highest: init {time.perf_counter() - t0:.3f} "
+        f"s, device memory peak {peak / 1e9:.3f} GB, held {held / 1e9:.3f} GB")
+    for name, op in (("prop_in", model.prop_in), ("prop_h", model.prop_h)):
+        for side, eng in (("fwd", op.fwd), ("bwd", op.bwd)):
+            say(f"[{tag}] {name}.{side}: kind {eng.kernel_kind}, variant "
+                f"{eng._local_op.variant}, init {eng.t_init:.3f} s "
+                f"{json.dumps(eng.init_breakdown)}, roofline "
+                f"{json.dumps(getattr(eng._local_op, 'roofline', {}))}")
+            check((eng.kernel_kind, eng._local_op.variant) == ("gather", "gather"),
+                  f"{tag} {name}.{side}: resolved to {eng.kernel_kind!r}, expected gather")
+    prop = model.prop_h
+    bs = prop.shard_b(b).requires_grad_(True)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    cs = prop(bs)
+    dcs = torch.from_numpy(shard_dense_rows(dc, prop.fwd.A_row_displs,
+                                            pad_rows=cs.shape[1])).to(device)
+    (dbs,) = torch.autograd.grad(cs, bs, dcs)
+    launches = {k.__name__: k.launches for k in kernels}
+    say(f"[{tag}] launches in prop_h's forward and backward: {json.dumps(launches)}")
+    check(launches["spmm_gather"] == 2 * p, f"{tag}: spmm_gather launched "
+          f"{launches['spmm_gather']} times, expected {2 * p}")
+    c, db = prop.unshard_c(cs), prop.unshard_db(dbs)
+    for label, got, ref in (("C", c, refs[0]), ("dB", db, refs[1])):
+        check(got.shape == (ref.shape[0], N) and bool(np.isfinite(got).all()),
+              f"{tag} {label}: shape {got.shape} or non-finite values")
+        err = rel_fro_err(ref, got[:, :ERR_COLS].astype(np.float64))
+        say(f"[{tag}] prop_h {label} rel_fro_err vs fp64 reference (first {ERR_COLS} "
+            f"columns) = {err:.3e} (tol {TOL_REF['highest']:g})")
+        check(err <= TOL_REF["highest"], f"{tag} {label}: rel_fro_err {err}")
+    records = [engine_record(eng, a, eng.receive_buffer(x)[0], f"{tag} {side}",
+                             f"training: gcn p={p}, {side} shard 0, n={N}")
+               for side, eng, a, x in (("A", prop.fwd, ah, bs.detach()),
+                                       ("A^T", prop.bwd, transposed(ah),
+                                        repad_rows(dcs, prop.bwd.max_k).contiguous()))]
+    for r in records:
+        r["launches"] = launches["spmm_gather"]
+    del bs, cs, dcs, dbs
+    return model, records
+
+
+def gcn_training(model, device) -> dict:
+    """Launches of one training step (the model's forward and backward),
+    then ``gcn_train.train`` twice from one seed on the model's engines:
+    losses equal bit for bit, the last below the first.  Returns the
+    launches per step."""
+    import torch.nn.functional as F
+    from crp_tpu_torch.examples import gcn_train
+    from crp_tpu_torch.examples.common import community_task
+
+    x, labels = community_task(model.nodes, GNN_CLASSES)
+    xs = model.prop_in.shard_b(x)
+    y = torch.from_numpy(labels).to(device)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    F.cross_entropy(model(xs), y).backward()
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    model.zero_grad(set_to_none=True)
+    say(f"[gcn p=4 training] launches in one training step: {json.dumps(launches)}")
+    # prop_in forward, prop_h forward and backward, on every shard
+    check(launches["spmm_gather"] == 12, f"gcn training: spmm_gather launched "
+          f"{launches['spmm_gather']} times in a step, expected 12")
+    train_runs("gcn p=4", lambda: gcn_train.train(
+        model.nodes, GNN_CLASSES, N, TRAIN_STEPS, 4, "auto", device=device, model=model,
+        log=say))
+    return launches
+
+
+def train_runs(tag, run) -> None:
+    """``run()`` twice: the losses of the two runs finite and equal bit for
+    bit, the last below the first; ms per step printed."""
+    runs = [run() for _ in range(2)]
+    losses = [r.losses for r in runs]
+    say(f"[{tag} training] losses {losses[0]} and {losses[1]}; ms per step "
+        f"{[round(1e3 * s, 4) for s in runs[0].step_s]} and "
+        f"{[round(1e3 * s, 4) for s in runs[1].step_s]}; accuracy "
+        f"{runs[0].accuracy:.3f}")
+    check(all(np.isfinite(losses[0])), f"{tag}: non-finite loss")
+    check(losses[0] == losses[1], f"{tag}: the two runs' losses differ")
+    check(losses[0][-1] < losses[0][0], f"{tag}: the loss did not fall")
+
+
+def gat_check(g, dc, device) -> None:
+    """The GAT at p = 4 on ``ValueParameterizedSpmm``: dvals from a seeded
+    dC against an fp64 reference on a seeded sample of DVALS_SAMPLE
+    nonzeros; the ``segsum`` kind's fixed-order sum on the fwd engine's
+    shard 0; then ``gat_train.train`` twice from one seed."""
+    from crp_tpu_torch import rel_fro_err
+    from crp_tpu_torch.examples import gat_train
+    from crp_tpu_torch.shard.layout import shard_dense_rows
+
+    t0 = time.perf_counter()
+    ah = gat_train.pattern_with_self_loops(g)
+    model = gat_train.GAT(*gat_train.gat_ops(ah, 4, GNN_CLASSES, N, device=device),
+                          ah.rowptr, GNN_CLASSES, N)
+    vps = model.vps_h
+    say(f"[gat p=4] A + I: {ah.nrow} rows, {ah.nnz} nnz; ops built in "
+        f"{time.perf_counter() - t0:.3f} s (fwd init {vps.fwd.t_init:.3f} s, bwd "
+        f"{vps.bwd.t_init:.3f} s), kinds {vps.fwd.kernel_kind} / {vps.bwd.kernel_kind}")
+    rng = np.random.default_rng(8)
+    b = rng.standard_normal((ah.ncol, N)).astype(np.float32)
+    bs = vps.shard_b(b).requires_grad_(True)
+    vals = torch.from_numpy(rng.standard_normal(ah.nnz).astype(np.float32)).to(device)
+    vals.requires_grad_(True)
+    cs = vps(bs, vals)
+    dcs = torch.from_numpy(shard_dense_rows(dc, vps.fwd.A_row_displs,
+                                            pad_rows=cs.shape[1])).to(device)
+    _, dv = torch.autograd.grad(cs, (bs, vals), dcs)
+    q = np.sort(rng.choice(ah.nnz, DVALS_SAMPLE, replace=False))
+    rows = np.repeat(np.arange(ah.nrow), np.diff(ah.rowptr))[q]
+    ref = np.sum(dc[rows].astype(np.float64) * b[ah.colidx[q]].astype(np.float64), 1)
+    err = rel_fro_err(ref[None], dv.detach().cpu().numpy()[q][None].astype(np.float64))
+    say(f"[gat p=4] dvals on {DVALS_SAMPLE} sampled nonzeros: rel_fro_err vs fp64 "
+        f"reference {err:.3e} (tol {TOL_REF['highest']:g})")
+    check(err <= TOL_REF["highest"], f"gat dvals: rel_fro_err {err}")
+    fixed_order("gat p=4 segsum kind, shard 0", *(x[0] for x in vps.fwd.packed),
+                vps.fwd.receive_buffer(bs.detach())[0], vps.fwd.max_m, chunked=False)
+    del bs, vals, cs, dcs, dv
+    train_runs("gat p=4", lambda: gat_train.train(
+        model.nodes, GNN_CLASSES, N, TRAIN_STEPS, 4, device=device, model=model, log=say))
+
+
+def training_path(device) -> list:
+    """Training through the engines at full width: the examples' graph at
+    the cplaw class's rows (``powerlaw_community_csr(786432, 8, 98304,
+    seed=5)`` with self-loops), 8 classes, hidden n = 256; the GCN's ops
+    at p = 1 and p = 4 (``gcn_ops_check``), its training at p = 4
+    (``gcn_training``), the GAT's (``gat_check``).  Returns the records of
+    the GCN engines' gather kernel, with its launches in the p = 1 op check
+    and in one p = 4 training step."""
+    from crp_tpu_torch import fill_b
+    from crp_tpu_torch.engine.autodiff import transposed
+    from crp_tpu_torch.examples import gcn_train
+    from crp_tpu_torch.examples.common import community_graph
+
+    t0 = time.perf_counter()
+    g = community_graph(GNN_NODES, GNN_CLASSES)
+    ah = gcn_train.normalized_adjacency(g)
+    b = np.asarray(fill_b(0, ah.ncol, 0, N, dtype=np.float32))
+    dc = np.random.default_rng(7).standard_normal((ah.nrow, N)).astype(np.float32)
+    refs = (spmm_ref_f64(ah, b[:, :ERR_COLS]),
+            spmm_ref_f64(transposed(ah), dc[:, :ERR_COLS]))
+    say(f"training graph: A_hat {ah.nrow} rows, {ah.nnz} nnz, n={N}, host set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    def drop_packs():
+        for x in (ah, transposed(ah)):
+            x.__dict__.pop("_torch_pack_cache", None)
+        torch.cuda.empty_cache()
+
+    model, records = gcn_ops_check(ah, 1, b, dc, refs, device)
+    del model
+    drop_packs()
+    model, recs = gcn_ops_check(ah, 4, b, dc, refs, device)
+    step = gcn_training(model, device)
+    for r in recs:
+        r["launches"] = step["spmm_gather"]
+    del model
+    drop_packs()
+    gat_check(g, dc, device)
+    torch.cuda.empty_cache()
+    return records + recs
+
+
 def tf32x3_layouts(build) -> None:
     """Print the ring of each 3xTF32 entry (#3, #4, #12 and #6 at highest)
     once: stages, dynamic shared memory, the block tile, and for its
@@ -1596,7 +1904,7 @@ def main() -> int:
     for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,
                   dd_phase, window_phase, halo_phase, headline, cplaw_path,
                   scrambled_cplaw_path, fp64_path, headline_p4, cplaw_p4,
-                  para2d_phase):
+                  para2d_phase, training_path):
         t0 = time.perf_counter()
         records += phase(device) or []
         say(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")

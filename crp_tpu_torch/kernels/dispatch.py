@@ -5,7 +5,8 @@ shard's compact CSR into tensors on the engine's device and returns a local
 op, ``op(arrays, rB) -> C`` for the shard, where ``arrays`` are the packed
 tensors with their leading shard axis stripped.  Ported kinds:
 
-  * ``"segsum"`` — gather + ``index_add_`` (any CSR, any device, exact);
+  * ``"segsum"`` — gather + a segment sum in a fixed order (any CSR, any
+    device, exact);
   * ``"pallas"`` — the windowed family with the JAX package's gate between
     its two packs: the uniform windows (super-grouped for one shard with
     monotone windows, else the non-super-grouped kernel #4 on fp32 panels,
@@ -64,18 +65,19 @@ from .spmm_segsum import pack_device_csr, spmm_segment_sum
 
 logger = logging.getLogger("crp_tpu_torch")
 
-def resolve_auto_kernel(device, nshards: int = 1) -> str:
+def resolve_auto_kernel(device, nshards: int = 1, *, allow_halo: bool = True) -> str:
     """``kernel="auto"`` (``dispatch.py:30-62``): on a CUDA device the fused
-    ``"pallas_halo"`` for multi-shard engines and ``"pallas"`` for one
-    shard; ``"segsum"`` elsewhere, as JAX picks segsum off the TPU.  The
-    engines land on ``"pallas"`` where the halo plan refuses.
+    ``"pallas_halo"`` for multi-shard engines (unless ``allow_halo`` is
+    False, as the autodiff op asks) and ``"pallas"`` for one shard;
+    ``"segsum"`` elsewhere, as JAX picks segsum off the TPU.  The engines
+    land on ``"pallas"`` where the halo plan refuses.
 
     The JAX package sends fp64 data on the TPU to ``dd``; here fp64 runs
     natively in the windowed FMA kernels.
     """
     if torch.device(device).type != "cuda":
         return "segsum"
-    return "pallas_halo" if nshards > 1 else "pallas"
+    return "pallas_halo" if allow_halo and nshards > 1 else "pallas"
 
 
 def sparsity_fallback_chain(kind: str, dtype, device, is_dd: bool = False,
@@ -650,7 +652,8 @@ class RaggedOp:
     (fp32 panels on three TF32 products, fp64 by FMA) or ``"dd"`` (fp64
     panels of the ``dd_mxu`` total cover, FP64 tensor cores; its variant
     is ``"dd_mxu"``).  ``spill_impl``:
-    ``"none"``, ``"segsum"`` (rows, cols, vals; plain ``index_add_``) or
+    ``"none"``, ``"segsum"`` (rows, cols, vals; the ``segsum`` kind's
+    fixed-order sum) or
     ``"pallas"`` (rel, cols, vals, first, blk; the fused spill kernel).
     """
 

@@ -11,9 +11,10 @@ B and C are fp64 tensors, not hi/lo pairs.
 
   * :func:`pack_ell_dd` / :func:`spmm_ell_dd` — the ELL slot loop of
     :mod:`.spmm_ell` in fp64;
-  * :func:`pack_coo_dd` / :func:`spmm_segsum_dd` — ``index_add_`` over
-    bounded chunks of nonzeros (one (nnz, n) fp64 contribution array is
-    22 GB at the cplaw shape, 10.8M nnz and n = 256).
+  * :func:`pack_coo_dd` / :func:`spmm_segsum_dd` — the ``segsum`` kind's
+    fixed-order segment sum over bounded chunks of nonzeros (one (nnz, n)
+    fp64 contribution array is 22 GB at the cplaw shape, 10.8M nnz and
+    n = 256).
 
 The JAX package refuses the segmented scan over 4M nonzeros per shard
 (``CRP_TPU_DD_SEGSUM_MAX_NNZ``, ``dispatch.py:264-279``): the scan's
@@ -28,8 +29,7 @@ import numpy as np
 import torch
 
 from .spmm_ell import pack_ell, spmm_ell
-from .spmm_ragged import spmm_spill_chunked
-from .spmm_segsum import pack_device_csr
+from .spmm_segsum import pack_device_csr, spmm_segment_sum
 
 ELL_MAX_L = 128  # the JAX package's ELL bound (dispatch.py:247)
 
@@ -63,4 +63,4 @@ def spmm_segsum_dd(row_ids, cols, vals, b, nrow: int):
     """fp64 C = A @ B over the COO nonzeros in bounded chunks
     (``spmm_dd.py:189-222``); pad rows are dropped."""
     _require_f64("spmm_segsum_dd", b)
-    return spmm_spill_chunked(row_ids, cols, vals, b, nrow)
+    return spmm_segment_sum(row_ids, cols, vals, nrow, b)

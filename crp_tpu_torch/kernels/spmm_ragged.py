@@ -60,6 +60,7 @@ from .spmm_pallas import (
     PLAIN_BLOCK_BYTES, TK, UnsupportedSparsity, _check_aligned, _placement,
     bf16_product, full_product, plain_blocks, presplit_product,
 )
+from .spmm_segsum import spmm_segment_sum
 
 # the JAX defaults of the environment knobs this module turns into arguments
 PANEL_CAP_BYTES = 8 << 30         # CRP_TPU_RAGGED_PANEL_GB = 8
@@ -740,18 +741,12 @@ def spmm_gather_plain(rel, cols, vals, blk, TMo, b, M, mxu_precision="highest",
 
 
 def spmm_spill_chunked(rows, cols, vals, b, nrow: int):
-    """The spilled nonzeros as an (nrow, n) product in plain PyTorch,
-    ``index_add_`` of ``vals * B[cols]`` (``spmm_ragged.py:1311-1371``, an
-    XLA op there too).  Rows are sorted; pad rows == ``nrow`` are dropped.
-    Serves fp64 packs and sparse spills, where the fused kernel does not
-    run."""
-    n = b.shape[1]
-    out = torch.zeros((nrow + 1, n), dtype=b.dtype, device=b.device)
-    step = max(1, PLAIN_BLOCK_BYTES // max(1, n * b.element_size()))
-    for i in range(0, rows.shape[0], step):
-        contrib = vals[i : i + step, None].to(b.dtype) * b[cols[i : i + step].long()]
-        out.index_add_(0, rows[i : i + step].long(), contrib)
-    return out[:nrow]
+    """The spilled nonzeros as an (nrow, n) product in plain PyTorch
+    (``spmm_ragged.py:1311-1371``, an XLA op there too): the ``segsum``
+    kind's fixed-order sum, :func:`~.spmm_segsum.spmm_segment_sum`.  Rows
+    are sorted; pad rows == ``nrow`` are dropped.  Serves fp64 packs and
+    sparse spills, where the fused kernel does not run."""
+    return spmm_segment_sum(rows, cols, vals, nrow, b)
 
 
 # ----------------------------------------------------------------- wrappers

@@ -1630,3 +1630,78 @@ def test_p4_init_peaks_within_its_panels(cuda_device, prec):
                sum(t.numel() * t.element_size() for t in eng.packed))
     assert eng._local_op.variant == "window"
     assert held > 1e9 and peak <= 1.2 * held, (peak, held)
+
+
+# ------------------------ the fixed-order segment sums; training on the card
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_segment_sums_repeat_bit_for_bit(cuda_device, dtype, monkeypatch):
+    """The ``segsum`` kind, the chunked spill (1 MB chunks: rows straddle
+    them) and, in fp64, the ``dd`` kind's segment-sum tier on a power-law
+    matrix with hub rows: two launches equal bit for bit, within the
+    dtype's class of the fp64 product."""
+    from crp_tpu_torch.kernels import spmm_segsum
+    from crp_tpu_torch.kernels.spmm_dd import spmm_segsum_dd
+
+    a = powerlaw_community_csr(30000, 16, 1024, seed=50, dtype=dtype)
+    arrs = [torch.from_numpy(x).to(cuda_device) for x in spmm_segsum.pack_device_csr(
+        a.rowptr, a.colidx, a.val, a.nnz + 9, nrow=a.nrow)]
+    b = np.random.default_rng(51).standard_normal((a.ncol, 64)).astype(dtype)
+    bt = torch.from_numpy(b).to(cuda_device)
+    ref = a.spmm_ref(b.astype(np.float64))
+    tol = 1e-12 if dtype == np.float64 else 1e-6
+    runs = [lambda: spmm_segsum.spmm_segment_sum(*arrs, a.nrow, bt)]
+    runs.append(lambda: spmm_ragged.spmm_spill_chunked(*arrs, bt, a.nrow))
+    if dtype == np.float64:
+        runs.append(lambda: spmm_segsum_dd(*arrs, bt, a.nrow))
+    for i, run in enumerate(runs):
+        if i:
+            monkeypatch.setattr(spmm_segsum, "SEGSUM_BLOCK_BYTES", 1 << 20)
+        c1, c2 = run(), run()
+        assert _bits_equal(c1, c2), i
+        assert rel_fro_err(ref, c1.double().cpu().numpy()) <= tol, i
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_autodiff_op_on_card_matches_plain(cuda_device, p):
+    """``DifferentiableSpmm`` at ``auto`` on the card (the ``pallas`` walk,
+    no halo) against the same op on the CPU (the kernels' plain versions):
+    C and dB from the same B and dC within 1e-6 (relative Frobenius)."""
+    from crp_tpu_torch.engine.autodiff import DifferentiableSpmm
+    from crp_tpu_torch.shard.layout import shard_dense_rows
+
+    a = powerlaw_community_csr(20000, 8, 2500, seed=52, dtype=np.float32)
+    d = csr_row_partition(a.rowptr, p)
+    rng = np.random.default_rng(53)
+    b = rng.standard_normal((a.ncol, 48)).astype(np.float32)
+    dc = rng.standard_normal((a.nrow, 48)).astype(np.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        a.__dict__.pop("_torch_pack_cache", None)
+        a.__dict__.pop("_torch_transpose", None)
+        op = DifferentiableSpmm(a, d, d, 48, device=dev, config=SpmmConfig(kernel="auto"))
+        bs = op.shard_b(b).requires_grad_(True)
+        cs = op(bs)
+        dcs = torch.from_numpy(shard_dense_rows(dc, op.fwd.A_row_displs,
+                                                pad_rows=cs.shape[1])).to(dev)
+        (dbs,) = torch.autograd.grad(cs, bs, dcs)
+        out[dev.type] = (op.fwd.kernel_kind, op.unshard_c(cs), op.unshard_db(dbs))
+    assert out["cuda"][0] in ("pallas", "gather")
+    for k in (1, 2):
+        assert rel_fro_err(out["cpu"][k].astype(np.float64), out["cuda"][k]) <= 1e-6
+
+
+@pytest.mark.parametrize("example", ["gcn_train", "gat_train"])
+def test_training_repeats_bit_for_bit(cuda_device, example):
+    """Two 2-step runs of the trainer from one seed on the card: the same
+    losses, bit for bit."""
+    import importlib
+
+    mod = importlib.import_module(f"crp_tpu_torch.examples.{example}")
+    kw = dict(kernel="auto") if example == "gcn_train" else {}
+    first = mod.train(nodes=4000, hidden=32, steps=2, p=4, device=cuda_device, log=None,
+                      **kw)
+    again = mod.train(nodes=4000, hidden=32, steps=2, p=4, device=cuda_device, log=None,
+                      model=first.model, **kw)
+    assert np.isfinite(first.losses).all() and first.losses == again.losses

@@ -93,6 +93,41 @@ def test_port_runs_without_jax_and_ml_dtypes():
     assert errs["p4 segsum"] <= 1e-6
 
 
+_NO_JAX_TRAINING = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["ml_dtypes"] = None
+sys.modules["crp_tpu"] = None
+import json
+from crp_tpu_torch.engine.autodiff import DifferentiableSpmm
+from crp_tpu_torch.engine.trainable import ValueParameterizedSpmm
+from crp_tpu_torch.examples import common, gat_train, gcn_train
+from crp_tpu_torch.kernels.spmm_segsum import segment_sum, spmm_segment_sum
+
+runs = {ex.__name__.rsplit(".", 1)[1]: ex.train(nodes=300, hidden=8, steps=4, p=2,
+                                                 device="cpu", log=None).losses
+        for ex in (gcn_train, gat_train)}
+loaded = [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m == "jax" or m.startswith(("jax.", "ml_dtypes")) for m in loaded), \
+    "jax got imported"
+assert not any(m == "crp_tpu" or m.startswith("crp_tpu.") for m in loaded), \
+    "crp_tpu got imported"
+print(json.dumps(runs))
+"""
+
+
+def test_training_modules_run_without_jax():
+    """The autodiff and trainable engines, the fixed-order sums and both
+    trainers import and train with ``crp_tpu`` and jax blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_TRAINING], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    runs = json.loads(proc.stdout.strip().splitlines()[-1])
+    for losses in runs.values():
+        assert len(losses) == 4 and losses[-1] < losses[0]
+
+
 def test_chip_smoke_loads_without_crp_tpu():
     """``chip_smoke.py`` imported with ``crp_tpu`` and jax blocked: its
     module and the port's engines and kernels load."""
