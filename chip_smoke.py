@@ -114,7 +114,22 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    pick 1 x 4 with ``rA_cost`` 12,170,731 and no B exchange; then a forced
    2 x 2 grid on the headline at x3 (the fused kernel over the 2 row
    panels of each column group);
-14. training path — the examples' graph at the cplaw class's rows,
+14. any-layout path — ``CrpSpmm`` with the reference driver's layouts (B
+   in 4 row slabs, C in 4 column slabs), x3: the headline on the v1
+   planner's 4 x 1 grid (copy_B_size 59,607,296) with ``auto`` -> the
+   fused #12 once an exec; the same from A distributed over 4 row blocks
+   (``DistCSR``), its panels and C equal bit for bit; with
+   ``a2a_b_finegrain=1`` -> #4 a panel on the exact rows (the "necessary"
+   volume, under the coarse one); with ``overlap=1`` -> the ring, #4 as
+   each panel's self part on a side stream, two execs equal bit for bit,
+   timed beside ``overlap=0, rb_p2p=1``; cplaw on the planner's 1 x 4 ->
+   the ragged #7 and the spill #9 a slab (n = 64), no B exchange; each
+   with ``exec_device`` and the staged phases rd_B / a2a_B / spmm / rd_C;
+   ``Para2dSpmm.from_dist_a`` on the forced 2 x 2 headline plan equal to
+   ``Para2dSpmm(a, plan)`` bit for bit; ``RowParaSpmm(bc_layout=1)`` at p
+   = 1 (#1), C (n, m) the row-major C transposed bit for bit, the two
+   device transposes timed; each kernel against its plain version;
+15. training path — the examples' graph at the cplaw class's rows,
    ``powerlaw_community_csr(786432, 8, 98304, seed=5)`` with self-loops
    (6,331,056 nnz), 8 classes, hidden n = 256: the GCN's two
    ``DifferentiableSpmm`` ops at ``auto`` (``pallas`` without the halo;
@@ -204,6 +219,10 @@ PANEL_VARIANTS = ("uniform", "ragged", "window", "halo")
 CPLAW_P4_RECV, CPLAW_P4_RING_ROWS = 591732, 627300  # r4_cpu_mesh_commvol.jsonl
 CPLAW_P8_COMM_N32 = 26551360  # the planner's comm_cost at n = 32, p = 8
 CPLAW_2D_RA_COST = 12170731   # the 1 x 4 grid's A replication at n = 256
+# the v1 bandwidth planner at p = 4, n = 256 (crp_tpu.plan.bandwidth on the
+# same matrices): the headline's 4 x 1 grid and its B-copy cost; cplaw's 1 x 4
+ANY_HEADLINE_GRID, ANY_HEADLINE_COPY_B = (4, 1), 59607296
+ANY_CPLAW_GRID = (1, 4)
 # the training path: the examples' graph at the cplaw class's rows and 8
 # classes, hidden n = N; steps of each training run; GAT's dvals sample
 GNN_NODES, GNN_CLASSES = CPLAW["n"], 8
@@ -1760,6 +1779,275 @@ def gat_check(g, dc, device) -> None:
         model.nodes, GNN_CLASSES, N, TRAIN_STEPS, 4, device=device, model=model, log=say))
 
 
+def crp_drive(a, b, c_ref, tag, cfg, grid, kind, variant, device, *, dist=None,
+              timing=(5, 20)):
+    """``CrpSpmm`` at p = 4, x3, through the user's entry point with the
+    reference driver's layouts (B in 4 row slabs, C in 4 column slabs;
+    ``deprecated/examples/test_crpspmm.c``): the planner's grid (``grid``),
+    the kind and the local op's variant, the init's device memory, every
+    launch count set to 0 just before ``exec`` and read just after, C
+    within x3's class of fp64, ``exec_device`` timed (``timing`` = reps,
+    inner calls), the staged phases of three fenced execs.  ``dist``: A as
+    a ``DistCSR`` in place of ``a``.  Returns (engine, launches, C, exec ms,
+    user B blocks on the card)."""
+    from crp_tpu_torch import CrpSpmm, SpmmConfig, rel_fro_err
+    from crp_tpu_torch.shard.redist import BlockDist
+    from crp_tpu_torch.utils.blocks import uniform_displs
+
+    ub = BlockDist.from_grid(uniform_displs(a.ncol, 4), [0, N])
+    uc = BlockDist.from_grid([0, a.nrow], uniform_displs(N, 4))
+    eng, peak, held = measured_init(device, lambda: CrpSpmm(
+        dist if dist is not None else a, N, ub, uc, nproc=4, device=device,
+        dtype=np.float32, config=SpmmConfig(mxu_precision="x3", **cfg)))
+    op = eng._local_op
+    bp = eng.bplan
+    say(f"[{tag}] CrpSpmm {cfg or 'auto'}: grid {eng.pm} x {eng.pn} (copy_B_size "
+        f"{bp.copy_B_size}), kind {eng.kernel_kind}, variant {op.variant}, init "
+        f"{eng.t_init:.3f} s; Redist B {eng.nelem_B_rd}, Alltoallv B {eng.nelem_B_a2av}, "
+        f"necessary {eng.nelem_B_a2av_min}, Redist A {eng.nelem_A_rd}, Allgatherv A "
+        f"{eng.nelem_A_agv}; physical exchanged rows {eng.physical_rows}")
+    check((eng.pm, eng.pn) == grid and (eng.kernel_kind, op.variant) == (kind, variant),
+          f"{tag}: grid {eng.pm} x {eng.pn}, {eng.kernel_kind}/{op.variant}, expected "
+          f"{grid}, {kind}/{variant}")
+    check_init_memory(tag, "x3", eng, peak, held)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    c = eng.exec(b)
+    launches = {k.__name__: k.launches for k in kernels}
+    say(f"[{tag}] launches in the main-path exec: {json.dumps(launches)}")
+    check(c.shape == (a.nrow, N) and bool(np.isfinite(c).all()),
+          f"{tag}: output shape {c.shape} or non-finite values")
+    err = rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64))
+    say(f"[{tag}] rel_fro_err vs fp64 reference (first {ERR_COLS} columns) = {err:.3e} "
+        f"(tol {TOL_REF['x3']:g})")
+    check(err <= TOL_REF["x3"], f"{tag}: rel_fro_err {err}")
+    bs = eng.rd_B.shard_src(b)
+    exec_ms = time_ms(lambda: eng.exec_device(bs), *timing)
+    eng.clear_stat()
+    for _ in range(3):
+        eng.exec(b)
+    ph = {k: 1e3 * float(np.median(v)) for k, v in eng.timer.samples.items()
+          if k in ("rd_B", "a2a_B", "spmm", "rd_C")}
+    say(f"[{tag}] exec_device {exec_ms:.4f} ms/exec; staged phases (median of 3 "
+        f"fenced execs) " + ", ".join(f"{k} {v:.4f} ms" for k, v in ph.items()))
+    return eng, launches, c, exec_ms, bs
+
+
+def ring_parts(eng, b) -> tuple:
+    """ms of an overlapped engine's ring parts, each alone on the current
+    stream, on column group 0's B slabs: the self part (``ring_spmm``
+    with no shift) and the p - 1 shifts (gather, roll, fixed-order
+    segment sum)."""
+    from crp_tpu_torch.comm.exchange import ring_shift
+    from crp_tpu_torch.comm.ring import _shift_partial, ring_spmm
+
+    bj = eng._blocks(eng.rd_B.exec_device(eng.rd_B.shard_src(b)))[:, 0].contiguous()
+    p, _, n = bj.shape
+    flat = bj.reshape(-1, n)
+
+    def shifts():
+        return [_shift_partial(eng.ring, s, ring_shift(
+            flat.index_select(0, send).view(p, eng.ring.S, n), s).reshape(-1, n))
+            for s, send in enumerate(eng._ring_send, start=1)]
+
+    return time_ms(lambda: ring_spmm(bj, eng.ring, [])), time_ms(shifts)
+
+
+def same_tensors(xs, ys) -> bool:
+    return len(xs) == len(ys) and all(same_bits(x, y) for x, y in zip(xs, ys))
+
+
+def any_layout_path(device) -> list:
+    """The any-layout engine, ``CrpSpmm``, at p = 4 (x3, n = 256), and
+    ``bc_layout``: (a) the headline, ``auto`` -> the fused #12 on the
+    planner's 4 x 1; (b) the same with ``a2a_b_finegrain=1`` -> #4 a panel
+    on the exact rows; (c) with ``overlap=1`` -> the ring, #4 the self
+    part, beside ``overlap=0, rb_p2p=1``; (d) cplaw on the planner's 1 x 4
+    -> the ragged #7 and the spill #9 a slab, no B exchange; (e) A as a
+    ``DistCSR``: ``CrpSpmm`` equal to (a) bit for bit, and
+    ``Para2dSpmm.from_dist_a`` on the forced 2 x 2 equal to
+    ``Para2dSpmm(a, plan)``; (f) ``RowParaSpmm(bc_layout=1)`` at p = 1
+    (#1), C (n, m) the row-major C transposed bit for bit.  Returns the
+    records of #12, #4, #7, #9 and #1 on this path (``"path":
+    "any_layout"``)."""
+    from crp_tpu_torch import (
+        Para2dSpmm, Plan2D, RowParaSpmm, SpmmConfig, csr_row_partition,
+    )
+    from crp_tpu_torch.shard.dist_a import DistCSR
+    from crp_tpu_torch.utils.blocks import uniform_displs
+
+    a, b, c_ref = fp32_case("headline")[:3]
+    records = []
+    # (a) the headline: auto -> #12 once an exec
+    eng, launches, c_a, ms_a, _ = crp_drive(a, b, c_ref, "any headline", {},
+                                            ANY_HEADLINE_GRID, "pallas_halo", "halo", device)
+    check(eng.bplan.copy_B_size == ANY_HEADLINE_COPY_B and launches["spmm_halo"] == 1,
+          f"any headline: copy_B_size {eng.bplan.copy_B_size}, spmm_halo launched "
+          f"{launches['spmm_halo']} times")
+    coarse = eng.nelem_B_a2av
+    b4 = eng._blocks(eng.rd_B.exec_device(eng.rd_B.shard_src(b)))[:, 0].contiguous()
+    got = time_kernel(eng._local_op, eng.packed, b4, "any headline fused", "x3",
+                      csr_work(a), plain_inner=2)
+    records.append(dict(record("spmm_halo", launches["spmm_halo"], *got,
+                               cusparse_yardstick(a, b, c_ref, device, "any cusparse")),
+                        path="any_layout"))
+    # (e) A distributed over 4 uniform row blocks: the same panels and C
+    d = DistCSR.from_global(a, uniform_displs(a.nrow, 4), device=device)
+    eng_d, _, c_d, _, _ = crp_drive(a, b, c_ref, "any headline dist A", {},
+                                    ANY_HEADLINE_GRID, "pallas_halo", "halo", device,
+                                    dist=d, timing=(3, 5))
+    same_c = np.array_equal(c_d.view(np.int32), c_a.view(np.int32))
+    check(same_tensors(eng_d.packed, eng.packed) and same_c
+          and (eng_d.nelem_A_rd, eng_d.nelem_A_agv) == (eng.nelem_A_rd, eng.nelem_A_agv),
+          "any headline dist A: the panels or C differ from the global A's")
+    say("[any headline dist A] panels and C equal the global A's bit for bit")
+    del eng, eng_d, d, b4
+    torch.cuda.empty_cache()
+
+    # (b) finegrain -> #4 a panel on the exact rows
+    eng, launches, _, _, _ = crp_drive(a, b, c_ref, "any headline fine",
+                                       dict(a2a_b_finegrain=1), ANY_HEADLINE_GRID,
+                                       "pallas", "window", device)
+    check(launches["spmm_window"] == 4 and eng.nelem_B_a2av == eng.nelem_B_a2av_min
+          and coarse >= eng.nelem_B_a2av_min,
+          f"any headline fine: {launches['spmm_window']} launches, Alltoallv B "
+          f"{eng.nelem_B_a2av}, necessary {eng.nelem_B_a2av_min}, coarse {coarse}")
+    rB = eng._exchange(eng._blocks(eng.rd_B.exec_device(eng.rd_B.shard_src(b))))[0, 0]
+    s0 = a.row_slice(*(int(x) for x in eng.bplan.m_split_idx[:2]))
+    got = time_kernel(eng._local_op, tuple(x[0] for x in eng.packed), rB,
+                      "any headline fine", "x3", csr_work(s0), plain_inner=3)
+    cols = np.searchsorted(eng.xplan.rowmap[0], s0.colidx)
+    window = dict(record("spmm_window", launches["spmm_window"], *got,
+                         csr_library_ms(s0.rowptr, cols, s0.val, rB.shape[0], rB)),
+                  path="any_layout")
+    records.append(window)
+    del eng, rB
+    torch.cuda.empty_cache()
+
+    # (c) overlap=1: the ring, #4 the self part on a side stream
+    eng, launches, c_o, ms_o, bs = crp_drive(a, b, c_ref, "any headline overlap",
+                                             dict(overlap=1), ANY_HEADLINE_GRID,
+                                             "pallas", "window", device)
+    check(launches["spmm_window"] == 4 and eng._side is not None,
+          f"any headline overlap: {launches['spmm_window']} launches of spmm_window")
+    window["launches"] += launches["spmm_window"]
+    c1, c2 = eng.exec_device(bs), eng.exec_device(bs)
+    check(same_bits(c1, c2), "any headline overlap: two execs differ")
+    self_ms, shifts_ms = ring_parts(eng, b)
+    say(f"[any headline overlap] alone on one stream: the self part {self_ms:.4f} ms, the "
+        f"{eng.pm - 1} shifts {shifts_ms:.4f} ms ({sum(len(h[2]) for h in eng.ring.shifts)} "
+        f"rows hit, {sum(len(h[0]) for h in eng.ring.shifts)} entries)")
+    say(f"[any headline overlap] the self part on stream "
+        f"{getattr(eng._side, 'cuda_stream', None)}, the shifts on the current stream "
+        f"{torch.cuda.current_stream().cuda_stream}; two "
+        f"execs equal bit for bit; {eng.physical_rows} ring rows")
+    del eng, bs, c1, c2
+    torch.cuda.empty_cache()
+    eng, _, c_r, ms_r, _ = crp_drive(a, b, c_ref, "any headline ring",
+                                     dict(kernel="pallas", rb_p2p=1), ANY_HEADLINE_GRID,
+                                     "pallas", "window", device)
+    diff = float(np.abs(c_o.astype(np.float64) - c_r).max())
+    say(f"[any headline overlap] overlap=1 {ms_o:.4f} ms against overlap=0, rb_p2p=1 "
+        f"{ms_r:.4f} ms ({ms_r / ms_o:.3f}x), fused #12 {ms_a:.4f} ms; max |C_overlap - "
+        f"C_ring| {diff:.3e}")
+    del eng
+    a.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+
+    # (d) cplaw on the planner's 1 x 4: the ragged #7 and the spill #9 a slab
+    ac, bc, cc_ref = fp32_case("cplaw")[:3]
+    eng, launches, _, _, _ = crp_drive(ac, bc, cc_ref, "any cplaw", {}, ANY_CPLAW_GRID,
+                                       "pallas", "ragged", device, timing=(3, 5))
+    op = eng._local_op
+    check(launches[op.kernel.__name__] == 4 and launches["spmm_spill"] == 4
+          and eng.nelem_B_a2av == 0 and op.roofline["spill_impl"] == "pallas",
+          f"any cplaw: launches {launches}, Alltoallv B {eng.nelem_B_a2av}")
+    rB = eng._exchange(eng._blocks(eng.rd_B.exec_device(eng.rd_B.shard_src(bc))))[0, 0]
+    arrs = tuple(x[0] for x in eng.packed)
+    lib = csr_library_ms(ac.rowptr, ac.colidx - int(eng.xplan.rowmap[0]), ac.val,
+                         rB.shape[0], rB)
+    got = time_kernel(op, arrs, rB, "any cplaw", "x3", csr_work(ac), plain_inner=2)
+    records.append(dict(record(op.kernel.__name__, launches[op.kernel.__name__], *got, lib),
+                        path="any_layout"))
+    s_abs, _, s_fro = spill_vs_plain(op, arrs, rB)
+    check(s_fro <= TOL_PLAIN_FRO, f"any cplaw: spmm_spill vs plain rel fro err {s_fro}")
+    spill_in_order(op, arrs, rB, "any cplaw")
+    args = op.spill_args(arrs, op.kernel(*op.kernel_args(arrs, rB),
+                                         min_b_rows=op.min_b_rows), rB)
+    s_ms, s_plain, _ = in_turns(lambda: op.spill_kernel(*args),
+                                lambda: op.spill_plain(*args), 3)
+    s_bound = view_bound(args[-1], rB, args[0].shape[0], with_c=True)
+    say(f"[any cplaw] spmm_spill at n={rB.shape[1]}: {s_ms:.4f} ms, plain {s_plain:.4f} "
+        f"ms, rel fro err {s_fro:.3e}; bit for bit its order's emulation")
+    records.append(dict(record("spmm_spill", launches["spmm_spill"], s_abs, s_ms, s_plain,
+                               *s_bound, s_bound[0], spill_library_ms(op, arrs, args[0], rB)),
+                        path="any_layout"))
+    del eng, op, rB, arrs, args
+    ac.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+
+    # (e) Para2dSpmm from distributed A on the forced 2 x 2 headline plan
+    rb = csr_row_partition(a.rowptr, 4)
+    plan = Plan2D(nproc=4, m=a.nrow, n=N, k=a.ncol, pm=2, pn=2, comm_cost=0,
+                  A0_rowptr=rb, B_rowptr=rb[::2].copy(), AC_rowptr=rb[::2].copy(),
+                  BC_colptr=np.array([0, N // 2, N]))
+    cfg = SpmmConfig(mxu_precision="x3")
+    eng_d = Para2dSpmm.from_dist_a(DistCSR.from_global(a, rb, device=device), plan,
+                                   device=device, dtype=np.float32, config=cfg)
+    c_d = eng_d.exec(b)
+    eng_g = Para2dSpmm(a, plan, device=device, dtype=np.float32, config=cfg)
+    c_g = eng_g.exec(b)
+    check(eng_d.kernel_kind == "pallas_halo" and np.array_equal(c_d.view(np.int32),
+                                                                c_g.view(np.int32))
+          and same_tensors(eng_d.packed, eng_g.packed)
+          and (eng_d.rA_cost, eng_d.rB_recv_size) == (eng_g.rA_cost, eng_g.rB_recv_size),
+          "para2d from_dist_a: differs from Para2dSpmm(a, plan)")
+    say(f"[any para2d dist A] 2 x 2 from_dist_a: {eng_d.kernel_kind}, init "
+        f"{eng_d.t_init:.3f} s (global A {eng_g.t_init:.3f} s), rA_cost {eng_d.rA_cost}; "
+        f"panels and C equal Para2dSpmm(a, plan)'s bit for bit")
+    del eng_d, eng_g
+    a.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+
+    # (f) bc_layout=1 at p = 1: #1, C (n, m) the row-major C transposed
+    displs = csr_row_partition(a.rowptr, 1)
+    cfg = dict(kernel="auto", mxu_precision="x3")
+    eng = RowParaSpmm(a, displs, displs, N, device=device, dtype=np.float32,
+                      config=SpmmConfig(bc_layout=1, **cfg))
+    op = eng._local_op
+    bt = np.ascontiguousarray(b.T)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    c_t = eng.exec(bt)
+    n1 = op.kernel.launches
+    row = RowParaSpmm(a, displs, displs, N, device=device, dtype=np.float32,
+                      config=SpmmConfig(**cfg))
+    c_row = row.exec(b)
+    check(op.variant == "uniform" and n1 == 1 and c_t.shape == (N, a.nrow)
+          and np.array_equal(c_t.view(np.int32), np.ascontiguousarray(c_row.T).view(np.int32)),
+          f"bc_layout: variant {op.variant}, {n1} launches of {op.kernel.__name__}, C "
+          f"{c_t.shape} not the "
+          f"row-major C transposed")
+    slabs = torch.from_numpy(bt).to(device)[None]
+    t_b = time_ms(lambda: slabs.transpose(1, 2).contiguous())
+    cs = eng.exec_device(eng.shard_b(bt))
+    t_c = time_ms(lambda: cs.transpose(1, 2).contiguous())
+    say(f"[any bc_layout] p=1: C (n, m) equals the row-major C transposed bit for bit; "
+        f"the device transposes of B {t_b:.4f} ms and of C {t_c:.4f} ms; #1 launched "
+        f"{n1} time in the main-path exec")
+    rB = eng.receive_buffer(eng.shard_b(bt))[0]
+    got = time_kernel(op, tuple(x[0] for x in eng.packed), rB, "any bc_layout", "x3",
+                      csr_work(a), plain_inner=2)
+    records.append(dict(record(op.kernel.__name__, n1, *got, records[0]["library_ms"]),
+                        path="any_layout"))
+    del eng, row, op, rB, cs, slabs
+    a.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+    return records
+
+
 def training_path(device) -> list:
     """Training through the engines at full width: the examples' graph at
     the cplaw class's rows (``powerlaw_community_csr(786432, 8, 98304,
@@ -1904,7 +2192,7 @@ def main() -> int:
     for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,
                   dd_phase, window_phase, halo_phase, headline, cplaw_path,
                   scrambled_cplaw_path, fp64_path, headline_p4, cplaw_p4,
-                  para2d_phase, training_path):
+                  para2d_phase, any_layout_path, training_path):
         t0 = time.perf_counter()
         records += phase(device) or []
         say(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -7,10 +7,14 @@ generators, ``.mtx`` reader, row partitioner, the 2D planner,
 ``SpmmConfig``, error norms), pinned equal to the originals by the CPU
 tests.
 
-Ported so far: ``RowParaSpmm`` at any p and ``Para2dSpmm`` on the planner's
-``pm x pn`` grid, with every shard on the engine's one device: the B-row
-exchange (a padded all_to_all or a ring of shifts) moves exactly the rows
-each shard's A references.  The local kernels are written in CUDA for
+Ported so far: ``RowParaSpmm`` at any p (with the overlapped ring,
+``overlap=1``, and the col-major B/C view, ``bc_layout=1``),
+``Para2dSpmm`` on the planner's ``pm x pn`` grid (A from a global CSR or
+already distributed, ``from_dist_a``) and ``CrpSpmm``, the any-layout
+engine (B and C in the user's 2D blocks, the v1 bandwidth planner, A
+global or distributed), with every shard on the engine's one device: the
+B-row exchange (a padded all_to_all or a ring of shifts) moves exactly
+the rows each shard's A references.  The local kernels are written in CUDA for
 Hopper: the windowed dense panels, super-grouped (``kernels/csrc/
 window_sg.cu``) or not (``kernels/csrc/window.cu``, multi-shard and
 non-monotone packs); the ragged gathered-window chunks
@@ -42,6 +46,10 @@ def __getattr__(name):
         from .engine.para2d import Para2dSpmm
 
         return Para2dSpmm
+    if name == "CrpSpmm":
+        from .engine.crp import CrpSpmm
+
+        return CrpSpmm
     raise AttributeError(f"module 'crp_tpu_torch' has no attribute {name!r}")
 
 
@@ -59,4 +67,5 @@ __all__ = [
     "SpmmConfig",
     "RowParaSpmm",
     "Para2dSpmm",
+    "CrpSpmm",
 ]

@@ -222,7 +222,7 @@ def all_to_all(sendbuf: torch.Tensor) -> torch.Tensor:
     """The all_to_all of the stacked send buffer ``(p_src, p_dst, S, n)``
     when every shard lies on one device: the swap of the source and
     destination axes, ``(p_dst, p_src, S, n)``.  Shards on several GPUs
-    replace this step with ``all_to_all_single`` (ROADMAP Queue A #8)."""
+    replace this step with ``all_to_all_single`` (ROADMAP A8)."""
     return sendbuf.transpose(0, 1)
 
 

@@ -17,8 +17,12 @@ replication a distributed run pays, ``rA_cost``
 ``pallas_halo`` kernel, as JAX does on a TPU: each column group's B blocks
 are read in place by one launch over the pm panels.
 
-Not ported: ``from_dist_a`` (Queue A #8, with ``DistCSR``) and ``overlap``
-(Queue A #8), each raising ``NotImplementedError``.
+``overlap=1`` runs each column group's exchange as the ring schedule of
+``comm/ring.py`` beside the panels' self parts (``para2d.py:230-248,
+342-360``).  :meth:`Para2dSpmm.from_dist_a` takes A already distributed in
+the plan's A0 layout (``shard/dist_a.py``): the panels are assembled from
+the owners' blocks (``replicate_a0``), and ``rA_cost`` comes from the last
+owner's block, as in JAX (``para2d.py:80-127``).
 """
 
 from __future__ import annotations
@@ -29,14 +33,15 @@ import torch
 from ..comm.exchange import (
     build_b_exchange, exchange_b, exchange_b_ring, exchange_tables,
 )
+from ..comm.ring import ring_spmm
 from ..config import SpmmConfig
 from ..kernels.dispatch import resolve_auto_kernel
 from ..plan.planner2d import NNZ_COST_FACTOR
 from ..shard.layout import shard_dense_2d, unshard_dense_2d
 from ..utils.timers import Timer, synchronize
 from .rowpara import (
-    check_dd_options, check_halo_options, engine_device, pack_engine,
-    run_shards, unsupported,
+    build_ring, check_dd_options, check_halo_options, engine_device, pack_engine,
+    run_shards,
 )
 from .stats import format_comm_head, format_stat_table
 
@@ -52,6 +57,39 @@ class Para2dSpmm(torch.nn.Module):
     def __init__(self, a, plan, *, device="cuda", config: SpmmConfig | None = None,
                  dtype=None) -> None:
         super().__init__()
+        self._setup(plan, device, config, dtype)
+        t0 = Timer()
+        with t0.phase("init"):
+            panels = [a.row_slice(int(plan.AC_rowptr[i]), int(plan.AC_rowptr[i + 1]))
+                      for i in range(self.pm)]
+            last_blk_nnz = int(a.rowptr[plan.A0_rowptr[-1]] - a.rowptr[plan.A0_rowptr[-2]])
+            self._build(panels, last_blk_nnz)
+        self._finish_init(t0)
+
+    @classmethod
+    def from_dist_a(cls, dist, plan, *, device="cuda", config: SpmmConfig | None = None,
+                    dtype=None) -> "Para2dSpmm":
+        """Init from A already distributed: owner ``i*pn+j`` holds A0 block
+        ``i*pn+j`` (a :class:`~crp_tpu_torch.shard.dist_a.DistCSR` in the
+        plan's A0 layout, as ``scatter_csr_rows`` makes it,
+        ``examples/test_utils.c:57-119``); each panel is gathered from its
+        pn owners' blocks (``replicate_a0``), never from a host-global A."""
+        from ..shard.dist_a import replicate_a0
+
+        self = cls.__new__(cls)
+        torch.nn.Module.__init__(self)
+        self._setup(plan, device, config, dtype)
+        t0 = Timer()
+        with t0.phase("init"):
+            panels = replicate_a0(dist, plan.A0_rowptr, self.pm, self.pn, self.device,
+                                  val_dtype=self.dtype)
+            # rA_cost from the LAST owner's block (src/para2d_spmm.c:102-109)
+            rp = dist.rowptrs[-1]
+            self._build(panels, int(rp[-1]) - int(rp[0]))
+        self._finish_init(t0)
+        return self
+
+    def _setup(self, plan, device, config, dtype) -> None:
         self.config = config or SpmmConfig()
         if self.config.bc_layout:
             raise ValueError(
@@ -61,9 +99,7 @@ class Para2dSpmm(torch.nn.Module):
         self.is_dd = self.config.kernel in ("dd", "dd_mxu")
         check_dd_options(self.config)
         check_halo_options(self.config)
-        why = unsupported(self.config)
-        if why is not None:
-            raise NotImplementedError(f"not yet ported to crp_tpu_torch: {why}")
+        self.overlap = bool(self.config.overlap)
         self.device = engine_device(device)
         self.plan = plan
         self.pm, self.pn = plan.pm, plan.pn
@@ -73,10 +109,9 @@ class Para2dSpmm(torch.nn.Module):
             else dtype if dtype is not None else self.config.dtype
         )
         self.timer = Timer()
-        t0 = Timer()
         self._t_build = Timer()
-        with t0.phase("init"):
-            self._build(a)
+
+    def _finish_init(self, t0) -> None:
         self.t_init = t0.t["init"]
         tb = self._t_build
         self.init_breakdown = {
@@ -84,12 +119,8 @@ class Para2dSpmm(torch.nn.Module):
         }
 
     # ------------------------------------------------------------------ init
-    def _build(self, a) -> None:
+    def _build(self, panels, last_blk_nnz: int) -> None:
         plan, tb = self.plan, self._t_build
-        panels = [
-            a.row_slice(int(plan.AC_rowptr[i]), int(plan.AC_rowptr[i + 1]))
-            for i in range(self.pm)
-        ]
         self.max_m = max(max(p_.nrow for p_ in panels), 1)
         # the planner's B_rowptr copies the nnz-balanced blocks for m == k,
         # which leave trailing empty rows out: extend to every column of A
@@ -103,43 +134,51 @@ class Para2dSpmm(torch.nn.Module):
             )
         kind = self.config.kernel
         if kind == "auto":
-            kind = resolve_auto_kernel(self.device, self.pm)
+            kind = resolve_auto_kernel(self.device, self.pm, overlap=self.overlap)
         self.max_k = int(max(np.diff(self._B_displs).max(), 1))
-        with tb.phase("pack"):
-            arrays, self._local_op, kind = pack_engine(
-                panels, self.xplan, reidx, self._B_displs, self.max_m,
-                self.dtype, kind, device=self.device,
-                mxu_precision=self.config.mxu_precision, is_dd=self.is_dd,
-            )
-            synchronize(arrays)
-        self.is_halo = kind == "pallas_halo"
-        if self.is_halo:
-            # the fused kernel owns B in 128-row aligned blocks
-            self._B_displs = self._local_op.B_displs
-            self.max_k = self._local_op.min_b_rows
-            self.max_m = max(self.max_m, self._local_op.G * self._local_op.TM)
-        self._rb_rows = max(self.xplan.rB_nrow_max,
-                            1 if self.is_halo else self._local_op.min_b_rows, 1)
+        self._identity_exchange = self.is_halo = False
+        if self.overlap:
+            with tb.phase("pack"):
+                self.ring, self.max_k, self._ring_send, self._side = build_ring(
+                    panels, self.xplan, self._B_displs, self.max_m, self.max_k,
+                    self.dtype, kind, device=self.device,
+                    mxu_precision=self.config.mxu_precision)
+            self._local_op, arrays = self.ring.self_op, self.ring.self_arrays
+        else:
+            with tb.phase("pack"):
+                arrays, self._local_op, kind = pack_engine(
+                    panels, self.xplan, reidx, self._B_displs, self.max_m,
+                    self.dtype, kind, device=self.device,
+                    mxu_precision=self.config.mxu_precision, is_dd=self.is_dd,
+                )
+                synchronize(arrays)
+            self.is_halo = kind == "pallas_halo"
+            if self.is_halo:
+                # the fused kernel owns B in 128-row aligned blocks
+                self._B_displs = self._local_op.B_displs
+                self.max_k = self._local_op.min_b_rows
+                self.max_m = max(self.max_m, self._local_op.G * self._local_op.TM)
+            self._rb_rows = max(self.xplan.rB_nrow_max,
+                                1 if self.is_halo else self._local_op.min_b_rows, 1)
+            with tb.phase("upload"):
+                self._identity_exchange = (
+                    not self.is_halo and self.pm == 1 and reidx
+                    and len(self.xplan.rowmap[0]) == int(self._B_displs[-1])
+                )
+                if self._identity_exchange:
+                    self.max_k = max(self.max_k, self._rb_rows)
+                elif not self.is_halo:
+                    self.xtables = exchange_tables(
+                        self.xplan, self.max_k, self._rb_rows, self.device,
+                        ring=bool(self.config.rb_p2p),
+                    )
         self._n_packed = len(arrays)
         for i, x in enumerate(arrays):
             self.register_buffer(f"packed_{i}", x, persistent=False)
-        with tb.phase("upload"):
-            self._identity_exchange = (
-                not self.is_halo and self.pm == 1 and reidx
-                and len(self.xplan.rowmap[0]) == int(self._B_displs[-1])
-            )
-            if self._identity_exchange:
-                self.max_k = max(self.max_k, self._rb_rows)
-            elif not self.is_halo:
-                self.xtables = exchange_tables(
-                    self.xplan, self.max_k, self._rb_rows, self.device,
-                    ring=bool(self.config.rb_p2p),
-                )
         self.kernel_kind = kind
         self.max_nloc = int(max(np.diff(plan.BC_colptr).max(), 1))
         # audit (src/para2d_spmm.c:102-109): the last rank's A0 block nnz
         # sent to the other pn - 1 ranks of its group
-        last_blk_nnz = int(a.rowptr[plan.A0_rowptr[-1]] - a.rowptr[plan.A0_rowptr[-2]])
         self.rA_cost = int(float(last_blk_nnz) * float(self.pn - 1) * NNZ_COST_FACTOR)
         self.rB_recv_size = int(self.xplan.total_recv_rows)
 
@@ -153,7 +192,7 @@ class Para2dSpmm(torch.nn.Module):
         """Padded B rows one exec moves, over the pn column groups."""
         if self.is_halo:
             per_group = self._local_op.halo_rows_pushed
-        elif self.config.rb_p2p:
+        elif self.overlap or self.config.rb_p2p:
             per_group = self.xplan.physical_rows_ring
         else:
             per_group = self.xplan.physical_rows
@@ -182,6 +221,10 @@ class Para2dSpmm(torch.nn.Module):
             bj = b_blocks[:, j]
             if self.is_halo:
                 out.append(self._local_op(self.packed, bj.contiguous()))
+                continue
+            if self.overlap:
+                out.append(ring_spmm(bj.contiguous(), self.ring, self._ring_send,
+                                     self._side))
                 continue
             rB = bj if self._identity_exchange else xch(bj, self.xtables)
             out.append(run_shards(self._local_op, self.packed, rB))

@@ -18,13 +18,19 @@ straight from the owner shards' rows (``kernels/spmm_halo.py``).  Where
 its plan refuses (an empty shard, a window over 16384 rows, falling
 window starts) the engine takes the unfused ``pallas`` path, as JAX does.
 
+``overlap=1`` runs the ring schedule of ``comm/ring.py``: each shard's
+self part on the local kernel (on a second CUDA stream) beside the p - 1
+shifts and their segment sums (``rowpara.py:186-203,535-545``); ``auto``
+then takes ``pallas``, not the fused kernel.  ``bc_layout=1`` is the
+reference's col-major view (``rowpara.py:456-500``): B arrives as (n, k)
+and C returns as (n, m), each transposed on the device; ``auto`` steps
+down from the fused kernel to ``pallas``.
+
 The ``dd`` and ``dd_mxu`` kinds compute in fp64 whatever ``dtype`` says:
 A's values, B and C are fp64 (the JAX package carries B and C as hi/lo
 fp32 pairs, 48 bits; the port carries 53).  As in JAX, they refuse
-``bc_layout`` and ``overlap`` (``ValueError``).
-
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``overlap`` (Queue A #8) and ``bc_layout`` (Queue A #3).
+``bc_layout`` and ``overlap``, and an explicit ``pallas_halo`` refuses
+both too (``ValueError``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 from ..comm.exchange import (
     build_b_exchange, exchange_b, exchange_b_ring, exchange_tables,
 )
+from ..comm.ring import build_ring_spmm, ring_send_tables, ring_spmm
 from ..config import SpmmConfig
 from ..kernels.dispatch import pack_with_fallback, resolve_auto_kernel
 from ..kernels.spmm_halo import align_displs, build_halo_plan
@@ -47,15 +54,6 @@ from ..utils.timers import Timer, synchronize
 from .stats import format_stat_table
 
 logger = logging.getLogger("crp_tpu_torch")
-
-
-def unsupported(config: SpmmConfig) -> str | None:
-    """Why the port refuses ``config`` (its ROADMAP item), or None."""
-    if config.overlap:
-        return "overlap=1 (comm/ring.py) is ROADMAP Queue A #8"
-    if config.bc_layout:
-        return "bc_layout=1 (the reference's col-major B/C) is ROADMAP Queue A #3"
-    return None
 
 
 def check_halo_options(config: SpmmConfig) -> None:
@@ -146,6 +144,20 @@ def pack_engine(shards, xplan, reidx, B_displs, max_m, dtype, kind, *,
     )
 
 
+def build_ring(shards, xplan, B_displs, max_m, max_k, dtype, kind, *, device,
+               mxu_precision) -> tuple:
+    """The overlapped ring of the 1D and 2D engines: ``(pack, max_k, send
+    tables, side stream)``, the B shards' rows grown to the self kernel's
+    window reach (it reads its windows straight from them) and a second
+    CUDA stream for the self part (None off the card)."""
+    ring = build_ring_spmm(shards, xplan, B_displs, max_m, dtype, kind, device=device,
+                           mxu_precision=mxu_precision)
+    synchronize(list(ring.self_arrays))
+    max_k = max(max_k, ring.min_b_rows)
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    return ring, max_k, ring_send_tables(xplan, max_k, device), side
+
+
 def run_shards(local_op, packed, rB) -> torch.Tensor:
     """``local_op`` on every shard's packed tensors and receive buffer
     ``rB[i]``, one after another: (p, rows, n)."""
@@ -175,9 +187,7 @@ class RowParaSpmm(torch.nn.Module):
         self.is_dd = self.config.kernel in ("dd", "dd_mxu")
         check_dd_options(self.config)
         check_halo_options(self.config)
-        why = unsupported(self.config)
-        if why is not None:
-            raise NotImplementedError(f"not yet ported to crp_tpu_torch: {why}")
+        self.overlap = bool(self.config.overlap)
         self.device = engine_device(device)
         self.glb_n = glb_n
         self.dtype = np.dtype(
@@ -219,8 +229,20 @@ class RowParaSpmm(torch.nn.Module):
             )
         kind = self.config.kernel
         if kind == "auto":
-            kind = resolve_auto_kernel(self.device, self.p)
+            kind = resolve_auto_kernel(self.device, self.p, overlap=self.overlap)
+            if self.config.bc_layout and kind == "pallas_halo":
+                kind = "pallas"  # the nearest kernel that takes the col-major view
         self.max_k = int(max(np.diff(self.B_row_displs).max(), 1))
+        self._identity_exchange = self.is_halo = False
+        if self.overlap:
+            with tb.phase("pack"):
+                self.ring, self.max_k, self._ring_send, self._side = build_ring(
+                    shards, self.xplan, self.B_row_displs, self.max_m, self.max_k,
+                    self.dtype, kind, device=self.device,
+                    mxu_precision=self.config.mxu_precision)
+            self._local_op = self.ring.self_op
+            self._finish(kind, self.ring.self_arrays)
+            return
 
         # single-slot pack memo on the matrix (rowpara.py:205-289): a new
         # key drops the old pack's device tensors
@@ -255,10 +277,6 @@ class RowParaSpmm(torch.nn.Module):
             self.xplan.rB_nrow_max,
             1 if self.is_halo else self._local_op.min_b_rows, 1,
         )
-        self._n_packed = len(arrays)
-        for i, x in enumerate(arrays):
-            self.register_buffer(f"packed_{i}", x, persistent=False)
-
         with tb.phase("upload"):
             self._identity_exchange = (
                 not self.is_halo
@@ -276,7 +294,13 @@ class RowParaSpmm(torch.nn.Module):
                     ring=bool(self.config.rb_p2p),
                 )
                 synchronize([self.xtables.send, self.xtables.recv_dst])
+        self._finish(kind, arrays)
 
+    def _finish(self, kind: str, arrays) -> None:
+        """The packed tensors as the module's buffers, and the audit."""
+        self._n_packed = len(arrays)
+        for i, x in enumerate(arrays):
+            self.register_buffer(f"packed_{i}", x, persistent=False)
         self.kernel_kind = kind
         self.rB_recv_rows = self.xplan.rB_recv_rows
         self.rB_recv_size = int(self.xplan.total_recv_rows)
@@ -289,23 +313,43 @@ class RowParaSpmm(torch.nn.Module):
     @property
     def physical_rows(self) -> int:
         """Padded B rows one exec moves: every push of the fused kernel
-        (its own shard's included), else ``p·(p−1)·S`` on the ring and
-        ``p·p·S`` for the all_to_all."""
+        (its own shard's included), else ``p·(p−1)·S`` on the ring (the
+        overlapped one too) and ``p·p·S`` for the all_to_all."""
         if self.is_halo:
             return self._local_op.halo_rows_pushed
-        if self.config.rb_p2p:
+        if self.overlap or self.config.rb_p2p:
             return self.xplan.physical_rows_ring
         return self.xplan.physical_rows
 
     # ------------------------------------------------------------------ exec
     def shard_b(self, b: np.ndarray) -> torch.Tensor:
         """Global (k, n) host B -> stacked padded shards (p, max_k, n) on
-        the engine's device."""
+        the engine's device.  Under ``bc_layout`` B arrives as (n, k): its
+        column slabs go up as (p, n, max_k) in the user's orientation and
+        are transposed on the device (``src/rowpara_spmm.c:225-264``)."""
         b = np.asarray(b, dtype=self.dtype)
+        if self.config.bc_layout:
+            slabs = np.zeros((self.p, b.shape[0], self.max_k), dtype=self.dtype)
+            for i in range(self.p):
+                s, e = int(self.B_row_displs[i]), int(self.B_row_displs[i + 1])
+                slabs[i, :, : e - s] = b[:, s:e]
+            return torch.from_numpy(slabs).to(self.device).transpose(1, 2).contiguous()
         bs = shard_dense_rows(b, self.B_row_displs, pad_rows=self.max_k)
         return torch.from_numpy(bs).to(self.device)
 
     def unshard_c(self, c_shards: torch.Tensor) -> np.ndarray:
+        """Stacked C shards -> global host C (m, n); under ``bc_layout``
+        (n, m), the shards transposed on the device and joined by
+        columns."""
+        if self.config.bc_layout:
+            ct = c_shards.transpose(1, 2).contiguous().cpu().numpy()  # (p, n, rows)
+            d = self.A_row_displs
+            c = np.concatenate([ct[i][:, : int(d[i + 1] - d[i])] for i in range(self.p)],
+                               axis=1)
+            if c.shape[1] < self.glb_m:
+                c = np.concatenate(
+                    [c, np.zeros((c.shape[0], self.glb_m - c.shape[1]), c.dtype)], axis=1)
+            return c
         c = unshard_dense_rows(c_shards.cpu().numpy(), self.A_row_displs)
         if c.shape[0] < self.glb_m:
             # rows past the last nnz-balanced block are empty A rows
@@ -323,10 +367,11 @@ class RowParaSpmm(torch.nn.Module):
 
     def receive_buffer(self, b_shards: torch.Tensor) -> torch.Tensor:
         """The B rows each shard's packed kernel reads, (p, rows, n): the
-        shards themselves where the exchange is the identity or the fused
-        kernel reads the owners' rows in place, else the exchange's
-        compacted receive buffers."""
-        if self.is_halo or self._identity_exchange:
+        shards themselves where the exchange is the identity, the fused
+        kernel reads the owners' rows in place or the ring's self part
+        reads its own shard, else the exchange's compacted receive
+        buffers."""
+        if self.is_halo or self._identity_exchange or self.overlap:
             return b_shards
         return self._exchange(b_shards)
 
@@ -335,6 +380,8 @@ class RowParaSpmm(torch.nn.Module):
         shards (rows past each shard's own are trimmed by ``unshard_c``)."""
         if self.is_halo:
             return self._local_op(self.packed, b_shards)
+        if self.overlap:
+            return ring_spmm(b_shards, self.ring, self._ring_send, self._side)
         return self._spmm(self.receive_buffer(b_shards))
 
     def exec_device(self, b_shards: torch.Tensor) -> torch.Tensor:
@@ -355,9 +402,11 @@ class RowParaSpmm(torch.nn.Module):
 
     def exec_timed(self, b_shards: torch.Tensor) -> torch.Tensor:
         """Exec with per-phase fences (the reference's stat-table phases):
-        ``a2a`` (the exchange) and ``spmm`` (the local ops)."""
+        ``a2a`` (the exchange) and ``spmm`` (the local ops); the fused
+        kernel and the overlapped ring are one ``exec`` phase
+        (``rowpara.py:565``)."""
         t = self.timer
-        if self._identity_exchange or self.is_halo:
+        if self._identity_exchange or self.is_halo or self.overlap:
             c = self.exec_device(b_shards)
             with t.phase("exec", fence=c):
                 pass

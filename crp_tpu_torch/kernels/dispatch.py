@@ -65,10 +65,12 @@ from .spmm_segsum import pack_device_csr, spmm_segment_sum
 
 logger = logging.getLogger("crp_tpu_torch")
 
-def resolve_auto_kernel(device, nshards: int = 1, *, allow_halo: bool = True) -> str:
+def resolve_auto_kernel(device, nshards: int = 1, *, overlap: bool = False,
+                        allow_halo: bool = True) -> str:
     """``kernel="auto"`` (``dispatch.py:30-62``): on a CUDA device the fused
-    ``"pallas_halo"`` for multi-shard engines (unless ``allow_halo`` is
-    False, as the autodiff op asks) and ``"pallas"`` for one shard;
+    ``"pallas_halo"`` for multi-shard engines (unless ``overlap`` asks for
+    the ring schedule, or ``allow_halo`` is False, as the autodiff op and
+    ``CrpSpmm``'s finegrain exchange ask) and ``"pallas"`` otherwise;
     ``"segsum"`` elsewhere, as JAX picks segsum off the TPU.  The engines
     land on ``"pallas"`` where the halo plan refuses.
 
@@ -77,7 +79,7 @@ def resolve_auto_kernel(device, nshards: int = 1, *, allow_halo: bool = True) ->
     """
     if torch.device(device).type != "cuda":
         return "segsum"
-    return "pallas_halo" if allow_halo and nshards > 1 else "pallas"
+    return "pallas_halo" if allow_halo and not overlap and nshards > 1 else "pallas"
 
 
 def sparsity_fallback_chain(kind: str, dtype, device, is_dd: bool = False,

@@ -138,11 +138,11 @@ def plan_from_csr(a, n: int, nproc: int, method: str = "nnz", rA: int = 1,
                   dbg_print: bool = False) -> Plan2D:
     """The 1D nnz-balanced partition, then the 2D grid search.
     ``method="metis"`` (a graph-partitioned 1D partition) needs the
-    reordering layer, which is not ported (ROADMAP Queue A #8)."""
+    reordering layer, which is not ported (ROADMAP A6)."""
     if method == "metis":
         raise NotImplementedError(
             "not yet ported to crp_tpu_torch: plan_from_csr(method='metis') "
-            "needs sparse/reorder (ROADMAP Queue A #8)"
+            "needs sparse/reorder (ROADMAP A6)"
         )
     if method != "nnz":
         raise ValueError(f"unknown 1D partition method {method!r}")

@@ -69,6 +69,19 @@ class CSRMatrix:
             self.colidx[s:e].copy(), self.val[s:e].copy(),
         )
 
+    def localize(self) -> tuple["CSRMatrix", int, int]:
+        """Shrink the column window to [min colidx, max colidx]: (shifted
+        matrix, window start, window size), as ``rp_spmm_init`` localizes
+        A (``src/rowpara_spmm.c:46-77``)."""
+        if self.nnz == 0:
+            return CSRMatrix(self.nrow, 0, self.rowptr.copy(),
+                             self.colidx.copy(), self.val.copy()), 0, 0
+        srow = int(self.colidx.min())
+        w = int(self.colidx.max()) - srow + 1
+        return (CSRMatrix(self.nrow, w, self.rowptr.copy(),
+                          (self.colidx - srow).astype(self.colidx.dtype), self.val.copy()),
+                srow, w)
+
     def transpose(self) -> "CSRMatrix":
         """A^T as CSR, counting sort by column (stable: columns stay sorted
         within each transposed row)."""
@@ -95,3 +108,33 @@ class CSRMatrix:
             return 0
         row = np.repeat(np.arange(self.nrow), np.diff(self.rowptr))
         return int(np.abs(self.colidx - row).max())
+
+    def row_col_ranges_v1(self) -> np.ndarray:
+        """(nrow, 2) per-row [min, max] colidx as the v1 engine assembles
+        ``A_cidx_se_glb`` (``deprecated/src/crpspmm.c:111-117``): row i
+        reads ``colidx[rowptr[i]]`` and ``colidx[rowptr[i+1]-1]`` even when
+        EMPTY, pulling its neighbours' columns; the bandwidth planner's
+        costs and the coarse exchange windows depend on this quirk.  Reads
+        the reference leaves out of bounds (leading or trailing empty
+        rows) are clipped in range."""
+        out = np.empty((self.nrow, 2), dtype=np.int64)
+        nnz = self.nnz
+        if nnz == 0:
+            out[:, 0] = self.ncol
+            out[:, 1] = -1
+            return out
+        out[:, 0] = self.colidx[np.minimum(self.rowptr[:-1], nnz - 1)]
+        out[:, 1] = self.colidx[np.maximum(self.rowptr[1:] - 1, 0)]
+        return out
+
+    def row_col_ranges(self) -> np.ndarray:
+        """(nrow, 2) per-row [min colidx, max colidx]; an empty row gets
+        the empty range [ncol, -1], which min / max reductions ignore."""
+        ranges = np.empty((self.nrow, 2), dtype=np.int64)
+        ranges[:, 0] = self.ncol
+        ranges[:, 1] = -1
+        nonempty = np.diff(self.rowptr) > 0
+        # colidx sorted per row: the first nonzero is the min, the last the max
+        ranges[nonempty, 0] = self.colidx[self.rowptr[:-1][nonempty]]
+        ranges[nonempty, 1] = self.colidx[self.rowptr[1:][nonempty] - 1]
+        return ranges

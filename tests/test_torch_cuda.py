@@ -1705,3 +1705,72 @@ def test_training_repeats_bit_for_bit(cuda_device, example):
     again = mod.train(nodes=4000, hidden=32, steps=2, p=4, device=cuda_device, log=None,
                       model=first.model, **kw)
     assert np.isfinite(first.losses).all() and first.losses == again.losses
+
+
+@pytest.mark.parametrize("cfg,kind", [
+    (dict(), "pallas_halo"),                          # auto at 4 x 1: the fused #12
+    (dict(a2a_b_finegrain=1), "pallas"),              # exact rows, #4 a panel
+    (dict(overlap=1), "pallas"),                      # the ring, #4 as the self part
+    (dict(kernel="pallas", rb_p2p=0), "pallas"),
+])
+def test_crp_on_card_matches_cpu(cuda_device, cfg, kind):
+    """``CrpSpmm`` on the card against the same engine on the CPU (the
+    kernels' plain versions), x3, B in row slabs and C in column slabs:
+    the same grid, kind and counters, C within 1e-6 (relative Frobenius)
+    and within x3's class of fp64."""
+    from crp_tpu_torch.engine.crp import CrpSpmm
+    from crp_tpu_torch.shard.redist import BlockDist
+    from crp_tpu_torch.utils.blocks import uniform_displs
+
+    a = banded_random_csr(12000, nnz_per_row=9, bandwidth=300, seed=61, dtype=np.float32)
+    n, p = 64, 4
+    ub = BlockDist.from_grid(uniform_displs(a.ncol, p), [0, n])
+    uc = BlockDist.from_grid([0, a.nrow], uniform_displs(n, p))
+    b = fill_b(0, a.ncol, 0, n, dtype=np.float32)
+    g = CrpSpmm(a, n, ub, uc, nproc=p, device=cuda_device, dtype=np.float32,
+                config=SpmmConfig(mxu_precision="x3", **cfg))
+    # the CPU engine asks for the kind the card's resolved (auto is segsum there)
+    c = CrpSpmm(a, n, ub, uc, nproc=p, device="cpu", dtype=np.float32,
+                config=SpmmConfig(mxu_precision="x3", **{**cfg, "kernel": g.kernel_kind}))
+    cg, cc = g.exec(b), c.exec(b)
+    assert (g.pm, g.pn, g.kernel_kind) == (c.pm, c.pn, c.kernel_kind) == (4, 1, kind)
+    assert (g.nelem_B_a2av, g.nelem_B_a2av_min) == (c.nelem_B_a2av, c.nelem_B_a2av_min)
+    assert rel_fro_err(cc.astype(np.float64), cg) <= 1e-6
+    assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), cg) <= 1e-5
+
+
+@pytest.mark.parametrize("engine", ["rowpara", "crp"])
+def test_overlapped_ring_repeats_bit_for_bit(cuda_device, engine):
+    """The two-stream ring (the self part's kernel on a side stream, the
+    shifts on the current one): two launches equal bit for bit, and C
+    within 1e-6 of the unfused ring's on the same card."""
+    from crp_tpu_torch.engine.crp import CrpSpmm
+    from crp_tpu_torch.kernels import spmm_pallas
+    from crp_tpu_torch.shard.redist import BlockDist
+    from crp_tpu_torch.utils.blocks import uniform_displs
+
+    a = banded_random_csr(20000, nnz_per_row=9, bandwidth=400, seed=62, dtype=np.float32)
+    n, p = 96, 4
+    b = fill_b(0, a.ncol, 0, n, dtype=np.float32)
+    outs = {}
+    for overlap in (1, 0):
+        cfg = SpmmConfig(kernel="pallas", mxu_precision="x3", overlap=overlap)
+        if engine == "rowpara":
+            d = csr_row_partition(a.rowptr, p)
+            a.__dict__.pop("_torch_pack_cache", None)
+            eng = RowParaSpmm(a, d, d, n, device=cuda_device, dtype=np.float32, config=cfg)
+            bs = eng.shard_b(b)
+        else:
+            ub = BlockDist.from_grid(uniform_displs(a.ncol, p), [0, n])
+            uc = BlockDist.from_grid([0, a.nrow], uniform_displs(n, p))
+            eng = CrpSpmm(a, n, ub, uc, nproc=p, device=cuda_device, dtype=np.float32,
+                          config=cfg)
+            bs = eng.rd_B.shard_src(b)
+        spmm_pallas.spmm_window.launches = 0
+        c1, c2 = eng.exec_device(bs), eng.exec_device(bs)
+        torch.cuda.synchronize()
+        if overlap:
+            assert spmm_pallas.spmm_window.launches == 2 * p
+            assert torch.equal(c1.view(torch.int32), c2.view(torch.int32))
+        outs[overlap] = eng.exec(b)
+    assert rel_fro_err(outs[0].astype(np.float64), outs[1]) <= 1e-6

@@ -128,6 +128,78 @@ def test_training_modules_run_without_jax():
         assert len(losses) == 4 and losses[-1] < losses[0]
 
 
+_NO_JAX_ANY_LAYOUT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["ml_dtypes"] = None
+sys.modules["crp_tpu"] = None
+import io, json
+from contextlib import redirect_stdout
+import numpy as np
+from crp_tpu_torch import (
+    CrpSpmm, Para2dSpmm, RowParaSpmm, SpmmConfig, banded_random_csr, csr_row_partition,
+    fill_b, plan_from_csr, rel_fro_err,
+)
+from crp_tpu_torch.cli import calc_partition_cli, plan_cli
+from crp_tpu_torch.comm import ring
+from crp_tpu_torch.engine import crp
+from crp_tpu_torch.plan import bandwidth
+from crp_tpu_torch.shard import dist_a, redist
+from crp_tpu_torch.shard.dist_a import DistCSR
+from crp_tpu_torch.shard.redist import BlockDist
+from crp_tpu_torch.utils.blocks import uniform_displs
+
+a = banded_random_csr(1500, nnz_per_row=7, bandwidth=50, seed=4, dtype=np.float32)
+n = 16
+b = fill_b(0, a.ncol, 0, n, dtype=np.float32)
+ref = a.spmm_ref(b.astype(np.float64))
+ub = BlockDist.from_grid(uniform_displs(a.ncol, 4), [0, n])
+uc = BlockDist.from_grid([0, a.nrow], uniform_displs(n, 4))
+errs = {}
+for name, cfg in (("crp", {}), ("crp fine", dict(a2a_b_finegrain=1)),
+                  ("crp overlap", dict(overlap=1))):
+    eng = CrpSpmm(a, n, ub, uc, nproc=4, device="cpu", dtype=np.float32,
+                  config=SpmmConfig(kernel="pallas", mxu_precision="x3", **cfg))
+    errs[name] = rel_fro_err(ref, eng.exec(b))
+eng = CrpSpmm(DistCSR.from_global(a, uniform_displs(a.nrow, 4), device="cpu"), n, ub, uc,
+              nproc=4, device="cpu", dtype=np.float32)
+errs["crp dist"] = rel_fro_err(ref, eng.exec(b))
+d = csr_row_partition(a.rowptr, 4)
+eng = RowParaSpmm(a, d, d, n, device="cpu", dtype=np.float32,
+                  config=SpmmConfig(overlap=1, kernel="pallas", mxu_precision="x3"))
+errs["rowpara overlap"] = rel_fro_err(ref, eng.exec(b))
+eng = RowParaSpmm(a, d, d, n, device="cpu", dtype=np.float32, config=SpmmConfig(bc_layout=1))
+errs["rowpara bc_layout"] = rel_fro_err(ref.T, eng.exec(np.ascontiguousarray(b.T)))
+plan = plan_from_csr(a, n, 4)
+eng = Para2dSpmm.from_dist_a(DistCSR.from_global(a, plan.A0_rowptr, device="cpu"), plan,
+                             device="cpu", dtype=np.float32, config=SpmmConfig(overlap=1))
+errs["para2d dist overlap"] = rel_fro_err(ref, eng.exec(b))
+with redirect_stdout(io.StringIO()):
+    assert calc_partition_cli.main(["synth:banded:2000:9:60", "16", "4"]) == 0
+loaded = [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m == "jax" or m.startswith(("jax.", "ml_dtypes")) for m in loaded), \
+    "jax got imported"
+assert not any(m == "crp_tpu" or m.startswith("crp_tpu.") for m in loaded), \
+    "crp_tpu got imported"
+print(json.dumps(errs))
+"""
+
+
+def test_any_layout_modules_run_without_jax():
+    """The any-layout engine's modules (the v1 planner, the redistribution,
+    distributed A, the ring, ``CrpSpmm``, the CLIs) import, and the engines
+    run every new option, with ``crp_tpu``, jax and ml_dtypes blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_ANY_LAYOUT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    errs = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(errs) == 7
+    for name, err in errs.items():  # x3's class for the pallas runs, fp32 else
+        assert err <= (1e-5 if name in ("crp", "crp fine", "crp overlap",
+                                        "rowpara overlap") else 1e-6), (name, err)
+
+
 def test_chip_smoke_loads_without_crp_tpu():
     """``chip_smoke.py`` imported with ``crp_tpu`` and jax blocked: its
     module and the port's engines and kernels load."""

@@ -115,10 +115,9 @@ def test_dd_mxu_on_a_2x1_grid_matches_jax(devices8, n):
 
 
 @pytest.mark.parametrize("change,exc,match", [
-    (dict(overlap=1), NotImplementedError, "Queue A #8"),
     (dict(kernel="pallas_halo", overlap=1), ValueError, "fuses exchange"),
     (dict(bc_layout=1), ValueError, "RowParaSpmm feature"),
-])
+], ids=["change1-ValueError-fuses exchange", "change2-ValueError-RowParaSpmm feature"])
 def test_para2d_unported_options_raise(change, exc, match):
     a = banded_random_csr(300, nnz_per_row=5, bandwidth=20, seed=1)
     with pytest.raises(exc, match=match):

@@ -148,20 +148,19 @@ def test_ragged_matches_jax(prec, dtype, tol):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(overlap=1), "Queue A #8"),
     (dict(kernel="pallas_halo", overlap=1), "fuses exchange"),
     (dict(kernel="dd", overlap=1), "incompatible with overlap"),
     (dict(kernel="dd_mxu", bc_layout=1), "BC_layout"),
-    (dict(bc_layout=1), "Queue A #3"),
-])
+], ids=["change1-fuses exchange", "change2-incompatible with overlap",
+        "change3-BC_layout"])
 def test_unported_options_raise(change, match):
-    """Unported options raise NotImplementedError naming their ROADMAP
-    item; the dd kinds and ``pallas_halo``, now ported, keep the JAX
-    engine's ValueError refusals of overlap and bc_layout
-    (``rowpara.py:115-135``)."""
+    """The dd kinds and ``pallas_halo`` keep the JAX engine's ValueError
+    refusals of overlap and bc_layout (``rowpara.py:115-135``); overlap
+    and bc_layout themselves are ported (``test_torch_ring.py``,
+    ``test_torch_bc_layout.py``)."""
     a = banded_random_csr(300, nnz_per_row=5, bandwidth=20, seed=1)
     displs = csr_row_partition(a.rowptr, 1)
-    exc = NotImplementedError if "Queue" in match else ValueError
+    exc = ValueError
     with pytest.raises(exc, match=match):
         RowParaSpmm(a, displs, displs, 8, device="cpu", config=SpmmConfig(**change))
 

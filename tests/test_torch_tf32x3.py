@@ -8,9 +8,11 @@ split's error bound.  Then the kernels' three TF32 products are emulated
 on the packs that ``test_torch_window.py`` and ``test_torch_halo.py``
 build, on the JAX package's super-grouped pack and on ragged packs (each
 group walking its chunks), and held against JAX's ``HIGHEST`` kernels in
-interpret mode (``spmm_window_pallas``, ``spmm_window_pallas_sg`` through
-the pack's own local function, ``halo_spmm_local`` through the JAX engine
-on the CPU mesh, and ``spmm_ragged``) under the card's tolerances:
+interpret mode (``spmm_window_pallas_sg`` through the pack's own local
+function and ``halo_spmm_local`` through the JAX engine on the CPU mesh
+here; ``spmm_window_pallas`` in ``test_torch_tf32x3_window.py`` and
+``spmm_ragged`` in ``test_torch_tf32x3_ragged.py``, the emulation shared
+through ``tests/tf32x3_emulation.py``) under the card's tolerances:
 relative Frobenius error
 and max error over max |p| both within 1e-6.  The CUDA kernels are held
 against their plain versions in ``test_torch_cuda.py``."""
@@ -19,31 +21,17 @@ import numpy as np
 import pytest
 import torch
 
-from crp_tpu.kernels import spmm_ragged as js
-from crp_tpu.kernels.spmm_pallas import WindowDense, spmm_window_pallas
-
-from crp_tpu_torch.kernels import dispatch as td
 from crp_tpu_torch.kernels import spmm_halo as th
-from crp_tpu_torch.kernels.spmm_pallas import (
-    round_tf32, spmm_window_plain, spmm_window_sg_plain, split_tf32,
-)
-from crp_tpu_torch.kernels.spmm_ragged import first_ptr, spmm_ragged_plain
+from crp_tpu_torch.kernels.spmm_pallas import round_tf32, spmm_window_sg_plain, split_tf32
 from crp_tpu_torch.plan.partition1d import csr_row_partition
-from crp_tpu_torch.sparse.csr import CSRMatrix
-from crp_tpu_torch.sparse.synth import fill_b, powerlaw_community_csr
+from crp_tpu_torch.sparse.synth import fill_b
 from crp_tpu_torch.utils.norms import rel_fro_err
 from tests.test_torch_halo import _banded, _jax_rowpara
 from tests.test_torch_halo import _shards as _halo_shards
 from tests.test_torch_spmm_pallas import _case
-from tests.test_torch_window import _anti_banded
-from tests.test_torch_window import _shards as _window_shards
-
-CPU = torch.device("cpu")
-# the card's bounds between #4 / #12 at highest and the fp32 product
-# (chip_smoke.py TOL_PLAIN and TOL_PLAIN_FRO)
-TOL_MAX = 1e-6
-TOL_FRO = 1e-6
-BK = 32  # rows of one k slice: a fresh accumulator each
+from tests.tf32x3_emulation import (
+    CPU, TOL_FRO, TOL_MAX, _errors, one_pass_tf32, tf32x3_windows,
+)
 
 
 def _bits(x):
@@ -142,97 +130,6 @@ def test_split_tf32_zeros_subnormals_and_specials():
 # ------------------------------------------------------ the three products
 
 
-def _walk(tiles, group_ptr):
-    """(G, each group's chunk count, group_ptr) of a pack: with no
-    ``group_ptr`` (a uniform pack) group g owns the one chunk g."""
-    if group_ptr is None:
-        group_ptr = np.arange(tiles.shape[0] + 1)
-    gp = np.asarray(group_ptr, np.int64)
-    return len(gp) - 1, np.diff(gp), gp
-
-
-def tf32x3_windows(ws, tiles, b, group_ptr=None):
-    """C of the 3xTF32 body, emulated: A and the B windows split by
-    ``split_tf32``; per 8-deep k step the three products (small terms
-    first), each an exact sum rounded once to fp32 into a fresh accumulator
-    per 32-row slice; the slices added in fp32.  With ``group_ptr`` (a
-    ragged pack: ``ws`` its chunk starts) group g walks its chunks
-    [group_ptr[g], group_ptr[g + 1]) as one run of slices, the kernel's
-    walk; else every group owns the one chunk g (a uniform pack)."""
-    G, counts, gp = _walk(tiles, group_ptr)
-    TM, W = tiles.shape[1:]
-    win = b[ws.long()[:, None] + torch.arange(W)]
-    ab, al = (t.double() for t in split_tf32(tiles))
-    bb, bl = (t.double() for t in split_tf32(win))
-    acc = torch.zeros((G, TM, b.shape[1]), dtype=torch.float32)
-    for j in range(int(counts.max(initial=0))):  # every group's j-th chunk
-        gs = torch.from_numpy(np.flatnonzero(counts > j))
-        st = torch.from_numpy(gp[:-1][counts > j] + j)
-        for k0 in range(0, W, BK):
-            part = torch.zeros((len(gs), TM, b.shape[1]), dtype=torch.float32)
-            for k in range(k0, k0 + BK, 8):
-                s = slice(k, k + 8)
-                for x, y in ((al, bb), (ab, bl), (ab, bb)):
-                    part = (part.double() + torch.bmm(x[st, :, s], y[st, s])).float()
-            acc[gs] += part
-    return acc.reshape(G * TM, -1)
-
-
-def one_pass_tf32(ws, tiles, b, group_ptr=None):
-    """big x big alone (TF32 as the tensor cores take raw fp32): out of
-    ``highest``'s class, so the tests below can tell."""
-    G, counts, gp = _walk(tiles, group_ptr)
-    TM, W = tiles.shape[1:]
-    st = torch.arange(int(gp[-1]))
-    win = b[ws.long()[st, None] + torch.arange(W)]
-    per = torch.bmm(round_tf32(tiles[st]).double(), round_tf32(win).double())
-    out = torch.zeros((G, TM, b.shape[1]), dtype=torch.float64)
-    out.index_add_(0, torch.from_numpy(np.repeat(np.arange(G), counts)), per)
-    return out.float().reshape(G * TM, -1)
-
-
-def _errors(want, got):
-    want = np.asarray(want, np.float64)
-    got = np.asarray(got, np.float64)
-    return (float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300)),
-            rel_fro_err(want, got))
-
-
-@pytest.mark.parametrize("n", [16, 37, 100])
-@pytest.mark.parametrize("case", ["3 shards", "non-monotone"])
-def test_emulated_window_matches_jax_highest(case, n):
-    """On #4's packs (3 shards, one empty, pad groups; one shard with
-    falling windows), the emulated 3xTF32 product against
-    ``spmm_window_pallas(interpret=True)`` at HIGHEST and against the
-    port's plain version: within 1e-6 both ways; one TF32 pass is not."""
-    if case == "3 shards":
-        _, shards, max_m = _window_shards(3, np.float32)
-    else:
-        a = _anti_banded()
-        shards, max_m = [(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow
-    arrays, op = td._pack_window(shards, max_m + 300, np.float32, "highest", CPU)
-    ws, tiles = arrays
-    b = np.random.default_rng(n).standard_normal((op.min_b_rows, n)).astype(np.float32)
-    bt = torch.from_numpy(b)
-    G, TM, W = tiles.shape[1:]
-    worst_one_pass = 0.0
-    for i in range(len(shards)):
-        packed = WindowDense(nrow=G * TM, ncol=b.shape[0], TM=TM, G=G, W=W,
-                             ws=ws[i].numpy(), tiles=tiles[i].numpy())
-        want = np.asarray(spmm_window_pallas(packed, b, precision=None, interpret=True))
-        got = tf32x3_windows(ws[i], tiles[i], bt)
-        nrow = len(shards[i][0]) - 1 if len(shards[i][1]) else 0
-        assert not torch.any(got[nrow:])  # pad groups and the empty shard
-        if not np.any(want):
-            continue
-        for ref in (want, spmm_window_plain(ws[i], tiles[i], bt, "highest").numpy()):
-            max_rel, fro = _errors(ref, got.numpy())
-            assert max_rel <= TOL_MAX and fro <= TOL_FRO, (i, max_rel, fro)
-        worst_one_pass = max(worst_one_pass,
-                             _errors(want, one_pass_tf32(ws[i], tiles[i], bt).numpy())[1])
-    assert worst_one_pass > 10 * TOL_FRO
-
-
 @pytest.mark.parametrize("n", [16, 37, 100])
 def test_emulated_window_sg_matches_jax_highest(n):
     """On #3's super-grouped pack (JAX's, of a banded matrix with pad
@@ -283,65 +180,3 @@ def test_emulated_halo_matches_jax_highest(devices8, p, n):
     max_rel, fro = _errors(want, got)
     assert max_rel <= TOL_MAX and fro <= TOL_FRO, (max_rel, fro)
     assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), got) <= 1e-6
-
-
-def _ragged_pack(TM, Wc, prec="highest"):
-    """Two shards of a community power-law graph packed ragged at ``prec``
-    (fp32 panels at highest, the bf16 pair at x3, bf16 panels at
-    default): hub groups of many chunks, a band of empty groups and groups
-    whose nonzeros all spill (dummy chunks at start 0), the first shard's
-    trailing no-op steps, pad groups."""
-    a = powerlaw_community_csr(8000, 16, 1024, seed=5, dtype=np.float32)
-    rows = np.repeat(np.arange(a.nrow), np.diff(a.rowptr))
-    keep = (rows < 2000) | (rows >= 2000 + 2 * TM)
-    a = CSRMatrix.from_coo(a.nrow, a.ncol, rows[keep], a.colidx[keep], a.val[keep],
-                           dtype=np.float32)
-    cut = 3000
-    shards = [(s.rowptr, s.colidx.astype(np.int32), s.val)
-              for s in (a.row_slice(0, cut), a.row_slice(cut, a.nrow))]
-    arrays, op = td._pack_ragged(shards, a.nrow - cut + 300, np.float32, prec, CPU,
-                                 geometry=(TM, Wc), min_chunk_nnz=40,
-                                 spill_impl="segsum")
-    scheme = {"highest": "full", "x3": "x3", "default": "bf16"}[prec]
-    assert op.scheme == scheme and op.roofline["spill_nnz"] > 0
-    return a, (cut, a.nrow - cut), arrays, op
-
-
-@pytest.mark.parametrize("n", [16, 37, 100])
-@pytest.mark.parametrize("TM,Wc", [(128, 256), (256, 128)])
-def test_emulated_ragged_matches_jax_highest(TM, Wc, n):
-    """#6 at highest: the emulated 3xTF32 product with each group walking
-    its chunks (the port's ``group_ptr``, which stops short of a shard's
-    trailing no-op steps, and JAX's whole step range, which walks them)
-    against JAX's ``spmm_ragged(interpret=True)`` at HIGHEST and the port's
-    plain version, shard by shard: within 1e-6 both ways; dummy chunks'
-    groups and pad groups zero; one TF32 pass is not within it."""
-    a, nrows, arrays, op = _ragged_pack(TM, Wc)
-    step_g, step_first, starts, panels = arrays[:4]
-    group_ptr = arrays[-1]
-    S = panels.shape[1]
-    assert int(group_ptr[0, -1]) < S  # the first shard's trailing no-op steps
-    assert int(np.diff(group_ptr.numpy(), axis=1).max()) > 1  # multi-chunk groups
-    G = group_ptr.shape[1] - 1
-    b = np.random.default_rng(n).standard_normal((op.min_b_rows, n)).astype(np.float32)
-    bt = torch.from_numpy(b)
-    worst_one_pass = 0.0
-    for i, nrow in enumerate(nrows):
-        gp = group_ptr[i].numpy()
-        want = np.asarray(js.spmm_ragged(step_g[i].numpy(), step_first[i].numpy(),
-                                         starts[i].numpy(), panels[i].numpy(), b,
-                                         G=G, TM=TM, Wc=Wc, interpret=True))
-        got = tf32x3_windows(starts[i], panels[i], bt, gp)
-        jax_walk = tf32x3_windows(starts[i], panels[i], bt, first_ptr(step_first[i].numpy()))
-        assert torch.equal(got, jax_walk)  # the no-op steps add nothing
-        assert not torch.any(got[nrow:])  # pad groups
-        dummy = [g for g in range(G) if gp[g + 1] - gp[g] == 1 and int(starts[i][gp[g]]) == 0
-                 and not torch.any(panels[i][gp[g]])]
-        assert dummy and all(not torch.any(got[g * TM:(g + 1) * TM]) for g in dummy)
-        plain = spmm_ragged_plain(step_g[i], group_ptr[i], starts[i], panels[i], bt)
-        for ref in (want, plain.numpy()):
-            max_rel, fro = _errors(ref, got.numpy())
-            assert max_rel <= TOL_MAX and fro <= TOL_FRO, (i, max_rel, fro)
-        worst_one_pass = max(worst_one_pass, _errors(
-            want, one_pass_tf32(starts[i], panels[i], bt, gp).numpy())[1])
-    assert worst_one_pass > 10 * TOL_FRO
