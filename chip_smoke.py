@@ -68,7 +68,23 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    its kernel, within each point's class; the kernel against its plain
    version and bit for bit against its order's emulation, times beside
    the gathered-rows floor, cuSPARSE;
-8. fp64-class path — ``banded_random_csr(217918, 53, 256)`` in fp64
+8. reorder path — (a) ``cluster_reorder`` on the same scrambled matrix
+   (the native greedy graph growing, its host time, the bandwidth and
+   the cover's spill share, JAX's values), then ``RowParaSpmm(kernel=
+   "auto")`` at x3 on A' = A[perm][:, perm] and B[perm]: the ragged kind,
+   #7 and #9 launched once, the fill's spill count pinned, C within x3's
+   class of the fp64 reference's rows ``perm``; #7 and #9 against their
+   plain versions (#9 bit for bit to its order), timed with their bounds,
+   cuSPARSE on A' and ``addmm`` for the spill, the exec beside the
+   scrambled graph's ``gather`` exec, and for comparison the gather
+   kernel on A'; (b) the native GGGP's digest on the
+   first case of ``tests/fixtures/ggp_oracle.json``, ``plan_from_csr(
+   method="metis")`` at n = 16, p = 4 on a copy (4 x 1, rB_cost
+   17,489,488) beside the nnz plan (2 x 2), and ``Para2dSpmm`` on the
+   METIS plan at x3 (``auto`` -> ``gather`` on each of the 4 panels) within
+   x3's class, its exchanged rows and elements equal to the plan's, and
+   #10 on panel 0 against its plain version, timed;
+9. fp64-class path — ``banded_random_csr(217918, 53, 256)`` in fp64
    through ``RowParaSpmm(kernel="dd")`` must resolve to ``dd_mxu`` (S =
    3,402) on the FP64 tensor cores at <= 1e-12; on its pack the kernel
    against its plain version, the fp64 FMA ragged kernel and cuSPARSE in
@@ -79,7 +95,7 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    cplaw ``dd`` segment-sum tier and the segsum spills of fp64 ``auto``,
    the fixed-order segment sum twice (equal bit for bit), against the sum
    in fp64 and ``index_add_``'s, both timed;
-9. window phase — the non-super-grouped windowed kernel (#4) against its
+10. window phase — the non-super-grouped windowed kernel (#4) against its
    plain version at x3 (on the bf16 hi/lo pair, #1's wgmma body, and equal
    bit for bit to #1 on the same arrays), default (on the bf16 hi plane
    and B cast to bf16, #2's one-pass body, and equal bit for bit to #2),
@@ -87,14 +103,14 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    a single-shard pack with non-monotone windows, n in {16, 37, 100, 256}
    and at n = 100 a B off 16 bytes (odd n and that B take the plain B
    copies at x3 and default and the 4-byte ones at highest);
-10. halo phase — the fused halo kernel (#12: one launch over 4 shards,
+11. halo phase — the fused halo kernel (#12: one launch over 4 shards,
    each reading its windows straight from the owner shards' rows) against
    its plain version (the pushes into window buffers, then the windowed
    product) at x3, default, highest and fp64, n in {16, 37, 100, 256} and
    a B off 16 bytes, the chunks past the matrix read as zeros; at x3 and
    default also equal bit for bit to #4 run shard by shard on those
    buffers;
-11. headline at p = 4 — the headline matrix in 4 nnz-balanced row shards
+12. headline at p = 4 — the headline matrix in 4 nnz-balanced row shards
    on the one card through ``RowParaSpmm(kernel="auto")`` at x3, default
    and highest: ``auto`` must resolve to the fused ``pallas_halo`` kernel
    and launch it once per exec, within each point's class; then
@@ -106,15 +122,15 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    main-path shape, timed, with cuSPARSE on the same work; at default the
    packs must hold the bf16 hi plane alone, and B's cast to bf16 is timed
    beside each kernel;
-12. cplaw at p = 4 on the ring (x3): the multi-shard ragged pack with the
+13. cplaw at p = 4 on the ring (x3): the multi-shard ragged pack with the
    fused spill, 591,732 received B rows and 627,300 physical ring rows;
    on the host, the p = 8 exchange plan's received rows times 32 equal the
    planner's ``comm_cost`` 26,551,360;
-13. ``Para2dSpmm`` — on cplaw at n = 256 over 4 ranks the planner must
+14. ``Para2dSpmm`` — on cplaw at n = 256 over 4 ranks the planner must
    pick 1 x 4 with ``rA_cost`` 12,170,731 and no B exchange; then a forced
    2 x 2 grid on the headline at x3 (the fused kernel over the 2 row
    panels of each column group);
-14. any-layout path — ``CrpSpmm`` with the reference driver's layouts (B
+15. any-layout path — ``CrpSpmm`` with the reference driver's layouts (B
    in 4 row slabs, C in 4 column slabs), x3: the headline on the v1
    planner's 4 x 1 grid (copy_B_size 59,607,296) with ``auto`` -> the
    fused #12 once an exec; the same from A distributed over 4 row blocks
@@ -129,7 +145,7 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    ``Para2dSpmm(a, plan)`` bit for bit; ``RowParaSpmm(bc_layout=1)`` at p
    = 1 (#1), C (n, m) the row-major C transposed bit for bit, the two
    device transposes timed; each kernel against its plain version;
-15. training path — the examples' graph at the cplaw class's rows,
+16. training path — the examples' graph at the cplaw class's rows,
    ``powerlaw_community_csr(786432, 8, 98304, seed=5)`` with self-loops
    (6,331,056 nnz), 8 classes, hidden n = 256: the GCN's two
    ``DifferentiableSpmm`` ops at ``auto`` (``pallas`` without the halo;
@@ -223,6 +239,25 @@ CPLAW_2D_RA_COST = 12170731   # the 1 x 4 grid's A replication at n = 256
 # same matrices): the headline's 4 x 1 grid and its B-copy cost; cplaw's 1 x 4
 ANY_HEADLINE_GRID, ANY_HEADLINE_COPY_B = (4, 1), 59607296
 ANY_CPLAW_GRID = (1, 4)
+# the reorder path on the scrambled cplaw: bandwidth before and after
+# cluster_reorder, the x3 geometry and the cover's (S, spill) there on the
+# global columns (the JAX package's values on the CPU, crp_tpu.sparse.
+# reorder and estimate_ragged), and the engine's pack's (S, spill) on the
+# columns its exchange plan compacts, the exact fill (the JAX engine's on a
+# TPU, bench_results/r4_tpu_reorder.jsonl:5; tests/test_torch_reorder.py
+# holds the port's pack equal to JAX's on a smaller graph)
+REORDER_BANDWIDTH = (786234, 786264)
+REORDER_GEOMETRY = (512, 128)
+REORDER_COVER = (23256, 2517802)
+REORDER_FILL = (23253, 2517698)
+# plan_from_csr on the scrambled cplaw at n = 16, p = 4 (JAX's on the CPU):
+# (pm, pn, rA_cost, rB_cost) of method="metis" and of "nnz"; the kind and
+# variant Para2dSpmm's auto resolves to on the METIS plan (the fused plan
+# refuses the panels' windows and the ragged covers keep too little)
+METIS_N = 16
+METIS_PLAN = (4, 1, 0, 17489488)
+NNZ_PLAN = (2, 2, 16227637, 12552464)
+METIS_KIND = ("gather", "gather")
 # the training path: the examples' graph at the cplaw class's rows and 8
 # classes, hidden n = N; steps of each training run; GAT's dvals sample
 GNN_NODES, GNN_CLASSES = CPLAW["n"], 8
@@ -720,12 +755,13 @@ def check_init_memory(tag, prec, eng, peak, held, extra="") -> None:
               f"the {keep / 1e9:.3f} GB it holds")
 
 
-def main_path(eng, b, c_ref, tol, tag, timing=(5, 20)):
+def main_path(eng, b, c_ref, tol, tag, timing=(5, 20), n=N):
     """The engine's main path through the user's entry point: every launch
     count set to 0 just before ``eng.exec(b)`` and read just after; the
-    output's shape, finiteness and error against the fp64 reference
-    (within ``tol``) checked; then ``exec_device`` timed (``timing`` =
-    reps, inner calls).  Returns (launches, err, exec ms, B shards)."""
+    output's shape (``n`` columns), finiteness and error against the fp64
+    reference (within ``tol``) checked; then ``exec_device`` timed
+    (``timing`` = reps, inner calls).  Returns (launches, err, exec ms, B
+    shards)."""
     from crp_tpu_torch import rel_fro_err
 
     kernels = all_kernels()
@@ -734,10 +770,10 @@ def main_path(eng, b, c_ref, tol, tag, timing=(5, 20)):
     c = eng.exec(b)
     launches = {k.__name__: k.launches for k in kernels}
     say(f"[{tag}] launches in the main-path exec: {json.dumps(launches)}")
-    check(c.shape == (c_ref.shape[0], N) and bool(np.isfinite(c).all()),
+    check(c.shape == (c_ref.shape[0], n) and bool(np.isfinite(c).all()),
           f"{tag}: output shape {c.shape} or non-finite values")
     err = rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64))
-    say(f"[{tag}] rel_fro_err vs fp64 reference (first {ERR_COLS} columns) = "
+    say(f"[{tag}] rel_fro_err vs fp64 reference (first {min(n, ERR_COLS)} columns) = "
         f"{err:.3e} (tol {tol:g})")
     check(err <= tol, f"{tag}: rel_fro_err {err} > {tol}")
     bs = eng.shard_b(b)
@@ -810,11 +846,11 @@ def time_kernel(op, arrs, rB, tag, prec, work, plain_inner=20, tol=TOL_PLAIN_FRO
                                       lambda: op.plain(*args), plain_inner)
     rl = op.roofline
     if op.variant == "gather":
-        desc = (f"{rl['spill_nnz']} nnz, {rl['spill_nnz'] * N * 4 / 1e9:.2f} GB "
-                f"of gathered B rows")
+        desc = (f"{rl['spill_nnz']} nnz, {rl['spill_nnz'] * rB.shape[-1] * 4 / 1e9:.2f} "
+                f"GB of gathered B rows")
     else:
         panels = rl.get("p", 1) * rl.get("S", rl["G"]) * rl["TM"] * rl["W"]
-        desc = f"dense-panel work {2.0 * panels * N / 1e9:.1f} GFLOP/pass"
+        desc = f"dense-panel work {2.0 * panels * rB.shape[-1] / 1e9:.1f} GFLOP/pass"
     if op.variant == "gather":
         design_ms, _ = view_bound(args[-1], rB, op.M, with_c=False)
         dtype = torch.float32
@@ -832,14 +868,37 @@ def time_kernel(op, arrs, rB, tag, prec, work, plain_inner=20, tol=TOL_PLAIN_FRO
 
 
 _CASES = {}
+_EXEC_MS = {}  # exec_device ms of a phase's engine that a later phase prints beside its own
+# host work a later phase needs, run in one worker process (spawned, so it
+# holds no CUDA context) while earlier phases keep the card busy; main()
+# closes the pool
+_HOST = {"pool": None, "jobs": {}}
+
+
+def start_host_job(name, fn, *args) -> None:
+    """Run ``fn(*args)`` in the worker process; :func:`host_job` takes its
+    result."""
+    if _HOST["pool"] is None:
+        import torch.multiprocessing as mp
+
+        _HOST["pool"] = mp.get_context("spawn").Pool(1)
+    _HOST["jobs"][name] = _HOST["pool"].apply_async(fn, args)
+
+
+def host_job(name, fn, *args):
+    """The result of the job ``name`` started earlier, or of ``fn(*args)``
+    run here where none was (a phase run alone)."""
+    job = _HOST["jobs"].pop(name, None)
+    return job.get() if job is not None else fn(*args)
 
 
 def fp32_case(name: str) -> tuple:
-    """(a, b, c_ref, generation s, host set-up s) of the fp32 ``"headline"``
-    or ``"cplaw"`` matrix, the analytic B and the fp64 reference of its
-    first ERR_COLS columns: made at the first phase that asks and shared by
-    every later phase that drives the same matrix (the matrix's pack memo
-    is cleared at each hand-out, so no phase inherits another's pack)."""
+    """(a, b, c_ref, generation s, host set-up s) of the fp32 ``"headline"``,
+    ``"cplaw"`` or ``"scrambled"`` (cplaw with its vertex ids permuted)
+    matrix, the analytic B and the fp64 reference of its first ERR_COLS
+    columns: made at the first phase that asks and shared by every later
+    phase that drives the same matrix (the matrix's pack memo is cleared at
+    each hand-out, so no phase inherits another's pack)."""
     if name not in _CASES:
         from crp_tpu_torch import banded_random_csr, fill_b, powerlaw_community_csr
 
@@ -848,7 +907,8 @@ def fp32_case(name: str) -> tuple:
             a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=BANDWIDTH,
                                   seed=SEED, dtype=np.float32)
         else:
-            a = powerlaw_community_csr(**CPLAW, dtype=np.float32)
+            a = powerlaw_community_csr(**CPLAW, permute=name == "scrambled",
+                                       dtype=np.float32)
         t_gen = time.perf_counter() - t0
         b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
         c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
@@ -1044,37 +1104,31 @@ def dd_phase(device) -> None:
 
 
 def scrambled_cplaw_path(device) -> list:
-    from crp_tpu_torch import fill_b, powerlaw_community_csr
     from crp_tpu_torch.kernels import spmm_ragged
     from crp_tpu_torch.kernels.dispatch import _pack_gather
 
-    t0 = time.perf_counter()
-    a = powerlaw_community_csr(**CPLAW, permute=True, dtype=np.float32)
-    b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
-    c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+    a, b, c_ref, _, t_setup = fp32_case("scrambled")
     say(f"scrambled cplaw matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, host set-up "
-        f"{time.perf_counter() - t0:.2f} s")
-    # the init's parts: the gate's geometry chooser, the cover it refuses,
-    # and the gather pack that serves the matrix
+        f"{t_setup:.2f} s")
+    start_host_job("reorder", reorder_host, a.rowptr, a.colidx, a.val, b[:, :METIS_N])
+    # the init's parts: the cover the gate refuses (at cplaw's x3 geometry;
+    # the geometry chooser's time is in the x3 init's pack time below) and
+    # the gather pack that serves the matrix
     t0 = time.perf_counter()
-    geometry = spmm_ragged.choose_ragged_geometry(a.rowptr, a.colidx, "x3")
-    t_choose = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    S, spill, _ = spmm_ragged.estimate_ragged(a.rowptr, a.colidx, *geometry)
+    S, spill, _ = spmm_ragged.estimate_ragged(a.rowptr, a.colidx, 512, 128)
     t_cover = time.perf_counter() - t0
     t0 = time.perf_counter()
     arrays, _ = _pack_gather([(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow,
                              np.float32, "x3", device)
     torch.cuda.synchronize()
-    say(f"[scrambled] host init parts: geometry chooser (x3) {geometry} "
-        f"{t_choose:.3f} s; cover there {t_cover:.3f} s (S={S}, spill {spill}, "
-        f"{100 * (a.nnz - spill) / a.nnz:.1f}% kept); gather pack + upload "
-        f"{time.perf_counter() - t0:.3f} s")
+    say(f"[scrambled] host init parts: cover at (512, 128) {t_cover:.3f} s (S={S}, "
+        f"spill {spill}, {100 * (a.nnz - spill) / a.nnz:.1f}% kept); gather pack + "
+        f"upload {time.perf_counter() - t0:.3f} s")
     del arrays
     rec = dict(launches=0, max_abs=0.0)
     for prec in PRECS:
-        eng, op, bs, launches, _ = drive(a, b, c_ref, prec, device, "scrambled",
-                                      ("gather", "gather"))
+        eng, op, bs, launches, exec_ms = drive(a, b, c_ref, prec, device, "scrambled",
+                                               ("gather", "gather"))
         arrs = tuple(x[0] for x in eng.packed)
         rB = eng.receive_buffer(bs)[0]
         got = time_kernel(op, arrs, rB, "scrambled", prec, csr_work(a), plain_inner=2)
@@ -1089,12 +1143,180 @@ def scrambled_cplaw_path(device) -> list:
         rec["max_abs"] = max(rec["max_abs"], got[0])
         if prec == "x3":
             rec["timing"] = got[1:]
+            _EXEC_MS["scrambled x3"] = exec_ms
         del eng, op, bs, arrs, rB
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
     cus_ms = cusparse_yardstick(a, b, c_ref, device, "scrambled cusparse")
     return [record("spmm_gather", rec["launches"], rec["max_abs"], *rec["timing"],
                    cus_ms)]
+
+
+def ggp_fixture_digest() -> tuple:
+    """(digest, the fixture's) of the native partition of the first case of
+    ``tests/fixtures/ggp_oracle.json`` (the symmetrized ``banded:800:6:12``
+    in 4 parts), built as ``tests/test_ggp_oracle.py`` builds it."""
+    from crp_tpu_torch import CSRMatrix, banded_random_csr, native
+
+    with open("tests/fixtures/ggp_oracle.json") as f:
+        case = json.load(f)[0]
+    check(case["spec"] == "banded:800:6:12", f"fixture case {case['spec']}")
+    a = banded_random_csr(800, nnz_per_row=6, bandwidth=12, seed=60)
+    a = CSRMatrix.from_scipy((a.to_scipy() + a.to_scipy().T).tocsr())
+    part = native.ggp_partition(a.rowptr, a.colidx, case["nparts"], case["imbalance"])
+    check(part is not None, "the native partitioner did not build")
+    return native.part_digest(part), case["native"]["sha256"]
+
+
+def reorder_host(rowptr, colidx, val, bm) -> dict:
+    """The host half of :func:`reorder_path` on the scrambled cplaw's
+    arrays: ``cluster_reorder``, and ``plan_from_csr(method="metis")`` at
+    n = METIS_N, p = 4 on a copy (which it permutes in place) beside the
+    nnz plan, each with its host seconds and the backend that ran, and the
+    fp64 reference of the permuted copy times ``bm`` (B's first METIS_N
+    columns)."""
+    from crp_tpu_torch import CSRMatrix, cluster_reorder, plan_from_csr
+    from crp_tpu_torch.sparse import reorder
+
+    n = len(rowptr) - 1
+    a = CSRMatrix(n, n, rowptr, colidx, val)
+    t0 = time.perf_counter()
+    ar, perm = cluster_reorder(a)
+    t_reorder = time.perf_counter() - t0
+    am = CSRMatrix(n, n, rowptr.copy(), colidx.copy(), val.copy())
+    t0 = time.perf_counter()
+    plan = plan_from_csr(am, METIS_N, 4, method="metis")
+    t_metis = time.perf_counter() - t0
+    return dict(ar=ar, perm=perm, t_reorder=t_reorder, am=am, plan=plan, t_metis=t_metis,
+                backend=reorder.partition_backend(), nplan=plan_from_csr(a, METIS_N, 4),
+                cm_ref=spmm_ref_f64(am, bm))
+
+
+def reorder_path(device) -> list:
+    """(a) ``cluster_reorder`` on the scrambled cplaw and the reordered
+    problem C' = A' B[perm] through ``RowParaSpmm(kernel="auto")`` at x3
+    (the ragged kind: #7 and #9); (b) ``plan_from_csr(method="metis")`` at
+    n = 16, p = 4 beside the nnz plan, and ``Para2dSpmm`` on the METIS
+    plan (x3, ``auto``)."""
+    from crp_tpu_torch import Para2dSpmm, SpmmConfig
+    from crp_tpu_torch.comm.exchange import exchange_b, exchange_b_ring
+    from crp_tpu_torch.kernels import spmm_ragged
+    from crp_tpu_torch.kernels.dispatch import _pack_gather
+
+    a, b, c_ref = fp32_case("scrambled")[:3]
+    records = []
+    host = host_job("reorder", reorder_host, a.rowptr, a.colidx, a.val, b[:, :METIS_N])
+
+    # (a) the reordering (in the worker process, beside the scrambled phase)
+    ar, perm = host["ar"], host["perm"]
+    bw = (a.bandwidth(), ar.bandwidth())
+    S, est, _ = spmm_ragged.estimate_ragged(ar.rowptr, ar.colidx, *REORDER_GEOMETRY)
+    say(f"[reorder] cluster_reorder: {host['t_reorder']:.2f} s on the host, backend "
+        f"{ar.backend}, bandwidth {bw[0]} -> {bw[1]}; cover at {REORDER_GEOMETRY}: "
+        f"S={S}, spill {est} ({100.0 * est / ar.nnz:.2f}% of {ar.nnz} nnz)")
+    check(ar.backend == "native", f"reorder: backend {ar.backend}, not the native GGGP")
+    check(bw == REORDER_BANDWIDTH and (S, est) == REORDER_COVER,
+          f"reorder: bandwidth {bw}, cover {(S, est)}; expected {REORDER_BANDWIDTH}, "
+          f"{REORDER_COVER}")
+    bp = np.ascontiguousarray(b[perm])
+    cp_ref = c_ref[perm]
+    eng, op, bs, launches, exec_ms = drive(ar, bp, cp_ref, "x3", device, "reorder",
+                                           ("pallas", "ragged"))
+    rl = op.roofline
+    say(f"[reorder x3] exec_device {exec_ms:.4f} ms on the reordered graph (ragged: #7 "
+        f"and #9) against {_EXEC_MS.get('scrambled x3', 'not measured')} ms on the "
+        f"scrambled one (gather, #10) in this run; spill {rl['spill_nnz']} nnz, "
+        f"S={rl['S']}")
+    check(rl["spill_impl"] == "pallas" and (rl["TM"], rl["W"]) == REORDER_GEOMETRY
+          and (rl["S"], rl["spill_nnz"]) == REORDER_FILL
+          and launches["spmm_spill"] == 1 and launches[op.kernel.__name__] == 1,
+          f"reorder x3: {json.dumps(rl)}, launches {launches}; expected (S, spill) "
+          f"{REORDER_FILL}")
+    arrs = tuple(x[0] for x in eng.packed)
+    rB = eng.receive_buffer(bs)[0]
+    got = time_kernel(op, arrs, rB, "reorder", "x3", csr_work(ar), plain_inner=3)
+    cus_ms = cusparse_yardstick(ar, bp, cp_ref, device, "reorder cusparse")
+    records.append(dict(record(op.kernel.__name__, launches[op.kernel.__name__], *got,
+                               cus_ms), path="reorder"))
+    s_abs, s_rel, s_fro = spill_vs_plain(op, arrs, rB)
+    check(s_fro <= TOL_PLAIN_FRO, f"reorder: spmm_spill vs plain rel fro err {s_fro}")
+    spill_in_order(op, arrs, rB, "reorder x3")
+    args = op.spill_args(arrs, op.kernel(*op.kernel_args(arrs, rB),
+                                         min_b_rows=op.min_b_rows), rB)
+    s_ms, s_plain, s = in_turns(lambda: op.spill_kernel(*args),
+                                lambda: op.spill_plain(*args), 3)
+    s_bound = view_bound(args[-1], rB, args[0].shape[0], with_c=True)
+    s_lib = spill_library_ms(op, arrs, args[0], rB)
+    say(f"[reorder x3] spmm_spill vs plain: rel fro err {s_fro:.3e} (tol "
+        f"{TOL_PLAIN_FRO:g}), max rel err {s_rel:.3e}; equal to the emulation of its "
+        f"order and a second launch bit for bit; {s_ms:.4f} ms ({s[0]:.4f}, "
+        f"{s[1]:.4f}), plain {s_plain:.4f} ms; bound {s_bound[0]:.4f} ms "
+        f"({s_bound[1]}); torch.addmm(C, spill CSR, B) {s_lib}")
+    records.append(dict(record("spmm_spill", launches["spmm_spill"], s_abs, s_ms, s_plain,
+                               *s_bound, s_bound[0], s_lib), path="reorder"))
+    del eng, op, bs, arrs, rB, args
+    ar.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+    # for comparison, off the main path: the gather kind on A'
+    arrays, gop = _pack_gather([(ar.rowptr, ar.colidx.astype(np.int32), ar.val)], ar.nrow,
+                               np.float32, "x3", device)
+    gargs = gop.kernel_args(tuple(x[0] for x in arrays), torch.from_numpy(bp).to(device))
+    say(f"[reorder x3] for comparison, the gather kind's kernel on A': "
+        f"{time_ms(lambda: launch(gop, gargs)):.4f} ms (the ragged kernel and the spill: "
+        f"{got[1] + s_ms:.4f} ms)")
+    del arrays, gop, gargs
+    torch.cuda.empty_cache()
+
+    # (b) METIS: the planner's 1D partition on a copy (plan_from_csr
+    # permutes it in place), beside the nnz-balanced plan
+    digest, want = ggp_fixture_digest()
+    say(f"[metis] native GGGP on the fixture's banded:800:6:12, 4 parts: sha256 "
+        f"{digest} (fixture {want})")
+    check(digest == want, "metis: the card's native GGGP differs from the fixture")
+    am, plan, nplan, backend = host["am"], host["plan"], host["nplan"], host["backend"]
+    say(f"[metis] plan_from_csr(method='metis') at n={METIS_N}, p=4: "
+        f"{host['t_metis']:.2f} s on the host, backend {backend}, {plan.pm} x {plan.pn}, "
+        f"rA_cost {plan.rA_cost}, "
+        f"rB_cost {plan.rB_cost} (rows {plan.rB_comm_rows.tolist()}); method='nnz': "
+        f"{nplan.pm} x {nplan.pn}, rA_cost {nplan.rA_cost}, rB_cost {nplan.rB_cost}, "
+        f"{nplan.rA_cost + nplan.rB_cost} elements in all")
+    check(backend == "native", f"metis: backend {backend}, not the native GGGP")
+    check((plan.pm, plan.pn, plan.rA_cost, plan.rB_cost) == METIS_PLAN
+          and (nplan.pm, nplan.pn, nplan.rA_cost, nplan.rB_cost) == NNZ_PLAN,
+          f"metis: plans {(plan.pm, plan.pn, plan.rA_cost, plan.rB_cost)} / "
+          f"{(nplan.pm, nplan.pn, nplan.rA_cost, nplan.rB_cost)}, expected {METIS_PLAN} / "
+          f"{NNZ_PLAN}")
+    bm, cm_ref = np.ascontiguousarray(b[:, :METIS_N]), host["cm_ref"]
+    eng, peak, held = measured_init(device, lambda: Para2dSpmm(
+        am, plan, device=device, dtype=np.float32,
+        config=SpmmConfig(kernel="auto", mxu_precision="x3")))
+    op = eng._local_op
+    say(f"[metis para2d] {plan.pm} x {plan.pn}: kind {eng.kernel_kind}, variant "
+        f"{op.variant}, init {eng.t_init:.3f} s, init_breakdown "
+        f"{json.dumps(eng.init_breakdown)}")
+    check((eng.kernel_kind, op.variant) == METIS_KIND,
+          f"metis para2d: {eng.kernel_kind}/{op.variant}, expected {METIS_KIND}")
+    check_init_memory("metis para2d", "x3", eng, peak, held)
+    launches, _, exec_ms, bs = main_path(eng, bm, cm_ref, TOL_REF["x3"], "metis para2d",
+                                         (3, 5), n=METIS_N)
+    head = eng.print_stat().splitlines()[:3]
+    say(f"[metis para2d] exec_device {exec_ms:.4f} ms; exchanged B rows "
+        f"{eng.rB_recv_size} ({eng.rB_recv_size * METIS_N} elements, "
+        f"{eng.rB_recv_size * METIS_N * 4 / 1e6:.1f} MB), rA_cost {eng.rA_cost}; "
+        f"{' | '.join(head)}")
+    check(eng.rB_recv_size * METIS_N == plan.rB_cost and eng.rA_cost == plan.rA_cost
+          and launches[op.kernel.__name__] == plan.pm,
+          f"metis para2d: rB {eng.rB_recv_size * METIS_N}, rA {eng.rA_cost}, launches "
+          f"{launches}; the plan's {plan.rB_cost}, {plan.rA_cost}, {plan.pm} launches")
+    xch = exchange_b_ring if eng.config.rb_p2p else exchange_b
+    rB = xch(bs[:, 0], eng.xtables)[0]
+    rec = engine_record(eng, am, rB, "metis para2d", "reorder", tol=TOL_PLAIN_FRO,
+                        prec="x3")
+    rec["launches"] = launches[op.kernel.__name__]
+    records.append(rec)
+    del eng, op, bs, rB, am, host
+    torch.cuda.empty_cache()
+    return records
 
 
 def fp64_auto(a, b, c_ref, device, tag) -> dict:
@@ -1599,20 +1821,23 @@ def fixed_order(tag, rows, cols, vals, b, nrow, chunked) -> None:
 
 
 def engine_csr(eng, a, i: int):
-    """Shard ``i`` of the engine's matrix ``a`` as (CSR, its columns in the
-    receive buffer's rows): cuSPARSE's operand for the same product."""
-    s = a.row_slice(int(eng.A_row_displs[i]), int(eng.A_row_displs[i + 1]))
+    """Shard ``i`` of the engine's matrix ``a`` (a ``RowParaSpmm`` shard or
+    a ``Para2dSpmm`` row panel) as (CSR, its columns in the receive
+    buffer's rows): cuSPARSE's operand for the same product."""
+    displs = eng.plan.AC_rowptr if hasattr(eng, "plan") else eng.A_row_displs
+    s = a.row_slice(int(displs[i]), int(displs[i + 1]))
     if eng._identity_exchange:
         return s, s.colidx
     return s, np.searchsorted(eng.xplan.rowmap[i], s.colidx)
 
 
-def engine_record(eng, a, rB, tag, path) -> dict:
+def engine_record(eng, a, rB, tag, path, tol=TOL_TRAIN_PLAIN_FRO, prec="highest") -> dict:
     """Shard 0's gather kernel of ``eng`` (over ``a``) on the receive
-    buffer ``rB``: within highest's class of the shard's fp64 product,
-    bit for bit its order's emulation and a second launch, against its
-    plain version, timed, with its bound and cuSPARSE on the same shard.
-    The caller fills in the launches."""
+    buffer ``rB``: within the class of the engine's point ``prec`` of the
+    shard's fp64 product, bit for bit its order's emulation and a second
+    launch, against its plain version (within ``tol``), timed, with its
+    bound and cuSPARSE on the same shard.  The caller fills in the
+    launches."""
     from crp_tpu_torch import CSRMatrix, rel_fro_err
 
     op = eng._local_op
@@ -1625,13 +1850,12 @@ def engine_record(eng, a, rB, tag, path) -> dict:
     args = op.kernel_args(arrs, rB)
     e_k, e_p = err(launch(op, args)), err(op.plain(*args))
     say(f"[{tag}] shard 0 against its fp64 product (first {ERR_COLS} columns): "
-        f"spmm_gather {e_k:.3e} (tol {TOL_REF['highest']:g}), its plain version {e_p:.3e}")
-    check(e_k <= TOL_REF["highest"], f"{tag}: spmm_gather rel_fro_err {e_k}")
+        f"spmm_gather {e_k:.3e} (tol {TOL_REF[prec]:g}), its plain version {e_p:.3e}")
+    check(e_k <= TOL_REF[prec], f"{tag}: spmm_gather rel_fro_err {e_k}")
     gather_in_order(op, arrs, rB, tag)
     say(f"[{tag}] spmm_gather equals the emulation of its order and a second launch "
         f"bit for bit")
-    got = time_kernel(op, arrs, rB, tag, "highest", csr_work(s0), plain_inner=2,
-                      tol=TOL_TRAIN_PLAIN_FRO)
+    got = time_kernel(op, arrs, rB, tag, prec, csr_work(s0), plain_inner=2, tol=tol)
     lib = csr_library_ms(s0.rowptr, cols, s0.val, rB.shape[0], rB)
     return dict(record("spmm_gather", 0, *got, lib), path=path)
 
@@ -2189,13 +2413,18 @@ def main() -> int:
     dd_layout(_build)
 
     records = []
-    for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,
-                  dd_phase, window_phase, halo_phase, headline, cplaw_path,
-                  scrambled_cplaw_path, fp64_path, headline_p4, cplaw_p4,
-                  para2d_phase, any_layout_path, training_path):
-        t0 = time.perf_counter()
-        records += phase(device) or []
-        say(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    try:
+        for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,
+                      dd_phase, window_phase, halo_phase, headline, cplaw_path,
+                      scrambled_cplaw_path, reorder_path, fp64_path, headline_p4,
+                      cplaw_p4, para2d_phase, any_layout_path, training_path):
+            t0 = time.perf_counter()
+            records += phase(device) or []
+            say(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        if _HOST["pool"] is not None:
+            _HOST["pool"].terminate()
+            _HOST["pool"].join()
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,12 @@ generators, ``.mtx`` reader, row partitioner, the 2D planner,
 ``SpmmConfig``, error norms), pinned equal to the originals by the CPU
 tests.
 
+The host layer also carries the reordering of ``sparse/reorder.py``
+(``cluster_reorder``, ``rcm_reorder``, ``metis_row_partition`` behind the
+METIS seam, with the greedy graph-growing partitioner of
+``native/ggp.cpp``, built by ``g++`` at first use) and the planner's
+``method="metis"``.
+
 Ported so far: ``RowParaSpmm`` at any p (with the overlapped ring,
 ``overlap=1``, and the col-major B/C view, ``bc_layout=1``),
 ``Para2dSpmm`` on the planner's ``pm x pn`` grid (A from a global CSR or
@@ -33,6 +39,9 @@ from .plan.partition1d import csr_row_part_comm_size, csr_row_partition
 from .plan.planner2d import Plan2D, plan_from_csr
 from .sparse.csr import CSRMatrix
 from .sparse.mmio import read_mtx_csr
+from .sparse.reorder import (
+    cluster_reorder, metis_row_partition, permute_symmetric, rcm_reorder,
+)
 from .sparse.synth import banded_random_csr, fill_b, powerlaw_community_csr
 from .utils.norms import rel_fro_err
 
@@ -56,6 +65,10 @@ def __getattr__(name):
 __all__ = [
     "CSRMatrix",
     "read_mtx_csr",
+    "cluster_reorder",
+    "rcm_reorder",
+    "metis_row_partition",
+    "permute_symmetric",
     "banded_random_csr",
     "powerlaw_community_csr",
     "fill_b",

@@ -52,6 +52,34 @@ class Plan2D:
         """rank -> (pi, pj) on the row-major pm x pn grid."""
         return rank // self.pn, rank % self.pn
 
+    def describe(self) -> str:
+        """Text dump in the spirit of ``examples/test_spmm_2dpg.c:53-79``
+        (``crp_tpu/plan/planner2d.py:96-121``, the same text)."""
+        lines = [
+            f"Calculated 2D grid: pm, pn = {self.pm}, {self.pn}, comm cost = {self.comm_cost}",
+            "",
+            "1D row partitioning of A:",
+        ]
+        for i in range(self.pm):
+            for j in range(self.pn):
+                r = i * self.pn + j
+                lines.append(f"Rank {r:3d}: [{self.A0_rowptr[r]}, {self.A0_rowptr[r+1]-1}]")
+            rs, re = i * self.pn, (i + 1) * self.pn - 1
+            lines.append(
+                f"Ranks [{rs}, {re}] all own A rows "
+                f"[{self.A0_rowptr[rs]}, {self.A0_rowptr[re+1]-1}] after replicating A"
+            )
+        lines.append("")
+        lines.append("1D row partitioning of B:")
+        lines += [f"Block {i}: [{self.B_rowptr[i]}, {self.B_rowptr[i+1]-1}]" for i in range(self.pm)]
+        lines.append("")
+        lines.append("1D row partitioning of C:")
+        lines += [f"Block {i}: [{self.AC_rowptr[i]}, {self.AC_rowptr[i+1]-1}]" for i in range(self.pm)]
+        lines.append("")
+        lines.append("1D column partitioning of B and C:")
+        lines += [f"Block {i}: [{self.BC_colptr[i]}, {self.BC_colptr[i+1]-1}]" for i in range(self.pn)]
+        return "\n".join(lines)
+
 
 def calc_spmm_part2d_from_1d(nproc: int, m: int, n: int, k: int,
                              rb_displs0: np.ndarray, rowptr: np.ndarray,
@@ -136,16 +164,24 @@ def calc_spmm_part2d_from_1d(nproc: int, m: int, n: int, k: int,
 
 def plan_from_csr(a, n: int, nproc: int, method: str = "nnz", rA: int = 1,
                   dbg_print: bool = False) -> Plan2D:
-    """The 1D nnz-balanced partition, then the 2D grid search.
-    ``method="metis"`` (a graph-partitioned 1D partition) needs the
-    reordering layer, which is not ported (ROADMAP A6)."""
+    """The 1D partition, then the 2D grid search.
+
+    ``method``: ``"nnz"`` (the nnz-balanced 1D partition) or ``"metis"``
+    (graph-partitioned, square matrices only).  ``"metis"`` follows the
+    reference driver (``examples/test_spmm_2dpg.c:30-37``):
+    ``metis_row_partition`` permutes the matrix symmetrically **in place**
+    (``a.rowptr``, ``a.colidx`` and ``a.val`` are rewritten) and its
+    per-part displacements seed the grid search, so the plan matches the
+    caller's ``a``.  Its backend chain: ``sparse.reorder.partition_backend``.
+    """
     if method == "metis":
-        raise NotImplementedError(
-            "not yet ported to crp_tpu_torch: plan_from_csr(method='metis') "
-            "needs sparse/reorder (ROADMAP A6)"
-        )
-    if method != "nnz":
+        from ..sparse.reorder import metis_row_partition
+
+        out, _perm, rb_displs0 = metis_row_partition(a, nproc)
+        a.rowptr, a.colidx, a.val = out.rowptr, out.colidx, out.val
+    elif method == "nnz":
+        rb_displs0 = csr_row_partition(a.rowptr, nproc)
+    else:
         raise ValueError(f"unknown 1D partition method {method!r}")
-    rb_displs0 = csr_row_partition(a.rowptr, nproc)
     return calc_spmm_part2d_from_1d(nproc, a.nrow, n, a.ncol, rb_displs0, a.rowptr,
                                     a.colidx, rA=rA, dbg_print=dbg_print)

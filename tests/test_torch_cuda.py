@@ -1774,3 +1774,68 @@ def test_overlapped_ring_repeats_bit_for_bit(cuda_device, engine):
             assert torch.equal(c1.view(torch.int32), c2.view(torch.int32))
         outs[overlap] = eng.exec(b)
     assert rel_fro_err(outs[0].astype(np.float64), outs[1]) <= 1e-6
+
+
+def test_reordered_graph_auto_on_card_matches_cpu_decision(cuda_device):
+    """``cluster_reorder`` on a scrambled community graph, then
+    ``RowParaSpmm(kernel="auto")`` at x3 on the card against the CPU engine
+    asked for ``pallas`` (what ``auto`` means on the card at p = 1; the CPU
+    takes ``segsum`` for ``auto``): the same kind and variant, C within
+    x3's class of the fp64 product on the reordered problem, and its
+    kernel launched."""
+    from crp_tpu_torch.sparse.reorder import cluster_reorder
+
+    a = powerlaw_community_csr(40000, avg_degree=16, comm_size=1024, seed=1234,
+                               permute=True, dtype=np.float32)
+    ar, perm = cluster_reorder(a)
+    assert ar.backend == "native"
+    n = 64
+    b = fill_b(0, a.ncol, 0, n, dtype=np.float32)
+    bp = np.ascontiguousarray(b[perm])
+    d = csr_row_partition(ar.rowptr, 1)
+    g = RowParaSpmm(ar, d, d, n, device=cuda_device, dtype=np.float32,
+                    config=SpmmConfig(kernel="auto", mxu_precision="x3"))
+    ar.__dict__.pop("_torch_pack_cache", None)
+    c = RowParaSpmm(ar, d, d, n, device="cpu", dtype=np.float32,
+                    config=SpmmConfig(kernel="pallas", mxu_precision="x3"))
+    assert (g.kernel_kind, g._local_op.variant) == (c.kernel_kind, c._local_op.variant)
+    kernel = g._local_op.kernel
+    kernel.launches = 0
+    cg = g.exec(bp)
+    assert kernel.launches == 1
+    ref = a.spmm_ref(b.astype(np.float64))[perm]
+    assert rel_fro_err(ref, cg) <= 1e-5
+    assert rel_fro_err(c.exec(bp).astype(np.float64), cg) <= 1e-5
+
+
+def test_native_ggp_on_card_machine_reproduces_fixture(cuda_device):
+    """The native partitioner built by the GPU machine's ``g++`` gives the
+    part vectors whose digests ``tests/fixtures/ggp_oracle.json`` pins
+    (``std::sort`` is not stable: another libstdc++ may order equal
+    degrees otherwise).  It uses no card; it runs with the card tests
+    because it checks that machine's build (``test_torch_ggp.py`` checks
+    the CPU machine's)."""
+    import json
+    import os
+
+    from crp_tpu_torch import native
+
+    with open(os.path.join(os.path.dirname(__file__), "fixtures", "ggp_oracle.json")) as f:
+        cases = json.load(f)
+    seeds = {"banded:800": 60, "banded:2000": 61}
+    for case in cases:
+        kind, *args = case["spec"].split(":")
+        args = [int(x) for x in args]
+        if kind == "banded":
+            a = banded_random_csr(args[0], nnz_per_row=args[1], bandwidth=args[2],
+                                  seed=seeds[f"banded:{args[0]}"])
+        elif kind == "plaw":
+            a = powerlaw_random_csr(args[0], avg_degree=args[1], seed=62)
+        else:
+            a = powerlaw_community_csr(args[0], avg_degree=args[1], comm_size=args[2],
+                                       seed=63)
+        a = CSRMatrix.from_scipy((a.to_scipy() + a.to_scipy().T).tocsr())
+        assert (a.nrow, a.nnz) == (case["nrow"], case["nnz"])
+        part = native.ggp_partition(a.rowptr, a.colidx, case["nparts"], case["imbalance"])
+        assert part is not None, "the native partitioner did not build"
+        assert native.part_digest(part) == case["native"]["sha256"], case["spec"]

@@ -106,9 +106,15 @@ def test_plan_from_csr_matches(name, kw, n, nproc):
 
 
 def test_plan_from_csr_metis_is_not_ported():
+    """``method="metis"`` raised before the reordering layer was ported;
+    now it permutes ``a`` in place and plans as the JAX package does
+    (``tests/test_torch_reorder.py`` holds it against JAX at length)."""
     a = ts.banded_random_csr(200, nnz_per_row=5, bandwidth=10, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp2.plan_from_csr(a, 8, 2, method="metis")
+    aj = ts.banded_random_csr(200, nnz_per_row=5, bandwidth=10, seed=1)
+    got = tp2.plan_from_csr(a, 8, 2, method="metis")
+    want = jp2.plan_from_csr(aj, 8, 2, method="metis")
+    assert (got.pm, got.pn, got.comm_cost) == (want.pm, want.pn, want.comm_cost)
+    np.testing.assert_array_equal(a.colidx, aj.colidx)
 
 
 @pytest.fixture(scope="module")

@@ -306,3 +306,68 @@ def test_chip_smoke_prices_ragged_points(prec, dtype, want):
     assert op.variant == "uniform"  # the windowed kernels price alike
     assert smoke.op_point(op, torch.float64 if dtype == np.float64 else torch.float32) \
         == want
+
+
+_NO_JAX_REORDER = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["ml_dtypes"] = None
+sys.modules["crp_tpu"] = None
+import io, json, os, tempfile
+from contextlib import redirect_stdout
+import numpy as np
+from crp_tpu_torch import (
+    CSRMatrix, Para2dSpmm, SpmmConfig, cluster_reorder, fill_b, metis_row_partition,
+    native, permute_symmetric, plan_from_csr, powerlaw_community_csr, rcm_reorder,
+    rel_fro_err,
+)
+from crp_tpu_torch.cli import plan_cli
+from crp_tpu_torch.sparse import metis, reorder
+from crp_tpu_torch.utils import debug
+
+a = powerlaw_community_csr(4096, 12, 256, seed=5, permute=True)
+b = fill_b(0, a.ncol, 0, 16)
+ref = a.spmm_ref(b)
+errs = {}
+for name, fn in (("cluster", cluster_reorder), ("rcm", rcm_reorder)):
+    out, perm = fn(a)
+    errs[name] = rel_fro_err(ref[perm], out.spmm_ref(b[perm]))
+out, perm, displs = metis_row_partition(a, 4)
+errs["metis"] = rel_fro_err(ref[perm], out.spmm_ref(b[perm]))
+assert out.backend == reorder.partition_backend() == "native" and native.available()
+assert displs[-1] == a.nrow
+am = CSRMatrix(a.nrow, a.ncol, a.rowptr.copy(), a.colidx.copy(), a.val.copy())
+plan = plan_from_csr(am, 16, 4, method="metis")
+assert np.array_equal(am.colidx, out.colidx) and "Calculated 2D grid" in plan.describe()
+eng = Para2dSpmm(am, plan, device="cpu", dtype=np.float64, config=SpmmConfig())
+errs["para2d metis"] = rel_fro_err(am.spmm_ref(b), eng.exec(b))
+with redirect_stdout(io.StringIO()) as f:
+    for method in ("0", "1", "2"):
+        assert plan_cli.main(["synth:cplaw:2048:8:256:85:perm", "16", "4", method]) == 0
+assert f.getvalue().count("Calculated 2D grid") == 3
+with tempfile.TemporaryDirectory() as d:
+    debug.dump_binary(b, os.path.join(d, "b.bin"))
+    assert np.array_equal(debug.load_binary(os.path.join(d, "b.bin")), b)
+assert not metis.available()
+loaded = [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m == "jax" or m.startswith(("jax.", "ml_dtypes")) for m in loaded), \
+    "jax got imported"
+assert not any(m == "crp_tpu" or m.startswith("crp_tpu.") for m in loaded), \
+    "crp_tpu got imported"
+print(json.dumps(errs))
+"""
+
+
+def test_reorder_modules_run_without_jax():
+    """The reordering layer (``cluster_reorder``, RCM, the METIS seam with
+    its native partitioner), the planner's ``method="metis"`` under
+    ``Para2dSpmm``, the planner CLI and the debug dumps import and run with
+    ``crp_tpu``, jax and ml_dtypes blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_REORDER], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    errs = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert sorted(errs) == ["cluster", "metis", "para2d metis", "rcm"]
+    for name, err in errs.items():
+        assert err <= 1e-12, (name, err)

@@ -516,3 +516,25 @@ def test_wrappers_refuse_bad_arguments():
     assert [k.__name__ for k in ts.KERNELS] == [
         "spmm_ragged_presplit", "spmm_ragged_bf16", "spmm_ragged", "spmm_spill",
         "spmm_gather"]
+
+
+def test_geometry_chooser_prices_each_sparsity_once(monkeypatch):
+    """The chooser's cover memo: a second call on the same sparsity (at
+    another point, or with values changed) prices no cover again and picks
+    what a fresh chooser and JAX's pick; another sparsity is priced anew."""
+    a = powerlaw_community_csr(6000, 12, 512, seed=7, permute=True)
+    b = powerlaw_community_csr(6000, 12, 512, seed=8, permute=True)
+    ts._COVER_MEMO.clear()
+    priced = []
+    raw = ts._raw_cover
+    monkeypatch.setattr(ts, "_raw_cover", lambda gc, wc: priced.append(wc) or raw(gc, wc))
+    for prec in ("x3", "default", "highest"):
+        got = ts.choose_ragged_geometry(a.rowptr, a.colidx, prec)
+        assert got == js.choose_ragged_geometry(a.rowptr, a.colidx, prec, interpret=False)
+    assert len(priced) == 9
+    assert ts.choose_ragged_geometry(b.rowptr, b.colidx, "x3") \
+        == js.choose_ragged_geometry(b.rowptr, b.colidx, "x3", interpret=False)
+    assert len(priced) == 18 and len(ts._COVER_MEMO) == 2
+    ts._COVER_MEMO.clear()
+    fresh = ts.choose_ragged_geometry(a.rowptr, a.colidx, "highest", small=True)
+    assert fresh == js.choose_ragged_geometry(a.rowptr, a.colidx, "highest", interpret=True)
