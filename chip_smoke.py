@@ -182,6 +182,8 @@ import time
 import numpy as np
 import torch
 
+from crp_tpu_torch.kernels.points import HBM_BYTES_PER_S, PEAK
+
 NROW, NNZ_PER_ROW, BANDWIDTH, SEED = 217918, 53, 2500, 1234  # bench.py:129
 CPLAW = dict(n=786432, avg_degree=16, comm_size=1024, seed=1234)  # synth:cplaw:786432:16:1024
 DD_BAND = 256  # banded_random_csr(217918, 53, 256): the dd_mxu matrix (r3_tpu_dd.jsonl)
@@ -222,11 +224,9 @@ TOL_TRAIN_PLAIN_FRO = 4e-6
 # (a block per output block and 32 columns, shared-memory atomics) and
 # #11's (64 x 64 blocks of m8n8k4 DMMA, one shared-memory stage)
 PREVIOUS_MS = {"spmm_spill": 2.0822, "spmm_gather": 7.3080, "spmm_ragged_dd": 4.6211}
-# the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): HBM3
-# bytes/s, and FLOP/s by the type the products run in
-HBM_BYTES_PER_S = 3.35e12
-PEAK = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "fp64": 34e12,
-        "fp64_tc": 67e12}
+# the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W), HBM_BYTES_PER_S
+# and PEAK, are the package's table, which the suite's roofline and the
+# projection read too (imported at the top)
 # an x3 or default init's peak device memory over what it holds after it:
 # the panels are densified slab by slab, never whole in fp32 beside their
 # bf16 planes (device_pack._densify)
@@ -365,23 +365,14 @@ def bound(n_bytes: float, ops: float, peak: str) -> tuple:
 
 
 def op_point(op, dtype) -> tuple:
-    """(passes, peak) of an op's products: x3 three bf16 products, default
-    one (#2, #4 ``window_bf16``, #8 and #12 on the bf16 hi plane), highest
-    three TF32 products (#3, #4, #6 and #12), fp64 FMA or, for dd, the
-    FP64 tensor cores."""
-    scheme = getattr(op, "scheme", None)
-    prec = getattr(op, "precision", getattr(op, "mxu_precision", None))
-    if op.variant == "gather":  # products on the FMA units at every point
-        return 1, "fp32"
-    if dtype == torch.float64:
-        return 1, ("fp64_tc" if scheme == "dd" else "fp64")
-    if scheme in ("x3", "bf16", "full"):
-        prec = {"x3": "x3", "bf16": "default", "full": "highest"}[scheme]
-    if prec == "x3":
-        return 3, "bf16"
-    if prec == "default":
-        return 1, "bf16"
-    return 3, "tf32"
+    """(passes, peak) of an op's products (``kernels.points.op_point``): x3
+    three bf16 products, default one (#2, #4 ``window_bf16``, #8 and #12
+    on the bf16 hi plane), highest three TF32 products (#3, #4, #6 and
+    #12), fp64 FMA or, for dd, the FP64 tensor cores; the gather kind's on
+    the FMA units."""
+    from crp_tpu_torch.kernels import points
+
+    return points.op_point(op, dtype)
 
 
 def function_bound(op, work, n, dtype) -> tuple:
@@ -869,6 +860,8 @@ def time_kernel(op, arrs, rB, tag, prec, work, plain_inner=20, tol=TOL_PLAIN_FRO
 
 _CASES = {}
 _EXEC_MS = {}  # exec_device ms of a phase's engine that a later phase prints beside its own
+_MEASURED = {}  # kernel records measured off a phase's main path, for a later phase's
+_RECORDS = []  # every phase's kernel records so far (main() fills it)
 # host work a later phase needs, run in one worker process (spawned, so it
 # holds no CUDA context) while earlier phases keep the card busy; main()
 # closes the pool
@@ -892,45 +885,88 @@ def host_job(name, fn, *args):
     return job.get() if job is not None else fn(*args)
 
 
-def fp32_case(name: str) -> tuple:
-    """(a, b, c_ref, generation s, host set-up s) of the fp32 ``"headline"``,
-    ``"cplaw"`` or ``"scrambled"`` (cplaw with its vertex ids permuted)
-    matrix, the analytic B and the fp64 reference of its first ERR_COLS
-    columns: made at the first phase that asks and shared by every later
-    phase that drives the same matrix (the matrix's pack memo is cleared at
-    each hand-out, so no phase inherits another's pack)."""
-    if name not in _CASES:
-        from crp_tpu_torch import banded_random_csr, fill_b, powerlaw_community_csr
+def make_case(name: str, directory=None) -> tuple:
+    """(a, c_ref, generation s, set-up s) of a CASES matrix: ``a`` and the
+    fp64 reference of the first ERR_COLS columns of its analytic B (fp32
+    for the fp32 cases, fp64 for the ``"fp64 ..."`` ones).  ``main`` runs
+    every case in the worker process first, with ``directory``: the arrays
+    then go to a file there whose path comes back in their place, so that
+    the pool's result thread hands the main process a few bytes, not
+    hundreds of MB while a phase times the card (:func:`shared_case`
+    loads the file)."""
+    from crp_tpu_torch import banded_random_csr, fill_b, powerlaw_community_csr
 
-        t0 = time.perf_counter()
-        if name == "headline":
-            a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=BANDWIDTH,
-                                  seed=SEED, dtype=np.float32)
-        else:
-            a = powerlaw_community_csr(**CPLAW, permute=name == "scrambled",
-                                       dtype=np.float32)
-        t_gen = time.perf_counter() - t0
-        b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
-        c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
-        _CASES[name] = (a, b, c_ref, t_gen, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    if name == "headline":
+        a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=BANDWIDTH,
+                              seed=SEED, dtype=np.float32)
+    elif name in ("cplaw", "scrambled"):
+        a = powerlaw_community_csr(**CPLAW, permute=name == "scrambled",
+                                   dtype=np.float32)
+    elif name == "fp64 banded":
+        a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=DD_BAND)
+    elif name == "fp64 cplaw":
+        a = powerlaw_community_csr(**CPLAW)
+    else:  # "fp64 headline"
+        a = banded_random_csr(NROW, NNZ_PER_ROW, BANDWIDTH, seed=SEED)
+    t_gen = time.perf_counter() - t0
+    c_ref = spmm_ref_f64(a, np.asarray(fill_b(0, a.ncol, 0, ERR_COLS, dtype=a.val.dtype)))
+    t_setup = time.perf_counter() - t0
+    if directory is None:
+        return a, c_ref, t_gen, t_setup
+    path = directory / (name.replace(" ", "_") + ".npz")
+    np.savez(path, shape=(a.nrow, a.ncol), rowptr=a.rowptr, colidx=a.colidx, val=a.val,
+             c_ref=c_ref)
+    return path, None, t_gen, t_setup
+
+
+# the matrices the phases share, in the order they are first needed
+CASES = ("headline", "cplaw", "scrambled", "fp64 banded", "fp64 cplaw", "fp64 headline")
+
+
+def shared_case(name: str) -> tuple:
+    """(a, b, c_ref, generation s, host set-up s) of the CASES matrix
+    ``name`` (``"scrambled"`` is cplaw with its vertex ids permuted), the
+    analytic B of N columns in its values' type (B is the
+    same function of the indices at any width, so c_ref is its first
+    ERR_COLS columns' product): made in the worker process while earlier
+    phases run, and shared by every later phase that drives the same
+    matrix (the matrix's pack memo is cleared at each hand-out, so no
+    phase inherits another's pack)."""
+    if name not in _CASES:
+        from crp_tpu_torch import fill_b
+
+        from crp_tpu_torch.sparse.csr import CSRMatrix
+
+        a, c_ref, t_gen, t_setup = host_job(f"case {name}", make_case, name)
+        if not isinstance(a, CSRMatrix):  # made in the worker: its file
+            path = a
+            with np.load(path) as f:
+                a, c_ref = CSRMatrix(*(int(x) for x in f["shape"]), f["rowptr"],
+                                     f["colidx"], f["val"]), f["c_ref"]
+            path.unlink()
+        b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=a.val.dtype))
+        _CASES[name] = (a, b, c_ref, t_gen, t_setup)
     _CASES[name][0].__dict__.pop("_torch_pack_cache", None)
     return _CASES[name]
 
 
 def headline(device) -> list:
-    a, b, c_ref, _, t_setup = fp32_case("headline")
+    a, b, c_ref, _, t_setup = shared_case("headline")
     say(f"headline matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, host set-up "
-        f"{t_setup:.2f} s")
+        f"{t_setup:.2f} s in the worker process")
     records = []
     for prec in PRECS:
-        eng, op, bs, launches, _ = drive(a, b, c_ref, prec, device, "headline",
-                                      ("pallas", "uniform"))
+        eng, op, bs, launches, exec_ms = drive(a, b, c_ref, prec, device, "headline",
+                                               ("pallas", "uniform"))
+        _EXEC_MS[f"headline {prec}"] = exec_ms
         check(launches["spmm_window_sg_presplit_ab"] == 0,
               f"headline {prec}: the engine launched spmm_window_sg_presplit_ab")
         arrs = tuple(x[0] for x in eng.packed)
         rB = eng.receive_buffer(bs)[0]
         got = time_kernel(op, arrs, rB, "headline", prec, csr_work(a))
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
+        _MEASURED[f"rates {prec}"] = records[-1]
         if prec == "x3":
             records.append(presplit_b_phase(a, op, arrs, rB, device))
         if prec == "default":
@@ -949,9 +985,9 @@ def headline(device) -> list:
 def cplaw_path(device) -> list:
     from crp_tpu_torch.kernels import spmm_ragged
 
-    a, b, c_ref, t_gen, t_setup = fp32_case("cplaw")
+    a, b, c_ref, t_gen, t_setup = shared_case("cplaw")
     say(f"cplaw matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, generated in "
-        f"{t_gen:.2f} s, host set-up {t_setup:.2f} s")
+        f"{t_gen:.2f} s, host set-up {t_setup:.2f} s in the worker process")
     t0 = time.perf_counter()
     cover = spmm_ragged.ragged_cover(a.rowptr, a.colidx, 512, 128,
                                      spmm_ragged.default_min_chunk_nnz(512, 128))
@@ -964,8 +1000,9 @@ def cplaw_path(device) -> list:
 
     records, spill = [], dict(launches=0, max_abs=0.0)
     for prec in PRECS:
-        eng, op, bs, launches, _ = drive(a, b, c_ref, prec, device, "cplaw",
-                                      ("pallas", "ragged"))
+        eng, op, bs, launches, exec_ms = drive(a, b, c_ref, prec, device, "cplaw",
+                                               ("pallas", "ragged"))
+        _EXEC_MS[f"cplaw {prec}"] = exec_ms
         rl = op.roofline
         check(rl["spill_impl"] == "pallas", f"cplaw {prec}: spill_impl {rl['spill_impl']!r}")
         check(launches["spmm_spill"] > 0, f"cplaw {prec}: spmm_spill was not launched")
@@ -995,6 +1032,7 @@ def cplaw_path(device) -> list:
         spill["max_abs"] = max(spill["max_abs"], s_abs)
         if prec == "x3":
             spill["ms"], spill["plain_ms"] = s_ms, s_plain
+            _MEASURED["rates spill"] = dict(ms=s_ms, spill_nnz=rl["spill_nnz"])
             spill["bound"] = view_bound(args[-1], rB, args[0].shape[0], with_c=True)
             spill["library_ms"] = spill_library_ms(op, arrs, args[0], rB)
             items = args[-1][2]  # the view's (row, first slot, ...) per item
@@ -1107,9 +1145,9 @@ def scrambled_cplaw_path(device) -> list:
     from crp_tpu_torch.kernels import spmm_ragged
     from crp_tpu_torch.kernels.dispatch import _pack_gather
 
-    a, b, c_ref, _, t_setup = fp32_case("scrambled")
+    a, b, c_ref, _, t_setup = shared_case("scrambled")
     say(f"scrambled cplaw matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, host set-up "
-        f"{t_setup:.2f} s")
+        f"{t_setup:.2f} s in the worker process")
     start_host_job("reorder", reorder_host, a.rowptr, a.colidx, a.val, b[:, :METIS_N])
     # the init's parts: the cover the gate refuses (at cplaw's x3 geometry;
     # the geometry chooser's time is in the x3 init's pack time below) and
@@ -1203,7 +1241,7 @@ def reorder_path(device) -> list:
     from crp_tpu_torch.kernels import spmm_ragged
     from crp_tpu_torch.kernels.dispatch import _pack_gather
 
-    a, b, c_ref = fp32_case("scrambled")[:3]
+    a, b, c_ref = shared_case("scrambled")[:3]
     records = []
     host = host_job("reorder", reorder_host, a.rowptr, a.colidx, a.val, b[:, :METIS_N])
 
@@ -1347,15 +1385,11 @@ def fp64_auto(a, b, c_ref, device, tag) -> dict:
 
 
 def fp64_path(device) -> list:
-    from crp_tpu_torch import banded_random_csr, fill_b, powerlaw_community_csr
     from crp_tpu_torch.kernels.spmm_ragged import spmm_ragged
 
-    t0 = time.perf_counter()
-    a = banded_random_csr(NROW, nnz_per_row=NNZ_PER_ROW, bandwidth=DD_BAND)
-    b = np.asarray(fill_b(0, a.ncol, 0, N))
-    c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
+    a, b, c_ref, _, t_setup = shared_case("fp64 banded")
     say(f"fp64 banded matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, host set-up "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{t_setup:.2f} s in the worker process")
     eng, op, bs, launches, exec_ms = drive(a, b, c_ref, "highest", device, "fp64 banded",
                                            ("dd", "dd_mxu"), kernel="dd",
                                            dtype=np.float64, tol=TOL_DD)
@@ -1388,17 +1422,10 @@ def fp64_path(device) -> list:
     auto = {"fp64 banded": fp64_auto(a, b, c_ref, device, "fp64 banded")}
 
     # the dd kind's other tiers: the dd_mxu cover refuses both matrices
-    for tag, gen, tier in (
-        ("fp64 cplaw", lambda: powerlaw_community_csr(**CPLAW), "segsum"),
-        ("fp64 headline", lambda: banded_random_csr(NROW, NNZ_PER_ROW, BANDWIDTH,
-                                                    seed=SEED), "ell"),
-    ):
-        t0 = time.perf_counter()
-        a = gen()
-        b = np.asarray(fill_b(0, a.ncol, 0, N))
-        c_ref = spmm_ref_f64(a, b[:, :ERR_COLS])
-        say(f"{tag} matrix: {a.nrow} rows, {a.nnz} nnz, host set-up "
-            f"{time.perf_counter() - t0:.2f} s")
+    for tag, tier in (("fp64 cplaw", "segsum"), ("fp64 headline", "ell")):
+        a, b, c_ref, _, t_setup = shared_case(tag)
+        say(f"{tag} matrix: {a.nrow} rows, {a.nnz} nnz, host set-up {t_setup:.2f} s in "
+            f"the worker process")
         eng, op, bs, _, exec_ms = drive(a, b, c_ref, "highest", device, tag, ("dd", tier),
                                         kernel="dd", dtype=np.float64, tol=TOL_DD,
                                         timing=(3, 2))
@@ -1421,6 +1448,8 @@ def fp64_path(device) -> list:
             + (f", kernel {kernel_ms:.4f} ms" if kernel_ms is not None else "")
             + f"; cuSPARSE fp64 {cus_ms:.4f} ms; the faster: "
             + ("auto" if got_auto["exec_ms"] < exec_ms else "dd"))
+    for tag in dd:  # no later phase drives these
+        _CASES.pop(tag)
     return records
 
 
@@ -1639,7 +1668,7 @@ def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto"):
 def headline_p4(device) -> list:
     """The headline in 4 row shards: ``auto`` takes the fused kernel at
     every point; ``kernel="pallas"`` the exchange and #4 on every shard."""
-    a, b, c_ref = fp32_case("headline")[:3]
+    a, b, c_ref = shared_case("headline")[:3]
     halo = dict(launches=0, max_abs=0.0)
     for prec in PRECS:
         eng, op, bs, launches = drive_p(a, b, c_ref, 4, prec, device, "headline p=4",
@@ -1702,7 +1731,7 @@ def cplaw_p4(device) -> None:
     from crp_tpu_torch import csr_row_partition, plan_from_csr
     from crp_tpu_torch.comm.exchange import build_b_exchange
 
-    a, b, c_ref = fp32_case("cplaw")[:3]
+    a, b, c_ref = shared_case("cplaw")[:3]
     eng, op, _, launches = drive_p(a, b, c_ref, 4, "x3", device, "cplaw p=4",
                                    ("pallas", "ragged"), 1)
     check(op.roofline["spill_impl"] == "pallas" and launches["spmm_spill"] == 4,
@@ -1735,7 +1764,7 @@ def para2d_phase(device) -> None:
     from crp_tpu_torch import Para2dSpmm, Plan2D, SpmmConfig, csr_row_partition, plan_from_csr
 
     def run(case, plan, tag, expect):
-        a, b, c_ref = fp32_case(case)[:3]
+        a, b, c_ref = shared_case(case)[:3]
         eng = Para2dSpmm(a, plan, device=device, dtype=np.float32,
                          config=SpmmConfig(kernel="auto", mxu_precision="x3"))
         op = eng._local_op
@@ -1749,7 +1778,7 @@ def para2d_phase(device) -> None:
               f"{tag}: {eng.kernel_kind}/{op.variant}, launches {launches}")
         return eng
 
-    a = fp32_case("cplaw")[0]
+    a = shared_case("cplaw")[0]
     plan = plan_from_csr(a, N, 4)
     say(f"[para2d cplaw] planner: {plan.pm} x {plan.pn}, comm_cost {plan.comm_cost}")
     check((plan.pm, plan.pn) == (1, 4), f"para2d cplaw: planner grid {plan.pm} x {plan.pn}")
@@ -1759,7 +1788,7 @@ def para2d_phase(device) -> None:
     del eng
     torch.cuda.empty_cache()
 
-    a = fp32_case("headline")[0]
+    a = shared_case("headline")[0]
     rb = csr_row_partition(a.rowptr, 4)
     plan = Plan2D(nproc=4, m=a.nrow, n=N, k=a.ncol, pm=2, pn=2, comm_cost=0,
                   A0_rowptr=rb, B_rowptr=rb[::2].copy(), AC_rowptr=rb[::2].copy(),
@@ -2101,7 +2130,7 @@ def any_layout_path(device) -> list:
     from crp_tpu_torch.shard.dist_a import DistCSR
     from crp_tpu_torch.utils.blocks import uniform_displs
 
-    a, b, c_ref = fp32_case("headline")[:3]
+    a, b, c_ref = shared_case("headline")[:3]
     records = []
     # (a) the headline: auto -> #12 once an exec
     eng, launches, c_a, ms_a, _ = crp_drive(a, b, c_ref, "any headline", {},
@@ -2180,7 +2209,7 @@ def any_layout_path(device) -> list:
     torch.cuda.empty_cache()
 
     # (d) cplaw on the planner's 1 x 4: the ragged #7 and the spill #9 a slab
-    ac, bc, cc_ref = fp32_case("cplaw")[:3]
+    ac, bc, cc_ref = shared_case("cplaw")[:3]
     eng, launches, _, _, _ = crp_drive(ac, bc, cc_ref, "any cplaw", {}, ANY_CPLAW_GRID,
                                        "pallas", "ragged", device, timing=(3, 5))
     op = eng._local_op
@@ -2313,6 +2342,371 @@ def training_path(device) -> list:
     return records + recs
 
 
+# the drivers path: the headline and cplaw as the drivers name them
+DRIVERS_HEADLINE = f"synth:banded:{NROW}:{NNZ_PER_ROW}:{BANDWIDTH}"
+DRIVERS_CPLAW = "synth:cplaw:{n}:{avg_degree}:{comm_size}".format(**CPLAW)
+# the 2D planner's grid and comm_cost for each n of the vary_n sweep on 8
+# devices: the host decisions of the TPU record bench_results/r2_tpu_vary_n.jsonl
+VARY_N_PLAN = {16: (8, 1, 538416), 64: (8, 1, 2153664), 256: (8, 1, 8614656),
+               1024: (4, 2, 31918177), 2048: (4, 2, 46691425)}
+# the sweep's execs, each checked against the fp64 product on the host; n =
+# 1024 and 2048 run no exec (the smoke's time, and an fp64 host check there
+# takes too long): their planner rows come from the worker process
+# (drivers_host), the same plan_from_csr
+VARY_N_NS = (16, 64, 256)
+VARY_N_HOST = (1024, 2048)
+# cplaw's ragged pack at x3, (S, spill nnz): the TPU record's kernel_detail
+# (bench_results/r5_tpu_spill_fused.jsonl)
+CPLAW_X3_DETAIL = (12322, 2054574)
+LINK_GBPS = 450.0  # H100 SXM NVLink 4 data sheet, per direction (one card: unmeasured)
+HBM_COPY_BYTES = 1 << 31  # the device copy that measures the projection's HBM rate
+DRIVERS_KERNELS = ("spmm_window_sg_presplit", "spmm_halo", "spmm_ragged_presplit",
+                   "spmm_spill")
+
+
+class _Captured:
+    """A stand-in for ``sys.stdout`` that keeps what a driver prints."""
+
+    def __init__(self) -> None:
+        self.parts = []
+
+    def write(self, text) -> int:
+        self.parts.append(text)
+        return len(text)
+
+    def flush(self) -> None:
+        pass
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def captured(main, argv) -> str:
+    """What ``main(argv)`` prints; fails unless it returns 0 (its output
+    is printed where it raises or fails)."""
+    out, old = _Captured(), sys.stdout
+    sys.stdout = out
+    try:
+        rc = main(argv)
+    except BaseException:
+        sys.stdout = old
+        say(out.text())
+        raise
+    sys.stdout = old
+    check(rc == 0, f"{main.__module__} {' '.join(argv)}: exit code {rc}\n{out.text()}")
+    return out.text()
+
+
+def run_driver(main, argv) -> tuple:
+    """(printed text, launches) of one driver run through its ``main``:
+    every launch count set to 0 just before and read just after."""
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    text = captured(main, argv)
+    return text, {k.__name__: k.launches for k in kernels}
+
+
+def json_lines(text) -> list:
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def projection_rates(device) -> dict:
+    """The projection's rates from this run: each tensor rate from its
+    headline kernel's design bound over its time (per pass, at the peak of
+    its type), the spill's from #9 on cplaw at x3 over its spilled nnz, HBM
+    from a device copy of HBM_COPY_BYTES (read and write counted), the
+    link from the data sheet; ``plan.project.DEFAULT_RATES`` where this
+    run has no such record (the phase run alone)."""
+    from crp_tpu_torch.plan.project import DEFAULT_RATES
+
+    rates = dict(DEFAULT_RATES, link_gbps=LINK_GBPS)
+    for key, prec, peak in (("x3_tflops", "x3", "bf16"), ("default_tflops", "default", "bf16"),
+                            ("highest_tflops", "highest", "tf32")):
+        r = _MEASURED.get(f"rates {prec}")  # the headline's record at prec
+        if r is not None:
+            rates[key] = PEAK[peak] / 1e12 * r["design_bound_ms"] / r["ms"]
+    spill = _MEASURED.get("rates spill")  # #9 on cplaw at x3 (cplaw_path)
+    if spill is not None:
+        rates["spill_ns"] = spill["ms"] * 1e6 / spill["spill_nnz"]
+    x = torch.empty(HBM_COPY_BYTES // 4, dtype=torch.float32, device=device)
+    y = torch.empty_like(x)
+    copy_ms = time_ms(lambda: y.copy_(x), reps=5, inner=5)
+    rates["hbm_gbps"] = 2 * HBM_COPY_BYTES / (copy_ms * 1e-3) / 1e9
+    del x, y
+    torch.cuda.empty_cache()
+    say(f"[drivers] projection rates from this run: {json.dumps(rates)} (tensor rates "
+        f"per pass from #1, #2, #3 on the headline, spill from #9 on cplaw; HBM: a "
+        f"{HBM_COPY_BYTES >> 30} GiB device copy in {copy_ms:.4f} ms; link: data sheet)"
+        + ("" if _MEASURED else "; earlier phases did not run: tensor and spill rates "
+           "are plan.project's defaults"))
+    return rates
+
+
+def drivers_host(rate_argv) -> dict:
+    """The host half of :func:`drivers_path`: ``project_cli`` on the
+    headline and cplaw at p = 1, 4, 8, 16 (x3, n = N, the card's rates
+    ``rate_argv``), the 2D planner's grid for the headline at each n of
+    VARY_N_HOST on 8 devices, and a ``.mtx`` round trip of the headline
+    (``write_mtx`` into the build directory, read back by scipy's reader,
+    the default, and by the native one, the file removed after)."""
+    from crp_tpu_torch import native, plan_from_csr
+    from crp_tpu_torch.cli import project_cli
+    from crp_tpu_torch.cli.plan_cli import load_matrix
+    from crp_tpu_torch.sparse.mmio import mm_read_sparse, write_mtx
+
+    out = {}
+    for tag, spec in (("headline", DRIVERS_HEADLINE), ("cplaw", DRIVERS_CPLAW)):
+        t0 = time.perf_counter()
+        text = captured(project_cli.main, [spec, str(N), "--procs=1,4,8,16", "--prec=x3",
+                                           *rate_argv])
+        out[tag] = (json_lines(text), time.perf_counter() - t0)
+    a = load_matrix(DRIVERS_HEADLINE)
+    out["plan"] = {}
+    for n in VARY_N_HOST:
+        pl = plan_from_csr(a, n, 8)
+        out["plan"][n] = (pl.pm, pl.pn, int(pl.comm_cost))
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = native.BUILD_DIR / "drivers_headline.mtx"
+    t0 = time.perf_counter()
+    write_mtx(str(path), a)
+    t_write = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        asp = mm_read_sparse(str(path))
+        t_scipy = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        an = mm_read_sparse(str(path), backend="native")
+        t_native = time.perf_counter() - t0
+        size = path.stat().st_size
+    finally:
+        path.unlink(missing_ok=True)
+    same = lambda x, y, f: np.array_equal(getattr(x, f), getattr(y, f))  # noqa: E731
+    out["mtx"] = dict(
+        bytes=size, nnz=a.nnz, write_s=t_write, native_s=t_native, scipy_s=t_scipy,
+        backend=an.backend, scipy_backend=asp.backend,
+        native_equals_scipy=all(same(an, asp, f) for f in ("rowptr", "colidx", "val")),
+        structure_equals_written=same(asp, a, "rowptr") and same(asp, a, "colidx"),
+        values_equal_written=same(asp, a, "val"),
+    )
+    return out
+
+
+def short(name) -> str:
+    """A kernel's demangled name without its return type, its anonymous
+    namespace and its argument list."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def trace_windows(path) -> list:
+    """(label, kernel ms, span ms, {kernel: ms}) of each ``suite_cli timed``
+    range of a ``torch.profiler`` Chrome trace: the device time of the
+    kernels that start in the range (in all and by kernel, its name cut
+    before its arguments), and the range's host span."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = []
+    for w in events:
+        if w.get("cat") != "user_annotation" or not str(w.get("name", "")).startswith(
+                "suite_cli timed"):
+            continue
+        t0, t1 = w["ts"], w["ts"] + w["dur"]
+        by_name = {}
+        for k in kernels:
+            if t0 <= k["ts"] < t1:
+                by_name[short(k["name"])] = by_name.get(short(k["name"]), 0.0) + k["dur"] / 1e3
+        out.append((w["name"], sum(by_name.values()), w["dur"] / 1e3,
+                    dict(sorted(by_name.items(), key=lambda kv: -kv[1]))))
+    return out
+
+
+def drivers_path(device) -> list:
+    """The drivers at full width through their ``main(argv)``, x3: (1)
+    ``bench_cli`` on the headline at p = 1 (#1) and (2) with
+    ``--engine=crp --devices=4`` (the fused #12 on the v1 planner's 4 x 1);
+    (3) the ``suite_cli`` vary_n sweep on the headline, n = 16, 64, 256
+    (n = 1024 and 2048 planner rows alone), with the 2D planner's grid for
+    8 devices equal to the TPU record's; (4) the ``kernels`` sweep on cplaw
+    (``pallas`` -> the ragged #7 with the spill #9) under ``--trace``, the
+    trace's kernel time against its span; (5) in the worker process,
+    ``project_cli`` at the card's rates from this run and a ``.mtx`` round
+    trip of the headline.  Returns the records of #1, #12, #7 and #9 with
+    their launches here (``"path": "drivers"``), their other numbers those
+    measured for the same kernel on the same inputs earlier in this run
+    (``"measured_in"``)."""
+    from crp_tpu_torch import native
+    from crp_tpu_torch.cli import bench_cli, suite_cli
+
+    rates = projection_rates(device)
+    rate_argv = [f"--{k.replace('_', '-')}={v!r}" for k, v in rates.items()]
+    start_host_job("drivers", drivers_host, rate_argv)
+    launches = dict.fromkeys(DRIVERS_KERNELS, 0)
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    # (1), (2) bench_cli at p = 1 and p = 4
+    for tag, extra, kernel in (("p1", ["--engine=rowpara", "--devices=1"],
+                                "spmm_window_sg_presplit"),
+                               ("p4", ["--engine=crp", "--devices=4"], "spmm_halo")):
+        t0 = time.perf_counter()
+        text, got = run_driver(bench_cli.main, [DRIVERS_HEADLINE, str(N), "3", "0", "1",
+                                                *extra, "--prec=x3", "--dtype=float32"])
+        lines = text.splitlines()
+        secs = [float(x) for x in lines if x.replace(".", "", 1).isdigit()]
+        err = float(lines[-1].split("=")[-1])
+        grid = next(x for x in lines if x.startswith("2D process grid"))
+        fired = {k: v for k, v in got.items() if v}
+        last = max(i for i, x in enumerate(lines) if x.replace(".", "", 1).isdigit())
+        stat = [" ".join(x.split()) for x in lines[last + 1:-1]
+                if any(c.isdigit() for c in x)]
+        say(f"[drivers bench {tag}] {' '.join(extra)}: {grid}; s/exec {secs}; "
+            f"{lines[-1]}; launches {json.dumps(fired)}; {time.perf_counter() - t0:.1f} s; "
+            f"print_stat: {' | '.join(stat)}")
+        # 1 warm-up and 3 timed execs, one launch each: the 4 x 1 grid runs
+        # one column group (a launch of #12 an exec)
+        check(fired == {kernel: 4}, f"drivers bench {tag}: launches {fired}, expected "
+              f"{kernel} 4 times")
+        check(err <= TOL_REF["x3"] and len(secs) == 3,
+              f"drivers bench {tag}: error {err}, {len(secs)} timed execs")
+        if tag == "p4":
+            vol = {"necessary" if "necessary" in x else "all": int(x.split()[-1])
+                   for x in lines if x.startswith("Alltoallv B")}
+            say(f"[drivers bench p4] Alltoallv B {vol['all']}, necessary "
+                f"{vol['necessary']}")
+            check(vol["necessary"] <= vol["all"], f"drivers bench p4: volumes {vol}")
+        add(got)
+
+    # (3) the vary_n sweep on the headline
+    t0 = time.perf_counter()
+    text, got = run_driver(suite_cli.main, [
+        "vary_n", DRIVERS_HEADLINE, "1", "--engine=rowpara", "--plan-procs=8",
+        "--dtype=float32", "--prec=x3", f"--ns={','.join(map(str, VARY_N_NS))}",
+        "--check=1"])
+    vary = json_lines(text)
+    fired = {k: v for k, v in got.items() if v}
+    say(f"[drivers vary_n] ns={list(VARY_N_NS)}, checked: launches {json.dumps(fired)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(list(fired) == ["spmm_window_sg_presplit"], f"drivers vary_n: launches {fired}")
+    for r in vary:
+        check("error" not in r, f"drivers vary_n: {r}")
+        pl = r["planner"]
+        say(f"[drivers vary_n] n={r['n']}: {r['kernel_resolved']}/"
+            f"{r['kernel_detail']['variant']}, exec_s min {r['exec_s']['min'] * 1e3:.4f} "
+            f"ms (avg {r['exec_s']['avg'] * 1e3:.4f}), {r['gflops']} GFLOP/s, roofline "
+            f"{json.dumps(r['roofline'])}, planner {pl['pm']} x {pl['pn']} comm_cost "
+            f"{pl['comm_cost']}, rel_fro_err {r['rel_fro_err']}")
+        check((pl["nproc"], pl["pm"], pl["pn"], pl["comm_cost"])
+              == (8, *VARY_N_PLAN[r["n"]]),
+              f"drivers vary_n n={r['n']}: planner {pl}, the TPU record's "
+              f"{VARY_N_PLAN[r['n']]}")
+        check((r["kernel_resolved"], r["kernel_detail"]["variant"])
+              == ("pallas", "uniform"), f"drivers vary_n: {r['kernel_resolved']}")
+        check(r["rel_fro_err"] <= TOL_REF["x3"],
+              f"drivers vary_n n={r['n']}: rel_fro_err {r['rel_fro_err']}")
+    add(got)
+    check([r["n"] for r in vary] + list(VARY_N_HOST) == sorted(VARY_N_PLAN),
+          f"drivers vary_n: {[r['n'] for r in vary]}")
+
+    # (4) the kernels sweep on cplaw, traced
+    trace_dir = native.BUILD_DIR / "drivers_trace"
+    t0 = time.perf_counter()
+    text, got = run_driver(suite_cli.main, [
+        "kernels", DRIVERS_CPLAW, str(N), "1", "--engine=rowpara", "--list=pallas",
+        "--dtype=float32", "--prec=x3", f"--trace={trace_dir}"])
+    recs = json_lines(text)
+    fired = {k: v for k, v in got.items() if v}
+    say(f"[drivers kernels] cplaw: launches {json.dumps(fired)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in recs:
+        check("error" not in r, f"drivers kernels: {r}")
+        say(f"[drivers kernels] {r['kernel']}: {r['kernel_resolved']}, detail "
+            f"{json.dumps(r['kernel_detail'])}, exec_s min {r['exec_s']['min'] * 1e3:.4f} "
+            f"ms (avg {r['exec_s']['avg'] * 1e3:.4f}, traced), rel_fro_err "
+            f"{r['rel_fro_err']:.3e}")
+        check(r["rel_fro_err"] <= TOL_REF["x3"], f"drivers kernels {r['kernel']}: "
+              f"rel_fro_err {r['rel_fro_err']}")
+    (rp,) = recs
+    dp = rp["kernel_detail"]
+    check((rp["kernel_resolved"], dp["variant"], dp["S"], dp["spill_nnz"])
+          == ("pallas", "ragged", *CPLAW_X3_DETAIL),
+          f"drivers kernels: {rp['kernel_resolved']} {dp}")
+    check(list(fired) == list(DRIVERS_KERNELS[2:]), f"drivers kernels: launches {fired}")
+    add(got)
+    trace = trace_dir / "suite_trace.json"
+    wins = trace_windows(trace)
+    say(f"[drivers trace] {trace.stat().st_size / 1e6:.1f} MB Chrome trace")
+    bodies = {"pallas": ("x3_wgmma_kernel", "spill_rows_kernel<true")}
+    check(len(wins) == 1, f"drivers trace: {len(wins)} timed ranges")
+    for (label, k_ms, span_ms, names), r in zip(wins, recs):
+        execs = 3 * r["inner"]
+        say(f"[drivers trace] {label}: kernel time {k_ms:.4f} ms in a span of "
+            f"{span_ms:.4f} ms ({100.0 * k_ms / span_ms:.1f}% busy; 3 fences of "
+            f"{r['inner']} execs); ms an exec by kernel: "
+            + "; ".join(f"{k} {v / execs:.4f}" for k, v in names.items()))
+        for body in bodies[r["kernel"]]:
+            check(any(body in x for x in names),
+                  f"drivers trace: no {body} kernel in the {label} range: {names}")
+    trace.unlink()
+
+    # (5) the host half: projections beside the measured execs, the .mtx
+    host = host_job("drivers", drivers_host, rate_argv)
+    measured = {"headline": (vary[-1]["exec_s"]["min"], f"vary_n n={vary[-1]['n']}"),
+                "cplaw": (rp["exec_s"]["min"], "kernels pallas, traced")}
+    for tag in ("headline", "cplaw"):
+        rows, secs = host[tag]
+        for r in rows:
+            say(f"[drivers project {tag}] p={r['p']}: kernel {r['kernel_s'] * 1e3:.4f} ms, "
+                f"comm {r['comm_s'] * 1e3:.4f} ms, projected {r['projected_s'] * 1e3:.4f} "
+                f"ms (overlap {r['projected_overlap_s'] * 1e3:.4f}), "
+                f"{r['comm_bytes_per_chip'] / 1e6:.1f} MB a card on the ring")
+        one = rows[0]["projected_s"]
+        ex = _EXEC_MS.get(f"{tag} x3")
+        say(f"[drivers project {tag}] p=1 projected {one * 1e3:.4f} ms against "
+            f"{measured[tag][0] * 1e3:.4f} ms measured ({measured[tag][1]}) and "
+            f"exec_device {ex if ex is None else round(ex, 4)} ms ({tag} phase); "
+            f"model / measured {one / measured[tag][0]:.3f}; project_cli {secs:.1f} s "
+            f"on the host")
+    for n, pl in host["plan"].items():
+        say(f"[drivers vary_n] n={n} (no exec; plan_from_csr in the worker process): "
+            f"planner {pl[0]} x {pl[1]} comm_cost {pl[2]}")
+        check(pl == VARY_N_PLAN[n],
+              f"drivers vary_n n={n}: planner {pl}, the TPU record's {VARY_N_PLAN[n]}")
+    m = host["mtx"]
+    say(f"[drivers mtx] headline .mtx: {m['bytes'] / 1e6:.1f} MB, {m['nnz']} nnz; "
+        f"write_mtx {m['write_s']:.2f} s; {m['scipy_backend']} (the default) "
+        f"{m['scipy_s']:.2f} s, {m['backend']} {m['native_s']:.2f} s (each into CSR); "
+        f"native equals scipy "
+        f"bit for bit: {m['native_equals_scipy']}; structure as written: "
+        f"{m['structure_equals_written']}, values as written: {m['values_equal_written']}")
+    check(m["backend"] == "native" and m["scipy_backend"] == "scipy",
+          f"drivers mtx: backends {m['backend']}, {m['scipy_backend']}")
+    check(m["native_equals_scipy"] and m["structure_equals_written"],
+          f"drivers mtx: {m}")
+
+    # the records: launches here, the other numbers measured earlier in this run
+    out = []
+    sources = (("spmm_window_sg_presplit", None), ("spmm_halo", "any_layout"),
+               ("spmm_ragged_presplit", None), ("spmm_spill", None))
+    for name, path in sources:
+        src = next((r for r in _RECORDS if r["name"] == name and r.get("path") == path),
+                   None)
+        if src is not None:
+            out.append(dict(src, launches=launches[name], path="drivers",
+                            measured_in=path or "main"))
+    check(not _RECORDS or len(out) == len(DRIVERS_KERNELS),
+          f"drivers: records of {[r['name'] for r in out]}")
+    return out
+
+
 def tf32x3_layouts(build) -> None:
     """Print the ring of each 3xTF32 entry (#3, #4, #12 and #6 at highest)
     once: stages, dynamic shared memory, the block tile, and for its
@@ -2391,6 +2785,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU",
               file=sys.stderr)
         return 2
+    from crp_tpu_torch import native
     from crp_tpu_torch.kernels import _build
 
     device = torch.device("cuda", 0)
@@ -2412,12 +2807,17 @@ def main() -> int:
     spill_layout(_build)
     dd_layout(_build)
 
-    records = []
+    records = _RECORDS
+    case_dir = native.BUILD_DIR / "smoke_cases"  # in the checkout's git-ignored build tree
+    case_dir.mkdir(parents=True, exist_ok=True)
     try:
+        for name in CASES:  # the host set-ups, in the worker beside the card's work
+            start_host_job(f"case {name}", make_case, name, case_dir)
         for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,
                       dd_phase, window_phase, halo_phase, headline, cplaw_path,
                       scrambled_cplaw_path, reorder_path, fp64_path, headline_p4,
-                      cplaw_p4, para2d_phase, any_layout_path, training_path):
+                      cplaw_p4, para2d_phase, any_layout_path, training_path,
+                      drivers_path):
             t0 = time.perf_counter()
             records += phase(device) or []
             say(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
@@ -2425,6 +2825,9 @@ def main() -> int:
         if _HOST["pool"] is not None:
             _HOST["pool"].terminate()
             _HOST["pool"].join()
+        for path in case_dir.glob("*.npz"):  # cases no phase took
+            path.unlink()
+        case_dir.rmdir()
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

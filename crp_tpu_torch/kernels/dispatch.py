@@ -1060,7 +1060,7 @@ def _ptrs(first, device) -> torch.Tensor:
     return torch.from_numpy(np.stack([first_ptr(f) for f in first])).to(device)
 
 
-def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
+def local_op_from_jax_pack(arrays, min_b_rows: int, device="cuda",
                            roofline: dict | None = None, variant=None):
     """The port's packed tensors and local op for a JAX ``pallas`` pack.
 
@@ -1080,7 +1080,12 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cpu",
     step_first, starts, mu, slices), whose fp64 panels are rebuilt as
     ``mu * sum_p slice_p * 2**(-7 (p + 1))`` (exact in fp64: 7 slices of 7
     bits and a power-of-two scale).  One pack then feeds both packages.
+    ``device`` follows the engines' rule (``engine_device``): the card by
+    default, raising without one; the CPU where the caller asks for it.
     """
+    from ..engine.rowpara import engine_device
+
+    device = engine_device(device)
     roofline = dict(roofline or {})
     if variant == "dd_mxu":
         g, first, starts, mu, sl = (_tensor_from_jax(x).to(device) for x in arrays)

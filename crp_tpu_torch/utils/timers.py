@@ -15,6 +15,12 @@ from contextlib import contextmanager
 import torch
 
 
+def get_wtime_sec() -> float:
+    """Wall-clock seconds, the reference's ``get_wtime_sec()``
+    (``crp_tpu/utils/timers.py:21-22``)."""
+    return time.perf_counter()
+
+
 def synchronize(x) -> None:
     """Wait for the devices of the CUDA tensors in ``x`` (a tensor or a
     sequence of them)."""

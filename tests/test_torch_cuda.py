@@ -1839,3 +1839,42 @@ def test_native_ggp_on_card_machine_reproduces_fixture(cuda_device):
         part = native.ggp_partition(a.rowptr, a.colidx, case["nparts"], case["imbalance"])
         assert part is not None, "the native partitioner did not build"
         assert native.part_digest(part) == case["native"]["sha256"], case["spec"]
+
+
+def test_drivers_on_card(cuda_device, tmp_path, capsys):
+    """``bench_cli`` and a ``suite_cli`` ``kernels`` sweep on the card on a
+    small matrix: the resolved kinds (the windowed #1 at x3, the ragged
+    #7 with the spill #9, the gather #10), the error class (x3, <= 1e-5),
+    the kernels launched, and a Chrome trace that names them."""
+    import json
+
+    from crp_tpu_torch.cli import bench_cli, suite_cli
+    from crp_tpu_torch.kernels import spmm_pallas, spmm_ragged
+
+    spmm_pallas.spmm_window_sg_presplit.launches = 0
+    assert bench_cli.main(["synth:banded:3000:7:80", "64", "2", "0", "1",
+                           "--engine=rowpara", "--devices=1", "--prec=x3"]) == 0
+    out = capsys.readouterr().out
+    assert float(out.strip().splitlines()[-1].split("=")[-1]) <= 1e-5
+    assert spmm_pallas.spmm_window_sg_presplit.launches >= 3
+
+    for k in (spmm_ragged.spmm_ragged_presplit, spmm_ragged.spmm_spill,
+              spmm_ragged.spmm_gather):
+        k.launches = 0
+    assert suite_cli.main(["kernels", "synth:cplaw:8192:12:512", "64", "1",
+                           "--engine=rowpara", "--list=pallas,gather", "--prec=x3",
+                           "--ntest=2", "--inner=2", f"--trace={tmp_path}"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [(r["kernel_resolved"], r["kernel_detail"]["variant"]) for r in recs] == [
+        ("pallas", "ragged"), ("gather", "gather")]
+    for r in recs:
+        assert r["backend"] == "cuda" and r["rel_fro_err"] <= 1e-5
+    for k in (spmm_ragged.spmm_ragged_presplit, spmm_ragged.spmm_spill,
+              spmm_ragged.spmm_gather):
+        assert k.launches > 0, k.__name__
+    events = json.loads((tmp_path / "suite_trace.json").read_text())["traceEvents"]
+    names = " ".join(e.get("name", "") for e in events if e.get("cat") == "kernel")
+    # #7 runs the wgmma body, #9 and #10 the row walk with and without C
+    for body in ("x3_wgmma_kernel", "spill_rows_kernel<true", "spill_rows_kernel<false"):
+        assert body in names, body

@@ -150,7 +150,7 @@ def test_jax_slice_planes_rebuild_the_panels(no_knobs, gen):
     t_arrays, op = td._pack_dd_mxu(_shard(a), a.nrow, CPU)
     arrays = [np.asarray(x) for x in j_arrays]
     arrays[4] = arrays[4].view(np.uint16)  # bf16 bits
-    c_arrays, c_op = td.local_op_from_jax_pack(arrays, j_fn.min_b_rows,
+    c_arrays, c_op = td.local_op_from_jax_pack(arrays, j_fn.min_b_rows, device="cpu",
                                                roofline=j_fn.roofline,
                                                variant="dd_mxu")
     assert c_op.variant == "dd_mxu" and c_op.roofline["passes"] == 1

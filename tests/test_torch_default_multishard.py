@@ -163,7 +163,7 @@ def test_jax_default_pack_feeds_the_port():
     gives the port's own pack's C, bit for bit."""
     _, shards, max_m = _shards(3, np.float32)
     j_arrays, j_fn = jd._pack_pallas_uniform(shards, max_m, np.float32, "default")
-    tensors, op = td.local_op_from_jax_pack(j_arrays, j_fn.min_b_rows,
+    tensors, op = td.local_op_from_jax_pack(j_arrays, j_fn.min_b_rows, device="cpu",
                                             roofline=j_fn.roofline)
     assert (op.variant, op.scheme, op.precision) == ("window", "window_bf16", "default")
     t_arrays, t_op = td._pack_window(shards, max_m, np.float32, "default", CPU)

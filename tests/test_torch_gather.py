@@ -91,7 +91,8 @@ def test_gather_op_matches_jax_interpret(no_knobs, prec):
     for t, j in zip(t_arrays, j_arrays):
         np.testing.assert_array_equal(t.numpy(), j)
     c_tensors, c_op = td.local_op_from_jax_pack(_jax_arrays(j_arrays), j_fn.min_b_rows,
-                                                roofline=j_fn.roofline, variant="gather")
+                                                device="cpu", roofline=j_fn.roofline,
+                                                variant="gather")
     assert (c_op.M, c_op.mxu_precision) == (op.M, prec)
     for x, y in zip(c_tensors, t_arrays):
         np.testing.assert_array_equal(x.numpy(), y.numpy())

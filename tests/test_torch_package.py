@@ -321,9 +321,10 @@ from crp_tpu_torch import (
     native, permute_symmetric, plan_from_csr, powerlaw_community_csr, rcm_reorder,
     rel_fro_err,
 )
-from crp_tpu_torch.cli import plan_cli
-from crp_tpu_torch.sparse import metis, reorder
-from crp_tpu_torch.utils import debug
+from crp_tpu_torch.cli import bench_cli, plan_cli, project_cli, suite_cli
+from crp_tpu_torch.plan import project
+from crp_tpu_torch.sparse import metis, mmio, reorder
+from crp_tpu_torch.utils import debug, timers
 
 a = powerlaw_community_csr(4096, 12, 256, seed=5, permute=True)
 b = fill_b(0, a.ncol, 0, 16)
@@ -349,6 +350,26 @@ with tempfile.TemporaryDirectory() as d:
     debug.dump_binary(b, os.path.join(d, "b.bin"))
     assert np.array_equal(debug.load_binary(os.path.join(d, "b.bin")), b)
 assert not metis.available()
+# the drivers, the projection and the .mtx reader and writer
+with redirect_stdout(io.StringIO()) as f:
+    assert bench_cli.main(["synth:banded:600:5:25", "8", "1", "0", "1", "--engine=crp",
+                           "--dtype=float64", "--devices=4", "--device=cpu"]) == 0
+    assert suite_cli.main(["vary_n", "synth:banded:600:5:25", "2", "--ns=8",
+                           "--engine=rowpara", "--device=cpu", "--project=1"]) == 0
+    assert project_cli.main(["synth:banded:600:5:25", "8", "--procs=1,2"]) == 0
+lines = f.getvalue().splitlines()
+errs["bench crp"] = float(lines[[i for i, l in enumerate(lines) if "C_ref" in l][0]]
+                          .split("=")[-1])
+rec = json.loads([l for l in lines if l.startswith('{"matrix"')][0])
+assert rec["rel_fro_err"] <= 1e-5  # the suite's fp32 class
+assert rec["projected"]["p"] == 2 and project.RATE_PROVENANCE
+with tempfile.TemporaryDirectory() as d:
+    mmio.write_mtx(os.path.join(d, "a.mtx"), a)
+    back = mmio.mm_read_sparse(os.path.join(d, "a.mtx"))
+    assert back.backend == "scipy" and np.array_equal(back.val, a.val)
+    back = mmio.mm_read_sparse(os.path.join(d, "a.mtx"), backend="native")
+    assert back.backend == "native" and np.array_equal(back.val, a.val)
+assert timers.get_wtime_sec() > 0
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not any(m == "jax" or m.startswith(("jax.", "ml_dtypes")) for m in loaded), \
     "jax got imported"
@@ -361,13 +382,15 @@ print(json.dumps(errs))
 def test_reorder_modules_run_without_jax():
     """The reordering layer (``cluster_reorder``, RCM, the METIS seam with
     its native partitioner), the planner's ``method="metis"`` under
-    ``Para2dSpmm``, the planner CLI and the debug dumps import and run with
-    ``crp_tpu``, jax and ml_dtypes blocked."""
+    ``Para2dSpmm``, the planner CLI, the debug dumps, the drivers
+    (``bench_cli``, ``suite_cli``, ``project_cli``), the projection and
+    the ``.mtx`` reader and writer import and run with ``crp_tpu``, jax
+    and ml_dtypes blocked."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_REORDER], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     errs = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert sorted(errs) == ["cluster", "metis", "para2d metis", "rcm"]
+    assert sorted(errs) == ["bench crp", "cluster", "metis", "para2d metis", "rcm"]
     for name, err in errs.items():
         assert err <= 1e-12, (name, err)

@@ -399,7 +399,7 @@ def test_local_op_from_jax_pack_feeds_both(no_knobs):
     tensors, op = td.local_op_from_jax_pack(
         [np.asarray(x).view(np.uint16) if np.asarray(x).dtype.name == "bfloat16"
          else np.asarray(x) for x in j_arrays],
-        j_fn.min_b_rows, roofline=j_fn.roofline, variant="ragged")
+        j_fn.min_b_rows, device="cpu", roofline=j_fn.roofline, variant="ragged")
     assert (op.scheme, op.spill_impl, op.mxu_precision) == ("x3", "pallas", "x3")
     t_arrays, t_op = td._pack_ragged(shard, a.nrow, np.float32, "x3", CPU,
                                      geometry=(128, 256), min_chunk_nnz=120,

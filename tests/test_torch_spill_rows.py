@@ -251,8 +251,8 @@ def test_views_of_carried_over_jax_packs(no_knobs):
     t_arrays, _ = td.pack_local_kernel(shard, a.nrow + 300, np.float32, "gather",
                                        device="cpu", mxu_precision="x3")
     c_arrays, _ = td.local_op_from_jax_pack([np.asarray(x) for x in j_arrays],
-                                            j_fn.min_b_rows, roofline=j_fn.roofline,
-                                            variant="gather")
+                                            j_fn.min_b_rows, device="cpu",
+                                            roofline=j_fn.roofline, variant="gather")
     assert len(t_arrays) == len(c_arrays) == len(j_arrays) + 4
     for x, y in zip(c_arrays[-4:], t_arrays[-4:]):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
@@ -269,8 +269,8 @@ def test_views_of_carried_over_jax_packs(no_knobs):
                                    geometry=(128, 256), min_chunk_nnz=120,
                                    spill_impl="pallas")
     c_arrays, c_op = td.local_op_from_jax_pack([_host(x) for x in j_arrays],
-                                               j_fn.min_b_rows, roofline=j_fn.roofline,
-                                               variant="ragged")
+                                               j_fn.min_b_rows, device="cpu",
+                                               roofline=j_fn.roofline, variant="ragged")
     assert op.spill_impl == c_op.spill_impl == "pallas"
     assert op.spill_tmo == c_op.spill_tmo
     assert len(t_arrays) == len(c_arrays) == len(j_arrays) + 5

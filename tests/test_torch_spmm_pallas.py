@@ -39,7 +39,8 @@ def _case(prec, dtype):
     assert len(arrays) in (3, 4), "expected the super-grouped pack"
     as_np = [np.asarray(x) for x in arrays]
     as_np = [x.view(np.uint16) if x.dtype.name == "bfloat16" else x for x in as_np]
-    tensors, op = local_op_from_jax_pack(as_np, fn.min_b_rows, roofline=fn.roofline)
+    tensors, op = local_op_from_jax_pack(as_np, fn.min_b_rows, device="cpu",
+                                          roofline=fn.roofline)
     return a, arrays, fn, tensors, op
 
 

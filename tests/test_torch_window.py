@@ -193,7 +193,7 @@ def test_jax_multi_shard_pack_feeds_the_port():
     fp32 x3 panels are split to the bf16 pair on upload."""
     _, shards, max_m = _shards(3, np.float32)
     j_arrays, j_fn = jd._pack_pallas_uniform(shards, max_m, np.float32, "x3")
-    tensors, op = td.local_op_from_jax_pack(j_arrays, j_fn.min_b_rows,
+    tensors, op = td.local_op_from_jax_pack(j_arrays, j_fn.min_b_rows, device="cpu",
                                             roofline=j_fn.roofline)
     assert (op.variant, op.scheme, op.precision) == ("window", "window_x3", "x3")
     t_arrays, t_op = td._pack_window(shards, max_m, np.float32, "x3", CPU)

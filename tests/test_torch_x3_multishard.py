@@ -127,7 +127,7 @@ def test_local_op_from_jax_pack_splits_multi_shard_x3(prec):
     fp32."""
     _, shards, max_m = _shards(3, np.float32)
     j_arrays, j_fn = jd._pack_pallas_uniform(shards, max_m, np.float32, prec)
-    tensors, op = td.local_op_from_jax_pack(j_arrays, j_fn.min_b_rows,
+    tensors, op = td.local_op_from_jax_pack(j_arrays, j_fn.min_b_rows, device="cpu",
                                             roofline=j_fn.roofline)
     t_arrays, t_op = td._pack_window(shards, max_m, np.float32, prec, CPU)
     assert (op.variant, op.precision, op.min_b_rows) == ("window", prec, t_op.min_b_rows)
