@@ -122,6 +122,22 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    main-path shape, timed, with cuSPARSE on the same work; at default the
    packs must hold the bf16 hi plane alone, and B's cast to bf16 is timed
    beside each kernel;
+12b. ranks (``multirank_path``) — (b) one rank over NCCL
+   (``init_distributed()`` in this process, world size 1) on the headline's
+   p = 1 engine at x3: its C equal to the one-device engine's bit for bit;
+   a probe, in 2 processes of its own, of what gloo carries for CUDA
+   tensors; (a) the headline at p = 4 as 4 spawned processes on the one
+   card (``init_distributed(backend="gloo")``: NCCL refuses two ranks on
+   one device), ``RowParaSpmm(mesh=make_mesh_1d(4))``: ``auto`` takes #12
+   across processes (each rank's B buffer mapped into its peers by CUDA
+   IPC) at x3, default and highest, launched once a rank an exec; each
+   rank's C shard equal to slice r of the one-device fused engine's C
+   bit for bit, its rows within the point's class, the kernel against its
+   plain version on the same inputs, each rank's init memory beside the
+   one-device pack; (c) the a2a (and the ring, where gloo carries
+   send/recv) across the 4 processes, each C shard equal to the one-device
+   engine's; every time there is time-shared (four processes on one card)
+   and printed as such;
 13. cplaw at p = 4 on the ring (x3): the multi-shard ragged pack with the
    fused spill, 591,732 received B rows and 627,300 physical ring rows;
    on the host, the p = 8 exchange plan's received rows times 32 equal the
@@ -967,7 +983,10 @@ def headline(device) -> list:
         got = time_kernel(op, arrs, rB, "headline", prec, csr_work(a))
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
         _MEASURED[f"rates {prec}"] = records[-1]
-        if prec == "x3":
+        if prec == "x3":  # what multirank_path's one-rank NCCL engine must equal
+            c = eng.exec_device(bs)
+            _MEASURED["headline p=1 x3 bits"] = (digest(c), digest(eng.unshard_c(c)))
+            del c
             records.append(presplit_b_phase(a, op, arrs, rB, device))
         if prec == "default":
             diff = one_pass_vs_x3(arrs[0], arrs[1], rB.to(torch.bfloat16), op.min_b_rows)
@@ -1674,6 +1693,10 @@ def headline_p4(device) -> list:
         eng, op, bs, launches = drive_p(a, b, c_ref, 4, prec, device, "headline p=4",
                                         ("pallas_halo", "halo"), 0)
         halo["launches"] += launches["spmm_halo"]
+        c = eng.exec_device(bs)  # what multirank_path's ranks must equal, shard by shard
+        _MEASURED[f"p=4 fused {prec}"] = dict(
+            bits=[digest(c[i]) for i in range(4)], packed=nbytes(*eng.packed))
+        del c
         got = time_kernel(op, eng.packed, bs, "headline p=4 fused", prec,
                           csr_work(a), plain_inner=3)
         halo["max_abs"] = max(halo["max_abs"], got[0])
@@ -1696,6 +1719,11 @@ def headline_p4(device) -> list:
         eng, op, bs, launches = drive_p(a, b, c_ref, 4, prec, device, "headline p=4",
                                         ("pallas", "window"), rb_p2p, kernel="pallas")
         window["launches"] += launches["spmm_window"]
+        if prec == "x3":  # multirank_path's exchanges across ranks must equal these
+            c = eng.exec_device(bs)
+            _MEASURED[f"p=4 {'ring' if rb_p2p else 'a2a'} x3"] = dict(
+                bits=[digest(c[i]) for i in range(4)], packed=nbytes(*eng.packed))
+            del c
         if not rb_p2p:  # #4 at its main-path shape: shard 0
             rB = eng.receive_buffer(bs)
             arrs = tuple(x[0] for x in eng.packed)
@@ -1721,6 +1749,374 @@ def headline_p4(device) -> list:
                    halo_lib),
             record("spmm_window", window["launches"], window["max_abs"],
                    *window["timing"], window["library_ms"])]
+
+
+# ------------------------------------------------------------------ ranks
+MULTIRANK_P = 4
+MULTIRANK_TIMEOUT = 300  # s a set of ranks may take before the phase fails
+PROBE_TIMEOUT = 90
+
+
+def rank_env(rank: int, world: int, port: int) -> None:
+    """The env a launcher (``torchrun``) gives a rank; every rank on the one
+    card (``LOCAL_RANK`` 0)."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multirank_probe(rank, world, port, out) -> None:
+    """What torch's gloo carries here for CUDA tensors, in a process set of
+    its own (a transport that reads a device pointer as host memory ends
+    the process): ``all_to_all_single``, then ``batch_isend_irecv``; each
+    result is written as soon as it is known."""
+    import torch.distributed as dist
+
+    from crp_tpu_torch.shard.layout import init_distributed
+
+    rank_env(rank, world, port)
+    device = init_distributed(backend="gloo")
+    got = {}
+
+    def note(key, fn):
+        try:
+            got[key] = "ok" if fn() else "wrong values"
+        except Exception as e:  # a refusal is the answer the probe asks for
+            got[key] = f"{type(e).__name__}: {e}"[:300]
+        with open(out, "w") as f:
+            f.write(json.dumps(got))
+
+    def a2a():
+        x = torch.arange(world * 4, dtype=torch.float32, device=device) + 100 * rank
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        torch.cuda.synchronize(device)
+        want = torch.cat([torch.arange(rank * 4, rank * 4 + 4, dtype=torch.float32)
+                          + 100 * j for j in range(world)])
+        return torch.equal(y.cpu(), want)
+
+    def p2p():
+        x = torch.full((8,), float(rank), device=device)
+        y = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, (rank + 1) % world),
+               dist.P2POp(dist.irecv, y, (rank - 1) % world)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        torch.cuda.synchronize(device)
+        return bool(torch.all(y.cpu() == float((rank - 1) % world)))
+
+    note("all_to_all_single", a2a)
+    dist.barrier()
+    note("batch_isend_irecv", p2p)
+    try:
+        dist.barrier()
+        dist.destroy_process_group()
+    except RuntimeError:  # a refused op ends the group: its answer is written
+        pass
+
+
+def multirank_rank(rank, world, port, case_path, out, unfused) -> None:
+    """One rank of multirank_path, a process of its own, as a user runs it:
+    the launcher's env, ``init_distributed`` (gloo for the control plane:
+    NCCL refuses several ranks on one device), ``make_mesh_1d`` and
+    ``RowParaSpmm(mesh=...)`` on the headline at p = 4.  At each point
+    ``auto`` must take the fused kernel across processes (this rank's B
+    buffer mapped by its peers through CUDA IPC); the main path is one
+    ``exec(b)`` (launch counts zeroed just before it and read just after);
+    then this rank's C shard's digest, its rows' error against the fp64
+    reference, its init's device memory, the kernel against its plain
+    version on the same inputs (the owners' rows read through the mapped
+    buffers), and times, which are time-shared: four processes take turns
+    on the one card.  ``unfused``: the exchanges gloo carries for CUDA
+    tensors (``"a2a"``, ``"ring"``), each with ``kernel="pallas"`` at x3.
+    Writes a JSON record to ``out``."""
+    import torch.distributed as dist
+
+    from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition, fill_b, rel_fro_err
+    from crp_tpu_torch.kernels import spmm_halo as sh
+    from crp_tpu_torch.shard.layout import init_distributed, make_mesh_1d
+    from crp_tpu_torch.sparse.csr import CSRMatrix
+
+    rank_env(rank, world, port)
+    device = init_distributed(backend="gloo")
+    mesh = make_mesh_1d(world)
+    with np.load(case_path) as f:
+        a = CSRMatrix(*(int(x) for x in f["shape"]), f["rowptr"], f["colidx"], f["val"])
+        c_ref = f["c_ref"]
+    b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
+    d = csr_row_partition(a.rowptr, world)
+    r0, r1 = int(d[rank]), int(d[rank + 1])
+    shard = a.row_slice(r0, r1)
+    kernels = all_kernels()
+    got = dict(rank=rank, points={}, unfused={})
+
+    def wall_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize(device)
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(device)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    for prec in PRECS:
+        eng, peak, held = measured_init(device, lambda: RowParaSpmm(
+            a, d, d, N, mesh=mesh, dtype=np.float32,
+            config=SpmmConfig(kernel="auto", mxu_precision=prec)))
+        check(eng.kernel_kind == "pallas_halo" and eng.peers is not None
+              and eng.peers.bases is not None,
+              f"rank {rank} {prec}: resolved to {eng.kernel_kind}, peers {eng.peers}")
+        for k in kernels:
+            k.launches = 0
+        c = eng.exec(b)  # the main path: every rank returns the global C
+        launches = {k.__name__: k.launches for k in kernels}
+        check(c.shape == (a.nrow, N) and bool(np.isfinite(c).all()),
+              f"rank {rank} {prec}: C {c.shape} or non-finite")
+        err = rel_fro_err(c_ref[r0:r1], c[r0:r1, :ERR_COLS].astype(np.float64))
+        err_all = rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64))
+        bs = eng.shard_b(b)
+        cs = eng.exec_device(bs)
+        op = eng._local_op
+        args = op.kernel_args(eng.packed, eng.peers.buf)
+        owners = torch.stack(eng.peers.views)  # every owner's rows, read in place
+        pargs = (*args[:5], owners, *args[6:])
+
+        def run_kernel():
+            return op.kernel(*args, min_b_rows=op.min_b_rows, peers=eng.peers)
+
+        def run_plain():
+            return sh.spmm_halo_plain(*pargs, consumers=[rank])
+
+        max_abs, _, rel_fro = compare("spmm_halo across ranks", run_kernel, run_plain)
+        got["points"][prec] = dict(
+            kind=eng.kernel_kind, launches=launches, bits=digest(cs[0]), err=err,
+            err_all=err_all, peak=peak, held=held, packed=nbytes(*eng.packed),
+            max_abs=max_abs, rel_fro=rel_fro,
+            bases16=all(x % 16 == 0 for x in eng.peers.bases),
+            exec_ms=wall_ms(lambda: eng.exec_device(bs)), kernel_ms=wall_ms(run_kernel),
+            plain_ms=wall_ms(run_plain, 3), rows=(r0, r1),
+            bound=function_bound(op, csr_work(shard), N, torch.float32),
+            stat=eng.print_stat().splitlines()[1])
+        if prec == "x3":  # cuSPARSE on this rank's shard and the global B
+            got["points"][prec]["library_ms"] = csr_library_ms(
+                shard.rowptr, shard.colidx, shard.val, a.ncol,
+                torch.from_numpy(b).to(device))
+        eng.close()
+        del eng, op, args, pargs, owners, cs, bs, run_kernel, run_plain
+        a.__dict__.pop("_torch_pack_cache", None)  # the engines' pack memo on A
+        torch.cuda.empty_cache()
+    for mode in unfused:
+        eng, peak, held = measured_init(device, lambda: RowParaSpmm(
+            a, d, d, N, mesh=mesh, dtype=np.float32, config=SpmmConfig(
+                kernel="pallas", mxu_precision="x3", rb_p2p=int(mode == "ring"))))
+        for k in kernels:
+            k.launches = 0
+        c = eng.exec(b)
+        launches = {k.__name__: k.launches for k in kernels}
+        bs = eng.shard_b(b)
+        got["unfused"][mode] = dict(
+            kind=eng.kernel_kind, variant=eng._local_op.variant, launches=launches,
+            bits=digest(eng.exec_device(bs)[0]),
+            err=rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64)),
+            rB_recv_size=eng.rB_recv_size, physical_rows=eng.physical_rows,
+            peak=peak, held=held, packed=nbytes(*eng.packed),
+            exec_ms=wall_ms(lambda: eng.exec_device(bs)))
+        del eng, bs
+        a.__dict__.pop("_torch_pack_cache", None)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        f.write(json.dumps(got))
+
+
+def run_rank_set(target, world, args, timeout, tag, may_fail=False) -> list:
+    """``target(rank, world, port, *args(rank))`` in ``world`` spawned
+    processes; every one must exit 0 within ``timeout`` s (else the phase
+    fails, unless ``may_fail``).  Returns their exit codes."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=target, args=(r, world, port, *args(r)))
+             for r in range(world)]
+    for q in procs:
+        q.start()
+    deadline = time.monotonic() + timeout
+    for q in procs:
+        q.join(max(deadline - time.monotonic(), 0.1))
+    for q in procs:  # stop whatever outlived the deadline
+        if q.is_alive():
+            q.kill()
+            q.join()
+    codes = [q.exitcode for q in procs]
+    check(may_fail or codes == [0] * world, f"{tag}: the ranks exited {codes}")
+    return codes
+
+
+def one_rank_nccl(a, b, c_ref, device) -> None:
+    """(b) One rank over NCCL, in this process: ``init_distributed()`` with
+    its default backend, ``make_mesh_1d(1)`` and the headline's p = 1
+    engine at x3: its C shard and its exec's global C (gathered by NCCL's
+    ``all_gather``) equal the one-device engine's bit for bit."""
+    import torch.distributed as dist
+
+    from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition
+    from crp_tpu_torch.shard.layout import init_distributed, make_mesh_1d
+
+    rank_env(0, 1, free_port())
+    dev = init_distributed()
+    try:
+        check(dist.get_backend() == "nccl" and dev == device,
+              f"one rank: backend {dist.get_backend()} on {dev}")
+        d = csr_row_partition(a.rowptr, 1)
+        eng = RowParaSpmm(a, d, d, N, mesh=make_mesh_1d(1), dtype=np.float32,
+                          config=SpmmConfig(kernel="auto", mxu_precision="x3"))
+        kernels = all_kernels()
+        for k in kernels:
+            k.launches = 0
+        c = eng.exec(b)
+        launches = {k.__name__: k.launches for k in kernels if k.launches}
+        bs = eng.shard_b(b)
+        cs = eng.exec_device(bs)
+        want = _MEASURED.get("headline p=1 x3 bits")
+        got = (digest(cs), digest(c))
+        same = want is not None and got == want
+        from crp_tpu_torch import rel_fro_err
+
+        err = rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64))
+        say(f"[multirank nccl] one rank over NCCL (world size 1), p = 1 x3: kind "
+            f"{eng.kernel_kind}, launches {json.dumps(launches)}, rel_fro_err {err:.3e}; "
+            f"C shard and the exec's all_gather-ed C "
+            f"{'equal the one-device engine bit for bit' if same else 'DIFFER'}"
+            f"{'' if want else ' (no one-device run to compare with)'}")
+        check(same, "one rank over NCCL: C differs from the one-device engine's")
+        check(launches.get("spmm_window_sg_presplit") == 1 and err <= TOL_REF["x3"],
+              f"one rank over NCCL: launches {launches}, err {err}")
+        del eng, bs, cs
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def multirank_path(device) -> list:
+    """Shards on several ranks, on the one card: (b) one rank over NCCL;
+    a probe of what gloo carries for CUDA tensors; (a) 4 ranks, one
+    process each, on the headline at p = 4: ``auto`` -> #12 across
+    processes at x3, default and highest, each rank's C shard equal bit
+    for bit to slice [r] of the one-device fused engine's (headline_p4),
+    its rows within the point's class; (c) the unfused exchanges gloo
+    carries, their C shards equal to the one-device engine's likewise.
+    The record of #12 across processes: its main-path launches over the
+    ranks, its largest difference from its plain version, rank 0's times
+    at x3 (time-shared)."""
+    import os
+    import tempfile
+
+    a, b, c_ref = shared_case("headline")[:3]
+    one_rank_nccl(a, b, c_ref, device)
+
+    torch.cuda.empty_cache()
+    from crp_tpu_torch import native
+
+    with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as tmp:
+        outs = [f"{tmp}/probe{r}.json" for r in range(2)]
+        t0 = time.perf_counter()
+        codes = run_rank_set(multirank_probe, 2, lambda r: (outs[r],), PROBE_TIMEOUT,
+                             "gloo probe", may_fail=True)
+        probe = [json.loads(open(o).read()) if os.path.exists(o) else {} for o in outs]
+        # an op gloo refuses ends its group, and the ranks exit non-zero after it
+        carried = {op: all(pr.get(op) == "ok" for pr in probe)
+                   for op in ("all_to_all_single", "batch_isend_irecv")}
+        say(f"[multirank probe] gloo on CUDA tensors, 2 ranks: {json.dumps(probe)}, "
+            f"exit codes {codes} ({time.perf_counter() - t0:.1f} s)")
+        unfused = [m for m, op in (("a2a", "all_to_all_single"), ("ring", "batch_isend_irecv"))
+                   if carried[op]]
+
+        case = f"{tmp}/headline.npz"
+        np.savez(case, shape=(a.nrow, a.ncol), rowptr=a.rowptr, colidx=a.colidx, val=a.val,
+                 c_ref=c_ref)
+        outs = [f"{tmp}/rank{r}.json" for r in range(MULTIRANK_P)]
+        t0 = time.perf_counter()
+        run_rank_set(multirank_rank, MULTIRANK_P, lambda r: (case, outs[r], unfused),
+                     MULTIRANK_TIMEOUT, "multirank")
+        ranks = [json.loads(open(o).read()) for o in outs]
+        say(f"[multirank] {MULTIRANK_P} ranks, one process each, on the one card: "
+            f"{time.perf_counter() - t0:.1f} s from spawn to exit")
+
+    halo = dict(launches=0, max_abs=0.0)
+    for prec in PRECS:
+        want = _MEASURED.get(f"p=4 fused {prec}")
+        for r, rk in enumerate(ranks):
+            pt = rk["points"][prec]
+            tag = f"multirank {prec} rank {r}"
+            halo["launches"] += pt["launches"]["spmm_halo"]
+            halo["max_abs"] = max(halo["max_abs"], pt["max_abs"])
+            same = want is not None and pt["bits"] == want["bits"][r]
+            one = (f"one-device engine's pack {want['packed'] / 1e9:.3f} GB for 4 shards"
+                   if want else "no one-device run")
+            say(f"[{tag}] kind {pt['kind']}, rows {pt['rows']}, main-path launches "
+                f"spmm_halo {pt['launches']['spmm_halo']} (others "
+                f"{sum(v for k, v in pt['launches'].items() if k != 'spmm_halo')}); C "
+                f"shard {'equal to the one-device fused engine bit for bit' if same else 'DIFFERS'}"
+                f"; rel_fro_err of its rows {pt['err']:.3e} (whole C {pt['err_all']:.3e}, "
+                f"tol {TOL_REF[prec]:g}); init device memory peak {pt['peak'] / 1e9:.3f} "
+                f"GB, held {pt['held'] / 1e9:.3f} GB, packed {pt['packed'] / 1e9:.3f} GB "
+                f"({one}); vs plain rel fro err {pt['rel_fro']:.3e}, max abs "
+                f"{pt['max_abs']:.3e}; bases on 16 bytes {pt['bases16']}; {pt['stat']}")
+            say(f"[{tag}] time-shared (4 processes on one card, host barriers "
+                f"included; no speed figure): exec {pt['exec_ms']:.3f} ms, kernel "
+                f"{pt['kernel_ms']:.3f} ms, plain {pt['plain_ms']:.3f} ms, bound "
+                f"{pt['bound'][0]:.4f} ms ({pt['bound'][1]})")
+            check(want is not None and same,
+                  f"{tag}: C shard differs from slice {r} of the one-device fused engine's")
+            check(pt["launches"]["spmm_halo"] == 1 and pt["err"] <= TOL_REF[prec]
+                  and pt["err_all"] <= TOL_REF[prec] and pt["rel_fro"] <= TOL_PLAIN_FRO,
+                  f"{tag}: launches {pt['launches']}, err {pt['err']}, vs plain "
+                  f"{pt['rel_fro']}")
+    for mode in ("a2a", "ring"):
+        want = _MEASURED.get(f"p=4 {mode} x3")
+        if mode not in ranks[0]["unfused"]:
+            say(f"[multirank {mode}] not driven across the processes: gloo here does not "
+                f"carry its CUDA collective (see the probe); on the CPU the tests drive it "
+                f"across ranks, on the card the one-device engine")
+            continue
+        for r, rk in enumerate(ranks):
+            uf = rk["unfused"][mode]
+            same = want is not None and uf["bits"] == want["bits"][r]
+            keep = max(uf["held"], uf["packed"], 1)
+            say(f"[multirank {mode} x3 rank {r}] kind {uf['kind']}/{uf['variant']}, "
+                f"launches spmm_window {uf['launches']['spmm_window']}, rB_recv_size "
+                f"{uf['rB_recv_size']}, physical rows {uf['physical_rows']}, rel_fro_err "
+                f"{uf['err']:.3e}; C shard "
+                f"{'equal to the one-device engine bit for bit' if same else 'DIFFERS'}; "
+                f"init device memory peak {uf['peak'] / 1e9:.3f} GB, held "
+                f"{uf['held'] / 1e9:.3f} GB, packed {uf['packed'] / 1e9:.3f} GB "
+                f"({uf['peak'] / keep:.3f}x; one-device engine's pack "
+                f"{want['packed'] / 1e9 if want else float('nan'):.3f} GB for 4 shards); "
+                f"exec {uf['exec_ms']:.3f} ms time-shared")
+            check(same and uf["launches"]["spmm_window"] == 1 and uf["err"] <= TOL_REF["x3"],
+                  f"multirank {mode} rank {r}: {uf}")
+            check(uf["peak"] <= INIT_PEAK_OVER_HELD * keep,
+                  f"multirank {mode} rank {r}: init peaks at {uf['peak'] / 1e9:.3f} GB, over "
+                  f"{INIT_PEAK_OVER_HELD} x the {keep / 1e9:.3f} GB it holds")
+    x3 = ranks[0]["points"]["x3"]
+    rec = record("spmm_halo", halo["launches"], halo["max_abs"], x3["kernel_ms"],
+                 x3["plain_ms"], *x3["bound"], None, x3["library_ms"])
+    rec.update(path="multirank", timing="time-shared: 4 processes on one card, rank 0, "
+               "x3, host barriers included")
+    return [rec]
 
 
 def cplaw_p4(device) -> None:
@@ -1795,6 +2191,17 @@ def para2d_phase(device) -> None:
                   BC_colptr=np.array([0, N // 2, N]))
     run("headline", plan, "para2d headline forced", ("pallas_halo", "halo"))
     torch.cuda.empty_cache()
+
+
+def digest(x) -> str:
+    """A hash of a tensor's or an array's bytes, its shape and its type:
+    equal digests, equal bits."""
+    import hashlib
+
+    x = np.ascontiguousarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x)
+    h = hashlib.blake2b(f"{x.dtype} {x.shape}".encode(), digest_size=16)
+    h.update(x)
+    return h.hexdigest()
 
 
 def same_bits(x, y) -> bool:
@@ -2816,8 +3223,8 @@ def main() -> int:
         for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,
                       dd_phase, window_phase, halo_phase, headline, cplaw_path,
                       scrambled_cplaw_path, reorder_path, fp64_path, headline_p4,
-                      cplaw_p4, para2d_phase, any_layout_path, training_path,
-                      drivers_path):
+                      multirank_path, cplaw_p4, para2d_phase, any_layout_path,
+                      training_path, drivers_path):
             t0 = time.perf_counter()
             records += phase(device) or []
             say(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -1,7 +1,7 @@
 """What the port's drivers (``bench_cli``, ``suite_cli``, ``project_cli``)
-share: their flag parsing, the projection's rate flags, the refusal of
-multi-host runs, the engine device, and the ``torch.profiler`` trace that
-stands where the JAX drivers write a ``jax.profiler`` trace."""
+share: their flag parsing, the projection's rate flags, the ranks of a
+``--distributed`` run, the engine device, and the ``torch.profiler``
+trace that stands where the JAX drivers write a ``jax.profiler`` trace."""
 
 from __future__ import annotations
 
@@ -9,9 +9,10 @@ import contextlib
 import os
 
 DISTRIBUTED_REFUSAL = (
-    "--distributed: multi-host and multi-GPU runs are not ported yet "
-    "(ROADMAP A8, init_distributed and the meshes); every shard runs on "
-    "the engine's one device"
+    "--distributed --engine=crp: the any-layout engine across ranks is not "
+    "ported yet (ROADMAP A8, what is left: CrpSpmm's rd_B, rd_C and "
+    "distributed-A ingest over the process group); run it without "
+    "--distributed, every shard on the one device"
 )
 
 
@@ -33,9 +34,37 @@ def rates_from(opt) -> dict:
     return {f.replace("-", "_"): float(opt[f]) for f in RATE_FLAGS if f in opt}
 
 
-def refuse_distributed(opt) -> None:
-    if "distributed" in opt:
+def refuse_distributed(opt, engine_kind: str) -> None:
+    """``--distributed`` ports every engine but the any-layout one."""
+    if "distributed" in opt and engine_kind == "crp":
         raise NotImplementedError(DISTRIBUTED_REFUSAL)
+
+
+def join_ranks(opt, device: str):
+    """``--distributed`` (``crp_tpu/cli/bench_cli.py:41-47``): join the
+    launcher's process group (``init_distributed``: NCCL on the card,
+    gloo under ``--device=cpu``) and return ``(this rank's device, rank,
+    world size)``; without the flag ``(device, 0, 1)``.  The JAX drivers
+    print on every process; the port's print on rank 0 alone, so that N
+    ranks give one record."""
+    if "distributed" not in opt:
+        return device, 0, 1
+    import torch.distributed as dist
+
+    from ..shard.layout import init_distributed
+
+    dev = init_distributed(device="cpu" if device == "cpu" else None)
+    return dev, dist.get_rank(), dist.get_world_size()
+
+
+def engine_mesh(engine_kind: str, plan, nproc: int):
+    """The mesh of a ``--distributed`` run for the engine: the plan's
+    pm x pn grid for ``para2d``, nproc ranks along pm for ``rowpara``."""
+    from ..shard.layout import make_mesh_1d, make_mesh_2d
+
+    if engine_kind == "para2d":
+        return make_mesh_2d(plan.pm, plan.pn)
+    return make_mesh_1d(nproc)
 
 
 def device_flag(opt) -> str:

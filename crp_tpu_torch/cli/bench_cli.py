@@ -16,8 +16,12 @@ the number of shards, all on the engine's one device (default the card,
 N = ``torch.cuda.device_count()``; ``--device=cpu`` runs the plain
 PyTorch versions on the CPU, one shard unless N says more).
 ``--profile=DIR`` wraps the timed loop in ``torch.profiler`` and writes a
-Chrome trace into DIR.  ``--distributed`` (a multi-host run) raises: it
-waits for ROADMAP A8.
+Chrome trace into DIR.  ``--distributed`` runs one shard on each rank of
+the launcher's process group (``torchrun --nproc-per-node=N -m
+crp_tpu_torch.cli.bench_cli ... --distributed``: one rank a GPU, NCCL;
+with ``--device=cpu`` gloo ranks on the CPU): N is the world size, the
+engines run on ``make_mesh_*`` of the run's grid, and rank 0 prints the
+record.  ``--engine=crp`` refuses it (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -27,35 +31,40 @@ import sys
 import numpy as np
 
 from ..utils.timers import get_wtime_sec
-from ._driver import config_from, device_flag, parse_argv, profiled, refuse_distributed
+from ._driver import (
+    config_from, device_flag, engine_mesh, join_ranks, parse_argv, profiled,
+    refuse_distributed,
+)
 from .plan_cli import load_matrix
 
 USAGE = ("Usage: crp-bench <mtx-file|synth:spec> <num-of-B-col> "
          "<num-of-tests> <part-method> [<check-correct>] [--engine=...] "
          "[--kernel=...] [--prec=...] [--dtype=...] [--devices=N] "
-         "[--device=cuda|cpu] [--profile=DIR]")
+         "[--device=cuda|cpu] [--profile=DIR] [--distributed]")
 
 
 def build_engine(engine_kind, a, plan, glb_n, nproc, device, config, dtype,
-                 bplan=None):
+                 bplan=None, distributed=False):
     """The ``engine_kind`` engine on ``a``: ``para2d`` on ``plan``'s grid,
     ``rowpara`` on nnz-balanced row blocks, ``crp`` on the v1 planner's
     grid (``bplan``, or planned here) with B and C in uniform row slabs
-    (the reference driver's layouts)."""
+    (the reference driver's layouts).  ``distributed``: on the mesh of the
+    world's ranks (``engine_mesh``)."""
     from ..plan.partition1d import csr_row_partition
     from ..utils.blocks import uniform_displs
 
+    mesh = engine_mesh(engine_kind, plan, nproc) if distributed else None
     if engine_kind == "para2d":
         from ..engine.para2d import Para2dSpmm
 
-        return Para2dSpmm(a, plan, device=device, config=config, dtype=dtype)
+        return Para2dSpmm(a, plan, device=device, config=config, dtype=dtype, mesh=mesh)
     if engine_kind == "rowpara":
         from ..engine.rowpara import RowParaSpmm
 
         rb = csr_row_partition(a.rowptr, nproc)
         b_displs = rb if a.nrow == a.ncol else uniform_displs(a.ncol, nproc)
         return RowParaSpmm(a, rb, b_displs, glb_n, device=device, config=config,
-                           dtype=dtype)
+                           dtype=dtype, mesh=mesh)
     if engine_kind == "crp":
         from ..engine.crp import CrpSpmm
         from ..plan.bandwidth import calc_bandwidth_part2d
@@ -76,10 +85,10 @@ def main(argv=None) -> int:
     if len(pos) < 4:
         print(USAGE)
         return 255
-    refuse_distributed(opt)
     glb_n, n_test, method = int(pos[1]), int(pos[2]), int(pos[3])
     chk_res = int(pos[4]) if len(pos) > 4 else 0
     engine_kind = opt.get("engine", "para2d")
+    refuse_distributed(opt, engine_kind)
     dtype = np.dtype(opt.get("dtype", "float32"))
 
     import torch
@@ -88,9 +97,14 @@ def main(argv=None) -> int:
     from ..sparse.synth import fill_b
     from ..utils.norms import rel_fro_err
 
-    device = device_flag(opt)
-    nproc = int(opt.get("devices", torch.cuda.device_count() if device != "cpu" else 1))
+    device, rank, world = join_ranks(opt, device_flag(opt))
+    distributed = "distributed" in opt
+    if distributed:
+        nproc = world
+    else:
+        nproc = int(opt.get("devices", torch.cuda.device_count() if device != "cpu" else 1))
     config = config_from(opt)
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     a = load_matrix(pos[0], need_symm=method != 0)
     if method == 2:
@@ -102,25 +116,28 @@ def main(argv=None) -> int:
     # method=1: plan_from_csr runs METIS_row_partition, which permutes `a`
     # in place like the reference driver (test_para2d_spmm.c:50-57)
     plan = plan_from_csr(a, glb_n, nproc, method="metis" if method == 1 else "nnz")
-    print(f"Calculate 2D partitioning time = {get_wtime_sec() - st:.2f} s")
-    print(f"2D process grid: pm, pn = {plan.pm}, {plan.pn}")
+    say(f"Calculate 2D partitioning time = {get_wtime_sec() - st:.2f} s")
+    say(f"2D process grid: pm, pn = {plan.pm}, {plan.pn}")
 
-    eng = build_engine(engine_kind, a, plan, glb_n, nproc, device, config, dtype)
+    eng = build_engine(engine_kind, a, plan, glb_n, nproc, device, config, dtype,
+                       distributed=distributed)
     b = np.asarray(fill_b(0, a.ncol, 0, glb_n, dtype=dtype))
     c = eng.exec(b)  # warm-up (the kernels build at their first call)
     eng.clear_stat()
-    with profiled(opt.get("profile"), "bench_trace.json") as trace:
+    with profiled(opt.get("profile") if rank == 0 else None, "bench_trace.json") as trace:
         for _ in range(n_test):
             st = get_wtime_sec()
             c = eng.exec(b)
-            print(f"{get_wtime_sec() - st:.4f}")
+            say(f"{get_wtime_sec() - st:.4f}")
     if trace:
-        print(f"Profiler trace written to {trace}")
-    print(eng.print_stat())
+        say(f"Profiler trace written to {trace}")
+    say(eng.print_stat())
 
     if chk_res:
         err = rel_fro_err(a.spmm_ref(b), c)
-        print(f"||C_ref - C||_f / ||C_ref||_f = {err:e}")
+        say(f"||C_ref - C||_f / ||C_ref||_f = {err:e}")
+    if hasattr(eng, "close"):
+        eng.close()
     return 0
 
 

@@ -31,7 +31,11 @@ Common flags: --engine=para2d|rowpara|crp  --kernel=...  --dtype=...
   --cpu-mesh=N (the JAX drivers' spelling of --device=cpu; N is not used)
   --trace=DIR (wrap the sweep in torch.profiler and write a Chrome trace
   into DIR: each kernel's device time beside the host's work)
-  --distributed (multi-host) raises: it waits for ROADMAP A8.
+  --distributed (one shard a rank of the launcher's process group, as
+  ``torchrun --nproc-per-node=N -m crp_tpu_torch.cli.suite_cli ...
+  --distributed``; each run's p must be the world size, the scaling
+  sweep's default; rank 0 prints and writes the records; --engine=crp
+  refuses it, ROADMAP A8).
 
 Matrices: a Matrix Market path, or synth:banded:<nrow>:<nnz_per_row>:<bw>,
 synth:plaw:<nrow>:<deg>, or
@@ -48,14 +52,18 @@ import numpy as np
 
 from ..utils.timers import get_wtime_sec
 from ._driver import (
-    config_from, device_flag, parse_argv, profiled, rates_from, refuse_distributed,
+    config_from, device_flag, join_ranks, parse_argv, profiled, rates_from,
+    refuse_distributed,
 )
 
 
-def _exec_note(device, p) -> str | None:
+def _exec_note(device, p, distributed=False) -> str | None:
     """The record's warning that its times are not p devices' times."""
     if p <= 1:
         return None
+    if distributed:
+        return (f"one shard on each of {p} ranks: exec_s is rank 0's wall time "
+                "per exec, collectives included")
     if device.type == "cuda":
         return (f"every shard of the {p} ran on the one card: exec_s/gflops "
                 "are one card's, not a multi-GPU run's; comm volumes are "
@@ -92,9 +100,10 @@ def _exec_stats(times, a, n) -> dict:
 
 
 def run_one(a, n, p, engine_kind, config, dtype, ntest, check, inner=10,
-            device="cuda"):
+            device="cuda", distributed=False):
     """Build one engine config, time ``ntest`` fences of ``inner`` execs,
-    return a result record (``crp_tpu/cli/suite_cli.py:66-276``)."""
+    return a result record (``crp_tpu/cli/suite_cli.py:66-276``);
+    ``distributed``: on the mesh of the world's p ranks."""
     from ..engine.rowpara import engine_device
     from ..kernels.points import PEAK, op_point
     from ..plan.planner2d import plan_from_csr
@@ -112,7 +121,7 @@ def run_one(a, n, p, engine_kind, config, dtype, ntest, check, inner=10,
         backend=device.type,
     )
     label = f"{engine_kind} {config.kernel} n={n} p={p}"
-    note = _exec_note(device, p)
+    note = _exec_note(device, p, distributed)
     if note:
         rec["exec_note"] = note
     t0 = get_wtime_sec()
@@ -129,7 +138,8 @@ def run_one(a, n, p, engine_kind, config, dtype, ntest, check, inner=10,
     else:
         rec["pm"], rec["pn"] = p, 1
     rec["plan_s"] = round(get_wtime_sec() - t0, 4)
-    eng = build_engine(engine_kind, a, plan, n, p, device, config, dtype, bplan)
+    eng = build_engine(engine_kind, a, plan, n, p, device, config, dtype, bplan,
+                       distributed=distributed)
     if engine_kind == "crp":
         rec["comm"] = dict(
             redist_A=eng.nelem_A_rd, allgatherv_A=eng.nelem_A_agv,
@@ -213,6 +223,8 @@ def run_one(a, n, p, engine_kind, config, dtype, ntest, check, inner=10,
         )
     if check:
         rec["rel_fro_err"] = float(rel_fro_err(a.spmm_ref(b), eng.unshard_c(c)))
+    if hasattr(eng, "close"):
+        eng.close()
     return rec
 
 
@@ -241,7 +253,8 @@ def main(argv=None) -> int:
     if len(pos) < 2:
         print(__doc__)
         return 255
-    refuse_distributed(opt)
+    refuse_distributed(opt, opt.get("engine", "para2d"))
+    device, rank, world = join_ranks(opt, device_flag(opt))
 
     from .plan_cli import load_matrix
 
@@ -255,7 +268,6 @@ def main(argv=None) -> int:
     check = int(opt.get("check", 1))
     engine = opt.get("engine", "para2d")
     dtype = np.dtype(opt.get("dtype", "float32"))
-    device = device_flag(opt)
     base = config_from(opt)
 
     def cfg(**kw):
@@ -263,7 +275,8 @@ def main(argv=None) -> int:
 
     if sweep == "scaling":
         n = int(pos[2])
-        procs = [int(x) for x in opt.get("procs", "1,2,4,8").split(",")]
+        procs = [int(x) for x in opt.get(
+            "procs", str(world) if "distributed" in opt else "1,2,4,8").split(",")]
         runs = [(a, n, p, engine, base, dtype) for p in procs]
     elif sweep == "vary_n":
         p = int(pos[2])
@@ -283,11 +296,12 @@ def main(argv=None) -> int:
     else:
         raise SystemExit(f"unknown sweep {sweep!r}")
 
-    out = open(opt["out"], "a") if "out" in opt else None
+    out = open(opt["out"], "a") if "out" in opt and rank == 0 else None
     try:
-        with profiled(opt.get("trace"), "suite_trace.json") as trace:
+        with profiled(opt.get("trace") if rank == 0 else None,
+                      "suite_trace.json") as trace:
             _sweep(runs, opt, pos, sweep, a, dtype, reorder_info, ntest, check,
-                   inner, out, device)
+                   inner, out, device, rank)
     finally:
         if out:
             out.close()
@@ -297,12 +311,13 @@ def main(argv=None) -> int:
 
 
 def _sweep(runs, opt, pos, sweep, a, dtype, reorder_info, ntest, check, inner,
-           out, device):
+           out, device, rank=0):
     plan_procs = int(opt.get("plan-procs", 0))
     rates = rates_from(opt)
     for args in runs:
         try:
-            rec = run_one(*args, ntest=ntest, check=check, inner=inner, device=device)
+            rec = run_one(*args, ntest=ntest, check=check, inner=inner, device=device,
+                          distributed="distributed" in opt)
         except Exception as e:  # record the failure, keep sweeping
             rec = dict(sweep=sweep, engine=args[3], n=args[1], p=args[2],
                        kernel=args[4].kernel, error=f"{type(e).__name__}: {e}")
@@ -329,7 +344,8 @@ def _sweep(runs, opt, pos, sweep, a, dtype, reorder_info, ntest, check, inner,
         # config, so A/B rows in one file stay distinguishable
         rec["config"] = dataclasses.asdict(args[4])
         line = json.dumps(rec)
-        print(line, flush=True)
+        if rank == 0:
+            print(line, flush=True)
         if out:
             out.write(line + "\n")
 

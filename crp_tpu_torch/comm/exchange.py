@@ -2,11 +2,17 @@
 
 The host plan is a numpy copy of the JAX package's: each shard pulls
 exactly the B rows its A columns reference, with every per-pair list padded
-to the largest.  At exec time the engines hold every shard on their one
+to the largest.  Without a mesh the engines hold every shard on their one
 device, stacked along a leading axis, as the JAX package's single
 controller holds them (``shard_map`` over a mesh); the exchange keeps the
 send -> all_to_all -> scatter structure, and on one device the all_to_all
-is an axis swap and a ring shift a roll.
+is an axis swap and a ring shift a roll.  On a mesh of ranks
+(``shard.layout.RankMesh``) each rank holds its own shard and the same
+steps run on this rank's slice of the tables (:func:`rank_tables`): the
+all_to_all is ``dist.all_to_all_single`` on the group
+(:func:`exchange_b_rank`, JAX's ``lax.all_to_all``) and a shift one
+``dist.batch_isend_irecv`` with the peers JAX's ``ppermute`` pairs
+(:func:`ring_shift_rank`).
 """
 
 from __future__ import annotations
@@ -221,8 +227,8 @@ def exchange_tables(plan: BExchangePlan, max_k: int, rb_rows: int, device,
 def all_to_all(sendbuf: torch.Tensor) -> torch.Tensor:
     """The all_to_all of the stacked send buffer ``(p_src, p_dst, S, n)``
     when every shard lies on one device: the swap of the source and
-    destination axes, ``(p_dst, p_src, S, n)``.  Shards on several GPUs
-    replace this step with ``all_to_all_single`` (ROADMAP A8)."""
+    destination axes, ``(p_dst, p_src, S, n)``.  On a mesh of ranks
+    :func:`exchange_b_rank` takes this step with ``all_to_all_single``."""
     return sendbuf.transpose(0, 1)
 
 
@@ -264,3 +270,121 @@ def exchange_b_ring(b_shards: torch.Tensor, t: ExchangeTables) -> torch.Tensor:
         recvbuf = ring_shift(sendbuf, s).reshape(-1, n)
         rB.index_copy_(0, dst, recvbuf.index_select(0, slot))
     return rB.view(p, t.rb_rows, n)
+
+
+# ------------------------------------------------------------ across ranks
+
+
+@dataclasses.dataclass
+class RankTables:
+    """Rank ``rank``'s slice of the plan's tables, as flat int64 tensors
+    (pads stripped, as in :class:`ExchangeTables`), for its own B shard
+    ``(max_k, n)`` and receive buffer ``(rb_rows, n)``: ``send`` gathers its
+    a2a send buffer ``(p_dst, S)``; ``recv_slot`` / ``recv_dst`` the real
+    slots of the received ``(p_src, S)`` and their rB rows; ``self_src`` /
+    ``self_dst`` the self-copy; ``ring`` per shift s the (send, recv_slot,
+    recv_dst) of the rows it sends to rank (r + s) % p and receives from
+    rank (r - s) % p."""
+
+    p: int
+    S: int
+    rank: int
+    rb_rows: int
+    send: torch.Tensor
+    recv_slot: torch.Tensor
+    recv_dst: torch.Tensor
+    self_src: torch.Tensor
+    self_dst: torch.Tensor
+    ring: list
+
+
+def rank_tables(plan: BExchangePlan, rank: int, rb_rows: int, device,
+                ring: bool = False) -> RankTables:
+    """This rank's exec-time tables of ``plan`` (``exchange.py:170-198``:
+    the shard's slices of send_idx, recv_dst, self_src and self_dst)."""
+    p, r, keep_max = plan.p, int(rank), plan.rB_nrow_max
+    recv = plan.recv_dst[r]                                   # (p_src, S)
+    keep = recv < keep_max
+    skeep = plan.self_dst[r] < keep_max
+    shifts = []
+    if ring:
+        for s in range(1, p):
+            r_dst = plan.recv_dst[r, (r - s) % p]              # (S,)
+            r_keep = r_dst < keep_max
+            shifts.append((_t(plan.send_idx[r, (r + s) % p], device),
+                           _t(np.flatnonzero(r_keep), device), _t(r_dst[r_keep], device)))
+    return RankTables(
+        p=p, S=plan.S, rank=r, rb_rows=rb_rows,
+        send=_t(plan.send_idx[r].ravel(), device), recv_slot=_t(np.flatnonzero(keep), device),
+        recv_dst=_t(recv[keep], device), self_src=_t(plan.self_src[r][skeep], device),
+        self_dst=_t(plan.self_dst[r][skeep], device), ring=shifts,
+    )
+
+
+def ring_shift_rank(sendbuf: torch.Tensor, s: int, rank: int, group, ranks) -> torch.Tensor:
+    """Shift s of the ring across ranks: this rank (index ``rank`` of the
+    group's global ``ranks``) sends ``sendbuf`` to index (rank + s) % p and
+    receives the same shape from (rank - s) % p, one
+    ``dist.batch_isend_irecv`` (``ppermute`` over ``(i, (i + s) % p)``)."""
+    import torch.distributed as dist
+
+    p = len(ranks)
+    recvbuf = torch.empty_like(sendbuf)
+    ops = [dist.P2POp(dist.isend, sendbuf, ranks[(rank + s) % p], group),
+           dist.P2POp(dist.irecv, recvbuf, ranks[(rank - s) % p], group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recvbuf
+
+
+def _self_copy_rank(b, t: RankTables, n: int) -> torch.Tensor:
+    rB = b.new_zeros((t.rb_rows, n))
+    rB.index_copy_(0, t.self_dst, b.index_select(0, t.self_src))
+    return rB
+
+
+def exchange_b_rank(b_loc: torch.Tensor, t: RankTables, group) -> torch.Tensor:
+    """The padded all_to_all exchange on this rank's B shard ``(1, max_k,
+    n)``: gather the send buffer ``(p_dst, S, n)``, ``all_to_all_single``
+    on ``group`` -> ``(p_src, S, n)``, scatter the real slots, self-copy
+    (``exchange.py:170-198``).  Returns ``(1, rb_rows, n)``, equal to row
+    ``rank`` of :func:`exchange_b` bit for bit."""
+    import torch.distributed as dist
+
+    n = b_loc.shape[-1]
+    b = b_loc.reshape(-1, n)
+    sendbuf = b.index_select(0, t.send)
+    recvbuf = torch.empty_like(sendbuf)
+    if t.p > 1:
+        dist.all_to_all_single(recvbuf, sendbuf, group=group)
+    rB = _self_copy_rank(b, t, n)
+    rB.index_copy_(0, t.recv_dst, recvbuf.index_select(0, t.recv_slot))
+    return rB[None]
+
+
+def exchange_b_ring_rank(b_loc: torch.Tensor, t: RankTables, group, ranks) -> torch.Tensor:
+    """The p2p ring on this rank's B shard ``(1, max_k, n)``
+    (``exchange.py:201-241``): the self-copy, then p - 1 shifts.  Returns
+    ``(1, rb_rows, n)``."""
+    n = b_loc.shape[-1]
+    b = b_loc.reshape(-1, n)
+    rB = _self_copy_rank(b, t, n)
+    for s, (send, slot, dst) in enumerate(t.ring, start=1):
+        recvbuf = ring_shift_rank(b.index_select(0, send), s, t.rank, group, ranks)
+        rB.index_copy_(0, dst, recvbuf.index_select(0, slot))
+    return rB[None]
+
+
+def gather_shards(x: torch.Tensor, group, n_ranks: int) -> torch.Tensor:
+    """Every rank's ``x`` (1, ...) of one shape, stacked in the group's rank
+    order: (n_ranks, ...), ``all_gather`` on ``group``.  NCCL gathers on
+    the device; gloo, the host's backend, on the host (the callers read C
+    back to the host either way).  ``group`` None: this rank alone."""
+    if group is None:
+        return x
+    import torch.distributed as dist
+
+    src = x if dist.get_backend(group) == "nccl" else x.cpu()
+    out = [torch.empty_like(src[0]) for _ in range(n_ranks)]
+    dist.all_gather(out, src[0].contiguous(), group=group)
+    return torch.stack(out)

@@ -86,6 +86,18 @@ class _EngineSpmm(torch.autograd.Function):
         return repad_rows(db, op.fwd.max_k), None
 
 
+MESH_REFUSAL = (
+    "training across ranks is not ported yet (ROADMAP A8, what is left: the "
+    "autodiff and trainable-value engines over a mesh); run it without a "
+    "mesh, every shard on the one device")
+
+
+def refuse_mesh(mesh, name: str) -> None:
+    """The training ops refuse an engine on a mesh of ranks."""
+    if mesh is not None:
+        raise NotImplementedError(f"{name}: {MESH_REFUSAL}")
+
+
 class DifferentiableSpmm(torch.nn.Module):
     """``op(B_shards) -> C_shards`` with ``dB = A^T @ dC``.
 
@@ -100,8 +112,9 @@ class DifferentiableSpmm(torch.nn.Module):
 
     def __init__(self, a, A_row_displs, B_row_displs, glb_n: int, *,
                  device="cuda", config: SpmmConfig | None = None,
-                 dtype=np.float32) -> None:
+                 dtype=np.float32, mesh=None) -> None:
         super().__init__()
+        refuse_mesh(mesh, "DifferentiableSpmm")
         device = engine_device(device)
         config = config or SpmmConfig(kernel="segsum", dtype="float32")
         if config.kernel == "auto":

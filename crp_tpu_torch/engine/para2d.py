@@ -17,6 +17,17 @@ replication a distributed run pays, ``rA_cost``
 ``pallas_halo`` kernel, as JAX does on a TPU: each column group's B blocks
 are read in place by one launch over the pm panels.
 
+``mesh=`` (``make_mesh_2d(pm, pn)``, as JAX's ``mesh=``, ``para2d.py:
+48-65``) holds block (pi, pj) on rank (pi, pj), one process a rank: each
+rank plans from every panel and keeps panel pi's slice of the pack, B
+block (pi, pj) and its C block; the B exchange runs along pm inside its
+column group (``mesh.col_group``; the fused kernel over the group's mapped
+B buffers), and ``unshard_c`` all-gathers the C blocks over the grid.
+``from_dist_a`` on a mesh assembles panel pi with ``dist.all_gather`` on
+the row group (JAX's device-side ``all_gather`` along pn,
+``para2d.py:80-104``); the panels' structure then goes to every rank of
+the column group, which plans the exchange from them.
+
 ``overlap=1`` runs each column group's exchange as the ring schedule of
 ``comm/ring.py`` beside the panels' self parts (``para2d.py:230-248,
 342-360``).  :meth:`Para2dSpmm.from_dist_a` takes A already distributed in
@@ -31,17 +42,20 @@ import numpy as np
 import torch
 
 from ..comm.exchange import (
-    build_b_exchange, exchange_b, exchange_b_ring, exchange_tables,
+    build_b_exchange, exchange_b, exchange_b_rank, exchange_b_ring, exchange_b_ring_rank,
+    exchange_tables, gather_shards, rank_tables,
 )
 from ..comm.ring import ring_spmm
 from ..config import SpmmConfig
 from ..kernels.dispatch import resolve_auto_kernel
+from ..kernels.spmm_halo import HaloPeers
 from ..plan.planner2d import NNZ_COST_FACTOR
+from ..shard.dist_a import torch_dtype
 from ..shard.layout import shard_dense_2d, unshard_dense_2d
 from ..utils.timers import Timer, synchronize
 from .rowpara import (
-    build_ring, check_dd_options, check_halo_options, engine_device, pack_engine,
-    run_shards,
+    build_ring, check_dd_options, check_halo_options, check_mesh, engine_device,
+    pack_engine, run_shards,
 )
 from .stats import format_comm_head, format_stat_table
 
@@ -51,13 +65,15 @@ class Para2dSpmm(torch.nn.Module):
 
     ``a`` is the global CSR matrix, ``plan`` a :class:`Plan2D` (the
     planner's, or one with a forced grid); ``device`` where every block
-    lives (default the card).
+    lives (default the card, or the mesh's device); ``mesh`` a pm x pn
+    :class:`~crp_tpu_torch.shard.layout.RankMesh` (this rank then holds
+    block (pi, pj) alone).
     """
 
-    def __init__(self, a, plan, *, device="cuda", config: SpmmConfig | None = None,
-                 dtype=None) -> None:
+    def __init__(self, a, plan, *, device=None, config: SpmmConfig | None = None,
+                 dtype=None, mesh=None) -> None:
         super().__init__()
-        self._setup(plan, device, config, dtype)
+        self._setup(plan, device, config, dtype, mesh)
         t0 = Timer()
         with t0.phase("init"):
             panels = [a.row_slice(int(plan.AC_rowptr[i]), int(plan.AC_rowptr[i + 1]))
@@ -67,30 +83,38 @@ class Para2dSpmm(torch.nn.Module):
         self._finish_init(t0)
 
     @classmethod
-    def from_dist_a(cls, dist, plan, *, device="cuda", config: SpmmConfig | None = None,
-                    dtype=None) -> "Para2dSpmm":
+    def from_dist_a(cls, dist, plan, *, device=None, config: SpmmConfig | None = None,
+                    dtype=None, mesh=None) -> "Para2dSpmm":
         """Init from A already distributed: owner ``i*pn+j`` holds A0 block
         ``i*pn+j`` (a :class:`~crp_tpu_torch.shard.dist_a.DistCSR` in the
         plan's A0 layout, as ``scatter_csr_rows`` makes it,
         ``examples/test_utils.c:57-119``); each panel is gathered from its
-        pn owners' blocks (``replicate_a0``), never from a host-global A."""
-        from ..shard.dist_a import replicate_a0
+        pn owners' blocks (``replicate_a0``), never from a host-global A.
+        On a mesh rank r reads block r of ``dist`` alone, and the gather is
+        ``dist.all_gather`` on its row group (``replicate_a0_rank``)."""
+        from ..shard.dist_a import replicate_a0, replicate_a0_rank
 
         self = cls.__new__(cls)
         torch.nn.Module.__init__(self)
-        self._setup(plan, device, config, dtype)
+        self._setup(plan, device, config, dtype, mesh)
         t0 = Timer()
         with t0.phase("init"):
-            panels = replicate_a0(dist, plan.A0_rowptr, self.pm, self.pn, self.device,
-                                  val_dtype=self.dtype)
+            if mesh is None:
+                panels = replicate_a0(dist, plan.A0_rowptr, self.pm, self.pn, self.device,
+                                      val_dtype=self.dtype)
+            else:
+                panels = replicate_a0_rank(dist, plan.A0_rowptr, mesh, val_dtype=self.dtype)
             # rA_cost from the LAST owner's block (src/para2d_spmm.c:102-109)
             rp = dist.rowptrs[-1]
             self._build(panels, int(rp[-1]) - int(rp[0]))
         self._finish_init(t0)
         return self
 
-    def _setup(self, plan, device, config, dtype) -> None:
+    def _setup(self, plan, device, config, dtype, mesh) -> None:
         self.config = config or SpmmConfig()
+        check_mesh(mesh, plan.pm, plan.pn, "Para2dSpmm")
+        self.mesh = mesh
+        self.peers = None
         if self.config.bc_layout:
             raise ValueError(
                 "BC_layout=1 is a RowParaSpmm feature (the reference's "
@@ -100,7 +124,8 @@ class Para2dSpmm(torch.nn.Module):
         check_dd_options(self.config)
         check_halo_options(self.config)
         self.overlap = bool(self.config.overlap)
-        self.device = engine_device(device)
+        self.device = engine_device(
+            device if device is not None else mesh.device if mesh is not None else "cuda")
         self.plan = plan
         self.pm, self.pn = plan.pm, plan.pn
         self.glb_n = plan.n
@@ -136,13 +161,15 @@ class Para2dSpmm(torch.nn.Module):
         if kind == "auto":
             kind = resolve_auto_kernel(self.device, self.pm, overlap=self.overlap)
         self.max_k = int(max(np.diff(self._B_displs).max(), 1))
+        self.max_nloc = int(max(np.diff(plan.BC_colptr).max(), 1))
         self._identity_exchange = self.is_halo = False
+        pi = None if self.mesh is None else self.mesh.pi
         if self.overlap:
             with tb.phase("pack"):
                 self.ring, self.max_k, self._ring_send, self._side = build_ring(
                     panels, self.xplan, self._B_displs, self.max_m, self.max_k,
                     self.dtype, kind, device=self.device,
-                    mxu_precision=self.config.mxu_precision)
+                    mxu_precision=self.config.mxu_precision, rank=pi)
             self._local_op, arrays = self.ring.self_op, self.ring.self_arrays
         else:
             with tb.phase("pack"):
@@ -150,6 +177,7 @@ class Para2dSpmm(torch.nn.Module):
                     panels, self.xplan, reidx, self._B_displs, self.max_m,
                     self.dtype, kind, device=self.device,
                     mxu_precision=self.config.mxu_precision, is_dd=self.is_dd,
+                    rank=pi,
                 )
                 synchronize(arrays)
             self.is_halo = kind == "pallas_halo"
@@ -167,7 +195,16 @@ class Para2dSpmm(torch.nn.Module):
                 )
                 if self._identity_exchange:
                     self.max_k = max(self.max_k, self._rb_rows)
-                elif not self.is_halo:
+                elif self.is_halo:
+                    if self.mesh is not None:  # B block (pi, pj), mapped by the column
+                        self.peers = HaloPeers(
+                            (self.max_k, self.max_nloc),
+                            self._local_op.b_dtype or torch_dtype(self.dtype), self.device,
+                            self.mesh.col_group, self.mesh.col_ranks, pi, arrays[-1])
+                elif self.mesh is not None:
+                    self.xtables = rank_tables(self.xplan, pi, self._rb_rows, self.device,
+                                               ring=bool(self.config.rb_p2p))
+                else:
                     self.xtables = exchange_tables(
                         self.xplan, self.max_k, self._rb_rows, self.device,
                         ring=bool(self.config.rb_p2p),
@@ -176,7 +213,6 @@ class Para2dSpmm(torch.nn.Module):
         for i, x in enumerate(arrays):
             self.register_buffer(f"packed_{i}", x, persistent=False)
         self.kernel_kind = kind
-        self.max_nloc = int(max(np.diff(plan.BC_colptr).max(), 1))
         # audit (src/para2d_spmm.c:102-109): the last rank's A0 block nnz
         # sent to the other pn - 1 ranks of its group
         self.rA_cost = int(float(last_blk_nnz) * float(self.pn - 1) * NNZ_COST_FACTOR)
@@ -184,8 +220,16 @@ class Para2dSpmm(torch.nn.Module):
 
     @property
     def packed(self) -> tuple:
-        """The pm panels' packed tensors, leading panel axis included."""
+        """The pm panels' packed tensors, leading panel axis included (panel
+        pi alone on a mesh)."""
         return tuple(getattr(self, f"packed_{i}") for i in range(self._n_packed))
+
+    def close(self) -> None:
+        """Drop the peers' B mappings of the fused kernel across ranks
+        (collective: every rank calls it, before any frees its engine)."""
+        if self.peers is not None:
+            self.peers.close()
+            self.peers = None
 
     @property
     def physical_rows(self) -> int:
@@ -201,30 +245,56 @@ class Para2dSpmm(torch.nn.Module):
     # ------------------------------------------------------------------ exec
     def shard_b(self, b: np.ndarray) -> torch.Tensor:
         """Global (k, n) -> (pm, pn, max_k, max_nloc) padded blocks on the
-        engine's device."""
+        engine's device; on a mesh block (pi, pj) alone, (1, 1, max_k,
+        max_nloc).  A new tensor: never the fused kernel's mapped buffer,
+        which the exec alone writes."""
         b = np.asarray(b, dtype=self.dtype)
-        out = shard_dense_2d(b, self._B_displs, self.plan.BC_colptr,
-                             self.max_k, self.max_nloc)
-        return torch.from_numpy(out).to(self.device)
+        rows, cols = self._B_displs, self.plan.BC_colptr
+        if self.mesh is not None:
+            pi, pj = self.mesh.pi, self.mesh.pj
+            rows, cols = rows[pi : pi + 2], cols[pj : pj + 2]
+        return torch.from_numpy(shard_dense_2d(b, rows, cols, self.max_k,
+                                               self.max_nloc)).to(self.device)
 
     def unshard_c(self, c_blocks: torch.Tensor) -> np.ndarray:
+        """(pm, pn, rows, max_nloc) C blocks -> global host C (m, n); on a
+        mesh every rank's block is gathered first, and every rank returns
+        the global C."""
+        if self.mesh is not None:
+            c_blocks = gather_shards(c_blocks, self.mesh.group, self.mesh.size).reshape(
+                self.pm, self.pn, *c_blocks.shape[2:])
         return unshard_dense_2d(c_blocks.cpu().numpy(), self.plan.AC_rowptr,
                                 self.plan.BC_colptr, self.plan.m, self.plan.n)
 
     def forward(self, b_blocks: torch.Tensor) -> torch.Tensor:
         """Per column group j: the exchange along pm, then every panel's
         local op on its ``max_nloc`` columns; returns (pm, pn, rows,
-        max_nloc)."""
-        xch = exchange_b_ring if self.config.rb_p2p else exchange_b
+        max_nloc) (on a mesh this rank's block, (1, 1, rows, max_nloc))."""
+        mesh = self.mesh
+        if mesh is None:
+            xch = exchange_b_ring if self.config.rb_p2p else exchange_b
+        elif self.config.rb_p2p:
+            def xch(b, t):
+                return exchange_b_ring_rank(b, t, mesh.col_group, mesh.col_ranks)
+        else:
+            def xch(b, t):
+                return exchange_b_rank(b, t, mesh.col_group)
         out = []
-        for j in range(self.pn):
+        for j in range(b_blocks.shape[1]):
             bj = b_blocks[:, j]
             if self.is_halo:
-                out.append(self._local_op(self.packed, bj.contiguous()))
+                if self.peers is not None:
+                    self.peers.load(bj)
+                    out.append(self._local_op(self.packed, self.peers.buf,
+                                              peers=self.peers,
+                                              dtype=torch_dtype(self.dtype)))
+                else:
+                    out.append(self._local_op(self.packed, bj.contiguous()))
                 continue
             if self.overlap:
                 out.append(ring_spmm(bj.contiguous(), self.ring, self._ring_send,
-                                     self._side))
+                                     self._side, None if mesh is None else mesh.col_group,
+                                     None if mesh is None else mesh.col_ranks))
                 continue
             rB = bj if self._identity_exchange else xch(bj, self.xtables)
             out.append(run_shards(self._local_op, self.packed, rB))
@@ -254,6 +324,9 @@ class Para2dSpmm(torch.nn.Module):
             title="para2d_spmm", t_init=self.t_init, timer=self.timer,
             comm_rows=self.rB_recv_size, glb_n=self.glb_n,
             physical_rows=self.physical_rows,
+            rank=None if self.mesh is None else
+            f"Rank {self.mesh.rank} of {self.mesh.size} (pi, pj) = "
+            f"({self.mesh.pi}, {self.mesh.pj})",
         )
         return format_comm_head(self.rA_cost, self.rB_recv_size * self.glb_n) + "\n" + body
 

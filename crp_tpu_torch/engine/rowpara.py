@@ -26,6 +26,18 @@ reference's col-major view (``rowpara.py:456-500``): B arrives as (n, k)
 and C returns as (n, m), each transposed on the device; ``auto`` steps
 down from the fused kernel to ``pallas``.
 
+``mesh=`` (a :class:`~crp_tpu_torch.shard.layout.RankMesh` of p ranks,
+``make_mesh_1d(p)``, as JAX's ``mesh=`` keyword, ``rowpara.py:45-62``) puts
+one shard on each rank's device, one process a rank: each rank plans from
+the whole A, as every JAX process does, and holds its own slice of the
+pack (bit for bit slice [r] of the one-device engine's); ``shard_b``
+returns its B shard (1, max_k, n), the exchange runs on the mesh's group
+(``all_to_all_single``, or ``batch_isend_irecv`` shifts on the ring), the
+fused kernel reads the owners' B buffers through CUDA IPC
+(:class:`~crp_tpu_torch.kernels.spmm_halo.HaloPeers`), and ``unshard_c``
+all-gathers C, so that every rank returns the global C.  Each rank's C
+equals slice [r] of the one-device engine's C bit for bit.
+
 The ``dd`` and ``dd_mxu`` kinds compute in fp64 whatever ``dtype`` says:
 A's values, B and C are fp64 (the JAX package carries B and C as hi/lo
 fp32 pairs, 48 bits; the port carries 53).  As in JAX, they refuse
@@ -42,13 +54,15 @@ import numpy as np
 import torch
 
 from ..comm.exchange import (
-    build_b_exchange, exchange_b, exchange_b_ring, exchange_tables,
+    build_b_exchange, exchange_b, exchange_b_rank, exchange_b_ring, exchange_b_ring_rank,
+    exchange_tables, gather_shards, rank_tables,
 )
 from ..comm.ring import build_ring_spmm, ring_send_tables, ring_spmm
 from ..config import SpmmConfig
 from ..kernels.dispatch import pack_with_fallback, resolve_auto_kernel
-from ..kernels.spmm_halo import align_displs, build_halo_plan
+from ..kernels.spmm_halo import HaloPeers, align_displs, build_halo_plan
 from ..kernels.spmm_pallas import UnsupportedSparsity
+from ..shard.dist_a import torch_dtype
 from ..shard.layout import shard_dense_rows, unshard_dense_rows
 from ..utils.timers import Timer, synchronize
 from .stats import format_stat_table
@@ -100,6 +114,14 @@ def engine_device(device) -> torch.device:
     return device
 
 
+def check_mesh(mesh, pm: int, pn: int, engine: str) -> None:
+    """A mesh must be the engine's grid: pm ranks along the exchange, pn
+    along the columns."""
+    if mesh is not None and (mesh.pm, mesh.pn) != (pm, pn):
+        raise ValueError(f"{engine}: a {mesh.pm} x {mesh.pn} mesh for a {pm} x {pn} "
+                         "grid; the mesh must be the engine's grid")
+
+
 def _digest(*arrs) -> bytes:
     h = hashlib.blake2b(digest_size=16)
     for x in arrs:
@@ -121,18 +143,23 @@ def compact_shards(shards, xplan, reidx: bool) -> list:
 
 
 def pack_engine(shards, xplan, reidx, B_displs, max_m, dtype, kind, *,
-                device, mxu_precision, is_dd) -> tuple:
+                device, mxu_precision, is_dd, rank=None) -> tuple:
     """The engines' pack: ``(arrays, op, resolved kind)``.  ``pallas_halo``
     packs the fused kernel from the shards' global columns on B ownership
     rounded to 128 rows; where its plan refuses, the engines take
     ``pallas`` with the ownership their exchange plan was built on
     (``rowpara.py:147-168``).  Every other kind packs the shards' compacted
-    columns through the dispatch's fallback walk."""
+    columns through the dispatch's fallback walk.  ``rank``: a rank of a
+    mesh plans from every shard, as the one-device engine, and puts its
+    own shard's slice of the arrays alone on the device (every kind
+    densifies that shard alone), so that its pack equals slice [rank] of
+    the whole pack bit for bit."""
     if kind == "pallas_halo":
         aligned = align_displs(B_displs, int(B_displs[-1]))
         try:
             arrays, op = build_halo_plan(shards, aligned, device=device,
-                                         dtype=dtype, precision=mxu_precision)
+                                         dtype=dtype, precision=mxu_precision,
+                                         ranks=None if rank is None else [rank])
             return arrays, op, kind
         except UnsupportedSparsity as e:
             logger.warning("pallas_halo unavailable (%s); falling back to the "
@@ -140,22 +167,23 @@ def pack_engine(shards, xplan, reidx, B_displs, max_m, dtype, kind, *,
             kind = "pallas"
     return pack_with_fallback(
         compact_shards(shards, xplan, reidx), max_m, dtype, kind, device=device,
-        mxu_precision=mxu_precision, is_dd=is_dd,
+        mxu_precision=mxu_precision, is_dd=is_dd, rank=rank,
     )
 
 
 def build_ring(shards, xplan, B_displs, max_m, max_k, dtype, kind, *, device,
-               mxu_precision) -> tuple:
+               mxu_precision, rank=None) -> tuple:
     """The overlapped ring of the 1D and 2D engines: ``(pack, max_k, send
     tables, side stream)``, the B shards' rows grown to the self kernel's
     window reach (it reads its windows straight from them) and a second
-    CUDA stream for the self part (None off the card)."""
+    CUDA stream for the self part (None off the card); ``rank``: a mesh
+    rank's own shard alone."""
     ring = build_ring_spmm(shards, xplan, B_displs, max_m, dtype, kind, device=device,
-                           mxu_precision=mxu_precision)
+                           mxu_precision=mxu_precision, rank=rank)
     synchronize(list(ring.self_arrays))
     max_k = max(max_k, ring.min_b_rows)
     side = torch.cuda.Stream(device) if device.type == "cuda" else None
-    return ring, max_k, ring_send_tables(xplan, max_k, device), side
+    return ring, max_k, ring_send_tables(xplan, max_k, device, rank), side
 
 
 def run_shards(local_op, packed, rB) -> torch.Tensor:
@@ -172,23 +200,31 @@ class RowParaSpmm(torch.nn.Module):
     ``rowptr``, ``colidx``, ``val`` and ``row_slice``); ``A_row_displs`` and
     ``B_row_displs`` the (p+1,) row blocks of A/C and the ownership
     partition of B; ``device`` where the packed shards live and the kernels
-    run (default the card).  The packed tensors are the module's buffers.
+    run (default the card, or the mesh's device).  The packed tensors are
+    the module's buffers.  ``mesh``: a 1D
+    :class:`~crp_tpu_torch.shard.layout.RankMesh` of p ranks; this rank
+    then holds shard ``mesh.pi`` alone (see the module's docstring).
     """
 
     def __init__(self, a, A_row_displs, B_row_displs, glb_n: int, *,
-                 device="cuda", config: SpmmConfig | None = None,
-                 dtype=None) -> None:
+                 device=None, config: SpmmConfig | None = None,
+                 dtype=None, mesh=None) -> None:
         super().__init__()
         self.config = config or SpmmConfig()
         self.A_row_displs = np.asarray(A_row_displs, dtype=np.int64)
         self.B_row_displs = np.asarray(B_row_displs, dtype=np.int64)
         self.p = len(self.A_row_displs) - 1
+        check_mesh(mesh, self.p, 1, "RowParaSpmm")
+        self.mesh = mesh
+        self.rank = None if mesh is None else mesh.pi
+        self.peers = None
         # "auto" never resolves to a dd kind here (resolve_auto_kernel)
         self.is_dd = self.config.kernel in ("dd", "dd_mxu")
         check_dd_options(self.config)
         check_halo_options(self.config)
         self.overlap = bool(self.config.overlap)
-        self.device = engine_device(device)
+        self.device = engine_device(
+            device if device is not None else mesh.device if mesh is not None else "cuda")
         self.glb_n = glb_n
         self.dtype = np.dtype(
             np.float64 if self.is_dd
@@ -239,7 +275,7 @@ class RowParaSpmm(torch.nn.Module):
                 self.ring, self.max_k, self._ring_send, self._side = build_ring(
                     shards, self.xplan, self.B_row_displs, self.max_m, self.max_k,
                     self.dtype, kind, device=self.device,
-                    mxu_precision=self.config.mxu_precision)
+                    mxu_precision=self.config.mxu_precision, rank=self.rank)
             self._local_op = self.ring.self_op
             self._finish(kind, self.ring.self_arrays)
             return
@@ -248,7 +284,7 @@ class RowParaSpmm(torch.nn.Module):
         # key drops the old pack's device tensors
         cache_key = (
             "rowpara_pack", kind, self.config.mxu_precision, str(self.dtype),
-            reidx, str(self.device),
+            reidx, str(self.device), self.rank,
             self.A_row_displs.tobytes(), self.B_row_displs.tobytes(),
             a.nnz, _digest(a.rowptr, a.colidx, a.val),
         )
@@ -262,6 +298,7 @@ class RowParaSpmm(torch.nn.Module):
                     shards, self.xplan, reidx, self.B_row_displs, self.max_m,
                     self.dtype, kind, device=self.device,
                     mxu_precision=self.config.mxu_precision, is_dd=self.is_dd,
+                    rank=self.rank,
                 )
                 synchronize(arrays)
             cache[cache_key] = (kind, self._local_op, arrays)
@@ -288,7 +325,17 @@ class RowParaSpmm(torch.nn.Module):
                 # the kernel reads the owned block directly; pad it to the
                 # receive-buffer size the kernel was packed for
                 self.max_k = max(self.max_k, self._rb_rows)
-            elif not self.is_halo:
+            elif self.is_halo:
+                if self.mesh is not None:  # this rank's B buffer, mapped by its peers
+                    self.peers = HaloPeers(
+                        (self.max_k, self.glb_n),
+                        self._local_op.b_dtype or torch_dtype(self.dtype), self.device,
+                        self.mesh.col_group, self.mesh.col_ranks, self.rank, arrays[-1])
+            elif self.mesh is not None:
+                self.xtables = rank_tables(self.xplan, self.rank, self._rb_rows,
+                                           self.device, ring=bool(self.config.rb_p2p))
+                synchronize([self.xtables.send, self.xtables.recv_dst])
+            else:
                 self.xtables = exchange_tables(
                     self.xplan, self.max_k, self._rb_rows, self.device,
                     ring=bool(self.config.rb_p2p),
@@ -307,8 +354,20 @@ class RowParaSpmm(torch.nn.Module):
 
     @property
     def packed(self) -> tuple:
-        """The packed local-kernel tensors, leading shard axis included."""
+        """The packed local-kernel tensors, leading shard axis included (one
+        shard on a mesh)."""
         return tuple(getattr(self, f"packed_{i}") for i in range(self._n_packed))
+
+    @property
+    def _group(self):
+        return None if self.mesh is None else self.mesh.col_group
+
+    def close(self) -> None:
+        """Drop the peers' B mappings of the fused kernel across ranks
+        (collective: every rank calls it, before any frees its engine)."""
+        if self.peers is not None:
+            self.peers.close()
+            self.peers = None
 
     @property
     def physical_rows(self) -> int:
@@ -326,21 +385,32 @@ class RowParaSpmm(torch.nn.Module):
         """Global (k, n) host B -> stacked padded shards (p, max_k, n) on
         the engine's device.  Under ``bc_layout`` B arrives as (n, k): its
         column slabs go up as (p, n, max_k) in the user's orientation and
-        are transposed on the device (``src/rowpara_spmm.c:225-264``)."""
+        are transposed on the device (``src/rowpara_spmm.c:225-264``).  On
+        a mesh this rank's shard (1, max_k, n).  A new tensor: never the
+        fused kernel's mapped buffer, which the exec alone writes."""
         b = np.asarray(b, dtype=self.dtype)
+        held = range(self.p) if self.mesh is None else [self.rank]
         if self.config.bc_layout:
-            slabs = np.zeros((self.p, b.shape[0], self.max_k), dtype=self.dtype)
-            for i in range(self.p):
+            slabs = np.zeros((len(held), b.shape[0], self.max_k), dtype=self.dtype)
+            for j, i in enumerate(held):
                 s, e = int(self.B_row_displs[i]), int(self.B_row_displs[i + 1])
-                slabs[i, :, : e - s] = b[:, s:e]
+                slabs[j, :, : e - s] = b[:, s:e]
             return torch.from_numpy(slabs).to(self.device).transpose(1, 2).contiguous()
-        bs = shard_dense_rows(b, self.B_row_displs, pad_rows=self.max_k)
+        if self.mesh is None:
+            bs = shard_dense_rows(b, self.B_row_displs, pad_rows=self.max_k)
+            return torch.from_numpy(bs).to(self.device)
+        s, e = int(self.B_row_displs[self.rank]), int(self.B_row_displs[self.rank + 1])
+        bs = np.zeros((1, self.max_k, b.shape[1]), dtype=self.dtype)
+        bs[0, : e - s] = b[s:e]
         return torch.from_numpy(bs).to(self.device)
 
     def unshard_c(self, c_shards: torch.Tensor) -> np.ndarray:
         """Stacked C shards -> global host C (m, n); under ``bc_layout``
         (n, m), the shards transposed on the device and joined by
-        columns."""
+        columns.  On a mesh every rank's shard is gathered first, and every
+        rank returns the global C."""
+        if self.mesh is not None:
+            c_shards = gather_shards(c_shards, self._group, self.p)
         if self.config.bc_layout:
             ct = c_shards.transpose(1, 2).contiguous().cpu().numpy()  # (p, n, rows)
             d = self.A_row_displs
@@ -358,6 +428,11 @@ class RowParaSpmm(torch.nn.Module):
         return c
 
     def _exchange(self, b_shards: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            if self.config.rb_p2p:
+                return exchange_b_ring_rank(b_shards, self.xtables, self._group,
+                                            self.mesh.col_ranks)
+            return exchange_b_rank(b_shards, self.xtables, self._group)
         xch = exchange_b_ring if self.config.rb_p2p else exchange_b
         return xch(b_shards, self.xtables)
 
@@ -379,9 +454,14 @@ class RowParaSpmm(torch.nn.Module):
         """Exchange + local SpMM on pre-sharded B; returns (p, rows, n)
         shards (rows past each shard's own are trimmed by ``unshard_c``)."""
         if self.is_halo:
+            if self.peers is not None:
+                self.peers.load(b_shards)
+                return self._local_op(self.packed, self.peers.buf, peers=self.peers,
+                                      dtype=torch_dtype(self.dtype))
             return self._local_op(self.packed, b_shards)
         if self.overlap:
-            return ring_spmm(b_shards, self.ring, self._ring_send, self._side)
+            return ring_spmm(b_shards, self.ring, self._ring_send, self._side,
+                             self._group, None if self.mesh is None else self.mesh.col_ranks)
         return self._spmm(self.receive_buffer(b_shards))
 
     def exec_device(self, b_shards: torch.Tensor) -> torch.Tensor:
@@ -432,6 +512,7 @@ class RowParaSpmm(torch.nn.Module):
             comm_rows=self.rB_recv_size,
             glb_n=self.glb_n,
             physical_rows=self.physical_rows,
+            rank=None if self.mesh is None else f"Rank {self.rank} of {self.p}",
         )
 
     def clear_stat(self) -> None:

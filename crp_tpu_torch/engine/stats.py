@@ -14,12 +14,17 @@ def format_stat_table(
     comm_rows: int,
     glb_n: int,
     physical_rows: int = 0,
+    rank: str | None = None,
 ) -> str:
+    """``rank``: on a mesh of ranks, the line naming this rank (the times
+    are its own; the comm sizes are the whole run's)."""
     n = max(timer.n_exec, 1)
     lines = [
         f"{title}_init() time = {t_init:.2f} s",
         f"Total SpMM comm size (logical elements) = {comm_rows * glb_n}",
     ]
+    if rank:
+        lines.insert(1, rank)
     if physical_rows:
         lines.append(
             f"Physical exchanged rows per exec (padded) = {physical_rows}"

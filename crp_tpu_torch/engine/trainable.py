@@ -34,7 +34,7 @@ import torch
 
 from ..config import SpmmConfig
 from ..kernels.spmm_segsum import SEGSUM_BLOCK_BYTES
-from .autodiff import check_stateless, repad_rows, transposed, unshard_db
+from .autodiff import check_stateless, refuse_mesh, repad_rows, transposed, unshard_db
 from .rowpara import RowParaSpmm, engine_device, run_shards
 
 
@@ -107,8 +107,9 @@ class ValueParameterizedSpmm(torch.nn.Module):
 
     def __init__(self, a, A_row_displs, B_row_displs, glb_n: int, *,
                  device="cuda", config: SpmmConfig | None = None,
-                 dtype=np.float32) -> None:
+                 dtype=np.float32, mesh=None) -> None:
         super().__init__()
+        refuse_mesh(mesh, "ValueParameterizedSpmm")
         device = engine_device(device)
         config = config or SpmmConfig(kernel="segsum", dtype="float32")
         if config.kernel == "auto":

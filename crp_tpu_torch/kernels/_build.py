@@ -44,10 +44,10 @@ _ENTRIES = {
     "crp_window_bf16": ("window", 4, ("G", "TM", "W", "n")),
     "crp_window_f32": ("window", 4, ("G", "TM", "W", "n")),
     "crp_window_f64": ("window", 4, ("G", "TM", "W", "n")),
-    "crp_halo_x3": ("halo", 6, ("G", "TM", "W", "n")),
-    "crp_halo_bf16": ("halo", 5, ("G", "TM", "W", "n")),
-    "crp_halo_f32": ("halo", 5, ("G", "TM", "W", "n")),
-    "crp_halo_f64": ("halo", 5, ("G", "TM", "W", "n")),
+    "crp_halo_x3": ("halo", 5, ("G", "TM", "W", "n", "rows16")),
+    "crp_halo_bf16": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
+    "crp_halo_f32": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
+    "crp_halo_f64": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
     "crp_ragged_presplit": ("ragged", 6, ("G", "TM", "Wc", "n")),
     "crp_ragged_bf16": ("ragged", 5, ("G", "TM", "Wc", "n")),
     "crp_ragged_f32": ("ragged", 5, ("G", "TM", "Wc", "n")),

@@ -1,26 +1,33 @@
-// Hopper kernels of the fused halo exchange + windowed SpMM, for the p row
-// shards of a multi-shard engine held on one card.  Shard i's G row groups
-// of TM rows are groups i*G .. i*G + G - 1 of one launch, and
+// Hopper kernels of the fused halo exchange + windowed SpMM.  A launch
+// covers G row groups of TM rows: on one card every group of the p row
+// shards of a multi-shard engine (shard i's groups i*G .. i*G + G - 1),
+// across processes (one rank a shard) the groups of this rank's shard, and
 //
-//     C[(i*G + g)*TM + r, j] = sum_{k < W} A[i, g, r, k] * B[ws[i, g] + k, j]
+//     C[g*TM + r, j] = sum_{k < W} A[g, r, k] * B[ws[g] + k, j]
 //
-// with A the dense (p, G, TM, W) window panels, ws the global window starts
-// (multiples of 128), B the global B, and C the (p*G*TM, n) output.  B is
-// never assembled: it is the (p*max_k, n) stack of the shards' own row
-// blocks, and global row r is row chunk_src[r / 128] + r % 128 of that
-// stack, in the shard that owns it (ownership boundaries are 128-row
-// aligned), or zero past the matrix (chunk_src -1).  So each row group
-// reads its window straight from the owners' rows, with no receive buffer
-// and no exchange copy.
+// with A the dense window panels, ws the global window starts (multiples of
+// 128), B the global B, and C the (G*TM, n) output.  B is never assembled:
+// it lives in p owner shards of 128-row aligned row blocks, each at its own
+// address, and `rows` is a device table of pointers, one per 128-row chunk
+// of B: the chunk's first row in its owner's shard, null past the matrix.
+// The caller makes it from the plan's (owner, row) pairs and the owners'
+// base pointers (spmm_halo.py chunk_rows).  So each row group reads its
+// window straight from the owners' rows, with no receive buffer and no
+// exchange copy.  On one card the owners are the shards of one stacked
+// (p, max_k, n) buffer; across processes they are the ranks' own B
+// buffers, mapped into every peer by CUDA IPC, so the one-card and the
+// cross-process kernel are one code path.
 //
 // Replaces crp_tpu/kernels/spmm_halo.py _halo_kernel (wrapper
 // halo_spmm_local).  On a TPU each shard is its own chip: the kernel pushes
 // every owned 128-row chunk into the consumers' window buffers by remote
 // DMA, gates its window reads on per-owner arrival semaphores, and starts
 // with a barrier so that one exec's pushes never land in a buffer the last
-// exec still reads.  On one card the owners' rows are in the same memory:
-// the push becomes the read through chunk_src, and stream order (B written
-// before the launch, C read after it) is the barrier.  At the pack's
+// exec still reads.  Here the push becomes the read through the chunks'
+// pointers.  On one card stream order (B written before the launch, C read
+// after it) is the barrier; across processes the caller holds a host
+// barrier before the launch (every owner's B written) and one after it (no
+// owner overwrites B while a peer still reads it).  At the pack's
 // operating point, as the TPU kernel:
 //   crp_halo_x3    <- "x3": the panels arrive as bf16 hi/lo, split once in
 //                     RNE when they are packed, B split to bf16 hi/lo in
@@ -48,12 +55,14 @@
 
 extern "C" {
 
-int crp_halo_x3(const void* chunk_src, const void* ws, const void* ah,
-                const void* al, const void* b, void* c, int64_t G, int64_t TM,
-                int64_t W, int64_t n, void* stream)
+// rows16: every chunk pointer is on 16 bytes (16-byte B copies where n
+// allows them)
+int crp_halo_x3(const void* rows, const void* ws, const void* ah, const void* al, void* c,
+                int64_t G, int64_t TM, int64_t W, int64_t n, int64_t rows16, void* stream)
 {
-    return crp::launch_wgmma<crp::WgMode::SPLIT_B, true>(ws, ah, al, b, nullptr, c, G, TM,
-                                                          W, n, stream, chunk_src);
+    return crp::launch_wgmma<crp::WgMode::SPLIT_B, true>(ws, ah, al, rows, nullptr, c, G, TM,
+                                                          W, n, stream, rows, nullptr,
+                                                          rows16 != 0);
 }
 
 // the wgmma body's rings and resources, crp_halo_x3's and crp_halo_bf16's
@@ -63,20 +72,19 @@ int crp_x3_layout(char* out, int len)
     return crp::x3_layout<false, true>(out, len);
 }
 
-int crp_halo_bf16(const void* chunk_src, const void* ws, const void* ah,
-                  const void* bh, void* c, int64_t G, int64_t TM, int64_t W,
-                  int64_t n, void* stream)
+int crp_halo_bf16(const void* rows, const void* ws, const void* ah, void* c, int64_t G,
+                  int64_t TM, int64_t W, int64_t n, int64_t rows16, void* stream)
 {
-    return crp::launch_wgmma<crp::WgMode::ONE_PASS, true>(ws, ah, nullptr, bh, nullptr, c, G,
-                                                          TM, W, n, stream, chunk_src);
+    return crp::launch_wgmma<crp::WgMode::ONE_PASS, true>(ws, ah, nullptr, rows, nullptr, c,
+                                                          G, TM, W, n, stream, rows, nullptr,
+                                                          rows16 != 0);
 }
 
-int crp_halo_f32(const void* chunk_src, const void* ws, const void* tiles,
-                 const void* b, void* c, int64_t G, int64_t TM, int64_t W,
-                 int64_t n, void* stream)
+int crp_halo_f32(const void* rows, const void* ws, const void* tiles, void* c, int64_t G,
+                 int64_t TM, int64_t W, int64_t n, int64_t rows16, void* stream)
 {
-    return crp::launch_tf32x3<true>(nullptr, ws, tiles, b, c, G, TM, W, n, stream,
-                                    chunk_src);
+    return crp::launch_tf32x3<true>(nullptr, ws, tiles, rows, c, G, TM, W, n, stream, rows,
+                                    rows16 != 0);
 }
 
 // crp_halo_f32's ring and resources (crp::tf32x3_layout)
@@ -85,12 +93,12 @@ int crp_tf32x3_layout(char* out, int len)
     return crp::tf32x3_layout<true>(out, len);
 }
 
-int crp_halo_f64(const void* chunk_src, const void* ws, const void* tiles,
-                 const void* b, void* c, int64_t G, int64_t TM, int64_t W,
-                 int64_t n, void* stream)
+int crp_halo_f64(const void* rows, const void* ws, const void* tiles, void* c, int64_t G,
+                 int64_t TM, int64_t W, int64_t n, int64_t rows16, void* stream)
 {
-    return crp::launch_fma<double, 64, 128, 8, 4, 8, true>(
-        nullptr, ws, tiles, b, c, G, TM, W, n, stream, chunk_src);
+    (void)rows16;  // the FMA body loads B element by element
+    return crp::launch_fma<double, 64, 128, 8, 4, 8, true>(nullptr, ws, tiles, rows, c, G,
+                                                            TM, W, n, stream, rows);
 }
 
 const char* crp_error_string(int code)

@@ -13,12 +13,14 @@
 // (G*TM, n) output C is written, pad groups included (their panels are
 // zero).
 //
-// With CHUNKED (the fused halo kernels, halo.cu) B row r is not row r of
-// b: it is row chunk_src[r / HALO_TK] + r % HALO_TK of b, the row of the
-// shard that owns it, or zero where chunk_src holds -1.  There every start
-// is a multiple of HALO_TK, so a k slice (BK rows, BK dividing HALO_TK)
-// never crosses a chunk and looks its chunk up once.  The other kernels
-// compile without the lookup.
+// With CHUNKED (the fused halo kernels, halo.cu) B lives in its owners'
+// shards, wherever they are, and chunk_src is a table of pointers, one per
+// HALO_TK-row chunk of B: the chunk's first row in its owner's shard, or
+// null past the matrix.  B row r is row r % HALO_TK of the rows chunk
+// r / HALO_TK points at, or zero.  There every start is a multiple of
+// HALO_TK, so a k slice (BK rows, BK dividing HALO_TK) never crosses a chunk
+// and looks its chunk up once.  The other kernels compile without the
+// lookup.
 //
 // The TPU kernels walk a sequential grid and carry C across steps in VMEM.
 // Here blocks run unordered: each block owns one (BM x BN) output tile of
@@ -60,19 +62,21 @@ __device__ __forceinline__ void group_chunks(const int32_t* group_ptr,
     *s_end = group_ptr ? group_ptr[g + 1] : g + 1;
 }
 
-// first row in b of the k slice whose B rows start at row r, and whether
-// the rows exist (see CHUNKED above)
-template <bool CHUNKED>
+// first row of the k slice whose B rows start at row r, in the rows *b
+// points at on return, and whether the rows exist (see CHUNKED above: *b
+// leaves pointing at the chunk's rows)
+template <bool CHUNKED, typename T>
 __device__ __forceinline__ int64_t b_slice_row(const int32_t* chunk_src,
-                                               int64_t r, bool* live)
+                                               int64_t r, bool* live, const T** b)
 {
     if constexpr (!CHUNKED) {
         *live = true;
         return r;
     } else {
-        const int32_t src = chunk_src[r / HALO_TK];
-        *live = src >= 0;
-        return (int64_t)src + r % HALO_TK;
+        const T* rows = reinterpret_cast<const T* const*>(chunk_src)[r / HALO_TK];
+        *live = rows != nullptr;
+        if (rows) *b = rows;
+        return r % HALO_TK;
     }
 }
 
@@ -128,8 +132,9 @@ panel_fma_kernel(const int32_t* __restrict__ group_ptr,
         const int64_t s = s_begin + t / nk;
         const int64_t k0 = (t % nk) * BK;
         bool b_live;
+        const T* bb = b;
         const int64_t b_row0 =
-            b_slice_row<CHUNKED>(chunk_src, starts[s] + k0, &b_live);
+            b_slice_row<CHUNKED>(chunk_src, starts[s] + k0, &b_live, &bb);
         const T* a = tiles + (size_t)(s * TM + r_in) * W + k0;
 #pragma unroll
         for (int i = 0; i < A_PER; ++i) {
@@ -140,7 +145,7 @@ panel_fma_kernel(const int32_t* __restrict__ group_ptr,
         for (int i = 0; i < B_PER; ++i) {
             const int idx = tid + i * NT;
             const int64_t col = n0 + idx % BN;
-            rb[i] = (b_live && col < n) ? b[(size_t)(b_row0 + idx / BN) * n + col]
+            rb[i] = (b_live && col < n) ? bb[(size_t)(b_row0 + idx / BN) * n + col]
                                         : T(0);
         }
     };
@@ -354,8 +359,9 @@ panel_tf32x3_kernel(const int32_t* __restrict__ group_ptr,
         const int64_t s = s_begin + t / nk;
         const int64_t k0 = (t % nk) * TF_BK;
         bool live;
+        const float* bb = b;
         const int64_t b_row0 =
-            b_slice_row<CHUNKED>(chunk_src, starts[s] + k0, &live);
+            b_slice_row<CHUNKED>(chunk_src, starts[s] + k0, &live, &bb);
         const float* a_src = tiles + (size_t)(s * TM + r_in + a_r) * W + k0 + a_k;
         uint32_t a_dst = (uint32_t)__cvta_generic_to_shared(
             As + stage * TF_A_STAGE + a_r * TF_A_LD + a_k);
@@ -366,7 +372,7 @@ panel_tf32x3_kernel(const int32_t* __restrict__ group_ptr,
             a_dst += A_ROWS * TF_A_LD * 4;
         }
         const bool ok = live && col_ok;
-        const float* b_src = ok ? b + (size_t)(b_row0 + b_r) * n + n0 + b_c : b;
+        const float* b_src = ok ? bb + (size_t)(b_row0 + b_r) * n + n0 + b_c : b;
         const size_t b_step = ok ? (size_t)B_ROWS * n : 0;
         uint32_t b_dst = (uint32_t)__cvta_generic_to_shared(
             Bs + stage * TF_B_STAGE + b_r * TF_B_LD + b_c);
@@ -499,10 +505,13 @@ cudaError_t tf32x3_run(const void* group_ptr, const void* starts, const void* ti
     return cudaGetLastError();
 }
 
+// CHUNKED: chunk_src is the chunks' row pointers (b only a valid address)
+// and rows16 says whether every one is on 16 bytes
 template <bool CHUNKED>
 int launch_tf32x3(const void* group_ptr, const void* starts, const void* tiles,
                   const void* b, void* c, int64_t G, int64_t TM, int64_t W,
-                  int64_t n, void* stream, const void* chunk_src = nullptr)
+                  int64_t n, void* stream, const void* chunk_src = nullptr,
+                  bool rows16 = false)
 {
     if (G < 0 || TM <= 0 || TM % TF_BM || W <= 0 || W % TF_BK || n < 0)
         return (int)cudaErrorInvalidValue;
@@ -511,7 +520,7 @@ int launch_tf32x3(const void* group_ptr, const void* starts, const void* tiles,
     const int64_t blocks = G * (TM / TF_BM) * n_tiles;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     if (blocks == 0) return (int)cudaGetLastError();
-    if (n % 4 == 0 && (uintptr_t)b % 16 == 0)
+    if (n % 4 == 0 && (CHUNKED ? rows16 : (uintptr_t)b % 16 == 0))
         return (int)tf32x3_run<CHUNKED, true>(group_ptr, starts, tiles, b, c, blocks,
                                               TM, W, n, n_tiles, stream, chunk_src);
     return (int)tf32x3_run<CHUNKED, false>(group_ptr, starts, tiles, b, c, blocks, TM,

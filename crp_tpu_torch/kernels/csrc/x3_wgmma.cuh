@@ -23,12 +23,13 @@
 // nor round), the same RNE split the TPU kernels make of their fp32 panels
 // on every read.
 //
-// With CHUNKED (#12, x3 and one pass) B row r is row chunk_src[r / HALO_TK]
-// + r % HALO_TK of b, the row of the shard that owns it, or zero where
-// chunk_src holds -1 (past the matrix).  Every window start is a multiple
-// of HALO_TK, so a 64-row stage never straddles two chunks: the producer
-// looks its chunk up once a stage, whatever B's element type.  The other
-// kernels compile without the lookup.
+// With CHUNKED (#12, x3 and one pass) B lives in its owners' shards and
+// chunk_src is a table of pointers, one per HALO_TK-row chunk of B: the
+// chunk's first row in its owner's shard, null past the matrix (b only a
+// valid address).  Every window start is a multiple of HALO_TK, so a 64-row
+// stage never straddles two chunks: the producer loads its stage's pointer
+// once, before it waits for the stage to free, so that the load's latency
+// hides under the wait.  The other kernels compile without the lookup.
 //
 // With RAGGED (#7, #8) the panels are a ragged pack's (S, TM, W) chunks:
 // group g owns the chunks s in [group_ptr[g], group_ptr[g + 1]), chunk s
@@ -453,6 +454,10 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
         const int64_t b_row0 = RAGGED ? 0 : ws[g];
         for (int t = 0; t < stages; ++t) {
             const int s = t % Ring::STAGES;
+            const void* rows = b;     // CHUNKED: the stage's chunk (see above)
+            if constexpr (CHUNKED)
+                rows = reinterpret_cast<const void* const*>(
+                    chunk_src)[(b_row0 + t * X3_BK) / HALO_TK];
             mbar_wait(empty0 + 8 * s, ((t / Ring::STAGES) & 1) ^ 1);
             uint8_t* st = smem + s * Ring::STAGE;
             int kt = t;               // the stage's 64-row step in its window
@@ -472,14 +477,13 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                              (int)a_row);
             }
             int w_end = W;            // stage rows at or past it are zeros
-            if constexpr (CHUNKED) {  // the stage lies in one chunk (see above)
-                const int64_t r = b_row0 + t * X3_BK;
-                const int32_t src = chunk_src[r / HALO_TK];
-                b_row = src + r % HALO_TK - t * X3_BK;
-                w_end = src >= 0 ? W : 0;  // a dead chunk: every row zero
+            if constexpr (CHUNKED) {  // stage row k is row (t X3_BK) % HALO_TK + k of rows
+                b_row = (t * X3_BK) % HALO_TK - t * X3_BK;
+                w_end = rows ? W : 0;  // a dead chunk: every row zero
+                if (!rows) rows = b;
             }
-            x3_load_b<MODE, B_VEC>(st + Ring::A_BYTES, b, b_lo, b_row, kt * X3_BK, w_end, n,
-                                   n0, lane, full0 + 8 * s);
+            x3_load_b<MODE, B_VEC>(st + Ring::A_BYTES, rows, b_lo, b_row, kt * X3_BK, w_end,
+                                   n, n0, lane, full0 + 8 * s);
         }
         cp_async_commit();
         cp_async_wait<0>();
@@ -617,15 +621,16 @@ cudaError_t x3_prepare()
 // SPLIT_B: b is fp32 B; PAIR_B: b is B's bf16 hi plane and b_lo its lo
 // plane (split_b_bf16); ONE_PASS: b is B cast to bf16, and al and b_lo are
 // not read.  The panels must be 16-byte aligned (TMA); B of any alignment
-// (16-byte copies where n and B allow them).  CHUNKED: B's rows through
-// chunk_src (see above), and every ws a multiple of HALO_TK.  RAGGED: the
+// (16-byte copies where n and B allow them).  CHUNKED: B's rows come
+// through chunk_src's row pointers (see above), every ws is a multiple of
+// HALO_TK, and rows16 says whether every row pointer is on 16 bytes.  RAGGED: the
 // panels are the (S, TM, W) chunks, ws their starts and group_ptr the
 // groups' chunk ranges (see above).
 template <WgMode MODE, bool CHUNKED = false, bool RAGGED = false>
 int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
                  const void* b_lo, void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
                  void* stream, const void* chunk_src = nullptr,
-                 const void* group_ptr = nullptr)
+                 const void* group_ptr = nullptr, bool rows16 = false)
 {
     // a stage starts a multiple of X3_BK rows past a HALO_TK-aligned window
     // start: it lies in one B chunk
@@ -649,7 +654,8 @@ int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
     cudaError_t e = panel_map(&hi, ah, rows, W);
     if (e == cudaSuccess) e = panel_map(&lo, ONE ? ah : al, rows, W);
     if (e != cudaSuccess) return (int)e;
-    const bool vec = n % (MODE == WgMode::SPLIT_B ? 4 : 8) == 0 && (uintptr_t)b % 16 == 0
+    const bool vec = n % (MODE == WgMode::SPLIT_B ? 4 : 8) == 0
+                     && (CHUNKED ? rows16 : (uintptr_t)b % 16 == 0)
                      && (MODE != WgMode::PAIR_B || (uintptr_t)b_lo % 16 == 0);
     e = vec ? x3_prepare<MODE, true, CHUNKED, RAGGED>()
             : x3_prepare<MODE, false, CHUNKED, RAGGED>();

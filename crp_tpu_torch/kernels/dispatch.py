@@ -55,7 +55,7 @@ from .spmm_pallas import (
 from .spmm_ragged import (
     PANEL_CAP_BYTES, SPILL_Q, SPILL_TMO, cover_with_cap, default_min_chunk_nnz,
     estimate_ragged, first_ptr, gather_step_layout, pack_gather_blocks,
-    pack_spill, pack_spill_blocks, resolve_ragged_geometry, spill_row_view,
+    pack_spill, pack_spill_blocks, resolve_ragged_geometry, row_view_sizes, spill_row_view,
     spmm_gather, spmm_gather_plain, spmm_ragged, spmm_ragged_bf16,
     spmm_ragged_bf16_plain, spmm_ragged_plain, spmm_ragged_presplit,
     spmm_ragged_presplit_plain, spmm_spill, spmm_spill_chunked, spmm_spill_plain,
@@ -108,7 +108,7 @@ def sparsity_fallback_chain(kind: str, dtype, device, is_dd: bool = False,
 def pack_with_fallback(
     shards: list, max_m: int, dtype, kind: str, *, device,
     mxu_precision: str = "highest", is_dd: bool = False,
-    fallback: list | None = None,
+    fallback: list | None = None, rank: int | None = None,
 ) -> tuple:
     """:func:`pack_local_kernel` plus the sparsity-fallback walk
     (``dispatch.py:106-150``).  Returns ``(arrays, op, resolved_kind)``.
@@ -117,7 +117,7 @@ def pack_with_fallback(
     try:
         arrays, op = pack_local_kernel(
             shards, max_m, dtype, kind, device=device,
-            mxu_precision=mxu_precision,
+            mxu_precision=mxu_precision, rank=rank,
         )
         return arrays, op, kind
     except UnsupportedSparsity as e:
@@ -132,7 +132,7 @@ def pack_with_fallback(
         try:
             arrays, op = pack_local_kernel(
                 shards, max_m, dtype, fb, device=device,
-                mxu_precision=mxu_precision, **extra,
+                mxu_precision=mxu_precision, rank=rank, **extra,
             )
             return arrays, op, fb
         except UnsupportedSparsity as e2:
@@ -298,13 +298,36 @@ def _row_views(rel, cols, vals, blk, M: int, TMo: int) -> tuple:
                             for i in range(rel.shape[0])])
 
 
-def _stacked(packs, device) -> tuple:
+def _rank_row_views(host, M: int, TMo: int, rank: int, device) -> tuple:
+    """A mesh rank's slice of :func:`_row_views`: ``host`` the stacked
+    block-step pack's ``(rel, cols, vals, blk)`` numpy arrays of every
+    shard.  Each shard's view is built on ``device`` in turn, for the
+    padding the stacked views share, and the rank's alone is kept."""
+    sizes, mine = [0] * 4, None
+    for i in range(host[0].shape[0]):
+        view = spill_row_view(*(torch.from_numpy(x[i]).to(device) for x in host), M, TMo)
+        sizes = [max(a, b) for a, b in zip(sizes, row_view_sizes([view]))]
+        if i == rank:
+            mine = view
+        del view
+    return stack_row_views([mine], sizes)
+
+
+def _stacked(packs, device, rank=None) -> tuple:
     """Per-shard tuples of numpy arrays -> tensors on ``device`` with a
-    leading shard axis."""
+    leading shard axis; ``rank``: that shard's alone (a mesh rank's
+    slice)."""
+    if rank is not None:
+        packs = packs[rank : rank + 1]
     return tuple(
         torch.from_numpy(np.stack([p[i] for p in packs])).to(device)
         for i in range(len(packs[0]))
     )
+
+
+def _kept(x: np.ndarray, rank) -> np.ndarray:
+    """A stacked host array, or a mesh rank's slice of it."""
+    return x if rank is None else x[rank : rank + 1]
 
 
 def _stack(tensors: list) -> torch.Tensor:
@@ -322,11 +345,16 @@ def _max_row_nnz(shards) -> int:
 def pack_local_kernel(
     shards: list, max_m: int, dtype, kind: str = "segsum", *, device,
     mxu_precision: str = "highest", dd_skip_mxu: bool = False,
+    rank: int | None = None,
 ) -> tuple:
     """Pack shards ``[(rowptr, compact_colidx, val), ...]`` for ``kind``
     (``dispatch.py:153-293``).  Returns ``(arrays, op)``: tensors on
     ``device`` with a leading shard axis, and the local op.
-    ``dd_skip_mxu`` sends ``kind="dd"`` straight to its non-MXU tier."""
+    ``dd_skip_mxu`` sends ``kind="dd"`` straight to its non-MXU tier.
+    ``rank``: a mesh rank's pack, slice [rank] of the stacked one bit for
+    bit with the same op: the geometry comes from every shard, and only
+    that shard's arrays go to ``device`` (the others' spills and row views
+    are made one at a time, on the host or briefly on the device)."""
     device = torch.device(device)
     if kind == "segsum":
         nnz_pad = max(max(int(r[-1] - r[0]) for r, _, _ in shards), 1)
@@ -334,30 +362,30 @@ def pack_local_kernel(
             pack_device_csr(rowptr, cc, v.astype(dtype), nnz_pad, nrow=max_m)
             for rowptr, cc, v in shards
         ]
-        return _stacked(packs, device), SegsumOp(max_m)
+        return _stacked(packs, device, rank), SegsumOp(max_m)
     if kind == "ell":
         L = _max_row_nnz(shards)
         packs = [pack_ell(rowptr, cc, v.astype(dtype), max_m, L=L)
                  for rowptr, cc, v in shards]
-        return _stacked(packs, device), EllOp()
+        return _stacked(packs, device, rank), EllOp()
     if kind == "pallas":
-        return _pack_pallas(shards, max_m, dtype, mxu_precision, device)
+        return _pack_pallas(shards, max_m, dtype, mxu_precision, device, rank)
     if kind == "ragged":
-        return _pack_ragged(shards, max_m, dtype, mxu_precision, device)
+        return _pack_ragged(shards, max_m, dtype, mxu_precision, device, rank=rank)
     if kind == "gather":
-        return _pack_gather(shards, max_m, dtype, mxu_precision, device)
+        return _pack_gather(shards, max_m, dtype, mxu_precision, device, rank=rank)
     if kind == "dd_mxu":
-        return _pack_dd_mxu(shards, max_m, device)
+        return _pack_dd_mxu(shards, max_m, device, rank=rank)
     if kind == "dd":
         # on a CUDA device the FP64 tensor cores where the total cover fits,
         # as the JAX package takes its MXU tier on a TPU; the CPU goes
         # straight to the non-MXU tier, as JAX does off the TPU
         if device.type == "cuda" and not dd_skip_mxu:
             try:
-                return _pack_dd_mxu(shards, max_m, device)
+                return _pack_dd_mxu(shards, max_m, device, rank=rank)
             except UnsupportedSparsity:
                 pass
-        return _pack_dd(shards, max_m, device)
+        return _pack_dd(shards, max_m, device, rank)
     if kind == "pallas_halo":
         raise UnsupportedSparsity(
             "kernel kind 'pallas_halo' is packed by the engines "
@@ -428,7 +456,7 @@ def _largest_shard(shards):
                key=lambda s: int(s[0][-1]) - int(s[0][0]), default=None)
 
 
-def _pack_pallas(shards, max_m, dtype, mxu_precision, device):
+def _pack_pallas(shards, max_m, dtype, mxu_precision, device, rank=None):
     """The ``pallas`` kind: the JAX package's gate between the uniform
     windowed pack and the ragged family (``dispatch.py:330-392``).
 
@@ -444,7 +472,7 @@ def _pack_pallas(shards, max_m, dtype, mxu_precision, device):
     """
     W_est, G_est, uniform_ok = _uniform_cost_estimate(shards, max_m)
     if not uniform_ok:
-        return _pack_ragged(shards, max_m, dtype, mxu_precision, device)
+        return _pack_ragged(shards, max_m, dtype, mxu_precision, device, rank=rank)
     itemsize = np.dtype(dtype).itemsize
     bytes_uniform = len(shards) * G_est * 256 * W_est * itemsize
     if W_est > 4096 or bytes_uniform > (1 << 30):
@@ -452,7 +480,8 @@ def _pack_pallas(shards, max_m, dtype, mxu_precision, device):
         if big is None:
             # no shard has a row: the uniform pack refuses the degenerate
             # shards itself
-            return _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device)
+            return _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device,
+                                        rank)
         geometry = resolve_ragged_geometry(
             big[0], big[1], mxu_precision, small=device.type == "cpu"
         )
@@ -465,16 +494,16 @@ def _pack_pallas(shards, max_m, dtype, mxu_precision, device):
         if bytes_uniform > 3 * max(bytes_ragged, 1):
             try:
                 return _pack_ragged(shards, max_m, dtype, mxu_precision, device,
-                                    geometry=geometry)
+                                    geometry=geometry, rank=rank)
             except UnsupportedSparsity:
                 pass  # ragged not worthwhile either; try uniform below
     try:
-        return _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device)
+        return _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device, rank)
     except UnsupportedSparsity:
-        return _pack_ragged(shards, max_m, dtype, mxu_precision, device)
+        return _pack_ragged(shards, max_m, dtype, mxu_precision, device, rank=rank)
 
 
-def _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device):
+def _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device, rank=None):
     """The uniform windowed pack (``dispatch.py:611-812``): one shard with a
     super-group plan takes the super-grouped kernels; several shards, or
     one with no plan (non-monotone windows), take the non-super-grouped
@@ -490,7 +519,7 @@ def _pack_pallas_uniform(shards, max_m, dtype, mxu_precision, device):
                                             device)
         if got is not None:
             return got
-    return _pack_window(shards, max_m, dt, mxu_precision, device)
+    return _pack_window(shards, max_m, dt, mxu_precision, device, rank)
 
 
 def _shard_window(shard, TM, tile_itemsize):
@@ -531,7 +560,7 @@ def _window_geometry(shard, max_m, win_itemsize, tile_itemsize, device):
     return rowptr64, len(rowptr64) - 1, TM, W, G0, ws_shard, sg
 
 
-def _pack_window(shards, max_m, dtype, mxu_precision, device):
+def _pack_window(shards, max_m, dtype, mxu_precision, device, rank=None):
     """The pack of kernel #4 (``dispatch.py:633-668,793-812``): each
     shard's window panels at a shared chunk-exact W and group count G,
     ``(p, G, TM, W)`` panels densified on the device; an empty shard gets
@@ -555,15 +584,18 @@ def _pack_window(shards, max_m, dtype, mxu_precision, device):
     mode = device_pack.panel_mode(dtype, mxu_precision)
     ws, ah, al = device_pack.uniform_fill_stacked(
         shards, [None if g is None else g[0] for g in got], TM, W, G, mode, device,
+        keep=rank,
     )
     panels = (ah, al) if mode == "pair" else (ah,)
+    shares = len(shards) if rank is not None else 1  # a rank holds one shard's panels
     roofline = dict(
-        G=G, TM=TM, W=W, a_bytes=sum(t.numel() * t.element_size() for t in panels),
+        G=G, TM=TM, W=W,
+        a_bytes=shares * sum(t.numel() * t.element_size() for t in panels),
         b_rows_read=G * W, c_rows=G * TM, b_itemsize=2 if mode == "bf16" else itemsize,
         passes={"x3": 3, "highest": 6, "default": 1}.get(mxu_precision, 1),
     )
     scheme = {"pair": "window_x3", "bf16": "window_bf16"}.get(mode, "window")
-    return ((torch.from_numpy(ws).to(device), *panels),
+    return ((torch.from_numpy(_kept(ws, rank)).to(device), *panels),
             WindowOp(scheme, int(ws.max()) + W, roofline, mxu_precision))
 
 
@@ -782,7 +814,8 @@ def _group_ptrs(a_first, steps, G) -> np.ndarray:
 
 
 def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
-                 min_chunk_nnz=None, spill_impl="auto", TMo=SPILL_TMO, Q=SPILL_Q):
+                 min_chunk_nnz=None, spill_impl="auto", TMo=SPILL_TMO, Q=SPILL_Q,
+                 rank=None):
     """Ragged gathered-window pack (``dispatch.py:856-1158``), any number
     of shards.
 
@@ -801,7 +834,8 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     each shard's padded to the longest) are its own.  Raises
     UnsupportedSparsity when the covers keep under 30% of all nonzeros in
     panels; where the covers' own counts settle that, before any panel is
-    filled.
+    filled.  ``rank``: a mesh rank's slice (:func:`pack_local_kernel`); the
+    other shards' spills come from their host placement alone.
     """
     if spill_impl not in SPILL_IMPLS:
         raise ValueError(f"spill_impl={spill_impl!r} not in {SPILL_IMPLS}")
@@ -857,20 +891,27 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     # zero.  Each shard fills its own slice of the stacked planes in place.
     panel_dtype = torch.bfloat16 if mode in ("pair", "bf16") else (
         torch.float64 if mode == "f64" else torch.float32)
-    panels = tuple(torch.empty((len(shards), S, TM, Wc), dtype=panel_dtype, device=device)
+    held = range(len(shards)) if rank is None else [rank]
+    panels = tuple(torch.empty((len(held), S, TM, Wc), dtype=panel_dtype, device=device)
                    for _ in range(2 if mode == "pair" else 1))
     spills = []
     for i, sh in enumerate(prepared):
+        slot = i if rank is None else 0
         if sh is None:
-            for t in panels:
-                t[i].zero_()
+            if i in held:
+                for t in panels:
+                    t[slot].zero_()
             spills.append(None)
             continue
         rowptr64, cc32, v, _ = sh
-        *_, spill = device_pack.ragged_fill(
-            rowptr64, cc32, v, TM, Wc, a_starts[i], group_ptr[i], mode, device,
-            out=tuple(t[i] for t in panels),
-        )
+        if i in held:
+            *_, spill = device_pack.ragged_fill(
+                rowptr64, cc32, v, TM, Wc, a_starts[i], group_ptr[i], mode, device,
+                out=tuple(t[slot] for t in panels),
+            )
+        else:
+            spill = device_pack.ragged_place(rowptr64, cc32, v, TM, Wc, a_starts[i],
+                                             group_ptr[i], mode)[3]
         spills.append(spill)
     Z = max((len(s[0]) for s in spills if s is not None), default=0)
     spill_nnz = sum(len(s[0]) for s in spills if s is not None)
@@ -909,13 +950,16 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
         per = [pack_spill(s, Z, G * TM, pack_dtype) for s in spills]
         sp_arrays = tuple(np.stack([x[k] for x in per]) for k in range(3))
 
-    a_bytes = sum(p.numel() * p.element_size() for p in panels)
+    a_bytes = len(shards) // len(held) * sum(p.numel() * p.element_size() for p in panels)
     arrays = (
-        *(torch.from_numpy(x).to(device) for x in (a_g, a_first, a_starts)),
+        *(torch.from_numpy(_kept(x, rank)).to(device) for x in (a_g, a_first, a_starts)),
         *panels,
-        *(torch.from_numpy(x).to(device) for x in (*sp_arrays, *extras)),
+        *(torch.from_numpy(_kept(x, rank)).to(device) for x in (*sp_arrays, *extras)),
     )
-    if Z and sp_impl == "pallas":
+    if Z and sp_impl == "pallas" and rank is not None:
+        rel, cols, vals, _, blk = sp_arrays
+        arrays += _rank_row_views((rel, cols, vals, blk), G * TM, TMo, rank, device)
+    elif Z and sp_impl == "pallas":
         rel, cols, vals, _, blk = arrays[-6:-1]
         arrays += _row_views(rel, cols, vals, blk, G * TM, TMo)
     scheme = {"pair": "x3", "bf16": "bf16"}.get(mode, "full")
@@ -934,7 +978,7 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
 
 
 def _pack_gather(shards, max_m, dtype, mxu_precision, device, *, TMo=SPILL_TMO,
-                 Q=SPILL_Q):
+                 Q=SPILL_Q, rank=None):
     """The ``gather`` kind (``dispatch.py:1161-1224``): every nonzero in
     the block steps of the fused spill, no cover and no scatter.  fp32 only;
     ``TMo``/``Q`` stand for ``CRP_TPU_SPILL_TMO``/``_Q``.  The output has
@@ -968,19 +1012,24 @@ def _pack_gather(shards, max_m, dtype, mxu_precision, device, *, TMo=SPILL_TMO,
         spill_nnz=total_nnz, mxu_frac=0.0,
         passes={"x3": 2, "highest": 6, "default": 1}.get(mxu_precision, 1),
     )
-    arrays = _stacked(packs, device)
-    arrays += _row_views(*arrays[:3], arrays[4], M, TMo)
+    arrays = _stacked(packs, device, rank)
+    if rank is None:
+        arrays += _row_views(*arrays[:3], arrays[4], M, TMo)
+    else:
+        host = tuple(np.stack([p[k] for p in packs]) for k in (0, 1, 2, 4))
+        arrays += _rank_row_views(host, M, TMo, rank, device)
     return arrays, GatherOp(M, mxu_precision, roofline)
 
 
-def _pack_dd_mxu(shards, max_m, device, *, max_panel_bytes=PANEL_CAP_BYTES):
+def _pack_dd_mxu(shards, max_m, device, *, max_panel_bytes=PANEL_CAP_BYTES, rank=None):
     """The ``dd_mxu`` kind (``dispatch.py:1227-1311``): each shard's ragged
     total cover (:func:`ragged_dd_cover`) with fp64 panels filled on the
     device, stacked as the ragged pack stacks (dummy chunks for pad groups
     and empty shards, which come out zero; per-shard ``group_ptr``).
     Refuses as the JAX pack does, on any shard: a spill under the panel cap
     (``max_panel_bytes``, for ``CRP_TPU_RAGGED_PANEL_GB``), the slice-plane
-    cap."""
+    cap.  ``rank``: a mesh rank's slice; the other shards' spills are
+    checked from their host placement alone."""
     TM, Wc = dd_mxu_geometry(small=device.type == "cpu")
     prepared, steps = [], []
     for rowptr, cc, v in shards:
@@ -1006,27 +1055,35 @@ def _pack_dd_mxu(shards, max_m, device, *, max_panel_bytes=PANEL_CAP_BYTES):
     group_ptr = _group_ptrs(a_first, steps, G)
     per = []
     for i, sh in enumerate(prepared):
+        held = rank is None or i == rank
         if sh is None:
-            per.append(torch.zeros((S, TM, Wc), dtype=torch.float64, device=device))
+            if held:
+                per.append(torch.zeros((S, TM, Wc), dtype=torch.float64, device=device))
             continue
-        panels_i, _, spill = device_pack.ragged_fill(
-            *sh, TM, Wc, a_starts[i], group_ptr[i], "f64", device,
-        )
+        if held:
+            panels_i, _, spill = device_pack.ragged_fill(
+                *sh, TM, Wc, a_starts[i], group_ptr[i], "f64", device,
+            )
+        else:
+            spill = device_pack.ragged_place(*sh, TM, Wc, a_starts[i], group_ptr[i],
+                                             "f64")[3]
         if len(spill[0]):
             raise UnsupportedSparsity(
                 f"dd_mxu total cover infeasible under panel cap ({len(spill[0])} "
                 f"nnz would spill)"
             )
-        per.append(panels_i)
+        if held:
+            per.append(panels_i)
     panels = _stack(per)
     del per
     arrays = (
-        *(torch.from_numpy(x).to(device) for x in (a_g, a_first, a_starts)),
+        *(torch.from_numpy(_kept(x, rank)).to(device) for x in (a_g, a_first, a_starts)),
         panels,
-        torch.from_numpy(group_ptr).to(device),
+        torch.from_numpy(_kept(group_ptr, rank)).to(device),
     )
     roofline = dict(
-        G=G, TM=TM, W=Wc, a_bytes=panels.numel() * panels.element_size(),
+        G=G, TM=TM, W=Wc,
+        a_bytes=len(shards) // panels.shape[0] * panels.numel() * panels.element_size(),
         b_rows_read=S * Wc, c_rows=G * TM, b_itemsize=8,
         S=S, spill_nnz=0, mxu_frac=1.0, passes=1,
     )
@@ -1034,7 +1091,7 @@ def _pack_dd_mxu(shards, max_m, device, *, max_panel_bytes=PANEL_CAP_BYTES):
                             roofline)
 
 
-def _pack_dd(shards, max_m, device):
+def _pack_dd(shards, max_m, device, rank=None):
     """The ``dd`` kind's non-MXU tier in fp64 (``dispatch.py:236-291``):
     ELL for at most ELL_MAX_L nonzeros per row, else the chunked
     segment-sum.  The JAX package's 4M-nnz cap on the segment-sum tier is
@@ -1042,10 +1099,10 @@ def _pack_dd(shards, max_m, device):
     L = _max_row_nnz(shards)
     if L <= ELL_MAX_L:
         packs = [pack_ell_dd(rowptr, cc, v, max_m, L=L) for rowptr, cc, v in shards]
-        return _stacked(packs, device), DDOp("ell", max_m)
+        return _stacked(packs, device, rank), DDOp("ell", max_m)
     nnz_pad = max(max(int(r[-1] - r[0]) for r, _, _ in shards), 1)
     packs = [pack_coo_dd(rowptr, cc, v, nnz_pad, max_m) for rowptr, cc, v in shards]
-    return _stacked(packs, device), DDOp("segsum", max_m)
+    return _stacked(packs, device, rank), DDOp("segsum", max_m)
 
 
 def _tensor_from_jax(x: np.ndarray) -> torch.Tensor:

@@ -4,12 +4,22 @@ Counterpart of ``crp_tpu/kernels/spmm_halo.py``.  On a TPU every shard is
 a chip, and one kernel per shard pushes each owned 128-row chunk of B into
 the window buffers of the shards that read it (remote DMA) while it runs
 the windowed product, gated on per-owner arrival semaphores.  The port's
-engines hold every shard on one card, so the owners' rows are in the same
-memory: the kernel (``csrc/halo.cu``, one launch for every shard) reads
-each row group's window straight from the owner shards' rows of the
-stacked B, through a table that maps each global 128-row chunk to its
-owner's row.  No receive buffer is built and nothing is copied; stream
-order stands where the TPU kernel has its barrier and semaphores.
+kernel (``csrc/halo.cu``) pulls instead: each row group reads its window
+straight from the owner shards' rows, through the plan's chunk table of
+(owner, row) pairs resolved against the p owners' base pointers into one
+row pointer a chunk (:func:`chunk_rows`; on one card
+:func:`stacked_chunk_rows`, each launch).  No receive buffer is built and
+nothing is copied.
+
+On one card (an engine without a mesh) the p owners are the shards of the
+stacked B, one launch runs every shard's groups, and stream order stands
+where the TPU kernel has its barrier and semaphores.  Across processes (an
+engine on a :class:`~crp_tpu_torch.shard.layout.RankMesh`, one rank a
+shard) each rank owns one B buffer, allocated once and mapped into every
+peer by CUDA IPC (:class:`HaloPeers`); a rank's launch runs its own
+shard's groups over the p mapped buffers, between two host barriers: one
+before (every owner's B written) and one after (no owner overwrites its B
+while a peer still reads it).  The two are one kernel and one build.
 
 The plan is the JAX plan: the B ownership boundaries rounded to 128 rows
 (:func:`align_displs`), one uniform window pack per shard over the global
@@ -27,7 +37,8 @@ split in the kernel, as the TPU kernel does.
 :func:`spmm_halo` launches the kernel for CUDA tensors and counts the
 launch in its ``launches`` attribute; for CPU tensors it runs
 :func:`spmm_halo_plain`: the pushes as one gather into per-shard window
-buffers, then the windowed product of :func:`spmm_window_plain`.
+buffers, then the windowed product of :func:`spmm_window_plain` (across
+processes the owners' rows come first by an ``all_gather`` on the group).
 """
 
 from __future__ import annotations
@@ -58,17 +69,19 @@ class HaloOp:
     """The ``pallas_halo`` kind's op over every shard at once.
 
     Its arrays are ``(ws, ws_rel, panels, push, chunk_src)``: the global
-    window starts (p, G) int32 the kernel reads; the starts relative to
+    window starts (s, G) int32 the kernel reads; the starts relative to
     each shard's window base, and the push list (P, 4) int32 of (owner,
     owner row, consumer, buffer row), which the plain version reads; the
-    (p, G, TM, W) panels, on fp32 at ``x3`` the two bf16 planes ``ah,
+    (s, G, TM, W) panels, on fp32 at ``x3`` the two bf16 planes ``ah,
     al`` in their place and at ``default`` the bf16 hi plane ``ah``; and
-    the chunk table (global 128-row chunk -> row
-    of the stacked B, -1 past the matrix).  ``buf_rows``: rows of the
-    plain version's window buffers; ``min_b_rows``: rows each shard of B
-    must have (``max_k``); ``B_displs``: the aligned ownership the engine
-    shards B by; ``halo_rows_pushed``: the physical rows one exec moves,
-    every push including a shard's own (``spmm_halo.py:75-78``).
+    the chunk table (nchunks, 2) int32: each global 128-row chunk's
+    (owner, row in the owner's shard), owner -1 past the matrix.  s is
+    the shards packed here: all p, or one rank's (``ranks``).  ``p``: the
+    owners; ``ranks``: the shards the arrays hold; ``buf_rows``: rows of
+    the plain version's window buffers; ``min_b_rows``: rows each shard
+    of B must have (``max_k``); ``B_displs``: the aligned ownership the
+    engine shards B by; ``halo_rows_pushed``: the physical rows one exec
+    moves, every push including a shard's own (``spmm_halo.py:75-78``).
     """
 
     precision: str
@@ -79,6 +92,8 @@ class HaloOp:
     min_b_rows: int
     B_displs: np.ndarray
     halo_rows_pushed: int
+    p: int
+    ranks: tuple
     roofline: dict = dataclasses.field(default_factory=dict)
     variant = "halo"
 
@@ -89,6 +104,12 @@ class HaloOp:
     @property
     def plain(self):
         return spmm_halo_plain
+
+    @property
+    def b_dtype(self):
+        """The element type the kernel reads B in: bf16 on the hi plane
+        (``default``), else the panels' own."""
+        return torch.bfloat16 if self.roofline.get("b_itemsize") == 2 else None
 
     def kernel_args(self, arrs, b_shards) -> tuple:
         """Positional args of :attr:`kernel` and :attr:`plain` for the
@@ -101,16 +122,18 @@ class HaloOp:
         return (ws, ws_rel, panels, push, chunk_src, b_shards, self.precision,
                 self.buf_rows)
 
-    def __call__(self, arrs, b_shards):
-        """(p, G*TM, n) C shards; rows past a shard's own are zero."""
+    def __call__(self, arrs, b_shards, peers=None, dtype=None):
+        """(s, G*TM, n) C shards; rows past a shard's own are zero.  With
+        ``peers`` (across processes) ``b_shards`` is their buffer and C
+        comes in ``dtype``."""
         c = self.kernel(*self.kernel_args(arrs, b_shards),
-                        min_b_rows=self.min_b_rows)
-        return c.to(b_shards.dtype)
+                        min_b_rows=self.min_b_rows, peers=peers)
+        return c.to(dtype or b_shards.dtype)
 
 
 def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
                     precision: str = "highest", TM: int = 256,
-                    max_window: int = 16384) -> tuple:
+                    max_window: int = 16384, ranks=None) -> tuple:
     """Pack the panels and the exchange tables of the fused kernel
     (``build_halo_plan``, ``spmm_halo.py:102-182``) from per-shard CSR
     views with global column indices.  Returns ``(arrays, HaloOp)``;
@@ -119,7 +142,11 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
     ``max_window`` rows, panels over 8 GiB, or window starts that fall.
     On fp32 at ``x3`` the panels are the bf16 pair (the arrays' ``ah,
     al``; ``roofline["a_bytes"]`` the same bytes as fp32 panels), at
-    ``default`` the bf16 hi plane (half the bytes, and B counted in bf16)."""
+    ``default`` the bf16 hi plane (half the bytes, and B counted in bf16).
+    ``ranks``: the shards whose window starts and panels are densified
+    (one rank's across processes), all by default; the plan, the push
+    list and the chunk table are always every shard's, and a rank's
+    arrays equal its slice of the whole pack bit for bit."""
     B_displs = np.asarray(B_displs, dtype=np.int64)
     if np.any(B_displs[:-1] % TK):
         raise UnsupportedSparsity("halo kernel needs TK-aligned B displs")
@@ -152,9 +179,11 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
 
     G = max(Gs)
     W, _, _ = choose_chunks(max(Ws))
-    cols = [(s.rowptr, s.colidx, s.val) for s in shards]
+    ranks = tuple(range(p)) if ranks is None else tuple(int(r) for r in ranks)
+    cols = [(shards[r].rowptr, shards[r].colidx, shards[r].val) for r in ranks]
     mode = device_pack.panel_mode(dt, precision)
-    ws, ah, al = device_pack.uniform_fill_stacked(cols, ws_own, TM, W, G, mode, device)
+    ws, ah, al = device_pack.uniform_fill_stacked(cols, [ws_own[r] for r in ranks], TM,
+                                                  W, G, mode, device)
     panels = (ah, al) if mode == "pair" else (ah,)
     ws_rel = np.zeros((p, G), dtype=np.int32)
     for i, ws_i in enumerate(ws_own):
@@ -175,58 +204,72 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
                                 row - los[i]], axis=1))
     push = np.concatenate(pushes).astype(np.int32)
 
-    # the kernel's chunk table: global chunk -> row of the stacked B, over
-    # every row any window reads (pad groups read from their shard's base)
+    # the kernel's chunk table: global chunk -> (owner, row in the owner's
+    # shard), over every row any window reads (pad groups read from their
+    # shard's base); owner -1 past the matrix
     max_k = -(-int(np.diff(B_displs).max()) // TK) * TK
     span = int((lo[:, None] + ws_rel).max()) + W
     row = np.arange(-(-span // TK), dtype=np.int64) * TK
     j = np.minimum(np.searchsorted(B_displs, row, side="right") - 1, p - 1)
-    chunk_src = np.where(row < k_glb, j * max_k + row - B_displs[j], -1)
-    if int(chunk_src.max()) + TK > p * max_k:
-        raise AssertionError("halo chunk table reads past the stacked B")
+    live = row < k_glb
+    chunk_src = np.stack([np.where(live, j, -1), np.where(live, row - B_displs[j], 0)],
+                         axis=1)
+    if int(chunk_src[:, 1].max()) + TK > max_k:
+        raise AssertionError("halo chunk table reads past an owner's shard")
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
 
-    arrays = (put(lo[:, None] + ws_rel), put(ws_rel), *panels, put(push),
+    ws_full = (lo[:, None] + ws_rel)[list(ranks)]
+    arrays = (put(ws_full), put(ws_rel[list(ranks)]), *panels, put(push),
               put(chunk_src))
     nnz = sum(int(s.rowptr[-1]) for s in shards)
+    itemsize = 2 if mode in ("pair", "bf16") else dt.itemsize
     roofline = dict(
         G=G, TM=TM, W=W, p=p, nnz=nnz,
-        a_bytes=sum(t.numel() * t.element_size() for t in panels),
+        a_bytes=(2 if mode == "pair" else 1) * p * G * TM * W * itemsize,
         b_rows_read=p * G * W, c_rows=p * G * TM,
         b_itemsize=2 if mode == "bf16" else dt.itemsize,
         passes={"x3": 3, "highest": 6, "default": 1}.get(precision, 1),
     )
     op = HaloOp(precision, TM, G, W, buf_rows, max_k, B_displs,
-                len(push) * TK, roofline)
+                len(push) * TK, p, ranks, roofline)
     return arrays, op
 
 
 # ------------------------------------------------------------- plain version
 
 
-def halo_buffers(push, b_shards, buf_rows: int) -> torch.Tensor:
+def halo_buffers(push, b_shards, buf_rows: int, consumers=None) -> torch.Tensor:
     """The window buffers the TPU kernel's pushes fill: (p, buf_rows, n),
-    zero where nothing is pushed."""
+    zero where nothing is pushed; with ``consumers``, those shards' buffers
+    alone, in that order."""
     p, _, n = b_shards.shape
+    push = push.long()
+    if consumers is not None:
+        keep = torch.isin(push[:, 2], torch.as_tensor(consumers, device=push.device))
+        push = push[keep].clone()
+        push[:, 2] = torch.searchsorted(
+            torch.as_tensor(consumers, device=push.device), push[:, 2])
+        p = len(consumers)
     buf = torch.zeros((p, buf_rows, n), dtype=b_shards.dtype, device=b_shards.device)
     rows = torch.arange(TK, device=b_shards.device)
-    push = push.long()
     src = b_shards[push[:, 0, None], push[:, 1, None] + rows]  # (P, TK, n)
     buf[push[:, 2, None], push[:, 3, None] + rows] = src
     return buf
 
 
 def spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards, precision,
-                    buf_rows):
+                    buf_rows, consumers=None):
     """The fused kernel's function in plain PyTorch: the pushes into
     per-shard window buffers, then each shard's windowed product at
     ``precision`` (:func:`spmm_window_plain`; on the x3 pair ``panels =
     (ah, al)`` that is ``spmm_window_sg_presplit_plain``, on the default
     hi plane ``spmm_window_sg_bf16_plain``); ``ws`` and ``chunk_src`` are
-    the kernel's and go unused.  Returns (p, G*TM, n)."""
-    buf = halo_buffers(push, b_shards, buf_rows)
+    the kernel's and go unused.  ``b_shards`` holds every owner's rows;
+    ``consumers``: the shards the panels are of (all by default).  Returns
+    (shards, G*TM, n)."""
+    buf = halo_buffers(push, b_shards, buf_rows, consumers)
     pair = isinstance(panels, tuple)
     return torch.stack([
         spmm_window_plain(ws_rel[i], tuple(t[i] for t in panels) if pair else panels[i],
@@ -235,58 +278,194 @@ def spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards, precision,
     ])
 
 
+# ------------------------------------------------------------ across ranks
+
+
+class HaloPeers:
+    """The fused kernel's B across processes: this rank's buffer, made
+    once, and the p owners' rows.
+
+    ``buf`` (1, max_k, n) is this rank's B shard, the only B the engine
+    writes (:meth:`load`).  On a CUDA device every rank shares its
+    buffer's CUDA IPC handle once
+    (``torch.multiprocessing.reductions.reduce_tensor``, which carries the
+    caching allocator's offset, through ``dist.all_gather_object`` on
+    ``group``), opens its peers' (their rebuild: ``cudaIpcOpenMemHandle``
+    under torch's own reference counts), and keeps ``bases``, the p
+    owners' base pointers, and ``chunk_ptrs`` / ``ptrs16``, the kernel's
+    chunk pointers made from them and the plan's ``chunk_src`` once
+    (:func:`chunk_rows`): the buffers never move.  On the CPU ``rows()``
+    gathers the owners' shards with ``all_gather``.
+    ``ranks`` are the group's global ranks, owner i's at index i; ``me``
+    this rank's index.  :meth:`close` drops the peers' mappings after a
+    barrier, so that no owner frees a buffer a peer still holds."""
+
+    def __init__(self, shape, dtype, device, group, ranks, me: int, chunk_src) -> None:
+        import torch.distributed as dist
+
+        self.group, self.ranks, self.me = group, tuple(ranks), int(me)
+        self.buf = torch.zeros((1, *shape), dtype=dtype, device=device)
+        self.views = self.bases = self.chunk_ptrs = self.ptrs16 = None
+        if self.buf.is_cuda:
+            from torch.multiprocessing.reductions import reduce_tensor
+
+            handles = [None] * len(self.ranks)
+            if len(self.ranks) > 1:
+                dist.all_gather_object(handles, reduce_tensor(self.buf[0]), group=group)
+            self.views = [self.buf[0] if i == self.me else fn(*args)
+                          for i, (fn, args) in enumerate(handles)]
+            for i, v in enumerate(self.views):
+                if v.shape != self.buf.shape[1:] or v.dtype != dtype or not v.is_cuda:
+                    raise RuntimeError(f"HaloPeers: owner {i}'s buffer maps as {v.dtype} "
+                                       f"{tuple(v.shape)} on {v.device}")
+                if v.device != self.buf.device:  # an owner on another GPU of the host
+                    if not torch.cuda.can_device_access_peer(self.buf.device, v.device):
+                        raise RuntimeError(f"HaloPeers: {self.buf.device} cannot read "
+                                           f"{v.device}'s memory (no peer access)")
+                    # a device-to-device copy makes torch enable peer access
+                    self.buf.view(-1)[:1].copy_(v.view(-1)[:1])
+                    self.buf.zero_()
+            self.bases = tuple(v.data_ptr() for v in self.views)
+            self.chunk_ptrs, self.ptrs16 = chunk_rows(chunk_src, self.bases, shape[1],
+                                                      self.buf.element_size())
+            self.sync()
+
+    def load(self, bs: torch.Tensor) -> None:
+        """Write this rank's B shard ``bs`` (1, max_k, n) into ``buf``, in
+        the buffer's type (bf16 at ``default``); ``buf`` itself is left
+        as it is."""
+        if bs.shape != self.buf.shape:
+            raise ValueError(f"B shard {tuple(bs.shape)}: the fused kernel's buffer "
+                             f"across ranks is {tuple(self.buf.shape)}")
+        if bs.data_ptr() != self.buf.data_ptr():
+            self.buf.copy_(bs)
+
+    def rows(self) -> torch.Tensor:
+        """Every owner's rows, (p, max_k, n), by ``all_gather`` (CPU)."""
+        import torch.distributed as dist
+
+        if len(self.ranks) == 1:
+            return self.buf
+        out = [torch.empty_like(self.buf[0]) for _ in self.ranks]
+        dist.all_gather(out, self.buf[0], group=self.group)
+        return torch.stack(out)
+
+    def sync(self) -> None:
+        """The host barrier the TPU kernel's semaphores stand for: this
+        rank's stream drained, then every rank of the group."""
+        import torch.distributed as dist
+
+        if self.buf.is_cuda:
+            torch.cuda.current_stream(self.buf.device).synchronize()
+        if len(self.ranks) > 1:
+            dist.barrier(group=self.group)
+
+    def close(self) -> None:
+        if self.views is not None:
+            self.views = self.bases = self.chunk_ptrs = None
+            self.sync()
+
+
 # ------------------------------------------------------------------ wrapper
 
+def chunk_rows(chunk_src, bases, n: int, itemsize: int) -> tuple:
+    """The kernel's chunk pointers: for each (owner, row) pair of the
+    plan's chunk table, the address of that row in the owner's shard,
+    ``bases[owner] + row * n * itemsize``, 0 past the matrix; an int64
+    tensor on the table's device, and whether every pointer is on 16
+    bytes.  ``bases``: the p owners' base addresses (the mapped buffers
+    across processes, made once by :class:`HaloPeers`)."""
+    owner, row = chunk_src.long().unbind(1)
+    base = torch.tensor(bases, dtype=torch.int64, device=chunk_src.device)
+    rows = torch.where(owner >= 0, base[owner.clamp(min=0)] + row * (n * itemsize), 0)
+    return rows, all(x % 16 == 0 for x in bases)
+
+
+def stacked_chunk_rows(chunk_src, b_shards) -> tuple:
+    """:func:`chunk_rows` for a stacked B (p, rows, n) on one card, whose
+    owners are its shards at one stride: a few elementwise ops on the
+    table, with B's address a scalar (no host-to-device copy, nothing
+    kept between launches)."""
+    step = b_shards.shape[2] * b_shards.element_size()
+    owner, row = chunk_src.to(torch.int64).unbind(1)
+    rows = owner * (b_shards.shape[1] * step)
+    rows.add_(row, alpha=step).add_(b_shards.data_ptr()).masked_fill_(owner < 0, 0)
+    shard_bytes = b_shards.shape[1] * step
+    return rows, (b_shards.data_ptr() % 16 == 0
+                  and (b_shards.shape[0] == 1 or shard_bytes % 16 == 0))
+
+
 def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows,
-              *, min_b_rows: int):
-    """Fused halo exchange + windowed SpMM over every shard
-    (``csrc/halo.cu``): (p, G*TM, n) from the stacked B shards (p, max_k,
-    n) and (p, G, TM, W) panels: at ``x3`` the bf16 pair ``panels = (ah,
-    al)`` and fp32 B (#4's ``wgmma`` body with the chunk lookup), at
-    ``default`` the bf16 hi plane and bf16 B (its one-pass mode, fp32 C),
-    at ``highest`` fp32 panels and B (3xTF32 on the tensor cores), or fp64
-    panels and B; the bf16 panels must start on 16 bytes.  fp32 panels at
-    ``x3`` and ``default`` have no kernel: the plans hold the pair and the
-    plane.  Replaces ``halo_spmm_local`` (``spmm_halo.py:349``, kernel
+              *, min_b_rows: int, peers: HaloPeers | None = None):
+    """Fused halo exchange + windowed SpMM (``csrc/halo.cu``): (s, G*TM, n)
+    from the (s, G, TM, W) panels of s shards: at ``x3`` the bf16 pair
+    ``panels = (ah, al)`` and fp32 B (#4's ``wgmma`` body with the chunk
+    lookup), at ``default`` the bf16 hi plane and bf16 B (its one-pass
+    mode, fp32 C), at ``highest`` fp32 panels and B (3xTF32 on the tensor
+    cores), or fp64 panels and B; the bf16 panels must start on 16 bytes.
+    fp32 panels at ``x3`` and ``default`` have no kernel: the plans hold
+    the pair and the plane.  Without ``peers`` (one card) ``b_shards`` is
+    the stacked B (p, max_k, n) of every owner and s = p; with them
+    (across processes) it is their ``buf``, this rank's shard, and the
+    launch reads the p owners' buffers between two host barriers.
+    Replaces ``halo_spmm_local`` (``spmm_halo.py:349``, kernel
     ``_halo_kernel``)."""
     pair = isinstance(panels, tuple)
     planes = panels if pair else (panels,)
+    if peers is not None and b_shards.data_ptr() != peers.buf.data_ptr():
+        raise ValueError("spmm_halo: across processes B must be the peers' own buffer")
     if _placement("spmm_halo", ws, *planes, chunk_src, b_shards) == "cpu":
-        return spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards,
-                               precision, buf_rows)
+        if peers is None:
+            return spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards,
+                                   precision, buf_rows)
+        return spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, peers.rows(),
+                               precision, buf_rows, consumers=[peers.me])
     name, panel_dtype, b_dtype = window_entry("spmm_halo", planes, precision)
-    p, G, TM, W = planes[0].shape
+    s_, G, TM, W = planes[0].shape
     for t in planes:
-        if (t.dtype != panel_dtype or t.shape != (p, G, TM, W) or not t.is_contiguous()
+        if (t.dtype != panel_dtype or t.shape != (s_, G, TM, W) or not t.is_contiguous()
                 or TM % 128 or W % 32):
             raise ValueError(f"spmm_halo: panels must be contiguous {panel_dtype} of one "
                              f"shape with TM % 128 == 0 and W % 32 == 0; got {t.dtype} "
                              f"{tuple(t.shape)}")
     if panel_dtype == torch.bfloat16:
         _check_aligned("spmm_halo", **dict(zip(("ah", "al"), planes)))
-    if ws.dtype != torch.int32 or ws.shape != (p, G) or not ws.is_contiguous():
-        raise ValueError(f"spmm_halo: ws must be contiguous int32 of shape ({p}, {G})")
-    if chunk_src.dtype != torch.int32 or chunk_src.dim() != 1 or not chunk_src.is_contiguous():
-        raise ValueError("spmm_halo: chunk_src must be a contiguous 1-D int32 tensor")
+    if ws.dtype != torch.int32 or ws.shape != (s_, G) or not ws.is_contiguous():
+        raise ValueError(f"spmm_halo: ws must be contiguous int32 of shape ({s_}, {G})")
+    if (chunk_src.dtype != torch.int32 or chunk_src.dim() != 2 or chunk_src.shape[1] != 2
+            or not chunk_src.is_contiguous()):
+        raise ValueError("spmm_halo: chunk_src must be a contiguous (chunks, 2) int32 "
+                         "tensor of (owner, row) pairs")
     if (b_shards.dtype != b_dtype or b_shards.dim() != 3
-            or b_shards.shape[0] != p or not b_shards.is_contiguous()):
+            or b_shards.shape[0] != (1 if peers is not None else s_)
+            or not b_shards.is_contiguous()):
         raise ValueError(f"spmm_halo: B must be contiguous {b_dtype} shards of "
-                         f"shape ({p}, rows, n)")
+                         f"shape ({s_}, rows, n)")
     if b_shards.shape[1] != min_b_rows:
         raise ValueError(f"spmm_halo: B shards have {b_shards.shape[1]} rows, the "
                          f"chunk table was built for {min_b_rows}")
     from . import _build
 
     n = b_shards.shape[2]
-    c = torch.empty((p, G * TM, n), dtype=torch.float64 if panel_dtype == torch.float64
+    if peers is None:
+        rows, rows16 = stacked_chunk_rows(chunk_src, b_shards)
+    elif peers.chunk_ptrs.shape[0] != chunk_src.shape[0]:
+        raise ValueError("spmm_halo: the peers' chunk pointers are of another plan")
+    else:
+        rows, rows16 = peers.chunk_ptrs, peers.ptrs16
+    c = torch.empty((s_, G * TM, n), dtype=torch.float64 if panel_dtype == torch.float64
                     else torch.float32, device=b_shards.device)
+    if peers is not None:
+        peers.sync()  # every owner's B written
     with torch.cuda.device(b_shards.device):
         stream = torch.cuda.current_stream(b_shards.device).cuda_stream
-        rc = _build.entry(name)(chunk_src.data_ptr(), ws.data_ptr(),
-                                *(t.data_ptr() for t in planes), b_shards.data_ptr(),
-                                c.data_ptr(), p * G, TM, W, n, stream)
+        rc = _build.entry(name)(rows.data_ptr(), ws.data_ptr(),
+                                *(t.data_ptr() for t in planes), c.data_ptr(),
+                                s_ * G, TM, W, n, int(rows16), stream)
     _build.check(rc, name)
     spmm_halo.launches += 1
+    if peers is not None:
+        peers.sync()  # no owner overwrites its B while a peer reads it
     return c
 
 

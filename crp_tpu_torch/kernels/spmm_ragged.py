@@ -649,16 +649,24 @@ def spill_row_view(rel, cols, vals, blk, M: int, TMo: int, L: int = ROW_ITEM_SLO
     return vcols, vvals, items, parts
 
 
-def stack_row_views(views) -> tuple:
+def row_view_sizes(views) -> list:
+    """The longest of each of the views' four arrays."""
+    return [max(v[k].shape[0] for v in views) for k in range(4)]
+
+
+def stack_row_views(views, sizes=None) -> tuple:
     """Per-shard views of :func:`spill_row_view` with a leading shard axis,
-    each padded to the longest: slots with column 0 and value 0 (no item
-    reaches them), items that repeat the shard's sentinel (row -1, no
-    slot), partials of count 1 (none is referenced)."""
-    if len(views) == 1:
-        return tuple(x[None] for x in views[0])
+    each padded to the longest (or to ``sizes``, the longest of a stacked
+    pack whose other shards are held elsewhere): slots with column 0 and
+    value 0 (no item reaches them), items that repeat the shard's sentinel
+    (row -1, no slot), partials of count 1 (none is referenced)."""
+    if sizes is None:
+        if len(views) == 1:
+            return tuple(x[None] for x in views[0])
+        sizes = row_view_sizes(views)
     out = []
     for k, fill in enumerate((0, 0.0, None, 1)):
-        size = max(v[k].shape[0] for v in views)
+        size = sizes[k]
         rows = []
         for v in views:
             x = v[k]

@@ -43,16 +43,19 @@ def pack_device_csr(rowptr, colidx, val, nnz_pad, nrow=None, dtype=None):
     return row_ids, cols, vals
 
 
-def segment_sum(x, offsets):
+def segment_sum(x, offsets, phase: int = 0):
     """Fixed-order sums of the consecutive segments
     ``x[offsets[j]:offsets[j + 1]]`` along dim 0 (an empty one sums to 0).
 
     Two levels, so that a long segment (a hub row) is not one thread's
     serial loop: the segments are cut at every ``SEGSUM_PIECE``-th slot of
     ``x``; each piece is summed slot after slot, then each segment's pieces
-    piece after piece."""
-    cuts = torch.arange(0, x.shape[0], SEGSUM_PIECE, dtype=offsets.dtype,
-                        device=offsets.device)
+    piece after piece.  ``phase``: x's first slot is slot ``phase`` of the
+    run the cuts count in (a rank's part of a longer run sums as the run
+    does)."""
+    first = (-phase) % SEGSUM_PIECE
+    cuts = torch.arange(first, max(first, x.shape[0]), SEGSUM_PIECE,
+                        dtype=offsets.dtype, device=offsets.device)
     bounds = torch.sort(torch.cat([offsets, cuts.clamp(offsets[:1], offsets[-1:])])).values
     pieces = torch.segment_reduce(x, "sum", offsets=bounds, unsafe=True)
     return torch.segment_reduce(pieces, "sum", offsets=torch.searchsorted(bounds, offsets),

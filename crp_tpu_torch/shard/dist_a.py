@@ -9,10 +9,12 @@ the host (the global rowptr and each row's column range,
 colidx / val vectors, as 1 x nnz blocks, from the user's nnz ranges to
 per-(pi, pj) subranges of each row panel (``crpspmm.c:240-265``, here a
 :class:`~crp_tpu_torch.shard.redist.RedistEngine`), then an Allgatherv
-along each grid row assembles the panel (``crpspmm.c:559-584``).  Every
-owner's block lies on the engine's one device, so that all_gather is a
-concatenation of the pn chunks; each panel is then staged to the host for
-the kernel pack, as JAX stages one replica.  The audit counters are JAX's.
+along each grid row assembles the panel (``crpspmm.c:559-584``).  Without
+a mesh every owner's block lies on the engine's one device, so that
+all_gather is a concatenation of the pn chunks; each panel is then staged
+to the host for the kernel pack, as JAX stages one replica.  On a mesh of
+ranks (:func:`replicate_a0_rank`) each rank reads its own block and the
+all_gather runs on its row group.  The audit counters are JAX's.
 """
 
 from __future__ import annotations
@@ -25,6 +27,11 @@ import torch
 from ..sparse.csr import CSRMatrix
 from ..utils.blocks import uniform_displs
 from .redist import BlockDist, RedistEngine
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch type of a numpy type."""
+    return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
 
 
 def _index(ci, idx: np.ndarray) -> np.ndarray:
@@ -163,10 +170,6 @@ def _panel(grp, r0: int, r1: int, k: int, ci_chunks, v_chunks, lens) -> CSRMatri
     return CSRMatrix(r1 - r0, k, grp[r0 : r1 + 1] - grp[r0], ci, v)
 
 
-def _torch_dtype(dtype) -> torch.dtype:
-    return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
-
-
 def ingest_dist_a(dist: DistCSR, m_split_idx: np.ndarray, pm: int, pn: int, device,
                   val_dtype=np.float64) -> tuple:
     """Reshard and replicate distributed A into the pm row-panel CSRs
@@ -202,7 +205,7 @@ def ingest_dist_a(dist: DistCSR, m_split_idx: np.ndarray, pm: int, pn: int, devi
     rd_Ai = RedistEngine(src_bd, dst_bd, device, dtype=np.int32)
     rd_Av = RedistEngine(src_bd, dst_bd, device, dtype=val_dtype)
     x_ci = _stack_blocks(dist.colidxs, src_bd.max_w, torch.int32, rd_Ai.device)
-    x_v = _stack_blocks(dist.vals, src_bd.max_w, _torch_dtype(val_dtype), rd_Av.device)
+    x_v = _stack_blocks(dist.vals, src_bd.max_w, torch_dtype(val_dtype), rd_Av.device)
     ci_int = rd_Ai.exec_device(x_ci)[:, 0].view(pm, pn, -1)   # (pm, pn, dst_maxw)
     v_int = rd_Av.exec_device(x_v)[:, 0].view(pm, pn, -1)
     panels = [_panel(grp, int(m_split_idx[i]), int(m_split_idx[i + 1]), dist.k,
@@ -230,7 +233,45 @@ def replicate_a0(dist: DistCSR, a0_rowptr: np.ndarray, pm: int, pn: int, device,
     blk_nnz = grp[a0[1:]] - grp[a0[:-1]]
     maxw = int(max(blk_nnz.max(), 1))
     x_ci = _stack_blocks(dist.colidxs, maxw, torch.int32, device).view(pm, pn, maxw)
-    x_v = _stack_blocks(dist.vals, maxw, _torch_dtype(val_dtype), device).view(pm, pn, maxw)
+    x_v = _stack_blocks(dist.vals, maxw, torch_dtype(val_dtype), device).view(pm, pn, maxw)
     return [_panel(grp, int(a0[i * pn]), int(a0[(i + 1) * pn]), dist.k, x_ci[i], x_v[i],
                    blk_nnz[i * pn : (i + 1) * pn].tolist())
             for i in range(pm)]
+
+
+def replicate_a0_rank(dist_a: DistCSR, a0_rowptr: np.ndarray, mesh,
+                      val_dtype=np.float64) -> list:
+    """:func:`replicate_a0` on a mesh of ranks: rank ``r = pi*pn + pj``
+    reads block r of ``dist_a`` alone, and panel pi is its row group's
+    ``dist.all_gather`` of their blocks (JAX's device-side ``all_gather``
+    along pn, ``crp_tpu/engine/para2d.py:80-104``), padded to the row's
+    longest block and cut back on the host.  The exchange plan needs every
+    panel's columns, so the panels then travel along the column group
+    (``all_gather_object``): every rank plans from every panel, as every
+    JAX process plans from the whole A.  Returns the pm host panel CSRs,
+    equal to :func:`replicate_a0`'s."""
+    import torch.distributed as tdist
+
+    from ..comm.exchange import gather_shards
+
+    pm, pn, r = mesh.pm, mesh.pn, mesh.rank
+    assert dist_a.p == pm * pn, (dist_a.p, pm, pn)
+    a0 = np.asarray(a0_rowptr, dtype=np.int64)
+    assert np.array_equal(a0, dist_a.row_displs), "blocks must be in A0 layout"
+    grp = dist_a.global_rowptr()
+    blk_nnz = grp[a0[1:]] - grp[a0[:-1]]
+    pi = mesh.pi
+    lens = blk_nnz[pi * pn : (pi + 1) * pn].tolist()
+    maxw = int(max(max(lens), 1))
+    device = mesh.device
+    ci = _stack_blocks([dist_a.colidxs[r]], maxw, torch.int32, device)
+    v = _stack_blocks([dist_a.vals[r]], maxw, torch_dtype(val_dtype), device)
+    ci_row = gather_shards(ci, mesh.row_group, pn)[:, 0]   # (pn, maxw)
+    v_row = gather_shards(v, mesh.row_group, pn)[:, 0]
+    panel = _panel(grp, int(a0[pi * pn]), int(a0[(pi + 1) * pn]), dist_a.k, ci_row, v_row,
+                   lens)
+    if pm == 1:
+        return [panel]
+    panels = [None] * pm
+    tdist.all_gather_object(panels, panel, group=mesh.col_group)
+    return panels

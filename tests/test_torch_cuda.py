@@ -859,7 +859,7 @@ def test_window_highest_tf32x3_matches_plain(cuda_device, case, kernel):
 def _halo_hand_pack(rng, W, n, displs=(0, 256, 640, 768, 1152)):
     """A halo pack by hand, by default of 4 shards: uneven 128-aligned
     ownership ``displs`` (256, 384, 128 and 384 rows of a 1152-row B, so
-    the chunk table is no identity), 3 groups of 128 rows a shard at
+    the chunk table is no identity; (owner, row) pairs), 3 groups of 128 rows a shard at
     128-aligned window starts, the last groups' running past the matrix
     (dead chunks, -1) where W > 128, and the last shard's first window
     wholly past it.  Shard 1's last group is a zero pad group.  Returns the
@@ -872,7 +872,8 @@ def _halo_hand_pack(rng, W, n, displs=(0, 256, 640, 768, 1152)):
     ws[p - 1, 0] = k_glb
     rows = np.arange(-(-(int(ws.max()) + W) // 128)) * 128
     j = np.minimum(np.searchsorted(displs, rows, side="right") - 1, p - 1)
-    chunk_src = np.where(rows < k_glb, j * max_k + rows - displs[j], -1)
+    chunk_src = np.stack([np.where(rows < k_glb, j, -1),
+                          np.where(rows < k_glb, rows - displs[j], 0)], axis=1)
     lo = ws.min(axis=1)
     ws_rel = ws - lo[:, None]
     buf_rows = -(-(int(ws_rel.max()) + W) // 128) * 128
@@ -887,7 +888,7 @@ def _halo_hand_pack(rng, W, n, displs=(0, 256, 640, 768, 1152)):
     bs = np.full((p, max_k, n), np.nan, np.float32)
     for i in range(p):
         bs[i, : displs[i + 1] - displs[i]] = b[displs[i]:displs[i + 1]]
-    assert (chunk_src == -1).any()
+    assert (chunk_src[:, 0] == -1).any()
     return ws, ws_rel, panels, np.array(push), chunk_src, bs, buf_rows, max_k
 
 
@@ -1878,3 +1879,81 @@ def test_drivers_on_card(cuda_device, tmp_path, capsys):
     # #7 runs the wgmma body, #9 and #10 the row walk with and without C
     for body in ("x3_wgmma_kernel", "spill_rows_kernel<true", "spill_rows_kernel<false"):
         assert body in names, body
+
+
+def _stacked_case(cuda_device, prec, dtype, p=4):
+    a = banded_random_csr(2600, nnz_per_row=7, bandwidth=90, seed=99, dtype=dtype)
+    d = csr_row_partition(a.rowptr, p)
+    aligned = spmm_halo.align_displs(d, a.ncol)
+    shards = [a.row_slice(int(d[i]), int(d[i + 1])) for i in range(p)]
+    arrays, op = spmm_halo.build_halo_plan(shards, aligned, device=cuda_device,
+                                           dtype=dtype, precision=prec)
+    n = 48
+    b = fill_b(0, a.ncol, 0, n, dtype=dtype)
+    bs = np.zeros((p, op.min_b_rows, n), dtype)
+    for i in range(p):
+        bs[i, : aligned[i + 1] - aligned[i]] = b[aligned[i]:aligned[i + 1]]
+    return arrays, op, torch.from_numpy(bs).to(cuda_device)
+
+
+@pytest.mark.parametrize("prec,dtype", [(p, d) for p, d, _ in POINTS])
+def test_halo_owner_table_equals_stacked_launch(cuda_device, prec, dtype):
+    """#12 with each owner's shard a separate allocation (the owners' bases
+    given by hand, as the ranks' mapped buffers give them) equals the
+    one-card launch on the stacked B bit for bit: one body, the same rows
+    in the same order, wherever the owners live."""
+    arrays, op, bs = _stacked_case(cuda_device, prec, dtype)
+    args = op.kernel_args(arrays, bs)
+    stacked = op.kernel(*args, min_b_rows=op.min_b_rows)
+    owners = [bs[i].clone() for i in range(bs.shape[0])]  # one allocation each
+    b_read = args[5]  # B as the kernel reads it (bf16 at default)
+    owners = [t.to(b_read.dtype) for t in owners]
+    ptrs = [t.data_ptr() for t in owners]
+    chunk_ptrs, ptrs16 = spmm_halo.chunk_rows(args[4], ptrs, b_read.shape[2],
+                                              b_read.element_size())
+    peers = type("Peers", (), dict(buf=owners[0][None], bases=tuple(ptrs),
+                                   chunk_ptrs=chunk_ptrs, ptrs16=ptrs16,
+                                   sync=lambda self: None))()
+    before = spmm_halo.spmm_halo.launches
+    got = spmm_halo.spmm_halo(*args[:5], peers.buf, *args[6:], min_b_rows=op.min_b_rows,
+                              peers=peers)
+    assert spmm_halo.spmm_halo.launches == before + 1
+    assert got.shape == stacked.shape
+    view = torch.int64 if got.dtype == torch.float64 else torch.int32
+    assert torch.equal(got.view(view), stacked.view(view))
+
+
+def test_halo_across_two_processes_equals_one_card(cuda_device):
+    """Two ranks on the one card (gloo for the control plane), one process
+    each, ``RowParaSpmm(kernel="pallas_halo", mesh=make_mesh_1d(2))``: each
+    rank's B buffer is mapped into its peer by CUDA IPC, and each rank's C
+    shard, its gathered C and its panels equal the one-card engine's bit
+    for bit at every point."""
+    from tests.torch_dist_ranks import bits, run_ranks
+
+    a = banded_random_csr(2600, nnz_per_row=7, bandwidth=90, seed=98, dtype=np.float32)
+    d = csr_row_partition(a.rowptr, 2)
+    cases = []
+    for prec, dtype in (("x3", np.float32), ("default", np.float32),
+                        ("highest", np.float32), ("highest", np.float64)):
+        aa = CSRMatrix(a.nrow, a.ncol, a.rowptr, a.colidx, a.val.astype(dtype))
+        cases.append(dict(engine="rowpara", a=aa, displs=d, n=40, dtype=dtype,
+                          config=dict(kernel="pallas_halo", mxu_precision=prec),
+                          b=np.asarray(fill_b(0, a.ncol, 0, 40, dtype=dtype))))
+    per_rank = run_ranks(2, "engines_on_card", cases)
+    for i, case in enumerate(cases):
+        one = RowParaSpmm(case["a"], d, d, 40, device=cuda_device, dtype=case["dtype"],
+                          config=SpmmConfig(**case["config"]))
+        c1 = one.exec(case["b"])
+        shards = one.exec_device(one.shard_b(case["b"]))
+        packed = [bits(x) for x in one.packed]
+        for r, got in enumerate(per_rank):
+            g = got[i]
+            assert g["kernel_kind"] == "pallas_halo"
+            assert np.array_equal(g["c"], c1) and np.array_equal(g["again"], c1)
+            assert np.array_equal(g["shard"][0], bits(shards[r]))
+            ws, ws_rel, *panels, push, chunk_src = packed
+            mine = [ws[r : r + 1], ws_rel[r : r + 1], *(t[r : r + 1] for t in panels),
+                    push, chunk_src]
+            for x, y in zip(g["packed"], mine, strict=True):
+                assert np.array_equal(x, y)

@@ -134,10 +134,10 @@ def test_ragged_kind_packs_without_a_fallback(monkeypatch, caplog, device):
     tried = []
     pack = td.pack_local_kernel
 
-    def recording_pack(shards, max_m, dtype, kind, *, device, mxu_precision):
+    def recording_pack(shards, max_m, dtype, kind, *, device, mxu_precision, rank=None):
         tried.append((kind, torch.device(device).type))
         return pack(shards, max_m, dtype, kind, device="cpu",
-                    mxu_precision=mxu_precision)
+                    mxu_precision=mxu_precision, rank=rank)
 
     monkeypatch.setattr(td, "pack_local_kernel", recording_pack)
     a = powerlaw_random_csr(600, avg_degree=9, seed=1, dtype=np.float32)
@@ -192,14 +192,14 @@ def test_dd_skip_mxu_avoids_a_second_cover(monkeypatch):
     the CPU."""
     calls = []
 
-    def refuse(shards, max_m, device):
+    def refuse(shards, max_m, device, rank=None):
         calls.append(torch.device(device).type)
         raise UnsupportedSparsity("forced")
 
     pack_dd = td._pack_dd
     monkeypatch.setattr(td, "_pack_dd_mxu", refuse)
-    monkeypatch.setattr(td, "_pack_dd", lambda shards, max_m, device:
-                        pack_dd(shards, max_m, torch.device("cpu")))
+    monkeypatch.setattr(td, "_pack_dd", lambda shards, max_m, device, rank=None:
+                        pack_dd(shards, max_m, torch.device("cpu"), rank))
     a = banded_random_csr(64, nnz_per_row=3, bandwidth=8, seed=0)
     shard = [(a.rowptr, a.colidx, a.val)]
     cuda = torch.device("cuda", 0)

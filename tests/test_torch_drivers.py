@@ -129,13 +129,18 @@ def test_suite_cli_project_and_roofline(capsys):
 
 
 @pytest.mark.parametrize("main,argv", [
-    (tbench.main, ["synth:banded:400:5:20", "8", "1", "0", "--distributed"]),
-    (tsuite.main, ["vary_n", "synth:banded:400:5:20", "1", "--distributed"]),
+    (tbench.main, ["synth:banded:400:5:20", "8", "1", "0", "--engine=crp",
+                   "--distributed"]),
+    (tsuite.main, ["vary_n", "synth:banded:400:5:20", "1", "--engine=crp",
+                   "--distributed"]),
 ])
 def test_distributed_raises_naming_a8(main, argv):
+    """``--distributed`` runs the 1D and 2D engines across ranks
+    (``tests/test_torch_dist_drivers.py``); the any-layout engine across
+    ranks is what is left of A8, and refuses, before joining any group."""
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         main(argv)
-    assert "A8" in DISTRIBUTED_REFUSAL
+    assert "A8" in DISTRIBUTED_REFUSAL and "CrpSpmm" in DISTRIBUTED_REFUSAL
 
 
 def test_usage(capsys):

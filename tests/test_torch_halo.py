@@ -84,14 +84,46 @@ def test_halo_plan_matches_jax(p, dtype):
     want = [list(zip(jp.push_src[j, :n], jp.push_dev[j, :n], jp.push_dst[j, :n]))
             for j, n in enumerate(jp.npush[:, 0])]
     assert _by_owner(push, p) == [[tuple(map(int, t)) for t in w] for w in want]
-    # the chunk table points every global chunk at its owner's row
-    for c, src in enumerate(chunk_src):
+    # the chunk table points every global chunk at its owner and its row
+    # in the owner's shard
+    assert chunk_src.shape[1] == 2 and op.p == p
+    for c, (owner, src) in enumerate(chunk_src):
         row = c * 128
         if row >= a.ncol:
-            assert src == -1
+            assert owner == -1
             continue
         j = int(np.searchsorted(aligned, row, side="right") - 1)
-        assert src == j * op.min_b_rows + row - aligned[j]
+        assert (owner, src) == (j, row - aligned[j])
+        assert src + 128 <= op.min_b_rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("p", [1, 3])
+def test_chunk_pointers_address_the_owners_rows(p, dtype):
+    """The kernel's chunk pointers: on one card (``stacked_chunk_rows``,
+    made at each launch from B's address) and from owners held apart
+    (``chunk_rows`` on their bases, as ``HaloPeers`` makes them once), each
+    chunk's pointer is the address of its first row in its owner's shard,
+    0 past the matrix."""
+    a = _banded(np.float64, seed=70 + p, nrow=1500)
+    shards, aligned = _shards(a, p)
+    arrays, op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float64)
+    chunk_src = arrays[-1]
+    n = 24
+    bs = torch.zeros((p, op.min_b_rows, n), dtype=dtype)
+    owners = [torch.zeros((op.min_b_rows, n), dtype=dtype) for _ in range(p)]
+    stacked, s16 = th.stacked_chunk_rows(chunk_src, bs)
+    apart, a16 = th.chunk_rows(chunk_src, [t.data_ptr() for t in owners], n,
+                               bs.element_size())
+    assert stacked.dtype == apart.dtype == torch.int64
+    for c, (owner, row) in enumerate(chunk_src.tolist()):
+        if owner < 0:
+            assert int(stacked[c]) == int(apart[c]) == 0
+            continue
+        assert int(stacked[c]) == bs[owner, row].data_ptr()
+        assert int(apart[c]) == owners[owner][row].data_ptr()
+    assert s16 == (bs.data_ptr() % 16 == 0)
+    assert a16 == all(t.data_ptr() % 16 == 0 for t in owners)
 
 
 def _anti_banded(nrow=1500, seed=7):

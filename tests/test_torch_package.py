@@ -200,6 +200,45 @@ def test_any_layout_modules_run_without_jax():
                                         "rowpara overlap") else 1e-6), (name, err)
 
 
+def test_mesh_modules_run_without_jax():
+    """Ranks of a mesh (``tests/torch_dist_ranks.py``: gloo processes with
+    ``jax``, ``crp_tpu`` and ml_dtypes blocked) run the engines across
+    ranks, and hold no module of either; the test process imports the new
+    modules with the same modules blocked."""
+    from crp_tpu_torch.plan.planner2d import plan_from_csr
+    from crp_tpu_torch.sparse.synth import banded_random_csr, fill_b
+
+    from tests.torch_dist_ranks import run_ranks
+
+    code = ("import sys\nsys.modules['jax'] = None\nsys.modules['crp_tpu'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
+            "from crp_tpu_torch.shard import layout, dist_a\n"
+            "from crp_tpu_torch.comm import exchange, ring\n"
+            "from crp_tpu_torch.kernels import spmm_halo\n"
+            "from crp_tpu_torch.cli import _driver, bench_cli, suite_cli\n"
+            "assert callable(layout.init_distributed) and spmm_halo.HaloPeers\n"
+            "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
+            "assert not any(m.split('.')[0] in ('jax', 'crp_tpu', 'ml_dtypes') "
+            "for m in loaded)\nprint('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
+    a = banded_random_csr(700, nnz_per_row=7, bandwidth=40, seed=5)
+    plan = plan_from_csr(a, 12, 2)
+    from crp_tpu_torch.plan.partition1d import csr_row_partition
+
+    got = run_ranks(2, "loaded", dict(a=a, displs=csr_row_partition(a.rowptr, 2), plan=plan,
+                                      b=np.asarray(fill_b(0, a.ncol, 0, 12))))
+    for rank in got:
+        assert not any(m.split(".")[0] in ("jax", "crp_tpu", "ml_dtypes")
+                       for m in rank["modules"])
+        assert "crp_tpu_torch.kernels.spmm_halo" in rank["modules"]
+        assert len(rank["errs"]) == 5
+        for name, err in rank["errs"].items():
+            assert err <= 1e-12, (name, err)
+
+
 def test_chip_smoke_loads_without_crp_tpu():
     """``chip_smoke.py`` imported with ``crp_tpu`` and jax blocked: its
     module and the port's engines and kernels load."""
@@ -250,8 +289,8 @@ def test_chip_smoke_imports_only_the_port():
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
     assert "crp_tpu_torch" in roots
-    assert roots <= {"__future__", "json", "subprocess", "sys", "time", "numpy",
-                     "torch", "crp_tpu_torch"}, roots
+    assert roots <= {"__future__", "hashlib", "json", "os", "socket", "subprocess", "sys",
+                     "tempfile", "time", "numpy", "torch", "crp_tpu_torch"}, roots
 
 
 @pytest.mark.parametrize("seed,ncols", [(3, 1), (5, 32)])

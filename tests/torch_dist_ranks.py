@@ -1,0 +1,282 @@
+"""Run the port on a mesh of gloo ranks, one subprocess a rank: on the CPU,
+or every rank on the one card (``engines_on_card``).
+
+:func:`run_ranks` starts ``world`` copies of this file, each with the env
+``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` / ``MASTER_PORT`` on localhost), hands each the same
+pickled job, and returns every rank's pickled result.  A rank holds torch
+to one thread (``torch_threads``), blocks ``jax`` and ``crp_tpu`` from
+import (the port never needs them), joins the group through
+``crp_tpu_torch.shard.layout.init_distributed(device="cpu")`` (gloo), and
+runs one of the jobs below.  A rank that fails fails the run with its
+stderr.
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import pickle
+import socket
+import subprocess
+import sys
+import tempfile
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world: int, job: str, payload, timeout: float = 240.0) -> list:
+    """Each rank's result of ``job(payload)`` on ``world`` gloo ranks."""
+    with tempfile.TemporaryDirectory(prefix="crp_ranks_") as d:
+        d = pathlib.Path(d)
+        (d / "in.pkl").write_bytes(pickle.dumps((job, payload)))
+        port = free_port()
+        procs = []
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       PYTHONPATH=os.pathsep.join([str(REPO), str(REPO / "tests")]),
+                       OMP_NUM_THREADS="1")
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, str(d / "in.pkl"), str(d / f"out{r}.pkl")],
+                env=env, cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        errors = []
+        for r, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+            if proc.returncode:
+                errors.append(f"rank {r} exited {proc.returncode}:\n{out}\n{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return [pickle.loads((d / f"out{r}.pkl").read_bytes()) for r in range(world)]
+
+
+def bits(t) -> "np.ndarray":
+    """A tensor's values as numpy, bf16 as its int16 bits (numpy has no
+    bf16): equal arrays, equal bits."""
+    import torch
+
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+# --------------------------------------------------------------- the jobs
+
+
+def _engine(case, mesh):
+    """The case's engine on ``mesh`` (or on one device, mesh None)."""
+    from crp_tpu_torch.config import SpmmConfig
+    from crp_tpu_torch.engine.para2d import Para2dSpmm
+    from crp_tpu_torch.engine.rowpara import RowParaSpmm
+    from crp_tpu_torch.shard.dist_a import DistCSR
+
+    if "ring_block_bytes" in case:  # overlap's segment-sum chunks, as the test sets them
+        from crp_tpu_torch.comm import ring
+
+        ring.SEGSUM_BLOCK_BYTES = case["ring_block_bytes"]
+    config = SpmmConfig(**case.get("config", {}))
+    a, dtype, device = case["a"], case["dtype"], mesh.device
+    if case["engine"] == "rowpara":
+        return RowParaSpmm(a, case["displs"], case["displs"], case["n"], device=device,
+                           config=config, dtype=dtype, mesh=mesh)
+    if case["engine"] == "para2d":
+        return Para2dSpmm(a, case["plan"], device=device, config=config, dtype=dtype,
+                          mesh=mesh)
+    dist_a = DistCSR.from_global(a, case["plan"].A0_rowptr)
+    return Para2dSpmm.from_dist_a(dist_a, case["plan"], device=device, config=config,
+                                  dtype=dtype, mesh=mesh)
+
+
+def engines(cases) -> list:
+    """Each case's engine on the world's mesh (1D for ``rowpara``, the
+    plan's grid otherwise): the global C of ``exec`` (twice: a second exec
+    repeats the first), this rank's C shard, its packed arrays, and the
+    engine's counts and decisions."""
+    import torch.distributed as dist
+
+    from crp_tpu_torch.shard.layout import make_mesh_1d, make_mesh_2d
+
+    world = dist.get_world_size()
+    out = []
+    for case in cases:
+        if case["engine"] == "rowpara":
+            mesh = make_mesh_1d(world)
+        else:
+            mesh = make_mesh_2d(case["plan"].pm, case["plan"].pn)
+        eng = _engine(case, mesh)
+        c = eng.exec(case["b"])
+        again = eng.exec(case["b"])
+        bs, again_bs = eng.shard_b(case["b"]), eng.shard_b(case["b"])
+        shard = eng.exec_device(bs)
+        # shard_b's results are new tensors: neither each other nor the engine's buffer
+        held = {bs.data_ptr(), again_bs.data_ptr()}
+        if getattr(eng, "peers", None) is not None:
+            held.add(eng.peers.buf.data_ptr())
+        stat = eng.print_stat()
+        out.append(dict(
+            c=c, again=again, shard=bits(shard), packed=[bits(x) for x in eng.packed],
+            kernel_kind=eng.kernel_kind, rB_recv_size=eng.rB_recv_size,
+            aliased=len(held) < 2 + (getattr(eng, "peers", None) is not None),
+            physical_rows=eng.physical_rows, pi=mesh.pi, pj=mesh.pj, stat=stat,
+            halo_rows_pushed=getattr(eng._local_op, "halo_rows_pushed", None),
+        ))
+        eng.close()
+    return out
+
+
+def mesh_layout(_) -> dict:
+    """This rank's device, and its place on every grid of the world."""
+    import torch.distributed as dist
+
+    from crp_tpu_torch.shard.layout import make_mesh_2d, make_mesh_auto
+
+    world = dist.get_world_size()
+    grids = {}
+    for pm in range(1, world + 1):
+        if world % pm == 0:
+            m = make_mesh_2d(pm, world // pm)
+            auto = make_mesh_auto(pm, world // pm)
+            grids[(pm, world // pm)] = dict(
+                auto=(auto.pi, auto.pj, auto.row_ranks, auto.col_ranks),
+                pi=m.pi, pj=m.pj, row_ranks=m.row_ranks, col_ranks=m.col_ranks,
+                backend=str(dist.get_backend(m.group)), device=str(m.device),
+                row_size=None if m.row_group is None else dist.get_world_size(m.row_group),
+                col_size=None if m.col_group is None else dist.get_world_size(m.col_group))
+    refused = None
+    try:
+        make_mesh_2d(world + 1, 1)
+    except ValueError as e:
+        refused = str(e)
+    return dict(rank=dist.get_rank(), world=world, grids=grids, refused=refused)
+
+
+def direct_group(_) -> dict:
+    """A mesh over a group the rank joined through ``dist.init_process_group``
+    itself (not ``init_distributed``): its default device, or the refusal,
+    and the device when the CPU is asked for."""
+    from crp_tpu_torch.shard.layout import make_mesh_1d
+
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    try:
+        default = str(make_mesh_1d(world).device)
+    except RuntimeError as e:
+        default = f"refused: {e}"
+    return dict(default=default, asked=str(make_mesh_1d(world, device="cpu").device))
+
+
+def refusals(case) -> dict:
+    """What an engine on the world's 1D mesh refuses: a mesh that is not
+    its grid, autodiff over it, the any-layout driver across ranks."""
+    from crp_tpu_torch.config import SpmmConfig
+    from crp_tpu_torch.engine.autodiff import DifferentiableSpmm
+    from crp_tpu_torch.engine.rowpara import RowParaSpmm
+    from crp_tpu_torch.shard.layout import make_mesh_1d
+
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    mesh = make_mesh_1d(world)
+    got = {}
+    d = case["displs"]
+    try:
+        RowParaSpmm(case["a"], d[:2] if len(d) > 2 else d, d[:2] if len(d) > 2 else d,
+                    case["n"], device="cpu", mesh=mesh)
+    except ValueError as e:
+        got["grid"] = str(e)
+    try:
+        DifferentiableSpmm(case["a"], d, d, case["n"], device="cpu", mesh=mesh)
+    except NotImplementedError as e:
+        got["autodiff"] = str(e)
+    from crp_tpu_torch.engine.trainable import ValueParameterizedSpmm
+
+    try:
+        ValueParameterizedSpmm(case["a"], d, d, case["n"], device="cpu", mesh=mesh)
+    except NotImplementedError as e:
+        got["trainable"] = str(e)
+    from crp_tpu_torch.cli import bench_cli
+
+    try:
+        bench_cli.main([case["spec"], "8", "1", "0", "--engine=crp", "--device=cpu",
+                        "--distributed"])
+    except NotImplementedError as e:
+        got["crp"] = str(e)
+    return got
+
+
+def cli(argv) -> dict:
+    """A driver's ``main(argv)`` under the world's ranks: its exit code and
+    what it printed."""
+    import contextlib
+    import importlib
+    import io
+
+    module, *args = argv
+    main = importlib.import_module(f"crp_tpu_torch.cli.{module}").main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(args)
+    return dict(rc=rc, out=buf.getvalue())
+
+
+def loaded(case) -> dict:
+    """The mesh modules at work on this rank (both engines, the fused
+    kernel's plain version across ranks, both exchanges, the ring), and
+    every module the rank then holds."""
+    from crp_tpu_torch import Para2dSpmm, RowParaSpmm, SpmmConfig, rel_fro_err
+    from crp_tpu_torch.shard.layout import make_mesh_1d, make_mesh_2d
+
+    a, d, b, plan = case["a"], case["displs"], case["b"], case["plan"]
+    ref = a.spmm_ref(b)
+    errs = {}
+    for kw in (dict(kernel="segsum"), dict(kernel="segsum", rb_p2p=1),
+               dict(kernel="pallas_halo"), dict(kernel="segsum", overlap=1)):
+        eng = RowParaSpmm(a, d, d, b.shape[1], device="cpu", config=SpmmConfig(**kw),
+                          mesh=make_mesh_1d(len(d) - 1))
+        errs[f"rowpara {kw}"] = rel_fro_err(ref, eng.exec(b))
+        eng.close()
+    eng = Para2dSpmm(a, plan, device="cpu", mesh=make_mesh_2d(plan.pm, plan.pn))
+    errs["para2d"] = rel_fro_err(ref, eng.exec(b))
+    return dict(errs=errs, modules=sorted(m for m, v in sys.modules.items() if v is not None))
+
+
+JOBS = dict(engines=engines, engines_on_card=engines, mesh_layout=mesh_layout,
+            refusals=refusals, cli=cli, loaded=loaded, direct_group=direct_group)
+
+
+def _main(inp: str, out: str) -> None:
+    sys.modules["jax"] = None
+    sys.modules["crp_tpu"] = None
+    import torch_threads  # noqa: F401  one intra-op thread
+
+    import torch.distributed as dist
+
+    from crp_tpu_torch.shard.layout import init_distributed
+
+    job, payload = pickle.loads(pathlib.Path(inp).read_bytes())
+    if job == "engines_on_card":  # every rank on the one card: gloo for the control
+        init_distributed(backend="gloo")  # plane (NCCL refuses two ranks on a device)
+    elif job == "direct_group":  # as a user who calls torch.distributed alone
+        dist.init_process_group("gloo", init_method="env://")
+    elif job != "cli":  # a driver joins the group itself (--distributed)
+        init_distributed(device="cpu")
+    result = JOBS[job](payload)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    pathlib.Path(out).write_bytes(pickle.dumps(result))
+
+
+if __name__ == "__main__":
+    _main(sys.argv[1], sys.argv[2])
