@@ -122,22 +122,6 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    main-path shape, timed, with cuSPARSE on the same work; at default the
    packs must hold the bf16 hi plane alone, and B's cast to bf16 is timed
    beside each kernel;
-12b. ranks (``multirank_path``) — (b) one rank over NCCL
-   (``init_distributed()`` in this process, world size 1) on the headline's
-   p = 1 engine at x3: its C equal to the one-device engine's bit for bit;
-   a probe, in 2 processes of its own, of what gloo carries for CUDA
-   tensors; (a) the headline at p = 4 as 4 spawned processes on the one
-   card (``init_distributed(backend="gloo")``: NCCL refuses two ranks on
-   one device), ``RowParaSpmm(mesh=make_mesh_1d(4))``: ``auto`` takes #12
-   across processes (each rank's B buffer mapped into its peers by CUDA
-   IPC) at x3, default and highest, launched once a rank an exec; each
-   rank's C shard equal to slice r of the one-device fused engine's C
-   bit for bit, its rows within the point's class, the kernel against its
-   plain version on the same inputs, each rank's init memory beside the
-   one-device pack; (c) the a2a (and the ring, where gloo carries
-   send/recv) across the 4 processes, each C shard equal to the one-device
-   engine's; every time there is time-shared (four processes on one card)
-   and printed as such;
 13. cplaw at p = 4 on the ring (x3): the multi-shard ragged pack with the
    fused spill, 591,732 received B rows and 627,300 physical ring rows;
    on the host, the p = 8 exchange plan's received rows times 32 equal the
@@ -161,6 +145,31 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    ``Para2dSpmm(a, plan)`` bit for bit; ``RowParaSpmm(bc_layout=1)`` at p
    = 1 (#1), C (n, m) the row-major C transposed bit for bit, the two
    device transposes timed; each kernel against its plain version;
+15b. ranks (``multirank_path``) — (b) one rank over NCCL
+   (``init_distributed()`` in this process, world size 1) on the headline's
+   p = 1 engine at x3: its C equal to the one-device engine's bit for bit;
+   a probe, in 2 processes of its own, of what gloo carries for CUDA
+   tensors; (a) the headline at p = 4 as 4 spawned processes on the one
+   card (``init_distributed(backend="gloo")``: NCCL refuses two ranks on
+   one device), ``RowParaSpmm(mesh=make_mesh_1d(4))``: ``auto`` takes #12
+   across processes (each rank's B buffer mapped into its peers by CUDA
+   IPC) at x3, default and highest, launched once a rank an exec; each
+   rank's C shard equal to slice r of the one-device fused engine's C
+   bit for bit, its rows within the point's class, the kernel against its
+   plain version on the same inputs, each rank's init memory beside the
+   one-device pack; (c) the a2a (and the ring, where gloo carries
+   send/recv) across the 4 processes, each C shard equal to the one-device
+   engine's; (d) in the same processes ``CrpSpmm(mesh=make_mesh_2d(...))``
+   as the any-layout path drives it on one device: the headline's 4 x 1
+   ``auto`` (#12 across the processes over the column group's
+   peer-mapped B blocks, rd_B and rd_C one ``all_to_all_single`` with
+   exact splits, which the probe must find gloo carrying), finegrain (#4
+   after the all_to_all), cplaw's 1 x 4 (#7 + #9 a rank) and A as a
+   ``DistCSR`` of which each rank holds its own block: every rank's user C
+   block equal to block r of the any-layout path's one-device engine bit
+   for bit, the counters equal, one launch a rank, each headline rank's
+   init holding a quarter of the one-device pack; every time there is
+   time-shared (four processes on one card) and printed as such;
 16. training path — the examples' graph at the cplaw class's rows,
    ``powerlaw_community_csr(786432, 8, 98304, seed=5)`` with self-loops
    (6,331,056 nnz), 8 classes, hidden n = 256: the GCN's two
@@ -326,11 +335,12 @@ def time_ms(fn, reps: int = 5, inner: int = 20) -> float:
 
 def in_turns(run_kernel, run_plain, plain_inner: int = 20, kernel_inner: int = 20):
     """(kernel ms, plain ms, the four samples) timed in turns on one card:
-    plain, kernel, kernel, plain."""
-    p1 = time_ms(run_plain, inner=plain_inner)
+    plain, kernel, kernel, plain; the plain versions over 3 runs, the
+    kernels over 5 (the plain versions' times are no yardstick)."""
+    p1 = time_ms(run_plain, reps=3, inner=plain_inner)
     k1 = time_ms(run_kernel, inner=kernel_inner)
     k2 = time_ms(run_kernel, inner=kernel_inner)
-    p2 = time_ms(run_plain, inner=plain_inner)
+    p2 = time_ms(run_plain, reps=3, inner=plain_inner)
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
 
@@ -980,7 +990,7 @@ def headline(device) -> list:
               f"headline {prec}: the engine launched spmm_window_sg_presplit_ab")
         arrs = tuple(x[0] for x in eng.packed)
         rB = eng.receive_buffer(bs)[0]
-        got = time_kernel(op, arrs, rB, "headline", prec, csr_work(a))
+        got = time_kernel(op, arrs, rB, "headline", prec, csr_work(a), plain_inner=2)
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
         _MEASURED[f"rates {prec}"] = records[-1]
         if prec == "x3":  # what multirank_path's one-rank NCCL engine must equal
@@ -1030,7 +1040,7 @@ def cplaw_path(device) -> list:
                   f"cplaw x3: (TM, Wc) = ({rl['TM']}, {rl['W']}), expected (512, 128)")
         arrs = tuple(x[0] for x in eng.packed)
         rB = eng.receive_buffer(bs)[0]
-        got = time_kernel(op, arrs, rB, "cplaw", prec, csr_work(a), plain_inner=3)
+        got = time_kernel(op, arrs, rB, "cplaw", prec, csr_work(a), plain_inner=2)
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
         s_abs, s_rel, s_fro = spill_vs_plain(op, arrs, rB)
         say(f"[cplaw {prec}] spmm_spill vs plain at the main path: rel fro err "
@@ -1291,7 +1301,7 @@ def reorder_path(device) -> list:
           f"{REORDER_FILL}")
     arrs = tuple(x[0] for x in eng.packed)
     rB = eng.receive_buffer(bs)[0]
-    got = time_kernel(op, arrs, rB, "reorder", "x3", csr_work(ar), plain_inner=3)
+    got = time_kernel(op, arrs, rB, "reorder", "x3", csr_work(ar), plain_inner=2)
     cus_ms = cusparse_yardstick(ar, bp, cp_ref, device, "reorder cusparse")
     records.append(dict(record(op.kernel.__name__, launches[op.kernel.__name__], *got,
                                cus_ms), path="reorder"))
@@ -1698,7 +1708,7 @@ def headline_p4(device) -> list:
             bits=[digest(c[i]) for i in range(4)], packed=nbytes(*eng.packed))
         del c
         got = time_kernel(op, eng.packed, bs, "headline p=4 fused", prec,
-                          csr_work(a), plain_inner=3)
+                          csr_work(a), plain_inner=2)
         halo["max_abs"] = max(halo["max_abs"], got[0])
         if prec == "default":  # the exec's B cast, outside the kernel's time
             say(f"[headline p=4 default] fused: B cast to bf16 "
@@ -1729,7 +1739,7 @@ def headline_p4(device) -> list:
             arrs = tuple(x[0] for x in eng.packed)
             s0 = a.row_slice(int(eng.A_row_displs[0]), int(eng.A_row_displs[1]))
             got = time_kernel(op, arrs, rB[0], "headline p=4 unfused", prec,
-                              csr_work(s0))
+                              csr_work(s0), plain_inner=2)
             window["max_abs"] = max(window["max_abs"], got[0])
             if prec == "default":  # each shard's B cast, outside the kernel's time
                 cast = time_ms(lambda: rB[0].to(torch.bfloat16))
@@ -1777,8 +1787,10 @@ def free_port() -> int:
 def multirank_probe(rank, world, port, out) -> None:
     """What torch's gloo carries here for CUDA tensors, in a process set of
     its own (a transport that reads a device pointer as host memory ends
-    the process): ``all_to_all_single``, then ``batch_isend_irecv``; each
-    result is written as soon as it is known."""
+    the process): ``all_to_all_single`` with equal splits, with uneven
+    splits (the transport of ``RedistEngine`` on a mesh), then
+    ``batch_isend_irecv``; each result is written as soon as it is
+    known."""
     import torch.distributed as dist
 
     from crp_tpu_torch.shard.layout import init_distributed
@@ -1814,7 +1826,20 @@ def multirank_probe(rank, world, port, out) -> None:
         torch.cuda.synchronize(device)
         return bool(torch.all(y.cpu() == float((rank - 1) % world)))
 
+    def a2av():  # uneven splits: rank r sends r + j + 1 elements to rank j
+        sizes = [rank + j + 1 for j in range(world)]
+        x = torch.cat([torch.arange(n, dtype=torch.float32) + 100 * rank + 10 * j
+                       for j, n in enumerate(sizes)]).to(device)
+        y = torch.empty(sum(j + rank + 1 for j in range(world)), device=device)
+        dist.all_to_all_single(y, x, [j + rank + 1 for j in range(world)], sizes)
+        torch.cuda.synchronize(device)
+        want = torch.cat([torch.arange(j + rank + 1, dtype=torch.float32) + 100 * j
+                          + 10 * rank for j in range(world)])
+        return torch.equal(y.cpu(), want)
+
     note("all_to_all_single", a2a)
+    dist.barrier()
+    note("all_to_all_single uneven", a2av)
     dist.barrier()
     note("batch_isend_irecv", p2p)
     try:
@@ -1824,7 +1849,31 @@ def multirank_probe(rank, world, port, out) -> None:
         pass
 
 
-def multirank_rank(rank, world, port, case_path, out, unfused) -> None:
+def rank_wall_ms(fn, device, reps=5) -> float:
+    """Median host wall ms of ``fn()`` and a device sync over ``reps``
+    calls, after one warm-up: a rank's time, which the card's other
+    processes share."""
+    fn()
+    torch.cuda.synchronize(device)
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def load_case(path) -> tuple:
+    """(A, c_ref) from a case file multirank_path wrote."""
+    from crp_tpu_torch.sparse.csr import CSRMatrix
+
+    with np.load(path) as f:
+        return (CSRMatrix(*(int(x) for x in f["shape"]), f["rowptr"], f["colidx"], f["val"]),
+                f["c_ref"])
+
+
+def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) -> None:
     """One rank of multirank_path, a process of its own, as a user runs it:
     the launcher's env, ``init_distributed`` (gloo for the control plane:
     NCCL refuses several ranks on one device), ``make_mesh_1d`` and
@@ -1838,20 +1887,18 @@ def multirank_rank(rank, world, port, case_path, out, unfused) -> None:
     buffers), and times, which are time-shared: four processes take turns
     on the one card.  ``unfused``: the exchanges gloo carries for CUDA
     tensors (``"a2a"``, ``"ring"``), each with ``kernel="pallas"`` at x3.
-    Writes a JSON record to ``out``."""
+    ``cplaw_path``: then :func:`multirank_crp` on the same group.  Writes a
+    JSON record to ``out``."""
     import torch.distributed as dist
 
     from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition, fill_b, rel_fro_err
     from crp_tpu_torch.kernels import spmm_halo as sh
     from crp_tpu_torch.shard.layout import init_distributed, make_mesh_1d
-    from crp_tpu_torch.sparse.csr import CSRMatrix
 
     rank_env(rank, world, port)
     device = init_distributed(backend="gloo")
     mesh = make_mesh_1d(world)
-    with np.load(case_path) as f:
-        a = CSRMatrix(*(int(x) for x in f["shape"]), f["rowptr"], f["colidx"], f["val"])
-        c_ref = f["c_ref"]
+    a, c_ref = load_case(case_path)
     b = np.asarray(fill_b(0, a.ncol, 0, N, dtype=np.float32))
     d = csr_row_partition(a.rowptr, world)
     r0, r1 = int(d[rank]), int(d[rank + 1])
@@ -1860,15 +1907,7 @@ def multirank_rank(rank, world, port, case_path, out, unfused) -> None:
     got = dict(rank=rank, points={}, unfused={})
 
     def wall_ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize(device)
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize(device)
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(ts))
+        return rank_wall_ms(fn, device, reps)
 
     for prec in PRECS:
         eng, peak, held = measured_init(device, lambda: RowParaSpmm(
@@ -1935,10 +1974,170 @@ def multirank_rank(rank, world, port, case_path, out, unfused) -> None:
         del eng, bs
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
+    if cplaw_path is not None:
+        got["crp"] = multirank_crp(rank, device, a, b, c_ref, cplaw_path, unfused)
     dist.barrier()
     dist.destroy_process_group()
     with open(out, "w") as f:
         f.write(json.dumps(got))
+
+
+CRP_COUNTERS = ("nelem_A_rd", "nelem_A_agv", "nelem_B_rd", "nelem_B_a2av",
+                "nelem_B_a2av_min", "physical_rows")
+
+
+def crp_layouts(a):
+    """The reference driver's user layouts at p = 4 (crp_drive's): B in 4
+    row slabs, C in 4 column slabs."""
+    from crp_tpu_torch.shard.redist import BlockDist
+    from crp_tpu_torch.utils.blocks import uniform_displs
+
+    return (BlockDist.from_grid(uniform_displs(a.ncol, 4), [0, N]),
+            BlockDist.from_grid([0, a.nrow], uniform_displs(N, 4)))
+
+
+def crp_counters(eng) -> dict:
+    return {k: getattr(eng, k) for k in CRP_COUNTERS}
+
+
+def multirank_crp(rank, device, a, b, c_ref, cplaw_path, unfused) -> dict:
+    """multirank_rank's ``CrpSpmm`` cases, in the same process group, as
+    any_layout_path drives them on one device, each on the mesh of the
+    planner's grid: (a) the headline, ``auto`` -> #12 across the processes
+    over the column group's peer-mapped B blocks (4 x 1); (b) with
+    ``a2a_b_finegrain=1`` -> #4 after the exact-row exchange across them
+    (where gloo carries the all_to_all); (c) cplaw on 1 x 4 -> #7 and #9,
+    rd_B and rd_C across the processes, no B exchange; (d) the headline's
+    A as a ``DistCSR`` of which this rank holds block r alone.  Each: the
+    main path's launches (counts zeroed just before ``exec(b)``), this
+    rank's user C block's digest, the global C's error, every counter,
+    the init's device memory; the kernels against their plain versions on
+    this rank's inputs (timed on rank 0, time-shared)."""
+    from crp_tpu_torch import CrpSpmm, SpmmConfig, fill_b, rel_fro_err
+    from crp_tpu_torch.kernels import spmm_halo as sh
+    from crp_tpu_torch.shard.dist_a import DistCSR
+    from crp_tpu_torch.shard.layout import make_mesh_2d
+    from crp_tpu_torch.utils.blocks import uniform_displs
+
+    kernels = all_kernels()
+    got = {}
+
+    def run(tag, a_in, a, b, c_ref, cfg, grid):
+        ub, uc = crp_layouts(a)
+        mesh = make_mesh_2d(*grid)
+        eng, peak, held = measured_init(device, lambda: CrpSpmm(
+            a_in, N, ub, uc, dtype=np.float32, mesh=mesh,
+            config=SpmmConfig(mxu_precision="x3", **cfg)))
+        for k in kernels:
+            k.launches = 0
+        c = eng.exec(b)  # the main path: every rank returns the global C
+        launches = {k.__name__: k.launches for k in kernels if k.launches}
+        bs = eng.rd_B.shard_src(b)
+        cs = eng.exec_device(bs)
+        got[tag] = dict(
+            kind=eng.kernel_kind, variant=eng._local_op.variant, grid=(eng.pm, eng.pn),
+            launches=launches, bits=digest(cs[0]), shape=list(cs.shape),
+            finite=bool(np.isfinite(c).all()) and c.shape == (a.nrow, N),
+            err=rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64)),
+            counters=crp_counters(eng), peak=peak, held=held, packed=nbytes(*eng.packed),
+            moved=(eng.rd_B.nelem_moved, eng.rd_C.nelem_moved),
+            aliased=eng.peers is not None and bs.data_ptr() == eng.peers.buf.data_ptr(),
+            exec_ms=rank_wall_ms(lambda: eng.exec_device(bs), device, 3),
+            stat=[ln for ln in eng.print_stat().splitlines() if ln.startswith("Rank")][0])
+        return eng, bs
+
+    def panel(eng, a):
+        i = eng.mesh.pi
+        return a.row_slice(int(eng.bplan.m_split_idx[i]), int(eng.bplan.m_split_idx[i + 1]))
+
+    # (a) the headline, auto -> #12 across the processes
+    eng, bs = run("auto", a, a, b, c_ref, {}, ANY_HEADLINE_GRID)
+    op = eng._local_op
+    eng._blocks(eng.rd_B.exec_device(bs))  # this rank's block into the peers' buffer
+    args = op.kernel_args(eng.packed, eng.peers.buf)
+    owners = (torch.stack(eng.peers.views) if eng.peers.views is not None  # read in place
+              else eng.peers.rows())  # the CPU (a rehearsal): gathered
+    pargs = (*args[:5], owners, *args[6:])
+
+    def run_kernel():
+        return op.kernel(*args, min_b_rows=op.min_b_rows, peers=eng.peers)
+
+    def run_plain():
+        return sh.spmm_halo_plain(*pargs, consumers=[eng.peers.me])
+
+    max_abs, _, rel_fro = compare("spmm_halo across ranks (CrpSpmm)", run_kernel, run_plain)
+    pa = panel(eng, a)
+    got["auto"].update(
+        max_abs=max_abs, rel_fro=rel_fro, bound=function_bound(op, csr_work(pa), N,
+                                                               torch.float32),
+        kernel_ms=rank_wall_ms(run_kernel, device, 3))  # collective: every rank times it
+    if rank == 0:
+        got["auto"].update(plain_ms=rank_wall_ms(run_plain, device, 1),
+                           library_ms=csr_library_ms(pa.rowptr, pa.colidx, pa.val, a.ncol,
+                                                     torch.from_numpy(b).to(device)))
+    eng.close()
+    del eng, op, args, pargs, owners, bs, run_kernel, run_plain
+    a.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+
+    # (d) A as a DistCSR: this rank holds block r alone, on the card
+    d = DistCSR.from_global(a, uniform_displs(a.nrow, 4))
+    d.colidxs = [torch.from_numpy(x).to(device) if i == rank else None
+                 for i, x in enumerate(d.colidxs)]
+    d.vals = [torch.from_numpy(x).to(device) if i == rank else None
+              for i, x in enumerate(d.vals)]
+    eng, bs = run("dist A", d, a, b, c_ref, {}, ANY_HEADLINE_GRID)
+    eng.close()
+    del eng, bs, d
+    torch.cuda.empty_cache()
+
+    def unfused_kernels(tag, eng, a, bs, spill):
+        """The panel kernel (and the spill) against its plain version on
+        this rank's receive buffer after the exchange (a collective: every
+        rank); timed with its library call on rank 0."""
+        op = eng._local_op
+        rB = eng._exchange(eng._blocks(eng.rd_B.exec_device(bs)))[0, 0]
+        arrs = tuple(x[0] for x in eng.packed)
+        pa = panel(eng, a)
+        cols = (np.searchsorted(eng.xplan.rowmap[eng.mesh.pi], pa.colidx) if eng.fine
+                else pa.colidx - int(eng.xplan.rowmap[eng.mesh.pi]))
+        mx, _, fro = kernel_vs_plain(op, arrs, rB)
+        out = dict(max_abs=mx, rel_fro=fro, bound=function_bound(
+            op, csr_work(pa), rB.shape[-1], torch.float32))
+        kargs = op.kernel_args(arrs, rB)
+        if rank == 0:
+            out.update(kernel_ms=rank_wall_ms(lambda: launch(op, kargs), device, 3),
+                       plain_ms=rank_wall_ms(lambda: op.plain(*kargs), device, 1),
+                       library_ms=csr_library_ms(pa.rowptr, cols, pa.val, rB.shape[0], rB))
+        if spill:
+            s_abs, _, s_fro = spill_vs_plain(op, arrs, rB)
+            sargs = op.spill_args(arrs, launch(op, kargs), rB)
+            out["spill"] = dict(max_abs=s_abs, rel_fro=s_fro,
+                                bound=view_bound(sargs[-1], rB, sargs[0].shape[0], True))
+            if rank == 0:
+                out["spill"].update(
+                    kernel_ms=rank_wall_ms(lambda: op.spill_kernel(*sargs), device, 3),
+                    plain_ms=rank_wall_ms(lambda: op.spill_plain(*sargs), device, 1),
+                    library_ms=spill_library_ms(op, arrs, sargs[0], rB))
+        got[tag]["kernels"] = out
+
+    # (b) finegrain -> #4 after the exact-row all_to_all across the processes
+    if "a2a" in unfused:
+        eng, bs = run("fine", a, a, b, c_ref, dict(a2a_b_finegrain=1, rb_p2p=0),
+                      ANY_HEADLINE_GRID)
+        unfused_kernels("fine", eng, a, bs, spill=False)
+        del eng, bs
+        a.__dict__.pop("_torch_pack_cache", None)
+        torch.cuda.empty_cache()
+
+    # (c) cplaw on 1 x 4: #7 + #9 a rank, rd_B and rd_C across the processes
+    ac, cc_ref = load_case(cplaw_path)
+    bc = np.asarray(fill_b(0, ac.ncol, 0, N, dtype=np.float32))
+    eng, bs = run("cplaw", ac, ac, bc, cc_ref, {}, ANY_CPLAW_GRID)
+    unfused_kernels("cplaw", eng, ac, bs, spill=True)
+    del eng, bs
+    torch.cuda.empty_cache()
+    return got
 
 
 def run_rank_set(target, world, args, timeout, tag, may_fail=False) -> list:
@@ -2017,10 +2216,12 @@ def multirank_path(device) -> list:
     processes at x3, default and highest, each rank's C shard equal bit
     for bit to slice [r] of the one-device fused engine's (headline_p4),
     its rows within the point's class; (c) the unfused exchanges gloo
-    carries, their C shards equal to the one-device engine's likewise.
-    The record of #12 across processes: its main-path launches over the
+    carries, their C shards equal to the one-device engine's likewise;
+    (d) ``CrpSpmm`` on the ranks' meshes (multirank_crp, checked against
+    any_layout_path's one-device engines by multirank_crp_check).  The
+    records of #12 across processes: its main-path launches over the
     ranks, its largest difference from its plain version, rank 0's times
-    at x3 (time-shared)."""
+    at x3 (time-shared); then those of (d)."""
     import os
     import tempfile
 
@@ -2038,18 +2239,25 @@ def multirank_path(device) -> list:
         probe = [json.loads(open(o).read()) if os.path.exists(o) else {} for o in outs]
         # an op gloo refuses ends its group, and the ranks exit non-zero after it
         carried = {op: all(pr.get(op) == "ok" for pr in probe)
-                   for op in ("all_to_all_single", "batch_isend_irecv")}
+                   for op in ("all_to_all_single", "all_to_all_single uneven",
+                              "batch_isend_irecv")}
         say(f"[multirank probe] gloo on CUDA tensors, 2 ranks: {json.dumps(probe)}, "
             f"exit codes {codes} ({time.perf_counter() - t0:.1f} s)")
         unfused = [m for m, op in (("a2a", "all_to_all_single"), ("ring", "batch_isend_irecv"))
                    if carried[op]]
 
-        case = f"{tmp}/headline.npz"
-        np.savez(case, shape=(a.nrow, a.ncol), rowptr=a.rowptr, colidx=a.colidx, val=a.val,
-                 c_ref=c_ref)
+        check(carried["all_to_all_single uneven"],
+              "gloo here does not carry all_to_all_single with uneven splits on CUDA "
+              "tensors, RedistEngine's transport across ranks")
+        case, cplaw_case = f"{tmp}/headline.npz", f"{tmp}/cplaw.npz"
+        ac, _, cc_ref = shared_case("cplaw")[:3]
+        for path, (x, x_ref) in ((case, (a, c_ref)), (cplaw_case, (ac, cc_ref))):
+            np.savez(path, shape=(x.nrow, x.ncol), rowptr=x.rowptr, colidx=x.colidx,
+                     val=x.val, c_ref=x_ref)
         outs = [f"{tmp}/rank{r}.json" for r in range(MULTIRANK_P)]
         t0 = time.perf_counter()
-        run_rank_set(multirank_rank, MULTIRANK_P, lambda r: (case, outs[r], unfused),
+        run_rank_set(multirank_rank, MULTIRANK_P,
+                     lambda r: (case, outs[r], unfused, cplaw_case),
                      MULTIRANK_TIMEOUT, "multirank")
         ranks = [json.loads(open(o).read()) for o in outs]
         say(f"[multirank] {MULTIRANK_P} ranks, one process each, on the one card: "
@@ -2116,7 +2324,88 @@ def multirank_path(device) -> list:
                  x3["plain_ms"], *x3["bound"], None, x3["library_ms"])
     rec.update(path="multirank", timing="time-shared: 4 processes on one card, rank 0, "
                "x3, host barriers included")
-    return [rec]
+    return [rec] + multirank_crp_check([rk["crp"] for rk in ranks])
+
+
+def multirank_crp_check(ranks) -> list:
+    """multirank_crp's results against any_layout_path's one-device
+    ``CrpSpmm`` on the same inputs: every rank's user C block equal to
+    block r bit for bit (distributed A's to the global A's), the counters
+    equal, the global C within x3's class, the main path's launches one a
+    rank, the kernels within their plain versions' tolerance, each
+    headline rank's init holding about a quarter of the one-device pack
+    and peaking within INIT_PEAK_OVER_HELD of it.  Returns the records of
+    #12, #4, #7 and #9 across the processes (``"path": "multirank_crp"``;
+    rank 0's times, time-shared)."""
+    records = []
+    for tag, want_tag, kernel in (("auto", "auto", "spmm_halo"),
+                                  ("dist A", "auto", "spmm_halo"),
+                                  ("fine", "fine", "spmm_window"),
+                                  ("cplaw", "cplaw", None)):
+        if tag not in ranks[0]:
+            say(f"[multirank crp {tag}] not driven across the processes: gloo here does "
+                f"not carry its CUDA collective (see the probe)")
+            continue
+        want = _MEASURED.get(f"any crp {want_tag}")
+        check(want is not None, f"multirank crp {tag}: no one-device run to compare with")
+        kernel = kernel or want["kernel"]
+        counters = want["counters"]
+        if tag == "fine":  # across the processes the a2a, which gloo carries; C the same
+            counters = dict(counters, physical_rows=want["a2a_rows"])
+        for r, rk in enumerate(ranks):
+            got = rk[tag]
+            same = got["bits"] == want["bits"][r]
+            keep = max(got["held"], got["packed"], 1)
+            say(f"[multirank crp {tag} rank {r}] {got['stat']}: grid {got['grid']}, kind "
+                f"{got['kind']}/{got['variant']}, main-path launches "
+                f"{json.dumps(got['launches'])}; user C block {tuple(got['shape'])} "
+                f"{'equal to the one-device engine bit for bit' if same else 'DIFFERS'}; "
+                f"global C rel_fro_err {got['err']:.3e} (tol {TOL_REF['x3']:g}); counters "
+                f"{'equal' if got['counters'] == counters else 'DIFFER'} "
+                f"{json.dumps(got['counters'])}; rd_B / rd_C move {got['moved'][0]} / "
+                f"{got['moved'][1]} elements over the ranks ({4e-6 * sum(got['moved']):.1f}"
+                f" MB, exact splits); init device memory peak "
+                f"{got['peak'] / 1e9:.3f} GB, held {got['held'] / 1e9:.3f} GB, packed "
+                f"{got['packed'] / 1e9:.3f} GB ({got['peak'] / keep:.3f}x; one-device "
+                f"pack {want['packed'] / 1e9:.3f} GB); exec {got['exec_ms']:.3f} ms "
+                f"time-shared")
+            check(same and got["counters"] == counters and got["finite"]
+                  and got["err"] <= TOL_REF["x3"] and not got["aliased"]
+                  and (got["kind"], got["variant"]) == (want["kind"], want["variant"]),
+                  f"multirank crp {tag} rank {r}: {got}")
+            expect = {kernel: 1, **({"spmm_spill": 1} if tag == "cplaw" else {})}
+            check(got["launches"] == expect,
+                  f"multirank crp {tag} rank {r}: main-path launches {got['launches']}")
+            check(got["peak"] <= INIT_PEAK_OVER_HELD * keep,
+                  f"multirank crp {tag} rank {r}: init peaks at {got['peak'] / 1e9:.3f} GB, "
+                  f"over {INIT_PEAK_OVER_HELD} x the {keep / 1e9:.3f} GB it holds")
+            if tag in ("auto", "dist A"):  # the pack of panel r alone
+                check(got["packed"] <= 0.26 * want["packed"],
+                      f"multirank crp {tag} rank {r}: packed {got['packed']} of the "
+                      f"one-device {want['packed']}")
+        if tag == "dist A":
+            continue
+        parts = ([(kernel, [rk[tag] for rk in ranks])] if tag == "auto" else
+                 [(kernel, [rk[tag]["kernels"] for rk in ranks])]
+                 + ([("spmm_spill", [rk[tag]["kernels"]["spill"] for rk in ranks])]
+                    if tag == "cplaw" else []))
+        for name, per_rank in parts:
+            worst = max(x["rel_fro"] for x in per_rank)
+            r0 = per_rank[0]
+            say(f"[multirank crp {tag}] {name} against its plain version on each rank's "
+                f"inputs: rel fro err up to {worst:.3e}, max abs "
+                f"{max(x['max_abs'] for x in per_rank):.3e}; rank 0 (time-shared, no "
+                f"speed figure): {r0['kernel_ms']:.4f} ms, plain {r0['plain_ms']:.4f} "
+                f"ms, library {r0['library_ms'] or float('nan'):.4f} ms, bound "
+                f"{r0['bound'][0]:.4f} ms ({r0['bound'][1]})")
+            check(worst <= TOL_PLAIN_FRO, f"multirank crp {tag}: {name} vs plain {worst}")
+            rec = record(name, sum(rk[tag]["launches"].get(name, 0) for rk in ranks),
+                         max(x["max_abs"] for x in per_rank), r0["kernel_ms"],
+                         r0["plain_ms"], *r0["bound"], None, r0["library_ms"])
+            rec.update(path="multirank_crp", timing="time-shared: 4 processes on one card, "
+                       "rank 0, x3" + (", host barriers included" if tag == "auto" else ""))
+            records.append(rec)
+    return records
 
 
 def cplaw_p4(device) -> None:
@@ -2514,6 +2803,17 @@ def ring_parts(eng, b) -> tuple:
     return time_ms(lambda: ring_spmm(bj, eng.ring, [])), time_ms(shifts)
 
 
+def crp_blocks(eng, bs) -> dict:
+    """What multirank_path's ranks must equal of a one-device ``CrpSpmm``:
+    each user C block's digest, the counters, the pack's bytes, the kind
+    and variant, and the local kernel's name."""
+    cs = eng.exec_device(bs)
+    return dict(bits=[digest(cs[r]) for r in range(cs.shape[0])], counters=crp_counters(eng),
+                packed=nbytes(*eng.packed), kind=eng.kernel_kind,
+                variant=eng._local_op.variant, kernel=eng._local_op.kernel.__name__,
+                a2a_rows=eng.xplan.physical_rows * eng.pn)
+
+
 def same_tensors(xs, ys) -> bool:
     return len(xs) == len(ys) and all(same_bits(x, y) for x, y in zip(xs, ys))
 
@@ -2540,8 +2840,9 @@ def any_layout_path(device) -> list:
     a, b, c_ref = shared_case("headline")[:3]
     records = []
     # (a) the headline: auto -> #12 once an exec
-    eng, launches, c_a, ms_a, _ = crp_drive(a, b, c_ref, "any headline", {},
-                                            ANY_HEADLINE_GRID, "pallas_halo", "halo", device)
+    eng, launches, c_a, ms_a, bs = crp_drive(a, b, c_ref, "any headline", {},
+                                             ANY_HEADLINE_GRID, "pallas_halo", "halo", device)
+    _MEASURED["any crp auto"] = crp_blocks(eng, bs)
     check(eng.bplan.copy_B_size == ANY_HEADLINE_COPY_B and launches["spmm_halo"] == 1,
           f"any headline: copy_B_size {eng.bplan.copy_B_size}, spmm_halo launched "
           f"{launches['spmm_halo']} times")
@@ -2562,13 +2863,14 @@ def any_layout_path(device) -> list:
           and (eng_d.nelem_A_rd, eng_d.nelem_A_agv) == (eng.nelem_A_rd, eng.nelem_A_agv),
           "any headline dist A: the panels or C differ from the global A's")
     say("[any headline dist A] panels and C equal the global A's bit for bit")
-    del eng, eng_d, d, b4
+    del eng, eng_d, d, b4, bs
     torch.cuda.empty_cache()
 
     # (b) finegrain -> #4 a panel on the exact rows
-    eng, launches, _, _, _ = crp_drive(a, b, c_ref, "any headline fine",
-                                       dict(a2a_b_finegrain=1), ANY_HEADLINE_GRID,
-                                       "pallas", "window", device)
+    eng, launches, _, _, bs = crp_drive(a, b, c_ref, "any headline fine",
+                                        dict(a2a_b_finegrain=1), ANY_HEADLINE_GRID,
+                                        "pallas", "window", device)
+    _MEASURED["any crp fine"] = crp_blocks(eng, bs)
     check(launches["spmm_window"] == 4 and eng.nelem_B_a2av == eng.nelem_B_a2av_min
           and coarse >= eng.nelem_B_a2av_min,
           f"any headline fine: {launches['spmm_window']} launches, Alltoallv B "
@@ -2582,7 +2884,7 @@ def any_layout_path(device) -> list:
                          csr_library_ms(s0.rowptr, cols, s0.val, rB.shape[0], rB)),
                   path="any_layout")
     records.append(window)
-    del eng, rB
+    del eng, rB, bs
     torch.cuda.empty_cache()
 
     # (c) overlap=1: the ring, #4 the self part on a side stream
@@ -2617,8 +2919,9 @@ def any_layout_path(device) -> list:
 
     # (d) cplaw on the planner's 1 x 4: the ragged #7 and the spill #9 a slab
     ac, bc, cc_ref = shared_case("cplaw")[:3]
-    eng, launches, _, _, _ = crp_drive(ac, bc, cc_ref, "any cplaw", {}, ANY_CPLAW_GRID,
-                                       "pallas", "ragged", device, timing=(3, 5))
+    eng, launches, _, _, bs = crp_drive(ac, bc, cc_ref, "any cplaw", {}, ANY_CPLAW_GRID,
+                                        "pallas", "ragged", device, timing=(3, 5))
+    _MEASURED["any crp cplaw"] = crp_blocks(eng, bs)
     op = eng._local_op
     check(launches[op.kernel.__name__] == 4 and launches["spmm_spill"] == 4
           and eng.nelem_B_a2av == 0 and op.roofline["spill_impl"] == "pallas",
@@ -2643,7 +2946,7 @@ def any_layout_path(device) -> list:
     records.append(dict(record("spmm_spill", launches["spmm_spill"], s_abs, s_ms, s_plain,
                                *s_bound, s_bound[0], spill_library_ms(op, arrs, args[0], rB)),
                         path="any_layout"))
-    del eng, op, rB, arrs, args
+    del eng, op, rB, arrs, args, bs
     ac.__dict__.pop("_torch_pack_cache", None)
     torch.cuda.empty_cache()
 
@@ -2708,6 +3011,41 @@ def any_layout_path(device) -> list:
     return records
 
 
+def training_inputs(ah) -> tuple:
+    """(B, dC) of the training path's op checks: the analytic B and a
+    seeded normal dC, N columns, fp32."""
+    from crp_tpu_torch import fill_b
+
+    return (np.asarray(fill_b(0, ah.ncol, 0, N, dtype=np.float32)),
+            np.random.default_rng(7).standard_normal((ah.nrow, N)).astype(np.float32))
+
+
+def training_case(directory=None) -> tuple:
+    """(the examples' graph, A_hat, the fp64 references of A_hat @ B and
+    A_hat^T @ dC on the first ERR_COLS columns, host s): the training
+    path's host set-up.  ``main`` runs it in the worker process while the
+    card runs the p = 4 phases, with ``directory``: the arrays then go to a
+    file there whose path comes back in their place."""
+    from crp_tpu_torch.engine.autodiff import transposed
+    from crp_tpu_torch.examples import gcn_train
+    from crp_tpu_torch.examples.common import community_graph
+
+    t0 = time.perf_counter()
+    g = community_graph(GNN_NODES, GNN_CLASSES)
+    ah = gcn_train.normalized_adjacency(g)
+    b, dc = training_inputs(ah)
+    refs = (spmm_ref_f64(ah, b[:, :ERR_COLS]),
+            spmm_ref_f64(transposed(ah), dc[:, :ERR_COLS]))
+    t_host = time.perf_counter() - t0
+    if directory is None:
+        return g, ah, refs, t_host
+    path = directory / "training.npz"
+    np.savez(path, ref_b=refs[0], ref_dc=refs[1], **{
+        f"{k}_{f}": getattr(x, f) if f != "shape" else (x.nrow, x.ncol)
+        for k, x in (("g", g), ("ah", ah)) for f in ("shape", "rowptr", "colidx", "val")})
+    return path, None, None, t_host
+
+
 def training_path(device) -> list:
     """Training through the engines at full width: the examples' graph at
     the cplaw class's rows (``powerlaw_community_csr(786432, 8, 98304,
@@ -2716,20 +3054,23 @@ def training_path(device) -> list:
     (``gcn_training``), the GAT's (``gat_check``).  Returns the records of
     the GCN engines' gather kernel, with its launches in the p = 1 op check
     and in one p = 4 training step."""
-    from crp_tpu_torch import fill_b
     from crp_tpu_torch.engine.autodiff import transposed
-    from crp_tpu_torch.examples import gcn_train
-    from crp_tpu_torch.examples.common import community_graph
+    from crp_tpu_torch.sparse.csr import CSRMatrix
 
     t0 = time.perf_counter()
-    g = community_graph(GNN_NODES, GNN_CLASSES)
-    ah = gcn_train.normalized_adjacency(g)
-    b = np.asarray(fill_b(0, ah.ncol, 0, N, dtype=np.float32))
-    dc = np.random.default_rng(7).standard_normal((ah.nrow, N)).astype(np.float32)
-    refs = (spmm_ref_f64(ah, b[:, :ERR_COLS]),
-            spmm_ref_f64(transposed(ah), dc[:, :ERR_COLS]))
+    g, ah, refs, t_host = host_job("training graph", training_case)
+    if not isinstance(g, CSRMatrix):  # made in the worker: its file
+        path = g
+        with np.load(path) as f:
+            g, ah = (CSRMatrix(*(int(x) for x in f[f"{k}_shape"]), f[f"{k}_rowptr"],
+                               f[f"{k}_colidx"], f[f"{k}_val"]) for k in ("g", "ah"))
+            refs = (f["ref_b"], f["ref_dc"])
+        path.unlink()
+    b, dc = training_inputs(ah)
     say(f"training graph: A_hat {ah.nrow} rows, {ah.nnz} nnz, n={N}, host set-up "
+        f"{t_host:.2f} s (the graph and the references), here "
         f"{time.perf_counter() - t0:.2f} s")
+
     def drop_packs():
         for x in (ah, transposed(ah)):
             x.__dict__.pop("_torch_pack_cache", None)
@@ -3223,8 +3564,10 @@ def main() -> int:
         for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,
                       dd_phase, window_phase, halo_phase, headline, cplaw_path,
                       scrambled_cplaw_path, reorder_path, fp64_path, headline_p4,
-                      multirank_path, cplaw_p4, para2d_phase, any_layout_path,
+                      cplaw_p4, para2d_phase, any_layout_path, multirank_path,
                       training_path, drivers_path):
+            if phase is headline_p4:  # the worker is free of the cases and reorder_host
+                start_host_job("training graph", training_case, case_dir)
             t0 = time.perf_counter()
             records += phase(device) or []
             say(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")

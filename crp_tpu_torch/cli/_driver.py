@@ -8,14 +8,6 @@ from __future__ import annotations
 import contextlib
 import os
 
-DISTRIBUTED_REFUSAL = (
-    "--distributed --engine=crp: the any-layout engine across ranks is not "
-    "ported yet (ROADMAP A8, what is left: CrpSpmm's rd_B, rd_C and "
-    "distributed-A ingest over the process group); run it without "
-    "--distributed, every shard on the one device"
-)
-
-
 def parse_argv(argv) -> tuple:
     """(positional arguments, ``--key[=value]`` options; a bare flag is
     ``"1"``), as the JAX drivers split them."""
@@ -32,12 +24,6 @@ RATE_FLAGS = ("x3-tflops", "default-tflops", "highest-tflops", "hbm-gbps",
 def rates_from(opt) -> dict:
     """The rates the rate flags in ``opt`` set, keyed as ``DEFAULT_RATES``."""
     return {f.replace("-", "_"): float(opt[f]) for f in RATE_FLAGS if f in opt}
-
-
-def refuse_distributed(opt, engine_kind: str) -> None:
-    """``--distributed`` ports every engine but the any-layout one."""
-    if "distributed" in opt and engine_kind == "crp":
-        raise NotImplementedError(DISTRIBUTED_REFUSAL)
 
 
 def join_ranks(opt, device: str):
@@ -59,11 +45,15 @@ def join_ranks(opt, device: str):
 
 def engine_mesh(engine_kind: str, plan, nproc: int):
     """The mesh of a ``--distributed`` run for the engine: the plan's
-    pm x pn grid for ``para2d``, nproc ranks along pm for ``rowpara``."""
+    pm x pn grid for ``para2d``, the v1 planner's ``np_row x np_col`` for
+    ``crp`` (``plan`` its :class:`BandwidthPlan`), nproc ranks along pm for
+    ``rowpara``."""
     from ..shard.layout import make_mesh_1d, make_mesh_2d
 
     if engine_kind == "para2d":
         return make_mesh_2d(plan.pm, plan.pn)
+    if engine_kind == "crp":
+        return make_mesh_2d(plan.np_row, plan.np_col)
     return make_mesh_1d(nproc)
 
 

@@ -20,8 +20,8 @@ Chrome trace into DIR.  ``--distributed`` runs one shard on each rank of
 the launcher's process group (``torchrun --nproc-per-node=N -m
 crp_tpu_torch.cli.bench_cli ... --distributed``: one rank a GPU, NCCL;
 with ``--device=cpu`` gloo ranks on the CPU): N is the world size, the
-engines run on ``make_mesh_*`` of the run's grid, and rank 0 prints the
-record.  ``--engine=crp`` refuses it (ROADMAP A8).
+engines run on ``make_mesh_*`` of the run's grid (for ``--engine=crp``
+the v1 planner's, planned first), and rank 0 prints the record.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ import numpy as np
 from ..utils.timers import get_wtime_sec
 from ._driver import (
     config_from, device_flag, engine_mesh, join_ranks, parse_argv, profiled,
-    refuse_distributed,
 )
 from .plan_cli import load_matrix
 
@@ -53,14 +52,15 @@ def build_engine(engine_kind, a, plan, glb_n, nproc, device, config, dtype,
     from ..plan.partition1d import csr_row_partition
     from ..utils.blocks import uniform_displs
 
-    mesh = engine_mesh(engine_kind, plan, nproc) if distributed else None
     if engine_kind == "para2d":
         from ..engine.para2d import Para2dSpmm
 
+        mesh = engine_mesh(engine_kind, plan, nproc) if distributed else None
         return Para2dSpmm(a, plan, device=device, config=config, dtype=dtype, mesh=mesh)
     if engine_kind == "rowpara":
         from ..engine.rowpara import RowParaSpmm
 
+        mesh = engine_mesh(engine_kind, plan, nproc) if distributed else None
         rb = csr_row_partition(a.rowptr, nproc)
         b_displs = rb if a.nrow == a.ncol else uniform_displs(a.ncol, nproc)
         return RowParaSpmm(a, rb, b_displs, glb_n, device=device, config=config,
@@ -72,10 +72,13 @@ def build_engine(engine_kind, a, plan, glb_n, nproc, device, config, dtype,
 
         user_B = BlockDist.from_row_slabs(uniform_displs(a.ncol, nproc), glb_n)
         user_C = BlockDist.from_row_slabs(uniform_displs(a.nrow, nproc), glb_n)
+        # planned first: the mesh is the v1 planner's grid, as JAX's driver does
+        # (crp_tpu/cli/bench_cli.py:94-108)
         bp = bplan or calc_bandwidth_part2d(nproc, a.nrow, glb_n, a.ncol, a.rowptr,
                                             a.row_col_ranges_v1())
+        mesh = engine_mesh(engine_kind, bp, nproc) if distributed else None
         return CrpSpmm(a, glb_n, user_B, user_C, nproc=nproc, device=device,
-                       config=config, dtype=dtype, bplan=bp)
+                       config=config, dtype=dtype, bplan=bp, mesh=mesh)
     raise SystemExit(f"unknown engine {engine_kind}")
 
 
@@ -88,7 +91,6 @@ def main(argv=None) -> int:
     glb_n, n_test, method = int(pos[1]), int(pos[2]), int(pos[3])
     chk_res = int(pos[4]) if len(pos) > 4 else 0
     engine_kind = opt.get("engine", "para2d")
-    refuse_distributed(opt, engine_kind)
     dtype = np.dtype(opt.get("dtype", "float32"))
 
     import torch

@@ -35,7 +35,7 @@ Common flags: --engine=para2d|rowpara|crp  --kernel=...  --dtype=...
   ``torchrun --nproc-per-node=N -m crp_tpu_torch.cli.suite_cli ...
   --distributed``; each run's p must be the world size, the scaling
   sweep's default; rank 0 prints and writes the records; --engine=crp
-  refuses it, ROADMAP A8).
+  on the v1 planner's grid).
 
 Matrices: a Matrix Market path, or synth:banded:<nrow>:<nnz_per_row>:<bw>,
 synth:plaw:<nrow>:<deg>, or
@@ -53,7 +53,6 @@ import numpy as np
 from ..utils.timers import get_wtime_sec
 from ._driver import (
     config_from, device_flag, join_ranks, parse_argv, profiled, rates_from,
-    refuse_distributed,
 )
 
 
@@ -253,7 +252,6 @@ def main(argv=None) -> int:
     if len(pos) < 2:
         print(__doc__)
         return 255
-    refuse_distributed(opt, opt.get("engine", "para2d"))
     device, rank, world = join_ranks(opt, device_flag(opt))
 
     from .plan_cli import load_matrix

@@ -13,8 +13,9 @@ along each grid row assembles the panel (``crpspmm.c:559-584``).  Without
 a mesh every owner's block lies on the engine's one device, so that
 all_gather is a concatenation of the pn chunks; each panel is then staged
 to the host for the kernel pack, as JAX stages one replica.  On a mesh of
-ranks (:func:`replicate_a0_rank`) each rank reads its own block and the
-all_gather runs on its row group.  The audit counters are JAX's.
+ranks (``ingest_dist_a(mesh=)``, :func:`replicate_a0_rank`) each rank
+reads its own block, the reshard runs on the mesh's group and the
+all_gather on its row group.  The audit counters are JAX's.
 """
 
 from __future__ import annotations
@@ -130,25 +131,37 @@ class DistCSR:
             out[r0:r1][nonempty, 1] = _index(self.colidxs[i], lasts)
         return out
 
-    def row_col_ranges_v1(self) -> np.ndarray:
+    def row_col_ranges_v1(self, mesh=None) -> np.ndarray:
         """Per-row ranges with the v1 empty-row quirk
         (``CSRMatrix.row_col_ranges_v1``), per block from its own arrays as
         the reference reads them before the allgather
         (``crpspmm.c:111-117``); reads past a block's edge are clipped into
-        it."""
-        out = np.empty((self.m, 2), dtype=np.int64)
-        for i in range(self.p):
-            r0, r1 = int(self.row_displs[i]), int(self.row_displs[i + 1])
-            rp = np.asarray(self.rowptrs[i], dtype=np.int64)
-            loc_nnz = int(rp[-1] - rp[0])
-            if loc_nnz == 0:
-                out[r0:r1, 0] = self.k
-                out[r0:r1, 1] = -1
-                continue
-            firsts = np.minimum(rp[:-1] - rp[0], loc_nnz - 1)
-            lasts = np.maximum(rp[1:] - 1 - rp[0], 0)
-            out[r0:r1, 0] = _index(self.colidxs[i], firsts)
-            out[r0:r1, 1] = _index(self.colidxs[i], lasts)
+        it.  On a mesh rank r reads block r alone, and the blocks' ranges
+        are the ``all_gather_object`` of every rank's (the ``A_cidx_se``
+        allgather, ``crpspmm.c:107-131``)."""
+        if mesh is None:
+            parts = [self._ranges_v1(i) for i in range(self.p)]
+        else:
+            import torch.distributed as tdist
+
+            parts = [None] * self.p
+            tdist.all_gather_object(parts, self._ranges_v1(mesh.rank), group=mesh.group)
+        return np.concatenate(parts).reshape(self.m, 2)
+
+    def _ranges_v1(self, i: int) -> np.ndarray:
+        """Block i's rows' (first, last) colidx, (nrows_i, 2)."""
+        r0, r1 = int(self.row_displs[i]), int(self.row_displs[i + 1])
+        out = np.empty((r1 - r0, 2), dtype=np.int64)
+        rp = np.asarray(self.rowptrs[i], dtype=np.int64)
+        loc_nnz = int(rp[-1] - rp[0])
+        if loc_nnz == 0:
+            out[:, 0] = self.k
+            out[:, 1] = -1
+            return out
+        firsts = np.minimum(rp[:-1] - rp[0], loc_nnz - 1)
+        lasts = np.maximum(rp[1:] - 1 - rp[0], 0)
+        out[:, 0] = _index(self.colidxs[i], firsts)
+        out[:, 1] = _index(self.colidxs[i], lasts)
         return out
 
 
@@ -171,7 +184,7 @@ def _panel(grp, r0: int, r1: int, k: int, ci_chunks, v_chunks, lens) -> CSRMatri
 
 
 def ingest_dist_a(dist: DistCSR, m_split_idx: np.ndarray, pm: int, pn: int, device,
-                  val_dtype=np.float64) -> tuple:
+                  val_dtype=np.float64, mesh=None) -> tuple:
     """Reshard and replicate distributed A into the pm row-panel CSRs
     (``crpspmm.c:559-584``, once at init as A is constant):
 
@@ -181,8 +194,16 @@ def ingest_dist_a(dist: DistCSR, m_split_idx: np.ndarray, pm: int, pn: int, devi
       2. the all_gather along pn: panel i's chunks concatenated;
       3. the panel staged to the host for the kernel pack.
 
+    On a mesh (``mesh``, pm x pn ranks) rank r reads block r's colidx and
+    val alone, ``rd_Ai`` / ``rd_Av`` run on the mesh, the all_gather is
+    ``dist.all_gather`` on the row group (each chunk padded to the longest
+    and cut back on the host), and the panels then travel along the
+    column group (``all_gather_object``), so that every rank plans from
+    every panel, as :func:`replicate_a0_rank` does.
+
     Returns ``(panels, nelem_A_rd, nelem_A_agv)``, the audit counters summed
-    over ranks as the reference's (``crpspmm.c:448-456``)."""
+    over ranks as the reference's (``crpspmm.c:448-456``); on a mesh the
+    same on every rank and equal to the one-device call's."""
     p = dist.p
     assert p == pm * pn, (p, pm, pn)
     grp = dist.global_rowptr()
@@ -202,18 +223,44 @@ def ingest_dist_a(dist: DistCSR, m_split_idx: np.ndarray, pm: int, pn: int, devi
         r0, r1 = int(dist.row_displs[i]), int(dist.row_displs[i + 1])
         src_blocks[i] = (0, grp[r0], 1, grp[r1] - grp[r0])
     src_bd, dst_bd = BlockDist(src_blocks), BlockDist(dst_blocks)
-    rd_Ai = RedistEngine(src_bd, dst_bd, device, dtype=np.int32)
-    rd_Av = RedistEngine(src_bd, dst_bd, device, dtype=val_dtype)
-    x_ci = _stack_blocks(dist.colidxs, src_bd.max_w, torch.int32, rd_Ai.device)
-    x_v = _stack_blocks(dist.vals, src_bd.max_w, torch_dtype(val_dtype), rd_Av.device)
-    ci_int = rd_Ai.exec_device(x_ci)[:, 0].view(pm, pn, -1)   # (pm, pn, dst_maxw)
-    v_int = rd_Av.exec_device(x_v)[:, 0].view(pm, pn, -1)
-    panels = [_panel(grp, int(m_split_idx[i]), int(m_split_idx[i + 1]), dist.k,
-                     ci_int[i], v_int[i], np.diff(sub_displs[i]).tolist())
-              for i in range(pm)]
+    rd_Ai = RedistEngine(src_bd, dst_bd, device, dtype=np.int32, mesh=mesh)
+    rd_Av = RedistEngine(src_bd, dst_bd, device, dtype=val_dtype, mesh=mesh)
+    owners = range(p) if mesh is None else [mesh.rank]
+    x_ci = _stack_blocks([dist.colidxs[r] for r in owners], src_bd.max_w, torch.int32,
+                         rd_Ai.device)
+    x_v = _stack_blocks([dist.vals[r] for r in owners], src_bd.max_w,
+                        torch_dtype(val_dtype), rd_Av.device)
+    ci_int = rd_Ai.exec_device(x_ci)[:, 0]   # (p, dst_maxw), on a mesh (1, dst_maxw)
+    v_int = rd_Av.exec_device(x_v)[:, 0]
     nelem_A_rd = int(panel_nnz.sum())          # sum of per-rank rd_A_nnz
     nelem_A_agv = 0 if pn == 1 else int(panel_nnz.sum() * pn)
-    return panels, nelem_A_rd, nelem_A_agv
+
+    def panel(i, ci_chunks, v_chunks):
+        return _panel(grp, int(m_split_idx[i]), int(m_split_idx[i + 1]), dist.k,
+                      ci_chunks, v_chunks, np.diff(sub_displs[i]).tolist())
+
+    if mesh is None:
+        ci_int, v_int = ci_int.view(pm, pn, -1), v_int.view(pm, pn, -1)
+        return ([panel(i, ci_int[i], v_int[i]) for i in range(pm)], nelem_A_rd,
+                nelem_A_agv)
+    from ..comm.exchange import gather_shards
+
+    # the Allgatherv along pn: every chunk of the row is dst_maxw long
+    mine = panel(mesh.pi, gather_shards(ci_int[None], mesh.row_group, pn)[:, 0],
+                 gather_shards(v_int[None], mesh.row_group, pn)[:, 0])
+    return _share_panels(mine, mesh), nelem_A_rd, nelem_A_agv
+
+
+def _share_panels(mine: CSRMatrix, mesh) -> list:
+    """Every panel of the grid on every rank: this rank's panel ``mesh.pi``
+    along its column group (``all_gather_object``)."""
+    if mesh.pm == 1:
+        return [mine]
+    import torch.distributed as tdist
+
+    panels = [None] * mesh.pm
+    tdist.all_gather_object(panels, mine, group=mesh.col_group)
+    return panels
 
 
 def replicate_a0(dist: DistCSR, a0_rowptr: np.ndarray, pm: int, pn: int, device,
@@ -250,8 +297,6 @@ def replicate_a0_rank(dist_a: DistCSR, a0_rowptr: np.ndarray, mesh,
     (``all_gather_object``): every rank plans from every panel, as every
     JAX process plans from the whole A.  Returns the pm host panel CSRs,
     equal to :func:`replicate_a0`'s."""
-    import torch.distributed as tdist
-
     from ..comm.exchange import gather_shards
 
     pm, pn, r = mesh.pm, mesh.pn, mesh.rank
@@ -270,8 +315,4 @@ def replicate_a0_rank(dist_a: DistCSR, a0_rowptr: np.ndarray, mesh,
     v_row = gather_shards(v, mesh.row_group, pn)[:, 0]
     panel = _panel(grp, int(a0[pi * pn]), int(a0[(pi + 1) * pn]), dist_a.k, ci_row, v_row,
                    lens)
-    if pm == 1:
-        return [panel]
-    panels = [None] * pm
-    tdist.all_gather_object(panels, panel, group=mesh.col_group)
-    return panels
+    return _share_panels(panel, mesh)

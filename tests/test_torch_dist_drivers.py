@@ -2,9 +2,9 @@
 (``tests/torch_dist_ranks.py``; each rank runs ``main(argv)``, which joins
 the group itself): rank 0 prints the record, the other ranks nothing, and
 the record's host fields equal the one-process record's (every shard on
-the one device).  And what stays refused across ranks: a mesh that is not
-the engine's grid, training over a mesh, and ``--engine=crp`` (the
-any-layout engine, what is left of ROADMAP A8)."""
+the one device), for every engine (``--engine=crp`` on the v1 planner's
+grid).  And what stays refused across ranks: a mesh that is not the
+engine's grid, and training over a mesh (what is left of ROADMAP A8)."""
 
 import json
 
@@ -22,9 +22,11 @@ BENCH = {
     "rowpara": ["bench_cli", SPEC, "16", "2", "0", "1", "--engine=rowpara",
                 "--dtype=float64"],
     "para2d": ["bench_cli", SPEC, "24", "2", "0", "1", "--dtype=float64"],
+    "crp": ["bench_cli", SPEC, "16", "2", "0", "1", "--engine=crp", "--dtype=float64"],
 }
-SUITE = ["suite_cli", "modes", SPEC, "16", "4", "--engine=rowpara", "--dtype=float64",
-         "--ntest=1", "--inner=1"]
+SUITE = {engine: ["suite_cli", "modes", SPEC, "16", "4", f"--engine={engine}",
+                  "--dtype=float64", "--ntest=1", "--inner=1"]
+         for engine in ("rowpara", "crp")}
 # the fields a run's clock sets, the note that says whose clock, and the
 # error (C is equal bit for bit, tests/test_torch_dist_rowpara.py; numpy's
 # norms here sum in an order that follows the BLAS threads of the process)
@@ -42,14 +44,16 @@ def _one_process(argv, capsys):
 @pytest.fixture(scope="module")
 def ranks():
     runs = {k: v + ["--device=cpu", "--distributed"] for k, v in BENCH.items()}
-    runs["suite"] = SUITE + ["--device=cpu", "--distributed"]
+    runs.update({f"suite {k}": v + ["--device=cpu", "--distributed"]
+                 for k, v in SUITE.items()})
     return {k: run_ranks(4, "cli", argv) for k, argv in runs.items()}
 
 
 def _record_lines(out: str) -> list:
-    """The bench record's lines a run's clock does not set."""
+    """The bench record's lines a run's clock does not set (``crp``'s
+    communicated elements in place of the other engines' comm sizes)."""
     keep = ("2D process grid", "Total SpMM comm size", "Physical exchanged rows",
-            "||C_ref - C||")
+            "||C_ref - C||", "Redist A  ", "Allgatherv A  ", "Redist B  ", "Alltoallv B ")
     return [ln for ln in out.splitlines() if ln.startswith(keep)]
 
 
@@ -59,19 +63,21 @@ def test_bench_cli_distributed(ranks, capsys, engine):
     assert [r["rc"] for r in got] == [0] * 4
     assert all(r["out"] == "" for r in got[1:])  # rank 0 alone prints
     out = got[0]["out"]
-    assert "Rank 0 of 4" in out and len(_record_lines(out)) == 4
+    assert "Rank 0 of 4" in out
+    assert len(_record_lines(out)) == (7 if engine == "crp" else 4)
     one = _one_process(BENCH[engine], capsys)
     assert _record_lines(out) == _record_lines(one)
     err = float(_record_lines(out)[-1].split("=")[-1])
     assert err <= 1e-12
 
 
-def test_suite_cli_distributed(ranks, capsys):
-    got = ranks["suite"]
+@pytest.mark.parametrize("engine", sorted(SUITE))
+def test_suite_cli_distributed(ranks, capsys, engine):
+    got = ranks[f"suite {engine}"]
     assert [r["rc"] for r in got] == [0] * 4
     assert all(r["out"] == "" for r in got[1:])
     recs = [json.loads(ln) for ln in got[0]["out"].splitlines() if ln.startswith("{")]
-    one = [json.loads(ln) for ln in _one_process(SUITE, capsys).splitlines()
+    one = [json.loads(ln) for ln in _one_process(SUITE[engine], capsys).splitlines()
            if ln.startswith("{")]
     assert [r["mode"] for r in recs] == ["a2a", "ring", "overlap"]
     assert len(recs) == len(one)
@@ -95,7 +101,6 @@ def refused():
     ("grid", "a 2 x 1 mesh for a 1 x 1 grid"),
     ("autodiff", "DifferentiableSpmm: training across ranks is not ported yet"),
     ("trainable", "ValueParameterizedSpmm: training across ranks is not ported yet"),
-    ("crp", "the any-layout engine across ranks is not ported yet"),
 ])
 def test_refused_across_ranks(refused, what, match):
     for got in refused:

@@ -21,7 +21,6 @@ from crp_tpu.cli import suite_cli as jsuite
 
 from crp_tpu_torch.cli import bench_cli as tbench
 from crp_tpu_torch.cli import suite_cli as tsuite
-from crp_tpu_torch.cli._driver import DISTRIBUTED_REFUSAL
 
 RECORD_FIELDS = ("matrix", "n", "p", "pm", "pn", "mode", "comm", "kernel_resolved",
                  "kernel_detail", "planner")
@@ -130,17 +129,23 @@ def test_suite_cli_project_and_roofline(capsys):
 
 @pytest.mark.parametrize("main,argv", [
     (tbench.main, ["synth:banded:400:5:20", "8", "1", "0", "--engine=crp",
-                   "--distributed"]),
+                   "--device=cpu", "--distributed"]),
     (tsuite.main, ["vary_n", "synth:banded:400:5:20", "1", "--engine=crp",
-                   "--distributed"]),
+                   "--device=cpu", "--distributed"]),
 ])
-def test_distributed_raises_naming_a8(main, argv):
-    """``--distributed`` runs the 1D and 2D engines across ranks
-    (``tests/test_torch_dist_drivers.py``); the any-layout engine across
-    ranks is what is left of A8, and refuses, before joining any group."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+def test_distributed_raises_naming_a8(main, argv, monkeypatch):
+    """``--distributed`` runs every engine across ranks, the any-layout one
+    included (``tests/test_torch_dist_drivers.py``); outside a launcher
+    ``--engine=crp --distributed`` raises naming the env the launcher
+    sets (``init_distributed``'s message), before joining any group."""
+    import torch.distributed as dist
+
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match=r"the launcher's env lacks \['RANK', "
+                       r"'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT'\]"):
         main(argv)
-    assert "A8" in DISTRIBUTED_REFUSAL and "CrpSpmm" in DISTRIBUTED_REFUSAL
+    assert not dist.is_initialized()
 
 
 def test_usage(capsys):

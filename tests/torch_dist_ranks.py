@@ -134,6 +134,116 @@ def engines(cases) -> list:
     return out
 
 
+def crp_engines(cases) -> list:
+    """Each case's ``CrpSpmm`` on the mesh of its plan's grid: the global C
+    of ``exec`` (twice), this rank's user C block (``exec_device`` on its
+    user B block), its packed arrays, the counters, decisions and stat
+    table.  ``dist``: A as a ``DistCSR`` of which this rank holds block r
+    alone (the other blocks' colidx and val are None, so that a read of
+    them fails); ``plan_here``: the engine plans itself (from every
+    rank's row ranges), else the case's plan is given."""
+    from crp_tpu_torch.config import SpmmConfig
+    from crp_tpu_torch.engine.crp import CrpSpmm
+    from crp_tpu_torch.shard.dist_a import DistCSR
+    from crp_tpu_torch.shard.layout import make_mesh_2d
+
+    out = []
+    for case in cases:
+        if "ring_block_bytes" in case:
+            from crp_tpu_torch.comm import ring
+
+            ring.SEGSUM_BLOCK_BYTES = case["ring_block_bytes"]
+        bp = case["bplan"]
+        mesh = make_mesh_2d(bp.np_row, bp.np_col)
+        a = case["a"]
+        if case.get("dist") is not None:
+            a = DistCSR.from_global(a, case["dist"])
+            a.colidxs = [x if i == mesh.rank else None for i, x in enumerate(a.colidxs)]
+            a.vals = [x if i == mesh.rank else None for i, x in enumerate(a.vals)]
+        eng = CrpSpmm(a, case["n"], case["user_B"], case["user_C"], dtype=case["dtype"],
+                      config=SpmmConfig(**case["config"]), mesh=mesh,
+                      bplan=None if case.get("plan_here") else bp)
+        c = eng.exec(case["b"])
+        again = eng.exec(case["b"])
+        bs, again_bs = eng.rd_B.shard_src(case["b"]), eng.rd_B.shard_src(case["b"])
+        block = eng.exec_device(bs)
+        held = {bs.data_ptr(), again_bs.data_ptr()}
+        if eng.peers is not None:
+            held.add(eng.peers.buf.data_ptr())
+        out.append(dict(
+            c=c, again=again, block=bits(block), packed=[bits(x) for x in eng.packed],
+            kernel_kind=eng.kernel_kind, is_halo=eng.is_halo, grid=(eng.pm, eng.pn),
+            counters={k: getattr(eng, k) for k in CRP_COUNTERS},
+            aliased=len(held) < 2 + (eng.peers is not None), stat=eng.print_stat(),
+            pi=mesh.pi, pj=mesh.pj, device=str(eng.device)))
+        eng.close()
+    return out
+
+
+CRP_COUNTERS = ("nelem_A_rd", "nelem_A_agv", "nelem_B_rd", "nelem_B_a2av",
+                "nelem_B_a2av_min", "physical_rows")
+
+
+def _redist(cases, mesh) -> list:
+    """Each case's ``RedistEngine`` on ``mesh``: this rank's destination
+    block from its source block, the gathered global matrix, and the
+    audit's volumes."""
+    from crp_tpu_torch.shard.redist import RedistEngine
+
+    out = []
+    for case in cases:
+        eng = RedistEngine(case["src"], case["dst"], dtype=case["x"].dtype, mesh=mesh)
+        xs = eng.shard_src(case["x"])
+        y = eng.exec_device(xs)
+        out.append(dict(block=bits(y), shape=tuple(xs.shape),
+                        glob=eng.unshard_dst(y, *case["x"].shape),
+                        nelem=(eng.nelem_dst, eng.nelem_moved, eng.nelem_physical)))
+    return out
+
+
+def _ingest(cases, mesh) -> list:
+    """Each case's ``ingest_dist_a`` on ``mesh`` (this rank holding block r
+    alone): the panels' arrays and the two counters."""
+    from crp_tpu_torch.shard.dist_a import DistCSR, ingest_dist_a
+
+    out = []
+    for case in cases:
+        d = DistCSR.from_global(case["a"], case["displs"])
+        d.colidxs = [x if i == mesh.rank else None for i, x in enumerate(d.colidxs)]
+        d.vals = [x if i == mesh.rank else None for i, x in enumerate(d.vals)]
+        panels, rd, agv = ingest_dist_a(d, case["m_split_idx"], mesh.pm, mesh.pn,
+                                        mesh.device, val_dtype=case["dtype"], mesh=mesh)
+        out.append(dict(panels=[(x.nrow, x.ncol, x.rowptr, x.colidx, x.val) for x in panels],
+                        counters=(rd, agv)))
+    return out
+
+
+def crp(payload) -> dict:
+    """The any-layout engine's pieces on the world's ranks:
+    ``RedistEngine`` on the world's p x 1 mesh (``redist``),
+    ``ingest_dist_a`` on each case's grid (``ingest``), and ``CrpSpmm``
+    (``engines``, :func:`crp_engines`)."""
+    import torch.distributed as dist
+
+    from crp_tpu_torch.shard.layout import make_mesh_1d, make_mesh_2d
+
+    refused = None
+    try:  # a mesh that is not the planner's grid
+        from crp_tpu_torch.engine.crp import CrpSpmm
+
+        case = payload["engines"][0]
+        CrpSpmm(case["a"], case["n"], case["user_B"], case["user_C"], bplan=case["bplan"],
+                mesh=make_mesh_2d(1, dist.get_world_size()) if case["bplan"].np_row > 1
+                else make_mesh_1d(dist.get_world_size()))
+    except ValueError as e:
+        refused = str(e)
+    return dict(
+        refused=refused,
+        redist=_redist(payload["redist"], make_mesh_1d(dist.get_world_size())),
+        ingest=[_ingest([c], make_mesh_2d(*c["grid"]))[0] for c in payload["ingest"]],
+        engines=crp_engines(payload["engines"]))
+
+
 def mesh_layout(_) -> dict:
     """This rank's device, and its place on every grid of the world."""
     import torch.distributed as dist
@@ -178,7 +288,7 @@ def direct_group(_) -> dict:
 
 def refusals(case) -> dict:
     """What an engine on the world's 1D mesh refuses: a mesh that is not
-    its grid, autodiff over it, the any-layout driver across ranks."""
+    its grid, and training over it (autodiff, the trainable values)."""
     from crp_tpu_torch.config import SpmmConfig
     from crp_tpu_torch.engine.autodiff import DifferentiableSpmm
     from crp_tpu_torch.engine.rowpara import RowParaSpmm
@@ -205,13 +315,6 @@ def refusals(case) -> dict:
         ValueParameterizedSpmm(case["a"], d, d, case["n"], device="cpu", mesh=mesh)
     except NotImplementedError as e:
         got["trainable"] = str(e)
-    from crp_tpu_torch.cli import bench_cli
-
-    try:
-        bench_cli.main([case["spec"], "8", "1", "0", "--engine=crp", "--device=cpu",
-                        "--distributed"])
-    except NotImplementedError as e:
-        got["crp"] = str(e)
     return got
 
 
@@ -251,7 +354,8 @@ def loaded(case) -> dict:
     return dict(errs=errs, modules=sorted(m for m, v in sys.modules.items() if v is not None))
 
 
-JOBS = dict(engines=engines, engines_on_card=engines, mesh_layout=mesh_layout,
+JOBS = dict(engines=engines, engines_on_card=engines, crp=crp,
+            mesh_layout=mesh_layout,
             refusals=refusals, cli=cli, loaded=loaded, direct_group=direct_group)
 
 
