@@ -1764,6 +1764,7 @@ def headline_p4(device) -> list:
 # ------------------------------------------------------------------ ranks
 MULTIRANK_P = 4
 MULTIRANK_TIMEOUT = 300  # s a set of ranks may take before the phase fails
+RANK_THREADS = 2  # torch threads a rank process: the host's 8 cores over 4 ranks
 PROBE_TIMEOUT = 90
 
 
@@ -1895,6 +1896,7 @@ def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) 
     from crp_tpu_torch.kernels import spmm_halo as sh
     from crp_tpu_torch.shard.layout import init_distributed, make_mesh_1d
 
+    torch.set_num_threads(RANK_THREADS)
     rank_env(rank, world, port)
     device = init_distributed(backend="gloo")
     mesh = make_mesh_1d(world)
@@ -2648,19 +2650,17 @@ def gcn_ops_check(ah, p, b, dc, refs, device):
 def gcn_training(model, device) -> dict:
     """Launches of one training step (the model's forward and backward),
     then ``gcn_train.train`` twice from one seed on the model's engines:
-    losses equal bit for bit, the last below the first.  Returns the
-    launches per step."""
-    import torch.nn.functional as F
-    from crp_tpu_torch.examples import gcn_train
-    from crp_tpu_torch.examples.common import community_task
+    losses equal bit for bit, the last below the first (kept for the
+    ranks, ``_MEASURED["gcn losses"]``).  Returns the launches per step."""
+    from crp_tpu_torch.examples import common, gcn_train
 
-    x, labels = community_task(model.nodes, GNN_CLASSES)
+    x, labels = common.community_task(model.nodes, GNN_CLASSES)
     xs = model.prop_in.shard_b(x)
-    y = torch.from_numpy(labels).to(device)
+    ys = model.rows.take(labels, device)
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
-    F.cross_entropy(model(xs), y).backward()
+    common.loss(model, xs, ys).backward()
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     model.zero_grad(set_to_none=True)
@@ -2668,15 +2668,16 @@ def gcn_training(model, device) -> dict:
     # prop_in forward, prop_h forward and backward, on every shard
     check(launches["spmm_gather"] == 12, f"gcn training: spmm_gather launched "
           f"{launches['spmm_gather']} times in a step, expected 12")
-    train_runs("gcn p=4", lambda: gcn_train.train(
+    _MEASURED["gcn losses"] = train_runs("gcn p=4", lambda: gcn_train.train(
         model.nodes, GNN_CLASSES, N, TRAIN_STEPS, 4, "auto", device=device, model=model,
         log=say))
     return launches
 
 
-def train_runs(tag, run) -> None:
+def train_runs(tag, run) -> list:
     """``run()`` twice: the losses of the two runs finite and equal bit for
-    bit, the last below the first; ms per step printed."""
+    bit, the last below the first; ms per step printed.  Returns the
+    losses."""
     runs = [run() for _ in range(2)]
     losses = [r.losses for r in runs]
     say(f"[{tag} training] losses {losses[0]} and {losses[1]}; ms per step "
@@ -2686,19 +2687,25 @@ def train_runs(tag, run) -> None:
     check(all(np.isfinite(losses[0])), f"{tag}: non-finite loss")
     check(losses[0] == losses[1], f"{tag}: the two runs' losses differ")
     check(losses[0][-1] < losses[0][0], f"{tag}: the loss did not fall")
+    return losses[0]
 
 
-def gat_check(g, dc, device) -> None:
-    """The GAT at p = 4 on ``ValueParameterizedSpmm``: dvals from a seeded
-    dC against an fp64 reference on a seeded sample of DVALS_SAMPLE
-    nonzeros; the ``segsum`` kind's fixed-order sum on the fwd engine's
-    shard 0; then ``gat_train.train`` twice from one seed."""
+def gat_check(g, ah_gcn, dc, device) -> None:
+    """The GAT at p = 4 on ``ValueParameterizedSpmm``: its graph A + I with
+    A_hat's pattern (the ranks build it so); dvals from a seeded dC against
+    an fp64 reference on a seeded sample of DVALS_SAMPLE nonzeros; the
+    ``segsum`` kind's fixed-order sum on the fwd engine's shard 0; then
+    ``gat_train.train`` twice from one seed (the losses kept for the
+    ranks, ``_MEASURED["gat losses"]``)."""
     from crp_tpu_torch import rel_fro_err
     from crp_tpu_torch.examples import gat_train
     from crp_tpu_torch.shard.layout import shard_dense_rows
 
     t0 = time.perf_counter()
     ah = gat_train.pattern_with_self_loops(g)
+    check(np.array_equal(ah.rowptr, ah_gcn.rowptr) and np.array_equal(ah.colidx, ah_gcn.colidx)
+          and np.array_equal(ah.val, gat_graph(ah_gcn).val),
+          "gat: A + I is not A_hat's pattern with values 1")
     model = gat_train.GAT(*gat_train.gat_ops(ah, 4, GNN_CLASSES, N, device=device),
                           ah.rowptr, GNN_CLASSES, N)
     vps = model.vps_h
@@ -2724,8 +2731,213 @@ def gat_check(g, dc, device) -> None:
     fixed_order("gat p=4 segsum kind, shard 0", *(x[0] for x in vps.fwd.packed),
                 vps.fwd.receive_buffer(bs.detach())[0], vps.fwd.max_m, chunked=False)
     del bs, vals, cs, dcs, dv
-    train_runs("gat p=4", lambda: gat_train.train(
+    _MEASURED["gat losses"] = train_runs("gat p=4", lambda: gat_train.train(
         model.nodes, GNN_CLASSES, N, TRAIN_STEPS, 4, device=device, model=model, log=say))
+
+
+TRAIN_RANKS = 4
+TRAIN_RANKS_TIMEOUT = 180  # s the training ranks may take before the phase fails
+
+
+def gat_graph(ah):
+    """The GAT's A + I from A_hat: its pattern with values 1 (what
+    ``gat_train.pattern_with_self_loops`` gives the graph; gat_check
+    checks it)."""
+    from crp_tpu_torch.sparse.csr import CSRMatrix
+
+    return CSRMatrix(ah.nrow, ah.ncol, ah.rowptr, ah.colidx, np.ones(ah.nnz))
+
+
+def training_matrix(f, key):
+    """The CSR matrix ``key`` of a training case file (``training_case``)."""
+    from crp_tpu_torch.sparse.csr import CSRMatrix
+
+    return CSRMatrix(*(int(x) for x in f[f"{key}_shape"]), f[f"{key}_rowptr"],
+                     f[f"{key}_colidx"], f[f"{key}_val"])
+
+
+def training_rank(rank, world, port, path, out) -> None:
+    """One rank of the training rank set, a process of its own, as a user
+    runs it: the launcher's env, ``init_distributed`` (gloo for the control
+    plane: NCCL refuses several ranks on one card), ``make_mesh_1d``; the
+    examples' graph read from the worker's file.  The GCN at p = 4 on the
+    mesh, ``auto`` (``gather`` on every engine): one training step's
+    launches (counts zeroed just before, read just after), #10 against its
+    plain version on this rank's shard of ``prop_h.fwd`` (the main path's
+    shapes) and timed, then ``gcn_train.train`` for TRAIN_STEPS steps; the
+    GAT likewise on ``ValueParameterizedSpmm``.  Writes its losses, its
+    weights' digests, its init's device memory, the launches and times
+    (time-shared: four processes take turns on the one card) to ``out``."""
+    import torch.distributed as dist
+
+    from crp_tpu_torch import SpmmConfig, csr_row_partition
+    from crp_tpu_torch.engine.autodiff import DifferentiableSpmm, transposed
+    from crp_tpu_torch.engine.trainable import ValueParameterizedSpmm
+    from crp_tpu_torch.examples import common, gat_train, gcn_train
+    from crp_tpu_torch.shard.layout import init_distributed, make_mesh_1d
+
+    t_start = time.perf_counter()
+    torch.set_num_threads(RANK_THREADS)
+    rank_env(rank, world, port)
+    device = init_distributed(backend="gloo")
+    mesh = make_mesh_1d(world)
+    with np.load(path) as f:
+        ah = training_matrix(f, "ah")
+    got = dict(rank=rank, load_s=time.perf_counter() - t_start, marks=[])
+
+    def mark(label):  # where a rank's seconds go
+        got["marks"].append((label, round(time.perf_counter() - t_start, 2)))
+    kernels = all_kernels()
+    x, labels = common.community_task(ah.nrow, GNN_CLASSES)
+    # the ops of gcn_ops / gat_ops, on the a2a: gloo carries all_to_all_single on
+    # CUDA tensors, not the ring's send/recv (the one-device runs ring: the same bits)
+    d = csr_row_partition(ah.rowptr, world)
+
+    def ops(cls, a, kernel, widths):
+        cfg = SpmmConfig(kernel=kernel, dtype="float32", rb_p2p=0)
+        return [cls(a, d, d, w, config=cfg, mesh=mesh) for w in widths]
+
+    t0 = time.perf_counter()
+    model, peak, held = measured_init(device, lambda: gcn_train.GCN(
+        *ops(DifferentiableSpmm, ah, "auto", (GNN_CLASSES, N)), ah.nrow, GNN_CLASSES, N))
+    got["gcn"] = dict(init_s=time.perf_counter() - t0, peak=peak, held=held,
+                      kinds=[(e.kernel_kind, e._local_op.variant) for op in model.engines
+                             for e in (op.fwd, op.bwd)])
+    mark("gcn init")
+    xs = model.prop_in.shard_b(x)
+    ys = model.rows.take(labels, device)
+    for k in kernels:
+        k.launches = 0
+    common.loss(model, xs, ys).backward()  # the main path: one training step
+    torch.cuda.synchronize(device)
+    got["gcn"]["launches"] = {k.__name__: k.launches for k in kernels}
+    model.zero_grad(set_to_none=True)
+    mark("gcn step")
+    eng = model.prop_h.fwd
+    b = np.random.default_rng(8).standard_normal((ah.ncol, N)).astype(np.float32)
+    rB = eng.receive_buffer(eng.shard_b(b))[0]  # the exchange: every rank joins
+    op, arrs = eng._local_op, tuple(x[0] for x in eng.packed)
+    args = op.kernel_args(arrs, rB)
+    max_abs, _, rel_fro = compare("spmm_gather across ranks", lambda: launch(op, args),
+                                  lambda: op.plain(*args))
+    shard, cols = engine_csr(eng, ah, rank)
+    got["gather"] = dict(
+        max_abs=max_abs, rel_fro=rel_fro, rows=(int(eng.A_row_displs[rank]),
+                                                int(eng.A_row_displs[rank + 1])),
+        kernel_ms=rank_wall_ms(lambda: launch(op, args), device),
+        plain_ms=rank_wall_ms(lambda: op.plain(*args), device, 3),
+        bound=function_bound(op, csr_work(shard), N, torch.float32),
+        design_ms=view_bound(args[-1], rB, op.M, with_c=False)[0],
+        library_ms=csr_library_ms(shard.rowptr, cols, shard.val, rB.shape[0], rB))
+    del rB, args
+    mark("gather checked and timed")
+    t0 = time.perf_counter()
+    res = gcn_train.train(ah.nrow, GNN_CLASSES, N, TRAIN_STEPS, world, "auto", model=model,
+                          mesh=mesh, log=None)
+    got["gcn"].update(losses=res.losses, accuracy=res.accuracy, step_s=res.step_s,
+                      train_s=time.perf_counter() - t0,
+                      params={k: digest(w) for k, w in model.named_parameters()})
+    mark("gcn trained")
+    del model, res
+    for a in (ah, transposed(ah)):
+        a.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    gah = gat_graph(ah)
+    model, peak, held = measured_init(device, lambda: gat_train.GAT(
+        *ops(ValueParameterizedSpmm, gah, "segsum", (N, GNN_CLASSES)), gah.rowptr,
+        GNN_CLASSES, N))
+    mark("gat init")
+    got["gat"] = dict(init_s=time.perf_counter() - t0, peak=peak, held=held,
+                      kinds=[e.kernel_kind for op in model.engines for e in (op.fwd, op.bwd)])
+    t0 = time.perf_counter()
+    res = gat_train.train(ah.nrow, GNN_CLASSES, N, TRAIN_STEPS, world, model=model,
+                          mesh=mesh, log=None)
+    got["gat"].update(losses=res.losses, accuracy=res.accuracy, step_s=res.step_s,
+                      train_s=time.perf_counter() - t0,
+                      params={k: digest(w) for k, w in model.named_parameters()})
+    mark("gat trained")
+    got["total_s"] = time.perf_counter() - t_start
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        f.write(json.dumps(got))
+
+
+def training_ranks(path) -> dict:
+    """The training rank set: TRAIN_RANKS processes on the one card
+    (``training_rank``), every rank's losses equal to the one-device p = 4
+    runs' (gcn_training, gat_check) bit for bit and its weights to every
+    other rank's, #10 launched 3 times a rank in a GCN step (``prop_in``
+    forward, ``prop_h`` forward and backward), every engine on ``gather``
+    (GCN) or ``segsum`` (GAT), each init's peak device memory within
+    INIT_PEAK_OVER_HELD of what it holds.  Returns #10's record across
+    processes: its main-path launches over the ranks, its largest
+    difference from its plain version, rank 0's times (time-shared)."""
+    import os
+    import tempfile
+
+    from crp_tpu_torch import native
+
+    with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as tmp:
+        outs = [f"{tmp}/train{r}.json" for r in range(TRAIN_RANKS)]
+        t0 = time.perf_counter()
+        run_rank_set(training_rank, TRAIN_RANKS, lambda r: (path, outs[r]),
+                     TRAIN_RANKS_TIMEOUT, "training ranks")
+        ranks = [json.loads(open(o).read()) for o in outs if os.path.exists(o)]
+    say(f"[training ranks] {TRAIN_RANKS} ranks, one process each, on the one card: "
+        f"{time.perf_counter() - t0:.1f} s from spawn to exit")
+    check(len(ranks) == TRAIN_RANKS, "training ranks: a rank wrote no result")
+    gather = dict(launches=0, max_abs=0.0)
+    for model, kinds in (("gcn", [("gather", "gather")] * 4), ("gat", ["segsum"] * 4)):
+        want = _MEASURED.get(f"{model} losses")
+        for r, rk in enumerate(ranks):
+            m = rk[model]
+            tag = f"training ranks {model} rank {r}"
+            same = want is not None and m["losses"] == want
+            say(f"[{tag}] kinds {m['kinds']}; init {m['init_s']:.2f} s, device memory "
+                f"peak {m['peak'] / 1e9:.3f} GB, held {m['held'] / 1e9:.3f} GB; losses "
+                f"{m['losses']} "
+                f"{'equal the one-device p = 4 run bit for bit' if same else 'DIFFER'} "
+                f"(one device {want}); accuracy {m['accuracy']:.3f}; ms per step "
+                f"{[round(1e3 * t, 3) for t in m['step_s']]} (time-shared, no speed figure), "
+                f"train() {m['train_s']:.1f} s"
+                + (f"; launches in one step {json.dumps(m['launches'])}"
+                   if model == "gcn" else "")
+                + f"; rank total {rk['total_s']:.1f} s (graph read {rk['load_s']:.1f} s)")
+            check(same, f"{tag}: losses differ from the one-device p = 4 run's")
+            check(m["params"] == ranks[0][model]["params"],
+                  f"{tag}: weights differ from rank 0's")
+            check([tuple(k) if isinstance(k, list) else k for k in m["kinds"]] == kinds,
+                  f"{tag}: kinds {m['kinds']}")
+            check(m["peak"] <= INIT_PEAK_OVER_HELD * max(m["held"], 1),
+                  f"{tag}: init peaks at {m['peak'] / 1e9:.3f} GB, over "
+                  f"{INIT_PEAK_OVER_HELD} x the {m['held'] / 1e9:.3f} GB it holds")
+            if model == "gcn":
+                launches = m["launches"]
+                check(launches["spmm_gather"] == 3
+                      and sum(launches.values()) == launches["spmm_gather"],
+                      f"{tag}: launches in one step {launches}, expected spmm_gather 3")
+                gather["launches"] += launches["spmm_gather"]
+    say(f"[training ranks] rank 0's seconds from its start: {ranks[0]['marks']}")
+    for r, rk in enumerate(ranks):
+        g = rk["gather"]
+        gather["max_abs"] = max(gather["max_abs"], g["max_abs"])
+        say(f"[training ranks gather rank {r}] rows {g['rows']}, prop_h.fwd's spmm_gather "
+            f"vs plain: rel fro err {g['rel_fro']:.3e} (tol {TOL_TRAIN_PLAIN_FRO:g}), max "
+            f"abs {g['max_abs']:.3e}; time-shared: kernel {g['kernel_ms']:.4f} ms, plain "
+            f"{g['plain_ms']:.4f} ms, cuSPARSE {g['library_ms']:.4f} ms, bound "
+            f"{g['bound'][0]:.4f} ms ({g['bound'][1]}), design bound {g['design_ms']:.4f} ms")
+        check(g["rel_fro"] <= TOL_TRAIN_PLAIN_FRO,
+              f"training ranks rank {r}: spmm_gather vs plain rel fro err {g['rel_fro']}")
+    g0 = ranks[0]["gather"]
+    rec = record("spmm_gather", gather["launches"], gather["max_abs"], g0["kernel_ms"],
+                 g0["plain_ms"], *g0["bound"], g0["design_ms"], g0["library_ms"])
+    rec.update(path=f"training ranks: gcn p=4, prop_h.fwd, n={N}",
+               timing="time-shared: 4 processes on one card, rank 0, highest, host "
+               "sync included")
+    return rec
 
 
 def crp_drive(a, b, c_ref, tag, cfg, grid, kind, variant, device, *, dist=None,
@@ -3039,11 +3251,16 @@ def training_case(directory=None) -> tuple:
     t_host = time.perf_counter() - t0
     if directory is None:
         return g, ah, refs, t_host
-    path = directory / "training.npz"
+    return write_training(directory / "training.npz", g, ah, refs), None, None, t_host
+
+
+def write_training(path, g, ah, refs):
+    """The training case's arrays to the file ``path`` (``training_matrix``
+    reads them); returns ``path``."""
     np.savez(path, ref_b=refs[0], ref_dc=refs[1], **{
         f"{k}_{f}": getattr(x, f) if f != "shape" else (x.nrow, x.ncol)
         for k, x in (("g", g), ("ah", ah)) for f in ("shape", "rowptr", "colidx", "val")})
-    return path, None, None, t_host
+    return path
 
 
 def training_path(device) -> list:
@@ -3051,21 +3268,28 @@ def training_path(device) -> list:
     the cplaw class's rows (``powerlaw_community_csr(786432, 8, 98304,
     seed=5)`` with self-loops), 8 classes, hidden n = 256; the GCN's ops
     at p = 1 and p = 4 (``gcn_ops_check``), its training at p = 4
-    (``gcn_training``), the GAT's (``gat_check``).  Returns the records of
-    the GCN engines' gather kernel, with its launches in the p = 1 op check
-    and in one p = 4 training step."""
+    (``gcn_training``), the GAT's (``gat_check``), then both across 4
+    processes (``training_ranks``, the graph read from the worker's
+    file).  Returns the records of the GCN engines' gather kernel, with its
+    launches in the p = 1 op check, in one p = 4 training step, and over
+    the ranks in one step."""
+    import os
+    import tempfile
+
+    from crp_tpu_torch import native
     from crp_tpu_torch.engine.autodiff import transposed
     from crp_tpu_torch.sparse.csr import CSRMatrix
 
     t0 = time.perf_counter()
     g, ah, refs, t_host = host_job("training graph", training_case)
-    if not isinstance(g, CSRMatrix):  # made in the worker: its file
+    tmp = tempfile.TemporaryDirectory(dir=native.BUILD_DIR)
+    if isinstance(g, CSRMatrix):  # made here (the phase run alone): a file for the ranks
+        path = write_training(os.path.join(tmp.name, "training.npz"), g, ah, refs)
+    else:  # made in the worker: its file, which the ranks read too
         path = g
         with np.load(path) as f:
-            g, ah = (CSRMatrix(*(int(x) for x in f[f"{k}_shape"]), f[f"{k}_rowptr"],
-                               f[f"{k}_colidx"], f[f"{k}_val"]) for k in ("g", "ah"))
+            g, ah = (training_matrix(f, k) for k in ("g", "ah"))
             refs = (f["ref_b"], f["ref_dc"])
-        path.unlink()
     b, dc = training_inputs(ah)
     say(f"training graph: A_hat {ah.nrow} rows, {ah.nnz} nnz, n={N}, host set-up "
         f"{t_host:.2f} s (the graph and the references), here "
@@ -3085,9 +3309,17 @@ def training_path(device) -> list:
         r["launches"] = step["spmm_gather"]
     del model
     drop_packs()
-    gat_check(g, dc, device)
-    torch.cuda.empty_cache()
-    return records + recs
+    gat_check(g, ah, dc, device)
+    drop_packs()
+    t1 = time.perf_counter()
+    try:
+        ranks = training_ranks(path)
+    finally:
+        if os.path.exists(path):
+            os.unlink(path)
+        tmp.cleanup()
+    say(f"[time] training ranks: {time.perf_counter() - t1:.1f} s")
+    return records + recs + [ranks]
 
 
 # the drivers path: the headline and cplaw as the drivers name them

@@ -12,7 +12,11 @@ data); :mod:`.trainable` adds them for the ``segsum`` kind.
 Layout: the op takes and returns the engines' stacked padded shards, the
 tensors ``shard_b`` and ``exec_device`` use.  The forward C layout (A's
 row blocks) and the backward engine's B layout agree block for block;
-rows the backward layout adds are zero-padded, which is exact.
+rows the backward layout adds are zero-padded, which is exact.  On a mesh
+of ranks (``mesh=``, ``autodiff.py:64-125``) both engines run on the same
+mesh: the op takes this rank's B shard (1, max_k, n) and returns its C
+shard (1, max_m, n), and the backward's exchange runs on the mesh's group;
+each rank's shards equal the one-device op's slice bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..comm.exchange import gather_shards
 from ..config import SpmmConfig
 from ..kernels.dispatch import resolve_auto_kernel
 from ..shard.layout import unshard_dense_rows
@@ -65,8 +70,12 @@ def check_stateless(config: SpmmConfig, who: str) -> None:
 
 
 def unshard_db(fwd: RowParaSpmm, db_shards: torch.Tensor) -> np.ndarray:
-    """(p, rows, n) dB shards -> the global (k, n) host gradient."""
-    db = unshard_dense_rows(db_shards.detach().cpu().numpy(), fwd.B_row_displs)
+    """(p, rows, n) dB shards -> the global (k, n) host gradient; on a mesh
+    every rank's shard is gathered first, as ``unshard_c`` gathers C."""
+    db_shards = db_shards.detach()
+    if fwd.mesh is not None:
+        db_shards = gather_shards(db_shards, fwd._group, fwd.p)
+    db = unshard_dense_rows(db_shards.cpu().numpy(), fwd.B_row_displs)
     return db[: int(fwd.B_row_displs[-1])]
 
 
@@ -86,18 +95,6 @@ class _EngineSpmm(torch.autograd.Function):
         return repad_rows(db, op.fwd.max_k), None
 
 
-MESH_REFUSAL = (
-    "training across ranks is not ported yet (ROADMAP A8, what is left: the "
-    "autodiff and trainable-value engines over a mesh); run it without a "
-    "mesh, every shard on the one device")
-
-
-def refuse_mesh(mesh, name: str) -> None:
-    """The training ops refuse an engine on a mesh of ranks."""
-    if mesh is not None:
-        raise NotImplementedError(f"{name}: {MESH_REFUSAL}")
-
-
 class DifferentiableSpmm(torch.nn.Module):
     """``op(B_shards) -> C_shards`` with ``dB = A^T @ dC``.
 
@@ -107,25 +104,29 @@ class DifferentiableSpmm(torch.nn.Module):
     ``fwd``'s row blocks (so it reads dC's layout as it is).
     ``kernel="auto"`` resolves here without the fused halo kind: ``pallas``
     on the card, ``segsum`` on the CPU.  ``dd``, ``dd_mxu``, ``pallas_halo``
-    and ``bc_layout`` are refused, as in JAX.
+    and ``bc_layout`` are refused, as in JAX, on a mesh as without one.
+    ``mesh``: a 1D mesh of p ranks, on which both engines run (``device``
+    then defaults to the mesh's).
     """
 
     def __init__(self, a, A_row_displs, B_row_displs, glb_n: int, *,
-                 device="cuda", config: SpmmConfig | None = None,
+                 device=None, config: SpmmConfig | None = None,
                  dtype=np.float32, mesh=None) -> None:
         super().__init__()
-        refuse_mesh(mesh, "DifferentiableSpmm")
-        device = engine_device(device)
+        device = engine_device(
+            device if device is not None else mesh.device if mesh is not None else "cuda")
         config = config or SpmmConfig(kernel="segsum", dtype="float32")
         if config.kernel == "auto":
             config = dataclasses.replace(config, kernel=resolve_auto_kernel(
                 device, len(A_row_displs) - 1, allow_halo=False))
         check_stateless(config, "DifferentiableSpmm")
+        # A^T on the same mesh: its row blocks are fwd's B ownership and its
+        # B ownership fwd's row blocks (autodiff.py:100-107)
         self.fwd = RowParaSpmm(a, A_row_displs, B_row_displs, glb_n,
-                               device=device, config=config, dtype=dtype)
+                               device=device, config=config, dtype=dtype, mesh=mesh)
         self.bwd = RowParaSpmm(transposed(a), self.fwd.B_row_displs,
                                self.fwd.A_row_displs, glb_n, device=device,
-                               config=config, dtype=dtype)
+                               config=config, dtype=dtype, mesh=mesh)
 
     def forward(self, b_shards: torch.Tensor) -> torch.Tensor:
         return _EngineSpmm.apply(b_shards, self)

@@ -23,6 +23,14 @@ nonzero (``pack_device_csr``), so a change of values is a swap of one
 tensor.  Slot q of shard i is global nonzero ``a.rowptr[displs[i]] + q``
 (row blocks are contiguous in the CSR order), so value gradients are
 assembled by per-shard slices, not scattered.
+
+On a mesh of ranks (``mesh=``, ``trainable.py:99-160``) both engines run on
+the same mesh, and rank r holds A's nonzeros ``[rowptr[d_r],
+rowptr[d_r+1])``, its shard's value slots: the op takes that range of the
+values, and it, ``sddmm`` and the value gradients return that range (one
+device: the whole (nnz,) vector, the p ranges one after another).  The
+transposed exec reads values of every row block: the ranges are
+all-gathered on the mesh's group for it.
 """
 
 from __future__ import annotations
@@ -31,10 +39,12 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..comm.exchange import gather_shards
 from ..config import SpmmConfig
 from ..kernels.spmm_segsum import SEGSUM_BLOCK_BYTES
-from .autodiff import check_stateless, refuse_mesh, repad_rows, transposed, unshard_db
+from .autodiff import check_stateless, repad_rows, transposed, unshard_db
 from .rowpara import RowParaSpmm, engine_device, run_shards
 
 
@@ -96,21 +106,22 @@ class _Sddmm(torch.autograd.Function):
 class ValueParameterizedSpmm(torch.nn.Module):
     """``op(B_shards, vals) -> C_shards`` with gradients to B and to vals.
 
-    Parameters mirror :class:`RowParaSpmm`.  ``vals`` is the global (nnz,)
-    value vector in A's CSR order; A's pattern stays static (plans,
-    exchange and pack are pattern-only).  ``auto`` resolves to ``segsum``;
-    any other kind, ``overlap`` and ``bc_layout`` are refused, as in JAX.
-    :meth:`sddmm` is the GAT attention primitive.
+    Parameters mirror :class:`RowParaSpmm`.  ``vals`` is the (nnz,) value
+    vector in A's CSR order, on a mesh this rank's range of it
+    (:attr:`val_range`); A's pattern stays static (plans, exchange and pack
+    are pattern-only).  ``auto`` resolves to ``segsum``; any other kind,
+    ``overlap`` and ``bc_layout`` are refused, as in JAX, on a mesh as
+    without one.  :meth:`sddmm` is the GAT attention primitive.
     """
 
     CHUNK = 2048  # SDDMM slots per chunk (trainable.py:95)
 
     def __init__(self, a, A_row_displs, B_row_displs, glb_n: int, *,
-                 device="cuda", config: SpmmConfig | None = None,
+                 device=None, config: SpmmConfig | None = None,
                  dtype=np.float32, mesh=None) -> None:
         super().__init__()
-        refuse_mesh(mesh, "ValueParameterizedSpmm")
-        device = engine_device(device)
+        device = engine_device(
+            device if device is not None else mesh.device if mesh is not None else "cuda")
         config = config or SpmmConfig(kernel="segsum", dtype="float32")
         if config.kernel == "auto":
             config = dataclasses.replace(config, kernel="segsum")
@@ -124,39 +135,43 @@ class ValueParameterizedSpmm(torch.nn.Module):
                 "use the plain exchange for value-parameterized exec")
         check_stateless(config, "ValueParameterizedSpmm")
         self.fwd = RowParaSpmm(a, A_row_displs, B_row_displs, glb_n,
-                               device=device, config=config, dtype=dtype)
+                               device=device, config=config, dtype=dtype, mesh=mesh)
         self.bwd = RowParaSpmm(transposed(a), self.fwd.B_row_displs,
                                self.fwd.A_row_displs, glb_n, device=device,
-                               config=config, dtype=dtype)
+                               config=config, dtype=dtype, mesh=mesh)
         assert self.fwd.kernel_kind == self.bwd.kernel_kind == "segsum"
 
         self.nnz = int(a.nnz)
-        p = self.fwd.p
         fd = self.fwd.A_row_displs
-        # slot q of fwd shard i <-> global nonzero fwd_rng[i][0] + q
-        self._fwd_rng = [(int(a.rowptr[int(fd[i])]), int(a.rowptr[int(fd[i + 1])]))
-                         for i in range(p)]
+        held = range(self.fwd.p) if mesh is None else [self.fwd.rank]
+        # slot q of fwd shard i <-> global nonzero ranges[i][0] + q
+        self._ranges = [(int(a.rowptr[int(fd[i])]), int(a.rowptr[int(fd[i + 1])]))
+                        for i in range(self.fwd.p)]
+        self._fwd_rng = [self._ranges[i] for i in held]
+        # the values this op takes and returns: A's nonzeros [s, e)
+        self.val_range = (0, self.nnz) if mesh is None else self._fwd_rng[0]
         # gather maps from the (nnz + 1,) values, the last a zero for the
-        # pad slots: the fwd slots, and the bwd slots through the transpose's
-        # stable sort (bwd slot q of shard i <-> A^T nonzero
-        # at.rowptr[td[i]] + q <-> A nonzero order[t])
-        fwd_idx = np.full((p, self.fwd.packed[0].shape[1]), self.nnz, np.int64)
-        for i, (s, e) in enumerate(self._fwd_rng):
-            fwd_idx[i, : e - s] = np.arange(s, e)
+        # pad slots, one row a held shard: the fwd slots, and the bwd slots
+        # through the transpose's stable sort (bwd slot q of shard i <-> A^T
+        # nonzero at.rowptr[td[i]] + q <-> A nonzero order[t])
+        fwd_idx = np.full((len(held), self.fwd.packed[0].shape[1]), self.nnz, np.int64)
+        for j, (s, e) in enumerate(self._fwd_rng):
+            fwd_idx[j, : e - s] = np.arange(s, e)
         colidx = np.asarray(a.colidx)
         order = np.argsort(colidx, kind="stable")
         at_rowptr = np.zeros(a.ncol + 1, dtype=np.int64)
         np.cumsum(np.bincount(colidx, minlength=a.ncol), out=at_rowptr[1:])
         td = self.bwd.A_row_displs
-        bwd_idx = np.full((p, self.bwd.packed[0].shape[1]), self.nnz, np.int64)
-        for i in range(p):
+        bwd_idx = np.full((len(held), self.bwd.packed[0].shape[1]), self.nnz, np.int64)
+        for j, i in enumerate(held):
             lo = int(at_rowptr[min(int(td[i]), a.ncol)])
             hi = int(at_rowptr[min(int(td[i + 1]), a.ncol)])
-            bwd_idx[i, : hi - lo] = order[lo:hi]
-        self.register_buffer("fwd_idx", torch.from_numpy(fwd_idx).to(device),
-                             persistent=False)
-        self.register_buffer("bwd_idx", torch.from_numpy(bwd_idx).to(device),
-                             persistent=False)
+            bwd_idx[j, : hi - lo] = order[lo:hi]
+        # the fwd map into the held range of values, its pad slots at the zero
+        s, e = self.val_range
+        fwd_take = np.where(fwd_idx == self.nnz, e - s, fwd_idx - s)
+        for name, x in (("fwd_idx", fwd_idx), ("bwd_idx", bwd_idx), ("fwd_take", fwd_take)):
+            self.register_buffer(name, torch.from_numpy(x).to(device), persistent=False)
 
     def forward(self, b_shards: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
         return _ValueSpmm.apply(b_shards, vals, self)
@@ -169,19 +184,31 @@ class ValueParameterizedSpmm(torch.nn.Module):
         return torch.cat([vals.to(dt), vals.new_zeros(1, dtype=dt)])[idx]
 
     def _fwd_slots(self, vals):
-        """Global (nnz,) values -> the fwd engine's (p, nnz_pad) slots."""
-        return self._slots(vals, self.fwd_idx)
+        """The held range of values -> the fwd engine's (held, nnz_pad) slots."""
+        return self._slots(vals, self.fwd_take)
+
+    def _all_values(self, vals):
+        """The held range of values -> the global (nnz,) vector: on a mesh
+        every rank's range, all-gathered (padded to the longest) on the
+        mesh's group."""
+        if self.fwd.mesh is None:
+            return vals
+        width = max(e - s for s, e in self._ranges)
+        parts = gather_shards(F.pad(vals, (0, width - vals.shape[0]))[None],
+                              self.fwd._group, self.fwd.p).to(vals.device)
+        return torch.cat([parts[i, : e - s] for i, (s, e) in enumerate(self._ranges)])
 
     def _transpose_exec(self, vals, x_shards):
         """``A(vals)^T @ X`` on the bwd engine, X in the fwd C layout."""
-        return _exec_with_vals(self.bwd, self._slots(vals, self.bwd_idx),
+        return _exec_with_vals(self.bwd, self._slots(self._all_values(vals), self.bwd_idx),
                                repad_rows(x_shards, self.bwd.max_k).contiguous())
 
     def _sddmm_shards(self, x, rb):
-        """Per-slot ``dot(x[row], rb[col])`` -> global (nnz,) in A's order
+        """Per-slot ``dot(x[row], rb[col])`` -> the held range, in A's order
         (``trainable.py:212-236``), in fp32 (fp64 for fp64 inputs): whole
-        chunks of ``CHUNK`` slots, as many a step as fit
-        ``SEGSUM_BLOCK_BYTES`` of gathered rows."""
+        chunks of ``CHUNK`` slots from each shard's first slot, as many a
+        step as fit ``SEGSUM_BLOCK_BYTES`` of gathered rows (the same steps
+        on a rank as on one device)."""
         rows, cols = self.fwd.packed[0], self.fwd.packed[1]
         dt = torch.promote_types(torch.promote_types(x.dtype, rb.dtype), torch.float32)
         width = max(1, x.shape[-1])
@@ -208,9 +235,9 @@ class ValueParameterizedSpmm(torch.nn.Module):
     # ------------------------------------------------------------- GAT/SDDMM
     def sddmm(self, x_shards: torch.Tensor, y_shards: torch.Tensor) -> torch.Tensor:
         """Sampled ``X @ Y^T`` at A's pattern: ``out[q] = dot(X[row_q, :],
-        Y[col_q, :])`` for each nonzero q, a global (nnz,) vector in A's CSR
-        order (``trainable.py:250-262``).  ``x_shards`` is row-sharded like
-        C (``max_m`` rows a shard), ``y_shards`` like B; Y's rows cross
-        shards through the engine's planned exchange.  Differentiable in
-        both, through the engines."""
+        Y[col_q, :])`` for each nonzero q of the held range, in A's CSR
+        order (``trainable.py:250-262``; one device: all nnz).  ``x_shards``
+        is row-sharded like C (``max_m`` rows a shard), ``y_shards`` like B;
+        Y's rows cross shards through the engine's planned exchange.
+        Differentiable in both, through the engines."""
         return _Sddmm.apply(x_shards, y_shards, self)

@@ -1,20 +1,25 @@
-"""The examples' synthetic task, shard layout and training loop.
+"""The examples' synthetic task, training loop and ``--distributed`` join.
 
 The task (``examples/gcn_train.py:73-83`` of the JAX package): a community
 power-law graph, features the noisy one-hot community indicator, labels
 the community ids.  A model must beat a feature-only probe by using the
 graph.
+
+The models keep every activation row-sharded, in the engines' row blocks
+(:mod:`crp_tpu_torch.engine.shardops`): all p shards on one device, or one
+a rank on a mesh, through one code path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from ..shard.layout import make_mesh_1d
 from ..sparse.synth import powerlaw_community_csr
 
 
@@ -42,21 +47,6 @@ def self_loop_coo(a) -> tuple:
     return rows, cols
 
 
-def unpad(cs: torch.Tensor, displs, nodes: int) -> torch.Tensor:
-    """(p, rows, w) shards -> (nodes, w) along the row blocks ``displs``;
-    rows past the last block are zero."""
-    out = torch.cat([cs[i, : int(displs[i + 1] - displs[i])]
-                     for i in range(len(displs) - 1)])
-    return F.pad(out, (0, 0, 0, nodes - out.shape[0]))
-
-
-def repad(xg: torch.Tensor, displs, rows: int) -> torch.Tensor:
-    """(nodes, w) -> (p, rows, w) shards along the row blocks ``displs``."""
-    return torch.stack([F.pad(xg[int(displs[i]) : int(displs[i + 1])],
-                              (0, 0, 0, rows - int(displs[i + 1] - displs[i])))
-                        for i in range(len(displs) - 1)])
-
-
 def init_normal(params, seed: int) -> None:
     """Each parameter, in order, from one seeded generator: N(0, 1) x 0.3,
     the JAX examples' scale."""
@@ -82,26 +72,49 @@ class TrainResult:
         return self.model.engines
 
 
-def accuracy(model, inputs, y) -> float:
+def accuracy(model, inputs, ys) -> float:
+    """The model's accuracy over every node (the same on every rank)."""
     with torch.no_grad():
-        return float((model(inputs).argmax(-1) == y).float().mean())
+        return model.rows.accuracy(model(inputs), ys)
 
 
-def fit(model, inputs, y, steps: int, lr: float, log=print) -> tuple:
+def loss(model, inputs, ys) -> torch.Tensor:
+    """The mean cross entropy over every node, summed in shard order."""
+    return model.rows.loss(model(inputs), ys)
+
+
+def fit(model, inputs, ys, steps: int, lr: float, log=print) -> tuple:
     """Adam on the mean cross entropy (``examples/gcn_train.py:127-141``);
-    logs the loss and accuracy at every fifth step and the last.  Returns
+    logs the loss and accuracy at every fifth step and the last.  ``ys``:
+    the held shards' labels (``model.rows.take``).  On a mesh the accuracy
+    is a collective: give every rank a ``log``, or none to all (a rank
+    that should stay quiet takes one that prints nothing).  Returns
     (losses, step seconds)."""
     opt = torch.optim.Adam(model.parameters(), lr=lr)
     losses, step_s = [], []
     for i in range(steps):
         t0 = time.perf_counter()
         opt.zero_grad()
-        loss = F.cross_entropy(model(inputs), y)
-        loss.backward()
+        step_loss = loss(model, inputs, ys)
+        step_loss.backward()
         opt.step()
-        losses.append(float(loss.detach()))
+        losses.append(float(step_loss.detach()))
         step_s.append(time.perf_counter() - t0)
         if log and (i % 5 == 0 or i == steps - 1):
             log(f"step {i:3d}  loss {losses[-1]:.4f}  acc "
-                f"{accuracy(model, inputs, y):.3f}")
+                f"{accuracy(model, inputs, ys):.3f}")
     return losses, step_s
+
+
+def join_mesh(device: str, p: int) -> tuple:
+    """``--distributed``: join the launcher's process group (``join_ranks``:
+    NCCL on the card, gloo under ``--device cpu``) and return ``(this
+    rank's device, make_mesh_1d(world), a log that prints on rank 0
+    alone)``; ``p`` must be the world size."""
+    from ..cli._driver import join_ranks
+
+    device, rank, world = join_ranks({"distributed": "1"}, device)
+    if p != world:
+        raise SystemExit(f"--p={p} shards on {world} ranks: --p must be the world size")
+    say = functools.partial(print, flush=True) if rank == 0 else (lambda *_: None)
+    return device, make_mesh_1d(world), say

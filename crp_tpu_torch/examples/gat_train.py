@@ -13,9 +13,20 @@ trainable surface of :class:`ValueParameterizedSpmm`:
     backward gives exact gradients to the dense input and to the edge
     values, so gradients reach W and the attention vectors.
 
+Every activation stays row-sharded in the engines' row blocks, and each
+row block's edge scores are its contiguous range of A's nonzeros, so the
+softmax runs shard by shard too (:mod:`~crp_tpu_torch.engine.shardops`):
+one code path trains p shards on one device or one shard on each of p
+ranks (``--distributed``), bit for bit alike.
+
 On the card (the default), or on the CPU with ``--device cpu``:
 
   python -m crp_tpu_torch.examples.gat_train --nodes=2000 --steps=40 --p=4
+
+On p ranks, one GPU each (NCCL), or on gloo ranks on the CPU:
+
+  torchrun --nproc-per-node=4 -m crp_tpu_torch.examples.gat_train --distributed
+  torchrun --nproc-per-node=4 -m crp_tpu_torch.examples.gat_train --device cpu --distributed
 
 It exits 0 when the final accuracy is over 0.7.
 """
@@ -30,13 +41,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..engine.autodiff import repad_rows
+from ..engine.shardops import ShardRows, per_shard, shard_matmul
 from ..engine.trainable import ValueParameterizedSpmm
 from ..kernels.spmm_segsum import segment_sum
 from ..plan.partition1d import csr_row_partition
 from ..sparse.csr import CSRMatrix
 from .common import (
-    TrainResult, accuracy, community_graph, community_task, fit, init_normal, repad,
-    self_loop_coo, unpad,
+    TrainResult, accuracy, community_graph, community_task, fit, init_normal, join_mesh,
+    self_loop_coo,
 )
 
 LR = 2e-2
@@ -71,29 +84,38 @@ class _SegmentSoftmax(torch.autograd.Function):
         return ga - alpha * segment_sum(ga, offsets)[rows], None, None
 
 
-def gat_ops(ah, p: int, classes: int, hidden: int, *, device="cuda") -> tuple:
+def gat_ops(ah, p: int, classes: int, hidden: int, *, device=None, mesh=None) -> tuple:
     """One op per propagation width (``hidden``, then ``classes``) over
-    ``p`` nnz-balanced row blocks."""
+    ``p`` nnz-balanced row blocks; on ``mesh`` (p ranks) if given."""
     displs = csr_row_partition(ah.rowptr, p)
-    return tuple(ValueParameterizedSpmm(ah, displs, displs, width, device=device)
+    return tuple(ValueParameterizedSpmm(ah, displs, displs, width, device=device,
+                                        mesh=mesh)
                  for width in (hidden, classes))
 
 
 class GAT(torch.nn.Module):
     """Two single-head attention layers, ELU between them
-    (``examples/gat_train.py:107-147``)."""
+    (``examples/gat_train.py:107-147``), every activation in the ops' row
+    blocks: it takes the held B shards of X (``vps_h.shard_b``) and returns
+    the held shards' logits."""
 
     def __init__(self, vps_h, vps_o, rowptr, classes: int, hidden: int) -> None:
         super().__init__()
         self.vps_h, self.vps_o = vps_h, vps_o
-        self.displs = vps_h.fwd.A_row_displs
         self.nodes = len(rowptr) - 1
+        self.mesh = vps_h.fwd.mesh
+        self.rows = ShardRows(vps_h.fwd.A_row_displs, self.nodes, self.mesh)
         dev = vps_h.fwd.device
         rowptr = np.asarray(rowptr, np.int64)
-        self.register_buffer("offsets", torch.from_numpy(rowptr).to(dev),
-                             persistent=False)
-        self.register_buffer("rows", torch.from_numpy(
-            np.repeat(np.arange(self.nodes), np.diff(rowptr))).to(dev), persistent=False)
+        d = self.rows.displs
+        # each held shard's edges: their count, each edge's row and the
+        # rows' CSR offsets, rebased to the shard's first row and first edge
+        self.segments = []
+        for i in self.rows.held:
+            offsets = rowptr[d[i] : d[i + 1] + 1] - rowptr[d[i]]
+            rows = np.repeat(np.arange(int(d[i + 1] - d[i])), np.diff(offsets))
+            self.segments.append((int(offsets[-1]), torch.from_numpy(rows).to(dev),
+                                  torch.from_numpy(offsets).to(dev)))
         shapes = ((classes, hidden), (hidden,), (hidden,), (hidden, classes),
                   (classes,), (classes,))
         for name, shape in zip(PARAMS, shapes):
@@ -107,21 +129,28 @@ class GAT(torch.nn.Module):
     def reset_parameters(self, seed: int = 0) -> None:
         init_normal([getattr(self, name) for name in PARAMS], seed)
 
-    def layer(self, vps, h, w, a_src, a_dst):
-        """One head: ``softmax_j(LeakyReLU(s_i + d_j)) A(alpha) H W``."""
-        m_pad, k_pad = self.vps_h.fwd.max_m, self.vps_h.fwd.max_k
-        hw = h @ w
-        s, d = hw @ a_src, hw @ a_dst
+    def softmax(self, e: torch.Tensor) -> torch.Tensor:
+        """``softmax_j(LeakyReLU(e))`` within each row, shard by shard over
+        the held shards' ranges of edges."""
+        parts = torch.split(e, [n for n, _, _ in self.segments])
+        return torch.cat([_SegmentSoftmax.apply(F.leaky_relu(x, 0.2), rows, off)
+                          for x, (_, rows, off) in zip(parts, self.segments)])
+
+    def layer(self, vps, hs, w, a_src, a_dst):
+        """One head: ``softmax_j(LeakyReLU(s_i + d_j)) A(alpha) H W`` on the
+        held B shards of H; returns the held C shards."""
+        hw = shard_matmul(hs, w, self.mesh)
+        s, d = shard_matmul(hw, a_src, self.mesh), shard_matmul(hw, a_dst, self.mesh)
         # e_q = s[row_q] + d[col_q] as a rank-2 SDDMM: dot([s, 1], [1, d])
         ones = torch.ones_like(s)
-        e = vps.sddmm(repad(torch.stack([s, ones], 1), self.displs, m_pad),
-                      repad(torch.stack([ones, d], 1), self.displs, k_pad))
-        alpha = _SegmentSoftmax.apply(F.leaky_relu(e, 0.2), self.rows, self.offsets)
-        return unpad(vps(repad(hw, self.displs, k_pad), alpha), self.displs, self.nodes)
+        e = vps.sddmm(repad_rows(torch.stack([s, ones], -1), vps.fwd.max_m),
+                      torch.stack([ones, d], -1))
+        return vps(hw, self.softmax(e))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.elu(self.layer(self.vps_h, x, self.w1, self.a1s, self.a1d))
-        return self.layer(self.vps_o, h, self.w2, self.a2s, self.a2d)
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        h = per_shard(F.elu, self.layer(self.vps_h, xs, self.w1, self.a1s, self.a1d))
+        return self.layer(self.vps_o, repad_rows(h, self.vps_o.fwd.max_k), self.w2,
+                          self.a2s, self.a2d)
 
 
 def gat_params_from_jax(params: dict) -> OrderedDict:
@@ -132,20 +161,22 @@ def gat_params_from_jax(params: dict) -> OrderedDict:
 
 
 def train(nodes: int = 2000, classes: int = 8, hidden: int = 32, steps: int = 40,
-          p: int = 4, *, device="cuda", seed: int = 0, model: GAT | None = None,
-          log=print) -> TrainResult:
+          p: int = 4, *, device=None, seed: int = 0, model: GAT | None = None,
+          mesh=None, log=print) -> TrainResult:
     """Build the task and the model (or take ``model``, a previous run's,
-    whose engines are kept) and train it; weights drawn from ``seed``."""
+    whose engines are kept) and train it; weights drawn from ``seed``.
+    ``mesh``: p ranks, each fed its rows of the features and labels (every
+    rank calls ``train``; see ``fit`` for ``log``)."""
     if model is None:
         ah = pattern_with_self_loops(community_graph(nodes, classes))
-        model = GAT(*gat_ops(ah, p, classes, hidden, device=device), ah.rowptr,
-                    classes, hidden)
+        model = GAT(*gat_ops(ah, p, classes, hidden, device=device, mesh=mesh),
+                    ah.rowptr, classes, hidden)
     model.reset_parameters(seed)
     x, labels = community_task(nodes, classes)
-    xg = torch.from_numpy(x).to(model.w1.device)
-    y = torch.from_numpy(labels).to(model.w1.device)
-    losses, step_s = fit(model, xg, y, steps, LR, log)
-    acc = accuracy(model, xg, y)
+    xs = model.vps_h.shard_b(x)
+    ys = model.rows.take(labels, model.w1.device)
+    losses, step_s = fit(model, xs, ys, steps, LR, log)
+    acc = accuracy(model, xs, ys)
     if log:
         log(f"final accuracy {acc:.3f} on {model.nodes} nodes ({model.vps_h.fwd.p} "
             f"shards, {model.vps_h.nnz} edges, single-head GAT)")
@@ -160,9 +191,14 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--p", type=int, default=4, help="row shards")
     ap.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
+    ap.add_argument("--distributed", action="store_true",
+                    help="one shard a rank of the launcher's group; --p is its size")
     args = ap.parse_args(argv)
+    device, mesh, log = args.device, None, functools.partial(print, flush=True)
+    if args.distributed:
+        device, mesh, log = join_mesh(args.device, args.p)
     res = train(args.nodes, args.classes, args.hidden, args.steps, args.p,
-                device=args.device, log=functools.partial(print, flush=True))
+                device=device, mesh=mesh, log=log)
     return 0 if res.accuracy > 0.7 else 1
 
 

@@ -6,9 +6,21 @@ planned B-row exchange and the local kernels, with the exact backward
 ``dX = A_hat^T @ dC``), composed with dense layers, ``torch.optim.Adam``
 and ``F.cross_entropy``.
 
+Every activation stays row-sharded in the engines' row blocks
+(:mod:`~crp_tpu_torch.engine.shardops`): the dense layers run shard by
+shard and the weights' gradients are summed over the shards in shard order.
+So one code path trains p shards on one device or one shard on each of p
+ranks (``--distributed``), and the ranks' losses and weights equal the
+one-device run's bit for bit.
+
 On the card (the default), or on the CPU with ``--device cpu``:
 
   python -m crp_tpu_torch.examples.gcn_train --nodes=2000 --steps=30 --p=4
+
+On p ranks, one GPU each (NCCL), or on gloo ranks on the CPU:
+
+  torchrun --nproc-per-node=4 -m crp_tpu_torch.examples.gcn_train --distributed
+  torchrun --nproc-per-node=4 -m crp_tpu_torch.examples.gcn_train --device cpu --distributed
 
 It exits 0 when the final accuracy is over 0.7.
 """
@@ -23,12 +35,13 @@ import numpy as np
 import torch
 
 from ..config import SpmmConfig
-from ..engine.autodiff import DifferentiableSpmm
+from ..engine.autodiff import DifferentiableSpmm, repad_rows
+from ..engine.shardops import ShardRows, shard_matmul
 from ..plan.partition1d import csr_row_partition
 from ..sparse.csr import CSRMatrix
 from .common import (
-    TrainResult, accuracy, community_graph, community_task, fit, init_normal, repad,
-    self_loop_coo, unpad,
+    TrainResult, accuracy, community_graph, community_task, fit, init_normal, join_mesh,
+    self_loop_coo,
 )
 
 LR = 3e-2
@@ -46,24 +59,27 @@ def normalized_adjacency(a) -> CSRMatrix:
 
 
 def gcn_ops(ah, p: int, classes: int, hidden: int, kernel: str = "segsum", *,
-            device="cuda") -> tuple:
+            device=None, mesh=None) -> tuple:
     """The two propagations, one op per width (``prop_in`` at ``classes``
     columns, ``prop_h`` at ``hidden``), over ``p`` nnz-balanced row blocks,
-    at ``SpmmConfig(kernel=kernel)``."""
+    at ``SpmmConfig(kernel=kernel)``; on ``mesh`` (p ranks) if given."""
     displs = csr_row_partition(ah.rowptr, p)
     return tuple(DifferentiableSpmm(ah, displs, displs, width, device=device,
-                                    config=SpmmConfig(kernel=kernel))
+                                    config=SpmmConfig(kernel=kernel), mesh=mesh)
                  for width in (classes, hidden))
 
 
 class GCN(torch.nn.Module):
-    """``logits = A_hat relu(A_hat X W1) W2`` on the ops' engines."""
+    """``logits = A_hat relu(A_hat X W1) W2`` on the ops' engines, every
+    activation in their row blocks: it takes the held B shards of X
+    (``prop_in.shard_b``) and returns the held shards' logits."""
 
     def __init__(self, prop_in, prop_h, nodes: int, classes: int, hidden: int) -> None:
         super().__init__()
         self.prop_in, self.prop_h = prop_in, prop_h
         self.nodes = nodes
-        self.displs = prop_in.fwd.A_row_displs
+        self.mesh = prop_in.fwd.mesh
+        self.rows = ShardRows(prop_in.fwd.A_row_displs, nodes, self.mesh)
         dev = prop_in.fwd.device
         self.w1 = torch.nn.Parameter(torch.empty(classes, hidden, device=dev))
         self.w2 = torch.nn.Parameter(torch.empty(hidden, classes, device=dev))
@@ -77,9 +93,9 @@ class GCN(torch.nn.Module):
         init_normal((self.w1, self.w2), seed)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(unpad(self.prop_in(xs), self.displs, self.nodes) @ self.w1)
-        h2 = self.prop_h(repad(h, self.displs, self.prop_h.fwd.max_k))
-        return unpad(h2, self.displs, self.nodes) @ self.w2
+        h = torch.relu(shard_matmul(self.prop_in(xs), self.w1, self.mesh))
+        h2 = self.prop_h(repad_rows(h, self.prop_h.fwd.max_k))
+        return shard_matmul(h2, self.w2, self.mesh)
 
 
 def gcn_params_from_jax(params: dict) -> OrderedDict:
@@ -90,20 +106,22 @@ def gcn_params_from_jax(params: dict) -> OrderedDict:
 
 
 def train(nodes: int = 2000, classes: int = 8, hidden: int = 32, steps: int = 30,
-          p: int = 4, kernel: str = "segsum", *, device="cuda", seed: int = 0,
-          model: GCN | None = None, log=print) -> TrainResult:
+          p: int = 4, kernel: str = "segsum", *, device=None, seed: int = 0,
+          model: GCN | None = None, mesh=None, log=print) -> TrainResult:
     """Build the task and the model (or take ``model``, a previous run's,
-    whose engines are kept) and train it; weights drawn from ``seed``."""
+    whose engines are kept) and train it; weights drawn from ``seed``.
+    ``mesh``: p ranks, each fed its rows of the features and labels (every
+    rank calls ``train``; see ``fit`` for ``log``)."""
     if model is None:
         ah = normalized_adjacency(community_graph(nodes, classes))
-        model = GCN(*gcn_ops(ah, p, classes, hidden, kernel, device=device), nodes,
-                    classes, hidden)
+        model = GCN(*gcn_ops(ah, p, classes, hidden, kernel, device=device, mesh=mesh),
+                    nodes, classes, hidden)
     model.reset_parameters(seed)
     x, labels = community_task(nodes, classes)
     xs = model.prop_in.shard_b(x)
-    y = torch.from_numpy(labels).to(model.w1.device)
-    losses, step_s = fit(model, xs, y, steps, LR, log)
-    acc = accuracy(model, xs, y)
+    ys = model.rows.take(labels, model.w1.device)
+    losses, step_s = fit(model, xs, ys, steps, LR, log)
+    acc = accuracy(model, xs, ys)
     if log:
         log(f"final accuracy {acc:.3f} on {model.nodes} nodes ({model.prop_in.fwd.p} "
             f"shards, kernel={model.prop_in.fwd.kernel_kind})")
@@ -120,9 +138,14 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel", default="segsum",
                     help="segsum|pallas|ragged|gather|auto")
     ap.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
+    ap.add_argument("--distributed", action="store_true",
+                    help="one shard a rank of the launcher's group; --p is its size")
     args = ap.parse_args(argv)
+    device, mesh, log = args.device, None, functools.partial(print, flush=True)
+    if args.distributed:
+        device, mesh, log = join_mesh(args.device, args.p)
     res = train(args.nodes, args.classes, args.hidden, args.steps, args.p,
-                args.kernel, device=args.device, log=functools.partial(print, flush=True))
+                args.kernel, device=device, mesh=mesh, log=log)
     return 0 if res.accuracy > 0.7 else 1
 
 

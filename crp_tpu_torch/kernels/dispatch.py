@@ -55,7 +55,8 @@ from .spmm_pallas import (
 from .spmm_ragged import (
     PANEL_CAP_BYTES, SPILL_Q, SPILL_TMO, cover_with_cap, default_min_chunk_nnz,
     estimate_ragged, first_ptr, gather_step_layout, pack_gather_blocks,
-    pack_spill, pack_spill_blocks, resolve_ragged_geometry, row_view_sizes, spill_row_view,
+    pack_spill, pack_spill_blocks, resolve_ragged_geometry, row_view_sizes,
+    row_view_sizes_of_counts, spill_row_view,
     spmm_gather, spmm_gather_plain, spmm_ragged, spmm_ragged_bf16,
     spmm_ragged_bf16_plain, spmm_ragged_plain, spmm_ragged_presplit,
     spmm_ragged_presplit_plain, spmm_spill, spmm_spill_chunked, spmm_spill_plain,
@@ -301,16 +302,19 @@ def _row_views(rel, cols, vals, blk, M: int, TMo: int) -> tuple:
 def _rank_row_views(host, M: int, TMo: int, rank: int, device) -> tuple:
     """A mesh rank's slice of :func:`_row_views`: ``host`` the stacked
     block-step pack's ``(rel, cols, vals, blk)`` numpy arrays of every
-    shard.  Each shard's view is built on ``device`` in turn, for the
-    padding the stacked views share, and the rank's alone is kept."""
+    shard.  Each shard's view is built on the host in turn, for the
+    padding the stacked views share (a view is integer work and copies:
+    the same arrays on every device), and the rank's alone goes to
+    ``device``, so that the rank's init holds no other shard's view nor
+    its own view's temporaries there."""
     sizes, mine = [0] * 4, None
     for i in range(host[0].shape[0]):
-        view = spill_row_view(*(torch.from_numpy(x[i]).to(device) for x in host), M, TMo)
+        view = spill_row_view(*(torch.from_numpy(x[i]) for x in host), M, TMo)
         sizes = [max(a, b) for a, b in zip(sizes, row_view_sizes([view]))]
         if i == rank:
             mine = view
         del view
-    return stack_row_views([mine], sizes)
+    return tuple(x.to(device) for x in stack_row_views([mine], sizes))
 
 
 def _stacked(packs, device, rank=None) -> tuple:
@@ -353,8 +357,10 @@ def pack_local_kernel(
     ``dd_skip_mxu`` sends ``kind="dd"`` straight to its non-MXU tier.
     ``rank``: a mesh rank's pack, slice [rank] of the stacked one bit for
     bit with the same op: the geometry comes from every shard, and only
-    that shard's arrays go to ``device`` (the others' spills and row views
-    are made one at a time, on the host or briefly on the device)."""
+    that shard's arrays go to ``device`` (the others' spills are made one
+    at a time, on the host or briefly on the device, their row views on
+    the host; the ``gather`` kind sizes those from their rows' counts and
+    packs that shard alone)."""
     device = torch.device(device)
     if kind == "segsum":
         nnz_pad = max(max(int(r[-1] - r[0]) for r, _, _ in shards), 1)
@@ -1000,24 +1006,28 @@ def _pack_gather(shards, max_m, dtype, mxu_precision, device, *, TMo=SPILL_TMO,
     if total_nnz == 0:
         raise UnsupportedSparsity("all shards empty")
     step_base = gather_step_layout(blk_counts, Q)
+    # a mesh rank packs its own shard alone: every shard's pack has the step
+    # layout's shapes, and its view's lengths follow from its rows' counts
     packs = [
         pack_gather_blocks(rowptr, cc, v, step_base, M, TMo=TMo, Q=Q)
-        for rowptr, cc, v in shards
+        for rowptr, cc, v in (shards if rank is None else shards[rank : rank + 1])
     ]
     ns = int(step_base[-1])
     roofline = dict(
         G=nblk, TM=TMo, W=Q, S=ns,
-        a_bytes=sum(x.nbytes for p in packs for x in p),
+        a_bytes=len(shards) // len(packs) * sum(x.nbytes for p in packs for x in p),
         b_rows_read=ns * Q, c_rows=M, b_itemsize=4,
         spill_nnz=total_nnz, mxu_frac=0.0,
         passes={"x3": 2, "highest": 6, "default": 1}.get(mxu_precision, 1),
     )
-    arrays = _stacked(packs, device, rank)
+    arrays = _stacked(packs, device)
     if rank is None:
         arrays += _row_views(*arrays[:3], arrays[4], M, TMo)
-    else:
-        host = tuple(np.stack([p[k] for p in packs]) for k in (0, 1, 2, 4))
-        arrays += _rank_row_views(host, M, TMo, rank, device)
+    else:  # the view built on the host, padded as the stacked views are
+        sizes = [max(x) for x in zip(*(row_view_sizes_of_counts(np.diff(rowptr), M)
+                                       for rowptr, _, _ in shards))]
+        view = spill_row_view(*(torch.from_numpy(packs[0][k]) for k in (0, 1, 2, 4)), M, TMo)
+        arrays += tuple(x.to(device) for x in stack_row_views([view], sizes))
     return arrays, GatherOp(M, mxu_precision, roofline)
 
 

@@ -654,6 +654,25 @@ def row_view_sizes(views) -> list:
     return [max(v[k].shape[0] for v in views) for k in range(4)]
 
 
+def row_view_sizes_of_counts(cnt: np.ndarray, M: int, L: int = ROW_ITEM_SLOTS,
+                             run: int = ROW_RUN) -> list:
+    """The lengths of :func:`spill_row_view`'s four arrays from the live
+    slots of each of its first rows alone (``cnt``, rows past it none),
+    without the pack: Z slots, an item per ``L`` slots of a row and per
+    ``run`` rows of each run of rows with no slot, the sentinel, and the
+    items of the rows of several."""
+    cnt = np.zeros(M, np.int64) if cnt.size == 0 else np.asarray(cnt, np.int64)
+    cnt = np.concatenate([cnt, np.zeros(M - cnt.size, np.int64)])
+    n_items = -(-cnt // L)
+    empty = cnt == 0
+    # runs of rows with no slot: their lengths from where each starts and ends
+    edges = np.diff(np.concatenate([[0], empty.astype(np.int8), [0]]))
+    runs = np.flatnonzero(edges == -1) - np.flatnonzero(edges == 1)
+    n_run_items = int((-(-runs // run)).sum())
+    return [int(cnt.sum()), int(cnt.sum()), int(n_items.sum()) + n_run_items + 1,
+            int(n_items[n_items > 1].sum())]
+
+
 def stack_row_views(views, sizes=None) -> tuple:
     """Per-shard views of :func:`spill_row_view` with a leading shard axis,
     each padded to the longest (or to ``sizes``, the longest of a stacked

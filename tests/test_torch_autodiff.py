@@ -114,8 +114,9 @@ def test_auto_resolves_to_pallas_without_halo(monkeypatch):
 
     class Engine(torch.nn.Module):
         def __init__(self, a, A_row_displs, B_row_displs, glb_n, *, device, config,
-                     dtype):
+                     dtype, mesh):
             super().__init__()
+            assert mesh is None
             seen.append((torch.device(device), config.kernel))
             self.A_row_displs, self.B_row_displs = A_row_displs, B_row_displs
 

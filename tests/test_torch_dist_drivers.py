@@ -4,7 +4,8 @@ the group itself): rank 0 prints the record, the other ranks nothing, and
 the record's host fields equal the one-process record's (every shard on
 the one device), for every engine (``--engine=crp`` on the v1 planner's
 grid).  And what stays refused across ranks: a mesh that is not the
-engine's grid, and training over a mesh (what is left of ROADMAP A8)."""
+engine's grid, and the training ops' stateful kinds, refused on a mesh as
+without one."""
 
 import json
 
@@ -12,6 +13,9 @@ import numpy as np
 import pytest
 
 from crp_tpu_torch.cli import bench_cli, suite_cli
+from crp_tpu_torch.config import SpmmConfig
+from crp_tpu_torch.engine.autodiff import DifferentiableSpmm
+from crp_tpu_torch.engine.trainable import ValueParameterizedSpmm
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.synth import banded_random_csr
 
@@ -90,19 +94,35 @@ def test_suite_cli_distributed(ranks, capsys, engine):
         assert r["rel_fro_err"] <= 1e-12
 
 
+# the training ops' kinds a mesh refuses, as one device does: (op, config)
+STATEFUL = {
+    "autodiff dd": ("autodiff", dict(kernel="dd")),
+    "autodiff dd_mxu": ("autodiff", dict(kernel="dd_mxu")),
+    "autodiff pallas_halo": ("autodiff", dict(kernel="pallas_halo")),
+    "autodiff bc_layout": ("autodiff", dict(kernel="segsum", bc_layout=1)),
+    "trainable overlap": ("trainable", dict(kernel="segsum", overlap=1)),
+    "trainable pallas": ("trainable", dict(kernel="pallas")),
+}
+OPS = dict(autodiff=DifferentiableSpmm, trainable=ValueParameterizedSpmm)
+
+
 @pytest.fixture(scope="module")
 def refused():
     a = banded_random_csr(400, 5, 20, seed=58)
-    return run_ranks(2, "refusals", dict(a=a, displs=csr_row_partition(a.rowptr, 2), n=8,
-                                         spec="synth:banded:400:5:20"))
+    return a, run_ranks(2, "refusals", dict(
+        a=a, displs=csr_row_partition(a.rowptr, 2), n=8, spec="synth:banded:400:5:20",
+        kinds=STATEFUL))
 
 
 @pytest.mark.parametrize("what,match", [
-    ("grid", "a 2 x 1 mesh for a 1 x 1 grid"),
-    ("autodiff", "DifferentiableSpmm: training across ranks is not ported yet"),
-    ("trainable", "ValueParameterizedSpmm: training across ranks is not ported yet"),
-])
+    ("grid", "a 2 x 1 mesh for a 1 x 1 grid"), *((what, None) for what in STATEFUL)])
 def test_refused_across_ranks(refused, what, match):
-    for got in refused:
-        assert match in got[what]
-        assert what == "grid" or "ROADMAP A8" in got[what]
+    a, got = refused
+    if match is None:  # the message the op gives on one device
+        op, config = STATEFUL[what]
+        d = csr_row_partition(a.rowptr, 2)
+        with pytest.raises(ValueError) as one:
+            OPS[op](a, d, d, 8, device="cpu", config=SpmmConfig(**config))
+        match = str(one.value)
+    for rank in got:
+        assert match in rank[what]

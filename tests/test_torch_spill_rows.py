@@ -308,3 +308,49 @@ def test_spill_split_edits_apply_to_the_body():
     assert set(texts) == {"full", "no_b_loads", "wide", "plain_cache"}
     assert texts["full"] == body
     assert len({t for v, t in texts.items() if v != "full"} - {body}) == len(texts) - 1
+
+
+def _hub_matrix():
+    """A power-law matrix with hub rows of over ``ROW_ITEM_SLOTS`` nonzeros
+    and a run of empty rows longer than ``ROW_RUN``: items of several
+    partials and runs of several empty-row items."""
+    from crp_tpu_torch.sparse.csr import CSRMatrix
+    from crp_tpu_torch.sparse.synth import powerlaw_random_csr as tplaw
+
+    a = tplaw(900, avg_degree=6, seed=77)
+    rows = np.repeat(np.arange(a.nrow), np.diff(a.rowptr))
+    keep = (rows < 300) | (rows >= 340)  # 40 empty rows
+    hub_rows = np.repeat([5, 420, 421], 600)
+    hub_cols = np.random.default_rng(78).integers(0, a.ncol, hub_rows.size)
+    rows = np.concatenate([rows[keep], hub_rows])
+    cols = np.concatenate([a.colidx[keep], hub_cols])
+    return CSRMatrix.from_coo(a.nrow, a.ncol, rows, cols, np.ones(rows.size, np.float32))
+
+
+@pytest.mark.parametrize("p", [2, 3, 4])
+def test_rank_gather_pack_is_its_slice(p):
+    """A mesh rank's ``gather`` pack (its own shard packed alone, the other
+    shards' views sized from their rows' counts, ``row_view_sizes_of_counts``)
+    equals slice [rank] of the stacked pack bit for bit; the sizes from the
+    counts equal the views' own lengths."""
+    from crp_tpu_torch.plan.partition1d import csr_row_partition
+
+    a = _hub_matrix()
+    d = csr_row_partition(a.rowptr, p)
+    shards = [a.row_slice(int(d[i]), int(d[i + 1])) for i in range(p)]
+    host = [(s.rowptr, s.colidx, s.val) for s in shards]
+    max_m = max(s.nrow for s in shards)
+    whole, op = td.pack_local_kernel(host, max_m, np.float32, "gather", device=CPU)
+    M = op.M
+    hubs = 0
+    for i, (rowptr, _, _) in enumerate(host):
+        view = ts.spill_row_view(*(x[i] for x in whole[:3]), whole[4][i], M, ts.SPILL_TMO)
+        assert ts.row_view_sizes_of_counts(np.diff(rowptr), M) == ts.row_view_sizes([view])
+        hubs += view[3].shape[0]
+    assert hubs > 0 and np.diff(a.rowptr).max() > ts.ROW_ITEM_SLOTS
+    for r in range(p):
+        mine, op_r = td.pack_local_kernel(host, max_m, np.float32, "gather", device=CPU,
+                                          rank=r)
+        assert op_r.roofline == op.roofline and len(mine) == len(whole)
+        for x, y in zip(mine, whole):
+            assert x.dtype == y.dtype and torch.equal(x, y[r : r + 1])

@@ -16,7 +16,6 @@ import numpy as np
 import optax
 import pytest
 import torch
-import torch.nn.functional as F
 
 from crp_tpu.config import SpmmConfig as JaxConfig
 from crp_tpu.engine.autodiff import DifferentiableSpmm as JaxDiff
@@ -26,7 +25,7 @@ from crp_tpu.shard.layout import make_mesh_1d
 from crp_tpu.sparse.synth import powerlaw_community_csr
 from crp_tpu.utils.norms import rel_fro_err
 
-from crp_tpu_torch.examples import gat_train, gcn_train
+from crp_tpu_torch.examples import common, gat_train, gcn_train
 from crp_tpu_torch.examples.common import community_graph, community_task
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -69,15 +68,18 @@ def _jax_adam(loss_fn, params, args, lr, steps=2):
     return float(loss), grads, params
 
 
-def _torch_adam(model, inputs, y, lr, steps=2):
-    loss = F.cross_entropy(model(inputs), y)
+def _torch_adam(model, inputs, labels, lr, steps=2):
+    """The port's (loss, grads) and ``steps`` Adam steps; the model takes
+    and returns row shards, and its loss sums them in shard order."""
+    ys = model.rows.take(labels, "cpu")
+    loss = common.loss(model, inputs, ys)
     loss.backward()
     grads = {k: w.grad.clone() for k, w in model.named_parameters()}
     model.zero_grad()
     opt = torch.optim.Adam(model.parameters(), lr=lr)
     for _ in range(steps):
         opt.zero_grad()
-        F.cross_entropy(model(inputs), y).backward()
+        common.loss(model, inputs, ys).backward()
         opt.step()
     return float(loss.detach()), grads
 
@@ -112,58 +114,71 @@ def test_graph_and_task_match_the_jax_examples():
     assert np.array_equal(x, want) and np.array_equal(y, comm)
 
 
-def test_gcn_step_matches_jax(devices8):
-    ah = _jax_example("gcn_train").normalized_adjacency(
-        powerlaw_community_csr(NODES, avg_degree=8, comm_size=NODES // CLASSES, seed=5))
-    displs = csr_row_partition(ah.rowptr, P)
-    mesh = make_mesh_1d(P, devices=devices8)
+def example_graph(example: str, nodes: int = NODES, classes: int = CLASSES):
+    """The JAX example's graph: A_hat for ``gcn_train``, A + I for
+    ``gat_train``."""
+    g = powerlaw_community_csr(nodes, avg_degree=8, comm_size=nodes // classes, seed=5)
+    if example == "gcn_train":
+        return _jax_example("gcn_train").normalized_adjacency(g)
+    return _jax_example("gat_train").pattern_with_self_loops(g)
+
+
+def jax_params(example: str, classes: int = CLASSES, hidden: int = HIDDEN) -> dict:
+    """The JAX examples' weights, N(0, 1) x 0.3 from ``PRNGKey(i)``, as numpy."""
+    shapes = {"w1": (classes, hidden), "w2": (hidden, classes)}
+    if example == "gat_train":
+        shapes = {"w1": (classes, hidden), "a1s": (hidden,), "a1d": (hidden,),
+                  "w2": (hidden, classes), "a2s": (classes,), "a2d": (classes,)}
+    return {k: np.asarray(jax.random.normal(jax.random.PRNGKey(i), s) * 0.3)
+            for i, (k, s) in enumerate(shapes.items())}
+
+
+def jax_gcn_step(ah, p, params, x, labels, devices):
+    """The JAX GCN (``examples/gcn_train.py:113-125``) on ``make_mesh_1d(p)``:
+    (loss, grads, the weights after two optax Adam steps)."""
+    nodes, classes = x.shape
+    hidden = params["w1"].shape[1]
+    displs = csr_row_partition(ah.rowptr, p)
+    mesh = make_mesh_1d(p, devices=devices)
     cfg = JaxConfig(kernel="segsum")
-    prop_in = JaxDiff(ah, displs, displs, CLASSES, mesh=mesh, config=cfg)
-    prop_h = JaxDiff(ah, displs, displs, HIDDEN, mesh=mesh, config=cfg)
-    unpad, repad = _layout(displs, NODES)
+    prop_in = JaxDiff(ah, displs, displs, classes, mesh=mesh, config=cfg)
+    prop_h = JaxDiff(ah, displs, displs, hidden, mesh=mesh, config=cfg)
+    unpad, repad = _layout(displs, nodes)
     h_rows = int(prop_h.fwd.max_k)
 
-    def loss_fn(params, xs_, y_):  # examples/gcn_train.py:113-125
+    def loss_fn(params, xs_, y_):
         h = jax.nn.relu(unpad(prop_in.op(xs_)) @ params["w1"])
         logits = unpad(prop_h.op(repad(h, h_rows))) @ params["w2"]
         return optax.softmax_cross_entropy_with_integer_labels(logits, y_).mean()
 
-    x, labels = community_task(NODES, CLASSES)
-    params = {"w1": jax.random.normal(jax.random.PRNGKey(0), (CLASSES, HIDDEN)) * 0.3,
-              "w2": jax.random.normal(jax.random.PRNGKey(1), (HIDDEN, CLASSES)) * 0.3}
-    loss_j, grads_j, params_j = _jax_adam(
-        loss_fn, params, (prop_in.shard_b(x), jnp.asarray(labels)), gcn_train.LR)
-
-    model = gcn_train.GCN(*gcn_train.gcn_ops(ah, P, CLASSES, HIDDEN, device="cpu"),
-                          NODES, CLASSES, HIDDEN)
-    model.load_state_dict(gcn_train.gcn_params_from_jax(
-        {k: np.asarray(v) for k, v in params.items()}))
-    loss_t, grads_t = _torch_adam(model, model.prop_in.shard_b(x),
-                                  torch.from_numpy(labels), gcn_train.LR)
-    _assert_step_matches(loss_j, grads_j, params_j, loss_t, grads_t, model)
+    params = {k: jnp.asarray(v) for k, v in params.items()}
+    return _jax_adam(loss_fn, params, (prop_in.shard_b(x), jnp.asarray(labels)),
+                     gcn_train.LR)
 
 
-def test_gat_step_matches_jax(devices8):
-    ah = _jax_example("gat_train").pattern_with_self_loops(
-        powerlaw_community_csr(NODES, avg_degree=8, comm_size=NODES // CLASSES, seed=5))
-    displs = csr_row_partition(ah.rowptr, P)
-    mesh = make_mesh_1d(P, devices=devices8)
-    vps_h = JaxVps(ah, displs, displs, HIDDEN, mesh=mesh)
-    vps_o = JaxVps(ah, displs, displs, CLASSES, mesh=mesh)
-    unpad, repad = _layout(displs, NODES)
+def jax_gat_step(ah, p, params, x, labels, devices):
+    """The JAX GAT (``examples/gat_train.py:107-147``) on ``make_mesh_1d(p)``:
+    (loss, grads, the weights after two optax Adam steps)."""
+    nodes, classes = x.shape
+    hidden = params["w1"].shape[1]
+    displs = csr_row_partition(ah.rowptr, p)
+    mesh = make_mesh_1d(p, devices=devices)
+    vps_h = JaxVps(ah, displs, displs, hidden, mesh=mesh)
+    vps_o = JaxVps(ah, displs, displs, classes, mesh=mesh)
+    unpad, repad = _layout(displs, nodes)
     m_pad, k_pad = int(vps_h.fwd.max_m), int(vps_h.fwd.max_k)
-    rows_g = jnp.asarray(np.repeat(np.arange(NODES, dtype=np.int32), np.diff(ah.rowptr)))
+    rows_g = jnp.asarray(np.repeat(np.arange(nodes, dtype=np.int32), np.diff(ah.rowptr)))
 
-    def gat_layer(vps, h, w, a_src, a_dst):  # examples/gat_train.py:107-128
+    def gat_layer(vps, h, w, a_src, a_dst):
         hw = h @ w
         s, d = hw @ a_src, hw @ a_dst
         ones = jnp.ones_like(s)
         e = vps.sddmm(repad(jnp.stack([s, ones], 1), m_pad),
                       repad(jnp.stack([ones, d], 1), k_pad))
         e = jax.nn.leaky_relu(e, 0.2)
-        emax = jax.ops.segment_max(e, rows_g, num_segments=NODES, indices_are_sorted=True)
+        emax = jax.ops.segment_max(e, rows_g, num_segments=nodes, indices_are_sorted=True)
         ex = jnp.exp(e - emax[rows_g])
-        den = jax.ops.segment_sum(ex, rows_g, num_segments=NODES, indices_are_sorted=True)
+        den = jax.ops.segment_sum(ex, rows_g, num_segments=nodes, indices_are_sorted=True)
         alpha = ex / jnp.maximum(den[rows_g], 1e-12)
         return unpad(vps.op(repad(hw, k_pad), alpha))
 
@@ -172,20 +187,33 @@ def test_gat_step_matches_jax(devices8):
         logits = gat_layer(vps_o, h, params["w2"], params["a2s"], params["a2d"])
         return optax.softmax_cross_entropy_with_integer_labels(logits, y_).mean()
 
+    params = {k: jnp.asarray(v) for k, v in params.items()}
+    return _jax_adam(loss_fn, params, (jnp.asarray(x), jnp.asarray(labels)), gat_train.LR)
+
+
+def test_gcn_step_matches_jax(devices8):
+    ah = example_graph("gcn_train")
     x, labels = community_task(NODES, CLASSES)
-    kb = jax.random.PRNGKey
-    shapes = {"w1": (CLASSES, HIDDEN), "a1s": (HIDDEN,), "a1d": (HIDDEN,),
-              "w2": (HIDDEN, CLASSES), "a2s": (CLASSES,), "a2d": (CLASSES,)}
-    params = {k: jax.random.normal(kb(i), s) * 0.3 for i, (k, s) in enumerate(shapes.items())}
-    loss_j, grads_j, params_j = _jax_adam(
-        loss_fn, params, (jnp.asarray(x), jnp.asarray(labels)), gat_train.LR)
+    params = jax_params("gcn_train")
+    loss_j, grads_j, params_j = jax_gcn_step(ah, P, params, x, labels, devices8)
+
+    model = gcn_train.GCN(*gcn_train.gcn_ops(ah, P, CLASSES, HIDDEN, device="cpu"),
+                          NODES, CLASSES, HIDDEN)
+    model.load_state_dict(gcn_train.gcn_params_from_jax(params))
+    loss_t, grads_t = _torch_adam(model, model.prop_in.shard_b(x), labels, gcn_train.LR)
+    _assert_step_matches(loss_j, grads_j, params_j, loss_t, grads_t, model)
+
+
+def test_gat_step_matches_jax(devices8):
+    ah = example_graph("gat_train")
+    x, labels = community_task(NODES, CLASSES)
+    params = jax_params("gat_train")
+    loss_j, grads_j, params_j = jax_gat_step(ah, P, params, x, labels, devices8)
 
     model = gat_train.GAT(*gat_train.gat_ops(ah, P, CLASSES, HIDDEN, device="cpu"),
                           ah.rowptr, CLASSES, HIDDEN)
-    model.load_state_dict(gat_train.gat_params_from_jax(
-        {k: np.asarray(v) for k, v in params.items()}))
-    loss_t, grads_t = _torch_adam(model, torch.from_numpy(x), torch.from_numpy(labels),
-                                  gat_train.LR)
+    model.load_state_dict(gat_train.gat_params_from_jax(params))
+    loss_t, grads_t = _torch_adam(model, model.vps_h.shard_b(x), labels, gat_train.LR)
     _assert_step_matches(loss_j, grads_j, params_j, loss_t, grads_t, model)
 
 

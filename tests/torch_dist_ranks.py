@@ -67,6 +67,7 @@ def bits(t) -> "np.ndarray":
     bf16): equal arrays, equal bits."""
     import torch
 
+    t = t.detach()
     return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
@@ -287,11 +288,13 @@ def direct_group(_) -> dict:
 
 
 def refusals(case) -> dict:
-    """What an engine on the world's 1D mesh refuses: a mesh that is not
-    its grid, and training over it (autodiff, the trainable values)."""
+    """What the port refuses on the world's 1D mesh: an engine on a mesh
+    that is not its grid, and the training ops' stateful kinds (each
+    refusal's message; ``case["kinds"]`` maps a case id to (op, config))."""
     from crp_tpu_torch.config import SpmmConfig
     from crp_tpu_torch.engine.autodiff import DifferentiableSpmm
     from crp_tpu_torch.engine.rowpara import RowParaSpmm
+    from crp_tpu_torch.engine.trainable import ValueParameterizedSpmm
     from crp_tpu_torch.shard.layout import make_mesh_1d
 
     import torch.distributed as dist
@@ -305,28 +308,145 @@ def refusals(case) -> dict:
                     case["n"], device="cpu", mesh=mesh)
     except ValueError as e:
         got["grid"] = str(e)
-    try:
-        DifferentiableSpmm(case["a"], d, d, case["n"], device="cpu", mesh=mesh)
-    except NotImplementedError as e:
-        got["autodiff"] = str(e)
+    ops = dict(autodiff=DifferentiableSpmm, trainable=ValueParameterizedSpmm)
+    for cid, (op, config) in case["kinds"].items():
+        try:
+            ops[op](case["a"], d, d, case["n"], config=SpmmConfig(**config), mesh=mesh)
+        except ValueError as e:
+            got[cid] = str(e)
+    return got
+
+
+# --------------------------------------------------------------- training
+
+
+def _train_op(case, mesh):
+    """The case's training op (``DifferentiableSpmm``, or
+    ``ValueParameterizedSpmm`` for ``op="vps"``) on ``mesh``, or on the CPU
+    with every shard (mesh None)."""
+    from crp_tpu_torch.config import SpmmConfig
+    from crp_tpu_torch.engine.autodiff import DifferentiableSpmm
     from crp_tpu_torch.engine.trainable import ValueParameterizedSpmm
 
-    try:
-        ValueParameterizedSpmm(case["a"], d, d, case["n"], device="cpu", mesh=mesh)
-    except NotImplementedError as e:
-        got["trainable"] = str(e)
-    return got
+    cls = ValueParameterizedSpmm if case["op"] == "vps" else DifferentiableSpmm
+    d = case["displs"]
+    return cls(case["a"], d, d, case["n"], device=None if mesh else "cpu",
+               config=SpmmConfig(**case["config"]), dtype=case["dtype"], mesh=mesh)
+
+
+def op_results(case, mesh=None) -> dict:
+    """The case's op on its inputs, for the shards it holds (every shard on
+    one device, mesh None): C and dB (from ``dc``) shards, and for ``vps``
+    the values' range, dvals, the SDDMM of X (C's rows) and Y (B's rows)
+    and its two gradients (from ``g``), the index maps; each as its bits,
+    and the global C and dB the op's host calls return."""
+    import torch
+
+    from crp_tpu_torch.shard.layout import shard_dense_rows
+
+    op = _train_op(case, mesh)
+    held = [op.fwd.rank] if mesh is not None else list(range(op.fwd.p))
+
+    def shards(x, displs, rows):
+        return torch.from_numpy(shard_dense_rows(x, displs, pad_rows=rows)[held])
+
+    bs = op.shard_b(case["b"]).requires_grad_(True)
+    out = dict(kinds=(op.fwd.kernel_kind, op.bwd.kernel_kind))
+    if case["op"] == "vps":
+        s, e = op.val_range
+        v = torch.from_numpy(case["v"][s:e]).requires_grad_(True)
+        cs = op(bs, v)
+        dcs = shards(case["dc"], op.fwd.A_row_displs, cs.shape[1])
+        db, dv = torch.autograd.grad(cs, (bs, v), dcs)
+        xs = shards(case["x"], op.fwd.A_row_displs, op.fwd.max_m).requires_grad_(True)
+        ys = shards(case["y"], op.fwd.B_row_displs, op.fwd.max_k).requires_grad_(True)
+        sd = op.sddmm(xs, ys)
+        dx, dy = torch.autograd.grad(sd, (xs, ys), torch.from_numpy(case["g"][s:e]))
+        out.update(val_range=(s, e), dv=bits(dv), sddmm=bits(sd), dx=bits(dx),
+                   dy=bits(dy), fwd_idx=bits(op.fwd_idx), bwd_idx=bits(op.bwd_idx))
+    else:
+        cs = op(bs)
+        dcs = shards(case["dc"], op.fwd.A_row_displs, cs.shape[1])
+        (db,) = torch.autograd.grad(cs, bs, dcs)
+    out.update(c=bits(cs), db=bits(db), c_glob=op.unshard_c(cs), db_glob=op.unshard_db(db))
+    return out
+
+
+def model_steps(example: str, graph, params: dict, x, labels, lr: float,
+                mesh=None, steps: int = 2) -> dict:
+    """The example's model on ``graph`` (``gcn_train``: A_hat, ``gat_train``:
+    A + I) at p shards (the mesh's, else ``params["p"]``), from ``params``
+    (the JAX example's weights): one step's loss and every weight's
+    gradient, then the weights after ``steps`` Adam steps; as bits."""
+    import importlib
+
+    import torch
+
+    from crp_tpu_torch.examples import common
+
+    ex = importlib.import_module(f"crp_tpu_torch.examples.{example}")
+    p = mesh.pm if mesh is not None else params["p"]
+    kw = dict(device=None if mesh else "cpu", mesh=mesh)
+    classes, hidden = params["w1"].shape
+    if example == "gcn_train":
+        model = ex.GCN(*ex.gcn_ops(graph, p, classes, hidden, **kw), graph.nrow, classes,
+                       hidden)
+        model.load_state_dict(ex.gcn_params_from_jax(params))
+    else:
+        model = ex.GAT(*ex.gat_ops(graph, p, classes, hidden, **kw), graph.rowptr,
+                       classes, hidden)
+        model.load_state_dict(ex.gat_params_from_jax(params))
+    xs = model.engines[0].shard_b(x)
+    ys = model.rows.take(labels, xs.device)
+    loss = common.loss(model, xs, ys)
+    loss.backward()
+    grads = {k: bits(w.grad) for k, w in model.named_parameters()}
+    model.zero_grad()
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    for _ in range(steps):
+        opt.zero_grad()
+        common.loss(model, xs, ys).backward()
+        opt.step()
+    return dict(loss=bits(loss.detach()), grads=grads,
+                params={k: bits(w.detach()) for k, w in model.named_parameters()})
+
+
+def training(payload) -> dict:
+    """Training across the world's ranks on its 1D mesh: each op case
+    (:func:`op_results`), each model's steps (:func:`model_steps`), and
+    ``train()`` of each example (its losses and accuracy)."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from crp_tpu_torch.shard.layout import make_mesh_1d
+
+    mesh = make_mesh_1d(dist.get_world_size())
+    out = dict(ops={cid: op_results(case, mesh) for cid, case in payload.get("ops", {}).items()},
+               models={name: model_steps(name, *args, mesh=mesh)
+                       for name, args in payload.get("models", {}).items()})
+    out["train"] = {}
+    for name, kw in payload.get("train", {}).items():
+        res = importlib.import_module(f"crp_tpu_torch.examples.{name}").train(
+            **kw, p=mesh.pm, mesh=mesh, log=None)
+        out["train"][name] = dict(losses=res.losses, accuracy=res.accuracy)
+    return out
 
 
 def cli(argv) -> dict:
     """A driver's ``main(argv)`` under the world's ranks: its exit code and
-    what it printed."""
+    what it printed.  ``module`` names ``crp_tpu_torch.cli.<module>``, or,
+    dotted, ``crp_tpu_torch.<module>`` (a trainer); a list of argvs runs
+    each in turn, in one process, and returns their results."""
     import contextlib
     import importlib
     import io
 
+    if isinstance(argv[0], list):
+        return [cli(one) for one in argv]
     module, *args = argv
-    main = importlib.import_module(f"crp_tpu_torch.cli.{module}").main
+    main = importlib.import_module(
+        f"crp_tpu_torch.{module}" if "." in module else f"crp_tpu_torch.cli.{module}").main
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = main(args)
@@ -355,7 +475,7 @@ def loaded(case) -> dict:
 
 
 JOBS = dict(engines=engines, engines_on_card=engines, crp=crp,
-            mesh_layout=mesh_layout,
+            mesh_layout=mesh_layout, training=training,
             refusals=refusals, cli=cli, loaded=loaded, direct_group=direct_group)
 
 
