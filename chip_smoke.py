@@ -1766,6 +1766,113 @@ MULTIRANK_P = 4
 MULTIRANK_TIMEOUT = 300  # s a set of ranks may take before the phase fails
 RANK_THREADS = 2  # torch threads a rank process: the host's 8 cores over 4 ranks
 PROBE_TIMEOUT = 90
+B2B_EXECS = 6  # execs of the back-to-back run, over B2B_SEEDS' B in turn
+B2B_SEEDS = (1, 2, 3)
+SKEW_S = 0.05  # s rank r sleeps on the host before exec r of the back-to-back run
+BOUND_TEST_S = 0.5  # s the waits are bounded by where one rank withholds an exec
+WITHHOLD_RANK = 1
+BOUND_SLACK_S = 5.0  # s past the bound a rank may take to raise HaloTimeout
+PR20_RANK_MS = 8.1320  # #12 across 4 processes, rank 0 at x3, host barriers included (PR 20)
+
+
+def changing_bs(a) -> list:
+    """The back-to-back run's distinct B: ``fill_b``'s analytic B at other
+    factors, one a seed."""
+    from crp_tpu_torch import fill_b
+
+    return [np.asarray(fill_b(0, a.ncol, 0, N, factor_i=0.19 * (1 + s), factor_j=0.24 / s,
+                              dtype=np.float32)) for s in B2B_SEEDS]
+
+
+def host_counts(peers) -> tuple:
+    """The host barriers and stream drains ``HaloPeers`` has made, and its
+    flag kernels' launches (wait, signal, done)."""
+    return (peers.barriers, peers.drains, *peers.flag_launches.values())
+
+
+def moved(before, peers) -> list:
+    return [y - x for x, y in zip(before, host_counts(peers))]
+
+
+def owner_rows(peers) -> torch.Tensor:
+    """Every owner's rows as the plain version reads them: in place after
+    a host barrier (every owner's B loaded), or on the CPU (a rehearsal)
+    gathered."""
+    if peers.views is None:
+        return peers.rows()
+    peers.sync()
+    return torch.stack(peers.views)
+
+
+def back_to_back(eng, rank, device, shards, kernel_and_plain) -> dict:
+    """B2B_EXECS execs of ``eng`` over the distinct B ``shards`` in turn,
+    with no host sync between them and rank r sleeping SKEW_S on the host
+    before exec r, so that the others run ahead and wait on the device;
+    every C block against an ordered replay's (``peers.sync()`` before and
+    after each exec) by digest; the kernel's output for each distinct B
+    against ``spmm_halo_plain`` on the owners' rows, read after a sync
+    (``kernel_and_plain()``: the pair for the B just loaded); the host
+    barriers, drains and flag launches of the run (the first two must not
+    move) and its wall ms, the sleep included."""
+    peers = eng.peers
+    torch.cuda.synchronize(device)
+    peers.sync()
+    before = host_counts(peers)
+    t0 = time.perf_counter()
+    outs = []
+    for i in range(B2B_EXECS):
+        if i == rank:
+            time.sleep(SKEW_S)
+        outs.append(eng.exec_device(shards[i % len(shards)]))
+    torch.cuda.synchronize(device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    run_moved = moved(before, peers)
+    peers.check()
+    got = [digest(o) for o in outs]
+    replay, plain = [], []
+    for i in range(B2B_EXECS):
+        peers.sync()
+        replay.append(digest(eng.exec_device(shards[i % len(shards)])))
+        peers.sync()
+        if i < len(shards):
+            k, pl = kernel_and_plain()
+            d = (k - pl).double()
+            plain.append(float(d.norm() / max(float(pl.double().norm()), 1e-300)))
+    return dict(same=got == replay, distinct=len(set(got)), moved=run_moved, plain=plain,
+                wall_ms=wall_ms)
+
+
+def withheld_exec(eng, rank, device, bs) -> dict:
+    """Rank WITHHOLD_RANK withholds one exec; every other rank runs execs
+    (at most 3) with the waits bounded by BOUND_TEST_S until one raises
+    ``HaloTimeout`` at the sync after it: which exec, the seconds since the
+    ranks set out together, whether its C is NaN throughout.  Then every
+    rank closes the engine (``close`` raises again where a wait gave up)."""
+    from crp_tpu_torch.kernels.spmm_halo import HaloTimeout
+
+    peers = eng.peers
+    torch.cuda.synchronize(device)
+    peers.sync()
+    peers.bound_s = BOUND_TEST_S
+    got = dict(withheld=rank == WITHHOLD_RANK, raised=None)
+    t0 = time.perf_counter()
+    if rank != WITHHOLD_RANK:
+        for attempt in range(1, 4):
+            c = eng.exec_device(bs)
+            torch.cuda.synchronize(device)
+            try:
+                peers.check()
+            except HaloTimeout as e:
+                got.update(raised=str(e), attempt=attempt, s=time.perf_counter() - t0,
+                           nan=bool(torch.isnan(c).all()))
+                break
+    try:
+        eng.close()
+        got["closed"] = "clean"
+    except HaloTimeout as e:
+        got["closed"] = f"raised HaloTimeout: {e}"
+    got["close_s"] = time.perf_counter() - t0
+    return got
 
 
 def rank_env(rank: int, world: int, port: int) -> None:
@@ -1886,10 +1993,14 @@ def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) 
     reference, its init's device memory, the kernel against its plain
     version on the same inputs (the owners' rows read through the mapped
     buffers), and times, which are time-shared: four processes take turns
-    on the one card.  ``unfused``: the exchanges gloo carries for CUDA
-    tensors (``"a2a"``, ``"ring"``), each with ``kernel="pallas"`` at x3.
-    ``cplaw_path``: then :func:`multirank_crp` on the same group.  Writes a
-    JSON record to ``out``."""
+    on the one card.  At each point also: the host barriers and stream
+    drains ``HaloPeers`` made across the main path (none), the
+    back-to-back run with B changing every exec (:func:`back_to_back`) and
+    its pipelined ms an exec; at x3, last, one withheld exec
+    (:func:`withheld_exec`).  ``unfused``: the exchanges gloo carries for
+    CUDA tensors (``"a2a"``, ``"ring"``), each with ``kernel="pallas"`` at
+    x3.  ``cplaw_path``: then :func:`multirank_crp` on the same group.
+    Writes a JSON record to ``out``."""
     import torch.distributed as dist
 
     from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition, fill_b, rel_fro_err
@@ -1907,6 +2018,7 @@ def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) 
     shard = a.row_slice(r0, r1)
     kernels = all_kernels()
     got = dict(rank=rank, points={}, unfused={})
+    bseq = changing_bs(a)
 
     def wall_ms(fn, reps=5):
         return rank_wall_ms(fn, device, reps)
@@ -1920,8 +2032,10 @@ def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) 
               f"rank {rank} {prec}: resolved to {eng.kernel_kind}, peers {eng.peers}")
         for k in kernels:
             k.launches = 0
+        before = host_counts(eng.peers)
         c = eng.exec(b)  # the main path: every rank returns the global C
         launches = {k.__name__: k.launches for k in kernels}
+        main_moved = moved(before, eng.peers)
         check(c.shape == (a.nrow, N) and bool(np.isfinite(c).all()),
               f"rank {rank} {prec}: C {c.shape} or non-finite")
         err = rel_fro_err(c_ref[r0:r1], c[r0:r1, :ERR_COLS].astype(np.float64))
@@ -1930,7 +2044,7 @@ def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) 
         cs = eng.exec_device(bs)
         op = eng._local_op
         args = op.kernel_args(eng.packed, eng.peers.buf)
-        owners = torch.stack(eng.peers.views)  # every owner's rows, read in place
+        owners = owner_rows(eng.peers)
         pargs = (*args[:5], owners, *args[6:])
 
         def run_kernel():
@@ -1944,17 +2058,34 @@ def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) 
             kind=eng.kernel_kind, launches=launches, bits=digest(cs[0]), err=err,
             err_all=err_all, peak=peak, held=held, packed=nbytes(*eng.packed),
             max_abs=max_abs, rel_fro=rel_fro,
-            bases16=all(x % 16 == 0 for x in eng.peers.bases),
+            bases16=eng.peers.ptrs16,
             exec_ms=wall_ms(lambda: eng.exec_device(bs)), kernel_ms=wall_ms(run_kernel),
             plain_ms=wall_ms(run_plain, 3), rows=(r0, r1),
             bound=function_bound(op, csr_work(shard), N, torch.float32),
-            stat=eng.print_stat().splitlines()[1])
+            stat=eng.print_stat().splitlines()[1], main_moved=main_moved)
         if prec == "x3":  # cuSPARSE on this rank's shard and the global B
             got["points"][prec]["library_ms"] = csr_library_ms(
                 shard.rowptr, shard.colidx, shard.val, a.ncol,
                 torch.from_numpy(b).to(device))
-        eng.close()
-        del eng, op, args, pargs, owners, cs, bs, run_kernel, run_plain
+
+        def kernel_and_plain():
+            k = run_kernel()
+            return k, sh.spmm_halo_plain(*args[:5], owner_rows(eng.peers), *args[6:],
+                                         consumers=[rank])
+
+        got["points"][prec]["b2b"] = back_to_back(
+            eng, rank, device, [eng.shard_b(x) for x in bseq], kernel_and_plain)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()  # pipelined: the execs back to back, one sync at the end
+        for _ in range(B2B_EXECS):
+            eng.exec_device(bs)
+        torch.cuda.synchronize(device)
+        got["points"][prec]["pipelined_ms"] = (time.perf_counter() - t0) * 1e3 / B2B_EXECS
+        if prec == "x3":
+            got["points"][prec]["withheld"] = withheld_exec(eng, rank, device, bs)
+        else:
+            eng.close()
+        del eng, op, args, pargs, owners, cs, bs, run_kernel, run_plain, kernel_and_plain
         a.__dict__.pop("_torch_pack_cache", None)  # the engines' pack memo on A
         torch.cuda.empty_cache()
     for mode in unfused:
@@ -2032,8 +2163,10 @@ def multirank_crp(rank, device, a, b, c_ref, cplaw_path, unfused) -> dict:
             config=SpmmConfig(mxu_precision="x3", **cfg)))
         for k in kernels:
             k.launches = 0
+        before = host_counts(eng.peers) if eng.peers is not None else None
         c = eng.exec(b)  # the main path: every rank returns the global C
         launches = {k.__name__: k.launches for k in kernels if k.launches}
+        main_moved = moved(before, eng.peers) if before is not None else None
         bs = eng.rd_B.shard_src(b)
         cs = eng.exec_device(bs)
         got[tag] = dict(
@@ -2045,7 +2178,8 @@ def multirank_crp(rank, device, a, b, c_ref, cplaw_path, unfused) -> dict:
             moved=(eng.rd_B.nelem_moved, eng.rd_C.nelem_moved),
             aliased=eng.peers is not None and bs.data_ptr() == eng.peers.buf.data_ptr(),
             exec_ms=rank_wall_ms(lambda: eng.exec_device(bs), device, 3),
-            stat=[ln for ln in eng.print_stat().splitlines() if ln.startswith("Rank")][0])
+            stat=[ln for ln in eng.print_stat().splitlines() if ln.startswith("Rank")][0],
+            main_moved=main_moved)
         return eng, bs
 
     def panel(eng, a):
@@ -2057,9 +2191,7 @@ def multirank_crp(rank, device, a, b, c_ref, cplaw_path, unfused) -> dict:
     op = eng._local_op
     eng._blocks(eng.rd_B.exec_device(bs))  # this rank's block into the peers' buffer
     args = op.kernel_args(eng.packed, eng.peers.buf)
-    owners = (torch.stack(eng.peers.views) if eng.peers.views is not None  # read in place
-              else eng.peers.rows())  # the CPU (a rehearsal): gathered
-    pargs = (*args[:5], owners, *args[6:])
+    pargs = (*args[:5], owner_rows(eng.peers), *args[6:])
 
     def run_kernel():
         return op.kernel(*args, min_b_rows=op.min_b_rows, peers=eng.peers)
@@ -2077,8 +2209,17 @@ def multirank_crp(rank, device, a, b, c_ref, cplaw_path, unfused) -> dict:
         got["auto"].update(plain_ms=rank_wall_ms(run_plain, device, 1),
                            library_ms=csr_library_ms(pa.rowptr, pa.colidx, pa.val, a.ncol,
                                                      torch.from_numpy(b).to(device)))
+
+    def kernel_and_plain():
+        k = run_kernel()
+        return k, sh.spmm_halo_plain(*args[:5], owner_rows(eng.peers), *args[6:],
+                                     consumers=[eng.peers.me])
+
+    got["auto"]["b2b"] = back_to_back(eng, rank, device,
+                                      [eng.rd_B.shard_src(x) for x in changing_bs(a)],
+                                      kernel_and_plain)
     eng.close()
-    del eng, op, args, pargs, owners, bs, run_kernel, run_plain
+    del eng, op, args, pargs, bs, run_kernel, run_plain, kernel_and_plain
     a.__dict__.pop("_torch_pack_cache", None)
     torch.cuda.empty_cache()
 
@@ -2220,10 +2361,19 @@ def multirank_path(device) -> list:
     its rows within the point's class; (c) the unfused exchanges gloo
     carries, their C shards equal to the one-device engine's likewise;
     (d) ``CrpSpmm`` on the ranks' meshes (multirank_crp, checked against
-    any_layout_path's one-device engines by multirank_crp_check).  The
-    records of #12 across processes: its main-path launches over the
-    ranks, its largest difference from its plain version, rank 0's times
-    at x3 (time-shared); then those of (d)."""
+    any_layout_path's one-device engines by multirank_crp_check).  #12
+    across processes is ordered by flags in peer memory: across the main
+    path ``HaloPeers`` makes no host barrier and no stream drain, and
+    launches its wait, signal and done kernels once each a rank; the
+    back-to-back run with B changing every exec and the ranks skewed on
+    the host gives every rank's C equal to an ordered replay's, within
+    the plain version's tolerance; one exec withheld by rank
+    WITHHOLD_RANK makes every other rank raise ``HaloTimeout`` within
+    BOUND_TEST_S + BOUND_SLACK_S with its C NaN, and the set still
+    closes and exits 0.  The records of #12 across processes: its
+    main-path launches over the ranks, its largest difference from its
+    plain version, rank 0's times at x3 (time-shared); then those of
+    (d)."""
     import os
     import tempfile
 
@@ -2265,7 +2415,7 @@ def multirank_path(device) -> list:
         say(f"[multirank] {MULTIRANK_P} ranks, one process each, on the one card: "
             f"{time.perf_counter() - t0:.1f} s from spawn to exit")
 
-    halo = dict(launches=0, max_abs=0.0)
+    halo = dict(launches=0, max_abs=0.0, flag_launches=[0, 0, 0])
     for prec in PRECS:
         want = _MEASURED.get(f"p=4 fused {prec}")
         for r, rk in enumerate(ranks):
@@ -2285,10 +2435,30 @@ def multirank_path(device) -> list:
                 f"GB, held {pt['held'] / 1e9:.3f} GB, packed {pt['packed'] / 1e9:.3f} GB "
                 f"({one}); vs plain rel fro err {pt['rel_fro']:.3e}, max abs "
                 f"{pt['max_abs']:.3e}; bases on 16 bytes {pt['bases16']}; {pt['stat']}")
-            say(f"[{tag}] time-shared (4 processes on one card, host barriers "
-                f"included; no speed figure): exec {pt['exec_ms']:.3f} ms, kernel "
+            say(f"[{tag}] time-shared (4 processes on one card; flags, no host barrier; "
+                f"no speed figure): exec {pt['exec_ms']:.3f} ms, {B2B_EXECS} execs back "
+                f"to back {pt['pipelined_ms']:.3f} ms an exec, kernel "
                 f"{pt['kernel_ms']:.3f} ms, plain {pt['plain_ms']:.3f} ms, bound "
-                f"{pt['bound'][0]:.4f} ms ({pt['bound'][1]})")
+                f"{pt['bound'][0]:.4f} ms ({pt['bound'][1]})"
+                + (f"; PR 20's host barriers included: {PR20_RANK_MS:.4f} ms (rank 0, x3)"
+                   if r == 0 and prec == "x3" else ""))
+            mv, b2b = pt["main_moved"], pt["b2b"]
+            replay = "equal to" if b2b["same"] else "DIFFERS from"
+            for i in range(3):
+                halo["flag_launches"][i] += mv[2 + i]
+            say(f"[{tag}] HaloPeers across the main path: host barriers {mv[0]}, stream "
+                f"drains {mv[1]}, flag kernels wait / signal / done {mv[2]} / {mv[3]} / "
+                f"{mv[4]}; back to back ({B2B_EXECS} execs over {len(B2B_SEEDS)} B, rank "
+                f"{r} {SKEW_S * 1e3:.0f} ms late at exec {r}, {b2b['wall_ms']:.1f} ms): "
+                f"host barriers {b2b['moved'][0]}, drains {b2b['moved'][1]}; C {replay} "
+                f"the ordered replay bit for bit ({b2b['distinct']} distinct), vs plain "
+                f"rel fro err up to "
+                f"{max(b2b['plain']):.3e}")
+            check(mv[:2] == [0, 0] and mv[2:] == [1, 1, 1],
+                  f"{tag}: HaloPeers across the main path: {mv}")
+            check(b2b["same"] and b2b["distinct"] == len(B2B_SEEDS)
+                  and b2b["moved"][:2] == [0, 0] and max(b2b["plain"]) <= TOL_PLAIN_FRO,
+                  f"{tag}: back to back {b2b}")
             check(want is not None and same,
                   f"{tag}: C shard differs from slice {r} of the one-device fused engine's")
             check(pt["launches"]["spmm_halo"] == 1 and pt["err"] <= TOL_REF[prec]
@@ -2321,11 +2491,24 @@ def multirank_path(device) -> list:
             check(uf["peak"] <= INIT_PEAK_OVER_HELD * keep,
                   f"multirank {mode} rank {r}: init peaks at {uf['peak'] / 1e9:.3f} GB, over "
                   f"{INIT_PEAK_OVER_HELD} x the {keep / 1e9:.3f} GB it holds")
+    for r, rk in enumerate(ranks):  # (c) the withheld exec, at x3
+        w = rk["points"]["x3"]["withheld"]
+        tag = f"multirank bound rank {r}"
+        if w["withheld"]:
+            say(f"[{tag}] withheld one exec; closed {w['closed']} after {w['close_s']:.2f} s")
+            check(w["closed"] == "clean", f"{tag}: {w}")
+            continue
+        say(f"[{tag}] raised HaloTimeout at exec {w.get('attempt')} after "
+            f"{w.get('s', float('nan')):.2f} s (bound {BOUND_TEST_S} s), C all NaN "
+            f"{w.get('nan')}: {w['raised']}; closed ({w['close_s']:.2f} s): {w['closed']}")
+        check(w["raised"] is not None and w["s"] <= BOUND_TEST_S + BOUND_SLACK_S and w["nan"]
+              and w["closed"].startswith("raised HaloTimeout"), f"{tag}: {w}")
     x3 = ranks[0]["points"]["x3"]
     rec = record("spmm_halo", halo["launches"], halo["max_abs"], x3["kernel_ms"],
                  x3["plain_ms"], *x3["bound"], None, x3["library_ms"])
     rec.update(path="multirank", timing="time-shared: 4 processes on one card, rank 0, "
-               "x3, host barriers included")
+               "x3, flags in peer memory (no host barrier)",
+               flag_launches=dict(zip(("wait", "signal", "done"), halo["flag_launches"])))
     return [rec] + multirank_crp_check([rk["crp"] for rk in ranks])
 
 
@@ -2378,6 +2561,22 @@ def multirank_crp_check(ranks) -> list:
             expect = {kernel: 1, **({"spmm_spill": 1} if tag == "cplaw" else {})}
             check(got["launches"] == expect,
                   f"multirank crp {tag} rank {r}: main-path launches {got['launches']}")
+            if got["main_moved"] is not None:  # #12: HaloPeers's host barriers, drains, flags
+                check(got["main_moved"] == [0, 0, 1, 1, 1],
+                      f"multirank crp {tag} rank {r}: HaloPeers across the main path "
+                      f"{got['main_moved']}")
+            if "b2b" in got:
+                b2b = got["b2b"]
+                replay = "equal to" if b2b["same"] else "DIFFERS from"
+                say(f"[multirank crp {tag} rank {r}] back to back ({B2B_EXECS} execs over "
+                    f"{len(B2B_SEEDS)} B, {b2b['wall_ms']:.1f} ms): HaloPeers host barriers "
+                    f"{b2b['moved'][0]}, drains {b2b['moved'][1]}; user C block {replay} the "
+                    f"ordered replay bit for bit ({b2b['distinct']} distinct); #12 vs plain "
+                    f"rel fro err up to "
+                    f"{max(b2b['plain']):.3e}")
+                check(b2b["same"] and b2b["distinct"] == len(B2B_SEEDS)
+                      and b2b["moved"][:2] == [0, 0] and max(b2b["plain"]) <= TOL_PLAIN_FRO,
+                      f"multirank crp {tag} rank {r}: back to back {b2b}")
             check(got["peak"] <= INIT_PEAK_OVER_HELD * keep,
                   f"multirank crp {tag} rank {r}: init peaks at {got['peak'] / 1e9:.3f} GB, "
                   f"over {INIT_PEAK_OVER_HELD} x the {keep / 1e9:.3f} GB it holds")
@@ -2405,7 +2604,8 @@ def multirank_crp_check(ranks) -> list:
                          max(x["max_abs"] for x in per_rank), r0["kernel_ms"],
                          r0["plain_ms"], *r0["bound"], None, r0["library_ms"])
             rec.update(path="multirank_crp", timing="time-shared: 4 processes on one card, "
-                       "rank 0, x3" + (", host barriers included" if tag == "auto" else ""))
+                       "rank 0, x3" + (", flags in peer memory (no host barrier)"
+                                       if tag == "auto" else ""))
             records.append(rec)
     return records
 
@@ -3691,11 +3891,12 @@ def tf32x3_layouts(build) -> None:
     """Print the ring of each 3xTF32 entry (#3, #4, #12 and #6 at highest)
     once: stages, dynamic shared memory, the block tile, and for its
     16-byte and 4-byte B copy kernels registers, spill bytes and resident
-    blocks per SM, which must be 0 and at least 2."""
+    blocks per SM, which must be 0 and at least 2 (#12's also with the
+    waits across processes, ``flag16`` and ``flag4``)."""
     for name in ("crp_window_sg_f32", "crp_window_f32", "crp_halo_f32", "crp_ragged_f32"):
         lay = build.tf32x3_layout(name)
         say(f"[tf32x3] {name}: {json.dumps(lay)}")
-        for copy in ("b16", "b4"):
+        for copy in ("b16", "b4") + (("flag16", "flag4") if name == "crp_halo_f32" else ()):
             check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 2,
                   f"{name} ({copy}): {lay}: spills, or fewer than 2 blocks an SM")
 
@@ -3707,15 +3908,16 @@ def x3_layout(build) -> None:
     dynamic shared memory, threads, the block tile, and for each of its
     kernels (fp32 B by 16-byte or plain copies, #5's likewise on the bf16
     planes, the one-pass mode's on one bf16 plane in its own deeper ring,
-    #12's through the chunk table, in both modes)
-    registers, spill bytes and resident blocks per SM, which must be 0 and
-    at least 1."""
+    #12's through the chunk table, in both modes, with and without the
+    waits across processes) registers, spill bytes and resident blocks per
+    SM, which must be 0 and at least 1."""
     for name, label, copies in (
         ("crp_window_sg_presplit", "crp_window_sg_presplit / _ab / _bf16",
          ("b16", "b4", "pair16", "pair2", "one16", "one2")),
         ("crp_window_x3", "crp_window_x3 / _bf16", ("b16", "b4", "one16", "one2")),
-        ("crp_halo_x3", "crp_halo_x3 / _bf16",
-         ("chunk16", "chunk4", "chunkone16", "chunkone2")),
+        ("crp_halo_x3", "crp_halo_x3 / _bf16 (and _flags)",
+         ("chunk16", "chunk4", "chunkone16", "chunkone2", "flag16", "flag4", "flagone16",
+          "flagone2")),
         ("crp_ragged_presplit", "crp_ragged_presplit / _bf16",
          ("b16", "b4", "one16", "one2")),
     ):

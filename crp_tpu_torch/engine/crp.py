@@ -211,7 +211,8 @@ class CrpSpmm(torch.nn.Module):
                 self.peers = HaloPeers(
                     (self._local_op.min_b_rows, self.max_nloc),
                     self._local_op.b_dtype or torch_dtype(self.dtype), self.device,
-                    mesh.col_group, mesh.col_ranks, pi, arrays[-1])
+                    mesh.col_group, mesh.col_ranks, pi, arrays[-1],
+                    np.flatnonzero(self._local_op.readers[:, pi]))
                 self._b_pad = 0
         elif self.overlap:
             self.ring = build_ring_spmm(panels, self.xplan, rd_rows, self.max_m,
@@ -263,10 +264,11 @@ class CrpSpmm(torch.nn.Module):
 
     def close(self) -> None:
         """Drop the peers' B mappings of the fused kernel across ranks
-        (collective: every rank calls it, before any frees its engine)."""
+        (collective: every rank calls it, before any frees its engine);
+        then raise ``HaloTimeout`` where a wait of the kernel gave up."""
         if self.peers is not None:
-            self.peers.close()
-            self.peers = None
+            peers, self.peers = self.peers, None
+            peers.close()
 
     @property
     def physical_rows(self) -> int:
@@ -286,9 +288,11 @@ class CrpSpmm(torch.nn.Module):
         """rd_B's output (p, max_k, max_nloc) as (pm, pn, rows, max_nloc),
         padded with zero rows to what the fused or the ring's self kernel
         reads; on a mesh this rank's block, (1, 1, rows, max_nloc), and
-        for the fused kernel the peers' buffer with the block written in."""
+        for the fused kernel the peers' buffer with the block written in
+        (its first ``max_k`` rows, by ``HaloPeers.load``, which alone
+        orders the write with the peers' reads)."""
         if self.peers is not None:
-            self.peers.buf[:, : self.max_k].copy_(b_int)
+            self.peers.load(b_int)
             return self.peers.buf[:, None]
         b4 = b_int.view(-1, self.pn if self.mesh is None else 1, self.max_k, self.max_nloc)
         return F.pad(b4, (0, 0, 0, self._b_pad)) if self._b_pad else b4
@@ -381,6 +385,8 @@ class CrpSpmm(torch.nn.Module):
                 cs = self.rd_C.exec_device(self._c_blocks(c4))
                 synchronize(cs)
             out = self.rd_C.unshard_dst(cs, self.m, self.n)
+        if self.peers is not None:  # a host sync point: a wait that gave up raises
+            self.peers.check()
         t.n_exec += 1
         return out
 

@@ -200,7 +200,8 @@ class Para2dSpmm(torch.nn.Module):
                         self.peers = HaloPeers(
                             (self.max_k, self.max_nloc),
                             self._local_op.b_dtype or torch_dtype(self.dtype), self.device,
-                            self.mesh.col_group, self.mesh.col_ranks, pi, arrays[-1])
+                            self.mesh.col_group, self.mesh.col_ranks, pi, arrays[-1],
+                            np.flatnonzero(self._local_op.readers[:, pi]))
                 elif self.mesh is not None:
                     self.xtables = rank_tables(self.xplan, pi, self._rb_rows, self.device,
                                                ring=bool(self.config.rb_p2p))
@@ -226,10 +227,11 @@ class Para2dSpmm(torch.nn.Module):
 
     def close(self) -> None:
         """Drop the peers' B mappings of the fused kernel across ranks
-        (collective: every rank calls it, before any frees its engine)."""
+        (collective: every rank calls it, before any frees its engine);
+        then raise ``HaloTimeout`` where a wait of the kernel gave up."""
         if self.peers is not None:
-            self.peers.close()
-            self.peers = None
+            peers, self.peers = self.peers, None
+            peers.close()
 
     @property
     def physical_rows(self) -> int:
@@ -263,8 +265,11 @@ class Para2dSpmm(torch.nn.Module):
         if self.mesh is not None:
             c_blocks = gather_shards(c_blocks, self.mesh.group, self.mesh.size).reshape(
                 self.pm, self.pn, *c_blocks.shape[2:])
-        return unshard_dense_2d(c_blocks.cpu().numpy(), self.plan.AC_rowptr,
-                                self.plan.BC_colptr, self.plan.m, self.plan.n)
+        c = unshard_dense_2d(c_blocks.cpu().numpy(), self.plan.AC_rowptr,
+                             self.plan.BC_colptr, self.plan.m, self.plan.n)
+        if self.peers is not None:  # a host sync point: a wait that gave up raises
+            self.peers.check()
+        return c
 
     def forward(self, b_blocks: torch.Tensor) -> torch.Tensor:
         """Per column group j: the exchange along pm, then every panel's

@@ -330,7 +330,8 @@ class RowParaSpmm(torch.nn.Module):
                     self.peers = HaloPeers(
                         (self.max_k, self.glb_n),
                         self._local_op.b_dtype or torch_dtype(self.dtype), self.device,
-                        self.mesh.col_group, self.mesh.col_ranks, self.rank, arrays[-1])
+                        self.mesh.col_group, self.mesh.col_ranks, self.rank, arrays[-1],
+                        np.flatnonzero(self._local_op.readers[:, self.rank]))
             elif self.mesh is not None:
                 self.xtables = rank_tables(self.xplan, self.rank, self._rb_rows,
                                            self.device, ring=bool(self.config.rb_p2p))
@@ -364,10 +365,11 @@ class RowParaSpmm(torch.nn.Module):
 
     def close(self) -> None:
         """Drop the peers' B mappings of the fused kernel across ranks
-        (collective: every rank calls it, before any frees its engine)."""
+        (collective: every rank calls it, before any frees its engine);
+        then raise ``HaloTimeout`` where a wait of the kernel gave up."""
         if self.peers is not None:
-            self.peers.close()
-            self.peers = None
+            peers, self.peers = self.peers, None
+            peers.close()
 
     @property
     def physical_rows(self) -> int:
@@ -419,13 +421,21 @@ class RowParaSpmm(torch.nn.Module):
             if c.shape[1] < self.glb_m:
                 c = np.concatenate(
                     [c, np.zeros((c.shape[0], self.glb_m - c.shape[1]), c.dtype)], axis=1)
+            self._check_peers()
             return c
         c = unshard_dense_rows(c_shards.cpu().numpy(), self.A_row_displs)
         if c.shape[0] < self.glb_m:
             # rows past the last nnz-balanced block are empty A rows
             pad = np.zeros((self.glb_m - c.shape[0], c.shape[1]), c.dtype)
             c = np.concatenate([c, pad], axis=0)
+        self._check_peers()
         return c
+
+    def _check_peers(self) -> None:
+        """At a host sync point: raise ``HaloTimeout`` if a wait of the
+        fused kernel across ranks gave up."""
+        if self.peers is not None:
+            self.peers.check()
 
     def _exchange(self, b_shards: torch.Tensor) -> torch.Tensor:
         if self.mesh is not None:

@@ -48,6 +48,13 @@ _ENTRIES = {
     "crp_halo_bf16": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
     "crp_halo_f32": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
     "crp_halo_f64": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
+    "crp_halo_x3_flags": ("halo", 6, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
+    "crp_halo_bf16_flags": ("halo", 5, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
+    "crp_halo_f32_flags": ("halo", 5, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
+    "crp_halo_f64_flags": ("halo", 5, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
+    "crp_halo_wait": ("halo", 2, ("n_readers", "need", "bound_ns")),
+    "crp_halo_signal": ("halo", 2, ("value",)),
+    "crp_halo_done": ("halo", 3, ("value", "c_bytes")),
     "crp_ragged_presplit": ("ragged", 6, ("G", "TM", "Wc", "n")),
     "crp_ragged_bf16": ("ragged", 5, ("G", "TM", "Wc", "n")),
     "crp_ragged_f32": ("ragged", 5, ("G", "TM", "Wc", "n")),
@@ -149,7 +156,8 @@ def tf32x3_layout(name: str) -> dict:
     ``crp_tf32x3_layout`` reports it: stages, dynamic shared memory, block
     tile and, for its kernels with 16-byte (``b16.*``) and 4-byte
     (``b4.*``) B copies, registers, local (spill) bytes and resident blocks
-    per SM."""
+    per SM; for ``crp_halo_f32`` also its kernels with the waits across
+    processes (``flag16.*``, ``flag4.*``)."""
     return _report(name, "crp_tf32x3_layout")
 
 
@@ -167,7 +175,8 @@ def x3_layout(name: str = "crp_window_sg_presplit") -> dict:
     ``window``, #8 ``crp_ragged_bf16`` in ``ragged``), and #12's with B's
     rows through the chunk table (``halo``: ``crp_halo_x3``'s
     ``chunk16.*``, ``chunk4.*`` and ``crp_halo_bf16``'s one-pass
-    ``chunkone16.*``, ``chunkone2.*``)."""
+    ``chunkone16.*``, ``chunkone2.*``; with the waits across processes
+    ``flag16.*``, ``flag4.*``, ``flagone16.*``, ``flagone2.*``)."""
     return _report(name, "crp_x3_layout")
 
 

@@ -25,9 +25,32 @@
 // with a barrier so that one exec's pushes never land in a buffer the last
 // exec still reads.  Here the push becomes the read through the chunks'
 // pointers.  On one card stream order (B written before the launch, C read
-// after it) is the barrier; across processes the caller holds a host
-// barrier before the launch (every owner's B written) and one after it (no
-// owner overwrites B while a peer still reads it).  At the pack's
+// after it) is the barrier.  Across processes three kinds of flag words
+// in peer memory take the place of the TPU kernel's semaphores, and no
+// host barrier runs between launches (panel_tiles.cuh HaloFlags; the
+// caller, spmm_halo.py HaloPeers, keeps the counts):
+//   * the barrier before the pushes: before a rank overwrites its B,
+//     crp_halo_wait spins (one thread, on the stream) until every rank
+//     that reads its rows has counted as many done launches as it has;
+//   * the arrival semaphores: once its B is written, crp_halo_signal sets
+//     the rank's arrive word to its load count with a system-scope release,
+//     and the flagged entries (crp_halo_*_flags) wait, a block at a time,
+//     for each owner's arrive word before their first read of its rows
+//     (their `rows` holds each chunk's row pointer and its owner's arrive
+//     word side by side, one 16-byte load);
+//   * the send drain: after the launch, crp_halo_done sets the rank's done
+//     word to its launch count, a trailing one-block kernel on the same
+//     stream, so it follows the last read of every block.  A last-block
+//     pattern (a counter every block bumps) would add an atomic and a fence
+//     to each block of the shared bodies, and only a kernel after every
+//     block can turn all of C into NaN when a wait gave up.
+// Every wait is bounded in wall time (%globaltimer): four processes on one
+// card take turns, so an owner may be descheduled while a peer spins.  A
+// wait that gives up writes the rank's status word (pinned host memory,
+// read by the host without a sync), every later wait of the rank gives up
+// at once, crp_halo_done fills C with NaN, and the rank's flag words carry
+// HALO_FAILED from then on, so that its peers give up too.  The one-card
+// entries compile without the waits (FLAGS false).  At the pack's
 // operating point, as the TPU kernel:
 //   crp_halo_x3    <- "x3": the panels arrive as bf16 hi/lo, split once in
 //                     RNE when they are packed, B split to bf16 hi/lo in
@@ -52,6 +75,52 @@
 
 #include "panel_tiles.cuh"
 #include "x3_wgmma.cuh"
+
+namespace crp {
+
+inline HaloFlags halo_flags(void* status, int64_t epoch, int64_t bound_ns)
+{
+    return {(unsigned long long)epoch, (unsigned long long)bound_ns,
+            static_cast<unsigned long long*>(status)};
+}
+
+__global__ void halo_wait_kernel(const unsigned long long* const* done, int64_t n_readers,
+                                 unsigned long long need, unsigned long long bound_ns,
+                                 unsigned long long* status)
+{
+    for (int64_t i = 0; i < n_readers; ++i)
+        if (halo_wait(done[i], need, bound_ns, status, HALO_READERS, i)) return;
+}
+
+__device__ __forceinline__ void st_release_sys(unsigned long long* p, unsigned long long v)
+{
+    asm volatile("st.release.sys.u64 [%0], %1;\n" :: "l"(p), "l"(v) : "memory");
+}
+
+__global__ void halo_signal_kernel(unsigned long long* word, const unsigned long long* status,
+                                   unsigned long long value)
+{
+    // the writes of B came before this kernel on the stream; the fence and
+    // the release make them visible to a peer that acquires the word
+    __threadfence_system();
+    st_release_sys(word, value | (ld_relaxed_sys(status) ? HALO_FAILED : 0));
+}
+
+__global__ void halo_done_kernel(unsigned long long* word, const unsigned long long* status,
+                                 uint32_t* c, unsigned long long value, int64_t c_words)
+{
+    __shared__ int failed;
+    if (threadIdx.x == 0) failed = ld_relaxed_sys(status) != 0;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence_system();
+        st_release_sys(word, value | (failed ? HALO_FAILED : 0));
+    }
+    if (failed)
+        for (int64_t i = threadIdx.x; i < c_words; i += blockDim.x) c[i] = 0xffffffffu;
+}
+
+}  // namespace crp
 
 extern "C" {
 
@@ -99,6 +168,89 @@ int crp_halo_f64(const void* rows, const void* ws, const void* tiles, void* c, i
     (void)rows16;  // the FMA body loads B element by element
     return crp::launch_fma<double, 64, 128, 8, 4, 8, true>(nullptr, ws, tiles, rows, c, G,
                                                             TM, W, n, stream, rows);
+}
+
+// #12 across processes, the same four entries with the waits (see above):
+// rows the chunks' (row pointer, arrive word) pairs (16-byte aligned),
+// status this rank's status word, epoch the loads every owner must have
+// made, bound_ns the longest a wait spins; rows16 says whether every row
+// pointer is on 16 bytes
+int crp_halo_x3_flags(const void* rows, const void* ws, const void* ah, const void* al,
+                      void* c, void* status, int64_t G, int64_t TM, int64_t W, int64_t n,
+                      int64_t rows16, int64_t epoch, int64_t bound_ns, void* stream)
+{
+    if ((uintptr_t)rows % 16) return (int)cudaErrorMisalignedAddress;
+    return crp::launch_wgmma<crp::WgMode::SPLIT_B, true, false, true>(
+        ws, ah, al, rows, nullptr, c, G, TM, W, n, stream, rows, nullptr, rows16 != 0,
+        crp::halo_flags(status, epoch, bound_ns));
+}
+
+int crp_halo_bf16_flags(const void* rows, const void* ws, const void* ah, void* c,
+                        void* status, int64_t G, int64_t TM, int64_t W, int64_t n,
+                        int64_t rows16, int64_t epoch, int64_t bound_ns, void* stream)
+{
+    if ((uintptr_t)rows % 16) return (int)cudaErrorMisalignedAddress;
+    return crp::launch_wgmma<crp::WgMode::ONE_PASS, true, false, true>(
+        ws, ah, nullptr, rows, nullptr, c, G, TM, W, n, stream, rows, nullptr, rows16 != 0,
+        crp::halo_flags(status, epoch, bound_ns));
+}
+
+int crp_halo_f32_flags(const void* rows, const void* ws, const void* tiles, void* c,
+                       void* status, int64_t G, int64_t TM, int64_t W, int64_t n,
+                       int64_t rows16, int64_t epoch, int64_t bound_ns, void* stream)
+{
+    if ((uintptr_t)rows % 16) return (int)cudaErrorMisalignedAddress;
+    return crp::launch_tf32x3<true, true>(nullptr, ws, tiles, rows, c, G, TM, W, n, stream,
+                                          rows, rows16 != 0,
+                                          crp::halo_flags(status, epoch, bound_ns));
+}
+
+int crp_halo_f64_flags(const void* rows, const void* ws, const void* tiles, void* c,
+                       void* status, int64_t G, int64_t TM, int64_t W, int64_t n,
+                       int64_t rows16, int64_t epoch, int64_t bound_ns, void* stream)
+{
+    (void)rows16;
+    if ((uintptr_t)rows % 16) return (int)cudaErrorMisalignedAddress;
+    return crp::launch_fma<double, 64, 128, 8, 4, 8, true, true>(
+        nullptr, ws, tiles, rows, c, G, TM, W, n, stream, rows,
+        crp::halo_flags(status, epoch, bound_ns));
+}
+
+// Before this rank overwrites its B: one thread waits until each of the
+// n_readers done words (done, a table of their addresses) has reached need
+int crp_halo_wait(const void* done, void* status, int64_t n_readers, int64_t need,
+                  int64_t bound_ns, void* stream)
+{
+    if (n_readers < 0 || need < 0 || bound_ns < 0) return (int)cudaErrorInvalidValue;
+    crp::halo_wait_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+        static_cast<const unsigned long long* const*>(done), n_readers,
+        (unsigned long long)need, (unsigned long long)bound_ns,
+        static_cast<unsigned long long*>(status));
+    return (int)cudaGetLastError();
+}
+
+// Once this rank's B is written: its arrive word := value (release, system
+// scope), with HALO_FAILED once its status word is set
+int crp_halo_signal(void* word, const void* status, int64_t value, void* stream)
+{
+    if (value < 0) return (int)cudaErrorInvalidValue;
+    crp::halo_signal_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+        static_cast<unsigned long long*>(word), static_cast<const unsigned long long*>(status),
+        (unsigned long long)value);
+    return (int)cudaGetLastError();
+}
+
+// After a launch: its done word := value (release, system scope); where the
+// status word is set, every byte of C (c_bytes, a multiple of 4) := 0xff,
+// a NaN in fp32 and fp64, and the word carries HALO_FAILED
+int crp_halo_done(void* word, const void* status, void* c, int64_t value, int64_t c_bytes,
+                  void* stream)
+{
+    if (value < 0 || c_bytes < 0 || c_bytes % 4) return (int)cudaErrorInvalidValue;
+    crp::halo_done_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(
+        static_cast<unsigned long long*>(word), static_cast<const unsigned long long*>(status),
+        static_cast<uint32_t*>(c), (unsigned long long)value, c_bytes / 4);
+    return (int)cudaGetLastError();
 }
 
 const char* crp_error_string(int code)

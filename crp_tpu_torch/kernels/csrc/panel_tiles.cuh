@@ -22,6 +22,18 @@
 // and looks its chunk up once.  The other kernels compile without the
 // lookup.
 //
+// With FLAGS (#12 across processes, halo.cu) the owners are other ranks'
+// buffers, written while this kernel may already run, and chunk_src holds
+// (row pointer, arrive word) pairs: each chunk's rows and its owner's
+// arrival word (HaloFlags below), fetched by one 16-byte load.  Before a
+// block first reads a chunk of an owner it has not waited for, one thread
+// spins on that word, and a block barrier gives the other threads the
+// acquire.  A window's chunks ascend, so do their owners: a block waits at
+// most once an owner its window spans.  A wait that gives up leaves every
+// later chunk of the block dead (zeros) and every barrier reached; the
+// caller's done kernel turns C into NaN.  FLAGS implies CHUNKED; the other
+// kernels compile without it.
+//
 // The TPU kernels walk a sequential grid and carry C across steps in VMEM.
 // Here blocks run unordered: each block owns one (BM x BN) output tile of
 // one group and walks that group's chunks itself, k-slice by k-slice as one
@@ -53,6 +65,112 @@ using bf16 = __nv_bfloat16;
 
 constexpr int HALO_TK = 128;  // rows of one B ownership chunk (chunk_src)
 
+// The flags of #12 across processes (halo.cu, spmm_halo.py HaloPeers).
+// Each rank owns three 64-bit words: arrive (its loads of B so far, written
+// once its B is in place) and done (its launches so far, written once a
+// launch has read its owners' rows) live in device memory mapped into every
+// peer; status (0, or why a wait gave up) lives in this rank's pinned host
+// memory, which the host reads without a sync.  A rank that gave up sets
+// HALO_FAILED in the words it writes from then on, so that its peers give
+// up at once rather than at their bound.
+constexpr unsigned long long HALO_FAILED = 1ull << 62;
+enum HaloCode { HALO_ARRIVAL = 1, HALO_READERS = 2, HALO_PEER_FAILED = 3, HALO_GAVE_UP = 4 };
+
+struct HaloFlags {
+    unsigned long long epoch;                 // the loads every owner must have made
+    unsigned long long bound_ns;              // the longest a wait spins
+    unsigned long long* status;               // this rank's status word
+};
+
+__device__ __forceinline__ unsigned long long ld_acquire_sys(const unsigned long long* p)
+{
+    unsigned long long v;
+    asm volatile("ld.acquire.sys.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed_sys(const unsigned long long* p)
+{
+    unsigned long long v;
+    asm volatile("ld.relaxed.sys.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_relaxed_sys(unsigned long long* p, unsigned long long v)
+{
+    asm volatile("st.relaxed.sys.u64 [%0], %1;\n" :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns()
+{
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    return t;
+}
+
+// One thread: spin until *word reaches need (an acquire at system scope),
+// for at most bound_ns of wall time (%globaltimer: a descheduled peer
+// context does not stop it), backing off with __nanosleep.  Returns 0, or
+// the code it wrote to the status word (kind | where << 8): the bound ran
+// out, the peer set HALO_FAILED, or another wait of this rank gave up
+// first (the status word was set: give up at once too).
+__device__ __forceinline__ int halo_wait(const unsigned long long* word, unsigned long long need,
+                                         unsigned long long bound_ns,
+                                         unsigned long long* status, int kind, int64_t where)
+{
+    unsigned long long v = ld_acquire_sys(word);
+    int code = 0;
+    if (v & HALO_FAILED) {
+        code = HALO_PEER_FAILED;
+    } else if (v < need) {
+        const unsigned long long t0 = global_ns();
+        unsigned ns = 64;
+        for (;;) {
+            if (ld_relaxed_sys(status) != 0) {
+                code = HALO_GAVE_UP;
+                break;
+            }
+            if (global_ns() - t0 > bound_ns) {
+                code = kind;
+                break;
+            }
+            __nanosleep(ns);
+            if (ns < 8192) ns *= 2;
+            v = ld_acquire_sys(word);
+            if (v & HALO_FAILED) {
+                code = HALO_PEER_FAILED;
+                break;
+            }
+            if (v >= need) break;
+        }
+    }
+    if (code && code != HALO_GAVE_UP && ld_relaxed_sys(status) == 0)
+        st_relaxed_sys(status, (unsigned long long)code | ((unsigned long long)where << 8));
+    return code;
+}
+
+// A block's gate before it reads B row r (FLAGS, see above): every thread
+// calls it with the same r and the arrive word of r's chunk (null past the
+// matrix); where that owner is one the block has not waited for, thread 0
+// waits and the barrier hands on its acquire.  After a wait gave up,
+// *failed stays set and no further wait runs.
+template <bool FLAGS>
+__device__ __forceinline__ void halo_gate_block(const HaloFlags& flags, int64_t r,
+                                                const unsigned long long* word,
+                                                const unsigned long long** gate, bool* failed)
+{
+    if constexpr (FLAGS) {
+        const int64_t chunk = r / HALO_TK;
+        if (word && word != *gate && !*failed) {
+            *gate = word;
+            *failed = __syncthreads_or(
+                threadIdx.x == 0
+                && halo_wait(word, flags.epoch, flags.bound_ns, flags.status, HALO_ARRIVAL,
+                             chunk) != 0);
+        }
+    }
+}
+
 // chunk range of group g (see above)
 __device__ __forceinline__ void group_chunks(const int32_t* group_ptr,
                                              int64_t g, int64_t* s_begin,
@@ -64,14 +182,23 @@ __device__ __forceinline__ void group_chunks(const int32_t* group_ptr,
 
 // first row of the k slice whose B rows start at row r, in the rows *b
 // points at on return, and whether the rows exist (see CHUNKED above: *b
-// leaves pointing at the chunk's rows)
-template <bool CHUNKED, typename T>
+// leaves pointing at the chunk's rows; with FLAGS *word the arrive word of
+// the chunk's owner)
+template <bool CHUNKED, bool FLAGS = false, typename T>
 __device__ __forceinline__ int64_t b_slice_row(const int32_t* chunk_src,
-                                               int64_t r, bool* live, const T** b)
+                                               int64_t r, bool* live, const T** b,
+                                               const unsigned long long** word = nullptr)
 {
     if constexpr (!CHUNKED) {
         *live = true;
         return r;
+    } else if constexpr (FLAGS) {
+        const ulonglong2 pair = reinterpret_cast<const ulonglong2*>(chunk_src)[r / HALO_TK];
+        const T* rows = reinterpret_cast<const T*>(pair.x);
+        *word = reinterpret_cast<const unsigned long long*>(pair.y);
+        *live = rows != nullptr;
+        if (rows) *b = rows;
+        return r % HALO_TK;
     } else {
         const T* rows = reinterpret_cast<const T* const*>(chunk_src)[r / HALO_TK];
         *live = rows != nullptr;
@@ -92,7 +219,8 @@ __device__ __forceinline__ double fma_rn(double a, double b, double c)
 // Block tile BM x BN, k step BK; each thread owns RM consecutive rows and
 // RN columns strided by BN / RN (neighbouring threads on neighbouring
 // columns: conflict-free B reads and coalesced C writes).
-template <typename T, int BM, int BN, int BK, int RM, int RN, bool CHUNKED = false>
+template <typename T, int BM, int BN, int BK, int RM, int RN, bool CHUNKED = false,
+          bool FLAGS = false>
 __global__ void __launch_bounds__((BM / RM) * (BN / RN))
 panel_fma_kernel(const int32_t* __restrict__ group_ptr,
                  const int32_t* __restrict__ starts,
@@ -100,8 +228,10 @@ panel_fma_kernel(const int32_t* __restrict__ group_ptr,
                  const T* __restrict__ b,
                  T* __restrict__ c,
                  int64_t TM, int64_t W, int64_t n, int64_t n_tiles,
-                 const int32_t* __restrict__ chunk_src)
+                 const int32_t* __restrict__ chunk_src,
+                 const HaloFlags flags)
 {
+    static_assert(!FLAGS || CHUNKED, "the flags gate the chunk lookup");
     constexpr int NT = (BM / RM) * (BN / RN);
     constexpr int TX = BN / RN;
     constexpr int A_PER = BM * BK / NT;
@@ -123,6 +253,8 @@ panel_fma_kernel(const int32_t* __restrict__ group_ptr,
 
     T ra[A_PER], rb[B_PER];
     T acc[RM][RN];
+    const unsigned long long* gate = nullptr;  // FLAGS: the owner last waited for
+    bool failed = false;
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -133,14 +265,17 @@ panel_fma_kernel(const int32_t* __restrict__ group_ptr,
         const int64_t k0 = (t % nk) * BK;
         bool b_live;
         const T* bb = b;
+        const unsigned long long* word = nullptr;
         const int64_t b_row0 =
-            b_slice_row<CHUNKED>(chunk_src, starts[s] + k0, &b_live, &bb);
+            b_slice_row<CHUNKED, FLAGS>(chunk_src, starts[s] + k0, &b_live, &bb, &word);
         const T* a = tiles + (size_t)(s * TM + r_in) * W + k0;
 #pragma unroll
         for (int i = 0; i < A_PER; ++i) {
             const int idx = tid + i * NT;
             ra[i] = a[(size_t)(idx / BK) * W + idx % BK];
         }
+        halo_gate_block<FLAGS>(flags, starts[s] + k0, word, &gate, &failed);  // A in flight
+        if constexpr (FLAGS) b_live = b_live && !failed;
 #pragma unroll
         for (int i = 0; i < B_PER; ++i) {
             const int idx = tid + i * NT;
@@ -204,10 +339,12 @@ panel_fma_kernel(const int32_t* __restrict__ group_ptr,
     }
 }
 
-template <typename T, int BM, int BN, int BK, int RM, int RN, bool CHUNKED = false>
+template <typename T, int BM, int BN, int BK, int RM, int RN, bool CHUNKED = false,
+          bool FLAGS = false>
 int launch_fma(const void* group_ptr, const void* starts, const void* tiles,
                const void* b, void* c, int64_t G, int64_t TM, int64_t W,
-               int64_t n, void* stream, const void* chunk_src = nullptr)
+               int64_t n, void* stream, const void* chunk_src = nullptr,
+               HaloFlags flags = {})
 {
     if (G < 0 || TM <= 0 || TM % BM || W <= 0 || W % BK || n < 0)
         return (int)cudaErrorInvalidValue;
@@ -215,14 +352,14 @@ int launch_fma(const void* group_ptr, const void* starts, const void* tiles,
     const int64_t blocks = G * (TM / BM) * n_tiles;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     if (blocks > 0)
-        panel_fma_kernel<T, BM, BN, BK, RM, RN, CHUNKED>
+        panel_fma_kernel<T, BM, BN, BK, RM, RN, CHUNKED, FLAGS>
             <<<(unsigned)blocks, (BM / RM) * (BN / RN), 0,
                (cudaStream_t)stream>>>(
                 static_cast<const int32_t*>(group_ptr),
                 static_cast<const int32_t*>(starts),
                 static_cast<const T*>(tiles), static_cast<const T*>(b),
                 static_cast<T*>(c), TM, W, n, n_tiles,
-                static_cast<const int32_t*>(chunk_src));
+                static_cast<const int32_t*>(chunk_src), flags);
     return (int)cudaGetLastError();
 }
 
@@ -317,7 +454,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // B_VEC: B's rows are 16-byte aligned (n % 4 == 0 and B is), 16-byte copies
-template <bool CHUNKED, bool B_VEC>
+template <bool CHUNKED, bool B_VEC, bool FLAGS = false>
 __global__ void __launch_bounds__(TF_THREADS, 2)
 panel_tf32x3_kernel(const int32_t* __restrict__ group_ptr,
                     const int32_t* __restrict__ starts,
@@ -325,8 +462,10 @@ panel_tf32x3_kernel(const int32_t* __restrict__ group_ptr,
                     const float* __restrict__ b,
                     float* __restrict__ c,
                     int64_t TM, int64_t W, int64_t n, int64_t n_tiles,
-                    const int32_t* __restrict__ chunk_src)
+                    const int32_t* __restrict__ chunk_src,
+                    const HaloFlags flags)
 {
+    static_assert(!FLAGS || CHUNKED, "the flags gate the chunk lookup");
     extern __shared__ __align__(16) float tf_smem[];
     float* const As = tf_smem;                          // [STAGES][BM][A_LD]
     float* const Bs = tf_smem + TF_STAGES * TF_A_STAGE;  // [STAGES][BK][B_LD]
@@ -353,6 +492,8 @@ panel_tf32x3_kernel(const int32_t* __restrict__ group_ptr,
     const int a_r = tid / 8, a_k = (tid % 8) * 4;
     const int b_r = tid / B_COLS, b_c = (tid % B_COLS) * (B_VEC ? 4 : 1);
     const bool col_ok = n0 + b_c < n;
+    const unsigned long long* gate = nullptr;  // FLAGS: the owner last waited for
+    bool failed = false;
 
     // slice t of the group's walk into ring stage `stage`
     auto load_tile = [&](int64_t t, int stage) {
@@ -360,8 +501,9 @@ panel_tf32x3_kernel(const int32_t* __restrict__ group_ptr,
         const int64_t k0 = (t % nk) * TF_BK;
         bool live;
         const float* bb = b;
+        const unsigned long long* word = nullptr;
         const int64_t b_row0 =
-            b_slice_row<CHUNKED>(chunk_src, starts[s] + k0, &live, &bb);
+            b_slice_row<CHUNKED, FLAGS>(chunk_src, starts[s] + k0, &live, &bb, &word);
         const float* a_src = tiles + (size_t)(s * TM + r_in + a_r) * W + k0 + a_k;
         uint32_t a_dst = (uint32_t)__cvta_generic_to_shared(
             As + stage * TF_A_STAGE + a_r * TF_A_LD + a_k);
@@ -371,6 +513,8 @@ panel_tf32x3_kernel(const int32_t* __restrict__ group_ptr,
             a_src += (size_t)A_ROWS * W;
             a_dst += A_ROWS * TF_A_LD * 4;
         }
+        halo_gate_block<FLAGS>(flags, starts[s] + k0, word, &gate, &failed);  // A in flight
+        if constexpr (FLAGS) live = live && !failed;
         const bool ok = live && col_ok;
         const float* b_src = ok ? bb + (size_t)(b_row0 + b_r) * n + n0 + b_c : b;
         const size_t b_step = ok ? (size_t)B_ROWS * n : 0;
@@ -477,41 +621,43 @@ panel_tf32x3_kernel(const int32_t* __restrict__ group_ptr,
 
 // the ring's shared memory is dynamic: allow it, and the carveout that
 // fits two blocks on an SM
-template <bool CHUNKED, bool B_VEC>
+template <bool CHUNKED, bool B_VEC, bool FLAGS = false>
 cudaError_t tf32x3_prepare()
 {
-    cudaError_t e = cudaFuncSetAttribute(panel_tf32x3_kernel<CHUNKED, B_VEC>,
+    cudaError_t e = cudaFuncSetAttribute(panel_tf32x3_kernel<CHUNKED, B_VEC, FLAGS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          TF_SMEM);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(panel_tf32x3_kernel<CHUNKED, B_VEC>,
+    return cudaFuncSetAttribute(panel_tf32x3_kernel<CHUNKED, B_VEC, FLAGS>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <bool CHUNKED, bool B_VEC>
+template <bool CHUNKED, bool B_VEC, bool FLAGS>
 cudaError_t tf32x3_run(const void* group_ptr, const void* starts, const void* tiles,
                        const void* b, void* c, int64_t blocks, int64_t TM, int64_t W,
-                       int64_t n, int64_t n_tiles, void* stream, const void* chunk_src)
+                       int64_t n, int64_t n_tiles, void* stream, const void* chunk_src,
+                       const HaloFlags& flags)
 {
-    const cudaError_t e = tf32x3_prepare<CHUNKED, B_VEC>();
+    const cudaError_t e = tf32x3_prepare<CHUNKED, B_VEC, FLAGS>();
     if (e != cudaSuccess) return e;
-    panel_tf32x3_kernel<CHUNKED, B_VEC>
+    panel_tf32x3_kernel<CHUNKED, B_VEC, FLAGS>
         <<<(unsigned)blocks, TF_THREADS, TF_SMEM, (cudaStream_t)stream>>>(
             static_cast<const int32_t*>(group_ptr),
             static_cast<const int32_t*>(starts), static_cast<const float*>(tiles),
             static_cast<const float*>(b), static_cast<float*>(c), TM, W, n, n_tiles,
-            static_cast<const int32_t*>(chunk_src));
+            static_cast<const int32_t*>(chunk_src), flags);
     return cudaGetLastError();
 }
 
 // CHUNKED: chunk_src is the chunks' row pointers (b only a valid address)
-// and rows16 says whether every one is on 16 bytes
-template <bool CHUNKED>
+// and rows16 says whether every one is on 16 bytes; FLAGS: the waits of #12
+// across processes (flags), chunk_src the (row pointer, arrive word) pairs
+template <bool CHUNKED, bool FLAGS = false>
 int launch_tf32x3(const void* group_ptr, const void* starts, const void* tiles,
                   const void* b, void* c, int64_t G, int64_t TM, int64_t W,
                   int64_t n, void* stream, const void* chunk_src = nullptr,
-                  bool rows16 = false)
+                  bool rows16 = false, HaloFlags flags = {})
 {
     if (G < 0 || TM <= 0 || TM % TF_BM || W <= 0 || W % TF_BK || n < 0)
         return (int)cudaErrorInvalidValue;
@@ -521,10 +667,11 @@ int launch_tf32x3(const void* group_ptr, const void* starts, const void* tiles,
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     if (blocks == 0) return (int)cudaGetLastError();
     if (n % 4 == 0 && (CHUNKED ? rows16 : (uintptr_t)b % 16 == 0))
-        return (int)tf32x3_run<CHUNKED, true>(group_ptr, starts, tiles, b, c, blocks,
-                                              TM, W, n, n_tiles, stream, chunk_src);
-    return (int)tf32x3_run<CHUNKED, false>(group_ptr, starts, tiles, b, c, blocks, TM,
-                                           W, n, n_tiles, stream, chunk_src);
+        return (int)tf32x3_run<CHUNKED, true, FLAGS>(group_ptr, starts, tiles, b, c, blocks,
+                                                     TM, W, n, n_tiles, stream, chunk_src,
+                                                     flags);
+    return (int)tf32x3_run<CHUNKED, false, FLAGS>(group_ptr, starts, tiles, b, c, blocks, TM,
+                                                  W, n, n_tiles, stream, chunk_src, flags);
 }
 
 // " <copy>.registers=.. <copy>.local_bytes=.. <copy>.blocks_per_sm=.." of
@@ -546,28 +693,38 @@ cudaError_t kernel_resources(Kernel kernel, int threads, int smem, const char* c
     return cudaSuccess;
 }
 
-template <bool CHUNKED, bool B_VEC>
+template <bool CHUNKED, bool B_VEC, bool FLAGS = false>
 cudaError_t tf32x3_resources(const char* copy, char* out, int len)
 {
-    const cudaError_t e = tf32x3_prepare<CHUNKED, B_VEC>();
+    const cudaError_t e = tf32x3_prepare<CHUNKED, B_VEC, FLAGS>();
     if (e != cudaSuccess) return e;
-    return kernel_resources(panel_tf32x3_kernel<CHUNKED, B_VEC>, TF_THREADS, TF_SMEM, copy,
-                            out, len);
+    return kernel_resources(panel_tf32x3_kernel<CHUNKED, B_VEC, FLAGS>, TF_THREADS, TF_SMEM,
+                            copy, out, len);
 }
 
 // The ring and resources of the 3xTF32 kernels as "key=value" pairs
 // separated by spaces (at most len bytes, NUL included): the ring's stages,
 // dynamic shared memory bytes, threads and block tile, then per kernel,
-// "b16" (16-byte B copies) and "b4" (4-byte B copies), its resources
+// "b16" (16-byte B copies) and "b4" (4-byte B copies), its resources; with
+// CHUNKED also "flag16" and "flag4", the same with the waits of #12 across
+// processes
 template <bool CHUNKED>
 int tf32x3_layout(char* out, int len)
 {
     int used = snprintf(out, len, "stages=%d smem_bytes=%d threads=%d BM=%d BN=%d BK=%d",
                         TF_STAGES, TF_SMEM, TF_THREADS, TF_BM, TF_BN, TF_BK);
-    cudaError_t e = tf32x3_resources<CHUNKED, true>("b16", out + used, len - used);
-    if (e != cudaSuccess) return (int)e;
-    used += (int)strlen(out + used);
-    return (int)tf32x3_resources<CHUNKED, false>("b4", out + used, len - used);
+    using Report = cudaError_t (*)(const char*, char*, int);
+    struct Kernel { const char* copy; Report report; };
+    const Kernel kernels[4] = {{"b16", tf32x3_resources<CHUNKED, true>},
+                               {"b4", tf32x3_resources<CHUNKED, false>},
+                               {"flag16", tf32x3_resources<CHUNKED, true, CHUNKED>},
+                               {"flag4", tf32x3_resources<CHUNKED, false, CHUNKED>}};
+    for (int i = 0; i < (CHUNKED ? 4 : 2); ++i) {
+        const cudaError_t e = kernels[i].report(kernels[i].copy, out + used, len - used);
+        if (e != cudaSuccess) return (int)e;
+        used += (int)strlen(out + used);
+    }
+    return (int)cudaSuccess;
 }
 
 }  // namespace crp

@@ -31,6 +31,18 @@
 // once, before it waits for the stage to free, so that the load's latency
 // hides under the wait.  The other kernels compile without the lookup.
 //
+// With FLAGS (#12 across processes) the owners are other ranks' buffers
+// and chunk_src holds (row pointer, arrive word) pairs, the word its
+// owner's arrival word, loaded with the pointer before the stage wait:
+// before the producer's first B copy from an owner it has not waited for
+// (once the stage's panel tiles are in flight), its lane 0 spins on that
+// word (panel_tiles.cuh halo_wait) and a warp barrier hands the acquire to
+// the other lanes; only the producer reads B.  A window's chunks ascend, so do their owners: at
+// most one wait an owner the window spans.  A wait that gives up makes
+// every later chunk of the block dead, so the producer still makes each
+// stage's 1 + 32 arrivals and the consumers never wait on a stage that
+// does not come; the caller's done kernel turns C into NaN.
+//
 // With RAGGED (#7, #8) the panels are a ragged pack's (S, TM, W) chunks:
 // group g owns the chunks s in [group_ptr[g], group_ptr[g + 1]), chunk s
 // over the B rows [ws[s], ws[s] + W), and C[g*TM + r, j] sums the mode's
@@ -405,7 +417,8 @@ __device__ __forceinline__ void x3_fragments(const uint8_t* stage_b, int kk, int
     }
 }
 
-template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false>
+template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false,
+          bool FLAGS = false>
 __global__ void __launch_bounds__(X3_THREADS, 1)
 x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 const __grid_constant__ CUtensorMap a_lo,
@@ -415,11 +428,13 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 float* __restrict__ c,
                 int64_t TM, int W, int n, int n_tiles,
                 const int32_t* __restrict__ chunk_src,
-                const int32_t* __restrict__ group_ptr)
+                const int32_t* __restrict__ group_ptr,
+                const HaloFlags flags)
 {
     using Ring = WgRing<MODE>;
     static_assert(!(CHUNKED && MODE == WgMode::PAIR_B),
                   "the chunk lookup serves #12 (SPLIT_B and ONE_PASS)");
+    static_assert(!FLAGS || CHUNKED, "the flags gate the chunk lookup");
     static_assert(!(RAGGED && (CHUNKED || MODE == WgMode::PAIR_B)),
                   "the ragged walk serves #7 (SPLIT_B) and #8 (ONE_PASS)");
     extern __shared__ __align__(16) uint8_t x3_smem_raw[];
@@ -452,12 +467,21 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
 
     if (warp == X3_CONSUMERS / 32) {  // the producer
         const int64_t b_row0 = RAGGED ? 0 : ws[g];
+        const unsigned long long* gate = nullptr;  // FLAGS: the owner last waited for
+        bool failed = false;
         for (int t = 0; t < stages; ++t) {
             const int s = t % Ring::STAGES;
             const void* rows = b;     // CHUNKED: the stage's chunk (see above)
-            if constexpr (CHUNKED)
+            const unsigned long long* word = nullptr;  // FLAGS: its owner's arrive word
+            if constexpr (FLAGS) {
+                const ulonglong2 pair = reinterpret_cast<const ulonglong2*>(
+                    chunk_src)[(b_row0 + t * X3_BK) / HALO_TK];
+                rows = reinterpret_cast<const void*>(pair.x);
+                word = reinterpret_cast<const unsigned long long*>(pair.y);
+            } else if constexpr (CHUNKED) {
                 rows = reinterpret_cast<const void* const*>(
                     chunk_src)[(b_row0 + t * X3_BK) / HALO_TK];
+            }
             mbar_wait(empty0 + 8 * s, ((t / Ring::STAGES) & 1) ^ 1);
             uint8_t* st = smem + s * Ring::STAGE;
             int kt = t;               // the stage's 64-row step in its window
@@ -475,6 +499,20 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 if constexpr (!Ring::ONE)
                     tma_load(smem_u32(st) + X3_A_TILE, &a_lo, full0 + 8 * s, kt * X3_BK,
                              (int)a_row);
+            }
+            if constexpr (FLAGS) {    // the stage's owner arrived (see above), while the
+                                      // panel tiles' TMA is in flight
+                const int64_t chunk = (b_row0 + t * X3_BK) / HALO_TK;
+                if (word && word != gate && !failed) {
+                    gate = word;
+                    int code = 0;
+                    if (lane == 0)
+                        code = halo_wait(word, flags.epoch, flags.bound_ns, flags.status,
+                                         HALO_ARRIVAL, chunk);
+                    failed = __shfl_sync(0xffffffffu, code, 0) != 0;
+                    __syncwarp();
+                }
+                if (failed) rows = nullptr;
             }
             int w_end = W;            // stage rows at or past it are zeros
             if constexpr (CHUNKED) {  // stage row k is row (t X3_BK) % HALO_TK + k of rows
@@ -610,10 +648,11 @@ inline cudaError_t panel_map(CUtensorMap* map, const void* panels, int64_t rows,
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false>
+template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false,
+          bool FLAGS = false>
 cudaError_t x3_prepare()
 {
-    return cudaFuncSetAttribute(x3_wgmma_kernel<MODE, B_VEC, CHUNKED, RAGGED>,
+    return cudaFuncSetAttribute(x3_wgmma_kernel<MODE, B_VEC, CHUNKED, RAGGED, FLAGS>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 WgRing<MODE>::SMEM);
 }
@@ -625,12 +664,14 @@ cudaError_t x3_prepare()
 // through chunk_src's row pointers (see above), every ws is a multiple of
 // HALO_TK, and rows16 says whether every row pointer is on 16 bytes.  RAGGED: the
 // panels are the (S, TM, W) chunks, ws their starts and group_ptr the
-// groups' chunk ranges (see above).
-template <WgMode MODE, bool CHUNKED = false, bool RAGGED = false>
+// groups' chunk ranges (see above).  FLAGS: the waits of #12 across
+// processes (flags; chunk_src the (row pointer, arrive word) pairs, see
+// above).
+template <WgMode MODE, bool CHUNKED = false, bool RAGGED = false, bool FLAGS = false>
 int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
                  const void* b_lo, void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
                  void* stream, const void* chunk_src = nullptr,
-                 const void* group_ptr = nullptr, bool rows16 = false)
+                 const void* group_ptr = nullptr, bool rows16 = false, HaloFlags flags = {})
 {
     // a stage starts a multiple of X3_BK rows past a HALO_TK-aligned window
     // start: it lies in one B chunk
@@ -657,24 +698,26 @@ int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
     const bool vec = n % (MODE == WgMode::SPLIT_B ? 4 : 8) == 0
                      && (CHUNKED ? rows16 : (uintptr_t)b % 16 == 0)
                      && (MODE != WgMode::PAIR_B || (uintptr_t)b_lo % 16 == 0);
-    e = vec ? x3_prepare<MODE, true, CHUNKED, RAGGED>()
-            : x3_prepare<MODE, false, CHUNKED, RAGGED>();
+    e = vec ? x3_prepare<MODE, true, CHUNKED, RAGGED, FLAGS>()
+            : x3_prepare<MODE, false, CHUNKED, RAGGED, FLAGS>();
     if (e != cudaSuccess) return (int)e;
-    const auto kernel = vec ? x3_wgmma_kernel<MODE, true, CHUNKED, RAGGED>
-                            : x3_wgmma_kernel<MODE, false, CHUNKED, RAGGED>;
+    const auto kernel = vec ? x3_wgmma_kernel<MODE, true, CHUNKED, RAGGED, FLAGS>
+                            : x3_wgmma_kernel<MODE, false, CHUNKED, RAGGED, FLAGS>;
     kernel<<<(unsigned)blocks, X3_THREADS, WgRing<MODE>::SMEM, (cudaStream_t)stream>>>(
         hi, lo, static_cast<const int32_t*>(ws), b, static_cast<const bf16*>(b_lo),
         static_cast<float*>(c), TM, (int)W, (int)n, (int)n_tiles,
-        static_cast<const int32_t*>(chunk_src), static_cast<const int32_t*>(group_ptr));
+        static_cast<const int32_t*>(chunk_src), static_cast<const int32_t*>(group_ptr),
+        flags);
     return (int)cudaGetLastError();
 }
 
-template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false>
+template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false,
+          bool FLAGS = false>
 cudaError_t x3_resources(const char* copy, char* out, int len)
 {
-    const cudaError_t e = x3_prepare<MODE, B_VEC, CHUNKED, RAGGED>();
+    const cudaError_t e = x3_prepare<MODE, B_VEC, CHUNKED, RAGGED, FLAGS>();
     if (e != cudaSuccess) return e;
-    return kernel_resources(x3_wgmma_kernel<MODE, B_VEC, CHUNKED, RAGGED>, X3_THREADS,
+    return kernel_resources(x3_wgmma_kernel<MODE, B_VEC, CHUNKED, RAGGED, FLAGS>, X3_THREADS,
                             WgRing<MODE>::SMEM, copy, out, len);
 }
 
@@ -689,7 +732,8 @@ cudaError_t x3_resources(const char* copy, char* out, int len)
 // one-pass ring ("one.stages", "one.smem_bytes") and its kernels "one16"
 // and "one2" (#2, #4 or with RAGGED #8, the bf16 B plane by 16-byte copies
 // or by plain 2-byte loads), with CHUNKED "chunkone16" and "chunkone2" in
-// their place (#12 at default)
+// their place (#12 at default); with CHUNKED, last, the same four with the
+// waits of #12 across processes: "flag16", "flag4", "flagone16", "flagone2"
 template <bool SG, bool CHUNKED, bool RAGGED = false>
 inline int x3_layout(char* out, int len)
 {
@@ -704,7 +748,7 @@ inline int x3_layout(char* out, int len)
     using Report = cudaError_t (*)(const char*, char*, int);
     struct Kernel { const char* copy; Report report; };
     constexpr WgMode SPLIT = WgMode::SPLIT_B, ONE = WgMode::ONE_PASS;
-    Kernel kernels[6] = {
+    Kernel kernels[8] = {
         {CHUNKED ? "chunk16" : "b16", x3_resources<SPLIT, true, CHUNKED, RAGGED>},
         {CHUNKED ? "chunk4" : "b4", x3_resources<SPLIT, false, CHUNKED, RAGGED>}};
     int count = 2;
@@ -716,6 +760,12 @@ inline int x3_layout(char* out, int len)
                         x3_resources<ONE, true, CHUNKED, RAGGED>};
     kernels[count++] = {CHUNKED ? "chunkone2" : "one2",
                         x3_resources<ONE, false, CHUNKED, RAGGED>};
+    if constexpr (CHUNKED) {
+        kernels[count++] = {"flag16", x3_resources<SPLIT, true, true, false, true>};
+        kernels[count++] = {"flag4", x3_resources<SPLIT, false, true, false, true>};
+        kernels[count++] = {"flagone16", x3_resources<ONE, true, true, false, true>};
+        kernels[count++] = {"flagone2", x3_resources<ONE, false, true, false, true>};
+    }
     for (int i = 0; i < count; ++i) {
         const cudaError_t e = kernels[i].report(kernels[i].copy, out + used, len - used);
         if (e != cudaSuccess) return (int)e;

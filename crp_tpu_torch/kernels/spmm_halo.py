@@ -15,11 +15,33 @@ On one card (an engine without a mesh) the p owners are the shards of the
 stacked B, one launch runs every shard's groups, and stream order stands
 where the TPU kernel has its barrier and semaphores.  Across processes (an
 engine on a :class:`~crp_tpu_torch.shard.layout.RankMesh`, one rank a
-shard) each rank owns one B buffer, allocated once and mapped into every
-peer by CUDA IPC (:class:`HaloPeers`); a rank's launch runs its own
-shard's groups over the p mapped buffers, between two host barriers: one
-before (every owner's B written) and one after (no owner overwrites its B
-while a peer still reads it).  The two are one kernel and one build.
+shard) each rank owns one B buffer and two flag words, allocated once and
+mapped into every peer by CUDA IPC (:class:`HaloPeers`); a rank's launch
+runs its own shard's groups over the p mapped buffers, and flags in peer
+memory order the ranks where the TPU kernel has its semaphores, with no
+host barrier and no stream drain between launches:
+
+* the barrier before the pushes (``spmm_halo.py:215-226``): before a rank
+  overwrites its B (:meth:`HaloPeers.load`) a one-thread kernel waits on
+  the stream until every rank that reads its rows (the plan's
+  ``readers``, JAX's ``exp_from > 0``) has finished as many launches as
+  it has;
+* the arrival semaphores (``:228-296``): once B is written, a one-thread
+  kernel sets the rank's arrive word to its load count with a
+  system-scope release, and the kernel waits, a block at a time, for each
+  owner's arrive word before its first read of that owner's rows;
+* the send drain (``:336-346``): a trailing one-block kernel on the same
+  stream sets the rank's done word to its launch count once every block
+  has read its owners' rows.  It trails the launch rather than counting
+  blocks in the kernel (a last-block pattern): the shared tile bodies keep
+  their blocks free of an atomic and a fence, and only a kernel after
+  every block can turn all of C into NaN when a wait gave up.
+
+Every wait is bounded in wall time (``HaloPeers.bound_s``); one that gives
+up writes the rank's status word, C comes out NaN, and the next host sync
+point (the engine's ``exec`` or ``unshard_c``, the next load, ``close``)
+raises :class:`HaloTimeout`.  The one-card and the cross-process kernels
+are one body and one build; the waits are a template flag.
 
 The plan is the JAX plan: the B ownership boundaries rounded to 128 rows
 (:func:`align_displs`), one uniform window pack per shard over the global
@@ -81,7 +103,10 @@ class HaloOp:
     the plain version's window buffers; ``min_b_rows``: rows each shard
     of B must have (``max_k``); ``B_displs``: the aligned ownership the
     engine shards B by; ``halo_rows_pushed``: the physical rows one exec
-    moves, every push including a shard's own (``spmm_halo.py:75-78``).
+    moves, every push including a shard's own (``spmm_halo.py:75-78``);
+    ``readers`` (p, p) bool: shard i's windows read owner j's rows (JAX's
+    ``exp_from > 0``), which owner j waits on before it overwrites its B
+    across processes.
     """
 
     precision: str
@@ -95,6 +120,7 @@ class HaloOp:
     p: int
     ranks: tuple
     roofline: dict = dataclasses.field(default_factory=dict)
+    readers: np.ndarray = None
     variant = "halo"
 
     @property
@@ -233,8 +259,39 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
         passes={"x3": 3, "highest": 6, "default": 1}.get(precision, 1),
     )
     op = HaloOp(precision, TM, G, W, buf_rows, max_k, B_displs,
-                len(push) * TK, p, ranks, roofline)
+                len(push) * TK, p, ranks, roofline,
+                readers_table(ws_own, W, chunk_src[:, 0], p))
     return arrays, op
+
+
+def window_owners(ws, W: int, owner) -> tuple:
+    """(first, last): per window start of ``ws``, the owners of the first
+    and the last live chunk its window ``[ws, ws + W)`` reads; ``owner``
+    the plan's per-chunk owner (column 0 of ``chunk_src``, -1 past the
+    matrix).  Owners ascend along B's rows, so ``last + 1`` is JAX's
+    ``wait_bound`` at the window's last chunk (``bound_for``,
+    ``spmm_halo.py:281-286``): the owners that must have arrived before
+    the window's last step."""
+    owner = np.asarray(owner)
+    ws = np.asarray(ws, dtype=np.int64)
+    live = int((owner >= 0).sum())
+    last = np.minimum((ws + W) // TK, live) - 1
+    return owner[ws // TK], owner[last]
+
+
+def readers_table(ws_own, W: int, owner, p: int) -> np.ndarray:
+    """(p, p) bool: shard i's windows (its window starts ``ws_own[i]``, W
+    rows each) read a live chunk of owner j; ``owner`` as in
+    :func:`window_owners`.  A window reads every owner from its first to
+    its last that holds rows (they ascend along B's rows).  JAX's
+    ``exp_from > 0`` (``spmm_halo.py:143-162``)."""
+    j = np.arange(p)
+    has_rows = np.isin(j, owner)
+    out = np.zeros((p, p), dtype=bool)
+    for i, ws in enumerate(ws_own):
+        first, last = window_owners(ws, W, owner)
+        out[i] = has_rows & ((first[:, None] <= j) & (j <= last[:, None])).any(axis=0)
+    return out
 
 
 # ------------------------------------------------------------- plain version
@@ -281,43 +338,97 @@ def spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards, precision,
 # ------------------------------------------------------------ across ranks
 
 
-class HaloPeers:
-    """The fused kernel's B across processes: this rank's buffer, made
-    once, and the p owners' rows.
+DEFAULT_BOUND_S = 30.0  # s a wait of #12 across processes spins before it gives up
 
-    ``buf`` (1, max_k, n) is this rank's B shard, the only B the engine
-    writes (:meth:`load`).  On a CUDA device every rank shares its
-    buffer's CUDA IPC handle once
+# the kernels' status codes (csrc/panel_tiles.cuh HaloCode): kind | where << 8
+_HALO_KINDS = {1: "owner {owner}'s B did not arrive (chunk {where})",
+               2: "reader {reader} did not finish its launches",
+               3: "a peer gave up first (its flag word carries the failure; chunk or "
+                  "reader index {where})",
+               4: "another wait of this rank gave up"}
+HALO_FAILED = 1 << 62  # set in the flag words a rank writes once a wait of it gave up
+
+
+class HaloTimeout(RuntimeError):
+    """A wait of the fused kernel across processes gave up: an owner's B or
+    a reader's launches did not come within the bound, or a peer gave up
+    first.  This rank's C of that launch is NaN; the group is out of step
+    and is only fit to be closed."""
+
+
+class HaloPeers:
+    """The fused kernel's B across processes: this rank's buffer and flag
+    words, made once, and the p owners'.
+
+    ``buf`` (1, max_k, n) is this rank's B shard, written only by
+    :meth:`load` (a launch refuses a buffer written otherwise: its version
+    counter).  On a CUDA device every rank shares the CUDA IPC handles of
+    ``buf`` and of ``flags``, its two int64 words ``arrive`` (its loads so
+    far) and ``done`` (its launches so far), once
     (``torch.multiprocessing.reductions.reduce_tensor``, which carries the
     caching allocator's offset, through ``dist.all_gather_object`` on
     ``group``), opens its peers' (their rebuild: ``cudaIpcOpenMemHandle``
-    under torch's own reference counts), and keeps ``bases``, the p
-    owners' base pointers, and ``chunk_ptrs`` / ``ptrs16``, the kernel's
-    chunk pointers made from them and the plan's ``chunk_src`` once
-    (:func:`chunk_rows`): the buffers never move.  On the CPU ``rows()``
-    gathers the owners' shards with ``all_gather``.
-    ``ranks`` are the group's global ranks, owner i's at index i; ``me``
-    this rank's index.  :meth:`close` drops the peers' mappings after a
-    barrier, so that no owner frees a buffer a peer still holds."""
+    under torch's own reference counts), and keeps ``bases``, the p owners'
+    base pointers, ``chunk_pairs``, the kernel's table of (row pointer,
+    arrive word) pairs a chunk, made from them, the flag words and the
+    plan's ``chunk_src`` once (:func:`chunk_rows`), ``ptrs16``, whether
+    every row pointer is on 16 bytes, and ``done_ptrs``, the done words of
+    ``readers`` (the group indices of the ranks whose windows read this
+    rank's rows): nothing moves.  ``status`` is this rank's status word,
+    in pinned host memory: the kernels write why a wait gave up, and
+    :meth:`check` reads it with no sync.  No host barrier and no stream drain runs per exec
+    (``barriers`` and ``drains`` count those :meth:`sync` makes: at init
+    and at :meth:`close`).  Where a peer's buffer or flags cannot be mapped
+    the constructor raises.
 
-    def __init__(self, shape, dtype, device, group, ranks, me: int, chunk_src) -> None:
+    Lockstep: the counts assume that every rank of the group loads and
+    launches the same number of times, in the same order, as the SPMD
+    engines do (``epoch`` and ``launches`` count them).  A rank that falls
+    out of step makes its peers' waits give up after ``bound_s`` seconds
+    (:class:`HaloTimeout`), never hang.
+
+    On the CPU ``rows()`` gathers the owners' shards with ``all_gather``;
+    the counts and the status word are kept all the same.  ``ranks`` are
+    the group's global ranks, owner i's at index i; ``me`` this rank's
+    index.  :meth:`close` drops the peers' mappings after a barrier, so
+    that no owner frees a buffer a peer still holds."""
+
+    def __init__(self, shape, dtype, device, group, ranks, me: int, chunk_src,
+                 readers=(), bound_s: float = DEFAULT_BOUND_S) -> None:
         import torch.distributed as dist
 
         self.group, self.ranks, self.me = group, tuple(ranks), int(me)
+        self.readers = tuple(int(i) for i in readers)
+        self.bound_s = float(bound_s)
+        self.epoch = self.launches = self.barriers = self.drains = 0
+        self.flag_launches = dict(wait=0, signal=0, done=0)
         self.buf = torch.zeros((1, *shape), dtype=dtype, device=device)
-        self.views = self.bases = self.chunk_ptrs = self.ptrs16 = None
+        self.flags = torch.zeros(2, dtype=torch.int64, device=device)  # arrive, done
+        self.status = torch.zeros(1, dtype=torch.int64, pin_memory=self.buf.is_cuda)
+        self._owner = chunk_src[:, 0].cpu().numpy()
+        self.views = self.bases = self.chunk_pairs = self.ptrs16 = None
+        self.done_ptrs = self._words = None
         if self.buf.is_cuda:
             from torch.multiprocessing.reductions import reduce_tensor
 
             handles = [None] * len(self.ranks)
             if len(self.ranks) > 1:
-                dist.all_gather_object(handles, reduce_tensor(self.buf[0]), group=group)
-            self.views = [self.buf[0] if i == self.me else fn(*args)
-                          for i, (fn, args) in enumerate(handles)]
-            for i, v in enumerate(self.views):
-                if v.shape != self.buf.shape[1:] or v.dtype != dtype or not v.is_cuda:
+                dist.all_gather_object(
+                    handles, (reduce_tensor(self.buf[0]), reduce_tensor(self.flags)),
+                    group=group)
+            mapped = []
+            for i, got in enumerate(handles):
+                if i == self.me:
+                    mapped.append((self.buf[0], self.flags))
+                    continue
+                (fn, args), (ffn, fargs) = got
+                mapped.append((fn(*args), ffn(*fargs)))
+            for i, (v, f) in enumerate(mapped):
+                if (v.shape != self.buf.shape[1:] or v.dtype != dtype or not v.is_cuda
+                        or f.shape != (2,) or f.dtype != torch.int64 or f.device != v.device):
                     raise RuntimeError(f"HaloPeers: owner {i}'s buffer maps as {v.dtype} "
-                                       f"{tuple(v.shape)} on {v.device}")
+                                       f"{tuple(v.shape)} on {v.device}, its flags as "
+                                       f"{f.dtype} {tuple(f.shape)} on {f.device}")
                 if v.device != self.buf.device:  # an owner on another GPU of the host
                     if not torch.cuda.can_device_access_peer(self.buf.device, v.device):
                         raise RuntimeError(f"HaloPeers: {self.buf.device} cannot read "
@@ -325,20 +436,85 @@ class HaloPeers:
                     # a device-to-device copy makes torch enable peer access
                     self.buf.view(-1)[:1].copy_(v.view(-1)[:1])
                     self.buf.zero_()
+            self.views = [v for v, _ in mapped]
+            self._words = [f for _, f in mapped]  # held: the kernels read them
             self.bases = tuple(v.data_ptr() for v in self.views)
-            self.chunk_ptrs, self.ptrs16 = chunk_rows(chunk_src, self.bases, shape[1],
-                                                      self.buf.element_size())
+            rows, self.ptrs16 = chunk_rows(chunk_src, self.bases, shape[1],
+                                           self.buf.element_size())
+            words = [f.data_ptr() for f in self._words]
+            self.chunk_pairs = torch.stack([rows, chunk_rows(chunk_src, words, 0, 1)[0]],
+                                           dim=1).contiguous()
+            self.done_ptrs = torch.tensor([words[i] + 8 for i in self.readers] or [0],
+                                          dtype=torch.int64, device=self.buf.device)
             self.sync()
+        self._version = self.buf._version
+
+    @property
+    def bound_ns(self) -> int:
+        return int(self.bound_s * 1e9)
+
+    def _flag_kernel(self, name: str, *args) -> None:
+        from . import _build
+
+        entry = f"crp_halo_{name}"
+        with torch.cuda.device(self.buf.device):
+            stream = torch.cuda.current_stream(self.buf.device).cuda_stream
+            _build.check(_build.entry(entry)(*args, stream), entry)
+        self.flag_launches[name] += 1
 
     def load(self, bs: torch.Tensor) -> None:
-        """Write this rank's B shard ``bs`` (1, max_k, n) into ``buf``, in
-        the buffer's type (bf16 at ``default``); ``buf`` itself is left
-        as it is."""
-        if bs.shape != self.buf.shape:
+        """Write this rank's B shard ``bs`` (1, r, n), r <= max_k, into the
+        first r rows of ``buf``, in the buffer's type (bf16 at
+        ``default``); the rows past r are left as they are, and so is
+        ``buf`` itself.  On the card, first wait (on the stream) until
+        every reader has finished as many launches as this rank, and once
+        B is written raise this rank's arrive word to the new ``epoch``.
+        Raises :class:`HaloTimeout` if a wait of this rank gave up."""
+        if (bs.dim() != 3 or bs.shape[0] != 1 or bs.shape[1] > self.buf.shape[1]
+                or bs.shape[2] != self.buf.shape[2]):
             raise ValueError(f"B shard {tuple(bs.shape)}: the fused kernel's buffer "
                              f"across ranks is {tuple(self.buf.shape)}")
+        self.check()
+        if self.buf.is_cuda:
+            self._flag_kernel("wait", self.done_ptrs.data_ptr(), self.status.data_ptr(),
+                              len(self.readers), self.launches, self.bound_ns)
+        self.epoch += 1
         if bs.data_ptr() != self.buf.data_ptr():
-            self.buf.copy_(bs)
+            self.buf[:, : bs.shape[1]].copy_(bs)
+        self._version = self.buf._version
+        if self.buf.is_cuda:
+            self._flag_kernel("signal", self.flags.data_ptr(), self.status.data_ptr(),
+                              self.epoch)
+
+    def launched(self, c: torch.Tensor) -> None:
+        """After a launch that wrote ``c``: count it and, on the card, raise
+        this rank's done word to the count (``c`` NaN where a wait gave
+        up)."""
+        self.launches += 1
+        if self.buf.is_cuda:
+            self._flag_kernel("done", self.flags.data_ptr() + 8, self.status.data_ptr(),
+                              c.data_ptr(), self.launches, c.numel() * c.element_size())
+
+    def written(self) -> bool:
+        """Whether ``buf`` holds what :meth:`load` last wrote (its version
+        counter has not moved since)."""
+        return self.buf._version == self._version
+
+    def check(self) -> None:
+        """Raise :class:`HaloTimeout` if a wait of this rank gave up (the
+        status word, read without a sync)."""
+        code = int(self.status[0])
+        if not code:
+            return
+        kind, where = code & 0xFF, code >> 8
+        owner = int(self._owner[where]) if kind == 1 and where < len(self._owner) else -1
+        reader = self.readers[where] if kind == 2 and where < len(self.readers) else -1
+        what = _HALO_KINDS.get(kind, "unknown status").format(
+            owner=self.ranks[owner] if owner >= 0 else "?", where=where,
+            reader=self.ranks[reader] if reader >= 0 else "?")
+        raise HaloTimeout(f"rank {self.ranks[self.me]}: {what} within {self.bound_s} s "
+                          f"(status {code:#x}, after {self.epoch} loads and "
+                          f"{self.launches} launches)")
 
     def rows(self) -> torch.Tensor:
         """Every owner's rows, (p, max_k, n), by ``all_gather`` (CPU)."""
@@ -351,19 +527,27 @@ class HaloPeers:
         return torch.stack(out)
 
     def sync(self) -> None:
-        """The host barrier the TPU kernel's semaphores stand for: this
-        rank's stream drained, then every rank of the group."""
+        """A host barrier: this rank's stream drained, then every rank of
+        the group.  At init (the handles exchanged) and at :meth:`close`;
+        a caller that reads the peers' ``views`` itself calls it first."""
         import torch.distributed as dist
 
         if self.buf.is_cuda:
             torch.cuda.current_stream(self.buf.device).synchronize()
+            self.drains += 1
         if len(self.ranks) > 1:
             dist.barrier(group=self.group)
+            self.barriers += 1
 
     def close(self) -> None:
+        """Drop the peers' mappings after a host barrier (collective: every
+        rank calls it); then raise :class:`HaloTimeout` if a wait of this
+        rank gave up."""
         if self.views is not None:
-            self.views = self.bases = self.chunk_ptrs = None
+            self.views = self.bases = self.chunk_pairs = None
+            self.done_ptrs = self._words = None
             self.sync()
+        self.check()
 
 
 # ------------------------------------------------------------------ wrapper
@@ -374,7 +558,8 @@ def chunk_rows(chunk_src, bases, n: int, itemsize: int) -> tuple:
     ``bases[owner] + row * n * itemsize``, 0 past the matrix; an int64
     tensor on the table's device, and whether every pointer is on 16
     bytes.  ``bases``: the p owners' base addresses (the mapped buffers
-    across processes, made once by :class:`HaloPeers`)."""
+    across processes, made once by :class:`HaloPeers`; with ``n = 0`` their
+    flag words, one per chunk)."""
     owner, row = chunk_src.long().unbind(1)
     base = torch.tensor(bases, dtype=torch.int64, device=chunk_src.device)
     rows = torch.where(owner >= 0, base[owner.clamp(min=0)] + row * (n * itemsize), 0)
@@ -407,19 +592,29 @@ def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows
     the pair and the plane.  Without ``peers`` (one card) ``b_shards`` is
     the stacked B (p, max_k, n) of every owner and s = p; with them
     (across processes) it is their ``buf``, this rank's shard, and the
-    launch reads the p owners' buffers between two host barriers.
-    Replaces ``halo_spmm_local`` (``spmm_halo.py:349``, kernel
-    ``_halo_kernel``)."""
+    launch (the ``*_flags`` entry, on ``chunk_pairs``) waits for each
+    owner's arrive word before it reads the owner's rows, then
+    :meth:`HaloPeers.launched` sets this rank's done word: no host
+    barrier, no stream drain.  Replaces
+    ``halo_spmm_local`` (``spmm_halo.py:349``, kernel ``_halo_kernel``,
+    its barrier, arrival semaphores and send drain included)."""
     pair = isinstance(panels, tuple)
     planes = panels if pair else (panels,)
-    if peers is not None and b_shards.data_ptr() != peers.buf.data_ptr():
-        raise ValueError("spmm_halo: across processes B must be the peers' own buffer")
+    if peers is not None:
+        if b_shards.data_ptr() != peers.buf.data_ptr():
+            raise ValueError("spmm_halo: across processes B must be the peers' own buffer")
+        if not peers.written():
+            raise RuntimeError("spmm_halo: the peers' buffer was written outside "
+                               "HaloPeers.load, which alone orders the writes with the "
+                               "peers' reads")
     if _placement("spmm_halo", ws, *planes, chunk_src, b_shards) == "cpu":
         if peers is None:
             return spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards,
                                    precision, buf_rows)
-        return spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, peers.rows(),
-                               precision, buf_rows, consumers=[peers.me])
+        c = spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, peers.rows(),
+                            precision, buf_rows, consumers=[peers.me])
+        peers.launched(c)
+        return c
     name, panel_dtype, b_dtype = window_entry("spmm_halo", planes, precision)
     s_, G, TM, W = planes[0].shape
     for t in planes:
@@ -449,23 +644,25 @@ def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows
     n = b_shards.shape[2]
     if peers is None:
         rows, rows16 = stacked_chunk_rows(chunk_src, b_shards)
-    elif peers.chunk_ptrs.shape[0] != chunk_src.shape[0]:
+    elif peers.chunk_pairs.shape[0] != chunk_src.shape[0]:
         raise ValueError("spmm_halo: the peers' chunk pointers are of another plan")
     else:
-        rows, rows16 = peers.chunk_ptrs, peers.ptrs16
+        rows, rows16 = peers.chunk_pairs, peers.ptrs16
     c = torch.empty((s_, G * TM, n), dtype=torch.float64 if panel_dtype == torch.float64
                     else torch.float32, device=b_shards.device)
-    if peers is not None:
-        peers.sync()  # every owner's B written
+    ptrs = (rows.data_ptr(), ws.data_ptr(), *(t.data_ptr() for t in planes), c.data_ptr())
     with torch.cuda.device(b_shards.device):
         stream = torch.cuda.current_stream(b_shards.device).cuda_stream
-        rc = _build.entry(name)(rows.data_ptr(), ws.data_ptr(),
-                                *(t.data_ptr() for t in planes), c.data_ptr(),
-                                s_ * G, TM, W, n, int(rows16), stream)
+        if peers is None:
+            rc = _build.entry(name)(*ptrs, s_ * G, TM, W, n, int(rows16), stream)
+        else:
+            name = f"{name}_flags"
+            rc = _build.entry(name)(*ptrs, peers.status.data_ptr(), s_ * G, TM, W, n,
+                                    int(rows16), peers.epoch, peers.bound_ns, stream)
     _build.check(rc, name)
     spmm_halo.launches += 1
     if peers is not None:
-        peers.sync()  # no owner overwrites its B while a peer reads it
+        peers.launched(c)
     return c
 
 

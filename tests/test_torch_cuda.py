@@ -1896,24 +1896,50 @@ def _stacked_case(cuda_device, prec, dtype, p=4):
     return arrays, op, torch.from_numpy(bs).to(cuda_device)
 
 
+class _LocalOwners(spmm_halo.HaloPeers):
+    """``HaloPeers`` over owners held apart in this process, as the ranks'
+    mapped buffers hold them: their bases, and each owner's flag words
+    (arrive, done) given by hand, its arrive word at ``arrived``; owner 0
+    is this rank."""
+
+    def __init__(self, owners, chunk_src, arrived, bound_s):
+        dev = owners[0].device
+        self.buf = owners[0][None]
+        self._words = [torch.tensor([arrived, 0], dtype=torch.int64, device=dev)
+                       for _ in owners]
+        self.flags = self._words[0]
+        self.status = torch.zeros(1, dtype=torch.int64, pin_memory=True)
+        self.group, self.ranks, self.me, self.readers = None, tuple(range(len(owners))), 0, ()
+        self.epoch, self.launches, self.barriers, self.drains = 1, 0, 0, 0
+        self.bound_s = bound_s
+        self.flag_launches = dict(wait=0, signal=0, done=0)
+        self._owner = chunk_src[:, 0].cpu().numpy()
+        self.views = list(owners)  # held, as the mapped buffers are: the kernel reads them
+        self.bases = tuple(t.data_ptr() for t in owners)
+        rows, self.ptrs16 = spmm_halo.chunk_rows(
+            chunk_src, self.bases, owners[0].shape[1], owners[0].element_size())
+        arrive, _ = spmm_halo.chunk_rows(chunk_src, [w.data_ptr() for w in self._words], 0, 1)
+        self.chunk_pairs = torch.stack([rows, arrive], dim=1).contiguous()
+        self._version = self.buf._version
+
+
+def _owners_apart(cuda_device, prec, dtype, arrived, bound_s=30.0):
+    arrays, op, bs = _stacked_case(cuda_device, prec, dtype)
+    args = op.kernel_args(arrays, bs)
+    b_read = args[5]  # B as the kernel reads it (bf16 at default)
+    owners = [bs[i].to(b_read.dtype).clone() for i in range(bs.shape[0])]  # one allocation each
+    return op, args, _LocalOwners(owners, args[4], arrived, bound_s)
+
+
 @pytest.mark.parametrize("prec,dtype", [(p, d) for p, d, _ in POINTS])
 def test_halo_owner_table_equals_stacked_launch(cuda_device, prec, dtype):
     """#12 with each owner's shard a separate allocation (the owners' bases
-    given by hand, as the ranks' mapped buffers give them) equals the
-    one-card launch on the stacked B bit for bit: one body, the same rows
-    in the same order, wherever the owners live."""
-    arrays, op, bs = _stacked_case(cuda_device, prec, dtype)
-    args = op.kernel_args(arrays, bs)
+    given by hand, as the ranks' mapped buffers give them) and its flagged
+    entry (every owner arrived) equals the one-card launch on the stacked
+    B bit for bit: one body, the same rows in the same order, wherever the
+    owners live; the trailing kernel raises this rank's done word."""
+    op, args, peers = _owners_apart(cuda_device, prec, dtype, arrived=1)
     stacked = op.kernel(*args, min_b_rows=op.min_b_rows)
-    owners = [bs[i].clone() for i in range(bs.shape[0])]  # one allocation each
-    b_read = args[5]  # B as the kernel reads it (bf16 at default)
-    owners = [t.to(b_read.dtype) for t in owners]
-    ptrs = [t.data_ptr() for t in owners]
-    chunk_ptrs, ptrs16 = spmm_halo.chunk_rows(args[4], ptrs, b_read.shape[2],
-                                              b_read.element_size())
-    peers = type("Peers", (), dict(buf=owners[0][None], bases=tuple(ptrs),
-                                   chunk_ptrs=chunk_ptrs, ptrs16=ptrs16,
-                                   sync=lambda self: None))()
     before = spmm_halo.spmm_halo.launches
     got = spmm_halo.spmm_halo(*args[:5], peers.buf, *args[6:], min_b_rows=op.min_b_rows,
                               peers=peers)
@@ -1921,6 +1947,56 @@ def test_halo_owner_table_equals_stacked_launch(cuda_device, prec, dtype):
     assert got.shape == stacked.shape
     view = torch.int64 if got.dtype == torch.float64 else torch.int32
     assert torch.equal(got.view(view), stacked.view(view))
+    torch.cuda.synchronize()
+    assert peers.flags.tolist() == [1, 1] and peers.flag_launches["done"] == 1
+    peers.check()
+
+
+@pytest.mark.parametrize("prec,dtype", [(p, d) for p, d, _ in POINTS])
+def test_halo_flags_wait_is_bounded(cuda_device, prec, dtype):
+    """An owner that never arrives: every body's wait gives up after its
+    bound (wall time), C comes out NaN, the done word carries the failure,
+    and the next sync point raises ``HaloTimeout`` naming an owner."""
+    import time
+
+    op, args, peers = _owners_apart(cuda_device, prec, dtype, arrived=0, bound_s=0.2)
+    t0 = time.perf_counter()
+    got = spmm_halo.spmm_halo(*args[:5], peers.buf, *args[6:], min_b_rows=op.min_b_rows,
+                              peers=peers)
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 0.2 + 5.0
+    assert bool(torch.isnan(got).all())
+    assert peers.flags[1].item() == 1 | spmm_halo.HALO_FAILED
+    with pytest.raises(spmm_halo.HaloTimeout, match="did not arrive|gave up"):
+        peers.check()
+
+
+def test_halo_flags_load_waits_for_readers(cuda_device):
+    """``HaloPeers.load`` on one rank: with its reader's launches counted
+    it writes B and raises its arrive word; a reader that falls behind
+    (the count it waits for never comes) makes the wait give up after the
+    bound, the arrive word carries the failure, and the next load raises."""
+    import time
+
+    chunk_src = torch.tensor([[0, 0], [0, 128]], dtype=torch.int32, device=cuda_device)
+    peers = spmm_halo.HaloPeers((256, 8), torch.float32, cuda_device, None, (0,), 0,
+                                chunk_src, readers=(0,), bound_s=0.2)
+    assert (peers.barriers, peers.drains) == (0, 1)  # init: no group to wait for
+    b = torch.randn((1, 200, 8), device=cuda_device)
+    peers.load(b)
+    torch.cuda.synchronize()
+    assert peers.flags.tolist() == [1, 0] and torch.equal(peers.buf[0, :200], b[0])
+    assert peers.flag_launches == dict(wait=1, signal=1, done=0)
+    peers.launches = 5  # as if this rank had launched 5 times and its reader not
+    t0 = time.perf_counter()
+    peers.load(b)
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 0.2 + 5.0
+    assert peers.flags[0].item() == 2 | spmm_halo.HALO_FAILED
+    with pytest.raises(spmm_halo.HaloTimeout, match="reader 0 did not finish"):
+        peers.load(b)
+    with pytest.raises(spmm_halo.HaloTimeout):
+        peers.close()
 
 
 def test_halo_across_two_processes_equals_one_card(cuda_device):

@@ -474,7 +474,72 @@ def loaded(case) -> dict:
     return dict(errs=errs, modules=sorted(m for m, v in sys.modules.items() if v is not None))
 
 
-JOBS = dict(engines=engines, engines_on_card=engines, crp=crp,
+def halo_flags(cases) -> list:
+    """The fused kernel's counts across the world's ranks: each case's
+    engine (``_engine``'s, or ``CrpSpmm`` where the case has a ``bplan``)
+    on its mesh runs one ``exec_device`` for each B of ``case["bs"]``
+    (this rank's C block as bits, and the peers' load and launch counts,
+    whether the buffer holds what ``load`` wrote, and the host barriers
+    and stream drains ``HaloPeers`` made, after each); then a write into
+    the buffer outside ``load`` (every rank: the next launch refuses it),
+    then a status word set on every rank: ``unshard_c`` (after its gather)
+    and the next ``exec`` raise ``HaloTimeout``, and so does ``close``,
+    after its teardown.  Each refusal's message."""
+    import torch
+
+    from crp_tpu_torch.config import SpmmConfig
+    from crp_tpu_torch.engine.crp import CrpSpmm
+    from crp_tpu_torch.kernels.spmm_halo import HaloTimeout
+    from crp_tpu_torch.shard.layout import make_mesh_1d, make_mesh_2d
+
+    import torch.distributed as dist
+
+    out = []
+    for case in cases:
+        if "bplan" in case:
+            bp = case["bplan"]
+            eng = CrpSpmm(case["a"], case["n"], case["user_B"], case["user_C"],
+                          dtype=case["dtype"], config=SpmmConfig(**case["config"]),
+                          mesh=make_mesh_2d(bp.np_row, bp.np_col), bplan=bp)
+            shard = eng.rd_B.shard_src
+        else:
+            mesh = (make_mesh_1d(dist.get_world_size()) if case["engine"] == "rowpara"
+                    else make_mesh_2d(case["plan"].pm, case["plan"].pn))
+            eng = _engine(case, mesh)
+            shard = eng.shard_b
+        peers = eng.peers
+        got = dict(kind=eng.kernel_kind, blocks=[], counts=[])
+        for b in case["bs"]:
+            got["blocks"].append(bits(eng.exec_device(shard(b))))
+            got["counts"].append(dict(epoch=peers.epoch, launches=peers.launches,
+                                      written=peers.written(), barriers=peers.barriers,
+                                      drains=peers.drains))
+        with torch.no_grad():
+            peers.buf.add_(1)  # a write that bypasses load
+        try:
+            eng._local_op(eng.packed, peers.buf, peers=peers)
+        except RuntimeError as e:
+            got["bypass"] = str(e)
+        b = case["bs"][0]
+        c = eng.exec_device(shard(b))
+        peers.status[0] = 1  # as a kernel sets it: chunk 0's owner did not arrive
+        raised = got["raised"] = {}
+        if "bplan" not in case:
+            try:
+                eng.unshard_c(c)
+            except HaloTimeout as e:
+                raised["unshard_c"] = str(e)
+        for where, fn in (("exec", lambda: eng.exec(b)), ("close", eng.close)):
+            try:
+                fn()
+            except HaloTimeout as e:
+                raised[where] = str(e)
+        got["closed"] = peers.views is None
+        out.append(got)
+    return out
+
+
+JOBS = dict(engines=engines, engines_on_card=engines, crp=crp, halo_flags=halo_flags,
             mesh_layout=mesh_layout, training=training,
             refusals=refusals, cli=cli, loaded=loaded, direct_group=direct_group)
 
