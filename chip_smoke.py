@@ -13,9 +13,10 @@ library that builds it (#1 with #5 and the one-pass #2, #4 and #12 each
 with its one-pass default, the ragged #7 with the one-pass #8: the same,
 which must be 0 and at least 1),
 the spill and gather kernels' resources (``[spill]``: registers, spills
-and blocks per SM of each, which must be 0 and at least 1), #11's
-(``[dd]``: its ring, block tile, DMMA shape, and the same, which must be
-0 and at least 1) and then,
+and blocks per SM of each, which must be 0 and at least 1), the DMMA
+body's (``[dd]``: its ring, block tile, DMMA shape, and the same for its
+ragged walk, #11 and #6 on fp64, and its windowed walk, #3 on fp64, which
+must be 0 and at least 1) and then,
 failing on the first check
 that does not hold (every engine init prints its peak device memory; an
 x3 or default panel pack must peak within 1.2 x what it holds after):
@@ -87,11 +88,14 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
 9. fp64-class path — ``banded_random_csr(217918, 53, 256)`` in fp64
    through ``RowParaSpmm(kernel="dd")`` must resolve to ``dd_mxu`` (S =
    3,402) on the FP64 tensor cores at <= 1e-12; on its pack the kernel
-   against its plain version, the fp64 FMA ragged kernel and cuSPARSE in
-   fp64; then the fp64 cplaw (segment-sum tier) and the pwtk-class
-   headline (ELL tier) with ``kernel="dd"`` at <= 1e-12; on each of the
-   three, ``kernel="auto"`` in fp64 (the panel kernels' FMA entries) at <=
-   1e-12, its exec and kernel times beside ``dd``'s and cuSPARSE's; on the
+   against its plain version, #6's fp64 entry (the same DMMA body) equal
+   to it bit for bit and timed beside it, and cuSPARSE in fp64; then the
+   fp64 cplaw (segment-sum tier) and the pwtk-class headline (ELL tier)
+   with ``kernel="dd"`` at <= 1e-12; on each of the three,
+   ``kernel="auto"`` in fp64 (the panel kernels' fp64 entries: #3 on the
+   banded matrix, #6 on the other two, on the FP64 tensor cores) at <=
+   1e-12, its kernel launched, a second launch equal bit for bit, its exec
+   and kernel times beside ``dd``'s and cuSPARSE's, and its record; on the
    cplaw ``dd`` segment-sum tier and the segsum spills of fp64 ``auto``,
    the fixed-order segment sum twice (equal bit for bit), against the sum
    in fp64 and ``index_add_``'s, both timed;
@@ -220,7 +224,7 @@ PRECS = ("x3", "default", "highest")
 TOL_REF = {"x3": 1e-5, "default": 5e-3, "highest": 1e-6}
 TOL_DD = 1e-12  # the dd kinds: the reference's own acceptance bar
 # kernel against its plain version: the same exact products (bf16 x bf16,
-# or fp32/fp64 FMA) summed in another order.  On the small packs the
+# TF32 x TF32 or fp64 x fp64) summed in another order.  On the small packs the
 # elementwise max|k - p| / max|p| is held to TOL_PLAIN; at the main paths'
 # shapes the maximum of a reordered fp32 sum reaches ~2e-6 (measured at
 # the headline), so there the relative Frobenius error is held to
@@ -246,9 +250,12 @@ TOL_RAGGED_FRO = {np.float32: 1e-6, np.float64: 1e-12}
 TOL_TRAIN_PLAIN_FRO = 4e-6
 # the previous bodies on the main paths, ms (NVIDIA H100 80GB HBM3, 700
 # W), printed beside the times of this run: the spill and gather kernels'
-# (a block per output block and 32 columns, shared-memory atomics) and
-# #11's (64 x 64 blocks of m8n8k4 DMMA, one shared-memory stage)
-PREVIOUS_MS = {"spmm_spill": 2.0822, "spmm_gather": 7.3080, "spmm_ragged_dd": 4.6211}
+# (a block per output block and 32 columns, shared-memory atomics), #11's
+# (64 x 64 blocks of m8n8k4 DMMA, one shared-memory stage) and the fp64
+# entries of #3 and #6 on fp64 `auto`'s packs (the FMA tile body of
+# panel_tiles.cuh; keyed by the fp64 path's matrix)
+PREVIOUS_MS = {"spmm_spill": 2.0822, "spmm_gather": 7.3080, "spmm_ragged_dd": 4.6211,
+               "fp64 banded": 6.0605, "fp64 cplaw": 28.9420, "fp64 headline": 21.7533}
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W), HBM_BYTES_PER_S
 # and PEAK, are the package's table, which the suite's roofline and the
 # projection read too (imported at the top)
@@ -394,8 +401,8 @@ def op_point(op, dtype) -> tuple:
     """(passes, peak) of an op's products (``kernels.points.op_point``): x3
     three bf16 products, default one (#2, #4 ``window_bf16``, #8 and #12
     on the bf16 hi plane), highest three TF32 products (#3, #4, #6 and
-    #12), fp64 FMA or, for dd, the FP64 tensor cores; the gather kind's on
-    the FMA units."""
+    #12), fp64 one pass on the FP64 tensor cores (#3, #6, #11) or the FMA
+    units (#4, #12); the gather kind's on the FMA units."""
     from crp_tpu_torch.kernels import points
 
     return points.op_point(op, dtype)
@@ -834,10 +841,12 @@ def drive(a, b, c_ref, prec, device, tag, expect, kernel="auto",
 
 
 def record(name, launches, max_abs, kernel_ms, plain_ms, bound_ms, bound_by,
-           design_bound_ms, library_ms=None):
-    source, replaces = KERNEL_INFO[name]
-    return dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,
-                launches=launches, max_abs_err=max_abs, ms=kernel_ms,
+           design_bound_ms, library_ms=None, source=None):
+    """A kernel's record; ``source`` names the file of an entry that is not
+    in its wrapper's usual one (the fp64 entries of #3 and #6)."""
+    usual, replaces = KERNEL_INFO[name]
+    return dict(name=name, route="cuda", source=CSRC + (source or usual),
+                replaces=replaces, launches=launches, max_abs_err=max_abs, ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 design_bound_ms=design_bound_ms, library_ms=library_ms)
 
@@ -1386,28 +1395,36 @@ def reorder_path(device) -> list:
     return records
 
 
-def fp64_auto(a, b, c_ref, device, tag) -> dict:
+def fp64_auto(a, b, c_ref, device, tag, expect) -> dict:
     """``RowParaSpmm(kernel="auto")`` in fp64 on one of the fp64 path's
     matrices, within 1e-12: the port sends fp64 ``auto`` to the panel
-    kernels' fp64 FMA entries where the JAX package sends it to ``dd``.
-    Returns its kind, kernel, exec_device ms and kernel ms (against its
-    plain version at the main path)."""
-    eng, op, bs, _, exec_ms = drive(a, b, c_ref, "highest", device, f"{tag} auto", None,
-                                    dtype=np.float64, tol=TOL_DD, timing=(3, 5))
-    kernel_fn = getattr(op, "kernel", None)
-    got = dict(kind=f"{eng.kernel_kind}/{op.variant}",
-               kernel=kernel_fn.__name__ if kernel_fn else "none", exec_ms=exec_ms,
-               kernel_ms=None)
-    if kernel_fn is not None:
-        arrs = tuple(x[0] for x in eng.packed)
-        rB = eng.receive_buffer(bs)[0]
-        got["kernel_ms"] = time_kernel(op, arrs, rB, f"{tag} auto", "highest", csr_work(a),
-                                       plain_inner=2, tol=TOL_DD)[1]
-        if getattr(op, "spill_impl", None) == "segsum":  # C2: its spill's order
-            fixed_order(f"{tag} auto segsum spill", *op._spill_arrays(arrs), rB,
-                        op.roofline["G"] * op.roofline["TM"], chunked=True)
-        del arrs, rB
-    del eng, op, bs
+    kernels' fp64 entries (#3 on a uniform pack, #6 on a ragged one, both
+    on the FP64 tensor cores) where the JAX package sends it to ``dd``;
+    ``expect`` the (kind, variant) it must resolve to.  Its kernel against
+    its plain version at the main path and a second launch (bit for bit),
+    timed.  Returns its kind, kernel, exec_device ms, launches, and
+    ``timed``: :func:`time_kernel`'s numbers."""
+    eng, op, bs, launches, exec_ms = drive(a, b, c_ref, "highest", device, f"{tag} auto",
+                                           expect, dtype=np.float64, tol=TOL_DD,
+                                           timing=(3, 5))
+    name = op.kernel.__name__
+    got = dict(kind=f"{eng.kernel_kind}/{op.variant}", kernel=name, exec_ms=exec_ms,
+               launches=launches[name])
+    arrs = tuple(x[0] for x in eng.packed)
+    rB = eng.receive_buffer(bs)[0]
+    got["timed"] = time_kernel(op, arrs, rB, f"{tag} auto", "highest", csr_work(a),
+                               plain_inner=2, tol=TOL_DD)
+    args = op.kernel_args(arrs, rB)
+    c1, c2 = launch(op, args), launch(op, args)
+    check(torch.equal(c1.view(torch.int64), c2.view(torch.int64)),
+          f"{tag} auto: {name}: two launches differ")
+    say(f"[{tag} auto] {name} (FP64 tensor cores) {got['timed'][1]:.4f} ms, the previous "
+        f"body (fp64 FMA) {PREVIOUS_MS[tag]:.4f} ms; a second launch equal bit for bit")
+    del c1, c2, args
+    if getattr(op, "spill_impl", None) == "segsum":  # C2: its spill's order
+        fixed_order(f"{tag} auto segsum spill", *op._spill_arrays(arrs), rB,
+                    op.roofline["G"] * op.roofline["TM"], chunked=True)
+    del arrs, rB, eng, op, bs
     a.__dict__.pop("_torch_pack_cache", None)
     torch.cuda.empty_cache()
     return got
@@ -1428,19 +1445,20 @@ def fp64_path(device) -> list:
     rB = eng.receive_buffer(bs)[0]
     got = time_kernel(op, arrs, rB, "fp64 banded", "dd", csr_work(a), plain_inner=3,
                       tol=TOL_DD)
-    # the fp64 FMA ragged kernel on the same arrays: the pack has no spill
+    # #6's fp64 entry on the same arrays (the pack has no spill): the same
+    # DMMA body with the same walk, so the same bits
     args = op.kernel_args(arrs, rB)
-    _, _, fma_fro = compare("spmm_ragged", lambda: spmm_ragged(*args, min_b_rows=op.min_b_rows),
-                            lambda: op.plain(*args))
-    check(fma_fro <= TOL_DD, f"fp64 banded: spmm_ragged vs plain rel fro err {fma_fro}")
-    dd_ms, fma_ms, s = in_turns(lambda: launch(op, args),
+    c11, c6 = launch(op, args), spmm_ragged(*args, min_b_rows=op.min_b_rows)
+    check(torch.equal(c11.view(torch.int64), c6.view(torch.int64)),
+          "fp64 banded: spmm_ragged (fp64) differs from spmm_ragged_dd on the dd_mxu pack")
+    del c11, c6
+    dd_ms, f64_ms, s = in_turns(lambda: launch(op, args),
                                 lambda: spmm_ragged(*args, min_b_rows=op.min_b_rows))
     gflop = 2.0 * op.roofline["S"] * op.roofline["TM"] * op.roofline["W"] * N / 1e9
-    say(f"[fp64 banded] on one pack, in turns: spmm_ragged_dd (FP64 tensor cores) "
-        f"{dd_ms:.4f} ms ({s[0]:.4f}, {s[1]:.4f}; the previous body "
-        f"{PREVIOUS_MS['spmm_ragged_dd']:.4f}), spmm_ragged fp64 FMA "
-        f"{fma_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}; rel fro err {fma_fro:.3e}); "
-        f"{gflop:.1f} GFLOP, {gflop / got[1]:.2f} TFLOP/s")
+    say(f"[fp64 banded] on one pack, in turns: spmm_ragged_dd {dd_ms:.4f} ms ({s[0]:.4f}, "
+        f"{s[1]:.4f}; the previous body {PREVIOUS_MS['spmm_ragged_dd']:.4f}), spmm_ragged "
+        f"fp64 {f64_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}), equal bit for bit (one DMMA body "
+        f"on the FP64 tensor cores); {gflop:.1f} GFLOP, {gflop / got[1]:.2f} TFLOP/s")
     records = [record("spmm_ragged_dd", launches["spmm_ragged_dd"], *got)]
     del eng, op, bs, arrs, rB, args
     a.__dict__.pop("_torch_pack_cache", None)
@@ -1448,7 +1466,8 @@ def fp64_path(device) -> list:
     records[0]["library_ms"] = cusparse_yardstick(a, b, c_ref, device,
                                                   "fp64 banded cusparse")
     dd = {"fp64 banded": ("dd_mxu", exec_ms, got[1], records[0]["library_ms"])}
-    auto = {"fp64 banded": fp64_auto(a, b, c_ref, device, "fp64 banded")}
+    auto = {"fp64 banded": fp64_auto(a, b, c_ref, device, "fp64 banded",
+                                     ("pallas", "uniform"))}
 
     # the dd kind's other tiers: the dd_mxu cover refuses both matrices
     for tag, tier in (("fp64 cplaw", "segsum"), ("fp64 headline", "ell")):
@@ -1466,13 +1485,17 @@ def fp64_path(device) -> list:
         torch.cuda.empty_cache()
         dd[tag] = (tier, exec_ms, None,
                    cusparse_yardstick(a, b, c_ref, device, f"{tag} cusparse"))
-        auto[tag] = fp64_auto(a, b, c_ref, device, tag)
+        auto[tag] = fp64_auto(a, b, c_ref, device, tag, ("pallas", "ragged"))
     for tag, got_auto in auto.items():
         tier, exec_ms, kernel_ms, cus_ms = dd[tag]
-        k_auto = got_auto["kernel_ms"]
+        k_auto = got_auto["timed"][1]
+        # #3 and #6 on fp64: their records on fp64 auto's main path
+        records.append(dict(record(got_auto["kernel"], got_auto["launches"],
+                                   *got_auto["timed"], library_ms=cus_ms,
+                                   source="dd_tc.cu"), path=f"{tag} auto"))
         say(f"[fp64 auto vs dd] {tag}: auto -> {got_auto['kind']} "
             f"({got_auto['kernel']}) exec_device {got_auto['exec_ms']:.4f} ms, kernel "
-            + (f"{k_auto:.4f} ms" if k_auto is not None else "none")
+            f"{k_auto:.4f} ms (the previous body, fp64 FMA: {PREVIOUS_MS[tag]:.4f})"
             + f"; dd -> {tier} exec_device {exec_ms:.4f} ms"
             + (f", kernel {kernel_ms:.4f} ms" if kernel_ms is not None else "")
             + f"; cuSPARSE fp64 {cus_ms:.4f} ms; the faster: "
@@ -3942,13 +3965,15 @@ def spill_layout(build) -> None:
 
 
 def dd_layout(build) -> None:
-    """Print #11's resources once (``[dd]``): the ring's stages, dynamic
-    shared memory, threads, the block tile and the DMMA shape, and for its
-    16-byte and 8-byte B copy kernels registers, spill bytes and resident
-    blocks per SM, which must be 0 and at least 1; with why the tile is
-    what it is."""
+    """Print the DMMA body's resources once (``[dd]``): the ring's stages,
+    dynamic shared memory, threads, the block tile and the DMMA shape, and
+    for its 16-byte and 8-byte B copy kernels, on the ragged walk (#11 and
+    #6 on fp64) and on the windowed walk (#3 on fp64), registers, spill
+    bytes and resident blocks per SM, which must be 0 and at least 1; with
+    why the tile is what it is."""
     lay = build.dd_layout()
-    say(f"[dd] crp_ragged_dd_f64tc: {json.dumps(lay)}; a {lay['BM']} x {lay['BN']} tile "
+    say(f"[dd] crp_ragged_dd_f64tc / crp_ragged_f64 (b16, b8) / crp_window_sg_f64 (w16, "
+        f"w8): {json.dumps(lay)}; a {lay['BM']} x {lay['BN']} tile "
         f"owns a group's rows at TM = 128 (each B chunk read once per n-tile); "
         f"{lay['consumers'] // 32} consumer warps of 64 x 32 hold 64 fp64 accumulators "
         f"a thread, so one block an SM walks tiles and {lay['stages']} ring stages of "
@@ -3957,7 +3982,7 @@ def dd_layout(build) -> None:
         f"registers of the {lay['b16.registers']} launched; "
         f"m{lay['mma_m']}n{lay['mma_n']}k{lay['mma_k']}: the fastest shape in "
         f"crp_tpu_torch.cli.dd_split")
-    for copy in ("b16", "b8"):
+    for copy in ("b16", "b8", "w16", "w8"):
         check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 1,
               f"dd kernel {copy}: {lay}: spills, or no block fits an SM")
 

@@ -39,7 +39,7 @@ _ENTRIES = {
     "crp_window_sg_presplit_ab": ("window_sg", 6, ("G", "TM", "W", "n")),
     "crp_window_sg_bf16": ("window_sg", 4, ("G", "TM", "W", "n")),
     "crp_window_sg_f32": ("window_sg", 4, ("G", "TM", "W", "n")),
-    "crp_window_sg_f64": ("window_sg", 4, ("G", "TM", "W", "n")),
+    "crp_window_sg_f64": ("dd_tc", 4, ("G", "TM", "W", "n")),
     "crp_window_x3": ("window", 5, ("G", "TM", "W", "n")),
     "crp_window_bf16": ("window", 4, ("G", "TM", "W", "n")),
     "crp_window_f32": ("window", 4, ("G", "TM", "W", "n")),
@@ -58,7 +58,7 @@ _ENTRIES = {
     "crp_ragged_presplit": ("ragged", 6, ("G", "TM", "Wc", "n")),
     "crp_ragged_bf16": ("ragged", 5, ("G", "TM", "Wc", "n")),
     "crp_ragged_f32": ("ragged", 5, ("G", "TM", "Wc", "n")),
-    "crp_ragged_f64": ("ragged", 5, ("G", "TM", "Wc", "n")),
+    "crp_ragged_f64": ("dd_tc", 5, ("G", "TM", "Wc", "n")),
     "crp_spill_blocks": ("spill", 9, ("n_items", "M", "n", "mode")),
     "crp_gather_blocks": ("spill", 8, ("n_items", "M", "n", "mode")),
     "crp_ragged_dd_f64tc": ("dd_tc", 5, ("G", "TM", "Wc", "n")),
@@ -190,12 +190,13 @@ def spill_layout() -> dict:
 
 
 def dd_layout() -> dict:
-    """The fp64-class kernel #11 (``dd_tc.cu``) as ``crp_dd_layout``
-    reports it: the ring's stages and dynamic shared memory, threads, the
-    block tile (``BM``, ``BN``, ``BK``), the DMMA shape (``mma_m``,
-    ``mma_n``, ``mma_k``) and, for its kernels with 16-byte (``b16.*``)
-    and 8-byte (``b8.*``) B copies, registers, local (spill) bytes and
-    resident blocks per SM."""
+    """The DMMA body of ``dd_tc.cu`` (#11, and #3 and #6 on fp64) as
+    ``crp_dd_layout`` reports it: the ring's stages and dynamic shared
+    memory, threads, the block tile (``BM``, ``BN``, ``BK``), the DMMA
+    shape (``mma_m``, ``mma_n``, ``mma_k``) and, for its kernels with
+    16-byte and 8-byte B copies, on the ragged walk (``b16.*``, ``b8.*``:
+    #11, #6) and on the windowed walk (``w16.*``, ``w8.*``: #3),
+    registers, local (spill) bytes and resident blocks per SM."""
     return _report("crp_ragged_dd_f64tc", "crp_dd_layout")
 
 

@@ -1,24 +1,38 @@
-// Hopper kernel for the fp64-class ragged SpMM on the FP64 tensor cores.
+// Hopper kernels for the fp64 SpMM on the FP64 tensor cores: one DMMA
+// body, ragged_dd_kernel, with two walks.
 //
-// The pack is the ragged total cover of the dd_mxu kind (every nonzero in
-// a chunk panel, no spill), with fp64 panels: group g owns the chunks
-// s in [group_ptr[g], group_ptr[g + 1]), chunk s is a dense (TM, Wc) fp64
-// panel over the B rows [starts[s], starts[s] + Wc), and the entry computes
+// The ragged walk: group g owns the chunks s in [group_ptr[g],
+// group_ptr[g + 1]), chunk s is a dense (TM, Wc) fp64 panel over the B
+// rows [starts[s], starts[s] + Wc), and the entry computes
 //
 //     C[g*TM + r, j] = sum_{s of g} sum_{k < Wc} A[s, r, k] * B[starts[s] + k, j]
 //
-// in fp64 into the (G*TM, n) output, every element of which is written
-// (pad groups own zero dummy chunks and come out zero).  It reads the same
-// step arrays as the ragged kernels (ragged.cu).
+// in fp64 into the (G*TM, n) output, every element of which is written (a
+// group with no chunk, or with zero dummy chunks, comes out zero).  It
+// reads the same step arrays as the ragged kernels (ragged.cu).  The
+// windowed walk (WINDOW) is the uniform pack's: group g owns the one chunk
+// s = g, group_ptr is not read and starts is ws, as in the tile kernels of
+// panel_tiles.cuh with group_ptr == nullptr.
 //
-// Replaces crp_ragged_dd_f64tc <- _ragged_kernel_dd (spmm_dd_mxu.py), which
-// reaches fp64-class accuracy on a TPU, whose matrix unit has no fp64, by
-// cutting A into 7 bf16 integer slices (Ozaki), B into 7 more in the
-// kernel, and summing 34 exact bf16 passes in double-float.  Hopper's
-// tensor cores multiply fp64 directly (DMMA), so the port keeps the
-// contract (the same total cover, C to <= 1e-12) and drops the mechanism:
-// one fp64 pass, fp64 panels, fp64 B and C.  wgmma has no fp64 form;
-// mma.sync is the route.
+// Replaces (crp_tpu/kernels/):
+//   crp_ragged_dd_f64tc <- _ragged_kernel_dd (spmm_dd_mxu.py), which
+//                          reaches fp64-class accuracy on a TPU, whose
+//                          matrix unit has no fp64, by cutting A into 7
+//                          bf16 integer slices (Ozaki), B into 7 more in
+//                          the kernel, and summing 34 exact bf16 passes in
+//                          double-float.  Hopper's tensor cores multiply
+//                          fp64 directly (DMMA), so the port keeps the
+//                          contract (the same total cover, C to <= 1e-12)
+//                          and drops the mechanism: one fp64 pass, fp64
+//                          panels, fp64 B and C.  wgmma has no fp64 form;
+//                          mma.sync is the route.
+//   crp_ragged_f64      <- _ragged_kernel (spmm_ragged.py) on fp64: the
+//                          ragged walk on the ragged pack's fp64 panels,
+//                          the same instantiation as crp_ragged_dd_f64tc
+//   crp_window_sg_f64   <- _window_kernel_sg (spmm_pallas.py) on fp64: the
+//                          windowed walk on the uniform pack's panels
+// The fp64 entries of #4 and #12 (window.cu, halo.cu) still run the FMA
+// tile body of panel_tiles.cuh.
 //
 // Layout: a tile is a 128-row slice of a group (all of it at TM = 128)
 // and a 128-column n-tile, so each B chunk is read once per n-tile, by
@@ -72,7 +86,11 @@
 // FP64 tensor cores' 67 TFLOP/s; the body without its copies takes as
 // long as the whole body (dd_split), its copies alone (7.1 GB from L2:
 // the panels twice, the B chunks once; 1.78 GB of panels from device
-// memory) about 0.7 of it.
+// memory) about 0.7 of it.  On fp64 `auto`'s packs of #3 (banded, W =
+// 768) and #6 (cplaw and the headline, Wc = 128) it runs at 1.10-1.12x the
+// products' bound; products alone take 0.94-0.96 of the whole, copies
+// alone 0.78-0.93 (crp_tpu_torch.cli.f64_ab --split, H100 SXM at 700 W):
+// on 128-deep chunks both streams bound it.
 
 #include <algorithm>
 #include <cstdint>
@@ -198,6 +216,22 @@ __device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[DD_MMA_K 
     }
 }
 
+// the chunks [chunk_begin, chunk_end) of group g: group_ptr's range, or
+// with WINDOW the one chunk s = g (group_ptr is not read)
+template <bool WINDOW>
+__device__ __forceinline__ int chunk_begin(const int32_t* group_ptr, int64_t g)
+{
+    if constexpr (WINDOW) return (int)g;
+    else return group_ptr[g];
+}
+
+template <bool WINDOW>
+__device__ __forceinline__ int chunk_end(const int32_t* group_ptr, int64_t g)
+{
+    if constexpr (WINDOW) return (int)g + 1;
+    else return group_ptr[g + 1];
+}
+
 // tile `tile` of the grid: its first C row, its group and first row in it,
 // its first column
 struct Tile {
@@ -215,8 +249,9 @@ __device__ __forceinline__ Tile tile_at(int64_t tile, int64_t TM, int64_t n_tile
 }
 
 // B_VEC: n is even and B starts on 16 bytes, so every B row piece of two
-// doubles is 16-byte aligned: 16-byte copies; else 8-byte ones
-template <bool B_VEC>
+// doubles is 16-byte aligned: 16-byte copies; else 8-byte ones.  WINDOW:
+// the windowed walk (one chunk a group, s = g)
+template <bool B_VEC, bool WINDOW>
 __global__ void __launch_bounds__(DD_THREADS, 1)
 ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
                  const int32_t* __restrict__ starts,
@@ -264,8 +299,8 @@ ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
         for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
             const Tile tl = tile_at(tile, TM, n_tiles);
             const bool col_ok = tl.n0 + b_c < n;
-            const int s_end = group_ptr[tl.g + 1];
-            for (int s = group_ptr[tl.g]; s < s_end; ++s) {
+            const int s_end = chunk_end<WINDOW>(group_ptr, tl.g);
+            for (int s = chunk_begin<WINDOW>(group_ptr, tl.g); s < s_end; ++s) {
                 const int64_t start = __ldg(starts + s);
                 for (int k0 = 0; k0 < W; k0 += DD_BK, ++t) {
                     const int st = t % DD_STAGES;
@@ -332,7 +367,8 @@ ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
     int t = 0;
     for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const Tile tl = tile_at(tile, TM, n_tiles);
-        const int nt_k = (group_ptr[tl.g + 1] - group_ptr[tl.g]) * nk;
+        const int nt_k =
+            (chunk_end<WINDOW>(group_ptr, tl.g) - chunk_begin<WINDOW>(group_ptr, tl.g)) * nk;
 #pragma unroll
         for (int i = 0; i < DD_MT; ++i)
 #pragma unroll
@@ -372,35 +408,35 @@ ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
 }
 
 // the ring's shared memory is dynamic: allow it, and the carveout
-template <bool B_VEC>
+template <bool B_VEC, bool WINDOW>
 cudaError_t dd_prepare()
 {
-    cudaError_t e = cudaFuncSetAttribute(ragged_dd_kernel<B_VEC>,
+    cudaError_t e = cudaFuncSetAttribute(ragged_dd_kernel<B_VEC, WINDOW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          DD_SMEM);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(ragged_dd_kernel<B_VEC>,
+    return cudaFuncSetAttribute(ragged_dd_kernel<B_VEC, WINDOW>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <bool B_VEC>
+template <bool B_VEC, bool WINDOW>
 cudaError_t dd_run(const void* group_ptr, const void* starts, const void* panels,
                    const void* b, void* c, int64_t tiles, int64_t TM, int64_t W,
                    int64_t n, int64_t n_tiles, bool c_vec, void* stream)
 {
-    cudaError_t e = dd_prepare<B_VEC>();
+    cudaError_t e = dd_prepare<B_VEC, WINDOW>();
     if (e != cudaSuccess) return e;
     // as many blocks as the card holds at once, each walking tiles
     int dev = 0, sms = 0, per_sm = 0;
     e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    auto kernel = ragged_dd_kernel<B_VEC, WINDOW>;
     if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ragged_dd_kernel<B_VEC>,
-                                                          DD_THREADS, DD_SMEM);
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DD_THREADS, DD_SMEM);
     if (e != cudaSuccess) return e;
     const int64_t grid = std::min(tiles, (int64_t)sms * std::max(per_sm, 1));
-    ragged_dd_kernel<B_VEC><<<(unsigned)grid, DD_THREADS, DD_SMEM, (cudaStream_t)stream>>>(
+    kernel<<<(unsigned)grid, DD_THREADS, DD_SMEM, (cudaStream_t)stream>>>(
         static_cast<const int32_t*>(group_ptr), static_cast<const int32_t*>(starts),
         static_cast<const double*>(panels), static_cast<const double*>(b),
         static_cast<double*>(c), TM, W, n, n_tiles, tiles, c_vec);
@@ -409,34 +445,31 @@ cudaError_t dd_run(const void* group_ptr, const void* starts, const void* panels
 
 // " <name>.registers=.. <name>.local_bytes=.. <name>.blocks_per_sm=.." of
 // one instantiation
-template <bool B_VEC>
+template <bool B_VEC, bool WINDOW>
 cudaError_t dd_resources(const char* name, char* out, int len)
 {
-    cudaError_t e = dd_prepare<B_VEC>();
+    cudaError_t e = dd_prepare<B_VEC, WINDOW>();
     cudaFuncAttributes attr;
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, ragged_dd_kernel<B_VEC>);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, ragged_dd_kernel<B_VEC, WINDOW>);
     int per_sm = 0;
     if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ragged_dd_kernel<B_VEC>,
-                                                          DD_THREADS, DD_SMEM);
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, ragged_dd_kernel<B_VEC, WINDOW>, DD_THREADS, DD_SMEM);
     if (e != cudaSuccess) return e;
     snprintf(out, len, " %s.registers=%d %s.local_bytes=%d %s.blocks_per_sm=%d", name,
              attr.numRegs, name, (int)attr.localSizeBytes, name, per_sm);
     return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
-// group_ptr (G + 1,), starts (S,), panels (S, TM, Wc) fp64 starting on 16
-// bytes, b (rows >= max(starts) + Wc, n) fp64, c (G*TM, n) fp64; TM % 128
-// == 0, Wc % 16 == 0.
-int crp_ragged_dd_f64tc(const void* group_ptr, const void* starts,
-                        const void* panels, const void* b, void* c, int64_t G,
-                        int64_t TM, int64_t Wc, int64_t n, void* stream)
+// An entry: check what the body takes (TM % 128, Wc % 32, panels on 16
+// bytes, and group_ptr unless WINDOW), then launch it with 16-byte B
+// copies where n is even and B starts on 16 bytes, else 8-byte ones.
+// Returns the CUDA error of a refusal or of the launch.
+template <bool WINDOW>
+int dd_entry(const void* group_ptr, const void* starts, const void* panels, const void* b,
+             void* c, int64_t G, int64_t TM, int64_t Wc, int64_t n, void* stream)
 {
-    if (!group_ptr || G < 0 || TM <= 0 || TM % DD_BM || Wc <= 0 ||
+    if ((!WINDOW && !group_ptr) || G < 0 || TM <= 0 || TM % DD_BM || Wc <= 0 ||
         Wc % DD_BK || n < 0)
         return (int)cudaErrorInvalidValue;
     if ((uintptr_t)panels % 16) return (int)cudaErrorMisalignedAddress;
@@ -446,17 +479,50 @@ int crp_ragged_dd_f64tc(const void* group_ptr, const void* starts,
     if (tiles == 0) return (int)cudaSuccess;
     const bool c_vec = n % 2 == 0 && (uintptr_t)c % 16 == 0;
     const bool b_vec = n % 2 == 0 && (uintptr_t)b % 16 == 0;
-    return (int)(b_vec ? dd_run<true>(group_ptr, starts, panels, b, c, tiles, TM, Wc, n,
-                                      n_tiles, c_vec, stream)
-                       : dd_run<false>(group_ptr, starts, panels, b, c, tiles, TM, Wc, n,
-                                       n_tiles, c_vec, stream));
+    return (int)(b_vec ? dd_run<true, WINDOW>(group_ptr, starts, panels, b, c, tiles, TM,
+                                              Wc, n, n_tiles, c_vec, stream)
+                       : dd_run<false, WINDOW>(group_ptr, starts, panels, b, c, tiles, TM,
+                                               Wc, n, n_tiles, c_vec, stream));
+}
+
+}  // namespace
+
+extern "C" {
+
+// group_ptr (G + 1,), starts (S,), panels (S, TM, Wc) fp64 starting on 16
+// bytes, b (rows >= max(starts) + Wc, n) fp64, c (G*TM, n) fp64; TM % 128
+// == 0, Wc % 32 == 0.
+int crp_ragged_dd_f64tc(const void* group_ptr, const void* starts,
+                        const void* panels, const void* b, void* c, int64_t G,
+                        int64_t TM, int64_t Wc, int64_t n, void* stream)
+{
+    return dd_entry<false>(group_ptr, starts, panels, b, c, G, TM, Wc, n, stream);
+}
+
+// #6 on fp64: the ragged pack's arrays, as crp_ragged_dd_f64tc takes them
+int crp_ragged_f64(const void* group_ptr, const void* starts,
+                   const void* panels, const void* b, void* c, int64_t G,
+                   int64_t TM, int64_t Wc, int64_t n, void* stream)
+{
+    return dd_entry<false>(group_ptr, starts, panels, b, c, G, TM, Wc, n, stream);
+}
+
+// #3 on fp64: ws (G,), tiles (G, TM, W) fp64 starting on 16 bytes, b
+// (rows >= max(ws) + W, n) fp64, c (G*TM, n) fp64; TM % 128 == 0,
+// W % 32 == 0
+int crp_window_sg_f64(const void* ws, const void* tiles, const void* b,
+                      void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
+                      void* stream)
+{
+    return dd_entry<true>(nullptr, ws, tiles, b, c, G, TM, W, n, stream);
 }
 
 // the kernel's resources as "key=value" pairs: the ring's stages and
 // dynamic shared memory, threads (the consumers' among them), the
 // registers setmaxnreg gives a consumer and a producer thread, the block
 // tile, the DMMA shape and, for its 16-byte ("b16") and 8-byte ("b8") B
-// copy kernels, the registers it is launched with, local (spill) bytes and
+// copy kernels of the ragged walk and those of the windowed walk ("w16",
+// "w8"), the registers it is launched with, local (spill) bytes and
 // resident blocks per SM
 int crp_dd_layout(char* out, int len)
 {
@@ -466,10 +532,20 @@ int crp_dd_layout(char* out, int len)
                         "mma_m=%d mma_n=8 mma_k=%d",
                         DD_STAGES, DD_SMEM, DD_THREADS, DD_CONSUMERS, DD_CONSUMER_REGS,
                         DD_PRODUCER_REGS, DD_BM, DD_BN, DD_BK, DD_MMA_M, DD_MMA_K);
-    cudaError_t e = dd_resources<true>("b16", out + used, len - used);
-    if (e != cudaSuccess) return (int)e;
-    used += (int)strlen(out + used);
-    return (int)dd_resources<false>("b8", out + used, len - used);
+    cudaError_t e = dd_resources<true, false>("b16", out + used, len - used);
+    if (e == cudaSuccess) {
+        used += (int)strlen(out + used);
+        e = dd_resources<false, false>("b8", out + used, len - used);
+    }
+    if (e == cudaSuccess) {
+        used += (int)strlen(out + used);
+        e = dd_resources<true, true>("w16", out + used, len - used);
+    }
+    if (e == cudaSuccess) {
+        used += (int)strlen(out + used);
+        e = dd_resources<false, true>("w8", out + used, len - used);
+    }
+    return (int)e;
 }
 
 const char* crp_error_string(int code)

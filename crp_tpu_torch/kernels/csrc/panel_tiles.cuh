@@ -43,12 +43,13 @@
 // and the later reads of an A slice come from L2.
 //
 // Two tile bodies: panel_fma_kernel (fp64 FMA; one shared-memory stage,
-// the next slice staged through registers: #3, #4, #6 and #12 on fp64) and
+// the next slice staged through registers: #4 and #12 on fp64) and
 // panel_tf32x3_kernel (fp32 at HIGHEST on the TF32 tensor cores, fed by a
 // cp.async shared-memory ring, see its section: #3, #4, #6 and #12).  The
 // kernels on bf16 panels, x3 (#1, #5, #4, #12 and the ragged #7) and the
 // one-pass default (#2, #4, #12 and the ragged #8), run on wgmma fed by TMA
-// instead (x3_wgmma.cuh).
+// instead (x3_wgmma.cuh); #3 and #6 on fp64 run on the FP64 tensor cores,
+// #11's DMMA body with its windowed and its ragged walk (dd_tc.cu).
 
 #pragma once
 
@@ -209,7 +210,8 @@ __device__ __forceinline__ int64_t b_slice_row(const int32_t* chunk_src,
 
 // --------------------------------------------------------------- FMA path
 //
-// fp64 panels: fp32 runs on the 3xTF32 body below.
+// fp64 panels of #4 and #12 (window.cu, halo.cu); #3 and #6 on fp64 run on
+// the DMMA body of dd_tc.cu, fp32 on the 3xTF32 body below.
 
 __device__ __forceinline__ double fma_rn(double a, double b, double c)
 {

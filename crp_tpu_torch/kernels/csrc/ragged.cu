@@ -27,7 +27,9 @@
 //                           the TF32 tensor cores (panel_tf32x3_kernel, the
 //                           body of #3, #4 and #12 at highest, walking each
 //                           group's chunks), held to the fp32 plain version
-//   crp_ragged_f64       <- _ragged_kernel on fp64: fp64 FMA
+// The fp64 entry, crp_ragged_f64 (replacing _ragged_kernel on fp64), is in
+// dd_tc.cu: #11's DMMA body on the FP64 tensor cores with its ragged walk,
+// bound by its products (2 S TM Wc n at 67 TFLOP/s).
 //
 // The TPU kernels walk a sequential (n-tile, step) grid with an NSLOT-deep
 // rolling DMA prefetch of (panel, B chunk) pairs and a double-buffered
@@ -96,15 +98,6 @@ int crp_ragged_f32(const void* group_ptr, const void* starts,
 int crp_tf32x3_layout(char* out, int len)
 {
     return crp::tf32x3_layout<false>(out, len);
-}
-
-int crp_ragged_f64(const void* group_ptr, const void* starts,
-                   const void* panels, const void* b, void* c, int64_t G,
-                   int64_t TM, int64_t Wc, int64_t n, void* stream)
-{
-    if (!group_ptr) return (int)cudaErrorInvalidValue;
-    return crp::launch_fma<double, 64, 128, 8, 4, 8>(
-        group_ptr, starts, panels, b, c, G, TM, Wc, n, stream);
 }
 
 const char* crp_error_string(int code)

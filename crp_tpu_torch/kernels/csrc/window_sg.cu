@@ -27,7 +27,9 @@
 //                              on the TF32 tensor cores (panel_tf32x3_kernel,
 //                              as crp_window_f32), held to the fp32 plain
 //                              version
-//   crp_window_sg_f64       <- _window_kernel_sg on fp64: fp64 FMA
+// The fp64 entry, crp_window_sg_f64 (replacing _window_kernel_sg on fp64),
+// is in dd_tc.cu: #11's DMMA body on the FP64 tensor cores with its
+// windowed walk, bound by its products (2 G TM W n at 67 TFLOP/s).
 //
 // The TPU kernels double-buffer one B super-window per SG groups in VMEM;
 // the pack's `bases`/`SG`/`Wsg` (VMEM artifacts) are not needed here.
@@ -91,14 +93,6 @@ int crp_tf32x3_layout(char* out, int len)
 int crp_x3_layout(char* out, int len)
 {
     return crp::x3_layout<true, false>(out, len);
-}
-
-int crp_window_sg_f64(const void* ws, const void* tiles, const void* b,
-                      void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
-                      void* stream)
-{
-    return crp::launch_fma<double, 64, 128, 8, 4, 8>(nullptr, ws, tiles, b, c,
-                                                      G, TM, W, n, stream);
 }
 
 const char* crp_error_string(int code)

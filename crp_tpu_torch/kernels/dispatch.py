@@ -13,7 +13,8 @@ tensors with their leading shard axis stripped.  Ported kinds:
     at ``x3`` on their bf16 hi/lo pair), or the ragged gathered-window
     chunks (+ spill) where the uniform window is refused or over 3x a
     ragged cover; one pack per operating point (``x3``, ``default``,
-    ``highest``; fp64 data takes the fp64 FMA kernels);
+    ``highest``; fp64 data takes the panel kernels' fp64 entries: #3 and
+    #6 on the FP64 tensor cores, #4 by FMA);
   * ``"ragged"`` — the ragged pack directly;
   * ``"gather"`` — every nonzero through the block-step gather kernel
     (fp32, any CSR: the scrambled power-law graphs the ragged cover
@@ -76,7 +77,9 @@ def resolve_auto_kernel(device, nshards: int = 1, *, overlap: bool = False,
     land on ``"pallas"`` where the halo plan refuses.
 
     The JAX package sends fp64 data on the TPU to ``dd``; here fp64 runs
-    natively in the windowed FMA kernels.
+    natively in the panel kernels' fp64 entries: #3 and #6 on the FP64
+    tensor cores (#11's DMMA body), #4 and #12 (uniform packs over several
+    shards) by FMA.
     """
     if torch.device(device).type != "cuda":
         return "segsum"
@@ -689,7 +692,8 @@ class RaggedOp:
     which its kernel reads; ``spill_tmo`` is that spill's block height
     TMo.  ``scheme``
     picks the ragged kernel: ``"x3"`` (ah, al), ``"bf16"`` (ah), ``"full"``
-    (fp32 panels on three TF32 products, fp64 by FMA) or ``"dd"`` (fp64
+    (fp32 panels on three TF32 products, fp64 on the FP64 tensor cores)
+    or ``"dd"`` (fp64
     panels of the ``dd_mxu`` total cover, FP64 tensor cores; its variant
     is ``"dd_mxu"``).  ``spill_impl``:
     ``"none"``, ``"segsum"`` (rows, cols, vals; the ``segsum`` kind's

@@ -4,8 +4,10 @@ One table of NVIDIA H100 SXM peaks (data sheet, dense, at 700 W) and one
 function, :func:`precision_point`, that prices an operating point in
 passes of a product type: the port's bodies take three bf16 products at
 ``x3``, one at ``default``, and three TF32 products at ``highest`` on fp32
-data (3xTF32); fp64 runs on the FMA units, and the ``dd_mxu`` panels on
-the FP64 tensor cores.  The JAX package prices ``highest`` at six passes
+data (3xTF32); fp64 runs one pass, on the FP64 tensor cores in the DMMA
+body of ``csrc/dd_tc.cu`` (#3, #6 and the ``dd_mxu`` panels of #11) and
+on the FMA units in the tile body of ``csrc/panel_tiles.cuh`` (#4 and
+#12).  The JAX package prices ``highest`` at six passes
 (``crp_tpu/plan/project.py:75``), which its packs' ``roofline["passes"]``
 keep; the port's roofline audits, the projection and ``chip_smoke.py``
 read this function instead.
@@ -21,11 +23,17 @@ PEAK = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "fp64": 34e12,
         "fp64_tc": 67e12}
 
 
-def precision_point(prec: str, dtype=np.float32, scheme: str | None = None) -> tuple:
+# the op variants whose fp64 products run on the FP64 tensor cores: #3 on
+# the uniform super-grouped pack, #6 on the ragged pack, #11 on dd_mxu
+FP64_TC_VARIANTS = ("uniform", "ragged", "dd_mxu")
+
+
+def precision_point(prec: str, dtype=np.float32, fp64_tc: bool = False) -> tuple:
     """(passes, peak key) of the products at operating point ``prec`` on
-    ``dtype`` data; ``scheme`` ``"dd"`` is the FP64 tensor-core panels."""
+    ``dtype`` data; fp64 on the FP64 tensor cores where ``fp64_tc``, else
+    on the FMA units."""
     if np.dtype(dtype) == np.float64:
-        return 1, ("fp64_tc" if scheme == "dd" else "fp64")
+        return 1, ("fp64_tc" if fp64_tc else "fp64")
     if prec == "x3":
         return 3, "bf16"
     if prec == "default":
@@ -37,11 +45,13 @@ def op_point(op, dtype) -> tuple:
     """(passes, peak key) of a local op's products (``dtype`` a torch or
     numpy dtype): the gather kind's on the FMA units at every point; a
     panel scheme (``"x3"``, ``"bf16"``, ``"full"``) names its point, else
-    the op's precision does."""
+    the op's precision does; fp64 products by the body its variant runs
+    (:data:`FP64_TC_VARIANTS`)."""
     if op.variant == "gather":
         return 1, "fp32"
     scheme = getattr(op, "scheme", None)
     prec = getattr(op, "precision", getattr(op, "mxu_precision", None))
     prec = {"x3": "x3", "bf16": "default", "full": "highest"}.get(scheme, prec)
     is64 = str(dtype).endswith("float64")
-    return precision_point(prec, np.float64 if is64 else np.float32, scheme)
+    return precision_point(prec, np.float64 if is64 else np.float32,
+                           op.variant in FP64_TC_VARIANTS)

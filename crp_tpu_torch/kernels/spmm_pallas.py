@@ -22,7 +22,8 @@ point:
     ``wgmma`` body's one-pass mode, the hi panels fed by TMA);
   * :func:`spmm_window_sg` — ``highest``: fp32 panels as three TF32
     tensor-core products (:func:`split_tf32`), held to the fp32 plain
-    version; fp64 panels by FMA.
+    version; fp64 panels on the FP64 tensor cores (#11's DMMA body with
+    its windowed walk, ``csrc/dd_tc.cu``).
 
 On every other uniform pack (several shards, or windows that are not
 monotone): :func:`spmm_window` (``csrc/window.cu``, the TPU's
@@ -450,9 +451,15 @@ spmm_window_sg_bf16.launches = 0
 def spmm_window_sg(ws, tiles, b, *, min_b_rows: int):
     """fp32 or fp64 windowed SpMM: (G*TM, n) in the panels' dtype.  fp32
     runs as three TF32 tensor-core products (the 3xTF32 body of
-    :func:`spmm_window` at ``highest``, whose panels must start on 16
-    bytes), fp64 by FMA.  Replaces ``spmm_window_pallas_sg``
-    (``spmm_pallas.py:940``)."""
+    :func:`spmm_window` at ``highest``); fp64 on the FP64 tensor cores, the
+    DMMA body of #11 (``csrc/dd_tc.cu``) with one chunk a group, s = g
+    over ``ws[g]``: each C element one accumulator chain, k upward, so a
+    launch equals the next bit for bit, and equals
+    :func:`~crp_tpu_torch.kernels.spmm_ragged.spmm_ragged` on the same
+    panels written as a ragged pack.  Both bodies copy the panels in
+    16-byte pieces, so the panels must start on 16 bytes; TM % 128 and W %
+    32 must be 0.  Bound by the products (fp64: 2 G TM W n at 67
+    TFLOP/s).  Replaces ``spmm_window_pallas_sg`` (``spmm_pallas.py:940``)."""
     if _placement("spmm_window_sg", ws, tiles, b) == "cpu":
         return spmm_window_sg_plain(ws, tiles, b)
     if tiles.dtype not in (torch.float32, torch.float64):
@@ -460,8 +467,7 @@ def spmm_window_sg(ws, tiles, b, *, min_b_rows: int):
     G, TM, W, n = _check_cuda_args(
         "spmm_window_sg", ws, (tiles,), b, min_b_rows, tiles.dtype, tiles.dtype,
     )
-    if tiles.dtype == torch.float32:
-        _check_aligned("spmm_window_sg", tiles=tiles)
+    _check_aligned("spmm_window_sg", tiles=tiles)
     c = torch.empty((G * TM, n), dtype=tiles.dtype, device=b.device)
     name = "crp_window_sg_f32" if tiles.dtype == torch.float32 else "crp_window_sg_f64"
     _launch(

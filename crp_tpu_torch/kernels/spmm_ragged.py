@@ -32,7 +32,9 @@ the spill and one for the gather kind:
     (``csrc/ragged.cu``);
   * :func:`spmm_ragged` — ``highest``: fp32 panels as three TF32
     tensor-core products (the 3xTF32 body of the windowed kernels, walking
-    each group's chunks), fp64 by FMA (``csrc/ragged.cu``);
+    each group's chunks, ``csrc/ragged.cu``), fp64 panels on the FP64
+    tensor cores (#11's DMMA body with its ragged walk,
+    ``csrc/dd_tc.cu``);
   * :func:`spmm_spill` — C plus the spilled nonzeros, fp32
     (``csrc/spill.cu``), on a row-ordered view of the pack
     (:func:`spill_row_view`, built at init) in a fixed sum order;
@@ -909,16 +911,20 @@ spmm_ragged_bf16.launches = 0
 def spmm_ragged(step_g, group_ptr, starts, panels, b, *, min_b_rows: int):
     """fp32 or fp64 ragged SpMM: (G*TM, n) in the panels' dtype.  fp32 runs
     as three TF32 tensor-core products (the 3xTF32 body of
-    :func:`spmm_window` at ``highest``, whose panels must start on 16
-    bytes), held to the fp32 plain version; fp64 by FMA.  Replaces
-    ``spmm_ragged`` (``spmm_ragged.py:817``, kernel ``_ragged_kernel``
-    ``:633``)."""
+    :func:`spmm_window` at ``highest``), held to the fp32 plain version;
+    fp64 on the FP64 tensor cores, the DMMA body of
+    :func:`~crp_tpu_torch.kernels.spmm_dd_mxu.spmm_ragged_dd` (#11) walking
+    each group's chunks in ``group_ptr`` order, k upward: a launch equals
+    the next bit for bit, and on a ``dd_mxu`` pack equals #11.  Both bodies
+    copy the panels in 16-byte pieces, so the panels must start on 16
+    bytes; TM % 128 and Wc % 32 must be 0.  Bound by the products (fp64: 2
+    S TM Wc n at 67 TFLOP/s).  Replaces ``spmm_ragged``
+    (``spmm_ragged.py:817``, kernel ``_ragged_kernel`` ``:633``)."""
     if _placement("spmm_ragged", step_g, group_ptr, starts, panels, b) == "cpu":
         return spmm_ragged_plain(step_g, group_ptr, starts, panels, b)
     if panels.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"spmm_ragged: panels must be fp32 or fp64, not {panels.dtype}")
-    if panels.dtype == torch.float32:
-        _check_aligned("spmm_ragged", panels=panels)
+    _check_aligned("spmm_ragged", panels=panels)
     entry = "crp_ragged_f32" if panels.dtype == torch.float32 else "crp_ragged_f64"
     c = _ragged("spmm_ragged", entry, step_g, group_ptr, starts, (panels,), b,
                 min_b_rows, panels.dtype, panels.dtype, panels.dtype)

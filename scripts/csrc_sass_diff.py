@@ -6,10 +6,12 @@ Builds each ``STEM.cu`` (default: every ``.cu`` both trees have) of both
 trees to a cubin with the flags of ``_build.NVCC_FLAGS``, prints
 ptxas' register and spill counts, and for every kernel of the old tree
 says whether the new tree has a kernel with the same SASS instructions
-(names and addresses stripped): a change that adds a template flag to a
-shared tile body leaves the kernels that do not set it identical.  Needs
-``nvcc`` and ``cuobjdump`` (the CUDA toolkit); exits 1 when an old kernel
-has no identical counterpart.
+(names and addresses stripped), in any of the compared sources (a kernel
+whose entry moved to another source is found there, and named with it):
+a change that adds a template flag to a shared tile body leaves the
+kernels that do not set it identical.  Needs ``nvcc`` and ``cuobjdump``
+(the CUDA toolkit); exits 1 when an old kernel has no identical
+counterpart.
 """
 
 from __future__ import annotations
@@ -66,9 +68,9 @@ def main(argv) -> int:
     stems = argv[2:] or sorted(p.stem for p in old_dir.glob("*.cu")
                                if (new_dir / p.name).exists())
     missing = 0
+    got = {"old": {}, "new": {}}  # tag -> stem -> {kernel: SASS}
     with tempfile.TemporaryDirectory() as tmp:
         for stem in stems:
-            got = {}
             for tag, d in (("old", old_dir), ("new", new_dir)):
                 out = pathlib.Path(tmp) / f"{stem}_{tag}.cubin"
                 report = cubin(d / f"{stem}.cu", out)
@@ -78,18 +80,28 @@ def main(argv) -> int:
                 print(f"{stem} {tag}: {len(regs)} kernels, registers "
                       f"{sorted(int(r) for _, r in regs)}, spill stores "
                       f"{sorted(set(int(s) for s in spills))}")
-                got[tag] = sass(out)
-            new_bodies = set(got["new"].values())
-            names = demangle(list(got["old"]))
-            for k, body in got["old"].items():
-                same = body in new_bodies
-                missing += not same
-                print(f"  {'identical' if same else 'DIFFERS  '} {len(body):5d} "
-                      f"instructions  {names[k]}")
-            added = [k for k, b in got["new"].items() if b not in set(got["old"].values())]
-            for k in added:
-                print(f"  new kernel {len(got['new'][k]):5d} instructions  "
-                      f"{demangle([k])[k]}")
+                got[tag][stem] = sass(out)
+    # where each body of a tree is, by source
+    where = {tag: {} for tag in got}
+    for tag, by_stem in got.items():
+        for stem, kernels in by_stem.items():
+            for body in kernels.values():
+                where[tag].setdefault(body, stem)
+    for stem in stems:
+        print(f"{stem}:")
+        old = got["old"][stem]
+        names = demangle(list(old))
+        here = set(got["new"][stem].values())
+        for k, body in old.items():
+            found = stem if body in here else where["new"].get(body)
+            missing += found is None
+            state = ("DIFFERS  " if found is None else "identical")
+            moved = "" if found in (None, stem) else f" (now in {found})"
+            print(f"  {state} {len(body):5d} instructions  {names[k]}{moved}")
+        new = got["new"][stem]
+        for k, body in new.items():
+            if body not in where["old"]:
+                print(f"  new kernel {len(body):5d} instructions  {demangle([k])[k]}")
     return 1 if missing else 0
 
 

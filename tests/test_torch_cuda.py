@@ -509,6 +509,177 @@ def test_dd_engine_on_card(cuda_device, kernel):
     assert c.dtype == np.float64 and rel_fro_err(a.spmm_ref(b), c) <= 1e-12
 
 
+def _gapped(gen):
+    """``DD_MATS[gen]`` with rows 300-1499 emptied: the row groups within
+    them (at TM = 128 and at 512) own only a zero dummy chunk in a ragged
+    pack."""
+    a = DD_MATS[gen]()
+    rows = np.repeat(np.arange(a.nrow), np.diff(a.rowptr))
+    keep = (rows < 300) | (rows >= 1500)
+    return CSRMatrix.from_coo(a.nrow, a.ncol, rows[keep], a.colidx[keep], a.val[keep],
+                              dtype=np.float64)
+
+
+def _chunkless(step_g, group_ptr, starts, panels):
+    """The ragged args with every zero chunk (the dummy chunks of empty and
+    pad groups) dropped: those groups then own no chunk at all."""
+    keep = panels.abs().amax(dim=(1, 2)) > 0
+    counts = torch.bincount(step_g[keep].long(), minlength=group_ptr.numel() - 1)
+    ptr = torch.zeros_like(group_ptr)
+    ptr[1:] = torch.cumsum(counts, 0).to(group_ptr.dtype)
+    return (step_g[keep].contiguous(), ptr, starts[keep].contiguous(),
+            panels[keep].contiguous())
+
+
+def _f64_checks(kernel, args, ref, nrow, min_b_rows, n):
+    """One fp64 kernel launch and a second one: equal bit for bit, within
+    1e-12 relative Frobenius of the plain version and of the reference,
+    pad rows zero; returns C."""
+    k = kernel(*args, min_b_rows=min_b_rows)
+    k2 = kernel(*args, min_b_rows=min_b_rows)
+    plain = {spmm_ragged.spmm_ragged: spmm_ragged.spmm_ragged_plain,
+             spmm_pallas.spmm_window_sg: spmm_pallas.spmm_window_sg_plain}[kernel]
+    p = plain(*args)
+    assert k.dtype == torch.float64 and k.shape == p.shape and k.shape[1] == n
+    assert _bits_equal(k, k2)
+    assert float((k - p).norm() / p.norm()) <= 1e-12
+    assert not torch.any(k[nrow:])  # pad groups come out zero
+    assert rel_fro_err(ref, k[:nrow].cpu().numpy()) <= 1e-12
+    return k
+
+
+@pytest.mark.parametrize("chunkless", [False, True])
+@pytest.mark.parametrize("geometry", [(128, 512), (256, 256), (512, 128)])
+@pytest.mark.parametrize("gen", sorted(DD_MATS))
+def test_f64_ragged_kernel_on_dmma(cuda_device, gen, geometry, chunkless):
+    """#6 on fp64 (``crp_ragged_f64``: #11's DMMA body, its ragged walk) on
+    total ragged covers of a matrix with empty row groups, pad groups past
+    its rows, and (``chunkless``) those groups' zero dummy chunks dropped so
+    that they own no chunk: within 1e-12 of its plain version and of the
+    reference, a second launch equal bit for bit, empty and pad rows zero,
+    over n from 16 to 512 with B NaN-framed (a read outside B shows) and
+    off 16 bytes (the 8-byte B copies)."""
+    a = _gapped(gen)
+    shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
+    arrays, op = _pack_ragged(shard, a.nrow + 700, np.float64, "highest", cuda_device,
+                              geometry=geometry, min_chunk_nnz=1)
+    assert op.spill_impl == "none" and op.scheme == "full"
+    step_g, group_ptr, starts, panels, _ = op.kernel_args(tuple(x[0] for x in arrays), None)
+    if chunkless:
+        step_g, group_ptr, starts, panels = _chunkless(step_g, group_ptr, starts, panels)
+        counts = (group_ptr[1:] - group_ptr[:-1]).cpu()
+        assert int((counts == 0).sum()) >= 2  # an empty group and a pad group
+    for n in (16, 37, 48, 100, 256, 512):
+        ref = a.spmm_ref(fill_b(0, a.ncol, 0, n))
+        for off in (0, 1):
+            rB = _nan_framed(torch.from_numpy(
+                _b(a, max(op.min_b_rows, a.ncol), n, np.float64)).to(cuda_device), off)
+            before = spmm_ragged.spmm_ragged.launches
+            k = _f64_checks(spmm_ragged.spmm_ragged, (step_g, group_ptr, starts, panels, rB),
+                            ref, a.nrow, op.min_b_rows, n)
+            assert spmm_ragged.spmm_ragged.launches == before + 2
+            assert not torch.any(k[300:1500])  # the empty rows
+
+
+@pytest.mark.parametrize("Wc", [256, 512, 1024])
+@pytest.mark.parametrize("gen", sorted(DD_MATS))
+def test_f64_ragged_equals_dd_kernel(cuda_device, gen, Wc):
+    """#6 on fp64 and #11 are one DMMA body with one walk: on the dd_mxu
+    total covers (pad groups included) they give the same bits, at odd
+    and even n, B on and off 16 bytes."""
+    a = DD_MATS[gen]()
+    G = -(-(a.nrow + 300) // 128)
+    (step_g, group_ptr, starts, panels), min_b_rows = _dd_pack(a, Wc, G, cuda_device)
+    for n in (37, 256):
+        for off in (0, 1):
+            rB = _nan_framed(torch.from_numpy(
+                _b(a, max(min_b_rows, a.ncol), n, np.float64)).to(cuda_device), off)
+            args = (step_g, group_ptr, starts, panels, rB)
+            k6 = spmm_ragged.spmm_ragged(*args, min_b_rows=min_b_rows)
+            k11 = spmm_dd_mxu.spmm_ragged_dd(*args, min_b_rows=min_b_rows)
+            assert _bits_equal(k6, k11), (n, off)
+
+
+def _f64_uniform(cuda_device):
+    """A banded fp64 matrix's single-shard uniform pack with pad groups
+    (#3 on fp64): the matrix, the op and (ws, tiles)."""
+    a = banded_random_csr(3000, nnz_per_row=7, bandwidth=80, seed=91)
+    arrays, op = pack_local_kernel([(a.rowptr, a.colidx.astype(np.int32), a.val)],
+                                   a.nrow + 300, np.float64, "pallas", device=cuda_device,
+                                   mxu_precision="highest")
+    assert op.variant == "uniform" and op.scheme == "full"
+    ws, tiles, _ = (x[0] for x in arrays)
+    return a, op, ws, tiles
+
+
+def test_f64_window_kernel_on_dmma(cuda_device):
+    """#3 on fp64 (``crp_window_sg_f64``: #11's DMMA body, its windowed
+    walk) on a uniform pack with pad groups: within 1e-12 of its plain
+    version and of the reference, a second launch equal bit for bit, pad
+    rows zero, over n from 16 to 512 with B NaN-framed and off 16 bytes;
+    and equal bit for bit to #6 on fp64 on the same panels written as a
+    ragged pack (one chunk a group: group_ptr = arange(G + 1), starts =
+    ws)."""
+    a, op, ws, tiles = _f64_uniform(cuda_device)
+    G = ws.shape[0]
+    assert tiles.shape[0] == G and G * tiles.shape[1] > a.nrow
+    seq = torch.arange(G + 1, dtype=torch.int32, device=cuda_device)
+    ragged = (seq[:-1].contiguous(), seq, ws, tiles)
+    for n in (16, 37, 48, 100, 256, 512):
+        ref = a.spmm_ref(fill_b(0, a.ncol, 0, n))
+        for off in (0, 1):
+            rB = _nan_framed(torch.from_numpy(
+                _b(a, max(op.min_b_rows, a.ncol), n, np.float64)).to(cuda_device), off)
+            before = spmm_pallas.spmm_window_sg.launches
+            k3 = _f64_checks(spmm_pallas.spmm_window_sg, (ws, tiles, rB), ref, a.nrow,
+                             op.min_b_rows, n)
+            assert spmm_pallas.spmm_window_sg.launches == before + 2
+            k6 = spmm_ragged.spmm_ragged(*ragged, rB, min_b_rows=op.min_b_rows)
+            assert _bits_equal(k3, k6), (n, off)
+
+
+def test_f64_entries_refuse_what_the_body_cannot_take(cuda_device):
+    """The DMMA body takes TM % 128, W % 32 and panels on 16 bytes: the
+    wrappers raise on TM = 64, W = 48 and panels off 16 bytes (no fallback
+    to another body or to the plain version), and the entries themselves
+    return an error (and the ragged one on a null group_ptr)."""
+    from crp_tpu_torch.kernels import _build
+
+    dev = cuda_device
+    b = torch.zeros((4096, 16), dtype=torch.float64, device=dev)
+    for G, TM, W in ((2, 64, 128), (2, 128, 48)):
+        tiles = torch.zeros((G, TM, W), dtype=torch.float64, device=dev)
+        ws = torch.zeros(G, dtype=torch.int32, device=dev)
+        seq = torch.arange(G + 1, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="TM % 128"):
+            spmm_pallas.spmm_window_sg(ws, tiles, b, min_b_rows=W)
+        with pytest.raises(ValueError, match="TM % 128"):
+            spmm_ragged.spmm_ragged(seq[:-1], seq, ws, tiles, b, min_b_rows=W)
+        c = torch.empty((G * TM, 16), dtype=torch.float64, device=dev)
+        assert _build.entry("crp_window_sg_f64")(
+            ws.data_ptr(), tiles.data_ptr(), b.data_ptr(), c.data_ptr(), G, TM, W, 16,
+            None) != 0
+        assert _build.entry("crp_ragged_f64")(
+            seq.data_ptr(), ws.data_ptr(), tiles.data_ptr(), b.data_ptr(), c.data_ptr(), G,
+            TM, W, 16, None) != 0
+    G, TM, W = 2, 128, 128
+    tiles = _nan_framed(torch.zeros((G, TM, W), dtype=torch.float64, device=dev), 1)
+    ws = torch.zeros(G, dtype=torch.int32, device=dev)
+    seq = torch.arange(G + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        spmm_pallas.spmm_window_sg(ws, tiles, b, min_b_rows=W)
+    with pytest.raises(ValueError, match="16 bytes"):
+        spmm_ragged.spmm_ragged(seq[:-1], seq, ws, tiles, b, min_b_rows=W)
+    c = torch.empty((G * TM, 16), dtype=torch.float64, device=dev)
+    assert _build.entry("crp_window_sg_f64")(
+        ws.data_ptr(), tiles.data_ptr(), b.data_ptr(), c.data_ptr(), G, TM, W, 16, None) != 0
+    aligned = torch.zeros((G, TM, W), dtype=torch.float64, device=dev)
+    assert _build.entry("crp_ragged_f64")(
+        None, ws.data_ptr(), aligned.data_ptr(), b.data_ptr(), c.data_ptr(), G, TM, W, 16,
+        None) != 0
+    torch.cuda.synchronize(dev)  # no launch was made: nothing is left to fail
+
+
 def _anti_banded(nrow, dtype, seed=7):
     """Band along the anti-diagonal: window starts fall group by group, so
     the shard has no super-group plan."""

@@ -319,13 +319,13 @@ def test_chip_smoke_reference_matches_spmm_ref(seed, ncols):
     ("highest", np.float32, (3, "tf32")),  # #6 on the 3xTF32 body
     ("default", np.float32, (1, "bf16")),  # #8
     ("x3", np.float32, (3, "bf16")),       # #7
-    ("highest", np.float64, (1, "fp64")),  # #6 on fp64 FMA
+    ("highest", np.float64, (1, "fp64_tc")),  # #6 on the FP64 tensor cores
 ])
 def test_chip_smoke_prices_ragged_points(prec, dtype, want):
     """The smoke's ``op_point`` prices a ragged pack's products by the
     body that runs them: ``highest`` on fp32 as three TF32 passes, like the
     windowed kernels there; ``default`` one bf16 pass, x3 three; fp64 one
-    FMA pass."""
+    pass on the FP64 tensor cores (#6 and #3 on #11's DMMA body)."""
     from crp_tpu_torch.kernels.dispatch import _pack_ragged, pack_local_kernel
     from crp_tpu_torch.sparse.synth import banded_random_csr, powerlaw_random_csr
 
