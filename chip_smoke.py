@@ -15,8 +15,9 @@ which must be 0 and at least 1),
 the spill and gather kernels' resources (``[spill]``: registers, spills
 and blocks per SM of each, which must be 0 and at least 1), the DMMA
 body's (``[dd]``: its ring, block tile, DMMA shape, and the same for its
-ragged walk, #11 and #6 on fp64, and its windowed walk, #3 on fp64, which
-must be 0 and at least 1) and then,
+ragged walk, #11 and #6 on fp64, its windowed walk, #3 and #4 on fp64,
+with B through the chunk table, #12 on fp64, and with the flags' waits,
+#12 across processes, which must be 0 and exactly 1) and then,
 failing on the first check
 that does not hold (every engine init prints its peak device memory; an
 x3 or default panel pack must peak within 1.2 x what it holds after):
@@ -89,7 +90,7 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    through ``RowParaSpmm(kernel="dd")`` must resolve to ``dd_mxu`` (S =
    3,402) on the FP64 tensor cores at <= 1e-12; on its pack the kernel
    against its plain version, #6's fp64 entry (the same DMMA body) equal
-   to it bit for bit and timed beside it, and cuSPARSE in fp64; then the
+   to it bit for bit, and cuSPARSE in fp64; then the
    fp64 cplaw (segment-sum tier) and the pwtk-class headline (ELL tier)
    with ``kernel="dd"`` at <= 1e-12; on each of the three,
    ``kernel="auto"`` in fp64 (the panel kernels' fp64 entries: #3 on the
@@ -126,6 +127,14 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    main-path shape, timed, with cuSPARSE on the same work; at default the
    packs must hold the bf16 hi plane alone, and B's cast to bf16 is timed
    beside each kernel;
+12b. fp64 at p = 4 (``fp64_p4``) — the fp64 headline in 4 row shards,
+   the reference's own setting: ``auto`` -> the fused #12's fp64 entry
+   once an exec, ``kernel="pallas"`` -> #4's fp64 entry on every shard,
+   both on #11's DMMA body, each exec within 1e-12 of the fp64 reference;
+   each kernel against its plain version (1e-12) and a second launch (bit
+   for bit), timed beside cuSPARSE fp64 and the previous FMA body's time;
+   #12's C equal to #4's shard by shard on the plain version's window
+   buffers and #4's to #3's fp64 entry on the same arrays, bit for bit;
 13. cplaw at p = 4 on the ring (x3): the multi-shard ragged pack with the
    fused spill, 591,732 received B rows and 627,300 physical ring rows;
    on the host, the p = 8 exchange plan's received rows times 32 equal the
@@ -157,7 +166,10 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    card (``init_distributed(backend="gloo")``: NCCL refuses two ranks on
    one device), ``RowParaSpmm(mesh=make_mesh_1d(4))``: ``auto`` takes #12
    across processes (each rank's B buffer mapped into its peers by CUDA
-   IPC) at x3, default and highest, launched once a rank an exec; each
+   IPC) at x3, default and highest, and on the fp64 headline in fp64 (the
+   DMMA body with the flags' waits; its C shards equal to ``fp64_p4``'s,
+   its withheld exec raising ``HaloTimeout`` with C NaN, as at x3),
+   launched once a rank an exec; each
    rank's C shard equal to slice r of the one-device fused engine's C
    bit for bit, its rows within the point's class, the kernel against its
    plain version on the same inputs, each rank's init memory beside the
@@ -252,10 +264,13 @@ TOL_TRAIN_PLAIN_FRO = 4e-6
 # W), printed beside the times of this run: the spill and gather kernels'
 # (a block per output block and 32 columns, shared-memory atomics), #11's
 # (64 x 64 blocks of m8n8k4 DMMA, one shared-memory stage) and the fp64
-# entries of #3 and #6 on fp64 `auto`'s packs (the FMA tile body of
-# panel_tiles.cuh; keyed by the fp64 path's matrix)
+# entries of #3 and #6 on fp64 `auto`'s packs (the FMA tile body that
+# panel_tiles.cuh then held; keyed by the fp64 path's matrix), and of #12
+# and #4 at the fp64 headline's p = 4 (the same body, crp_tpu_torch.cli.
+# f64_ab beside this tree's in one call)
 PREVIOUS_MS = {"spmm_spill": 2.0822, "spmm_gather": 7.3080, "spmm_ragged_dd": 4.6211,
-               "fp64 banded": 6.0605, "fp64 cplaw": 28.9420, "fp64 headline": 21.7533}
+               "fp64 banded": 6.0605, "fp64 cplaw": 28.9420, "fp64 headline": 21.7533,
+               "fp64 p=4 spmm_halo": 44.5400, "fp64 p=4 spmm_window": 10.8390}
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W), HBM_BYTES_PER_S
 # and PEAK, are the package's table, which the suite's roofline and the
 # projection read too (imported at the top)
@@ -1180,27 +1195,10 @@ def dd_phase(device) -> None:
 
 
 def scrambled_cplaw_path(device) -> list:
-    from crp_tpu_torch.kernels import spmm_ragged
-    from crp_tpu_torch.kernels.dispatch import _pack_gather
-
     a, b, c_ref, _, t_setup = shared_case("scrambled")
     say(f"scrambled cplaw matrix: {a.nrow} rows, {a.nnz} nnz, n={N}, host set-up "
         f"{t_setup:.2f} s in the worker process")
     start_host_job("reorder", reorder_host, a.rowptr, a.colidx, a.val, b[:, :METIS_N])
-    # the init's parts: the cover the gate refuses (at cplaw's x3 geometry;
-    # the geometry chooser's time is in the x3 init's pack time below) and
-    # the gather pack that serves the matrix
-    t0 = time.perf_counter()
-    S, spill, _ = spmm_ragged.estimate_ragged(a.rowptr, a.colidx, 512, 128)
-    t_cover = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    arrays, _ = _pack_gather([(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow,
-                             np.float32, "x3", device)
-    torch.cuda.synchronize()
-    say(f"[scrambled] host init parts: cover at (512, 128) {t_cover:.3f} s (S={S}, "
-        f"spill {spill}, {100 * (a.nnz - spill) / a.nnz:.1f}% kept); gather pack + "
-        f"upload {time.perf_counter() - t0:.3f} s")
-    del arrays
     rec = dict(launches=0, max_abs=0.0)
     for prec in PRECS:
         eng, op, bs, launches, exec_ms = drive(a, b, c_ref, prec, device, "scrambled",
@@ -1446,19 +1444,18 @@ def fp64_path(device) -> list:
     got = time_kernel(op, arrs, rB, "fp64 banded", "dd", csr_work(a), plain_inner=3,
                       tol=TOL_DD)
     # #6's fp64 entry on the same arrays (the pack has no spill): the same
-    # DMMA body with the same walk, so the same bits
+    # DMMA body with the same walk, so the same bits (one instantiation: its
+    # time is #11's)
     args = op.kernel_args(arrs, rB)
     c11, c6 = launch(op, args), spmm_ragged(*args, min_b_rows=op.min_b_rows)
     check(torch.equal(c11.view(torch.int64), c6.view(torch.int64)),
           "fp64 banded: spmm_ragged (fp64) differs from spmm_ragged_dd on the dd_mxu pack")
     del c11, c6
-    dd_ms, f64_ms, s = in_turns(lambda: launch(op, args),
-                                lambda: spmm_ragged(*args, min_b_rows=op.min_b_rows))
     gflop = 2.0 * op.roofline["S"] * op.roofline["TM"] * op.roofline["W"] * N / 1e9
-    say(f"[fp64 banded] on one pack, in turns: spmm_ragged_dd {dd_ms:.4f} ms ({s[0]:.4f}, "
-        f"{s[1]:.4f}; the previous body {PREVIOUS_MS['spmm_ragged_dd']:.4f}), spmm_ragged "
-        f"fp64 {f64_ms:.4f} ms ({s[2]:.4f}, {s[3]:.4f}), equal bit for bit (one DMMA body "
-        f"on the FP64 tensor cores); {gflop:.1f} GFLOP, {gflop / got[1]:.2f} TFLOP/s")
+    say(f"[fp64 banded] on one pack: spmm_ragged_dd {got[1]:.4f} ms (the previous body "
+        f"{PREVIOUS_MS['spmm_ragged_dd']:.4f}), spmm_ragged fp64 equal to it bit for bit "
+        f"(one DMMA body on the FP64 tensor cores); {gflop:.1f} GFLOP, "
+        f"{gflop / got[1]:.2f} TFLOP/s")
     records = [record("spmm_ragged_dd", launches["spmm_ragged_dd"], *got)]
     del eng, op, bs, arrs, rB, args
     a.__dict__.pop("_torch_pack_cache", None)
@@ -1485,6 +1482,7 @@ def fp64_path(device) -> list:
         torch.cuda.empty_cache()
         dd[tag] = (tier, exec_ms, None,
                    cusparse_yardstick(a, b, c_ref, device, f"{tag} cusparse"))
+        _MEASURED[f"{tag} cusparse"] = dd[tag][3]  # fp64_p4 prints it beside its kernels
         auto[tag] = fp64_auto(a, b, c_ref, device, tag, ("pallas", "ragged"))
     for tag, got_auto in auto.items():
         tier, exec_ms, kernel_ms, cus_ms = dd[tag]
@@ -1500,7 +1498,7 @@ def fp64_path(device) -> list:
             + (f", kernel {kernel_ms:.4f} ms" if kernel_ms is not None else "")
             + f"; cuSPARSE fp64 {cus_ms:.4f} ms; the faster: "
             + ("auto" if got_auto["exec_ms"] < exec_ms else "dd"))
-    for tag in dd:  # no later phase drives these
+    for tag in ("fp64 banded", "fp64 cplaw"):  # no later phase drives these
         _CASES.pop(tag)
     return records
 
@@ -1674,16 +1672,18 @@ def timed_phases(eng, bs, reps=5):
             for k in ("a2a", "spmm", "exec") if k in eng.timer.samples}
 
 
-def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto"):
+def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto",
+            dtype=np.float32, tol=None):
     """``RowParaSpmm`` over p nnz-balanced row shards on the one card: the
     resolved kind and variant, the local kernel's launches in the main
     path's exec (one per shard; the fused kernel once), the error against
-    the reference, exec and phase times, the exchange's rows."""
+    the reference (``tol``, default the point's class), exec and phase
+    times, the exchange's rows."""
     from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition
 
     d = csr_row_partition(a.rowptr, p)
     eng, peak, held = measured_init(device, lambda: RowParaSpmm(
-        a, d, d, N, device=device, dtype=np.float32,
+        a, d, d, N, device=device, dtype=dtype,
         config=SpmmConfig(kernel=kernel, mxu_precision=prec, rb_p2p=rb_p2p)))
     op = eng._local_op
     mode = "fused" if eng.is_halo else "ring" if rb_p2p else "a2a"
@@ -1699,13 +1699,14 @@ def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto"):
     check(prec != "default" or {t.dtype for t in panels} == {torch.bfloat16},
           f"{tag}: the default pack holds {[t.dtype for t in panels]}, not the bf16 "
           f"hi plane alone")
-    launches, _, exec_ms, bs = main_path(eng, b, c_ref, TOL_REF[prec], tag)
+    launches, _, exec_ms, bs = main_path(eng, b, c_ref,
+                                         TOL_REF[prec] if tol is None else tol, tag)
     want = 1 if eng.is_halo else p
     check(launches[op.kernel.__name__] == want,
           f"{tag}: {op.kernel.__name__} launched {launches[op.kernel.__name__]} "
           f"times, expected {want}")
     ph = timed_phases(eng, bs)
-    xch_bytes = eng.physical_rows * N * 4
+    xch_bytes = eng.physical_rows * N * np.dtype(dtype).itemsize
     phases = ", ".join(f"{k} {v:.4f} ms" for k, v in ph.items())
     rate = (f", {xch_bytes / max(ph['a2a'], 1e-9) / 1e6:.1f} GB/s of exchange"
             if "a2a" in ph else "")
@@ -1714,6 +1715,7 @@ def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto"):
         f"({xch_bytes / 1e6:.1f} MB moved{rate}), rb_rows {eng._rb_rows}")
     print_stat = eng.print_stat().splitlines()
     say(f"[{tag}] print_stat: {print_stat[1]} | {print_stat[2]}")
+    _EXEC_MS[tag] = exec_ms
     return eng, op, bs, launches
 
 
@@ -1784,6 +1786,82 @@ def headline_p4(device) -> list:
                    *window["timing"], window["library_ms"])]
 
 
+def fp64_p4(device) -> list:
+    """The fp64 headline in 4 row shards on the one card, the reference's
+    own setting (fp64 CSR on 4 ranks): ``auto`` must resolve to the fused
+    kernel and launch #12's fp64 entry once an exec, ``kernel="pallas"``
+    #4's four times, each exec within 1e-12 of the fp64 reference; each
+    kernel against its plain version (1e-12) at its main-path shape (#12
+    over every shard, #4 on shard 0) and a second launch (bit for bit),
+    timed beside cuSPARSE fp64 (on the matrix and on shard 0); #12's C
+    equal to #4's shard by shard on the plain version's window buffers, and
+    #4's to #3's fp64 entry on the same arrays (one DMMA body, one
+    accumulator chain a C element, k upward).  The fused exec's C shards go
+    to ``_MEASURED`` for multirank_path's fp64 point."""
+    from crp_tpu_torch.kernels.spmm_halo import halo_buffers
+    from crp_tpu_torch.kernels.spmm_pallas import spmm_window, spmm_window_sg
+
+    a, b, c_ref = shared_case("fp64 headline")[:3]
+    tag = "fp64 headline p=4"
+    eng, op, bs, launches = drive_p(a, b, c_ref, 4, "highest", device, tag,
+                                    ("pallas_halo", "halo"), 0, dtype=np.float64, tol=TOL_DD)
+    c = eng.exec_device(bs)
+    _MEASURED["p=4 fused fp64"] = dict(bits=[digest(c[i]) for i in range(4)],
+                                       packed=nbytes(*eng.packed))
+    del c
+    halo = time_kernel(op, eng.packed, bs, f"{tag} fused", "highest", csr_work(a),
+                       plain_inner=2, tol=TOL_DD)
+    args = op.kernel_args(eng.packed, bs)
+    k12 = launch(op, args)
+    check(same_bits(k12, launch(op, args)), f"{tag}: spmm_halo (fp64): two launches differ")
+    buf = halo_buffers(args[3], args[5], op.buf_rows)
+    for i in range(4):
+        c4 = spmm_window(args[1][i], args[2][i], buf[i], "highest", min_b_rows=op.buf_rows)
+        check(same_bits(c4, k12[i]),
+              f"{tag}: #12 shard {i} differs from #4 on its window buffer by "
+              f"{float((c4 - k12[i]).abs().max())}")
+    del k12, buf, c4, args, eng, op, bs
+    a.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+    lib = _MEASURED.get("fp64 headline cusparse")
+    if lib is None:  # the phase run alone
+        lib = cusparse_yardstick(a, b, c_ref, device, "fp64 headline cusparse")
+    say(f"[{tag}] fused: spmm_halo (FP64 tensor cores) {halo[1]:.4f} ms, the previous "
+        f"body (fp64 FMA) {PREVIOUS_MS['fp64 p=4 spmm_halo']:.4f} ms; design bound "
+        f"{halo[5]:.4f} ms; cuSPARSE fp64 on the matrix {lib:.4f} ms; a second launch "
+        f"equal bit for bit, each shard equal to #4 on its window buffer")
+    records = [dict(record("spmm_halo", launches["spmm_halo"], *halo, library_ms=lib,
+                           source="dd_tc.cu"), path=f"{tag} fused")]
+
+    eng, op, bs, launches = drive_p(a, b, c_ref, 4, "highest", device, tag,
+                                    ("pallas", "window"), 0, kernel="pallas",
+                                    dtype=np.float64, tol=TOL_DD)
+    rB = eng.receive_buffer(bs)
+    arrs = tuple(x[0] for x in eng.packed)
+    s0 = a.row_slice(int(eng.A_row_displs[0]), int(eng.A_row_displs[1]))
+    window = time_kernel(op, arrs, rB[0], f"{tag} unfused", "highest", csr_work(s0),
+                         plain_inner=2, tol=TOL_DD)
+    args = op.kernel_args(arrs, rB[0])
+    k4 = launch(op, args)
+    check(same_bits(k4, launch(op, args)), f"{tag}: spmm_window (fp64): two launches differ")
+    k3 = spmm_window_sg(*args[:3], min_b_rows=op.min_b_rows)
+    check(same_bits(k4, k3), f"{tag}: #4 differs from #3's fp64 entry on the same arrays")
+    cols = np.searchsorted(eng.xplan.rowmap[0], s0.colidx)
+    lib0 = csr_library_ms(s0.rowptr, cols, s0.val, rB.shape[1], rB[0])
+    say(f"[{tag}] unfused: spmm_window (FP64 tensor cores) on shard 0 {window[1]:.4f} ms, "
+        f"the previous body (fp64 FMA) {PREVIOUS_MS['fp64 p=4 spmm_window']:.4f} ms; "
+        f"design bound {window[5]:.4f} ms; cuSPARSE fp64 on shard 0 ({s0.nnz} nnz) "
+        f"{lib0:.4f} ms; a second launch and #3's fp64 entry equal bit for bit; exec_device "
+        f"fused {_EXEC_MS[f'{tag} highest fused']:.4f} ms, a2a + #4 "
+        f"{_EXEC_MS[f'{tag} highest a2a']:.4f} ms")
+    records.append(dict(record("spmm_window", launches["spmm_window"], *window,
+                               library_ms=lib0, source="dd_tc.cu"), path=f"{tag} unfused"))
+    del eng, op, bs, rB, arrs, args, k4, k3
+    a.__dict__.pop("_torch_pack_cache", None)
+    torch.cuda.empty_cache()
+    return records
+
+
 # ------------------------------------------------------------------ ranks
 MULTIRANK_P = 4
 MULTIRANK_TIMEOUT = 300  # s a set of ranks may take before the phase fails
@@ -1798,13 +1876,13 @@ BOUND_SLACK_S = 5.0  # s past the bound a rank may take to raise HaloTimeout
 PR20_RANK_MS = 8.1320  # #12 across 4 processes, rank 0 at x3, host barriers included (PR 20)
 
 
-def changing_bs(a) -> list:
+def changing_bs(a, dtype=np.float32) -> list:
     """The back-to-back run's distinct B: ``fill_b``'s analytic B at other
     factors, one a seed."""
     from crp_tpu_torch import fill_b
 
     return [np.asarray(fill_b(0, a.ncol, 0, N, factor_i=0.19 * (1 + s), factor_j=0.24 / s,
-                              dtype=np.float32)) for s in B2B_SEEDS]
+                              dtype=dtype)) for s in B2B_SEEDS]
 
 
 def host_counts(peers) -> tuple:
@@ -2004,7 +2082,8 @@ def load_case(path) -> tuple:
                 f["c_ref"])
 
 
-def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) -> None:
+def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None,
+                   f64_path=None) -> None:
     """One rank of multirank_path, a process of its own, as a user runs it:
     the launcher's env, ``init_distributed`` (gloo for the control plane:
     NCCL refuses several ranks on one device), ``make_mesh_1d`` and
@@ -2020,10 +2099,13 @@ def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) 
     drains ``HaloPeers`` made across the main path (none), the
     back-to-back run with B changing every exec (:func:`back_to_back`) and
     its pipelined ms an exec; at x3, last, one withheld exec
-    (:func:`withheld_exec`).  ``unfused``: the exchanges gloo carries for
-    CUDA tensors (``"a2a"``, ``"ring"``), each with ``kernel="pallas"`` at
-    x3.  ``cplaw_path``: then :func:`multirank_crp` on the same group.
-    Writes a JSON record to ``out``."""
+    (:func:`withheld_exec`).  ``f64_path``: the fp64 headline's case file,
+    then the same at the fp64 point (key ``"fp64"``: the fused kernel's
+    fp64 entry, #11's DMMA body with the flags' waits in its producer
+    warpgroup), its withheld exec included.  ``unfused``: the exchanges
+    gloo carries for CUDA tensors (``"a2a"``, ``"ring"``), each with
+    ``kernel="pallas"`` at x3.  ``cplaw_path``: then :func:`multirank_crp`
+    on the same group.  Writes a JSON record to ``out``."""
     import torch.distributed as dist
 
     from crp_tpu_torch import RowParaSpmm, SpmmConfig, csr_row_partition, fill_b, rel_fro_err
@@ -2041,18 +2123,19 @@ def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) 
     shard = a.row_slice(r0, r1)
     kernels = all_kernels()
     got = dict(rank=rank, points={}, unfused={})
-    bseq = changing_bs(a)
 
     def wall_ms(fn, reps=5):
         return rank_wall_ms(fn, device, reps)
 
-    for prec in PRECS:
+    def fused_point(key, prec, a, c_ref, b, tol, withhold, timed=True):
+        dtype = a.val.dtype.type
+        dd = csr_row_partition(a.rowptr, world)
         eng, peak, held = measured_init(device, lambda: RowParaSpmm(
-            a, d, d, N, mesh=mesh, dtype=np.float32,
+            a, dd, dd, N, mesh=mesh, dtype=dtype,
             config=SpmmConfig(kernel="auto", mxu_precision=prec)))
         check(eng.kernel_kind == "pallas_halo" and eng.peers is not None
               and eng.peers.bases is not None,
-              f"rank {rank} {prec}: resolved to {eng.kernel_kind}, peers {eng.peers}")
+              f"rank {rank} {key}: resolved to {eng.kernel_kind}, peers {eng.peers}")
         for k in kernels:
             k.launches = 0
         before = host_counts(eng.peers)
@@ -2060,8 +2143,9 @@ def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) 
         launches = {k.__name__: k.launches for k in kernels}
         main_moved = moved(before, eng.peers)
         check(c.shape == (a.nrow, N) and bool(np.isfinite(c).all()),
-              f"rank {rank} {prec}: C {c.shape} or non-finite")
-        err = rel_fro_err(c_ref[r0:r1], c[r0:r1, :ERR_COLS].astype(np.float64))
+              f"rank {rank} {key}: C {c.shape} or non-finite")
+        q0, q1 = int(dd[rank]), int(dd[rank + 1])
+        err = rel_fro_err(c_ref[q0:q1], c[q0:q1, :ERR_COLS].astype(np.float64))
         err_all = rel_fro_err(c_ref, c[:, :ERR_COLS].astype(np.float64))
         bs = eng.shard_b(b)
         cs = eng.exec_device(bs)
@@ -2076,41 +2160,54 @@ def multirank_rank(rank, world, port, case_path, out, unfused, cplaw_path=None) 
         def run_plain():
             return sh.spmm_halo_plain(*pargs, consumers=[rank])
 
-        max_abs, _, rel_fro = compare("spmm_halo across ranks", run_kernel, run_plain)
-        got["points"][prec] = dict(
+        max_abs, _, rel_fro = compare(f"spmm_halo across ranks {key}", run_kernel, run_plain)
+        pt = got["points"][key] = dict(
             kind=eng.kernel_kind, launches=launches, bits=digest(cs[0]), err=err,
-            err_all=err_all, peak=peak, held=held, packed=nbytes(*eng.packed),
-            max_abs=max_abs, rel_fro=rel_fro,
-            bases16=eng.peers.ptrs16,
-            exec_ms=wall_ms(lambda: eng.exec_device(bs)), kernel_ms=wall_ms(run_kernel),
-            plain_ms=wall_ms(run_plain, 3), rows=(r0, r1),
-            bound=function_bound(op, csr_work(shard), N, torch.float32),
+            err_all=err_all, tol=tol, peak=peak, held=held, packed=nbytes(*eng.packed),
+            max_abs=max_abs, rel_fro=rel_fro, bases16=eng.peers.ptrs16,
+            exec_ms=wall_ms(lambda: eng.exec_device(bs)), rows=(q0, q1),
             stat=eng.print_stat().splitlines()[1], main_moved=main_moved)
-        if prec == "x3":  # cuSPARSE on this rank's shard and the global B
-            got["points"][prec]["library_ms"] = csr_library_ms(
-                shard.rowptr, shard.colidx, shard.val, a.ncol,
-                torch.from_numpy(b).to(device))
+        if timed:
+            sh_a = a.row_slice(q0, q1)
+            pt.update(kernel_ms=wall_ms(run_kernel), plain_ms=wall_ms(run_plain, 3),
+                      bound=function_bound(op, csr_work(sh_a), N,
+                                           torch.float64 if dtype == np.float64
+                                           else torch.float32))
 
         def kernel_and_plain():
             k = run_kernel()
             return k, sh.spmm_halo_plain(*args[:5], owner_rows(eng.peers), *args[6:],
                                          consumers=[rank])
 
-        got["points"][prec]["b2b"] = back_to_back(
-            eng, rank, device, [eng.shard_b(x) for x in bseq], kernel_and_plain)
+        pt["b2b"] = back_to_back(eng, rank, device,
+                                 [eng.shard_b(x) for x in changing_bs(a, dtype)],
+                                 kernel_and_plain)
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()  # pipelined: the execs back to back, one sync at the end
         for _ in range(B2B_EXECS):
             eng.exec_device(bs)
         torch.cuda.synchronize(device)
-        got["points"][prec]["pipelined_ms"] = (time.perf_counter() - t0) * 1e3 / B2B_EXECS
-        if prec == "x3":
-            got["points"][prec]["withheld"] = withheld_exec(eng, rank, device, bs)
+        pt["pipelined_ms"] = (time.perf_counter() - t0) * 1e3 / B2B_EXECS
+        if withhold:
+            pt["withheld"] = withheld_exec(eng, rank, device, bs)
         else:
             eng.close()
-        del eng, op, args, pargs, owners, cs, bs, run_kernel, run_plain, kernel_and_plain
+        del eng, op, args, pargs, owners, cs, bs
         a.__dict__.pop("_torch_pack_cache", None)  # the engines' pack memo on A
         torch.cuda.empty_cache()
+        return pt
+
+    for prec in PRECS:
+        pt = fused_point(prec, prec, a, c_ref, b, TOL_REF[prec], withhold=prec == "x3")
+        if prec == "x3":  # cuSPARSE on this rank's shard and the global B
+            pt["library_ms"] = csr_library_ms(shard.rowptr, shard.colidx, shard.val,
+                                              a.ncol, torch.from_numpy(b).to(device))
+    if f64_path is not None:
+        a64, c64_ref = load_case(f64_path)
+        fused_point("fp64", "highest", a64, c64_ref,
+                    np.asarray(fill_b(0, a64.ncol, 0, N)), TOL_DD, withhold=True,
+                    timed=False)
+        del a64
     for mode in unfused:
         eng, peak, held = measured_init(device, lambda: RowParaSpmm(
             a, d, d, N, mesh=mesh, dtype=np.float32, config=SpmmConfig(
@@ -2379,9 +2476,11 @@ def multirank_path(device) -> list:
     """Shards on several ranks, on the one card: (b) one rank over NCCL;
     a probe of what gloo carries for CUDA tensors; (a) 4 ranks, one
     process each, on the headline at p = 4: ``auto`` -> #12 across
-    processes at x3, default and highest, each rank's C shard equal bit
-    for bit to slice [r] of the one-device fused engine's (headline_p4),
-    its rows within the point's class; (c) the unfused exchanges gloo
+    processes at x3, default and highest, and on the fp64 headline in fp64
+    (#12's fp64 entry: #11's DMMA body, the flags' waits in its producer
+    warpgroup), each rank's C shard equal bit for bit to slice [r] of the
+    one-device fused engine's (headline_p4, fp64_p4), its rows within the
+    point's class (1e-12 in fp64); (c) the unfused exchanges gloo
     carries, their C shards equal to the one-device engine's likewise;
     (d) ``CrpSpmm`` on the ranks' meshes (multirank_crp, checked against
     any_layout_path's one-device engines by multirank_crp_check).  #12
@@ -2390,8 +2489,8 @@ def multirank_path(device) -> list:
     launches its wait, signal and done kernels once each a rank; the
     back-to-back run with B changing every exec and the ranks skewed on
     the host gives every rank's C equal to an ordered replay's, within
-    the plain version's tolerance; one exec withheld by rank
-    WITHHOLD_RANK makes every other rank raise ``HaloTimeout`` within
+    the plain version's tolerance; at x3 and at fp64 one exec withheld by
+    rank WITHHOLD_RANK makes every other rank raise ``HaloTimeout`` within
     BOUND_TEST_S + BOUND_SLACK_S with its C NaN, and the set still
     closes and exits 0.  The records of #12 across processes: its
     main-path launches over the ranks, its largest difference from its
@@ -2424,26 +2523,31 @@ def multirank_path(device) -> list:
         check(carried["all_to_all_single uneven"],
               "gloo here does not carry all_to_all_single with uneven splits on CUDA "
               "tensors, RedistEngine's transport across ranks")
-        case, cplaw_case = f"{tmp}/headline.npz", f"{tmp}/cplaw.npz"
+        case, cplaw_case, f64_case = (f"{tmp}/{x}.npz" for x in
+                                      ("headline", "cplaw", "fp64_headline"))
         ac, _, cc_ref = shared_case("cplaw")[:3]
-        for path, (x, x_ref) in ((case, (a, c_ref)), (cplaw_case, (ac, cc_ref))):
+        a64, _, c64_ref = shared_case("fp64 headline")[:3]
+        for path, (x, x_ref) in ((case, (a, c_ref)), (cplaw_case, (ac, cc_ref)),
+                                 (f64_case, (a64, c64_ref))):
             np.savez(path, shape=(x.nrow, x.ncol), rowptr=x.rowptr, colidx=x.colidx,
                      val=x.val, c_ref=x_ref)
+        _CASES.pop("fp64 headline")  # no later phase drives it
         outs = [f"{tmp}/rank{r}.json" for r in range(MULTIRANK_P)]
         t0 = time.perf_counter()
         run_rank_set(multirank_rank, MULTIRANK_P,
-                     lambda r: (case, outs[r], unfused, cplaw_case),
+                     lambda r: (case, outs[r], unfused, cplaw_case, f64_case),
                      MULTIRANK_TIMEOUT, "multirank")
         ranks = [json.loads(open(o).read()) for o in outs]
         say(f"[multirank] {MULTIRANK_P} ranks, one process each, on the one card: "
             f"{time.perf_counter() - t0:.1f} s from spawn to exit")
 
     halo = dict(launches=0, max_abs=0.0, flag_launches=[0, 0, 0])
-    for prec in PRECS:
+    for prec in (*PRECS, "fp64"):
         want = _MEASURED.get(f"p=4 fused {prec}")
         for r, rk in enumerate(ranks):
             pt = rk["points"][prec]
             tag = f"multirank {prec} rank {r}"
+            tol_plain = TOL_PLAIN[np.float64] if prec == "fp64" else TOL_PLAIN_FRO
             halo["launches"] += pt["launches"]["spmm_halo"]
             halo["max_abs"] = max(halo["max_abs"], pt["max_abs"])
             same = want is not None and pt["bits"] == want["bits"][r]
@@ -2454,15 +2558,16 @@ def multirank_path(device) -> list:
                 f"{sum(v for k, v in pt['launches'].items() if k != 'spmm_halo')}); C "
                 f"shard {'equal to the one-device fused engine bit for bit' if same else 'DIFFERS'}"
                 f"; rel_fro_err of its rows {pt['err']:.3e} (whole C {pt['err_all']:.3e}, "
-                f"tol {TOL_REF[prec]:g}); init device memory peak {pt['peak'] / 1e9:.3f} "
+                f"tol {pt['tol']:g}); init device memory peak {pt['peak'] / 1e9:.3f} "
                 f"GB, held {pt['held'] / 1e9:.3f} GB, packed {pt['packed'] / 1e9:.3f} GB "
                 f"({one}); vs plain rel fro err {pt['rel_fro']:.3e}, max abs "
                 f"{pt['max_abs']:.3e}; bases on 16 bytes {pt['bases16']}; {pt['stat']}")
             say(f"[{tag}] time-shared (4 processes on one card; flags, no host barrier; "
                 f"no speed figure): exec {pt['exec_ms']:.3f} ms, {B2B_EXECS} execs back "
-                f"to back {pt['pipelined_ms']:.3f} ms an exec, kernel "
-                f"{pt['kernel_ms']:.3f} ms, plain {pt['plain_ms']:.3f} ms, bound "
-                f"{pt['bound'][0]:.4f} ms ({pt['bound'][1]})"
+                f"to back {pt['pipelined_ms']:.3f} ms an exec"
+                + (f", kernel {pt['kernel_ms']:.3f} ms, plain {pt['plain_ms']:.3f} ms, "
+                   f"bound {pt['bound'][0]:.4f} ms ({pt['bound'][1]})"
+                   if "kernel_ms" in pt else "")
                 + (f"; PR 20's host barriers included: {PR20_RANK_MS:.4f} ms (rank 0, x3)"
                    if r == 0 and prec == "x3" else ""))
             mv, b2b = pt["main_moved"], pt["b2b"]
@@ -2480,12 +2585,12 @@ def multirank_path(device) -> list:
             check(mv[:2] == [0, 0] and mv[2:] == [1, 1, 1],
                   f"{tag}: HaloPeers across the main path: {mv}")
             check(b2b["same"] and b2b["distinct"] == len(B2B_SEEDS)
-                  and b2b["moved"][:2] == [0, 0] and max(b2b["plain"]) <= TOL_PLAIN_FRO,
+                  and b2b["moved"][:2] == [0, 0] and max(b2b["plain"]) <= tol_plain,
                   f"{tag}: back to back {b2b}")
             check(want is not None and same,
                   f"{tag}: C shard differs from slice {r} of the one-device fused engine's")
-            check(pt["launches"]["spmm_halo"] == 1 and pt["err"] <= TOL_REF[prec]
-                  and pt["err_all"] <= TOL_REF[prec] and pt["rel_fro"] <= TOL_PLAIN_FRO,
+            check(pt["launches"]["spmm_halo"] == 1 and pt["err"] <= pt["tol"]
+                  and pt["err_all"] <= pt["tol"] and pt["rel_fro"] <= tol_plain,
                   f"{tag}: launches {pt['launches']}, err {pt['err']}, vs plain "
                   f"{pt['rel_fro']}")
     for mode in ("a2a", "ring"):
@@ -2514,9 +2619,9 @@ def multirank_path(device) -> list:
             check(uf["peak"] <= INIT_PEAK_OVER_HELD * keep,
                   f"multirank {mode} rank {r}: init peaks at {uf['peak'] / 1e9:.3f} GB, over "
                   f"{INIT_PEAK_OVER_HELD} x the {keep / 1e9:.3f} GB it holds")
-    for r, rk in enumerate(ranks):  # (c) the withheld exec, at x3
-        w = rk["points"]["x3"]["withheld"]
-        tag = f"multirank bound rank {r}"
+    for key, r, rk in ((k, r, rk) for k in ("x3", "fp64") for r, rk in enumerate(ranks)):
+        w = rk["points"][key]["withheld"]  # (c) the withheld exec, at x3 and fp64
+        tag = f"multirank bound {key} rank {r}"
         if w["withheld"]:
             say(f"[{tag}] withheld one exec; closed {w['closed']} after {w['close_s']:.2f} s")
             check(w["closed"] == "clean", f"{tag}: {w}")
@@ -3968,12 +4073,15 @@ def dd_layout(build) -> None:
     """Print the DMMA body's resources once (``[dd]``): the ring's stages,
     dynamic shared memory, threads, the block tile and the DMMA shape, and
     for its 16-byte and 8-byte B copy kernels, on the ragged walk (#11 and
-    #6 on fp64) and on the windowed walk (#3 on fp64), registers, spill
-    bytes and resident blocks per SM, which must be 0 and at least 1; with
-    why the tile is what it is."""
+    #6 on fp64), on the windowed walk (#3 and #4 on fp64), with B through
+    the chunk table (#12 on fp64) and with the waits across processes
+    (#12's ``_flags`` entry), registers, spill bytes and resident blocks
+    per SM, which must be 0 and exactly 1; with why the tile is what it
+    is."""
     lay = build.dd_layout()
-    say(f"[dd] crp_ragged_dd_f64tc / crp_ragged_f64 (b16, b8) / crp_window_sg_f64 (w16, "
-        f"w8): {json.dumps(lay)}; a {lay['BM']} x {lay['BN']} tile "
+    say(f"[dd] crp_ragged_dd_f64tc / crp_ragged_f64 (b16, b8) / crp_window_sg_f64 / "
+        f"crp_window_f64 (w16, w8) / crp_halo_f64 (c16, c8) / crp_halo_f64_flags (f16, "
+        f"f8): {json.dumps(lay)}; a {lay['BM']} x {lay['BN']} tile "
         f"owns a group's rows at TM = 128 (each B chunk read once per n-tile); "
         f"{lay['consumers'] // 32} consumer warps of 64 x 32 hold 64 fp64 accumulators "
         f"a thread, so one block an SM walks tiles and {lay['stages']} ring stages of "
@@ -3982,9 +4090,9 @@ def dd_layout(build) -> None:
         f"registers of the {lay['b16.registers']} launched; "
         f"m{lay['mma_m']}n{lay['mma_n']}k{lay['mma_k']}: the fastest shape in "
         f"crp_tpu_torch.cli.dd_split")
-    for copy in ("b16", "b8", "w16", "w8"):
-        check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 1,
-              f"dd kernel {copy}: {lay}: spills, or no block fits an SM")
+    for copy in ("b16", "b8", "w16", "w8", "c16", "c8", "f16", "f8"):
+        check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] == 1,
+              f"dd kernel {copy}: {lay}: spills, or not one block an SM")
 
 
 def main() -> int:
@@ -4023,7 +4131,7 @@ def main() -> int:
         for phase in (kernel_phase, presplit_ab_phase, ragged_phase, gather_phase,
                       dd_phase, window_phase, halo_phase, headline, cplaw_path,
                       scrambled_cplaw_path, reorder_path, fp64_path, headline_p4,
-                      cplaw_p4, para2d_phase, any_layout_path, multirank_path,
+                      fp64_p4, cplaw_p4, para2d_phase, any_layout_path, multirank_path,
                       training_path, drivers_path):
             if phase is headline_p4:  # the worker is free of the cases and reorder_host
                 start_host_job("training graph", training_case, case_dir)

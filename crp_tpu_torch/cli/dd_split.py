@@ -60,6 +60,7 @@ SHAPES = {"m8n8k4": (8, 4), "m16n8k4": (16, 4), "m16n8k8": (16, 8), "m16n8k16": 
 NO_COPIES = (
     ("cp_async<16>(a_dst, a_src, true);", ""),
     ("cp_async<B_BYTES>(b_dst, b_src, col_ok);", ""),
+    ("cp_async<B_BYTES>(b_dst, b_src, ok);", ""),  # B through the chunk table (#12)
 )
 NO_PRODUCTS = (("compute_slice(st);", ""),)
 _SHAPE_LINE = r"constexpr int DD_MMA_{} = (\d+);"

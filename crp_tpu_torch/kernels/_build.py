@@ -43,15 +43,15 @@ _ENTRIES = {
     "crp_window_x3": ("window", 5, ("G", "TM", "W", "n")),
     "crp_window_bf16": ("window", 4, ("G", "TM", "W", "n")),
     "crp_window_f32": ("window", 4, ("G", "TM", "W", "n")),
-    "crp_window_f64": ("window", 4, ("G", "TM", "W", "n")),
+    "crp_window_f64": ("dd_tc", 4, ("G", "TM", "W", "n")),
     "crp_halo_x3": ("halo", 5, ("G", "TM", "W", "n", "rows16")),
     "crp_halo_bf16": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
     "crp_halo_f32": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
-    "crp_halo_f64": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
+    "crp_halo_f64": ("dd_tc", 4, ("G", "TM", "W", "n", "rows16")),
     "crp_halo_x3_flags": ("halo", 6, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
     "crp_halo_bf16_flags": ("halo", 5, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
     "crp_halo_f32_flags": ("halo", 5, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
-    "crp_halo_f64_flags": ("halo", 5, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
+    "crp_halo_f64_flags": ("dd_tc", 5, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
     "crp_halo_wait": ("halo", 2, ("n_readers", "need", "bound_ns")),
     "crp_halo_signal": ("halo", 2, ("value",)),
     "crp_halo_done": ("halo", 3, ("value", "c_bytes")),
@@ -190,12 +190,14 @@ def spill_layout() -> dict:
 
 
 def dd_layout() -> dict:
-    """The DMMA body of ``dd_tc.cu`` (#11, and #3 and #6 on fp64) as
-    ``crp_dd_layout`` reports it: the ring's stages and dynamic shared
+    """The DMMA body of ``dd_tc.cu`` (#11, and #3, #4, #6 and #12 on fp64)
+    as ``crp_dd_layout`` reports it: the ring's stages and dynamic shared
     memory, threads, the block tile (``BM``, ``BN``, ``BK``), the DMMA
     shape (``mma_m``, ``mma_n``, ``mma_k``) and, for its kernels with
     16-byte and 8-byte B copies, on the ragged walk (``b16.*``, ``b8.*``:
-    #11, #6) and on the windowed walk (``w16.*``, ``w8.*``: #3),
+    #11, #6), on the windowed walk (``w16.*``, ``w8.*``: #3, #4), with B
+    through the chunk table (``c16.*``, ``c8.*``: #12) and with the waits
+    across processes (``f16.*``, ``f8.*``: #12's ``_flags`` entry),
     registers, local (spill) bytes and resident blocks per SM."""
     return _report("crp_ragged_dd_f64tc", "crp_dd_layout")
 

@@ -1,5 +1,6 @@
 // Hopper kernels for the fp64 SpMM on the FP64 tensor cores: one DMMA
-// body, ragged_dd_kernel, with two walks.
+// body, ragged_dd_kernel, with two walks, and on the windowed walk B read
+// through a chunk table (CHUNKED) and gated on flags in peer memory (FLAGS).
 //
 // The ragged walk: group g owns the chunks s in [group_ptr[g],
 // group_ptr[g + 1]), chunk s is a dense (TM, Wc) fp64 panel over the B
@@ -13,6 +14,28 @@
 // windowed walk (WINDOW) is the uniform pack's: group g owns the one chunk
 // s = g, group_ptr is not read and starts is ws, as in the tile kernels of
 // panel_tiles.cuh with group_ptr == nullptr.
+//
+// CHUNKED (#12, the fused halo kernel, on the windowed walk): B lives in
+// its owners' shards, and b is a table of pointers, one per HALO_TK-row
+// chunk of B (panel_tiles.cuh: the chunk's first row in its owner's
+// shard, null past the matrix).  Every window start is a multiple of
+// HALO_TK and a 32-row k slice divides it, so a slice never crosses a
+// chunk: the producers look its pointer up once (b_slice_row), before they
+// wait for the stage to free.  A dead chunk's rows are zero-filled by the
+// copy (source size 0), as the columns past n are.  FLAGS (#12 across
+// processes; CHUNKED, the table's entries (row pointer, arrive word)
+// pairs): before the producers' first B copy from an owner they have not
+// waited for, once the stage's A copies are issued, producer thread 0
+// spins on the owner's arrive word (panel_tiles.cuh halo_wait) and a named
+// barrier over the 128 producers (barrier 1, which the consumers never
+// reach) hands on its acquire and whether it gave up.  The memo is the
+// owner last waited for: a block that moves on to a tile whose window
+// starts at another owner may wait again on one it has seen (only an
+// acquire), and never skips a wait.  After a give-up every later chunk of
+// the block is dead, but the producers still make every stage's copies and
+// arrivals, so no consumer waits on a stage that does not come; the
+// caller's done kernel (halo.cu) turns C into NaN.  The other kernels
+// compile without either: both flags default off.
 //
 // Replaces (crp_tpu/kernels/):
 //   crp_ragged_dd_f64tc <- _ragged_kernel_dd (spmm_dd_mxu.py), which
@@ -31,8 +54,13 @@
 //                          the same instantiation as crp_ragged_dd_f64tc
 //   crp_window_sg_f64   <- _window_kernel_sg (spmm_pallas.py) on fp64: the
 //                          windowed walk on the uniform pack's panels
-// The fp64 entries of #4 and #12 (window.cu, halo.cu) still run the FMA
-// tile body of panel_tiles.cuh.
+//   crp_window_f64      <- _window_kernel (spmm_pallas.py) on fp64, every
+//                          multi-shard pack: the same arrays, so the same
+//                          instantiation as crp_window_sg_f64
+//   crp_halo_f64        <- _halo_kernel (spmm_halo.py) on fp64, one card:
+//                          the windowed walk with B through the chunk table
+//   crp_halo_f64_flags  <- the same across processes, its arrival
+//                          semaphores the owners' arrive words (FLAGS)
 //
 // Layout: a tile is a 128-row slice of a group (all of it at TM = 128)
 // and a 128-column n-tile, so each B chunk is read once per n-tile, by
@@ -44,10 +72,11 @@
 // along N, each owning a 64 x 32 slab, 4 x 4 tiles of 16 x 8 and 64 fp64
 // accumulators (128 registers) a thread.  One produces: its 128 threads
 // copy every slice.  setmaxnreg gives a consumer thread 224 registers and
-// a producer 48 (an SM sub-partition holds one warp of each warpgroup:
-// 48 + 2 x 224 of its 512 registers a lane).  Without it a launch of 3
-// warps a sub-partition holds every thread to 168 registers, and the
-// consumers spill (a producer warp in place of the warpgroup did).
+// a producer 48, 56 with the flags' waits (an SM sub-partition holds one
+// warp of each warpgroup: 48 + 2 x 224 of its 512 registers a lane).
+// Without it a launch of 3 warps a sub-partition holds every thread to 168
+// registers, and the consumers spill (a producer warp in place of the
+// warpgroup did).
 //
 // Shape: Hopper's mma.sync.m16n8k8.f64 (sm_90).  DD_MMA_M and DD_MMA_K
 // select m16n8k4, m16n8k16 or Ampere's m8n8k4 (two to a 16 x 8 tile) in
@@ -99,6 +128,8 @@
 
 #include <cuda_runtime.h>
 
+#include "panel_tiles.cuh"  // HALO_TK, the chunk lookup and the flags of #12
+
 namespace {
 
 constexpr int DD_BM = 128;   // block rows: a group at TM = 128
@@ -113,6 +144,10 @@ constexpr int DD_THREADS = DD_CONSUMERS + DD_PRODUCERS;
 // of each warpgroup, 48 + 2 * 224 of its 512 registers a lane
 constexpr int DD_PRODUCER_REGS = 48;
 constexpr int DD_CONSUMER_REGS = 224;
+// FLAGS: the producers' waits spill at 48 (24 bytes with 16-byte B
+// copies; H100, nvcc 12.9); 56 + 2 x 224 = 504 of 512 fits, and the
+// launch's 384 x 168 registers hold 128 x 56 + 256 x 224 exactly
+constexpr int DD_FLAG_PRODUCER_REGS = 56;
 constexpr int DD_MMA_M = 16;   // the DMMA shape: m16n8k{4,8,16}, or m8n8k4
 constexpr int DD_MMA_K = 8;
 constexpr int DD_WM = DD_BM / (DD_CONSUMERS / 32 / DD_WARPS_N);  // 64 rows a warp
@@ -178,6 +213,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity)
                      "selp.u32 %0, 1, 0, p;\n}\n"
                      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     } while (!done);
+}
+
+// whether pred holds on any of the producer warpgroup's threads: a named
+// barrier (1) over its DD_PRODUCERS threads, which the consumers never
+// reach; it also orders their memory accesses as a block barrier would
+__device__ __forceinline__ bool producers_any(bool pred)
+{
+    uint32_t any;
+    asm volatile("{\n.reg .pred p;\n"
+                 "setp.ne.u32 p, %1, 0;\n"
+                 "bar.red.or.pred p, 1, %2, p;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(any) : "r"((uint32_t)pred), "n"(DD_PRODUCERS) : "memory");
+    return any != 0;
 }
 
 // d += a b on one 16 x 8 tile, fp64 on the tensor cores: one Hopper
@@ -248,10 +297,12 @@ __device__ __forceinline__ Tile tile_at(int64_t tile, int64_t TM, int64_t n_tile
     return t;
 }
 
-// B_VEC: n is even and B starts on 16 bytes, so every B row piece of two
-// doubles is 16-byte aligned: 16-byte copies; else 8-byte ones.  WINDOW:
-// the windowed walk (one chunk a group, s = g)
-template <bool B_VEC, bool WINDOW>
+// B_VEC: n is even and B starts on 16 bytes (under CHUNKED: every chunk's
+// rows do), so every B row piece of two doubles is 16-byte aligned: 16-byte
+// copies; else 8-byte ones.  WINDOW: the windowed walk (one chunk a group,
+// s = g).  CHUNKED: b is the chunk table; FLAGS: of (row pointer, arrive
+// word) pairs, the waits bounded by flags (see above)
+template <bool B_VEC, bool WINDOW, bool CHUNKED = false, bool FLAGS = false>
 __global__ void __launch_bounds__(DD_THREADS, 1)
 ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
                  const int32_t* __restrict__ starts,
@@ -259,8 +310,10 @@ ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
                  const double* __restrict__ b,
                  double* __restrict__ c,
                  int64_t TM, int64_t W, int64_t n, int64_t n_tiles, int64_t tiles,
-                 bool c_vec)
+                 bool c_vec, const crp::HaloFlags flags)
 {
+    static_assert(!CHUNKED || WINDOW, "the chunk table serves the windowed walk (#12)");
+    static_assert(!FLAGS || CHUNKED, "the flags gate the chunk lookup");
     extern __shared__ __align__(16) double dd_smem[];
     double* const As = dd_smem;                           // [STAGES][BM][A_LD]
     double* const Bs = dd_smem + DD_STAGES * DD_A_STAGE;  // [STAGES][BK][B_LD]
@@ -287,7 +340,8 @@ ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
         // the producers: thread p copies the 16-byte A pieces p % (BK / 2)
         // of the rows p / (BK / 2) + A_ROWS i, and the B piece p % B_COLS
         // (16 bytes, or 8 where !B_VEC) of the rows p / B_COLS + B_ROWS i
-        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(DD_PRODUCER_REGS));
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                     :: "n"(FLAGS ? DD_FLAG_PRODUCER_REGS : DD_PRODUCER_REGS));
         constexpr int A_ROWS = DD_PRODUCERS / (DD_BK / 2);    // rows a pass
         constexpr int B_COLS = B_VEC ? DD_BN / 2 : DD_BN;    // copies a row
         constexpr int B_ROWS = DD_PRODUCERS / B_COLS;
@@ -295,6 +349,8 @@ ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
         const int p = tid - DD_CONSUMERS;
         const int a_r = p / (DD_BK / 2), a_k = (p % (DD_BK / 2)) * 2;
         const int b_r = p / B_COLS, b_c = (p % B_COLS) * (B_VEC ? 2 : 1);
+        [[maybe_unused]] const unsigned long long* gate = nullptr;  // FLAGS: the owner
+        [[maybe_unused]] bool failed = false;  // last waited for; a wait of the block gave up
         int t = 0;
         for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
             const Tile tl = tile_at(tile, TM, n_tiles);
@@ -304,6 +360,16 @@ ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
                 const int64_t start = __ldg(starts + s);
                 for (int k0 = 0; k0 < W; k0 += DD_BK, ++t) {
                     const int st = t % DD_STAGES;
+                    // CHUNKED: the slice's rows, row b_row on of `rows`, and
+                    // with FLAGS its owner's arrive word (see above)
+                    [[maybe_unused]] const double* rows = b;
+                    [[maybe_unused]] int64_t b_row = 0;
+                    [[maybe_unused]] bool live = true;
+                    [[maybe_unused]] const unsigned long long* word = nullptr;
+                    if constexpr (CHUNKED)
+                        b_row = crp::b_slice_row<true, FLAGS>(
+                            reinterpret_cast<const int32_t*>(b), start + k0, &live, &rows,
+                            &word);
                     mbar_wait(empty0 + 8 * st, ((t / DD_STAGES) & 1) ^ 1);
                     const double* a_src =
                         panels + (size_t)((int64_t)s * TM + tl.r_in + a_r) * W + k0 + a_k;
@@ -315,16 +381,43 @@ ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
                         a_src += (size_t)A_ROWS * W;
                         a_dst += A_ROWS * DD_A_LD * 8;
                     }
-                    const double* b_src =
-                        col_ok ? b + (size_t)(start + k0 + b_r) * n + tl.n0 + b_c : b;
-                    const size_t b_step = col_ok ? (size_t)B_ROWS * n : 0;
-                    uint32_t b_dst = (uint32_t)__cvta_generic_to_shared(
-                        Bs + st * DD_B_STAGE + b_r * DD_B_LD + b_c);
+                    if constexpr (CHUNKED) {
+                        if constexpr (FLAGS) {  // the slice's owner arrived (see above)
+                            if (word && word != gate && !failed) {
+                                gate = word;
+                                failed = producers_any(
+                                    p == 0 && crp::halo_wait(word, flags.epoch, flags.bound_ns,
+                                                             flags.status, crp::HALO_ARRIVAL,
+                                                             (start + k0) / crp::HALO_TK) != 0);
+                            }
+                            live = live && !failed;
+                        }
+                        // a dead chunk, or the columns past n: zeros, read
+                        // from nowhere (the panels are only a valid address)
+                        const bool ok = live && col_ok;
+                        const double* b_src =
+                            ok ? rows + (size_t)(b_row + b_r) * n + tl.n0 + b_c : panels;
+                        const size_t b_step = ok ? (size_t)B_ROWS * n : 0;
+                        uint32_t b_dst = (uint32_t)__cvta_generic_to_shared(
+                            Bs + st * DD_B_STAGE + b_r * DD_B_LD + b_c);
 #pragma unroll
-                    for (int i = 0; i < DD_BK / B_ROWS; ++i) {
-                        cp_async<B_BYTES>(b_dst, b_src, col_ok);
-                        b_src += b_step;
-                        b_dst += B_ROWS * DD_B_LD * 8;
+                        for (int i = 0; i < DD_BK / B_ROWS; ++i) {
+                            cp_async<B_BYTES>(b_dst, b_src, ok);
+                            b_src += b_step;
+                            b_dst += B_ROWS * DD_B_LD * 8;
+                        }
+                    } else {  // apart from the chunked copy: #11's, #3's, #6's SASS kept
+                        const double* b_src =
+                            col_ok ? b + (size_t)(start + k0 + b_r) * n + tl.n0 + b_c : b;
+                        const size_t b_step = col_ok ? (size_t)B_ROWS * n : 0;
+                        uint32_t b_dst = (uint32_t)__cvta_generic_to_shared(
+                            Bs + st * DD_B_STAGE + b_r * DD_B_LD + b_c);
+#pragma unroll
+                        for (int i = 0; i < DD_BK / B_ROWS; ++i) {
+                            cp_async<B_BYTES>(b_dst, b_src, col_ok);
+                            b_src += b_step;
+                            b_dst += B_ROWS * DD_B_LD * 8;
+                        }
                     }
                     mbar_arrive_cp_async(full0 + 8 * st);
                 }
@@ -408,30 +501,30 @@ ragged_dd_kernel(const int32_t* __restrict__ group_ptr,
 }
 
 // the ring's shared memory is dynamic: allow it, and the carveout
-template <bool B_VEC, bool WINDOW>
+template <bool B_VEC, bool WINDOW, bool CHUNKED = false, bool FLAGS = false>
 cudaError_t dd_prepare()
 {
-    cudaError_t e = cudaFuncSetAttribute(ragged_dd_kernel<B_VEC, WINDOW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         DD_SMEM);
+    auto kernel = ragged_dd_kernel<B_VEC, WINDOW, CHUNKED, FLAGS>;
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DD_SMEM);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(ragged_dd_kernel<B_VEC, WINDOW>,
-                                cudaFuncAttributePreferredSharedMemoryCarveout,
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <bool B_VEC, bool WINDOW>
+template <bool B_VEC, bool WINDOW, bool CHUNKED, bool FLAGS>
 cudaError_t dd_run(const void* group_ptr, const void* starts, const void* panels,
                    const void* b, void* c, int64_t tiles, int64_t TM, int64_t W,
-                   int64_t n, int64_t n_tiles, bool c_vec, void* stream)
+                   int64_t n, int64_t n_tiles, bool c_vec, const crp::HaloFlags& flags,
+                   void* stream)
 {
-    cudaError_t e = dd_prepare<B_VEC, WINDOW>();
+    cudaError_t e = dd_prepare<B_VEC, WINDOW, CHUNKED, FLAGS>();
     if (e != cudaSuccess) return e;
     // as many blocks as the card holds at once, each walking tiles
     int dev = 0, sms = 0, per_sm = 0;
     e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    auto kernel = ragged_dd_kernel<B_VEC, WINDOW>;
+    auto kernel = ragged_dd_kernel<B_VEC, WINDOW, CHUNKED, FLAGS>;
     if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DD_THREADS, DD_SMEM);
     if (e != cudaSuccess) return e;
@@ -439,50 +532,49 @@ cudaError_t dd_run(const void* group_ptr, const void* starts, const void* panels
     kernel<<<(unsigned)grid, DD_THREADS, DD_SMEM, (cudaStream_t)stream>>>(
         static_cast<const int32_t*>(group_ptr), static_cast<const int32_t*>(starts),
         static_cast<const double*>(panels), static_cast<const double*>(b),
-        static_cast<double*>(c), TM, W, n, n_tiles, tiles, c_vec);
+        static_cast<double*>(c), TM, W, n, n_tiles, tiles, c_vec, flags);
     return cudaGetLastError();
 }
 
 // " <name>.registers=.. <name>.local_bytes=.. <name>.blocks_per_sm=.." of
 // one instantiation
-template <bool B_VEC, bool WINDOW>
+template <bool B_VEC, bool WINDOW, bool CHUNKED = false, bool FLAGS = false>
 cudaError_t dd_resources(const char* name, char* out, int len)
 {
-    cudaError_t e = dd_prepare<B_VEC, WINDOW>();
-    cudaFuncAttributes attr;
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, ragged_dd_kernel<B_VEC, WINDOW>);
-    int per_sm = 0;
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, ragged_dd_kernel<B_VEC, WINDOW>, DD_THREADS, DD_SMEM);
+    const cudaError_t e = dd_prepare<B_VEC, WINDOW, CHUNKED, FLAGS>();
     if (e != cudaSuccess) return e;
-    snprintf(out, len, " %s.registers=%d %s.local_bytes=%d %s.blocks_per_sm=%d", name,
-             attr.numRegs, name, (int)attr.localSizeBytes, name, per_sm);
-    return cudaSuccess;
+    return crp::kernel_resources(ragged_dd_kernel<B_VEC, WINDOW, CHUNKED, FLAGS>, DD_THREADS,
+                                 DD_SMEM, name, out, len);
 }
 
 // An entry: check what the body takes (TM % 128, Wc % 32, panels on 16
-// bytes, and group_ptr unless WINDOW), then launch it with 16-byte B
-// copies where n is even and B starts on 16 bytes, else 8-byte ones.
-// Returns the CUDA error of a refusal or of the launch.
-template <bool WINDOW>
+// bytes, group_ptr unless WINDOW, and under FLAGS the pairs' table on 16
+// bytes), then launch it with 16-byte B copies where n is even and B starts
+// on 16 bytes (under CHUNKED, where every chunk's rows do: rows16; b is
+// then the table), else 8-byte ones.  Returns the CUDA error of a refusal
+// or of the launch.
+template <bool WINDOW, bool CHUNKED = false, bool FLAGS = false>
 int dd_entry(const void* group_ptr, const void* starts, const void* panels, const void* b,
-             void* c, int64_t G, int64_t TM, int64_t Wc, int64_t n, void* stream)
+             void* c, int64_t G, int64_t TM, int64_t Wc, int64_t n, void* stream,
+             bool rows16 = false, crp::HaloFlags flags = {})
 {
     if ((!WINDOW && !group_ptr) || G < 0 || TM <= 0 || TM % DD_BM || Wc <= 0 ||
         Wc % DD_BK || n < 0)
         return (int)cudaErrorInvalidValue;
-    if ((uintptr_t)panels % 16) return (int)cudaErrorMisalignedAddress;
+    if ((uintptr_t)panels % 16 || (FLAGS && (uintptr_t)b % 16))
+        return (int)cudaErrorMisalignedAddress;
     const int64_t n_tiles = (n + DD_BN - 1) / DD_BN;
     const int64_t tiles = G * (TM / DD_BM) * n_tiles;
     if (tiles > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     if (tiles == 0) return (int)cudaSuccess;
     const bool c_vec = n % 2 == 0 && (uintptr_t)c % 16 == 0;
-    const bool b_vec = n % 2 == 0 && (uintptr_t)b % 16 == 0;
-    return (int)(b_vec ? dd_run<true, WINDOW>(group_ptr, starts, panels, b, c, tiles, TM,
-                                              Wc, n, n_tiles, c_vec, stream)
-                       : dd_run<false, WINDOW>(group_ptr, starts, panels, b, c, tiles, TM,
-                                               Wc, n, n_tiles, c_vec, stream));
+    const bool b_vec = n % 2 == 0 && (CHUNKED ? rows16 : (uintptr_t)b % 16 == 0);
+    return (int)(b_vec ? dd_run<true, WINDOW, CHUNKED, FLAGS>(group_ptr, starts, panels, b, c,
+                                                              tiles, TM, Wc, n, n_tiles,
+                                                              c_vec, flags, stream)
+                       : dd_run<false, WINDOW, CHUNKED, FLAGS>(group_ptr, starts, panels, b,
+                                                               c, tiles, TM, Wc, n, n_tiles,
+                                                               c_vec, flags, stream));
 }
 
 }  // namespace
@@ -517,35 +609,73 @@ int crp_window_sg_f64(const void* ws, const void* tiles, const void* b,
     return dd_entry<true>(nullptr, ws, tiles, b, c, G, TM, W, n, stream);
 }
 
+// #4 on fp64: one shard of a multi-shard window pack, the arrays #3 takes
+int crp_window_f64(const void* ws, const void* tiles, const void* b, void* c,
+                   int64_t G, int64_t TM, int64_t W, int64_t n, void* stream)
+{
+    return dd_entry<true>(nullptr, ws, tiles, b, c, G, TM, W, n, stream);
+}
+
+// #12 on fp64, one card: rows the chunks' row pointers (halo.cu), ws (G,)
+// the global window starts (multiples of HALO_TK), tiles (G, TM, W) fp64
+// starting on 16 bytes, c (G*TM, n) fp64; rows16 says whether every row
+// pointer is on 16 bytes
+int crp_halo_f64(const void* rows, const void* ws, const void* tiles, void* c, int64_t G,
+                 int64_t TM, int64_t W, int64_t n, int64_t rows16, void* stream)
+{
+    return dd_entry<true, true>(nullptr, ws, tiles, rows, c, G, TM, W, n, stream,
+                                rows16 != 0);
+}
+
+// #12 on fp64 across processes (halo.cu's *_flags entries): rows the
+// chunks' (row pointer, arrive word) pairs (16-byte aligned), status this
+// rank's status word, epoch the loads every owner must have made, bound_ns
+// the longest a wait spins
+int crp_halo_f64_flags(const void* rows, const void* ws, const void* tiles, void* c,
+                       void* status, int64_t G, int64_t TM, int64_t W, int64_t n,
+                       int64_t rows16, int64_t epoch, int64_t bound_ns, void* stream)
+{
+    const crp::HaloFlags flags = {(unsigned long long)epoch, (unsigned long long)bound_ns,
+                                  static_cast<unsigned long long*>(status)};
+    return dd_entry<true, true, true>(nullptr, ws, tiles, rows, c, G, TM, W, n, stream,
+                                      rows16 != 0, flags);
+}
+
 // the kernel's resources as "key=value" pairs: the ring's stages and
 // dynamic shared memory, threads (the consumers' among them), the
 // registers setmaxnreg gives a consumer and a producer thread, the block
-// tile, the DMMA shape and, for its 16-byte ("b16") and 8-byte ("b8") B
-// copy kernels of the ragged walk and those of the windowed walk ("w16",
-// "w8"), the registers it is launched with, local (spill) bytes and
-// resident blocks per SM
+// tile, the DMMA shape and, for its kernels with 16-byte and 8-byte B
+// copies, on the ragged walk ("b16", "b8": #11, #6), the windowed walk
+// ("w16", "w8": #3, #4), with B through the chunk table ("c16", "c8": #12)
+// and with the flags' waits ("f16", "f8": #12 across processes), the
+// registers it is launched with, local (spill) bytes and resident blocks
+// per SM
 int crp_dd_layout(char* out, int len)
 {
     int used = snprintf(out, len,
                         "stages=%d smem_bytes=%d threads=%d consumers=%d "
-                        "consumer_registers=%d producer_registers=%d BM=%d BN=%d BK=%d "
-                        "mma_m=%d mma_n=8 mma_k=%d",
+                        "consumer_registers=%d producer_registers=%d "
+                        "flag_producer_registers=%d BM=%d BN=%d BK=%d mma_m=%d mma_n=8 "
+                        "mma_k=%d",
                         DD_STAGES, DD_SMEM, DD_THREADS, DD_CONSUMERS, DD_CONSUMER_REGS,
-                        DD_PRODUCER_REGS, DD_BM, DD_BN, DD_BK, DD_MMA_M, DD_MMA_K);
-    cudaError_t e = dd_resources<true, false>("b16", out + used, len - used);
-    if (e == cudaSuccess) {
+                        DD_PRODUCER_REGS, DD_FLAG_PRODUCER_REGS, DD_BM, DD_BN, DD_BK,
+                        DD_MMA_M, DD_MMA_K);
+    using Report = cudaError_t (*)(const char*, char*, int);
+    struct Kernel { const char* name; Report report; };
+    const Kernel kernels[] = {{"b16", dd_resources<true, false>},
+                              {"b8", dd_resources<false, false>},
+                              {"w16", dd_resources<true, true>},
+                              {"w8", dd_resources<false, true>},
+                              {"c16", dd_resources<true, true, true>},
+                              {"c8", dd_resources<false, true, true>},
+                              {"f16", dd_resources<true, true, true, true>},
+                              {"f8", dd_resources<false, true, true, true>}};
+    for (const Kernel& k : kernels) {
+        const cudaError_t e = k.report(k.name, out + used, len - used);
+        if (e != cudaSuccess) return (int)e;
         used += (int)strlen(out + used);
-        e = dd_resources<false, false>("b8", out + used, len - used);
     }
-    if (e == cudaSuccess) {
-        used += (int)strlen(out + used);
-        e = dd_resources<true, true>("w16", out + used, len - used);
-    }
-    if (e == cudaSuccess) {
-        used += (int)strlen(out + used);
-        e = dd_resources<false, true>("w8", out + used, len - used);
-    }
-    return (int)e;
+    return (int)cudaSuccess;
 }
 
 const char* crp_error_string(int code)

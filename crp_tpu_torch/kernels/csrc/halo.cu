@@ -65,13 +65,17 @@
 //                     (panel_tf32x3_kernel, #4's crp_window_f32 body): a
 //                     4-stage cp.async ring, dead chunks zero-filled by
 //                     the copy, three TF32 products per k step
-//   crp_halo_f64   <- fp64 panels: fp64 FMA
+//   crp_halo_f64   <- fp64 panels: an entry of dd_tc.cu, #11's DMMA body
+//                     on the FP64 tensor cores (the windowed walk, with the
+//                     chunk lookup, CHUNKED, and the waits, FLAGS, in its
+//                     producer warpgroup); its done kernel is this file's
 // Each body is #4's (window.cu) with the chunk lookup on the B load, the
 // per-32-row IEEE sums included.  At the p = 4 headline (4 x 214 groups,
 // W = 5632, n = 256) a pass is 632 GFLOP: x3's three bf16 passes 1.92 ms
 // at 989 TF/s (over 4.94 GB of hi/lo panels, 1.47 ms at 3.35 TB/s),
 // DEFAULT's one pass 0.64 ms, bound by its 2.47 GB of hi panels (0.74 ms),
-// HIGHEST's three TF32 passes 3.83 ms at 495 TF/s.
+// HIGHEST's three TF32 passes 3.83 ms at 495 TF/s, fp64's one pass 9.43 ms
+// at the FP64 tensor cores' 67 TF/s (over 9.87 GB of panels, 2.95 ms).
 
 #include "panel_tiles.cuh"
 #include "x3_wgmma.cuh"
@@ -162,15 +166,7 @@ int crp_tf32x3_layout(char* out, int len)
     return crp::tf32x3_layout<true>(out, len);
 }
 
-int crp_halo_f64(const void* rows, const void* ws, const void* tiles, void* c, int64_t G,
-                 int64_t TM, int64_t W, int64_t n, int64_t rows16, void* stream)
-{
-    (void)rows16;  // the FMA body loads B element by element
-    return crp::launch_fma<double, 64, 128, 8, 4, 8, true>(nullptr, ws, tiles, rows, c, G,
-                                                            TM, W, n, stream, rows);
-}
-
-// #12 across processes, the same four entries with the waits (see above):
+// #12 across processes, the same three entries with the waits (see above):
 // rows the chunks' (row pointer, arrive word) pairs (16-byte aligned),
 // status this rank's status word, epoch the loads every owner must have
 // made, bound_ns the longest a wait spins; rows16 says whether every row
@@ -203,17 +199,6 @@ int crp_halo_f32_flags(const void* rows, const void* ws, const void* tiles, void
     return crp::launch_tf32x3<true, true>(nullptr, ws, tiles, rows, c, G, TM, W, n, stream,
                                           rows, rows16 != 0,
                                           crp::halo_flags(status, epoch, bound_ns));
-}
-
-int crp_halo_f64_flags(const void* rows, const void* ws, const void* tiles, void* c,
-                       void* status, int64_t G, int64_t TM, int64_t W, int64_t n,
-                       int64_t rows16, int64_t epoch, int64_t bound_ns, void* stream)
-{
-    (void)rows16;
-    if ((uintptr_t)rows % 16) return (int)cudaErrorMisalignedAddress;
-    return crp::launch_fma<double, 64, 128, 8, 4, 8, true, true>(
-        nullptr, ws, tiles, rows, c, G, TM, W, n, stream, rows,
-        crp::halo_flags(status, epoch, bound_ns));
 }
 
 // Before this rank overwrites its B: one thread waits until each of the

@@ -1,5 +1,6 @@
 // Tile kernels shared by the windowed (window_sg.cu, window.cu), the fused
-// halo (halo.cu) and the ragged (ragged.cu) SpMM entries.
+// halo (halo.cu) and the ragged (ragged.cu) SpMM entries, and the chunk
+// lookup and flags of #12 that the DMMA body (dd_tc.cu) shares.
 //
 // A pack covers G row groups of TM rows.  Group g owns the chunks
 // s in [s_begin(g), s_end(g)); chunk s is a dense (TM, W) panel of A over
@@ -42,14 +43,14 @@
 // fastest, so the N tiles of one (group, M tile) run on neighbouring blocks
 // and the later reads of an A slice come from L2.
 //
-// Two tile bodies: panel_fma_kernel (fp64 FMA; one shared-memory stage,
-// the next slice staged through registers: #4 and #12 on fp64) and
-// panel_tf32x3_kernel (fp32 at HIGHEST on the TF32 tensor cores, fed by a
-// cp.async shared-memory ring, see its section: #3, #4, #6 and #12).  The
-// kernels on bf16 panels, x3 (#1, #5, #4, #12 and the ragged #7) and the
-// one-pass default (#2, #4, #12 and the ragged #8), run on wgmma fed by TMA
-// instead (x3_wgmma.cuh); #3 and #6 on fp64 run on the FP64 tensor cores,
-// #11's DMMA body with its windowed and its ragged walk (dd_tc.cu).
+// One tile body: panel_tf32x3_kernel (fp32 at HIGHEST on the TF32 tensor
+// cores, fed by a cp.async shared-memory ring, see its section: #3, #4, #6
+// and #12).  The kernels on bf16 panels, x3 (#1, #5, #4, #12 and the ragged
+// #7) and the one-pass default (#2, #4, #12 and the ragged #8), run on
+// wgmma fed by TMA instead (x3_wgmma.cuh); every fp64 entry (#3, #4, #6,
+// #12) runs on the FP64 tensor cores, #11's DMMA body with its windowed and
+// its ragged walk (dd_tc.cu), which takes the chunk lookup and the flags of
+// #12 from here.
 
 #pragma once
 
@@ -206,163 +207,6 @@ __device__ __forceinline__ int64_t b_slice_row(const int32_t* chunk_src,
         if (rows) *b = rows;
         return r % HALO_TK;
     }
-}
-
-// --------------------------------------------------------------- FMA path
-//
-// fp64 panels of #4 and #12 (window.cu, halo.cu); #3 and #6 on fp64 run on
-// the DMMA body of dd_tc.cu, fp32 on the 3xTF32 body below.
-
-__device__ __forceinline__ double fma_rn(double a, double b, double c)
-{
-    return __fma_rn(a, b, c);
-}
-
-// Block tile BM x BN, k step BK; each thread owns RM consecutive rows and
-// RN columns strided by BN / RN (neighbouring threads on neighbouring
-// columns: conflict-free B reads and coalesced C writes).
-template <typename T, int BM, int BN, int BK, int RM, int RN, bool CHUNKED = false,
-          bool FLAGS = false>
-__global__ void __launch_bounds__((BM / RM) * (BN / RN))
-panel_fma_kernel(const int32_t* __restrict__ group_ptr,
-                 const int32_t* __restrict__ starts,
-                 const T* __restrict__ tiles,
-                 const T* __restrict__ b,
-                 T* __restrict__ c,
-                 int64_t TM, int64_t W, int64_t n, int64_t n_tiles,
-                 const int32_t* __restrict__ chunk_src,
-                 const HaloFlags flags)
-{
-    static_assert(!FLAGS || CHUNKED, "the flags gate the chunk lookup");
-    constexpr int NT = (BM / RM) * (BN / RN);
-    constexpr int TX = BN / RN;
-    constexpr int A_PER = BM * BK / NT;
-    constexpr int B_PER = BK * BN / NT;
-    __shared__ __align__(16) T As[BK][BM + 4];  // transposed: As[k][m]
-    __shared__ __align__(16) T Bs[BK][BN];
-
-    const int tid = threadIdx.x;
-    const int64_t tile = blockIdx.x;
-    const int64_t nt = tile % n_tiles;
-    const int64_t row0 = (tile / n_tiles) * BM;
-    const int64_t g = row0 / TM;  // TM % BM == 0
-    const int64_t r_in = row0 - g * TM;
-    const int64_t n0 = nt * BN;
-    int64_t s_begin, s_end;
-    group_chunks(group_ptr, g, &s_begin, &s_end);
-    const int64_t nk = W / BK;
-    const int tx = tid % TX, ty = tid / TX;
-
-    T ra[A_PER], rb[B_PER];
-    T acc[RM][RN];
-    const unsigned long long* gate = nullptr;  // FLAGS: the owner last waited for
-    bool failed = false;
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = T(0);
-
-    auto load_tile = [&](int64_t t) {
-        const int64_t s = s_begin + t / nk;
-        const int64_t k0 = (t % nk) * BK;
-        bool b_live;
-        const T* bb = b;
-        const unsigned long long* word = nullptr;
-        const int64_t b_row0 =
-            b_slice_row<CHUNKED, FLAGS>(chunk_src, starts[s] + k0, &b_live, &bb, &word);
-        const T* a = tiles + (size_t)(s * TM + r_in) * W + k0;
-#pragma unroll
-        for (int i = 0; i < A_PER; ++i) {
-            const int idx = tid + i * NT;
-            ra[i] = a[(size_t)(idx / BK) * W + idx % BK];
-        }
-        halo_gate_block<FLAGS>(flags, starts[s] + k0, word, &gate, &failed);  // A in flight
-        if constexpr (FLAGS) b_live = b_live && !failed;
-#pragma unroll
-        for (int i = 0; i < B_PER; ++i) {
-            const int idx = tid + i * NT;
-            const int64_t col = n0 + idx % BN;
-            rb[i] = (b_live && col < n) ? bb[(size_t)(b_row0 + idx / BN) * n + col]
-                                        : T(0);
-        }
-    };
-    auto store_tile = [&]() {
-#pragma unroll
-        for (int i = 0; i < A_PER; ++i) {
-            const int idx = tid + i * NT;
-            As[idx % BK][idx / BK] = ra[i];
-        }
-#pragma unroll
-        for (int i = 0; i < B_PER; ++i) {
-            const int idx = tid + i * NT;
-            Bs[idx / BN][idx % BN] = rb[i];
-        }
-    };
-    auto compute_tile = [&]() {
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-            T av[RM], bv[RN];
-#pragma unroll
-            for (int i = 0; i < RM; ++i) av[i] = As[kk][ty * RM + i];
-#pragma unroll
-            for (int j = 0; j < RN; ++j) bv[j] = Bs[kk][tx + j * TX];
-#pragma unroll
-            for (int i = 0; i < RM; ++i)
-#pragma unroll
-                for (int j = 0; j < RN; ++j)
-                    acc[i][j] = fma_rn(av[i], bv[j], acc[i][j]);
-        }
-    };
-
-    const int64_t nt_k = (s_end - s_begin) * nk;
-    if (nt_k > 0) {
-        load_tile(0);
-        store_tile();
-        __syncthreads();
-    }
-    for (int64_t kt = 0; kt < nt_k; ++kt) {
-        if (kt + 1 < nt_k) load_tile(kt + 1);
-        compute_tile();
-        __syncthreads();
-        if (kt + 1 < nt_k) {
-            store_tile();
-            __syncthreads();
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-        const size_t row = (size_t)(row0 + ty * RM + i);
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-            const int64_t col = n0 + tx + j * TX;
-            if (col < n) c[row * n + col] = acc[i][j];
-        }
-    }
-}
-
-template <typename T, int BM, int BN, int BK, int RM, int RN, bool CHUNKED = false,
-          bool FLAGS = false>
-int launch_fma(const void* group_ptr, const void* starts, const void* tiles,
-               const void* b, void* c, int64_t G, int64_t TM, int64_t W,
-               int64_t n, void* stream, const void* chunk_src = nullptr,
-               HaloFlags flags = {})
-{
-    if (G < 0 || TM <= 0 || TM % BM || W <= 0 || W % BK || n < 0)
-        return (int)cudaErrorInvalidValue;
-    const int64_t n_tiles = (n + BN - 1) / BN;
-    const int64_t blocks = G * (TM / BM) * n_tiles;
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    if (blocks > 0)
-        panel_fma_kernel<T, BM, BN, BK, RM, RN, CHUNKED, FLAGS>
-            <<<(unsigned)blocks, (BM / RM) * (BN / RN), 0,
-               (cudaStream_t)stream>>>(
-                static_cast<const int32_t*>(group_ptr),
-                static_cast<const int32_t*>(starts),
-                static_cast<const T*>(tiles), static_cast<const T*>(b),
-                static_cast<T*>(c), TM, W, n, n_tiles,
-                static_cast<const int32_t*>(chunk_src), flags);
-    return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ 3xTF32 path

@@ -13,8 +13,8 @@ tensors with their leading shard axis stripped.  Ported kinds:
     at ``x3`` on their bf16 hi/lo pair), or the ragged gathered-window
     chunks (+ spill) where the uniform window is refused or over 3x a
     ragged cover; one pack per operating point (``x3``, ``default``,
-    ``highest``; fp64 data takes the panel kernels' fp64 entries: #3 and
-    #6 on the FP64 tensor cores, #4 by FMA);
+    ``highest``; fp64 data takes the panel kernels' fp64 entries, #3, #4
+    and #6, all on the FP64 tensor cores);
   * ``"ragged"`` — the ragged pack directly;
   * ``"gather"`` — every nonzero through the block-step gather kernel
     (fp32, any CSR: the scrambled power-law graphs the ragged cover
@@ -77,9 +77,8 @@ def resolve_auto_kernel(device, nshards: int = 1, *, overlap: bool = False,
     land on ``"pallas"`` where the halo plan refuses.
 
     The JAX package sends fp64 data on the TPU to ``dd``; here fp64 runs
-    natively in the panel kernels' fp64 entries: #3 and #6 on the FP64
-    tensor cores (#11's DMMA body), #4 and #12 (uniform packs over several
-    shards) by FMA.
+    natively in the panel kernels' fp64 entries, #3, #4, #6 and #12, all
+    on the FP64 tensor cores (#11's DMMA body).
     """
     if torch.device(device).type != "cuda":
         return "segsum"

@@ -4,10 +4,10 @@ One table of NVIDIA H100 SXM peaks (data sheet, dense, at 700 W) and one
 function, :func:`precision_point`, that prices an operating point in
 passes of a product type: the port's bodies take three bf16 products at
 ``x3``, one at ``default``, and three TF32 products at ``highest`` on fp32
-data (3xTF32); fp64 runs one pass, on the FP64 tensor cores in the DMMA
-body of ``csrc/dd_tc.cu`` (#3, #6 and the ``dd_mxu`` panels of #11) and
-on the FMA units in the tile body of ``csrc/panel_tiles.cuh`` (#4 and
-#12).  The JAX package prices ``highest`` at six passes
+data (3xTF32); fp64 runs one pass, every panel kernel's on the FP64
+tensor cores in the DMMA body of ``csrc/dd_tc.cu`` (#3, #4, #6, #12 and
+the ``dd_mxu`` panels of #11), the plain PyTorch tiers' (``segsum``,
+``ell``) on the FMA units.  The JAX package prices ``highest`` at six passes
 (``crp_tpu/plan/project.py:75``), which its packs' ``roofline["passes"]``
 keep; the port's roofline audits, the projection and ``chip_smoke.py``
 read this function instead.
@@ -24,8 +24,9 @@ PEAK = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "fp64": 34e12,
 
 
 # the op variants whose fp64 products run on the FP64 tensor cores: #3 on
-# the uniform super-grouped pack, #6 on the ragged pack, #11 on dd_mxu
-FP64_TC_VARIANTS = ("uniform", "ragged", "dd_mxu")
+# the uniform super-grouped pack, #4 on the multi-shard window pack, #6 on
+# the ragged pack, #11 on dd_mxu, #12 on the halo plan
+FP64_TC_VARIANTS = ("uniform", "window", "ragged", "dd_mxu", "halo")
 
 
 def precision_point(prec: str, dtype=np.float32, fp64_tc: bool = False) -> tuple:

@@ -587,7 +587,9 @@ def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows
     ``panels = (ah, al)`` and fp32 B (#4's ``wgmma`` body with the chunk
     lookup), at ``default`` the bf16 hi plane and bf16 B (its one-pass
     mode, fp32 C), at ``highest`` fp32 panels and B (3xTF32 on the tensor
-    cores), or fp64 panels and B; the bf16 panels must start on 16 bytes.
+    cores), or fp64 panels and B (on the FP64 tensor cores: #11's DMMA
+    body, ``csrc/dd_tc.cu``, its windowed walk with B through the chunk
+    table); the bf16 and fp64 panels must start on 16 bytes.
     fp32 panels at ``x3`` and ``default`` have no kernel: the plans hold
     the pair and the plane.  Without ``peers`` (one card) ``b_shards`` is
     the stacked B (p, max_k, n) of every owner and s = p; with them
@@ -625,6 +627,8 @@ def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows
                              f"{tuple(t.shape)}")
     if panel_dtype == torch.bfloat16:
         _check_aligned("spmm_halo", **dict(zip(("ah", "al"), planes)))
+    elif panel_dtype == torch.float64:
+        _check_aligned("spmm_halo", panels=planes[0])
     if ws.dtype != torch.int32 or ws.shape != (s_, G) or not ws.is_contiguous():
         raise ValueError(f"spmm_halo: ws must be contiguous int32 of shape ({s_}, {G})")
     if (chunk_src.dtype != torch.int32 or chunk_src.dim() != 2 or chunk_src.shape[1] != 2

@@ -33,7 +33,8 @@ packed (the TPU kernel splits or rounds its fp32 panels on every read;
 TMA, which feeds the ``wgmma`` body, copies and can do neither): it runs
 #1's body, or #2's one pass on B cast to bf16; on fp32 panels at
 ``highest`` it splits A and B to TF32 big/small (:func:`split_tf32`) as
-they are read for three TF32 tensor-core products; fp64 panels by FMA.
+they are read for three TF32 tensor-core products; fp64 panels on the
+FP64 tensor cores, the DMMA body of #3's fp64 entry (``csrc/dd_tc.cu``).
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
@@ -507,10 +508,13 @@ def spmm_window(ws, tiles, b, precision: str, *, min_b_rows: int):
     fp32 ``b`` (#1's ``wgmma`` body), at ``default`` the bf16 hi plane
     ``tiles`` and bf16 ``b`` (#2's one-pass body; fp32 C), at ``highest``
     fp32 ``tiles`` and ``b`` (3xTF32 on the tensor cores, held to the fp32
-    plain version), or fp64 tiles and B; the bf16 panels must start on 16
-    bytes (TMA).  fp32 panels at ``x3`` and ``default`` have no kernel: the
-    packs hold the pair and the plane.  Replaces ``spmm_window_pallas``
-    (``spmm_pallas.py:267``)."""
+    plain version), or fp64 tiles and B (on the FP64 tensor cores: #11's
+    DMMA body with its windowed walk, ``csrc/dd_tc.cu``, the same
+    instantiation as :func:`spmm_window_sg`'s fp64 entry); the bf16 and
+    fp64 panels must start on 16 bytes (TMA, 16-byte ``cp.async``), and
+    fp64 takes TM % 128 == 0 and W % 32 == 0.  fp32 panels at ``x3`` and
+    ``default`` have no kernel: the packs hold the pair and the plane.
+    Replaces ``spmm_window_pallas`` (``spmm_pallas.py:267``)."""
     pair = isinstance(tiles, tuple)
     panels = tiles if pair else (tiles,)
     if _placement("spmm_window", ws, *panels, b) == "cpu":
@@ -520,6 +524,8 @@ def spmm_window(ws, tiles, b, precision: str, *, min_b_rows: int):
                                    panel_dtype, b_dtype)
     if panel_dtype == torch.bfloat16:
         _check_aligned("spmm_window", **dict(zip(("ah", "al"), panels)))
+    elif panel_dtype == torch.float64:
+        _check_aligned("spmm_window", tiles=tiles)
     c = torch.empty((G * TM, n), dtype=torch.float64 if panel_dtype == torch.float64
                     else torch.float32, device=b.device)
     _launch(name, (ws.data_ptr(), *(t.data_ptr() for t in panels), b.data_ptr(),

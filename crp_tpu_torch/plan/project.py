@@ -123,9 +123,9 @@ def project_exec_1d(
 
     r = {**DEFAULT_RATES, **(rates or {})}
     itemsize = np.dtype(dtype).itemsize
-    # fp64 at one card runs #3 or #6 on the FP64 tensor cores, over several
-    # the fused #12 by FMA
-    passes, peak = precision_point(mxu_prec, dtype, fp64_tc=p == 1)
+    # fp64 runs on the FP64 tensor cores: #3 or #6 at one card, the fused
+    # #12 over several
+    passes, peak = precision_point(mxu_prec, dtype, fp64_tc=True)
     tensor = r.get(f"{mxu_prec}_tflops", r["highest_tflops"]) * 1e12
     hbm_rate, link = r["hbm_gbps"] * 1e9, r["link_gbps"] * 1e9
     tn = 256 if n % 256 == 0 else 128

@@ -680,6 +680,138 @@ def test_f64_entries_refuse_what_the_body_cannot_take(cuda_device):
     torch.cuda.synchronize(dev)  # no launch was made: nothing is left to fail
 
 
+# --------------------------------- #4 and #12 on fp64: the DMMA body too
+
+def _f64_halo_case(dev, n, off=0, seed=93):
+    """A 4-shard fp64 halo plan whose last windows run past the matrix
+    (dead chunks) and its stacked B, NaN-framed ``off`` elements in (an odd
+    ``off`` takes every chunk's rows off 16 bytes: 8-byte B copies)."""
+    a = banded_random_csr(5000, nnz_per_row=7, bandwidth=300, seed=seed)
+    d = csr_row_partition(a.rowptr, 4)
+    aligned = spmm_halo.align_displs(d, a.ncol)
+    shards = [a.row_slice(int(d[i]), int(d[i + 1])) for i in range(4)]
+    arrays, op = spmm_halo.build_halo_plan(shards, aligned, device=dev, dtype=np.float64)
+    b = fill_b(0, a.ncol, 0, n)
+    bs = np.zeros((4, op.min_b_rows, n))
+    for i in range(4):
+        bs[i, : aligned[i + 1] - aligned[i]] = b[aligned[i]:aligned[i + 1]]
+    return a, d, arrays, op, _nan_framed(torch.from_numpy(bs).to(dev), off)
+
+
+@pytest.mark.parametrize("n", [16, 37, 100, 256])
+def test_f64_window_multishard_equals_window_sg(cuda_device, n):
+    """#4 on fp64 (``crp_window_f64``) on a 4-shard pack (pad groups, an
+    empty shard) launches the DMMA body's windowed walk, the instantiation
+    of #3's fp64 entry: on the same arrays its C equals
+    ``spmm_window_sg``'s bit for bit and a second launch's, within 1e-12
+    of the plain version, pad rows zero; odd n and a B off 16 bytes take
+    the 8-byte B copies."""
+    a = banded_random_csr(6000, nnz_per_row=7, bandwidth=80, seed=92)
+    shards, max_m = _window_shards(a, 4)
+    arrays, op = _pack_window(shards, max_m + 300, np.float64, "highest", cuda_device)
+    assert op.variant == "window" and arrays[1].dtype == torch.float64
+    for off in (0, 1):
+        rB = _nan_framed(torch.from_numpy(_b(a, op.min_b_rows, n, np.float64)).to(
+            cuda_device), off)
+        for i in range(4):
+            ws, tiles = (x[i] for x in arrays)
+            before = spmm_pallas.spmm_window.launches
+            k4 = spmm_pallas.spmm_window(ws, tiles, rB, "highest", min_b_rows=op.min_b_rows)
+            again = spmm_pallas.spmm_window(ws, tiles, rB, "highest",
+                                            min_b_rows=op.min_b_rows)
+            assert spmm_pallas.spmm_window.launches == before + 2
+            k3 = spmm_pallas.spmm_window_sg(ws, tiles, rB, min_b_rows=op.min_b_rows)
+            assert _bits_equal(k4, k3) and _bits_equal(k4, again), (n, off, i)
+            p = spmm_pallas.spmm_window_plain(ws, tiles, rB, "highest")
+            assert float((k4 - p).norm()) <= 1e-12 * max(float(p.norm()), 1e-300)
+            nrow = len(shards[i][0]) - 1 if len(shards[i][1]) else 0
+            assert not torch.any(k4[nrow:])
+
+
+@pytest.mark.parametrize("n", [16, 37, 100, 256])
+def test_f64_halo_equals_window_per_shard(cuda_device, n):
+    """#12 on fp64 (``crp_halo_f64``: the DMMA body's windowed walk with B
+    through the chunk table) over 4 shards in one launch: each shard's C
+    equal bit for bit to #4 on fp64 on the plain version's window buffers
+    (one accumulator chain a C element, k upward, in both) and to a second
+    launch; within 1e-12 of the plain version; rows past each shard's own
+    zero; dead chunks (past the matrix) read as zeros, and B off 16 bytes
+    (``rows16`` false: 8-byte copies) gives the same bits."""
+    a, d, arrays, op, bs = _f64_halo_case(cuda_device, n)
+    dead = int((arrays[-1][:, 0] < 0).sum())
+    assert dead > 0
+    got = {}
+    for off in (0, 1):
+        if off:
+            bs = _nan_framed(bs.contiguous(), off)
+        args = op.kernel_args(arrays, bs)
+        assert spmm_halo.stacked_chunk_rows(args[4], args[5])[1] == (off == 0)
+        before = spmm_halo.spmm_halo.launches
+        k = op.kernel(*args, min_b_rows=op.min_b_rows)
+        again = op.kernel(*args, min_b_rows=op.min_b_rows)
+        assert spmm_halo.spmm_halo.launches == before + 2 and _bits_equal(k, again)
+        p = op.plain(*args)
+        assert float((k - p).norm()) <= 1e-12 * float(p.norm())
+        buf = spmm_halo.halo_buffers(args[3], args[5], op.buf_rows)
+        for i in range(4):
+            c4 = spmm_pallas.spmm_window(args[1][i], args[2][i], buf[i], "highest",
+                                         min_b_rows=op.buf_rows)
+            assert _bits_equal(c4, k[i]), (n, off, i)
+            assert not torch.any(k[i, d[i + 1] - d[i]:])
+        got[off] = k
+    assert _bits_equal(got[0], got[1])
+
+
+def test_f64_multishard_entries_refuse_what_the_body_cannot_take(cuda_device):
+    """#4's and #12's fp64 entries take what the DMMA body takes: the
+    wrappers raise on TM = 64, W = 48 and panels off 16 bytes (no fallback
+    to another body or the plain version), and the entries return an error
+    there, and under the flags on a pairs' table off 16 bytes."""
+    from crp_tpu_torch.kernels import _build
+
+    dev = cuda_device
+    _, _, arrays, op, bs = _f64_halo_case(dev, 16)
+    ws, ws_rel, panels, push, chunk_src = arrays
+    for TM, W in ((64, 128), (128, 48)):
+        tiles = torch.zeros((2, TM, W), dtype=torch.float64, device=dev)
+        w2 = torch.zeros(2, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="TM % 128"):
+            spmm_pallas.spmm_window(w2, tiles, bs[0], "highest", min_b_rows=W)
+        bad = torch.zeros((4, 2, TM, W), dtype=torch.float64, device=dev)
+        with pytest.raises(ValueError, match="TM % 128"):
+            spmm_halo.spmm_halo(ws[:, :2].contiguous(), ws_rel[:, :2].contiguous(), bad,
+                                push, chunk_src, bs, "highest", op.buf_rows,
+                                min_b_rows=op.min_b_rows)
+        c = torch.empty((2 * TM, 16), dtype=torch.float64, device=dev)
+        assert _build.entry("crp_window_f64")(
+            w2.data_ptr(), tiles.data_ptr(), bs.data_ptr(), c.data_ptr(), 2, TM, W, 16,
+            None) != 0
+        assert _build.entry("crp_halo_f64")(
+            bs.data_ptr(), w2.data_ptr(), tiles.data_ptr(), c.data_ptr(), 2, TM, W, 16, 1,
+            None) != 0
+    off = _nan_framed(panels.contiguous(), 1)
+    with pytest.raises(ValueError, match="16 bytes"):
+        spmm_pallas.spmm_window(ws[0], off[0], bs[0], "highest", min_b_rows=op.min_b_rows)
+    with pytest.raises(ValueError, match="16 bytes"):
+        spmm_halo.spmm_halo(ws, ws_rel, off, push, chunk_src, bs, "highest", op.buf_rows,
+                            min_b_rows=op.min_b_rows)
+    G, TM, W = panels.shape[0] * panels.shape[1], op.TM, op.W
+    c = torch.empty((G * TM, 16), dtype=torch.float64, device=dev)
+    rows, _ = spmm_halo.stacked_chunk_rows(chunk_src, bs)
+    assert _build.entry("crp_window_f64")(
+        ws[0].data_ptr(), off[0].data_ptr(), bs.data_ptr(), c.data_ptr(), panels.shape[1],
+        TM, W, 16, None) != 0
+    assert _build.entry("crp_halo_f64")(
+        rows.data_ptr(), ws.data_ptr(), off.data_ptr(), c.data_ptr(), G, TM, W, 16, 1,
+        None) != 0
+    pairs = torch.zeros(2 * rows.numel() + 1, dtype=torch.int64, device=dev)
+    status = torch.zeros(1, dtype=torch.int64, pin_memory=True)
+    assert _build.entry("crp_halo_f64_flags")(
+        pairs[1:].data_ptr(), ws.data_ptr(), panels.data_ptr(), c.data_ptr(),
+        status.data_ptr(), G, TM, W, 16, 1, 1, 10**9, None) != 0
+    torch.cuda.synchronize(dev)  # no launch was made: nothing is left to fail
+
+
 def _anti_banded(nrow, dtype, seed=7):
     """Band along the anti-diagonal: window starts fall group by group, so
     the shard has no super-group plan."""

@@ -1,13 +1,15 @@
-"""The fp64 entries of #3 and #6 on #11's DMMA body (``kernels/csrc/
-dd_tc.cu``) on the CPU: what can be checked without a card.
+"""The fp64 entries of #3, #4, #6 and #12 on #11's DMMA body
+(``kernels/csrc/dd_tc.cu``) on the CPU: what can be checked without a card.
 
 The kernels run only on the card (``tests/test_torch_cuda.py``, ``-k
 f64``).  Here every fp64 pack that the dispatch builds for them is held to
 the tile the body declares (its ``constexpr``s, read from the source), the
-three fp64 entries to the one kernel template, their products to the FP64
+five fp64 entries to the one kernel template, their products to the FP64
 tensor cores' peak, the windowed pack re-expressed as a ragged pack (as
-the body walks it) to JAX's windowed kernel in interpret mode, and the
-tools that time and compare the body to what they read.
+the body walks it) to JAX's windowed kernel in interpret mode, the walk
+with B through the chunk table (as the producers copy it) to JAX's halo
+kernel in interpret mode, and the tools that time and compare the body to
+what they read.
 """
 
 import importlib.util
@@ -22,7 +24,9 @@ from crp_tpu_torch.kernels import _build, points, spmm_pallas, spmm_ragged
 from crp_tpu_torch.kernels.dispatch import (
     _pack_dd_mxu, _pack_ragged, _pack_window, pack_local_kernel,
 )
-from crp_tpu_torch.kernels.spmm_halo import align_displs, build_halo_plan
+from crp_tpu_torch.kernels.spmm_halo import (
+    align_displs, build_halo_plan, stacked_chunk_rows,
+)
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.csr import CSRMatrix
 from crp_tpu_torch.sparse.synth import (
@@ -31,7 +35,11 @@ from crp_tpu_torch.sparse.synth import (
 
 CPU = torch.device("cpu")
 REPO = pathlib.Path(__file__).resolve().parent.parent
-F64_ENTRIES = ("crp_ragged_dd_f64tc", "crp_ragged_f64", "crp_window_sg_f64")
+# entry -> the dd_entry<...> it launches: the ragged walk, the windowed
+# walk, with B through the chunk table, and with the flags' waits
+F64_ENTRIES = {"crp_ragged_dd_f64tc": "false", "crp_ragged_f64": "false",
+               "crp_window_sg_f64": "true", "crp_window_f64": "true",
+               "crp_halo_f64": "true, true", "crp_halo_f64_flags": "true, true, true"}
 
 
 def _source(stem: str) -> str:
@@ -132,11 +140,10 @@ def test_dispatched_ragged_f64_geometry_fits_the_tile(small, p):
 
 
 def test_f64_ops_priced_by_the_body_that_runs_them():
-    """``op_point`` prices #3's and #6's fp64 products (and #11's) at the
-    FP64 tensor cores' peak, #4's and #12's (still the FMA body) at the FMA
-    units', and fp32 as before; the projection prices fp64 at one card
-    (#3 or #6) on the tensor cores and over several (#12) on the FMA
-    units."""
+    """``op_point`` prices the fp64 products of #3, #4, #6, #11 and #12
+    (every one on the DMMA body) at the FP64 tensor cores' peak, and fp32
+    as before; the projection prices fp64 on the tensor cores at one card
+    (#3 or #6) and over several (#12)."""
     from crp_tpu_torch.plan.project import project_exec_1d
 
     a = banded_random_csr(2000, nnz_per_row=9, bandwidth=120, seed=4)
@@ -154,44 +161,46 @@ def test_f64_ops_priced_by_the_body_that_runs_them():
     ops["#12"] = build_halo_plan(halo, align_displs(d, a.ncol), device=CPU,
                                  dtype=np.float64)[1]
     assert [ops[k].variant for k in ops] == ["uniform", "ragged", "dd_mxu", "window", "halo"]
-    want = {"#3": "fp64_tc", "#6": "fp64_tc", "#11": "fp64_tc", "#4": "fp64", "#12": "fp64"}
     for k, op in ops.items():
-        assert points.op_point(op, torch.float64) == (1, want[k]), k
-        assert points.op_point(op, np.dtype(np.float64)) == (1, want[k]), k
+        assert points.op_point(op, torch.float64) == (1, "fp64_tc"), k
+        assert points.op_point(op, np.dtype(np.float64)) == (1, "fp64_tc"), k
     assert points.op_point(ops["#3"], torch.float32) == (3, "tf32")
+    assert points.op_point(ops["#4"], torch.float32) == (3, "tf32")
     assert points.precision_point("highest", np.float64) == (1, "fp64")
-    for p, peak in ((1, "fp64_tc"), (2, "fp64")):
+    for p in (1, 2, 4):
         got = project_exec_1d(a, 64, p, mxu_prec="highest", dtype=np.float64)
-        assert (got["passes"], got["peak"]) == (1, peak)
+        assert (got["passes"], got["peak"]) == (1, "fp64_tc"), p
 
 
 def test_three_fp64_entries_instantiate_one_kernel():
-    """#11, #6 on fp64 and #3 on fp64 are entries of ``dd_tc.cu``, each
-    launching the one DMMA template (the ragged walk, or the windowed one
-    for #3) through ``dd_entry``; ``ragged.cu`` and ``window_sg.cu`` keep
-    no fp64 entry, and only #4's and #12's sources still launch the FMA
-    tile body."""
+    """All five fp64 entries, #11, #6, #3, #4 and #12 (one card and across
+    processes), are entries of ``dd_tc.cu``, each launching the one DMMA
+    template through ``dd_entry`` (the ragged walk; the windowed one for #3
+    and #4; with B through the chunk table for #12, and the flags' waits
+    across processes); no other source keeps an fp64 entry, and nothing in
+    ``csrc/`` is left of the FMA tile body."""
     body = _source("dd_tc")
     assert re.findall(r"__global__[^;{]*?\n(\w+)\(", body) == ["ragged_dd_kernel"]
-    assert len(re.findall(r"^template <bool B_VEC, bool WINDOW>\n__global__", body,
-                          re.M)) == 1
+    assert len(re.findall(r"^template <bool B_VEC, bool WINDOW, bool CHUNKED = false, "
+                          r"bool FLAGS = false>\n__global__", body, re.M)) == 1
     walk = {}
     for name in F64_ENTRIES:
         assert _build._ENTRIES[name][0] == "dd_tc"
         m = re.search(rf"\nint {name}\(.*?\n\{{\n(.*?)\n\}}\n", body, re.S)
         assert m is not None, name
-        calls = re.findall(r"dd_entry<(true|false)>\(", m.group(1))
+        calls = re.findall(r"dd_entry<([a-z, ]+)>\(", m.group(1))
         assert len(calls) == 1, name
         walk[name] = calls[0]
-    assert walk == {"crp_ragged_dd_f64tc": "false", "crp_ragged_f64": "false",
-                    "crp_window_sg_f64": "true"}
-    for stem in ("ragged", "window_sg"):
-        text = _source(stem)
-        assert "_f64(" not in text and "launch_fma" not in text, stem
-    for stem in ("window", "halo"):
-        assert "launch_fma<double" in _source(stem), stem
-    # the window entry passes no group_ptr: the windowed walk never reads it
-    assert "dd_entry<true>(nullptr, ws, tiles" in body
+    assert walk == F64_ENTRIES
+    for stem in ("ragged", "window_sg", "window", "halo"):
+        assert "_f64(" not in _source(stem), stem
+    for path in _build.CSRC.iterdir():
+        text = path.read_text()
+        for gone in ("panel_fma_kernel", "launch_fma", "fma_rn"):
+            assert gone not in text, (path.name, gone)
+    # the windowed entries pass no group_ptr: the windowed walk never reads it
+    assert body.count("dd_entry<true>(nullptr, ws, tiles, b, c") == 2
+    assert "dd_entry<true, true>(nullptr, ws, tiles, rows, c" in body
 
 
 @pytest.mark.parametrize("n", [16, 37])
@@ -229,10 +238,13 @@ def _smoke():
 
 
 def test_f64_ab_times_the_smoke_matrices_and_passes_the_entries_args():
-    """``cli/f64_ab.py`` packs the smoke's three fp64 matrices, and calls
-    each entry with the pointers and scalars ``_build`` declares for it:
-    (ws, tiles, b, c) for #3, (group_ptr, starts, panels, b, c) for #6,
-    then G, TM, W, n and the stream; its split copies edit the body."""
+    """``cli/f64_ab.py`` packs the smoke's three fp64 matrices (the
+    headline also at p = 4), and calls each entry with the pointers and
+    scalars ``_build`` declares for it: (ws, tiles, b, c) for #3 and #4,
+    (group_ptr, starts, panels, b, c) for #6, then G, TM, W, n and the
+    stream; (rows, ws, panels, c) for #12, the chunk table's row pointers
+    made from the stacked B, then the shards' G, TM, W, n, rows16 and the
+    stream; its split copies edit the body."""
     from crp_tpu_torch.cli import f64_ab
 
     smoke = _smoke()
@@ -244,6 +256,10 @@ def test_f64_ab_times_the_smoke_matrices_and_passes_the_entries_args():
     assert {k: v[1] for k, v in f64_ab.MATRICES.items()} == want
     assert f64_ab.N == smoke.N
     assert set(smoke.PREVIOUS_MS) >= set(f64_ab.MATRICES)
+    assert {m for m, _, _ in f64_ab.CASES} == set(f64_ab.MATRICES)
+    assert {(p, e) for (_, p, _), e in f64_ab.CASES.items() if p > 1} == {
+        (smoke.MULTIRANK_P, "crp_window_f64"), (smoke.MULTIRANK_P, "crp_halo_f64")}
+    assert all(e in F64_ENTRIES for e in f64_ab.CASES.values())
 
     class Fn:
         def __call__(self, *args):
@@ -257,18 +273,38 @@ def test_f64_ab_times_the_smoke_matrices_and_passes_the_entries_args():
                                                     device=CPU),
              "crp_ragged_f64": _pack_ragged(one, a.nrow, np.float64, "highest", CPU,
                                             geometry=(256, 128))}
+    two, max_m = _shards(a, 2)
+    packs["crp_window_f64"] = _pack_window(two, max_m, np.float64, "highest", CPU)
     for name, (arrays, op) in packs.items():
         args = op.kernel_args(tuple(x[0] for x in arrays), rB)
         fn = Fn()
         c = f64_ab.runner(fn, op, args, 7)()
         _, nptr, scalars = _build._ENTRIES[name]
         assert len(fn.args) == nptr + len(scalars) + 1 and fn.args[-1] == 7
-        panels = args[-2]
-        G = panels.shape[0] if name == "crp_window_sg_f64" else args[1].shape[0] - 1
+        panels = args[1] if op.variant == "window" else args[-2]
+        G = args[1].shape[0] - 1 if name == "crp_ragged_f64" else panels.shape[0]
         assert fn.args[nptr:nptr + 4] == (G, *panels.shape[1:], 24)
         assert fn.args[nptr - 1] == c.data_ptr() and c.shape == (G * panels.shape[1], 24)
         assert fn.args[nptr - 2] == rB.data_ptr()
         assert fn.args[nptr - 3] == panels.data_ptr()
+    # #12: the fused plan over both shards, on the stacked B
+    d = csr_row_partition(a.rowptr, 2)
+    halo = [a.row_slice(int(d[i]), int(d[i + 1])) for i in range(2)]
+    arrays, op = build_halo_plan(halo, align_displs(d, a.ncol), device=CPU,
+                                 dtype=np.float64)
+    bs = torch.zeros((2, op.min_b_rows, 24), dtype=torch.float64)
+    args = op.kernel_args(arrays, bs)
+    fn = Fn()
+    run = f64_ab.runner(fn, op, args, 7)
+    c = run()
+    _, nptr, scalars = _build._ENTRIES["crp_halo_f64"]
+    assert len(fn.args) == nptr + len(scalars) + 1 and fn.args[-1] == 7
+    ws, _, panels = args[:3]
+    rows, rows16 = stacked_chunk_rows(args[4], bs)
+    assert torch.equal(run.inputs[0], rows) and fn.args[0] == run.inputs[0].data_ptr()
+    assert fn.args[1:nptr] == (ws.data_ptr(), panels.data_ptr(), c.data_ptr())
+    assert c.shape == (2, op.G * op.TM, 24)
+    assert fn.args[nptr:] == (2 * op.G, op.TM, op.W, 24, int(rows16), 7)
     body = _source("dd_tc")
     for variant, edits in f64_ab.SPLITS.items():
         assert f64_ab.edited(body, edits, "test") != body, variant
@@ -276,9 +312,9 @@ def test_f64_ab_times_the_smoke_matrices_and_passes_the_entries_args():
 
 def test_sass_diff_finds_kernels_that_moved_between_sources(monkeypatch, capsys):
     """``scripts/csrc_sass_diff.py`` finds an old kernel whose body now
-    lives in another source (the FMA body's fp64 instantiation, no longer
-    built by ``window_sg.cu`` but still by ``window.cu``) and passes, and
-    fails on a body that changed."""
+    lives in another source (an instantiation that ``window_sg.cu`` no
+    longer builds but ``window.cu`` still does) and passes, and fails on a
+    body that changed."""
     spec = importlib.util.spec_from_file_location("csrc_sass_diff",
                                                   REPO / "scripts" / "csrc_sass_diff.py")
     diff = importlib.util.module_from_spec(spec)
@@ -310,3 +346,95 @@ def test_sass_diff_finds_kernels_that_moved_between_sources(monkeypatch, capsys)
     trees["dd_tc", "new"]["dd<true,false>"] = ("D2",)
     assert diff.main([str(old), str(new), "window_sg", "window", "dd_tc"]) == 1
     assert "DIFFERS" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("p", [2, 3, 4])
+def test_multishard_f64_packs_fit_the_tile(p):
+    """The fp64 packs of #4 (``_pack_window``, one shard empty at p = 3)
+    and #12 (``build_halo_plan``) over p shards, pad groups included: one
+    contiguous (p, G, TM, W) fp64 panel tensor whose TM and W fit the
+    body's tile (W a multiple of the 128-row window unit, so also of the k
+    slice), each shard's panels starting on 16 bytes, and #12's window
+    starts on the chunk table's 128-row chunks."""
+    a = banded_random_csr(3000, nnz_per_row=7, bandwidth=150, seed=20 + p)
+    shards, max_m = _shards(a, p)
+    if p == 3:
+        nrow = len(shards[1][0]) - 1
+        shards[1] = (np.zeros(nrow + 1, np.int64), np.zeros(0, np.int32), np.zeros(0))
+    arrays, op = _pack_window(shards, max_m, np.float64, "highest", CPU)
+    d = csr_row_partition(a.rowptr, p)
+    halo = [a.row_slice(int(d[i]), int(d[i + 1])) for i in range(p)]
+    h_arrays, h_op = build_halo_plan(halo, align_displs(d, a.ncol), device=CPU,
+                                     dtype=np.float64)
+    for label, panels, ws in (("#4", arrays[1], arrays[0]), ("#12", h_arrays[2], h_arrays[0])):
+        assert panels.dtype == torch.float64 and panels.is_contiguous(), label
+        s_, G, TM, W = panels.shape
+        assert s_ == p and _fits(TM, W) and W % spmm_pallas.TK == 0, (label, TM, W)
+        assert G * TM >= int(np.diff(d).max()), label  # every shard's rows, then pad groups
+        assert all(panels[i].data_ptr() % 16 == 0 for i in range(p)), label
+    assert bool((h_arrays[0] % 128 == 0).all()) and (op.variant, h_op.variant) == (
+        "window", "halo")
+
+
+def _chunked_walk(ws, panels, chunk_src, owners, n):
+    """C of the DMMA body's windowed walk with B through the chunk table,
+    as its producers copy B: slice k0 of group g's window (BK rows from
+    global row r = ws[g] + k0) is the rows from r % 128 on of those that
+    chunk r // 128 of the table points at, owner ``owners[o]`` row ``row``,
+    or zeros past the matrix (owner -1); each C element sums the slices k
+    upward."""
+    G, TM, W = panels.shape
+    c = torch.zeros((G * TM, n), dtype=torch.float64)
+    for g in range(G):
+        for k0 in range(0, W, BK):
+            r = int(ws[g]) + k0
+            owner, row = (int(x) for x in chunk_src[r // 128])
+            if owner >= 0:
+                lo = row + r % 128
+                c[g * TM:(g + 1) * TM] += panels[g, :, k0:k0 + BK] @ owners[owner][lo:lo + BK]
+    return c
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_chunked_walk_matches_jax_halo_kernel(devices8, p):
+    """The windowed walk re-expressed as the chunked one: on an identity
+    chunk table (chunk c at row 128 c of one B) it gives the windowed
+    product's C (``spmm_window_plain``) within 1e-12; on the fused plan's
+    table over the engine's stacked B shards it gives JAX's fused kernel
+    (``_halo_kernel``, interpret mode on the CPU mesh) within 1e-12, shard
+    by shard, pad rows zero."""
+    from tests.test_torch_halo import _jax_rowpara
+    from crp_tpu_torch.config import SpmmConfig
+    from crp_tpu_torch.engine.rowpara import RowParaSpmm
+    from crp_tpu_torch.utils.norms import rel_fro_err
+
+    a = banded_random_csr(1500, nnz_per_row=7, bandwidth=90, seed=40 + p)
+    n = 24
+    b = fill_b(0, a.ncol, 0, n)
+    eng = RowParaSpmm(a, *[csr_row_partition(a.rowptr, p)] * 2, n, device="cpu",
+                      dtype=np.float64, config=SpmmConfig(kernel="pallas_halo"))
+    op = eng._local_op
+    ws, _, panels, _, chunk_src = eng.packed
+    bs = eng.shard_b(b)
+
+    # identity table: one owner holding all of B
+    rows = int((ws.max() + op.W + 127) // 128 * 128)
+    whole = torch.zeros((rows, n), dtype=torch.float64)
+    whole[: a.ncol] = torch.from_numpy(np.asarray(b))
+    chunks = torch.arange(rows // 128, dtype=torch.int64) * 128
+    ident = torch.stack([torch.where(chunks < a.ncol, 0, -1), chunks], 1)
+    for i in range(p):
+        got = _chunked_walk(ws[i], panels[i], ident, [whole], n)
+        want = spmm_pallas.spmm_window_plain(ws[i], panels[i], whole, "highest")
+        assert rel_fro_err(want.numpy(), got.numpy()) <= 1e-12, i
+
+    displs, j = _jax_rowpara(a, p, n, np.float64, "highest", devices8)
+    assert j.kernel_kind == "pallas_halo"
+    c_jax = np.asarray(j.exec(np.asarray(b)))
+    got = []
+    for i in range(p):
+        c = _chunked_walk(ws[i], panels[i], chunk_src, list(bs), n)
+        m = int(displs[i + 1] - displs[i])
+        assert not bool(torch.any(c[m:])), i
+        got.append(c[:m].numpy())
+    assert rel_fro_err(c_jax, np.concatenate(got)) <= 1e-12
