@@ -6,12 +6,13 @@ Run from the repository root:
 
 It builds the port's CUDA kernels from ``crp_tpu_torch/kernels/csrc`` into
 ``build/crp_tpu_torch/`` (one ``nvcc`` per source, all started together),
-prints the shared-memory ring of the 3xTF32 entries (#3, #4, #12 and #6
-at highest: stages, dynamic shared memory, registers, spills and blocks
-per SM, which must be 0 and at least 2) and of the wgmma body in each
-library that builds it (#1 with #5 and the one-pass #2, #4 and #12 each
-with its one-pass default, the ragged #7 with the one-pass #8: the same,
-which must be 0 and at least 1),
+prints the shared-memory ring of the 3xTF32 entries on ``mma.sync`` (#12
+and #6 at highest: stages, dynamic shared memory, registers, spills and
+blocks per SM, which must be 0 and at least 2) and of the wgmma body in
+each library that builds it (#1 with #5, the one-pass #2 and the TF32
+mode of #3 at highest, #4 with its one-pass default and its TF32 mode,
+#12 with its one-pass default, the ragged #7 with the one-pass #8: the
+same, which must be 0 and at least 1),
 the spill and gather kernels' resources (``[spill]``: registers, spills
 and blocks per SM of each, which must be 0 and at least 1), the DMMA
 body's (``[dd]``: its ring, block tile, DMMA shape, and the same for its
@@ -20,7 +21,8 @@ with B through the chunk table, #12 on fp64, and with the flags' waits,
 #12 across processes, which must be 0 and exactly 1) and then,
 failing on the first check
 that does not hold (every engine init prints its peak device memory; an
-x3 or default panel pack must peak within 1.2 x what it holds after):
+x3 or default panel pack, and #3's and #4's TF32 planes at highest, must
+peak within 1.2 x what it holds after):
 
 1. kernel phase — each windowed kernel against its plain PyTorch version on
    small banded packs with pad groups, n in {16, 48, 100, 256}; then #5
@@ -104,7 +106,8 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    plain version at x3 (on the bf16 hi/lo pair, #1's wgmma body, and equal
    bit for bit to #1 on the same arrays), default (on the bf16 hi plane
    and B cast to bf16, #2's one-pass body, and equal bit for bit to #2),
-   highest and fp64 on a 4-shard pack (pad groups, an empty shard) and on
+   highest (on the TF32 planes, the body's TF32 mode, and equal bit for
+   bit to #3) and fp64 on a 4-shard pack (pad groups, an empty shard) and on
    a single-shard pack with non-monotone windows, n in {16, 37, 100, 256}
    and at n = 100 a B off 16 bytes (odd n and that B take the plain B
    copies at x3 and default and the 4-byte ones at highest);
@@ -126,7 +129,9 @@ x3 or default panel pack must peak within 1.2 x what it holds after):
    and physical rows; each kernel against its plain version at its
    main-path shape, timed, with cuSPARSE on the same work; at default the
    packs must hold the bf16 hi plane alone, and B's cast to bf16 is timed
-   beside each kernel;
+   beside each kernel; at highest #4 on shard 0 (the wgmma body's TF32
+   mode) must equal a second launch and #3's fp32 entry on the same
+   arrays bit for bit;
 12b. fp64 at p = 4 (``fp64_p4``) — the fp64 headline in 4 row shards,
    the reference's own setting: ``auto`` -> the fused #12's fp64 entry
    once an exec, ``kernel="pallas"`` -> #4's fp64 entry on every shard,
@@ -261,7 +266,9 @@ TOL_RAGGED_FRO = {np.float32: 1e-6, np.float64: 1e-12}
 # their plain versions or index_add_ within this
 TOL_TRAIN_PLAIN_FRO = 4e-6
 # the previous bodies on the main paths, ms (NVIDIA H100 80GB HBM3, 700
-# W), printed beside the times of this run: the spill and gather kernels'
+# W), printed beside the times of this run: #3 and #4 at highest on the
+# 3xTF32 mma.sync body (the headline at p = 1 and its p = 4 shard 0, the
+# smoke's runs beside crp_tpu_torch.cli.f64_ab --point highest's), the spill and gather kernels'
 # (a block per output block and 32 columns, shared-memory atomics), #11's
 # (64 x 64 blocks of m8n8k4 DMMA, one shared-memory stage) and the fp64
 # entries of #3 and #6 on fp64 `auto`'s packs (the FMA tile body that
@@ -270,14 +277,16 @@ TOL_TRAIN_PLAIN_FRO = 4e-6
 # f64_ab beside this tree's in one call)
 PREVIOUS_MS = {"spmm_spill": 2.0822, "spmm_gather": 7.3080, "spmm_ragged_dd": 4.6211,
                "fp64 banded": 6.0605, "fp64 cplaw": 28.9420, "fp64 headline": 21.7533,
-               "fp64 p=4 spmm_halo": 44.5400, "fp64 p=4 spmm_window": 10.8390}
+               "fp64 p=4 spmm_halo": 44.5400, "fp64 p=4 spmm_window": 10.8390,
+               "headline highest": 10.3785, "headline p=4 highest": 2.6446}
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W), HBM_BYTES_PER_S
 # and PEAK, are the package's table, which the suite's roofline and the
 # projection read too (imported at the top)
-# an x3 or default init's peak device memory over what it holds after it:
-# the panels are densified slab by slab, never whole in fp32 beside their
-# bf16 planes (device_pack._densify)
+# an x3, default or highest TF32-plane init's peak device memory over what
+# it holds after it: the panels are densified slab by slab, never whole in
+# fp32 beside their bf16 or TF32 planes (device_pack._densify)
 INIT_PEAK_OVER_HELD = 1.2
+TF32_SCHEMES = ("tf32", "window_tf32")  # #3's and #4's packs at highest: the TF32 planes
 PANEL_VARIANTS = ("uniform", "ragged", "window", "halo")
 CPLAW_P4_RECV, CPLAW_P4_RING_ROWS = 591732, 627300  # r4_cpu_mesh_commvol.jsonl
 CPLAW_P8_COMM_N32 = 26551360  # the planner's comm_cost at n = 32, p = 8
@@ -416,8 +425,9 @@ def op_point(op, dtype) -> tuple:
     """(passes, peak) of an op's products (``kernels.points.op_point``): x3
     three bf16 products, default one (#2, #4 ``window_bf16``, #8 and #12
     on the bf16 hi plane), highest three TF32 products (#3, #4, #6 and
-    #12), fp64 one pass on the FP64 tensor cores (#3, #6, #11) or the FMA
-    units (#4, #12); the gather kind's on the FMA units."""
+    #12; #3 and #4 on the wgmma body's TF32 mode), fp64 one pass on the
+    FP64 tensor cores (#3, #6, #11) or the FMA units (#4, #12); the gather
+    kind's on the FMA units."""
     from crp_tpu_torch.kernels import points
 
     return points.op_point(op, dtype)
@@ -437,11 +447,13 @@ def function_bound(op, work, n, dtype) -> tuple:
 
 def panel_bound(op, arrs, rB) -> tuple:
     """Bound of the dense panels this design multiplies (windowed, ragged,
-    dd, halo): its inputs read once (panels, indices, B as it takes it) and
-    its C written once; its operations are the panels' products with B at
-    the op's point."""
+    dd, halo): its inputs read once (panels, or the TF32 planes of #3 and
+    #4 at highest, indices, B as it takes it) and its C written once; its
+    operations are the panels' products with B at the op's point."""
     args = op.kernel_args(arrs, rB)
     panel = next(t for t in flat(args) if isinstance(t, torch.Tensor) and t.dim() >= 3)
+    if getattr(op, "scheme", None) in TF32_SCHEMES:  # (2, G, TM, W): one plane's products
+        panel = panel[0]
     n = rB.shape[-1]
     rl = op.roofline
     rows = rl.get("c_rows", rl["G"] * rl["TM"])
@@ -780,15 +792,17 @@ def measured_init(device, make) -> tuple:
 
 def check_init_memory(tag, prec, eng, peak, held, extra="") -> None:
     """Print an init's peak device memory, what it holds after and its
-    packed arrays' bytes; an x3 or default panel pack must peak within
-    INIT_PEAK_OVER_HELD of what it holds.  An earlier phase's objects
+    packed arrays' bytes; an x3, default or TF32-plane (#3, #4 at
+    highest) panel pack must peak within INIT_PEAK_OVER_HELD of what it
+    holds.  An earlier phase's objects
     collected during the init lower ``held``, never the pack's bytes, so
     the larger of the two is what it holds."""
     keep = max(held, nbytes(*eng.packed), 1)
     say(f"[{tag}] init device memory: peak {peak / 1e9:.3f} GB, held after "
         f"{held / 1e9:.3f} GB, packed {nbytes(*eng.packed) / 1e9:.3f} GB "
         f"({peak / keep:.3f}x){extra}")
-    if prec in ("x3", "default") and eng._local_op.variant in PANEL_VARIANTS:
+    split = prec in ("x3", "default") or getattr(eng._local_op, "scheme", None) in TF32_SCHEMES
+    if split and eng._local_op.variant in PANEL_VARIANTS:
         check(peak <= INIT_PEAK_OVER_HELD * keep,
               f"{tag}: init peaks at {peak / 1e9:.3f} GB, over {INIT_PEAK_OVER_HELD} x "
               f"the {keep / 1e9:.3f} GB it holds")
@@ -1017,6 +1031,10 @@ def headline(device) -> list:
         got = time_kernel(op, arrs, rB, "headline", prec, csr_work(a), plain_inner=2)
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
         _MEASURED[f"rates {prec}"] = records[-1]
+        if prec == "highest":
+            say(f"[headline highest] {op.kernel.__name__} on the wgmma body's TF32 mode "
+                f"{got[1]:.4f} ms, the previous body (3xTF32 on mma.sync) "
+                f"{PREVIOUS_MS['headline highest']:.4f} ms; design bound {got[5]:.4f} ms")
         if prec == "x3":  # what multirank_path's one-rank NCCL engine must equal
             c = eng.exec_device(bs)
             _MEASURED["headline p=1 x3 bits"] = (digest(c), digest(eng.unshard_c(c)))
@@ -1527,10 +1545,13 @@ def window_phase(device) -> None:
     shard, pad groups) and a single shard with non-monotone windows, odd n
     and a B off 16 bytes; at x3 its C equal bit for bit to #1's on the same
     pair and receive buffer, at default to #2's on the same hi plane and
-    bf16 B (the same body)."""
+    bf16 B, at highest on fp32 to #3's on the same TF32 planes (the same
+    body)."""
     from crp_tpu_torch import CSRMatrix, banded_random_csr, csr_row_partition
     from crp_tpu_torch.kernels.dispatch import _pack_window
-    from crp_tpu_torch.kernels.spmm_pallas import spmm_window_sg_bf16, spmm_window_sg_presplit
+    from crp_tpu_torch.kernels.spmm_pallas import (
+        spmm_window_sg, spmm_window_sg_bf16, spmm_window_sg_presplit,
+    )
 
     for prec, dtype in (("x3", np.float32), ("default", np.float32),
                         ("highest", np.float32), ("highest", np.float64)):
@@ -1557,12 +1578,15 @@ def window_phase(device) -> None:
             check(op.variant == "window", f"window phase {label}: variant {op.variant}")
             x3 = prec == "x3" and dtype == np.float32
             one = prec == "default" and dtype == np.float32
+            tf = prec == "highest" and dtype == np.float32  # the TF32 planes
             want = (torch.bfloat16 if x3 or one else
                     torch.float64 if dtype == np.float64 else torch.float32)
-            scheme = "window_x3" if x3 else "window_bf16" if one else "window"
-            ref = "1" if x3 else "2"  # #4's C is #1's at x3, #2's at default
+            scheme = ("window_x3" if x3 else "window_bf16" if one else
+                      "window_tf32" if tf else "window")
+            # #4's C is #1's at x3, #2's at default, #3's at highest on fp32
+            ref = "1" if x3 else "2" if one else "3"
             check(op.scheme == scheme and arrays[1].dtype == want
-                  and len(arrays) == (3 if x3 else 2),
+                  and len(arrays) == (3 if x3 else 2) and arrays[1].dim() == (5 if tf else 4),
                   f"window phase {label} {prec}: scheme {op.scheme}, panels "
                   f"{[tuple(t.shape) for t in arrays[1:]]} {arrays[1].dtype}")
             G = arrays[0].shape[1]
@@ -1581,10 +1605,10 @@ def window_phase(device) -> None:
                     check(not bool(torch.any(c[nrow:])),
                           f"window {label} shard {i}: pad rows not zero")
                     worst = max(worst, rel)
-                    if x3 or one:  # #1 on the same pair, #2 on the same plane
-                        c1 = (spmm_window_sg_presplit(*arrs, args[2], min_b_rows=op.min_b_rows)
-                              if x3 else
-                              spmm_window_sg_bf16(*arrs, args[2], min_b_rows=op.min_b_rows))
+                    if x3 or one or tf:  # #1 on the same pair, #2 on the same plane, #3
+                        same_as = (spmm_window_sg_presplit if x3 else
+                                   spmm_window_sg_bf16 if one else spmm_window_sg)
+                        c1 = same_as(*arrs, args[2], min_b_rows=op.min_b_rows)
                         same = max(same, float((c1 - c).abs().max()))
                         check(torch.equal(c1.view(torch.int32), c.view(torch.int32)),
                               f"window {label} {prec} shard {i} n={n}: #4 differs from "
@@ -1595,7 +1619,7 @@ def window_phase(device) -> None:
                        f"{' B off 16 bytes' if b_off else ''}: max rel err "
                        f"{worst:.3e} (tol {tol:g})"
                        + (f", max |C4 - C{ref}| {same:.3e} (must be 0)"
-                          if x3 or one else ""))
+                          if x3 or one or tf else ""))
                 check(worst <= tol, msg)
                 say(msg)
 
@@ -1721,7 +1745,11 @@ def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto",
 
 def headline_p4(device) -> list:
     """The headline in 4 row shards: ``auto`` takes the fused kernel at
-    every point; ``kernel="pallas"`` the exchange and #4 on every shard."""
+    every point; ``kernel="pallas"`` the exchange and #4 on every shard (at
+    highest, shard 0's #4 against a second launch and #3's fp32 entry on
+    the same arrays, bit for bit: one TF32 instantiation)."""
+    from crp_tpu_torch.kernels.spmm_pallas import spmm_window_sg
+
     a, b, c_ref = shared_case("headline")[:3]
     halo = dict(launches=0, max_abs=0.0)
     for prec in PRECS:
@@ -1766,6 +1794,19 @@ def headline_p4(device) -> list:
             got = time_kernel(op, arrs, rB[0], "headline p=4 unfused", prec,
                               csr_work(s0), plain_inner=2)
             window["max_abs"] = max(window["max_abs"], got[0])
+            if prec == "highest":  # one TF32 instantiation: #4 is #3 on the same arrays
+                args = op.kernel_args(arrs, rB[0])
+                k4 = launch(op, args)
+                check(same_bits(k4, launch(op, args)),
+                      "headline p=4 highest: spmm_window: two launches differ")
+                k3 = spmm_window_sg(*args[:3], min_b_rows=op.min_b_rows)
+                check(same_bits(k4, k3), "headline p=4 highest: #4 differs from #3's fp32 "
+                      "entry on the same arrays")
+                say(f"[headline p=4 highest] unfused: spmm_window on the wgmma body's TF32 "
+                    f"mode on shard 0 {got[1]:.4f} ms, the previous body (3xTF32 on "
+                    f"mma.sync) {PREVIOUS_MS['headline p=4 highest']:.4f} ms; design bound "
+                    f"{got[5]:.4f} ms; a second launch and #3's fp32 entry equal bit for bit")
+                del args, k4, k3
             if prec == "default":  # each shard's B cast, outside the kernel's time
                 cast = time_ms(lambda: rB[0].to(torch.bfloat16))
                 say(f"[headline p=4 default] unfused: B cast to bf16 {cast:.4f} ms a "
@@ -4016,12 +4057,13 @@ def drivers_path(device) -> list:
 
 
 def tf32x3_layouts(build) -> None:
-    """Print the ring of each 3xTF32 entry (#3, #4, #12 and #6 at highest)
-    once: stages, dynamic shared memory, the block tile, and for its
-    16-byte and 4-byte B copy kernels registers, spill bytes and resident
-    blocks per SM, which must be 0 and at least 2 (#12's also with the
-    waits across processes, ``flag16`` and ``flag4``)."""
-    for name in ("crp_window_sg_f32", "crp_window_f32", "crp_halo_f32", "crp_ragged_f32"):
+    """Print the ring of each 3xTF32 entry on ``mma.sync`` (#12 and #6 at
+    highest; #3's and #4's TF32 mode of the wgmma body is in
+    :func:`x3_layout`) once: stages, dynamic shared memory, the block tile,
+    and for its 16-byte and 4-byte B copy kernels registers, spill bytes
+    and resident blocks per SM, which must be 0 and at least 2 (#12's also
+    with the waits across processes, ``flag16`` and ``flag4``)."""
+    for name in ("crp_halo_f32", "crp_ragged_f32"):
         lay = build.tf32x3_layout(name)
         say(f"[tf32x3] {name}: {json.dumps(lay)}")
         for copy in ("b16", "b4") + (("flag16", "flag4") if name == "crp_halo_f32" else ()):
@@ -4031,18 +4073,21 @@ def tf32x3_layouts(build) -> None:
 
 def x3_layout(build) -> None:
     """Print the rings of the wgmma body once per library that builds it
-    (#1 with #5 and #2 as its modes, #4 and #12 each with its default as
-    the one-pass mode, the ragged #7 with #8 as its one-pass mode): stages,
-    dynamic shared memory, threads, the block tile, and for each of its
-    kernels (fp32 B by 16-byte or plain copies, #5's likewise on the bf16
-    planes, the one-pass mode's on one bf16 plane in its own deeper ring,
-    #12's through the chunk table, in both modes, with and without the
-    waits across processes) registers, spill bytes and resident blocks per
-    SM, which must be 0 and at least 1."""
+    (#1 with #5, #2 and #3 at highest as its modes, #4 with its default as
+    the one-pass mode and its highest as the TF32 mode, #12 with its
+    default as the one-pass mode, the ragged #7 with #8 as its one-pass
+    mode): stages, dynamic shared memory, threads, the block tile, and for
+    each of its kernels (fp32 B by 16-byte or plain copies, #5's likewise
+    on the bf16 planes, the one-pass mode's on one bf16 plane in its own
+    deeper ring, the TF32 mode's on fp32 B in its own ring of 32-row
+    stages, #12's through the chunk table, in both modes, with and without
+    the waits across processes) registers, spill bytes and resident blocks
+    per SM, which must be 0 and at least 1."""
     for name, label, copies in (
-        ("crp_window_sg_presplit", "crp_window_sg_presplit / _ab / _bf16",
-         ("b16", "b4", "pair16", "pair2", "one16", "one2")),
-        ("crp_window_x3", "crp_window_x3 / _bf16", ("b16", "b4", "one16", "one2")),
+        ("crp_window_sg_presplit", "crp_window_sg_presplit / _ab / _bf16 / _f32",
+         ("b16", "b4", "pair16", "pair2", "one16", "one2", "tf32_16", "tf32_4")),
+        ("crp_window_x3", "crp_window_x3 / _bf16 / _f32",
+         ("b16", "b4", "one16", "one2", "tf32_16", "tf32_4")),
         ("crp_halo_x3", "crp_halo_x3 / _bf16 (and _flags)",
          ("chunk16", "chunk4", "chunkone16", "chunkone2", "flag16", "flag4", "flagone16",
           "flagone2")),

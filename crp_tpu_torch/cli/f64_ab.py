@@ -1,7 +1,8 @@
-"""Time the fp64 entries on the FP64 tensor cores, this tree beside others.
+"""Time the fp64 entries on the FP64 tensor cores, or the fp32 entries at
+``highest`` (3xTF32), this tree beside others.
 
-    python -m crp_tpu_torch.cli.f64_ab [--baseline CSRC_DIR ...] [--rounds R] [--split]
-                                       [--p P ...]
+    python -m crp_tpu_torch.cli.f64_ab [--point fp64|highest] [--baseline CSRC_DIR ...]
+                                       [--rounds R] [--split] [--p P ...]
 
 Builds the kernel sources (``STEMS``) of this tree and of each
 ``--baseline`` tree (another ``kernels/csrc``, say the parent's unpacked
@@ -40,6 +41,20 @@ their median, the panels' GFLOP and TFLOP/s, the design bounds at the FP64
 tensor cores' and the FMA units' peaks, and the card's name and power
 limit; then one line per case with each tree's median over this tree's
 and cuSPARSE's ms.  Needs the card and ``nvcc``.
+
+``--point highest`` times #3 (``crp_window_sg_f32``, the headline in fp32
+at p = 1, ``kernel="auto"``) and #4 (``crp_window_f32``, the headline's
+shard 0 at p = 4, ``kernel="pallas"``) at ``highest``, on the ``wgmma``
+body's TF32 mode (``csrc/x3_wgmma.cuh``), each within 1e-6 relative
+Frobenius of its plain version.  This tree's entries take the pack's
+TF32 planes (split once at init); a tree whose entries take fp32 panels
+(the parent's; ``design:ring``) gets the fp32 panels they were split
+from, exact.  Besides the baselines it always times ``design:ring``, a
+copy of this tree in the other design (:data:`RING_EDITS`: the fp32
+panels by TMA, split in the ring by three splitter warps): C equal to
+this tree's bit for bit, and the comparison of where the split is made.
+With ``--split`` the copies of this tree's body without its copies or its
+products are ``x3_feed_split``'s edits and :data:`TF32_EDITS`.
 """
 
 from __future__ import annotations
@@ -57,9 +72,11 @@ import torch
 
 from ..kernels import _build
 from ..kernels.points import PEAK
+from ..kernels.spmm_pallas import tf32_panels
 from ._csrc_variants import build as build_copies
 from ._csrc_variants import edited
 from .dd_split import NO_COPIES, NO_PRODUCTS
+from .x3_feed_split import EDITS as X3_EDITS
 
 OUT = _build.BUILD_DIR / "f64_ab"
 N = 256
@@ -84,27 +101,148 @@ SPLITS = {"products_only": NO_COPIES, "copies_only": NO_PRODUCTS}
 ERR_COLS = 32
 TOL = 1e-12
 
+# --point highest: the smoke's fp32 headline, #3 at p = 1 and #4 on shard 0
+HIGHEST_STEMS = ("window_sg", "window")
+HIGHEST_MATRICES = {
+    "headline": ("banded_random_csr", dict(n=217918, nnz_per_row=53, bandwidth=2500,
+                                           seed=1234, dtype=np.float32)),
+}
+HIGHEST_CASES = {
+    ("headline", 1, "auto"): "crp_window_sg_f32",
+    ("headline", 4, "pallas"): "crp_window_f32",
+}
+HIGHEST_TOL = 1e-6  # kernel vs plain, relative Frobenius (chip_smoke TOL_PLAIN_FRO)
+# the TF32 consumers' products under TF32_NO_PRODUCTS; with x3_feed_split's
+# producer edits (X3_NO_PANELS, X3_NO_B) the two halves
+TF32_EDITS = (
+    ("#pragma unroll\n            for (int h = 0; h < X3_SLICE / 16; ++h) {",
+     "#ifndef TF32_NO_PRODUCTS\n#pragma unroll\n"
+     "            for (int h = 0; h < X3_SLICE / 16; ++h) {"),
+    ("            for (int i = 0; i < 64; ++i) acc[i] += part[i];\n            __syncwarp();\n",
+     "            for (int i = 0; i < 64; ++i) acc[i] += part[i];\n#endif\n"
+     "            __syncwarp();\n"),
+)
+HIGHEST_SPLITS = {"products_only": ("X3_NO_PANELS", "X3_NO_B"),
+                  "copies_only": ("TF32_NO_PRODUCTS",)}
+# The other design of the TF32 mode (ROADMAP B2 step 2's second way):
+# the entries take the pack's fp32 panels, TMA lands one fp32 tile a
+# stage, and three splitter warps beside the producer (384 threads) split
+# it in place to the big operand bits and into the small tile beside it,
+# then arrive on the stage's third mbarrier (ready), which the consumers
+# wait for.  (Splitting in the consumers themselves, under the previous
+# stage's products, spilled: the block has 168 registers a thread.)
+_SPLIT_STAGE = """// the ring design: splitter thread sid's share of a landed stage's split
+__device__ __forceinline__ void tf32_split_stage(uint8_t* st, int sid)
+{
+    const float4* x = reinterpret_cast<const float4*>(st);
+    uint4* big = reinterpret_cast<uint4*>(st);
+    uint4* small = reinterpret_cast<uint4*>(st + X3_A_TILE);
+#pragma unroll 4
+    for (int e = sid; e < X3_A_TILE / 16; e += 96) {
+        const float4 v = x[e];
+        uint4 bb, ss;
+        split_tf32(v.x, bb.x, ss.x);
+        split_tf32(v.y, bb.y, ss.y);
+        split_tf32(v.z, bb.z, ss.z);
+        split_tf32(v.w, bb.w, ss.w);
+        big[e] = bb;
+        small[e] = ss;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+}
 
-def libraries(baselines, split: bool) -> dict:
-    """``{tree: [ctypes libraries]}``: this tree (``"this"``), each
-    baseline (``"baseline:DIR"``) and, with ``split``, the split copies of
-    this tree's ``dd_tc.cu`` (``"split:VARIANT"``), one ``nvcc`` a source,
-    all started together."""
+"""
+_SPLITTERS = """    if constexpr (Ring::TF32) {
+        if (warp > X3_CONSUMERS / 32) {  // the splitters
+            for (int t = 0; t < stages; ++t) {
+                const int s = t % Ring::STAGES;
+                mbar_wait(full0 + 8 * s, (t / Ring::STAGES) & 1);
+                tf32_split_stage(smem + s * Ring::STAGE, tid - X3_THREADS);
+                mbar_arrive(ready0 + 8 * s);
+            }
+            return;
+        }
+    }
+"""
+_THREADS = "X3_THREADS + (MODE == WgMode::TF32X3 ? 96 : 0)"
+RING_EDITS = {
+    "x3_wgmma.cuh": (
+        ("    static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;",
+         "    static constexpr int SMEM = STAGES * STAGE + 3 * STAGES * 8 + 1024;"),
+        ("template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false,\n"
+         "          bool FLAGS = false>\n__global__ void __launch_bounds__(X3_THREADS, 1)",
+         _SPLIT_STAGE + "template <WgMode MODE, bool B_VEC, bool CHUNKED = false, "
+         "bool RAGGED = false,\n          bool FLAGS = false>\n"
+         f"__global__ void __launch_bounds__({_THREADS}, 1)"),
+        ("    const uint32_t empty0 = full0 + Ring::STAGES * 8;\n",
+         "    const uint32_t empty0 = full0 + Ring::STAGES * 8;\n"
+         "    const uint32_t ready0 = empty0 + Ring::STAGES * 8;\n"),
+        ("            mbar_init(empty0 + 8 * s, X3_CONSUMERS / 32);  // one per consumer warp\n",
+         "            mbar_init(empty0 + 8 * s, X3_CONSUMERS / 32);  // one per consumer warp\n"
+         "            if constexpr (Ring::TF32) mbar_init(ready0 + 8 * s, 96);\n"),
+        ("    if (warp == X3_CONSUMERS / 32) {  // the producer",
+         _SPLITTERS + "    if (warp == X3_CONSUMERS / 32) {  // the producer"),
+        ("                mbar_arrive_tx(full0 + 8 * s, Ring::A_BYTES);",
+         "                mbar_arrive_tx(full0 + 8 * s, Ring::TF32 ? X3_A_TILE : Ring::A_BYTES);"),
+        ("                if constexpr (!Ring::ONE)\n",
+         "                if constexpr (!Ring::ONE && !Ring::TF32)\n"),
+        ("            __syncwarp();  // wgmma's .aligned forms need the warp converged\n"
+         "            const uint8_t* st = smem + s * Ring::STAGE;\n"
+         "            const uint32_t big_addr",
+         "            mbar_wait(ready0 + 8 * s, (t / Ring::STAGES) & 1);\n"
+         "            __syncwarp();  // wgmma's .aligned forms need the warp converged\n"
+         "            const uint8_t* st = smem + s * Ring::STAGE;\n"
+         "            const uint32_t big_addr"),
+        ("    kernel<<<(unsigned)blocks, X3_THREADS, WgRing<MODE>::SMEM",
+         f"    kernel<<<(unsigned)blocks, {_THREADS}, WgRing<MODE>::SMEM"),
+    ),
+    **{f"{stem}.cu": (("launch_wgmma<crp::WgMode::TF32X3>(ws, big, big + G * TM * W, b,",
+                       "launch_wgmma<crp::WgMode::TF32X3>(ws, big, big, b,"),)
+       for stem in HIGHEST_STEMS},
+}
+# the trees whose #3 and #4 take the TF32 planes: their entries pass the
+# small plane G*TM*W floats past the big one; the others (the parent's,
+# design:ring) take the fp32 panels
+PLANES_ENTRY = "big + G * TM * W"
+
+
+def libraries(baselines, split: bool, point: str = "fp64") -> tuple:
+    """``({tree: [ctypes libraries]}, the trees whose #3 and #4 take the
+    TF32 planes)``: this tree (``"this"``), each baseline
+    (``"baseline:DIR"``), at ``highest`` the copy in the other design
+    (``"design:ring"``, :data:`RING_EDITS`) and, with ``split``, the split
+    copies of this tree's ``dd_tc.cu`` (fp64) or ``x3_wgmma.cuh``
+    (``highest``) (``"split:VARIANT"``), one ``nvcc`` a source, all started
+    together."""
+    highest = point == "highest"
+    stems = HIGHEST_STEMS if highest else STEMS
     jobs = {"this": (_build.CSRC, {}, ())}
     for base in baselines:
         jobs[f"baseline:{base}"] = (pathlib.Path(base), {}, ())
     splits = {}
-    if split:
+    if highest:
+        jobs["design:ring"] = (_build.CSRC, {
+            name: edited((_build.CSRC / name).read_text(), edits, "f64_ab")
+            for name, edits in RING_EDITS.items()}, ())
+        if split:
+            header = edited((_build.CSRC / "x3_wgmma.cuh").read_text(),
+                            X3_EDITS + TF32_EDITS, "f64_ab")
+            splits = {f"split:{variant}": (_build.CSRC, {"x3_wgmma.cuh": header}, macros)
+                      for variant, macros in HIGHEST_SPLITS.items()}
+    elif split:
         body = (_build.CSRC / "dd_tc.cu").read_text()
         splits = {f"split:{variant}": (_build.CSRC,
                                        {"dd_tc.cu": edited(body, edits, "f64_ab")}, ())
                   for variant, edits in SPLITS.items()}
+    planes = {tree for tree, (src, texts, _) in {**jobs, **splits}.items()
+              if PLANES_ENTRY in texts.get("window.cu", (src / "window.cu").read_text())}
     libs = {}
-    for out, js, stems in ((OUT, jobs, STEMS), (OUT / "split", splits, ("dd_tc",))):
+    for out, js, js_stems in ((OUT, jobs, stems),
+                              (OUT / "split", splits, stems if highest else ("dd_tc",))):
         if js:
-            for (tree, _), path in build_copies(out, js, stems, "f64_ab").items():
+            for (tree, _), path in build_copies(out, js, js_stems, "f64_ab").items():
                 libs.setdefault(tree, []).append(ctypes.CDLL(str(path)))
-    return libs
+    return libs, planes
 
 
 def entry_of(libs, name):
@@ -116,14 +254,15 @@ def entry_of(libs, name):
 
 
 def engine(a, p: int, kernel: str, dev):
-    """``RowParaSpmm`` over p nnz-balanced row shards of ``a`` in fp64 at
-    n = N on ``dev``, and its B shards for the analytic B."""
+    """``RowParaSpmm`` over p nnz-balanced row shards of ``a`` in its dtype
+    (fp64, or fp32 at ``highest``) at n = N on ``dev``, and its B shards
+    for the analytic B."""
     from .. import RowParaSpmm, SpmmConfig, csr_row_partition, fill_b
 
     d = csr_row_partition(a.rowptr, p)
-    eng = RowParaSpmm(a, d, d, N, device=dev, dtype=np.float64,
+    eng = RowParaSpmm(a, d, d, N, device=dev, dtype=a.val.dtype,
                       config=SpmmConfig(kernel=kernel, mxu_precision="highest"))
-    return eng, eng.shard_b(np.asarray(fill_b(0, a.ncol, 0, N)))
+    return eng, eng.shard_b(np.asarray(fill_b(0, a.ncol, 0, N, dtype=a.val.dtype)))
 
 
 def pack(a, p: int, kernel: str, dev) -> tuple:
@@ -142,9 +281,11 @@ def pack(a, p: int, kernel: str, dev) -> tuple:
     return op, args, op.plain(*args), rows
 
 
-def runner(fn, op, args, stream):
+def runner(fn, op, args, stream, panels=None):
     """A call of entry ``fn`` on the op's args, its output allocated once;
-    raises on a CUDA error."""
+    raises on a CUDA error.  ``panels``: passed in the place of the args'
+    (#3's and #4's fp32 panels for a tree whose entries take them, the
+    args holding their TF32 planes)."""
     extra = ()
     if op.variant == "halo":  # #12: rows, ws, panels, C; then rows16
         from ..kernels.spmm_halo import stacked_chunk_rows
@@ -155,16 +296,17 @@ def runner(fn, op, args, stream):
         ptrs, extra, shape = (rows, ws, panels), (int(rows16),), (s_, G * TM, b.shape[-1])
         G *= s_
     else:
-        if op.variant in ("uniform", "window"):  # #3, #4: ws, tiles, b
-            ws, panels, b = args[:3]
-            G, ptrs = ws.shape[0], (ws, panels, b)
+        if op.variant in ("uniform", "window"):  # #3, #4: ws, tiles (or planes), b
+            ws, tiles, b = args[:3]
+            G, ptrs = ws.shape[0], (ws, tiles if panels is None else panels, b)
+            panels = tiles
         else:  # #6: step_g, group_ptr, starts, panels, b
             _, group_ptr, starts, panels, b = args
             G, ptrs = group_ptr.shape[0] - 1, (group_ptr, starts, panels, b)
-        _, TM, W = panels.shape
+        TM, W = panels.shape[-2:]
         shape = (G * TM, b.shape[1])
     n = b.shape[-1]
-    c = torch.empty(shape, dtype=torch.float64, device=b.device)
+    c = torch.empty(shape, dtype=panels.dtype, device=b.device)
     fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 1) + [ctypes.c_int64] * (4 + len(extra))
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -181,9 +323,9 @@ def runner(fn, op, args, stream):
 
 
 def cusparse_ms(a, rows, dev, median_ms) -> float:
-    """ms of ``torch.sparse_csr_tensor @ B`` in fp64 on the CSR rows
-    ``rows`` of ``a`` and the analytic B (the library's time for the same
-    product)."""
+    """ms of ``torch.sparse_csr_tensor @ B`` in ``a``'s dtype on the CSR
+    rows ``rows`` of ``a`` and the analytic B (the library's time for the
+    same product)."""
     from .. import fill_b
 
     r0, r1 = rows
@@ -192,7 +334,7 @@ def cusparse_ms(a, rows, dev, median_ms) -> float:
     s = torch.sparse_csr_tensor(torch.from_numpy(rp.astype(np.int64)),
                                 torch.from_numpy(a.colidx[sl].astype(np.int64)),
                                 torch.from_numpy(a.val[sl]), size=(r1 - r0, a.ncol)).to(dev)
-    b = torch.from_numpy(np.asarray(fill_b(0, a.ncol, 0, N))).to(dev)
+    b = torch.from_numpy(np.asarray(fill_b(0, a.ncol, 0, N, dtype=a.val.dtype))).to(dev)
     return median_ms(lambda: s @ b, dev, 5, 5)
 
 
@@ -221,11 +363,13 @@ def dd_vs_auto(a, dev, median_ms, card) -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m crp_tpu_torch.cli.f64_ab")
+    parser.add_argument("--point", choices=("fp64", "highest"), default="fp64",
+                        help="the fp64 entries (default) or the fp32 ones at highest")
     parser.add_argument("--baseline", action="append", default=[],
                         help="another kernels/csrc tree to time as it is")
     parser.add_argument("--rounds", type=int, default=4)
     parser.add_argument("--split", action="store_true",
-                        help="also time this tree's DMMA body without copies or products")
+                        help="also time this tree's body without copies or products")
     parser.add_argument("--p", type=int, action="append", choices=(1, 4),
                         help="the cases at this p (default: every case)")
     args = parser.parse_args(argv)
@@ -239,52 +383,65 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    libs = libraries(args.baseline, args.split)
+    highest = args.point == "highest"
+    cases, gens = (HIGHEST_CASES, HIGHEST_MATRICES) if highest else (CASES, MATRICES)
+    tol, bits = (HIGHEST_TOL, torch.int32) if highest else (TOL, torch.int64)
+    libs, takes_planes = libraries(args.baseline, args.split, args.point)
     stream = torch.cuda.current_stream(dev).cuda_stream
     matrices = {}
-    for (label, p, kernel), name in CASES.items():
+    for (label, p, kernel), name in cases.items():
         if args.p and p not in args.p:
             continue
         if label not in matrices:
-            gen, kw = MATRICES[label]
+            gen, kw = gens[label]
             matrices = {label: getattr(synth, gen)(**kw)}  # one matrix held at a time
         a = matrices[label]
         op, kargs, plain, rows = pack(a, p, kernel, dev)
-        runs = {tree: runner(entry_of(tree_libs, name), op, kargs, stream)
+        fp32 = tf32_panels(kargs[1]) if highest else None  # for the trees that take them
+        runs = {tree: runner(entry_of(tree_libs, name), op, kargs, stream,
+                             None if tree in takes_planes else fp32)
                 for tree, tree_libs in libs.items()}
+        first = None
         for tree, run in runs.items():
             if tree.startswith("split:"):
                 continue
             c = run().clone()
             err = float((c - plain).norm() / plain.norm())
-            if err > TOL:
+            if err > tol:
                 raise RuntimeError(f"f64_ab: {label} p={p} {name} of {tree} vs plain "
                                    f"{err:.3e}")
-            if tree == "this" and not torch.equal(c.view(torch.int64),
-                                                  run().view(torch.int64)):
-                raise RuntimeError(f"f64_ab: {label} p={p} {name}: two launches differ")
+            if tree == "this":
+                first = c
+                if not torch.equal(c.view(bits), run().view(bits)):
+                    raise RuntimeError(f"f64_ab: {label} p={p} {name}: two launches differ")
+            if tree == "design:ring" and not torch.equal(c.view(bits), first.view(bits)):
+                raise RuntimeError(f"f64_ab: {label} p={p} {name}: the ring design's C "
+                                   "differs from this tree's")
+        del first, c
         times = {tree: [] for tree in runs}
         for r in range(args.rounds):
             for tree in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
                 times[tree].append(median_ms(runs[tree], dev, 5, 5))
         panels = next(t for t in kargs if isinstance(t, torch.Tensor) and t.dim() >= 3)
+        panels = panels[0] if highest else panels  # one TF32 plane: the panels' shape
         gflop = 2.0 * panels.numel() * N / 1e9
         median = {tree: statistics.median(t) for tree, t in times.items()}
         case = f"{label} p={p} {kernel}"
+        bounds = (dict(design_ms_tf32=3 * gflop / PEAK["tf32"] * 1e12) if highest else
+                  dict(design_ms_fp64_tc=gflop / PEAK["fp64_tc"] * 1e12,
+                       design_ms_fp64=gflop / PEAK["fp64"] * 1e12))
         for tree, t in times.items():
             print(json.dumps(dict(
                 case=case, matrix=label, p=p, entry=name, variant=op.variant, tree=tree,
                 ms=t, median_ms=median[tree], gflop=gflop, tflops=gflop / median[tree],
-                design_ms_fp64_tc=gflop / PEAK["fp64_tc"] * 1e12,
-                design_ms_fp64=gflop / PEAK["fp64"] * 1e12, panels=list(panels.shape),
-                n=N, card=card)), flush=True)
-        del op, kargs, plain, runs
+                **bounds, panels=list(panels.shape), n=N, card=card)), flush=True)
+        del op, kargs, plain, runs, fp32
         torch.cuda.empty_cache()
         print(json.dumps(dict(case=case, entry=name, over_this={
             tree: median[tree] / median["this"] for tree in times},
             cusparse_rows=list(rows), cusparse_ms=cusparse_ms(a, rows, dev, median_ms),
             card=card)), flush=True)
-    if not args.p or 4 in args.p:  # C1 on the p = 4 cases' matrix, the last one held
+    if not highest and (not args.p or 4 in args.p):  # C1 on the p = 4 cases' matrix
         dd_vs_auto(matrices["fp64 headline"], dev, median_ms, card)
     return 0
 

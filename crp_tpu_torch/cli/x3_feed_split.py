@@ -53,11 +53,13 @@ from ._csrc_variants import edited
 # (text of x3_wgmma.cuh, its replacement): each puts one part of the body
 # under a macro; every anchor must occur exactly once
 EDITS = (
-    ("#pragma unroll\n        for (int h = 0; h < X3_BK / X3_SLICE; ++h) {",
+    ("#pragma unroll\n            for (int h = 0; h < X3_BK / X3_SLICE; ++h) {",
      "#ifndef X3_NO_PRODUCTS\n#pragma unroll\n"
-     "        for (int h = 0; h < X3_BK / X3_SLICE; ++h) {"),
-    ("        __syncwarp();\n        if (lane == 0) mbar_arrive(empty0 + 8 * s);",
-     "#endif\n        __syncwarp();\n        if (lane == 0) mbar_arrive(empty0 + 8 * s);"),
+     "            for (int h = 0; h < X3_BK / X3_SLICE; ++h) {"),
+    ("            }\n            __syncwarp();\n"
+     "            if (lane == 0) mbar_arrive(empty0 + 8 * s);",
+     "            }\n#endif\n            __syncwarp();\n"
+     "            if (lane == 0) mbar_arrive(empty0 + 8 * s);"),
     ("            if (lane == 0) {\n                mbar_arrive_tx(",
      "#ifdef X3_NO_PANELS\n            if (lane == 0) mbar_arrive(full0 + 8 * s);\n"
      "            if (false) {\n#else\n            if (lane == 0) {\n#endif\n"

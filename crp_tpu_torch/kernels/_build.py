@@ -150,10 +150,10 @@ def _report(name: str, symbol: str) -> dict:
 
 
 def tf32x3_layout(name: str) -> dict:
-    """The ring of the 3xTF32 entry ``name`` (``crp_window_sg_f32``,
-    ``crp_window_f32``, ``crp_halo_f32`` or ``crp_ragged_f32``) as its
-    library's
-    ``crp_tf32x3_layout`` reports it: stages, dynamic shared memory, block
+    """The ring of the ``mma.sync`` 3xTF32 entry ``name``
+    (``crp_halo_f32`` or ``crp_ragged_f32``; #3's and #4's fp32 entries
+    run the ``wgmma`` body's TF32 mode, in :func:`x3_layout`) as its
+    library's ``crp_tf32x3_layout`` reports it: stages, dynamic shared memory, block
     tile and, for its kernels with 16-byte (``b16.*``) and 4-byte
     (``b4.*``) B copies, registers, local (spill) bytes and resident blocks
     per SM; for ``crp_halo_f32`` also its kernels with the waits across
@@ -176,7 +176,11 @@ def x3_layout(name: str = "crp_window_sg_presplit") -> dict:
     rows through the chunk table (``halo``: ``crp_halo_x3``'s
     ``chunk16.*``, ``chunk4.*`` and ``crp_halo_bf16``'s one-pass
     ``chunkone16.*``, ``chunkone2.*``; with the waits across processes
-    ``flag16.*``, ``flag4.*``, ``flagone16.*``, ``flagone2.*``)."""
+    ``flag16.*``, ``flag4.*``, ``flagone16.*``, ``flagone2.*``), and in
+    ``window_sg`` and ``window`` the TF32 mode of #3 and #4 at highest
+    (its ring: ``tf32.stages``, ``tf32.smem_bytes``, ``tf32.BK``,
+    ``tf32.threads``; its kernels on fp32 B by 16-byte and by plain
+    copies: ``tf32_16.*``, ``tf32_4.*``)."""
     return _report(name, "crp_x3_layout")
 
 

@@ -62,7 +62,7 @@
 //                     caller, one product: #4's one-pass wgmma body
 //                     (x3_wgmma.cuh, ONE_PASS) with the same chunk lookup
 //   crp_halo_f32   <- HIGHEST: 3xTF32 on the TF32 tensor cores
-//                     (panel_tf32x3_kernel, #4's crp_window_f32 body): a
+//                     (panel_tf32x3_kernel, #6's crp_ragged_f32 body): a
 //                     4-stage cp.async ring, dead chunks zero-filled by
 //                     the copy, three TF32 products per k step
 //   crp_halo_f64   <- fp64 panels: an entry of dd_tc.cu, #11's DMMA body

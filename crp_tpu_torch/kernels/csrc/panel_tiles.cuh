@@ -44,13 +44,13 @@
 // and the later reads of an A slice come from L2.
 //
 // One tile body: panel_tf32x3_kernel (fp32 at HIGHEST on the TF32 tensor
-// cores, fed by a cp.async shared-memory ring, see its section: #3, #4, #6
-// and #12).  The kernels on bf16 panels, x3 (#1, #5, #4, #12 and the ragged
-// #7) and the one-pass default (#2, #4, #12 and the ragged #8), run on
-// wgmma fed by TMA instead (x3_wgmma.cuh); every fp64 entry (#3, #4, #6,
-// #12) runs on the FP64 tensor cores, #11's DMMA body with its windowed and
-// its ragged walk (dd_tc.cu), which takes the chunk lookup and the flags of
-// #12 from here.
+// cores, fed by a cp.async shared-memory ring, see its section: #6 and
+// #12).  The kernels on bf16 panels, x3 (#1, #5, #4, #12 and the ragged
+// #7) and the one-pass default (#2, #4, #12 and the ragged #8), and #3 and
+// #4 at HIGHEST (TF32X3), run on wgmma fed by TMA instead (x3_wgmma.cuh);
+// every fp64 entry (#3, #4, #6, #12) runs on the FP64 tensor cores, #11's
+// DMMA body with its windowed and its ragged walk (dd_tc.cu), which takes
+// the chunk lookup and the flags of #12 from here.
 
 #pragma once
 

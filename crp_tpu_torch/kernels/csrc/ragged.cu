@@ -25,8 +25,8 @@
 //                           mode (#2's), with the same walk
 //   crp_ragged_f32       <- _ragged_kernel at HIGHEST on fp32: 3xTF32 on
 //                           the TF32 tensor cores (panel_tf32x3_kernel, the
-//                           body of #3, #4 and #12 at highest, walking each
-//                           group's chunks), held to the fp32 plain version
+//                           body of #12 at highest, walking each group's
+//                           chunks), held to the fp32 plain version
 // The fp64 entry, crp_ragged_f64 (replacing _ragged_kernel on fp64), is in
 // dd_tc.cu: #11's DMMA body on the FP64 tensor cores with its ragged walk,
 // bound by its products (2 S TM Wc n at 67 TFLOP/s).

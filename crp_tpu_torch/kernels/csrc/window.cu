@@ -26,10 +26,13 @@
 //                       one-pass wgmma body (x3_wgmma.cuh, ONE_PASS), its
 //                       own entry so that #4 keeps its launch count and row
 //   crp_window_f32   <- HIGHEST: 3xTF32 on the TF32 tensor cores, A and B
-//                       split to tf32 big/small (cvt.rna's bits) as their
-//                       fragments are read, acc += as*bb + ab*bs + ab*bb
-//                       (panel_tf32x3_kernel), fed by a 4-stage cp.async
-//                       shared-memory ring
+//                       split to tf32 big/small (cvt.rna's bits),
+//                       acc += as*bb + ab*bs + ab*bb: #1's wgmma body in
+//                       its TF32X3 mode (x3_wgmma.cuh), the panels' big
+//                       and small planes, split once when they are packed
+//                       (TMA copies and cannot split; the tensor cores
+//                       truncate an fp32 operand), fed by TMA into a
+//                       4-stage ring, B split in registers
 //   crp_window_f64   <- fp64 panels: an entry of dd_tc.cu, #11's DMMA body
 //                       on the FP64 tensor cores (the windowed walk)
 // The TPU kernel walks a (G, n/TN, W/Wc) grid in order and double-buffers
@@ -46,8 +49,9 @@
 // pair (the same bytes), 0.48 ms at 989 TF/s; DEFAULT one bf16 pass (0.16
 // ms) over the 0.62 GB hi plane, bound by its bytes (0.18 ms); HIGHEST
 // three TF32 passes, 0.96 ms at 495 TF/s (one fp32 FMA pass would be 2.36
-// ms at 67 TF/s); fp64 one pass at the FP64 tensor cores' 67 TF/s, 2.36
-// ms, over 2.47 GB of panels (0.74 ms).
+// ms at 67 TF/s), over 2.47 GB of TF32 planes (0.74 ms); fp64 one pass at
+// the FP64 tensor cores' 67 TF/s, 2.36 ms, over 2.47 GB of panels (0.74
+// ms).
 
 #include "panel_tiles.cuh"
 #include "x3_wgmma.cuh"
@@ -61,11 +65,11 @@ int crp_window_x3(const void* ws, const void* ah, const void* al, const void* b,
                                                     stream);
 }
 
-// the wgmma body's rings and resources, crp_window_x3's and
-// crp_window_bf16's (crp::x3_layout)
+// the wgmma body's rings and resources, crp_window_x3's, crp_window_bf16's
+// and crp_window_f32's (crp::x3_layout)
 int crp_x3_layout(char* out, int len)
 {
-    return crp::x3_layout<false, false>(out, len);
+    return crp::x3_layout<false, false, false, true>(out, len);
 }
 
 int crp_window_bf16(const void* ws, const void* ah, const void* bh, void* c,
@@ -78,13 +82,10 @@ int crp_window_bf16(const void* ws, const void* ah, const void* bh, void* c,
 int crp_window_f32(const void* ws, const void* tiles, const void* b, void* c,
                    int64_t G, int64_t TM, int64_t W, int64_t n, void* stream)
 {
-    return crp::launch_tf32x3<false>(nullptr, ws, tiles, b, c, G, TM, W, n, stream);
-}
-
-// crp_window_f32's ring and resources (crp::tf32x3_layout)
-int crp_tf32x3_layout(char* out, int len)
-{
-    return crp::tf32x3_layout<false>(out, len);
+    // tiles: the (2, G, TM, W) TF32 planes, big then small (see x3_wgmma.cuh)
+    const float* big = static_cast<const float*>(tiles);
+    return crp::launch_wgmma<crp::WgMode::TF32X3>(ws, big, big + G * TM * W, b, nullptr, c, G,
+                                                   TM, W, n, stream);
 }
 
 const char* crp_error_string(int code)

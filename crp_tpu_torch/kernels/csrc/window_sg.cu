@@ -24,9 +24,11 @@
 //                              TMA and one bf16 B plane in a 6-stage ring,
 //                              one wgmma per k16
 //   crp_window_sg_f32       <- _window_kernel_sg at HIGHEST on fp32: 3xTF32
-//                              on the TF32 tensor cores (panel_tf32x3_kernel,
-//                              as crp_window_f32), held to the fp32 plain
-//                              version
+//                              on the TF32 tensor cores, the same body's
+//                              TF32X3 mode (as crp_window_f32): the panels'
+//                              TF32 big/small planes, split once when they
+//                              are packed, by TMA, B split in registers,
+//                              held to the fp32 plain version
 // The fp64 entry, crp_window_sg_f64 (replacing _window_kernel_sg on fp64),
 // is in dd_tc.cu: #11's DMMA body on the FP64 tensor cores with its
 // windowed walk, bound by its products (2 G TM W n at 67 TFLOP/s).
@@ -39,7 +41,8 @@
 // of A panels (1.9 ms at the 989 TF/s bf16 peak against 1.5 ms of HBM
 // time), the 1-pass kernel 629 GFLOP (0.64 ms) over 2.5 GB (0.73 ms: the
 // bytes bound it), highest 3 x 629 GFLOP of TF32 products (3.8 ms at 495
-// TF/s; one fp32 FMA pass would be 9.4 ms at 67 TF/s).  The A panels are
+// TF/s; one fp32 FMA pass would be 9.4 ms at 67 TF/s) over 9.8 GB of TF32
+// planes (2.9 ms).  The A panels are
 // the dominant bytes; groups advance in order, so the B windows of
 // neighbouring groups (5.8 MB each, mostly shared) stay in the 50 MB L2.
 // The pre-split B pair moves the same bytes as fp32 B (two bf16 halves),
@@ -80,19 +83,17 @@ int crp_window_sg_f32(const void* ws, const void* tiles, const void* b,
                       void* c, int64_t G, int64_t TM, int64_t W, int64_t n,
                       void* stream)
 {
-    return crp::launch_tf32x3<false>(nullptr, ws, tiles, b, c, G, TM, W, n, stream);
+    // tiles: the (2, G, TM, W) TF32 planes, big then small (see x3_wgmma.cuh)
+    const float* big = static_cast<const float*>(tiles);
+    return crp::launch_wgmma<crp::WgMode::TF32X3>(ws, big, big + G * TM * W, b, nullptr, c, G,
+                                                   TM, W, n, stream);
 }
 
-// crp_window_sg_f32's ring and resources (crp::tf32x3_layout)
-int crp_tf32x3_layout(char* out, int len)
-{
-    return crp::tf32x3_layout<false>(out, len);
-}
-
-// the wgmma body's rings and resources, x3 and one-pass (crp::x3_layout)
+// the wgmma body's rings and resources, x3, one-pass and TF32X3
+// (crp::x3_layout)
 int crp_x3_layout(char* out, int len)
 {
-    return crp::x3_layout<true, false>(out, len);
+    return crp::x3_layout<true, false, false, true>(out, len);
 }
 
 const char* crp_error_string(int code)

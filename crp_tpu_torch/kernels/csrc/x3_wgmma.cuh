@@ -6,8 +6,11 @@
 // (crp_ragged_presplit) in ragged.cu; in one bf16 pass on the hi panels,
 // the default entries: the super-grouped #2 (crp_window_sg_bf16) in
 // window_sg.cu, #4 (crp_window_bf16) in window.cu, #12 (crp_halo_bf16) in
-// halo.cu and the ragged #8 (crp_ragged_bf16) in ragged.cu.  The kernel's
-// MODE (WgMode below) picks the products, CHUNKED and RAGGED the walk.
+// halo.cu and the ragged #8 (crp_ragged_bf16) in ragged.cu; at highest on
+// fp32 panels, three TF32 products (TF32X3, below): the super-grouped #3
+// (crp_window_sg_f32) in window_sg.cu and #4 (crp_window_f32) in
+// window.cu.  The kernel's MODE (WgMode below) picks the products, CHUNKED
+// and RAGGED the walk.
 //
 // A uniform pack: group g holds the bf16 hi and lo (TM, W) panels of A
 // over the B rows [ws[g], ws[g] + W), and
@@ -66,6 +69,30 @@
 // slice's adds with its products (two fresh partials in turn,
 // wgmma.wait_group 1) bought under 1% when measured (PERF.md).
 //
+// TF32X3 (#3, #4 at highest): C[g*TM + r, j] = sum_k (as*bb + ab*bs +
+// ab*bb)[r, k, j] with both operands split to TF32 big/small as
+// split_tf32 (panel_tiles.cuh) splits them: big rounded as cvt.rna rounds,
+// small the same rounding of the exact remainder, the three products of
+// panel_tiles.cuh's 3xTF32 path.  TF32 wgmma is m64nNk8 and takes its
+// shared-memory operand K-major only, so the transposed product below is
+// forced.  The tensor cores read the top 19 bits of an fp32 shared-memory
+// operand, a truncation, and TMA copies bytes, so the panels arrive split:
+// the pack holds two fp32 planes of the operand bits split_tf32 hands the
+// tensor cores (big: x + half a TF32 ulp, which the truncation turns into
+// cvt.rna's value; small: the same of the remainder), split once at init
+// (device_pack's "tf32" mode), the small plane G*TM*W floats after the big
+// one.  A 128-byte swizzle row holds 32 fp32 values: one TMA box is (128
+// rows x 32 k), and a stage, one 32-row fresh-accumulator slice, holds the
+// big and the small tile and 32 rows of fp32 B, 4 stages deep.  Per slice
+// the consumers run twelve wgmma.m64n128k8, three per k8 step, small terms
+// first, in two groups of six (the fragments of two k8 steps at a time,
+// as x3's per slice: ptxas gives the block 168 registers a thread).  B's k
+// slice is split in registers as at x3, its fp32 pitch X3_TF_B_LD keeping
+// the tf32 fragment's reads (4 k rows a quad) on distinct banks.  Splitting
+// each landed tile in the ring instead (three splitter warps beside the
+// producer, the pack JAX's fp32 panels) measured 1.37x slower on an H100
+// (PERF.md; cli/f64_ab.py --point highest, its design:ring copy).
+//
 // The body computes the transposed product, C^T = B^T A^T, so that each
 // operand sits where wgmma wants it:
 //   * the panels' (TM, W) rows are K-major, wgmma's shared-memory operand
@@ -116,7 +143,9 @@
 // against 1.62 GB of hi panels, B in bf16 and C (0.84 ms).  There a block
 // walks 8 chunks of 2 stages on average, against 88 stages at the headline,
 // so its fixed costs (barrier init, filling the ring, the C epilogue) weigh
-// about 5x more.
+// about 5x more.  TF32X3: three TF32 passes at 495 TF/s, 3.81 ms at the
+// p = 1 headline (#3) over 4.91 GB of fp32 panels (1.47 ms), 0.96 ms on one
+// p = 4 shard (#4) over 1.23 GB: the products bound it.
 
 #pragma once
 
@@ -137,24 +166,34 @@ constexpr int X3_B_LD = X3_BM + 4;    // fp32 pitch: conflict-free fragment read
 constexpr int X3_P_LD = X3_BM + 8;    // bf16 pitch of a B plane
 constexpr int X3_B_BYTES = 2 * X3_BK * X3_P_LD * 2;  // >= X3_BK * X3_B_LD * 4
 constexpr int X3_C_LD = X3_BN + 4;    // fp32 pitch of the staged C^T tile
+constexpr int X3_TF_B_LD = X3_BM + 8;  // TF32X3's fp32 pitch: 4 k rows on distinct banks
 static_assert(X3_BK * X3_B_LD * 4 <= X3_B_BYTES, "fp32 B slice fits the stage");
+static_assert(X3_BN * X3_SLICE * 4 == X3_A_TILE, "a 128 x 32 fp32 tile: a bf16 tile's bytes");
 
 // What a block multiplies: three bf16 products on fp32 B split in
 // registers (SPLIT_B: #1, #4, #12, #7) or on B pre-split to two bf16 planes
 // (PAIR_B: #5), or one bf16 product of the hi panels and a bf16 B
-// (ONE_PASS: #2, #4, #12, #8)
-enum class WgMode { SPLIT_B, PAIR_B, ONE_PASS };
+// (ONE_PASS: #2, #4, #12, #8), or three TF32 products of the panels' TF32
+// big/small planes and fp32 B split in registers (TF32X3: #3, #4 at
+// highest)
+enum class WgMode { SPLIT_B, PAIR_B, ONE_PASS, TF32X3 };
 
 // The ring of a mode: a stage holds the hi tile (and x3's lo tile), then
 // the B slice, as fp32 or as bf16 planes (X3_P_LD pitch); a one-pass stage
-// is half as large, so its ring is twice as deep
+// is half as large, so its ring is twice as deep.  A TF32X3 stage is one
+// 32-row slice: the big and the small tile (fp32, 32 k a row) and 32 rows
+// of fp32 B
 template <WgMode MODE>
 struct WgRing {
     static constexpr bool ONE = MODE == WgMode::ONE_PASS;
+    static constexpr bool TF32 = MODE == WgMode::TF32X3;
+    static constexpr int BK = TF32 ? X3_SLICE : X3_BK;      // k rows a stage
+    static constexpr int B_LD = TF32 ? X3_TF_B_LD : X3_B_LD;  // fp32 B pitch
     static constexpr int A_BYTES = (ONE ? 1 : 2) * X3_A_TILE;
-    static constexpr int B_BYTES = ONE ? X3_BK * X3_P_LD * 2 : X3_B_BYTES;
+    static constexpr int B_BYTES =
+        ONE ? X3_BK * X3_P_LD * 2 : TF32 ? X3_SLICE * X3_TF_B_LD * 4 : X3_B_BYTES;
     static constexpr int STAGE = A_BYTES + B_BYTES;
-    static constexpr int STAGES = ONE ? 6 : 3;
+    static constexpr int STAGES = ONE ? 6 : TF32 ? 4 : 3;
     static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
     static_assert(STAGE % 1024 == 0, "swizzled tiles need 1024-byte stage bases");
     static_assert(X3_BN * X3_C_LD * 4 <= STAGES * STAGE, "C^T fits the ring");
@@ -265,6 +304,34 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], const uint32_t (&a)[4]
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// d (+)= a b in TF32: a the m64 x k8 register fragment (tf32 operand bits),
+// b the K-major (8 x 128) fp32 tile described by desc, of which the tensor
+// cores read the top 19 bits; scale_d = 0 starts a fresh sum
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
 // RNE bf16 hi and lo of (x0, x1), x0 in the low half of each word: the
 // split of split8 and of the pack, never a truncation
 __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo)
@@ -281,19 +348,20 @@ __device__ __forceinline__ uint32_t pack_pair(bf16 x0, bf16 x1)
     return (uint32_t)__bfloat16_as_ushort(x0) | ((uint32_t)__bfloat16_as_ushort(x1) << 16);
 }
 
-// The producer warp's B copy of stage rows [k0, k0 + X3_BK) of the window
-// (B rows b_row0 + k) and columns [n0, n0 + X3_BM), as fp32 (ld X3_B_LD) or
-// as the bf16 planes (ld X3_P_LD: two with PAIR_B, one with ONE_PASS);
-// rows at or past W and columns at or past n are zeros.  B_VEC: 16-byte
-// cp.async copies, one arrival on bar when they land; else plain loads and
-// stores, then one arrival (release: the stores are visible to the threads
-// that wait on bar).
+// The producer warp's B copy of stage rows [k0, k0 + BK) of the window (B
+// rows b_row0 + k) and columns [n0, n0 + X3_BM), as fp32 (ld B_LD, the
+// ring's) or as the bf16 planes (ld X3_P_LD: two with PAIR_B, one with
+// ONE_PASS); rows at or past W and columns at or past n are zeros.  B_VEC:
+// 16-byte cp.async copies, one arrival on bar when they land; else plain
+// loads and stores, then one arrival (release: the stores are visible to
+// the threads that wait on bar).
 template <WgMode MODE, bool B_VEC>
 __device__ __forceinline__ void x3_load_b(uint8_t* dst, const void* b, const bf16* b_lo,
                                           int64_t b_row0, int k0, int W, int n, int n0,
                                           int lane, uint32_t bar)
 {
     constexpr bool B_PAIR = MODE == WgMode::PAIR_B;
+    constexpr int BK = WgRing<MODE>::BK, B_LD = WgRing<MODE>::B_LD;
     if constexpr (MODE == WgMode::ONE_PASS) {
         const bf16* bh = static_cast<const bf16*>(b);
         if constexpr (B_VEC) {
@@ -333,10 +401,10 @@ __device__ __forceinline__ void x3_load_b(uint8_t* dst, const void* b, const bf1
         const bool col_ok = n0 + col < n;
         const char* src0 = B_PAIR && plane ? (const char*)b_lo : (const char*)b;
         constexpr int ES = B_PAIR ? 2 : 4;
-        constexpr int LD = B_PAIR ? X3_P_LD : X3_B_LD;
+        constexpr int LD = B_PAIR ? X3_P_LD : B_LD;
         uint32_t d = smem_u32(dst) + (plane * X3_BK * LD + col) * ES;
 #pragma unroll 8
-        for (int r = 0; r < X3_BK; ++r) {
+        for (int r = 0; r < BK; ++r) {
             const bool ok = col_ok && k0 + r < W;
             const float* src = (const float*)(ok ? src0 + ((b_row0 + k0 + r) * n + n0 + col) * ES
                                                  : src0);
@@ -348,13 +416,13 @@ __device__ __forceinline__ void x3_load_b(uint8_t* dst, const void* b, const bf1
         float* bs = reinterpret_cast<float*>(dst);
         const float* bf = static_cast<const float*>(b);
 #pragma unroll 4
-        for (int r = 0; r < X3_BK; ++r) {
+        for (int r = 0; r < BK; ++r) {
             const bool row_ok = k0 + r < W;
             const float* src = bf + (b_row0 + k0 + r) * n + n0;
 #pragma unroll
             for (int q = 0; q < X3_BM / 32; ++q) {
                 const int j = lane + 32 * q;
-                bs[r * X3_B_LD + j] = row_ok && n0 + j < n ? src[j] : 0.0f;
+                bs[r * B_LD + j] = row_ok && n0 + j < n ? src[j] : 0.0f;
             }
         }
         mbar_arrive(bar);
@@ -417,6 +485,20 @@ __device__ __forceinline__ void x3_fragments(const uint8_t* stage_b, int kk, int
     }
 }
 
+// TF32X3: the consumer thread's big and small fragments of k8 step ks of
+// the stage's fp32 B slice, split by split_tf32: rows j0 and j0 + 8 (B
+// columns) of the m64 x k8 operand, columns (k rows of B) tq and tq + 4, in
+// the PTX ISA's register layout
+__device__ __forceinline__ void tf32_fragments(const uint8_t* stage_b, int ks, int j0, int tq,
+                                               uint32_t (&fb)[4], uint32_t (&fs)[4])
+{
+    const float* bs =
+        reinterpret_cast<const float*>(stage_b) + (8 * ks + tq) * X3_TF_B_LD + j0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)  // (j0, k) (j0 + 8, k) (j0, k + 4) (j0 + 8, k + 4)
+        split_tf32(bs[(q >> 1) * 4 * X3_TF_B_LD + (q & 1) * 8], fb[q], fs[q]);
+}
+
 template <WgMode MODE, bool B_VEC, bool CHUNKED = false, bool RAGGED = false,
           bool FLAGS = false>
 __global__ void __launch_bounds__(X3_THREADS, 1)
@@ -437,6 +519,7 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
     static_assert(!FLAGS || CHUNKED, "the flags gate the chunk lookup");
     static_assert(!(RAGGED && (CHUNKED || MODE == WgMode::PAIR_B)),
                   "the ragged walk serves #7 (SPLIT_B) and #8 (ONE_PASS)");
+    static_assert(!(Ring::TF32 && (CHUNKED || RAGGED)), "TF32X3 serves #3 and #4");
     extern __shared__ __align__(16) uint8_t x3_smem_raw[];
     uint8_t* const smem =
         x3_smem_raw + ((1024 - (smem_u32(x3_smem_raw) & 1023)) & 1023);
@@ -448,7 +531,7 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
     const int n0 = (int)(tile % n_tiles) * X3_BM;
     const int64_t row0 = (tile / n_tiles) * X3_BN;  // first panel (and C) row
     const int64_t g = row0 / TM;                    // TM % X3_BN == 0
-    const int nk = (W + X3_BK - 1) / X3_BK;         // stages of the window (a chunk)
+    const int nk = (W + Ring::BK - 1) / Ring::BK;   // stages of the window (a chunk)
     int64_t s0 = g;   // RAGGED: the group's chunks [s0, s0 + stages / nk)
     int stages = nk;  // the block's walk
     if constexpr (RAGGED) {
@@ -475,18 +558,18 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
             const unsigned long long* word = nullptr;  // FLAGS: its owner's arrive word
             if constexpr (FLAGS) {
                 const ulonglong2 pair = reinterpret_cast<const ulonglong2*>(
-                    chunk_src)[(b_row0 + t * X3_BK) / HALO_TK];
+                    chunk_src)[(b_row0 + t * Ring::BK) / HALO_TK];
                 rows = reinterpret_cast<const void*>(pair.x);
                 word = reinterpret_cast<const unsigned long long*>(pair.y);
             } else if constexpr (CHUNKED) {
                 rows = reinterpret_cast<const void* const*>(
-                    chunk_src)[(b_row0 + t * X3_BK) / HALO_TK];
+                    chunk_src)[(b_row0 + t * Ring::BK) / HALO_TK];
             }
             mbar_wait(empty0 + 8 * s, ((t / Ring::STAGES) & 1) ^ 1);
             uint8_t* st = smem + s * Ring::STAGE;
-            int kt = t;               // the stage's 64-row step in its window
+            int kt = t;               // the stage's BK-row step in its window
             int64_t a_row = row0;     // its first panel row
-            int64_t b_row = b_row0;   // stage row k is row b_row + kt X3_BK + k of b
+            int64_t b_row = b_row0;   // stage row k is row b_row + kt BK + k of b
             if constexpr (RAGGED) {   // step kt of chunk ch, over the B rows at ws[ch]
                 const int64_t ch = s0 + t / nk;
                 kt = t % nk;
@@ -495,14 +578,14 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
             }
             if (lane == 0) {
                 mbar_arrive_tx(full0 + 8 * s, Ring::A_BYTES);
-                tma_load(smem_u32(st), &a_hi, full0 + 8 * s, kt * X3_BK, (int)a_row);
+                tma_load(smem_u32(st), &a_hi, full0 + 8 * s, kt * Ring::BK, (int)a_row);
                 if constexpr (!Ring::ONE)
-                    tma_load(smem_u32(st) + X3_A_TILE, &a_lo, full0 + 8 * s, kt * X3_BK,
+                    tma_load(smem_u32(st) + X3_A_TILE, &a_lo, full0 + 8 * s, kt * Ring::BK,
                              (int)a_row);
             }
             if constexpr (FLAGS) {    // the stage's owner arrived (see above), while the
                                       // panel tiles' TMA is in flight
-                const int64_t chunk = (b_row0 + t * X3_BK) / HALO_TK;
+                const int64_t chunk = (b_row0 + t * Ring::BK) / HALO_TK;
                 if (word && word != gate && !failed) {
                     gate = word;
                     int code = 0;
@@ -515,13 +598,13 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 if (failed) rows = nullptr;
             }
             int w_end = W;            // stage rows at or past it are zeros
-            if constexpr (CHUNKED) {  // stage row k is row (t X3_BK) % HALO_TK + k of rows
-                b_row = (t * X3_BK) % HALO_TK - t * X3_BK;
+            if constexpr (CHUNKED) {  // stage row k is row (t BK) % HALO_TK + k of rows
+                b_row = (t * Ring::BK) % HALO_TK - t * Ring::BK;
                 w_end = rows ? W : 0;  // a dead chunk: every row zero
                 if (!rows) rows = b;
             }
-            x3_load_b<MODE, B_VEC>(st + Ring::A_BYTES, rows, b_lo, b_row, kt * X3_BK, w_end,
-                                   n, n0, lane, full0 + 8 * s);
+            x3_load_b<MODE, B_VEC>(st + Ring::A_BYTES, rows, b_lo, b_row, kt * Ring::BK,
+                                   w_end, n, n0, lane, full0 + 8 * s);
         }
         cp_async_commit();
         cp_async_wait<0>();
@@ -536,42 +619,75 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.0f;
 
-    for (int t = 0; t < stages; ++t) {
-        const int s = t % Ring::STAGES;
-        mbar_wait(full0 + 8 * s, (t / Ring::STAGES) & 1);
-        __syncwarp();  // wgmma's .aligned forms need the warp converged
-        const uint8_t* st = smem + s * Ring::STAGE;
-        const uint32_t hi_addr = smem_u32(st), lo_addr = hi_addr + X3_A_TILE;
-        const int kt = RAGGED ? t % nk : t;  // the stage's step in its window
+    if constexpr (Ring::TF32) {
+        for (int t = 0; t < stages; ++t) {
+            const int s = t % Ring::STAGES;
+            mbar_wait(full0 + 8 * s, (t / Ring::STAGES) & 1);
+            __syncwarp();  // wgmma's .aligned forms need the warp converged
+            const uint8_t* st = smem + s * Ring::STAGE;
+            const uint32_t big_addr = smem_u32(st), small_addr = big_addr + X3_A_TILE;
 #pragma unroll
-        for (int h = 0; h < X3_BK / X3_SLICE; ++h) {
-            if (kt * X3_BK + h * X3_SLICE >= W) break;  // W % 32 == 0: nothing left
-            uint32_t fh[2][4], fl[2][4];  // fl: x3 only
+            for (int h = 0; h < X3_SLICE / 16; ++h) {  // two k8 steps a group
+                uint32_t fb[2][4], fs[2][4];
 #pragma unroll
-            for (int ks = 0; ks < 2; ++ks)
-                x3_fragments<MODE>(st + Ring::A_BYTES, h * X3_SLICE + ks * 16, j0, tq,
-                                   fh[ks], fl[ks]);
-            wgmma_fence();
+                for (int kk = 0; kk < 2; ++kk)
+                    tf32_fragments(st + Ring::A_BYTES, 2 * h + kk, j0, tq, fb[kk], fs[kk]);
+                wgmma_fence();
 #pragma unroll
-            for (int ks = 0; ks < 2; ++ks) {
-                const uint32_t koff = (h * 2 + ks) * 32;  // 16 bf16 along the row
-                const uint64_t dh = sw128_desc(hi_addr + koff);
-                if constexpr (Ring::ONE) {
-                    wgmma_128(part, fh[ks], dh, ks);  // ah bh alone; ks = 0: a fresh sum
-                } else {
-                    const uint64_t dl = sw128_desc(lo_addr + koff);
-                    wgmma_128(part, fh[ks], dl, ks);  // the slice's first: a fresh sum
-                    wgmma_128(part, fl[ks], dh, 1);
-                    wgmma_128(part, fh[ks], dh, 1);
+                for (int kk = 0; kk < 2; ++kk) {
+                    const int ks = 2 * h + kk;
+                    const uint32_t koff = ks * 32;  // 8 fp32 along the row
+                    const uint64_t db = sw128_desc(big_addr + koff);
+                    wgmma_tf32(part, fb[kk], sw128_desc(small_addr + koff), ks);  // 0: fresh
+                    wgmma_tf32(part, fs[kk], db, 1);
+                    wgmma_tf32(part, fb[kk], db, 1);
                 }
+                wgmma_commit_wait();
             }
-            wgmma_commit_wait();
             fence_operands(part);
 #pragma unroll
             for (int i = 0; i < 64; ++i) acc[i] += part[i];
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty0 + 8 * s);
         }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    } else {
+        for (int t = 0; t < stages; ++t) {
+            const int s = t % Ring::STAGES;
+            mbar_wait(full0 + 8 * s, (t / Ring::STAGES) & 1);
+            __syncwarp();  // wgmma's .aligned forms need the warp converged
+            const uint8_t* st = smem + s * Ring::STAGE;
+            const uint32_t hi_addr = smem_u32(st), lo_addr = hi_addr + X3_A_TILE;
+            const int kt = RAGGED ? t % nk : t;  // the stage's step in its window
+#pragma unroll
+            for (int h = 0; h < X3_BK / X3_SLICE; ++h) {
+                if (kt * X3_BK + h * X3_SLICE >= W) break;  // W % 32 == 0: nothing left
+                uint32_t fh[2][4], fl[2][4];  // fl: x3 only
+#pragma unroll
+                for (int ks = 0; ks < 2; ++ks)
+                    x3_fragments<MODE>(st + Ring::A_BYTES, h * X3_SLICE + ks * 16, j0, tq,
+                                       fh[ks], fl[ks]);
+                wgmma_fence();
+#pragma unroll
+                for (int ks = 0; ks < 2; ++ks) {
+                    const uint32_t koff = (h * 2 + ks) * 32;  // 16 bf16 along the row
+                    const uint64_t dh = sw128_desc(hi_addr + koff);
+                    if constexpr (Ring::ONE) {
+                        wgmma_128(part, fh[ks], dh, ks);  // ah bh alone; ks = 0: a fresh sum
+                    } else {
+                        const uint64_t dl = sw128_desc(lo_addr + koff);
+                        wgmma_128(part, fh[ks], dl, ks);  // the slice's first: a fresh sum
+                        wgmma_128(part, fl[ks], dh, 1);
+                        wgmma_128(part, fh[ks], dh, 1);
+                    }
+                }
+                wgmma_commit_wait();
+                fence_operands(part);
+#pragma unroll
+                for (int i = 0; i < 64; ++i) acc[i] += part[i];
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty0 + 8 * s);
+        }
     }
 
     // epilogue: C^T fragments into a (128 rows x 128 columns) C tile in the
@@ -631,17 +747,21 @@ inline cudaError_t encode_tiled(EncodeTiled* fn)
 }
 
 // the tensor map of a (rows, W) bf16 panel view: (X3_BK x X3_BN) boxes,
-// 128-byte swizzle, zeros past the edge
-inline cudaError_t panel_map(CUtensorMap* map, const void* panels, int64_t rows, int64_t W)
+// 128-byte swizzle, zeros past the edge; with f32 an fp32 view, (X3_SLICE x
+// X3_BN) boxes (a 128-byte row either way)
+inline cudaError_t panel_map(CUtensorMap* map, const void* panels, int64_t rows, int64_t W,
+                             bool f32 = false)
 {
     EncodeTiled fn;
     const cudaError_t e = encode_tiled(&fn);
     if (e != cudaSuccess) return e;
     const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)W * 2};
-    const cuuint32_t box[2] = {X3_BK, X3_BN};
+    const cuuint64_t strides[1] = {(cuuint64_t)W * (f32 ? 4 : 2)};
+    const cuuint32_t box[2] = {(cuuint32_t)(f32 ? X3_SLICE : X3_BK), X3_BN};
     const cuuint32_t unit[2] = {1, 1};
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(panels),
+    const CUresult r = fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          2, const_cast<void*>(panels),
                           dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -659,7 +779,9 @@ cudaError_t x3_prepare()
 
 // SPLIT_B: b is fp32 B; PAIR_B: b is B's bf16 hi plane and b_lo its lo
 // plane (split_b_bf16); ONE_PASS: b is B cast to bf16, and al and b_lo are
-// not read.  The panels must be 16-byte aligned (TMA); B of any alignment
+// not read; TF32X3: ah and al are the panels' big and small planes
+// (fp32), b fp32 B, and b_lo is not read.  The panels must be 16-byte
+// aligned (TMA); B of any alignment
 // (16-byte copies where n and B allow them).  CHUNKED: B's rows come
 // through chunk_src's row pointers (see above), every ws is a multiple of
 // HALO_TK, and rows16 says whether every row pointer is on 16 bytes.  RAGGED: the
@@ -676,7 +798,7 @@ int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
     // a stage starts a multiple of X3_BK rows past a HALO_TK-aligned window
     // start: it lies in one B chunk
     static_assert(HALO_TK % X3_BK == 0, "a 64-row stage never straddles two B chunks");
-    constexpr bool ONE = WgRing<MODE>::ONE;
+    constexpr bool ONE = WgRing<MODE>::ONE, TF32 = WgRing<MODE>::TF32;
     if (G < 0 || TM <= 0 || TM % X3_BN || W <= 0 || W % X3_SLICE || n < 0
         || (CHUNKED && !chunk_src) || (RAGGED && !group_ptr))
         return (int)cudaErrorInvalidValue;
@@ -692,10 +814,11 @@ int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
     // every ragged kernel, keeps each box inside the S TM rows of the pack
     const int64_t rows = RAGGED ? 0x7fffffff : G * TM;
     CUtensorMap hi, lo;
-    cudaError_t e = panel_map(&hi, ah, rows, W);
-    if (e == cudaSuccess) e = panel_map(&lo, ONE ? ah : al, rows, W);
+    cudaError_t e = panel_map(&hi, ah, rows, W, TF32);
+    if (e == cudaSuccess) e = panel_map(&lo, ONE ? ah : al, rows, W, TF32);
     if (e != cudaSuccess) return (int)e;
-    const bool vec = n % (MODE == WgMode::SPLIT_B ? 4 : 8) == 0
+    const bool fp32_b = MODE == WgMode::SPLIT_B || TF32;
+    const bool vec = n % (fp32_b ? 4 : 8) == 0
                      && (CHUNKED ? rows16 : (uintptr_t)b % 16 == 0)
                      && (MODE != WgMode::PAIR_B || (uintptr_t)b_lo % 16 == 0);
     e = vec ? x3_prepare<MODE, true, CHUNKED, RAGGED, FLAGS>()
@@ -733,22 +856,29 @@ cudaError_t x3_resources(const char* copy, char* out, int len)
 // and "one2" (#2, #4 or with RAGGED #8, the bf16 B plane by 16-byte copies
 // or by plain 2-byte loads), with CHUNKED "chunkone16" and "chunkone2" in
 // their place (#12 at default); with CHUNKED, last, the same four with the
-// waits of #12 across processes: "flag16", "flag4", "flagone16", "flagone2"
-template <bool SG, bool CHUNKED, bool RAGGED = false>
+// waits of #12 across processes: "flag16", "flag4", "flagone16", "flagone2";
+// with TF32 (window_sg.cu, window.cu) the TF32X3 ring ("tf32.stages",
+// "tf32.smem_bytes", "tf32.BK") and its kernels "tf32_16" and "tf32_4"
+// (#3 or #4 at highest, fp32 B by 16-byte copies or by plain loads)
+template <bool SG, bool CHUNKED, bool RAGGED = false, bool TF32 = false>
 inline int x3_layout(char* out, int len)
 {
     static_assert(SG + CHUNKED + RAGGED <= 1, "no library builds two of them");
     using X3 = WgRing<WgMode::SPLIT_B>;
     using One = WgRing<WgMode::ONE_PASS>;
+    using Tf = WgRing<WgMode::TF32X3>;
     int used = snprintf(out, len,
                         "stages=%d smem_bytes=%d threads=%d BM=%d BN=%d BK=%d"
                         " one.stages=%d one.smem_bytes=%d",
                         X3::STAGES, X3::SMEM, X3_THREADS, X3_BM, X3_BN, X3_BK, One::STAGES,
                         One::SMEM);
+    if constexpr (TF32)
+        used += snprintf(out + used, len - used, " tf32.stages=%d tf32.smem_bytes=%d tf32.BK=%d",
+                         Tf::STAGES, Tf::SMEM, Tf::BK);
     using Report = cudaError_t (*)(const char*, char*, int);
     struct Kernel { const char* copy; Report report; };
     constexpr WgMode SPLIT = WgMode::SPLIT_B, ONE = WgMode::ONE_PASS;
-    Kernel kernels[8] = {
+    Kernel kernels[10] = {
         {CHUNKED ? "chunk16" : "b16", x3_resources<SPLIT, true, CHUNKED, RAGGED>},
         {CHUNKED ? "chunk4" : "b4", x3_resources<SPLIT, false, CHUNKED, RAGGED>}};
     int count = 2;
@@ -765,6 +895,10 @@ inline int x3_layout(char* out, int len)
         kernels[count++] = {"flag4", x3_resources<SPLIT, false, true, false, true>};
         kernels[count++] = {"flagone16", x3_resources<ONE, true, true, false, true>};
         kernels[count++] = {"flagone2", x3_resources<ONE, false, true, false, true>};
+    }
+    if constexpr (TF32) {
+        kernels[count++] = {"tf32_16", x3_resources<WgMode::TF32X3, true>};
+        kernels[count++] = {"tf32_4", x3_resources<WgMode::TF32X3, false>};
     }
     for (int i = 0; i < count; ++i) {
         const cudaError_t e = kernels[i].report(kernels[i].copy, out + used, len - used);

@@ -10,7 +10,10 @@ split is bit-identical to the native ``split_bf16_one``
 same panels in both packages (``tests/test_torch_device_pack.py``,
 ``tests/test_torch_ragged.py``).  In the bf16 modes the panels are
 densified slab by slab through one reused fp32 buffer, so the fp32 panels
-never exist whole beside their bf16 planes.
+never exist whole beside their bf16 planes.  The uniform packs of #3 and
+#4 at ``highest`` densify the same way to two fp32 planes, the operand
+bits of the TF32 split (``"tf32"`` mode, :func:`tf32_operands`): TMA
+copies bytes, and the tensor cores truncate an fp32 operand.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from .spmm_pallas import UnsupportedSparsity
 _SPLIT_CHUNK = 1 << 26  # elements per split step: bounds the fp32 temporaries
 _SLAB = 1 << 25  # panel elements densified at a time in the bf16 modes (whole panels)
 
-MODES = ("pair", "bf16", "f32", "f64")
+MODES = ("pair", "bf16", "tf32", "f32", "f64")
 
 
 def panel_mode(dtype, precision: str) -> str:
@@ -37,6 +40,46 @@ def panel_mode(dtype, precision: str) -> str:
     if np.dtype(dtype) == np.float32:
         return {"x3": "pair", "default": "bf16"}.get(precision, "f32")
     return "f32"
+
+
+def window_mode(dtype, precision: str) -> str:
+    """The densify mode of #3's and #4's uniform packs: :func:`panel_mode`,
+    but on fp32 at ``highest`` the TF32 planes (``"tf32"``) that the
+    ``wgmma`` body's TF32 mode reads (#6's ragged packs and #12's halo
+    plans keep fp32 panels: their body splits as it reads)."""
+    mode = panel_mode(dtype, precision)
+    return "tf32" if mode == "f32" and precision == "highest" else mode
+
+
+def tf32_operands(x: torch.Tensor, big: torch.Tensor, small: torch.Tensor) -> None:
+    """Write into fp32 ``big`` and ``small`` (x's shape) the bits that
+    ``split_tf32`` (``csrc/panel_tiles.cuh``) hands the tensor cores for
+    fp32 ``x``: big is x's bits plus half a TF32 ulp, whose top 19 bits
+    (what the tensor cores read) are cvt.rna's rounding of x; small is the
+    same of the exact remainder x - big, clamped so that a NaN stays one.
+    So the values the products see are ``spmm_pallas.split_tf32``'s bit
+    for bit, and x is big's bits less half an ulp
+    (:func:`~crp_tpu_torch.kernels.spmm_pallas.tf32_panels`)."""
+    bi, si = big.view(torch.int32), small.view(torch.int32)
+    torch.add(x.view(torch.int32), 0x1000, out=bi)
+    rem = x - (bi & -0x2000).view(torch.float32)
+    torch.clamp(rem.view(torch.int32), max=0x7FFFEFFF, out=si)
+    si.add_(0x1000)
+
+
+def tf32_planes(panels: torch.Tensor) -> torch.Tensor:
+    """fp32 stacked panels ``(p, G, TM, W)`` -> their TF32 planes ``(p,
+    2, G, TM, W)`` (:func:`tf32_operands`; shard i's big plane then its
+    small one, as #3's and #4's entries take them), in steps of
+    ``_SPLIT_CHUNK`` elements."""
+    out = torch.empty((panels.shape[0], 2, *panels.shape[1:]), dtype=torch.float32,
+                      device=panels.device)
+    for i in range(panels.shape[0]):
+        x, big, small = panels[i].reshape(-1), out[i, 0].view(-1), out[i, 1].view(-1)
+        for j in range(0, x.numel(), _SPLIT_CHUNK):
+            s = slice(j, j + _SPLIT_CHUNK)
+            tf32_operands(x[s], big[s], small[s])
+    return out
 
 
 def split_bf16(t: torch.Tensor, with_lo: bool):
@@ -70,10 +113,11 @@ def uniform_fill_stacked(shards, ws_shards, TM, W, G, mode, device, keep=None):
 
     ``shards`` are ``(rowptr, cc, v)``; ``ws_shards[i]`` is shard i's
     window starts, None for an empty shard (all-zero panels, ``ws`` 0).
-    ``mode``: "pair" (x3 hi/lo bf16), "bf16" (1-pass), "f32" / "f64"
-    (full-precision panels).  Duplicate entries add, as ``np.add.at`` does
-    in the JAX host pack (``spmm_pallas.py:181``).  Returns ``(ws (p, G)
-    int32, ah, al_or_None)``; pad groups past a shard's own have zero
+    ``mode``: "pair" (x3 hi/lo bf16), "bf16" (1-pass), "tf32" (the TF32
+    planes, ``(p, 2, G, TM, W)``), "f32" / "f64" (full-precision panels).
+    Duplicate entries add, as ``np.add.at`` does in the JAX host pack
+    (``spmm_pallas.py:181``).  Returns ``(ws (p, G) int32, ah, al_or_None)``
+    (``ah`` the planes in "tf32"); pad groups past a shard's own have zero
     panels and ``ws`` 0.  ``keep``: the one shard whose panels are
     densified, ``(1, G, TM, W)`` (a mesh rank's slice); every shard's
     ``ws`` and column check all the same.
@@ -128,13 +172,15 @@ def _slabs(cuts, per: int) -> np.ndarray:
 def _densify(flat, vals, shape, mode, device, cuts=None, out=None):
     """Scatter-add ``vals`` at ``flat`` into zeroed panels of ``shape`` on
     ``device`` (duplicates add, as the JAX host packs' ``+=``), then split
-    per ``mode``: (panels, None) for "f32"/"f64", (ah, al_or_None) else.
+    per ``mode``: (panels, None) for "f32"/"f64", (planes, None) for
+    "tf32" (``(shape[0], 2, *shape[1:])``), (ah, al_or_None) else.
 
-    "f32"/"f64" scatter once: the panels are the output.  The bf16 modes
+    "f32"/"f64" scatter once: the panels are the output.  The split modes
     never hold the whole fp32 tensor: slab by slab of whole panels (at most
     ``_SLAB`` elements where the cuts allow), the slab's nonzeros are
     scattered into one reused fp32 buffer, which is split into the output
-    planes with :func:`split_bf16`'s RNE split, bit for bit.  ``cuts``
+    planes with :func:`split_bf16`'s RNE split, bit for bit, or with
+    :func:`tf32_operands`.  ``cuts``
     (default: every panel) are the panel indices where a slab may end: the
     nonzeros of the panels below a cut all precede, in ``flat``, those at
     or past it, so ``np.searchsorted`` finds each slab's run of ``flat``.
@@ -147,12 +193,19 @@ def _densify(flat, vals, shape, mode, device, cuts=None, out=None):
         t.view(-1).index_put_((torch.from_numpy(flat).to(device),),
                               torch.from_numpy(vals).to(device), accumulate=True)
         return t, None
-    if out is None:
+    tf32 = mode == "tf32"
+    if out is None and tf32:
+        out = (torch.empty((shape[0], 2, *shape[1:]), dtype=torch.float32, device=device),)
+    elif out is None:
         out = tuple(torch.empty(shape, dtype=torch.bfloat16, device=device)
                     for _ in range(2 if mode == "pair" else 1))
-    ah, al = out[0].view(-1), (out[1].view(-1) if mode == "pair" else None)
+    if tf32:  # (shards, big/small, elements of a shard)
+        planes = out[0].view(out[0].shape[0], 2, -1)
+        size = planes.shape[2]
+    else:
+        ah, al = out[0].view(-1), (out[1].view(-1) if mode == "pair" else None)
     per = int(np.prod(shape[-2:]))  # elements of one panel
-    cuts = np.arange(ah.numel() // per + 1) if cuts is None else np.asarray(cuts)
+    cuts = np.arange(int(np.prod(shape)) // per + 1) if cuts is None else np.asarray(cuts)
     bounds = _slabs(cuts, per) * per
     runs = np.searchsorted(flat, bounds)
     buf = torch.empty(int(np.diff(bounds).max(initial=0)), dtype=torch.float32,
@@ -161,10 +214,16 @@ def _densify(flat, vals, shape, mode, device, cuts=None, out=None):
         x = buf[: hi - lo].zero_()
         x.index_put_((torch.from_numpy(flat[i0:i1] - lo).to(device),),
                      torch.from_numpy(vals[i0:i1]).to(device), accumulate=True)
-        ah[lo:hi].copy_(x)  # RNE, as x.to(torch.bfloat16)
-        if al is not None:
-            al[lo:hi].copy_(x.sub_(ah[lo:hi]))  # the exact remainder, rounded
-    return out[0], (out[1] if al is not None else None)
+        if tf32:  # the slab's run of each shard it spans
+            for i in range(int(lo) // size, (int(hi) - 1) // size + 1):
+                a, b = max(int(lo), i * size), min(int(hi), (i + 1) * size)
+                tf32_operands(x[a - lo: b - lo], planes[i, 0, a - i * size: b - i * size],
+                              planes[i, 1, a - i * size: b - i * size])
+        else:
+            ah[lo:hi].copy_(x)  # RNE, as x.to(torch.bfloat16)
+            if al is not None:
+                al[lo:hi].copy_(x.sub_(ah[lo:hi]))  # the exact remainder, rounded
+    return out[0], (out[1] if mode == "pair" else None)
 
 
 def ragged_place(rowptr64, cc, v, TM, Wc, starts, group_ptr, mode) -> tuple:

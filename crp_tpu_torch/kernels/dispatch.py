@@ -220,17 +220,21 @@ class WindowOp:
 
     ``scheme`` picks the kernel and the arrays it reads.  On a
     super-grouped pack (variant ``"uniform"``): ``"x3"`` (ws, ah, al,
-    bases), ``"bf16"`` (ws, ah, bases), ``"full"`` (ws, tiles, bases);
-    ``bases`` stays in the pack for parity with the JAX pack, the Hopper
-    kernels read only ``ws``.  On a pack with no super-group plan (variant
-    ``"window"``, every multi-shard pack): ``"window"`` (ws, tiles), fp32
-    panels at ``highest`` or fp64 panels; on fp32 ``"window_x3"`` (ws, ah,
-    al) at ``x3``, the panels split to their bf16 hi/lo pair once at pack
-    time, and ``"window_bf16"`` (ws, ah) at ``default``, the panels rounded
-    to their bf16 hi plane once at pack time, as kernel #4's ``wgmma`` body
-    reads them (TMA copies and can neither split nor round; the kernel's
-    arguments take the pair as one ``(ah, al)``, and B cast to bf16 beside
-    the plane).  ``min_b_rows``: rows rB must have.
+    bases), ``"bf16"`` (ws, ah, bases), ``"tf32"`` (ws, planes, bases) on
+    fp32 at ``highest``, ``"full"`` (ws, tiles, bases) on fp64; ``bases``
+    stays in the pack for parity with the JAX pack, the Hopper kernels read
+    only ``ws``.  On a pack with no super-group plan (variant ``"window"``,
+    every multi-shard pack): ``"window"`` (ws, tiles), fp64 panels; on fp32
+    ``"window_x3"`` (ws, ah, al) at ``x3``, the panels split to their bf16
+    hi/lo pair once at pack time, ``"window_bf16"`` (ws, ah) at
+    ``default``, the panels rounded to their bf16 hi plane once at pack
+    time, and ``"window_tf32"`` (ws, planes) at ``highest``, the panels
+    split to their TF32 big/small planes once at pack time (``(2, G, TM,
+    W)`` a shard, ``device_pack.tf32_operands``), as kernel #4's ``wgmma``
+    body reads them (TMA copies and can neither split nor round, and the
+    tensor cores truncate an fp32 operand; the kernel's arguments take the
+    pair as one ``(ah, al)``, and B cast to bf16 beside the plane).
+    ``min_b_rows``: rows rB must have.
     """
 
     scheme: str
@@ -249,9 +253,11 @@ class WindowOp:
             "x3": spmm_window_sg_presplit,
             "bf16": spmm_window_sg_bf16,
             "full": spmm_window_sg,
+            "tf32": spmm_window_sg,
             "window": spmm_window,
             "window_x3": spmm_window,
             "window_bf16": spmm_window,
+            "window_tf32": spmm_window,
         }[self.scheme]
 
     @property
@@ -261,9 +267,11 @@ class WindowOp:
             "x3": spmm_window_sg_presplit_plain,
             "bf16": spmm_window_sg_bf16_plain,
             "full": spmm_window_sg_plain,
+            "tf32": spmm_window_sg_plain,
             "window": spmm_window_plain,
             "window_x3": spmm_window_plain,
             "window_bf16": spmm_window_plain,
+            "window_tf32": spmm_window_plain,
         }[self.scheme]
 
     def kernel_args(self, arrs, rB) -> tuple:
@@ -275,7 +283,7 @@ class WindowOp:
         if self.scheme == "bf16":
             ws, ah, _ = arrs
             return ws, ah, rB.to(torch.bfloat16)  # as dispatch.py:529 casts
-        if self.scheme == "window":
+        if self.scheme in ("window", "window_tf32"):
             ws, tiles = arrs
             return ws, tiles, rB, self.precision
         if self.scheme == "window_x3":
@@ -573,14 +581,17 @@ def _pack_window(shards, max_m, dtype, mxu_precision, device, rank=None):
     shard's window panels at a shared chunk-exact W and group count G,
     ``(p, G, TM, W)`` panels densified on the device; an empty shard gets
     zero panels with ``ws`` 0.  On fp32 at ``x3`` the panels are split to
-    their bf16 hi/lo pair once here, and at ``default`` rounded to their
-    bf16 hi plane (``device_pack.split_bf16`` of the JAX pack's fp32
-    panels, bit for bit: the split and the rounding the TPU kernel makes on
-    every read, which TMA cannot make), densified slab by slab; at
-    ``highest`` and in fp64 they stay in the pack's dtype (the JAX pack).
-    ``a_bytes`` counts the panels held: the pair is the bytes of one fp32
-    plane, the hi plane half of them (and B is then read in bf16, as JAX's
-    #2 pack counts it)."""
+    their bf16 hi/lo pair once here, at ``default`` rounded to their bf16
+    hi plane (``device_pack.split_bf16`` of the JAX pack's fp32 panels, bit
+    for bit: the split and the rounding the TPU kernel makes on every read,
+    which TMA cannot make), and at ``highest`` split to their TF32 planes,
+    ``(p, 2, G, TM, W)`` (``device_pack.tf32_operands``: the big and small
+    operand bits of the 3xTF32 split), densified slab by slab; in fp64
+    they stay fp64 (the JAX pack).  The 8 GiB cap prices the pack's own
+    dtype, as JAX's does.  ``a_bytes`` counts the panels held: the pair is
+    the bytes of one fp32 plane, the hi plane half of them (and B is then
+    read in bf16, as JAX's #2 pack counts it), the TF32 planes twice
+    them."""
     TM = 256
     itemsize = np.dtype(dtype).itemsize
     got = [_shard_window(s, TM, itemsize) for s in shards]
@@ -589,7 +600,7 @@ def _pack_window(shards, max_m, dtype, mxu_precision, device, rank=None):
         raise UnsupportedSparsity("all shards empty")
     G = max(max(g[2] for g in real), -(-max_m // TM))
     W, _, _ = choose_chunks(max(g[1] for g in real))
-    mode = device_pack.panel_mode(dtype, mxu_precision)
+    mode = device_pack.window_mode(dtype, mxu_precision)
     ws, ah, al = device_pack.uniform_fill_stacked(
         shards, [None if g is None else g[0] for g in got], TM, W, G, mode, device,
         keep=rank,
@@ -602,7 +613,8 @@ def _pack_window(shards, max_m, dtype, mxu_precision, device, rank=None):
         b_rows_read=G * W, c_rows=G * TM, b_itemsize=2 if mode == "bf16" else itemsize,
         passes={"x3": 3, "highest": 6, "default": 1}.get(mxu_precision, 1),
     )
-    scheme = {"pair": "window_x3", "bf16": "window_bf16"}.get(mode, "window")
+    scheme = {"pair": "window_x3", "bf16": "window_bf16", "tf32": "window_tf32"}.get(
+        mode, "window")
     return ((torch.from_numpy(_kept(ws, rank)).to(device), *panels),
             WindowOp(scheme, int(ws.max()) + W, roofline, mxu_precision))
 
@@ -648,9 +660,13 @@ def _pack_uniform_single_bf16(shard, max_m, mxu_precision, device):
 
 
 def _pack_uniform_single_full(shard, max_m, dtype, mxu_precision, device):
-    """fp32 ``highest`` and fp64 data: full-precision panels densified on
-    the device (``dispatch.py:543-608``, and the generic sg pack of
-    ``:633-791`` for fp64); None where the shard has no super-group plan."""
+    """fp32 ``highest`` and fp64 data (``dispatch.py:543-608``, and the
+    generic sg pack of ``:633-791`` for fp64), densified on the device:
+    fp64 panels, or on fp32 their TF32 planes ``(2, G, TM, W)`` (scheme
+    ``"tf32"``, as :func:`_pack_window`'s at ``highest``; JAX's fp32 panels
+    come back from them bit for bit); None where the shard has no
+    super-group plan.  The geometry and its 8 GiB cap price the pack's
+    dtype, as JAX's does."""
     itemsize = np.dtype(dtype).itemsize
     geo = _window_geometry(shard, max_m, itemsize, itemsize, device)
     if geo is None:
@@ -658,11 +674,12 @@ def _pack_uniform_single_full(shard, max_m, dtype, mxu_precision, device):
     rowptr64, nrow, TM, W, G0, ws_shard, sg = geo
     ws_full, tiles, _ = device_pack.uniform_fill(
         rowptr64, shard[1], shard[2], nrow, TM, W, sg[4], ws_shard,
-        "f64" if itemsize == 8 else "f32", device,
+        "f64" if itemsize == 8 else "tf32", device,
     )
     passes = {"x3": 3, "highest": 6, "default": 1}.get(mxu_precision, 1)
     return _finish_window_pack(
-        "full", ws_full, (tiles,), G0, TM, W, sg, itemsize, passes, device
+        "full" if itemsize == 8 else "tf32", ws_full, (tiles,), G0, TM, W, sg, itemsize,
+        passes, device
     )
 
 
@@ -1137,11 +1154,14 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cuda",
     ``arrays`` are the JAX pack's numpy arrays with their leading shard
     axis, bf16 ones passed as ``.view(np.uint16)``: for a uniform sg pack
     (ws, ah, al, bases) at x3, (ws, ah, bases) for the 1-pass bf16 pack,
-    (ws, tiles, bases) for fp32/fp64; for a pack with no super-group plan
-    (every multi-shard pack) (ws, tiles), whose fp32 panels at x3 are split
-    to their bf16 hi/lo pair on upload (:func:`_pack_window`'s scheme
-    ``"window_x3"``, bit for bit) and at default rounded to their bf16 hi
-    plane (scheme ``"window_bf16"``, the roofline's bytes its own); for
+    (ws, tiles, bases) for fp32/fp64, whose fp32 panels are split to their
+    TF32 planes on upload (scheme ``"tf32"``); for a pack with no
+    super-group plan (every multi-shard pack) (ws, tiles), whose fp32
+    panels at x3 are split to their bf16 hi/lo pair on upload
+    (:func:`_pack_window`'s scheme ``"window_x3"``, bit for bit), at
+    default rounded to their bf16 hi plane (scheme ``"window_bf16"``) and
+    at highest split to their TF32 planes (scheme ``"window_tf32"``), the
+    roofline's bytes their own; for
     ``variant="ragged"`` the ragged pack's (step_g, step_first, starts,
     *panels, *spill), to which the step ranges the CUDA kernels read are
     appended (and, for the fused spill, its row-ordered view); for ``variant="gather"`` the gather pack's (rel,
@@ -1198,11 +1218,20 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cuda",
             ah, _ = device_pack.split_bf16(tiles, with_lo=False)
             roofline.update(a_bytes=ah.numel() * ah.element_size(), b_itemsize=2)
             return (ws, ah), WindowOp("window_bf16", int(min_b_rows), roofline, prec)
+        if prec == "highest" and tiles.dtype == torch.float32:
+            planes = device_pack.tf32_planes(tiles)
+            roofline.update(a_bytes=planes.numel() * 4)
+            return (ws, planes), WindowOp("window_tf32", int(min_b_rows), roofline, prec)
         return tensors, WindowOp("window", int(min_b_rows), roofline, prec)
     if len(tensors) == 4:
         scheme = "x3"
     elif tensors[1].dtype == torch.bfloat16:
         scheme = "bf16"
+    elif tensors[1].dtype == torch.float32:
+        ws, tiles, bases = tensors
+        tensors = (ws, device_pack.tf32_planes(tiles), bases)
+        roofline.update(a_bytes=tensors[1].numel() * 4)
+        scheme = "tf32"
     else:
         scheme = "full"
     return tensors, WindowOp(scheme, int(min_b_rows), roofline)

@@ -45,14 +45,15 @@ def precision_point(prec: str, dtype=np.float32, fp64_tc: bool = False) -> tuple
 def op_point(op, dtype) -> tuple:
     """(passes, peak key) of a local op's products (``dtype`` a torch or
     numpy dtype): the gather kind's on the FMA units at every point; a
-    panel scheme (``"x3"``, ``"bf16"``, ``"full"``) names its point, else
+    panel scheme (``"x3"``, ``"bf16"``, ``"full"``, ``"tf32"``) names its point, else
     the op's precision does; fp64 products by the body its variant runs
     (:data:`FP64_TC_VARIANTS`)."""
     if op.variant == "gather":
         return 1, "fp32"
     scheme = getattr(op, "scheme", None)
     prec = getattr(op, "precision", getattr(op, "mxu_precision", None))
-    prec = {"x3": "x3", "bf16": "default", "full": "highest"}.get(scheme, prec)
+    points = {"x3": "x3", "bf16": "default", "full": "highest", "tf32": "highest"}
+    prec = points.get(scheme, prec)
     is64 = str(dtype).endswith("float64")
     return precision_point(prec, np.float64 if is64 else np.float32,
                            op.variant in FP64_TC_VARIANTS)

@@ -22,8 +22,10 @@ point:
     ``wgmma`` body's one-pass mode, the hi panels fed by TMA);
   * :func:`spmm_window_sg` — ``highest``: fp32 panels as three TF32
     tensor-core products (:func:`split_tf32`), held to the fp32 plain
-    version; fp64 panels on the FP64 tensor cores (#11's DMMA body with
-    its windowed walk, ``csrc/dd_tc.cu``).
+    version: the ``wgmma`` body's TF32 mode on the panels' TF32 planes,
+    split once when they are packed (``device_pack.tf32_operands``) and
+    fed by TMA; fp64 panels on the FP64 tensor cores (#11's DMMA body
+    with its windowed walk, ``csrc/dd_tc.cu``).
 
 On every other uniform pack (several shards, or windows that are not
 monotone): :func:`spmm_window` (``csrc/window.cu``, the TPU's
@@ -31,10 +33,12 @@ monotone): :func:`spmm_window` (``csrc/window.cu``, the TPU's
 ``default`` the bf16 hi plane alone, split or rounded once when they are
 packed (the TPU kernel splits or rounds its fp32 panels on every read;
 TMA, which feeds the ``wgmma`` body, copies and can do neither): it runs
-#1's body, or #2's one pass on B cast to bf16; on fp32 panels at
-``highest`` it splits A and B to TF32 big/small (:func:`split_tf32`) as
-they are read for three TF32 tensor-core products; fp64 panels on the
-FP64 tensor cores, the DMMA body of #3's fp64 entry (``csrc/dd_tc.cu``).
+#1's body, or #2's one pass on B cast to bf16; at ``highest`` #3's, the
+same body's TF32 mode, on the panels' TF32 big/small planes (split once
+when they are packed: the tensor cores truncate an fp32 operand) and B
+split in registers (:func:`split_tf32`) for three TF32 tensor-core
+products; fp64 panels on the FP64 tensor cores, the DMMA body of #3's
+fp64 entry (``csrc/dd_tc.cu``).
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
@@ -196,6 +200,26 @@ def full_product(tiles):
     return lambda s0, s1, win: torch.bmm(tiles[s0:s1], win)
 
 
+def tf32_panels(planes):
+    """The fp32 panels that TF32 planes ``(2, ...)`` were split from
+    (``device_pack.tf32_operands``): the big plane's bits less half a TF32
+    ulp, exact."""
+    return (planes[0].view(torch.int32) - 0x1000).view(torch.float32)
+
+
+def tf32_product(planes):
+    """The fp32 panels, rebuilt a block at a time from their TF32 planes
+    ``(2, S, TM, W)``, times B windows in plain PyTorch (no TF32): the
+    function of the fp32 panels, bit for bit."""
+    return lambda s0, s1, win: torch.bmm(tf32_panels(planes[:, s0:s1]), win)
+
+
+def _planes(tiles) -> bool:
+    """Whether fp32 ``tiles`` are a uniform pack's TF32 planes, ``(2, G,
+    TM, W)``, not its ``(G, TM, W)`` fp32 panels."""
+    return tiles.dtype == torch.float32 and tiles.dim() == 4
+
+
 def _uniform(ws, panels, b, out_dtype, product):
     G = panels.shape[0]
     steps = torch.arange(G, device=b.device)
@@ -222,7 +246,10 @@ def spmm_window_sg_bf16_plain(ws, ah, bh):
 
 
 def spmm_window_sg_plain(ws, tiles, b):
-    """fp32 / fp64 windowed SpMM in plain PyTorch (no TF32)."""
+    """fp32 / fp64 windowed SpMM in plain PyTorch (no TF32), on the
+    panels or, fp32, on their TF32 planes (the same function)."""
+    if _planes(tiles):
+        return _uniform(ws, tiles[0], b, torch.float32, tf32_product(tiles))
     return _uniform(ws, tiles, b, tiles.dtype, full_product(tiles))
 
 
@@ -252,9 +279,10 @@ def spmm_window_plain(ws, tiles, b, precision: str):
     ``x3`` ``tiles`` may be the bf16 pair ``(ah, al)`` of the x3 pack, and
     then this is :func:`spmm_window_sg_presplit_plain`; at ``default`` the
     bf16 hi plane of the default pack, and then this is
-    :func:`spmm_window_sg_bf16_plain` on B rounded to bf16 (RNE).  Each is
-    equal bit for bit to this function on the fp32 panels the pair or the
-    plane was made from."""
+    :func:`spmm_window_sg_bf16_plain` on B rounded to bf16 (RNE); at
+    ``highest`` the TF32 planes ``(2, G, TM, W)`` of the ``highest`` pack.
+    Each is equal bit for bit to this function on the fp32 panels the
+    pair, the plane or the planes were made from."""
     if isinstance(tiles, tuple):
         if precision != "x3":
             raise ValueError(f"spmm_window_plain: a bf16 pair at {precision!r}")
@@ -263,6 +291,10 @@ def spmm_window_plain(ws, tiles, b, precision: str):
         if precision != "default":
             raise ValueError(f"spmm_window_plain: a bf16 plane at {precision!r}")
         return spmm_window_sg_bf16_plain(ws, tiles, b.to(torch.bfloat16))
+    if _planes(tiles):
+        if precision != "highest":
+            raise ValueError(f"spmm_window_plain: TF32 planes at {precision!r}")
+        return spmm_window_sg_plain(ws, tiles, b)
     return _uniform(ws, tiles, b, tiles.dtype, window_product(tiles, precision))
 
 
@@ -344,6 +376,18 @@ def _check_cuda_args(name, ws, panels, b, min_b_rows, panel_dtypes, b_dtype):
     if TM % 128 or W % 32:
         raise ValueError(f"{name}: TM % 128 and W % 32 must be 0 (TM={TM}, W={W})")
     return G, TM, W, b.shape[1]
+
+
+def _tf32_plane_views(name, planes) -> tuple:
+    """The big and small planes of contiguous fp32 TF32 planes ``(2, G,
+    TM, W)``, the operand of #3's and #4's fp32 entries; raise on any
+    other fp32 panels (the ``highest`` packs hold the planes)."""
+    if planes.dim() != 4 or planes.shape[0] != 2 or not planes.is_contiguous():
+        raise ValueError(
+            f"{name}: fp32 panels run at highest on their TF32 planes, a contiguous "
+            f"(2, G, TM, W) tensor (device_pack.tf32_planes); got {tuple(planes.shape)}"
+        )
+    return planes[0], planes[1]
 
 
 def _check_aligned(name, **tensors) -> None:
@@ -451,22 +495,29 @@ spmm_window_sg_bf16.launches = 0
 
 def spmm_window_sg(ws, tiles, b, *, min_b_rows: int):
     """fp32 or fp64 windowed SpMM: (G*TM, n) in the panels' dtype.  fp32
-    runs as three TF32 tensor-core products (the 3xTF32 body of
-    :func:`spmm_window` at ``highest``); fp64 on the FP64 tensor cores, the
+    ``tiles`` are the TF32 planes ``(2, G, TM, W)`` of the ``highest`` pack
+    (on the CPU the fp32 panels too), and run as three TF32 tensor-core
+    products on the ``wgmma`` body's TF32 mode (``csrc/x3_wgmma.cuh``: the
+    planes by TMA; the instantiation of :func:`spmm_window` at
+    ``highest``, so the two equal each other bit for bit); fp64 on the
+    FP64 tensor cores, the
     DMMA body of #11 (``csrc/dd_tc.cu``) with one chunk a group, s = g
     over ``ws[g]``: each C element one accumulator chain, k upward, so a
     launch equals the next bit for bit, and equals
     :func:`~crp_tpu_torch.kernels.spmm_ragged.spmm_ragged` on the same
     panels written as a ragged pack.  Both bodies copy the panels in
-    16-byte pieces, so the panels must start on 16 bytes; TM % 128 and W %
-    32 must be 0.  Bound by the products (fp64: 2 G TM W n at 67
-    TFLOP/s).  Replaces ``spmm_window_pallas_sg`` (``spmm_pallas.py:940``)."""
+    16-byte pieces (TMA for fp32), so the panels must start on 16 bytes; TM
+    % 128 and W % 32 must be 0.  Bound by the products (fp32: 3 x 2 G TM W
+    n at 495 TFLOP/s; fp64: 2 G TM W n at 67 TFLOP/s).  Replaces
+    ``spmm_window_pallas_sg`` (``spmm_pallas.py:940``)."""
     if _placement("spmm_window_sg", ws, tiles, b) == "cpu":
         return spmm_window_sg_plain(ws, tiles, b)
     if tiles.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"spmm_window_sg: panels must be fp32 or fp64, not {tiles.dtype}")
+    views = (_tf32_plane_views("spmm_window_sg", tiles) if tiles.dtype == torch.float32
+             else (tiles,))
     G, TM, W, n = _check_cuda_args(
-        "spmm_window_sg", ws, (tiles,), b, min_b_rows, tiles.dtype, tiles.dtype,
+        "spmm_window_sg", ws, views, b, min_b_rows, tiles.dtype, tiles.dtype,
     )
     _check_aligned("spmm_window_sg", tiles=tiles)
     c = torch.empty((G * TM, n), dtype=tiles.dtype, device=b.device)
@@ -507,12 +558,15 @@ def spmm_window(ws, tiles, b, precision: str, *, min_b_rows: int):
     ``precision`` from, at ``x3``, the bf16 pair ``tiles = (ah, al)`` and
     fp32 ``b`` (#1's ``wgmma`` body), at ``default`` the bf16 hi plane
     ``tiles`` and bf16 ``b`` (#2's one-pass body; fp32 C), at ``highest``
-    fp32 ``tiles`` and ``b`` (3xTF32 on the tensor cores, held to the fp32
-    plain version), or fp64 tiles and B (on the FP64 tensor cores: #11's
-    DMMA body with its windowed walk, ``csrc/dd_tc.cu``, the same
-    instantiation as :func:`spmm_window_sg`'s fp64 entry); the bf16 and
-    fp64 panels must start on 16 bytes (TMA, 16-byte ``cp.async``), and
-    fp64 takes TM % 128 == 0 and W % 32 == 0.  fp32 panels at ``x3`` and
+    the TF32 planes ``tiles`` (``(2, G, TM, W)``, split once when packed)
+    and fp32 ``b`` (3xTF32 on the tensor cores, the ``wgmma`` body's TF32
+    mode, held to the fp32 plain version; the instantiation of
+    :func:`spmm_window_sg`'s fp32 entry), or fp64 tiles and B (on the FP64
+    tensor cores: #11's DMMA body with its windowed walk,
+    ``csrc/dd_tc.cu``, the same instantiation as :func:`spmm_window_sg`'s
+    fp64 entry); the panels must start on 16 bytes (TMA, 16-byte
+    ``cp.async``: the bf16 and fp64 ones are checked here, and the fp32
+    entry refuses a launch on others, which raises).  fp32 panels at ``x3`` and
     ``default`` have no kernel: the packs hold the pair and the plane.
     Replaces ``spmm_window_pallas`` (``spmm_pallas.py:267``)."""
     pair = isinstance(tiles, tuple)
@@ -520,7 +574,8 @@ def spmm_window(ws, tiles, b, precision: str, *, min_b_rows: int):
     if _placement("spmm_window", ws, *panels, b) == "cpu":
         return spmm_window_plain(ws, tiles, b, precision)
     name, panel_dtype, b_dtype = window_entry("spmm_window", panels, precision)
-    G, TM, W, n = _check_cuda_args("spmm_window", ws, panels, b, min_b_rows,
+    views = _tf32_plane_views("spmm_window", tiles) if name == "crp_window_f32" else panels
+    G, TM, W, n = _check_cuda_args("spmm_window", ws, views, b, min_b_rows,
                                    panel_dtype, b_dtype)
     if panel_dtype == torch.bfloat16:
         _check_aligned("spmm_window", **dict(zip(("ah", "al"), panels)))

@@ -1084,7 +1084,7 @@ def test_multi_shard_gather(cuda_device):
     assert rel_fro_err(cpu.exec(b).astype(np.float64), c_gpu) <= 1e-5
 
 
-# ----------------------------------- #4 and #12 at highest: the 3xTF32 body
+# ------------------- #4 and #12 at highest: 3xTF32 (#4, #3 on wgmma's TF32 mode)
 
 
 def _nan_framed(x, before, after=1000):
@@ -1104,6 +1104,13 @@ def _panels(rng, shape):
     TOL_PLAIN)."""
     keep = rng.random(shape) < 12 / shape[-1]
     return (rng.standard_normal(shape) * keep).astype(np.float32)
+
+
+def _planes(tiles):
+    """fp32 (G, TM, W) panels -> the TF32 planes ``(2, G, TM, W)`` that #3
+    and #4 take at highest (split on the tensors' device, as the packs
+    split them)."""
+    return device_pack.tf32_planes(tiles[None])[0]
 
 
 def _held_to_plain(k, p, launches_before, launches_now, zero_rows):
@@ -1126,7 +1133,7 @@ TF32X3_WINDOW = {
 
 
 # the 3xTF32 windowed kernels on a uniform pack: #4 and #3 (super-grouped)
-# at highest, each beside its plain version
+# at highest, each beside its plain version; both take the TF32 planes
 TF32X3_UNIFORM = {
     "window": (lambda ws, t, b, **kw: spmm_pallas.spmm_window(ws, t, b, "highest", **kw),
                lambda ws, t, b: spmm_pallas.spmm_window_plain(ws, t, b, "highest"),
@@ -1140,8 +1147,9 @@ TF32X3_UNIFORM = {
 @pytest.mark.parametrize("case", sorted(TF32X3_WINDOW))
 def test_window_highest_tf32x3_matches_plain(cuda_device, case, kernel):
     """#4 and #3 at highest on hand-built uniform packs (random panels, the
-    last group a zero pad group, B framed by NaN): within TOL_PLAIN of the
-    fp32 plain version, pad rows zero, one launch."""
+    last group a zero pad group, B framed by NaN; the kernels on their TF32
+    planes): within TOL_PLAIN of the fp32 plain version, pad rows zero,
+    one launch."""
     run, plain, counted = TF32X3_UNIFORM[kernel]
     G, TM, W, n, off = TF32X3_WINDOW[case]
     rng = np.random.default_rng(W + n)
@@ -1154,7 +1162,7 @@ def test_window_highest_tf32x3_matches_plain(cuda_device, case, kernel):
                     .to(dev), off)
     ws_t, tiles_t = torch.from_numpy(ws).to(dev), torch.from_numpy(tiles).to(dev)
     before = counted.launches
-    k = run(ws_t, tiles_t, b, min_b_rows=rows)
+    k = run(ws_t, _planes(tiles_t), b, min_b_rows=rows)
     _held_to_plain(k, plain(ws_t, tiles_t, b), before, counted.launches,
                    slice((G - 1) * TM, None))
 
@@ -1235,8 +1243,9 @@ def test_halo_highest_tf32x3_matches_plain(cuda_device, case):
 
 def test_highest_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch):
     """On CUDA tensors #4 and #12 at highest launch their kernel and never
-    their plain versions; a launch the kernel refuses (panels off 16 bytes)
-    raises, with nothing to fall back to."""
+    their plain versions; a launch the kernel refuses (#4's TF32 planes off
+    16 bytes) raises, and fp32 panels that are not the planes are refused
+    before any launch, with nothing to fall back to."""
     def no_plain(*args, **kw):
         raise AssertionError("the plain version ran on CUDA tensors")
 
@@ -1245,7 +1254,7 @@ def test_highest_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch):
     rng = np.random.default_rng(5)
     dev = cuda_device
     ws = torch.zeros(2, dtype=torch.int32, device=dev)
-    tiles = torch.from_numpy(_panels(rng, (2, 128, 64))).to(dev)
+    tiles = _planes(torch.from_numpy(_panels(rng, (2, 128, 64))).to(dev))
     b = torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32)).to(dev)
     before = spmm_pallas.spmm_window.launches
     spmm_pallas.spmm_window(ws, tiles, b, "highest", min_b_rows=64)
@@ -1254,6 +1263,8 @@ def test_highest_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch):
     off.copy_(tiles)
     with pytest.raises(RuntimeError, match="crp_window_f32"):
         spmm_pallas.spmm_window(ws, off, b, "highest", min_b_rows=64)
+    with pytest.raises(ValueError, match="TF32 planes"):
+        spmm_pallas.spmm_window(ws, tiles[0], b, "highest", min_b_rows=64)
     assert spmm_pallas.spmm_window.launches == before + 1
     hws, ws_rel, panels, push, chunk_src, bs, buf_rows, max_k = _halo_hand_pack(
         rng, 128, 16)
@@ -1286,13 +1297,42 @@ def test_highest_tf32x3_keeps_nan_and_inf(cuda_device, kernel):
     b[42, 9] = float("inf")
     ws = torch.zeros(2, dtype=torch.int32, device=dev)
     run, plain, _ = TF32X3_UNIFORM[kernel]
-    k = run(ws, tiles, b, min_b_rows=64)
+    k = run(ws, _planes(tiles), b, min_b_rows=64)  # split on the card, as the packs are
     p = plain(ws, tiles, b)
     assert bool(torch.isnan(k[torch.isnan(p)]).all())
     assert not bool(torch.isfinite(k[torch.isinf(p)]).any())
     fin = torch.isfinite(p)
     assert bool(torch.isfinite(k[fin]).all())
     assert float((k - p)[fin].abs().max()) <= TOL_PLAIN[np.float32] * float(p[fin].abs().max())
+
+
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("n", [16, 37, 100, 256])
+def test_window_highest_wgmma_is_one_instantiation(cuda_device, n, off):
+    """#3 and #4 at highest on the wgmma body's TF32 mode: on one uniform
+    pack's TF32 planes (two pad groups, a window 5 slices deep, B off 16
+    bytes where ``off``) each is within TOL_PLAIN of the fp32 plain version
+    with its pad rows zero, a second launch equals the first bit for bit,
+    and #4's C equals #3's bit for bit (one instantiation)."""
+    G, TM, W = 6, 256, 160
+    rng = np.random.default_rng(n + off)
+    ws = rng.integers(0, 200, G).astype(np.int32)
+    tiles = _panels(rng, (G, TM, W))
+    tiles[-2:] = 0
+    rows = int(ws.max()) + W
+    dev = cuda_device
+    b = _nan_framed(torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32))
+                    .to(dev), off)
+    ws_t, tiles_t = torch.from_numpy(ws).to(dev), torch.from_numpy(tiles).to(dev)
+    planes = _planes(tiles_t)
+    before = spmm_pallas.spmm_window_sg.launches
+    k3 = spmm_pallas.spmm_window_sg(ws_t, planes, b, min_b_rows=rows)
+    _held_to_plain(k3, spmm_pallas.spmm_window_sg_plain(ws_t, tiles_t, b), before,
+                   spmm_pallas.spmm_window_sg.launches, slice((G - 2) * TM, None))
+    again = spmm_pallas.spmm_window_sg(ws_t, planes, b, min_b_rows=rows)
+    assert torch.equal(k3.view(torch.int32), again.view(torch.int32))
+    k4 = spmm_pallas.spmm_window(ws_t, planes, b, "highest", min_b_rows=rows)
+    assert torch.equal(k3.view(torch.int32), k4.view(torch.int32))
 
 
 # ----------------------------------------- #1 and #5 on the wgmma body
@@ -1358,7 +1398,7 @@ def test_window_sg_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch)
         monkeypatch.setattr(spmm_pallas, name, no_plain)
     ws, ah, al, b, rows, tiles = _x3_hand_pack("one slice", cuda_device)
     bh, bl = spmm_pallas.split_b_bf16(b)
-    tiles = torch.from_numpy(tiles).to(cuda_device)
+    tiles = _planes(torch.from_numpy(tiles).to(cuda_device))  # #3 at highest: the planes
     kernels = (spmm_pallas.spmm_window_sg_presplit, spmm_pallas.spmm_window_sg_presplit_ab,
                spmm_pallas.spmm_window_sg)
     before = [k.launches for k in kernels]

@@ -33,7 +33,7 @@ from crp_tpu_torch.kernels import spmm_pallas as tsp
 from crp_tpu_torch.kernels.device_pack import split_bf16
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.synth import banded_random_csr, fill_b
-from tests.test_torch_window import _bits, _shards
+from tests.test_torch_window import _bits, _fp32_panels_engine, _highest_fp32, _shards
 from tests.test_torch_x3_multishard import _halo_case
 
 CPU = torch.device("cpu")
@@ -57,7 +57,7 @@ def test_window_default_plane_is_rounding_of_jax_panels(p):
     ``a_bytes`` the plane's bytes and B counted in bf16."""
     _, shards, max_m = _shards(p, np.float32)
     arrays, op = td._pack_window(shards, max_m + 300, np.float32, "default", CPU)
-    f_arrays, f_op = td._pack_window(shards, max_m + 300, np.float32, "highest", CPU)
+    f_arrays, f_op = _highest_fp32(shards, max_m + 300)
     (j_ws, j_tiles), j_fn = jd._pack_pallas_uniform(shards, max_m + 300, np.float32,
                                                     "default")
     assert (op.scheme, op.variant, op.precision) == ("window_bf16", "window", "default")
@@ -74,7 +74,8 @@ def test_window_default_plane_is_rounding_of_jax_panels(p):
         == {k: v for k, v in frl.items() if k not in ("a_bytes", "b_itemsize", "passes")}
     assert (rl["a_bytes"], rl["b_itemsize"], rl["passes"]) == (
         ah.numel() * 2, 2, 1)
-    assert rl["a_bytes"] * 2 == frl["a_bytes"] == j_tiles.nbytes
+    assert rl["a_bytes"] * 2 == j_tiles.nbytes  # highest holds their TF32 planes, twice them
+    assert frl["a_bytes"] == 2 * j_tiles.nbytes
 
 
 @pytest.mark.parametrize("p", [2, 3, 4, 7])
@@ -112,7 +113,7 @@ def test_window_plane_plain_equals_fp32_plain(p, n):
     rounded from, bit for bit (an empty shard and pad groups included)."""
     _, shards, max_m = _shards(p, np.float32)
     arrays, op = td._pack_window(shards, max_m + 300, np.float32, "default", CPU)
-    f_arrays, _ = td._pack_window(shards, max_m + 300, np.float32, "highest", CPU)
+    f_arrays, _ = _highest_fp32(shards, max_m + 300)
     b = torch.from_numpy(np.random.default_rng(n).standard_normal(
         (op.min_b_rows, n)).astype(np.float32))
     for i in range(p):
@@ -181,7 +182,7 @@ def test_wrappers_take_the_plane_only_at_default():
     at another point has no function and raises."""
     _, shards, max_m = _shards(2, np.float32, empty=False)
     arrays, op = td._pack_window(shards, max_m, np.float32, "default", CPU)
-    f_arrays, _ = td._pack_window(shards, max_m, np.float32, "highest", CPU)
+    f_arrays, _ = _highest_fp32(shards, max_m)
     ws, ah = (x[0] for x in arrays)
     b = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (op.min_b_rows, 8)).astype(np.float32))
@@ -243,7 +244,7 @@ def test_engines_hold_the_plane(kernel):
     a.__dict__.pop("_torch_pack_cache", None)
     ref = RowParaSpmm(a, d, d, 24, device="cpu", dtype=np.float32,
                       config=SpmmConfig(kernel=kernel, mxu_precision="highest"))
-    ref_panels = [x for x in ref.packed if x.dim() >= 3]
+    ref_panels = [x for x in _fp32_panels_engine(ref).packed if x.dim() >= 3]
     assert [x.dtype for x in ref_panels] == [torch.float32]
     assert 2 * panel_bytes == ref_panels[0].numel() * 4
     ref._local_op.precision = "default"  # the fp32 panels through the default plain version
@@ -265,8 +266,8 @@ def test_chip_smoke_bounds_the_plane(kind):
     smoke = _smoke()
     if kind == "window":
         _, shards, max_m = _shards(2, np.float32, empty=False)
-        got = [td._pack_window(shards, max_m, np.float32, prec, CPU)
-               for prec in ("default", "highest")]
+        got = [td._pack_window(shards, max_m, np.float32, "default", CPU),
+               _highest_fp32(shards, max_m)]
         arrs = [tuple(x[0] for x in arrays) for arrays, _ in got]
         b = torch.ones((got[0][1].min_b_rows, 16))
     else:

@@ -1,5 +1,7 @@
 """The port's on-device densify and RNE bf16 split give the JAX packs bit
-for bit: ws, panels, bases, min_b_rows and roofline."""
+for bit: ws, panels, bases, min_b_rows and roofline (#3's and #4's fp32
+packs at ``highest`` hold the TF32 planes of JAX's panels, from which the
+panels come back bit for bit, at twice their bytes)."""
 
 import numpy as np
 import pytest
@@ -12,7 +14,7 @@ from crp_tpu.sparse.synth import banded_random_csr
 
 from crp_tpu_torch.kernels import device_pack
 from crp_tpu_torch.kernels import dispatch as td
-from crp_tpu_torch.kernels.spmm_pallas import UnsupportedSparsity
+from crp_tpu_torch.kernels.spmm_pallas import UnsupportedSparsity, tf32_panels
 
 CORPUS = [(3000, 7, 80, 91), (2500, 6, 60, 92), (1000, 5, 300, 3), (700, 9, 20, 4)]
 
@@ -43,12 +45,18 @@ def _assert_same_pack(shard, max_m, dtype, prec):
     t_arrays, op = td.pack_local_kernel(shard, max_m, dtype, "pallas",
                                         device="cpu", mxu_precision=prec)
     assert len(t_arrays) == len(j_arrays)
-    for t, j in zip(t_arrays, j_arrays):
+    planes = op.scheme in ("tf32", "window_tf32")  # (p, 2, G, TM, W): back to the panels
+    for i, (t, j) in enumerate(zip(t_arrays, j_arrays)):
+        if planes and i == 1:
+            t = tf32_panels(t.transpose(0, 1))
         tb, jb = _bits(t), _bits(j)
         assert tb.dtype == jb.dtype and tb.shape == jb.shape
-        np.testing.assert_array_equal(tb, jb)
+        np.testing.assert_array_equal(tb.view(np.uint8), jb.view(np.uint8))
     assert op.min_b_rows == j_fn.min_b_rows
-    assert op.roofline == j_fn.roofline
+    want = dict(j_fn.roofline)
+    if planes:
+        want.update(a_bytes=2 * want["a_bytes"])
+    assert op.roofline == want
     return t_arrays, op
 
 
@@ -74,8 +82,12 @@ def test_full_pack_matches_jax(spec, dtype):
     j_arrays, _ = jd.pack_local_kernel(shard, a.nrow + 300, dtype, "pallas")
     _, op = _assert_same_pack(shard, a.nrow + 300, dtype, "highest")
     # no super-group plan (8-byte windows over the CPU's 4 MB budget): both
-    # packages pack (ws, tiles) for the non-super-grouped kernel #4
-    assert op.scheme == ("window" if len(j_arrays) == 2 else "full")
+    # packages pack (ws, tiles) for the non-super-grouped kernel #4; on fp32
+    # the port's holds the TF32 planes
+    if dtype == np.float32:
+        assert op.scheme == ("window_tf32" if len(j_arrays) == 2 else "tf32")
+    else:
+        assert op.scheme == ("window" if len(j_arrays) == 2 else "full")
 
 
 def _with_duplicates(seed=12):
@@ -133,10 +145,12 @@ def test_uniform_fill_modes(mode):
     ws_full, ah, al = device_pack.uniform_fill(
         rp, a.colidx, a.val, a.nrow, 256, W, 4, ws, mode, torch.device("cpu"))
     np.testing.assert_array_equal(ws_full, np.r_[ws, np.zeros(4 - len(ws), np.int32)])
-    want = {"pair": torch.bfloat16, "bf16": torch.bfloat16,
+    want = {"pair": torch.bfloat16, "bf16": torch.bfloat16, "tf32": torch.float32,
             "f32": torch.float32, "f64": torch.float64}[mode]
-    assert ah.dtype == want and ah.shape == (4, 256, W)
+    assert ah.dtype == want and ah.shape == ((2,) if mode == "tf32" else ()) + (4, 256, W)
     assert (al is not None) == (mode == "pair")
+    if mode == "tf32":  # the planes: the fp32 panels come back from them exactly
+        ah = tf32_panels(ah)
     # scatter the panels back into a dense matrix and compare with A
     dense = torch.zeros(4 * 256, int(ws_full.max()) + W, dtype=torch.float64)
     full = ah.double() + (al.double() if al is not None else 0)
@@ -144,7 +158,8 @@ def test_uniform_fill_modes(mode):
         dense[g * 256:(g + 1) * 256, ws_full[g]:ws_full[g] + W] += full[g]
     err = np.abs(dense[: a.nrow, : a.ncol].numpy() - a.to_dense()).max()
     scale = np.abs(a.val).max()
-    assert err <= {"pair": 2 ** -16, "bf16": 2 ** -8, "f32": 0, "f64": 0}[mode] * scale
+    assert err <= {"pair": 2 ** -16, "bf16": 2 ** -8, "tf32": 0, "f32": 0, "f64": 0}[
+        mode] * scale
 
 
 def _with_reversed_row():
@@ -191,6 +206,8 @@ def _one_shot(flat, vals, shape, mode):
     t = t.view(shape)
     if mode in ("f32", "f64"):
         return t, None
+    if mode == "tf32":
+        return device_pack.tf32_planes(t), None
     return device_pack.split_bf16(t, with_lo=mode == "pair")
 
 
@@ -218,7 +235,7 @@ def _assert_slabs_equal_one_shot(calls, mode, min_slabs):
         assert (al is None) == (wl is None)
         if al is not None:
             np.testing.assert_array_equal(_bits(al), _bits(wl))
-        if mode in ("pair", "bf16"):
+        if mode in ("pair", "bf16", "tf32"):
             per = int(np.prod(shape[-2:]))
             cuts = np.arange(int(np.prod(shape[:-2])) + 1) if cuts is None else cuts
             assert len(device_pack._slabs(np.asarray(cuts), per)) - 1 >= min_slabs
@@ -259,7 +276,8 @@ def test_uniform_slabs_equal_one_shot(monkeypatch, mode, p):
     ws, ah, al = device_pack.uniform_fill_stacked(
         shards, [None if e is None else (e[0] * TK).astype(np.int32) for e in ext],
         TM, W, G, mode, torch.device("cpu"))
-    assert len(calls) == 1 and ah.shape == (p, G, TM, W)
+    assert len(calls) == 1
+    assert ah.shape == ((p, 2, G, TM, W) if mode == "tf32" else (p, G, TM, W))
     _assert_slabs_equal_one_shot(calls, mode, min_slabs=3)
 
 

@@ -221,16 +221,24 @@ def test_unknown_kind_raises():
 
 def test_multi_shard_pallas_refuses():
     """A multi-shard ``pallas`` pack no longer refuses (it did until kernel
-    #4 was ported): it is JAX's non-super-grouped pack, bit for bit."""
+    #4 was ported): it is JAX's non-super-grouped pack, bit for bit (at
+    ``highest`` on fp32 the TF32 planes of JAX's panels, which come back
+    from them exactly, at twice their bytes)."""
+    from crp_tpu_torch.kernels.spmm_pallas import tf32_panels
+
     a = banded_random_csr(600, nnz_per_row=5, bandwidth=20, seed=1, dtype=np.float32)
     s1, s2 = a.row_slice(0, 300), a.row_slice(300, 600)
     shards = [(s.rowptr, s.colidx.astype(np.int32), s.val) for s in (s1, s2)]
     arrays, op = td.pack_local_kernel(shards, 300, np.float32, "pallas", device="cpu")
     j_arrays, j_fn = jd.pack_local_kernel(shards, 300, np.float32, "pallas")
     assert op.variant == "window" and len(arrays) == len(j_arrays) == 2
-    for t, j in zip(arrays, j_arrays):
-        np.testing.assert_array_equal(t.numpy(), j)
-    assert (op.min_b_rows, op.roofline) == (j_fn.min_b_rows, j_fn.roofline)
+    np.testing.assert_array_equal(arrays[0].numpy(), j_arrays[0])
+    assert op.scheme == "window_tf32"
+    np.testing.assert_array_equal(
+        tf32_panels(arrays[1].transpose(0, 1)).numpy().view(np.int32),
+        np.asarray(j_arrays[1]).view(np.int32))
+    want = dict(j_fn.roofline, a_bytes=2 * j_fn.roofline["a_bytes"])
+    assert (op.min_b_rows, op.roofline) == (j_fn.min_b_rows, want)
 
 
 @pytest.mark.parametrize("gen,kw", [

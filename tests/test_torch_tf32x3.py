@@ -22,7 +22,9 @@ import pytest
 import torch
 
 from crp_tpu_torch.kernels import spmm_halo as th
-from crp_tpu_torch.kernels.spmm_pallas import round_tf32, spmm_window_sg_plain, split_tf32
+from crp_tpu_torch.kernels.spmm_pallas import (
+    round_tf32, spmm_window_sg_plain, split_tf32, tf32_panels,
+)
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.synth import fill_b
 from crp_tpu_torch.utils.norms import rel_fro_err
@@ -138,8 +140,9 @@ def test_emulated_window_sg_matches_jax_highest(n):
     port's plain version (the fp32 ``bmm``): within 1e-6 both ways; one
     TF32 pass is not."""
     a, arrays, fn, tensors, op = _case("highest", np.float32)
-    assert op.scheme == "full"  # (ws, tiles, bases): the super-grouped pack
-    ws, tiles = (t[0] for t in tensors[:2])
+    assert op.scheme == "tf32"  # (ws, planes, bases): the super-grouped pack
+    ws, planes = (t[0] for t in tensors[:2])
+    tiles = tf32_panels(planes)  # the fp32 panels the TF32 planes were split from
     b = np.random.default_rng(n).standard_normal((fn.min_b_rows, n)).astype(np.float32)
     bt = torch.from_numpy(b)
     want = np.asarray(fn(tuple(x[0] for x in arrays), b))

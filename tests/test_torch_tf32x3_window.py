@@ -10,7 +10,7 @@ import torch
 from crp_tpu.kernels.spmm_pallas import WindowDense, spmm_window_pallas
 
 from crp_tpu_torch.kernels import dispatch as td
-from crp_tpu_torch.kernels.spmm_pallas import spmm_window_plain
+from crp_tpu_torch.kernels.spmm_pallas import spmm_window_plain, tf32_panels
 from tests.test_torch_window import _anti_banded
 from tests.test_torch_window import _shards as _window_shards
 from tests.tf32x3_emulation import (
@@ -31,7 +31,8 @@ def test_emulated_window_matches_jax_highest(case, n):
         a = _anti_banded()
         shards, max_m = [(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow
     arrays, op = td._pack_window(shards, max_m + 300, np.float32, "highest", CPU)
-    ws, tiles = arrays
+    ws, planes = arrays
+    tiles = tf32_panels(planes.transpose(0, 1))  # the fp32 panels of the TF32 planes
     b = np.random.default_rng(n).standard_normal((op.min_b_rows, n)).astype(np.float32)
     bt = torch.from_numpy(b)
     G, TM, W = tiles.shape[1:]

@@ -21,7 +21,7 @@ from crp_tpu_torch.config import SpmmConfig
 from crp_tpu_torch.engine.rowpara import RowParaSpmm
 from crp_tpu_torch.kernels import dispatch as td
 from crp_tpu_torch.kernels.device_pack import split_bf16
-from crp_tpu_torch.kernels.spmm_pallas import spmm_window_plain
+from crp_tpu_torch.kernels.spmm_pallas import spmm_window_plain, tf32_panels
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.csr import CSRMatrix
 from crp_tpu_torch.sparse.synth import banded_random_csr
@@ -70,14 +70,42 @@ def _bits(t):
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
+def _highest_fp32(shards, max_m):
+    """#4's pack at ``highest`` with its TF32 planes turned back into the
+    fp32 panels they were split from (JAX's panels, bit for bit), and its
+    op: the fp32 panels that the other points are held against."""
+    (ws, planes), op = td._pack_window(shards, max_m, np.float32, "highest", CPU)
+    return (ws, tf32_panels(planes.transpose(0, 1))), op
+
+
+def _fp32_panels_engine(eng):
+    """An engine at ``highest`` whose #4 holds TF32 planes, made to hold the
+    fp32 panels they were split from instead (so that its op's plain
+    version runs them at another point); returns it."""
+    op = eng._local_op
+    if getattr(op, "scheme", None) == "window_tf32":
+        eng.packed_1 = tf32_panels(eng.packed_1.transpose(0, 1))
+        op.scheme = "window"
+    return eng
+
+
 def assert_pack_is_jax(arrays, op, j_arrays, prec, dtype):
     """The port's (ws, tiles) equal to JAX's (ws, tiles) bit for bit, or on
     fp32 at x3 its (ws, ah, al) with (ah, al) ``split_bf16`` of JAX's fp32
     panels bit for bit (scheme ``"window_x3"``), at ``default`` its (ws,
-    ah) with ah their RNE bf16 hi plane (scheme ``"window_bf16"``)."""
+    ah) with ah their RNE bf16 hi plane (scheme ``"window_bf16"``), at
+    ``highest`` its (ws, planes) with planes their TF32 operand planes, from
+    which JAX's panels come back bit for bit (scheme ``"window_tf32"``)."""
     assert op.variant == "window" and len(j_arrays) == 2
     np.testing.assert_array_equal(arrays[0].numpy(), j_arrays[0])
     j_tiles = torch.from_numpy(j_arrays[1])
+    if prec == "highest" and dtype == np.float32:
+        assert op.scheme == "window_tf32" and len(arrays) == 2
+        planes = arrays[1]
+        assert planes.shape == (j_tiles.shape[0], 2, *j_tiles.shape[1:])
+        back = tf32_panels(planes.transpose(0, 1))
+        assert torch.equal(back.view(torch.int32), j_tiles.view(torch.int32))
+        return
     if prec == "x3" and dtype == np.float32:
         assert op.scheme == "window_x3" and len(arrays) == 3
         want = split_bf16(j_tiles, with_lo=True)
@@ -97,9 +125,11 @@ def assert_pack_is_jax(arrays, op, j_arrays, prec, dtype):
 def test_multi_shard_pack_matches_jax(prec, dtype, p):
     """(ws, tiles) of p shards, one empty, with pad groups past the largest
     shard's: the JAX pack bit for bit (at x3 the bf16 pair of its fp32
-    panels, at ``default`` their hi plane), the same min_b_rows and
-    roofline, but for the hi plane's bytes at ``default`` on fp32: half
-    the fp32 panels', with B read in bf16 (as JAX's #2 pack counts it)."""
+    panels, at ``default`` their hi plane, at ``highest`` their TF32
+    planes), the same min_b_rows and roofline, but for the hi plane's bytes
+    at ``default`` on fp32: half the fp32 panels', with B read in bf16 (as
+    JAX's #2 pack counts it), and the TF32 planes' at ``highest``: twice
+    them."""
     _, shards, max_m = _shards(p, dtype)
     arrays, op = td._pack_pallas_uniform(shards, max_m + 700, dtype, prec, CPU)
     j_arrays, j_fn = jd._pack_pallas_uniform(shards, max_m + 700, dtype, prec)
@@ -107,8 +137,13 @@ def test_multi_shard_pack_matches_jax(prec, dtype, p):
     want = dict(j_fn.roofline)
     if prec == "default" and dtype == np.float32:
         want.update(a_bytes=want["a_bytes"] // 2, b_itemsize=2)
+    if prec == "highest" and dtype == np.float32:
+        want.update(a_bytes=want["a_bytes"] * 2)
     assert (op.min_b_rows, op.roofline) == (j_fn.min_b_rows, want)
-    assert not any(t[p - 2].any() for t in arrays)
+    empty = [t[p - 2] for t in arrays]
+    if op.scheme == "window_tf32":  # the planes of zero panels: zeros come back
+        empty[1] = tf32_panels(empty[1])
+    assert not any(t.any() for t in empty)
 
 
 def _jax_precision(prec, dtype):

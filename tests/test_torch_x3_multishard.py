@@ -30,7 +30,7 @@ from crp_tpu_torch.kernels import spmm_pallas as tsp
 from crp_tpu_torch.kernels.device_pack import split_bf16
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.synth import banded_random_csr, fill_b
-from tests.test_torch_window import _bits, _shards
+from tests.test_torch_window import _bits, _fp32_panels_engine, _highest_fp32, _shards
 
 CPU = torch.device("cpu")
 
@@ -78,7 +78,7 @@ def test_window_pair_plain_equals_fp32_plain(p, n):
     version on the pair is the former."""
     _, shards, max_m = _shards(p, np.float32)
     arrays, op = td._pack_window(shards, max_m + 300, np.float32, "x3", CPU)
-    f_arrays, _ = td._pack_window(shards, max_m + 300, np.float32, "highest", CPU)
+    f_arrays, _ = _highest_fp32(shards, max_m + 300)
     assert op.scheme == "window_x3" and len(arrays) == 3
     b = torch.from_numpy(np.random.default_rng(n).standard_normal(
         (op.min_b_rows, n)).astype(np.float32))
@@ -122,17 +122,17 @@ def test_halo_pair_plain_equals_fp32_plain(p, n):
 def test_local_op_from_jax_pack_splits_multi_shard_x3(prec):
     """A JAX multi-shard pack (fp32 (ws, tiles)) handed to the port: at x3
     it is split to the pair on upload (scheme ``"window_x3"``), at
-    ``default`` rounded to the bf16 hi plane (``"window_bf16"``), each the
-    port's own pack bit for bit, roofline included; at ``highest`` it stays
-    fp32."""
+    ``default`` rounded to the bf16 hi plane (``"window_bf16"``), at
+    ``highest`` split to the TF32 planes (``"window_tf32"``), each the
+    port's own pack bit for bit, roofline included."""
     _, shards, max_m = _shards(3, np.float32)
     j_arrays, j_fn = jd._pack_pallas_uniform(shards, max_m, np.float32, prec)
     tensors, op = td.local_op_from_jax_pack(j_arrays, j_fn.min_b_rows, device="cpu",
                                             roofline=j_fn.roofline)
     t_arrays, t_op = td._pack_window(shards, max_m, np.float32, prec, CPU)
     assert (op.variant, op.precision, op.min_b_rows) == ("window", prec, t_op.min_b_rows)
-    assert op.scheme == t_op.scheme == {"x3": "window_x3",
-                                        "default": "window_bf16"}.get(prec, "window")
+    assert op.scheme == t_op.scheme == {"x3": "window_x3", "default": "window_bf16",
+                                        "highest": "window_tf32"}[prec]
     assert len(tensors) == len(t_arrays) == (3 if prec == "x3" else 2)
     for t, w in zip(tensors, t_arrays):
         assert t.dtype == w.dtype and torch.equal(_bits(t), _bits(w))
@@ -145,7 +145,7 @@ def test_wrappers_refuse_what_has_no_kernel():
     function and raises."""
     _, shards, max_m = _shards(2, np.float32, empty=False)
     arrays, op = td._pack_window(shards, max_m, np.float32, "x3", CPU)
-    f_arrays, _ = td._pack_window(shards, max_m, np.float32, "highest", CPU)
+    f_arrays, _ = _highest_fp32(shards, max_m)
     ws, ah, al = (x[0] for x in arrays)
     b = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (op.min_b_rows, 8)).astype(np.float32))
@@ -171,7 +171,8 @@ def test_engines_hold_the_pair(kernel):
     assert eng._local_op.roofline["a_bytes"] == panel_bytes
     b = fill_b(0, a.ncol, 0, 24, dtype=np.float32)
     a.__dict__.pop("_torch_pack_cache", None)
-    ref = RowParaSpmm(a, d, d, 24, device="cpu", dtype=np.float32,
-                      config=SpmmConfig(kernel=kernel, mxu_precision="highest"))
+    ref = _fp32_panels_engine(RowParaSpmm(a, d, d, 24, device="cpu", dtype=np.float32,
+                                          config=SpmmConfig(kernel=kernel,
+                                                            mxu_precision="highest")))
     ref._local_op.precision = "x3"  # the fp32 panels through the x3 plain version
     np.testing.assert_array_equal(eng.exec(b), ref.exec(b))
