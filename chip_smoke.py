@@ -6,13 +6,13 @@ Run from the repository root:
 
 It builds the port's CUDA kernels from ``crp_tpu_torch/kernels/csrc`` into
 ``build/crp_tpu_torch/`` (one ``nvcc`` per source, all started together),
-prints the shared-memory ring of the 3xTF32 entries on ``mma.sync`` (#12
-and #6 at highest: stages, dynamic shared memory, registers, spills and
-blocks per SM, which must be 0 and at least 2) and of the wgmma body in
-each library that builds it (#1 with #5, the one-pass #2 and the TF32
-mode of #3 at highest, #4 with its one-pass default and its TF32 mode,
-#12 with its one-pass default, the ragged #7 with the one-pass #8: the
-same, which must be 0 and at least 1),
+prints the shared-memory rings of the wgmma body in each library that
+builds it (#1 with #5, the one-pass #2 and the TF32 mode of #3 at
+highest, #4 with its one-pass default and its TF32 mode, #12 with its
+one-pass default and its TF32 mode, each also with the waits across
+processes, the ragged #7 with the one-pass #8 and the TF32 mode of #6 at
+highest: stages, dynamic shared memory, registers, spills and blocks per
+SM, which must be 0 and at least 1),
 the spill and gather kernels' resources (``[spill]``: registers, spills
 and blocks per SM of each, which must be 0 and at least 1), the DMMA
 body's (``[dd]``: its ring, block tile, DMMA shape, and the same for its
@@ -21,8 +21,8 @@ with B through the chunk table, #12 on fp64, and with the flags' waits,
 #12 across processes, which must be 0 and exactly 1) and then,
 failing on the first check
 that does not hold (every engine init prints its peak device memory; an
-x3 or default panel pack, and #3's and #4's TF32 planes at highest, must
-peak within 1.2 x what it holds after):
+x3 or default panel pack, and every fp32 pack's TF32 planes at highest,
+must peak within 1.2 x what it holds after):
 
 1. kernel phase — each windowed kernel against its plain PyTorch version on
    small banded packs with pad groups, n in {16, 48, 100, 256}; then #5
@@ -34,7 +34,9 @@ peak within 1.2 x what it holds after):
    multiband packs, over
    (TM, Wc) geometries, n in {16, 37, 100, 256} and at n = 100 a B that
    starts off 16 bytes (odd n and that B take the plain B copies), with
-   pad groups that must come out zero;
+   pad groups that must come out zero, and #6 at highest (the wgmma body's
+   TF32 mode on the pack's TF32 planes) equal to a second launch bit for
+   bit;
 3. headline — the pwtk-class banded matrix (217,918 rows, 11,429,953 nnz,
    fp32) times the analytic B (n = 256) through ``RowParaSpmm`` at p = 1
    for each operating point (x3, default, highest): the engine must
@@ -55,7 +57,8 @@ peak within 1.2 x what it holds after):
    fused spill and launch both; each kernel against its plain version
    (the spill also bit for bit against its order's emulation and a second
    launch; its share of rows with a live slot), times, the host cover
-   time and cuSPARSE;
+   time and cuSPARSE; at highest #6 equal to a second launch bit for bit,
+   its time beside the previous body's (3xTF32 on ``mma.sync``);
 5. gather phase — the gather kernel against its plain version, and bit
    for bit against its order's emulation and a second launch, on small
    scrambled power-law packs at each operating point, n in {16, 37, 48,
@@ -107,7 +110,8 @@ peak within 1.2 x what it holds after):
    bit for bit to #1 on the same arrays), default (on the bf16 hi plane
    and B cast to bf16, #2's one-pass body, and equal bit for bit to #2),
    highest (on the TF32 planes, the body's TF32 mode, and equal bit for
-   bit to #3) and fp64 on a 4-shard pack (pad groups, an empty shard) and on
+   bit to #3 and to #6 on them written as a ragged pack, a chunk a group)
+   and fp64 on a 4-shard pack (pad groups, an empty shard) and on
    a single-shard pack with non-monotone windows, n in {16, 37, 100, 256}
    and at n = 100 a B off 16 bytes (odd n and that B take the plain B
    copies at x3 and default and the 4-byte ones at highest);
@@ -115,13 +119,16 @@ peak within 1.2 x what it holds after):
    each reading its windows straight from the owner shards' rows) against
    its plain version (the pushes into window buffers, then the windowed
    product) at x3, default, highest and fp64, n in {16, 37, 100, 256} and
-   a B off 16 bytes, the chunks past the matrix read as zeros; at x3 and
-   default also equal bit for bit to #4 run shard by shard on those
+   a B off 16 bytes, the chunks past the matrix read as zeros; on fp32 (x3,
+   default, highest: the pair, the hi plane, the TF32 planes) also equal
+   bit for bit to a second launch and to #4 run shard by shard on those
    buffers;
 12. headline at p = 4 — the headline matrix in 4 nnz-balanced row shards
    on the one card through ``RowParaSpmm(kernel="auto")`` at x3, default
    and highest: ``auto`` must resolve to the fused ``pallas_halo`` kernel
-   and launch it once per exec, within each point's class; then
+   and launch it once per exec, within each point's class (at highest
+   equal bit for bit to a second launch and to #4 on each shard's TF32
+   planes, its time beside the previous body's); then
    ``kernel="pallas"`` at each point with the all_to_all exchange, and at
    x3 on the ring:
    the unfused path, windowed kernel #4 on every shard (variant
@@ -266,9 +273,10 @@ TOL_RAGGED_FRO = {np.float32: 1e-6, np.float64: 1e-12}
 # their plain versions or index_add_ within this
 TOL_TRAIN_PLAIN_FRO = 4e-6
 # the previous bodies on the main paths, ms (NVIDIA H100 80GB HBM3, 700
-# W), printed beside the times of this run: #3 and #4 at highest on the
-# 3xTF32 mma.sync body (the headline at p = 1 and its p = 4 shard 0, the
-# smoke's runs beside crp_tpu_torch.cli.f64_ab --point highest's), the spill and gather kernels'
+# W), printed beside the times of this run: #3, #4, #12 and #6 at highest
+# on the 3xTF32 mma.sync body (the headline at p = 1, its p = 4 shard 0 and
+# all four shards, cplaw's ragged pack; the smoke's runs, #3 and #4 beside
+# crp_tpu_torch.cli.f64_ab --point highest's), the spill and gather kernels'
 # (a block per output block and 32 columns, shared-memory atomics), #11's
 # (64 x 64 blocks of m8n8k4 DMMA, one shared-memory stage) and the fp64
 # entries of #3 and #6 on fp64 `auto`'s packs (the FMA tile body that
@@ -278,7 +286,8 @@ TOL_TRAIN_PLAIN_FRO = 4e-6
 PREVIOUS_MS = {"spmm_spill": 2.0822, "spmm_gather": 7.3080, "spmm_ragged_dd": 4.6211,
                "fp64 banded": 6.0605, "fp64 cplaw": 28.9420, "fp64 headline": 21.7533,
                "fp64 p=4 spmm_halo": 44.5400, "fp64 p=4 spmm_window": 10.8390,
-               "headline highest": 10.3785, "headline p=4 highest": 2.6446}
+               "headline highest": 10.3785, "headline p=4 highest": 2.6446,
+               "headline p=4 fused highest": 10.1958, "cplaw highest": 7.1609}
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W), HBM_BYTES_PER_S
 # and PEAK, are the package's table, which the suite's roofline and the
 # projection read too (imported at the top)
@@ -286,7 +295,10 @@ PREVIOUS_MS = {"spmm_spill": 2.0822, "spmm_gather": 7.3080, "spmm_ragged_dd": 4.
 # it holds after it: the panels are densified slab by slab, never whole in
 # fp32 beside their bf16 or TF32 planes (device_pack._densify)
 INIT_PEAK_OVER_HELD = 1.2
-TF32_SCHEMES = ("tf32", "window_tf32")  # #3's and #4's packs at highest: the TF32 planes
+# the ops whose packs hold the TF32 planes at highest: #3's and #4's (their
+# stacked (2, G, TM, W) planes), #6's (big and small apart); #12's plan
+# holds them too (holds_tf32_planes)
+TF32_SCHEMES = ("tf32", "window_tf32")
 PANEL_VARIANTS = ("uniform", "ragged", "window", "halo")
 CPLAW_P4_RECV, CPLAW_P4_RING_ROWS = 591732, 627300  # r4_cpu_mesh_commvol.jsonl
 CPLAW_P8_COMM_N32 = 26551360  # the planner's comm_cost at n = 32, p = 8
@@ -445,14 +457,23 @@ def function_bound(op, work, n, dtype) -> tuple:
     return bound(n_bytes, passes * 2.0 * nnz * n, peak)
 
 
+def holds_tf32_planes(op) -> bool:
+    """Whether the op's pack holds the TF32 planes (every fp32 panel pack
+    at highest: #3, #4, #6 by scheme, #12's plan by its point and B)."""
+    if getattr(op, "variant", None) == "halo":
+        return op.precision == "highest" and op.roofline.get("b_itemsize") == 4
+    return getattr(op, "scheme", None) in TF32_SCHEMES
+
+
 def panel_bound(op, arrs, rB) -> tuple:
     """Bound of the dense panels this design multiplies (windowed, ragged,
-    dd, halo): its inputs read once (panels, or the TF32 planes of #3 and
-    #4 at highest, indices, B as it takes it) and its C written once; its
-    operations are the panels' products with B at the op's point."""
+    dd, halo): its inputs read once (panels, or the TF32 planes at
+    highest, indices, B as it takes it) and its C written once; its
+    operations are the panels' products with B at the op's point (on the
+    planes, one plane's)."""
     args = op.kernel_args(arrs, rB)
     panel = next(t for t in flat(args) if isinstance(t, torch.Tensor) and t.dim() >= 3)
-    if getattr(op, "scheme", None) in TF32_SCHEMES:  # (2, G, TM, W): one plane's products
+    if op.variant in ("uniform", "window") and holds_tf32_planes(op):  # (2, G, TM, W)
         panel = panel[0]
     n = rB.shape[-1]
     rl = op.roofline
@@ -744,6 +765,9 @@ def ragged_phase(device) -> None:
                     c = launch(op, args)
                     check(not bool(torch.any(c[a.nrow:])),
                           f"{op.kernel.__name__} {label}: pad rows not zero")
+                    if op.scheme == "tf32":  # #6 on the TF32 planes: a fixed order
+                        check(same_bits(c, launch(op, args)),
+                              f"{op.kernel.__name__} {label} highest: two launches differ")
                     msg = (f"ragged {op.kernel.__name__:21s} {prec:8s} "
                            f"{np.dtype(dtype).name} {label:9s} (TM, Wc)=({TM}, {Wc}) "
                            f"S={rl['S']} spill={rl['spill_nnz']} n={n:3d}"
@@ -792,7 +816,7 @@ def measured_init(device, make) -> tuple:
 
 def check_init_memory(tag, prec, eng, peak, held, extra="") -> None:
     """Print an init's peak device memory, what it holds after and its
-    packed arrays' bytes; an x3, default or TF32-plane (#3, #4 at
+    packed arrays' bytes; an x3, default or TF32-plane (every fp32 pack at
     highest) panel pack must peak within INIT_PEAK_OVER_HELD of what it
     holds.  An earlier phase's objects
     collected during the init lower ``held``, never the pack's bytes, so
@@ -801,7 +825,7 @@ def check_init_memory(tag, prec, eng, peak, held, extra="") -> None:
     say(f"[{tag}] init device memory: peak {peak / 1e9:.3f} GB, held after "
         f"{held / 1e9:.3f} GB, packed {nbytes(*eng.packed) / 1e9:.3f} GB "
         f"({peak / keep:.3f}x){extra}")
-    split = prec in ("x3", "default") or getattr(eng._local_op, "scheme", None) in TF32_SCHEMES
+    split = prec in ("x3", "default") or holds_tf32_planes(eng._local_op)
     if split and eng._local_op.variant in PANEL_VARIANTS:
         check(peak <= INIT_PEAK_OVER_HELD * keep,
               f"{tag}: init peaks at {peak / 1e9:.3f} GB, over {INIT_PEAK_OVER_HELD} x "
@@ -1084,6 +1108,15 @@ def cplaw_path(device) -> list:
         rB = eng.receive_buffer(bs)[0]
         got = time_kernel(op, arrs, rB, "cplaw", prec, csr_work(a), plain_inner=2)
         records.append(record(op.kernel.__name__, launches[op.kernel.__name__], *got))
+        if prec == "highest":
+            args = op.kernel_args(arrs, rB)
+            check(op.scheme == "tf32" and same_bits(launch(op, args), launch(op, args)),
+                  f"cplaw highest: scheme {op.scheme!r}, or two launches differ")
+            say(f"[cplaw highest] {op.kernel.__name__} on the wgmma body's TF32 mode "
+                f"(the ragged walk, the pack's TF32 planes) {got[1]:.4f} ms, the previous "
+                f"body (3xTF32 on mma.sync) {PREVIOUS_MS['cplaw highest']:.4f} ms; design "
+                f"bound {got[5]:.4f} ms; a second launch equal bit for bit")
+            del args
         s_abs, s_rel, s_fro = spill_vs_plain(op, arrs, rB)
         say(f"[cplaw {prec}] spmm_spill vs plain at the main path: rel fro err "
             f"{s_fro:.3e} (tol {TOL_PLAIN_FRO:g}), max rel err {s_rel:.3e}, "
@@ -1546,12 +1579,14 @@ def window_phase(device) -> None:
     and a B off 16 bytes; at x3 its C equal bit for bit to #1's on the same
     pair and receive buffer, at default to #2's on the same hi plane and
     bf16 B, at highest on fp32 to #3's on the same TF32 planes (the same
-    body)."""
+    body) and to #6's on them written as a ragged pack, a chunk a group
+    (the walk changes nothing)."""
     from crp_tpu_torch import CSRMatrix, banded_random_csr, csr_row_partition
     from crp_tpu_torch.kernels.dispatch import _pack_window
     from crp_tpu_torch.kernels.spmm_pallas import (
         spmm_window_sg, spmm_window_sg_bf16, spmm_window_sg_presplit,
     )
+    from crp_tpu_torch.kernels.spmm_ragged import spmm_ragged
 
     for prec, dtype in (("x3", np.float32), ("default", np.float32),
                         ("highest", np.float32), ("highest", np.float64)):
@@ -1613,13 +1648,22 @@ def window_phase(device) -> None:
                         check(torch.equal(c1.view(torch.int32), c.view(torch.int32)),
                               f"window {label} {prec} shard {i} n={n}: #4 differs from "
                               f"#{ref} by {same}")
+                    if tf:  # #6 on the same planes written as a ragged pack, a chunk a group
+                        ws, planes = arrs
+                        walk = torch.arange(G + 1, dtype=torch.int32, device=device)
+                        c6 = spmm_ragged(walk[:-1], walk, ws, (planes[0], planes[1]),
+                                         args[2], min_b_rows=op.min_b_rows)
+                        check(same_bits(c6, c), f"window {label} highest shard {i} n={n}: "
+                              f"#6 on a chunk a group differs from #4 by "
+                              f"{float((c6 - c).abs().max())}")
                 tol = TOL_PLAIN[dtype]
                 msg = (f"window spmm_window {prec:8s} {np.dtype(dtype).name} "
                        f"{label:12s} p={len(shards)} G={G} n={n:3d}"
                        f"{' B off 16 bytes' if b_off else ''}: max rel err "
                        f"{worst:.3e} (tol {tol:g})"
                        + (f", max |C4 - C{ref}| {same:.3e} (must be 0)"
-                          if x3 or one or tf else ""))
+                          if x3 or one or tf else "")
+                       + (", #6 on a chunk a group equal bit for bit" if tf else ""))
                 check(worst <= tol, msg)
                 say(msg)
 
@@ -1637,12 +1681,12 @@ def stacked_b(b, displs, rows):
 def halo_phase(device) -> None:
     """The fused halo kernel (#12) against its plain version over 4 shards
     in one launch at every point, odd n and a B off 16 bytes; rows past
-    each shard's own zero (the chunks past the matrix read as zeros); at
-    x3 and default its C equal bit for bit to #4 run shard by shard on the
-    same pair or plane with the plain version's window buffers."""
+    each shard's own zero (the chunks past the matrix read as zeros); on
+    fp32 (x3, default, highest) its C equal bit for bit to a second launch
+    and to #4 run shard by shard on the same pair, plane or TF32 planes
+    with the plain version's window buffers."""
     from crp_tpu_torch import banded_random_csr, csr_row_partition
-    from crp_tpu_torch.kernels.spmm_halo import align_displs, build_halo_plan, halo_buffers
-    from crp_tpu_torch.kernels.spmm_pallas import spmm_window
+    from crp_tpu_torch.kernels.spmm_halo import align_displs, build_halo_plan
 
     for prec, dtype in POINTS:
         a = banded_random_csr(6000, nnz_per_row=7, bandwidth=300, seed=97, dtype=dtype)
@@ -1653,8 +1697,9 @@ def halo_phase(device) -> None:
                                      precision=prec)
         x3 = prec == "x3" and dtype == np.float32
         one = prec == "default" and dtype == np.float32
+        tf = prec == "highest" and dtype == np.float32  # the TF32 planes
         panels = arrays[2:-2]
-        check(len(panels) == (2 if x3 else 1) and panels[0].dtype == (
+        check(len(panels) == (2 if x3 or tf else 1) and panels[0].dtype == (
             torch.bfloat16 if x3 or one else torch.float64 if dtype == np.float64
             else torch.float32), f"halo {prec}: the plan holds {[t.dtype for t in panels]}")
         dead = int((arrays[-1] < 0).sum())
@@ -1669,19 +1714,14 @@ def halo_phase(device) -> None:
             for i in range(4):
                 check(not bool(torch.any(c[i, d[i + 1] - d[i]:])),
                       f"halo {prec} shard {i}: pad rows not zero")
-            if x3 or one:  # #4 per shard on the pushed window buffers
-                buf = halo_buffers(args[3], args[5], op.buf_rows)
-                for i in range(4):
-                    c4 = spmm_window(args[1][i], tuple(t[i] for t in args[2]) if x3
-                                     else args[2][i], buf[i], prec, min_b_rows=op.buf_rows)
-                    check(torch.equal(c4.view(torch.int32), c[i].view(torch.int32)),
-                          f"halo {prec} shard {i} n={n}: #12 differs from #4 by "
-                          f"{float((c4 - c[i]).abs().max())}")
+            if x3 or one or tf:  # a second launch, #4 per shard on the window buffers
+                halo_vs_window(op, args, f"halo {prec} n={n}")
             tol = TOL_PLAIN[dtype]
             msg = (f"halo spmm_halo {prec:8s} {np.dtype(dtype).name} p=4 G={op.G} "
                    f"W={op.W} n={n:3d}{' B off 16 bytes' if b_off else ''}, {dead} "
                    f"chunks past the matrix: max rel err {rel:.3e} (tol {tol:g})"
-                   + (", C equal to #4's per shard" if x3 or one else ""))
+                   + (", C equal to a second launch's and to #4's per shard"
+                      if x3 or one or tf else ""))
             check(rel <= tol, msg)
             say(msg)
 
@@ -1743,6 +1783,27 @@ def drive_p(a, b, c_ref, p, prec, device, tag, expect, rb_p2p, kernel="auto",
     return eng, op, bs, launches
 
 
+def halo_vs_window(op, args, tag) -> None:
+    """#12's C against a second launch and against #4 run shard by shard on
+    the same panels (the pair, the plane or the TF32 planes) with the plain
+    version's window buffers, bit for bit: the same body, the same
+    products in the same order."""
+    from crp_tpu_torch.kernels.spmm_halo import halo_buffers
+    from crp_tpu_torch.kernels.spmm_pallas import spmm_window
+
+    c = launch(op, args)
+    check(same_bits(c, launch(op, args)), f"{tag}: spmm_halo: two launches differ")
+    buf = halo_buffers(args[3], args[5], op.buf_rows)
+    planes = args[2] if isinstance(args[2], tuple) else (args[2],)
+    for i in range(c.shape[0]):
+        mine = tuple(t[i] for t in planes)
+        panels = (torch.stack(mine) if holds_tf32_planes(op) else mine if len(mine) == 2
+                  else mine[0])
+        c4 = spmm_window(args[1][i], panels, buf[i], op.precision, min_b_rows=op.buf_rows)
+        check(same_bits(c4, c[i]), f"{tag} shard {i}: #12 differs from #4 by "
+              f"{float((c4 - c[i]).abs().max())}")
+
+
 def headline_p4(device) -> list:
     """The headline in 4 row shards: ``auto`` takes the fused kernel at
     every point; ``kernel="pallas"`` the exchange and #4 on every shard (at
@@ -1772,6 +1833,13 @@ def headline_p4(device) -> list:
             f"{tuple(eng.packed[2].shape)}")
         if prec == "x3":
             halo["timing"] = got[1:]
+        if prec == "highest":  # a second launch, and #4 shard by shard on the same planes
+            halo_vs_window(op, op.kernel_args(eng.packed, bs), "headline p=4 highest")
+            say(f"[headline p=4 highest] fused: spmm_halo on the wgmma body's TF32 mode "
+                f"{got[1]:.4f} ms, the previous body (3xTF32 on mma.sync) "
+                f"{PREVIOUS_MS['headline p=4 fused highest']:.4f} ms; design bound "
+                f"{got[5]:.4f} ms; a second launch and #4 on each shard's planes equal "
+                f"bit for bit")
         del eng, op, bs
         a.__dict__.pop("_torch_pack_cache", None)
         torch.cuda.empty_cache()
@@ -4056,43 +4124,28 @@ def drivers_path(device) -> list:
     return out
 
 
-def tf32x3_layouts(build) -> None:
-    """Print the ring of each 3xTF32 entry on ``mma.sync`` (#12 and #6 at
-    highest; #3's and #4's TF32 mode of the wgmma body is in
-    :func:`x3_layout`) once: stages, dynamic shared memory, the block tile,
-    and for its 16-byte and 4-byte B copy kernels registers, spill bytes
-    and resident blocks per SM, which must be 0 and at least 2 (#12's also
-    with the waits across processes, ``flag16`` and ``flag4``)."""
-    for name in ("crp_halo_f32", "crp_ragged_f32"):
-        lay = build.tf32x3_layout(name)
-        say(f"[tf32x3] {name}: {json.dumps(lay)}")
-        for copy in ("b16", "b4") + (("flag16", "flag4") if name == "crp_halo_f32" else ()):
-            check(lay[f"{copy}.local_bytes"] == 0 and lay[f"{copy}.blocks_per_sm"] >= 2,
-                  f"{name} ({copy}): {lay}: spills, or fewer than 2 blocks an SM")
-
-
 def x3_layout(build) -> None:
     """Print the rings of the wgmma body once per library that builds it
     (#1 with #5, #2 and #3 at highest as its modes, #4 with its default as
-    the one-pass mode and its highest as the TF32 mode, #12 with its
-    default as the one-pass mode, the ragged #7 with #8 as its one-pass
+    the one-pass mode and its highest as the TF32 mode, #12 likewise, the
+    ragged #7 with #8 as its one-pass mode and #6 at highest as its TF32
     mode): stages, dynamic shared memory, threads, the block tile, and for
     each of its kernels (fp32 B by 16-byte or plain copies, #5's likewise
     on the bf16 planes, the one-pass mode's on one bf16 plane in its own
     deeper ring, the TF32 mode's on fp32 B in its own ring of 32-row
-    stages, #12's through the chunk table, in both modes, with and without
-    the waits across processes) registers, spill bytes and resident blocks
-    per SM, which must be 0 and at least 1."""
+    stages, #12's through the chunk table, in all three modes, with and
+    without the waits across processes) registers, spill bytes and
+    resident blocks per SM, which must be 0 and at least 1."""
     for name, label, copies in (
         ("crp_window_sg_presplit", "crp_window_sg_presplit / _ab / _bf16 / _f32",
          ("b16", "b4", "pair16", "pair2", "one16", "one2", "tf32_16", "tf32_4")),
         ("crp_window_x3", "crp_window_x3 / _bf16 / _f32",
          ("b16", "b4", "one16", "one2", "tf32_16", "tf32_4")),
-        ("crp_halo_x3", "crp_halo_x3 / _bf16 (and _flags)",
+        ("crp_halo_x3", "crp_halo_x3 / _bf16 / _f32 (and _flags)",
          ("chunk16", "chunk4", "chunkone16", "chunkone2", "flag16", "flag4", "flagone16",
-          "flagone2")),
-        ("crp_ragged_presplit", "crp_ragged_presplit / _bf16",
-         ("b16", "b4", "one16", "one2")),
+          "flagone2", "chunktf32_16", "chunktf32_4", "flagtf32_16", "flagtf32_4")),
+        ("crp_ragged_presplit", "crp_ragged_presplit / _bf16 / _f32",
+         ("b16", "b4", "one16", "one2", "tf32_16", "tf32_4")),
     ):
         lay = build.x3_layout(name)
         say(f"[x3] {label}: {json.dumps(lay)}")
@@ -4162,7 +4215,6 @@ def main() -> int:
     _build.libraries()
     say(f"build: {', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
-    tf32x3_layouts(_build)
     x3_layout(_build)
     spill_layout(_build)
     dd_layout(_build)

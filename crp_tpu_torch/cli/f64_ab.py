@@ -42,19 +42,25 @@ tensor cores' and the FMA units' peaks, and the card's name and power
 limit; then one line per case with each tree's median over this tree's
 and cuSPARSE's ms.  Needs the card and ``nvcc``.
 
-``--point highest`` times #3 (``crp_window_sg_f32``, the headline in fp32
-at p = 1, ``kernel="auto"``) and #4 (``crp_window_f32``, the headline's
-shard 0 at p = 4, ``kernel="pallas"``) at ``highest``, on the ``wgmma``
-body's TF32 mode (``csrc/x3_wgmma.cuh``), each within 1e-6 relative
-Frobenius of its plain version.  This tree's entries take the pack's
-TF32 planes (split once at init); a tree whose entries take fp32 panels
-(the parent's; ``design:ring``) gets the fp32 panels they were split
-from, exact.  Besides the baselines it always times ``design:ring``, a
-copy of this tree in the other design (:data:`RING_EDITS`: the fp32
-panels by TMA, split in the ring by three splitter warps): C equal to
-this tree's bit for bit, and the comparison of where the split is made.
-With ``--split`` the copies of this tree's body without its copies or its
-products are ``x3_feed_split``'s edits and :data:`TF32_EDITS`.
+``--point highest`` times at ``highest``, on the ``wgmma`` body's TF32
+mode (``csrc/x3_wgmma.cuh``), #3 (``crp_window_sg_f32``, the headline in
+fp32 at p = 1, ``kernel="auto"``), #4 (``crp_window_f32``, the headline's
+shard 0 at p = 4, ``kernel="pallas"``), #12 (``crp_halo_f32``, the
+headline's fused plan over all four shards at p = 4, ``kernel="auto"``,
+B read in place through the chunk table) and #6 (``crp_ragged_f32``,
+cplaw in fp32 at p = 1, ``kernel="auto"``: the ragged pack, whose spill
+#9 is not timed here), each within 1e-6 relative Frobenius of its plain
+version.  This tree's entries take the pack's TF32 planes (split once at
+init); a tree whose entries take fp32 panels (an older parent's #12 and
+#6, on the ``mma.sync`` 3xTF32 body; ``design:ring``) gets the fp32
+panels they were split from, exact.  Besides the baselines it times, for
+#3 and #4, ``design:ring``, a copy of this tree in the other design
+(:data:`RING_EDITS`: the fp32 panels by TMA, split in the ring by three
+splitter warps): C equal to this tree's bit for bit, and the comparison
+of where the split is made.  With ``--split`` the copies of this tree's
+body without its copies or its products are ``x3_feed_split``'s edits
+and :data:`TF32_EDITS`, for all four.  ``--case`` picks the cases by
+entry name (all by default).
 """
 
 from __future__ import annotations
@@ -101,15 +107,21 @@ SPLITS = {"products_only": NO_COPIES, "copies_only": NO_PRODUCTS}
 ERR_COLS = 32
 TOL = 1e-12
 
-# --point highest: the smoke's fp32 headline, #3 at p = 1 and #4 on shard 0
-HIGHEST_STEMS = ("window_sg", "window")
+# --point highest: the smoke's fp32 headline, #3 at p = 1, #4 on shard 0
+# and #12 over all four shards at p = 4; its cplaw, #6 at p = 1
+HIGHEST_STEMS = ("window_sg", "window", "halo", "ragged")
+RING_STEMS = ("window_sg", "window")  # design:ring's #3 and #4
 HIGHEST_MATRICES = {
     "headline": ("banded_random_csr", dict(n=217918, nnz_per_row=53, bandwidth=2500,
                                            seed=1234, dtype=np.float32)),
+    "cplaw": ("powerlaw_community_csr", dict(n=786432, avg_degree=16, comm_size=1024,
+                                             seed=1234, dtype=np.float32)),
 }
 HIGHEST_CASES = {
     ("headline", 1, "auto"): "crp_window_sg_f32",
     ("headline", 4, "pallas"): "crp_window_f32",
+    ("headline", 4, "auto"): "crp_halo_f32",
+    ("cplaw", 1, "auto"): "crp_ragged_f32",
 }
 HIGHEST_TOL = 1e-6  # kernel vs plain, relative Frobenius (chip_smoke TOL_PLAIN_FRO)
 # the TF32 consumers' products under TF32_NO_PRODUCTS; with x3_feed_split's
@@ -198,30 +210,49 @@ RING_EDITS = {
     ),
     **{f"{stem}.cu": (("launch_wgmma<crp::WgMode::TF32X3>(ws, big, big + G * TM * W, b,",
                        "launch_wgmma<crp::WgMode::TF32X3>(ws, big, big, b,"),)
-       for stem in HIGHEST_STEMS},
+       for stem in RING_STEMS},
 }
+RING_ENTRIES = ("crp_window_sg_f32", "crp_window_f32")  # what design:ring is timed on
 # the trees whose #3 and #4 take the TF32 planes: their entries pass the
-# small plane G*TM*W floats past the big one; the others (the parent's,
+# small plane G*TM*W floats past the big one; the others (an older parent's,
 # design:ring) take the fp32 panels
 PLANES_ENTRY = "big + G * TM * W"
+# a tree whose #12 and #6 still run the mma.sync 3xTF32 body takes their
+# fp32 panels (one pointer where this tree's take the two planes)
+MMA_SYNC_BODY = "launch_tf32x3"
+
+
+def takes_planes(src: pathlib.Path, texts: dict) -> set:
+    """The fp32 ``highest`` entries of the tree at ``src`` (``texts``
+    replacing its files) that take the TF32 planes."""
+    def text(name):
+        return texts.get(name, (src / name).read_text())
+
+    got = set()
+    if PLANES_ENTRY in text("window.cu"):
+        got |= {"crp_window_sg_f32", "crp_window_f32"}
+    for stem, name in (("halo", "crp_halo_f32"), ("ragged", "crp_ragged_f32")):
+        if MMA_SYNC_BODY not in text(f"{stem}.cu"):
+            got.add(name)
+    return got
 
 
 def libraries(baselines, split: bool, point: str = "fp64") -> tuple:
-    """``({tree: [ctypes libraries]}, the trees whose #3 and #4 take the
-    TF32 planes)``: this tree (``"this"``), each baseline
+    """``({tree: [ctypes libraries]}, {tree: its fp32 highest entries that
+    take the TF32 planes})``: this tree (``"this"``), each baseline
     (``"baseline:DIR"``), at ``highest`` the copy in the other design
-    (``"design:ring"``, :data:`RING_EDITS`) and, with ``split``, the split
-    copies of this tree's ``dd_tc.cu`` (fp64) or ``x3_wgmma.cuh``
-    (``highest``) (``"split:VARIANT"``), one ``nvcc`` a source, all started
-    together."""
+    (``"design:ring"``, :data:`RING_EDITS`, built for #3 and #4 alone) and,
+    with ``split``, the split copies of this tree's ``dd_tc.cu`` (fp64) or
+    ``x3_wgmma.cuh`` (``highest``) (``"split:VARIANT"``), one ``nvcc`` a
+    source, all started together."""
     highest = point == "highest"
     stems = HIGHEST_STEMS if highest else STEMS
     jobs = {"this": (_build.CSRC, {}, ())}
     for base in baselines:
         jobs[f"baseline:{base}"] = (pathlib.Path(base), {}, ())
-    splits = {}
+    splits, ring = {}, {}
     if highest:
-        jobs["design:ring"] = (_build.CSRC, {
+        ring["design:ring"] = (_build.CSRC, {
             name: edited((_build.CSRC / name).read_text(), edits, "f64_ab")
             for name, edits in RING_EDITS.items()}, ())
         if split:
@@ -234,10 +265,10 @@ def libraries(baselines, split: bool, point: str = "fp64") -> tuple:
         splits = {f"split:{variant}": (_build.CSRC,
                                        {"dd_tc.cu": edited(body, edits, "f64_ab")}, ())
                   for variant, edits in SPLITS.items()}
-    planes = {tree for tree, (src, texts, _) in {**jobs, **splits}.items()
-              if PLANES_ENTRY in texts.get("window.cu", (src / "window.cu").read_text())}
+    planes = {tree: takes_planes(src, texts)
+              for tree, (src, texts, _) in {**jobs, **ring, **splits}.items()}
     libs = {}
-    for out, js, js_stems in ((OUT, jobs, stems),
+    for out, js, js_stems in ((OUT, jobs, stems), (OUT / "ring", ring, RING_STEMS),
                               (OUT / "split", splits, stems if highest else ("dd_tc",))):
         if js:
             for (tree, _), path in build_copies(out, js, js_stems, "f64_ab").items():
@@ -281,32 +312,41 @@ def pack(a, p: int, kernel: str, dev) -> tuple:
     return op, args, op.plain(*args), rows
 
 
+def planes_of(args) -> tuple:
+    """The panel operand of a kernel's args as a tuple of tensors: the
+    pair (#12's and #6's TF32 planes at highest), or the one tensor
+    (#3's and #4's stacked planes, fp64 panels)."""
+    got = next(t for t in args if isinstance(t, tuple)
+               or (isinstance(t, torch.Tensor) and t.dim() >= 3))
+    return got if isinstance(got, tuple) else (got,)
+
+
 def runner(fn, op, args, stream, panels=None):
     """A call of entry ``fn`` on the op's args, its output allocated once;
     raises on a CUDA error.  ``panels``: passed in the place of the args'
-    (#3's and #4's fp32 panels for a tree whose entries take them, the
-    args holding their TF32 planes)."""
+    (the fp32 panels for a tree whose entry takes them, the args holding
+    their TF32 planes)."""
     extra = ()
-    if op.variant == "halo":  # #12: rows, ws, panels, C; then rows16
+    given = planes_of(args) if panels is None else (panels,)
+    if op.variant == "halo":  # #12: rows, ws, panels (or planes), C; then rows16
         from ..kernels.spmm_halo import stacked_chunk_rows
 
-        ws, _, panels, _, chunk_src, b = args[:6]
+        ws, _, _, _, chunk_src, b = args[:6]
         rows, rows16 = stacked_chunk_rows(chunk_src, b)
-        s_, G, TM, W = panels.shape
-        ptrs, extra, shape = (rows, ws, panels), (int(rows16),), (s_, G * TM, b.shape[-1])
+        s_, G, TM, W = given[0].shape
+        ptrs, extra, shape = (rows, ws, *given), (int(rows16),), (s_, G * TM, b.shape[-1])
         G *= s_
     else:
         if op.variant in ("uniform", "window"):  # #3, #4: ws, tiles (or planes), b
-            ws, tiles, b = args[:3]
-            G, ptrs = ws.shape[0], (ws, tiles if panels is None else panels, b)
-            panels = tiles
-        else:  # #6: step_g, group_ptr, starts, panels, b
-            _, group_ptr, starts, panels, b = args
-            G, ptrs = group_ptr.shape[0] - 1, (group_ptr, starts, panels, b)
-        TM, W = panels.shape[-2:]
+            ws, _, b = args[:3]
+            G, ptrs = ws.shape[0], (ws, *given, b)
+        else:  # #6: step_g, group_ptr, starts, panels (or planes), b
+            _, group_ptr, starts, _, b = args
+            G, ptrs = group_ptr.shape[0] - 1, (group_ptr, starts, *given, b)
+        TM, W = given[0].shape[-2:]
         shape = (G * TM, b.shape[1])
     n = b.shape[-1]
-    c = torch.empty(shape, dtype=panels.dtype, device=b.device)
+    c = torch.empty(shape, dtype=given[0].dtype, device=b.device)
     fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 1) + [ctypes.c_int64] * (4 + len(extra))
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -372,6 +412,8 @@ def main(argv=None) -> int:
                         help="also time this tree's body without copies or products")
     parser.add_argument("--p", type=int, action="append", choices=(1, 4),
                         help="the cases at this p (default: every case)")
+    parser.add_argument("--case", action="append", default=[],
+                        help="the cases of this entry (default: every case)")
     args = parser.parse_args(argv)
     from ..sparse import synth
     from ..utils.timers import median_ms
@@ -386,21 +428,27 @@ def main(argv=None) -> int:
     highest = args.point == "highest"
     cases, gens = (HIGHEST_CASES, HIGHEST_MATRICES) if highest else (CASES, MATRICES)
     tol, bits = (HIGHEST_TOL, torch.int32) if highest else (TOL, torch.int64)
-    libs, takes_planes = libraries(args.baseline, args.split, args.point)
+    libs, planes_by_tree = libraries(args.baseline, args.split, args.point)
     stream = torch.cuda.current_stream(dev).cuda_stream
     matrices = {}
     for (label, p, kernel), name in cases.items():
-        if args.p and p not in args.p:
+        if (args.p and p not in args.p) or (args.case and name not in args.case):
             continue
         if label not in matrices:
             gen, kw = gens[label]
             matrices = {label: getattr(synth, gen)(**kw)}  # one matrix held at a time
         a = matrices[label]
         op, kargs, plain, rows = pack(a, p, kernel, dev)
-        fp32 = tf32_panels(kargs[1]) if highest else None  # for the trees that take them
+        trees = {tree: tree_libs for tree, tree_libs in libs.items()
+                 if tree != "design:ring" or name in RING_ENTRIES}
+        # the fp32 panels, for the trees whose entry takes them (rebuilt
+        # exactly from the big plane: #3's and #4's stacked planes' first)
+        given = planes_of(kargs)
+        fp32 = (tf32_panels(given if len(given) == 2 else given[0]) if highest
+                and any(name not in planes_by_tree[tree] for tree in trees) else None)
         runs = {tree: runner(entry_of(tree_libs, name), op, kargs, stream,
-                             None if tree in takes_planes else fp32)
-                for tree, tree_libs in libs.items()}
+                             None if name in planes_by_tree[tree] or not highest else fp32)
+                for tree, tree_libs in trees.items()}
         first = None
         for tree, run in runs.items():
             if tree.startswith("split:"):
@@ -422,8 +470,9 @@ def main(argv=None) -> int:
         for r in range(args.rounds):
             for tree in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
                 times[tree].append(median_ms(runs[tree], dev, 5, 5))
-        panels = next(t for t in kargs if isinstance(t, torch.Tensor) and t.dim() >= 3)
-        panels = panels[0] if highest else panels  # one TF32 plane: the panels' shape
+        panels = planes_of(kargs)[0]
+        if highest and op.variant in ("uniform", "window"):  # (2, G, TM, W): one plane
+            panels = panels[0]
         gflop = 2.0 * panels.numel() * N / 1e9
         median = {tree: statistics.median(t) for tree, t in times.items()}
         case = f"{label} p={p} {kernel}"
@@ -435,7 +484,7 @@ def main(argv=None) -> int:
                 case=case, matrix=label, p=p, entry=name, variant=op.variant, tree=tree,
                 ms=t, median_ms=median[tree], gflop=gflop, tflops=gflop / median[tree],
                 **bounds, panels=list(panels.shape), n=N, card=card)), flush=True)
-        del op, kargs, plain, runs, fp32
+        del op, kargs, plain, runs, fp32, given, panels
         torch.cuda.empty_cache()
         print(json.dumps(dict(case=case, entry=name, over_this={
             tree: median[tree] / median["this"] for tree in times},

@@ -8,7 +8,10 @@ crp_tpu_torch/kernels/csrc | tar -x -C build/parent``), packs the
 headline (``bench.py``'s banded matrix) at p = 4 with the fused plan at
 ``x3``, ``default`` and ``highest``, n = 256, and times, in turns over
 ``R`` rounds, each tree's one-card entries (``crp_halo_x3``,
-``crp_halo_bf16``, ``crp_halo_f32`` on the stacked B) and this tree's
+``crp_halo_bf16``, ``crp_halo_f32`` on the stacked B; a baseline whose
+``crp_halo_f32`` is still the ``mma.sync`` 3xTF32 body, on fp32 panels
+where this tree's takes the TF32 planes, is left out at highest:
+``f64_ab --point highest`` times it) and this tree's
 entries with the waits across processes (``*_flags``) on the same pack,
 every owner's arrive word already at the launch's epoch: the waits' cost
 where nothing waits.  With ``--variants`` also copies of this tree whose
@@ -116,7 +119,10 @@ def main(argv=None) -> int:
     runs = {}
     for (tree, _), path in libs.items():
         lib = ctypes.CDLL(str(path))
+        mma_sync = "launch_tf32x3" in (jobs[tree][0] / "halo.cu").read_text()
         for prec, entry in ENTRIES.items():
+            if prec == "highest" and mma_sync:  # fp32 panels, not this tree's planes
+                continue
             got = inputs[prec]
             names = ([(entry, False)] if not tree.startswith("variant:") else []) + (
                 [(f"{entry}_flags", True)] if not tree.startswith("baseline:") else [])

@@ -46,18 +46,18 @@ _ENTRIES = {
     "crp_window_f64": ("dd_tc", 4, ("G", "TM", "W", "n")),
     "crp_halo_x3": ("halo", 5, ("G", "TM", "W", "n", "rows16")),
     "crp_halo_bf16": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
-    "crp_halo_f32": ("halo", 4, ("G", "TM", "W", "n", "rows16")),
+    "crp_halo_f32": ("halo", 5, ("G", "TM", "W", "n", "rows16")),
     "crp_halo_f64": ("dd_tc", 4, ("G", "TM", "W", "n", "rows16")),
     "crp_halo_x3_flags": ("halo", 6, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
     "crp_halo_bf16_flags": ("halo", 5, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
-    "crp_halo_f32_flags": ("halo", 5, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
+    "crp_halo_f32_flags": ("halo", 6, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
     "crp_halo_f64_flags": ("dd_tc", 5, ("G", "TM", "W", "n", "rows16", "epoch", "bound_ns")),
     "crp_halo_wait": ("halo", 2, ("n_readers", "need", "bound_ns")),
     "crp_halo_signal": ("halo", 2, ("value",)),
     "crp_halo_done": ("halo", 3, ("value", "c_bytes")),
     "crp_ragged_presplit": ("ragged", 6, ("G", "TM", "Wc", "n")),
     "crp_ragged_bf16": ("ragged", 5, ("G", "TM", "Wc", "n")),
-    "crp_ragged_f32": ("ragged", 5, ("G", "TM", "Wc", "n")),
+    "crp_ragged_f32": ("ragged", 6, ("G", "TM", "Wc", "n")),
     "crp_ragged_f64": ("dd_tc", 5, ("G", "TM", "Wc", "n")),
     "crp_spill_blocks": ("spill", 9, ("n_items", "M", "n", "mode")),
     "crp_gather_blocks": ("spill", 8, ("n_items", "M", "n", "mode")),
@@ -149,18 +149,6 @@ def _report(name: str, symbol: str) -> dict:
     return {k: int(v) for k, v in (kv.split("=") for kv in out.value.decode().split())}
 
 
-def tf32x3_layout(name: str) -> dict:
-    """The ring of the ``mma.sync`` 3xTF32 entry ``name``
-    (``crp_halo_f32`` or ``crp_ragged_f32``; #3's and #4's fp32 entries
-    run the ``wgmma`` body's TF32 mode, in :func:`x3_layout`) as its
-    library's ``crp_tf32x3_layout`` reports it: stages, dynamic shared memory, block
-    tile and, for its kernels with 16-byte (``b16.*``) and 4-byte
-    (``b4.*``) B copies, registers, local (spill) bytes and resident blocks
-    per SM; for ``crp_halo_f32`` also its kernels with the waits across
-    processes (``flag16.*``, ``flag4.*``)."""
-    return _report(name, "crp_tf32x3_layout")
-
-
 def x3_layout(name: str = "crp_window_sg_presplit") -> dict:
     """The rings of the wgmma body in the library of entry ``name`` as its
     ``crp_x3_layout`` reports them: the x3 ring's stages, dynamic shared
@@ -176,11 +164,14 @@ def x3_layout(name: str = "crp_window_sg_presplit") -> dict:
     rows through the chunk table (``halo``: ``crp_halo_x3``'s
     ``chunk16.*``, ``chunk4.*`` and ``crp_halo_bf16``'s one-pass
     ``chunkone16.*``, ``chunkone2.*``; with the waits across processes
-    ``flag16.*``, ``flag4.*``, ``flagone16.*``, ``flagone2.*``), and in
-    ``window_sg`` and ``window`` the TF32 mode of #3 and #4 at highest
-    (its ring: ``tf32.stages``, ``tf32.smem_bytes``, ``tf32.BK``,
-    ``tf32.threads``; its kernels on fp32 B by 16-byte and by plain
-    copies: ``tf32_16.*``, ``tf32_4.*``)."""
+    ``flag16.*``, ``flag4.*``, ``flagone16.*``, ``flagone2.*``), and
+    the TF32 mode at highest (its ring: ``tf32.stages``,
+    ``tf32.smem_bytes``, ``tf32.BK``; its kernels on fp32 B by 16-byte and
+    by plain copies: ``tf32_16.*``, ``tf32_4.*`` for #3 in ``window_sg``,
+    #4 in ``window`` and #6 ``crp_ragged_f32`` with the ragged walk in
+    ``ragged``; in ``halo`` #12's ``crp_halo_f32``, ``chunktf32_16.*``,
+    ``chunktf32_4.*``, and its flagged twin ``flagtf32_16.*``,
+    ``flagtf32_4.*``)."""
     return _report(name, "crp_x3_layout")
 
 

@@ -61,10 +61,12 @@
 //                     RNE when they are packed, and B cast to bf16 by the
 //                     caller, one product: #4's one-pass wgmma body
 //                     (x3_wgmma.cuh, ONE_PASS) with the same chunk lookup
-//   crp_halo_f32   <- HIGHEST: 3xTF32 on the TF32 tensor cores
-//                     (panel_tf32x3_kernel, #6's crp_ragged_f32 body): a
-//                     4-stage cp.async ring, dead chunks zero-filled by
-//                     the copy, three TF32 products per k step
+//   crp_halo_f32   <- HIGHEST: 3xTF32 on the TF32 tensor cores, #4's
+//                     wgmma body in its TF32X3 mode (x3_wgmma.cuh) with the
+//                     same chunk lookup, once a 32-row stage: the panels'
+//                     TF32 big and small planes, split once when they are
+//                     packed (TMA copies bytes; the tensor cores truncate an
+//                     fp32 operand), B split in registers
 //   crp_halo_f64   <- fp64 panels: an entry of dd_tc.cu, #11's DMMA body
 //                     on the FP64 tensor cores (the windowed walk, with the
 //                     chunk lookup, CHUNKED, and the waits, FLAGS, in its
@@ -74,8 +76,9 @@
 // W = 5632, n = 256) a pass is 632 GFLOP: x3's three bf16 passes 1.92 ms
 // at 989 TF/s (over 4.94 GB of hi/lo panels, 1.47 ms at 3.35 TB/s),
 // DEFAULT's one pass 0.64 ms, bound by its 2.47 GB of hi panels (0.74 ms),
-// HIGHEST's three TF32 passes 3.83 ms at 495 TF/s, fp64's one pass 9.43 ms
-// at the FP64 tensor cores' 67 TF/s (over 9.87 GB of panels, 2.95 ms).
+// HIGHEST's three TF32 passes 3.83 ms at 495 TF/s (over 9.87 GB of TF32
+// planes, 2.95 ms), fp64's one pass 9.43 ms at the FP64 tensor cores' 67
+// TF/s (over 9.87 GB of panels, 2.95 ms).
 
 #include "panel_tiles.cuh"
 #include "x3_wgmma.cuh"
@@ -138,11 +141,11 @@ int crp_halo_x3(const void* rows, const void* ws, const void* ah, const void* al
                                                           rows16 != 0);
 }
 
-// the wgmma body's rings and resources, crp_halo_x3's and crp_halo_bf16's
-// (crp::x3_layout)
+// the wgmma body's rings and resources, crp_halo_x3's, crp_halo_bf16's and
+// crp_halo_f32's, each with its flagged twin (crp::x3_layout)
 int crp_x3_layout(char* out, int len)
 {
-    return crp::x3_layout<false, true>(out, len);
+    return crp::x3_layout<false, true, false, true>(out, len);
 }
 
 int crp_halo_bf16(const void* rows, const void* ws, const void* ah, void* c, int64_t G,
@@ -153,17 +156,14 @@ int crp_halo_bf16(const void* rows, const void* ws, const void* ah, void* c, int
                                                           rows16 != 0);
 }
 
-int crp_halo_f32(const void* rows, const void* ws, const void* tiles, void* c, int64_t G,
-                 int64_t TM, int64_t W, int64_t n, int64_t rows16, void* stream)
+// big, small: the (G, TM, W) TF32 planes (see x3_wgmma.cuh)
+int crp_halo_f32(const void* rows, const void* ws, const void* big, const void* small,
+                 void* c, int64_t G, int64_t TM, int64_t W, int64_t n, int64_t rows16,
+                 void* stream)
 {
-    return crp::launch_tf32x3<true>(nullptr, ws, tiles, rows, c, G, TM, W, n, stream, rows,
-                                    rows16 != 0);
-}
-
-// crp_halo_f32's ring and resources (crp::tf32x3_layout)
-int crp_tf32x3_layout(char* out, int len)
-{
-    return crp::tf32x3_layout<true>(out, len);
+    return crp::launch_wgmma<crp::WgMode::TF32X3, true>(ws, big, small, rows, nullptr, c, G,
+                                                         TM, W, n, stream, rows, nullptr,
+                                                         rows16 != 0);
 }
 
 // #12 across processes, the same three entries with the waits (see above):
@@ -191,14 +191,15 @@ int crp_halo_bf16_flags(const void* rows, const void* ws, const void* ah, void* 
         crp::halo_flags(status, epoch, bound_ns));
 }
 
-int crp_halo_f32_flags(const void* rows, const void* ws, const void* tiles, void* c,
-                       void* status, int64_t G, int64_t TM, int64_t W, int64_t n,
-                       int64_t rows16, int64_t epoch, int64_t bound_ns, void* stream)
+int crp_halo_f32_flags(const void* rows, const void* ws, const void* big,
+                       const void* small, void* c, void* status, int64_t G, int64_t TM,
+                       int64_t W, int64_t n, int64_t rows16, int64_t epoch,
+                       int64_t bound_ns, void* stream)
 {
     if ((uintptr_t)rows % 16) return (int)cudaErrorMisalignedAddress;
-    return crp::launch_tf32x3<true, true>(nullptr, ws, tiles, rows, c, G, TM, W, n, stream,
-                                          rows, rows16 != 0,
-                                          crp::halo_flags(status, epoch, bound_ns));
+    return crp::launch_wgmma<crp::WgMode::TF32X3, true, false, true>(
+        ws, big, small, rows, nullptr, c, G, TM, W, n, stream, rows, nullptr, rows16 != 0,
+        crp::halo_flags(status, epoch, bound_ns));
 }
 
 // Before this rank overwrites its B: one thread waits until each of the

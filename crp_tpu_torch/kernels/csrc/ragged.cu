@@ -24,9 +24,10 @@
 //                           bf16 by the caller): the same body's one-pass
 //                           mode (#2's), with the same walk
 //   crp_ragged_f32       <- _ragged_kernel at HIGHEST on fp32: 3xTF32 on
-//                           the TF32 tensor cores (panel_tf32x3_kernel, the
-//                           body of #12 at highest, walking each group's
-//                           chunks), held to the fp32 plain version
+//                           the TF32 tensor cores, the same body's TF32X3
+//                           mode (#3's) with the same walk, on the panels'
+//                           TF32 big and small planes, split once when they
+//                           are packed; held to the fp32 plain version
 // The fp64 entry, crp_ragged_f64 (replacing _ragged_kernel on fp64), is in
 // dd_tc.cu: #11's DMMA body on the FP64 tensor cores with its ragged walk,
 // bound by its products (2 S TM Wc n at 67 TFLOP/s).
@@ -37,9 +38,8 @@
 // Here one block owns one (128-row slice of a group, n-tile) and walks the
 // group's chunks itself; the k-slices of all its chunks form one loop,
 // each slice's products summed in a fresh accumulator and added with IEEE
-// fp32 adds.  Both rings (the wgmma body's TMA ring, the 3xTF32 body's
-// cp.async ring) run across chunk boundaries: a hub group's many chunks
-// and a dummy chunk are stages like any other.
+// fp32 adds.  The wgmma body's TMA ring runs across chunk boundaries: a hub
+// group's many chunks and a dummy chunk are stages like any other.
 //
 // What bounds it on an H100 at the cplaw power-law point (786,432 rows,
 // (TM, Wc) = (512, 128), S = 12,322 chunks, n = 256): at x3 the bytes, 3.23
@@ -51,10 +51,11 @@
 // epilogue) weigh more than on the windowed packs.  A persistent grid that
 // overlapped them (tiles gridDim.x apart) measured 52% slower: the tiles
 // that share a group's B chunks no longer ran side by side, and B came
-// from HBM instead of L2.  At highest the three TF32 products of the fp32 panels (3 x 412
-// GFLOP at 495 TF/s, 2.5 ms) bound it, not their 3.2 GB (0.96 ms): the n
-// tiles of one panel slice run on neighbouring blocks, so its later reads
-// come from L2.
+// from HBM instead of L2.  At highest ((TM, Wc) = (256, 128): chunks of
+// four 32-row stages) the three TF32 products (3 x 412 GFLOP at
+// 495 TF/s, 2.5 ms) bound it, not its bytes: about 6.5 GB of TF32 planes,
+// B and C (1.9 ms); the n tiles of one panel slice run on neighbouring
+// blocks, so its later reads come from L2.
 
 #include "panel_tiles.cuh"
 #include "x3_wgmma.cuh"
@@ -78,26 +79,20 @@ int crp_ragged_bf16(const void* group_ptr, const void* starts, const void* ah,
         starts, ah, nullptr, bh, nullptr, c, G, TM, Wc, n, stream, nullptr, group_ptr);
 }
 
-// the wgmma body's rings and resources, x3 (#7) and one-pass (#8)
-// (crp::x3_layout)
+// the wgmma body's rings and resources, x3 (#7), one-pass (#8) and TF32
+// (#6) (crp::x3_layout)
 int crp_x3_layout(char* out, int len)
 {
-    return crp::x3_layout<false, false, true>(out, len);
+    return crp::x3_layout<false, false, true, true>(out, len);
 }
 
-int crp_ragged_f32(const void* group_ptr, const void* starts,
-                   const void* panels, const void* b, void* c, int64_t G,
-                   int64_t TM, int64_t Wc, int64_t n, void* stream)
+// big, small: the (S, TM, Wc) TF32 planes (see x3_wgmma.cuh)
+int crp_ragged_f32(const void* group_ptr, const void* starts, const void* big,
+                   const void* small, const void* b, void* c, int64_t G, int64_t TM,
+                   int64_t Wc, int64_t n, void* stream)
 {
-    if (!group_ptr) return (int)cudaErrorInvalidValue;
-    return crp::launch_tf32x3<false>(group_ptr, starts, panels, b, c, G, TM, Wc, n,
-                                     stream);
-}
-
-// crp_ragged_f32's ring and resources (crp::tf32x3_layout)
-int crp_tf32x3_layout(char* out, int len)
-{
-    return crp::tf32x3_layout<false>(out, len);
+    return crp::launch_wgmma<crp::WgMode::TF32X3, false, true>(
+        starts, big, small, b, nullptr, c, G, TM, Wc, n, stream, nullptr, group_ptr);
 }
 
 const char* crp_error_string(int code)

@@ -7,10 +7,12 @@
 // the default entries: the super-grouped #2 (crp_window_sg_bf16) in
 // window_sg.cu, #4 (crp_window_bf16) in window.cu, #12 (crp_halo_bf16) in
 // halo.cu and the ragged #8 (crp_ragged_bf16) in ragged.cu; at highest on
-// fp32 panels, three TF32 products (TF32X3, below): the super-grouped #3
-// (crp_window_sg_f32) in window_sg.cu and #4 (crp_window_f32) in
-// window.cu.  The kernel's MODE (WgMode below) picks the products, CHUNKED
-// and RAGGED the walk.
+// fp32 data, three TF32 products on the panels' TF32 planes (TF32X3,
+// below): the super-grouped #3 (crp_window_sg_f32) in window_sg.cu, #4
+// (crp_window_f32) in window.cu, #12 (crp_halo_f32, crp_halo_f32_flags)
+// in halo.cu and the ragged #6 (crp_ragged_f32) in ragged.cu.  The
+// kernel's MODE (WgMode below) picks the products, CHUNKED and RAGGED the
+// walk; every mode takes every walk but PAIR_B (#5's alone).
 //
 // A uniform pack: group g holds the bf16 hi and lo (TM, W) panels of A
 // over the B rows [ws[g], ws[g] + W), and
@@ -26,13 +28,14 @@
 // nor round), the same RNE split the TPU kernels make of their fp32 panels
 // on every read.
 //
-// With CHUNKED (#12, x3 and one pass) B lives in its owners' shards and
+// With CHUNKED (#12 at every point) B lives in its owners' shards and
 // chunk_src is a table of pointers, one per HALO_TK-row chunk of B: the
 // chunk's first row in its owner's shard, null past the matrix (b only a
-// valid address).  Every window start is a multiple of HALO_TK, so a 64-row
-// stage never straddles two chunks: the producer loads its stage's pointer
-// once, before it waits for the stage to free, so that the load's latency
-// hides under the wait.  The other kernels compile without the lookup.
+// valid address).  Every window start is a multiple of HALO_TK, so a stage
+// (64 rows, or TF32X3's 32: a chunk is two stages or four) never straddles
+// two chunks: the producer loads its stage's pointer once, before it waits
+// for the stage to free, so that the load's latency hides under the wait.
+// The other kernels compile without the lookup.
 //
 // With FLAGS (#12 across processes) the owners are other ranks' buffers
 // and chunk_src holds (row pointer, arrive word) pairs, the word its
@@ -46,13 +49,14 @@
 // stage's 1 + 32 arrivals and the consumers never wait on a stage that
 // does not come; the caller's done kernel turns C into NaN.
 //
-// With RAGGED (#7, #8) the panels are a ragged pack's (S, TM, W) chunks:
-// group g owns the chunks s in [group_ptr[g], group_ptr[g + 1]), chunk s
-// over the B rows [ws[s], ws[s] + W), and C[g*TM + r, j] sums the mode's
-// products over all of g's chunks.  A block walks its group's chunks as one run of ceil(W / 64) stages
-// each, the ring's stage index running straight across chunk boundaries:
-// stage k of chunk s is the box at column 64 k, row s*TM + (row0 - g*TM)
-// of the (S*TM, W) view, over B rows ws[s] + 64 k.  TM % 128 == 0, so a
+// With RAGGED (#7, #8, and #6 at highest) the panels are a ragged pack's
+// (S, TM, W) chunks: group g owns the chunks s in [group_ptr[g],
+// group_ptr[g + 1]), chunk s over the B rows [ws[s], ws[s] + W), and
+// C[g*TM + r, j] sums the mode's products over all of g's chunks.  A block
+// walks its group's chunks as one run of ceil(W / BK) stages each (BK = 64,
+// TF32X3's 32), the ring's stage index running straight across chunk
+// boundaries: stage k of chunk s is the box at column BK k, row s*TM +
+// (row0 - g*TM) of the (S*TM, W) view, over B rows ws[s] + BK k.  TM % 128 == 0, so a
 // box never straddles two chunks; dummy chunks (zero panels at start 0)
 // are walked like any other, and the pack's group_ptr stops short of a
 // shard's trailing no-op steps.  The other kernels compile without it.
@@ -69,21 +73,22 @@
 // slice's adds with its products (two fresh partials in turn,
 // wgmma.wait_group 1) bought under 1% when measured (PERF.md).
 //
-// TF32X3 (#3, #4 at highest): C[g*TM + r, j] = sum_k (as*bb + ab*bs +
-// ab*bb)[r, k, j] with both operands split to TF32 big/small as
+// TF32X3 (#3, #4, #12, #6 at highest): C[g*TM + r, j] = sum_k (as*bb +
+// ab*bs + ab*bb)[r, k, j] with both operands split to TF32 big/small as
 // split_tf32 (panel_tiles.cuh) splits them: big rounded as cvt.rna rounds,
 // small the same rounding of the exact remainder, the three products of
-// panel_tiles.cuh's 3xTF32 path.  TF32 wgmma is m64nNk8 and takes its
+// panel_tiles.cuh's TF32 split.  TF32 wgmma is m64nNk8 and takes its
 // shared-memory operand K-major only, so the transposed product below is
 // forced.  The tensor cores read the top 19 bits of an fp32 shared-memory
 // operand, a truncation, and TMA copies bytes, so the panels arrive split:
 // the pack holds two fp32 planes of the operand bits split_tf32 hands the
 // tensor cores (big: x + half a TF32 ulp, which the truncation turns into
 // cvt.rna's value; small: the same of the remainder), split once at init
-// (device_pack's "tf32" mode), the small plane G*TM*W floats after the big
-// one.  A 128-byte swizzle row holds 32 fp32 values: one TMA box is (128
-// rows x 32 k), and a stage, one 32-row fresh-accumulator slice, holds the
-// big and the small tile and 32 rows of fp32 B, 4 stages deep.  Per slice
+// (device_pack's "tf32" mode; #3's and #4's entries take the small plane
+// G*TM*W floats after the big one, #12's and #6's the two planes apart).
+// A 128-byte swizzle row holds 32 fp32 values: one TMA box is (128 rows x
+// 32 k), and a stage, one 32-row fresh-accumulator slice, holds the big and
+// the small tile and 32 rows of fp32 B, 4 stages deep.  Per slice
 // the consumers run twelve wgmma.m64n128k8, three per k8 step, small terms
 // first, in two groups of six (the fragments of two k8 steps at a time,
 // as x3's per slice: ptxas gives the block 168 registers a thread).  B's k
@@ -144,8 +149,10 @@
 // walks 8 chunks of 2 stages on average, against 88 stages at the headline,
 // so its fixed costs (barrier init, filling the ring, the C epilogue) weigh
 // about 5x more.  TF32X3: three TF32 passes at 495 TF/s, 3.81 ms at the
-// p = 1 headline (#3) over 4.91 GB of fp32 panels (1.47 ms), 0.96 ms on one
-// p = 4 shard (#4) over 1.23 GB: the products bound it.
+// p = 1 headline (#3) over 9.82 GB of TF32 planes (2.93 ms), 0.96 ms on one
+// p = 4 shard (#4) over 2.47 GB, 3.83 ms over all four (#12) over 9.87 GB
+// (2.95 ms), 2.50 ms at cplaw's highest ragged pack (#6: 4 stages a chunk)
+// over about 6.5 GB (1.9 ms): the products bound it.
 
 #pragma once
 
@@ -174,8 +181,8 @@ static_assert(X3_BN * X3_SLICE * 4 == X3_A_TILE, "a 128 x 32 fp32 tile: a bf16 t
 // registers (SPLIT_B: #1, #4, #12, #7) or on B pre-split to two bf16 planes
 // (PAIR_B: #5), or one bf16 product of the hi panels and a bf16 B
 // (ONE_PASS: #2, #4, #12, #8), or three TF32 products of the panels' TF32
-// big/small planes and fp32 B split in registers (TF32X3: #3, #4 at
-// highest)
+// big/small planes and fp32 B split in registers (TF32X3: #3, #4, #12, #6
+// at highest)
 enum class WgMode { SPLIT_B, PAIR_B, ONE_PASS, TF32X3 };
 
 // The ring of a mode: a stage holds the hi tile (and x3's lo tile), then
@@ -519,7 +526,6 @@ x3_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
     static_assert(!FLAGS || CHUNKED, "the flags gate the chunk lookup");
     static_assert(!(RAGGED && (CHUNKED || MODE == WgMode::PAIR_B)),
                   "the ragged walk serves #7 (SPLIT_B) and #8 (ONE_PASS)");
-    static_assert(!(Ring::TF32 && (CHUNKED || RAGGED)), "TF32X3 serves #3 and #4");
     extern __shared__ __align__(16) uint8_t x3_smem_raw[];
     uint8_t* const smem =
         x3_smem_raw + ((1024 - (smem_u32(x3_smem_raw) & 1023)) & 1023);
@@ -780,7 +786,7 @@ cudaError_t x3_prepare()
 // SPLIT_B: b is fp32 B; PAIR_B: b is B's bf16 hi plane and b_lo its lo
 // plane (split_b_bf16); ONE_PASS: b is B cast to bf16, and al and b_lo are
 // not read; TF32X3: ah and al are the panels' big and small planes
-// (fp32), b fp32 B, and b_lo is not read.  The panels must be 16-byte
+// (fp32, each of the panels' shape), b fp32 B, and b_lo is not read.  The panels must be 16-byte
 // aligned (TMA); B of any alignment
 // (16-byte copies where n and B allow them).  CHUNKED: B's rows come
 // through chunk_src's row pointers (see above), every ws is a multiple of
@@ -795,9 +801,9 @@ int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
                  void* stream, const void* chunk_src = nullptr,
                  const void* group_ptr = nullptr, bool rows16 = false, HaloFlags flags = {})
 {
-    // a stage starts a multiple of X3_BK rows past a HALO_TK-aligned window
+    // a stage starts a multiple of BK rows past a HALO_TK-aligned window
     // start: it lies in one B chunk
-    static_assert(HALO_TK % X3_BK == 0, "a 64-row stage never straddles two B chunks");
+    static_assert(HALO_TK % WgRing<MODE>::BK == 0, "a stage never straddles two B chunks");
     constexpr bool ONE = WgRing<MODE>::ONE, TF32 = WgRing<MODE>::TF32;
     if (G < 0 || TM <= 0 || TM % X3_BN || W <= 0 || W % X3_SLICE || n < 0
         || (CHUNKED && !chunk_src) || (RAGGED && !group_ptr))
@@ -813,8 +819,16 @@ int launch_wgmma(const void* ws, const void* ah, const void* al, const void* b,
     // every row a 32-bit box coordinate reaches; group_ptr, trusted as by
     // every ragged kernel, keeps each box inside the S TM rows of the pack
     const int64_t rows = RAGGED ? 0x7fffffff : G * TM;
+    // cuTensorMapEncodeTiled makes the maps and needs a context current on
+    // this thread; a thread that has made no runtime call yet (autograd's
+    // device thread, in a backward) has none, so bind the current device's
+    // primary context first (CUDA 12's cudaSetDevice does, with no sync)
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaSetDevice(dev);
+    if (e != cudaSuccess) return (int)e;
     CUtensorMap hi, lo;
-    cudaError_t e = panel_map(&hi, ah, rows, W, TF32);
+    e = panel_map(&hi, ah, rows, W, TF32);
     if (e == cudaSuccess) e = panel_map(&lo, ONE ? ah : al, rows, W, TF32);
     if (e != cudaSuccess) return (int)e;
     const bool fp32_b = MODE == WgMode::SPLIT_B || TF32;
@@ -855,11 +869,13 @@ cudaError_t x3_resources(const char* copy, char* out, int len)
 // one-pass ring ("one.stages", "one.smem_bytes") and its kernels "one16"
 // and "one2" (#2, #4 or with RAGGED #8, the bf16 B plane by 16-byte copies
 // or by plain 2-byte loads), with CHUNKED "chunkone16" and "chunkone2" in
-// their place (#12 at default); with CHUNKED, last, the same four with the
+// their place (#12 at default); with CHUNKED, then, the same four with the
 // waits of #12 across processes: "flag16", "flag4", "flagone16", "flagone2";
-// with TF32 (window_sg.cu, window.cu) the TF32X3 ring ("tf32.stages",
-// "tf32.smem_bytes", "tf32.BK") and its kernels "tf32_16" and "tf32_4"
-// (#3 or #4 at highest, fp32 B by 16-byte copies or by plain loads)
+// with TF32 the TF32X3 ring ("tf32.stages", "tf32.smem_bytes", "tf32.BK")
+// and its kernels "tf32_16" and "tf32_4" (#3, #4 or with RAGGED #6 at
+// highest, fp32 B by 16-byte copies or by plain loads), with CHUNKED
+// "chunktf32_16", "chunktf32_4", "flagtf32_16" and "flagtf32_4" in their
+// place (#12 at highest, on one card and across processes)
 template <bool SG, bool CHUNKED, bool RAGGED = false, bool TF32 = false>
 inline int x3_layout(char* out, int len)
 {
@@ -878,7 +894,7 @@ inline int x3_layout(char* out, int len)
     using Report = cudaError_t (*)(const char*, char*, int);
     struct Kernel { const char* copy; Report report; };
     constexpr WgMode SPLIT = WgMode::SPLIT_B, ONE = WgMode::ONE_PASS;
-    Kernel kernels[10] = {
+    Kernel kernels[12] = {
         {CHUNKED ? "chunk16" : "b16", x3_resources<SPLIT, true, CHUNKED, RAGGED>},
         {CHUNKED ? "chunk4" : "b4", x3_resources<SPLIT, false, CHUNKED, RAGGED>}};
     int count = 2;
@@ -896,9 +912,15 @@ inline int x3_layout(char* out, int len)
         kernels[count++] = {"flagone16", x3_resources<ONE, true, true, false, true>};
         kernels[count++] = {"flagone2", x3_resources<ONE, false, true, false, true>};
     }
-    if constexpr (TF32) {
-        kernels[count++] = {"tf32_16", x3_resources<WgMode::TF32X3, true>};
-        kernels[count++] = {"tf32_4", x3_resources<WgMode::TF32X3, false>};
+    constexpr WgMode TF = WgMode::TF32X3;
+    if constexpr (TF32 && CHUNKED) {
+        kernels[count++] = {"chunktf32_16", x3_resources<TF, true, true>};
+        kernels[count++] = {"chunktf32_4", x3_resources<TF, false, true>};
+        kernels[count++] = {"flagtf32_16", x3_resources<TF, true, true, false, true>};
+        kernels[count++] = {"flagtf32_4", x3_resources<TF, false, true, false, true>};
+    } else if constexpr (TF32) {
+        kernels[count++] = {"tf32_16", x3_resources<TF, true, false, RAGGED>};
+        kernels[count++] = {"tf32_4", x3_resources<TF, false, false, RAGGED>};
     }
     for (int i = 0; i < count; ++i) {
         const cudaError_t e = kernels[i].report(kernels[i].copy, out + used, len - used);

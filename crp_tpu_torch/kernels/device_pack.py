@@ -10,10 +10,11 @@ split is bit-identical to the native ``split_bf16_one``
 same panels in both packages (``tests/test_torch_device_pack.py``,
 ``tests/test_torch_ragged.py``).  In the bf16 modes the panels are
 densified slab by slab through one reused fp32 buffer, so the fp32 panels
-never exist whole beside their bf16 planes.  The uniform packs of #3 and
-#4 at ``highest`` densify the same way to two fp32 planes, the operand
-bits of the TF32 split (``"tf32"`` mode, :func:`tf32_operands`): TMA
-copies bytes, and the tensor cores truncate an fp32 operand.
+never exist whole beside their bf16 planes.  Every fp32 panel pack at
+``highest`` (#3's and #4's uniform packs, #12's halo plan, #6's ragged
+pack) densifies the same way to two fp32 planes, the operand bits of the
+TF32 split (``"tf32"`` mode, :func:`tf32_operands`): TMA copies bytes,
+and the tensor cores truncate an fp32 operand.
 """
 
 from __future__ import annotations
@@ -31,24 +32,15 @@ MODES = ("pair", "bf16", "tf32", "f32", "f64")
 
 def panel_mode(dtype, precision: str) -> str:
     """The densify mode of a pack of ``dtype`` at operating point
-    ``precision``: on fp32 the bf16 hi/lo pair at ``x3`` and the hi plane at
-    ``default``, the operands of the ``wgmma`` body (fed by TMA, which copies
-    and can neither split nor round); fp32 panels at ``highest``, fp64
-    panels in fp64."""
+    ``precision``: on fp32 the operands of the ``wgmma`` body (fed by TMA,
+    which copies and can neither split nor round), the bf16 hi/lo pair at
+    ``x3``, the hi plane at ``default`` and the TF32 planes at ``highest``;
+    fp64 panels in fp64."""
     if np.dtype(dtype) == np.float64:
         return "f64"
     if np.dtype(dtype) == np.float32:
-        return {"x3": "pair", "default": "bf16"}.get(precision, "f32")
+        return {"x3": "pair", "default": "bf16", "highest": "tf32"}.get(precision, "f32")
     return "f32"
-
-
-def window_mode(dtype, precision: str) -> str:
-    """The densify mode of #3's and #4's uniform packs: :func:`panel_mode`,
-    but on fp32 at ``highest`` the TF32 planes (``"tf32"``) that the
-    ``wgmma`` body's TF32 mode reads (#6's ragged packs and #12's halo
-    plans keep fp32 panels: their body splits as it reads)."""
-    mode = panel_mode(dtype, precision)
-    return "tf32" if mode == "f32" and precision == "highest" else mode
 
 
 def tf32_operands(x: torch.Tensor, big: torch.Tensor, small: torch.Tensor) -> None:
@@ -67,19 +59,46 @@ def tf32_operands(x: torch.Tensor, big: torch.Tensor, small: torch.Tensor) -> No
     si.add_(0x1000)
 
 
+def _split_into(x: torch.Tensor, big: torch.Tensor, small: torch.Tensor) -> None:
+    """:func:`tf32_operands` of ``x`` into ``big`` and ``small`` (flat, x's
+    size) in steps of ``_SPLIT_CHUNK`` elements."""
+    x = x.reshape(-1)
+    for j in range(0, x.numel(), _SPLIT_CHUNK):
+        s = slice(j, j + _SPLIT_CHUNK)
+        tf32_operands(x[s], big[s], small[s])
+
+
 def tf32_planes(panels: torch.Tensor) -> torch.Tensor:
     """fp32 stacked panels ``(p, G, TM, W)`` -> their TF32 planes ``(p,
     2, G, TM, W)`` (:func:`tf32_operands`; shard i's big plane then its
-    small one, as #3's and #4's entries take them), in steps of
-    ``_SPLIT_CHUNK`` elements."""
+    small one, as #3's and #4's entries take them)."""
     out = torch.empty((panels.shape[0], 2, *panels.shape[1:]), dtype=torch.float32,
                       device=panels.device)
     for i in range(panels.shape[0]):
-        x, big, small = panels[i].reshape(-1), out[i, 0].view(-1), out[i, 1].view(-1)
-        for j in range(0, x.numel(), _SPLIT_CHUNK):
-            s = slice(j, j + _SPLIT_CHUNK)
-            tf32_operands(x[s], big[s], small[s])
+        _split_into(panels[i], out[i, 0].view(-1), out[i, 1].view(-1))
     return out
+
+
+def tf32_pair(panels: torch.Tensor) -> tuple:
+    """fp32 panels -> their TF32 planes as two tensors of the panels'
+    shape, ``(big, small)`` (:func:`tf32_operands`), as #12's and #6's
+    entries take them."""
+    big, small = (torch.empty(panels.shape, dtype=torch.float32, device=panels.device)
+                  for _ in range(2))
+    _split_into(panels, big.view(-1), small.view(-1))
+    return big, small
+
+
+def zero_panels(planes, mode: str) -> None:
+    """Fill ``planes`` (one pack's, in ``mode``) with those of all-zero
+    panels: zeros, but in "tf32" the split of 0, whose bits are half a TF32
+    ulp (:func:`tf32_operands`; the tensor cores read 0), so that the fp32
+    panels come back from the big plane exactly there too."""
+    for t in planes:
+        if mode == "tf32":
+            t.view(torch.int32).fill_(0x1000)
+        else:
+            t.zero_()
 
 
 def split_bf16(t: torch.Tensor, with_lo: bool):
@@ -106,7 +125,7 @@ def uniform_fill(rowptr64, cc, v, nrow, TM, W, G_sg, ws_shard, mode, device):
     return ws[0], ah[0], None if al is None else al[0]
 
 
-def uniform_fill_stacked(shards, ws_shards, TM, W, G, mode, device, keep=None):
+def uniform_fill_stacked(shards, ws_shards, TM, W, G, mode, device, keep=None, out=None):
     """Densify shards into ``(p, G, TM, W)`` panels at a shared window
     width ``W`` and group count ``G`` on ``device`` (the uniform packs; the
     multi-shard one is ``crp_tpu/kernels/dispatch.py:637-668``).
@@ -114,13 +133,15 @@ def uniform_fill_stacked(shards, ws_shards, TM, W, G, mode, device, keep=None):
     ``shards`` are ``(rowptr, cc, v)``; ``ws_shards[i]`` is shard i's
     window starts, None for an empty shard (all-zero panels, ``ws`` 0).
     ``mode``: "pair" (x3 hi/lo bf16), "bf16" (1-pass), "tf32" (the TF32
-    planes, ``(p, 2, G, TM, W)``), "f32" / "f64" (full-precision panels).
+    planes, ``(p, 2, G, TM, W)``, or into ``out``), "f32" / "f64"
+    (full-precision panels).
     Duplicate entries add, as ``np.add.at`` does in the JAX host pack
     (``spmm_pallas.py:181``).  Returns ``(ws (p, G) int32, ah, al_or_None)``
     (``ah`` the planes in "tf32"); pad groups past a shard's own have zero
     panels and ``ws`` 0.  ``keep``: the one shard whose panels are
     densified, ``(1, G, TM, W)`` (a mesh rank's slice); every shard's
-    ``ws`` and column check all the same.
+    ``ws`` and column check all the same.  ``out``: the planes to fill (as
+    :func:`_densify` takes them), else new ones.
     """
     if mode not in MODES:
         raise ValueError(f"unknown densify mode {mode!r}")
@@ -152,7 +173,8 @@ def uniform_fill_stacked(shards, ws_shards, TM, W, G, mode, device, keep=None):
         vals.append(np.asarray(v[:nnz], dtype=val_dtype))
     flat = np.concatenate(flats) if flats else np.zeros(0, np.int64)
     val = np.concatenate(vals) if vals else np.zeros(0, val_dtype)
-    ah, al = _densify(flat, val, (p if keep is None else 1, G, TM, W), mode, device)
+    ah, al = _densify(flat, val, (p if keep is None else 1, G, TM, W), mode, device,
+                      out=out)
     return ws, ah, al
 
 
@@ -172,8 +194,10 @@ def _slabs(cuts, per: int) -> np.ndarray:
 def _densify(flat, vals, shape, mode, device, cuts=None, out=None):
     """Scatter-add ``vals`` at ``flat`` into zeroed panels of ``shape`` on
     ``device`` (duplicates add, as the JAX host packs' ``+=``), then split
-    per ``mode``: (panels, None) for "f32"/"f64", (planes, None) for
-    "tf32" (``(shape[0], 2, *shape[1:])``), (ah, al_or_None) else.
+    per ``mode``: (panels, None) for "f32"/"f64"; for "tf32" (planes, None),
+    the stacked ``(shape[0], 2, *shape[1:])`` planes of #3 and #4, or, with
+    ``out`` two tensors of ``shape``, (big, small), #12's and #6's; (ah,
+    al_or_None) else.
 
     "f32"/"f64" scatter once: the panels are the output.  The split modes
     never hold the whole fp32 tensor: slab by slab of whole panels (at most
@@ -185,7 +209,8 @@ def _densify(flat, vals, shape, mode, device, cuts=None, out=None):
     nonzeros of the panels below a cut all precede, in ``flat``, those at
     or past it, so ``np.searchsorted`` finds each slab's run of ``flat``.
     ``out``: the planes to fill, of ``shape`` (a shard's view of a stacked
-    pack), else new ones."""
+    pack; "tf32": the stacked planes, or big and small apart), else new
+    ones (the stacked planes in "tf32")."""
     if mode in ("f32", "f64"):
         t = out[0] if out is not None else torch.empty(
             shape, dtype=torch.float64 if mode == "f64" else torch.float32, device=device)
@@ -199,9 +224,10 @@ def _densify(flat, vals, shape, mode, device, cuts=None, out=None):
     elif out is None:
         out = tuple(torch.empty(shape, dtype=torch.bfloat16, device=device)
                     for _ in range(2 if mode == "pair" else 1))
-    if tf32:  # (shards, big/small, elements of a shard)
-        planes = out[0].view(out[0].shape[0], 2, -1)
-        size = planes.shape[2]
+    if tf32 and len(out) == 2:  # big and small apart: one run of elements
+        segs = [(out[0].view(-1), out[1].view(-1))]
+    elif tf32:  # (shards, big/small, elements of a shard)
+        segs = [(x[0], x[1]) for x in out[0].view(out[0].shape[0], 2, -1)]
     else:
         ah, al = out[0].view(-1), (out[1].view(-1) if mode == "pair" else None)
     per = int(np.prod(shape[-2:]))  # elements of one panel
@@ -214,16 +240,18 @@ def _densify(flat, vals, shape, mode, device, cuts=None, out=None):
         x = buf[: hi - lo].zero_()
         x.index_put_((torch.from_numpy(flat[i0:i1] - lo).to(device),),
                      torch.from_numpy(vals[i0:i1]).to(device), accumulate=True)
-        if tf32:  # the slab's run of each shard it spans
+        if tf32:  # the slab's run of each segment it spans
+            size = segs[0][0].numel()
             for i in range(int(lo) // size, (int(hi) - 1) // size + 1):
                 a, b = max(int(lo), i * size), min(int(hi), (i + 1) * size)
-                tf32_operands(x[a - lo: b - lo], planes[i, 0, a - i * size: b - i * size],
-                              planes[i, 1, a - i * size: b - i * size])
+                big, small = segs[i]
+                tf32_operands(x[a - lo: b - lo], big[a - i * size: b - i * size],
+                              small[a - i * size: b - i * size])
         else:
             ah[lo:hi].copy_(x)  # RNE, as x.to(torch.bfloat16)
             if al is not None:
                 al[lo:hi].copy_(x.sub_(ah[lo:hi]))  # the exact remainder, rounded
-    return out[0], (out[1] if mode == "pair" else None)
+    return out[0], (out[1] if len(out) == 2 else None)
 
 
 def ragged_place(rowptr64, cc, v, TM, Wc, starts, group_ptr, mode) -> tuple:
@@ -275,8 +303,9 @@ def ragged_fill(rowptr64, cc, v, TM, Wc, starts, group_ptr, mode, device, out=No
     the rest spill, in CSR order.  The chunks are the first
     ``group_ptr[-1]`` of ``starts``; steps past them (the no-op steps that
     pad a shard to a common S) keep zero panels.  ``mode`` as in
-    :func:`uniform_fill`; ``out`` as in :func:`_densify` (the bf16 modes
-    densify group by group: a group's chunks are one run of panels).
+    :func:`uniform_fill`; ``out`` as in :func:`_densify` (the split modes
+    densify group by group: a group's chunks are one run of panels; in
+    "tf32" ``out`` is the big and the small plane, each ``(S, TM, Wc)``).
     Returns ``(ah_or_panels, al_or_None, (sp_rows, sp_cols, sp_vals))``
     with spill rows relative to the shard, int32, and values in fp64 for
     "f64", fp32 otherwise.

@@ -600,7 +600,7 @@ def _pack_window(shards, max_m, dtype, mxu_precision, device, rank=None):
         raise UnsupportedSparsity("all shards empty")
     G = max(max(g[2] for g in real), -(-max_m // TM))
     W, _, _ = choose_chunks(max(g[1] for g in real))
-    mode = device_pack.window_mode(dtype, mxu_precision)
+    mode = device_pack.panel_mode(dtype, mxu_precision)
     ws, ah, al = device_pack.uniform_fill_stacked(
         shards, [None if g is None else g[0] for g in got], TM, W, G, mode, device,
         keep=rank,
@@ -707,9 +707,12 @@ class RaggedOp:
     row-ordered view (vcols, vvals, items, parts; :func:`_row_views`),
     which its kernel reads; ``spill_tmo`` is that spill's block height
     TMo.  ``scheme``
-    picks the ragged kernel: ``"x3"`` (ah, al), ``"bf16"`` (ah), ``"full"``
-    (fp32 panels on three TF32 products, fp64 on the FP64 tensor cores)
-    or ``"dd"`` (fp64
+    picks the ragged kernel: ``"x3"`` (ah, al), ``"bf16"`` (ah), ``"tf32"``
+    (big, small: fp32 at ``highest``, the panels split to their TF32
+    planes once at pack time, ``device_pack.tf32_operands``, each ``(S,
+    TM, Wc)`` a shard, which the kernel takes as one ``(big, small)``
+    argument; three TF32 products on the ``wgmma`` body's TF32 mode),
+    ``"full"`` (fp64 panels on the FP64 tensor cores) or ``"dd"`` (fp64
     panels of the ``dd_mxu`` total cover, FP64 tensor cores; its variant
     is ``"dd_mxu"``).  ``spill_impl``:
     ``"none"``, ``"segsum"`` (rows, cols, vals; the ``segsum`` kind's
@@ -730,7 +733,7 @@ class RaggedOp:
 
     @property
     def n_panels(self) -> int:
-        return 2 if self.scheme == "x3" else 1
+        return 2 if self.scheme in ("x3", "tf32") else 1
 
     @property
     def kernel(self):
@@ -738,6 +741,7 @@ class RaggedOp:
         return {
             "x3": spmm_ragged_presplit,
             "bf16": spmm_ragged_bf16,
+            "tf32": spmm_ragged,
             "full": spmm_ragged,
             "dd": spmm_ragged_dd,
         }[self.scheme]
@@ -748,6 +752,7 @@ class RaggedOp:
         return {
             "x3": spmm_ragged_presplit_plain,
             "bf16": spmm_ragged_bf16_plain,
+            "tf32": spmm_ragged_plain,
             "full": spmm_ragged_plain,
             "dd": spmm_ragged_plain,
         }[self.scheme]
@@ -766,9 +771,13 @@ class RaggedOp:
 
     def kernel_args(self, arrs, rB) -> tuple:
         """Positional args of :attr:`kernel` and :attr:`plain` for one
-        shard's ``arrs`` and receive buffer ``rB``."""
+        shard's ``arrs`` and receive buffer ``rB`` (the TF32 planes as one
+        ``(big, small)`` argument)."""
         b = rB.to(torch.bfloat16) if self.scheme == "bf16" else rB
-        return (arrs[0], self._ptrs(arrs)[0], arrs[2], *arrs[3 : 3 + self.n_panels], b)
+        panels = arrs[3 : 3 + self.n_panels]
+        if self.scheme == "tf32":
+            panels = (tuple(panels),)
+        return (arrs[0], self._ptrs(arrs)[0], arrs[2], *panels, b)
 
     def spill_args(self, arrs, c, rB) -> tuple:
         """Positional args of :attr:`spill_kernel` and :attr:`spill_plain`
@@ -861,7 +870,12 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     UnsupportedSparsity when the covers keep under 30% of all nonzeros in
     panels; where the covers' own counts settle that, before any panel is
     filled.  ``rank``: a mesh rank's slice (:func:`pack_local_kernel`); the
-    other shards' spills come from their host placement alone.
+    other shards' spills come from their host placement alone.  The panels
+    are densified on the device straight to what the kernel reads: on fp32
+    the bf16 hi/lo pair at ``x3``, the hi plane at ``default`` and the TF32
+    planes at ``highest`` (two ``(p, S, TM, Wc)`` tensors, big and small,
+    ``device_pack.tf32_operands``), slab by slab; the cap prices fp32
+    all the same, as JAX's pack does, and ``a_bytes`` counts what is held.
     """
     if spill_impl not in SPILL_IMPLS:
         raise ValueError(f"spill_impl={spill_impl!r} not in {SPILL_IMPLS}")
@@ -891,7 +905,7 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
         rowptr64 = np.ascontiguousarray(rowptr, dtype=np.int64)
         cc32 = np.ascontiguousarray(cc, dtype=np.int32)
         G_s = max(-(-(len(rowptr64) - 1) // TM), 1)
-        # the bf16 modes cap at fp32 bytes, as the JAX direct-bf16 pack does
+        # the split modes cap at fp32 bytes, as the JAX direct-bf16 pack does
         starts_s, group_ptr_s, spill_s = cover_with_cap(
             rowptr64, cc32, TM, Wc, min_chunk_nnz, G_s, PANEL_CAP_BYTES,
             np.dtype(pack_dtype).itemsize,
@@ -919,14 +933,13 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
         torch.float64 if mode == "f64" else torch.float32)
     held = range(len(shards)) if rank is None else [rank]
     panels = tuple(torch.empty((len(held), S, TM, Wc), dtype=panel_dtype, device=device)
-                   for _ in range(2 if mode == "pair" else 1))
+                   for _ in range(2 if mode in ("pair", "tf32") else 1))
     spills = []
     for i, sh in enumerate(prepared):
         slot = i if rank is None else 0
         if sh is None:
             if i in held:
-                for t in panels:
-                    t[slot].zero_()
+                device_pack.zero_panels([t[slot] for t in panels], mode)
             spills.append(None)
             continue
         rowptr64, cc32, v, _ = sh
@@ -988,7 +1001,7 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     elif Z and sp_impl == "pallas":
         rel, cols, vals, _, blk = arrays[-6:-1]
         arrays += _row_views(rel, cols, vals, blk, G * TM, TMo)
-    scheme = {"pair": "x3", "bf16": "bf16"}.get(mode, "full")
+    scheme = {"pair": "x3", "bf16": "bf16", "tf32": "tf32"}.get(mode, "full")
     roofline = dict(
         G=G, TM=TM, W=Wc, a_bytes=a_bytes,
         b_rows_read=S * Wc, c_rows=G * TM,
@@ -1197,6 +1210,11 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cuda",
         bf = [t.dtype == torch.bfloat16 for t in tensors[3:5]]
         scheme = "x3" if all(bf) and len(bf) == 2 else ("bf16" if bf[0] else "full")
         n_sp = len(tensors) - 3 - (2 if scheme == "x3" else 1)
+        if scheme == "full" and tensors[3].dtype == torch.float32:  # highest: the planes
+            planes = device_pack.tf32_pair(tensors[3])
+            tensors = (*tensors[:3], *planes, *tensors[4:])
+            roofline.update(a_bytes=2 * planes[0].numel() * 4)
+            scheme = "tf32"
         spill_impl = {0: "none", 3: "segsum", 5: "pallas"}[n_sp]
         tensors += (_ptrs(arrays[1], device),)
         TMo = 0

@@ -53,8 +53,11 @@ the device: on fp32 at ``x3`` straight to the bf16 hi/lo pair, and at
 ``default`` to the hi plane alone, the RNE split and rounding the TPU
 kernel makes of its fp32 panels on every read (TMA, which feeds the
 ``wgmma`` body, can do neither; two bf16 planes are the bytes of one fp32
-plane, the hi plane half of them); at ``highest`` in fp32 (and fp64),
-split in the kernel, as the TPU kernel does.
+plane, the hi plane half of them); at ``highest`` to the TF32 big and
+small planes, two fp32 tensors (``device_pack.tf32_operands``: the
+tensor cores read the top 19 bits of an fp32 operand, so the split the
+TPU kernel makes on every read is made once here, at twice the fp32
+panels' bytes); fp64 panels stay fp64.
 
 :func:`spmm_halo` launches the kernel for CUDA tensors and counts the
 launch in its ``launches`` attribute; for CPU tensors it runs
@@ -77,6 +80,11 @@ from .spmm_pallas import (
 )
 
 
+# the JAX plan's cap on one shard's dense window panels (pack_window_dense's),
+# priced in the data's dtype whatever the plan holds
+PANEL_CAP_BYTES = 8 << 30
+
+
 def align_displs(displs: np.ndarray, k: int) -> np.ndarray:
     """Round interior ownership boundaries to TK multiples (monotone)
     (``spmm_halo.py:94-99``)."""
@@ -95,7 +103,8 @@ class HaloOp:
     each shard's window base, and the push list (P, 4) int32 of (owner,
     owner row, consumer, buffer row), which the plain version reads; the
     (s, G, TM, W) panels, on fp32 at ``x3`` the two bf16 planes ``ah,
-    al`` in their place and at ``default`` the bf16 hi plane ``ah``; and
+    al`` in their place, at ``default`` the bf16 hi plane ``ah`` and at
+    ``highest`` the two fp32 TF32 planes ``big, small``; and
     the chunk table (nchunks, 2) int32: each global 128-row chunk's
     (owner, row in the owner's shard), owner -1 past the matrix.  s is
     the shards packed here: all p, or one rank's (``ranks``).  ``p``: the
@@ -168,7 +177,9 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
     ``max_window`` rows, panels over 8 GiB, or window starts that fall.
     On fp32 at ``x3`` the panels are the bf16 pair (the arrays' ``ah,
     al``; ``roofline["a_bytes"]`` the same bytes as fp32 panels), at
-    ``default`` the bf16 hi plane (half the bytes, and B counted in bf16).
+    ``default`` the bf16 hi plane (half the bytes, and B counted in bf16),
+    at ``highest`` the TF32 planes (``big, small``, twice the bytes); the 8
+    GiB cap prices fp32 panels all the same, as JAX's plan does.
     ``ranks``: the shards whose window starts and panels are densified
     (one rank's across processes), all by default; the plan, the push
     list and the chunk table are always every shard's, and a rank's
@@ -191,7 +202,7 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
             raise UnsupportedSparsity(f"window {W0} rows > cap {max_window}")
         W_i, _, _ = choose_chunks(W0)
         G_i = -(-(len(rowptr) - 1) // TM)
-        if G_i * W_i * TM * dt.itemsize > (8 << 30):
+        if G_i * W_i * TM * dt.itemsize > PANEL_CAP_BYTES:
             raise UnsupportedSparsity(
                 f"dense window tiles {(G_i * W_i * TM * dt.itemsize) >> 20} MiB > cap"
             )
@@ -208,9 +219,13 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
     ranks = tuple(range(p)) if ranks is None else tuple(int(r) for r in ranks)
     cols = [(shards[r].rowptr, shards[r].colidx, shards[r].val) for r in ranks]
     mode = device_pack.panel_mode(dt, precision)
+    out = None
+    if mode == "tf32":  # big and small apart, each (s, G, TM, W): the entry's two maps
+        out = tuple(torch.empty((len(ranks), G, TM, W), dtype=torch.float32, device=device)
+                    for _ in range(2))
     ws, ah, al = device_pack.uniform_fill_stacked(cols, [ws_own[r] for r in ranks], TM,
-                                                  W, G, mode, device)
-    panels = (ah, al) if mode == "pair" else (ah,)
+                                                  W, G, mode, device, out=out)
+    panels = (ah, al) if mode in ("pair", "tf32") else (ah,)
     ws_rel = np.zeros((p, G), dtype=np.int32)
     for i, ws_i in enumerate(ws_own):
         ws_rel[i, : len(ws_i)] = ws_i - los[i]
@@ -253,7 +268,7 @@ def build_halo_plan(shards: list, B_displs: np.ndarray, *, device, dtype,
     itemsize = 2 if mode in ("pair", "bf16") else dt.itemsize
     roofline = dict(
         G=G, TM=TM, W=W, p=p, nnz=nnz,
-        a_bytes=(2 if mode == "pair" else 1) * p * G * TM * W * itemsize,
+        a_bytes=(2 if mode in ("pair", "tf32") else 1) * p * G * TM * W * itemsize,
         b_rows_read=p * G * W, c_rows=p * G * TM,
         b_itemsize=2 if mode == "bf16" else dt.itemsize,
         passes={"x3": 3, "highest": 6, "default": 1}.get(precision, 1),
@@ -322,7 +337,9 @@ def spmm_halo_plain(ws, ws_rel, panels, push, chunk_src, b_shards, precision,
     per-shard window buffers, then each shard's windowed product at
     ``precision`` (:func:`spmm_window_plain`; on the x3 pair ``panels =
     (ah, al)`` that is ``spmm_window_sg_presplit_plain``, on the default
-    hi plane ``spmm_window_sg_bf16_plain``); ``ws`` and ``chunk_src`` are
+    hi plane ``spmm_window_sg_bf16_plain``, on the TF32 planes ``(big,
+    small)`` the fp32 panels' product, the panels rebuilt from the big
+    plane bit for bit); ``ws`` and ``chunk_src`` are
     the kernel's and go unused.  ``b_shards`` holds every owner's rows;
     ``consumers``: the shards the panels are of (all by default).  Returns
     (shards, G*TM, n)."""
@@ -586,12 +603,14 @@ def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows
     from the (s, G, TM, W) panels of s shards: at ``x3`` the bf16 pair
     ``panels = (ah, al)`` and fp32 B (#4's ``wgmma`` body with the chunk
     lookup), at ``default`` the bf16 hi plane and bf16 B (its one-pass
-    mode, fp32 C), at ``highest`` fp32 panels and B (3xTF32 on the tensor
-    cores), or fp64 panels and B (on the FP64 tensor cores: #11's DMMA
-    body, ``csrc/dd_tc.cu``, its windowed walk with B through the chunk
-    table); the bf16 and fp64 panels must start on 16 bytes.
-    fp32 panels at ``x3`` and ``default`` have no kernel: the plans hold
-    the pair and the plane.  Without ``peers`` (one card) ``b_shards`` is
+    mode, fp32 C), at ``highest`` the TF32 planes ``panels = (big,
+    small)`` and fp32 B (3xTF32 on the tensor cores: the same body's TF32
+    mode, the chunk lookup once a 32-row stage; on a shard it equals
+    ``spmm_window`` on the same planes bit for bit), or fp64 panels and B
+    (on the FP64 tensor cores: #11's DMMA body, ``csrc/dd_tc.cu``, its
+    windowed walk with B through the chunk table); the panels must start
+    on 16 bytes.  fp32 panels have no kernel: the plans hold the pair, the
+    plane or the planes.  Without ``peers`` (one card) ``b_shards`` is
     the stacked B (p, max_k, n) of every owner and s = p; with them
     (across processes) it is their ``buf``, this rank's shard, and the
     launch (the ``*_flags`` entry, on ``chunk_pairs``) waits for each
@@ -625,10 +644,9 @@ def spmm_halo(ws, ws_rel, panels, push, chunk_src, b_shards, precision, buf_rows
             raise ValueError(f"spmm_halo: panels must be contiguous {panel_dtype} of one "
                              f"shape with TM % 128 == 0 and W % 32 == 0; got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if panel_dtype == torch.bfloat16:
-        _check_aligned("spmm_halo", **dict(zip(("ah", "al"), planes)))
-    elif panel_dtype == torch.float64:
-        _check_aligned("spmm_halo", panels=planes[0])
+    labels = {torch.bfloat16: ("ah", "al"), torch.float32: ("big", "small")}.get(
+        panel_dtype, ("panels",))
+    _check_aligned("spmm_halo", **dict(zip(labels, planes)))
     if ws.dtype != torch.int32 or ws.shape != (s_, G) or not ws.is_contiguous():
         raise ValueError(f"spmm_halo: ws must be contiguous int32 of shape ({s_}, {G})")
     if (chunk_src.dtype != torch.int32 or chunk_src.dim() != 2 or chunk_src.shape[1] != 2

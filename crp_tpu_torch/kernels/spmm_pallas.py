@@ -207,16 +207,19 @@ def tf32_panels(planes):
     return (planes[0].view(torch.int32) - 0x1000).view(torch.float32)
 
 
-def tf32_product(planes):
-    """The fp32 panels, rebuilt a block at a time from their TF32 planes
-    ``(2, S, TM, W)``, times B windows in plain PyTorch (no TF32): the
-    function of the fp32 panels, bit for bit."""
-    return lambda s0, s1, win: torch.bmm(tf32_panels(planes[:, s0:s1]), win)
+def tf32_product(big):
+    """The fp32 panels, rebuilt a block at a time from the big TF32 plane
+    ``(S, TM, W)`` (:func:`tf32_panels`), times B windows in plain PyTorch
+    (no TF32): the function of the fp32 panels, bit for bit."""
+    return lambda s0, s1, win: torch.bmm(tf32_panels((big[s0:s1],)), win)
 
 
 def _planes(tiles) -> bool:
-    """Whether fp32 ``tiles`` are a uniform pack's TF32 planes, ``(2, G,
-    TM, W)``, not its ``(G, TM, W)`` fp32 panels."""
+    """Whether ``tiles`` are TF32 planes, a uniform pack's ``(2, G, TM,
+    W)`` tensor or #12's ``(big, small)`` pair, not fp32 ``(G, TM, W)``
+    panels; either way ``tiles[0]`` is the big plane."""
+    if isinstance(tiles, tuple):
+        return tiles[0].dtype == torch.float32
     return tiles.dtype == torch.float32 and tiles.dim() == 4
 
 
@@ -247,9 +250,10 @@ def spmm_window_sg_bf16_plain(ws, ah, bh):
 
 def spmm_window_sg_plain(ws, tiles, b):
     """fp32 / fp64 windowed SpMM in plain PyTorch (no TF32), on the
-    panels or, fp32, on their TF32 planes (the same function)."""
+    panels or, fp32, on their TF32 planes (:func:`_planes`; the same
+    function)."""
     if _planes(tiles):
-        return _uniform(ws, tiles[0], b, torch.float32, tf32_product(tiles))
+        return _uniform(ws, tiles[0], b, torch.float32, tf32_product(tiles[0]))
     return _uniform(ws, tiles, b, tiles.dtype, full_product(tiles))
 
 
@@ -280,9 +284,14 @@ def spmm_window_plain(ws, tiles, b, precision: str):
     then this is :func:`spmm_window_sg_presplit_plain`; at ``default`` the
     bf16 hi plane of the default pack, and then this is
     :func:`spmm_window_sg_bf16_plain` on B rounded to bf16 (RNE); at
-    ``highest`` the TF32 planes ``(2, G, TM, W)`` of the ``highest`` pack.
+    ``highest`` the TF32 planes of the ``highest`` pack, one ``(2, G, TM,
+    W)`` tensor (#4's) or the pair ``(big, small)`` (#12's).
     Each is equal bit for bit to this function on the fp32 panels the
     pair, the plane or the planes were made from."""
+    if _planes(tiles):
+        if precision != "highest":
+            raise ValueError(f"spmm_window_plain: TF32 planes at {precision!r}")
+        return spmm_window_sg_plain(ws, tiles, b)
     if isinstance(tiles, tuple):
         if precision != "x3":
             raise ValueError(f"spmm_window_plain: a bf16 pair at {precision!r}")
@@ -291,10 +300,6 @@ def spmm_window_plain(ws, tiles, b, precision: str):
         if precision != "default":
             raise ValueError(f"spmm_window_plain: a bf16 plane at {precision!r}")
         return spmm_window_sg_bf16_plain(ws, tiles, b.to(torch.bfloat16))
-    if _planes(tiles):
-        if precision != "highest":
-            raise ValueError(f"spmm_window_plain: TF32 planes at {precision!r}")
-        return spmm_window_sg_plain(ws, tiles, b)
     return _uniform(ws, tiles, b, tiles.dtype, window_product(tiles, precision))
 
 
@@ -535,21 +540,25 @@ spmm_window_sg.launches = 0
 
 def window_entry(name: str, panels: tuple, precision: str) -> tuple:
     """(entry, panel dtype, B dtype) of the non-super-grouped kernel that
-    takes ``panels`` (the x3 pair, or one plane) at ``precision``, for the
-    wrapper ``name`` (#4 ``crp_window_*``, #12 ``crp_halo_*``); raises
-    where there is none (fp32 panels at ``x3`` or ``default``: those packs
-    hold the pair or the hi plane)."""
+    takes ``panels`` (a pair, or one tensor) at ``precision``, for the
+    wrapper ``name`` (#4 ``crp_window_*``, #12 ``crp_halo_*``): the x3
+    bf16 pair, the default bf16 hi plane, fp32 TF32 planes at ``highest``
+    (#4 one ``(2, G, TM, W)`` tensor, #12 the pair ``(big, small)``), fp64
+    panels; raises where there is none (fp32 panels at ``x3`` or
+    ``default``: those packs hold the pair or the hi plane)."""
     stem = {"spmm_window": "crp_window", "spmm_halo": "crp_halo"}[name]
-    dtype = None if len(panels) != 1 else panels[0].dtype
-    if len(panels) == 2 and precision == "x3":
+    dtype = panels[0].dtype if len({t.dtype for t in panels}) == 1 else None
+    pair = len(panels) == 2
+    if pair and dtype == torch.bfloat16 and precision == "x3":
         return f"{stem}_x3", torch.bfloat16, torch.float32
-    if dtype == torch.bfloat16 and precision == "default":
+    if not pair and dtype == torch.bfloat16 and precision == "default":
         return f"{stem}_bf16", torch.bfloat16, torch.bfloat16
-    if dtype == torch.float32 and precision == "highest":
+    if (dtype == torch.float32 and precision == "highest"
+            and pair == (name == "spmm_halo")):
         return f"{stem}_f32", torch.float32, torch.float32
-    if dtype == torch.float64:
+    if not pair and dtype == torch.float64:
         return f"{stem}_f64", torch.float64, torch.float64
-    got = "a bf16 pair" if len(panels) == 2 else f"{dtype} panels"
+    got = f"a {dtype} pair" if pair else f"{dtype} panels"
     raise ValueError(f"{name}: no kernel for {got} at {precision!r}")
 
 

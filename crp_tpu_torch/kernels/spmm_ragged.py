@@ -30,11 +30,11 @@ the spill and one for the gather kind:
     chunks;
   * :func:`spmm_ragged_bf16` — ``default``, the same body's one-pass mode
     (``csrc/ragged.cu``);
-  * :func:`spmm_ragged` — ``highest``: fp32 panels as three TF32
-    tensor-core products (the 3xTF32 body of the windowed kernels, walking
-    each group's chunks, ``csrc/ragged.cu``), fp64 panels on the FP64
-    tensor cores (#11's DMMA body with its ragged walk,
-    ``csrc/dd_tc.cu``);
+  * :func:`spmm_ragged` — ``highest``: on fp32 the panels' TF32 planes
+    (split once when they are packed) as three TF32 tensor-core products,
+    the ``wgmma`` body's TF32 mode with the same walk
+    (``csrc/ragged.cu``), fp64 panels on the FP64 tensor cores (#11's DMMA
+    body with its ragged walk, ``csrc/dd_tc.cu``);
   * :func:`spmm_spill` — C plus the spilled nonzeros, fp32
     (``csrc/spill.cu``), on a row-ordered view of the pack
     (:func:`spill_row_view`, built at init) in a fixed sum order;
@@ -63,7 +63,7 @@ import torch
 
 from .spmm_pallas import (
     PLAIN_BLOCK_BYTES, TK, UnsupportedSparsity, _check_aligned, _placement,
-    bf16_product, full_product, plain_blocks, presplit_product,
+    bf16_product, full_product, plain_blocks, presplit_product, tf32_product,
 )
 from .spmm_segsum import spmm_segment_sum
 
@@ -754,9 +754,15 @@ def spmm_ragged_bf16_plain(step_g, group_ptr, starts, ah, bh):
 
 
 def spmm_ragged_plain(step_g, group_ptr, starts, panels, b):
-    """fp32 / fp64 ragged SpMM in plain PyTorch (no TF32)."""
-    return plain_blocks(step_g, starts, panels, b, group_ptr.shape[0] - 1,
-                        panels.dtype, full_product(panels))
+    """fp32 / fp64 ragged SpMM in plain PyTorch (no TF32), on the panels
+    or, fp32 at ``highest``, on their TF32 planes ``(big, small)`` (the
+    same function: the fp32 panels rebuilt a block at a time, bit for
+    bit)."""
+    G = group_ptr.shape[0] - 1
+    if isinstance(panels, tuple):
+        return plain_blocks(step_g, starts, panels[0], b, G, torch.float32,
+                            tf32_product(panels[0]))
+    return plain_blocks(step_g, starts, panels, b, G, panels.dtype, full_product(panels))
 
 
 def spill_contrib(vals, brows, mxu_precision):
@@ -909,25 +915,35 @@ spmm_ragged_bf16.launches = 0
 
 
 def spmm_ragged(step_g, group_ptr, starts, panels, b, *, min_b_rows: int):
-    """fp32 or fp64 ragged SpMM: (G*TM, n) in the panels' dtype.  fp32 runs
-    as three TF32 tensor-core products (the 3xTF32 body of
-    :func:`spmm_window` at ``highest``), held to the fp32 plain version;
-    fp64 on the FP64 tensor cores, the DMMA body of
+    """fp32 or fp64 ragged SpMM: (G*TM, n) in the panels' dtype.  On fp32
+    ``panels`` are the TF32 planes ``(big, small)`` of the ``highest`` pack
+    (each ``(S, TM, Wc)``; on the CPU the fp32 panels too), and run as
+    three TF32 tensor-core products on the ``wgmma`` body's TF32 mode with
+    the ragged walk (:func:`spmm_window`'s at ``highest``: on a uniform
+    pack written as a ragged pack, one chunk a group, the two equal each
+    other bit for bit), held to the fp32 plain version; fp64 on the FP64
+    tensor cores, the DMMA body of
     :func:`~crp_tpu_torch.kernels.spmm_dd_mxu.spmm_ragged_dd` (#11) walking
     each group's chunks in ``group_ptr`` order, k upward: a launch equals
     the next bit for bit, and on a ``dd_mxu`` pack equals #11.  Both bodies
-    copy the panels in 16-byte pieces, so the panels must start on 16
-    bytes; TM % 128 and Wc % 32 must be 0.  Bound by the products (fp64: 2
-    S TM Wc n at 67 TFLOP/s).  Replaces ``spmm_ragged``
-    (``spmm_ragged.py:817``, kernel ``_ragged_kernel`` ``:633``)."""
-    if _placement("spmm_ragged", step_g, group_ptr, starts, panels, b) == "cpu":
+    copy the panels in 16-byte pieces (TMA for the planes), so they must
+    start on 16 bytes; TM % 128 and Wc % 32 must be 0.  Bound by the
+    products (fp32: 3 x 2 S TM Wc n at 495 TFLOP/s; fp64: 2 S TM Wc n at 67
+    TFLOP/s).  Replaces ``spmm_ragged`` (``spmm_ragged.py:817``, kernel
+    ``_ragged_kernel`` ``:633``)."""
+    planes = panels if isinstance(panels, tuple) else (panels,)
+    if _placement("spmm_ragged", step_g, group_ptr, starts, *planes, b) == "cpu":
         return spmm_ragged_plain(step_g, group_ptr, starts, panels, b)
-    if panels.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"spmm_ragged: panels must be fp32 or fp64, not {panels.dtype}")
-    _check_aligned("spmm_ragged", panels=panels)
-    entry = "crp_ragged_f32" if panels.dtype == torch.float32 else "crp_ragged_f64"
-    c = _ragged("spmm_ragged", entry, step_g, group_ptr, starts, (panels,), b,
-                min_b_rows, panels.dtype, panels.dtype, panels.dtype)
+    dtype = planes[0].dtype
+    if (dtype, len(planes)) not in ((torch.float32, 2), (torch.float64, 1)):
+        raise ValueError(f"spmm_ragged: the panels must be fp64, or on fp32 the TF32 "
+                         f"planes (big, small) of the highest pack, each (S, TM, Wc) "
+                         f"(device_pack.tf32_pair); got {len(planes)} x {dtype}")
+    _check_aligned("spmm_ragged", **dict(zip(("big", "small") if len(planes) == 2
+                                              else ("panels",), planes)))
+    entry = "crp_ragged_f32" if dtype == torch.float32 else "crp_ragged_f64"
+    c = _ragged("spmm_ragged", entry, step_g, group_ptr, starts, planes, b,
+                min_b_rows, dtype, dtype, dtype)
     spmm_ragged.launches += 1
     return c
 

@@ -1113,6 +1113,13 @@ def _planes(tiles):
     return device_pack.tf32_planes(tiles[None])[0]
 
 
+def _pair(tiles):
+    """fp32 panels -> the TF32 planes ``(big, small)``, two tensors of the
+    panels' shape, as #12 and #6 take them at highest (split on the
+    tensors' device, as the packs split them)."""
+    return device_pack.tf32_pair(tiles)
+
+
 def _held_to_plain(k, p, launches_before, launches_now, zero_rows):
     assert launches_now == launches_before + 1
     assert k.shape == p.shape and k.dtype == p.dtype == torch.float32
@@ -1205,20 +1212,28 @@ def _halo_hand_pack(rng, W, n, displs=(0, 256, 640, 768, 1152)):
 
 # name -> (W, n, B offset in elements)
 TF32X3_HALO = {
+    "n=16": (160, 16, 0),
     "odd n": (256, 37, 0),
     "one slice": (32, 64, 0),
     "past the ring": (640, 100, 0),
+    "n=256": (512, 256, 0),
     "unaligned B": (384, 64, 1),
+    "unaligned B, n=100": (256, 100, 1),
 }
 
 
 @pytest.mark.parametrize("case", sorted(TF32X3_HALO))
 def test_halo_highest_tf32x3_matches_plain(cuda_device, case):
-    """#12 at highest on hand-built packs: slices crossing 128-row ownership
-    chunks (uneven owners), dead chunks read as zeros (B framed by NaN),
-    odd n, one slice, many trips round the ring: within TOL_PLAIN of the
-    plain version (pushes, then the fp32 windowed product), pad rows zero,
-    one launch; a window wholly past the matrix gives zeros."""
+    """#12 at highest (the wgmma body's TF32 mode with the chunk lookup, on
+    the TF32 planes) on hand-built packs: 32-row slices crossing 128-row
+    ownership chunks (uneven owners), dead chunks read as zeros (B framed
+    by NaN), n in {16, 37, 64, 100, 256}, B off 16 bytes, one slice, many
+    trips round the ring: within TOL_PLAIN of the plain version (pushes,
+    then the fp32 windowed product), pad rows zero, one launch; a window
+    wholly past the matrix gives zeros.  A second launch, #4 run shard by
+    shard on the same planes with the plain version's window buffers, and
+    the flagged entry (each owner's shard its own allocation, every owner
+    arrived) all equal it bit for bit."""
     W, n, off = TF32X3_HALO[case]
     ws, ws_rel, panels, push, chunk_src, bs, buf_rows, max_k = _halo_hand_pack(
         np.random.default_rng(W + n), W, n)
@@ -1227,9 +1242,10 @@ def test_halo_highest_tf32x3_matches_plain(cuda_device, case):
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
 
-    args = (put(ws), put(ws_rel), torch.from_numpy(panels).to(dev), put(push),
-            put(chunk_src), _nan_framed(torch.from_numpy(bs).to(dev), off),
-            "highest", buf_rows)
+    big, small = _pair(torch.from_numpy(panels).to(dev))
+    b = _nan_framed(torch.from_numpy(bs).to(dev), off)
+    args = (put(ws), put(ws_rel), (big, small), put(push), put(chunk_src), b, "highest",
+            buf_rows)
     before = spmm_halo.spmm_halo.launches
     k = spmm_halo.spmm_halo(*args, min_b_rows=max_k)
     p = spmm_halo.spmm_halo_plain(*args)
@@ -1239,18 +1255,72 @@ def test_halo_highest_tf32x3_matches_plain(cuda_device, case):
         assert float((k[i] - p[i]).abs().max()) <= TOL_PLAIN[np.float32] * float(
             p.abs().max())
     assert not torch.any(k[3, :128]) and not torch.any(p[3, :128])
+    again = spmm_halo.spmm_halo(*args, min_b_rows=max_k)
+    assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+    buf = spmm_halo.halo_buffers(args[3], b, buf_rows)
+    for i in range(k.shape[0]):
+        c4 = spmm_pallas.spmm_window(args[1][i], torch.stack((big[i], small[i])), buf[i],
+                                     "highest", min_b_rows=buf_rows)
+        assert torch.equal(k[i].view(torch.int32), c4.view(torch.int32))
+    owners = [torch.from_numpy(bs[i]).to(dev) for i in range(bs.shape[0])]
+    peers = _LocalOwners(owners, args[4], 1, 30.0)
+    flagged = spmm_halo.spmm_halo(*args[:5], peers.buf, *args[6:], min_b_rows=max_k,
+                                  peers=peers)
+    assert torch.equal(flagged.view(torch.int32), k.view(torch.int32))
+    torch.cuda.synchronize()
+    peers.check()
+
+
+@pytest.mark.parametrize("kernel", ["halo", "ragged"])
+def test_halo_and_ragged_highest_keep_nan_and_inf(cuda_device, kernel):
+    """#12 and #6 at highest with NaN (CUDA's canonical 0x7fffffff, a quiet
+    0x7fc00000, a negative payload) and +-inf in the panels and in B: C is
+    NaN wherever the plain version is NaN, not finite wherever it is inf,
+    and within TOL_PLAIN of it elsewhere (the planes split on the card, as
+    the packs are)."""
+    rng = np.random.default_rng(9)
+    dev = cuda_device
+    tiles = torch.from_numpy(_panels(rng, (2, 128, 64))).to(dev)
+    b = torch.from_numpy(rng.standard_normal((256, 64)).astype(np.float32)).to(dev)
+    ti, bi = tiles.view(torch.int32), b.view(torch.int32)
+    ti[0, 3, 5], ti[0, 7, 9], ti[1, 11, 2] = 0x7FFFFFFF, 0x7FC00000, -1
+    tiles[1, 20, 30], tiles[1, 21, 31] = float("inf"), -float("inf")
+    bi[40, 7], bi[41, 8] = 0x7FFFFFFF, -1
+    b[170, 9] = float("inf")
+    pair = _pair(tiles)
+    if kernel == "halo":  # one shard owning all of B, windows at rows 0 and 128
+        ws = torch.tensor([[0, 128]], dtype=torch.int32, device=dev)
+        chunk_src = torch.tensor([[0, 0], [0, 128]], dtype=torch.int32, device=dev)
+        push = torch.tensor([[0, 0, 0, 0], [0, 128, 0, 128]], dtype=torch.int32, device=dev)
+        args = (ws, ws, tuple(t[None] for t in pair), push, chunk_src, b[None],
+                "highest", 256)
+        k = spmm_halo.spmm_halo(*args, min_b_rows=256)[0]
+        p = spmm_halo.spmm_halo_plain(*args)[0]
+    else:  # one group walking both chunks, over B rows 0 and 128
+        step_g = torch.tensor([0, 0], dtype=torch.int32, device=dev)
+        group_ptr = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+        starts = torch.tensor([0, 128], dtype=torch.int32, device=dev)
+        k = spmm_ragged.spmm_ragged(step_g, group_ptr, starts, pair, b, min_b_rows=256)
+        p = spmm_ragged.spmm_ragged_plain(step_g, group_ptr, starts, pair, b)
+    assert bool(torch.isnan(k[torch.isnan(p)]).all())
+    assert not bool(torch.isfinite(k[torch.isinf(p)]).any())
+    fin = torch.isfinite(p)
+    assert bool(torch.isfinite(k[fin]).all())
+    assert float((k - p)[fin].abs().max()) <= TOL_PLAIN[np.float32] * float(p[fin].abs().max())
 
 
 def test_highest_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch):
-    """On CUDA tensors #4 and #12 at highest launch their kernel and never
-    their plain versions; a launch the kernel refuses (#4's TF32 planes off
-    16 bytes) raises, and fp32 panels that are not the planes are refused
-    before any launch, with nothing to fall back to."""
+    """On CUDA tensors #4, #12 and #6 at highest launch their kernel and
+    never their plain versions; a launch the kernel refuses (#4's TF32
+    planes off 16 bytes) raises, and fp32 panels that are not the planes,
+    and #12's and #6's planes off 16 bytes, are refused before any launch,
+    with nothing to fall back to."""
     def no_plain(*args, **kw):
         raise AssertionError("the plain version ran on CUDA tensors")
 
     monkeypatch.setattr(spmm_pallas, "spmm_window_plain", no_plain)
     monkeypatch.setattr(spmm_halo, "spmm_halo_plain", no_plain)
+    monkeypatch.setattr(spmm_ragged, "spmm_ragged_plain", no_plain)
     rng = np.random.default_rng(5)
     dev = cuda_device
     ws = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -1272,11 +1342,30 @@ def test_highest_wrappers_launch_the_kernel_or_raise(cuda_device, monkeypatch):
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
 
+    halo = (put(hws), put(ws_rel), _pair(torch.from_numpy(panels).to(dev)), put(push),
+            put(chunk_src), torch.from_numpy(bs).to(dev), "highest", buf_rows)
     before = spmm_halo.spmm_halo.launches
-    spmm_halo.spmm_halo(put(hws), put(ws_rel), torch.from_numpy(panels).to(dev),
-                        put(push), put(chunk_src), torch.from_numpy(bs).to(dev),
-                        "highest", buf_rows, min_b_rows=max_k)
+    spmm_halo.spmm_halo(*halo, min_b_rows=max_k)
     assert spmm_halo.spmm_halo.launches == before + 1
+    with pytest.raises(ValueError, match="no kernel"):
+        spmm_halo.spmm_halo(*halo[:2], halo[2][0], *halo[3:], min_b_rows=max_k)
+    with pytest.raises(ValueError, match="must start on 16 bytes"):
+        spmm_halo.spmm_halo(*halo[:2], (_nan_framed(halo[2][0], 1), halo[2][1]),
+                            *halo[3:], min_b_rows=max_k)
+    assert spmm_halo.spmm_halo.launches == before + 1
+    pair = _pair(torch.from_numpy(_panels(rng, (2, 128, 64))).to(dev))
+    step_g = torch.zeros(2, dtype=torch.int32, device=dev)
+    group_ptr = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+    starts = torch.zeros(2, dtype=torch.int32, device=dev)
+    before = spmm_ragged.spmm_ragged.launches
+    spmm_ragged.spmm_ragged(step_g, group_ptr, starts, pair, b, min_b_rows=64)
+    assert spmm_ragged.spmm_ragged.launches == before + 1
+    with pytest.raises(ValueError, match="TF32"):
+        spmm_ragged.spmm_ragged(step_g, group_ptr, starts, pair[0], b, min_b_rows=64)
+    with pytest.raises(ValueError, match="big must start on 16 bytes"):
+        spmm_ragged.spmm_ragged(step_g, group_ptr, starts,
+                                (_nan_framed(pair[0], 1), pair[1]), b, min_b_rows=64)
+    assert spmm_ragged.spmm_ragged.launches == before + 1
 
 
 @pytest.mark.parametrize("kernel", sorted(TF32X3_UNIFORM))
@@ -1562,14 +1651,15 @@ def test_x3_multi_shard_wrappers_launch_the_kernel_or_raise(cuda_device, monkeyp
     assert spmm_halo.spmm_halo.launches == before + 1
 
 
-# --------------------------------- #6 at highest on the 3xTF32 body
+# ------------------ #6 at highest on the wgmma body's TF32 mode
 
 
 def _dummy_groups(op, arrs):
     """Groups of a ragged shard's pack whose one chunk is a zero panel: the
     dummy chunks (every nonzero spilled, or a pad group)."""
     gp = arrs[-1].cpu().numpy() if op.spill_impl != "pallas" else arrs[-2].cpu().numpy()
-    panels = arrs[3].float().abs().sum(dim=(1, 2)).cpu().numpy()
+    panels = spmm_pallas.tf32_panels(arrs[3:5]) if op.scheme == "tf32" else arrs[3]
+    panels = panels.float().abs().sum(dim=(1, 2)).cpu().numpy()
     return [g for g in range(len(gp) - 1)
             if gp[g + 1] - gp[g] == 1 and panels[gp[g]] == 0]
 
@@ -1597,17 +1687,23 @@ def _two_shard_ragged(TM, Wc, prec, dev):
 @pytest.mark.parametrize("TM", [128, 256, 512])
 @pytest.mark.parametrize("Wc", [128, 256, 512])
 def test_ragged_highest_tf32x3_matches_plain(cuda_device, TM, Wc):
-    """#6 at highest (``crp_ragged_f32``) on two-shard packs over every
+    """#6 at highest (``crp_ragged_f32``: the wgmma body's TF32 mode with the
+    ragged walk, on the pack's TF32 planes) on two-shard packs over every
     geometry the chooser can return: hub groups of many chunks, groups
     whose nonzeros all spilled (dummy chunks), the shorter shard's
-    trailing no-op steps, pad groups; n in {16, 37, 100} (odd n takes the
-    4-byte B copies): within TOL_PLAIN_FRO of the fp32 plain version, one
-    launch a shard, the dummy groups' and pad rows zero."""
+    trailing no-op steps, pad groups; n in {16, 37, 100, 256} and at n =
+    100 a B framed by NaN and off 16 bytes (odd n and that B take the plain
+    B copies): within TOL_PLAIN_FRO of the fp32 plain version, one launch a
+    shard, the dummy groups' and pad rows zero, a second launch equal bit
+    for bit."""
     a, nrows, arrays, op = _two_shard_ragged(TM, Wc, "highest", cuda_device)
-    assert op.scheme == "full" and arrays[3].dtype == torch.float32
+    assert op.scheme == "tf32" and arrays[3].dtype == arrays[4].dtype == torch.float32
     kernel = spmm_ragged.spmm_ragged
-    for n in (16, 37, 100):
-        rB = torch.from_numpy(_b(a, max(op.min_b_rows, a.ncol), n, np.float32)).to(cuda_device)
+    rows = max(op.min_b_rows, a.ncol)
+    for n, off in ((16, 0), (37, 0), (100, 0), (100, 1), (256, 0)):
+        rB = torch.from_numpy(_b(a, rows, n, np.float32)).to(cuda_device)
+        if off:
+            rB = _nan_framed(rB, off)
         for i, nrow in enumerate(nrows):
             arrs = tuple(x[i] for x in arrays)
             args = op.kernel_args(arrs, rB)
@@ -1622,8 +1718,82 @@ def test_ragged_highest_tf32x3_matches_plain(cuda_device, TM, Wc):
             assert dummies
             for g in dummies:
                 assert not torch.any(k[g * TM:(g + 1) * TM])
-    with pytest.raises(ValueError, match="panels must start on 16 bytes"):
-        kernel(*args[:3], _nan_framed(args[3], 1), args[4], min_b_rows=op.min_b_rows)
+            again = kernel(*args, min_b_rows=op.min_b_rows)
+            assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+    big, small = args[3]
+    with pytest.raises(ValueError, match="big must start on 16 bytes"):
+        kernel(*args[:3], (_nan_framed(big, 1), small), args[4], min_b_rows=op.min_b_rows)
+
+
+def test_wgmma_entries_launch_from_a_thread_with_no_context(cuda_device):
+    """The ``wgmma`` body's entries make their TMA tensor maps with
+    ``cuTensorMapEncodeTiled``, which needs a context current on the calling thread: from
+    a fresh thread that has made no CUDA call (as autograd's device thread
+    in a backward), #6 at highest and #7 at x3 launch and equal their
+    launch from this thread bit for bit."""
+    import threading
+
+    G, TM, W, n, off = TF32X3_WINDOW["odd n"]
+    rng = np.random.default_rng(11)
+    dev = cuda_device
+    ws = torch.from_numpy(rng.integers(0, 300, G).astype(np.int32)).to(dev)
+    tiles = torch.from_numpy(_panels(rng, (G, TM, W))).to(dev)
+    b = torch.from_numpy(rng.standard_normal((300 + W, n)).astype(np.float32)).to(dev)
+    step_g = torch.arange(G, dtype=torch.int32, device=dev)
+    group_ptr = torch.arange(G + 1, dtype=torch.int32, device=dev)
+    ah, al = spmm_pallas.split_b_bf16(tiles.view(G * TM, W))
+    runs = {
+        "#6": lambda: spmm_ragged.spmm_ragged(step_g, group_ptr, ws, _pair(tiles), b,
+                                              min_b_rows=300 + W),
+        "#7": lambda: spmm_ragged.spmm_ragged_presplit(
+            step_g, group_ptr, ws, ah.view(G, TM, W), al.view(G, TM, W), b,
+            min_b_rows=300 + W),
+    }
+    for name, run in runs.items():
+        here = run()
+        got = {}
+
+        def in_thread():
+            try:
+                got["c"] = run()
+                torch.cuda.synchronize()
+            except Exception as exc:  # carried back to the test's thread
+                got["error"] = exc
+
+        worker = threading.Thread(target=in_thread)
+        worker.start()
+        worker.join()
+        assert "error" not in got, (name, got.get("error"))
+        assert torch.equal(got["c"].view(torch.int32), here.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("case", sorted(TF32X3_WINDOW))
+def test_ragged_highest_one_chunk_a_group_equals_window_highest(cuda_device, case):
+    """#6 at highest on a ragged pack with exactly one chunk a group
+    (group_ptr = 0 .. G, starts = ws) over #3's hand-built TF32 planes (odd
+    n, one slice, many trips round the ring, an unaligned B): equal bit for
+    bit to #3 ``crp_window_sg_f32``, the same body in the same order (the
+    walk changes nothing), one launch."""
+    G, TM, W, n, off = TF32X3_WINDOW[case]
+    rng = np.random.default_rng(W + n)
+    ws = rng.integers(0, 300, G).astype(np.int32)
+    tiles = _panels(rng, (G, TM, W))
+    tiles[-1] = 0
+    rows = int(ws.max()) + W
+    dev = cuda_device
+    b = _nan_framed(torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32))
+                    .to(dev), off)
+    ws_t = torch.from_numpy(ws).to(dev)
+    planes = _planes(torch.from_numpy(tiles).to(dev))
+    step_g = torch.arange(G, dtype=torch.int32, device=dev)
+    group_ptr = torch.arange(G + 1, dtype=torch.int32, device=dev)
+    kernel = spmm_ragged.spmm_ragged
+    before = kernel.launches
+    c6 = kernel(step_g, group_ptr, ws_t, (planes[0], planes[1]), b, min_b_rows=rows)
+    assert kernel.launches == before + 1
+    c3 = spmm_pallas.spmm_window_sg(ws_t, planes, b, min_b_rows=rows)
+    assert bool(torch.isfinite(c6).all())
+    assert torch.equal(c6.view(torch.int32), c3.view(torch.int32))
 
 
 # ------------- #7 (x3) and #8 (default) on the wgmma body, walking chunks

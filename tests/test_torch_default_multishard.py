@@ -34,7 +34,7 @@ from crp_tpu_torch.kernels.device_pack import split_bf16
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.synth import banded_random_csr, fill_b
 from tests.test_torch_window import _bits, _fp32_panels_engine, _highest_fp32, _shards
-from tests.test_torch_x3_multishard import _halo_case
+from tests.test_torch_x3_multishard import _halo_case, _highest_fp32_halo
 
 CPU = torch.device("cpu")
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -88,7 +88,7 @@ def test_halo_default_plane_is_rounding_of_jax_panels(p):
     jp = jh.build_halo_plan(shards, aligned, dtype=np.float32)
     arrays, op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32,
                                     precision="default")
-    f_arrays, f_op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32)
+    f_arrays, f_op = _highest_fp32_halo(shards, aligned)
     assert len(arrays) == len(f_arrays) == 5
     ws, ws_rel, ah, push, chunk_src = arrays
     assert ah.dtype == torch.bfloat16 and ah.shape == jp.a_panels.shape
@@ -139,7 +139,7 @@ def test_halo_plane_plain_equals_fp32_plain(p, n):
     a, _, aligned, shards = _halo_case(p, seed=70)
     arrays, op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32,
                                     precision="default")
-    f_arrays, _ = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32)
+    f_arrays, _ = _highest_fp32_halo(shards, aligned)
     b = fill_b(0, a.ncol, 0, n, dtype=np.float32)
     bs = np.zeros((p, op.min_b_rows, n), np.float32)
     for i in range(p):
@@ -208,7 +208,11 @@ def test_wrappers_take_the_plane_only_at_default():
      ("crp_halo_bf16", torch.bfloat16, torch.bfloat16)),
     ("spmm_halo", ("bf16", "bf16"), "x3",
      ("crp_halo_x3", torch.bfloat16, torch.float32)),
+    ("spmm_halo", ("f32", "f32"), "highest",
+     ("crp_halo_f32", torch.float32, torch.float32)),
     ("spmm_halo", ("f32",), "default", None),
+    ("spmm_halo", ("f32",), "highest", None),
+    ("spmm_window", ("f32", "f32"), "highest", None),
     ("spmm_window", ("f32",), "x3", None),
     ("spmm_window", ("bf16",), "highest", None),
 ])
@@ -273,7 +277,7 @@ def test_chip_smoke_bounds_the_plane(kind):
     else:
         _, _, aligned, shards = _halo_case(3)
         got = [th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32,
-                                  precision=prec) for prec in ("default", "highest")]
+                                  precision="default"), _highest_fp32_halo(shards, aligned)]
         arrs = [arrays for arrays, _ in got]
         b = torch.ones((3, got[0][1].min_b_rows, 16))
     (_, op), (_, f_op) = got

@@ -198,8 +198,9 @@ def test_unsorted_rows_land_on_the_ragged_pack():
 # ---------------------------------------------- the slab-by-slab densify
 
 
-def _one_shot(flat, vals, shape, mode):
-    """The panels scattered whole, then split: what the slabs stand for."""
+def _one_shot(flat, vals, shape, mode, apart=False):
+    """The panels scattered whole, then split: what the slabs stand for
+    (``apart``: the TF32 planes as two tensors, big and small)."""
     t = torch.zeros(int(np.prod(shape)),
                     dtype=torch.float64 if mode == "f64" else torch.float32)
     t.index_put_((torch.from_numpy(flat),), torch.from_numpy(vals), accumulate=True)
@@ -207,7 +208,7 @@ def _one_shot(flat, vals, shape, mode):
     if mode in ("f32", "f64"):
         return t, None
     if mode == "tf32":
-        return device_pack.tf32_planes(t), None
+        return device_pack.tf32_pair(t) if apart else (device_pack.tf32_planes(t), None)
     return device_pack.split_bf16(t, with_lo=mode == "pair")
 
 
@@ -229,7 +230,7 @@ def _assert_slabs_equal_one_shot(calls, mode, min_slabs):
     assert calls
     for flat, vals, shape, m, cuts, (ah, al) in calls:
         assert m == mode
-        wh, wl = _one_shot(flat, vals, shape, mode)
+        wh, wl = _one_shot(flat, vals, shape, mode, apart=al is not None)
         assert ah.dtype == wh.dtype and ah.shape == wh.shape
         np.testing.assert_array_equal(_bits(ah), _bits(wh))
         assert (al is None) == (wl is None)
@@ -288,7 +289,8 @@ def test_ragged_slabs_equal_one_shot(monkeypatch, mode, prec):
     entries: hub groups of many chunks, dummy chunks, the shorter shard's
     trailing no-op steps, pad groups) with slabs of about two chunks, whole
     groups each: every shard's planes equal the one-shot scatter and split
-    of its nonzeros bit for bit, and the stacked pack holds them."""
+    of its nonzeros bit for bit, and the stacked pack holds them (fp32 at
+    ``highest``: its TF32 planes, big and small apart)."""
     from crp_tpu.sparse.synth import powerlaw_random_csr
 
     dtype = np.float64 if mode == "f64" else np.float32
@@ -311,7 +313,7 @@ def test_ragged_slabs_equal_one_shot(monkeypatch, mode, prec):
                                  torch.device("cpu"), geometry=(TM, Wc),
                                  min_chunk_nnz=12, spill_impl="segsum")
     assert len(calls) == 2
-    _assert_slabs_equal_one_shot(calls, mode, min_slabs=4)
+    _assert_slabs_equal_one_shot(calls, device_pack.panel_mode(dtype, prec), min_slabs=4)
     for i, (*_, (ah, al)) in enumerate(calls):
         np.testing.assert_array_equal(_bits(arrays[3][i]), _bits(ah))
         if al is not None:

@@ -160,6 +160,9 @@ RANK_PACKS = {
     "ragged-pallas-spill": (_PLAW, np.float32, 1, lambda s, m, dt, r: td._pack_ragged(
         s, m, dt, "default", CPU, geometry=(128, 256), min_chunk_nnz=40,
         spill_impl="pallas", rank=r)),
+    "ragged-highest": (_PLAW, np.float32, 1, lambda s, m, dt, r: td._pack_ragged(
+        s, m, dt, "highest", CPU, geometry=(128, 256), min_chunk_nnz=40,
+        spill_impl="pallas", rank=r)),
     "gather": (_PLAW, np.float32, 2, lambda s, m, dt, r: td.pack_local_kernel(
         s, m, dt, "gather", device="cpu", rank=r)),
     "dd": (_PLAW, np.float64, None, lambda s, m, dt, r: td.pack_local_kernel(

@@ -46,6 +46,18 @@ def _bench_err(out):
     return float(out.strip().splitlines()[-1].split("=")[-1])
 
 
+def _as_jax(rec, field):
+    """The port's record ``field`` as JAX's: at ``highest`` on fp32 every
+    panel pack holds the TF32 planes, and ``a_panel_bytes`` counts them,
+    twice the fp32 panels' bytes that JAX's counts."""
+    got = rec.get(field)
+    if (field == "kernel_detail" and got and rec["config"]["mxu_precision"] == "highest"
+            and rec["dtype"] == "float32" and got["variant"] in ("uniform", "window",
+                                                                  "ragged", "halo")):
+        got = dict(got, a_panel_bytes=got["a_panel_bytes"] // 2)
+    return got
+
+
 def _host_lines(out):
     return [line.strip() for line in out.splitlines() if HOST_LINE.match(line.strip())]
 
@@ -97,7 +109,7 @@ def test_suite_cli_matches_jax(case, devices8, capsys):
     for j, t in zip(j_recs, t_recs):
         assert "error" not in j and "error" not in t, (j, t)
         for field in RECORD_FIELDS:
-            assert t.get(field) == j.get(field), field
+            assert _as_jax(t, field) == j.get(field), field
         assert j["rel_fro_err"] <= tol and t["rel_fro_err"] <= tol
         assert t["backend"] == "cpu" and t["config"]["kernel"] == t["kernel"]
         if t["p"] > 1:

@@ -23,7 +23,7 @@ from crp_tpu_torch.config import SpmmConfig
 from crp_tpu_torch.engine.rowpara import RowParaSpmm
 from crp_tpu_torch.kernels import dispatch as td
 from crp_tpu_torch.kernels import spmm_halo as th
-from crp_tpu_torch.kernels.spmm_pallas import UnsupportedSparsity
+from crp_tpu_torch.kernels.spmm_pallas import UnsupportedSparsity, tf32_panels
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.csr import CSRMatrix
 from crp_tpu_torch.sparse.synth import banded_random_csr, fill_b, powerlaw_random_csr
@@ -68,11 +68,15 @@ def test_align_displs_matches_jax():
 @pytest.mark.parametrize("p", [2, 3, 4, 7])
 def test_halo_plan_matches_jax(p, dtype):
     """Panels (densified on the device) bit for bit, window starts, buffer
-    and B geometry, and every owner's push list in JAX's order."""
+    and B geometry, and every owner's push list in JAX's order.  On fp32
+    (``highest``) the plan holds the panels' TF32 planes, from whose big
+    plane JAX's fp32 panels come back exactly."""
     a = _banded(dtype, seed=60 + p, nrow=1800 + 97 * p)
     shards, aligned = _shards(a, p)
     jp = jh.build_halo_plan(shards, aligned, dtype=dtype)
     arrays, op = th.build_halo_plan(shards, aligned, device=CPU, dtype=dtype)
+    if dtype == np.float32:  # (ws, ws_rel, big, small, push, chunk_src)
+        arrays = (*arrays[:2], tf32_panels(arrays[2:4]), *arrays[4:])
     ws, ws_rel, panels, push, chunk_src = (x.numpy() for x in arrays)
     assert (op.G, op.W, op.buf_rows, op.min_b_rows) == (jp.G, jp.W, jp.buf_rows, jp.max_k)
     assert panels.dtype == jp.a_panels.dtype

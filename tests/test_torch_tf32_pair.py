@@ -1,18 +1,19 @@
-"""#3's and #4's ``highest`` packs hold the TF32 big/small planes, split
-once at init.
+"""Every fp32 ``highest`` panel pack holds the TF32 big/small planes, split
+once at init: #3's and #4's here, #12's and #6's also in
+``test_torch_tf32_planes_halo_ragged.py``.
 
 The ``wgmma`` body's TF32 mode (``csrc/x3_wgmma.cuh``, ``TF32X3``) is fed
 by TMA, which copies bytes, and the tensor cores read the top 19 bits of
-an fp32 shared-memory operand, a truncation.  So at ``highest`` the
-uniform packs of #3 and #4 densify fp32 straight to two planes of the
-operand bits the 3xTF32 split hands the tensor cores
-(``device_pack.tf32_operands``), where JAX keeps fp32 panels and splits on
-every read.  Here: the planes, whose top 19 bits are ``split_tf32`` of
-JAX's fp32 panels and from which those panels come back exactly; the plain
-versions on the planes equal those on the fp32 panels bit for bit; the 8
-GiB cap still prices fp32; a JAX pack is split on upload; #6's and #12's
-packs keep fp32 panels; the A/B tool's cases, edits and arguments; and
-which entries the TF32 mode serves.  The CUDA kernels are held against
+an fp32 shared-memory operand, a truncation.  So at ``highest`` the packs
+densify fp32 straight to two planes of the operand bits the 3xTF32 split
+hands the tensor cores (``device_pack.tf32_operands``), where JAX keeps
+fp32 panels and splits on every read.  Here: the planes, whose top 19 bits
+are ``split_tf32`` of JAX's fp32 panels and from which those panels come
+back exactly; the plain versions on the planes equal those on the fp32
+panels bit for bit; the 8 GiB cap still prices fp32; a JAX pack is split
+on upload; #6's and #12's packs hold the planes too; the A/B tool's
+cases, edits and arguments; and which entries the TF32 mode serves (all
+four: no ``mma.sync`` body is left).  The CUDA kernels are held against
 the plain versions in ``test_torch_cuda.py``.
 """
 
@@ -203,17 +204,24 @@ def test_jax_highest_packs_split_on_upload():
 
 
 def test_ragged_and_halo_highest_packs_stay_fp32():
-    """#6's ragged pack and #12's halo plan at ``highest`` keep JAX's fp32
-    panels (their kernels stay on the ``mma.sync`` 3xTF32 body, which
-    splits as it reads)."""
+    """#6's ragged pack and #12's halo plan at ``highest`` hold the TF32
+    planes too, no fp32 panel: two fp32 tensors of the panels' shape, big
+    and small (as #12's and #6's entries take them), from whose big plane
+    JAX's fp32 panels come back exactly; ``a_bytes`` twice those panels'."""
     from tests.tf32x3_emulation import _ragged_pack
 
     _, _, arrays, op = _ragged_pack(256, 128)
-    assert op.scheme == "full" and arrays[3].dtype == torch.float32  # (p, S, TM, Wc)
+    assert op.scheme == "tf32" and op.n_panels == 2
+    big, small = arrays[3:5]
+    assert big.dtype == small.dtype == torch.float32 and big.shape == small.shape  # (p, S, TM, Wc)
+    assert op.roofline["a_bytes"] == 2 * big.numel() * 4
     _, _, aligned, shards = _halo_case(4)
     jp = jh.build_halo_plan(shards, aligned, dtype=np.float32)
-    h_arrays, _ = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32)
-    assert torch.equal(_bits(h_arrays[2]), _bits(torch.from_numpy(jp.a_panels)))
+    h_arrays, h_op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32)
+    assert [t.shape for t in h_arrays[2:4]] == [jp.a_panels.shape] * 2
+    assert torch.equal(_bits(tsp.tf32_panels(h_arrays[2:4])),
+                       _bits(torch.from_numpy(jp.a_panels)))
+    assert h_op.roofline["a_bytes"] == 2 * jp.a_panels.nbytes
 
 
 def test_tf32_plane_views_refuse_other_fp32_panels():
@@ -237,21 +245,29 @@ def _smoke():
 
 def test_highest_ab_times_the_smoke_headline_and_edits_the_body():
     """``f64_ab --point highest`` packs the smoke's fp32 headline (#3 at p
-    = 1 ``auto``, #4 at p = 4 ``pallas``); its split copies put the TF32
-    consumers' products under ``TF32_NO_PRODUCTS`` and reuse
-    ``x3_feed_split``'s producer edits; its ring copy (the other design)
+    = 1 ``auto``, #4 at p = 4 ``pallas``, #12 at p = 4 ``auto``) and its
+    cplaw (#6 at p = 1 ``auto``); its split copies put the TF32 consumers'
+    products under ``TF32_NO_PRODUCTS`` and reuse ``x3_feed_split``'s
+    producer edits; its ring copy (the other design, #3 and #4 alone)
     loads one fp32 tile a stage, splits it in three splitter warps, and
     passes the fp32 panels as both planes, so it takes the panels where
-    this tree takes the planes."""
+    this tree takes the planes; this tree's four entries all take the
+    planes, and the smoke prints the previous body's time of each."""
     smoke = _smoke()
     gen, kw = f64_ab.HIGHEST_MATRICES["headline"]
     assert gen == "banded_random_csr"
     assert kw == dict(n=smoke.NROW, nnz_per_row=smoke.NNZ_PER_ROW,
                       bandwidth=smoke.BANDWIDTH, seed=smoke.SEED, dtype=np.float32)
+    gen, kw = f64_ab.HIGHEST_MATRICES["cplaw"]
+    assert gen == "powerlaw_community_csr" and kw == dict(smoke.CPLAW, dtype=np.float32)
     assert f64_ab.HIGHEST_CASES == {("headline", 1, "auto"): "crp_window_sg_f32",
                                     ("headline", smoke.MULTIRANK_P, "pallas"):
-                                        "crp_window_f32"}
-    assert {"headline highest", "headline p=4 highest"} <= set(smoke.PREVIOUS_MS)
+                                        "crp_window_f32",
+                                    ("headline", smoke.MULTIRANK_P, "auto"): "crp_halo_f32",
+                                    ("cplaw", 1, "auto"): "crp_ragged_f32"}
+    assert {"headline highest", "headline p=4 highest", "headline p=4 fused highest",
+            "cplaw highest"} <= set(smoke.PREVIOUS_MS)
+    assert f64_ab.takes_planes(_build.CSRC, {}) == set(f64_ab.HIGHEST_CASES.values())
     assert f64_ab.HIGHEST_TOL == smoke.TOL_PLAIN_FRO
     header = (_build.CSRC / "x3_wgmma.cuh").read_text()
     text = f64_ab.edited(header, f64_ab.X3_EDITS + f64_ab.TF32_EDITS, "test")
@@ -271,7 +287,10 @@ def test_highest_ab_times_the_smoke_headline_and_edits_the_body():
 
 def test_highest_ab_runner_passes_planes_or_panels():
     """``f64_ab.runner`` calls #3's and #4's fp32 entries with (ws, planes
-    or the fp32 panels, b, c) and the panels' G, TM, W and n; C in fp32."""
+    or the fp32 panels, b, c), #12's with (rows, ws, big, small or the fp32
+    panels, c) and rows16, #6's with (group_ptr, starts, big, small or the
+    fp32 panels, b, c), and the panels' G (all shards' for #12), TM, W and
+    n; C in fp32."""
     class Fn:
         def __call__(self, *args):
             self.args = args
@@ -296,26 +315,67 @@ def test_highest_ab_runner_passes_planes_or_panels():
             assert fn.args[1] == (planes if given is None else fp32).data_ptr()
             assert fn.args[nptr:nptr + 4] == (*fp32.shape, 24)
             assert c.dtype == torch.float32 and c.shape == (fp32.shape[0] * fp32.shape[1], 24)
+    from tests.tf32x3_emulation import _ragged_pack
+
+    _, _, aligned, h_shards = _halo_case(2)
+    h_arrays, h_op = th.build_halo_plan(h_shards, aligned, device=CPU, dtype=np.float32)
+    bs = torch.zeros((2, h_op.min_b_rows, 24))
+    _, _, r_arrays, r_op = _ragged_pack(256, 128)
+    cases = {"crp_halo_f32": (h_op, h_op.kernel_args(h_arrays, bs)),
+             "crp_ragged_f32": (r_op, r_op.kernel_args(tuple(x[0] for x in r_arrays),
+                                                       torch.zeros((r_op.min_b_rows, 24))))}
+    for name, (op, args) in cases.items():
+        big, small = f64_ab.planes_of(args)
+        fp32 = tsp.tf32_panels((big, small))
+        _, nptr, scalars = _build._ENTRIES[name]
+        for given, ptrs in ((None, (big, small)), (fp32, (fp32,))):
+            fn = Fn()
+            c = f64_ab.runner(fn, op, args, 7, given)()
+            assert fn.args[-1] == 7 and c.dtype == torch.float32
+            n_ptr = nptr - (given is not None)  # the fp32 panels: one pointer
+            assert len(fn.args) == n_ptr + len(scalars) + 1
+            k = 2  # after (rows, ws) or (group_ptr, starts)
+            assert fn.args[k:k + len(ptrs)] == tuple(t.data_ptr() for t in ptrs)
+            G = big.shape[0] * big.shape[1] if name == "crp_halo_f32" else args[1].shape[0] - 1
+            assert fn.args[n_ptr:n_ptr + 4] == (G, *big.shape[-2:], 24)
 
 
 def test_tf32_mode_serves_3_and_4_and_mma_sync_6_and_12():
-    """#3's and #4's fp32 entries launch the ``wgmma`` body's TF32 mode
-    (one instantiation) on the planes, the small one G*TM*W floats past
-    the big one; #6's and #12's stay on the ``mma.sync`` 3xTF32 body,
-    whose layout report only their libraries keep; the mode takes neither
-    walk."""
+    """The ``wgmma`` body's TF32 mode serves all four fp32 ``highest``
+    entries: #3's and #4's (one instantiation) on the planes, the small one
+    G*TM*W floats past the big one; #12's (the chunked walk, and with the
+    flags across processes) and #6's (the ragged walk) on the two planes
+    apart; every library with a TF32 entry reports its TF32 kernels, and
+    no ``mma.sync`` 3xTF32 body (``panel_tf32x3_kernel``,
+    ``launch_tf32x3``) is left anywhere under ``csrc/``."""
+    def body(src, name):
+        m = re.search(rf"\nint {name}\(.*?\n\{{\n(.*?)\n\}}\n", src, re.S)
+        assert m is not None, name
+        return " ".join(m.group(1).split())
+
     for stem, name in (("window_sg", "crp_window_sg_f32"), ("window", "crp_window_f32")):
         src = (_build.CSRC / f"{stem}.cu").read_text()
-        m = re.search(rf"\nint {name}\(.*?\n\{{\n(.*?)\n\}}\n", src, re.S)
-        assert m is not None
         assert ("launch_wgmma<crp::WgMode::TF32X3>(ws, big, big + G * TM * W, b, nullptr, c"
-                in m.group(1))
-        assert "launch_tf32x3" not in src and "crp_tf32x3_layout" not in src
+                in body(src, name))
         assert ", false, true>(out, len)" in src  # x3_layout with the TF32 ring
-    for stem in ("halo", "ragged"):
-        src = (_build.CSRC / f"{stem}.cu").read_text()
-        assert "launch_tf32x3<" in src and "crp_tf32x3_layout" in src
+    halo = (_build.CSRC / "halo.cu").read_text()
+    assert ("launch_wgmma<crp::WgMode::TF32X3, true>(ws, big, small, rows, nullptr, c,"
+            in body(halo, "crp_halo_f32"))
+    assert ("launch_wgmma<crp::WgMode::TF32X3, true, false, true>( ws, big, small, rows,"
+            in body(halo, "crp_halo_f32_flags"))
+    assert "x3_layout<false, true, false, true>(out, len)" in halo
+    ragged = (_build.CSRC / "ragged.cu").read_text()
+    assert ("launch_wgmma<crp::WgMode::TF32X3, false, true>( starts, big, small, b, nullptr,"
+            in body(ragged, "crp_ragged_f32"))
+    assert "x3_layout<false, false, true, true>(out, len)" in ragged
+    for src in _build.CSRC.iterdir():
+        text = src.read_text()
+        for gone in ("panel_tf32x3_kernel", "launch_tf32x3", "tf32x3_layout",
+                     "mma.sync.aligned.m16n8k8.row.col.f32.tf32"):
+            assert gone not in text, (src.name, gone)
     header = (_build.CSRC / "x3_wgmma.cuh").read_text()
     assert "enum class WgMode { SPLIT_B, PAIR_B, ONE_PASS, TF32X3 };" in header
-    assert 'static_assert(!(Ring::TF32 && (CHUNKED || RAGGED)), "TF32X3 serves #3 and #4");' \
-        in header
+    assert "Ring::TF32 && (CHUNKED || RAGGED)" not in header
+    assert not hasattr(_build, "tf32x3_layout")
+    assert [_build._ENTRIES[e][1] for e in ("crp_halo_f32", "crp_halo_f32_flags",
+                                            "crp_ragged_f32")] == [5, 6, 6]

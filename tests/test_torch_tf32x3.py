@@ -168,7 +168,8 @@ def test_emulated_halo_matches_jax_highest(devices8, p, n):
     shards, aligned = _halo_shards(a, p)
     arrays, op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32,
                                     precision="highest")
-    _, ws_rel, panels, push, _ = arrays
+    _, ws_rel, big, small, push, _ = arrays
+    panels = tf32_panels((big, small))  # the fp32 panels the TF32 planes were split from
     bs = np.zeros((p, op.min_b_rows, n), np.float32)
     for i in range(p):
         bs[i, : aligned[i + 1] - aligned[i]] = b[aligned[i]:aligned[i + 1]]

@@ -9,6 +9,7 @@ import torch
 
 from crp_tpu.kernels import spmm_ragged as js
 
+from crp_tpu_torch.kernels.spmm_pallas import tf32_panels
 from crp_tpu_torch.kernels.spmm_ragged import first_ptr, spmm_ragged_plain
 from tests.tf32x3_emulation import (
     TOL_FRO, TOL_MAX, _errors, _ragged_pack, one_pass_tf32, tf32x3_windows,
@@ -25,7 +26,8 @@ def test_emulated_ragged_matches_jax_highest(TM, Wc, n):
     plain version, shard by shard: within 1e-6 both ways; dummy chunks'
     groups and pad groups zero; one TF32 pass is not within it."""
     a, nrows, arrays, op = _ragged_pack(TM, Wc)
-    step_g, step_first, starts, panels = arrays[:4]
+    step_g, step_first, starts = arrays[:3]
+    panels = tf32_panels(arrays[3:5])  # the fp32 panels the pack's TF32 planes hold
     group_ptr = arrays[-1]
     S = panels.shape[1]
     assert int(group_ptr[0, -1]) < S  # the first shard's trailing no-op steps

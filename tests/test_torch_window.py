@@ -79,13 +79,21 @@ def _highest_fp32(shards, max_m):
 
 
 def _fp32_panels_engine(eng):
-    """An engine at ``highest`` whose #4 holds TF32 planes, made to hold the
-    fp32 panels they were split from instead (so that its op's plain
-    version runs them at another point); returns it."""
+    """An engine at ``highest`` whose #4 or #12 holds TF32 planes, made to
+    hold the fp32 panels they were split from instead (so that its op's
+    plain version runs them at another point); returns it."""
     op = eng._local_op
     if getattr(op, "scheme", None) == "window_tf32":
         eng.packed_1 = tf32_panels(eng.packed_1.transpose(0, 1))
         op.scheme = "window"
+    if op.variant == "halo" and eng.packed_2.dtype == torch.float32:
+        # (ws, ws_rel, big, small, push, chunk_src) -> (ws, ws_rel, panels, ...)
+        packed = list(eng.packed)
+        packed[2:4] = [tf32_panels(packed[2:4])]
+        for i, x in enumerate(packed):
+            setattr(eng, f"packed_{i}", x)
+        delattr(eng, f"packed_{len(packed)}")
+        eng._n_packed = len(packed)
     return eng
 
 

@@ -28,6 +28,7 @@ from crp_tpu_torch.kernels import dispatch as td
 from crp_tpu_torch.kernels import spmm_halo as th
 from crp_tpu_torch.kernels import spmm_pallas as tsp
 from crp_tpu_torch.kernels.device_pack import split_bf16
+from crp_tpu_torch.kernels.spmm_pallas import tf32_panels
 from crp_tpu_torch.plan.partition1d import csr_row_partition
 from crp_tpu_torch.sparse.synth import banded_random_csr, fill_b
 from tests.test_torch_window import _bits, _fp32_panels_engine, _highest_fp32, _shards
@@ -44,6 +45,17 @@ def _halo_case(p, seed=60):
     return a, d, aligned, shards
 
 
+def _highest_fp32_halo(shards, aligned):
+    """#12's plan at ``highest`` with its TF32 planes turned back into the
+    fp32 panels they were split from (JAX's ``a_panels``, bit for bit),
+    ``(ws, ws_rel, panels, push, chunk_src)``, and its op, ``a_bytes``
+    those panels' bytes: the fp32 panels that the other points are held
+    against."""
+    arrays, op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32)
+    op.roofline["a_bytes"] //= 2
+    return (*arrays[:2], tf32_panels(arrays[2:4]), *arrays[4:]), op
+
+
 @pytest.mark.parametrize("p", [2, 3, 4, 7])
 def test_halo_x3_pair_is_split_of_jax_panels(p):
     """``build_halo_plan`` at x3: (ws, ws_rel, ah, al, push, chunk_src),
@@ -54,7 +66,7 @@ def test_halo_x3_pair_is_split_of_jax_panels(p):
     jp = jh.build_halo_plan(shards, aligned, dtype=np.float32)
     arrays, op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32,
                                     precision="x3")
-    f_arrays, f_op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32)
+    f_arrays, f_op = _highest_fp32_halo(shards, aligned)
     assert len(arrays) == 6 and len(f_arrays) == 5
     ws, ws_rel, ah, al, push, chunk_src = arrays
     want = split_bf16(torch.from_numpy(jp.a_panels), with_lo=True)
@@ -100,7 +112,7 @@ def test_halo_pair_plain_equals_fp32_plain(p, n):
     a, _, aligned, shards = _halo_case(p, seed=70)
     arrays, op = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32,
                                     precision="x3")
-    f_arrays, _ = th.build_halo_plan(shards, aligned, device=CPU, dtype=np.float32)
+    f_arrays, _ = _highest_fp32_halo(shards, aligned)
     b = fill_b(0, a.ncol, 0, n, dtype=np.float32)
     bs = np.zeros((p, op.min_b_rows, n), np.float32)
     for i in range(p):

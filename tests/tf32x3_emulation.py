@@ -80,23 +80,33 @@ def _errors(want, got):
             rel_fro_err(want, got))
 
 
-def _ragged_pack(TM, Wc, prec="highest"):
-    """Two shards of a community power-law graph packed ragged at ``prec``
-    (fp32 panels at highest, the bf16 pair at x3, bf16 panels at
-    default): hub groups of many chunks, a band of empty groups and groups
-    whose nonzeros all spill (dummy chunks at start 0), the first shard's
-    trailing no-op steps, pad groups."""
+RAGGED_CUT = 3000  # the first shard's rows
+RAGGED_MIN_NNZ = 40  # the packs' break-even: groups whose nonzeros all spill
+
+
+def _ragged_case(TM):
+    """The two shards of :func:`_ragged_pack`, ``(a, shards, max_m)``: a
+    community power-law graph with a band of empty rows."""
     a = powerlaw_community_csr(8000, 16, 1024, seed=5, dtype=np.float32)
     rows = np.repeat(np.arange(a.nrow), np.diff(a.rowptr))
     keep = (rows < 2000) | (rows >= 2000 + 2 * TM)
     a = CSRMatrix.from_coo(a.nrow, a.ncol, rows[keep], a.colidx[keep], a.val[keep],
                            dtype=np.float32)
-    cut = 3000
     shards = [(s.rowptr, s.colidx.astype(np.int32), s.val)
-              for s in (a.row_slice(0, cut), a.row_slice(cut, a.nrow))]
-    arrays, op = td._pack_ragged(shards, a.nrow - cut + 300, np.float32, prec, CPU,
-                                 geometry=(TM, Wc), min_chunk_nnz=40,
+              for s in (a.row_slice(0, RAGGED_CUT), a.row_slice(RAGGED_CUT, a.nrow))]
+    return a, shards, a.nrow - RAGGED_CUT + 300
+
+
+def _ragged_pack(TM, Wc, prec="highest"):
+    """Two shards of a community power-law graph packed ragged at ``prec``
+    (the TF32 planes (big, small) at highest, the bf16 pair at x3, bf16
+    panels at default): hub groups of many chunks, a band of empty groups
+    and groups whose nonzeros all spill (dummy chunks at start 0), the
+    first shard's trailing no-op steps, pad groups."""
+    a, shards, max_m = _ragged_case(TM)
+    arrays, op = td._pack_ragged(shards, max_m, np.float32, prec, CPU,
+                                 geometry=(TM, Wc), min_chunk_nnz=RAGGED_MIN_NNZ,
                                  spill_impl="segsum")
-    scheme = {"highest": "full", "x3": "x3", "default": "bf16"}[prec]
+    scheme = {"highest": "tf32", "x3": "x3", "default": "bf16"}[prec]
     assert op.scheme == scheme and op.roofline["spill_nnz"] > 0
-    return a, (cut, a.nrow - cut), arrays, op
+    return a, (RAGGED_CUT, a.nrow - RAGGED_CUT), arrays, op
