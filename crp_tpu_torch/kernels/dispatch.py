@@ -684,7 +684,13 @@ def _pack_uniform_single_full(shard, max_m, dtype, mxu_precision, device):
 
 
 RAGGED_MIN_PCT = 30  # the JAX default of CRP_TPU_RAGGED_MIN_PCT
-SPILL_IMPLS = ("auto", "segsum", "pallas")
+SPILL_IMPLS = ("auto", "segsum", "clip", "twopass", "pallas")
+# JAX's "clip" (the columns clamped before the gather) and "twopass" (B's
+# unique spilled rows gathered once into a temp) are other XLA orders of
+# the segsum sum, for the TPU: on the H100 neither beats segsum and both
+# give its C bit for bit (PERF.md, ``python -m crp_tpu_torch.cli.spill_forms``),
+# so both pack and run as segsum
+SEGSUM_FORMS = ("segsum", "clip", "twopass")
 
 
 def _check_keep_share(mxu_nnz: int, nnz: int) -> None:
@@ -858,10 +864,12 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     its defaults: ``geometry`` (TM, Wc) (``CRP_TPU_RAGGED_TM``/``_WC``; None:
     the model picks, on the largest shard), ``min_chunk_nnz``
     (``CRP_TPU_RAGGED_MIN_NNZ``; None: the break-even model), ``spill_impl``
-    (``CRP_TPU_SPILL_IMPL``: "auto", "segsum" or "pallas"), ``TMo``/``Q``
-    (``CRP_TPU_SPILL_TMO``/``_Q``).  "auto" takes the fused spill kernel
-    for a dense spill (the largest shard spill Z at least one nnz per
-    output row) of an fp32 pack on a CUDA device, and ``segsum`` otherwise.
+    (``CRP_TPU_SPILL_IMPL``: "auto", "segsum", "clip", "twopass" or
+    "pallas"), ``TMo``/``Q`` (``CRP_TPU_SPILL_TMO``/``_Q``).  "auto" takes
+    the fused spill kernel for a dense spill (the largest shard spill Z at
+    least one nnz per output row) of an fp32 pack on a CUDA device, and
+    ``segsum`` otherwise; "clip" and "twopass" pack and run as ``segsum``
+    (:data:`SEGSUM_FORMS`), and "pallas" on an fp64 pack falls back to it.
     Shards share (TM, Wc), the group count G and the step count S (dummy
     chunks and trailing no-op steps); every shard's spill arrays are padded
     to Z (``segsum``) or to the largest step count (``pallas``), and its
@@ -957,7 +965,7 @@ def _pack_ragged(shards, max_m, dtype, mxu_precision, device, *, geometry=None,
     mxu_nnz = total_nnz - spill_nnz
     _check_keep_share(mxu_nnz, total_nnz)
 
-    sp_impl = spill_impl if Z else "segsum"
+    sp_impl = "segsum" if not Z or spill_impl in SEGSUM_FORMS else spill_impl
     if sp_impl == "auto":
         # the fused kernel passes over every output block (the C pass-through):
         # worth it only for a dense spill
@@ -1177,7 +1185,9 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cuda",
     roofline's bytes their own; for
     ``variant="ragged"`` the ragged pack's (step_g, step_first, starts,
     *panels, *spill), to which the step ranges the CUDA kernels read are
-    appended (and, for the fused spill, its row-ordered view); for ``variant="gather"`` the gather pack's (rel,
+    appended (and, for the fused spill, its row-ordered view; the
+    ``clip`` and ``twopass`` spills upload as ``segsum``'s three arrays,
+    which they equal); for ``variant="gather"`` the gather pack's (rel,
     cols, vals, first, blk), plus the row-ordered view, its output rows and operating point read from ``roofline`` (G blocks
     of TM rows, passes); for ``variant="dd_mxu"`` the dd_mxu pack's (step_g,
     step_first, starts, mu, slices), whose fp64 panels are rebuilt as
@@ -1215,7 +1225,16 @@ def local_op_from_jax_pack(arrays, min_b_rows: int, device="cuda",
             tensors = (*tensors[:3], *planes, *tensors[4:])
             roofline.update(a_bytes=2 * planes[0].numel() * 4)
             scheme = "tf32"
-        spill_impl = {0: "none", 3: "segsum", 5: "pallas"}[n_sp]
+        # JAX's clip pack holds segsum's three arrays, its twopass pack four
+        # (rows, inv, vals, uniq): uniq[inv] gives segsum's columns back
+        spill_impl = {0: "none", 3: "segsum", 4: "segsum", 5: "pallas"}[n_sp]
+        if n_sp == 4:
+            rows, inv, vals, uniq = arrays[-4:]
+            cols = np.take_along_axis(np.asarray(uniq), np.asarray(inv), axis=1)
+            cols[np.asarray(rows) >= roofline["G"] * roofline["TM"]] = 0  # segsum's pads
+            tensors = (*tensors[:-3], torch.from_numpy(cols).to(device), tensors[-2])
+        if n_sp:
+            roofline["spill_impl"] = spill_impl  # what runs
         tensors += (_ptrs(arrays[1], device),)
         TMo = 0
         if spill_impl == "pallas":  # every output block has a first step

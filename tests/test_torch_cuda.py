@@ -1044,6 +1044,33 @@ def test_multi_shard_ragged_engine_on_card(cuda_device, prec, dtype, tol_ref):
     assert rel_fro_err(cpu.exec(b).astype(np.float64), c_gpu) <= tol_ref
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_spill_forms_equal_segsum_on_card(cuda_device, dtype):
+    """A small power-law ragged pack on the card with each of JAX's
+    plain spill forms: ``clip`` and ``twopass`` pack and run as ``segsum``
+    and give its C bit for bit, a second call equals the first, and the C
+    lies within the point's class of the reference."""
+    a = powerlaw_community_csr(24000, 16, 1024, seed=99, dtype=dtype)
+    shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
+    b = fill_b(0, a.ncol, 0, 64, dtype=dtype)
+    got = {}
+    for spill in ("segsum", "clip", "twopass"):
+        arrays, op = _pack_ragged(shard, a.nrow, dtype, "highest", cuda_device,
+                                  geometry=(256, 256), min_chunk_nnz=60,
+                                  spill_impl=spill)
+        assert op.spill_impl == "segsum" and op.roofline["spill_nnz"] > 0
+        rB = torch.from_numpy(_b(a, max(op.min_b_rows, a.ncol), 64, dtype)).to(cuda_device)
+        arrs = tuple(x[0] for x in arrays)
+        c1, c2 = op(arrs, rB), op(arrs, rB)
+        assert _bits_equal(c1, c2)
+        got[spill] = c1[: a.nrow]
+    assert _bits_equal(got["clip"], got["segsum"])
+    assert _bits_equal(got["twopass"], got["segsum"])
+    ref = a.spmm_ref(b.astype(np.float64))
+    assert rel_fro_err(ref, got["segsum"].double().cpu().numpy()) <= (
+        1e-12 if dtype == np.float64 else 1e-6)
+
+
 @pytest.mark.parametrize("p", [2, 4])
 def test_multi_shard_dd_mxu(cuda_device, p):
     """dd_mxu over p shards: the FP64 tensor-core kernel against its plain

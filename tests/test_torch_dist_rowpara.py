@@ -157,6 +157,12 @@ RANK_PACKS = {
     "ragged-segsum-spill": (_PLAW, np.float32, 1, lambda s, m, dt, r: td._pack_ragged(
         s, m, dt, "x3", CPU, geometry=(128, 256), min_chunk_nnz=40, spill_impl="segsum",
         rank=r)),
+    "ragged-twopass-spill": (_PLAW, np.float64, 1, lambda s, m, dt, r: td._pack_ragged(
+        s, m, dt, "highest", CPU, geometry=(128, 256), min_chunk_nnz=40,
+        spill_impl="twopass", rank=r)),
+    "ragged-clip-spill": (_PLAW, np.float32, 2, lambda s, m, dt, r: td._pack_ragged(
+        s, m, dt, "x3", CPU, geometry=(128, 256), min_chunk_nnz=40, spill_impl="clip",
+        rank=r)),
     "ragged-pallas-spill": (_PLAW, np.float32, 1, lambda s, m, dt, r: td._pack_ragged(
         s, m, dt, "default", CPU, geometry=(128, 256), min_chunk_nnz=40,
         spill_impl="pallas", rank=r)),

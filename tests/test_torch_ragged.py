@@ -219,6 +219,7 @@ def _as_jax_pack(t_arrays, op):
 
 def _assert_same_ragged_pack(j_arrays, j_fn, t_arrays, op):
     t_arrays, roofline = _as_jax_pack(t_arrays, op)
+    j_arrays, j_roofline = _jax_as_segsum(j_arrays, j_fn)
     # group_ptr; for the fused spill its row-ordered view (4)
     n_extra = 5 if op.spill_impl == "pallas" else 1
     assert len(t_arrays) == len(j_arrays) + n_extra
@@ -232,7 +233,7 @@ def _assert_same_ragged_pack(j_arrays, j_fn, t_arrays, op):
         M = op.roofline["G"] * op.roofline["TM"]
         assert op.spill_tmo == M // int(np.asarray(j_arrays[-2][0]).sum())
     assert op.min_b_rows == j_fn.min_b_rows
-    assert roofline == j_fn.roofline
+    assert roofline == j_roofline
     assert op.variant == j_fn.variant == "ragged"
 
 
@@ -240,8 +241,36 @@ POINTS = [("x3", np.float32), ("default", np.float32), ("highest", np.float32),
           ("highest", np.float64)]
 
 
+SPILLS = ["segsum", "pallas", "clip", "twopass"]
+
+
+def _resolved(spill, dtype):
+    """The spill form a pack of ``dtype`` takes for ``spill``: ``clip`` and
+    ``twopass`` are ``segsum`` in the port, the fused spill is fp32-only,
+    and fp64 ``pallas`` falls back to ``segsum``."""
+    return "pallas" if spill == "pallas" and dtype == np.float32 else "segsum"
+
+
+def _jax_as_segsum(j_arrays, j_fn):
+    """A JAX ragged pack whose spill is ``clip`` or ``twopass`` as the
+    ``segsum`` pack the port makes for it: ``clip`` holds segsum's arrays,
+    ``twopass`` (rows, inv, vals, uniq), from which ``uniq[inv]`` gives
+    the columns back (segsum's pads are column 0)."""
+    roofline = dict(j_fn.roofline)
+    if roofline["spill_impl"] not in ("clip", "twopass"):
+        return list(j_arrays), roofline
+    j_arrays = list(j_arrays)
+    if roofline["spill_impl"] == "twopass":
+        rows, inv, vals, uniq = (np.asarray(x) for x in j_arrays[-4:])
+        cols = np.take_along_axis(uniq, inv, axis=1)
+        cols[rows >= roofline["G"] * roofline["TM"]] = 0
+        j_arrays[-4:] = [rows, cols, vals]
+    roofline["spill_impl"] = "segsum"
+    return j_arrays, roofline
+
+
 @pytest.mark.parametrize("prec,dtype", POINTS)
-@pytest.mark.parametrize("spill", ["segsum", "pallas"])
+@pytest.mark.parametrize("spill", SPILLS)
 @pytest.mark.parametrize("gen", ["plaw", "multiband", "trailing_empty"])
 def test_ragged_pack_matches_jax(no_knobs, prec, dtype, spill, gen):
     """The port's pack equals JAX's pack_local_kernel(..., "ragged") bit for
@@ -260,12 +289,11 @@ def test_ragged_pack_matches_jax(no_knobs, prec, dtype, spill, gen):
                                    spill_impl=spill)
     assert op.roofline["spill_nnz"] > 0
     _assert_same_ragged_pack(j_arrays, j_fn, t_arrays, op)
-    assert op.spill_impl == ("pallas" if spill == "pallas" and dtype == np.float32
-                             else "segsum")
+    assert op.spill_impl == op.roofline["spill_impl"] == _resolved(spill, dtype)
 
 
 @pytest.mark.parametrize("prec,dtype", POINTS)
-@pytest.mark.parametrize("spill", ["segsum", "pallas"])
+@pytest.mark.parametrize("spill", SPILLS)
 @pytest.mark.parametrize("p", [2, 4])
 def test_multi_shard_ragged_pack_matches_jax(no_knobs, prec, dtype, spill, p):
     """p shards (one empty) pack as JAX's multi-shard ragged pack, bit for
@@ -291,13 +319,14 @@ def test_multi_shard_ragged_pack_matches_jax(no_knobs, prec, dtype, spill, p):
                                    geometry=(128, 256), min_chunk_nnz=120,
                                    spill_impl=spill)
     t_arrays, roofline = _as_jax_pack(t_arrays, op)
+    j_arrays, j_roofline = _jax_as_segsum(j_arrays, j_fn)
     n_extra = 5 if op.spill_impl == "pallas" else 1  # + the spill's view
     assert len(t_arrays) == len(j_arrays) + n_extra
     for t, j in zip(t_arrays, j_arrays):
         tb, jb = _bits(t), _bits(j)
         assert tb.dtype == jb.dtype and tb.shape == jb.shape
         np.testing.assert_array_equal(tb, jb)
-    assert (op.min_b_rows, roofline) == (j_fn.min_b_rows, j_fn.roofline)
+    assert (op.min_b_rows, roofline) == (j_fn.min_b_rows, j_roofline)
     S = j_arrays[0].shape[1]
     if n_extra == 5:  # the spill's TMo: one first step a block, in every shard
         M = op.roofline["G"] * op.roofline["TM"]
@@ -354,8 +383,8 @@ def test_ragged_refuses_thin_covers():
     with pytest.raises(UnsupportedSparsity, match="30%"):
         td._pack_ragged(shard, a.nrow, np.float32, "x3", CPU,
                         geometry=(128, 128), min_chunk_nnz=10_000)
-    with pytest.raises(ValueError, match="spill_impl"):
-        td._pack_ragged(shard, a.nrow, np.float32, "x3", CPU, spill_impl="clip")
+    with pytest.raises(ValueError, match="spill_impl"):  # a typo must raise
+        td._pack_ragged(shard, a.nrow, np.float32, "x3", CPU, spill_impl="palas")
 
 
 @pytest.mark.parametrize("TM,Wc", [(128, 256), (256, 128), (512, 512)])
@@ -424,6 +453,140 @@ def test_local_op_from_jax_pack_feeds_both(no_knobs):
     c = op(tuple(x[0] for x in tensors), torch.from_numpy(b)).numpy()
     cj = np.asarray(j_fn(tuple(jnp.asarray(x[0]) for x in j_arrays), jnp.asarray(b)))
     assert rel_fro_err(cj.astype(np.float64), c) <= 1e-6
+
+
+def _jax_arrays(j_arrays):
+    """A JAX pack's arrays as numpy, bf16 ones as their bits."""
+    return [np.asarray(x).view(np.uint16) if np.asarray(x).dtype.name == "bfloat16"
+            else np.asarray(x) for x in j_arrays]
+
+
+@pytest.mark.parametrize("spill", ["clip", "twopass"])
+@pytest.mark.parametrize("prec,dtype", [("x3", np.float32), ("highest", np.float64)])
+def test_local_op_from_jax_pack_spill_forms(no_knobs, spill, prec, dtype):
+    """A JAX ragged pack built with the ``clip`` or ``twopass`` spill
+    uploads (a ``twopass`` pack's four spill arrays once raised ``KeyError:
+    4``) as the ``segsum`` pack the port makes for the same form, bit for
+    bit, and gives JAX's C, with or without the roofline's form."""
+    for k, v in (("TM", "128"), ("WC", "256"), ("MIN_NNZ", "120")):
+        no_knobs.setenv(f"CRP_TPU_RAGGED_{k}", v)
+    no_knobs.setenv("CRP_TPU_SPILL_IMPL", spill)
+    a = powerlaw_random_csr(2000, avg_degree=12, seed=3, dtype=dtype)
+    shard = [(a.rowptr, a.colidx.astype(np.int32), a.val)]
+    j_arrays, j_fn = jd.pack_local_kernel(shard, a.nrow, dtype, "ragged",
+                                          mxu_precision=prec)
+    assert j_fn.roofline["spill_impl"] == spill and j_fn.roofline["spill_nnz"] > 0
+    b = np.random.default_rng(1).standard_normal((j_fn.min_b_rows, 16)).astype(dtype)
+    cj = np.asarray(j_fn(tuple(jnp.asarray(x[0]) for x in j_arrays), jnp.asarray(b)))
+    uploads, c = [], None
+    for roofline in (j_fn.roofline,
+                     {k: v for k, v in j_fn.roofline.items() if k != "spill_impl"}):
+        tensors, op = td.local_op_from_jax_pack(_jax_arrays(j_arrays), j_fn.min_b_rows,
+                                                device="cpu", roofline=roofline,
+                                                variant="ragged")
+        assert (op.spill_impl, op.roofline["spill_impl"], op.mxu_precision) == (
+            "segsum", "segsum", prec)
+        got = op(tuple(x[0] for x in tensors), torch.from_numpy(b))
+        assert c is None or torch.equal(got, c)
+        uploads.append(tensors)
+        c = got
+    assert rel_fro_err(cj.astype(np.float64), c.numpy()) <= (
+        1e-12 if dtype == np.float64 else 1e-6)
+    t_arrays, t_op = td._pack_ragged(shard, a.nrow, dtype, prec, CPU,
+                                     geometry=(128, 256), min_chunk_nnz=120,
+                                     spill_impl=spill)
+    assert t_op.spill_impl == t_op.roofline["spill_impl"] == "segsum"
+    for tensors in uploads:
+        assert len(tensors) == len(t_arrays)
+        for x, y in zip(tensors, t_arrays):
+            np.testing.assert_array_equal(_bits(x), _bits(y))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("p", [1, 3])
+def test_spill_forms_give_segsum_bits(dtype, p):
+    """The ``clip`` and ``twopass`` packs are the ``segsum`` pack bit for
+    bit and give its C, at p = 1 and on three shards of which the middle
+    one is empty, each shard's C within its class of the reference."""
+    a = CORPUS["cplaw"]()
+    a = CSRMatrix(a.nrow, a.ncol, a.rowptr, a.colidx, a.val.astype(dtype))
+    d = np.linspace(0, a.nrow, p + 1).astype(np.int64)
+    shards = []
+    for i in range(p):
+        sh = a.row_slice(int(d[i]), int(d[i + 1]))
+        keep = sh.nnz if (p == 1 or i != 1) else 0
+        shards.append((sh.rowptr if keep else np.zeros(sh.nrow + 1, np.int64),
+                       sh.colidx[:keep].astype(np.int32), sh.val[:keep].astype(dtype)))
+    max_m = int(np.diff(d).max()) + 300
+    b = np.random.default_rng(4).standard_normal((a.ncol + 256, 24)).astype(dtype)
+    packs, got = {}, {}
+    for spill in ("segsum", "clip", "twopass"):
+        arrays, op = td._pack_ragged(shards, max_m, dtype, "highest", CPU,
+                                     geometry=(128, 256), min_chunk_nnz=120,
+                                     spill_impl=spill)
+        assert op.spill_impl == op.roofline["spill_impl"] == "segsum"
+        assert op.roofline["spill_nnz"] > 0
+        rB = torch.from_numpy(b[: max(op.min_b_rows, a.ncol)])
+        packs[spill] = arrays
+        got[spill] = [op(tuple(x[i] for x in arrays), rB) for i in range(p)]
+    for spill in ("clip", "twopass"):
+        assert len(packs[spill]) == len(packs["segsum"])
+        for x, y in zip(packs[spill], packs["segsum"]):
+            np.testing.assert_array_equal(_bits(x), _bits(y))
+        for x, y in zip(got[spill], got["segsum"]):
+            assert torch.equal(x, y)
+    ref = a.spmm_ref(b[: a.ncol].astype(np.float64))
+    for i, x in enumerate(got["segsum"]):
+        c = x[: int(d[i + 1] - d[i])].numpy()
+        if shards[i][1].size:
+            assert rel_fro_err(ref[d[i] : d[i + 1]], c) <= (
+                1e-12 if dtype == np.float64 else 1e-6)
+        else:  # the empty shard: dummy chunks of zero panels, no spill
+            assert not c.any()
+
+
+@pytest.mark.parametrize("impl,dtype,tol", [
+    ("segsum", np.float64, 1e-12),
+    ("clip", np.float64, 1e-12),
+    ("twopass", np.float64, 1e-12),
+    ("pallas", np.float32, 1e-5),
+])
+def test_spill_impl_variants_match_jax(no_knobs, devices8, monkeypatch, impl, dtype, tol):
+    """JAX's ``test_spill_impl_variants`` (``tests/test_ragged.py``) for
+    the port: every spill form through ``RowParaSpmm`` at p = 3 (the
+    port's ragged pack patched to the knobs' geometry, break-even and
+    form), against JAX's engine under the same environment knobs: the
+    same spilled nonzeros and C (1e-12 in fp64, 1e-6 in fp32), each
+    within its class of the reference."""
+    from crp_tpu.config import SpmmConfig as JaxConfig
+    from crp_tpu.engine.rowpara import RowParaSpmm as JaxRowPara
+    from crp_tpu.plan.partition1d import csr_row_partition
+    from crp_tpu.shard.layout import make_mesh_1d
+
+    from crp_tpu_torch.config import SpmmConfig
+    from crp_tpu_torch.engine.rowpara import RowParaSpmm
+
+    no_knobs.setenv("CRP_TPU_SPILL_IMPL", impl)
+    for k, v in (("TM", "128"), ("WC", "256"), ("MIN_NNZ", "40")):
+        no_knobs.setenv(f"CRP_TPU_RAGGED_{k}", v)
+    orig = td._pack_ragged
+    monkeypatch.setattr(td, "_pack_ragged", lambda *args, **k: orig(
+        *args, **{**k, "geometry": (128, 256), "min_chunk_nnz": 40, "spill_impl": impl}))
+    a = powerlaw_random_csr(2500, avg_degree=13, seed=4)
+    displs = csr_row_partition(a.rowptr, 3)
+    j = JaxRowPara(a, displs, displs, 24, mesh=make_mesh_1d(3, devices=devices8[:3]),
+                   config=JaxConfig(kernel="ragged"), dtype=dtype)
+    t = RowParaSpmm(a, displs, displs, 24, device="cpu",
+                    config=SpmmConfig(kernel="ragged"), dtype=dtype)
+    op = t._local_op
+    assert j._local_fn.roofline["spill_impl"] == impl
+    assert op.spill_impl == op.roofline["spill_impl"] == _resolved(impl, dtype)
+    assert op.roofline["spill_nnz"] == j._local_fn.roofline["spill_nnz"] > 0
+    b = np.random.default_rng(3).standard_normal((a.ncol, 24)).astype(dtype)
+    cj, ct = j.exec(b), t.exec(b)
+    assert rel_fro_err(a.spmm_ref(b), ct) <= tol
+    assert rel_fro_err(cj.astype(np.float64), ct) <= (
+        1e-12 if dtype == np.float64 else 1e-6)
 
 
 # --------------------------------------------- plain versions vs Pallas
